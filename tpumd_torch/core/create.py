@@ -1,0 +1,56 @@
+"""create_atoms: fill a region with lattice atoms (host-side, setup time).
+
+Mirrors CreateAtoms::add_lattice (src/create_atoms.cpp:1294-1340): iterate
+unit cells (k, j, i) with all basis atoms per cell, transform to box coords,
+keep atoms that match the region and fall inside the box with
+lower-inclusive / upper-exclusive ownership bounds.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from tpumd_torch.core.lattice import Lattice
+from tpumd_torch.core.region import Region
+
+
+def create_atoms_lattice(
+    lattice: Lattice,
+    region: Region | None,
+    box_lo: np.ndarray,
+    box_hi: np.ndarray,
+    type_id: int = 1,
+    fill_box: bool = True,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Returns (positions (N,3) float64, types (N,) int32) in creation order."""
+    box_lo = np.asarray(box_lo, dtype=np.float64)
+    box_hi = np.asarray(box_hi, dtype=np.float64)
+
+    # loop bounds: lattice-space bounding box of the target volume
+    if region is not None and not fill_box:
+        tlo, thi = region.bounding_box()
+        tlo = np.maximum(tlo, box_lo)
+        thi = np.minimum(thi, box_hi)
+    else:
+        tlo, thi = box_lo, box_hi
+    lat_lo = tlo / lattice.scale
+    lat_hi = thi / lattice.scale
+    ilo = np.floor(lat_lo).astype(int) - 1
+    ihi = np.floor(lat_hi).astype(int) + 1
+
+    ks = np.arange(ilo[2], ihi[2] + 1)
+    js = np.arange(ilo[1], ihi[1] + 1)
+    is_ = np.arange(ilo[0], ihi[0] + 1)
+    nb = lattice.nbasis
+    # (k, j, i, m) nesting with m fastest, matching the reference loop order
+    kk, jj, ii, mm = np.meshgrid(ks, js, is_, np.arange(nb), indexing="ij")
+    cells = np.stack([ii.ravel(), jj.ravel(), kk.ravel()], axis=1).astype(np.float64)
+    basis = lattice.basis[mm.ravel()]
+    pts = lattice.lattice2box(cells + basis)
+
+    keep = np.all((pts >= box_lo) & (pts < box_hi), axis=1)
+    if region is not None:
+        keep &= region.inside(pts)
+    pts = pts[keep]
+    types = np.full(pts.shape[0], type_id, dtype=np.int32)
+    return pts, types

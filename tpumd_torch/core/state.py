@@ -1,0 +1,115 @@
+"""Core simulation state: the box and the per-atom arrays as torch tensors.
+
+PyTorch counterpart of tpumd/core/state.py (the reference's Atom/Domain
+data model, src/atom.h, src/domain.h) for the orthogonal periodic box of
+the LJ-melt slice.  Plain dataclasses of tensors; every tensor lives on
+the device and in the float dtype the caller passes.  Per-atom arrays are
+padded to a fixed capacity; padded slots carry tag 0 and type 0.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Box:
+    """Orthogonal box, periodic along all three axes (the cell grid's
+    stencil wraps every axis): lo, hi are (3,) tensors on the device."""
+
+    lo: torch.Tensor
+    hi: torch.Tensor
+
+    @functools.cached_property
+    def lengths(self) -> torch.Tensor:
+        # computed once per box: the force kernel reads it every step
+        return self.hi - self.lo
+
+    @property
+    def volume(self) -> torch.Tensor:
+        ell = self.lengths
+        return ell[0] * ell[1] * ell[2]
+
+    @staticmethod
+    def orthogonal(lo, hi, *, device, dtype):
+        return Box(lo=torch.as_tensor(np.asarray(lo), dtype=dtype,
+                                      device=device),
+                   hi=torch.as_tensor(np.asarray(hi), dtype=dtype,
+                                      device=device))
+
+    def lengths_np(self) -> np.ndarray:
+        """Box lengths on the host, as float64 (setup-time decisions)."""
+        return self.lengths.detach().cpu().numpy().astype(np.float64)
+
+
+@dataclasses.dataclass(frozen=True)
+class MDState:
+    """Per-atom dynamical state + box (the fields the LJ slice uses)."""
+
+    x: torch.Tensor       # (N, 3) positions
+    v: torch.Tensor       # (N, 3) velocities
+    f: torch.Tensor       # (N, 3) forces
+    type: torch.Tensor    # (N,) int32, 1-based type ids (0 = padding)
+    tag: torch.Tensor     # (N,) int32 global atom ids (1-based; 0 = padding)
+    image: torch.Tensor   # (N, 3) int32 periodic image flags
+    box: Box
+
+    @property
+    def capacity(self) -> int:
+        return self.x.shape[0]
+
+    def replace(self, **kw) -> "MDState":
+        return dataclasses.replace(self, **kw)
+
+
+# every per-atom field of MDState (for generic permute/pad/compact)
+PER_ATOM_FIELDS = ("x", "v", "f", "type", "tag", "image")
+
+
+def map_per_atom(state: MDState, fn) -> MDState:
+    """Apply fn(tensor) to every per-atom field."""
+    return state.replace(**{k: fn(getattr(state, k))
+                            for k in PER_ATOM_FIELDS})
+
+
+def make_state(x, v, types, box: Box, *, tags=None, image=None,
+               device, dtype) -> MDState:
+    """Build an MDState from host arrays (no padding)."""
+    n = x.shape[0]
+    if tags is None:
+        tags = np.arange(1, n + 1, dtype=np.int32)
+    if image is None:
+        image = np.zeros((n, 3), np.int32)
+
+    def ints(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    xt = torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    return MDState(
+        x=xt,
+        v=torch.as_tensor(np.asarray(v), dtype=dtype, device=device),
+        f=torch.zeros_like(xt),
+        type=ints(types), tag=ints(tags), image=ints(image),
+        box=Box(lo=box.lo.to(device=device, dtype=dtype),
+                hi=box.hi.to(device=device, dtype=dtype)))
+
+
+def wrap_pbc(state: MDState) -> MDState:
+    """Remap atoms into the periodic box, updating image flags
+    (Domain::pbc, src/domain.cpp; tpumd/core/state.py::wrap_pbc)."""
+    box = state.box
+    ell = box.lengths
+    rel = (state.x - box.lo) / ell
+    shift = torch.floor(rel).to(torch.int32)
+    x = state.x - shift * ell
+    return state.replace(x=x, image=state.image + shift)
+
+
+def minimum_image(d: torch.Tensor, box: Box) -> torch.Tensor:
+    """Nearest-image displacement."""
+    ell = box.lengths
+    return d - ell * torch.round(d / ell)

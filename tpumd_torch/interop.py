@@ -1,0 +1,50 @@
+"""State bridge: build the port's objects from another engine's arrays.
+
+Takes plain numpy arrays (for example the fields of a tpumd ``MDState``
+and ``PairLJCut``), so one state can be fed to both engines.  This module
+imports nothing of tpumd.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpumd_torch.core.state import Box, MDState
+from tpumd_torch.models.pair_lj_cut import PairLJCut
+
+
+def state_from_numpy(arrays, box, *, device, dtype) -> MDState:
+    """MDState from {x, v, f, type, tag, image} arrays and a box mapping
+    {lo, hi, periodic}; rows keep their order (padding included).  The
+    port's box is periodic on every axis; any other box raises."""
+    if not all(box.get("periodic", (True, True, True))):
+        raise NotImplementedError("only fully periodic boxes are ported")
+    def floats(a):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                               device=device)
+
+    def ints(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    return MDState(
+        x=floats(arrays["x"]), v=floats(arrays["v"]), f=floats(arrays["f"]),
+        type=ints(arrays["type"]), tag=ints(arrays["tag"]),
+        image=ints(arrays["image"]),
+        box=Box(lo=floats(box["lo"]), hi=floats(box["hi"])))
+
+
+def pair_from_numpy(epsilon, sigma, cut, *, shift=False,
+                    mix="geometric") -> PairLJCut:
+    """PairLJCut with the given (ntypes+1)^2 tables, every pair set."""
+    epsilon = np.array(epsilon, np.float64)
+    pair = PairLJCut(epsilon.shape[0] - 1)
+    pair.epsilon = epsilon
+    pair.sigma = np.array(sigma, np.float64)
+    pair.cut = np.array(cut, np.float64)
+    pair.cut_global = float(pair.cut[1:, 1:].max())
+    pair.shift = bool(shift)
+    pair.mix = mix
+    pair._setflag[1:, 1:] = True
+    pair.init()
+    return pair

@@ -1,0 +1,354 @@
+"""Host-side simulation orchestrator.
+
+Plays the role of the reference's Update + Run + Thermo + Finish
+(src/run.cpp, src/thermo.cpp, src/finish.cpp), as tpumd/md/simulation.py
+does for the cell-grid path: owns the styles, fixes and state, segments a
+run between thermo outputs, and reads the device once per segment (the
+neighbor overflow flag and the thermo row).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from tpumd_torch.core.state import MDState, map_per_atom, wrap_pbc
+from tpumd_torch.md import computes
+from tpumd_torch.md.verlet import StepContext, eval_energies, pack_thermo, \
+    run_segment
+from tpumd_torch.ops import cellgrid as cg
+from tpumd_torch.utils.units import Units, get_units
+
+THERMO_KEYS = ("step", "temp", "epair", "emol", "pe", "ke", "etotal",
+               "press", "vol", "lx", "ly", "lz", "evdwl", "atoms", "density")
+
+
+def resolve_device(device) -> torch.device:
+    """The device a run asked for; asking for CUDA without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda."
+                           "is_available() is False")
+    return dev
+
+
+class Simulation:
+    def __init__(self, units: str = "lj", *, device, dtype):
+        self.units: Units = get_units(units)
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.dt = self.units.dt
+        self.skin = self.units.skin
+        self.neigh_every = 1
+        self.neigh_delay = 10
+        self.neigh_check = True
+
+        self.state: MDState | None = None
+        self.mass = None               # (ntypes+1,) numpy
+        self.ntypes = 0
+        self.pair = None
+        self.fixes: list = []
+
+        self.thermo_every = 0          # 0: only first/last
+        self.thermo_style = ["step", "temp", "epair", "emol", "etotal",
+                             "press"]
+        self.thermo_norm = units == "lj"
+        self.log_lines: list[str] = []
+        self.dimension = 3
+        self.verbose = True
+
+        self._ctx: StepContext | None = None
+        self._carry = None             # (state, neigh)
+        self._neigh_cfg: cg.CellGridConfig | None = None
+        self._cap_override = None
+        self._natoms = None
+        self._mass_sum = None
+        self.step = 0
+        self.last_thermo: dict | None = None
+        self.loop_time = 0.0
+        self.loop_steps = 0
+
+    # ------------------------------------------------------------------ setup
+    @property
+    def natoms(self) -> int:
+        if self.state is None:
+            return 0
+        if self._natoms is None:
+            self._natoms = int((self.state.tag > 0).sum())
+        return self._natoms
+
+    def dof(self) -> float:
+        fix_dof = sum(fx.dof_removed for fx in self.fixes)
+        return self.dimension * self.natoms - self.dimension - fix_dof
+
+    def max_cutoff(self) -> float:
+        return self.pair.max_cutoff if self.pair is not None else 0.0
+
+    def _make_ctx(self) -> StepContext:
+        cutneigh = self.max_cutoff() + self.skin
+        # cell-size factor: cells of F*cutneigh (stencil stays +-1); grow F
+        # while the mean cell occupancy is far below a dense cap
+        # (tpumd/md/simulation.py:159-185)
+        ell = self.state.box.lengths_np()
+        cell_factor = 1.0
+        while cell_factor < 4.0:
+            ncell = np.prod(np.maximum(1, np.floor(
+                ell / (cutneigh * (cell_factor * 2))).astype(int)))
+            if ncell < 27 or self.natoms / ncell > 28.0:
+                break
+            cell_factor *= 2
+        cfg = cg.choose_cellgrid_config(
+            self.state.box, cutneigh, self.skin, self.natoms,
+            every=self.neigh_every, delay=self.neigh_delay,
+            check=self.neigh_check, cap=self._cap_override,
+            box_margin=cell_factor)
+        self._neigh_cfg = cfg
+        mass_np = np.asarray(self.mass, dtype=np.float64).copy()
+        mass_np[0] = 1.0  # padded slots: finite mass, zero force
+        return StepContext(
+            units=self.units, dt=self.dt, neigh_cfg=cfg, pair=self.pair,
+            fixes=tuple(self.fixes),
+            mass_table=torch.as_tensor(mass_np, dtype=self.dtype,
+                                       device=self.device),
+            natoms=self.natoms)
+
+    def _sort_atoms_host(self):
+        """Spatial sort at setup (Atom::sort, src/atom.cpp:2246): fixes the
+        atom order the grid binning starts from."""
+        cutneigh = self.max_cutoff() + self.skin
+        if cutneigh <= 0:
+            return
+        binsize = 0.5 * cutneigh
+        s = self.state
+        x = s.x.detach().cpu().numpy().astype(np.float64)
+        lo = s.box.lo.cpu().numpy().astype(np.float64)
+        hi = s.box.hi.cpu().numpy().astype(np.float64)
+        ell = hi - lo
+        nbin = np.maximum((ell / binsize).astype(int), 1)
+        bininv = nbin / ell
+        c = np.clip(((x - lo) * bininv).astype(int), 0, nbin - 1)
+        ibin = (c[:, 2] * nbin[1] + c[:, 1]) * nbin[0] + c[:, 0]
+        perm = np.argsort(ibin, kind="stable")
+        if np.array_equal(perm, np.arange(len(perm))):
+            return
+        pj = torch.as_tensor(perm, device=self.device)
+        self.state = map_per_atom(s, lambda a: a[pj])
+
+    def _grid_setup(self, s: MDState):
+        """Pad, bin and permute a compact state into a fresh grid
+        (for the current config); returns (state, neigh)."""
+        cfg = self._ctx.neigh_cfg
+        s = cg.pad_state(wrap_pbc(s), cfg.capacity)
+        valid0 = torch.arange(s.capacity, device=self.device) < self.natoms
+        perm, valid, max_count, over = cg.bin_permutation(
+            s.x, valid0, s.box, cfg)
+        s = cg.apply_permutation(s, perm, valid)
+        neigh = cg.CellGridState(
+            valid=valid, xhold=s.x, ago=0, nbuilds=1, overflow=over,
+            max_count=max_count,
+            row2slot=cg.row2slot_from_tags(s.tag, self.natoms))
+        return s, neigh
+
+    def setup(self):
+        """Initial neighbor build + force evaluation (Verlet::setup)."""
+        self._mass_sum = None
+        if self.pair is not None:
+            self.pair.init()
+            if self.pair.tail_flag:
+                typ = self.state.type.cpu().numpy()
+                counts = np.bincount(typ, minlength=self.ntypes + 1)
+                self.pair.compute_tails(counts.astype(np.float64))
+        self._sort_atoms_host()
+        for _ in range(6):
+            self._ctx = self._make_ctx()
+            s, neigh = self._grid_setup(self.state)
+            if not bool(neigh.overflow):
+                break
+            # grow the cell capacity from the observed maximum and retry
+            self._cap_override = int(np.ceil(max(
+                self._neigh_cfg.cap * 1.5,
+                int(neigh.max_count) * 1.3) / 8) * 8)
+        self._check_overflow(neigh)
+        f, energies, virial = eval_energies(s, neigh, self._ctx)
+        s = s.replace(f=f)
+        self._carry = (s, neigh)
+        self.state = s
+        self._last_energies = energies
+        self._last_virial = virial
+
+    def invalidate_ctx(self):
+        """Force a re-setup before the next run (the fix set changed);
+        the padded grid-ordered state goes back to natoms rows."""
+        if self._carry is not None:
+            s, neigh = self._carry
+            self.state = cg.compact_state(s, neigh.valid, self.natoms)
+        self._ctx = None
+        self._carry = None
+
+    def _check_overflow(self, neigh):
+        if bool(neigh.overflow):
+            raise RuntimeError(
+                f"neighbor overflow: max_count={int(neigh.max_count)} "
+                f"cfg={self._neigh_cfg}")
+
+    # ------------------------------------------------------------------ run
+    def run(self, nsteps: int):
+        if self._ctx is None:
+            self.setup()
+        ctx = self._ctx
+        self._thermo_header()
+        self._thermo_line()  # setup thermo at current step
+        target = self.step + nsteps
+        t0 = time.perf_counter()
+        while self.step < target:
+            nxt = target
+            if self.thermo_every > 0:
+                nxt = min(nxt, (self.step // self.thermo_every + 1)
+                          * self.thermo_every)
+            while True:
+                snapshot = self._carry
+                carry = run_segment(*snapshot, ctx, nxt - self.step)
+                # the one overflow read of the segment
+                if bool(carry[1].overflow):
+                    # grow capacities, redo the segment from the snapshot
+                    ctx = self._regrow(snapshot)
+                    continue
+                break
+            self._carry = carry
+            s, neigh = carry
+            self.state = s
+            self.step = nxt
+            # carry keeps the in-step f; this eval only refreshes energies
+            # and the virial for thermo
+            _, self._last_energies, self._last_virial = eval_energies(
+                s, neigh, ctx)
+            if self.step == target or (self.thermo_every > 0 and
+                                       self.step % self.thermo_every == 0):
+                self._thermo_line()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        elapsed = time.perf_counter() - t0
+        self.loop_time += elapsed
+        self.loop_steps += nsteps
+        self._finish_report(elapsed, nsteps)
+
+    def _regrow(self, snapshot):
+        """Grow the cell capacity after an overflow and rebuild the grid
+        from the snapshot (tpumd/md/simulation.py:1376-1405)."""
+        s0, neigh0 = snapshot
+        mc = float(neigh0.max_count)
+        self._cap_override = int(np.ceil(max(
+            self._neigh_cfg.cap * 1.5, mc * 1.3) / 8) * 8)
+        self.state = cg.compact_state(s0, neigh0.valid, self.natoms)
+        self._ctx = self._make_ctx()
+        s, neigh = self._grid_setup(self.state)
+        neigh = neigh.replace(nbuilds=neigh0.nbuilds)
+        self._check_overflow(neigh)
+        self._carry = (s, neigh)
+        return self._ctx
+
+    def _finish_report(self, elapsed: float, nsteps: int):
+        """End-of-run report (Finish::end, src/finish.cpp:130-160)."""
+        n = self.natoms
+        self._log(f"Loop time of {elapsed:.6g} on 1 device "
+                  f"for {nsteps} steps with {n} atoms")
+        if elapsed > 0 and nsteps > 0:
+            sps = nsteps / elapsed
+            matom = sps * n / 1e6
+            u = self.units
+            if u.femtosecond > 0:
+                perday = sps * self.dt * u.femtosecond * 1e-6 * 86400
+                unit_day = f"{perday:.3f} ns/day"
+            else:
+                unit_day = f"{sps * self.dt * 86400:.3f} tau/day"
+            self._log(f"Performance: {unit_day}, {sps:.3f} timesteps/s, "
+                      f"{matom:.3f} Matom-step/s")
+        self._log(f"Neighbor list builds = {self._carry[1].nbuilds - 1}")
+
+    # ------------------------------------------------------------------ thermo
+    def thermo_values(self) -> dict:
+        s = self._carry[0]
+        u = self.units
+        packed = pack_thermo(
+            s, self._last_energies, self._last_virial,
+            (self.dof(), u.boltz, u.mvv2e),
+            torch.as_tensor(self.mass, dtype=self.dtype, device=self.device))
+        return self._vals_from_packed(
+            packed.cpu().numpy().astype(np.float64))
+
+    def _vals_from_packed(self, vals_h) -> dict:
+        """Thermo dict from one pack_thermo row (Thermo::compute_*)."""
+        u = self.units
+        dof = self.dof()
+        ncur = int(vals_h[3])
+        if ncur != self.natoms:
+            raise RuntimeError(f"Lost atoms: original {self.natoms} "
+                               f"current {ncur} at step {self.step}")
+        if not np.isfinite(vals_h).all():
+            raise RuntimeError(
+                f"Non-finite thermodynamics at step {self.step} — "
+                "simulation unstable")
+        t, vol, vir3 = float(vals_h[0]), float(vals_h[1]), float(vals_h[2])
+        ell = vals_h[4:7]
+        e = dict(zip(sorted(self._last_energies), vals_h[7:].tolist()))
+        ke = computes.kinetic_energy(t, dof, u.boltz)
+        # long-range LJ tail corrections (Thermo::compute_evdwl,
+        # ComputePressure: ptail/volume added to each diagonal term)
+        etail = ptail = 0.0
+        if self.pair is not None and self.pair.tail_flag:
+            etail = self.pair.etail / vol
+            ptail = self.dimension * self.pair.ptail / vol
+        press = ((dof * u.boltz * t + vir3 + ptail)
+                 / (self.dimension * vol) * u.nktv2p)
+        epair = e["evdwl"] + etail
+        norm = self.natoms if self.thermo_norm else 1
+        if self._mass_sum is None:
+            typ = self._carry[0].type.cpu().numpy()
+            self._mass_sum = float(self.mass[typ[typ > 0]].sum())
+        vals = {
+            "step": self.step, "temp": t,
+            "epair": epair / norm, "emol": 0.0, "pe": epair / norm,
+            "ke": ke / norm, "etotal": (epair + ke) / norm,
+            "press": press, "vol": vol,
+            "lx": float(ell[0]), "ly": float(ell[1]), "lz": float(ell[2]),
+            "evdwl": e["evdwl"] / norm, "atoms": self.natoms,
+            "density": self.units.mv2d * self._mass_sum / vol,
+        }
+        self.last_thermo = vals
+        return vals
+
+    _THERMO_HEADERS = {
+        "step": "Step", "temp": "Temp", "epair": "E_pair", "emol": "E_mol",
+        "etotal": "TotEng", "press": "Press", "pe": "PotEng", "ke": "KinEng",
+        "vol": "Volume",
+    }
+
+    def _thermo_header(self):
+        line = " ".join(self._THERMO_HEADERS.get(k, k).ljust(12)
+                        for k in self.thermo_style)
+        self._log(line.rstrip())
+
+    def _thermo_line(self):
+        vals = self.thermo_values()
+        parts = [f"{vals[k]:8d}" if k == "step" else f"{vals[k]:12.8g}"
+                 for k in self.thermo_style]
+        self._log(" ".join(parts))
+
+    def _log(self, line: str):
+        self.log_lines.append(line)
+        if self.verbose:
+            print(line, flush=True)
+
+    # ------------------------------------------------------------------ perf
+    def performance(self) -> dict:
+        """Matom-step/s report (formula of src/finish.cpp:141-160)."""
+        if self.loop_time == 0:
+            return {}
+        steps_per_s = self.loop_steps / self.loop_time
+        return {
+            "loop_time": self.loop_time,
+            "timesteps_per_s": steps_per_s,
+            "matom_steps_per_s": steps_per_s * self.natoms / 1e6,
+        }

@@ -1,0 +1,300 @@
+"""Cell-grid neighbor structure: atoms stored in cell order.
+
+PyTorch counterpart of tpumd/ops/cellgrid.py.  Atoms sit in a dense
+(nz, ny, nx, cap) grid of fixed-capacity cells; forces are summed, per
+atom, over the 27-cell stencil with no Newton's-third-law scatter.  A
+rebuild re-bins the atoms (a permutation of the per-atom arrays into
+grid-slot order) on the neighbor every/delay/check schedule; between
+rebuilds the candidate set is a superset of the reference's frozen Verlet
+list (src/npair_half_bin_newton.cpp).
+
+The slot order is part of the contract: both sorts are stable, so the
+port places every atom in the same slot as tpumd does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tpumd_torch.core.state import Box, MDState, map_per_atom, \
+    minimum_image
+
+
+@dataclasses.dataclass(frozen=True)
+class CellGridConfig:
+    cutneigh: float
+    skin: float
+    nx: int
+    ny: int
+    nz: int
+    cap: int                 # atoms per cell (padded capacity)
+    every: int = 1
+    delay: int = 0
+    check: bool = True
+
+    @property
+    def ncells(self) -> int:
+        return self.nx * self.ny * self.nz
+
+    @property
+    def capacity(self) -> int:
+        return self.ncells * self.cap
+
+
+@dataclasses.dataclass(frozen=True)
+class CellGridState:
+    valid: torch.Tensor      # (Np,) bool: slot holds a real atom
+    xhold: torch.Tensor      # (Np, 3) positions at last build
+    ago: int                 # steps since the last build (host schedule)
+    nbuilds: int
+    overflow: torch.Tensor   # () bool, OR-accumulated over rebuilds
+    max_count: torch.Tensor  # () most atoms seen in one cell
+    row2slot: torch.Tensor   # (natoms,) tag -> slot map
+
+    def replace(self, **kw) -> "CellGridState":
+        return dataclasses.replace(self, **kw)
+
+
+def choose_cellgrid_config(box: Box, cutneigh: float, skin: float,
+                           natoms: int, *, every=1, delay=0, check=True,
+                           cap: int | None = None,
+                           box_margin: float = 1.0) -> CellGridConfig:
+    ell = box.lengths_np()
+    if (ell < 2.0 * cutneigh).any():
+        raise ValueError(
+            f"box lengths {ell} must be >= 2*cutneigh ({2 * cutneigh:.3f})")
+    nx, ny, nz = [max(1, int(np.floor(L / (cutneigh * box_margin))))
+                  for L in ell]
+    if cap is None:
+        mean = natoms / (nx * ny * nz)
+        cap = int(np.ceil((mean * 1.45 + 4) / 4) * 4)
+    return CellGridConfig(cutneigh=float(cutneigh), skin=float(skin),
+                          nx=nx, ny=ny, nz=nz, cap=int(cap),
+                          every=every, delay=delay, check=check)
+
+
+def _cell_ids(x, box: Box, cfg: CellGridConfig):
+    """Linear cell id of each position (x must be wrapped)."""
+    dims = torch.tensor([cfg.nx, cfg.ny, cfg.nz], dtype=torch.int32,
+                        device=x.device)
+    rel = (x - box.lo) / box.lengths * dims
+    ci = torch.minimum(torch.clamp(torch.floor(rel).to(torch.int32), min=0),
+                       dims - 1)
+    return (ci[:, 2] * cfg.ny + ci[:, 1]) * cfg.nx + ci[:, 0]
+
+
+def _set_drop(size: int, idx, values, fill=0):
+    """out[idx] = values for idx < size; idx == size is dropped (the
+    counterpart of JAX's scatter mode="drop")."""
+    out = torch.full((size + 1,) + tuple(values.shape[1:]), fill,
+                     dtype=values.dtype, device=values.device)
+    out[idx] = values
+    return out[:size]
+
+
+def bin_permutation(x, valid, box: Box, cfg: CellGridConfig):
+    """Permutation taking atoms into grid-slot order.
+
+    Returns (perm (Np,) atom index per slot or -1, valid_new, max_count,
+    overflow).  Np = cfg.capacity; x must be wrapped.
+    """
+    npad = cfg.capacity
+    cid = torch.where(valid, _cell_ids(x, box, cfg), cfg.ncells)
+    sorted_cid, order = torch.sort(cid, stable=True)
+    first = torch.searchsorted(sorted_cid, sorted_cid, side="left")
+    rank = torch.arange(x.shape[0], device=x.device) - first
+    real = sorted_cid < cfg.ncells
+    max_count = torch.max(torch.where(real, rank, -1)) + 1
+    overflow = max_count > cfg.cap
+    ok = real & (rank < cfg.cap)
+    slot = torch.where(ok, sorted_cid * cfg.cap
+                       + torch.clamp(rank, max=cfg.cap - 1), npad)
+    perm = _set_drop(npad, slot, order, fill=-1)
+    return perm, perm >= 0, max_count, overflow
+
+
+def apply_permutation(state: MDState, perm, valid_new) -> MDState:
+    """Reorder all per-atom arrays into grid-slot order (empty slots 0)."""
+    idx = torch.clamp(perm, min=0)
+
+    def take(a):
+        keep = valid_new.reshape((-1,) + (1,) * (a.dim() - 1))
+        return torch.where(keep, a[idx], torch.zeros((), dtype=a.dtype,
+                                                     device=a.device))
+
+    return map_per_atom(state, take)
+
+
+def row2slot_from_tags(tag, natoms: int):
+    """(natoms,) tag->slot map from the slot-ordered tag array."""
+    target = torch.where(tag > 0, tag.long() - 1, natoms)
+    return _set_drop(natoms, target,
+                     torch.arange(tag.shape[0], device=tag.device))
+
+
+def bin_compact(x, tag, natoms: int, box: Box, cfg: CellGridConfig,
+                row2slot=None):
+    """Re-bin the ``natoms`` real atoms: one stable sort by cell id with
+    the source slot and the tag index as payload.
+
+    Returns (src (n,) source slot per placement, dst (n,) destination slot
+    or capacity for overflow-dropped atoms, row2slot_new, max_count,
+    overflow).
+    """
+    npad = cfg.capacity
+    n = natoms
+    if row2slot is None:
+        row2slot = row2slot_from_tags(tag, n)
+    cid = _cell_ids(x[row2slot], box, cfg)
+    sorted_cid, order = torch.sort(cid, stable=True)
+    src = row2slot[order]
+    iota = torch.arange(n, device=x.device)
+    newseg = torch.ones(n, dtype=torch.bool, device=x.device)
+    newseg[1:] = sorted_cid[1:] != sorted_cid[:-1]
+    first = torch.cummax(torch.where(newseg, iota, 0), dim=0).values
+    rank = iota - first
+    max_count = torch.max(rank) + 1
+    overflow = max_count > cfg.cap
+    dst = torch.where(rank < cfg.cap,
+                      sorted_cid * cfg.cap
+                      + torch.clamp(rank, max=cfg.cap - 1), npad)
+    row2slot_new = torch.empty_like(row2slot)
+    row2slot_new[order] = torch.clamp(dst, max=npad - 1).to(row2slot.dtype)
+    return src, dst, row2slot_new, max_count, overflow
+
+
+def apply_permutation_compact(state: MDState, src, dst,
+                              capacity: int) -> MDState:
+    """Reorder per-atom arrays via an n-sized gather + scatter (empty
+    slots zeroed; dst == capacity drops an overflowed atom)."""
+    return map_per_atom(state, lambda a: _set_drop(capacity, dst, a[src]))
+
+
+def pad_state(state: MDState, capacity: int) -> MDState:
+    """Pad per-atom arrays to the grid capacity (invalid slots at the end)."""
+    extra = capacity - state.capacity
+    if extra < 0:
+        raise ValueError("capacity smaller than atom count")
+
+    def pad(a):
+        return torch.cat([a, torch.zeros((extra,) + tuple(a.shape[1:]),
+                                         dtype=a.dtype, device=a.device)])
+
+    return map_per_atom(state, pad)
+
+
+def compact_state(state: MDState, valid, natoms: int) -> MDState:
+    """Gather valid atoms to the front and truncate to natoms rows."""
+    order = torch.argsort((~valid).to(torch.int8), stable=True)
+    idx = order[:natoms]
+    return map_per_atom(state, lambda a: a[idx])
+
+
+def displacement_exceeded(x, xhold, valid, box: Box, skin: float):
+    d = minimum_image(x - xhold, box)
+    rsq = torch.where(valid, torch.sum(d * d, dim=-1), 0)
+    delta = 0.5 * skin
+    return torch.max(rsq) > delta * delta
+
+
+def _offs(n: int):
+    """Stencil offsets along one (periodic) axis: always all three.
+
+    With n == 2 the +-1 neighbours are the same cell under DIFFERENT wrap
+    corrections (direct and wrapped image), and with n == 1 they are the
+    +-L periodic images of the self cell.  Valid because every config
+    guards L >= 2*cutneigh, so at most one image of any pair is in range.
+    """
+    return (-1, 0, 1)
+
+
+def _roll_nbr(a, o: int, axis: int, corr):
+    """Grid content of the neighbour cell at offset +o along axis; corr
+    (a box length, or None) is added/subtracted where the periodic wrap
+    crossed the box face."""
+    r = torch.roll(a, -o, dims=axis)
+    if o == 0 or corr is None:
+        return r
+    n = a.shape[axis]
+    idx = torch.arange(n, device=a.device)
+    step = ((idx + o >= n).to(a.dtype) - (idx + o < 0).to(a.dtype))
+    shape = [1] * a.dim()
+    shape[axis] = n
+    return r + step.reshape(shape) * corr
+
+
+def cellgrid_pair_sums(x, type_, valid, box: Box, cfg: CellGridConfig,
+                       pair_fn, eflag: bool, vflag: bool):
+    """Forces, energy and virial of a pairwise style on the cell grid.
+
+    Plain torch sweep (tpumd/ops/cellgrid.py::cellgrid_pair_sums without
+    special, charge or bond terms).  The x and y stencil offsets are
+    folded into one 9*cap-wide j-row and the three z offsets are looped.
+    ``pair_fn(r2, itype, jtype)`` returns (fpair, evdwl); masked pairs
+    arrive with r2 = 1 so no division reaches an empty slot.  type_ may be
+    None for single-type styles.  Returns (f, evdwl or None, virial (6,)
+    or None); energy and virial take 1/2 per ordered pair.
+    """
+    cap = cfg.cap
+    gshape = (cfg.nz, cfg.ny, cfg.nx, cap)
+    dtype = x.dtype
+    Lx, Ly, Lz = box.lengths[0], box.lengths[1], box.lengths[2]
+
+    xg = [x[:, c].reshape(gshape) for c in range(3)]
+    vg = valid.reshape(gshape)
+    tg = None if type_ is None else type_.reshape(gshape)
+    xoffs, yoffs = _offs(cfg.nx), _offs(cfg.ny)
+
+    def xyrow(a, corrx, corry):
+        row = torch.cat([_roll_nbr(a, o, 2, corrx) for o in xoffs], dim=-1)
+        return torch.cat([_roll_nbr(row, o, 1, corry) for o in yoffs],
+                         dim=-1)
+
+    rows = [xyrow(xg[0], Lx, None), xyrow(xg[1], None, Ly),
+            xyrow(xg[2], None, None)]
+    vrow = xyrow(vg, None, None)
+    trow = None if tg is None else xyrow(tg, None, None)
+    rowlen = len(xoffs) * len(yoffs) * cap
+
+    # self-exclusion: in the zero shift, slot j == own slot within the
+    # (ox=0, oy=0) segment of the row
+    zero_seg = yoffs.index(0) * len(xoffs) + xoffs.index(0)
+    ii = torch.arange(cap, device=x.device)[:, None]
+    jj = torch.arange(rowlen, device=x.device)[None, :]
+    not_self = jj != ii + zero_seg * cap
+
+    fx = [torch.zeros(gshape, dtype=dtype, device=x.device)
+          for _ in range(3)]
+    evdwl = torch.zeros((), dtype=dtype, device=x.device)
+    virial = torch.zeros(6, dtype=dtype, device=x.device)
+    for dz in _offs(cfg.nz):
+        xj = [_roll_nbr(rows[0], dz, 0, None), _roll_nbr(rows[1], dz, 0, None),
+              _roll_nbr(rows[2], dz, 0, Lz)]
+        vj = _roll_nbr(vrow, dz, 0, None)
+        d = [xg[c][..., :, None] - xj[c][..., None, :] for c in range(3)]
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        mask = vg[..., :, None] & vj[..., None, :]
+        if dz == 0:
+            mask = mask & not_self
+        r2 = torch.where(mask, r2, torch.ones((), dtype=dtype,
+                                              device=x.device))
+        ti = None if tg is None else tg[..., :, None]
+        tj = None if trow is None else _roll_nbr(trow, dz, 0, None)[..., None, :]
+        fp, e = pair_fn(r2, ti, tj)
+        fp = torch.where(mask, fp, 0)
+        for c in range(3):
+            fx[c] = fx[c] + torch.sum(d[c] * fp, dim=-1)
+        if eflag:
+            evdwl = evdwl + 0.5 * torch.sum(torch.where(mask, e, 0))
+        if vflag:
+            virial = virial + 0.5 * torch.stack([
+                torch.sum(fp * d[0] * d[0]), torch.sum(fp * d[1] * d[1]),
+                torch.sum(fp * d[2] * d[2]), torch.sum(fp * d[0] * d[1]),
+                torch.sum(fp * d[0] * d[2]), torch.sum(fp * d[1] * d[2])])
+
+    f = torch.stack([c.reshape(-1) for c in fx], dim=1)
+    return f, (evdwl if eflag else None), (virial if vflag else None)
+
