@@ -5,16 +5,29 @@ Run from the repository root: ``python3 chip_smoke.py``.  Phases, one
 line each (any failure raises and exits non-zero):
 
 1. environment: card name and power limit (nvidia-smi), torch, CUDA, nvcc;
-2. build: nvcc builds tpumd_torch/csrc into build/ (or loads the cache);
-3. kernel against plain version on the card: the LJ cell-grid kernel and
-   its plain PyTorch version on perturbed fcc lattices at the 32k in.lj
-   grid (11^3 cells, cap 40) and the 864-atom grid (3^3, cap 52), f32 and
-   f64, energy/virial on and off; timed at the 32k shape;
-4. main path: the 6^3 deck on the card against the CPU (f64, step 40),
-   then the 32k in.lj deck through LammpsScript on the card in f32:
-   step-0 and step-100 gates, 500 warm-up and 500 timed steps, and the
-   kernel launch counts of that run;
-5. a JSON line of the kernels, then the result line.
+2. build: one nvcc per source of tpumd_torch/csrc, all at once, into
+   build/ (or the cached library);
+3. kernels against their plain versions on the card, f32 and f64, every
+   energy/virial flag combination:
+   - LJ (B1) on perturbed fcc lattices at the 32k in.lj grid (11^3 cells,
+     cap 40) and the 864-atom grid (3^3, cap 52);
+   - LJ+FENE (B2) on the generated chain decks' grids after setup: the 32k
+     chain grid (11^3, cap 40) and a 2^3 grid where bonds count at the
+     minimum image;
+   each timed at its 32k shape in the order plain, kernel, kernel, plain,
+   beside its bound (the larger of this input's in-range pair arithmetic
+   over the f32 peak and its bytes over the memory rate);
+4. main path, in.lj: the 6^3 deck on the card against the CPU (f64, step
+   40), then the 32k deck through LammpsScript in f32: step-0 and step-100
+   gates, 500 warm-up and 500 timed steps, the launch counts of that run
+   and a profile of 100 steps;
+5. main path, chain: a 500-atom chain deck on the card against the CPU (f64,
+   RanMars langevin on both, step 40), then the 32k chain deck in f32 with
+   the device RNG: step-0 and step-100 gates, 500 warm-up and 500 timed
+   steps, the launch counts of that run, the cost of the per-step rebuild
+   check and a profile of 100 steps;
+6. a JSON line of the kernels, the card's name and power limit as
+   nvidia-smi prints them, then the result line.
 
 Imports nothing of JAX or tpumd.
 """
@@ -26,7 +39,9 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -36,6 +51,19 @@ import torch
 # only; f32 also by the order of ~1,000 f32 terms per slot (the f32 Pallas
 # kernel sat at 1.2e-5 of max|f| against f64).
 TOL = {torch.float64: 1e-12, torch.float32: 5e-5}
+
+# published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
+# cores, and the HBM3 memory rate
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# least arithmetic per in-range pair, from the kernels' loops, counted
+# once per unordered pair (the force on j is minus the force on i): d (3),
+# r2 (5), cutoff test (1), 1/r2 (1), r^-6 (2), fpair (4); a bonded pair: d
+# and r2 (8), 1/r2 (1), the FENE log argument, clamp and quotient (5), the
+# WCA test and term (10); then f += d fpair on each of its two atoms (2 x 6)
+OPS_LJ_PAIR = 16
+OPS_BOND_PAIR = 24
+OPS_ACCUM = 12
 
 
 def phase(name: str, msg: str):
@@ -98,7 +126,77 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def kernel_vs_plain() -> dict:
+def pair_counts(x, valid, box, cfg, cutsq, tag=None, bond_tags=None):
+    """(in-cutoff non-bonded pairs, bonded pairs) of these inputs,
+    unordered, counted with the plain sweep in f64 (its sums take 1/2 per
+    ordered pair)."""
+    from tpumd_torch.ops.cellgrid import cellgrid_pair_sums
+
+    def inside(r2, ti, tj):
+        return torch.zeros_like(r2), (r2 < cutsq).to(r2.dtype)
+
+    def bonded(r2, btype):
+        return torch.zeros_like(r2), torch.ones_like(r2)
+    bond = None if bond_tags is None else (
+        bond_tags, torch.ones_like(bond_tags), bonded, tag)
+    out = cellgrid_pair_sums(x.double(), None, valid, box_f64(box), cfg,
+                             inside, True, False, bond=bond)
+    nb = 0 if bond is None else round(float(out[3]))
+    return round(float(out[1])), nb
+
+
+def box_f64(box):
+    from tpumd_torch.core.state import Box
+    return Box(lo=box.lo.double(), hi=box.hi.double())
+
+
+def bound(nlj: int, nbond: int, nbytes: int) -> tuple[float, str]:
+    """Least time (ms) the card could take: the arithmetic of nlj
+    non-bonded and nbond bonded unordered pairs over the f32 peak, or the
+    bytes read and written once over the memory rate, whichever is
+    larger."""
+    t_ops = (nlj * (OPS_LJ_PAIR + OPS_ACCUM)
+             + nbond * (OPS_BOND_PAIR + OPS_ACCUM)) / PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_close(what, fk, fp, ek, ep, wk, wp, tol, eflag, vflag):
+    """Raise unless the kernel's forces, energies and virial agree with
+    the plain version's; returns max|df| / max|f|."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(fk).all():
+        raise AssertionError(f"{what}: kernel forces not finite")
+    fmax = float(fp.abs().max())
+    err = float((fk - fp).abs().max())
+    if err > tol * fmax:
+        raise AssertionError(f"{what} forces: {err} > {tol} * {fmax}")
+    if eflag:
+        for a, b in zip(ek, ep):
+            if abs(float(a - b)) > tol * abs(float(b)):
+                raise AssertionError(f"{what} energy {float(a)} vs "
+                                     f"{float(b)}")
+    if vflag and float((wk - wp).abs().max()) > tol * float(wp.abs().max()):
+        raise AssertionError(f"{what} virial {wk.tolist()} vs "
+                             f"{wp.tolist()}")
+    return err / fmax
+
+
+def time_kernel(name, kernel, plain, kernel_ev, reps=200) -> dict:
+    """plain, kernel, kernel, plain; then the kernel with energy+virial."""
+    p1 = cuda_ms(plain, 10)
+    k1 = cuda_ms(kernel, reps)
+    k2 = cuda_ms(kernel, reps)
+    p2 = cuda_ms(plain, 10)
+    ke = cuda_ms(kernel_ev, reps)
+    phase("kernel", f"{name} at the 32k shape, f32 forces: kernel {k1:.4f} "
+                    f"/ {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; kernel "
+                    f"with energy+virial {ke:.4f} ms")
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "ev_ms": ke}
+
+
+def lj_kernel_vs_plain() -> dict:
     from tpumd_torch.ops.lj_cellgrid import LJCoeffs, lj_cellgrid, \
         lj_cellgrid_plain
     c = LJCoeffs(48.0, 24.0, 4.0, 4.0, 0.0, 6.25)
@@ -112,46 +210,107 @@ def kernel_vs_plain() -> dict:
                 fk, ek, wk = lj_cellgrid(x, valid, box, cfg, c, eflag, vflag)
                 fp, ep, wp = lj_cellgrid_plain(x, valid, box, cfg, c, eflag,
                                                vflag)
-                torch.cuda.synchronize()
-                if not torch.isfinite(fk).all():
-                    raise AssertionError("kernel forces not finite")
-                fmax = float(fp.abs().max())
-                err = float((fk - fp).abs().max())
-                worst = max(worst, err / fmax)
-                if err > tol * fmax:
-                    raise AssertionError(
-                        f"forces {nlat}^3 {dtype} e{eflag}v{vflag}: "
-                        f"{err} > {tol} * {fmax}")
-                if eflag and abs(float(ek - ep)) > tol * abs(float(ep)):
-                    raise AssertionError(f"energy {float(ek)} vs {float(ep)}")
-                if vflag and float((wk - wp).abs().max()) > \
-                        tol * float(wp.abs().max()):
-                    raise AssertionError(f"virial {wk.tolist()} vs "
-                                         f"{wp.tolist()}")
-            phase("kernel", f"grid {cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cap} "
-                            f"{str(dtype)[6:]}: max|f_kernel - f_plain| = "
-                            f"{worst:.3g} max|f| (tol {tol:g}), energy and "
-                            f"virial within tol")
+                worst = max(worst, check_close(
+                    f"lj {nlat}^3 {dtype} e{eflag}v{vflag}", fk, fp, (ek,),
+                    (ep,), wk, wp, tol, eflag, vflag))
+            phase("kernel", f"lj_cellgrid grid {cfg.nx}x{cfg.ny}x{cfg.nz} "
+                            f"cap {cfg.cap} {str(dtype)[6:]}: max|f_kernel "
+                            f"- f_plain| = {worst:.3g} max|f| (tol {tol:g}),"
+                            f" energy and virial within tol")
             if nlat == 20 and dtype == torch.float32:
                 fk, _, _ = lj_cellgrid(x, valid, box, cfg, c, 0, 0)
                 fp, _, _ = lj_cellgrid_plain(x, valid, box, cfg, c, 0, 0)
                 out["max_abs_err"] = float((fk - fp).abs().max())
-                # plain, kernel, kernel, plain
-                p1 = cuda_ms(lambda: lj_cellgrid_plain(x, valid, box, cfg, c,
-                                                       0, 0), 10)
-                k1 = cuda_ms(lambda: lj_cellgrid(x, valid, box, cfg, c, 0, 0),
-                             200)
-                k2 = cuda_ms(lambda: lj_cellgrid(x, valid, box, cfg, c, 0, 0),
-                             200)
-                p2 = cuda_ms(lambda: lj_cellgrid_plain(x, valid, box, cfg, c,
-                                                       0, 0), 10)
-                ke = cuda_ms(lambda: lj_cellgrid(x, valid, box, cfg, c, 1, 1),
-                             200)
-                out["ms"] = min(k1, k2)
-                out["plain_ms"] = min(p1, p2)
-                phase("kernel", f"32k shape f32 forces: kernel {k1:.4f} / "
-                                f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; "
-                                f"kernel with energy+virial {ke:.4f} ms")
+                out.update(time_kernel(
+                    "lj_cellgrid",
+                    lambda: lj_cellgrid(x, valid, box, cfg, c, 0, 0),
+                    lambda: lj_cellgrid_plain(x, valid, box, cfg, c, 0, 0),
+                    lambda: lj_cellgrid(x, valid, box, cfg, c, 1, 1)))
+                nlj, _ = pair_counts(x, valid, box, cfg, c.cutsq)
+                np_ = cfg.capacity
+                nbytes = np_ * (12 + 1 + 12) + 12
+                out["bound_ms"], out["bound_by"] = bound(nlj, 0, nbytes)
+                phase("kernel", f"lj_cellgrid bound: {nlj} unordered "
+                                f"in-cutoff pairs ({2 * nlj} of "
+                                f"{np_ * 27 * cfg.cap} candidates (i, j)), "
+                                f"{nbytes} bytes -> {out['bound_ms']:.6f} "
+                                f"ms ({out['bound_by']})")
+    return out
+
+
+def chain_setup(tmp: Path, natoms: int, chain_len: int, device, dtype,
+                thermo: int = 100):
+    """LammpsScript of the chain deck on a generated data file, verbose
+    off, before its first run."""
+    from tpumd_torch.bench_targets import IN_CHAIN, chain_data
+    from tpumd_torch.script.parser import LammpsScript
+    path = tmp / f"data.chain.{natoms}"
+    if not path.exists():
+        chain_data(path, natoms, chain_len)
+    script = LammpsScript(device=device, dtype=dtype)
+    script.run_string(IN_CHAIN.format(data=path).replace(
+        "thermo          100", f"thermo          {thermo}"))
+    script.sim.verbose = False
+    return script
+
+
+def fene_kernel_vs_plain(tmp: Path) -> dict:
+    from tpumd_torch.core.state import Box
+    from tpumd_torch.ops.lj_fene_cellgrid import lj_fene_cellgrid, \
+        lj_fene_cellgrid_plain
+    out = {}
+    for natoms, chain_len in ((32000, 100), (60, 10)):
+        script = chain_setup(tmp, natoms, chain_len, "cuda", torch.float64)
+        script.run_string("run 0")
+        sim = script.sim
+        s, neigh, _ = sim._carry
+        cfg, valid, tag, btags = sim._neigh_cfg, neigh.valid, s.tag, \
+            s.bond_tags
+        lj, fene = sim.pair.kernel_coeffs(), sim._ctx.kernel_bond \
+            .kernel_coeffs()
+        for dtype in (torch.float32, torch.float64):
+            x = s.x.to(dtype)
+            box = Box(lo=s.box.lo.to(dtype), hi=s.box.hi.to(dtype))
+            tol = TOL[dtype]
+            worst = 0.0
+            for eflag, vflag in ((0, 0), (1, 1), (1, 0), (0, 1)):
+                fk, ek, wk, bk = lj_fene_cellgrid(x, valid, tag, btags, box,
+                                                  cfg, lj, fene, eflag, vflag)
+                fp, ep, wp, bp = lj_fene_cellgrid_plain(
+                    x, valid, tag, btags, box, cfg, lj, fene, eflag, vflag)
+                worst = max(worst, check_close(
+                    f"lj_fene {natoms} {dtype} e{eflag}v{vflag}", fk, fp,
+                    (ek, bk), (ep, bp), wk, wp, tol, eflag, vflag))
+            phase("kernel", f"lj_fene_cellgrid grid {cfg.nx}x{cfg.ny}x"
+                            f"{cfg.nz} cap {cfg.cap} {str(dtype)[6:]}: "
+                            f"max|f_kernel - f_plain| = {worst:.3g} max|f| "
+                            f"(tol {tol:g}), lj and bond energies and virial"
+                            f" within tol")
+            if natoms == 32000 and dtype == torch.float32:
+                args = (x, valid, tag, btags, box, cfg, lj, fene)
+                fk, _, _, _ = lj_fene_cellgrid(*args, 0, 0)
+                fp, _, _, _ = lj_fene_cellgrid_plain(*args, 0, 0)
+                out["max_abs_err"] = float((fk - fp).abs().max())
+                out.update(time_kernel(
+                    "lj_fene_cellgrid",
+                    lambda: lj_fene_cellgrid(*args, 0, 0),
+                    lambda: lj_fene_cellgrid_plain(*args, 0, 0),
+                    lambda: lj_fene_cellgrid(*args, 1, 1)))
+                nlj, nbond = pair_counts(x, valid, box, cfg, lj.cutsq, tag,
+                                         btags)
+                nneigh, _ = pair_counts(x, valid, box, cfg, cfg.cutneigh ** 2)
+                np_ = cfg.capacity
+                nbytes = np_ * (12 + 1 + 4 + 4 * btags.shape[1] + 12) + 12
+                out["bound_ms"], out["bound_by"] = bound(nlj, nbond, nbytes)
+                cand = np_ * 27 * cfg.cap
+                phase("kernel", f"lj_fene_cellgrid bound: {nlj} unordered "
+                                f"in-cutoff lj pairs and {nbond} bonds "
+                                f"({2 * (nlj + nbond) / cand:.4%} of {cand} "
+                                f"candidates (i, j); {2 * nneigh / cand:.4%}"
+                                f" within cutneigh {cfg.cutneigh}), {nbytes}"
+                                f" bytes "
+                                f"-> {out['bound_ms']:.6f} ms "
+                                f"({out['bound_by']})")
     return out
 
 
@@ -227,6 +386,135 @@ def main_path(smi: str) -> dict:
                   f"{sps * 32000 / 1e6:.3f} Matom-step/s on {smi}; kernel "
                   f"launches {launches} >= force evaluations {force_evals}, "
                   f"plain calls {plain}")
+    phase("main", "in.lj " + profile_steps(script, 100, 1e3 / sps))
+    return {"launches": launches}
+
+
+def small_chain_card_vs_cpu(tmp: Path):
+    """A 500-atom chain deck to step 40 (rebuilds on the displacement
+    check) on the card and on the CPU, f64, the RanMars langevin stream on
+    both: thermo agrees to 1e-10 relative, and the rows are equal."""
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        script = chain_setup(tmp, 500, 25, dev, torch.float64, thermo=10)
+        for fx in script.sim.fixes:
+            if hasattr(fx, "rng"):
+                fx.rng = "lammps"
+        script.run_string("run 40")
+        rows[dev] = (script.sim.last_thermo, [
+            ln for ln in script.sim.log_lines
+            if not ln.startswith(("Loop time", "Performance"))],
+            int(script.sim._carry[1].nbuilds))
+    for k in ("temp", "epair", "emol", "etotal", "press"):
+        a, b = rows["cuda"][0][k], rows["cpu"][0][k]
+        if not abs(a - b) <= 1e-10 * abs(b):
+            raise AssertionError(f"chain deck step 40 {k}: card {a} cpu {b}")
+    if rows["cuda"][1:] != rows["cpu"][1:]:
+        raise AssertionError(f"chain deck rows differ: {rows['cuda'][1]} "
+                             f"vs {rows['cpu'][1]}")
+    phase("main", f"500-atom chain deck f64 step 40 card = cpu to 1e-10, "
+                  f"equal rows, {rows['cuda'][2] - 1} rebuilds: etotal "
+                  f"{rows['cuda'][0]['etotal']!r}")
+
+
+def profile_steps(script, nsteps: int, step_ms: float) -> str:
+    """Device time per step and its share of the unprofiled step, device
+    operations per step and the largest kernels, over a short window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        script.run_string(f"run {nsteps}")
+        torch.cuda.synchronize()
+    # device-side events only (kernels, copies, fills): the host ops that
+    # launched them carry the same device time
+    dev = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA]
+    dev_ms = sum(ev.self_device_time_total for ev in dev) / 1e3 / nsteps
+    nops = sum(ev.count for ev in dev) / nsteps
+    top = sorted(dev, key=lambda ev: -ev.self_device_time_total)[:4]
+    return (f"{nsteps} profiled steps: device busy {dev_ms:.4f} ms/step = "
+            f"{dev_ms / step_ms:.1%} of the unprofiled {step_ms:.4f} ms "
+            f"step, {nops:.1f} device operations/step; largest: " + "; ".join(
+                f"{ev.key[:48]} {ev.self_device_time_total / 1e3 / nsteps:.4f}"
+                f" ms/step" for ev in top))
+
+
+def chain_main_path(tmp: Path, smi: str) -> dict:
+    from tpumd_torch.bench_targets import CHAIN_SANITY, CHAIN_STEP0, \
+        STEP0_RTOL, gate_failures
+    from tpumd_torch.ops import cellgrid as cg
+    from tpumd_torch.ops import lj_cellgrid, lj_fene_cellgrid
+
+    chain_data_path = tmp / "data.chain.32000"
+    chain_data_path.unlink(missing_ok=True)   # its making counts as set-up
+    lj_cellgrid.counts.reset()
+    lj_fene_cellgrid.counts.reset()
+    t0 = time.perf_counter()
+    script = chain_setup(tmp, 32000, 100, "cuda", torch.float32)
+    sim = script.sim
+    rngs = [fx.rng for fx in sim.fixes if hasattr(fx, "rng")]
+    if rngs != ["device"]:
+        raise AssertionError(f"langevin rng on the card: {rngs}")
+    script.run_string("run 0")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    bad = gate_failures(sim.last_thermo, {
+        k: (v, STEP0_RTOL) for k, v in CHAIN_STEP0.items()})
+    if bad:
+        raise AssertionError(f"chain step-0 gate: {bad}")
+    script.run_string("run 100")
+    row100 = dict(sim.last_thermo)
+    bad = gate_failures(row100, CHAIN_SANITY)
+    if bad:
+        raise AssertionError(f"chain step-100 gate: {bad}")
+    script.run_string("run 500")
+    lt0, nb0 = sim.loop_time, int(sim._carry[1].nbuilds)
+    script.run_string("run 500")
+    dt = sim.loop_time - lt0
+    rebuilds = int(sim._carry[1].nbuilds) - nb0
+    launches = lj_fene_cellgrid.counts.kernel_launches
+    plain = (lj_fene_cellgrid.counts.plain_calls
+             + lj_cellgrid.counts.plain_calls)
+    lj_launches = lj_cellgrid.counts.kernel_launches
+    # setup evaluates once; a run of n steps at thermo 100 is n in-step
+    # evaluations plus one energy evaluation per 100 steps
+    force_evals = 1 + (100 + 1) + 2 * (500 + 5)
+    if launches < force_evals or plain != 0 or lj_launches != 0:
+        raise AssertionError(f"lj_fene launches {launches} < force "
+                             f"evaluations {force_evals}, or plain calls "
+                             f"{plain} != 0, or lj launches {lj_launches}")
+    s = sim.state
+    if (tuple(s.x.shape) != (sim._neigh_cfg.capacity, 3)
+            or not torch.isfinite(s.x).all()
+            or sorted(s.tag[s.tag > 0].tolist()) != list(range(1, 32001))):
+        raise AssertionError("chain final state malformed")
+    sps = 500 / dt
+    cfg = sim._neigh_cfg
+    phase("main", f"32k chain f32, device RNG: set-up {setup_s:.3f} s "
+                  f"(data file, deck, grid {cfg.nx}x{cfg.ny}x{cfg.nz} cap "
+                  f"{cfg.cap}, first forces), step 0 and step 100 gates "
+                  f"pass (step 100 temp {row100['temp']!r} emol "
+                  f"{row100['emol']!r} etotal {row100['etotal']!r}); step "
+                  f"1100 etotal {sim.last_thermo['etotal']!r}")
+    phase("main", f"chain timed 500 steps: {sps:.2f} timesteps/s, "
+                  f"{sps * 32000 / 1e6:.3f} Matom-step/s on {smi}; "
+                  f"{rebuilds} rebuilds; lj_fene launches {launches} >= "
+                  f"force evaluations {force_evals}, plain calls {plain}")
+    # the per-step rebuild check (every 1 delay 1 check yes) reads one
+    # flag from the card: its cost alone, on the final state
+    st, neigh, _ = sim._carry
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(200):
+        bool(cg.displacement_exceeded(st.x, neigh.xhold, neigh.valid,
+                                      st.box, cfg.skin))
+    check_us = 1e6 * (time.perf_counter() - t1) / 200
+    phase("main", f"chain rebuild check: {check_us:.1f} us per call "
+                  f"(kernels + one device->host flag read, idle card), "
+                  f"one call per step; step {1e3 / sps:.4f} ms")
+    phase("main", "chain " + profile_steps(script, 100, 1e3 / sps))
     return {"launches": launches}
 
 
@@ -241,15 +529,28 @@ def main():
                    f"{lib.seconds:.2f} s -> {lib.path.name}; ptxas: "
                    f"registers {'/'.join(regs) or 'n/a'}, spill stores "
                    f"{'/'.join(spills) or 'n/a'} bytes")
-    k = kernel_vs_plain()
-    small_deck_card_vs_cpu()
-    m = main_path(smi)
-    print(json.dumps({"kernels": [{
-        "name": "lj_cellgrid", "route": "cuda",
-        "source": "tpumd_torch/csrc/lj_cellgrid.cu",
-        "replaces": "tpumd/ops/pallas_lj.py:25",
-        "launches": m["launches"], "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"]}]}), flush=True)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        k_lj = lj_kernel_vs_plain()
+        k_fene = fene_kernel_vs_plain(tmp)
+        small_deck_card_vs_cpu()
+        m_lj = main_path(smi)
+        small_chain_card_vs_cpu(tmp)
+        m_fene = chain_main_path(tmp, smi)
+    kernels = []
+    for name, src, replaces, k, m in (
+            ("lj_cellgrid", "tpumd_torch/csrc/lj_cellgrid.cu",
+             "tpumd/ops/pallas_lj.py:25", k_lj, m_lj),
+            ("lj_fene_cellgrid", "tpumd_torch/csrc/lj_fene_cellgrid.cu",
+             "tpumd/ops/pallas_lj.py:146", k_fene, m_fene)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": m["launches"],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,115 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips without a card (the kernels
+have no CPU mode).  The file imports torch and tpumd_torch only, so it
+runs on a card host without JAX:
+``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
+
+* LJ (B1, ``lj_cellgrid``): perturbed fcc blocks of 6x6x6 and 4x6x6 cells
+  (3^3 and 2x3x3 grids);
+* LJ+FENE (B2, ``lj_fene_cellgrid``): the grid-ordered state of generated
+  chain decks after setup, on a 5^3 grid and on a 2^3 grid where bonds
+  count at the minimum image.
+
+f32 and f64, every energy/virial flag combination; tolerances as in
+chip_smoke.py: forces 5e-5 (f32) or 1e-12 (f64) of max|f|, energies and
+virial the same relative to their size.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpumd_torch.bench_targets import IN_CHAIN, chain_data
+from tpumd_torch.core.create import create_atoms_lattice
+from tpumd_torch.core.lattice import Lattice
+from tpumd_torch.core.state import Box, make_state, wrap_pbc
+from tpumd_torch.interop import pair_from_numpy
+from tpumd_torch.ops import cellgrid as cg
+from tpumd_torch.ops import lj_cellgrid as b1
+from tpumd_torch.ops import lj_fene_cellgrid as b2
+from tpumd_torch.script.parser import LammpsScript
+
+TOL = {torch.float32: 5e-5, torch.float64: 1e-12}
+FLAGS = ((1, 1), (0, 0), (1, 0), (0, 1))
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+
+def _lj_grid(block, dtype, seed=5):
+    lat = Lattice("fcc", 0.8442)
+    hi = np.asarray(block) * lat.spacing
+    x, t = create_atoms_lattice(lat, None, np.zeros(3), hi)
+    x = x + np.random.default_rng(seed).uniform(-0.05, 0.05, x.shape)
+    box = Box.orthogonal(np.zeros(3), hi, device="cuda", dtype=dtype)
+    s = wrap_pbc(make_state(x, np.zeros_like(x), t, box, device="cuda",
+                            dtype=dtype))
+    cfg = cg.choose_cellgrid_config(box, 2.8, 0.3, len(x))
+    s = cg.pad_state(s, cfg.capacity)
+    valid0 = torch.arange(cfg.capacity, device="cuda") < len(x)
+    perm, valid, _, over = cg.bin_permutation(s.x, valid0, s.box, cfg)
+    assert not bool(over)
+    return cg.apply_permutation(s, perm, valid).x, valid, box, cfg
+
+
+def _chain_grid(tmp_path, natoms, chain_len, dtype):
+    path = tmp_path / f"data.chain.{natoms}"
+    chain_data(path, natoms, chain_len)
+    script = LammpsScript(device="cuda", dtype=torch.float64)
+    script.run_string(IN_CHAIN.format(data=path))
+    script.sim.verbose = False
+    script.run_string("run 0")
+    sim = script.sim
+    s, neigh, _ = sim._carry
+    box = Box(lo=s.box.lo.to(dtype), hi=s.box.hi.to(dtype))
+    return (s.x.to(dtype), neigh.valid, s.tag, s.bond_tags, box,
+            sim._neigh_cfg, sim.pair.kernel_coeffs(),
+            sim._ctx.kernel_bond.kernel_coeffs())
+
+
+def _close(kernel_out, plain_out, tol):
+    torch.cuda.synchronize()
+    fk, fp = kernel_out[0], plain_out[0]
+    fmax = float(fp.abs().max())
+    assert float((fk - fp).abs().max()) <= tol * fmax
+    for k, p in zip(kernel_out[1:], plain_out[1:]):
+        assert (k is None) == (p is None)
+        if p is not None:
+            assert float((k - p).abs().max()) <= tol * float(p.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_cuda_kernel_matches_plain(dtype):
+    """B1, the LJ cell-grid kernel."""
+    _card()
+    dt = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    eps, sig, cut = np.zeros((2, 2)), np.zeros((2, 2)), np.zeros((2, 2))
+    eps[1, 1], sig[1, 1], cut[1, 1] = 1.0, 1.0, 2.5
+    c = pair_from_numpy(eps, sig, cut).kernel_coeffs()
+    for block in ((6, 6, 6), (4, 6, 6)):
+        x, valid, box, cfg = _lj_grid(block, dt)
+        for ef, vf in FLAGS:
+            n0 = b1.counts.kernel_launches
+            out = b1.lj_cellgrid(x, valid, box, cfg, c, ef, vf)
+            assert b1.counts.kernel_launches == n0 + 1
+            _close(out, b1.lj_cellgrid_plain(x, valid, box, cfg, c, ef, vf),
+                   TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_lj_fene_cuda_kernel_matches_plain(dtype, tmp_path):
+    """B2, the LJ+FENE cell-grid kernel."""
+    _card()
+    dt = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    for natoms, chain_len in ((500, 25), (60, 10)):
+        args = _chain_grid(tmp_path, natoms, chain_len, dt)
+        for ef, vf in FLAGS:
+            n0 = b2.counts.kernel_launches
+            out = b2.lj_fene_cellgrid(*args, ef, vf)
+            assert b2.counts.kernel_launches == n0 + 1
+            _close(out, b2.lj_fene_cellgrid_plain(*args, ef, vf), TOL[dt])

@@ -1,0 +1,73 @@
+"""Atom styles: per-atom fields and the data-file column layout.
+
+The port's copy of tpumd/core/atomvec.py (the reference's AtomVec field
+lists, src/atom_vec.h:62-80) for the two styles it runs: ``atomic``
+(``id type x y z [ix iy iz]``) and ``bond`` (``id mol type x y z
+[ix iy iz]``, with the molecule ID as a per-atom field).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class Field:
+    """One per-atom array: (N,) when width == 1, else (N, width)."""
+
+    name: str
+    kind: str = "float"          # "float" | "int"
+    width: int = 1
+    default: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class AtomStyle:
+    """Field set and Atoms-line layout of one atom style: data_atom(cols)
+    takes the tokens after the id column and returns {field: value}
+    including "type", "x" and "_imgcol" (where the image flags start)."""
+
+    name: str
+    data_atom: callable
+    fields: tuple = ()
+
+
+def _simple_layout(has_mol=False):
+    def parse(r):
+        out = {}
+        col = 0
+        if has_mol:
+            out["molecule"] = int(r[col])
+            col += 1
+        out["type"] = int(r[col])
+        col += 1
+        out["x"] = [float(r[col]), float(r[col + 1]), float(r[col + 2])]
+        out["_imgcol"] = col + 3
+        return out
+    return parse
+
+
+STYLES = {
+    "atomic": AtomStyle("atomic", data_atom=_simple_layout()),
+    "bond": AtomStyle("bond", data_atom=_simple_layout(has_mol=True),
+                      fields=(Field("molecule", "int"),)),
+}
+
+
+def get_style(name: str) -> AtomStyle:
+    if name not in STYLES:
+        raise NotImplementedError(
+            f"atom_style {name!r} is not ported (ported: {sorted(STYLES)})")
+    return STYLES[name]
+
+
+def alloc_fields(style: AtomStyle, n: int) -> dict:
+    """Host-side zero arrays for every declared field."""
+    out = {}
+    for f in style.fields:
+        dt = np.int32 if f.kind == "int" else np.float64
+        shape = (n,) if f.width == 1 else (n, f.width)
+        out[f.name] = np.full(shape, f.default, dtype=dt)
+    return out

@@ -14,6 +14,33 @@ from tpumd_torch.core.lattice import Lattice
 from tpumd_torch.core.region import Region
 
 
+def remap_host(x, lo, hi, periodic):
+    """Domain::remap (src/domain.cpp:1232-1290) on host arrays, as
+    tpumd/core/create.py has it: iterative +=/-= period loops (a
+    floor-based single-shot wrap rounds differently for |shift| > 1), then
+    the lo clamp.  Mutates x in place; returns the per-atom image
+    offsets."""
+    img = np.zeros(x.shape, np.int32)
+    for c in range(3):
+        if not periodic[c]:
+            continue
+        period = hi[c] - lo[c]
+        while True:
+            m = x[:, c] < lo[c]
+            if not m.any():
+                break
+            x[m, c] += period
+            img[m, c] -= 1
+        while True:
+            m = x[:, c] >= hi[c]
+            if not m.any():
+                break
+            x[m, c] -= period
+            img[m, c] += 1
+        x[:, c] = np.maximum(x[:, c], lo[c])
+    return img
+
+
 def create_atoms_lattice(
     lattice: Lattice,
     region: Region | None,

@@ -48,7 +48,8 @@ class Box:
 
 @dataclasses.dataclass(frozen=True)
 class MDState:
-    """Per-atom dynamical state + box (the fields the LJ slice uses)."""
+    """Per-atom dynamical state + box.  The molecular fields are None for
+    atomic systems."""
 
     x: torch.Tensor       # (N, 3) positions
     v: torch.Tensor       # (N, 3) velocities
@@ -57,6 +58,9 @@ class MDState:
     tag: torch.Tensor     # (N,) int32 global atom ids (1-based; 0 = padding)
     image: torch.Tensor   # (N, 3) int32 periodic image flags
     box: Box
+    molecule: torch.Tensor | None = None     # (N,) int32 molecule id
+    bond_tags: torch.Tensor | None = None    # (N, B) int32 partner tags
+    bond_btypes: torch.Tensor | None = None  # (N, B) int32 bond types
 
     @property
     def capacity(self) -> int:
@@ -67,17 +71,19 @@ class MDState:
 
 
 # every per-atom field of MDState (for generic permute/pad/compact)
-PER_ATOM_FIELDS = ("x", "v", "f", "type", "tag", "image")
+PER_ATOM_FIELDS = ("x", "v", "f", "type", "tag", "image", "molecule",
+                   "bond_tags", "bond_btypes")
 
 
 def map_per_atom(state: MDState, fn) -> MDState:
-    """Apply fn(tensor) to every per-atom field."""
+    """Apply fn(tensor) to every per-atom field that is set."""
     return state.replace(**{k: fn(getattr(state, k))
-                            for k in PER_ATOM_FIELDS})
+                            for k in PER_ATOM_FIELDS
+                            if getattr(state, k) is not None})
 
 
 def make_state(x, v, types, box: Box, *, tags=None, image=None,
-               device, dtype) -> MDState:
+               molecule=None, device, dtype) -> MDState:
     """Build an MDState from host arrays (no padding)."""
     n = x.shape[0]
     if tags is None:
@@ -95,7 +101,8 @@ def make_state(x, v, types, box: Box, *, tags=None, image=None,
         f=torch.zeros_like(xt),
         type=ints(types), tag=ints(tags), image=ints(image),
         box=Box(lo=box.lo.to(device=device, dtype=dtype),
-                hi=box.hi.to(device=device, dtype=dtype)))
+                hi=box.hi.to(device=device, dtype=dtype)),
+        molecule=None if molecule is None else ints(molecule))
 
 
 def wrap_pbc(state: MDState) -> MDState:

@@ -1,10 +1,16 @@
 """Fixes: per-timestep state transforms around the force stage.
 
 The reference's Fix hook pipeline (src/fix.h, dispatched per phase by
-Modify) as ``(state, ctx) -> state`` transforms invoked at fixed phases
-of the step (tpumd/md/fixes.py):
+Modify) as transforms invoked at fixed phases of the step
+(tpumd/md/fixes.py):
 
-    initial_integrate -> (reneighbor?) -> force eval -> final_integrate
+    initial_integrate -> (reneighbor?) -> force eval -> post_force
+    -> final_integrate
+
+A fix object is a host-side config.  A fix that carries data from step
+to step (an RNG state) keeps it in a per-fix state value that the run
+loop threads through ``post_force``, so a segment redone after a cell
+overflow replays from its snapshot.
 """
 
 from __future__ import annotations
@@ -15,8 +21,19 @@ import torch
 class Fix:
     dof_removed = 0          # dof this fix removes from the group
 
+    def init_state(self, s, ctx):
+        """Per-fix state at setup."""
+        return None
+
+    def segment_inputs(self, nsteps: int, ctx, s):
+        """Optional host-generated per-step inputs, stacked over nsteps."""
+        return None
+
     def initial_integrate(self, s, ctx):
         return s
+
+    def post_force(self, s, fstate, ctx, xin=None):
+        return s, fstate
 
     def final_integrate(self, s, ctx):
         return s

@@ -4,7 +4,9 @@ Plays the role of the reference's Update + Run + Thermo + Finish
 (src/run.cpp, src/thermo.cpp, src/finish.cpp), as tpumd/md/simulation.py
 does for the cell-grid path: owns the styles, fixes and state, segments a
 run between thermo outputs, and reads the device once per segment (the
-neighbor overflow flag and the thermo row).
+neighbor overflow flag and the thermo row).  Molecular decks bring the
+bond topology from read_data; an eligible bond style rides the pair
+kernel (``_setup_kernel_bond``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from tpumd_torch.ops import cellgrid as cg
 from tpumd_torch.utils.units import Units, get_units
 
 THERMO_KEYS = ("step", "temp", "epair", "emol", "pe", "ke", "etotal",
-               "press", "vol", "lx", "ly", "lz", "evdwl", "atoms", "density")
+               "press", "vol", "lx", "ly", "lz", "evdwl", "ebond", "atoms",
+               "density")
 
 
 def resolve_device(device) -> torch.device:
@@ -50,6 +53,12 @@ class Simulation:
         self.ntypes = 0
         self.pair = None
         self.fixes: list = []
+        self.bond = None               # bond style
+        self.nbondtypes = None         # set by read_data
+        self.bonds = None              # (M, 3) type, tag1, tag2
+        self.special_lj = None         # (4,) weights or None
+        self.special_tags = None       # (N, S) from build_special
+        self.special_codes = None
 
         self.thermo_every = 0          # 0: only first/last
         self.thermo_style = ["step", "temp", "epair", "emol", "etotal",
@@ -65,6 +74,9 @@ class Simulation:
         self._cap_override = None
         self._natoms = None
         self._mass_sum = None
+        self._kernel_bond = None
+        self._ref_order_tags = None
+        self._fstate_stash: dict = {}
         self.step = 0
         self.last_thermo: dict | None = None
         self.loop_time = 0.0
@@ -112,7 +124,65 @@ class Simulation:
             fixes=tuple(self.fixes),
             mass_table=torch.as_tensor(mass_np, dtype=self.dtype,
                                        device=self.device),
-            natoms=self.natoms)
+            natoms=self.natoms, kernel_bond=self._kernel_bond,
+            ref_order_tags=self._ref_order_tags)
+
+    def _setup_kernel_bond(self):
+        """Route the bond style into the pair kernel
+        (tpumd/md/simulation.py:329-389): per-row (N, B) partner-tag and
+        bond-type tables ride the state, so they permute with the atoms,
+        and the kernel matches them like a special list.  The port has no
+        other bond path, so bonds that cannot ride the kernel raise."""
+        self._kernel_bond = None
+        bonds, style = self.bonds, self.bond
+        if bonds is None or len(bonds) == 0:
+            return
+        if style is None or self.pair is None:
+            raise NotImplementedError(
+                "bonds need a bond_style and a pair_style to ride the pair "
+                "kernel: the port has no other bond path")
+        cutneigh = self.max_cutoff() + self.skin
+        if not 0 < style.kernel_reach <= cutneigh:
+            raise NotImplementedError(
+                f"bond_style {style.name}: reach {style.kernel_reach} is "
+                f"not within cutneigh {cutneigh}, so its partners may lie "
+                "outside the cell stencil")
+        # the special pass collapses into the bond hit when the entries
+        # the grid would keep (weight != 1) are exactly the 1-2 pairs, at
+        # weight 0: the only case the kernel takes
+        collapse = False
+        if self.special_tags is not None and self.special_lj is not None \
+                and float(self.special_lj[1]) == 0.0:
+            st = np.asarray(self.special_tags)
+            sc = np.asarray(self.special_codes)
+            kept = (st > 0) & (np.asarray(self.special_lj)[sc] != 1.0)
+            collapse = bool((sc[kept] == 1).all())
+        if not collapse:
+            raise NotImplementedError(
+                "bonds whose special list does not collapse to the bond "
+                "partners at weight 0 (special_bonds fene): the LJ+FENE "
+                "kernel takes only that case")
+        n = self.natoms
+        tags = self.state.tag.cpu().numpy()
+        row_of_tag = np.zeros(n + 1, dtype=np.int64)
+        row_of_tag[tags] = np.arange(n)
+        bt = np.asarray(bonds)
+        # both directions of each bond: first every bond as seen from its
+        # first atom, then from its second, in bond order within a row
+        rows = row_of_tag[np.concatenate([bt[:, 1], bt[:, 2]])]
+        partner = np.concatenate([bt[:, 2], bt[:, 1]])
+        btype = np.concatenate([bt[:, 0], bt[:, 0]])
+        order = np.argsort(rows, kind="stable")
+        rows = rows[order]
+        col = np.arange(len(rows)) - np.searchsorted(rows, rows, "left")
+        btags = np.zeros((n, int(col.max()) + 1), np.int32)
+        btyps = np.zeros_like(btags)
+        btags[rows, col] = partner[order]
+        btyps[rows, col] = btype[order]
+        self.state = self.state.replace(
+            bond_tags=torch.as_tensor(btags, device=self.device),
+            bond_btypes=torch.as_tensor(btyps, device=self.device))
+        self._kernel_bond = style
 
     def _sort_atoms_host(self):
         """Spatial sort at setup (Atom::sort, src/atom.cpp:2246): fixes the
@@ -161,6 +231,10 @@ class Simulation:
                 counts = np.bincount(typ, minlength=self.ntypes + 1)
                 self.pair.compute_tails(counts.astype(np.float64))
         self._sort_atoms_host()
+        # reference row order (post-sort, pre-grid-permutation): host RNG
+        # streams draw in this order and are re-indexed by tag
+        self._ref_order_tags = self.state.tag.cpu().numpy()
+        self._setup_kernel_bond()
         for _ in range(6):
             self._ctx = self._make_ctx()
             s, neigh = self._grid_setup(self.state)
@@ -171,9 +245,21 @@ class Simulation:
                 self._neigh_cfg.cap * 1.5,
                 int(neigh.max_count) * 1.3) / 8) * 8)
         self._check_overflow(neigh)
-        f, energies, virial = eval_energies(s, neigh, self._ctx)
+        ctx = self._ctx
+        f, energies, virial = eval_energies(s, neigh, ctx)
         s = s.replace(f=f)
-        self._carry = (s, neigh)
+        fstates = []
+        # the reference applies post_force fixes once in setup
+        # (Verlet::setup -> FixLangevin::post_force): it kicks the step-0
+        # forces and uses up RNG draws
+        for fx in self.fixes:
+            fs = self._fstate_stash.pop(id(fx), None)
+            if fs is None:
+                fs = fx.init_state(s, ctx)
+            xin = fx.segment_inputs(1, ctx, s)
+            s, fs = fx.post_force(s, fs, ctx, None if xin is None else xin[0])
+            fstates.append(fs)
+        self._carry = (s, neigh, tuple(fstates))
         self.state = s
         self._last_energies = energies
         self._last_virial = virial
@@ -182,7 +268,10 @@ class Simulation:
         """Force a re-setup before the next run (the fix set changed);
         the padded grid-ordered state goes back to natoms rows."""
         if self._carry is not None:
-            s, neigh = self._carry
+            s, neigh, fstates = self._carry
+            # fixes that survive keep their state across the re-setup
+            self._fstate_stash = {id(fx): fs for fx, fs
+                                  in zip(self._ctx.fixes, fstates)}
             self.state = cg.compact_state(s, neigh.valid, self.natoms)
         self._ctx = None
         self._carry = None
@@ -207,9 +296,13 @@ class Simulation:
             if self.thermo_every > 0:
                 nxt = min(nxt, (self.step // self.thermo_every + 1)
                           * self.thermo_every)
+            seg = nxt - self.step
+            xs = [fx.segment_inputs(seg, ctx, self._carry[0])
+                  for fx in self.fixes]
             while True:
                 snapshot = self._carry
-                carry = run_segment(*snapshot, ctx, nxt - self.step)
+                # a redone segment reuses the same host draws
+                carry = run_segment(*snapshot, ctx, seg, xs)
                 # the one overflow read of the segment
                 if bool(carry[1].overflow):
                     # grow capacities, redo the segment from the snapshot
@@ -217,7 +310,7 @@ class Simulation:
                     continue
                 break
             self._carry = carry
-            s, neigh = carry
+            s, neigh, _ = carry
             self.state = s
             self.step = nxt
             # carry keeps the in-step f; this eval only refreshes energies
@@ -237,7 +330,7 @@ class Simulation:
     def _regrow(self, snapshot):
         """Grow the cell capacity after an overflow and rebuild the grid
         from the snapshot (tpumd/md/simulation.py:1376-1405)."""
-        s0, neigh0 = snapshot
+        s0, neigh0, fstates = snapshot
         mc = float(neigh0.max_count)
         self._cap_override = int(np.ceil(max(
             self._neigh_cfg.cap * 1.5, mc * 1.3) / 8) * 8)
@@ -246,7 +339,7 @@ class Simulation:
         s, neigh = self._grid_setup(self.state)
         neigh = neigh.replace(nbuilds=neigh0.nbuilds)
         self._check_overflow(neigh)
-        self._carry = (s, neigh)
+        self._carry = (s, neigh, fstates)
         return self._ctx
 
     def _finish_report(self, elapsed: float, nsteps: int):
@@ -303,17 +396,20 @@ class Simulation:
         press = ((dof * u.boltz * t + vir3 + ptail)
                  / (self.dimension * vol) * u.nktv2p)
         epair = e["evdwl"] + etail
+        emol = e["ebond"]
+        pe = epair + emol
         norm = self.natoms if self.thermo_norm else 1
         if self._mass_sum is None:
             typ = self._carry[0].type.cpu().numpy()
             self._mass_sum = float(self.mass[typ[typ > 0]].sum())
         vals = {
             "step": self.step, "temp": t,
-            "epair": epair / norm, "emol": 0.0, "pe": epair / norm,
-            "ke": ke / norm, "etotal": (epair + ke) / norm,
+            "epair": epair / norm, "emol": emol / norm, "pe": pe / norm,
+            "ke": ke / norm, "etotal": (pe + ke) / norm,
             "press": press, "vol": vol,
             "lx": float(ell[0]), "ly": float(ell[1]), "lz": float(ell[2]),
-            "evdwl": e["evdwl"] / norm, "atoms": self.natoms,
+            "evdwl": e["evdwl"] / norm, "ebond": e["ebond"] / norm,
+            "atoms": self.natoms,
             "density": self.units.mv2d * self._mass_sum / vol,
         }
         self.last_thermo = vals

@@ -5,7 +5,10 @@ step (integrate, reneighbor decision, force evaluation, integrate) runs as
 a Python loop of eager tensor operations.  The rebuild decision is made on
 the host from the every/delay schedule, so a step with ``check no`` never
 waits for the device; ``check yes`` reads one flag from the device on
-scheduled steps.  Energy and virial are evaluated only on output steps.
+scheduled steps (every step of the chain deck's ``every 1 delay 1``).
+Energy and virial are evaluated only on output steps.  Fix states (an
+RNG state) and per-step host inputs (exact RanMars draws) are threaded
+through the step to the fixes' ``post_force``.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Sequence
 
+import numpy as np
 import torch
 
 from tpumd_torch.core.state import MDState, wrap_pbc
@@ -32,6 +36,12 @@ class StepContext:
     fixes: Sequence[Any]
     mass_table: torch.Tensor       # (ntypes+1,) on the device
     natoms: int = 0                # true atom count (excludes padding)
+    # 2-body bond style evaluated inside the pair kernel by tag matching;
+    # a bonded pair takes only the bond force (special_bonds fene)
+    kernel_bond: Any = None
+    # tags in the reference's row order (setup-sorted): host RNG streams
+    # draw in this order
+    ref_order_tags: np.ndarray | None = None
 
     def mass_per_atom(self, s: MDState):
         # index_select takes the int32 types as they are (no index copy)
@@ -40,16 +50,22 @@ class StepContext:
 
 def compute_forces(s: MDState, neigh: cg.CellGridState, ctx: StepContext,
                    eflag: bool, vflag: bool):
-    """Pair forces; returns (f, energies dict, virial (6,) or None).
-    The energies are None unless eflag."""
+    """Pair and kernel-bond forces; returns (f, energies dict, virial (6,)
+    or None).  The energies (evdwl, ebond) are None unless eflag."""
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=s.x.dtype, device=s.x.device)
     if ctx.pair is None:
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=s.x.dtype, device=s.x.device)
-        return (torch.zeros_like(s.x), {"evdwl": zeros() if eflag else None},
+        e = zeros() if eflag else None
+        return (torch.zeros_like(s.x), {"evdwl": e, "ebond": e},
                 zeros(6) if vflag else None)
-    f, evdwl, virial = ctx.pair.compute_cellgrid(
-        s.x, neigh.valid, s.box, ctx.neigh_cfg, eflag, vflag)
-    return f, {"evdwl": evdwl}, virial
+    bond = None
+    if ctx.kernel_bond is not None:
+        bond = (s.bond_tags, s.bond_btypes, ctx.kernel_bond, s.tag)
+    f, evdwl, virial, ebond = ctx.pair.compute_cellgrid(
+        s.x, neigh.valid, s.box, ctx.neigh_cfg, eflag, vflag, bond=bond)
+    if eflag and ebond is None:
+        ebond = zeros()
+    return f, {"evdwl": evdwl, "ebond": ebond}, virial
 
 
 def _rebuild(s: MDState, neigh: cg.CellGridState, ctx: StepContext):
@@ -80,8 +96,10 @@ def decide_rebuild(s: MDState, neigh: cg.CellGridState,
     return True
 
 
-def step(s: MDState, neigh: cg.CellGridState, ctx: StepContext):
-    """One velocity-Verlet step."""
+def step(s: MDState, neigh: cg.CellGridState, fstates, ctx: StepContext,
+         xs):
+    """One velocity-Verlet step; xs holds each fix's input of this step
+    (or None)."""
     for fx in ctx.fixes:
         s = fx.initial_integrate(s, ctx)
     neigh = neigh.replace(ago=neigh.ago + 1)
@@ -89,16 +107,24 @@ def step(s: MDState, neigh: cg.CellGridState, ctx: StepContext):
         s, neigh = _rebuild(s, neigh, ctx)
     f, _, _ = compute_forces(s, neigh, ctx, eflag=False, vflag=False)
     s = s.replace(f=f)
+    fstates = list(fstates)
+    for i, fx in enumerate(ctx.fixes):
+        s, fstates[i] = fx.post_force(s, fstates[i], ctx, xs[i])
     for fx in ctx.fixes:
         s = fx.final_integrate(s, ctx)
-    return s, neigh
+    return s, neigh, tuple(fstates)
 
 
-def run_segment(s: MDState, neigh: cg.CellGridState, ctx: StepContext,
-                nsteps: int):
-    for _ in range(nsteps):
-        s, neigh = step(s, neigh, ctx)
-    return s, neigh
+def run_segment(s: MDState, neigh: cg.CellGridState, fstates,
+                ctx: StepContext, nsteps: int, xs=None):
+    """nsteps steps; xs: per fix, None or its inputs stacked over the
+    segment's steps."""
+    if xs is None:
+        xs = (None,) * len(ctx.fixes)
+    for k in range(nsteps):
+        s, neigh, fstates = step(s, neigh, fstates, ctx,
+                                 [None if x is None else x[k] for x in xs])
+    return s, neigh, fstates
 
 
 def eval_energies(s: MDState, neigh: cg.CellGridState, ctx: StepContext):

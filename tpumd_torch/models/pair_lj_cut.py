@@ -14,6 +14,7 @@ import torch
 from tpumd_torch.models.base import PairStyle
 from tpumd_torch.models.registry import register_pair
 from tpumd_torch.ops.lj_cellgrid import LJCoeffs, lj_cellgrid
+from tpumd_torch.ops.lj_fene_cellgrid import lj_fene_cellgrid
 
 
 @register_pair("lj/cut")
@@ -105,16 +106,32 @@ class PairLJCut(PairStyle):
         return LJCoeffs(*(float(a[1, 1]) for a in (
             self.lj1, self.lj2, self.lj3, self.lj4, self.offset, self.cutsq)))
 
-    def compute_cellgrid(self, x, valid, box, cfg, eflag: bool, vflag: bool):
-        """(f, evdwl or None, virial or None) on the cell grid.  Every
-        eflag/vflag combination goes through the LJ cell-grid kernel
-        (its plain version for CPU tensors)."""
+    def compute_cellgrid(self, x, valid, box, cfg, eflag: bool, vflag: bool,
+                         bond=None):
+        """(f, evdwl, virial, ebond) on the cell grid; evdwl and ebond are
+        None unless eflag, virial unless vflag, ebond without bonds.
+        Every eflag/vflag combination goes through a cell-grid kernel (its
+        plain version for CPU tensors): the LJ kernel, or with bond =
+        (bond_tags, bond_btypes, bond style, tag) the LJ+FENE kernel."""
         if self.ntypes != 1:
             raise NotImplementedError(
-                "lj/cut with more than one atom type: the cell-grid kernel "
-                "is single-type")
-        return lj_cellgrid(x, valid, box, cfg, self.kernel_coeffs(),
-                           eflag, vflag)
+                "lj/cut with more than one atom type: the cell-grid kernels "
+                "are single-type")
+        if bond is None:
+            return lj_cellgrid(x, valid, box, cfg, self.kernel_coeffs(),
+                               eflag, vflag) + (None,)
+        btags, _, style, tag = bond
+        if style.name != "fene":
+            raise NotImplementedError(
+                f"bond_style {style.name} in the pair kernel: only fene is "
+                "ported")
+        if btags.shape[1] > 2:
+            raise NotImplementedError(
+                f"{btags.shape[1]} bond partners per atom: the LJ+FENE "
+                "kernel holds at most 2")
+        return lj_fene_cellgrid(x, valid, tag, btags, box, cfg,
+                                self.kernel_coeffs(), style.kernel_coeffs(),
+                                eflag, vflag)
 
     def pair_fn(self, r2, itype, jtype):
         """(fpair, evdwl) per pair, coefficients read from the type

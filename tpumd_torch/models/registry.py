@@ -1,14 +1,25 @@
-"""Style registry: name -> constructor (the reference's style_pair.h
-factory, src/force.cpp:237-254).  Styles register themselves at import."""
+"""Style registry: name -> constructor (the reference's style_pair.h and
+style_bond.h factories, src/force.cpp:237-254).  Styles register
+themselves at import."""
 
 from __future__ import annotations
 
 _PAIR_STYLES = {}
+_BONDED_STYLES = {"bond": {}}   # kind -> {name: class}
 
 
 def register_pair(name):
     def deco(cls):
         _PAIR_STYLES[name] = cls
+        return cls
+    return deco
+
+
+def register_bonded(kind: str, name: str):
+    table = _BONDED_STYLES[kind]
+
+    def deco(cls):
+        table[name] = cls
         return cls
     return deco
 
@@ -20,6 +31,17 @@ def create_pair_style(name: str, ntypes: int, args):
     style = _PAIR_STYLES[name](ntypes)
     style.settings(*[_num(a) for a in args])
     return style
+
+
+def create_bonded_style(kind: str, name: str, args, ntypes: int):
+    import tpumd_torch.models.bonded  # noqa: F401 (registers bond fene)
+    table = _BONDED_STYLES.get(kind, {})
+    if name not in table:
+        raise NotImplementedError(f"{kind}_style {name!r} is not ported")
+    if args:
+        raise NotImplementedError(f"{kind}_style {name} takes no "
+                                  f"arguments, got {list(args)}")
+    return table[name](ntypes)
 
 
 def _num(tok):

@@ -227,16 +227,27 @@ def _roll_nbr(a, o: int, axis: int, corr):
 
 
 def cellgrid_pair_sums(x, type_, valid, box: Box, cfg: CellGridConfig,
-                       pair_fn, eflag: bool, vflag: bool):
+                       pair_fn, eflag: bool, vflag: bool, bond=None):
     """Forces, energy and virial of a pairwise style on the cell grid.
 
     Plain torch sweep (tpumd/ops/cellgrid.py::cellgrid_pair_sums without
-    special, charge or bond terms).  The x and y stencil offsets are
-    folded into one 9*cap-wide j-row and the three z offsets are looped.
+    special or charge terms).  The x and y stencil offsets are folded
+    into one 9*cap-wide j-row and the three z offsets are looped.
     ``pair_fn(r2, itype, jtype)`` returns (fpair, evdwl); masked pairs
     arrive with r2 = 1 so no division reaches an empty slot.  type_ may be
     None for single-type styles.  Returns (f, evdwl or None, virial (6,)
     or None); energy and virial take 1/2 per ordered pair.
+
+    bond: optional (bond_tags (Np,B), bond_btypes (Np,B), bond_fn, tag
+    (Np,)).  2-body bonds ride the same sweep: each candidate's tag is
+    matched against the i slot's partner tags, and a hit takes
+    ``bond_fn(r2, btype)`` = (fbond, ebond) with no cutoff test.  A bonded
+    pair takes only the bond force: the caller holds the special list to
+    exactly the bond partners at weight 0.  An axis of fewer than 3
+    cells presents a partner at several periodic images; the bond counts
+    at the minimum image only (the configs guard L >= 2*cutneigh, and
+    cutneigh covers the bond's reach, so that image is unique).  A fourth
+    return value carries the 1/2-tallied bond energy (None unless eflag).
     """
     cap = cfg.cap
     gshape = (cfg.nz, cfg.ny, cfg.nx, cap)
@@ -258,6 +269,14 @@ def cellgrid_pair_sums(x, type_, valid, box: Box, cfg: CellGridConfig,
     vrow = xyrow(vg, None, None)
     trow = None if tg is None else xyrow(tg, None, None)
     rowlen = len(xoffs) * len(yoffs) * cap
+    if bond is not None:
+        btags, btypes, bond_fn, atag = bond
+        tagrow = xyrow(atag.reshape(gshape), None, None)
+        nb = btags.shape[1]
+        btags_g = btags.reshape(gshape + (nb,))
+        btypes_g = btypes.reshape(gshape + (nb,))
+        min_image_guard = min(cfg.nx, cfg.ny, cfg.nz) < 3
+        ebond = torch.zeros((), dtype=dtype, device=x.device)
 
     # self-exclusion: in the zero shift, slot j == own slot within the
     # (ox=0, oy=0) segment of the row
@@ -284,6 +303,28 @@ def cellgrid_pair_sums(x, type_, valid, box: Box, cfg: CellGridConfig,
         ti = None if tg is None else tg[..., :, None]
         tj = None if trow is None else _roll_nbr(trow, dz, 0, None)[..., None, :]
         fp, e = pair_fn(r2, ti, tj)
+        if bond is not None:
+            tagj = _roll_nbr(tagrow, dz, 0, None)[..., None, :]
+            mask_b = mask
+            if min_image_guard:
+                mask_b = (mask & (torch.abs(d[0]) <= 0.5 * Lx)
+                          & (torch.abs(d[1]) <= 0.5 * Ly)
+                          & (torch.abs(d[2]) <= 0.5 * Lz))
+            bhit = None
+            btype_hit = torch.zeros(mask.shape, dtype=btypes.dtype,
+                                    device=x.device)
+            for bi in range(nb):
+                bt = btags_g[..., :, bi:bi + 1]
+                hit = (bt > 0) & (bt == tagj)
+                bhit = hit if bhit is None else (bhit | hit)
+                btype_hit = torch.where(hit, btypes_g[..., :, bi:bi + 1],
+                                        btype_hit)
+            bf, be = bond_fn(r2, btype_hit)
+            bondmask = bhit & mask_b
+            fp = torch.where(bondmask, bf, fp)
+            if eflag:
+                e = torch.where(bondmask, 0.0, e)
+                ebond = ebond + 0.5 * torch.sum(torch.where(bondmask, be, 0))
         fp = torch.where(mask, fp, 0)
         for c in range(3):
             fx[c] = fx[c] + torch.sum(d[c] * fp, dim=-1)
@@ -296,5 +337,8 @@ def cellgrid_pair_sums(x, type_, valid, box: Box, cfg: CellGridConfig,
                 torch.sum(fp * d[0] * d[2]), torch.sum(fp * d[1] * d[2])])
 
     f = torch.stack([c.reshape(-1) for c in fx], dim=1)
-    return f, (evdwl if eflag else None), (virial if vflag else None)
+    out = (f, (evdwl if eflag else None), (virial if vflag else None))
+    if bond is not None:
+        return out + ((ebond if eflag else None),)
+    return out
 

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from tpumd_torch.core.state import Box
+from tpumd_torch.ops import _build
 from tpumd_torch.ops.cellgrid import CellGridConfig, cellgrid_pair_sums
 
 
@@ -68,43 +69,33 @@ def lj_cellgrid_plain(x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
 
 _FN_NAMES = {torch.float32: "tpumd_lj_cellgrid_f32",
              torch.float64: "tpumd_lj_cellgrid_f64"}
-_kernel_fns: dict = {}
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_ARGTYPES = [_P] * 6 + [_I] * 4 + [_D] * 6 + [_I, _I, _P]
 
 
-def _kernel_fn(dtype):
-    fn = _kernel_fns.get(dtype)
-    if fn is None:
-        from tpumd_torch.ops import _build
-        fn = getattr(_build.load().lib, _FN_NAMES[dtype])
-        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, d, d, d, d, d, d,
-                       i, i, p]
-        fn.restype = ctypes.c_int
-        _kernel_fns[dtype] = fn
-    return fn
-
-
-def _check(x, valid, box: Box, cfg: CellGridConfig):
+def check_grid_inputs(x, valid, box: Box, cfg: CellGridConfig,
+                      name="lj_cellgrid"):
+    """Raise on inputs a cell-grid kernel does not take."""
     if x.dtype not in _FN_NAMES:
-        raise TypeError(f"lj_cellgrid: x must be float32 or float64, "
+        raise TypeError(f"{name}: x must be float32 or float64, "
                         f"got {x.dtype}")
     if tuple(x.shape) != (cfg.capacity, 3) or not x.is_contiguous():
-        raise ValueError(f"lj_cellgrid: x must be a contiguous "
+        raise ValueError(f"{name}: x must be a contiguous "
                          f"({cfg.capacity}, 3) tensor, got {tuple(x.shape)}")
     if (valid.dtype != torch.bool or tuple(valid.shape) != (cfg.capacity,)
             or not valid.is_contiguous()):
-        raise ValueError("lj_cellgrid: valid must be a contiguous bool "
+        raise ValueError(f"{name}: valid must be a contiguous bool "
                          f"({cfg.capacity},) tensor")
     lengths = box.lengths
     if lengths.dtype != x.dtype or not lengths.is_contiguous():
-        raise ValueError("lj_cellgrid: box lengths must be contiguous and "
+        raise ValueError(f"{name}: box lengths must be contiguous and "
                          "of x's dtype")
-    for name, t in (("valid", valid), ("box", lengths)):
+    for what, t in (("valid", valid), ("box", lengths)):
         if t.device != x.device:
-            raise ValueError(f"lj_cellgrid: {name} is on {t.device}, "
+            raise ValueError(f"{name}: {what} is on {t.device}, "
                              f"x on {x.device}")
     if not 1 <= cfg.cap <= 1024:
-        raise ValueError(f"lj_cellgrid: cap {cfg.cap} outside 1..1024")
+        raise ValueError(f"{name}: cap {cfg.cap} outside 1..1024")
 
 
 def lj_cellgrid(x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
@@ -117,8 +108,8 @@ def lj_cellgrid(x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
         return lj_cellgrid_plain(x, valid, box, cfg, c, eflag, vflag)
     if x.device.type != "cuda":
         raise ValueError(f"lj_cellgrid: no kernel for device {x.device}")
-    _check(x, valid, box, cfg)
-    fn = _kernel_fn(x.dtype)
+    check_grid_inputs(x, valid, box, cfg)
+    fn = _build.kernel_function(_FN_NAMES[x.dtype], _ARGTYPES)
     f = torch.empty_like(x)
     eslot = (torch.empty(cfg.capacity, dtype=x.dtype, device=x.device)
              if eflag else None)

@@ -1,26 +1,32 @@
 """LAMMPS-dialect input-script front end for the port.
 
 The command subset of tpumd/script/parser.py (the reference's Input
-interpreter, src/input.cpp) that the LJ-melt deck uses: line continuation
-(&), comment stripping and an order-sensitive command state machine
-driving a ``Simulation``.  Any other command raises NotImplementedError
-naming itself.
+interpreter, src/input.cpp) that the LJ-melt and chain decks use: line
+continuation (&), comment stripping and an order-sensitive command state
+machine driving a ``Simulation``.  Any other command raises
+NotImplementedError naming itself.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from tpumd_torch.core.create import create_atoms_lattice
+from tpumd_torch.core.atomvec import get_style
+from tpumd_torch.core.create import create_atoms_lattice, remap_host
 from tpumd_torch.core.lattice import Lattice
 from tpumd_torch.core.region import BlockRegion
 from tpumd_torch.core.state import Box, make_state
 from tpumd_torch.core.velocity_cmd import velocity_create_geom
+from tpumd_torch.io.read_data import build_special, read_data
+from tpumd_torch.md.fix_langevin import FixLangevin
 from tpumd_torch.md.fixes import FixNVE
 from tpumd_torch.md.simulation import THERMO_KEYS, Simulation, \
     resolve_device
-from tpumd_torch.models.registry import create_pair_style
+from tpumd_torch.models.registry import create_bonded_style, \
+    create_pair_style
 
 
 class ScriptError(RuntimeError):
@@ -30,11 +36,16 @@ class ScriptError(RuntimeError):
 class LammpsScript:
     """Parses and executes a LAMMPS input script against a Simulation on
     the given device, in the given float dtype.  Asking for CUDA on a
-    machine without a card raises here."""
+    machine without a card raises here.  Relative data-file paths resolve
+    against the deck's directory under ``run_file``, else the working
+    directory."""
 
     def __init__(self, *, device="cuda", dtype=torch.float32):
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.data_dir = "."
+        self.atom_style = "atomic"
+        self._pending_bond = None
         self.sim: Simulation | None = None
         self.lattice: Lattice | None = None
         self.regions: dict[str, BlockRegion] = {}
@@ -45,6 +56,7 @@ class LammpsScript:
 
     # -------------------------------------------------------------- plumbing
     def run_file(self, path: str):
+        self.data_dir = os.path.dirname(os.path.abspath(path))
         with open(path) as fh:
             self.run_string(fh.read())
 
@@ -91,8 +103,70 @@ class LammpsScript:
                               dtype=self.dtype)
 
     def cmd_atom_style(self, a):
-        if a[0] != "atomic":
-            raise NotImplementedError(f"atom_style {a[0]!r} is not ported")
+        get_style(a[0])   # raises for a style the port does not have
+        self.atom_style = a[0]
+
+    def cmd_read_data(self, a):
+        if len(a) != 1:
+            raise NotImplementedError(
+                f"read_data keywords {a[1:]} are not ported")
+        path = a[0]
+        if not os.path.isabs(path):
+            path = os.path.join(self.data_dir, path)
+        sim = self._require_sim()
+        d = read_data(path, self.atom_style)
+        sim.ntypes = d.natomtypes
+        sim.mass = d.masses.copy()
+        # the reference remaps every read atom into the box
+        # (src/atom.cpp:1176 -> Domain::remap) and folds the shift into
+        # the image flags
+        x = np.ascontiguousarray(d.x, dtype=np.float64)
+        image = d.image + remap_host(x, d.box_lo, d.box_hi,
+                                     (True, True, True))
+        box = Box.orthogonal(d.box_lo, d.box_hi, device=sim.device,
+                             dtype=self.dtype)
+        sim.state = make_state(x, d.v, d.types, box, image=image,
+                               molecule=d.molecule, device=sim.device,
+                               dtype=self.dtype)
+        sim.nbondtypes = d.nbondtypes
+        sim.bonds = d.bonds
+        sim.special_tags = sim.special_codes = None
+        if d.bonds is not None and len(d.bonds):
+            sim.special_tags, sim.special_codes = build_special(
+                d.natoms, d.bonds)
+        if self._pending_bond is not None:
+            sim.bond = create_bonded_style("bond", *self._pending_bond,
+                                           sim.nbondtypes)
+            self._pending_bond = None
+
+    def cmd_bond_style(self, a):
+        sim = self._require_sim()
+        if a[0] == "none":
+            sim.bond = None
+        elif sim.nbondtypes is None:
+            self._pending_bond = (a[0], a[1:])   # before read_data: defer
+        else:
+            sim.bond = create_bonded_style("bond", a[0], a[1:],
+                                           sim.nbondtypes)
+
+    def cmd_bond_coeff(self, a):
+        if self.sim is None or self.sim.bond is None:
+            raise ScriptError("bond_coeff before bond_style")
+        self.sim.bond.coeff(int(a[0]), *[float(v) for v in a[1:]])
+
+    # special_bonds presets: the 1-2, 1-3, 1-4 lj weights (the port has
+    # no charges, so the coul weights are not kept)
+    _SPECIAL_BONDS = {"fene": (0.0, 1.0, 1.0), "charmm": (0.0, 0.0, 0.0),
+                      "amber": (0.0, 0.0, 0.5)}
+
+    def cmd_special_bonds(self, a):
+        if a[0] == "lj/coul":
+            w = tuple(float(v) for v in a[1:4])
+        elif a[0] in self._SPECIAL_BONDS:
+            w = self._SPECIAL_BONDS[a[0]]
+        else:
+            raise NotImplementedError(f"special_bonds {a[0]} is not ported")
+        self._require_sim().special_lj = np.array((1.0,) + w)
 
     def cmd_lattice(self, a):
         sim = self._require_sim()
@@ -265,12 +339,16 @@ class LammpsScript:
 
     def cmd_fix(self, a):
         sim = self.sim
-        fid, group, style = a[0], a[1], a[2]
-        if style != "nve" or group != "all" or len(a) != 3:
+        fid, group, style, args = a[0], a[1], a[2], a[3:]
+        if group == "all" and style == "nve" and not args:
+            fx = FixNVE()
+        elif group == "all" and style == "langevin" and len(args) == 4:
+            fx = FixLangevin(*args[:3], int(args[3]), device=sim.device)
+        else:
             raise NotImplementedError(
-                f"fix {' '.join(a[1:])!r} is not ported (only 'all nve')")
+                f"fix {' '.join(a[1:])!r} is not ported (only 'all nve' and "
+                "'all langevin Tstart Tstop damp seed')")
         sim.fixes = [fx for fx in sim.fixes if fx.id != fid]
-        fx = FixNVE()
         fx.id = fid
         sim.fixes.append(fx)
         sim.invalidate_ctx()
