@@ -26,7 +26,15 @@ line each (any failure raises and exits non-zero):
    the device RNG: step-0 and step-100 gates, 500 warm-up and 500 timed
    steps, the launch counts of that run, the cost of the per-step rebuild
    check and a profile of 100 steps;
-6. a JSON line of the kernels, the card's name and power limit as
+6. main path, eam: the EAM density (B3) and force (B4) kernels against
+   their plain versions on perturbed fcc lattices of the generated Cu-like
+   potential at the 32k in.eam grid (12^3, cap 32) and a 2^3 grid, f32 and
+   f64, every flag combination, each timed at its 32k shape beside its
+   bound; a 500-atom eam deck on the card against the CPU (f64, step 40);
+   then the 32k in.eam deck through LammpsScript in f32: step-0 and
+   step-100 gates, 500 warm-up and 500 timed steps, the launch counts of
+   that run and a profile of 100 steps;
+7. a JSON line of the kernels, the card's name and power limit as
    nvidia-smi prints them, then the result line.
 
 Imports nothing of JAX or tpumd.
@@ -64,6 +72,16 @@ PEAK_BYTES_PER_S = 3.35e12
 OPS_LJ_PAIR = 16
 OPS_BOND_PAIR = 24
 OPS_ACCUM = 12
+# an in-range EAM pair, from eam_cellgrid.cu's loops: d and r2 (8), cutoff
+# test (1), sqrt (1), the spline row (p = r / dr + 1, clamps, fraction: 7);
+# the density pass adds rho(r) by Horner (6) and accumulates it on both
+# atoms (2); the force pass evaluates rho'(r), z2(r), z2'(r) (4 + 6 + 4),
+# 1/r, phi, phi' (5), psip and fpair (5), then f += d fpair on both atoms
+# (OPS_ACCUM).  Per atom, the density pass finds F'(rho): the row (7) and
+# the derivative (4).
+OPS_EAM_RHO_PAIR = 8 + 1 + 1 + 7 + 6 + 2
+OPS_EAM_FORCE_PAIR = 8 + 1 + 1 + 7 + 14 + 5 + 5 + OPS_ACCUM
+OPS_EAM_EMBED = 7 + 4
 
 
 def phase(name: str, msg: str):
@@ -91,21 +109,24 @@ def environment() -> str:
     return smi
 
 
-def perturbed_grid(nlat: int, seed: int, device, dtype):
-    """Slot-ordered positions and validity of an fcc in.lj lattice of
-    nlat^3 cells, each atom moved by up to +-0.05 sigma per axis."""
+def perturbed_grid(nlat: int, seed: int, device, dtype, eam=False):
+    """Slot-ordered positions and validity of an fcc lattice of nlat^3
+    cells: in.lj's, each atom moved by up to +-0.05 sigma per axis, or with
+    eam in.eam's (3.615 A, cutneigh 5.95 A), moved by up to +-0.15 A."""
     from tpumd_torch.core.create import create_atoms_lattice
     from tpumd_torch.core.lattice import Lattice
     from tpumd_torch.core.state import Box, make_state, wrap_pbc
     from tpumd_torch.ops import cellgrid as cg
-    lat = Lattice("fcc", 0.8442)
+    lat, amp, cutneigh, skin = ((Lattice("fcc", 3.615, units="metal"), 0.15,
+                                 5.95, 1.0) if eam else
+                                (Lattice("fcc", 0.8442), 0.05, 2.8, 0.3))
     hi = nlat * lat.spacing
     x, t = create_atoms_lattice(lat, None, np.zeros(3), hi)
-    x = x + np.random.default_rng(seed).uniform(-0.05, 0.05, x.shape)
+    x = x + np.random.default_rng(seed).uniform(-amp, amp, x.shape)
     box = Box.orthogonal(np.zeros(3), hi, device=device, dtype=dtype)
     s = wrap_pbc(make_state(x, np.zeros_like(x), t, box, device=device,
                             dtype=dtype))
-    cfg = cg.choose_cellgrid_config(box, 2.8, 0.3, len(x))
+    cfg = cg.choose_cellgrid_config(box, cutneigh, skin, len(x))
     s = cg.pad_state(s, cfg.capacity)
     valid0 = torch.arange(cfg.capacity, device=device) < len(x)
     perm, valid, _, over = cg.bin_permutation(s.x, valid0, s.box, cfg)
@@ -145,21 +166,40 @@ def pair_counts(x, valid, box, cfg, cutsq, tag=None, bond_tags=None):
     return round(float(out[1])), nb
 
 
+def warp_rows(x, valid, box, cfg, cutsq) -> tuple[int, int]:
+    """(candidate rows, rows in range) of the cell-grid kernels' loop: a
+    row is one j slot against every i slot of a cell, one loop iteration
+    of the cell's warp where cap <= 32.  It has work where j and some i of
+    the cell are valid, and takes the in-range path, on every lane, where
+    some pair of it lies within the cutoff."""
+    from tpumd_torch.ops.cellgrid import stencil_blocks
+    rows = hits = 0
+    for _, r2, mask, _ in stencil_blocks(x.double(), valid, box_f64(box),
+                                         cfg):
+        rows += int(mask.any(dim=-2).sum())
+        hits += int((mask & (r2 < cutsq)).any(dim=-2).sum())
+    return rows, hits
+
+
 def box_f64(box):
     from tpumd_torch.core.state import Box
     return Box(lo=box.lo.double(), hi=box.hi.double())
 
 
-def bound(nlj: int, nbond: int, nbytes: int) -> tuple[float, str]:
-    """Least time (ms) the card could take: the arithmetic of nlj
-    non-bonded and nbond bonded unordered pairs over the f32 peak, or the
-    bytes read and written once over the memory rate, whichever is
+def roof(ops: int, nbytes: int) -> tuple[float, str]:
+    """Least time (ms) the card could take: ops over the f32 peak, or
+    the bytes read and written once over the memory rate, whichever is
     larger."""
-    t_ops = (nlj * (OPS_LJ_PAIR + OPS_ACCUM)
-             + nbond * (OPS_BOND_PAIR + OPS_ACCUM)) / PEAK_F32_FLOPS
+    t_ops = ops / PEAK_F32_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound(nlj: int, nbond: int, nbytes: int) -> tuple[float, str]:
+    """roof() of nlj non-bonded and nbond bonded unordered pairs."""
+    return roof(nlj * (OPS_LJ_PAIR + OPS_ACCUM)
+                + nbond * (OPS_BOND_PAIR + OPS_ACCUM), nbytes)
 
 
 def check_close(what, fk, fp, ek, ep, wk, wp, tol, eflag, vflag):
@@ -518,6 +558,199 @@ def chain_main_path(tmp: Path, smi: str) -> dict:
     return {"launches": launches}
 
 
+def eam_potential(tmp: Path) -> Path:
+    from tpumd_torch.bench_targets import eam_funcfl
+    path = tmp / "Cu.eam"
+    eam_funcfl(path)
+    return path
+
+
+def eam_setup(potential: Path, n: int, device, dtype, thermo: int = 50):
+    """LammpsScript of in.eam with n^3 lattice cells on the potential,
+    verbose off, before its first run."""
+    from tpumd_torch.bench_targets import IN_EAM
+    from tpumd_torch.script.parser import LammpsScript
+    script = LammpsScript(device=device, dtype=dtype)
+    script.run_string(IN_EAM.format(n=n, potential=potential).replace(
+        "thermo          50", f"thermo          {thermo}"))
+    script.sim.verbose = False
+    return script
+
+
+def eam_kernels_vs_plain(tmp: Path) -> tuple[dict, dict]:
+    """B3 and B4 against their plain versions on perturbed in.eam
+    lattices; both force passes take the plain density pass's F'."""
+    from tpumd_torch.models.pair_eam import PairEAM
+    from tpumd_torch.ops.eam_cellgrid import eam_force_cellgrid, \
+        eam_force_cellgrid_plain, eam_rho_cellgrid, eam_rho_cellgrid_plain
+    pair = PairEAM(1)
+    pair.coeff(1, 1, 1, 1, str(eam_potential(tmp)))
+    pair.init()
+    k_rho, k_force = {}, {}
+    for nlat in (20, 4):
+        for dtype in (torch.float32, torch.float64):
+            x, valid, box, cfg = perturbed_grid(nlat, 17 + nlat, "cuda",
+                                                dtype, eam=True)
+            tab = pair.kernel_tables(x)
+            tol = TOL[dtype]
+            worst = 0.0
+            for eflag, vflag in ((0, 0), (1, 1), (1, 0), (0, 1)):
+                what = f"eam {nlat}^3 {dtype} e{eflag}v{vflag}"
+                rk, fpk, ek = eam_rho_cellgrid(x, valid, box, cfg, tab, eflag)
+                rp, fpp, ep = eam_rho_cellgrid_plain(x, valid, box, cfg, tab,
+                                                     eflag)
+                torch.cuda.synchronize()
+                for name, a, b in (("rho", rk, rp), ("F'", fpk, fpp)) + (
+                        (("F(rho)", ek, ep),) if eflag else ()):
+                    err = float((a - b).abs().max())
+                    if not err <= tol * float(b.abs().max()):
+                        raise AssertionError(f"{what} {name}: {err}")
+                fk, ek, wk = eam_force_cellgrid(x, valid, fpp, box, cfg, tab,
+                                                eflag, vflag)
+                fp, ep, wp = eam_force_cellgrid_plain(x, valid, fpp, box, cfg,
+                                                      tab, eflag, vflag)
+                worst = max(worst, check_close(what, fk, fp, (ek,), (ep,),
+                                               wk, wp, tol, eflag, vflag))
+            phase("kernel", f"eam_rho_cellgrid + eam_force_cellgrid grid "
+                            f"{cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cap} "
+                            f"{str(dtype)[6:]}: rho, F', F(rho) within tol; "
+                            f"max|f_kernel - f_plain| = {worst:.3g} max|f| "
+                            f"(tol {tol:g}), pair energy and virial within "
+                            f"tol")
+            if nlat != 20 or dtype != torch.float32:
+                continue
+            _, fpp, _ = eam_rho_cellgrid_plain(x, valid, box, cfg, tab, 0)
+            rk, _, _ = eam_rho_cellgrid(x, valid, box, cfg, tab, 0)
+            rp, _, _ = eam_rho_cellgrid_plain(x, valid, box, cfg, tab, 0)
+            k_rho["max_abs_err"] = float((rk - rp).abs().max())
+            fk, _, _ = eam_force_cellgrid(x, valid, fpp, box, cfg, tab, 0, 0)
+            fp, _, _ = eam_force_cellgrid_plain(x, valid, fpp, box, cfg, tab,
+                                                0, 0)
+            k_force["max_abs_err"] = float((fk - fp).abs().max())
+            k_rho.update(time_kernel(
+                "eam_rho_cellgrid",
+                lambda: eam_rho_cellgrid(x, valid, box, cfg, tab, 0),
+                lambda: eam_rho_cellgrid_plain(x, valid, box, cfg, tab, 0),
+                lambda: eam_rho_cellgrid(x, valid, box, cfg, tab, 1)))
+            k_force.update(time_kernel(
+                "eam_force_cellgrid",
+                lambda: eam_force_cellgrid(x, valid, fpp, box, cfg, tab, 0,
+                                           0),
+                lambda: eam_force_cellgrid_plain(x, valid, fpp, box, cfg,
+                                                 tab, 0, 0),
+                lambda: eam_force_cellgrid(x, valid, fpp, box, cfg, tab, 1,
+                                           1)))
+            npair, _ = pair_counts(x, valid, box, cfg, tab.cutsq)
+            natoms = int(valid.sum())
+            np_ = cfg.capacity
+            tables = 4 * (tab.rhor.numel() + tab.frho.numel())
+            nbytes = np_ * (12 + 1 + 4 + 4) + 12 + tables
+            k_rho["bound_ms"], k_rho["bound_by"] = roof(
+                npair * OPS_EAM_RHO_PAIR + natoms * OPS_EAM_EMBED, nbytes)
+            tables = 4 * (tab.rhor.numel() + tab.z2r.numel())
+            nbytes_f = np_ * (12 + 1 + 4 + 12) + 12 + tables
+            k_force["bound_ms"], k_force["bound_by"] = roof(
+                npair * OPS_EAM_FORCE_PAIR, nbytes_f)
+            cand = np_ * 27 * cfg.cap
+            rows, hits = warp_rows(x, valid, box, cfg, tab.cutsq)
+            phase("kernel", f"eam bounds: {npair} unordered in-cutoff pairs "
+                            f"({2 * npair / cand:.4%} of {cand} candidates "
+                            f"(i, j)); of {rows} candidate rows (one j "
+                            f"against a cell's slots), {hits / rows:.2%} "
+                            f"hold a pair in range; "
+                            f"{natoms} atoms; density pass {nbytes} "
+                            f"bytes -> {k_rho['bound_ms']:.6f} ms "
+                            f"({k_rho['bound_by']}); force pass {nbytes_f} "
+                            f"bytes -> {k_force['bound_ms']:.6f} ms "
+                            f"({k_force['bound_by']})")
+    return k_rho, k_force
+
+
+def small_eam_card_vs_cpu(tmp: Path):
+    """The 500-atom in.eam deck to step 40 (rebuilds on the displacement
+    check) on the card and on the CPU, f64: thermo agrees to 1e-10
+    relative, and the printed rows are equal."""
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        script = eam_setup(tmp / "Cu.eam", 5, dev, torch.float64, thermo=10)
+        script.run_string("run 40")
+        rows[dev] = (script.sim.last_thermo, [
+            ln for ln in script.sim.log_lines
+            if not ln.startswith(("Loop time", "Performance"))],
+            int(script.sim._carry[1].nbuilds))
+    for k in ("temp", "epair", "etotal", "press"):
+        a, b = rows["cuda"][0][k], rows["cpu"][0][k]
+        if not abs(a - b) <= 1e-10 * abs(b):
+            raise AssertionError(f"eam deck step 40 {k}: card {a} cpu {b}")
+    if rows["cuda"][1:] != rows["cpu"][1:]:
+        raise AssertionError(f"eam deck rows differ: {rows['cuda'][1]} vs "
+                             f"{rows['cpu'][1]}")
+    phase("main", f"500-atom eam deck f64 step 40 card = cpu to 1e-10, "
+                  f"equal rows, {rows['cuda'][2] - 1} rebuilds: etotal "
+                  f"{rows['cuda'][0]['etotal']!r}")
+
+
+def eam_main_path(tmp: Path, smi: str) -> tuple[dict, dict]:
+    from tpumd_torch.bench_targets import EAM_SANITY, EAM_STEP0, \
+        STEP0_RTOL, gate_failures
+    from tpumd_torch.ops import eam_cellgrid, lj_cellgrid, lj_fene_cellgrid
+
+    others = (lj_cellgrid.counts, lj_fene_cellgrid.counts)
+    rho_c, force_c = eam_cellgrid.rho_counts, eam_cellgrid.force_counts
+    for c in (rho_c, force_c) + others:
+        c.reset()
+    t0 = time.perf_counter()
+    script = eam_setup(eam_potential(tmp), 20, "cuda", torch.float32)
+    sim = script.sim
+    script.run_string("run 0")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    bad = gate_failures(sim.last_thermo, {
+        k: (v, STEP0_RTOL) for k, v in EAM_STEP0.items()})
+    if bad:
+        raise AssertionError(f"eam step-0 gate: {bad}")
+    script.run_string("run 100")
+    row100 = dict(sim.last_thermo)
+    bad = gate_failures(row100, EAM_SANITY)
+    if bad:
+        raise AssertionError(f"eam step-100 gate: {bad}")
+    script.run_string("run 500")
+    lt0, nb0 = sim.loop_time, int(sim._carry[1].nbuilds)
+    script.run_string("run 500")
+    dt = sim.loop_time - lt0
+    rebuilds = int(sim._carry[1].nbuilds) - nb0
+    launches = (rho_c.kernel_launches, force_c.kernel_launches)
+    plain = sum(c.plain_calls for c in (rho_c, force_c) + others)
+    other = sum(c.kernel_launches for c in others)
+    # setup evaluates once; a run of n steps at thermo 50 is n in-step
+    # evaluations plus one energy evaluation per 50 steps
+    force_evals = 1 + (100 + 2) + 2 * (500 + 10)
+    if launches != (force_evals, force_evals) or plain or other:
+        raise AssertionError(f"eam launches {launches} != force evaluations "
+                             f"{force_evals}, or plain calls {plain}, or "
+                             f"other kernels' launches {other}")
+    s = sim.state
+    if (tuple(s.x.shape) != (sim._neigh_cfg.capacity, 3)
+            or not torch.isfinite(s.x).all()
+            or sorted(s.tag[s.tag > 0].tolist()) != list(range(1, 32001))):
+        raise AssertionError("eam final state malformed")
+    sps = 500 / dt
+    cfg = sim._neigh_cfg
+    phase("main", f"32k in.eam f32: set-up {setup_s:.3f} s (potential file, "
+                  f"deck, grid {cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cap}, "
+                  f"first forces), step 0 and step 100 gates pass (step 100 "
+                  f"temp {row100['temp']!r} epair {row100['epair']!r} "
+                  f"etotal {row100['etotal']!r}); step 1100 etotal "
+                  f"{sim.last_thermo['etotal']!r}")
+    phase("main", f"eam timed 500 steps: {sps:.2f} timesteps/s, "
+                  f"{sps * 32000 / 1e6:.3f} Matom-step/s on {smi}; "
+                  f"{rebuilds} rebuilds; eam_rho / eam_force launches "
+                  f"{launches[0]} / {launches[1]} = force evaluations "
+                  f"{force_evals}, plain calls {plain}")
+    phase("main", "eam " + profile_steps(script, 100, 1e3 / sps))
+    return {"launches": launches[0]}, {"launches": launches[1]}
+
+
 def main():
     smi = environment()
     from tpumd_torch.ops import _build
@@ -537,12 +770,20 @@ def main():
         m_lj = main_path(smi)
         small_chain_card_vs_cpu(tmp)
         m_fene = chain_main_path(tmp, smi)
+        k_rho, k_force = eam_kernels_vs_plain(tmp)
+        small_eam_card_vs_cpu(tmp)
+        m_rho, m_force = eam_main_path(tmp, smi)
     kernels = []
+    eam_src = "tpumd_torch/csrc/eam_cellgrid.cu"
     for name, src, replaces, k, m in (
             ("lj_cellgrid", "tpumd_torch/csrc/lj_cellgrid.cu",
              "tpumd/ops/pallas_lj.py:25", k_lj, m_lj),
             ("lj_fene_cellgrid", "tpumd_torch/csrc/lj_fene_cellgrid.cu",
-             "tpumd/ops/pallas_lj.py:146", k_fene, m_fene)):
+             "tpumd/ops/pallas_lj.py:146", k_fene, m_fene),
+            ("eam_rho_cellgrid", eam_src, "tpumd/ops/pallas_eam.py:99",
+             k_rho, m_rho),
+            ("eam_force_cellgrid", eam_src, "tpumd/ops/pallas_eam.py:128",
+             k_force, m_force)):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": m["launches"],

@@ -9,7 +9,12 @@ runs on a card host without JAX:
   (3^3 and 2x3x3 grids);
 * LJ+FENE (B2, ``lj_fene_cellgrid``): the grid-ordered state of generated
   chain decks after setup, on a 5^3 grid and on a 2^3 grid where bonds
-  count at the minimum image.
+  count at the minimum image;
+* EAM density and force passes (B3 ``eam_rho_cellgrid``, B4
+  ``eam_force_cellgrid``): perturbed fcc lattices of the generated Cu-like
+  potential, 5^3 and 4^3 lattice cells (3^3 and 2^3 grids); both force
+  passes take the plain density pass's F', and the density pass is held
+  on rho, F' and the embedding energy.
 
 f32 and f64, every energy/virial flag combination; tolerances as in
 chip_smoke.py: forces 5e-5 (f32) or 1e-12 (f64) of max|f|, energies and
@@ -20,12 +25,15 @@ import numpy as np
 import pytest
 import torch
 
-from tpumd_torch.bench_targets import IN_CHAIN, chain_data
+from tpumd_torch.bench_targets import EAM_A0, IN_CHAIN, chain_data, \
+    eam_funcfl
 from tpumd_torch.core.create import create_atoms_lattice
 from tpumd_torch.core.lattice import Lattice
 from tpumd_torch.core.state import Box, make_state, wrap_pbc
 from tpumd_torch.interop import pair_from_numpy
+from tpumd_torch.models.pair_eam import PairEAM
 from tpumd_torch.ops import cellgrid as cg
+from tpumd_torch.ops import eam_cellgrid as b34
 from tpumd_torch.ops import lj_cellgrid as b1
 from tpumd_torch.ops import lj_fene_cellgrid as b2
 from tpumd_torch.script.parser import LammpsScript
@@ -39,15 +47,18 @@ def _card():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
 
 
-def _lj_grid(block, dtype, seed=5):
-    lat = Lattice("fcc", 0.8442)
+def _fcc_grid(block, dtype, seed=5, lattice=("fcc", 0.8442, "lj"),
+              amp=0.05, cutneigh=2.8, skin=0.3):
+    """Slot-ordered positions, validity, box and grid of a perturbed
+    lattice of block cells (in.lj's fcc by default)."""
+    lat = Lattice(lattice[0], lattice[1], units=lattice[2])
     hi = np.asarray(block) * lat.spacing
     x, t = create_atoms_lattice(lat, None, np.zeros(3), hi)
-    x = x + np.random.default_rng(seed).uniform(-0.05, 0.05, x.shape)
+    x = x + np.random.default_rng(seed).uniform(-amp, amp, x.shape)
     box = Box.orthogonal(np.zeros(3), hi, device="cuda", dtype=dtype)
     s = wrap_pbc(make_state(x, np.zeros_like(x), t, box, device="cuda",
                             dtype=dtype))
-    cfg = cg.choose_cellgrid_config(box, 2.8, 0.3, len(x))
+    cfg = cg.choose_cellgrid_config(box, cutneigh, skin, len(x))
     s = cg.pad_state(s, cfg.capacity)
     valid0 = torch.arange(cfg.capacity, device="cuda") < len(x)
     perm, valid, _, over = cg.bin_permutation(s.x, valid0, s.box, cfg)
@@ -91,7 +102,7 @@ def test_cuda_kernel_matches_plain(dtype):
     eps[1, 1], sig[1, 1], cut[1, 1] = 1.0, 1.0, 2.5
     c = pair_from_numpy(eps, sig, cut).kernel_coeffs()
     for block in ((6, 6, 6), (4, 6, 6)):
-        x, valid, box, cfg = _lj_grid(block, dt)
+        x, valid, box, cfg = _fcc_grid(block, dt)
         for ef, vf in FLAGS:
             n0 = b1.counts.kernel_launches
             out = b1.lj_cellgrid(x, valid, box, cfg, c, ef, vf)
@@ -113,3 +124,35 @@ def test_lj_fene_cuda_kernel_matches_plain(dtype, tmp_path):
             out = b2.lj_fene_cellgrid(*args, ef, vf)
             assert b2.counts.kernel_launches == n0 + 1
             _close(out, b2.lj_fene_cellgrid_plain(*args, ef, vf), TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_eam_cuda_kernels_match_plain(dtype, tmp_path):
+    """B3 and B4, the EAM density and force kernels."""
+    _card()
+    dt = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    eam_funcfl(tmp_path / "Cu.eam")
+    pair = PairEAM(1)
+    pair.coeff(1, 1, 1, 1, str(tmp_path / "Cu.eam"))
+    pair.init()
+    for nlat in (5, 4):
+        x, valid, box, cfg = _fcc_grid(
+            (nlat,) * 3, dt, lattice=("fcc", EAM_A0, "metal"), amp=0.15,
+            cutneigh=pair.cutmax + 1.0, skin=1.0)
+        assert cfg.nx == nlat - 2
+        tab = pair.kernel_tables(x)
+        for ef, vf in FLAGS:
+            n0 = b34.rho_counts.kernel_launches
+            rho = b34.eam_rho_cellgrid(x, valid, box, cfg, tab, ef)
+            assert b34.rho_counts.kernel_launches == n0 + 1
+            plain = b34.eam_rho_cellgrid_plain(x, valid, box, cfg, tab, ef)
+            _close(rho, plain, TOL[dt])
+            # F' of empty slots is 0 in both
+            assert float(rho[1][~valid].abs().max()) == 0.0
+            n0 = b34.force_counts.kernel_launches
+            out = b34.eam_force_cellgrid(x, valid, plain[1], box, cfg, tab,
+                                         ef, vf)
+            assert b34.force_counts.kernel_launches == n0 + 1
+            _close(out, b34.eam_force_cellgrid_plain(
+                x, valid, plain[1], box, cfg, tab, ef, vf), TOL[dt])

@@ -4,7 +4,8 @@ The in.lj gates are copied from tools/bench_all.py (which imports jax) so
 that the port's chip check needs no JAX.  The chain deck's published data
 file is not in the repository, so ``chain_data`` makes a system of its
 published size and density from a seed, and its gates are tpumd's own
-results on that system.
+results on that system.  Likewise the eam deck's published potential
+(Cu_u3.eam): ``eam_funcfl`` writes a Cu-like one from analytic functions.
 """
 
 import numpy as np
@@ -141,6 +142,159 @@ def chain_data(path, natoms: int = 32000, chain_len: int = 100,
     with open(path, "w") as fh:
         fh.write("\n".join(lines) + "\n")
     return L
+
+
+# LAMMPS bench/in.eam with its x/y/z index variables expanded: a region of
+# {n}^3 fcc cells (n = 20: 32,000 atoms); {potential} is the potential file,
+# written by eam_funcfl below because bench/Cu_u3.eam is not in the
+# repository
+IN_EAM = """
+units           metal
+atom_style      atomic
+lattice         fcc 3.615
+region          box block 0 {n} 0 {n} 0 {n}
+create_box      1 box
+create_atoms    1 box
+pair_style      eam
+pair_coeff      1 1 {potential}
+velocity        all create 1600.0 376847 loop geom
+neighbor        1.0 bin
+neigh_modify    every 1 delay 5 check yes
+fix             1 all nve
+timestep        0.005
+thermo          50
+"""
+
+# Targets of IN_EAM at n = 20 on eam_funcfl() at its defaults, computed by
+# tpumd on the CPU in float64 on its matrix engine, the exact spline tables
+# (tests/test_torch_eam_slice.py::test_eam_targets_from_tpumd regenerates
+# them).  Step 0 holds to STEP0_RTOL; step 100 to the eam tolerances of
+# tools/bench_all.py:89-90.
+EAM_STEP0 = {"temp": 1599.9999999999998, "epair": -113280.00003086543,
+             "etotal": -106662.08742309743, "press": 18703.582071837904}
+EAM_SANITY = {"temp": (804.7411100430563, 1e-2),
+              "epair": (-109971.35746949984, 1e-3),
+              "etotal": (-106642.79100816036, 1e-3)}
+
+# The generated potential: a Cu-like element at bench/in.eam's lattice
+# constant, on the grid of the published Cu_u3.eam (500 r points at 0.01 A,
+# cutoff 4.95 A).  rho(r) and phi(r) are the exponentials of Johnson's
+# analytic EAM (Phys. Rev. B 37, 3924 (1988)), rho ~ exp(-beta (r/re - 1)),
+# phi = phi_e exp(-gamma (r/re - 1)), with re the nearest-neighbour distance;
+# each is tapered to zero value and zero slope at the cutoff by subtracting
+# its tangent line there, so phi stays repulsive.  F(rho) is fixed by
+# making the static fcc crystal follow Rose's universal binding curve (Phys.
+# Rev. B 29, 2963 (1984)) for the cohesive energy and bulk modulus of Cu:
+# E(a) = -Ec (1 + s) exp(-s), s = (a/a0 - 1) / sqrt(Ec / (9 B a0^3 / 4)), so
+# fcc at a0 = 3.615 A sits at zero static pressure at -3.54 eV/atom.
+EAM_A0 = 3.615
+EAM_MASS = 63.55
+_EAM_EC = 3.54                    # eV
+_EAM_BULK = 142.0 / 160.21766208  # 142 GPa in eV/A^3
+_EAM_BETA, _EAM_GAMMA, _EAM_PHIE = 5.85, 8.0, 0.59
+# 27.2 * 0.529: the funcfl unit of Z^2 (Hartree Bohr) in eV A
+_EAM_Z2 = 27.2 * 0.529
+
+
+def _tapered_exp(r, amp, k, re, cut):
+    """amp exp(-k (r - re)) minus its tangent line at the cutoff: zero
+    value and zero slope at cut, and zero beyond."""
+    ec = np.exp(-k * (cut - re))
+    out = amp * (np.exp(-k * (r - re)) - ec * (1.0 - k * (r - cut)))
+    return np.where(r < cut, out, 0.0)
+
+
+def _eam_functions(cut):
+    """(rho(r), phi(r), F(rho)) of the generated potential, vectorised."""
+    re = EAM_A0 / np.sqrt(2.0)
+
+    def phi(r):
+        return _tapered_exp(r, _EAM_PHIE, _EAM_GAMMA / re, re, cut)
+
+    def rho_raw(r):
+        return _tapered_exp(r, 1.0, _EAM_BETA / re, re, cut)
+
+    # fcc shells in units of a/2: sites (i, j, k) with i + j + k even, up
+    # to where the densest lattice searched (a = 2 A) leaves the cutoff
+    m = np.arange(-5, 6)
+    n2 = (m[:, None, None] ** 2 + m[None, :, None] ** 2
+          + m[None, None, :] ** 2)
+    even = ((m[:, None, None] + m[None, :, None] + m[None, None, :]) % 2
+            == 0) & (n2 > 0) & (n2 < 25)
+    shell, mult = np.unique(n2[even], return_counts=True)
+    shell_r = 0.5 * np.sqrt(shell)
+
+    def lattice_sums(a, fn):
+        return np.sum(mult * fn(np.multiply.outer(a, shell_r)), axis=-1)
+
+    norm = lattice_sums(np.float64(EAM_A0), rho_raw)   # rho-bar(a0) = 1
+
+    def rho(r):
+        return rho_raw(r) / norm
+
+    lam = np.sqrt(_EAM_EC / (9.0 * _EAM_BULK * EAM_A0 ** 3 / 4.0))
+
+    def embed(rhobar):
+        # the lattice constant whose host density is rhobar, by bisection
+        # (rho-bar falls with a, and is 0 once a / sqrt(2) >= cut)
+        lo = np.full_like(rhobar, 2.0)
+        hi = np.full_like(rhobar, cut * np.sqrt(2.0))
+        for _ in range(100):
+            mid = 0.5 * (lo + hi)
+            denser = lattice_sums(mid, rho) > rhobar
+            lo, hi = np.where(denser, mid, lo), np.where(denser, hi, mid)
+        a = 0.5 * (lo + hi)
+        s = (a / EAM_A0 - 1.0) / lam
+        return (-_EAM_EC * (1.0 + s) * np.exp(-s)
+                - 0.5 * lattice_sums(a, phi))
+
+    return rho, phi, embed
+
+
+def _eam_tables(nrho, drho, nr, dr, cut):
+    rho, phi, embed = _eam_functions(cut)
+    r = np.arange(nr) * dr
+    return embed(np.arange(nrho) * drho), rho(r), r * phi(r)
+
+
+def _write_values(fh, vals):
+    for k in range(0, len(vals), 5):
+        fh.write(" ".join(f"{v:.16e}" for v in vals[k:k + 5]) + "\n")
+
+
+def eam_funcfl(path, nrho: int = 500, drho: float = 0.005, nr: int = 500,
+               dr: float = 0.01, cut: float = 4.95):
+    """Write the generated Cu-like potential as a funcfl file (pair_style
+    eam): the element line, the grid line, then F(rho) at rho = k drho,
+    Z(r) and rho(r) at r = k dr, with r phi(r) = 27.2 * 0.529 Z(r)^2.
+    The F grid reaches 2.5 times the host density of the fcc crystal."""
+    frho, rhor, z2r = _eam_tables(nrho, drho, nr, dr, cut)
+    with open(path, "w") as fh:
+        fh.write("Cu-like analytic EAM: Johnson exponentials, Rose "
+                 "universal binding curve\n")
+        fh.write(f"29 {EAM_MASS} {EAM_A0} FCC\n")
+        fh.write(f"{nrho} {drho!r} {nr} {dr!r} {cut!r}\n")
+        for vals in (frho, np.sqrt(z2r / _EAM_Z2), rhor):
+            _write_values(fh, vals)
+
+
+def eam_setfl(path, nrho: int = 500, drho: float = 0.005, nr: int = 500,
+              dr: float = 0.01, cut: float = 4.95, fs: bool = False):
+    """Write the same potential as a one-element setfl file (pair_style
+    eam/alloy, element Cu) or, with fs, an eam/fs file: three comment
+    lines, the element line, the grid line, the element's line, F(rho),
+    rho(r), then r phi(r).  With one element the two formats hold the same
+    numbers."""
+    frho, rhor, z2r = _eam_tables(nrho, drho, nr, dr, cut)
+    kind = "eam/fs" if fs else "eam/alloy setfl"
+    with open(path, "w") as fh:
+        fh.write(f"Cu-like analytic EAM ({kind}): Johnson exponentials,\n"
+                 "Rose universal binding curve\n\n")
+        fh.write("1 Cu\n")
+        fh.write(f"{nrho} {drho!r} {nr} {dr!r} {cut!r}\n")
+        fh.write(f"29 {EAM_MASS} {EAM_A0} fcc\n")
+        for vals in (frho, rhor, z2r):
+            _write_values(fh, vals)
 
 
 def gate_failures(vals: dict, targets: dict) -> list[str]:

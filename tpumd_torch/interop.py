@@ -1,8 +1,8 @@
 """State bridge: build the port's objects from another engine's arrays.
 
-Takes plain numpy arrays (for example the fields of a tpumd ``MDState``
-and ``PairLJCut``), so one state can be fed to both engines.  This module
-imports nothing of tpumd.
+Takes plain numpy arrays (for example the fields of a tpumd ``MDState``,
+``PairLJCut`` and ``PairEAM``), so one state and one potential can be fed
+to both engines.  This module imports nothing of tpumd.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from tpumd_torch.core.state import Box, MDState
+from tpumd_torch.models.pair_eam import PairEAM
 from tpumd_torch.models.pair_lj_cut import PairLJCut
 
 
@@ -47,4 +48,25 @@ def pair_from_numpy(epsilon, sigma, cut, *, shift=False,
     pair.mix = mix
     pair._setflag[1:, 1:] = True
     pair.init()
+    return pair
+
+
+def eam_from_numpy(frho_spline, rhor_spline, z2r_spline, dr, drho, nr, nrho,
+                   rhomax, cutmax) -> PairEAM:
+    """A one-type PairEAM holding the given spline tables (for example
+    tpumd's ``PairEAM`` fields), ready for ``compute_cellgrid``: tables of
+    shape (k, n+1, 7), the first of each serving the one element.  It
+    has no potential file, so ``init`` must not be called on it."""
+    pair = PairEAM(1)
+    pair.frho_spline, pair.rhor_spline, pair.z2r_spline = (
+        np.array(a, np.float64) for a in (frho_spline, rhor_spline,
+                                          z2r_spline))
+    pair.type2frho = np.zeros(2, np.int32)
+    pair.type2rhor = np.zeros((2, 2), np.int32)
+    pair.type2z2r = np.zeros((2, 2), np.int32)
+    pair.dr, pair.drho = float(dr), float(drho)
+    pair.nr, pair.nrho = int(nr), int(nrho)
+    pair.rhomax, pair.cutmax = float(rhomax), float(cutmax)
+    pair.cutforcesq = pair.cutmax * pair.cutmax
+    pair._setflag[1, 1] = True
     return pair

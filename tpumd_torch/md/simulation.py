@@ -352,7 +352,8 @@ class Simulation:
             matom = sps * n / 1e6
             u = self.units
             if u.femtosecond > 0:
-                perday = sps * self.dt * u.femtosecond * 1e-6 * 86400
+                # femtosecond is 1 fs in time units (1e-3 in metal's ps)
+                perday = sps * self.dt / u.femtosecond * 1e-6 * 86400
                 unit_day = f"{perday:.3f} ns/day"
             else:
                 unit_day = f"{sps * self.dt * 86400:.3f} tau/day"

@@ -12,6 +12,7 @@ import torch
 
 class PairStyle:
     name = "none"
+    tail_flag = False   # pair_modify tail yes (styles with tail terms)
 
     def __init__(self, ntypes: int):
         self.ntypes = ntypes

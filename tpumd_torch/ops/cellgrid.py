@@ -226,17 +226,71 @@ def _roll_nbr(a, o: int, axis: int, corr):
     return r + step.reshape(shape) * corr
 
 
+def stencil_blocks(x, valid, box: Box, cfg: CellGridConfig, per_slot=()):
+    """The candidate pairs of the plain sweeps, one z offset at a time.
+
+    The x and y stencil offsets are folded into one 9*cap-wide j-row, so
+    each block is (nz, ny, nx, cap, 9 cap).  Yields (d, r2, mask, pairs):
+    d the three components of x_i - x_j (periodic wrap applied), r2 their
+    squared length set to 1 where mask is False (invalid i or j, or the
+    self slot), so no division reaches an empty slot, and for each
+    per-slot array a of per_slot the pair (a_i, a_j), broadcastable to the
+    block.
+    """
+    cap = cfg.cap
+    gshape = (cfg.nz, cfg.ny, cfg.nx, cap)
+    Lx, Ly, Lz = box.lengths[0], box.lengths[1], box.lengths[2]
+
+    xg = [x[:, c].reshape(gshape) for c in range(3)]
+    vg = valid.reshape(gshape)
+    ag = [a.reshape(gshape) for a in per_slot]
+    xoffs, yoffs = _offs(cfg.nx), _offs(cfg.ny)
+
+    def xyrow(a, corrx, corry):
+        row = torch.cat([_roll_nbr(a, o, 2, corrx) for o in xoffs], dim=-1)
+        return torch.cat([_roll_nbr(row, o, 1, corry) for o in yoffs],
+                         dim=-1)
+
+    rows = [xyrow(xg[0], Lx, None), xyrow(xg[1], None, Ly),
+            xyrow(xg[2], None, None)]
+    vrow = xyrow(vg, None, None)
+    arows = [xyrow(a, None, None) for a in ag]
+    rowlen = len(xoffs) * len(yoffs) * cap
+
+    # self-exclusion: in the zero shift, slot j == own slot within the
+    # (ox=0, oy=0) segment of the row
+    zero_seg = yoffs.index(0) * len(xoffs) + xoffs.index(0)
+    ii = torch.arange(cap, device=x.device)[:, None]
+    jj = torch.arange(rowlen, device=x.device)[None, :]
+    not_self = jj != ii + zero_seg * cap
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+
+    for dz in _offs(cfg.nz):
+        xj = [_roll_nbr(rows[0], dz, 0, None), _roll_nbr(rows[1], dz, 0, None),
+              _roll_nbr(rows[2], dz, 0, Lz)]
+        vj = _roll_nbr(vrow, dz, 0, None)
+        d = [xg[c][..., :, None] - xj[c][..., None, :] for c in range(3)]
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        mask = vg[..., :, None] & vj[..., None, :]
+        if dz == 0:
+            mask = mask & not_self
+        pairs = [(a[..., :, None], _roll_nbr(row, dz, 0, None)[..., None, :])
+                 for a, row in zip(ag, arows)]
+        yield d, torch.where(mask, r2, one), mask, pairs
+
+
 def cellgrid_pair_sums(x, type_, valid, box: Box, cfg: CellGridConfig,
                        pair_fn, eflag: bool, vflag: bool, bond=None):
     """Forces, energy and virial of a pairwise style on the cell grid.
 
     Plain torch sweep (tpumd/ops/cellgrid.py::cellgrid_pair_sums without
-    special or charge terms).  The x and y stencil offsets are folded
-    into one 9*cap-wide j-row and the three z offsets are looped.
+    special or charge terms) over ``stencil_blocks``.
     ``pair_fn(r2, itype, jtype)`` returns (fpair, evdwl); masked pairs
-    arrive with r2 = 1 so no division reaches an empty slot.  type_ may be
-    None for single-type styles.  Returns (f, evdwl or None, virial (6,)
-    or None); energy and virial take 1/2 per ordered pair.
+    arrive with r2 = 1 so no division reaches an empty slot.  type_ holds
+    the per-slot values handed to pair_fn as itype and jtype (atom types,
+    or any per-slot value a style needs), or None for single-type styles.
+    Returns (f, evdwl or None, virial (6,) or None); energy and virial
+    take 1/2 per ordered pair.
 
     bond: optional (bond_tags (Np,B), bond_btypes (Np,B), bond_fn, tag
     (Np,)).  2-body bonds ride the same sweep: each candidate's tag is
@@ -249,62 +303,28 @@ def cellgrid_pair_sums(x, type_, valid, box: Box, cfg: CellGridConfig,
     cutneigh covers the bond's reach, so that image is unique).  A fourth
     return value carries the 1/2-tallied bond energy (None unless eflag).
     """
-    cap = cfg.cap
-    gshape = (cfg.nz, cfg.ny, cfg.nx, cap)
+    gshape = (cfg.nz, cfg.ny, cfg.nx, cfg.cap)
     dtype = x.dtype
     Lx, Ly, Lz = box.lengths[0], box.lengths[1], box.lengths[2]
-
-    xg = [x[:, c].reshape(gshape) for c in range(3)]
-    vg = valid.reshape(gshape)
-    tg = None if type_ is None else type_.reshape(gshape)
-    xoffs, yoffs = _offs(cfg.nx), _offs(cfg.ny)
-
-    def xyrow(a, corrx, corry):
-        row = torch.cat([_roll_nbr(a, o, 2, corrx) for o in xoffs], dim=-1)
-        return torch.cat([_roll_nbr(row, o, 1, corry) for o in yoffs],
-                         dim=-1)
-
-    rows = [xyrow(xg[0], Lx, None), xyrow(xg[1], None, Ly),
-            xyrow(xg[2], None, None)]
-    vrow = xyrow(vg, None, None)
-    trow = None if tg is None else xyrow(tg, None, None)
-    rowlen = len(xoffs) * len(yoffs) * cap
+    per_slot = [] if type_ is None else [type_]
     if bond is not None:
         btags, btypes, bond_fn, atag = bond
-        tagrow = xyrow(atag.reshape(gshape), None, None)
+        per_slot.append(atag)
         nb = btags.shape[1]
         btags_g = btags.reshape(gshape + (nb,))
         btypes_g = btypes.reshape(gshape + (nb,))
         min_image_guard = min(cfg.nx, cfg.ny, cfg.nz) < 3
         ebond = torch.zeros((), dtype=dtype, device=x.device)
 
-    # self-exclusion: in the zero shift, slot j == own slot within the
-    # (ox=0, oy=0) segment of the row
-    zero_seg = yoffs.index(0) * len(xoffs) + xoffs.index(0)
-    ii = torch.arange(cap, device=x.device)[:, None]
-    jj = torch.arange(rowlen, device=x.device)[None, :]
-    not_self = jj != ii + zero_seg * cap
-
     fx = [torch.zeros(gshape, dtype=dtype, device=x.device)
           for _ in range(3)]
     evdwl = torch.zeros((), dtype=dtype, device=x.device)
     virial = torch.zeros(6, dtype=dtype, device=x.device)
-    for dz in _offs(cfg.nz):
-        xj = [_roll_nbr(rows[0], dz, 0, None), _roll_nbr(rows[1], dz, 0, None),
-              _roll_nbr(rows[2], dz, 0, Lz)]
-        vj = _roll_nbr(vrow, dz, 0, None)
-        d = [xg[c][..., :, None] - xj[c][..., None, :] for c in range(3)]
-        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-        mask = vg[..., :, None] & vj[..., None, :]
-        if dz == 0:
-            mask = mask & not_self
-        r2 = torch.where(mask, r2, torch.ones((), dtype=dtype,
-                                              device=x.device))
-        ti = None if tg is None else tg[..., :, None]
-        tj = None if trow is None else _roll_nbr(trow, dz, 0, None)[..., None, :]
+    for d, r2, mask, pairs in stencil_blocks(x, valid, box, cfg, per_slot):
+        ti, tj = pairs[0] if type_ is not None else (None, None)
         fp, e = pair_fn(r2, ti, tj)
         if bond is not None:
-            tagj = _roll_nbr(tagrow, dz, 0, None)[..., None, :]
+            tagj = pairs[-1][1]
             mask_b = mask
             if min_image_guard:
                 mask_b = (mask & (torch.abs(d[0]) <= 0.5 * Lx)

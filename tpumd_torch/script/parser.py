@@ -1,7 +1,7 @@
 """LAMMPS-dialect input-script front end for the port.
 
 The command subset of tpumd/script/parser.py (the reference's Input
-interpreter, src/input.cpp) that the LJ-melt and chain decks use: line
+interpreter, src/input.cpp) that the LJ-melt, chain and eam decks use: line
 continuation (&), comment stripping and an order-sensitive command state
 machine driving a ``Simulation``.  Any other command raises
 NotImplementedError naming itself.
@@ -36,9 +36,9 @@ class ScriptError(RuntimeError):
 class LammpsScript:
     """Parses and executes a LAMMPS input script against a Simulation on
     the given device, in the given float dtype.  Asking for CUDA on a
-    machine without a card raises here.  Relative data-file paths resolve
-    against the deck's directory under ``run_file``, else the working
-    directory."""
+    machine without a card raises here.  Relative data-file and potential
+    paths resolve against the deck's directory under ``run_file``, else the
+    working directory."""
 
     def __init__(self, *, device="cuda", dtype=torch.float32):
         self.device = resolve_device(device)
@@ -278,7 +278,24 @@ class LammpsScript:
 
         ilo, ihi = parse_range(a[0], sim.ntypes)
         jlo, jhi = parse_range(a[1], sim.ntypes)
-        sim.pair.coeff(ilo, ihi, jlo, jhi, *[float(v) for v in a[2:]])
+        # numbers, else a potential file (relative paths resolve against
+        # the deck's directory where the file is found there) or an
+        # element name
+        rest = []
+        for tok in a[2:]:
+            try:
+                rest.append(float(tok))
+            except ValueError:
+                path = os.path.join(self.data_dir, tok)
+                rest.append(path if not os.path.isabs(tok)
+                            and os.path.exists(path) else tok)
+        sim.pair.coeff(ilo, ihi, jlo, jhi, *rest)
+        # potentials that carry per-type masses (EAM files) set them, as
+        # the reference does: in.eam has no mass command
+        pmass = getattr(sim.pair, "mass", None)
+        if pmass is not None:
+            nz = np.nonzero(pmass)[0]
+            sim.mass[nz] = pmass[nz]
 
     def cmd_pair_modify(self, a):
         kw = dict(zip(a[::2], a[1::2]))
