@@ -34,7 +34,16 @@ line each (any failure raises and exits non-zero):
    then the 32k in.eam deck through LammpsScript in f32: step-0 and
    step-100 gates, 500 warm-up and 500 timed steps, the launch counts of
    that run and a profile of 100 steps;
-7. a JSON line of the kernels, the card's name and power limit as
+7. main path, rhodo_class: the lj/charmm/coul/long kernel (B5) against
+   its plain version on the card, f32 and f64, every flag combination, on
+   the 32k rhodo_class grid and the 2^3 peptide grid after set-up, timed
+   at the 32k shape with and without energy beside its bound, with its
+   registers and spills; the 2,004-atom peptide with the rhodo_class
+   settings on the card against the CPU (f64, step 40); then the 32,064-
+   atom deck through LammpsScript in f32: the reference binary's step-0
+   and step-100 gates, the PPPM mesh, 500 warm-up and 500 timed steps, the
+   launch counts of that run and a profile of 100 steps;
+8. a JSON line of the kernels, the card's name and power limit as
    nvidia-smi prints them, then the result line.
 
 Imports nothing of JAX or tpumd.
@@ -42,6 +51,7 @@ Imports nothing of JAX or tpumd.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.metadata
 import json
 import re
@@ -82,6 +92,20 @@ OPS_ACCUM = 12
 OPS_EAM_RHO_PAIR = 8 + 1 + 1 + 7 + 6 + 2
 OPS_EAM_FORCE_PAIR = 8 + 1 + 1 + 7 + 14 + 5 + 5 + OPS_ACCUM
 OPS_EAM_EMBED = 7 + 4
+# an in-range lj/charmm/coul/long pair, from charmm_cellgrid.cu's loop:
+# every such pair d and r2 (8), the cutoff test (1), 1/r2 (1), fpair from
+# both terms (3) and f += d fpair on both atoms (OPS_ACCUM); within the
+# Coulomb cutoff sqrt, g r, the exponent and exp (5), the polynomial's
+# argument and reciprocal (3), the polynomial (9) and its factor (1), the
+# prefactor (3), the force's erfc and Gaussian terms (4) and the exclusion
+# term (3); within the LJ cutoff r^-6 (2), the force (3) and its weight
+# (1); between the inner and outer LJ cutoffs the switch (18).  The walk
+# over the special list compares integers and is not counted.
+OPS_CHARMM_PAIR = 8 + 1 + 1 + 3 + OPS_ACCUM
+OPS_CHARMM_COUL = 5 + 3 + 9 + 1 + 3 + 4 + 3
+OPS_CHARMM_LJ = 2 + 3 + 1
+OPS_CHARMM_SWITCH = 18
+GOLDEN = Path(__file__).resolve().parent / "tests" / "golden" / "peptide"
 
 
 def phase(name: str, msg: str):
@@ -174,8 +198,8 @@ def warp_rows(x, valid, box, cfg, cutsq) -> tuple[int, int]:
     some pair of it lies within the cutoff."""
     from tpumd_torch.ops.cellgrid import stencil_blocks
     rows = hits = 0
-    for _, r2, mask, _ in stencil_blocks(x.double(), valid, box_f64(box),
-                                         cfg):
+    for _, _, r2, mask, _ in stencil_blocks(x.double(), valid,
+                                            box_f64(box), cfg):
         rows += int(mask.any(dim=-2).sum())
         hits += int((mask & (r2 < cutsq)).any(dim=-2).sum())
     return rows, hits
@@ -751,6 +775,264 @@ def eam_main_path(tmp: Path, smi: str) -> tuple[dict, dict]:
     return {"launches": launches[0]}, {"launches": launches[1]}
 
 
+def rhodo_setup(replicate: str, device, dtype, thermo: int = 0):
+    """LammpsScript of the rhodo_class deck on the peptide replicated as
+    given, verbose off, before its first run."""
+    from tpumd_torch.bench_targets import IN_RHODO_CLASS
+    from tpumd_torch.script.parser import LammpsScript
+    script = LammpsScript(device=device, dtype=dtype)
+    script.run_string(IN_RHODO_CLASS.format(golden=GOLDEN).replace(
+        "replicate       2 2 4", f"replicate       {replicate}")
+        + (f"thermo          {thermo}\n" if thermo else ""))
+    script.sim.verbose = False
+    return script
+
+
+def charmm_counts(args):
+    """(pairs within the Coulomb cutoff, within the LJ cutoff, in the
+    LJ switching shell, within either) of these inputs, unordered, counted
+    with the plain sweep in f64."""
+    from tpumd_torch.ops.cellgrid import cellgrid_pair_sums
+    from tpumd_torch.ops.charmm_cellgrid import special_weights
+    x, q, type_, valid, tag, stags, scodes, box, cfg, c = args
+    wl, wc = special_weights(scodes, c, x.double())
+    cutsq = max(c.cut_coulsq, c.cut_ljsq)
+    out = []
+    for a, b in ((c.cut_coulsq, c.cut_ljsq), (c.cut_lj_innersq, cutsq)):
+        def count(r2, ti, tj, w_lj, w_coul, qi, qj, a=a, b=b):
+            return (torch.zeros_like(r2), (r2 < b).to(r2.dtype),
+                    (r2 < a).to(r2.dtype), torch.zeros_like(r2))
+        _, nb_, _, na_ = cellgrid_pair_sums(
+            x.double(), type_, valid, box_f64(box), cfg, count, True, False,
+            q=q.double(), special=(tag, stags, wl, wc), cutsq=cutsq,
+            max_pairs=1 << 26)
+        out += [round(float(na_)), round(float(nb_))]
+    ncoul, nlj, ninner, nall = out
+    return ncoul, nlj, nlj - ninner, nall
+
+
+def charmm_args(script, dtype):
+    """The arguments of charmm_cellgrid for a set-up script's state."""
+    from tpumd_torch.core.state import Box
+    sim = script.sim
+    s, neigh, _ = sim._carry
+    x = s.x.to(dtype)
+    box = Box(lo=s.box.lo.to(dtype), hi=s.box.hi.to(dtype))
+    c = sim.pair.kernel_coeffs(x, *sim._special_weights())
+    return (x, s.q.to(dtype), s.type, neigh.valid, s.tag, s.special_tags,
+            s.special_codes, box, sim._neigh_cfg, c)
+
+
+def charmm_kernel_vs_plain(ptxas_log: str) -> dict:
+    """B5 against its plain version on the 32k rhodo_class grid and the
+    2^3 peptide grid after set-up, f32 and f64, every flag combination;
+    timed and bounded at the 32k shape."""
+    from tpumd_torch.ops.charmm_cellgrid import charmm_cellgrid, \
+        charmm_cellgrid_plain
+    regs = re.findall(r"charmm_cellgrid_kernelI([fd])Lb(\d)ELb(\d)E.*?\n"
+                      r".*?(\d+) bytes spill stores.*?\n.*?Used (\d+) "
+                      r"registers", ptxas_log)
+    phase("kernel", "charmm_cellgrid ptxas (type, eflag, vflag: registers, "
+                    "spill store bytes): " + "; ".join(
+                        f"{t}{e}{v}: {r}, {sp}" for t, e, v, sp, r in regs))
+    out = {}
+    for replicate in ("2 2 4", "1 1 1"):
+        script = rhodo_setup(replicate, "cuda", torch.float64)
+        script.run_string("run 0")
+        for dtype in (torch.float32, torch.float64):
+            args = charmm_args(script, dtype)
+            cfg = args[8]
+            tol = TOL[dtype]
+            worst = 0.0
+            for eflag, vflag in ((0, 0), (1, 1), (1, 0), (0, 1)):
+                what = f"charmm {replicate} {dtype} e{eflag}v{vflag}"
+                fk, evk, eck, wk = charmm_cellgrid(*args, eflag, vflag)
+                fp, evp, ecp, wp = charmm_cellgrid_plain(*args, eflag,
+                                                         vflag)
+                worst = max(worst, check_close(what, fk, fp, (evk, eck),
+                                               (evp, ecp), wk, wp, tol,
+                                               eflag, vflag))
+                if eflag and vflag:
+                    eerr = max(abs(float(evk - evp)) / abs(float(evp)),
+                               abs(float(eck - ecp)) / abs(float(ecp)))
+                    verr = float((wk - wp).abs().max()
+                                 / wp.abs().max())
+            phase("kernel", f"charmm_cellgrid grid {cfg.nx}x{cfg.ny}x"
+                            f"{cfg.nz} cap {cfg.cap} S "
+                            f"{args[5].shape[1]} {str(dtype)[6:]}: "
+                            f"max|f_kernel - f_plain| = {worst:.3g} max|f|, "
+                            f"evdwl/ecoul {eerr:.3g}, virial {verr:.3g} of "
+                            f"max (tol {tol:g})")
+            if replicate != "2 2 4" or dtype != torch.float32:
+                continue
+            fk, _, _, _ = charmm_cellgrid(*args, 0, 0)
+            fp, _, _, _ = charmm_cellgrid_plain(*args, 0, 0)
+            out["max_abs_err"] = float((fk - fp).abs().max())
+            out.update(time_kernel(
+                "charmm_cellgrid",
+                lambda: charmm_cellgrid(*args, 0, 0),
+                lambda: charmm_cellgrid_plain(*args, 0, 0),
+                lambda: charmm_cellgrid(*args, 1, 1), reps=50))
+            out["v_ms"] = cuda_ms(lambda: charmm_cellgrid(*args, 0, 1), 50)
+            ncoul, nlj, nsw, nall = charmm_counts(args)
+            np_ = cfg.capacity
+            S = args[5].shape[1]
+            nbytes = (np_ * (12 + 4 + 4 + 1 + 4 + 8 * S + 12)
+                      + args[9].lj.numel() * 4 + 12)
+            out["bound_ms"], out["bound_by"] = roof(
+                nall * OPS_CHARMM_PAIR + ncoul * OPS_CHARMM_COUL
+                + nlj * OPS_CHARMM_LJ + nsw * OPS_CHARMM_SWITCH, nbytes)
+            cand = np_ * 27 * cfg.cap
+            phase("kernel", f"charmm_cellgrid at the 32k shape: kernel "
+                            f"with the virial only (the per-step launch "
+                            f"under NPT) {out['v_ms']:.4f} ms; bound: "
+                            f"{nall} unordered pairs in range "
+                            f"({2 * nall / cand:.4%} of {cand} candidates "
+                            f"(i, j)), {ncoul} in Coulomb range, {nlj} in "
+                            f"LJ range, {nsw} in the switching shell; "
+                            f"{nbytes} bytes -> {out['bound_ms']:.6f} ms "
+                            f"({out['bound_by']})")
+    return out
+
+
+def small_rhodo_card_vs_cpu():
+    """The peptide with the rhodo_class settings to step 40 on the card
+    and on the CPU, f64: thermo agrees to 1e-10 relative, and the printed
+    rows and rebuild counts are equal."""
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        script = rhodo_setup("1 1 1", dev, torch.float64, thermo=10)
+        script.run_string("run 40")
+        rows[dev] = (script.sim.last_thermo, [
+            ln for ln in script.sim.log_lines
+            if not ln.startswith(("Loop time", "Performance"))],
+            int(script.sim._carry[1].nbuilds))
+    for k in ("temp", "epair", "emol", "etotal", "press", "lz"):
+        a, b = rows["cuda"][0][k], rows["cpu"][0][k]
+        if not abs(a - b) <= 1e-10 * abs(b):
+            raise AssertionError(f"peptide deck step 40 {k}: card {a} cpu "
+                                 f"{b}")
+    if rows["cuda"][1:] != rows["cpu"][1:]:
+        raise AssertionError(f"peptide deck rows differ: {rows['cuda'][1]} "
+                             f"vs {rows['cpu'][1]}")
+    phase("main", f"2,004-atom peptide, rhodo_class settings, f64 step 40 "
+                  f"card = cpu to 1e-10, equal rows, {rows['cuda'][2] - 1} "
+                  f"rebuilds: etotal {rows['cuda'][0]['etotal']!r}")
+
+
+def rhodo_main_path(smi: str) -> dict:
+    from tpumd_torch.bench_targets import RHODO_STEP0, RHODO_STEP100, \
+        STEP0_RTOL, gate_failures
+    from tpumd_torch.ops import charmm_cellgrid, eam_cellgrid, \
+        lj_cellgrid, lj_fene_cellgrid
+
+    others = (lj_cellgrid.counts, lj_fene_cellgrid.counts,
+              eam_cellgrid.rho_counts, eam_cellgrid.force_counts)
+    b5 = charmm_cellgrid.counts
+    for c in (b5,) + others:
+        c.reset()
+    t0 = time.perf_counter()
+    script = rhodo_setup("2 2 4", "cuda", torch.float32)
+    sim = script.sim
+    script.run_string("run 0")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    row0 = dict(sim.last_thermo)
+    bad = gate_failures(row0, {k: (v, STEP0_RTOL)
+                               for k, v in RHODO_STEP0.items()})
+    if bad:
+        raise AssertionError(f"rhodo_class step-0 gate: {bad}")
+    script.run_string("run 100")
+    row100 = dict(sim.last_thermo)
+    bad = gate_failures(row100, RHODO_STEP100)
+    if bad:
+        raise AssertionError(f"rhodo_class step-100 gate: {bad}")
+    script.run_string("run 500")
+    lt0, nb0 = sim.loop_time, int(sim._carry[1].nbuilds)
+    script.run_string("run 500")
+    dt = sim.loop_time - lt0
+    rebuilds = int(sim._carry[1].nbuilds) - nb0
+    launches, plain = b5.kernel_launches, b5.plain_calls
+    other = sum(c.kernel_launches for c in others)
+    plain += sum(c.plain_calls for c in others)
+    # setup evaluates once; a run of n > 0 steps without thermo output is
+    # one segment: n in-step evaluations plus one energy evaluation
+    force_evals = 1 + (100 + 1) + 2 * (500 + 1)
+    if launches != force_evals or plain or other:
+        raise AssertionError(f"charmm launches {launches} != force "
+                             f"evaluations {force_evals}, or plain calls "
+                             f"{plain}, or other kernels' launches {other}")
+    s = sim.state
+    n = sim.natoms
+    if (n != 32064 or tuple(s.x.shape) != (sim._neigh_cfg.capacity, 3)
+            or not torch.isfinite(s.x).all()
+            or sorted(s.tag[s.tag > 0].tolist()) != list(range(1, n + 1))):
+        raise AssertionError("rhodo_class final state malformed")
+    sps = 500 / dt
+    cfg, ks = sim._neigh_cfg, sim.kspace
+    phase("main", f"32k rhodo_class f32: set-up {setup_s:.3f} s (data file, "
+                  f"replicate, SHAKE clusters, PPPM mesh {ks.nx}x{ks.ny}x"
+                  f"{ks.nz} g_ewald {float(ks.g_ewald)!r}, grid {cfg.nx}x{cfg.ny}x"
+                  f"{cfg.nz} cap {cfg.cap}, first forces); step 0 "
+                  f"{ {k: row0[k] for k in RHODO_STEP0} } and step 100 "
+                  f"{ {k: row100[k] for k in RHODO_STEP100} } pass the "
+                  f"reference binary's gates; step 1200 etotal "
+                  f"{sim.last_thermo['etotal']!r}, lz "
+                  f"{sim.last_thermo['lz']!r}")
+    phase("main", f"rhodo_class timed 500 steps: {sps:.2f} timesteps/s, "
+                  f"{sps * n / 1e6:.3f} Matom-step/s on {smi}; {rebuilds} "
+                  f"rebuilds; charmm_cellgrid launches {launches} = force "
+                  f"evaluations {force_evals}, plain calls {plain}, other "
+                  f"kernels' launches {other}")
+    phase("main", "rhodo_class " + profile_steps(script, 100, 1e3 / sps))
+    phase("main", "rhodo_class step parts, host clock to a synchronize, "
+                  "ms per call on the final state: " + rhodo_breakdown(sim))
+    return {"launches": launches}
+
+
+def rhodo_breakdown(sim, reps: int = 20) -> str:
+    """Host-clock time of each part of a rhodo_class step, each run alone
+    on the final state and followed by a synchronize: the pair kernel with
+    the virial, the bonded styles, PPPM, SHAKE's solve, fix npt's two
+    halves and the rebuild check."""
+    from tpumd_torch.md import verlet
+    from tpumd_torch.models.bonded import compute_tuples
+    s, neigh, fstates = sim._carry
+    ctx = sim._ctx
+    shake = [(fx, fs) for fx, fs in zip(ctx.fixes, fstates)
+             if fx.name == "shake"][0]
+    nh = [(fx, fs) for fx, fs in zip(ctx.fixes, fstates)
+          if fx.name == "nh"][0]
+    only_pair = dataclasses.replace(ctx, bonded=(), kspace=None)
+
+    def bonded():
+        r2s = neigh.row2slot
+        view = (s.x[r2s], s.type[r2s], s.q[r2s])
+        for style, tuples in ctx.bonded:
+            compute_tuples(style, view, tuples, s.box, ctx, False, True)
+    parts = {
+        "pair (B5, virial)": lambda: verlet.compute_forces(
+            s, neigh, only_pair, False, True),
+        "bonded": bonded,
+        "pppm": lambda: ctx.kspace.compute(s.x, s.q, s.box, False, True),
+        "shake": lambda: shake[0].post_force(s, shake[1], ctx),
+        "npt initial": lambda: nh[0].initial_integrate(s, nh[1], ctx),
+        "npt final": lambda: nh[0].final_integrate(s, nh[1], ctx),
+        "rebuild check": lambda: verlet.decide_rebuild(
+            s, neigh.replace(ago=ctx.neigh_cfg.delay), ctx),
+    }
+    out = []
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out.append(f"{name} {1e3 * (time.perf_counter() - t0) / reps:.3f}")
+    return "; ".join(out)
+
+
 def main():
     smi = environment()
     from tpumd_torch.ops import _build
@@ -773,6 +1055,9 @@ def main():
         k_rho, k_force = eam_kernels_vs_plain(tmp)
         small_eam_card_vs_cpu(tmp)
         m_rho, m_force = eam_main_path(tmp, smi)
+    k_charmm = charmm_kernel_vs_plain(log)
+    small_rhodo_card_vs_cpu()
+    m_charmm = rhodo_main_path(smi)
     kernels = []
     eam_src = "tpumd_torch/csrc/eam_cellgrid.cu"
     for name, src, replaces, k, m in (
@@ -783,7 +1068,9 @@ def main():
             ("eam_rho_cellgrid", eam_src, "tpumd/ops/pallas_eam.py:99",
              k_rho, m_rho),
             ("eam_force_cellgrid", eam_src, "tpumd/ops/pallas_eam.py:128",
-             k_force, m_force)):
+             k_force, m_force),
+            ("charmm_cellgrid", "tpumd_torch/csrc/charmm_cellgrid.cu",
+             "tpumd/ops/pallas_charmm.py:43", k_charmm, m_charmm)):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": m["launches"],

@@ -14,31 +14,41 @@ runs on a card host without JAX:
   ``eam_force_cellgrid``): perturbed fcc lattices of the generated Cu-like
   potential, 5^3 and 4^3 lattice cells (3^3 and 2^3 grids); both force
   passes take the plain density pass's F', and the density pass is held
-  on rho, F' and the embedding energy.
+  on rho, F' and the embedding energy;
+* lj/charmm/coul/long (B5, ``charmm_cellgrid``): the grid-ordered state of
+  the peptide deck with the rhodo_class settings after set-up (a 2^3 grid
+  of cap 368, every neighbour cell met at two images) and of its 1x1x2
+  replica (a 2x2x4 grid), special weights, charges and the kspace
+  exclusion term included.
 
 f32 and f64, every energy/virial flag combination; tolerances as in
 chip_smoke.py: forces 5e-5 (f32) or 1e-12 (f64) of max|f|, energies and
 virial the same relative to their size.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from tpumd_torch.bench_targets import EAM_A0, IN_CHAIN, chain_data, \
-    eam_funcfl
+from tpumd_torch.bench_targets import EAM_A0, IN_CHAIN, IN_RHODO_CLASS, \
+    chain_data, eam_funcfl
 from tpumd_torch.core.create import create_atoms_lattice
 from tpumd_torch.core.lattice import Lattice
 from tpumd_torch.core.state import Box, make_state, wrap_pbc
 from tpumd_torch.interop import pair_from_numpy
 from tpumd_torch.models.pair_eam import PairEAM
 from tpumd_torch.ops import cellgrid as cg
+from tpumd_torch.ops import charmm_cellgrid as b5
 from tpumd_torch.ops import eam_cellgrid as b34
 from tpumd_torch.ops import lj_cellgrid as b1
 from tpumd_torch.ops import lj_fene_cellgrid as b2
 from tpumd_torch.script.parser import LammpsScript
 
 TOL = {torch.float32: 5e-5, torch.float64: 1e-12}
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                      "peptide")
 FLAGS = ((1, 1), (0, 0), (1, 0), (0, 1))
 
 
@@ -156,3 +166,38 @@ def test_eam_cuda_kernels_match_plain(dtype, tmp_path):
             assert b34.force_counts.kernel_launches == n0 + 1
             _close(out, b34.eam_force_cellgrid_plain(
                 x, valid, plain[1], box, cfg, tab, ef, vf), TOL[dt])
+
+
+def _charmm_grid(replicate, dtype):
+    """The arguments of charmm_cellgrid for the rhodo_class deck on the
+    peptide, replicated as given, after set-up on the card."""
+    script = LammpsScript(device="cuda", dtype=torch.float64)
+    script.run_string(IN_RHODO_CLASS.format(golden=GOLDEN).replace(
+        "replicate       2 2 4", f"replicate       {replicate}"))
+    script.sim.verbose = False
+    script.run_string("run 0")
+    sim = script.sim
+    s, neigh, _ = sim._carry
+    x = s.x.to(dtype)
+    box = Box(lo=s.box.lo.to(dtype), hi=s.box.hi.to(dtype))
+    c = sim.pair.kernel_coeffs(x, *sim._special_weights())
+    return (x, s.q.to(dtype), s.type, neigh.valid, s.tag, s.special_tags,
+            s.special_codes, box, sim._neigh_cfg, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_charmm_cuda_kernel_matches_plain(dtype):
+    """B5, the lj/charmm/coul/long cell-grid kernel."""
+    _card()
+    dt = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    for replicate, grid in (("1 1 1", (2, 2, 2)), ("1 1 2", (2, 2, 4))):
+        args = _charmm_grid(replicate, dt)
+        cfg = args[8]
+        assert (cfg.nx, cfg.ny, cfg.nz) == grid
+        for ef, vf in FLAGS:
+            n0 = b5.counts.kernel_launches
+            out = b5.charmm_cellgrid(*args, ef, vf)
+            assert b5.counts.kernel_launches == n0 + 1
+            _close(out, b5.charmm_cellgrid_plain(*args, ef, vf), TOL[dt])
+

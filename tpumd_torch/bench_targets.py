@@ -6,6 +6,8 @@ file is not in the repository, so ``chain_data`` makes a system of its
 published size and density from a seed, and its gates are tpumd's own
 results on that system.  Likewise the eam deck's published potential
 (Cu_u3.eam): ``eam_funcfl`` writes a Cu-like one from analytic functions.
+The rhodo_class deck's inputs are in the repository (the peptide example),
+and its gates are the reference binary's rows.
 """
 
 import numpy as np
@@ -295,6 +297,41 @@ def eam_setfl(path, nrho: int = 500, drho: float = 0.005, nr: int = 500,
         fh.write(f"29 {EAM_MASS} {EAM_A0} fcc\n")
         for vals in (frho, rhor, z2r):
             _write_values(fh, vals)
+
+
+# tools/bench_all.py:108-125 -- the rhodo_class deck: LAMMPS's solvated
+# peptide example (tests/golden/peptide/data.peptide; {golden} is that
+# directory) replicated 2x2x4 into 32,064 atoms, with bench/in.rhodo's
+# force stack: lj/charmm/coul/long 8/10, harmonic bonds, CHARMM angles and
+# dihedrals (1-4 pairs), harmonic impropers, PPPM 1e-4, SHAKE of the
+# hydrogen bonds and the water angle, z-coupled NPT
+IN_RHODO_CLASS = """
+units           real
+neigh_modify    delay 5 every 1
+atom_style      full
+bond_style      harmonic
+angle_style     charmm
+dihedral_style  charmm
+improper_style  harmonic
+pair_style      lj/charmm/coul/long 8.0 10.0
+pair_modify     mix arithmetic
+kspace_style    pppm 1e-4
+read_data       {golden}/data.peptide
+replicate       2 2 4
+fix             1 all shake 0.0001 5 0 m 1.0 a 31
+fix             2 all npt temp 300.0 300.0 100.0 z 0.0 0.0 1000.0 mtk no pchain 0 tchain 1
+special_bonds   charmm
+timestep        2.0
+"""
+
+# tools/bench_all.py:80-81 -- the reference binary's step-0 row of
+# IN_RHODO_CLASS (initial velocities come from the data file); hold to
+# STEP0_RTOL
+RHODO_STEP0 = {"temp": 281.9047, "epair": -103081.45, "etotal": -83796.488}
+# tools/bench_all.py:94-95 -- its step-100 row, at the tolerances set there
+# for f32 through the deck's first 100 steps of heating
+RHODO_STEP100 = {"temp": (302.90763, 2e-2), "epair": (-100551.94, 1e-2),
+                 "etotal": (-79735.321, 1e-2)}
 
 
 def gate_failures(vals: dict, targets: dict) -> list[str]:

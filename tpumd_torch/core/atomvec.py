@@ -1,9 +1,10 @@
 """Atom styles: per-atom fields and the data-file column layout.
 
 The port's copy of tpumd/core/atomvec.py (the reference's AtomVec field
-lists, src/atom_vec.h:62-80) for the two styles it runs: ``atomic``
-(``id type x y z [ix iy iz]``) and ``bond`` (``id mol type x y z
-[ix iy iz]``, with the molecule ID as a per-atom field).
+lists, src/atom_vec.h:62-80) for the styles it runs: ``atomic`` (``id type x y z [ix iy iz]``),
+``bond`` (``id mol type x y z [ix iy iz]``, with the molecule ID as a
+per-atom field) and ``full`` (``id mol type q x y z [ix iy iz]``, with the
+molecule ID and the charge).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ class AtomStyle:
     fields: tuple = ()
 
 
-def _simple_layout(has_mol=False):
+def _simple_layout(has_mol=False, has_q=False):
     def parse(r):
         out = {}
         col = 0
@@ -43,6 +44,9 @@ def _simple_layout(has_mol=False):
             col += 1
         out["type"] = int(r[col])
         col += 1
+        if has_q:
+            out["q"] = float(r[col])
+            col += 1
         out["x"] = [float(r[col]), float(r[col + 1]), float(r[col + 2])]
         out["_imgcol"] = col + 3
         return out
@@ -53,6 +57,9 @@ STYLES = {
     "atomic": AtomStyle("atomic", data_atom=_simple_layout()),
     "bond": AtomStyle("bond", data_atom=_simple_layout(has_mol=True),
                       fields=(Field("molecule", "int"),)),
+    "full": AtomStyle("full", data_atom=_simple_layout(has_mol=True,
+                                                       has_q=True),
+                      fields=(Field("molecule", "int"), Field("q"))),
 }
 
 

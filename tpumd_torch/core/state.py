@@ -4,7 +4,7 @@ PyTorch counterpart of tpumd/core/state.py (the reference's Atom/Domain
 data model, src/atom.h, src/domain.h) for the orthogonal periodic box of
 the LJ-melt slice.  Plain dataclasses of tensors; every tensor lives on
 the device and in the float dtype the caller passes.  Per-atom arrays are
-padded to a fixed capacity; padded slots carry tag 0 and type 0.
+padded to a fixed capacity; padded slots carry tag 0, type 0 and charge 0.
 """
 
 from __future__ import annotations
@@ -48,8 +48,9 @@ class Box:
 
 @dataclasses.dataclass(frozen=True)
 class MDState:
-    """Per-atom dynamical state + box.  The molecular fields are None for
-    atomic systems."""
+    """Per-atom dynamical state + box.  The molecular and charge fields
+    are None for systems without them.  Every per-atom field permutes
+    with the atoms at each re-bin, the special lists included."""
 
     x: torch.Tensor       # (N, 3) positions
     v: torch.Tensor       # (N, 3) velocities
@@ -61,6 +62,11 @@ class MDState:
     molecule: torch.Tensor | None = None     # (N,) int32 molecule id
     bond_tags: torch.Tensor | None = None    # (N, B) int32 partner tags
     bond_btypes: torch.Tensor | None = None  # (N, B) int32 bond types
+    q: torch.Tensor | None = None            # (N,) charges
+    # 1-2/1-3/1-4 special neighbors: partner tags (0 = none) and their
+    # codes 1/2/3, which index the special_bonds weight tables
+    special_tags: torch.Tensor | None = None   # (N, S) int32
+    special_codes: torch.Tensor | None = None  # (N, S) int32
 
     @property
     def capacity(self) -> int:
@@ -72,7 +78,8 @@ class MDState:
 
 # every per-atom field of MDState (for generic permute/pad/compact)
 PER_ATOM_FIELDS = ("x", "v", "f", "type", "tag", "image", "molecule",
-                   "bond_tags", "bond_btypes")
+                   "bond_tags", "bond_btypes", "q", "special_tags",
+                   "special_codes")
 
 
 def map_per_atom(state: MDState, fn) -> MDState:
@@ -83,7 +90,7 @@ def map_per_atom(state: MDState, fn) -> MDState:
 
 
 def make_state(x, v, types, box: Box, *, tags=None, image=None,
-               molecule=None, device, dtype) -> MDState:
+               molecule=None, q=None, device, dtype) -> MDState:
     """Build an MDState from host arrays (no padding)."""
     n = x.shape[0]
     if tags is None:
@@ -102,7 +109,9 @@ def make_state(x, v, types, box: Box, *, tags=None, image=None,
         type=ints(types), tag=ints(tags), image=ints(image),
         box=Box(lo=box.lo.to(device=device, dtype=dtype),
                 hi=box.hi.to(device=device, dtype=dtype)),
-        molecule=None if molecule is None else ints(molecule))
+        molecule=None if molecule is None else ints(molecule),
+        q=None if q is None else torch.as_tensor(np.asarray(q), dtype=dtype,
+                                                 device=device))
 
 
 def wrap_pbc(state: MDState) -> MDState:

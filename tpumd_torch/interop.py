@@ -1,8 +1,9 @@
 """State bridge: build the port's objects from another engine's arrays.
 
 Takes plain numpy arrays (for example the fields of a tpumd ``MDState``,
-``PairLJCut`` and ``PairEAM``), so one state and one potential can be fed
-to both engines.  This module imports nothing of tpumd.
+``PairLJCut``, ``PairEAM``, ``PairLJCharmmCoulLong`` and ``PPPM``), so one
+state and one potential can be fed to both engines.  This module imports
+nothing of tpumd.
 """
 
 from __future__ import annotations
@@ -11,16 +12,21 @@ import numpy as np
 import torch
 
 from tpumd_torch.core.state import Box, MDState
+from tpumd_torch.models.kspace_pppm import PPPM
+from tpumd_torch.models.pair_charmm import PairLJCharmmCoulLong
 from tpumd_torch.models.pair_eam import PairEAM
 from tpumd_torch.models.pair_lj_cut import PairLJCut
+from tpumd_torch.utils.units import get_units
 
 
 def state_from_numpy(arrays, box, *, device, dtype) -> MDState:
-    """MDState from {x, v, f, type, tag, image} arrays and a box mapping
-    {lo, hi, periodic}; rows keep their order (padding included).  The
-    port's box is periodic on every axis; any other box raises."""
+    """MDState from {x, v, f, type, tag, image} arrays, and where given q,
+    molecule, special_tags and special_codes, and a box mapping {lo, hi,
+    periodic}; rows keep their order (padding included).  The port's box
+    is periodic on every axis; any other box raises."""
     if not all(box.get("periodic", (True, True, True))):
         raise NotImplementedError("only fully periodic boxes are ported")
+
     def floats(a):
         return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
                                device=device)
@@ -28,11 +34,18 @@ def state_from_numpy(arrays, box, *, device, dtype) -> MDState:
     def ints(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
+    def opt(name, conv):
+        a = arrays.get(name)
+        return None if a is None else conv(a)
+
     return MDState(
         x=floats(arrays["x"]), v=floats(arrays["v"]), f=floats(arrays["f"]),
         type=ints(arrays["type"]), tag=ints(arrays["tag"]),
         image=ints(arrays["image"]),
-        box=Box(lo=floats(box["lo"]), hi=floats(box["hi"])))
+        box=Box(lo=floats(box["lo"]), hi=floats(box["hi"])),
+        q=opt("q", floats), molecule=opt("molecule", ints),
+        special_tags=opt("special_tags", ints),
+        special_codes=opt("special_codes", ints))
 
 
 def pair_from_numpy(epsilon, sigma, cut, *, shift=False,
@@ -70,3 +83,37 @@ def eam_from_numpy(frho_spline, rhor_spline, z2r_spline, dr, drho, nr, nrho,
     pair.cutforcesq = pair.cutmax * pair.cutmax
     pair._setflag[1, 1] = True
     return pair
+
+
+def charmm_from_numpy(epsilon, sigma, eps14, sigma14, cut_lj_inner, cut_lj,
+                      cut_coul, g_ewald, units) -> PairLJCharmmCoulLong:
+    """PairLJCharmmCoulLong with the given (ntypes+1)^2 tables (every pair
+    set, so nothing is mixed), its cutoffs, the kspace solver's g_ewald and
+    the unit style's name; init has run."""
+    epsilon = np.array(epsilon, np.float64)
+    pair = PairLJCharmmCoulLong(epsilon.shape[0] - 1)
+    pair.units = get_units(units)
+    pair.settings(cut_lj_inner, cut_lj, cut_coul)
+    pair.epsilon = epsilon
+    pair.sigma = np.array(sigma, np.float64)
+    pair.eps14 = np.array(eps14, np.float64)
+    pair.sigma14 = np.array(sigma14, np.float64)
+    pair._setflag[1:, 1:] = True
+    pair.init()
+    pair.g_ewald = float(g_ewald)
+    return pair
+
+
+def pppm_from_numpy(natoms, q, prd, cutoff, accuracy_relative, nxyz,
+                    g_ewald, units, dynamic_box=False) -> PPPM:
+    """PPPM on the given host charges and box lengths whose mesh and
+    g_ewald are those carried from another engine (for example tpumd's
+    ``PPPM.nx, ny, nz, g_ewald``); the coefficients are built on them."""
+    ks = PPPM(accuracy_relative)
+    ks.init(int(natoms), np.asarray(q, np.float64), prd, get_units(units),
+            cutoff, dynamic_box=dynamic_box)
+    ks.nx, ks.ny, ks.nz = (int(v) for v in nxyz)
+    ks.g_ewald = float(g_ewald)
+    ks._setup_coeffs()
+    ks._dev = {}
+    return ks

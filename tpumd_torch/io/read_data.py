@@ -1,11 +1,15 @@
 """LAMMPS text data-file reader (host side, setup time).
 
 The part of tpumd/io/read_data.py (the reference's read_data command,
-src/read_data.cpp) that the chain deck needs: the header counts, an
-orthogonal box, and the Masses, Atoms (atomic and bond styles),
-Velocities and Bonds sections; plus ``build_special``.  Any other section,
-and a nonzero count of a topology the port does not run, raises naming
-itself.
+src/read_data.cpp) that the chain and rhodo_class decks need: the header
+counts, an orthogonal box, and the Masses, Atoms (atomic, bond and full
+styles, image flags included), Velocities, Bonds, Angles, Dihedrals and
+Impropers sections, and the Pair, Bond, Angle, Dihedral and Improper Coeffs
+sections (kept raw for the styles to read); plus ``build_special``.  The
+angle, dihedral and improper topologies and the coefficient sections are
+read for atom_style full, the one molecular deck that carries them.  Any
+other section (the class2 cross-term coefficients among them) raises
+naming itself.
 """
 
 from __future__ import annotations
@@ -17,30 +21,57 @@ import numpy as np
 from tpumd_torch.core.atomvec import alloc_fields, get_style
 
 _HEADER_KEYS = [
-    ("atoms", "natoms"), ("bonds", "nbonds"),
+    ("atoms", "natoms"), ("bonds", "nbonds"), ("angles", "nangles"),
+    ("dihedrals", "ndihedrals"), ("impropers", "nimpropers"),
     ("atom types", "natomtypes"), ("bond types", "nbondtypes"),
+    ("angle types", "nangletypes"), ("dihedral types", "ndihedraltypes"),
+    ("improper types", "nimpropertypes"),
 ]
 # header counts of topologies the port does not run: accepted when 0
-_UNPORTED_COUNTS = ("ellipsoids", "angles", "dihedrals", "impropers",
-                    "angle types", "dihedral types", "improper types")
-_SECTIONS = ("Masses", "Atoms", "Velocities", "Bonds")
+_UNPORTED_COUNTS = ("ellipsoids",)
+# topology sections: (name, attribute, count attribute, atoms per tuple)
+_TOPOLOGY = {"Bonds": ("bonds", "nbonds", 2),
+             "Angles": ("angles", "nangles", 3),
+             "Dihedrals": ("dihedrals", "ndihedrals", 4),
+             "Impropers": ("impropers", "nimpropers", 4)}
+# coefficient sections, kept raw: (name, count attribute)
+_COEFFS = {"Pair Coeffs": "natomtypes", "Bond Coeffs": "nbondtypes",
+           "Angle Coeffs": "nangletypes",
+           "Dihedral Coeffs": "ndihedraltypes",
+           "Improper Coeffs": "nimpropertypes"}
+_SECTIONS = ("Masses", "Atoms", "Velocities") + tuple(_TOPOLOGY) \
+    + tuple(_COEFFS)
+# what atom styles other than full may carry
+_FULL_ONLY = ("nangles", "ndihedrals", "nimpropers")
 
 
 @dataclasses.dataclass
 class DataFile:
     natoms: int = 0
     nbonds: int = 0
+    nangles: int = 0
+    ndihedrals: int = 0
+    nimpropers: int = 0
     natomtypes: int = 0
     nbondtypes: int = 0
+    nangletypes: int = 0
+    ndihedraltypes: int = 0
+    nimpropertypes: int = 0
     box_lo: np.ndarray = None
     box_hi: np.ndarray = None
     masses: np.ndarray = None          # (ntypes+1,)
     x: np.ndarray = None               # (N,3) in tag order (tag 1..N)
     v: np.ndarray = None
     types: np.ndarray = None
-    molecule: np.ndarray = None        # bond style only
+    molecule: np.ndarray = None        # bond and full styles
+    q: np.ndarray = None               # full style
     image: np.ndarray = None
     bonds: np.ndarray = None           # (nb, 3): type, atom1, atom2 (tags)
+    angles: np.ndarray = None          # (na, 4)
+    dihedrals: np.ndarray = None       # (nd, 5)
+    impropers: np.ndarray = None       # (ni, 5)
+    # raw rows of the coefficient sections, by section name
+    coeffs: dict = dataclasses.field(default_factory=dict)
 
 
 def _header_line(d: DataFile, line: str) -> bool:
@@ -52,8 +83,8 @@ def _header_line(d: DataFile, line: str) -> bool:
     for key in _UNPORTED_COUNTS:
         if line.endswith(" " + key):
             if int(line.split()[0]) != 0:
-                raise NotImplementedError(
-                    f"data file: {line!r} (only atoms and bonds are ported)")
+                raise NotImplementedError(f"data file: {line!r} is not "
+                                          "ported")
             return True
     toks = line.split()
     for c, names in enumerate((["xlo", "xhi"], ["ylo", "yhi"],
@@ -78,6 +109,13 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
         if line and not _header_line(d, line):
             break
         i += 1
+    if atom_style != "full":
+        for attr in _FULL_ONLY:
+            if getattr(d, attr):
+                raise NotImplementedError(
+                    f"data file: {getattr(d, attr)} {attr[1:]} with "
+                    f"atom_style {atom_style} (the port reads them for "
+                    "atom_style full)")
 
     n = d.natoms
     d.x = np.zeros((n, 3))
@@ -103,9 +141,11 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
         i += 1
         if not section:
             continue
-        if section not in _SECTIONS:
+        if section not in _SECTIONS or (section in _COEFFS
+                                        and atom_style != "full"):
             raise NotImplementedError(
-                f"data-file section {section!r} is not ported")
+                f"data-file section {section!r} is not ported with "
+                f"atom_style {atom_style}")
         if section == "Masses":
             rows, i = parse_rows(i, d.natomtypes)
             for r in rows:
@@ -127,12 +167,19 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
             rows, i = parse_rows(i, n)
             for r in rows:
                 d.v[int(r[0]) - 1] = [float(r[1]), float(r[2]), float(r[3])]
-        else:  # Bonds
-            rows, i = parse_rows(i, d.nbonds)
-            d.bonds = np.zeros((d.nbonds, 3), dtype=np.int64)
+        elif section in _TOPOLOGY:
+            attr, count_attr, arity = _TOPOLOGY[section]
+            count = getattr(d, count_attr)
+            rows, i = parse_rows(i, count)
+            arr = np.zeros((count, 1 + arity), dtype=np.int64)
             for r in rows:
-                d.bonds[int(r[0]) - 1] = [int(t) for t in r[1:4]]
+                arr[int(r[0]) - 1] = [int(t) for t in r[1:2 + arity]]
+            setattr(d, attr, arr)
+        else:  # coefficients, read by the styles
+            rows, i = parse_rows(i, getattr(d, _COEFFS[section]))
+            d.coeffs[section] = rows
     d.molecule = fields.pop("molecule", None)
+    d.q = fields.pop("q", None)
     return d
 
 

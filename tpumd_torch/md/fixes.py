@@ -8,9 +8,15 @@ Modify) as transforms invoked at fixed phases of the step
     -> final_integrate
 
 A fix object is a host-side config.  A fix that carries data from step
-to step (an RNG state) keeps it in a per-fix state value that the run
-loop threads through ``post_force``, so a segment redone after a cell
-overflow replays from its snapshot.
+to step (an RNG state, thermostat chains, a constraint virial) keeps it in
+a per-fix state value that the run loop threads through every hook, so a
+segment redone after a cell overflow replays from its snapshot.
+
+Optional protocol (tpumd/md/fixes.py): ``setup_post_force`` replaces
+post_force at set-up; ``needs_virial`` fixes get the step's total virial
+through ``save_virial`` after post_force; ``contributes_virial`` fixes add
+``virial_contrib(fstate)`` to it; ``needs_step`` fixes get the timestep
+through ``set_step``, and ``pre_run`` gets a run's first and last steps.
 """
 
 from __future__ import annotations
@@ -20,6 +26,9 @@ import torch
 
 class Fix:
     dof_removed = 0          # dof this fix removes from the group
+    needs_virial = False
+    contributes_virial = False
+    needs_step = False
 
     def init_state(self, s, ctx):
         """Per-fix state at setup."""
@@ -29,14 +38,21 @@ class Fix:
         """Optional host-generated per-step inputs, stacked over nsteps."""
         return None
 
-    def initial_integrate(self, s, ctx):
-        return s
+    def initial_integrate(self, s, fstate, ctx):
+        return s, fstate
 
     def post_force(self, s, fstate, ctx, xin=None):
         return s, fstate
 
-    def final_integrate(self, s, ctx):
-        return s
+    def setup_post_force(self, s, fstate, ctx, xin=None):
+        return self.post_force(s, fstate, ctx, xin)
+
+    def final_integrate(self, s, fstate, ctx):
+        return s, fstate
+
+    def virial_contrib(self, fstate):
+        """The virial this fix adds (contributes_virial): its state."""
+        return fstate
 
 
 class FixNVE(Fix):
@@ -47,9 +63,10 @@ class FixNVE(Fix):
         dtf = 0.5 * ctx.dt * ctx.units.ftm2v
         return (dtf / ctx.mass_per_atom(s))[:, None]
 
-    def initial_integrate(self, s, ctx):
+    def initial_integrate(self, s, fstate, ctx):
         v = torch.addcmul(s.v, self._dtfm(ctx, s), s.f)
-        return s.replace(x=s.x + ctx.dt * v, v=v)
+        return s.replace(x=s.x + ctx.dt * v, v=v), fstate
 
-    def final_integrate(self, s, ctx):
-        return s.replace(v=torch.addcmul(s.v, self._dtfm(ctx, s), s.f))
+    def final_integrate(self, s, fstate, ctx):
+        return (s.replace(v=torch.addcmul(s.v, self._dtfm(ctx, s), s.f)),
+                fstate)

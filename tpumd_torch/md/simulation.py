@@ -5,8 +5,10 @@ Plays the role of the reference's Update + Run + Thermo + Finish
 does for the cell-grid path: owns the styles, fixes and state, segments a
 run between thermo outputs, and reads the device once per segment (the
 neighbor overflow flag and the thermo row).  Molecular decks bring the
-bond topology from read_data; an eligible bond style rides the pair
-kernel (``_setup_kernel_bond``).
+topology from read_data: FENE bonds ride the pair kernel
+(``_setup_kernel_bond``); every other bonded style is evaluated per tuple,
+minus the bonds and angles that SHAKE constrains.  Under a barostat the
+cell grid keeps a margin and is re-validated after each segment.
 """
 
 from __future__ import annotations
@@ -18,14 +20,18 @@ import torch
 
 from tpumd_torch.core.state import MDState, map_per_atom, wrap_pbc
 from tpumd_torch.md import computes
-from tpumd_torch.md.verlet import StepContext, eval_energies, pack_thermo, \
-    run_segment
+from tpumd_torch.md.verlet import ENERGY_KEYS, StepContext, eval_energies, \
+    pack_thermo, run_segment
 from tpumd_torch.ops import cellgrid as cg
 from tpumd_torch.utils.units import Units, get_units
 
 THERMO_KEYS = ("step", "temp", "epair", "emol", "pe", "ke", "etotal",
-               "press", "vol", "lx", "ly", "lz", "evdwl", "ebond", "atoms",
-               "density")
+               "press", "vol", "lx", "ly", "lz", "atoms", "density") \
+    + ENERGY_KEYS
+
+# the barostat's first cell margin, widened 10 % per violation
+# (tpumd/md/simulation.py:154-158, :1429)
+BARO_MARGIN = 1.12
 
 
 def resolve_device(device) -> torch.device:
@@ -52,12 +58,14 @@ class Simulation:
         self.mass = None               # (ntypes+1,) numpy
         self.ntypes = 0
         self.pair = None
+        self.kspace = None
         self.fixes: list = []
-        self.bond = None               # bond style
-        self.nbondtypes = None         # set by read_data
-        self.bonds = None              # (M, 3) type, tag1, tag2
+        self.bonded: dict = {}         # kind -> style, in command order
+        self.bonded_ntypes: dict = {}  # kind -> type count (read_data)
+        self.topology: dict = {}       # kind -> (M, 1+arity) type, tags
         self.special_lj = None         # (4,) weights or None
-        self.special_tags = None       # (N, S) from build_special
+        self.special_coul = None
+        self.special_tags = None       # (N, S) by tag-1, build_special
         self.special_codes = None
 
         self.thermo_every = 0          # 0: only first/last
@@ -69,13 +77,15 @@ class Simulation:
         self.verbose = True
 
         self._ctx: StepContext | None = None
-        self._carry = None             # (state, neigh)
+        self._carry = None             # (state, neigh, fix states)
         self._neigh_cfg: cg.CellGridConfig | None = None
         self._cap_override = None
+        self._baro_margin = BARO_MARGIN
         self._natoms = None
         self._mass_sum = None
         self._kernel_bond = None
         self._ref_order_tags = None
+        self._bonded_dev = ()
         self._fstate_stash: dict = {}
         self.step = 0
         self.last_thermo: dict | None = None
@@ -98,8 +108,23 @@ class Simulation:
     def max_cutoff(self) -> float:
         return self.pair.max_cutoff if self.pair is not None else 0.0
 
+    def _barostat_active(self) -> bool:
+        return any(getattr(fx, "pstat", False) for fx in self.fixes)
+
+    def _special_weights(self):
+        """The lj and coul special_bonds weights by code 0..3; the default
+        is 0 0 0 (Force::Force, src/force.cpp:61)."""
+        default = (1.0, 0.0, 0.0, 0.0)
+        slj = default if self.special_lj is None else self.special_lj
+        scl = default if self.special_coul is None else self.special_coul
+        return (tuple(float(w) for w in slj), tuple(float(w) for w in scl))
+
     def _make_ctx(self) -> StepContext:
         cutneigh = self.max_cutoff() + self.skin
+        # under a barostat, cells keep a margin so that moderate box
+        # shrinkage leaves their edges >= cutneigh (re-validated after
+        # each segment)
+        margin = self._baro_margin if self._barostat_active() else 1.0
         # cell-size factor: cells of F*cutneigh (stencil stays +-1); grow F
         # while the mean cell occupancy is far below a dense cap
         # (tpumd/md/simulation.py:159-185)
@@ -107,7 +132,7 @@ class Simulation:
         cell_factor = 1.0
         while cell_factor < 4.0:
             ncell = np.prod(np.maximum(1, np.floor(
-                ell / (cutneigh * (cell_factor * 2))).astype(int)))
+                ell / (cutneigh * margin * (cell_factor * 2))).astype(int)))
             if ncell < 27 or self.natoms / ncell > 28.0:
                 break
             cell_factor *= 2
@@ -115,32 +140,36 @@ class Simulation:
             self.state.box, cutneigh, self.skin, self.natoms,
             every=self.neigh_every, delay=self.neigh_delay,
             check=self.neigh_check, cap=self._cap_override,
-            box_margin=cell_factor)
+            box_margin=margin * cell_factor)
         self._neigh_cfg = cfg
         mass_np = np.asarray(self.mass, dtype=np.float64).copy()
         mass_np[0] = 1.0  # padded slots: finite mass, zero force
+        slj, scl = self._special_weights()
         return StepContext(
             units=self.units, dt=self.dt, neigh_cfg=cfg, pair=self.pair,
             fixes=tuple(self.fixes),
             mass_table=torch.as_tensor(mass_np, dtype=self.dtype,
                                        device=self.device),
             natoms=self.natoms, kernel_bond=self._kernel_bond,
-            ref_order_tags=self._ref_order_tags)
+            ref_order_tags=self._ref_order_tags, bonded=self._bonded_dev,
+            kspace=self.kspace, special_lj=slj, special_coul=scl,
+            tdof=self.dof())
 
     def _setup_kernel_bond(self):
-        """Route the bond style into the pair kernel
+        """Route FENE bonds into the pair kernel
         (tpumd/md/simulation.py:329-389): per-row (N, B) partner-tag and
         bond-type tables ride the state, so they permute with the atoms,
-        and the kernel matches them like a special list.  The port has no
-        other bond path, so bonds that cannot ride the kernel raise."""
+        and the kernel matches them like a special list.  Bonds that cannot
+        ride the kernel raise."""
         self._kernel_bond = None
-        bonds, style = self.bonds, self.bond
-        if bonds is None or len(bonds) == 0:
+        bonds, style = self.topology.get("bond"), self.bonded.get("bond")
+        if bonds is None or len(bonds) == 0 or style is None \
+                or not style.kernel_bond:
             return
-        if style is None or self.pair is None:
+        if self.pair is None:
             raise NotImplementedError(
-                "bonds need a bond_style and a pair_style to ride the pair "
-                "kernel: the port has no other bond path")
+                "bond_style fene needs a pair_style to ride the pair "
+                "kernel: the port has no other FENE path")
         cutneigh = self.max_cutoff() + self.skin
         if not 0 < style.kernel_reach <= cutneigh:
             raise NotImplementedError(
@@ -184,6 +213,78 @@ class Simulation:
             bond_btypes=torch.as_tensor(btyps, device=self.device))
         self._kernel_bond = style
 
+    def shake_fixes(self):
+        return [fx for fx in self.fixes if getattr(fx, "name", "") == "shake"]
+
+    def build_shake(self):
+        """Find every fix shake's clusters on the current topology; returns
+        the data-file rows of the bonds and angles they constrain."""
+        excl = {"bond": set(), "angle": set()}
+        shakes = self.shake_fixes()
+        if not shakes:
+            return excl
+        bond, angle = self.bonded.get("bond"), self.bonded.get("angle")
+        if self.topology.get("bond") is None or bond is None:
+            raise ValueError("fix shake requires bonds and a bond_style")
+        types = np.zeros(self.natoms, np.int64)
+        types[self.state.tag.cpu().numpy() - 1] = \
+            self.state.type.cpu().numpy()
+        for fx in shakes:
+            eb, ea = fx.build_clusters(
+                self.topology["bond"], self.topology.get("angle"), types,
+                self.mass, bond.r0,
+                None if angle is None else angle.theta0)
+            excl["bond"].update(eb)
+            excl["angle"].update(ea)
+        return excl
+
+    def _setup_bonded(self, excl):
+        """Per-tuple styles with their tuples on the device (type, then
+        the members as tag-1), minus SHAKE's constrained rows."""
+        out = []
+        for kind, style in self.bonded.items():
+            style.init()
+            tuples = self.topology.get(kind)
+            if style.kernel_bond or tuples is None or len(tuples) == 0:
+                continue
+            if getattr(self.pair, "charged", False) is False:
+                raise NotImplementedError(
+                    f"{kind}_style {style.name} beside pair_style "
+                    f"{getattr(self.pair, 'name', None)}: the port "
+                    "evaluates these styles only beside "
+                    "lj/charmm/coul/long, whose kernel excludes special "
+                    "pairs")
+            if excl.get(kind):
+                keep = [i for i in range(len(tuples))
+                        if i not in excl[kind]]
+                tuples = tuples[keep]
+            t = np.array(tuples, dtype=np.int64)
+            t[:, 1:] -= 1
+            out.append((style, torch.as_tensor(t, device=self.device)))
+        self._bonded_dev = tuple(out)
+
+    def _setup_special(self):
+        """Per-row special lists for a charged pair sweep: entries whose
+        lj and coul weights are both 1 are dropped (tpumd/md/simulation.py:
+        469-491), and the lists follow the rows by tag."""
+        if not getattr(self.pair, "charged", False) \
+                or self.special_tags is None:
+            return
+        slj, scl = self._special_weights()
+        st = np.asarray(self.special_tags, np.int32)
+        sc = np.asarray(self.special_codes, np.int32)
+        keep = (st > 0) & ((np.asarray(slj)[sc] != 1.0)
+                           | (np.asarray(scl)[sc] != 1.0))
+        smax = max(int(keep.sum(1).max()), 1)
+        order = np.argsort(~keep, axis=1, kind="stable")[:, :smax]
+        kept = np.take_along_axis(keep, order, 1)
+        st = np.take_along_axis(st, order, 1) * kept
+        sc = np.take_along_axis(sc, order, 1) * kept
+        rows = self.state.tag.cpu().numpy() - 1
+        self.state = self.state.replace(
+            special_tags=torch.as_tensor(st[rows], device=self.device),
+            special_codes=torch.as_tensor(sc[rows], device=self.device))
+
     def _sort_atoms_host(self):
         """Spatial sort at setup (Atom::sort, src/atom.cpp:2246): fixes the
         atom order the grid binning starts from."""
@@ -206,7 +307,7 @@ class Simulation:
         pj = torch.as_tensor(perm, device=self.device)
         self.state = map_per_atom(s, lambda a: a[pj])
 
-    def _grid_setup(self, s: MDState):
+    def _grid_setup(self, s: MDState, nbuilds: int = 1):
         """Pad, bin and permute a compact state into a fresh grid
         (for the current config); returns (state, neigh)."""
         cfg = self._ctx.neigh_cfg
@@ -216,7 +317,7 @@ class Simulation:
             s.x, valid0, s.box, cfg)
         s = cg.apply_permutation(s, perm, valid)
         neigh = cg.CellGridState(
-            valid=valid, xhold=s.x, ago=0, nbuilds=1, overflow=over,
+            valid=valid, xhold=s.x, ago=0, nbuilds=nbuilds, overflow=over,
             max_count=max_count,
             row2slot=cg.row2slot_from_tags(s.tag, self.natoms))
         return s, neigh
@@ -234,7 +335,22 @@ class Simulation:
         # reference row order (post-sort, pre-grid-permutation): host RNG
         # streams draw in this order and are re-indexed by tag
         self._ref_order_tags = self.state.tag.cpu().numpy()
+        self._setup_special()
+        # SHAKE first: its constrained bonds and angles leave the bonded
+        # styles (the reference negates their types)
+        self._setup_bonded(self.build_shake())
         self._setup_kernel_bond()
+        if self.kspace is not None:
+            if self.state.q is None or not getattr(self.pair, "charged",
+                                                   False):
+                raise NotImplementedError(
+                    "kspace_style pppm needs charges and "
+                    "pair_style lj/charmm/coul/long")
+            self.kspace.init(self.natoms, self.state.q.cpu().numpy(),
+                             self.state.box.lengths_np(), self.units,
+                             self.pair.cut_coul,
+                             dynamic_box=self._barostat_active())
+            self.pair.g_ewald = self.kspace.g_ewald
         for _ in range(6):
             self._ctx = self._make_ctx()
             s, neigh = self._grid_setup(self.state)
@@ -250,15 +366,20 @@ class Simulation:
         s = s.replace(f=f)
         fstates = []
         # the reference applies post_force fixes once in setup
-        # (Verlet::setup -> FixLangevin::post_force): it kicks the step-0
-        # forces and uses up RNG draws
+        # (Verlet::setup -> modify->setup): langevin kicks the step-0
+        # forces and uses up RNG draws; SHAKE corrects the coordinates
         for fx in self.fixes:
             fs = self._fstate_stash.pop(id(fx), None)
             if fs is None:
                 fs = fx.init_state(s, ctx)
             xin = fx.segment_inputs(1, ctx, s)
-            s, fs = fx.post_force(s, fs, ctx, None if xin is None else xin[0])
+            s, fs = fx.setup_post_force(s, fs, ctx,
+                                        None if xin is None else xin[0])
+            if fx.contributes_virial:
+                virial = virial + fx.virial_contrib(fs)
             fstates.append(fs)
+        fstates = [fx.save_virial(fs, virial) if fx.needs_virial else fs
+                   for fx, fs in zip(self.fixes, fstates)]
         self._carry = (s, neigh, tuple(fstates))
         self.state = s
         self._last_energies = energies
@@ -290,6 +411,10 @@ class Simulation:
         self._thermo_header()
         self._thermo_line()  # setup thermo at current step
         target = self.step + nsteps
+        s0, neigh0, fstates0 = self._carry
+        self._carry = (s0, neigh0, tuple(
+            fx.pre_run(fs, self.step, target) if hasattr(fx, "pre_run")
+            else fs for fx, fs in zip(self.fixes, fstates0)))
         t0 = time.perf_counter()
         while self.step < target:
             nxt = target
@@ -302,7 +427,8 @@ class Simulation:
             while True:
                 snapshot = self._carry
                 # a redone segment reuses the same host draws
-                carry = run_segment(*snapshot, ctx, seg, xs)
+                carry = run_segment(*snapshot, ctx, seg, xs,
+                                    step0=self.step)
                 # the one overflow read of the segment
                 if bool(carry[1].overflow):
                     # grow capacities, redo the segment from the snapshot
@@ -310,13 +436,18 @@ class Simulation:
                     continue
                 break
             self._carry = carry
-            s, neigh, _ = carry
-            self.state = s
             self.step = nxt
+            if self._barostat_active():
+                ctx = self._revalidate_geometry()
+            s, neigh, fstates = self._carry
+            self.state = s
             # carry keeps the in-step f; this eval only refreshes energies
             # and the virial for thermo
-            _, self._last_energies, self._last_virial = eval_energies(
-                s, neigh, ctx)
+            _, self._last_energies, virial = eval_energies(s, neigh, ctx)
+            for fx, fs in zip(self.fixes, fstates):
+                if fx.contributes_virial:
+                    virial = virial + fx.virial_contrib(fs)
+            self._last_virial = virial
             if self.step == target or (self.thermo_every > 0 and
                                        self.step % self.thermo_every == 0):
                 self._thermo_line()
@@ -327,19 +458,41 @@ class Simulation:
         self.loop_steps += nsteps
         self._finish_report(elapsed, nsteps)
 
+    def _rebin(self, snapshot):
+        """Rebuild the grid config for the snapshot's box and capacity
+        overrides, and re-bin the snapshot's atoms into it
+        (tpumd/md/simulation.py:1304-1374); returns the new context."""
+        s0, neigh0, fstates = snapshot
+        self.state = cg.compact_state(s0, neigh0.valid, self.natoms)
+        self._ctx = self._make_ctx()
+        s, neigh = self._grid_setup(self.state, nbuilds=neigh0.nbuilds)
+        self._check_overflow(neigh)
+        self._carry = (s, neigh, fstates)
+        return self._ctx
+
     def _regrow(self, snapshot):
         """Grow the cell capacity after an overflow and rebuild the grid
         from the snapshot (tpumd/md/simulation.py:1376-1405)."""
-        s0, neigh0, fstates = snapshot
-        mc = float(neigh0.max_count)
+        mc = float(snapshot[1].max_count)
         self._cap_override = int(np.ceil(max(
             self._neigh_cfg.cap * 1.5, mc * 1.3) / 8) * 8)
-        self.state = cg.compact_state(s0, neigh0.valid, self.natoms)
-        self._ctx = self._make_ctx()
-        s, neigh = self._grid_setup(self.state)
-        neigh = neigh.replace(nbuilds=neigh0.nbuilds)
-        self._check_overflow(neigh)
-        self._carry = (s, neigh, fstates)
+        return self._rebin(snapshot)
+
+    def _revalidate_geometry(self):
+        """Re-check the cells against the barostat's box after a segment
+        (tpumd/md/simulation.py:1412-1430): the stencil misses pairs once a
+        cell edge is shorter than cutneigh, so the grid is rebuilt with a
+        10 % wider margin.  Returns the (possibly new) context."""
+        cutneigh = self.max_cutoff() + self.skin
+        ell = self._carry[0].box.lengths_np()
+        if (ell < 2.0 * cutneigh).any():
+            raise RuntimeError(
+                f"box shrank below 2*cutneigh at step {self.step}: "
+                f"lengths {ell}, cutneigh {cutneigh:.4f}")
+        cfg = self._neigh_cfg
+        if (ell / np.array([cfg.nx, cfg.ny, cfg.nz]) < cutneigh).any():
+            self._baro_margin *= 1.10
+            return self._rebin(self._carry)
         return self._ctx
 
     def _finish_report(self, elapsed: float, nsteps: int):
@@ -386,7 +539,7 @@ class Simulation:
                 "simulation unstable")
         t, vol, vir3 = float(vals_h[0]), float(vals_h[1]), float(vals_h[2])
         ell = vals_h[4:7]
-        e = dict(zip(sorted(self._last_energies), vals_h[7:].tolist()))
+        e = dict(zip(ENERGY_KEYS, vals_h[7:].tolist()))
         ke = computes.kinetic_energy(t, dof, u.boltz)
         # long-range LJ tail corrections (Thermo::compute_evdwl,
         # ComputePressure: ptail/volume added to each diagonal term)
@@ -394,10 +547,10 @@ class Simulation:
         if self.pair is not None and self.pair.tail_flag:
             etail = self.pair.etail / vol
             ptail = self.dimension * self.pair.ptail / vol
-        press = ((dof * u.boltz * t + vir3 + ptail)
-                 / (self.dimension * vol) * u.nktv2p)
-        epair = e["evdwl"] + etail
-        emol = e["ebond"]
+        press = computes.pressure(t, vir3, vol, dof, u.boltz, u.nktv2p,
+                                  ptail, self.dimension)
+        epair = e["evdwl"] + etail + e["ecoul"] + e["elong"]
+        emol = e["ebond"] + e["eangle"] + e["edihed"] + e["eimp"]
         pe = epair + emol
         norm = self.natoms if self.thermo_norm else 1
         if self._mass_sum is None:
@@ -409,10 +562,10 @@ class Simulation:
             "ke": ke / norm, "etotal": (pe + ke) / norm,
             "press": press, "vol": vol,
             "lx": float(ell[0]), "ly": float(ell[1]), "lz": float(ell[2]),
-            "evdwl": e["evdwl"] / norm, "ebond": e["ebond"] / norm,
             "atoms": self.natoms,
             "density": self.units.mv2d * self._mass_sum / vol,
         }
+        vals.update({k: e[k] / norm for k in ENERGY_KEYS})
         self.last_thermo = vals
         return vals
 

@@ -1,14 +1,19 @@
 """The velocity-Verlet timestep loop (Verlet::run, src/verlet.cpp:229-360).
 
 PyTorch counterpart of tpumd/md/verlet.py for the cell-grid path: the
-step (integrate, reneighbor decision, force evaluation, integrate) runs as
-a Python loop of eager tensor operations.  The rebuild decision is made on
-the host from the every/delay schedule, so a step with ``check no`` never
-waits for the device; ``check yes`` reads one flag from the device on
-scheduled steps (every step of the chain deck's ``every 1 delay 1``).
-Energy and virial are evaluated only on output steps.  Fix states (an
-RNG state) and per-step host inputs (exact RanMars draws) are threaded
-through the step to the fixes' ``post_force``.
+step (integrate, reneighbor decision, force evaluation, fix hooks,
+integrate) runs as a Python loop of eager tensor operations.  The rebuild
+decision is made on the host from the every/delay schedule, so a step with
+``check no`` never waits for the device; ``check yes`` reads one flag from
+the device on scheduled steps.  Energies are evaluated only on output
+steps; the virial on every step when a fix needs it (a barostat).  Fix
+states and per-step host inputs (exact RanMars draws) are threaded
+through every fix hook.
+
+A force evaluation sums the pair sweep (with charges and special lists
+for charged styles), the bonded styles on the tag-order view of the
+grid-permuted atoms (gathered through ``row2slot``, scattered back with
+one ``index_add_``), and kspace.
 """
 
 from __future__ import annotations
@@ -21,8 +26,13 @@ import torch
 
 from tpumd_torch.core.state import MDState, wrap_pbc
 from tpumd_torch.md import computes
+from tpumd_torch.models.bonded import compute_tuples
 from tpumd_torch.ops import cellgrid as cg
 from tpumd_torch.utils.units import Units
+
+# the energies of a force evaluation (tpumd/md/verlet.py:123-124)
+ENERGY_KEYS = ("evdwl", "ecoul", "ebond", "eangle", "edihed", "eimp",
+               "elong")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -42,30 +52,79 @@ class StepContext:
     # tags in the reference's row order (setup-sorted): host RNG streams
     # draw in this order
     ref_order_tags: np.ndarray | None = None
+    # bonded styles with their tuples on the device: ((style, (M, 1 +
+    # arity) int64 of type and tag-1 members), ...)
+    bonded: tuple = ()
+    kspace: Any = None
+    # special_bonds weights by code 0..3 (code 0: no special, weight 1)
+    special_lj: tuple = (1.0, 1.0, 1.0, 1.0)
+    special_coul: tuple = (1.0, 1.0, 1.0, 1.0)
+    tdof: float = 0.0              # thermostat degrees of freedom
 
     def mass_per_atom(self, s: MDState):
         # index_select takes the int32 types as they are (no index copy)
         return torch.index_select(self.mass_table, 0, s.type)
 
+    @property
+    def need_virial(self) -> bool:
+        return any(fx.needs_virial for fx in self.fixes)
+
 
 def compute_forces(s: MDState, neigh: cg.CellGridState, ctx: StepContext,
                    eflag: bool, vflag: bool):
-    """Pair and kernel-bond forces; returns (f, energies dict, virial (6,)
-    or None).  The energies (evdwl, ebond) are None unless eflag."""
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=s.x.dtype, device=s.x.device)
-    if ctx.pair is None:
-        e = zeros() if eflag else None
-        return (torch.zeros_like(s.x), {"evdwl": e, "ebond": e},
-                zeros(6) if vflag else None)
-    bond = None
-    if ctx.kernel_bond is not None:
-        bond = (s.bond_tags, s.bond_btypes, ctx.kernel_bond, s.tag)
-    f, evdwl, virial, ebond = ctx.pair.compute_cellgrid(
-        s.x, neigh.valid, s.box, ctx.neigh_cfg, eflag, vflag, bond=bond)
-    if eflag and ebond is None:
-        ebond = zeros()
-    return f, {"evdwl": evdwl, "ebond": ebond}, virial
+    """All forces; returns (f, energies {ENERGY_KEYS} or None, virial (6,)
+    or None)."""
+    energies = virial = None
+    if eflag:
+        energies = dict.fromkeys(ENERGY_KEYS, torch.zeros(
+            (), dtype=s.x.dtype, device=s.x.device))
+    if vflag:
+        virial = torch.zeros(6, dtype=s.x.dtype, device=s.x.device)
+
+    def tally(e, vir):
+        nonlocal virial
+        if eflag:
+            for k, val in e.items():
+                if val is not None:
+                    energies[k] = energies[k] + val
+        if vflag and vir is not None:
+            virial = virial + vir
+
+    pair = ctx.pair
+    if pair is None:
+        f = torch.zeros_like(s.x)
+    elif getattr(pair, "charged", False):
+        f, evdwl, ecoul, vir = pair.compute_cellgrid_charged(
+            s, neigh.valid, ctx.neigh_cfg, ctx.special_lj, ctx.special_coul,
+            eflag, vflag)
+        tally({"evdwl": evdwl, "ecoul": ecoul}, vir)
+    else:
+        bond = None
+        if ctx.kernel_bond is not None:
+            bond = (s.bond_tags, s.bond_btypes, ctx.kernel_bond, s.tag)
+        f, evdwl, vir, ebond = pair.compute_cellgrid(
+            s.x, neigh.valid, s.box, ctx.neigh_cfg, eflag, vflag, bond=bond)
+        tally({"evdwl": evdwl, "ebond": ebond}, vir)
+
+    if ctx.bonded:
+        # the tag-order view: row tag-1 holds that atom
+        r2s = neigh.row2slot
+        view = (torch.index_select(s.x, 0, r2s),
+                torch.index_select(s.type, 0, r2s),
+                None if s.q is None else torch.index_select(s.q, 0, r2s))
+        ftag = None
+        for style, tuples in ctx.bonded:
+            fb, e, vir = compute_tuples(style, view, tuples, s.box, ctx,
+                                        eflag, vflag)
+            ftag = fb if ftag is None else ftag + fb
+            tally(e or {}, vir)
+        f = f.index_add(0, r2s, ftag)
+
+    if ctx.kspace is not None:
+        fk, elong, vir = ctx.kspace.compute(s.x, s.q, s.box, eflag, vflag)
+        f = f + fk
+        tally({"elong": elong}, vir)
+    return f, energies, virial
 
 
 def _rebuild(s: MDState, neigh: cg.CellGridState, ctx: StepContext):
@@ -97,33 +156,42 @@ def decide_rebuild(s: MDState, neigh: cg.CellGridState,
 
 
 def step(s: MDState, neigh: cg.CellGridState, fstates, ctx: StepContext,
-         xs):
-    """One velocity-Verlet step; xs holds each fix's input of this step
-    (or None)."""
-    for fx in ctx.fixes:
-        s = fx.initial_integrate(s, ctx)
+         xs, istep: int):
+    """One velocity-Verlet step to timestep istep; xs holds each fix's
+    input of this step (or None)."""
+    fstates = list(fstates)
+    for i, fx in enumerate(ctx.fixes):
+        if fx.needs_step:
+            fstates[i] = fx.set_step(fstates[i], istep)
+        s, fstates[i] = fx.initial_integrate(s, fstates[i], ctx)
     neigh = neigh.replace(ago=neigh.ago + 1)
     if decide_rebuild(s, neigh, ctx):
         s, neigh = _rebuild(s, neigh, ctx)
-    f, _, _ = compute_forces(s, neigh, ctx, eflag=False, vflag=False)
+    need_virial = ctx.need_virial
+    f, _, virial = compute_forces(s, neigh, ctx, eflag=False,
+                                  vflag=need_virial)
     s = s.replace(f=f)
-    fstates = list(fstates)
     for i, fx in enumerate(ctx.fixes):
         s, fstates[i] = fx.post_force(s, fstates[i], ctx, xs[i])
-    for fx in ctx.fixes:
-        s = fx.final_integrate(s, ctx)
+        if need_virial and fx.contributes_virial:
+            virial = virial + fx.virial_contrib(fstates[i])
+    for i, fx in enumerate(ctx.fixes):
+        if fx.needs_virial:
+            fstates[i] = fx.save_virial(fstates[i], virial)
+        s, fstates[i] = fx.final_integrate(s, fstates[i], ctx)
     return s, neigh, tuple(fstates)
 
 
 def run_segment(s: MDState, neigh: cg.CellGridState, fstates,
-                ctx: StepContext, nsteps: int, xs=None):
-    """nsteps steps; xs: per fix, None or its inputs stacked over the
-    segment's steps."""
+                ctx: StepContext, nsteps: int, xs=None, step0: int = 0):
+    """nsteps steps from timestep step0; xs: per fix, None or its inputs
+    stacked over the segment's steps."""
     if xs is None:
         xs = (None,) * len(ctx.fixes)
     for k in range(nsteps):
         s, neigh, fstates = step(s, neigh, fstates, ctx,
-                                 [None if x is None else x[k] for x in xs])
+                                 [None if x is None else x[k] for x in xs],
+                                 step0 + k + 1)
     return s, neigh, fstates
 
 
@@ -136,7 +204,7 @@ def pack_thermo(s: MDState, energies, virial, scal, mass_table):
     """Thermo vector on the device, fetched with one transfer.
 
     Layout: [temp, vol, sum(vir[:3]), natoms, lengths(3), energies in
-    sorted-key order].  scal = (dof, boltz, mvv2e)."""
+    ENERGY_KEYS order].  scal = (dof, boltz, mvv2e)."""
     dof, boltz, mvv2e = scal
     mass = torch.index_select(mass_table, 0, s.type)
     t_dev = computes.temperature(s.v, mass, dof, boltz, mvv2e)
@@ -145,4 +213,4 @@ def pack_thermo(s: MDState, energies, virial, scal, mass_table):
     return torch.cat([
         torch.stack([t_dev, s.box.volume, torch.sum(virial[:3]),
                      torch.sum(s.tag > 0).to(dt_)]),
-        ell, torch.stack([energies[k] for k in sorted(energies)])])
+        ell, torch.stack([energies[k] for k in ENERGY_KEYS])])

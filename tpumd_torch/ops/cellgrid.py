@@ -226,16 +226,38 @@ def _roll_nbr(a, o: int, axis: int, corr):
     return r + step.reshape(shape) * corr
 
 
-def stencil_blocks(x, valid, box: Box, cfg: CellGridConfig, per_slot=()):
+def _cell_chunks(cfg: CellGridConfig, max_pairs):
+    """(z, y, x) slices of i cells whose pair blocks (cap x 9 cap each)
+    hold at most max_pairs pairs, or one cell when even a row is larger:
+    the whole grid, z planes, (z, y) rows or single cells."""
+    per_cell = 9 * cfg.cap * cfg.cap
+    nz, ny, nx = cfg.nz, cfg.ny, cfg.nx
+    every = slice(None)
+    if max_pairs is None or cfg.ncells * per_cell <= max_pairs:
+        return [(every, every, every)]
+    if ny * nx * per_cell <= max_pairs:
+        return [(slice(z, z + 1), every, every) for z in range(nz)]
+    if nx * per_cell <= max_pairs:
+        return [(slice(z, z + 1), slice(y, y + 1), every)
+                for z in range(nz) for y in range(ny)]
+    return [(slice(z, z + 1), slice(y, y + 1), slice(xi, xi + 1))
+            for z in range(nz) for y in range(ny) for xi in range(nx)]
+
+
+def stencil_blocks(x, valid, box: Box, cfg: CellGridConfig, per_slot=(),
+                   max_pairs=None):
     """The candidate pairs of the plain sweeps, one z offset at a time.
 
     The x and y stencil offsets are folded into one 9*cap-wide j-row, so
-    each block is (nz, ny, nx, cap, 9 cap).  Yields (d, r2, mask, pairs):
-    d the three components of x_i - x_j (periodic wrap applied), r2 their
-    squared length set to 1 where mask is False (invalid i or j, or the
-    self slot), so no division reaches an empty slot, and for each
-    per-slot array a of per_slot the pair (a_i, a_j), broadcastable to the
-    block.
+    each block is (bz, by, bx, cap, 9 cap) for a chunk of i cells: the
+    whole grid, or with max_pairs chunks of at most that many pairs (z
+    planes, rows or cells), which bounds the sweep's memory.  Yields (sl,
+    d, r2, mask, pairs): sl the (z, y, x) slices of the chunk's i cells in
+    the (nz, ny, nx, cap) grid, d the three components of x_i - x_j
+    (periodic wrap applied), r2 their squared length set to 1 where mask
+    is False (invalid i or j, or the self slot), so no division reaches an
+    empty slot, and for each per-slot array a of per_slot the pair (a_i,
+    a_j), broadcastable to the block.
     """
     cap = cfg.cap
     gshape = (cfg.nz, cfg.ny, cfg.nx, cap)
@@ -264,28 +286,33 @@ def stencil_blocks(x, valid, box: Box, cfg: CellGridConfig, per_slot=()):
     jj = torch.arange(rowlen, device=x.device)[None, :]
     not_self = jj != ii + zero_seg * cap
     one = torch.ones((), dtype=x.dtype, device=x.device)
+    chunks = _cell_chunks(cfg, max_pairs)
 
     for dz in _offs(cfg.nz):
         xj = [_roll_nbr(rows[0], dz, 0, None), _roll_nbr(rows[1], dz, 0, None),
               _roll_nbr(rows[2], dz, 0, Lz)]
         vj = _roll_nbr(vrow, dz, 0, None)
-        d = [xg[c][..., :, None] - xj[c][..., None, :] for c in range(3)]
-        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-        mask = vg[..., :, None] & vj[..., None, :]
-        if dz == 0:
-            mask = mask & not_self
-        pairs = [(a[..., :, None], _roll_nbr(row, dz, 0, None)[..., None, :])
-                 for a, row in zip(ag, arows)]
-        yield d, torch.where(mask, r2, one), mask, pairs
+        aj = [_roll_nbr(row, dz, 0, None) for row in arows]
+        for sl in chunks:
+            d = [xg[c][sl][..., :, None] - xj[c][sl][..., None, :]
+                 for c in range(3)]
+            r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+            mask = vg[sl][..., :, None] & vj[sl][..., None, :]
+            if dz == 0:
+                mask = mask & not_self
+            pairs = [(a[sl][..., :, None], row[sl][..., None, :])
+                     for a, row in zip(ag, aj)]
+            yield sl, d, torch.where(mask, r2, one), mask, pairs
 
 
 def cellgrid_pair_sums(x, type_, valid, box: Box, cfg: CellGridConfig,
-                       pair_fn, eflag: bool, vflag: bool, bond=None):
+                       pair_fn, eflag: bool, vflag: bool, bond=None, q=None,
+                       special=None, cutsq=None, max_pairs=None):
     """Forces, energy and virial of a pairwise style on the cell grid.
 
-    Plain torch sweep (tpumd/ops/cellgrid.py::cellgrid_pair_sums without
-    special or charge terms) over ``stencil_blocks``.
-    ``pair_fn(r2, itype, jtype)`` returns (fpair, evdwl); masked pairs
+    Plain torch sweep (tpumd/ops/cellgrid.py::cellgrid_pair_sums) over
+    ``stencil_blocks``.  ``pair_fn(r2, itype, jtype)`` returns (fpair,
+    evdwl); masked pairs
     arrive with r2 = 1 so no division reaches an empty slot.  type_ holds
     the per-slot values handed to pair_fn as itype and jtype (atom types,
     or any per-slot value a style needs), or None for single-type styles.
@@ -302,7 +329,22 @@ def cellgrid_pair_sums(x, type_, valid, box: Box, cfg: CellGridConfig,
     at the minimum image only (the configs guard L >= 2*cutneigh, and
     cutneigh covers the bond's reach, so that image is unique).  A fourth
     return value carries the 1/2-tallied bond energy (None unless eflag).
+
+    q: per-slot charges, for charged styles with in-sweep special
+    weights.  Then ``pair_fn(r2, itype, jtype, w_lj, w_coul, qi, qj)``
+    returns pre-weighted (fpair, evdwl, ecoul, fcoul) (tpumd's
+    ``pair_fn_ex``), and special = (tag (Np,), special_tags (Np, S), w_lj
+    (Np, S), w_coul (Np, S)) or None: each candidate's tag is matched
+    against the i slot's special list, w = 1 + sum_s hit_s (w_s - 1)
+    (entries whose two weights are 1 were dropped at set-up).  Only the
+    pairs within cutsq (the style's largest cutoff squared) are evaluated,
+    gathered out of blocks of at most max_pairs candidates, which keeps
+    the sweep's memory bounded; a fourth return value carries the
+    1/2-tallied Coulomb energy (None unless eflag).
     """
+    if q is not None:
+        return _charged_pair_sums(x, type_, q, valid, box, cfg, pair_fn,
+                                  special, cutsq, max_pairs, eflag, vflag)
     gshape = (cfg.nz, cfg.ny, cfg.nx, cfg.cap)
     dtype = x.dtype
     Lx, Ly, Lz = box.lengths[0], box.lengths[1], box.lengths[2]
@@ -320,7 +362,8 @@ def cellgrid_pair_sums(x, type_, valid, box: Box, cfg: CellGridConfig,
           for _ in range(3)]
     evdwl = torch.zeros((), dtype=dtype, device=x.device)
     virial = torch.zeros(6, dtype=dtype, device=x.device)
-    for d, r2, mask, pairs in stencil_blocks(x, valid, box, cfg, per_slot):
+    for sl, d, r2, mask, pairs in stencil_blocks(x, valid, box, cfg,
+                                                 per_slot):
         ti, tj = pairs[0] if type_ is not None else (None, None)
         fp, e = pair_fn(r2, ti, tj)
         if bond is not None:
@@ -334,10 +377,10 @@ def cellgrid_pair_sums(x, type_, valid, box: Box, cfg: CellGridConfig,
             btype_hit = torch.zeros(mask.shape, dtype=btypes.dtype,
                                     device=x.device)
             for bi in range(nb):
-                bt = btags_g[..., :, bi:bi + 1]
+                bt = btags_g[sl][..., :, bi:bi + 1]
                 hit = (bt > 0) & (bt == tagj)
                 bhit = hit if bhit is None else (bhit | hit)
-                btype_hit = torch.where(hit, btypes_g[..., :, bi:bi + 1],
+                btype_hit = torch.where(hit, btypes_g[sl][..., :, bi:bi + 1],
                                         btype_hit)
             bf, be = bond_fn(r2, btype_hit)
             bondmask = bhit & mask_b
@@ -347,7 +390,7 @@ def cellgrid_pair_sums(x, type_, valid, box: Box, cfg: CellGridConfig,
                 ebond = ebond + 0.5 * torch.sum(torch.where(bondmask, be, 0))
         fp = torch.where(mask, fp, 0)
         for c in range(3):
-            fx[c] = fx[c] + torch.sum(d[c] * fp, dim=-1)
+            fx[c][sl] += torch.sum(d[c] * fp, dim=-1)
         if eflag:
             evdwl = evdwl + 0.5 * torch.sum(torch.where(mask, e, 0))
         if vflag:
@@ -362,3 +405,65 @@ def cellgrid_pair_sums(x, type_, valid, box: Box, cfg: CellGridConfig,
         return out + ((ebond if eflag else None),)
     return out
 
+
+def _charged_pair_sums(x, type_, q, valid, box: Box, cfg: CellGridConfig,
+                       pair_fn, special, cutsq, max_pairs, eflag, vflag):
+    """cellgrid_pair_sums for charged styles: (f, evdwl, virial, ecoul).
+
+    Each block's in-range pairs are gathered by flat index and evaluated
+    once; i-side arrays are indexed per i slot of the chunk and j-side
+    arrays per entry of the chunk's rolled j-rows."""
+    cap = cfg.cap
+    gshape = (cfg.nz, cfg.ny, cfg.nx, cap)
+    dtype = x.dtype
+    per_slot = [type_, q]
+    if special is not None:
+        tag, stags, wl, wc = special
+        per_slot.append(tag)
+        S = stags.shape[1]
+        sp_g = [a.reshape(gshape + (S,)) for a in (stags, wl, wc)]
+    f = torch.zeros(gshape + (3,), dtype=dtype, device=x.device)
+    zero = torch.zeros((), dtype=dtype, device=x.device)
+    evdwl, ecoul, virial = zero, zero, torch.zeros(6, dtype=dtype,
+                                                   device=x.device)
+    for sl, d, r2, mask, pairs in stencil_blocks(x, valid, box, cfg,
+                                                 per_slot, max_pairs):
+        rowlen = r2.shape[-1]
+        keep = mask if cutsq is None else mask & (r2 < cutsq)
+        flat = torch.nonzero(keep.reshape(-1)).reshape(-1)
+        ii = flat // rowlen                      # i slot of the chunk
+        jj = (flat // (cap * rowlen)) * rowlen + flat % rowlen  # j entry
+        dd = [c.reshape(-1)[flat] for c in d]
+        rr = r2.reshape(-1)[flat]
+
+        def side_i(a):
+            return a.reshape(-1)[ii]
+
+        def side_j(a):
+            return a.reshape(-1)[jj]
+        ti, tj = side_i(pairs[0][0]), side_j(pairs[0][1])
+        qi, qj = side_i(pairs[1][0]), side_j(pairs[1][1])
+        w_lj = w_coul = torch.ones_like(rr)
+        if special is not None:
+            tagj = side_j(pairs[2][1])
+            st, sw_l, sw_c = (a[sl].reshape(-1, S)[ii] for a in sp_g)
+            hit = (st > 0) & (st == tagj[:, None])
+            w_lj = 1.0 + torch.sum(torch.where(hit, sw_l - 1.0, 0.0), dim=1)
+            w_coul = 1.0 + torch.sum(torch.where(hit, sw_c - 1.0, 0.0),
+                                     dim=1)
+        fp, e, ec, fcoul = pair_fn(rr, ti, tj, w_lj, w_coul, qi, qj)
+        fp = fp + fcoul
+        fi = torch.zeros(f[sl].reshape(-1, 3).shape, dtype=dtype,
+                         device=x.device)
+        fi.index_add_(0, ii, torch.stack([c * fp for c in dd], dim=1))
+        f[sl] += fi.reshape(f[sl].shape)
+        if eflag:
+            evdwl = evdwl + 0.5 * torch.sum(e)
+            ecoul = ecoul + 0.5 * torch.sum(ec)
+        if vflag:
+            virial = virial + 0.5 * torch.stack([
+                torch.sum(fp * dd[0] * dd[0]), torch.sum(fp * dd[1] * dd[1]),
+                torch.sum(fp * dd[2] * dd[2]), torch.sum(fp * dd[0] * dd[1]),
+                torch.sum(fp * dd[0] * dd[2]), torch.sum(fp * dd[1] * dd[2])])
+    return (f.reshape(-1, 3), evdwl if eflag else None,
+            virial if vflag else None, ecoul if eflag else None)

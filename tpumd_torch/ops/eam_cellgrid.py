@@ -83,7 +83,7 @@ def eam_rho_cellgrid_plain(x, valid, box: Box, cfg: CellGridConfig,
     """Plain PyTorch version of the density kernel: (rho, fp, e_embed)."""
     rho = torch.zeros((cfg.nz, cfg.ny, cfg.nx, cfg.cap), dtype=x.dtype,
                       device=x.device)
-    for _, r2, mask, _ in stencil_blocks(x, valid, box, cfg):
+    for _, _, r2, mask, _ in stencil_blocks(x, valid, box, cfg):
         inside = mask & (r2 < tab.cutsq)
         m, p = _index(torch.sqrt(r2), tab.dr, tab.nr)
         rho = rho + torch.sum(torch.where(inside, _value(tab.rhor[m], p),

@@ -1,10 +1,11 @@
 """LAMMPS-dialect input-script front end for the port.
 
 The command subset of tpumd/script/parser.py (the reference's Input
-interpreter, src/input.cpp) that the LJ-melt, chain and eam decks use: line
-continuation (&), comment stripping and an order-sensitive command state
-machine driving a ``Simulation``.  Any other command raises
-NotImplementedError naming itself.
+interpreter, src/input.cpp) that the LJ-melt, chain, eam and rhodo_class
+decks use: line continuation (&), comment stripping and an order-sensitive
+command state machine driving a ``Simulation``.  Styles named before
+read_data are made once it has set the type counts.  Any other command
+raises NotImplementedError naming itself.
 """
 
 from __future__ import annotations
@@ -18,15 +19,20 @@ from tpumd_torch.core.atomvec import get_style
 from tpumd_torch.core.create import create_atoms_lattice, remap_host
 from tpumd_torch.core.lattice import Lattice
 from tpumd_torch.core.region import BlockRegion
-from tpumd_torch.core.state import Box, make_state
+from tpumd_torch.core.state import Box, make_state, map_per_atom
 from tpumd_torch.core.velocity_cmd import velocity_create_geom
 from tpumd_torch.io.read_data import build_special, read_data
 from tpumd_torch.md.fix_langevin import FixLangevin
+from tpumd_torch.md.fix_nh import FixNH
+from tpumd_torch.md.fix_shake import FixShake
 from tpumd_torch.md.fixes import FixNVE
 from tpumd_torch.md.simulation import THERMO_KEYS, Simulation, \
     resolve_device
+from tpumd_torch.models.kspace_pppm import PPPM
 from tpumd_torch.models.registry import create_bonded_style, \
     create_pair_style
+
+BONDED_KINDS = ("bond", "angle", "dihedral", "improper")
 
 
 class ScriptError(RuntimeError):
@@ -45,7 +51,10 @@ class LammpsScript:
         self.dtype = dtype
         self.data_dir = "."
         self.atom_style = "atomic"
-        self._pending_bond = None
+        # styles named before read_data sets the type counts
+        self._pending_bonded: dict = {}
+        self._pending_pair = None
+        self._pending_pair_modify: dict = {}
         self.sim: Simulation | None = None
         self.lattice: Lattice | None = None
         self.regions: dict[str, BlockRegion] = {}
@@ -126,47 +135,181 @@ class LammpsScript:
         box = Box.orthogonal(d.box_lo, d.box_hi, device=sim.device,
                              dtype=self.dtype)
         sim.state = make_state(x, d.v, d.types, box, image=image,
-                               molecule=d.molecule, device=sim.device,
-                               dtype=self.dtype)
-        sim.nbondtypes = d.nbondtypes
-        sim.bonds = d.bonds
+                               molecule=d.molecule, q=d.q,
+                               device=sim.device, dtype=self.dtype)
+        sim.topology = {}
+        for kind in BONDED_KINDS:
+            arr = getattr(d, kind + "s")
+            sim.bonded_ntypes[kind] = getattr(d, f"n{kind}types")
+            if arr is not None and len(arr):
+                sim.topology[kind] = arr
         sim.special_tags = sim.special_codes = None
         if d.bonds is not None and len(d.bonds):
             sim.special_tags, sim.special_codes = build_special(
                 d.natoms, d.bonds)
-        if self._pending_bond is not None:
-            sim.bond = create_bonded_style("bond", *self._pending_bond,
-                                           sim.nbondtypes)
-            self._pending_bond = None
+        self._materialize_styles()
+        # coefficient sections of the data file
+        if "Pair Coeffs" in d.coeffs:
+            if not hasattr(sim.pair, "coeff_from_data"):
+                raise NotImplementedError(
+                    f"Pair Coeffs in the data file for pair_style "
+                    f"{getattr(sim.pair, 'name', None)}")
+            sim.pair.coeff_from_data(d.coeffs["Pair Coeffs"])
+        for kind in BONDED_KINDS:
+            rows = d.coeffs.get(kind.capitalize() + " Coeffs")
+            if rows is not None and kind in sim.bonded:
+                for r in rows:
+                    sim.bonded[kind].coeff(int(r[0]),
+                                           *[float(v) for v in r[1:]])
 
-    def cmd_bond_style(self, a):
+    def _materialize_styles(self):
+        """Make the styles named before read_data (src/input.cpp defers
+        nothing; the port needs the type counts first)."""
+        sim = self.sim
+        if self._pending_pair is not None:
+            name, args = self._pending_pair
+            sim.pair = create_pair_style(name, sim.ntypes, args,
+                                         units=sim.units)
+            self._pending_pair = None
+            self._apply_pair_modify(self._pending_pair_modify)
+            self._pending_pair_modify = {}
+        for kind, name in self._pending_bonded.items():
+            self._add_bonded(kind, name)
+        self._pending_bonded = {}
+
+    def _add_bonded(self, kind, name):
+        sim = self.sim
+        style = create_bonded_style(kind, name, (),
+                                    sim.bonded_ntypes.get(kind, 0))
+        if not style.kernel_bond and self.atom_style != "full":
+            raise NotImplementedError(
+                f"{kind}_style {name} with atom_style {self.atom_style}: "
+                "the port evaluates per-tuple bonded styles only for "
+                "atom_style full, beside lj/charmm/coul/long, whose kernel "
+                "excludes the special pairs")
+        sim.bonded[kind] = style
+
+    def _bonded_style(self, kind, a):
         sim = self._require_sim()
         if a[0] == "none":
-            sim.bond = None
-        elif sim.nbondtypes is None:
-            self._pending_bond = (a[0], a[1:])   # before read_data: defer
+            sim.bonded.pop(kind, None)
+            self._pending_bonded.pop(kind, None)
+            return
+        create_bonded_style(kind, a[0], a[1:], 0)  # raises if not ported
+        if kind not in sim.bonded_ntypes:
+            self._pending_bonded[kind] = a[0]    # before read_data: defer
         else:
-            sim.bond = create_bonded_style("bond", a[0], a[1:],
-                                           sim.nbondtypes)
+            self._add_bonded(kind, a[0])
+
+    def _bonded_coeff(self, kind, a):
+        if self.sim is None or kind not in self.sim.bonded:
+            raise ScriptError(f"{kind}_coeff before {kind}_style")
+        self.sim.bonded[kind].coeff(int(a[0]), *[float(v) for v in a[1:]])
+
+    def cmd_bond_style(self, a):
+        self._bonded_style("bond", a)
+
+    def cmd_angle_style(self, a):
+        self._bonded_style("angle", a)
+
+    def cmd_dihedral_style(self, a):
+        self._bonded_style("dihedral", a)
+
+    def cmd_improper_style(self, a):
+        self._bonded_style("improper", a)
 
     def cmd_bond_coeff(self, a):
-        if self.sim is None or self.sim.bond is None:
-            raise ScriptError("bond_coeff before bond_style")
-        self.sim.bond.coeff(int(a[0]), *[float(v) for v in a[1:]])
+        self._bonded_coeff("bond", a)
 
-    # special_bonds presets: the 1-2, 1-3, 1-4 lj weights (the port has
-    # no charges, so the coul weights are not kept)
-    _SPECIAL_BONDS = {"fene": (0.0, 1.0, 1.0), "charmm": (0.0, 0.0, 0.0),
-                      "amber": (0.0, 0.0, 0.5)}
+    def cmd_angle_coeff(self, a):
+        self._bonded_coeff("angle", a)
+
+    def cmd_dihedral_coeff(self, a):
+        self._bonded_coeff("dihedral", a)
+
+    def cmd_improper_coeff(self, a):
+        self._bonded_coeff("improper", a)
+
+    # special_bonds presets: the 1-2, 1-3, 1-4 (lj, coul) weights
+    # (src/special.cpp, tpumd/script/parser.py:2683)
+    _SPECIAL_BONDS = {"fene": ((0.0, 1.0, 1.0), (0.0, 1.0, 1.0)),
+                      "charmm": ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0)),
+                      "amber": ((0.0, 0.0, 0.5), (0.0, 0.0, 1.0 / 1.2))}
 
     def cmd_special_bonds(self, a):
-        if a[0] == "lj/coul":
+        if a[0] == "lj/coul" and len(a) == 4:
             w = tuple(float(v) for v in a[1:4])
-        elif a[0] in self._SPECIAL_BONDS:
-            w = self._SPECIAL_BONDS[a[0]]
+            wl = wc = w
+        elif a[0] in self._SPECIAL_BONDS and len(a) == 1:
+            wl, wc = self._SPECIAL_BONDS[a[0]]
         else:
-            raise NotImplementedError(f"special_bonds {a[0]} is not ported")
-        self._require_sim().special_lj = np.array((1.0,) + w)
+            raise NotImplementedError(
+                f"special_bonds {' '.join(a)} is not ported")
+        sim = self._require_sim()
+        sim.special_lj = np.array((1.0,) + wl)
+        sim.special_coul = np.array((1.0,) + wc)
+        sim.invalidate_ctx()
+
+    def cmd_kspace_style(self, a):
+        if a[0] != "pppm" or len(a) != 2:
+            raise NotImplementedError(
+                f"kspace_style {' '.join(a)} is not ported (only pppm "
+                "accuracy)")
+        sim = self._require_sim()
+        sim.kspace = PPPM(float(a[1]))
+        sim.invalidate_ctx()
+
+    def cmd_replicate(self, a):
+        """Tile the system nx x ny x nz (src/replicate.cpp, tpumd/script/
+        parser.py:2622-2681): atoms unwrapped by their image flags and
+        shifted by box images, then tags, molecules, topology and special
+        tags offset per replica."""
+        if len(a) != 3:
+            raise NotImplementedError(f"replicate keywords {a[3:]} are not "
+                                      "ported")
+        nx, ny, nz = (int(v) for v in a)
+        if (nx, ny, nz) == (1, 1, 1):
+            return
+        sim = self.sim
+        sim.invalidate_ctx()   # back to natoms rows after an earlier run
+        # rows in tag order: replica r's atom k takes tag k + r n
+        order = torch.argsort(sim.state.tag)
+        s = map_per_atom(sim.state, lambda t: t[order])
+        n = sim.natoms
+        lo = s.box.lo.cpu().numpy().astype(np.float64)
+        ell = s.box.lengths_np()
+        x = s.x.cpu().numpy().astype(np.float64) \
+            + s.image.cpu().numpy() * ell
+        v = s.v.cpu().numpy().astype(np.float64)
+        reps = [(i, j, k) for k in range(nz) for j in range(ny)
+                for i in range(nx)]
+        nrep = len(reps)
+        xs = np.concatenate([x + np.array(r) * ell for r in reps])
+        mol = None if s.molecule is None else s.molecule.cpu().numpy()
+        maxmol = int(mol.max()) if mol is not None and len(mol) else 0
+        box = Box.orthogonal(lo, lo + ell * np.array([nx, ny, nz]),
+                             device=sim.device, dtype=self.dtype)
+        sim.state = make_state(
+            xs, np.tile(v, (nrep, 1)), np.tile(s.type.cpu().numpy(), nrep),
+            box, molecule=None if mol is None else np.concatenate(
+                [mol + r * maxmol for r in range(nrep)]),
+            q=None if s.q is None else np.tile(
+                s.q.cpu().numpy().astype(np.float64), nrep),
+            device=sim.device, dtype=self.dtype)
+        sim._natoms = None
+        for kind, arr in sim.topology.items():
+            out = []
+            for r in range(nrep):
+                rep = arr.copy()
+                rep[:, 1:] += r * n
+                out.append(rep)
+            sim.topology[kind] = np.concatenate(out)
+        if sim.special_tags is not None:
+            st = sim.special_tags
+            sim.special_tags = np.concatenate(
+                [np.where(st > 0, st + r * n, 0) for r in range(nrep)])
+            sim.special_codes = np.tile(sim.special_codes, (nrep, 1))
+        sim.invalidate_ctx()
 
     def cmd_lattice(self, a):
         sim = self._require_sim()
@@ -199,6 +342,7 @@ class LammpsScript:
         sim = self._require_sim()
         sim.ntypes = ntypes
         sim.mass = np.zeros(ntypes + 1)
+        self._materialize_styles()
 
     def cmd_create_atoms(self, a):
         type_id, style = int(a[0]), a[1]
@@ -246,6 +390,7 @@ class LammpsScript:
         # the hash reads the positions as stored, in the run's dtype
         x = sim.state.x.cpu().numpy().astype(np.float64)
         masses = sim.mass[sim.state.type.cpu().numpy()]
+        sim.build_shake()   # SHAKE's removed dof enter the scaling
         fix_dof = sum(fx.dof_removed for fx in sim.fixes)
         v = velocity_create_geom(
             x, masses, t_desired, seed,
@@ -261,8 +406,13 @@ class LammpsScript:
     def cmd_pair_style(self, a):
         sim = self._require_sim()
         if sim.ntypes == 0:
-            raise ScriptError("pair_style before create_box")
-        sim.pair = create_pair_style(a[0], sim.ntypes, a[1:])
+            # before create_box or read_data: made once the types are known
+            create_pair_style(a[0], 1, a[1:])   # raises if not ported
+            self._pending_pair = (a[0], a[1:])
+            sim.pair = None
+        else:
+            sim.pair = create_pair_style(a[0], sim.ntypes, a[1:],
+                                         units=sim.units)
 
     def cmd_pair_coeff(self, a):
         sim = self.sim
@@ -299,6 +449,12 @@ class LammpsScript:
 
     def cmd_pair_modify(self, a):
         kw = dict(zip(a[::2], a[1::2]))
+        if self.sim.pair is None:
+            self._pending_pair_modify.update(kw)
+            return
+        self._apply_pair_modify(kw)
+
+    def _apply_pair_modify(self, kw):
         pair = self.sim.pair
         for key, val in kw.items():
             if key == "shift":
@@ -357,14 +513,22 @@ class LammpsScript:
     def cmd_fix(self, a):
         sim = self.sim
         fid, group, style, args = a[0], a[1], a[2], a[3:]
-        if group == "all" and style == "nve" and not args:
+        if group != "all":
+            raise NotImplementedError(f"fix {fid} on group {group!r}: the "
+                                      "port's fixes act on all atoms")
+        if style == "nve" and not args:
             fx = FixNVE()
-        elif group == "all" and style == "langevin" and len(args) == 4:
+        elif style == "langevin" and len(args) == 4:
             fx = FixLangevin(*args[:3], int(args[3]), device=sim.device)
+        elif style in ("nvt", "npt"):
+            fx = FixNH.parse(style, args)
+        elif style == "shake":
+            fx = FixShake.parse(args)
         else:
             raise NotImplementedError(
-                f"fix {' '.join(a[1:])!r} is not ported (only 'all nve' and "
-                "'all langevin Tstart Tstop damp seed')")
+                f"fix {' '.join(a[1:])!r} is not ported (only 'all nve', "
+                "'all langevin Tstart Tstop damp seed', nvt, npt and "
+                "shake)")
         sim.fixes = [fx for fx in sim.fixes if fx.id != fid]
         fx.id = fid
         sim.fixes.append(fx)
