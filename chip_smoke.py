@@ -43,7 +43,17 @@ line each (any failure raises and exits non-zero):
    atom deck through LammpsScript in f32: the reference binary's step-0
    and step-100 gates, the PPPM mesh, 500 warm-up and 500 timed steps, the
    launch counts of that run and a profile of 100 steps;
-8. a JSON line of the kernels, the card's name and power limit as
+8. main path, chute: the gran/hooke/history kernel (B6) against its
+   plain version on the card, f32 and f64, both shearupdate values, on the
+   32k chute grid after set-up and 10 steps and on a generated pack's grid
+   with a 2-cell periodic axis (5x2x3), the history as it is and scaled
+   by 40 (slipping contacts); timed at the 32k shape in the order plain,
+   kernel, kernel, plain beside its bound, with its registers and spills;
+   a 480-sphere chute deck on the card against the CPU (f64, step 40);
+   then the 32,000-sphere deck through LammpsScript in f32: step-0 and
+   step-100 gates, 500 warm-up and 500 timed steps, the launch counts of
+   that run and a profile of 100 steps;
+9. a JSON line of the kernels, the card's name and power limit as
    nvidia-smi prints them, then the result line.
 
 Imports nothing of JAX or tpumd.
@@ -105,6 +115,18 @@ OPS_CHARMM_PAIR = 8 + 1 + 1 + 3 + OPS_ACCUM
 OPS_CHARMM_COUL = 5 + 3 + 9 + 1 + 3 + 4 + 3
 OPS_CHARMM_LJ = 2 + 3 + 1
 OPS_CHARMM_SWITCH = 18
+# a gran/hooke/history contact, from gran_cellgrid.cu's loop, counted once
+# per unordered pair (the force on j is minus the force on i): d, r2 and
+# the contact test (11), sqrt, 1/r and 1/r2 (3), the relative velocity and
+# its normal and tangential parts (15), the rotational part (9), the
+# effective mass (3), the normal damping and force (7), the tangential
+# relative velocity (12), the shear's advance, length and rotation (24),
+# the tangential force and its length (19), the Coulomb limit and test (4),
+# the rescale of force and shear (19), f += on both atoms (OPS_ACCUM) and
+# the torque: d x fs, 1/r, and radius and sum on each atom (24).  The
+# history's tag match compares integers and is not counted.
+OPS_GRAN_PAIR = 11 + 3 + 15 + 9 + 3 + 7 + 12 + 24 + 19 + 4 + 19 + \
+    OPS_ACCUM + 24
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden" / "peptide"
 
 
@@ -1033,6 +1055,243 @@ def rhodo_breakdown(sim, reps: int = 20) -> str:
     return "; ".join(out)
 
 
+def chute_setup(data: Path, device, dtype, thermo: int = 0):
+    """LammpsScript of the chute deck on a chute_data file, verbose off,
+    before its first run."""
+    from tpumd_torch.bench_targets import IN_CHUTE
+    from tpumd_torch.script.parser import LammpsScript
+    script = LammpsScript(device=device, dtype=dtype)
+    deck = IN_CHUTE.format(data=data)
+    if thermo:
+        deck = deck.replace("thermo          100",
+                            f"thermo          {thermo}")
+    script.run_string(deck)
+    script.sim.verbose = False
+    return script
+
+
+def gran_args(script, dtype, scale=1.0):
+    """(arguments before the coefficients, planes, coefficients) of
+    gran_cellgrid for a set-up script's state, the history scaled."""
+    from tpumd_torch.core.state import Box
+    sim = script.sim
+    s, neigh, _ = sim._carry
+    f = (lambda a: a.to(dtype))
+    box = Box(lo=f(s.box.lo), hi=f(s.box.hi), periodic=s.box.periodic)
+    planes = (f(s.v), f(s.omega), f(s.radius),
+              f(torch.where(s.rmass > 0, s.rmass, 1.0)), s.gmask)
+    return ((f(s.x), s.tag, neigh.valid, neigh.shear_tags,
+             f(neigh.shear * scale), box, sim._neigh_cfg), planes,
+            sim.pair.kernel_coeffs())
+
+
+def check_gran(what, out, plain, tol) -> float:
+    """Raise unless the kernel's forces, torques and history agree with
+    the plain version's (tags equal); returns the largest error of forces
+    and torques relative to their largest value."""
+    torch.cuda.synchronize()
+    if not torch.equal(out[2], plain[2]):
+        raise AssertionError(f"{what}: history tags differ in "
+                             f"{int((out[2] != plain[2]).sum())} entries")
+    worst = 0.0
+    for name, k, p in zip(("force", "torque", "shear"), out[:2] + out[3:],
+                          plain[:2] + plain[3:]):
+        if not torch.isfinite(k).all():
+            raise AssertionError(f"{what}: kernel {name} not finite")
+        top = float(p.abs().max())
+        err = float((k - p).abs().max())
+        if err > tol * top:
+            raise AssertionError(f"{what} {name}: {err} > {tol} * {top}")
+        if name != "shear":
+            worst = max(worst, err / top)
+    return worst
+
+
+def gran_kernel_vs_plain(tmp: Path, ptxas_log: str) -> dict:
+    """B6 against its plain version on the 32k chute grid after set-up
+    and 10 steps, on a 5x2x3 grid (y periodic with 2 cells) and on a 5x5x2
+    grid (z non-periodic with 2 cells, the aliased offsets dropped) after
+    30 steps, f32 and f64, both shearupdate values, the history as it is
+    and scaled by 40; timed and bounded at the 32k shape."""
+    from tpumd_torch.bench_targets import chute_data
+    from tpumd_torch.ops.gran_cellgrid import gran_cellgrid, \
+        gran_compact_sums
+    regs = re.findall(r"gran_cellgrid_kernelI([fd])Lb(\d)ELb(\d)ELb(\d)E"
+                      r"Lb(\d)E.*?\n.*?(\d+) bytes spill stores.*?\n.*?"
+                      r"Used (\d+) registers", ptxas_log)
+    phase("kernel", "gran_cellgrid ptxas (type, shearupdate, freeze, "
+                    "exclude, limit_damping: registers, spill store bytes): "
+                    + "; ".join(f"{t}{a}{b}{c}{d}: {r}, {sp}"
+                                for t, a, b, c, d, sp, r in regs))
+    out = {}
+    for dims, nsteps, grid in (((40, 20, 40), 10, None),
+                               ((6, 3, 6), 30, (5, 2, 3)),
+                               ((6, 6, 4), 30, (5, 5, 2))):
+        data = tmp / f"data.chute.{'x'.join(map(str, dims))}"
+        chute_data(data, *dims)
+        script = chute_setup(data, "cuda", torch.float64)
+        script.run_string(f"run {nsteps}")
+        cfg = script.sim._neigh_cfg
+        if grid is not None and (cfg.nx, cfg.ny, cfg.nz) != grid:
+            raise AssertionError(f"chute {dims}: grid {cfg} is not {grid}")
+        for dtype in (torch.float32, torch.float64):
+            tol = TOL[dtype]
+            worst = 0.0
+            for scale in (1.0, 40.0):
+                args, planes, c = gran_args(script, dtype, scale)
+                for coeffs in (c, c._replace(gammat=0.5 * c.gamman,
+                                             limit_damping=True)):
+                    for su in (True, False):
+                        what = (f"gran {dims} {dtype} scale {scale} "
+                                f"gammat {coeffs.gammat} shearupdate {su}")
+                        worst = max(worst, check_gran(
+                            what, gran_cellgrid(*args, coeffs, planes, 1e-4,
+                                                su),
+                            gran_compact_sums(*args, coeffs, planes, 1e-4,
+                                              su), tol))
+            cfg = args[6]
+            phase("kernel", f"gran_cellgrid grid {cfg.nx}x{cfg.ny}x{cfg.nz} "
+                            f"cap {cfg.cap} {str(dtype)[6:]}: max|kernel - "
+                            f"plain| = {worst:.3g} of max|f| and max|torque|,"
+                            f" history tags equal (tol {tol:g})")
+            if dims[0] != 40 or dtype != torch.float32:
+                continue
+            args, planes, c = gran_args(script, dtype)
+            kern = (lambda: gran_cellgrid(*args, c, planes, 1e-4, True))
+            plain = (lambda: gran_compact_sums(*args, c, planes, 1e-4,
+                                               True))
+            fk, fp = kern()[0], plain()[0]
+            out["max_abs_err"] = float((fk - fp).abs().max())
+            p1 = cuda_ms(plain, 10)
+            k1 = cuda_ms(kern, 200)
+            k2 = cuda_ms(kern, 200)
+            p2 = cuda_ms(plain, 10)
+            k_ro = cuda_ms(lambda: gran_cellgrid(*args, c, planes, 1e-4,
+                                                 False), 200)
+            out.update(ms=min(k1, k2), plain_ms=min(p1, p2))
+            # contacts: each appears in both of its atoms' new tables (none
+            # is dropped below KH = 12 contacts per sphere)
+            stags = plain()[2]
+            ncontact = int((stags != 0).sum()) // 2
+            np_ = cfg.capacity
+            # per slot, read: x, v, omega, radius, rmass (11 floats), gmask,
+            # tag, valid (9 bytes), the old tags and shear (12 + 36 words);
+            # written: f, torque (6 floats), the new tags and shear
+            nbytes = np_ * (4 * (11 + 6) + 9 + 2 * 4 * (12 + 36)) + 12
+            out["bound_ms"], out["bound_by"] = roof(
+                ncontact * OPS_GRAN_PAIR, nbytes)
+            cand = np_ * 27 * cfg.cap
+            phase("kernel", f"gran_cellgrid at the 32k shape, f32, "
+                            f"shearupdate: kernel {k1:.4f} / {k2:.4f} ms, "
+                            f"plain {p1:.4f} / {p2:.4f} ms; read-only "
+                            f"(thermo) kernel {k_ro:.4f} ms; bound: "
+                            f"{ncontact} contacts ({2 * ncontact / cand:.4%}"
+                            f" of {cand} candidates (i, j)); {nbytes} bytes "
+                            f"-> {out['bound_ms']:.6f} ms "
+                            f"({out['bound_by']})")
+    return out
+
+
+def small_chute_card_vs_cpu(tmp: Path):
+    """A 480-sphere chute deck to step 40 on the card and on the CPU, f64:
+    thermo agrees to 1e-10 relative, and the rows, rebuild counts and
+    history tags are equal."""
+    from tpumd_torch.bench_targets import chute_data
+    data = tmp / "data.chute.small"
+    chute_data(data, 10, 6, 8)
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        script = chute_setup(data, dev, torch.float64, thermo=10)
+        script.run_string("run 40")
+        sim = script.sim
+        rows[dev] = (sim.last_thermo, [
+            ln for ln in sim.log_lines
+            if not ln.startswith(("Loop time", "Performance"))],
+            int(sim._carry[1].nbuilds), sim._carry[1].shear_tags.tolist())
+    for k in ("ke", "c_1", "vol"):
+        a, b = rows["cuda"][0][k], rows["cpu"][0][k]
+        if not abs(a - b) <= 1e-10 * abs(b):
+            raise AssertionError(f"chute deck step 40 {k}: card {a} cpu {b}")
+    if rows["cuda"][1:] != rows["cpu"][1:]:
+        raise AssertionError(f"chute deck rows, rebuilds or history differ: "
+                             f"{rows['cuda'][1]} vs {rows['cpu'][1]}")
+    phase("main", f"480-sphere chute deck f64 step 40 card = cpu to 1e-10, "
+                  f"equal rows and history tags, {rows['cuda'][2] - 1} "
+                  f"rebuilds: ke {rows['cuda'][0]['ke']!r} c_1 "
+                  f"{rows['cuda'][0]['c_1']!r}")
+
+
+def chute_main_path(tmp: Path, smi: str) -> dict:
+    from tpumd_torch.bench_targets import CHUTE_STEP0, CHUTE_STEP100, \
+        STEP0_RTOL, chute_data, gate_failures
+    from tpumd_torch.ops import charmm_cellgrid, eam_cellgrid, \
+        gran_cellgrid, lj_cellgrid, lj_fene_cellgrid
+
+    others = (lj_cellgrid.counts, lj_fene_cellgrid.counts,
+              eam_cellgrid.rho_counts, eam_cellgrid.force_counts,
+              charmm_cellgrid.counts)
+    b6 = gran_cellgrid.counts
+    for c in (b6,) + others:
+        c.reset()
+    data = tmp / "data.chute.32000"
+    t0 = time.perf_counter()
+    chute_data(data)
+    script = chute_setup(data, "cuda", torch.float32)
+    sim = script.sim
+    script.run_string("run 0")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    row0 = dict(sim.last_thermo)
+    bad = gate_failures(row0, {k: (v, STEP0_RTOL)
+                               for k, v in CHUTE_STEP0.items()})
+    if bad:
+        raise AssertionError(f"chute step-0 gate: {bad}")
+    script.run_string("run 100")
+    row100 = dict(sim.last_thermo)
+    bad = gate_failures(row100, CHUTE_STEP100)
+    if bad:
+        raise AssertionError(f"chute step-100 gate: {bad}")
+    script.run_string("run 500")
+    lt0, nb0 = sim.loop_time, int(sim._carry[1].nbuilds)
+    script.run_string("run 500")
+    dt = sim.loop_time - lt0
+    rebuilds = int(sim._carry[1].nbuilds) - nb0
+    launches, plain = b6.kernel_launches, b6.plain_calls
+    other = sum(c.kernel_launches for c in others)
+    plain += sum(c.plain_calls for c in others)
+    # setup evaluates once; a run of n steps at thermo 100 is n in-step
+    # evaluations plus one read-only evaluation per 100 steps
+    force_evals = 1 + (100 + 1) + 2 * (500 + 5)
+    if launches != force_evals or plain or other:
+        raise AssertionError(f"gran launches {launches} != force "
+                             f"evaluations {force_evals}, or plain calls "
+                             f"{plain}, or other kernels' launches {other}")
+    s, neigh, _ = sim._carry
+    if (tuple(s.x.shape) != (sim._neigh_cfg.capacity, 3)
+            or not torch.isfinite(s.x).all()
+            or not torch.isfinite(neigh.shear).all()
+            or sorted(s.tag[s.tag > 0].tolist()) != list(range(1, 32001))):
+        raise AssertionError("chute final state malformed")
+    sps = 500 / dt
+    cfg = sim._neigh_cfg
+    live = (neigh.shear_tags != 0).sum(1)
+    phase("main", f"32k chute f32: set-up {setup_s:.3f} s (data file, deck, "
+                  f"grid {cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cap}, first "
+                  f"forces); step 0 {row0!r} and step 100 {row100!r} pass "
+                  f"the gates; step 1200 ke {sim.last_thermo['ke']!r} c_1 "
+                  f"{sim.last_thermo['c_1']!r} vol "
+                  f"{sim.last_thermo['vol']!r}; contacts per sphere "
+                  f"{float(live[neigh.valid].double().mean()):.3f}, at most "
+                  f"{int(live.max())}")
+    phase("main", f"chute timed 500 steps: {sps:.2f} timesteps/s, "
+                  f"{sps * 32000 / 1e6:.3f} Matom-step/s on {smi}; "
+                  f"{rebuilds} rebuilds; gran_cellgrid launches {launches} "
+                  f"= force evaluations {force_evals}, plain calls {plain}, "
+                  f"other kernels' launches {other}")
+    phase("main", "chute " + profile_steps(script, 100, 1e3 / sps))
+    return {"launches": launches}
+
+
 def main():
     smi = environment()
     from tpumd_torch.ops import _build
@@ -1058,6 +1317,11 @@ def main():
     k_charmm = charmm_kernel_vs_plain(log)
     small_rhodo_card_vs_cpu()
     m_charmm = rhodo_main_path(smi)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        k_gran = gran_kernel_vs_plain(tmp, log)
+        small_chute_card_vs_cpu(tmp)
+        m_gran = chute_main_path(tmp, smi)
     kernels = []
     eam_src = "tpumd_torch/csrc/eam_cellgrid.cu"
     for name, src, replaces, k, m in (
@@ -1070,7 +1334,9 @@ def main():
             ("eam_force_cellgrid", eam_src, "tpumd/ops/pallas_eam.py:128",
              k_force, m_force),
             ("charmm_cellgrid", "tpumd_torch/csrc/charmm_cellgrid.cu",
-             "tpumd/ops/pallas_charmm.py:43", k_charmm, m_charmm)):
+             "tpumd/ops/pallas_charmm.py:43", k_charmm, m_charmm),
+            ("gran_cellgrid", "tpumd_torch/csrc/gran_cellgrid.cu",
+             "tpumd/ops/pallas_gran.py:42", k_gran, m_gran)):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": m["launches"],

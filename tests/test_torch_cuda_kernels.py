@@ -19,7 +19,14 @@ runs on a card host without JAX:
   the peptide deck with the rhodo_class settings after set-up (a 2^3 grid
   of cap 368, every neighbour cell met at two images) and of its 1x1x2
   replica (a 2x2x4 grid), special weights, charges and the kspace
-  exclusion term included.
+  exclusion term included;
+* gran/hooke/history (B6, ``gran_cellgrid``): the grid-ordered state of
+  generated chute packs after 30 steps on the card, a 9x5x4 grid and a
+  5x2x3 grid (y periodic with 2 cells), z non-periodic, with the deck's
+  coefficients (dampflag 0, the frozen base's bit, the base-base
+  exclusion) and with dampflag 1 and limit_damping, the history as it is
+  and scaled by 40 (most contacts slip); forces, torques and the history
+  tables after the sweep (tags equal), both shearupdate values.
 
 f32 and f64, every energy/virial flag combination; tolerances as in
 chip_smoke.py: forces 5e-5 (f32) or 1e-12 (f64) of max|f|, energies and
@@ -32,8 +39,8 @@ import numpy as np
 import pytest
 import torch
 
-from tpumd_torch.bench_targets import EAM_A0, IN_CHAIN, IN_RHODO_CLASS, \
-    chain_data, eam_funcfl
+from tpumd_torch.bench_targets import EAM_A0, IN_CHAIN, IN_CHUTE, \
+    IN_RHODO_CLASS, chain_data, chute_data, eam_funcfl
 from tpumd_torch.core.create import create_atoms_lattice
 from tpumd_torch.core.lattice import Lattice
 from tpumd_torch.core.state import Box, make_state, wrap_pbc
@@ -42,6 +49,8 @@ from tpumd_torch.models.pair_eam import PairEAM
 from tpumd_torch.ops import cellgrid as cg
 from tpumd_torch.ops import charmm_cellgrid as b5
 from tpumd_torch.ops import eam_cellgrid as b34
+from tpumd_torch.ops import gran_cellgrid as b6
+from tpumd_torch.ops.cellgrid_gran import GranCoeffs
 from tpumd_torch.ops import lj_cellgrid as b1
 from tpumd_torch.ops import lj_fene_cellgrid as b2
 from tpumd_torch.script.parser import LammpsScript
@@ -201,3 +210,54 @@ def test_charmm_cuda_kernel_matches_plain(dtype):
             assert b5.counts.kernel_launches == n0 + 1
             _close(out, b5.charmm_cellgrid_plain(*args, ef, vf), TOL[dt])
 
+
+
+def _gran_grid(tmp_path, dims, dtype):
+    """The arguments of gran_cellgrid for a generated chute pack after 30
+    steps of the chute deck on the card, the history scaled by 1 and 40."""
+    path = tmp_path / "data.chute"
+    chute_data(path, *dims)
+    script = LammpsScript(device="cuda", dtype=torch.float64)
+    script.run_string(IN_CHUTE.format(data=path))
+    script.sim.verbose = False
+    script.run_string("run 30")
+    sim = script.sim
+    s, neigh, _ = sim._carry
+    f = (lambda a: a.to(dtype))
+    box = Box(lo=f(s.box.lo), hi=f(s.box.hi), periodic=s.box.periodic)
+    planes = (f(s.v), f(s.omega), f(s.radius),
+              f(torch.where(s.rmass > 0, s.rmass, 1.0)), s.gmask)
+    c = sim.pair.kernel_coeffs()
+    coeffs = (c, c._replace(gammat=0.5 * c.gamman, limit_damping=True))
+    return [((f(s.x), s.tag, neigh.valid, neigh.shear_tags,
+              f(neigh.shear * k), box, sim._neigh_cfg), planes, coeffs)
+            for k in (1.0, 40.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_gran_cuda_kernel_matches_plain(dtype, tmp_path):
+    """B6, the gran/hooke/history cell-grid kernel."""
+    _card()
+    dt = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    # every axis of 3 cells or more; y periodic with 2 cells; z
+    # non-periodic with 2 cells (the aliased offsets dropped)
+    for dims, grid in (((10, 6, 8), (9, 5, 4)), ((6, 3, 6), (5, 2, 3)),
+                       ((6, 6, 4), (5, 5, 2))):
+        for args, planes, coeffs in _gran_grid(tmp_path, dims, dt):
+            cfg = args[6]
+            assert (cfg.nx, cfg.ny, cfg.nz) == grid
+            for c in coeffs:
+                assert isinstance(c, GranCoeffs)
+                for shearupdate in (True, False):
+                    n0 = b6.counts.kernel_launches
+                    out = b6.gran_cellgrid(*args, c, planes, 1e-4,
+                                           shearupdate)
+                    assert b6.counts.kernel_launches == n0 + 1
+                    plain = b6.gran_compact_sums(
+                        *args, c, planes, 1e-4, shearupdate)
+                    torch.cuda.synchronize()
+                    assert torch.equal(out[2], plain[2])
+                    for k, p in zip(out[:2] + out[3:], plain[:2] + plain[3:]):
+                        assert float((k - p).abs().max()) <= TOL[dt] * float(
+                            p.abs().max())

@@ -7,7 +7,9 @@ published size and density from a seed, and its gates are tpumd's own
 results on that system.  Likewise the eam deck's published potential
 (Cu_u3.eam): ``eam_funcfl`` writes a Cu-like one from analytic functions.
 The rhodo_class deck's inputs are in the repository (the peptide example),
-and its gates are the reference binary's rows.
+and its gates are the reference binary's rows.  The chute deck's data file
+is not in the repository either: ``chute_data`` writes a layered pack of
+its published size from a seed, and its gates are tpumd's results there.
 """
 
 import numpy as np
@@ -332,6 +334,129 @@ RHODO_STEP0 = {"temp": 281.9047, "epair": -103081.45, "etotal": -83796.488}
 # for f32 through the deck's first 100 steps of heating
 RHODO_STEP100 = {"temp": (302.90763, 2e-2), "epair": (-100551.94, 1e-2),
                  "etotal": (-79735.321, 1e-2)}
+
+
+# LAMMPS bench/in.chute, with {data} for the data file, made by chute_data
+# below because bench/data.chute is not in the repository.  dampflag 0
+# (the last pair_style argument) zeroes gammat.
+IN_CHUTE = """
+units           lj
+atom_style      sphere
+boundary        p p fs
+newton          off
+comm_modify     vel yes
+read_data       {data}
+pair_style      gran/hooke/history 2000.0 NULL 50.0 NULL 0.5 0
+pair_coeff      * *
+neighbor        0.1 bin
+neigh_modify    every 1 delay 0
+timestep        0.0001
+group           bottom type 2
+group           active subtract all bottom
+neigh_modify    exclude group bottom bottom
+fix             1 all gravity 1.0 chute 26.0
+fix             2 bottom freeze
+fix             3 active nve/sphere
+compute         1 all erotate/sphere
+thermo_style    custom step atoms ke c_1 vol
+thermo          100
+thermo_modify   norm no
+"""
+
+# chute_data's square grids have a spacing of 1.02 and its layers sit
+# _CHUTE_LAYER apart, so each sphere of diameter 1 overlaps the four of the
+# (0.51, 0.51)-offset layer below and the four above by _CHUTE_OVERLAP,
+# and spheres of one layer start 0.02 apart.  At a spacing of exactly 1
+# the in-layer gaps (~5e-5, from the z jitter alone) close within a few
+# steps, and a sphere with 12 contacts fills tpumd's history rows (KH = 12),
+# which tpumd reports as a cell overflow.
+_CHUTE_SPACING = 1.02
+_CHUTE_OVERLAP = 0.005
+_CHUTE_LAYER = float(np.sqrt((1.0 - _CHUTE_OVERLAP) ** 2
+                             - 0.5 * _CHUTE_SPACING ** 2))
+# the downslope speed of the top layer: the shear profile's mean kinetic
+# energy is then ~24 per sphere, near the published step-0 ke / 32,000
+_CHUTE_U = 16.8
+# the width of the Gaussian noise on each velocity and angular-velocity
+# component, and the bound of each sphere's uniform z jitter; the chute
+# targets below hold only at these values
+_CHUTE_NOISE = 0.1
+_CHUTE_JITTER = 0.01
+
+
+def chute_data(path, nx: int = 40, ny: int = 20, layers: int = 40,
+               seed: int = 2026):
+    """Write a LAMMPS data file (atom_style sphere) of a layered granular
+    pack on a frozen base: nx * ny * layers spheres of diameter 1 and
+    density 1 in a box of x [0, 1.02 nx), y [0, 1.02 ny), z [0, zhi).
+
+    Layer 0 is the base: type 2 on a square grid of spacing 1.02 at
+    z = 0.5.  Layers 1 .. layers-1 are type 1 on the same grid, odd layers
+    offset by (0.51, 0.51), at z = 0.5 + k h with h = 0.6854, so each
+    sphere overlaps the four below it and the four above it by about
+    0.005, and a sphere starts with at most 8 contacts.  Each sphere's z
+    moves by up to +-0.01.  Type-1 spheres flow downslope with the shear
+    profile v_x = 16.8 (z - 0.5) / ((layers - 1) h), plus Gaussian noise of
+    width 0.1 on each velocity and angular-velocity component; the
+    base is at rest.  Everything random comes from
+    numpy.random.default_rng(seed).  zhi is 1 above the top layer (the
+    deck shrink-wraps it).
+
+    The published data.chute is a dilated flowing pack (packing fraction
+    ~0.56 from its step-0 volume); this one is denser (~0.75), with more
+    contacts per sphere.  Returns the number of spheres."""
+    rng = np.random.default_rng(seed)
+    a, h = _CHUTE_SPACING, _CHUTE_LAYER
+    gx, gy = np.meshgrid(np.arange(nx), np.arange(ny), indexing="xy")
+    grid = a * np.stack([gx.ravel(), gy.ravel()], 1).astype(np.float64)
+    xs, types = [], []
+    for k in range(layers):
+        off = a * (0.75 if k % 2 else 0.25)
+        z = np.full((len(grid), 1), 0.5 + k * h)
+        xs.append(np.concatenate([grid + off, z], 1))
+        types.append(np.full(len(grid), 2 if k == 0 else 1))
+    x = np.concatenate(xs)
+    t = np.concatenate(types)
+    n = len(x)
+    x[:, 2] += rng.uniform(-_CHUTE_JITTER, _CHUTE_JITTER, n)
+    v = rng.normal(0.0, _CHUTE_NOISE, (n, 3))
+    w = rng.normal(0.0, _CHUTE_NOISE, (n, 3))
+    v[:, 0] += _CHUTE_U * (x[:, 2] - 0.5) / ((layers - 1) * h)
+    base = t == 2
+    v[base] = 0.0
+    w[base] = 0.0
+    zhi = 0.5 + (layers - 1) * h + 1.0
+    tags = np.arange(1, n + 1)
+    lines = [f"LAMMPS data file: layered granular chute pack, "
+             f"{nx}x{ny}x{layers} spheres, seed {seed}", "",
+             f"{n} atoms", "2 atom types", "",
+             f"0.0 {a * nx!r} xlo xhi", f"0.0 {a * ny!r} ylo yhi",
+             f"0.0 {zhi!r} zlo zhi", "", "Atoms # sphere", ""]
+    lines += [f"{i} {ty} 1.0 1.0 {p!r} {q!r} {r!r}"
+              for i, ty, (p, q, r) in zip(tags, t.tolist(), x.tolist())]
+    lines += ["", "Velocities", ""]
+    lines += [f"{i} {p!r} {q!r} {r!r} {d!r} {e!r} {f!r}"
+              for i, (p, q, r), (d, e, f) in zip(tags, v.tolist(),
+                                                 w.tolist())]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return n
+
+# Targets of IN_CHUTE on chute_data() at its defaults (32,000 spheres, seed
+# 2026), computed by tpumd on the CPU in float64 with the cell grid forced
+# (tests/test_torch_chute_slice.py::test_chute_targets_from_tpumd
+# regenerates them; 3 rebuilds to step 100).  Step 0 holds to STEP0_RTOL.
+# At step 100 ke holds to tools/bench_all.py:91's 1.5e-3, and c_1 and vol
+# to three times the gap that the port's own f32 run on the CPU showed
+# against these rows: c_1 130.8181610107422 (4.43e-6 relative), vol
+# 22678.0546875 (2.73e-7).
+GAP_C1, GAP_VOL = 4.43e-6, 2.73e-7
+CHUTE_STEP0 = {"ke": 798534.4215513401, "c_1": 24.50185665372077,
+               "vol": 22676.43431118536, "atoms": 32000}
+CHUTE_STEP100 = {"ke": (798568.0653316998, 1.5e-3),
+                 "c_1": (130.817581189062, 3 * GAP_C1),
+                 "vol": (22678.04850514572, 3 * GAP_VOL),
+                 "atoms": (32000, 1e-12)}
 
 
 def gate_failures(vals: dict, targets: dict) -> list[str]:

@@ -1,10 +1,11 @@
 """Core simulation state: the box and the per-atom arrays as torch tensors.
 
 PyTorch counterpart of tpumd/core/state.py (the reference's Atom/Domain
-data model, src/atom.h, src/domain.h) for the orthogonal periodic box of
-the LJ-melt slice.  Plain dataclasses of tensors; every tensor lives on
-the device and in the float dtype the caller passes.  Per-atom arrays are
-padded to a fixed capacity; padded slots carry tag 0, type 0 and charge 0.
+data model, src/atom.h, src/domain.h) for orthogonal boxes whose axes are
+each periodic or not (boundary f/s/m).  Plain dataclasses of tensors;
+every tensor lives on the device and in the float dtype the caller passes.
+Per-atom arrays are padded to a fixed capacity; padded slots carry tag 0,
+type 0, charge 0, radius 0 and rmass 0.
 """
 
 from __future__ import annotations
@@ -18,11 +19,13 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class Box:
-    """Orthogonal box, periodic along all three axes (the cell grid's
-    stencil wraps every axis): lo, hi are (3,) tensors on the device."""
+    """Orthogonal box: lo, hi are (3,) tensors on the device; ``periodic``
+    is a static per-axis flag (a non-periodic axis is never wrapped and
+    takes no minimum-image correction: boundary f, s or m)."""
 
     lo: torch.Tensor
     hi: torch.Tensor
+    periodic: tuple = (True, True, True)
 
     @functools.cached_property
     def lengths(self) -> torch.Tensor:
@@ -35,11 +38,15 @@ class Box:
         return ell[0] * ell[1] * ell[2]
 
     @staticmethod
-    def orthogonal(lo, hi, *, device, dtype):
+    def orthogonal(lo, hi, *, device, dtype, periodic=(True, True, True)):
         return Box(lo=torch.as_tensor(np.asarray(lo), dtype=dtype,
                                       device=device),
                    hi=torch.as_tensor(np.asarray(hi), dtype=dtype,
-                                      device=device))
+                                      device=device),
+                   periodic=tuple(bool(p) for p in periodic))
+
+    def replace(self, **kw) -> "Box":
+        return dataclasses.replace(self, **kw)
 
     def lengths_np(self) -> np.ndarray:
         """Box lengths on the host, as float64 (setup-time decisions)."""
@@ -67,6 +74,14 @@ class MDState:
     # codes 1/2/3, which index the special_bonds weight tables
     special_tags: torch.Tensor | None = None   # (N, S) int32
     special_codes: torch.Tensor | None = None  # (N, S) int32
+    # group membership bits (bit 1 = group all), set by the first group
+    # command (the reference's atom->mask)
+    gmask: torch.Tensor | None = None    # (N,) int32
+    # atom_style sphere (src/atom_vec_sphere.cpp): finite-size particles
+    radius: torch.Tensor | None = None   # (N,)
+    rmass: torch.Tensor | None = None    # (N,) per-atom mass
+    omega: torch.Tensor | None = None    # (N, 3) angular velocity
+    torque: torch.Tensor | None = None   # (N, 3)
 
     @property
     def capacity(self) -> int:
@@ -79,7 +94,8 @@ class MDState:
 # every per-atom field of MDState (for generic permute/pad/compact)
 PER_ATOM_FIELDS = ("x", "v", "f", "type", "tag", "image", "molecule",
                    "bond_tags", "bond_btypes", "q", "special_tags",
-                   "special_codes")
+                   "special_codes", "gmask", "radius", "rmass", "omega",
+                   "torque")
 
 
 def map_per_atom(state: MDState, fn) -> MDState:
@@ -90,8 +106,10 @@ def map_per_atom(state: MDState, fn) -> MDState:
 
 
 def make_state(x, v, types, box: Box, *, tags=None, image=None,
-               molecule=None, q=None, device, dtype) -> MDState:
-    """Build an MDState from host arrays (no padding)."""
+               molecule=None, q=None, radius=None, rmass=None, omega=None,
+               device, dtype) -> MDState:
+    """Build an MDState from host arrays (no padding); a sphere state
+    (radius given) starts with zero torque, and zero omega unless given."""
     n = x.shape[0]
     if tags is None:
         tags = np.arange(1, n + 1, dtype=np.int32)
@@ -101,31 +119,48 @@ def make_state(x, v, types, box: Box, *, tags=None, image=None,
     def ints(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
-    xt = torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    def floats(a):
+        return None if a is None else torch.as_tensor(
+            np.asarray(a), dtype=dtype, device=device)
+
+    xt = floats(x)
+    sphere = radius is not None
     return MDState(
-        x=xt,
-        v=torch.as_tensor(np.asarray(v), dtype=dtype, device=device),
-        f=torch.zeros_like(xt),
+        x=xt, v=floats(v), f=torch.zeros_like(xt),
         type=ints(types), tag=ints(tags), image=ints(image),
-        box=Box(lo=box.lo.to(device=device, dtype=dtype),
-                hi=box.hi.to(device=device, dtype=dtype)),
+        box=box.replace(lo=box.lo.to(device=device, dtype=dtype),
+                        hi=box.hi.to(device=device, dtype=dtype)),
         molecule=None if molecule is None else ints(molecule),
-        q=None if q is None else torch.as_tensor(np.asarray(q), dtype=dtype,
-                                                 device=device))
+        q=floats(q), radius=floats(radius), rmass=floats(rmass),
+        omega=(torch.zeros_like(xt) if sphere and omega is None
+               else floats(omega)),
+        torque=torch.zeros_like(xt) if sphere else None)
+
+
+def _zero_aperiodic(a: torch.Tensor, box: Box) -> torch.Tensor:
+    """a (..., 3) with its non-periodic columns set to 0 (no host copy)."""
+    if all(box.periodic):
+        return a
+    a = a.clone()
+    for c, p in enumerate(box.periodic):
+        if not p:
+            a[..., c] = 0
+    return a
 
 
 def wrap_pbc(state: MDState) -> MDState:
-    """Remap atoms into the periodic box, updating image flags
-    (Domain::pbc, src/domain.cpp; tpumd/core/state.py::wrap_pbc)."""
+    """Remap atoms into the box along its periodic axes, updating image
+    flags (Domain::pbc, src/domain.cpp; tpumd/core/state.py::wrap_pbc);
+    non-periodic axes are left as they are."""
     box = state.box
     ell = box.lengths
     rel = (state.x - box.lo) / ell
-    shift = torch.floor(rel).to(torch.int32)
+    shift = _zero_aperiodic(torch.floor(rel).to(torch.int32), box)
     x = state.x - shift * ell
     return state.replace(x=x, image=state.image + shift)
 
 
 def minimum_image(d: torch.Tensor, box: Box) -> torch.Tensor:
-    """Nearest-image displacement."""
+    """Nearest-image displacement, skipping non-periodic axes."""
     ell = box.lengths
-    return d - ell * torch.round(d / ell)
+    return d - _zero_aperiodic(ell * torch.round(d / ell), box)

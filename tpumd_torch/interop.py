@@ -1,7 +1,8 @@
 """State bridge: build the port's objects from another engine's arrays.
 
 Takes plain numpy arrays (for example the fields of a tpumd ``MDState``,
-``PairLJCut``, ``PairEAM``, ``PairLJCharmmCoulLong`` and ``PPPM``), so one
+``PairLJCut``, ``PairEAM``, ``PairLJCharmmCoulLong``, ``PPPM`` and
+``PairGranHookeHistory``), so one
 state and one potential can be fed to both engines.  This module imports
 nothing of tpumd.
 """
@@ -15,18 +16,17 @@ from tpumd_torch.core.state import Box, MDState
 from tpumd_torch.models.kspace_pppm import PPPM
 from tpumd_torch.models.pair_charmm import PairLJCharmmCoulLong
 from tpumd_torch.models.pair_eam import PairEAM
+from tpumd_torch.models.pair_gran import PairGranHookeHistory
 from tpumd_torch.models.pair_lj_cut import PairLJCut
 from tpumd_torch.utils.units import get_units
 
 
 def state_from_numpy(arrays, box, *, device, dtype) -> MDState:
     """MDState from {x, v, f, type, tag, image} arrays, and where given q,
-    molecule, special_tags and special_codes, and a box mapping {lo, hi,
-    periodic}; rows keep their order (padding included).  The port's box
-    is periodic on every axis; any other box raises."""
-    if not all(box.get("periodic", (True, True, True))):
-        raise NotImplementedError("only fully periodic boxes are ported")
-
+    molecule, special_tags, special_codes, gmask and the sphere fields
+    radius, rmass, omega and torque, and a box mapping {lo, hi, periodic}
+    (periodic on every axis when not given); rows keep their order
+    (padding included)."""
     def floats(a):
         return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
                                device=device)
@@ -42,10 +42,15 @@ def state_from_numpy(arrays, box, *, device, dtype) -> MDState:
         x=floats(arrays["x"]), v=floats(arrays["v"]), f=floats(arrays["f"]),
         type=ints(arrays["type"]), tag=ints(arrays["tag"]),
         image=ints(arrays["image"]),
-        box=Box(lo=floats(box["lo"]), hi=floats(box["hi"])),
+        box=Box(lo=floats(box["lo"]), hi=floats(box["hi"]),
+                periodic=tuple(bool(p) for p in box.get(
+                    "periodic", (True, True, True)))),
         q=opt("q", floats), molecule=opt("molecule", ints),
         special_tags=opt("special_tags", ints),
-        special_codes=opt("special_codes", ints))
+        special_codes=opt("special_codes", ints),
+        gmask=opt("gmask", ints), radius=opt("radius", floats),
+        rmass=opt("rmass", floats), omega=opt("omega", floats),
+        torque=opt("torque", floats))
 
 
 def pair_from_numpy(epsilon, sigma, cut, *, shift=False,
@@ -117,3 +122,20 @@ def pppm_from_numpy(natoms, q, prd, cutoff, accuracy_relative, nxyz,
     ks._setup_coeffs()
     ks._dev = {}
     return ks
+
+
+def gran_from_numpy(kn, kt, gamman, gammat, xmu, *, limit_damping=False,
+                    freeze_bit=0, exclude_bits=(),
+                    max_radius=0.5) -> PairGranHookeHistory:
+    """PairGranHookeHistory with the given settings as resolved numbers
+    (for example tpumd's ``PairGranHookeHistory`` fields: kt and gammat
+    after NULL and dampflag), the frozen group's gmask bit, the excluded
+    group-bit pairs and the largest radius."""
+    pair = PairGranHookeHistory(1)
+    pair.kn, pair.kt, pair.gamman, pair.gammat, pair.xmu = (
+        float(v) for v in (kn, kt, gamman, gammat, xmu))
+    pair.limit_damping = bool(limit_damping)
+    pair.freeze_group_bit = int(freeze_bit)
+    pair.exclude_bits = tuple(tuple(int(b) for b in p) for p in exclude_bits)
+    pair.set_max_radius(max_radius)
+    return pair

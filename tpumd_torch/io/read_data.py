@@ -9,7 +9,9 @@ sections (kept raw for the styles to read); plus ``build_special``.  The
 angle, dihedral and improper topologies and the coefficient sections are
 read for atom_style full, the one molecular deck that carries them.  Any
 other section (the class2 cross-term coefficients among them) raises
-naming itself.
+naming itself.  A sphere file (atom_style sphere: ``id type diameter
+density x y z`` atoms and ``id vx vy vz wx wy wz`` velocities) holds only
+the Atoms and Velocities sections; any other raises.
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ _SECTIONS = ("Masses", "Atoms", "Velocities") + tuple(_TOPOLOGY) \
     + tuple(_COEFFS)
 # what atom styles other than full may carry
 _FULL_ONLY = ("nangles", "ndihedrals", "nimpropers")
+# the sections of a sphere file
+_SPHERE_SECTIONS = ("Atoms", "Velocities")
 
 
 @dataclasses.dataclass
@@ -66,6 +70,9 @@ class DataFile:
     molecule: np.ndarray = None        # bond and full styles
     q: np.ndarray = None               # full style
     image: np.ndarray = None
+    radius: np.ndarray = None          # sphere style
+    rmass: np.ndarray = None
+    omega: np.ndarray = None
     bonds: np.ndarray = None           # (nb, 3): type, atom1, atom2 (tags)
     angles: np.ndarray = None          # (na, 4)
     dihedrals: np.ndarray = None       # (nd, 5)
@@ -142,7 +149,8 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
         if not section:
             continue
         if section not in _SECTIONS or (section in _COEFFS
-                                        and atom_style != "full"):
+                                        and atom_style != "full") or (
+                atom_style == "sphere" and section not in _SPHERE_SECTIONS):
             raise NotImplementedError(
                 f"data-file section {section!r} is not ported with "
                 f"atom_style {atom_style}")
@@ -166,7 +174,11 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
         elif section == "Velocities":
             rows, i = parse_rows(i, n)
             for r in rows:
-                d.v[int(r[0]) - 1] = [float(r[1]), float(r[2]), float(r[3])]
+                k = int(r[0]) - 1
+                d.v[k] = [float(r[1]), float(r[2]), float(r[3])]
+                if style.data_vel is not None:
+                    for name, val in style.data_vel(r[4:]).items():
+                        fields[name][k] = val
         elif section in _TOPOLOGY:
             attr, count_attr, arity = _TOPOLOGY[section]
             count = getattr(d, count_attr)
@@ -178,8 +190,8 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
         else:  # coefficients, read by the styles
             rows, i = parse_rows(i, getattr(d, _COEFFS[section]))
             d.coeffs[section] = rows
-    d.molecule = fields.pop("molecule", None)
-    d.q = fields.pop("q", None)
+    for name in ("molecule", "q", "radius", "rmass", "omega"):
+        setattr(d, name, fields.pop(name, None))
     return d
 
 

@@ -255,7 +255,7 @@ class FixNH(Fix):
         center = 0.5 * (box.lo + box.hi)
         lo = torch.where(flags, (box.lo - center) * expfac + center, box.lo)
         hi = torch.where(flags, (box.hi - center) * expfac + center, box.hi)
-        new_box = type(box)(lo=lo, hi=hi)
+        new_box = box.replace(lo=lo, hi=hi)
         return (s.replace(x=lo + lam * (hi - lo), box=new_box),
                 fst.replace(omega=fst.omega + dto * fst.omega_dot))
 

@@ -17,6 +17,7 @@ post_force at set-up; ``needs_virial`` fixes get the step's total virial
 through ``save_virial`` after post_force; ``contributes_virial`` fixes add
 ``virial_contrib(fstate)`` to it; ``needs_step`` fixes get the timestep
 through ``set_step``, and ``pre_run`` gets a run's first and last steps.
+A fix acts on the atoms of its group (``groupbit``, 1 for group all).
 """
 
 from __future__ import annotations
@@ -29,6 +30,13 @@ class Fix:
     needs_virial = False
     contributes_virial = False
     needs_step = False
+    groupbit = 1             # group membership bit (1: group all)
+
+    def group_sel(self, s):
+        """(N,) bool mask of the atoms this fix acts on."""
+        if self.groupbit == 1:
+            return s.type > 0
+        return (s.gmask & self.groupbit) > 0
 
     def init_state(self, s, ctx):
         """Per-fix state at setup."""
@@ -56,7 +64,8 @@ class Fix:
 
 
 class FixNVE(Fix):
-    """Velocity-Verlet kick-drift / kick (src/fix_nve.cpp:64-143)."""
+    """Velocity-Verlet kick-drift / kick (src/fix_nve.cpp:64-143), on
+    group all only."""
 
     @staticmethod
     def _dtfm(ctx, s):

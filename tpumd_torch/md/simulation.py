@@ -8,7 +8,10 @@ neighbor overflow flag and the thermo row).  Molecular decks bring the
 topology from read_data: FENE bonds ride the pair kernel
 (``_setup_kernel_bond``); every other bonded style is evaluated per tuple,
 minus the bonds and angles that SHAKE constrains.  Under a barostat the
-cell grid keeps a margin and is re-validated after each segment.
+cell grid keeps a margin and is re-validated after each segment, as it is
+under shrink-wrapped faces.  A granular style carries its contact history
+in the grid state (zero at set-up, moved with the atoms by every re-bin);
+the one read per segment also says whether some atom's history is full.
 """
 
 from __future__ import annotations
@@ -23,15 +26,20 @@ from tpumd_torch.md import computes
 from tpumd_torch.md.verlet import ENERGY_KEYS, StepContext, eval_energies, \
     pack_thermo, run_segment
 from tpumd_torch.ops import cellgrid as cg
+from tpumd_torch.ops.cellgrid_gran import KH
 from tpumd_torch.utils.units import Units, get_units
 
 THERMO_KEYS = ("step", "temp", "epair", "emol", "pe", "ke", "etotal",
                "press", "vol", "lx", "ly", "lz", "atoms", "density") \
     + ENERGY_KEYS
+# thermo_style custom also takes c_ID, the scalar of compute ID
 
 # the barostat's first cell margin, widened 10 % per violation
 # (tpumd/md/simulation.py:154-158, :1429)
 BARO_MARGIN = 1.12
+# a shrink-wrapped face sits this fraction of the initial box length
+# beyond the outermost atom (SMALL, src/domain.cpp:46)
+SMALL = 1.0e-4
 
 
 def resolve_device(device) -> torch.device:
@@ -75,6 +83,12 @@ class Simulation:
         self.log_lines: list[str] = []
         self.dimension = 3
         self.verbose = True
+        self.boundary = ("p", "p", "p")   # per axis: p, or lo/hi of f s m
+        self.groups = {"all": 1}          # name -> gmask bit
+        self.neigh_exclude = ()           # ((bit1, bit2), ...)
+        self.computes: dict = {}          # id -> compute
+        self._shrink_small = None         # SMALL * the first box lengths
+        self._hist_warned = False
 
         self._ctx: StepContext | None = None
         self._carry = None             # (state, neigh, fix states)
@@ -110,6 +124,42 @@ class Simulation:
 
     def _barostat_active(self) -> bool:
         return any(getattr(fx, "pstat", False) for fx in self.fixes)
+
+    @property
+    def granular(self) -> bool:
+        return getattr(self.pair, "is_granular", False)
+
+    def _shrink_spec(self) -> tuple:
+        """((dim, shrink_lo, shrink_hi, small), ...) of the s/m faces
+        (tpumd/md/simulation.py:391-401); small is fixed by the box at the
+        first set-up."""
+        spec = []
+        for d, tok in enumerate(self.boundary):
+            lo_, hi_ = tok[0], tok[-1]
+            if lo_ in "sm" or hi_ in "sm":
+                spec.append((d, lo_ in "sm", hi_ in "sm",
+                             float(self._shrink_small[d])))
+        return tuple(spec)
+
+    def _reset_box_host(self):
+        """Shrink-wrap at set-up (Domain::reset_box, tpumd/md/simulation.py
+        :749-767), on the host from the compact state."""
+        spec = self._shrink_spec()
+        if not spec:
+            return
+        box = self.state.box
+        x = self.state.x.detach().cpu().numpy().astype(np.float64)
+        x = x[self.state.tag.cpu().numpy() > 0]
+        lo = box.lo.cpu().numpy().astype(np.float64)
+        hi = box.hi.cpu().numpy().astype(np.float64)
+        for d, slo, shi, small in spec:
+            if shi:
+                hi[d] = x[:, d].max() + small
+            if slo:
+                lo[d] = x[:, d].min() - small
+        self.state = self.state.replace(box=box.replace(
+            lo=torch.as_tensor(lo, dtype=self.dtype, device=self.device),
+            hi=torch.as_tensor(hi, dtype=self.dtype, device=self.device)))
 
     def _special_weights(self):
         """The lj and coul special_bonds weights by code 0..3; the default
@@ -153,7 +203,7 @@ class Simulation:
             natoms=self.natoms, kernel_bond=self._kernel_bond,
             ref_order_tags=self._ref_order_tags, bonded=self._bonded_dev,
             kspace=self.kspace, special_lj=slj, special_coul=scl,
-            tdof=self.dof())
+            tdof=self.dof(), shrink=self._shrink_spec())
 
     def _setup_kernel_bond(self):
         """Route FENE bonds into the pair kernel
@@ -307,30 +357,68 @@ class Simulation:
         pj = torch.as_tensor(perm, device=self.device)
         self.state = map_per_atom(s, lambda a: a[pj])
 
-    def _grid_setup(self, s: MDState, nbuilds: int = 1):
+    def _grid_setup(self, s: MDState, nbuilds: int = 1, history=None):
         """Pad, bin and permute a compact state into a fresh grid
-        (for the current config); returns (state, neigh)."""
+        (for the current config); returns (state, neigh).  A granular
+        style's history tables, (natoms, KH) and (natoms, KH, 3) rows of
+        the compact state, move with the atoms; zero when not given."""
         cfg = self._ctx.neigh_cfg
         s = cg.pad_state(wrap_pbc(s), cfg.capacity)
         valid0 = torch.arange(s.capacity, device=self.device) < self.natoms
         perm, valid, max_count, over = cg.bin_permutation(
             s.x, valid0, s.box, cfg)
         s = cg.apply_permutation(s, perm, valid)
+        tables = {}
+        if self.granular:
+            if history is None:
+                history = (
+                    torch.zeros((self.natoms, KH), dtype=torch.int32,
+                                device=self.device),
+                    torch.zeros((self.natoms, KH, 3), dtype=self.dtype,
+                                device=self.device))
+            idx = torch.clamp(perm, min=0)
+            tables = {k: torch.where(
+                valid.reshape((-1,) + (1,) * (a.dim() - 1)),
+                cg.pad_rows(a, cfg.capacity)[idx], 0)
+                for k, a in zip(("shear_tags", "shear"), history)}
         neigh = cg.CellGridState(
             valid=valid, xhold=s.x, ago=0, nbuilds=nbuilds, overflow=over,
             max_count=max_count,
-            row2slot=cg.row2slot_from_tags(s.tag, self.natoms))
+            row2slot=cg.row2slot_from_tags(s.tag, self.natoms), **tables)
         return s, neigh
+
+    def _check_granular_only(self):
+        """Raise on what only the granular path takes: a non-periodic axis
+        (the B1-B5 kernels and PPPM assume a periodic box) and neigh_modify
+        exclude group (only the granular sweep holds the group bits)."""
+        name = getattr(self.pair, "name", None)
+        if not all(self.state.box.periodic) and (
+                not self.granular or self.kspace is not None):
+            raise NotImplementedError(
+                f"boundary {' '.join(self.boundary)} with pair_style {name}"
+                f"{' and kspace_style pppm' if self.kspace else ''}: a "
+                "non-periodic axis is ported for granular pair styles only")
+        if self.neigh_exclude and not self.granular:
+            raise NotImplementedError(
+                f"neigh_modify exclude group with pair_style {name}: it is "
+                "ported for granular pair styles only (their sweep holds "
+                "the group bits)")
 
     def setup(self):
         """Initial neighbor build + force evaluation (Verlet::setup)."""
+        self._check_granular_only()
         self._mass_sum = None
+        if self._shrink_small is None:
+            self._shrink_small = SMALL * self.state.box.lengths_np()
+        self._reset_box_host()
         if self.pair is not None:
             self.pair.init()
             if self.pair.tail_flag:
                 typ = self.state.type.cpu().numpy()
                 counts = np.bincount(typ, minlength=self.ntypes + 1)
                 self.pair.compute_tails(counts.astype(np.float64))
+        if self.granular:
+            self._setup_granular()
         self._sort_atoms_host()
         # reference row order (post-sort, pre-grid-permutation): host RNG
         # streams draw in this order and are re-indexed by tag
@@ -362,8 +450,9 @@ class Simulation:
                 int(neigh.max_count) * 1.3) / 8) * 8)
         self._check_overflow(neigh)
         ctx = self._ctx
-        f, energies, virial = eval_energies(s, neigh, ctx)
-        s = s.replace(f=f)
+        f, energies, virial, torque, _ = eval_energies(s, neigh, ctx)
+        s = s.replace(f=f) if torque is None else s.replace(f=f,
+                                                            torque=torque)
         fstates = []
         # the reference applies post_force fixes once in setup
         # (Verlet::setup -> modify->setup): langevin kicks the step-0
@@ -384,6 +473,20 @@ class Simulation:
         self.state = s
         self._last_energies = energies
         self._last_virial = virial
+
+    def _setup_granular(self):
+        """A granular style needs sphere atoms, the frozen group's bit for
+        its effective-mass rule (PairGranHookeHistory::init_style finds fix
+        freeze), the excluded group-bit pairs and the largest radius for
+        its cutoff."""
+        if self.state.radius is None:
+            raise ValueError(f"pair_style {self.pair.name} needs atom_style "
+                             "sphere")
+        for fx in self.fixes:
+            if getattr(fx, "name", "") == "freeze":
+                self.pair.freeze_group_bit = fx.groupbit
+        self.pair.exclude_bits = self.neigh_exclude
+        self.pair.set_max_radius(float(self.state.radius.max()))
 
     def invalidate_ctx(self):
         """Force a re-setup before the next run (the fix set changed);
@@ -430,20 +533,27 @@ class Simulation:
                 carry = run_segment(*snapshot, ctx, seg, xs,
                                     step0=self.step)
                 # the one overflow read of the segment
-                if bool(carry[1].overflow):
+                over, saturated = self._segment_flags(carry[1])
+                if saturated and not self._hist_warned:
+                    self._hist_warned = True
+                    self._log(f"WARNING: granular contact-history slots "
+                              f"saturated for some atom \u2014 contacts beyond "
+                              f"{KH} per atom lose shear history")
+                if over:
                     # grow capacities, redo the segment from the snapshot
                     ctx = self._regrow(snapshot)
                     continue
                 break
             self._carry = carry
             self.step = nxt
-            if self._barostat_active():
+            if self._barostat_active() or ctx.shrink:
                 ctx = self._revalidate_geometry()
             s, neigh, fstates = self._carry
             self.state = s
             # carry keeps the in-step f; this eval only refreshes energies
             # and the virial for thermo
-            _, self._last_energies, virial = eval_energies(s, neigh, ctx)
+            _, self._last_energies, virial, _, _ = eval_energies(s, neigh,
+                                                                 ctx)
             for fx, fs in zip(self.fixes, fstates):
                 if fx.contributes_virial:
                     virial = virial + fx.virial_contrib(fs)
@@ -458,14 +568,30 @@ class Simulation:
         self.loop_steps += nsteps
         self._finish_report(elapsed, nsteps)
 
+    def _segment_flags(self, neigh) -> tuple[bool, bool]:
+        """(cell overflow, some atom's KH history entries all in use), read
+        from the device in one transfer."""
+        if neigh.shear_tags is None:
+            return bool(neigh.overflow), False
+        full = torch.all(neigh.shear_tags != 0, dim=1).any()
+        over, sat = torch.stack([torch.as_tensor(neigh.overflow), full]) \
+            .tolist()
+        return over, sat
+
     def _rebin(self, snapshot):
         """Rebuild the grid config for the snapshot's box and capacity
-        overrides, and re-bin the snapshot's atoms into it
-        (tpumd/md/simulation.py:1304-1374); returns the new context."""
+        overrides, and re-bin the snapshot's atoms (and their contact
+        history) into it (tpumd/md/simulation.py:1304-1374); returns the
+        new context."""
         s0, neigh0, fstates = snapshot
+        rows = cg.compact_rows(neigh0.valid, self.natoms)
         self.state = cg.compact_state(s0, neigh0.valid, self.natoms)
+        history = None
+        if neigh0.shear is not None:
+            history = (neigh0.shear_tags[rows], neigh0.shear[rows])
         self._ctx = self._make_ctx()
-        s, neigh = self._grid_setup(self.state, nbuilds=neigh0.nbuilds)
+        s, neigh = self._grid_setup(self.state, nbuilds=neigh0.nbuilds,
+                                    history=history)
         self._check_overflow(neigh)
         self._carry = (s, neigh, fstates)
         return self._ctx
@@ -479,10 +605,11 @@ class Simulation:
         return self._rebin(snapshot)
 
     def _revalidate_geometry(self):
-        """Re-check the cells against the barostat's box after a segment
-        (tpumd/md/simulation.py:1412-1430): the stencil misses pairs once a
-        cell edge is shorter than cutneigh, so the grid is rebuilt with a
-        10 % wider margin.  Returns the (possibly new) context."""
+        """Re-check the cells against the box after a segment
+        (tpumd/md/simulation.py:1412-1430), under a barostat or a
+        shrink-wrapped face: the stencil misses pairs once a cell edge is
+        shorter than cutneigh, so the grid is rebuilt, under a barostat
+        with a 10 % wider margin.  Returns the (possibly new) context."""
         cutneigh = self.max_cutoff() + self.skin
         ell = self._carry[0].box.lengths_np()
         if (ell < 2.0 * cutneigh).any():
@@ -491,7 +618,8 @@ class Simulation:
                 f"lengths {ell}, cutneigh {cutneigh:.4f}")
         cfg = self._neigh_cfg
         if (ell / np.array([cfg.nx, cfg.ny, cfg.nz]) < cutneigh).any():
-            self._baro_margin *= 1.10
+            if self._barostat_active():
+                self._baro_margin *= 1.10
             return self._rebin(self._carry)
         return self._ctx
 
@@ -515,13 +643,40 @@ class Simulation:
         self._log(f"Neighbor list builds = {self._carry[1].nbuilds - 1}")
 
     # ------------------------------------------------------------------ thermo
+    def _thermo_computes(self) -> list[str]:
+        """The compute IDs that thermo_style reads (c_ID columns)."""
+        ids = [k[2:] for k in self.thermo_style if k.startswith("c_")]
+        for cid in ids:
+            if cid not in self.computes:
+                raise ValueError(f"thermo_style c_{cid}: no compute {cid}")
+        return ids
+
+    def _escaped(self, s):
+        """() count of atoms outside a fixed (f) face, on the device
+        (tpumd/md/simulation.py:1472-1500), or None without such a face."""
+        valid = s.tag > 0
+        out = None
+        for d, tok in enumerate(self.boundary):
+            for side, c in ((0, tok[0]), (1, tok[-1])):
+                if c != "f":
+                    continue
+                past = (s.x[:, d] < s.box.lo[d] if side == 0
+                        else s.x[:, d] > s.box.hi[d])
+                n = torch.sum(past & valid)
+                out = n if out is None else out + n
+        return out
+
     def thermo_values(self) -> dict:
         s = self._carry[0]
         u = self.units
+        extra = [self.computes[c].value(s, u.mvv2e)
+                 for c in self._thermo_computes()]
+        escaped = self._escaped(s)
         packed = pack_thermo(
             s, self._last_energies, self._last_virial,
             (self.dof(), u.boltz, u.mvv2e),
-            torch.as_tensor(self.mass, dtype=self.dtype, device=self.device))
+            torch.as_tensor(self.mass, dtype=self.dtype, device=self.device),
+            extra + ([] if escaped is None else [escaped]))
         return self._vals_from_packed(
             packed.cpu().numpy().astype(np.float64))
 
@@ -533,13 +688,18 @@ class Simulation:
         if ncur != self.natoms:
             raise RuntimeError(f"Lost atoms: original {self.natoms} "
                                f"current {ncur} at step {self.step}")
+        nenergy = 7 + len(ENERGY_KEYS)
+        cids = self._thermo_computes()
+        if len(vals_h) > nenergy + len(cids) and vals_h[-1] > 0:
+            raise RuntimeError(f"Lost atoms: {int(vals_h[-1])} outside "
+                               f"fixed boundaries at step {self.step}")
         if not np.isfinite(vals_h).all():
             raise RuntimeError(
                 f"Non-finite thermodynamics at step {self.step} — "
                 "simulation unstable")
         t, vol, vir3 = float(vals_h[0]), float(vals_h[1]), float(vals_h[2])
         ell = vals_h[4:7]
-        e = dict(zip(ENERGY_KEYS, vals_h[7:].tolist()))
+        e = dict(zip(ENERGY_KEYS, vals_h[7:nenergy].tolist()))
         ke = computes.kinetic_energy(t, dof, u.boltz)
         # long-range LJ tail corrections (Thermo::compute_evdwl,
         # ComputePressure: ptail/volume added to each diagonal term)
@@ -554,8 +714,12 @@ class Simulation:
         pe = epair + emol
         norm = self.natoms if self.thermo_norm else 1
         if self._mass_sum is None:
-            typ = self._carry[0].type.cpu().numpy()
-            self._mass_sum = float(self.mass[typ[typ > 0]].sum())
+            s = self._carry[0]
+            if s.rmass is not None:
+                self._mass_sum = float(s.rmass.double().sum())
+            else:
+                typ = s.type.cpu().numpy()
+                self._mass_sum = float(self.mass[typ[typ > 0]].sum())
         vals = {
             "step": self.step, "temp": t,
             "epair": epair / norm, "emol": emol / norm, "pe": pe / norm,
@@ -566,6 +730,10 @@ class Simulation:
             "density": self.units.mv2d * self._mass_sum / vol,
         }
         vals.update({k: e[k] / norm for k in ENERGY_KEYS})
+        for k, cid in enumerate(cids):
+            c = self.computes[cid]
+            vals["c_" + cid] = float(vals_h[nenergy + k]) / (
+                norm if c.extensive else 1)
         self.last_thermo = vals
         return vals
 

@@ -13,7 +13,11 @@ through every fix hook.
 A force evaluation sums the pair sweep (with charges and special lists
 for charged styles), the bonded styles on the tag-order view of the
 grid-permuted atoms (gathered through ``row2slot``, scattered back with
-one ``index_add_``), and kspace.
+one ``index_add_``), and kspace.  A granular style's sweep also returns
+torques and, in the step (``shearupdate``), the new contact history, which
+the grid state carries and every re-bin moves with the atoms; set-up and
+thermo evaluations read the history without advancing it.  A rebuild
+shrink-wraps the box's s/m faces to the atoms first.
 """
 
 from __future__ import annotations
@@ -60,8 +64,14 @@ class StepContext:
     special_lj: tuple = (1.0, 1.0, 1.0, 1.0)
     special_coul: tuple = (1.0, 1.0, 1.0, 1.0)
     tdof: float = 0.0              # thermostat degrees of freedom
+    # shrink-wrapped faces: ((dim, shrink_lo, shrink_hi, small), ...)
+    # (Domain::reset_box, src/domain.cpp:431-460)
+    shrink: tuple = ()
 
     def mass_per_atom(self, s: MDState):
+        if s.rmass is not None:
+            # per-atom masses (sphere style); empty slots take mass 1
+            return torch.where(s.rmass > 0, s.rmass, 1.0)
         # index_select takes the int32 types as they are (no index copy)
         return torch.index_select(self.mass_table, 0, s.type)
 
@@ -71,9 +81,10 @@ class StepContext:
 
 
 def compute_forces(s: MDState, neigh: cg.CellGridState, ctx: StepContext,
-                   eflag: bool, vflag: bool):
+                   eflag: bool, vflag: bool, shearupdate: bool = False):
     """All forces; returns (f, energies {ENERGY_KEYS} or None, virial (6,)
-    or None)."""
+    or None, torque (N, 3) or None, neigh).  Only a granular style gives a
+    torque, and with shearupdate a neigh holding the new history."""
     energies = virial = None
     if eflag:
         energies = dict.fromkeys(ENERGY_KEYS, torch.zeros(
@@ -91,8 +102,15 @@ def compute_forces(s: MDState, neigh: cg.CellGridState, ctx: StepContext,
             virial = virial + vir
 
     pair = ctx.pair
+    torque = None
     if pair is None:
         f = torch.zeros_like(s.x)
+    elif getattr(pair, "is_granular", False):
+        f, torque, stags, shear = pair.compute_gran_cellgrid(
+            s, neigh.valid, neigh.shear_tags, neigh.shear, ctx.neigh_cfg,
+            ctx.dt, shearupdate)
+        if shearupdate:
+            neigh = neigh.replace(shear_tags=stags, shear=shear)
     elif getattr(pair, "charged", False):
         f, evdwl, ecoul, vir = pair.compute_cellgrid_charged(
             s, neigh.valid, ctx.neigh_cfg, ctx.special_lj, ctx.special_coul,
@@ -124,21 +142,43 @@ def compute_forces(s: MDState, neigh: cg.CellGridState, ctx: StepContext,
         fk, elong, vir = ctx.kspace.compute(s.x, s.q, s.box, eflag, vflag)
         f = f + fk
         tally({"elong": elong}, vir)
-    return f, energies, virial
+    return f, energies, virial, torque, neigh
+
+
+def reset_box_shrink(s: MDState, ctx: StepContext) -> MDState:
+    """Shrink-wrap the box's s/m faces to the atoms' extent plus ``small``
+    (Domain::reset_box, src/domain.cpp:431-460; tpumd/md/verlet.py::
+    reset_box_shrink), on the device; empty slots do not count."""
+    if not ctx.shrink:
+        return s
+    lo, hi = s.box.lo.clone(), s.box.hi.clone()
+    valid = s.tag > 0
+    for dim, shrink_lo, shrink_hi, small in ctx.shrink:
+        xs = s.x[:, dim]
+        if shrink_hi:
+            hi[dim] = torch.max(torch.where(valid, xs, -torch.inf)) + small
+        if shrink_lo:
+            lo[dim] = torch.min(torch.where(valid, xs, torch.inf)) - small
+    return s.replace(box=s.box.replace(lo=lo, hi=hi))
 
 
 def _rebuild(s: MDState, neigh: cg.CellGridState, ctx: StepContext):
-    """Wrap, re-bin and permute the state into the new slot order."""
-    s = wrap_pbc(s)
+    """Wrap, shrink-wrap, re-bin and permute the state (and a granular
+    style's history tables) into the new slot order."""
+    s = reset_box_shrink(wrap_pbc(s), ctx)
     cfg = ctx.neigh_cfg
     src, dst, row2slot, max_count, over = cg.bin_compact(
         s.x, s.tag, ctx.natoms, s.box, cfg, row2slot=neigh.row2slot)
     s = cg.apply_permutation_compact(s, src, dst, cfg.capacity)
+    history = {}
+    if neigh.shear is not None:
+        history = {k: cg.move_rows(getattr(neigh, k), src, dst, cfg.capacity)
+                   for k in ("shear_tags", "shear")}
     # placed atoms carry their tag; empty and dropped slots were zeroed
     neigh = cg.CellGridState(
         valid=s.tag > 0, xhold=s.x, ago=0, nbuilds=neigh.nbuilds + 1,
         overflow=neigh.overflow | over, max_count=max_count,
-        row2slot=row2slot)
+        row2slot=row2slot, **history)
     return s, neigh
 
 
@@ -168,9 +208,9 @@ def step(s: MDState, neigh: cg.CellGridState, fstates, ctx: StepContext,
     if decide_rebuild(s, neigh, ctx):
         s, neigh = _rebuild(s, neigh, ctx)
     need_virial = ctx.need_virial
-    f, _, virial = compute_forces(s, neigh, ctx, eflag=False,
-                                  vflag=need_virial)
-    s = s.replace(f=f)
+    f, _, virial, torque, neigh = compute_forces(
+        s, neigh, ctx, eflag=False, vflag=need_virial, shearupdate=True)
+    s = s.replace(f=f) if torque is None else s.replace(f=f, torque=torque)
     for i, fx in enumerate(ctx.fixes):
         s, fstates[i] = fx.post_force(s, fstates[i], ctx, xs[i])
         if need_virial and fx.contributes_virial:
@@ -196,21 +236,29 @@ def run_segment(s: MDState, neigh: cg.CellGridState, fstates,
 
 
 def eval_energies(s: MDState, neigh: cg.CellGridState, ctx: StepContext):
-    """Force + energy + virial evaluation for thermo output steps."""
+    """Force + energy + virial evaluation for thermo output steps; the
+    contact history is read, not advanced (the reference's shearupdate 0
+    outside the step, pair_gran_hooke_history.cpp:187)."""
     return compute_forces(s, neigh, ctx, eflag=True, vflag=True)
 
 
-def pack_thermo(s: MDState, energies, virial, scal, mass_table):
+def pack_thermo(s: MDState, energies, virial, scal, mass_table,
+                extra=()):
     """Thermo vector on the device, fetched with one transfer.
 
     Layout: [temp, vol, sum(vir[:3]), natoms, lengths(3), energies in
-    ENERGY_KEYS order].  scal = (dof, boltz, mvv2e)."""
+    ENERGY_KEYS order, extra].  scal = (dof, boltz, mvv2e); extra holds
+    () tensors (compute values, counts of escaped atoms)."""
     dof, boltz, mvv2e = scal
-    mass = torch.index_select(mass_table, 0, s.type)
+    if s.rmass is not None:
+        mass = torch.where(s.rmass > 0, s.rmass, 1.0)
+    else:
+        mass = torch.index_select(mass_table, 0, s.type)
     t_dev = computes.temperature(s.v, mass, dof, boltz, mvv2e)
     dt_ = s.x.dtype
     ell = s.box.lengths
     return torch.cat([
         torch.stack([t_dev, s.box.volume, torch.sum(virial[:3]),
                      torch.sum(s.tag > 0).to(dt_)]),
-        ell, torch.stack([energies[k] for k in ENERGY_KEYS])])
+        ell, torch.stack([energies[k] for k in ENERGY_KEYS]
+                         + [e.to(dt_) for e in extra])])

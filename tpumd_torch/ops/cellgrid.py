@@ -53,6 +53,11 @@ class CellGridState:
     overflow: torch.Tensor   # () bool, OR-accumulated over rebuilds
     max_count: torch.Tensor  # () most atoms seen in one cell
     row2slot: torch.Tensor   # (natoms,) tag -> slot map
+    # granular styles: each slot's compact tag-keyed contact history
+    # (ops/cellgrid_gran.py), per atom, so a re-bin moves it with the
+    # atoms: partner tags (Np, KH) int32 (0 = empty) and shear (Np, KH, 3)
+    shear_tags: torch.Tensor | None = None
+    shear: torch.Tensor | None = None
 
     def replace(self, **kw) -> "CellGridState":
         return dataclasses.replace(self, **kw)
@@ -166,30 +171,41 @@ def bin_compact(x, tag, natoms: int, box: Box, cfg: CellGridConfig,
     return src, dst, row2slot_new, max_count, overflow
 
 
+def move_rows(a, src, dst, capacity: int):
+    """a's rows moved by bin_compact's (src, dst): an n-sized gather +
+    scatter (empty slots zeroed; dst == capacity drops an overflowed
+    atom)."""
+    return _set_drop(capacity, dst, a[src])
+
+
 def apply_permutation_compact(state: MDState, src, dst,
                               capacity: int) -> MDState:
-    """Reorder per-atom arrays via an n-sized gather + scatter (empty
-    slots zeroed; dst == capacity drops an overflowed atom)."""
-    return map_per_atom(state, lambda a: _set_drop(capacity, dst, a[src]))
+    """Reorder per-atom arrays via move_rows."""
+    return map_per_atom(state, lambda a: move_rows(a, src, dst, capacity))
+
+
+def pad_rows(a, capacity: int):
+    """a with zero rows appended up to capacity rows."""
+    extra = capacity - a.shape[0]
+    if extra < 0:
+        raise ValueError("capacity smaller than atom count")
+    return torch.cat([a, torch.zeros((extra,) + tuple(a.shape[1:]),
+                                     dtype=a.dtype, device=a.device)])
 
 
 def pad_state(state: MDState, capacity: int) -> MDState:
     """Pad per-atom arrays to the grid capacity (invalid slots at the end)."""
-    extra = capacity - state.capacity
-    if extra < 0:
-        raise ValueError("capacity smaller than atom count")
+    return map_per_atom(state, lambda a: pad_rows(a, capacity))
 
-    def pad(a):
-        return torch.cat([a, torch.zeros((extra,) + tuple(a.shape[1:]),
-                                         dtype=a.dtype, device=a.device)])
 
-    return map_per_atom(state, pad)
+def compact_rows(valid, natoms: int):
+    """Indices of the valid slots, in slot order, truncated to natoms."""
+    return torch.argsort((~valid).to(torch.int8), stable=True)[:natoms]
 
 
 def compact_state(state: MDState, valid, natoms: int) -> MDState:
     """Gather valid atoms to the front and truncate to natoms rows."""
-    order = torch.argsort((~valid).to(torch.int8), stable=True)
-    idx = order[:natoms]
+    idx = compact_rows(valid, natoms)
     return map_per_atom(state, lambda a: a[idx])
 
 
@@ -200,15 +216,21 @@ def displacement_exceeded(x, xhold, valid, box: Box, skin: float):
     return torch.max(rsq) > delta * delta
 
 
-def _offs(n: int):
-    """Stencil offsets along one (periodic) axis: always all three.
+def _offs(n: int, periodic: bool = True):
+    """Stencil offsets along one axis (tpumd/ops/cellgrid.py::_offs).
 
-    With n == 2 the +-1 neighbours are the same cell under DIFFERENT wrap
-    corrections (direct and wrapped image), and with n == 1 they are the
-    +-L periodic images of the self cell.  Valid because every config
-    guards L >= 2*cutneigh, so at most one image of any pair is in range.
+    Periodic axes always take all three: with n == 2 the +-1 neighbours
+    are the same cell under DIFFERENT wrap corrections (direct and wrapped
+    image), and with n == 1 they are the +-L periodic images of the self
+    cell.  Valid because every config guards L >= 2*cutneigh, so at most
+    one image of any pair is in range.  A non-periodic axis takes no wrap
+    correction, so offsets that alias mod n are dropped: they would
+    present the same atoms at the same coordinates twice (n == 2) or
+    three times (n == 1).
     """
-    return (-1, 0, 1)
+    if periodic or n >= 3:
+        return (-1, 0, 1)
+    return (-1, 0) if n == 2 else (0,)
 
 
 def _roll_nbr(a, o: int, axis: int, corr):
@@ -261,12 +283,14 @@ def stencil_blocks(x, valid, box: Box, cfg: CellGridConfig, per_slot=(),
     """
     cap = cfg.cap
     gshape = (cfg.nz, cfg.ny, cfg.nx, cap)
-    Lx, Ly, Lz = box.lengths[0], box.lengths[1], box.lengths[2]
+    Lx, Ly, Lz = (box.lengths[c] if box.periodic[c] else None
+                  for c in range(3))
 
     xg = [x[:, c].reshape(gshape) for c in range(3)]
     vg = valid.reshape(gshape)
     ag = [a.reshape(gshape) for a in per_slot]
-    xoffs, yoffs = _offs(cfg.nx), _offs(cfg.ny)
+    xoffs, yoffs = _offs(cfg.nx, box.periodic[0]), _offs(cfg.ny,
+                                                          box.periodic[1])
 
     def xyrow(a, corrx, corry):
         row = torch.cat([_roll_nbr(a, o, 2, corrx) for o in xoffs], dim=-1)
@@ -288,7 +312,7 @@ def stencil_blocks(x, valid, box: Box, cfg: CellGridConfig, per_slot=(),
     one = torch.ones((), dtype=x.dtype, device=x.device)
     chunks = _cell_chunks(cfg, max_pairs)
 
-    for dz in _offs(cfg.nz):
+    for dz in _offs(cfg.nz, box.periodic[2]):
         xj = [_roll_nbr(rows[0], dz, 0, None), _roll_nbr(rows[1], dz, 0, None),
               _roll_nbr(rows[2], dz, 0, Lz)]
         vj = _roll_nbr(vrow, dz, 0, None)

@@ -74,8 +74,14 @@ _ARGTYPES = [_P] * 6 + [_I] * 4 + [_D] * 6 + [_I, _I, _P]
 
 
 def check_grid_inputs(x, valid, box: Box, cfg: CellGridConfig,
-                      name="lj_cellgrid"):
-    """Raise on inputs a cell-grid kernel does not take."""
+                      name="lj_cellgrid", periodic_only=True):
+    """Raise on inputs a cell-grid kernel does not take; unless
+    periodic_only is False, that includes a box with a non-periodic axis
+    (the kernel adds the wrap correction on every axis)."""
+    if periodic_only and not all(box.periodic):
+        raise NotImplementedError(
+            f"{name}: the kernel takes a periodic box only, got periodic "
+            f"flags {box.periodic}")
     if x.dtype not in _FN_NAMES:
         raise TypeError(f"{name}: x must be float32 or float64, "
                         f"got {x.dtype}")

@@ -1,9 +1,9 @@
 """LAMMPS-dialect input-script front end for the port.
 
 The command subset of tpumd/script/parser.py (the reference's Input
-interpreter, src/input.cpp) that the LJ-melt, chain, eam and rhodo_class
-decks use: line continuation (&), comment stripping and an order-sensitive
-command state machine driving a ``Simulation``.  Styles named before
+interpreter, src/input.cpp) that the LJ-melt, chain, eam, rhodo_class and
+chute decks use: line continuation (&), comment stripping and an
+order-sensitive command state machine driving a ``Simulation``.  Styles named before
 read_data are made once it has set the type counts.  Any other command
 raises NotImplementedError naming itself.
 """
@@ -24,7 +24,9 @@ from tpumd_torch.core.velocity_cmd import velocity_create_geom
 from tpumd_torch.io.read_data import build_special, read_data
 from tpumd_torch.md.fix_langevin import FixLangevin
 from tpumd_torch.md.fix_nh import FixNH
+from tpumd_torch.md.computes import ComputeERotateSphere
 from tpumd_torch.md.fix_shake import FixShake
+from tpumd_torch.md.fix_sphere import FixFreeze, FixGravity, FixNVESphere
 from tpumd_torch.md.fixes import FixNVE
 from tpumd_torch.md.simulation import THERMO_KEYS, Simulation, \
     resolve_device
@@ -108,12 +110,33 @@ class LammpsScript:
     # -------------------------------------------------------------- commands
     def cmd_units(self, a):
         self._units_name = a[0]
+        boundary = None if self.sim is None else self.sim.boundary
         self.sim = Simulation(units=a[0], device=self.device,
                               dtype=self.dtype)
+        if boundary is not None:
+            self.sim.boundary = boundary   # a boundary command may come first
 
     def cmd_atom_style(self, a):
         get_style(a[0])   # raises for a style the port does not have
         self.atom_style = a[0]
+
+    def cmd_boundary(self, a):
+        """Per axis p, or a face pair of f (fixed), s (shrink-wrapped) and
+        m (shrink-wrapped with a minimum) (tpumd/script/parser.py:491)."""
+        if len(a) != 3 or any(len(t) > 2 or set(t) - set("pfsm")
+                              or ("p" in t and t != "p") for t in a):
+            raise ScriptError(f"boundary {' '.join(a)} is not a boundary")
+        if self.box is not None or (self.sim is not None
+                                    and self.sim.state is not None):
+            raise ScriptError("boundary command after the simulation box "
+                              "is defined")
+        self._require_sim().boundary = tuple(a)
+
+    def cmd_newton(self, a):
+        pass   # every sweep sums both sides of a pair on its own atom
+
+    def cmd_comm_modify(self, a):
+        pass   # no ghost atoms: partners' velocities are read in place
 
     def cmd_read_data(self, a):
         if len(a) != 1:
@@ -129,13 +152,14 @@ class LammpsScript:
         # the reference remaps every read atom into the box
         # (src/atom.cpp:1176 -> Domain::remap) and folds the shift into
         # the image flags
+        periodic = tuple(t == "p" for t in sim.boundary)
         x = np.ascontiguousarray(d.x, dtype=np.float64)
-        image = d.image + remap_host(x, d.box_lo, d.box_hi,
-                                     (True, True, True))
+        image = d.image + remap_host(x, d.box_lo, d.box_hi, periodic)
         box = Box.orthogonal(d.box_lo, d.box_hi, device=sim.device,
-                             dtype=self.dtype)
+                             dtype=self.dtype, periodic=periodic)
         sim.state = make_state(x, d.v, d.types, box, image=image,
-                               molecule=d.molecule, q=d.q,
+                               molecule=d.molecule, q=d.q, radius=d.radius,
+                               rmass=d.rmass, omega=d.omega,
                                device=sim.device, dtype=self.dtype)
         sim.topology = {}
         for kind in BONDED_KINDS:
@@ -288,7 +312,8 @@ class LammpsScript:
         mol = None if s.molecule is None else s.molecule.cpu().numpy()
         maxmol = int(mol.max()) if mol is not None and len(mol) else 0
         box = Box.orthogonal(lo, lo + ell * np.array([nx, ny, nz]),
-                             device=sim.device, dtype=self.dtype)
+                             device=sim.device, dtype=self.dtype,
+                             periodic=s.box.periodic)
         sim.state = make_state(
             xs, np.tile(v, (nrep, 1)), np.tile(s.type.cpu().numpy(), nrep),
             box, molecule=None if mol is None else np.concatenate(
@@ -371,7 +396,9 @@ class LammpsScript:
             x = np.concatenate(self._atoms_x)
             t = np.concatenate(self._atoms_type)
             lo, hi = self.box
-            box = Box.orthogonal(lo, hi, device=sim.device, dtype=self.dtype)
+            box = Box.orthogonal(lo, hi, device=sim.device, dtype=self.dtype,
+                                 periodic=tuple(t == "p"
+                                                for t in sim.boundary))
             sim.state = make_state(x, np.zeros_like(x), t, box,
                                    device=sim.device, dtype=self.dtype)
 
@@ -475,6 +502,8 @@ class LammpsScript:
 
     def cmd_neigh_modify(self, a):
         sim = self._require_sim()
+        if a and a[0] == "exclude":
+            return self._neigh_exclude(a)
         for key, val in zip(a[::2], a[1::2]):
             if key == "delay":
                 sim.neigh_delay = int(val)
@@ -487,6 +516,18 @@ class LammpsScript:
                     f"neigh_modify {key} is not ported")
         if len(a) % 2:
             raise ScriptError(f"neigh_modify: odd argument list {a}")
+        sim.invalidate_ctx()
+
+    def _neigh_exclude(self, a):
+        """neigh_modify exclude group g1 g2 (src/neighbor.cpp exclusion
+        lists, tpumd/script/parser.py:1102-1110): pairs of a g1 and a g2
+        atom are never in contact."""
+        sim = self.sim
+        if len(a) != 4 or a[1] != "group":
+            raise NotImplementedError(
+                f"neigh_modify {' '.join(a)} is not ported (only exclude "
+                "group g1 g2)")
+        sim.neigh_exclude += ((self._group_bit(a[2]), self._group_bit(a[3])),)
         sim.invalidate_ctx()
 
     def cmd_timestep(self, a):
@@ -502,7 +543,8 @@ class LammpsScript:
             sim.thermo_style = ["step", "temp", "epair", "emol", "etotal",
                                 "press"]
         elif a[0] == "custom":
-            unknown = [k for k in a[1:] if k not in THERMO_KEYS]
+            unknown = [k for k in a[1:] if k not in THERMO_KEYS
+                       and not (k.startswith("c_") and "[" not in k)]
             if unknown:
                 raise NotImplementedError(
                     f"thermo_style custom keywords {unknown} are not ported")
@@ -510,13 +552,79 @@ class LammpsScript:
         else:
             raise NotImplementedError(f"thermo_style {a[0]} is not ported")
 
+    def cmd_thermo_modify(self, a):
+        kw = dict(zip(a[::2], a[1::2]))
+        if len(a) % 2 or set(kw) - {"norm"} or kw["norm"] not in ("yes",
+                                                               "no"):
+            raise NotImplementedError(
+                f"thermo_modify {' '.join(a)} is not ported (only norm "
+                "yes|no)")
+        self._require_sim().thermo_norm = kw["norm"] == "yes"
+
+    def _group_bit(self, name):
+        if name not in self.sim.groups:
+            raise ScriptError(f"undefined group {name!r}")
+        return self.sim.groups[name]
+
+    def cmd_group(self, a):
+        """group name type t... | subtract g1 g2... (src/group.cpp,
+        tpumd/script/parser.py:1689): each group is one bit of the atoms'
+        gmask, bit 1 being group all."""
+        if self.sim is None or (self.sim.state is None
+                                and not self._atoms_x):
+            raise ScriptError("group before the atoms exist")
+        self._finalize_atoms()
+        sim = self.sim
+        name, style = a[0], a[1]
+        if style not in ("type", "subtract") or len(a) < 3:
+            raise NotImplementedError(
+                f"group {' '.join(a[1:])} is not ported (only type and "
+                "subtract)")
+        sim.invalidate_ctx()
+        s = sim.state
+        gm = (torch.ones_like(s.tag) if s.gmask is None
+              else s.gmask.clone())
+        if style == "type":
+            sel = torch.zeros_like(s.tag, dtype=torch.bool)
+            for tok in a[2:]:
+                if ":" in tok:
+                    lo, hi = (int(v) for v in tok.split(":"))
+                    sel |= (s.type >= lo) & (s.type <= hi)
+                else:
+                    sel |= s.type == int(tok)
+        else:
+            sel = (gm & self._group_bit(a[2])) > 0
+            for other in a[3:]:
+                sel &= (gm & self._group_bit(other)) == 0
+        bit = sim.groups.setdefault(name, 1 << len(sim.groups))
+        sim.state = s.replace(gmask=torch.where(sel, gm | bit, gm))
+
+    def cmd_compute(self, a):
+        cid, group, style = a[0], a[1], a[2]
+        if style != "erotate/sphere" or len(a) != 3:
+            raise NotImplementedError(
+                f"compute {' '.join(a[2:])} is not ported (only "
+                "erotate/sphere)")
+        self._require_sim().computes[cid] = ComputeERotateSphere(
+            cid, self._group_bit(group))
+
+    # the fixes that take a group other than all
+    _GROUP_FIXES = ("nve/sphere", "freeze", "gravity")
+
     def cmd_fix(self, a):
         sim = self.sim
         fid, group, style, args = a[0], a[1], a[2], a[3:]
-        if group != "all":
-            raise NotImplementedError(f"fix {fid} on group {group!r}: the "
-                                      "port's fixes act on all atoms")
-        if style == "nve" and not args:
+        if group != "all" and style not in self._GROUP_FIXES:
+            raise NotImplementedError(
+                f"fix {fid} {style} on group {group!r}: only "
+                f"{', '.join(self._GROUP_FIXES)} act on a group")
+        if style == "nve/sphere" and not args:
+            fx = FixNVESphere()
+        elif style == "freeze" and not args:
+            fx = FixFreeze()
+        elif style == "gravity" and len(args) >= 2:
+            fx = FixGravity(args[0], args[1], *args[2:])
+        elif style == "nve" and not args:
             fx = FixNVE()
         elif style == "langevin" and len(args) == 4:
             fx = FixLangevin(*args[:3], int(args[3]), device=sim.device)
@@ -527,10 +635,11 @@ class LammpsScript:
         else:
             raise NotImplementedError(
                 f"fix {' '.join(a[1:])!r} is not ported (only 'all nve', "
-                "'all langevin Tstart Tstop damp seed', nvt, npt and "
-                "shake)")
+                "'all langevin Tstart Tstop damp seed', nvt, npt, shake, "
+                "nve/sphere, freeze and gravity)")
         sim.fixes = [fx for fx in sim.fixes if fx.id != fid]
         fx.id = fid
+        fx.groupbit = self._group_bit(group)
         sim.fixes.append(fx)
         sim.invalidate_ctx()
 
