@@ -53,7 +53,22 @@ line each (any failure raises and exits non-zero):
    then the 32,000-sphere deck through LammpsScript in f32: step-0 and
    step-100 gates, 500 warm-up and 500 timed steps, the launch counts of
    that run and a profile of 100 steps;
-9. a JSON line of the kernels, the card's name and power limit as
+9. the matrix neighbor engine: the row gather (P1) against its plain
+   version on the card, bit for bit, for f32, f64 and int32 tables of
+   widths 1, 5, 12, 16 and 128 up to the last row and at the 32k matrix
+   decks' widths and index shapes, then timed at the
+   gather probe's shapes (a 32,768 x L f32 table, 524,288 rows, L = 128
+   and 16) in the order plain, kernel, kernel, plain, beside its bound and
+   torch.index_select; the 6^3 in.lj deck and the 480-sphere chute pack on
+   the matrix engine, card against CPU (f64, step 40); small_box (periodic
+   images) and tri_lj (a triclinic box) on the card against the reference
+   binary's logs; then the 32k in.lj and chute decks through LammpsScript
+   with neighbor_mode "matrix" in f32 (P1 bit-equal to its plain
+   version on every kind of input their set-up gave it): step-0 and
+   step-100 gates, 500
+   warm-up and 500 timed steps beside the cell grid's figure of this
+   call, P1's launch counts of those runs and a profile of 100 steps;
+10. a JSON line of the kernels, the card's name and power limit as
    nvidia-smi prints them, then the result line.
 
 Imports nothing of JAX or tpumd.
@@ -61,7 +76,9 @@ Imports nothing of JAX or tpumd.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib
 import importlib.metadata
 import json
 import re
@@ -473,7 +490,7 @@ def main_path(smi: str) -> dict:
                   f"launches {launches} >= force evaluations {force_evals}, "
                   f"plain calls {plain}")
     phase("main", "in.lj " + profile_steps(script, 100, 1e3 / sps))
-    return {"launches": launches}
+    return {"launches": launches, "sps": sps}
 
 
 def small_chain_card_vs_cpu(tmp: Path):
@@ -1289,7 +1306,366 @@ def chute_main_path(tmp: Path, smi: str) -> dict:
                   f"= force evaluations {force_evals}, plain calls {plain}, "
                   f"other kernels' launches {other}")
     phase("main", "chute " + profile_steps(script, 100, 1e3 / sps))
-    return {"launches": launches}
+    return {"launches": launches, "sps": sps}
+
+
+# the probe's shapes (tools/probes/gather_probe.py:8-10): a 32,768-row
+# table, 32,768 atoms x K = 16 gathered rows
+P1_ROWS, P1_GATHERED = 32768, 32768 * 16
+# the tables and indices that the 32k matrix decks hand to P1: (dtype,
+# table rows, width, index shape), from their configs on the card (in.lj:
+# 11^3 cells of cap 44, K 88, blocks of 4096; chute: 37 x 18 x 24 cells of
+# cap 8, K 16, blocks of 16384).  in.lj: the cell table at a block's
+# stencil, the candidates' coordinates (27 x 44 a row; the table has a
+# far-away row past the atoms), the packed j rows and the lj/cut
+# coefficient rows; chute: the cell table, the candidates' coordinates
+# with the group bits, and the packed (N, 12) j rows.  matrix_main_path
+# also compares the inputs those runs really gave it.
+P1_MAIN_SHAPES = (
+    (torch.int32, 1331, 44, (4096, 27)),
+    (torch.float32, 32001, 3, (4096, 1188)),
+    (torch.float32, 32000, 4, (32000, 88)),
+    (torch.float32, 4, 6, (32000, 88)),
+    (torch.int32, 15984, 8, (16384, 27)),
+    (torch.float32, 32001, 4, (16384, 216)),
+    (torch.float32, 32000, 12, (32000, 16)))
+# the modules that call gather_rows by name (matrix_main_path records
+# their inputs)
+P1_CALLERS = ("tpumd_torch.ops.neighbor", "tpumd_torch.ops.pairwise",
+              "tpumd_torch.models.pair_gran", "tpumd_torch.models.pair_lj_cut")
+
+
+def p1_case(gen, dtype, rows: int, width: int, shape: tuple):
+    """A random (rows, width) table and a shape of indices into it, the
+    last one the last row."""
+    if dtype == torch.int32:
+        table = torch.randint(-2**31, 2**31 - 1, (rows, width),
+                              generator=gen, device="cuda",
+                              dtype=torch.int32)
+    else:
+        table = torch.randn((rows, width), generator=gen, device="cuda",
+                            dtype=dtype)
+    idx = torch.randint(0, rows, shape, generator=gen, device="cuda",
+                        dtype=torch.int32)
+    idx.view(-1)[-1] = rows - 1
+    return table, idx
+
+
+def p1_equal_plain(cases, what: str) -> int:
+    """Raise unless P1 equals its plain version bit for bit on every
+    (table, idx) of cases; returns their number."""
+    from tpumd_torch.ops.gather import gather_rows, gather_rows_plain
+    n = 0
+    for table, idx in cases:
+        out = gather_rows(table, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(out, gather_rows_plain(table, idx)):
+            raise AssertionError(f"row_gather {what}: {table.dtype} table "
+                                 f"{tuple(table.shape)} idx "
+                                 f"{tuple(idx.shape)} differs from plain")
+        n += 1
+    return n
+
+
+@contextlib.contextmanager
+def recording_p1(seen: dict):
+    """Within the block, every call of gather_rows from the engine first
+    keeps a copy of its table and indices, the first of each (dtype, table
+    shape, index shape) in seen, then goes to the wrapper unchanged."""
+    from tpumd_torch.ops import gather
+    mods = [importlib.import_module(m) for m in P1_CALLERS]
+
+    def record(table, idx):
+        key = (table.dtype, tuple(table.shape), tuple(idx.shape))
+        if key not in seen:
+            seen[key] = (table.clone(), idx.clone())
+        return gather.gather_rows(table, idx)
+    for m in mods:
+        m.gather_rows = record
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.gather_rows = gather.gather_rows
+
+
+def gather_kernel_vs_plain() -> dict:
+    """P1 against its plain version on the card, bit for bit, for f32, f64
+    and int32 tables of widths 1, 5, 12, 16 and 128 with (M,) and (M, K)
+    indices that include the last row, and at the 32k matrix decks' widths
+    and index shapes (P1_MAIN_SHAPES); then timed at the probe's shapes,
+    f32, L = 128 and 16, in the order plain, kernel, kernel, plain, beside
+    its bound and torch.index_select on the same tensors."""
+    from tpumd_torch.ops.gather import gather_rows, gather_rows_plain
+    gen = torch.Generator(device="cuda").manual_seed(2026)
+    checked = p1_equal_plain(
+        (p1_case(gen, dtype, 5000, width, shape)
+         for dtype in (torch.float32, torch.float64, torch.int32)
+         for width in (1, 5, 12, 16, 128)
+         for shape in ((5000 * 4 + 3,), (5000, 17))), "small")
+    phase("kernel", f"row_gather = plain bit for bit in {checked} cases "
+                    "(f32, f64, int32; widths 1, 5, 12, 16, 128; (M,) and "
+                    "(M, K) indices up to the last row)")
+    checked = p1_equal_plain(
+        (p1_case(gen, *c) for c in P1_MAIN_SHAPES), "main-path shape")
+    phase("kernel", f"row_gather = plain bit for bit in {checked} cases at "
+                    "the 32k matrix decks' shapes: " + "; ".join(
+                        f"{str(d)[6:]} {r} x {w} at {sh}"
+                        for d, r, w, sh in P1_MAIN_SHAPES))
+    out = {}
+    for width in (128, 16):
+        table = torch.randn((P1_ROWS, width), generator=gen, device="cuda")
+        idx = torch.randint(0, P1_ROWS, (P1_GATHERED,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        kern = (lambda: gather_rows(table, idx))
+        plain = (lambda: gather_rows_plain(table, idx))
+        lib = (lambda: torch.index_select(table, 0, idx))
+        ref = plain()
+        err = float((kern() - ref).abs().max())
+        if not torch.equal(kern(), ref) or not torch.equal(lib(), ref):
+            raise AssertionError(f"row_gather L={width}: differs")
+        p1 = cuda_ms(plain, 50)
+        k1 = cuda_ms(kern, 200)
+        k2 = cuda_ms(kern, 200)
+        p2 = cuda_ms(plain, 50)
+        lib_ms = cuda_ms(lib, 200)
+        # the table and the indices read once, the rows written once
+        nbytes = 4 * (P1_ROWS * width + P1_GATHERED + P1_GATHERED * width)
+        bound_ms, bound_by = roof(0, nbytes)
+        phase("kernel", f"row_gather at the probe's shape L={width} f32 "
+                        f"({P1_ROWS} x {width} table, {P1_GATHERED} rows): "
+                        f"kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+                        f"{p2:.4f} ms, torch.index_select {lib_ms:.4f} ms; "
+                        f"bound {nbytes} B -> {bound_ms:.6f} ms "
+                        f"({bound_by}; the table fits in L2, so reads may "
+                        f"beat it); max|kernel - plain| = {err}")
+        if width == 128:
+            out = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                   "library_ms": lib_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "max_abs_err": err}
+    return out
+
+
+def check_p1(what: str, nsteps: int) -> str:
+    """Raise unless this card run of the matrix engine launched P1 at
+    least once per force evaluation (set-up and nsteps) and never ran its
+    plain version; returns the counts."""
+    from tpumd_torch.ops.gather import counts
+    if counts.kernel_launches < nsteps + 1 or counts.plain_calls:
+        raise AssertionError(f"{what}: row_gather launches "
+                             f"{counts.kernel_launches} < {nsteps + 1} "
+                             f"force evaluations, or plain calls "
+                             f"{counts.plain_calls}")
+    return (f"row_gather launches {counts.kernel_launches}, plain calls "
+            f"{counts.plain_calls}")
+
+
+def small_matrix_card_vs_cpu(tmp: Path):
+    """The 6^3 in.lj deck and the 480-sphere chute pack on the matrix
+    engine to step 40, card against CPU, f64: thermo to 1e-10 relative,
+    equal rows."""
+    from tpumd_torch.bench_targets import IN_LJ, chute_data
+    from tpumd_torch.ops.gather import counts
+    from tpumd_torch.script.parser import LammpsScript
+    data = tmp / "data.chute.small"
+    chute_data(data, 10, 6, 8)
+    for name, deck, keys in (
+            ("6^3 in.lj", IN_LJ.format(n=6), ("temp", "epair", "etotal",
+                                              "press")),
+            ("480-sphere chute", chute_setup_deck(data, 10),
+             ("ke", "c_1", "vol"))):
+        rows = {}
+        for dev in ("cuda", "cpu"):
+            script = LammpsScript(device=dev, dtype=torch.float64)
+            script.run_string(deck)
+            sim = script.sim
+            sim.verbose = False
+            sim.neighbor_mode = "matrix"
+            counts.reset()
+            script.run_string("run 40")
+            if sim._ctx.is_cellgrid:
+                raise AssertionError(f"{name}: not on the matrix engine")
+            if dev == "cuda":
+                launched = check_p1(name, 40)
+            rows[dev] = (sim.last_thermo, [
+                ln for ln in sim.log_lines
+                if not ln.startswith(("Loop time", "Performance"))])
+        for k in keys:
+            a, b = rows["cuda"][0][k], rows["cpu"][0][k]
+            if not abs(a - b) <= 1e-10 * abs(b):
+                raise AssertionError(f"{name} matrix step 40 {k}: card {a} "
+                                     f"cpu {b}")
+        if rows["cuda"][1] != rows["cpu"][1]:
+            raise AssertionError(f"{name} matrix rows differ: "
+                                 f"{rows['cuda'][1]} vs {rows['cpu'][1]}")
+        phase("main", f"{name} on the matrix engine, f64 step 40: card = "
+                      f"cpu to 1e-10, equal rows: {rows['cuda'][1][-2]}; on "
+                      f"the card {launched}")
+
+
+def chute_setup_deck(data: Path, thermo: int) -> str:
+    from tpumd_torch.bench_targets import IN_CHUTE
+    return IN_CHUTE.format(data=data).replace("thermo          100",
+                                              f"thermo          {thermo}")
+
+
+def log_rows(path: Path) -> list[list[str]]:
+    """The thermo rows of a reference-binary log."""
+    rows, active = [], False
+    for ln in path.read_text().splitlines():
+        if ln.strip().startswith("Step"):
+            active = True
+            continue
+        if active:
+            p = ln.split()
+            if not p or not p[0].lstrip("-").isdigit():
+                active = False
+                continue
+            rows.append(p)
+    return rows
+
+
+def golden_matrix_decks():
+    """small_box (every pair through several images) and tri_lj (a
+    triclinic box) on the card, f64, against the reference binary's logs:
+    small_box every row at rel 1e-7, tri_lj every row at the tolerances of
+    tests/test_triclinic.py:23-28."""
+    from tpumd_torch.ops.gather import counts
+    from tpumd_torch.script.parser import LammpsScript
+    golden = GOLDEN.parent
+    for name in ("small_box", "tri_lj"):
+        script = LammpsScript(device="cuda", dtype=torch.float64)
+        script.data_dir = str(golden / name)
+        pre, run = (golden / name / "in.test").read_text().rsplit("\nrun", 1)
+        script.run_string(pre)
+        sim = script.sim
+        sim.verbose = False
+        counts.reset()
+        script.run_string("run" + run)
+        if sim._ctx.is_cellgrid:
+            raise AssertionError(f"{name}: \"auto\" chose the cell grid")
+        launched = check_p1(name, int(run.split()[0]))
+        got = np.array([ln.split() for ln in sim.log_lines
+                        if ln.split() and ln.split()[0].isdigit()],
+                       np.float64)
+        if name == "small_box":
+            ref = np.array(log_rows(golden / name / "log.ref"), np.float64)
+            tols = [(c, 1e-7, 0.0) for c in (1, 2, 3, 4)]
+            if len(sim._neigh_cfg.image_shifts) != 27:
+                raise AssertionError("small_box: not in the image mode")
+        else:
+            ref = np.loadtxt(golden / name / "thermo.csv")
+            tols = [(1, 1e-7, 0.0), (2, 1e-7, 0.0), (4, 1e-7, 0.0),
+                    (5, 1e-6, 1e-9), (6, 1e-12, 0.0)]
+            if not sim.state.box.istriclinic:
+                raise AssertionError("tri_lj: box not triclinic")
+        if got.shape != ref.shape or (got[:, 0] != ref[:, 0]).any():
+            raise AssertionError(f"{name}: rows {got[:, 0]} vs {ref[:, 0]}")
+        for c, rtol, atol in tols:
+            if not np.allclose(got[:, c], ref[:, c], rtol=rtol, atol=atol):
+                raise AssertionError(f"{name} column {c}: {got[:, c]} vs "
+                                     f"{ref[:, c]}")
+        phase("main", f"{name} on the card (matrix engine, f64) = the "
+                      f"reference binary's log, {len(got)} rows; last "
+                      f"{got[-1].tolist()}; {launched}")
+
+
+def matrix_main_path(tmp: Path, smi: str, grid_sps: dict) -> dict:
+    """The 32k in.lj and chute decks through LammpsScript on the matrix
+    engine, f32: each deck's step-0 and step-100 gates, 500 warm-up and
+    500 timed steps beside the cell grid's figure of this call, the
+    launch counts of P1 (at least one per force evaluation; plain calls
+    0; no cell-grid kernel) and a profile of 100 steps."""
+    from tpumd_torch.bench_targets import CHUTE_STEP0, CHUTE_STEP100, \
+        IN_LJ, SANITY, STEP0, STEP0_RTOL, chute_data, gate_failures
+    from tpumd_torch.ops import charmm_cellgrid, eam_cellgrid, gather, \
+        gran_cellgrid, lj_cellgrid, lj_fene_cellgrid
+    from tpumd_torch.script.parser import LammpsScript
+    grid = (lj_cellgrid.counts, lj_fene_cellgrid.counts,
+            eam_cellgrid.rho_counts, eam_cellgrid.force_counts,
+            charmm_cellgrid.counts, gran_cellgrid.counts)
+    data = tmp / "data.chute.32000"
+    if not data.exists():
+        chute_data(data)
+    total = 0
+    for name, deck, gates0, gates100, natoms in (
+            ("in.lj", IN_LJ.format(n=20), STEP0["lj"], SANITY["lj"], 32000),
+            ("chute", chute_setup_deck(data, 100), CHUTE_STEP0,
+             CHUTE_STEP100, 32000)):
+        for c in (gather.counts,) + grid:
+            c.reset()
+        t0 = time.perf_counter()
+        script = LammpsScript(device="cuda", dtype=torch.float32)
+        script.run_string(deck)
+        sim = script.sim
+        sim.verbose = False
+        sim.neighbor_mode = "matrix"
+        seen = {}
+        with recording_p1(seen):
+            script.run_string("run 0")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        row0 = dict(sim.last_thermo)
+        bad = gate_failures(row0, {k: (v, STEP0_RTOL)
+                                   for k, v in gates0.items()})
+        if bad:
+            raise AssertionError(f"matrix {name} step-0 gate: {bad}")
+        script.run_string("run 100")
+        row100 = dict(sim.last_thermo)
+        bad = gate_failures(row100, gates100)
+        if bad:
+            raise AssertionError(f"matrix {name} step-100 gate: {bad}")
+        script.run_string("run 500")
+        lt0, nb0 = sim.loop_time, int(sim._carry[1].nbuilds)
+        script.run_string("run 500")
+        dt = sim.loop_time - lt0
+        rebuilds = int(sim._carry[1].nbuilds) - nb0
+        launches = gather.counts.kernel_launches
+        plain = gather.counts.plain_calls + sum(c.plain_calls for c in grid)
+        other = sum(c.kernel_launches for c in grid)
+        # at least set-up, the in-step evaluations and one per thermo
+        # output (thermo 50 or 100 on these decks)
+        force_evals = 1 + 100 + 2 * 500 + 3
+        if launches < force_evals or plain or other:
+            raise AssertionError(f"matrix {name}: row_gather launches "
+                                 f"{launches} < force evaluations "
+                                 f"{force_evals}, or plain calls {plain}, "
+                                 f"or cell-grid kernel launches {other}")
+        s, neigh = sim._carry[0], sim._carry[1]
+        if (sim._ctx.is_cellgrid or tuple(s.x.shape) != (natoms, 3)
+                or not torch.isfinite(s.x).all()
+                or sorted(s.tag.tolist()) != list(range(1, natoms + 1))):
+            raise AssertionError(f"matrix {name}: final state malformed")
+        total += launches
+        # P1 against its plain version on the inputs that the set-up's
+        # neighbor build and force evaluation gave it (after the counts
+        # are read: these launches are not the run's)
+        p1_equal_plain(seen.values(), f"matrix {name} input")
+        phase("kernel", f"row_gather = plain bit for bit on the {len(seen)}"
+                        f" kinds of input that 32k {name}'s matrix set-up "
+                        "gave it: " + "; ".join(
+                            f"{str(d)[6:]} {t[0]} x {t[1]} at {i}"
+                            for d, t, i in seen))
+        sps = 500 / dt
+        cfg = sim._neigh_cfg
+        keys = tuple(gates100)
+        phase("main", f"32k {name} f32 on the matrix engine: set-up "
+                      f"{setup_s:.3f} s (cells {cfg.nx}x{cfg.ny}x{cfg.nz} "
+                      f"cap {cfg.cell_cap}, K {cfg.kmax}, max count "
+                      f"{int(neigh.max_count)}, block {cfg.block}); step 0 "
+                      f"{ {k: row0[k] for k in gates0} } and step 100 "
+                      f"{ {k: row100[k] for k in keys} } pass the gates")
+        phase("main", f"matrix {name} timed 500 steps: {sps:.2f} "
+                      f"timesteps/s, {sps * natoms / 1e6:.3f} Matom-step/s "
+                      f"on {smi}, against the cell grid's {grid_sps[name]:.2f}"
+                      f" timesteps/s in this call (matrix / grid "
+                      f"{sps / grid_sps[name]:.3f}); {rebuilds} rebuilds; "
+                      f"row_gather launches {launches} >= force evaluations "
+                      f"{force_evals}, plain calls {plain}, cell-grid "
+                      f"kernel launches {other}")
+        phase("main", f"matrix {name} " + profile_steps(script, 100,
+                                                        1e3 / sps))
+    return {"launches": total}
 
 
 def main():
@@ -1322,6 +1698,11 @@ def main():
         k_gran = gran_kernel_vs_plain(tmp, log)
         small_chute_card_vs_cpu(tmp)
         m_gran = chute_main_path(tmp, smi)
+        k_gather = gather_kernel_vs_plain()
+        small_matrix_card_vs_cpu(tmp)
+        golden_matrix_decks()
+        m_gather = matrix_main_path(tmp, smi, {"in.lj": m_lj["sps"],
+                                               "chute": m_gran["sps"]})
     kernels = []
     eam_src = "tpumd_torch/csrc/eam_cellgrid.cu"
     for name, src, replaces, k, m in (
@@ -1336,13 +1717,16 @@ def main():
             ("charmm_cellgrid", "tpumd_torch/csrc/charmm_cellgrid.cu",
              "tpumd/ops/pallas_charmm.py:43", k_charmm, m_charmm),
             ("gran_cellgrid", "tpumd_torch/csrc/gran_cellgrid.cu",
-             "tpumd/ops/pallas_gran.py:42", k_gran, m_gran)):
+             "tpumd/ops/pallas_gran.py:42", k_gran, m_gran),
+            ("row_gather", "tpumd_torch/csrc/row_gather.cu",
+             "tools/probes/gather_probe.py:37", k_gather, m_gather)):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": m["launches"],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None})
+            "bound_by": k["bound_by"],
+            "library_ms": k.get("library_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,14 @@ runs on a card host without JAX:
   coefficients (dampflag 0, the frozen base's bit, the base-base
   exclusion) and with dampflag 1 and limit_damping, the history as it is
   and scaled by 40 (most contacts slip); forces, torques and the history
-  tables after the sweep (tags equal), both shearupdate values.
+  tables after the sweep (tags equal), both shearupdate values;
+* the row gather (P1, ``gather_rows``): bit for bit equal to its plain
+  version for f32, f64 and int32 tables of widths 1, 5, 12, 16 and 128
+  with (M,) and (M, K) indices up to the last row, and at misaligned
+  row starts; the matrix engine on the card (lj/cut on a small triclinic
+  box and the 480-sphere chute pack on matrix rows) equals the CPU's
+  thermo to 1e-10 after 20 steps, with a launch of P1 per force
+  evaluation and no plain call.
 
 f32 and f64, every energy/virial flag combination; tolerances as in
 chip_smoke.py: forces 5e-5 (f32) or 1e-12 (f64) of max|f|, energies and
@@ -52,6 +59,7 @@ from tpumd_torch.ops import eam_cellgrid as b34
 from tpumd_torch.ops import gran_cellgrid as b6
 from tpumd_torch.ops.cellgrid_gran import GranCoeffs
 from tpumd_torch.ops import lj_cellgrid as b1
+from tpumd_torch.ops import gather as p1
 from tpumd_torch.ops import lj_fene_cellgrid as b2
 from tpumd_torch.script.parser import LammpsScript
 
@@ -261,3 +269,84 @@ def test_gran_cuda_kernel_matches_plain(dtype, tmp_path):
                     for k, p in zip(out[:2] + out[3:], plain[:2] + plain[3:]):
                         assert float((k - p).abs().max()) <= TOL[dt] * float(
                             p.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "f64", "i32"])
+def test_row_gather_cuda_kernel_equals_plain(dtype):
+    """P1, the row gather: a copy, so bit for bit."""
+    _card()
+    rng = np.random.default_rng(3)
+    for width in (1, 5, 12, 16, 128):
+        rows = 1000
+        if dtype == "i32":
+            table = torch.as_tensor(rng.integers(-2**31, 2**31 - 1,
+                                                 (rows, width)),
+                                    dtype=torch.int32, device="cuda")
+        else:
+            table = torch.as_tensor(
+                rng.standard_normal((rows, width)), device="cuda",
+                dtype={"f32": torch.float32, "f64": torch.float64}[dtype])
+        for shape in ((4099,), (517, 13)):
+            idx = torch.as_tensor(rng.integers(0, rows, shape),
+                                  dtype=torch.int32, device="cuda")
+            idx.view(-1)[-1] = rows - 1
+            n0 = p1.counts.kernel_launches
+            out = p1.gather_rows(table, idx)
+            assert p1.counts.kernel_launches == n0 + 1
+            torch.cuda.synchronize()
+            assert torch.equal(out, p1.gather_rows_plain(table, idx))
+        # a table starting one element past an aligned address takes
+        # 4- or 8-byte copies
+        shifted = table.view(-1)[1:1 + (rows - 1) * width].view(rows - 1,
+                                                                width)
+        idx = torch.arange(rows - 2, -1, -1, dtype=torch.int32,
+                           device="cuda")
+        assert torch.equal(p1.gather_rows(shifted, idx),
+                           p1.gather_rows_plain(shifted, idx))
+
+
+TRI_DECK = """
+units           lj
+atom_style      atomic
+read_data       {golden}/tri_lj/data.tri
+pair_style      lj/cut 2.5
+pair_coeff      1 1 1.0 1.0 2.5
+neighbor        0.3 bin
+neigh_modify    every 1 delay 0 check yes
+velocity        all create 1.2 4928459 loop geom
+fix             1 all nve
+timestep        0.005
+thermo          10
+"""
+
+
+@pytest.mark.cuda
+def test_matrix_engine_on_the_card_equals_the_cpu(tmp_path):
+    """The matrix engine (its gathers through P1) on the card against the
+    CPU, f64: a triclinic lj/cut deck and the chute pack."""
+    _card()
+    chute_data(tmp_path / "data.chute", 10, 6, 8)
+    decks = {
+        "tri": (TRI_DECK.format(golden=os.path.dirname(GOLDEN)),
+                ("temp", "epair", "etotal", "press")),
+        "chute": (IN_CHUTE.format(data=tmp_path / "data.chute"),
+                  ("ke", "c_1", "vol"))}
+    for name, (deck, keys) in decks.items():
+        rows = {}
+        for dev in ("cuda", "cpu"):
+            script = LammpsScript(device=dev, dtype=torch.float64)
+            script.run_string(deck)
+            script.sim.verbose = False
+            script.sim.neighbor_mode = "matrix"
+            p1.counts.reset()
+            script.run_string("run 20")
+            rows[dev] = script.sim.last_thermo
+            if dev == "cuda":
+                # set-up and thermo evaluations and 20 in-step ones, each
+                # at least one gather, plus the builds
+                assert p1.counts.kernel_launches >= 22
+                assert p1.counts.plain_calls == 0
+        for k in keys:
+            assert rows["cuda"][k] == pytest.approx(rows["cpu"][k],
+                                                    rel=1e-10), (name, k)

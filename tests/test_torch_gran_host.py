@@ -343,16 +343,19 @@ run             0
 @pytest.mark.parametrize("what", ["p p f", "p s p", "before units",
                                   "exclude", "after box", "kernel check"])
 def test_periodic_only_paths_raise(what):
-    """Only the granular path takes a non-periodic axis or a neigh_modify
-    exclusion: the lj/cut deck raises at set-up with either (the B1-B5
-    kernels add the wrap on every axis), also when the boundary command
-    comes before units, the kernels' input check raises on a non-periodic
-    box, and a boundary command after the box is made raises.  The same
-    deck with an explicit ``boundary p p p`` runs."""
+    """On the cell grid only the granular path takes a non-periodic axis
+    or a neigh_modify exclusion: the lj/cut deck with either raises at
+    set-up when the grid is asked for (the B1-B5 kernels add the wrap on
+    every axis), also when the boundary command comes before units, and
+    runs on the matrix engine, which "auto" picks for it.  The kernels'
+    input check raises on a non-periodic box, and a boundary command after
+    the box is made raises.  The same deck with an explicit ``boundary p p
+    p`` runs on the grid."""
     ok = TScript(device="cpu", dtype=torch.float64)
     ok.run_string(LJ_DECK.format(boundary="p p p", extra=""))
     assert ok.sim.last_thermo["epair"] == pytest.approx(-6.7733681,
                                                         rel=1e-7)
+    assert ok.sim._mode == "cellgrid"
     if what == "kernel check":
         from tpumd_torch.ops.cellgrid import CellGridConfig
         from tpumd_torch.ops.lj_cellgrid import check_grid_inputs
@@ -381,8 +384,19 @@ def test_periodic_only_paths_raise(what):
         deck = "boundary p p f\n" + deck.replace(
             "boundary        p p f\n", "")
     script = TScript(device="cpu", dtype=torch.float64)
+    if what == "after box":
+        with pytest.raises(err, match=match):
+            script.run_string(deck)
+        return
+    pre, run = deck.rsplit("\nrun", 1)
+    script.run_string(pre)
+    script.sim.neighbor_mode = "cellgrid"
     with pytest.raises(err, match=match):
-        script.run_string(deck)
+        script.run_string("run" + run)
+    auto = TScript(device="cpu", dtype=torch.float64)
+    auto.run_string(deck)
+    assert auto.sim._mode == "matrix"
+    assert np.isfinite(auto.sim.last_thermo["epair"])
 
 
 CASES = {k[5:]: v for k, v in globals().items() if k.startswith("case_")}

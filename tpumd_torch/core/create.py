@@ -41,6 +41,34 @@ def remap_host(x, lo, hi, periodic):
     return img
 
 
+def remap_triclinic_host(x, lo, hi, tilt, periodic):
+    """Domain::remap of every atom in a triclinic box (host, float64), as
+    tpumd/script/parser.py::_triclinic_remap_np has it: x to lamda in the
+    reference's h_inv order, wrap into [0, 1) along periodic axes, back to
+    x in its h order.  Returns (x, image offsets)."""
+    x = np.asarray(x, np.float64)
+    lo = np.asarray(lo, np.float64)
+    lx, ly, lz = np.asarray(hi, np.float64) - lo
+    xy, xz, yz = (float(t) for t in tilt)
+    hinv = [1.0 / lx, 1.0 / ly, 1.0 / lz, -yz / (ly * lz),
+            (yz * xy - ly * xz) / (lx * ly * lz), -xy / (lx * ly)]
+    dd = x - lo
+    lam = np.stack([hinv[0] * dd[:, 0] + hinv[5] * dd[:, 1]
+                    + hinv[4] * dd[:, 2],
+                    hinv[1] * dd[:, 1] + hinv[3] * dd[:, 2],
+                    hinv[2] * dd[:, 2]], axis=1)
+    shift = np.zeros(lam.shape, np.int32)
+    for c in range(3):
+        if periodic[c]:
+            shift[:, c] = np.floor(lam[:, c]).astype(np.int32)
+            lam[:, c] -= shift[:, c]
+            lam[:, c] = np.maximum(lam[:, c], 0.0)
+    out = np.stack([lx * lam[:, 0] + xy * lam[:, 1] + xz * lam[:, 2] + lo[0],
+                    ly * lam[:, 1] + yz * lam[:, 2] + lo[1],
+                    lz * lam[:, 2] + lo[2]], axis=1)
+    return out, shift
+
+
 def create_atoms_lattice(
     lattice: Lattice,
     region: Region | None,

@@ -2,9 +2,9 @@
 
 Takes plain numpy arrays (for example the fields of a tpumd ``MDState``,
 ``PairLJCut``, ``PairEAM``, ``PairLJCharmmCoulLong``, ``PPPM`` and
-``PairGranHookeHistory``), so one
-state and one potential can be fed to both engines.  This module imports
-nothing of tpumd.
+``PairGranHookeHistory``, and a ``NeighborConfig`` and ``NeighborState``
+of the matrix engine), so one state, one potential and one neighbor list
+can be fed to both engines.  This module imports nothing of tpumd.
 """
 
 from __future__ import annotations
@@ -18,15 +18,16 @@ from tpumd_torch.models.pair_charmm import PairLJCharmmCoulLong
 from tpumd_torch.models.pair_eam import PairEAM
 from tpumd_torch.models.pair_gran import PairGranHookeHistory
 from tpumd_torch.models.pair_lj_cut import PairLJCut
+from tpumd_torch.ops.neighbor import NeighborConfig, NeighborState
 from tpumd_torch.utils.units import get_units
 
 
 def state_from_numpy(arrays, box, *, device, dtype) -> MDState:
     """MDState from {x, v, f, type, tag, image} arrays, and where given q,
     molecule, special_tags, special_codes, gmask and the sphere fields
-    radius, rmass, omega and torque, and a box mapping {lo, hi, periodic}
-    (periodic on every axis when not given); rows keep their order
-    (padding included)."""
+    radius, rmass, omega and torque, and a box mapping {lo, hi, periodic,
+    tilt} (periodic on every axis and orthogonal when not given); rows keep
+    their order (padding included)."""
     def floats(a):
         return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
                                device=device)
@@ -42,15 +43,58 @@ def state_from_numpy(arrays, box, *, device, dtype) -> MDState:
         x=floats(arrays["x"]), v=floats(arrays["v"]), f=floats(arrays["f"]),
         type=ints(arrays["type"]), tag=ints(arrays["tag"]),
         image=ints(arrays["image"]),
-        box=Box(lo=floats(box["lo"]), hi=floats(box["hi"]),
-                periodic=tuple(bool(p) for p in box.get(
-                    "periodic", (True, True, True)))),
+        box=box_from_numpy(box, device=device, dtype=dtype),
         q=opt("q", floats), molecule=opt("molecule", ints),
         special_tags=opt("special_tags", ints),
         special_codes=opt("special_codes", ints),
         gmask=opt("gmask", ints), radius=opt("radius", floats),
         rmass=opt("rmass", floats), omega=opt("omega", floats),
         torque=opt("torque", floats))
+
+
+def box_from_numpy(box, *, device, dtype) -> Box:
+    """Box from a mapping {lo, hi} and, where given, periodic and tilt
+    (xy, xz, yz; a triclinic box, even when all zero)."""
+    tilt = box.get("tilt")
+    return Box(lo=torch.as_tensor(np.asarray(box["lo"], np.float64),
+                                  dtype=dtype, device=device),
+               hi=torch.as_tensor(np.asarray(box["hi"], np.float64),
+                                  dtype=dtype, device=device),
+               periodic=tuple(bool(p) for p in box.get(
+                   "periodic", (True, True, True))),
+               tilt=None if tilt is None else torch.as_tensor(
+                   np.asarray(tilt, np.float64), dtype=dtype, device=device))
+
+
+def neighbor_config_from_numpy(fields) -> NeighborConfig:
+    """NeighborConfig from a mapping of its fields (for example
+    ``dataclasses.asdict`` of tpumd's ``NeighborConfig``)."""
+    fields = dict(fields)
+    fields["exclude_bits"] = tuple(tuple(int(b) for b in p)
+                                   for p in fields.get("exclude_bits", ()))
+    fields["image_shifts"] = tuple(tuple(int(k) for k in sv)
+                                   for sv in fields.get("image_shifts", ()))
+    return NeighborConfig(**fields)
+
+
+def neighbor_state_from_numpy(idx, sbits, xhold, *, shear=None, nbuilds=1,
+                              overflow=False, max_count=0, device,
+                              dtype) -> NeighborState:
+    """NeighborState holding the given list (idx, sbits (N, K) int32), the
+    positions at its build and, for a granular style, its (N, K, 3)
+    history (for example the fields of tpumd's ``NeighborState``)."""
+    def ints(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    def floats(a):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                               device=device)
+    return NeighborState(
+        idx=ints(idx), sbits=ints(sbits), xhold=floats(xhold), ago=0,
+        nbuilds=int(nbuilds),
+        overflow=torch.tensor(bool(overflow), device=device),
+        max_count=torch.tensor(int(max_count), device=device),
+        shear=None if shear is None else floats(shear))
 
 
 def pair_from_numpy(epsilon, sigma, cut, *, shift=False,

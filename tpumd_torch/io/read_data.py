@@ -2,9 +2,9 @@
 
 The part of tpumd/io/read_data.py (the reference's read_data command,
 src/read_data.cpp) that the chain and rhodo_class decks need: the header
-counts, an orthogonal box, and the Masses, Atoms (atomic, bond and full
-styles, image flags included), Velocities, Bonds, Angles, Dihedrals and
-Impropers sections, and the Pair, Bond, Angle, Dihedral and Improper Coeffs
+counts, an orthogonal or triclinic box (the ``xy xz yz`` line), and the
+Masses, Atoms (atomic, bond and full styles, image flags included),
+Velocities, Bonds, Angles, Dihedrals and Impropers sections, and the Pair, Bond, Angle, Dihedral and Improper Coeffs
 sections (kept raw for the styles to read); plus ``build_special``.  The
 angle, dihedral and improper topologies and the coefficient sections are
 read for atom_style full, the one molecular deck that carries them.  Any
@@ -63,6 +63,7 @@ class DataFile:
     nimpropertypes: int = 0
     box_lo: np.ndarray = None
     box_hi: np.ndarray = None
+    tilt: np.ndarray | None = None     # (xy, xz, yz) of a triclinic box
     masses: np.ndarray = None          # (ntypes+1,)
     x: np.ndarray = None               # (N,3) in tag order (tag 1..N)
     v: np.ndarray = None
@@ -100,8 +101,8 @@ def _header_line(d: DataFile, line: str) -> bool:
             d.box_lo[c], d.box_hi[c] = float(toks[0]), float(toks[1])
             return True
     if len(toks) >= 6 and toks[3:6] == ["xy", "xz", "yz"]:
-        raise NotImplementedError("data file: triclinic boxes are not "
-                                  "ported")
+        d.tilt = np.array([float(t) for t in toks[:3]])
+        return True
     return False
 
 

@@ -12,10 +12,18 @@ cell grid keeps a margin and is re-validated after each segment, as it is
 under shrink-wrapped faces.  A granular style carries its contact history
 in the grid state (zero at set-up, moved with the atoms by every re-bin);
 the one read per segment also says whether some atom's history is full.
+
+Two neighbor engines (``neighbor_mode``, chosen at set-up by
+``_resolve_mode``): the cell grid, where the atoms sit in grid-slot order,
+and the matrix engine (``ops/neighbor.py``), where they keep their rows and
+a padded (N, K) neighbor list holds the pairs.  The matrix engine takes
+what the grid cannot: any number of lj/cut types, non-periodic axes for
+every pairwise style, boxes narrower than 2 cutneigh and triclinic boxes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -23,9 +31,10 @@ import torch
 
 from tpumd_torch.core.state import MDState, map_per_atom, wrap_pbc
 from tpumd_torch.md import computes
-from tpumd_torch.md.verlet import ENERGY_KEYS, StepContext, eval_energies, \
-    pack_thermo, run_segment
+from tpumd_torch.md.verlet import ENERGY_KEYS, StepContext, build_matrix, \
+    eval_energies, pack_thermo, run_segment
 from tpumd_torch.ops import cellgrid as cg
+from tpumd_torch.ops import neighbor as nb
 from tpumd_torch.ops.cellgrid_gran import KH
 from tpumd_torch.utils.units import Units, get_units
 
@@ -61,6 +70,10 @@ class Simulation:
         self.neigh_every = 1
         self.neigh_delay = 10
         self.neigh_check = True
+        # "matrix": the padded neighbor matrix (exact list semantics, any
+        # box); "cellgrid": the cell grid and its kernels; "auto": the
+        # grid where it takes the case (_resolve_mode)
+        self.neighbor_mode = "auto"
 
         self.state: MDState | None = None
         self.mass = None               # (ntypes+1,) numpy
@@ -92,8 +105,11 @@ class Simulation:
 
         self._ctx: StepContext | None = None
         self._carry = None             # (state, neigh, fix states)
-        self._neigh_cfg: cg.CellGridConfig | None = None
+        self._neigh_cfg: cg.CellGridConfig | nb.NeighborConfig | None = None
+        self._mode = None              # the engine of the set-up
         self._cap_override = None
+        self._kmax_override = None     # matrix engine capacities
+        self._cellcap_override = None
         self._baro_margin = BARO_MARGIN
         self._natoms = None
         self._mass_sum = None
@@ -169,28 +185,75 @@ class Simulation:
         scl = default if self.special_coul is None else self.special_coul
         return (tuple(float(w) for w in slj), tuple(float(w) for w in scl))
 
+    def _resolve_mode(self) -> str:
+        """The engine of this set-up (tpumd/md/simulation.py:113-143, with
+        no backend key): the cell grid when its kernels take the style,
+        every axis is periodic, the box is orthogonal and at least 2
+        cutneigh wide; else the matrix engine.  The port differs in two
+        ways: a granular style stays on the grid with non-periodic axes
+        (B6 takes them, and runs there on the card), and a case that the
+        grid's kernels refuse (lj/cut with several types, a
+        ``neigh_modify exclude`` beside B1-B5) goes to the matrix engine.
+        A granular deck reaches the matrix engine when an axis is
+        narrower than 2 cutneigh: a bed a few grains deep under a
+        shrink-wrapped top (non-periodic, so it needs no image copies)."""
+        if self.neighbor_mode not in ("auto", "cellgrid", "matrix"):
+            raise ValueError(f"neighbor_mode {self.neighbor_mode!r}: auto, "
+                             "cellgrid or matrix")
+        if self.neighbor_mode != "auto":
+            return self.neighbor_mode
+        box = self.state.box
+        cutneigh = self.max_cutoff() + self.skin
+        eligible = (
+            self.pair is not None and self.pair.supports_cellgrid
+            and (self.granular or (all(box.periodic)
+                                   and not self.neigh_exclude))
+            and not box.istriclinic
+            and bool(np.all(box.lengths_np() >= 2.0 * cutneigh)))
+        return "cellgrid" if eligible else "matrix"
+
+    def _matrix_config(self, cutneigh: float,
+                       margin: float) -> nb.NeighborConfig:
+        """The matrix engine's config (tpumd/md/simulation.py:189-243); the
+        cell capacity fits the atoms' actual occupancy unless overridden."""
+        cfg = nb.choose_config(
+            self.state.box, cutneigh, self.skin, self.natoms,
+            every=self.neigh_every, delay=self.neigh_delay,
+            check=self.neigh_check,
+            has_special=self.state.special_tags is not None,
+            kmax=self._kmax_override, cell_cap=self._cellcap_override,
+            box_margin=margin)
+        cfg = dataclasses.replace(cfg, exclude_bits=tuple(self.neigh_exclude))
+        if self._cellcap_override is None and not cfg.image_shifts:
+            # the density rule oversizes settled granular packs, and the
+            # build's cost grows with the cap; granular contacts bound the
+            # occupancy (+2), point particles diffuse (30 % more, +2)
+            cid, _ = nb._cell_index(self.state.x, self.state.box, cfg)
+            occ = int(torch.bincount(cid, minlength=cfg.ncells).max())
+            if self.granular:
+                tight = int(np.ceil((occ + 2) / 2) * 2)
+            else:
+                tight = int(np.ceil((occ * 1.3 + 2) / 2) * 2)
+            if tight < cfg.cell_cap:
+                cfg = dataclasses.replace(cfg, cell_cap=tight)
+        if cfg.image_shifts and self.pair is not None \
+                and not self.pair.supports_image_ext:
+            raise NotImplementedError(
+                f"pair_style {self.pair.name}: a box narrower than "
+                "2*cutneigh needs the multi-image mode, which this style "
+                "does not take")
+        return cfg
+
     def _make_ctx(self) -> StepContext:
         cutneigh = self.max_cutoff() + self.skin
         # under a barostat, cells keep a margin so that moderate box
         # shrinkage leaves their edges >= cutneigh (re-validated after
         # each segment)
         margin = self._baro_margin if self._barostat_active() else 1.0
-        # cell-size factor: cells of F*cutneigh (stencil stays +-1); grow F
-        # while the mean cell occupancy is far below a dense cap
-        # (tpumd/md/simulation.py:159-185)
-        ell = self.state.box.lengths_np()
-        cell_factor = 1.0
-        while cell_factor < 4.0:
-            ncell = np.prod(np.maximum(1, np.floor(
-                ell / (cutneigh * margin * (cell_factor * 2))).astype(int)))
-            if ncell < 27 or self.natoms / ncell > 28.0:
-                break
-            cell_factor *= 2
-        cfg = cg.choose_cellgrid_config(
-            self.state.box, cutneigh, self.skin, self.natoms,
-            every=self.neigh_every, delay=self.neigh_delay,
-            check=self.neigh_check, cap=self._cap_override,
-            box_margin=margin * cell_factor)
+        if self._mode == "matrix":
+            cfg = self._matrix_config(cutneigh, margin)
+        else:
+            cfg = self._grid_config(cutneigh, margin)
         self._neigh_cfg = cfg
         mass_np = np.asarray(self.mass, dtype=np.float64).copy()
         mass_np[0] = 1.0  # padded slots: finite mass, zero force
@@ -204,6 +267,26 @@ class Simulation:
             ref_order_tags=self._ref_order_tags, bonded=self._bonded_dev,
             kspace=self.kspace, special_lj=slj, special_coul=scl,
             tdof=self.dof(), shrink=self._shrink_spec())
+
+    def _grid_config(self, cutneigh: float,
+                     margin: float) -> cg.CellGridConfig:
+        """The cell grid's config."""
+        # cell-size factor: cells of F*cutneigh (stencil stays +-1); grow F
+        # while the mean cell occupancy is far below a dense cap
+        # (tpumd/md/simulation.py:159-185)
+        ell = self.state.box.lengths_np()
+        cell_factor = 1.0
+        while cell_factor < 4.0:
+            ncell = np.prod(np.maximum(1, np.floor(
+                ell / (cutneigh * margin * (cell_factor * 2))).astype(int)))
+            if ncell < 27 or self.natoms / ncell > 28.0:
+                break
+            cell_factor *= 2
+        return cg.choose_cellgrid_config(
+            self.state.box, cutneigh, self.skin, self.natoms,
+            every=self.neigh_every, delay=self.neigh_delay,
+            check=self.neigh_check, cap=self._cap_override,
+            box_margin=margin * cell_factor)
 
     def _setup_kernel_bond(self):
         """Route FENE bonds into the pair kernel
@@ -314,11 +397,13 @@ class Simulation:
         self._bonded_dev = tuple(out)
 
     def _setup_special(self):
-        """Per-row special lists for a charged pair sweep: entries whose
-        lj and coul weights are both 1 are dropped (tpumd/md/simulation.py:
-        469-491), and the lists follow the rows by tag."""
-        if not getattr(self.pair, "charged", False) \
-                or self.special_tags is None:
+        """Per-row special lists for a charged pair sweep or the matrix
+        engine's special codes: entries whose lj and coul weights are both
+        1 are dropped (tpumd/md/simulation.py:469-491), and the lists
+        follow the rows by tag."""
+        if self.special_tags is None or not (
+                self._mode == "matrix" or getattr(self.pair, "charged",
+                                                  False)):
             return
         slj, scl = self._special_weights()
         st = np.asarray(self.special_tags, np.int32)
@@ -387,26 +472,75 @@ class Simulation:
             row2slot=cg.row2slot_from_tags(s.tag, self.natoms), **tables)
         return s, neigh
 
-    def _check_granular_only(self):
-        """Raise on what only the granular path takes: a non-periodic axis
-        (the B1-B5 kernels and PPPM assume a periodic box) and neigh_modify
-        exclude group (only the granular sweep holds the group bits)."""
+    def _check_engine(self, mode: str):
+        """Raise on what the chosen engine cannot take.  PPPM needs a
+        periodic box on either engine.  On the cell grid, the B1-B5
+        kernels take neither a non-periodic axis nor neigh_modify exclude
+        group (only the granular sweep holds the group bits), and no
+        kernel takes a triclinic box.  A triclinic box takes neither a
+        barostat nor a shrink-wrapped face: both would move the box in
+        orthogonal lengths and leave the tilt factors behind.  On the
+        matrix engine, a style or fix whose matrix path is not ported
+        raises, naming itself."""
         name = getattr(self.pair, "name", None)
-        if not all(self.state.box.periodic) and (
-                not self.granular or self.kspace is not None):
+        box = self.state.box
+        if self.kspace is not None and not all(box.periodic):
             raise NotImplementedError(
                 f"boundary {' '.join(self.boundary)} with pair_style {name}"
-                f"{' and kspace_style pppm' if self.kspace else ''}: a "
-                "non-periodic axis is ported for granular pair styles only")
-        if self.neigh_exclude and not self.granular:
+                " and kspace_style pppm: a non-periodic axis is ported "
+                "without kspace only")
+        if box.istriclinic and self._barostat_active():
             raise NotImplementedError(
-                f"neigh_modify exclude group with pair_style {name}: it is "
-                "ported for granular pair styles only (their sweep holds "
-                "the group bits)")
+                "a barostat on a triclinic box: fix nh dilates the box "
+                "lengths in orthogonal coordinates and leaves the tilt "
+                "factors unscaled (fix nh tri is not ported)")
+        shrunk = [a for a, tok in zip("xyz", self.boundary)
+                  if set(tok) & set("sm")]
+        if box.istriclinic and shrunk:
+            raise NotImplementedError(
+                f"boundary {' '.join(self.boundary)} on a triclinic box: a "
+                f"shrink-wrapped {'/'.join(shrunk)} face would be set from "
+                "the atoms' extent in x, not in lamda coordinates (not "
+                "ported)")
+        if mode == "cellgrid":
+            if not all(box.periodic) and not self.granular:
+                raise NotImplementedError(
+                    f"boundary {' '.join(self.boundary)} with pair_style "
+                    f"{name} on the cell grid: a non-periodic axis is "
+                    "ported there for granular pair styles only (the "
+                    "matrix engine takes it)")
+            if self.neigh_exclude and not self.granular:
+                raise NotImplementedError(
+                    f"neigh_modify exclude group with pair_style {name} on "
+                    "the cell grid: it is ported there for granular pair "
+                    "styles only, whose sweep holds the group bits (the "
+                    "matrix engine takes it)")
+            if box.istriclinic:
+                raise NotImplementedError(
+                    "a triclinic box on the cell grid: the matrix engine "
+                    "takes it")
+            return
+        if self.pair is not None and not self.pair.matrix_engine:
+            raise NotImplementedError(
+                f"pair_style {name} on the matrix neighbor engine is not "
+                "ported")
+        if self.kspace is not None:
+            raise NotImplementedError(
+                "kspace_style pppm on the matrix neighbor engine is not "
+                "ported")
+        styles = [f"{k}_style {st.name}" for k, st in self.bonded.items()
+                  if self.topology.get(k) is not None
+                  and len(self.topology[k])]
+        if styles:
+            raise NotImplementedError(
+                f"{', '.join(styles)} on the matrix neighbor engine: bonded "
+                "styles (FENE chains included) are not ported there")
+        if self.shake_fixes():
+            raise NotImplementedError(
+                "fix shake on the matrix neighbor engine is not ported")
 
     def setup(self):
         """Initial neighbor build + force evaluation (Verlet::setup)."""
-        self._check_granular_only()
         self._mass_sum = None
         if self._shrink_small is None:
             self._shrink_small = SMALL * self.state.box.lengths_np()
@@ -419,6 +553,8 @@ class Simulation:
                 self.pair.compute_tails(counts.astype(np.float64))
         if self.granular:
             self._setup_granular()
+        self._mode = self._resolve_mode()
+        self._check_engine(self._mode)
         self._sort_atoms_host()
         # reference row order (post-sort, pre-grid-permutation): host RNG
         # streams draw in this order and are re-indexed by tag
@@ -441,13 +577,28 @@ class Simulation:
             self.pair.g_ewald = self.kspace.g_ewald
         for _ in range(6):
             self._ctx = self._make_ctx()
-            s, neigh = self._grid_setup(self.state)
-            if not bool(neigh.overflow):
-                break
-            # grow the cell capacity from the observed maximum and retry
-            self._cap_override = int(np.ceil(max(
-                self._neigh_cfg.cap * 1.5,
-                int(neigh.max_count) * 1.3) / 8) * 8)
+            if self._mode == "cellgrid":
+                s, neigh = self._grid_setup(self.state)
+                if not bool(neigh.overflow):
+                    break
+                # grow the cell capacity from the observed maximum, retry
+                self._cap_override = int(np.ceil(max(
+                    self._neigh_cfg.cap * 1.5,
+                    int(neigh.max_count) * 1.3) / 8) * 8)
+                continue
+            s, neigh = self._matrix_setup(self.state)
+            if bool(neigh.overflow):
+                self._grow_matrix(neigh)
+                continue
+            if self._kmax_override is None:
+                # shrink K once to the observed largest count (+3, a
+                # multiple of 8): every pair sweep walks all K slots
+                # (tpumd/md/simulation.py:674-689)
+                tight = int(np.ceil((int(neigh.max_count) + 3) / 8) * 8)
+                if tight + 4 <= self._neigh_cfg.kmax:
+                    self._kmax_override = tight
+                    continue
+            break
         self._check_overflow(neigh)
         ctx = self._ctx
         f, energies, virial, torque, _ = eval_energies(s, neigh, ctx)
@@ -474,6 +625,23 @@ class Simulation:
         self._last_energies = energies
         self._last_virial = virial
 
+    def _matrix_setup(self, s: MDState, nbuilds: int = 1, old=None):
+        """Wrap a compact state and build its neighbor matrix (for the
+        current config); returns (state, neigh).  A granular style's
+        history is carried from ``old`` by j-match, else zero."""
+        s = wrap_pbc(s)
+        return s, build_matrix(s, self._ctx, nbuilds, old=old,
+                               history=self.granular)
+
+    def _grow_matrix(self, neigh):
+        """Grow both matrix capacities after an overflow (the flag is the
+        cell cap's or K's; tpumd/md/simulation.py:1393-1405)."""
+        mc = int(neigh.max_count)
+        self._kmax_override = int(max(self._neigh_cfg.kmax * 1.5, mc * 1.3)
+                                  + 8)
+        self._cellcap_override = int(np.ceil(
+            self._neigh_cfg.cell_cap * 1.5 / 8) * 8)
+
     def _setup_granular(self):
         """A granular style needs sphere atoms, the frozen group's bit for
         its effective-mass rule (PairGranHookeHistory::init_style finds fix
@@ -496,7 +664,8 @@ class Simulation:
             # fixes that survive keep their state across the re-setup
             self._fstate_stash = {id(fx): fs for fx, fs
                                   in zip(self._ctx.fixes, fstates)}
-            self.state = cg.compact_state(s, neigh.valid, self.natoms)
+            self.state = (cg.compact_state(s, neigh.valid, self.natoms)
+                          if self._ctx.is_cellgrid else s)
         self._ctx = None
         self._carry = None
 
@@ -569,9 +738,9 @@ class Simulation:
         self._finish_report(elapsed, nsteps)
 
     def _segment_flags(self, neigh) -> tuple[bool, bool]:
-        """(cell overflow, some atom's KH history entries all in use), read
-        from the device in one transfer."""
-        if neigh.shear_tags is None:
+        """(cell or list overflow, some atom's KH history entries all in
+        use on the grid), read from the device in one transfer."""
+        if not self._ctx.is_cellgrid or neigh.shear_tags is None:
             return bool(neigh.overflow), False
         full = torch.all(neigh.shear_tags != 0, dim=1).any()
         over, sat = torch.stack([torch.as_tensor(neigh.overflow), full]) \
@@ -579,26 +748,36 @@ class Simulation:
         return over, sat
 
     def _rebin(self, snapshot):
-        """Rebuild the grid config for the snapshot's box and capacity
-        overrides, and re-bin the snapshot's atoms (and their contact
-        history) into it (tpumd/md/simulation.py:1304-1374); returns the
-        new context."""
+        """Rebuild the neighbor config for the snapshot's box and capacity
+        overrides, then re-bin the snapshot's atoms (and their contact
+        history) into the grid, or rebuild their neighbor matrix
+        (tpumd/md/simulation.py:1304-1374); returns the new context."""
         s0, neigh0, fstates = snapshot
-        rows = cg.compact_rows(neigh0.valid, self.natoms)
-        self.state = cg.compact_state(s0, neigh0.valid, self.natoms)
-        history = None
-        if neigh0.shear is not None:
-            history = (neigh0.shear_tags[rows], neigh0.shear[rows])
-        self._ctx = self._make_ctx()
-        s, neigh = self._grid_setup(self.state, nbuilds=neigh0.nbuilds,
-                                    history=history)
+        if self._ctx.is_cellgrid:
+            rows = cg.compact_rows(neigh0.valid, self.natoms)
+            self.state = cg.compact_state(s0, neigh0.valid, self.natoms)
+            history = None
+            if neigh0.shear is not None:
+                history = (neigh0.shear_tags[rows], neigh0.shear[rows])
+            self._ctx = self._make_ctx()
+            s, neigh = self._grid_setup(self.state, nbuilds=neigh0.nbuilds,
+                                        history=history)
+        else:
+            self.state = s0
+            self._ctx = self._make_ctx()
+            s, neigh = self._matrix_setup(s0, nbuilds=neigh0.nbuilds,
+                                          old=neigh0)
         self._check_overflow(neigh)
         self._carry = (s, neigh, fstates)
         return self._ctx
 
     def _regrow(self, snapshot):
-        """Grow the cell capacity after an overflow and rebuild the grid
-        from the snapshot (tpumd/md/simulation.py:1376-1405)."""
+        """Grow the cell capacity (and on the matrix engine K) after an
+        overflow and rebuild from the snapshot (tpumd/md/simulation.py:
+        1376-1405)."""
+        if not self._ctx.is_cellgrid:
+            self._grow_matrix(snapshot[1])
+            return self._rebin(snapshot)
         mc = float(snapshot[1].max_count)
         self._cap_override = int(np.ceil(max(
             self._neigh_cfg.cap * 1.5, mc * 1.3) / 8) * 8)
@@ -609,7 +788,15 @@ class Simulation:
         (tpumd/md/simulation.py:1412-1430), under a barostat or a
         shrink-wrapped face: the stencil misses pairs once a cell edge is
         shorter than cutneigh, so the grid is rebuilt, under a barostat
-        with a 10 % wider margin.  Returns the (possibly new) context."""
+        with a 10 % wider margin.  On the matrix engine, the config is
+        rebuilt also when the box needs other periodic images.  Returns
+        the (possibly new) context."""
+        if not self._ctx.is_cellgrid:
+            if not nb.needs_new_config(self._carry[0].box, self._neigh_cfg):
+                return self._ctx
+            if self._barostat_active():
+                self._baro_margin *= 1.10
+            return self._rebin(self._carry)
         cutneigh = self.max_cutoff() + self.skin
         ell = self._carry[0].box.lengths_np()
         if (ell < 2.0 * cutneigh).any():

@@ -1,9 +1,10 @@
 """The velocity-Verlet timestep loop (Verlet::run, src/verlet.cpp:229-360).
 
-PyTorch counterpart of tpumd/md/verlet.py for the cell-grid path: the
-step (integrate, reneighbor decision, force evaluation, fix hooks,
-integrate) runs as a Python loop of eager tensor operations.  The rebuild
-decision is made on the host from the every/delay schedule, so a step with
+PyTorch counterpart of tpumd/md/verlet.py, on the cell grid or the matrix
+neighbor engine (``StepContext.is_cellgrid``): the step (integrate,
+reneighbor decision, force evaluation, fix hooks, integrate) runs as a
+Python loop of eager tensor operations.  The rebuild decision is made on
+the host from the every/delay schedule, so a step with
 ``check no`` never waits for the device; ``check yes`` reads one flag from
 the device on scheduled steps.  Energies are evaluated only on output
 steps; the virial on every step when a fix needs it (a barostat).  Fix
@@ -18,6 +19,12 @@ torques and, in the step (``shearupdate``), the new contact history, which
 the grid state carries and every re-bin moves with the atoms; set-up and
 thermo evaluations read the history without advancing it.  A rebuild
 shrink-wraps the box's s/m faces to the atoms first.
+
+On the matrix engine the atoms keep their rows: a rebuild wraps,
+shrink-wraps and builds the (N, K) neighbor matrix, and a granular style's
+per-slot history follows each (i, j) pair into its new slot.  A box
+narrower than 2 cutneigh evaluates pairs against image copies of the
+atoms, rebuilt from the live positions at every evaluation.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from tpumd_torch.core.state import MDState, wrap_pbc
 from tpumd_torch.md import computes
 from tpumd_torch.models.bonded import compute_tuples
 from tpumd_torch.ops import cellgrid as cg
+from tpumd_torch.ops import neighbor as nb
 from tpumd_torch.utils.units import Units
 
 # the energies of a force evaluation (tpumd/md/verlet.py:123-124)
@@ -45,7 +53,7 @@ class StepContext:
 
     units: Units
     dt: float
-    neigh_cfg: cg.CellGridConfig
+    neigh_cfg: cg.CellGridConfig | nb.NeighborConfig
     pair: Any                      # PairStyle or None
     fixes: Sequence[Any]
     mass_table: torch.Tensor       # (ntypes+1,) on the device
@@ -79,12 +87,53 @@ class StepContext:
     def need_virial(self) -> bool:
         return any(fx.needs_virial for fx in self.fixes)
 
+    @property
+    def is_cellgrid(self) -> bool:
+        return isinstance(self.neigh_cfg, cg.CellGridConfig)
 
-def compute_forces(s: MDState, neigh: cg.CellGridState, ctx: StepContext,
-                   eflag: bool, vflag: bool, shearupdate: bool = False):
+
+def _pair_ext(s: MDState, ctx: StepContext):
+    """(xj, tj, qj, vbox): the multi-image mode's copy tables and the box
+    of the extended domain, from the live positions (the copies follow
+    their atoms between rebuilds); None outside that mode
+    (tpumd/md/verlet.py:97-108)."""
+    cfg = ctx.neigh_cfg
+    if ctx.is_cellgrid or not cfg.image_shifts:
+        return None
+    nshift = len(cfg.image_shifts)
+    return (nb.ext_coords(s.x, s.box, cfg), s.type.repeat(nshift),
+            None if s.q is None else s.q.repeat(nshift),
+            nb.ext_box(s.box, cfg))
+
+
+def _matrix_pair(s: MDState, neigh: nb.NeighborState, ctx: StepContext,
+                 eflag: bool, vflag: bool, shearupdate: bool):
+    """(f, energies, virial, torque, neigh) of the pair style on the matrix
+    neighbor engine (tpumd/md/verlet.py:143-147, :186-190)."""
+    pair = ctx.pair
+    if getattr(pair, "is_granular", False):
+        f, torque, shear = pair.compute_gran(s, neigh.idx, neigh.shear,
+                                             ctx.dt, shearupdate)
+        if shearupdate:
+            neigh = neigh.replace(shear=shear)
+        return f, {}, None, torque, neigh
+    special = ctx.neigh_cfg.has_special
+    f, evdwl, ecoul, vir = pair.compute(
+        s.x, s.type, s.box, neigh.idx, neigh.sbits,
+        ctx.special_lj if special else None,
+        ctx.special_coul if special else None, eflag, vflag, q=s.q,
+        ext=_pair_ext(s, ctx))
+    return f, {"evdwl": evdwl, "ecoul": ecoul}, vir, None, neigh
+
+
+def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
+                   vflag: bool, shearupdate: bool = False):
     """All forces; returns (f, energies {ENERGY_KEYS} or None, virial (6,)
     or None, torque (N, 3) or None, neigh).  Only a granular style gives a
-    torque, and with shearupdate a neigh holding the new history."""
+    torque, and with shearupdate a neigh holding the new history.  neigh
+    is a cg.CellGridState or, on the matrix engine, an nb.NeighborState;
+    the matrix engine runs no bonded styles and no kspace (the set-up
+    refuses them)."""
     energies = virial = None
     if eflag:
         energies = dict.fromkeys(ENERGY_KEYS, torch.zeros(
@@ -105,6 +154,10 @@ def compute_forces(s: MDState, neigh: cg.CellGridState, ctx: StepContext,
     torque = None
     if pair is None:
         f = torch.zeros_like(s.x)
+    elif not ctx.is_cellgrid:
+        f, e, vir, torque, neigh = _matrix_pair(s, neigh, ctx, eflag,
+                                                vflag, shearupdate)
+        tally(e, vir)
     elif getattr(pair, "is_granular", False):
         f, torque, stags, shear = pair.compute_gran_cellgrid(
             s, neigh.valid, neigh.shear_tags, neigh.shear, ctx.neigh_cfg,
@@ -162,10 +215,53 @@ def reset_box_shrink(s: MDState, ctx: StepContext) -> MDState:
     return s.replace(box=s.box.replace(lo=lo, hi=hi))
 
 
-def _rebuild(s: MDState, neigh: cg.CellGridState, ctx: StepContext):
-    """Wrap, shrink-wrap, re-bin and permute the state (and a granular
-    style's history tables) into the new slot order."""
+def _remap_shear(old_idx, new_idx, shear):
+    """Carry per-slot history across a rebuild of the neighbor matrix: each
+    new slot (i, j) takes the history of the old slot of row i that held
+    the same j, or 0 (FixNeighHistory, src/fix_neigh_history.cpp;
+    tpumd/md/verlet.py:301-320).  A j appears at most once in a row, so
+    the batched product of the 0/1 match with the old history copies it
+    exactly."""
+    n = old_idx.shape[0]
+    own = torch.arange(n, dtype=old_idx.dtype, device=old_idx.device)[:, None]
+    match = (new_idx[:, :, None] == old_idx[:, None, :]) \
+        & (old_idx != own)[:, None, :]                 # (N, Knew, Kold)
+    out = torch.bmm(match.to(shear.dtype), shear)      # (N, Knew, 3)
+    return torch.where((new_idx != own)[..., None], out, 0.0)
+
+
+def build_matrix(s: MDState, ctx: StepContext, nbuilds: int,
+                 old: nb.NeighborState | None = None, history=False):
+    """A neighbor state for the wrapped state s on the matrix engine: the
+    list, and with ``history`` a granular style's (N, K, 3) history,
+    carried over from ``old`` by j-match or zero."""
+    gmask = s.gmask
+    if gmask is None and ctx.neigh_cfg.exclude_bits:
+        # no group command yet: every atom is in group all (bit 1)
+        gmask = torch.ones_like(s.tag)
+    idx, sbits, max_count, over = nb.build_neighbors(
+        s.x, s.box, ctx.neigh_cfg, special_tags=s.special_tags,
+        special_codes=s.special_codes, tag=s.tag, gmask=gmask)
+    shear = None
+    if history:
+        shear = (_remap_shear(old.idx, idx, old.shear) if old is not None
+                 else torch.zeros(idx.shape + (3,), dtype=s.x.dtype,
+                                  device=s.x.device))
+    return nb.NeighborState(idx=idx, sbits=sbits, xhold=s.x, ago=0,
+                            nbuilds=nbuilds, overflow=over,
+                            max_count=max_count, shear=shear)
+
+
+def _rebuild(s: MDState, neigh, ctx: StepContext):
+    """Wrap and shrink-wrap; then on the cell grid re-bin and permute the
+    state (and a granular style's history tables) into the new slot order,
+    on the matrix engine rebuild the list in place (tpumd/md/verlet.py:
+    372-388)."""
     s = reset_box_shrink(wrap_pbc(s), ctx)
+    if not ctx.is_cellgrid:
+        new = build_matrix(s, ctx, neigh.nbuilds + 1, old=neigh,
+                           history=neigh.shear is not None)
+        return s, new.replace(overflow=neigh.overflow | new.overflow)
     cfg = ctx.neigh_cfg
     src, dst, row2slot, max_count, over = cg.bin_compact(
         s.x, s.tag, ctx.natoms, s.box, cfg, row2slot=neigh.row2slot)
@@ -182,20 +278,22 @@ def _rebuild(s: MDState, neigh: cg.CellGridState, ctx: StepContext):
     return s, neigh
 
 
-def decide_rebuild(s: MDState, neigh: cg.CellGridState,
-                   ctx: StepContext) -> bool:
+def decide_rebuild(s: MDState, neigh, ctx: StepContext) -> bool:
     """Neighbor::decide (src/neighbor.cpp:2293): ago-based schedule, then
-    the half-skin displacement check when ``check yes``."""
+    the half-skin displacement check when ``check yes``
+    (tpumd/md/verlet.py:390-410)."""
     cfg = ctx.neigh_cfg
     if not (neigh.ago >= cfg.delay and neigh.ago % cfg.every == 0):
         return False
-    if cfg.check:
+    if not cfg.check:
+        return True
+    if ctx.is_cellgrid:
         return bool(cg.displacement_exceeded(
             s.x, neigh.xhold, neigh.valid, s.box, cfg.skin))
-    return True
+    return bool(nb.displacement_exceeded(s.x, neigh.xhold, s.box, cfg.skin))
 
 
-def step(s: MDState, neigh: cg.CellGridState, fstates, ctx: StepContext,
+def step(s: MDState, neigh, fstates, ctx: StepContext,
          xs, istep: int):
     """One velocity-Verlet step to timestep istep; xs holds each fix's
     input of this step (or None)."""
@@ -222,7 +320,7 @@ def step(s: MDState, neigh: cg.CellGridState, fstates, ctx: StepContext,
     return s, neigh, tuple(fstates)
 
 
-def run_segment(s: MDState, neigh: cg.CellGridState, fstates,
+def run_segment(s: MDState, neigh, fstates,
                 ctx: StepContext, nsteps: int, xs=None, step0: int = 0):
     """nsteps steps from timestep step0; xs: per fix, None or its inputs
     stacked over the segment's steps."""
@@ -235,7 +333,7 @@ def run_segment(s: MDState, neigh: cg.CellGridState, fstates,
     return s, neigh, fstates
 
 
-def eval_energies(s: MDState, neigh: cg.CellGridState, ctx: StepContext):
+def eval_energies(s: MDState, neigh, ctx: StepContext):
     """Force + energy + virial evaluation for thermo output steps; the
     contact history is read, not advanced (the reference's shearupdate 0
     outside the step, pair_gran_hooke_history.cpp:187)."""

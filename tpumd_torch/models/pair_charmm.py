@@ -25,6 +25,9 @@ from tpumd_torch.ops.charmm_cellgrid import CharmmCoeffs, charmm_cellgrid, \
 @register_pair("lj/charmm/coul/long")
 class PairLJCharmmCoulLong(PairStyle):
     name = "lj/charmm/coul/long"
+    # its matrix-engine pair_fn_ex (tpumd/models/pair_charmm.py:140) is not
+    # ported
+    matrix_engine = False
     # the pair sweep takes charges and special lists
     charged = True
 

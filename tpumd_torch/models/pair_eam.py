@@ -149,6 +149,8 @@ class _Setfl:
 @register_pair("eam")
 class PairEAM(PairStyle):
     name = "eam"
+    # its matrix-engine compute (tpumd/models/pair_eam.py:450) is not ported
+    matrix_engine = False
 
     def __init__(self, ntypes: int):
         super().__init__(ntypes)

@@ -3,7 +3,9 @@
 Physics per the reference kernel (src/pair_lj_cut.cpp:69-140, init_one
 mixing at :580-610): forcelj = r^-6 (lj1 r^-6 - lj2), fpair = forcelj/r^2,
 energy = r^-6 (lj3 r^-6 - lj4) - offset.  PyTorch counterpart of
-tpumd/models/pair_lj_cut.py.
+tpumd/models/pair_lj_cut.py.  The cell grid's kernels take one atom type;
+the matrix engine (``pair_fn``) any number, its coefficients read as one
+row gather of a (ntypes+1)^2 by 6 table.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 
 from tpumd_torch.models.base import PairStyle
 from tpumd_torch.models.registry import register_pair
+from tpumd_torch.ops.gather import gather_rows
 from tpumd_torch.ops.lj_cellgrid import LJCoeffs, lj_cellgrid
 from tpumd_torch.ops.lj_fene_cellgrid import lj_fene_cellgrid
 
@@ -32,6 +35,11 @@ class PairLJCut(PairStyle):
         self.sigma = np.zeros(shape)
         self.cut = np.zeros(shape)
         self.cut_global = 0.0
+        self._coef_tables = {}
+
+    @property
+    def supports_cellgrid(self) -> bool:
+        return self.ntypes == 1
 
     def settings(self, cut_global):
         self.cut_global = float(cut_global)
@@ -75,6 +83,7 @@ class PairLJCut(PairStyle):
         else:
             self.offset = np.zeros_like(eps)
         self.cutsq = cut * cut
+        self._coef_tables = {}
 
     @property
     def max_cutoff(self) -> float:
@@ -133,15 +142,29 @@ class PairLJCut(PairStyle):
                                 self.kernel_coeffs(), style.kernel_coeffs(),
                                 eflag, vflag)
 
+    def _coef_table(self, like: torch.Tensor) -> torch.Tensor:
+        """((ntypes+1)^2, 6) rows lj1 lj2 lj3 lj4 offset cutsq by type
+        pair i (ntypes+1) + j, on like's device and dtype (made once)."""
+        key = (like.dtype, like.device)
+        tbl = self._coef_tables.get(key)
+        if tbl is None:
+            tbl = torch.as_tensor(np.stack(
+                [a.reshape(-1) for a in (self.lj1, self.lj2, self.lj3,
+                                         self.lj4, self.offset,
+                                         self.cutsq)], axis=1),
+                dtype=like.dtype, device=like.device)
+            self._coef_tables[key] = tbl
+        return tbl
+
     def pair_fn(self, r2, itype, jtype):
-        """(fpair, evdwl) per pair, coefficients read from the type
-        tables (tpumd/models/pair_lj_cut.py::pair_fn)."""
-        lj1 = self.coef(self.lj1, itype, jtype, r2)
-        lj2 = self.coef(self.lj2, itype, jtype, r2)
-        lj3 = self.coef(self.lj3, itype, jtype, r2)
-        lj4 = self.coef(self.lj4, itype, jtype, r2)
-        off = self.coef(self.offset, itype, jtype, r2)
-        inside = r2 < self.coef(self.cutsq, itype, jtype, r2)
+        """(fpair, evdwl) per pair on broadcastable 2-D r2, itype and
+        jtype, the coefficients one row gather of the type-pair table
+        (tpumd/models/pair_lj_cut.py::pair_fn)."""
+        pair = (itype * (self.ntypes + 1) + jtype).to(torch.int32)
+        pair = pair.expand(r2.shape).contiguous()
+        lj1, lj2, lj3, lj4, off, cutsq = torch.unbind(
+            gather_rows(self._coef_table(r2), pair), dim=-1)
+        inside = r2 < cutsq
         r2inv = torch.where(inside, 1.0 / r2, 0.0)
         r6inv = r2inv * r2inv * r2inv
         fpair = r6inv * (lj1 * r6inv - lj2) * r2inv

@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from tpumd_torch.core.atomvec import get_style
-from tpumd_torch.core.create import create_atoms_lattice, remap_host
+from tpumd_torch.core.create import create_atoms_lattice, remap_host, \
+    remap_triclinic_host
 from tpumd_torch.core.lattice import Lattice
 from tpumd_torch.core.region import BlockRegion
 from tpumd_torch.core.state import Box, make_state, map_per_atom
@@ -154,9 +155,20 @@ class LammpsScript:
         # the image flags
         periodic = tuple(t == "p" for t in sim.boundary)
         x = np.ascontiguousarray(d.x, dtype=np.float64)
-        image = d.image + remap_host(x, d.box_lo, d.box_hi, periodic)
-        box = Box.orthogonal(d.box_lo, d.box_hi, device=sim.device,
-                             dtype=self.dtype, periodic=periodic)
+        if d.tilt is not None and np.any(d.tilt != 0):
+            # a triclinic box remaps through lamda space, as the reference
+            # does; the round trip moves coordinates by an ulp, which the
+            # loop-geom velocity hash sees
+            x, shift = remap_triclinic_host(x, d.box_lo, d.box_hi, d.tilt,
+                                            periodic)
+            image = d.image + shift
+            box = Box.triclinic(d.box_lo, d.box_hi, d.tilt,
+                                device=sim.device, dtype=self.dtype,
+                                periodic=periodic)
+        else:
+            image = d.image + remap_host(x, d.box_lo, d.box_hi, periodic)
+            box = Box.orthogonal(d.box_lo, d.box_hi, device=sim.device,
+                                 dtype=self.dtype, periodic=periodic)
         sim.state = make_state(x, d.v, d.types, box, image=image,
                                molecule=d.molecule, q=d.q, radius=d.radius,
                                rmass=d.rmass, omega=d.omega,
@@ -295,6 +307,9 @@ class LammpsScript:
         if (nx, ny, nz) == (1, 1, 1):
             return
         sim = self.sim
+        if sim.state.box.istriclinic:
+            raise NotImplementedError("replicate of a triclinic box is not "
+                                      "ported")
         sim.invalidate_ctx()   # back to natoms rows after an earlier run
         # rows in tag order: replica r's atom k takes tag k + r n
         order = torch.argsort(sim.state.tag)
