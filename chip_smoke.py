@@ -34,15 +34,21 @@ line each (any failure raises and exits non-zero):
    then the 32k in.eam deck through LammpsScript in f32: step-0 and
    step-100 gates, 500 warm-up and 500 timed steps, the launch counts of
    that run and a profile of 100 steps;
-7. main path, rhodo_class: the lj/charmm/coul/long kernel (B5) against
-   its plain version on the card, f32 and f64, every flag combination, on
-   the 32k rhodo_class grid and the 2^3 peptide grid after set-up, timed
-   at the 32k shape with and without energy beside its bound, with its
-   registers and spills; the 2,004-atom peptide with the rhodo_class
-   settings on the card against the CPU (f64, step 40); then the 32,064-
-   atom deck through LammpsScript in f32: the reference binary's step-0
-   and step-100 gates, the PPPM mesh, 500 warm-up and 500 timed steps, the
-   launch counts of that run and a profile of 100 steps;
+7. main path, rhodo_class: on the 32k rhodo_class grid and the 2^3
+   peptide grid after set-up, f32 and f64, the pair list build kernel
+   against the plain build (rows as arrays on the 32k grid, as sets on
+   the 2^3 grid, counts, longest row, overflow flag), and the
+   lj/charmm/coul/long kernel (B5) over that list against the plain list
+   sweep and the stencil oracle in every flag combination; both timed at
+   the 32k shape beside their bounds (B5's with and without the list's
+   bytes), with their registers and spills; the 2,004-atom peptide with
+   the rhodo_class settings on the card against the CPU (f64, step 40);
+   then the 32,064-atom deck through LammpsScript in f32: the reference
+   binary's step-0 and step-100 gates, the PPPM mesh, 500 warm-up and 500
+   timed steps, the launch counts of that run (B5 once per force
+   evaluation, the build once per grid set-up and rebuild), B5 over the
+   final list against the stencil oracle on the final state, a profile
+   of 100 steps and the step's parts;
 8. main path, chute: the gran/hooke/history kernel (B6) against its
    plain version on the card, f32 and f64, both shearupdate values, on the
    32k chute grid after set-up and 10 steps and on a generated pack's grid
@@ -827,13 +833,13 @@ def rhodo_setup(replicate: str, device, dtype, thermo: int = 0):
     return script
 
 
-def charmm_counts(args):
+def charmm_counts(oracle):
     """(pairs within the Coulomb cutoff, within the LJ cutoff, in the
-    LJ switching shell, within either) of these inputs, unordered, counted
-    with the plain sweep in f64."""
+    LJ switching shell, within either) of the stencil oracle's inputs,
+    unordered, counted with the plain sweep in f64."""
     from tpumd_torch.ops.cellgrid import cellgrid_pair_sums
     from tpumd_torch.ops.charmm_cellgrid import special_weights
-    x, q, type_, valid, tag, stags, scodes, box, cfg, c = args
+    x, q, type_, valid, tag, stags, scodes, box, cfg, c = oracle
     wl, wc = special_weights(scodes, c, x.double())
     cutsq = max(c.cut_coulsq, c.cut_ljsq)
     out = []
@@ -851,87 +857,163 @@ def charmm_counts(args):
 
 
 def charmm_args(script, dtype):
-    """The arguments of charmm_cellgrid for a set-up script's state."""
+    """(the inputs of cellgrid_pairlist, those of the stencil oracle
+    charmm_cellgrid_plain) for a set-up script's state in dtype."""
     from tpumd_torch.core.state import Box
     sim = script.sim
     s, neigh, _ = sim._carry
     x = s.x.to(dtype)
     box = Box(lo=s.box.lo.to(dtype), hi=s.box.hi.to(dtype))
+    cfg = sim._neigh_cfg
     c = sim.pair.kernel_coeffs(x, *sim._special_weights())
-    return (x, s.q.to(dtype), s.type, neigh.valid, s.tag, s.special_tags,
-            s.special_codes, box, sim._neigh_cfg, c)
+    return ((x, neigh.valid, s.tag, s.special_tags, s.special_codes, box,
+             cfg, sim._ctx.pairlist_k),
+            (x, s.q.to(dtype), s.type, neigh.valid, s.tag, s.special_tags,
+             s.special_codes, box, cfg, c))
 
 
-def charmm_kernel_vs_plain(ptxas_log: str) -> dict:
-    """B5 against its plain version on the 32k rhodo_class grid and the
-    2^3 peptide grid after set-up, f32 and f64, every flag combination;
-    timed and bounded at the 32k shape."""
+def rows_as_sets(pairs, npairs):
+    """Each list row's entries sorted, the padding past npairs as a
+    sentinel: rows equal as sets compare equal."""
+    k = torch.arange(pairs.shape[1], device=pairs.device)
+    rows = torch.where(k < npairs[:, None].long(), pairs.long(), 1 << 40)
+    return torch.sort(rows, dim=1).values
+
+
+def check_pairlist(what, out, plain, as_arrays: bool):
+    """Raise unless the build kernel's list equals the plain build's: rows
+    as arrays (or as sets), counts, longest row and overflow flag."""
+    torch.cuda.synchronize()
+    same_rows = (torch.equal(out[0], plain[0]) if as_arrays else
+                 torch.equal(rows_as_sets(*out[:2]), rows_as_sets(*plain[:2])))
+    if not (same_rows and torch.equal(out[1], plain[1])
+            and int(out[2]) == int(plain[2])
+            and bool(out[3]) == bool(plain[3])):
+        raise AssertionError(f"{what}: the build kernel's list differs from "
+                             f"the plain build's")
+
+
+def charmm_kernel_vs_plain(ptxas_log: str) -> tuple[dict, dict]:
+    """The pair list build and B5 against their plain versions on the 32k
+    rhodo_class grid and the 2^3 peptide grid after set-up, f32 and f64:
+    the lists as arrays on the 32k grid and as sets on the 2^3 grid; B5
+    over the kernel's list against the plain list sweep and the stencil
+    oracle in every flag combination; both timed and bounded at the 32k
+    shape.  Returns (B5's figures, the build's)."""
+    from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist, \
+        cellgrid_pairlist_plain
     from tpumd_torch.ops.charmm_cellgrid import charmm_cellgrid, \
-        charmm_cellgrid_plain
-    regs = re.findall(r"charmm_cellgrid_kernelI([fd])Lb(\d)ELb(\d)E.*?\n"
-                      r".*?(\d+) bytes spill stores.*?\n.*?Used (\d+) "
-                      r"registers", ptxas_log)
-    phase("kernel", "charmm_cellgrid ptxas (type, eflag, vflag: registers, "
-                    "spill store bytes): " + "; ".join(
-                        f"{t}{e}{v}: {r}, {sp}" for t, e, v, sp, r in regs))
-    out = {}
+        charmm_cellgrid_plain, charmm_pairlist_plain
+    for name, pat in (
+            ("charmm_cellgrid (type, eflag, vflag", r"charmm_pairlist_kernel"
+             r"I([fd])Lb(\d)ELb(\d)E"),
+            ("cellgrid_pairlist (type", r"cellgrid_pairlist_kernelI([fd])()()E")):
+        regs = re.findall(pat + r".*?\n.*?(\d+) bytes spill stores.*?\n.*?"
+                          r"Used (\d+) registers", ptxas_log)
+        phase("kernel", f"{name}: registers, spill store bytes): "
+                        + "; ".join(f"{t}{e}{v}: {r}, {sp}"
+                                    for t, e, v, sp, r in regs))
+    out, lst = {}, {}
     for replicate in ("2 2 4", "1 1 1"):
         script = rhodo_setup(replicate, "cuda", torch.float64)
         script.run_string("run 0")
         for dtype in (torch.float32, torch.float64):
-            args = charmm_args(script, dtype)
-            cfg = args[8]
+            bargs, oracle = charmm_args(script, dtype)
+            cfg, kmax = bargs[-2:]
+            arrays = min(cfg.nx, cfg.ny, cfg.nz) >= 3
+            what = f"pair list {replicate} {dtype}"
+            built = cellgrid_pairlist(*bargs)
+            plain = cellgrid_pairlist_plain(*bargs)
+            check_pairlist(what, built, plain, arrays)
+            if bool(built[3]):
+                raise AssertionError(f"{what}: overflow at the set-up's K")
+            args = oracle[:3] + built[:2] + oracle[7:]
             tol = TOL[dtype]
             worst = 0.0
             for eflag, vflag in ((0, 0), (1, 1), (1, 0), (0, 1)):
                 what = f"charmm {replicate} {dtype} e{eflag}v{vflag}"
                 fk, evk, eck, wk = charmm_cellgrid(*args, eflag, vflag)
-                fp, evp, ecp, wp = charmm_cellgrid_plain(*args, eflag,
-                                                         vflag)
-                worst = max(worst, check_close(what, fk, fp, (evk, eck),
-                                               (evp, ecp), wk, wp, tol,
-                                               eflag, vflag))
+                for ref, fn in (("list", charmm_pairlist_plain),
+                                ("stencil", charmm_cellgrid_plain)):
+                    fp, evp, ecp, wp = (
+                        fn(*args[:6], args[7], eflag, vflag)
+                        if ref == "list" else fn(*oracle, eflag, vflag))
+                    worst = max(worst, check_close(
+                        f"{what} vs {ref}", fk, fp, (evk, eck), (evp, ecp),
+                        wk, wp, tol, eflag, vflag))
                 if eflag and vflag:
                     eerr = max(abs(float(evk - evp)) / abs(float(evp)),
                                abs(float(eck - ecp)) / abs(float(ecp)))
                     verr = float((wk - wp).abs().max()
                                  / wp.abs().max())
-            phase("kernel", f"charmm_cellgrid grid {cfg.nx}x{cfg.ny}x"
-                            f"{cfg.nz} cap {cfg.cap} S "
-                            f"{args[5].shape[1]} {str(dtype)[6:]}: "
-                            f"max|f_kernel - f_plain| = {worst:.3g} max|f|, "
-                            f"evdwl/ecoul {eerr:.3g}, virial {verr:.3g} of "
-                            f"max (tol {tol:g})")
+            phase("kernel", f"pair list grid {cfg.nx}x{cfg.ny}x{cfg.nz} cap "
+                            f"{cfg.cap} K {kmax} {str(dtype)[6:]}: the "
+                            f"kernel's rows = the plain build's "
+                            f"({'as arrays' if arrays else 'as sets'}), "
+                            f"longest {int(built[2])}, "
+                            f"{int(built[1].sum())} entries; "
+                            f"charmm_cellgrid S {oracle[5].shape[1]}: "
+                            f"max|f_kernel - f_plain| = {worst:.3g} max|f| "
+                            f"against the plain list sweep and the stencil "
+                            f"oracle, evdwl/ecoul {eerr:.3g}, virial "
+                            f"{verr:.3g} of max (oracle; tol {tol:g})")
             if replicate != "2 2 4" or dtype != torch.float32:
                 continue
             fk, _, _, _ = charmm_cellgrid(*args, 0, 0)
-            fp, _, _, _ = charmm_cellgrid_plain(*args, 0, 0)
+            fp, _, _, _ = charmm_pairlist_plain(*args[:6], args[7], 0, 0)
             out["max_abs_err"] = float((fk - fp).abs().max())
             out.update(time_kernel(
                 "charmm_cellgrid",
                 lambda: charmm_cellgrid(*args, 0, 0),
-                lambda: charmm_cellgrid_plain(*args, 0, 0),
+                lambda: charmm_pairlist_plain(*args[:6], args[7], 0, 0),
                 lambda: charmm_cellgrid(*args, 1, 1), reps=50))
             out["v_ms"] = cuda_ms(lambda: charmm_cellgrid(*args, 0, 1), 50)
-            ncoul, nlj, nsw, nall = charmm_counts(args)
+            ncoul, nlj, nsw, nall = charmm_counts(oracle)
             np_ = cfg.capacity
-            S = args[5].shape[1]
-            nbytes = (np_ * (12 + 4 + 4 + 1 + 4 + 8 * S + 12)
-                      + args[9].lj.numel() * 4 + 12)
-            out["bound_ms"], out["bound_by"] = roof(
-                nall * OPS_CHARMM_PAIR + ncoul * OPS_CHARMM_COUL
-                + nlj * OPS_CHARMM_LJ + nsw * OPS_CHARMM_SWITCH, nbytes)
-            cand = np_ * 27 * cfg.cap
+            entries = int(built[1].sum())
+            # x, q, type, f per slot, the lj tables and the box: the work's
+            # bytes; the list (each row's entries and its count) is a floor
+            # of this design, not of the work, and stays out of the bound
+            nbytes = np_ * (12 + 4 + 4 + 12) + args[7].lj.numel() * 4 + 12
+            list_bytes = 4 * entries + 4 * np_
+            ops = (nall * OPS_CHARMM_PAIR + ncoul * OPS_CHARMM_COUL
+                   + nlj * OPS_CHARMM_LJ + nsw * OPS_CHARMM_SWITCH)
+            out["bound_ms"], out["bound_by"] = roof(ops, nbytes)
+            floor_ms, floor_by = roof(ops, nbytes + list_bytes)
             phase("kernel", f"charmm_cellgrid at the 32k shape: kernel "
                             f"with the virial only (the per-step launch "
                             f"under NPT) {out['v_ms']:.4f} ms; bound: "
                             f"{nall} unordered pairs in range "
-                            f"({2 * nall / cand:.4%} of {cand} candidates "
-                            f"(i, j)), {ncoul} in Coulomb range, {nlj} in "
+                            f"({2 * nall / entries:.2%} of {entries} list "
+                            f"entries), {ncoul} in Coulomb range, {nlj} in "
                             f"LJ range, {nsw} in the switching shell; "
                             f"{nbytes} bytes -> {out['bound_ms']:.6f} ms "
-                            f"({out['bound_by']})")
-    return out
+                            f"({out['bound_by']}); the list's floor: "
+                            f"{list_bytes} bytes more -> {floor_ms:.6f} ms "
+                            f"({floor_by})")
+            # the build: equal lists (checked above), as entries and counts
+            lst["max_abs_err"] = float(max(
+                (built[0].long() - plain[0].long()).abs().max(),
+                (built[1].long() - plain[1].long()).abs().max()))
+            # timed in the order plain, kernel, kernel, plain
+            p1 = cuda_ms(lambda: cellgrid_pairlist_plain(*bargs), 3)
+            k1 = cuda_ms(lambda: cellgrid_pairlist(*bargs), 50)
+            k2 = cuda_ms(lambda: cellgrid_pairlist(*bargs), 50)
+            p2 = cuda_ms(lambda: cellgrid_pairlist_plain(*bargs), 3)
+            lst.update(ms=min(k1, k2), plain_ms=min(p1, p2))
+            S = oracle[5].shape[1]
+            # x, valid, tag and the special lists read once, the (Np, K)
+            # list, its counts and the two status words written once
+            bbytes = (np_ * (12 + 1 + 4 + 8 * S) + 12
+                      + 4 * np_ * kmax + 4 * np_ + 8)
+            # per list entry d, r2 and the cutoff test (9 operations)
+            lst["bound_ms"], lst["bound_by"] = roof(9 * entries, bbytes)
+            phase("kernel", f"cellgrid_pairlist at the 32k shape, f32: "
+                            f"kernel {k1:.4f} / {k2:.4f} ms, plain "
+                            f"{p1:.4f} / {p2:.4f} ms; bound: {bbytes} bytes "
+                            f"({np_} x K {kmax} words written) -> "
+                            f"{lst['bound_ms']:.6f} ms ({lst['bound_by']})")
+    return out, lst
 
 
 def small_rhodo_card_vs_cpu():
@@ -962,13 +1044,13 @@ def small_rhodo_card_vs_cpu():
 def rhodo_main_path(smi: str) -> dict:
     from tpumd_torch.bench_targets import RHODO_STEP0, RHODO_STEP100, \
         STEP0_RTOL, gate_failures
-    from tpumd_torch.ops import charmm_cellgrid, eam_cellgrid, \
-        lj_cellgrid, lj_fene_cellgrid
+    from tpumd_torch.ops import cellgrid_pairlist, charmm_cellgrid, \
+        eam_cellgrid, lj_cellgrid, lj_fene_cellgrid
 
     others = (lj_cellgrid.counts, lj_fene_cellgrid.counts,
               eam_cellgrid.rho_counts, eam_cellgrid.force_counts)
-    b5 = charmm_cellgrid.counts
-    for c in (b5,) + others:
+    b5, blist = charmm_cellgrid.counts, cellgrid_pairlist.counts
+    for c in (b5, blist) + others:
         c.reset()
     t0 = time.perf_counter()
     script = rhodo_setup("2 2 4", "cuda", torch.float32)
@@ -992,15 +1074,21 @@ def rhodo_main_path(smi: str) -> dict:
     dt = sim.loop_time - lt0
     rebuilds = int(sim._carry[1].nbuilds) - nb0
     launches, plain = b5.kernel_launches, b5.plain_calls
+    builds = blist.kernel_launches
     other = sum(c.kernel_launches for c in others)
-    plain += sum(c.plain_calls for c in others)
+    plain += blist.plain_calls + sum(c.plain_calls for c in others)
     # setup evaluates once; a run of n > 0 steps without thermo output is
     # one segment: n in-step evaluations plus one energy evaluation
     force_evals = 1 + (100 + 1) + 2 * (500 + 1)
-    if launches != force_evals or plain or other:
+    # a list for each fresh grid (set-up, re-bins) and each rebuild
+    list_builds = sim.grid_setups + int(sim._carry[1].nbuilds) - 1
+    if (launches != force_evals or builds != list_builds or plain
+            or other):
         raise AssertionError(f"charmm launches {launches} != force "
-                             f"evaluations {force_evals}, or plain calls "
-                             f"{plain}, or other kernels' launches {other}")
+                             f"evaluations {force_evals}, or list builds "
+                             f"{builds} != set-ups and rebuilds "
+                             f"{list_builds}, or plain calls {plain}, or "
+                             f"other kernels' launches {other}")
     s = sim.state
     n = sim.natoms
     if (n != 32064 or tuple(s.x.shape) != (sim._neigh_cfg.capacity, 3)
@@ -1009,31 +1097,51 @@ def rhodo_main_path(smi: str) -> dict:
         raise AssertionError("rhodo_class final state malformed")
     sps = 500 / dt
     cfg, ks = sim._neigh_cfg, sim.kspace
+    # no pair within range is missing from the list at the end of the run:
+    # the kernel over it equals the stencil oracle on the final state
+    s, neigh, _ = sim._carry
+    c = sim.pair.kernel_coeffs(s.x, *sim._special_weights())
+    fk = charmm_cellgrid.charmm_cellgrid(s.x, s.q, s.type, neigh.pairs,
+                                         neigh.npairs, s.box, cfg, c, 0,
+                                         0)[0]
+    fo = charmm_cellgrid.charmm_cellgrid_plain(
+        s.x, s.q, s.type, neigh.valid, s.tag, s.special_tags,
+        s.special_codes, s.box, cfg, c, 0, 0)[0]
+    end_err = check_close("rhodo_class step 1200, list against stencil",
+                          fk, fo, (), (), None, None, TOL[torch.float32],
+                          False, False)
     phase("main", f"32k rhodo_class f32: set-up {setup_s:.3f} s (data file, "
                   f"replicate, SHAKE clusters, PPPM mesh {ks.nx}x{ks.ny}x"
                   f"{ks.nz} g_ewald {float(ks.g_ewald)!r}, grid {cfg.nx}x{cfg.ny}x"
-                  f"{cfg.nz} cap {cfg.cap}, first forces); step 0 "
+                  f"{cfg.nz} cap {cfg.cap}, K {sim._ctx.pairlist_k}, first "
+                  f"forces); "
+                  f"step 0 "
                   f"{ {k: row0[k] for k in RHODO_STEP0} } and step 100 "
                   f"{ {k: row100[k] for k in RHODO_STEP100} } pass the "
                   f"reference binary's gates; step 1200 etotal "
                   f"{sim.last_thermo['etotal']!r}, lz "
-                  f"{sim.last_thermo['lz']!r}")
+                  f"{sim.last_thermo['lz']!r}; there B5 over the list = "
+                  f"the stencil oracle to {end_err:.3g} max|f| (tol "
+                  f"{TOL[torch.float32]:g}), longest row "
+                  f"{int(neigh.max_pairs)} of K {sim._ctx.pairlist_k}")
     phase("main", f"rhodo_class timed 500 steps: {sps:.2f} timesteps/s, "
                   f"{sps * n / 1e6:.3f} Matom-step/s on {smi}; {rebuilds} "
                   f"rebuilds; charmm_cellgrid launches {launches} = force "
-                  f"evaluations {force_evals}, plain calls {plain}, other "
-                  f"kernels' launches {other}")
+                  f"evaluations {force_evals}, cellgrid_pairlist launches "
+                  f"{builds} = {sim.grid_setups} grid set-ups + "
+                  f"{list_builds - sim.grid_setups} rebuilds, plain calls "
+                  f"{plain}, other kernels' launches {other}")
     phase("main", "rhodo_class " + profile_steps(script, 100, 1e3 / sps))
     phase("main", "rhodo_class step parts, host clock to a synchronize, "
                   "ms per call on the final state: " + rhodo_breakdown(sim))
-    return {"launches": launches}
+    return {"launches": launches, "build_launches": builds}
 
 
 def rhodo_breakdown(sim, reps: int = 20) -> str:
     """Host-clock time of each part of a rhodo_class step, each run alone
     on the final state and followed by a synchronize: the pair kernel with
-    the virial, the bonded styles, PPPM, SHAKE's solve, fix npt's two
-    halves and the rebuild check."""
+    the virial, a rebuild (re-bin and pair list), the bonded styles, PPPM,
+    SHAKE's solve, fix npt's two halves and the rebuild check."""
     from tpumd_torch.md import verlet
     from tpumd_torch.models.bonded import compute_tuples
     s, neigh, fstates = sim._carry
@@ -1052,6 +1160,8 @@ def rhodo_breakdown(sim, reps: int = 20) -> str:
     parts = {
         "pair (B5, virial)": lambda: verlet.compute_forces(
             s, neigh, only_pair, False, True),
+        "rebuild (re-bin and pair list)": lambda: verlet._rebuild(
+            s, neigh, ctx),
         "bonded": bonded,
         "pppm": lambda: ctx.kspace.compute(s.x, s.q, s.box, False, True),
         "shake": lambda: shake[0].post_force(s, shake[1], ctx),
@@ -1690,7 +1800,7 @@ def main():
         k_rho, k_force = eam_kernels_vs_plain(tmp)
         small_eam_card_vs_cpu(tmp)
         m_rho, m_force = eam_main_path(tmp, smi)
-    k_charmm = charmm_kernel_vs_plain(log)
+    k_charmm, k_list = charmm_kernel_vs_plain(log)
     small_rhodo_card_vs_cpu()
     m_charmm = rhodo_main_path(smi)
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -1716,6 +1826,9 @@ def main():
              k_force, m_force),
             ("charmm_cellgrid", "tpumd_torch/csrc/charmm_cellgrid.cu",
              "tpumd/ops/pallas_charmm.py:43", k_charmm, m_charmm),
+            ("cellgrid_pairlist", "tpumd_torch/csrc/cellgrid_pairlist.cu",
+             "tpumd/ops/pallas_charmm.py:43", k_list,
+             {"launches": m_charmm["build_launches"]}),
             ("gran_cellgrid", "tpumd_torch/csrc/gran_cellgrid.cu",
              "tpumd/ops/pallas_gran.py:42", k_gran, m_gran),
             ("row_gather", "tpumd_torch/csrc/row_gather.cu",

@@ -21,7 +21,8 @@ on the CPU in both packages:
 * fix nvt/npt parsing and the real units;
 * the barostat's re-validation of the cell grid (port only): a box whose
   cells shrank below cutneigh is re-binned with a wider margin, every
-  per-atom field following its atom; one below 2 cutneigh raises.
+  per-atom field following its atom, and the new grid's pair list built;
+  one below 2 cutneigh raises.
 """
 
 import os
@@ -44,6 +45,7 @@ from tpumd_torch.io import read_data as t_rd
 from tpumd_torch.interop import state_from_numpy
 from tpumd_torch.md.fix_nh import FixNH, make_npt_z, make_nvt
 from tpumd_torch.models import bonded as tb
+from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist_plain
 from tpumd_torch.script.parser import LammpsScript as TScript
 from tpumd_torch.utils.units import get_units as t_units
 
@@ -277,9 +279,19 @@ def test_barostat_rebins_a_shrunken_box():
                          box=Box(lo=lo, hi=hi))
     # 4 cells of 54.74 A * 0.87 / 4 = 11.9 A < cutneigh 12 A
     sim._carry = (squeezed(0.87), neigh, fstates)
+    setups = sim.grid_setups
     sim._revalidate_geometry()
     s2, n2, _ = sim._carry
     assert sim._neigh_cfg.nz == 3
+    # the re-bin built the new grid's pair list
+    assert sim.grid_setups == setups + 1
+    cfg2, k2 = sim._neigh_cfg, sim._ctx.pairlist_k
+    assert tuple(n2.pairs.shape) == (cfg2.capacity, k2)
+    fresh = cellgrid_pairlist_plain(s2.x, n2.valid, s2.tag, s2.special_tags,
+                                    s2.special_codes, s2.box, cfg2, k2)
+    assert torch.equal(n2.pairs, fresh[0]) and torch.equal(n2.npairs,
+                                                            fresh[1])
+    assert int(n2.npairs.sum()) > 0 and not bool(n2.overflow)
     assert sim._baro_margin == pytest.approx(1.12 * 1.10)
     assert n2.nbuilds == neigh.nbuilds
     tags = s2.tag[s2.tag > 0]

@@ -10,11 +10,15 @@ g_ewald 0.9 in real units, and special lists of width 4 from a numpy seed
 so weight-0, partial and the kspace exclusion correction all occur).  The
 grid is 3x3x3 cells of 3.0 (cutneigh 2.5 + 0.5), cap 16.
 
-* f32: the plain version against the TPU kernel
-  ``charmm_cellgrid_forces_pallas`` under
+Both plain versions are held to tpumd: the wrapper ``charmm_cellgrid``
+(on the CPU the plain sweep of the grid's pair list, built by the plain
+``cellgrid_pairlist`` at a K sized from the density) and the stencil
+oracle ``charmm_cellgrid_plain``:
+
+* f32: against the TPU kernel ``charmm_cellgrid_forces_pallas`` under
   ``pltpu.force_tpu_interpret_mode()``: forces to 5e-5 of max|f|, the
   virial to 5e-5 of its largest component (f32 sums in another order).
-* f64: the plain version against tpumd's XLA sweep
+* f64: against tpumd's XLA sweep
   ``cellgrid_pair_sums(q=..., special=..., pair_fn_ex=...)`` with
   ``PairLJCharmmCoulLong.pair_fn_ex``: forces, both energies and the
   virial to 1e-12 (summation order only), in every flag combination.
@@ -37,6 +41,7 @@ from tpumd.utils.units import get_units as j_units
 from tpumd_torch.core.state import Box, make_state, wrap_pbc
 from tpumd_torch.interop import charmm_from_numpy
 from tpumd_torch.ops import cellgrid as cg
+from tpumd_torch.ops import cellgrid_pairlist as bpl
 from tpumd_torch.ops import charmm_cellgrid as b5
 
 torch.set_num_threads(2)
@@ -113,6 +118,25 @@ def _args(s, valid, box, cfg, c):
             box, cfg, c)
 
 
+def _sweep(path, s, valid, box, cfg, c, eflag, vflag):
+    """The charmm sweep by path: "list", the wrapper over the plain
+    build's pair list (one plain call of each), or "stencil", the
+    oracle."""
+    if path == "stencil":
+        return b5.charmm_cellgrid_plain(*_args(s, valid, box, cfg, c),
+                                        eflag, vflag)
+    kmax = cg.pairlist_kmax(box, cfg.cutneigh, int(valid.sum()))
+    n0, m0 = b5.counts.plain_calls, bpl.counts.plain_calls
+    pairs, npairs, _, over = bpl.cellgrid_pairlist(
+        s.x, valid, s.tag, s.special_tags, s.special_codes, box, cfg, kmax)
+    assert not bool(over)
+    out = b5.charmm_cellgrid(s.x, s.q, s.type, pairs, npairs, box, cfg, c,
+                             eflag, vflag)
+    assert (b5.counts.plain_calls, bpl.counts.plain_calls) == (n0 + 1,
+                                                               m0 + 1)
+    return out
+
+
 def _jax_inputs(s, valid, box, cfg, dtype):
     w = [np.asarray(tab)[s.special_codes.numpy()] for tab in (W_LJ, W_COUL)]
     jbox = JBox.orthogonal(box.lo.numpy(), box.hi.numpy(), dtype=dtype)
@@ -124,14 +148,13 @@ def _jax_inputs(s, valid, box, cfg, dtype):
             jnp.asarray(w[0], dtype), jnp.asarray(w[1], dtype), jbox, jcfg)
 
 
-def test_f32_plain_matches_pallas_kernel():
+@pytest.mark.parametrize("path", ["list", "stencil"])
+def test_f32_plain_matches_pallas_kernel(path):
     s, valid, box, cfg = _system(torch.float32)
     assert (cfg.nx, cfg.ny, cfg.nz, cfg.cap) == (3, 3, 3, 16)
     tp, jp, c = _pairs(torch.float32)
-    n0 = b5.counts.plain_calls
-    f, evdwl, ecoul, virial = b5.charmm_cellgrid(*_args(s, valid, box, cfg,
-                                                        c), False, True)
-    assert b5.counts.plain_calls == n0 + 1
+    f, evdwl, ecoul, virial = _sweep(path, s, valid, box, cfg, c, False,
+                                     True)
     assert evdwl is None and ecoul is None
     x, q, t, tag, v, st, swl, swc, jbox, jcfg = _jax_inputs(
         s, valid, box, cfg, jnp.float32)
@@ -173,13 +196,14 @@ def test_pair_fn_ex_matches_tpumd():
     assert (out[2].numpy()[inside] != 0).all()
 
 
+@pytest.mark.parametrize("path", ["list", "stencil"])
 @pytest.mark.parametrize("flags", [(1, 1), (0, 0), (1, 0), (0, 1)])
-def test_f64_plain_matches_cellgrid_pair_sums(flags):
+def test_f64_plain_matches_cellgrid_pair_sums(flags, path):
     eflag, vflag = flags
     s, valid, box, cfg = _system(torch.float64)
     tp, jp, c = _pairs(torch.float64)
-    f, evdwl, ecoul, virial = b5.charmm_cellgrid(*_args(s, valid, box, cfg,
-                                                        c), eflag, vflag)
+    f, evdwl, ecoul, virial = _sweep(path, s, valid, box, cfg, c, eflag,
+                                     vflag)
     x, q, t, tag, v, st, swl, swc, jbox, jcfg = _jax_inputs(
         s, valid, box, cfg, jnp.float64)
     fj, ej, ecj, vj = jcg.cellgrid_pair_sums(

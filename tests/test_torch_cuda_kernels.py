@@ -15,11 +15,17 @@ runs on a card host without JAX:
   potential, 5^3 and 4^3 lattice cells (3^3 and 2^3 grids); both force
   passes take the plain density pass's F', and the density pass is held
   on rho, F' and the embedding energy;
-* lj/charmm/coul/long (B5, ``charmm_cellgrid``): the grid-ordered state of
+* the pair list build (``cellgrid_pairlist``): the grid-ordered state of
   the peptide deck with the rhodo_class settings after set-up (a 2^3 grid
-  of cap 368, every neighbour cell met at two images) and of its 1x1x2
-  replica (a 2x2x4 grid), special weights, charges and the kspace
-  exclusion term included;
+  of cap 368, every neighbour cell met at two images) and of its 2x2x2
+  replica (a 4^3 grid): the plain build's rows, as arrays on the 4^3 grid
+  and as sets on the 2^3 grid, counts, longest row and overflow flag, at
+  the set-up's K and at a K too small;
+* lj/charmm/coul/long (B5, ``charmm_cellgrid``) over the set-up's pair
+  list, on the peptide's 2^3 grid and its 1x1x2 replica's 2x2x4 grid,
+  against the plain list sweep and the stencil oracle
+  ``charmm_cellgrid_plain``: special weights, charges and the kspace
+  exclusion term included; without a list it raises;
 * gran/hooke/history (B6, ``gran_cellgrid``): the grid-ordered state of
   generated chute packs after 30 steps on the card, a 9x5x4 grid and a
   5x2x3 grid (y periodic with 2 cells), z non-periodic, with the deck's
@@ -54,6 +60,7 @@ from tpumd_torch.core.state import Box, make_state, wrap_pbc
 from tpumd_torch.interop import pair_from_numpy
 from tpumd_torch.models.pair_eam import PairEAM
 from tpumd_torch.ops import cellgrid as cg
+from tpumd_torch.ops import cellgrid_pairlist as bpl
 from tpumd_torch.ops import charmm_cellgrid as b5
 from tpumd_torch.ops import eam_cellgrid as b34
 from tpumd_torch.ops import gran_cellgrid as b6
@@ -186,8 +193,10 @@ def test_eam_cuda_kernels_match_plain(dtype, tmp_path):
 
 
 def _charmm_grid(replicate, dtype):
-    """The arguments of charmm_cellgrid for the rhodo_class deck on the
-    peptide, replicated as given, after set-up on the card."""
+    """(the arguments of charmm_cellgrid, those of the stencil oracle
+    charmm_cellgrid_plain, those of cellgrid_pairlist) for the
+    rhodo_class deck on the peptide, replicated as given, after set-up on
+    the card; the list is the one the set-up built."""
     script = LammpsScript(device="cuda", dtype=torch.float64)
     script.run_string(IN_RHODO_CLASS.format(golden=GOLDEN).replace(
         "replicate       2 2 4", f"replicate       {replicate}"))
@@ -197,27 +206,72 @@ def _charmm_grid(replicate, dtype):
     s, neigh, _ = sim._carry
     x = s.x.to(dtype)
     box = Box(lo=s.box.lo.to(dtype), hi=s.box.hi.to(dtype))
+    cfg = sim._neigh_cfg
     c = sim.pair.kernel_coeffs(x, *sim._special_weights())
-    return (x, s.q.to(dtype), s.type, neigh.valid, s.tag, s.special_tags,
-            s.special_codes, box, sim._neigh_cfg, c)
+    q = s.q.to(dtype)
+    return ((x, q, s.type, neigh.pairs, neigh.npairs, box, cfg, c),
+            (x, q, s.type, neigh.valid, s.tag, s.special_tags,
+             s.special_codes, box, cfg, c),
+            (x, neigh.valid, s.tag, s.special_tags, s.special_codes, box,
+             cfg, sim._ctx.pairlist_k))
+
+
+def _rows_as_sets(pairs, npairs):
+    """Each row's entries sorted, the padding past npairs as a sentinel."""
+    k = torch.arange(pairs.shape[1], device=pairs.device)
+    rows = torch.where(k < npairs[:, None].long(), pairs.long(), 1 << 40)
+    return torch.sort(rows, dim=1).values
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_cellgrid_pairlist_cuda_kernel_matches_plain(dtype):
+    """The pair list build kernel: the plain build's rows, as arrays where
+    every axis has 3 cells or more (4^3 grid), as sets on the 2^3 grid;
+    equal counts, longest row and overflow flag, also with K too small."""
+    _card()
+    dt = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    for replicate, grid in (("1 1 1", (2, 2, 2)), ("2 2 2", (4, 4, 4))):
+        _, _, args = _charmm_grid(replicate, dt)
+        cfg = args[-2]
+        assert (cfg.nx, cfg.ny, cfg.nz) == grid
+        for k in (args[-1], 64):
+            a = args[:-1] + (k,)
+            n0 = bpl.counts.kernel_launches
+            out = bpl.cellgrid_pairlist(*a)
+            assert bpl.counts.kernel_launches == n0 + 1
+            plain = bpl.cellgrid_pairlist_plain(*a)
+            torch.cuda.synchronize()
+            assert bool(out[3]) == bool(plain[3]) == (k == 64)
+            assert int(out[2]) == int(plain[2]) > 64
+            assert torch.equal(out[1], plain[1])
+            if min(grid) >= 3 or k == 64:
+                assert torch.equal(out[0], plain[0])
+            else:
+                assert torch.equal(_rows_as_sets(*out[:2]),
+                                   _rows_as_sets(*plain[:2]))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
 def test_charmm_cuda_kernel_matches_plain(dtype):
-    """B5, the lj/charmm/coul/long cell-grid kernel."""
+    """B5, the lj/charmm/coul/long list kernel, against the plain list
+    sweep and the stencil oracle."""
     _card()
     dt = {"f32": torch.float32, "f64": torch.float64}[dtype]
     for replicate, grid in (("1 1 1", (2, 2, 2)), ("1 1 2", (2, 2, 4))):
-        args = _charmm_grid(replicate, dt)
-        cfg = args[8]
+        args, oracle, _ = _charmm_grid(replicate, dt)
+        cfg = args[6]
         assert (cfg.nx, cfg.ny, cfg.nz) == grid
         for ef, vf in FLAGS:
             n0 = b5.counts.kernel_launches
             out = b5.charmm_cellgrid(*args, ef, vf)
             assert b5.counts.kernel_launches == n0 + 1
-            _close(out, b5.charmm_cellgrid_plain(*args, ef, vf), TOL[dt])
-
+            _close(out, b5.charmm_pairlist_plain(*args[:6], args[7], ef,
+                                                 vf), TOL[dt])
+            _close(out, b5.charmm_cellgrid_plain(*oracle, ef, vf), TOL[dt])
+        with pytest.raises(ValueError, match="no pair list"):
+            b5.charmm_cellgrid(*args[:3], None, None, *args[5:], 0, 0)
 
 
 def _gran_grid(tmp_path, dims, dtype):

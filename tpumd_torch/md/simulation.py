@@ -32,7 +32,7 @@ import torch
 from tpumd_torch.core.state import MDState, map_per_atom, wrap_pbc
 from tpumd_torch.md import computes
 from tpumd_torch.md.verlet import ENERGY_KEYS, StepContext, build_matrix, \
-    eval_energies, pack_thermo, run_segment
+    eval_energies, grid_pairlist, pack_thermo, run_segment
 from tpumd_torch.ops import cellgrid as cg
 from tpumd_torch.ops import neighbor as nb
 from tpumd_torch.ops.cellgrid_gran import KH
@@ -108,7 +108,8 @@ class Simulation:
         self._neigh_cfg: cg.CellGridConfig | nb.NeighborConfig | None = None
         self._mode = None              # the engine of the set-up
         self._cap_override = None
-        self._kmax_override = None     # matrix engine capacities
+        # K of the matrix engine's rows or of the grid's pair list
+        self._kmax_override = None
         self._cellcap_override = None
         self._baro_margin = BARO_MARGIN
         self._natoms = None
@@ -117,6 +118,7 @@ class Simulation:
         self._ref_order_tags = None
         self._bonded_dev = ()
         self._fstate_stash: dict = {}
+        self.grid_setups = 0           # fresh grids binned (_grid_setup)
         self.step = 0
         self.last_thermo: dict | None = None
         self.loop_time = 0.0
@@ -255,6 +257,11 @@ class Simulation:
         else:
             cfg = self._grid_config(cutneigh, margin)
         self._neigh_cfg = cfg
+        pairlist_k = 0
+        if self._mode == "cellgrid" and getattr(self.pair, "pair_list",
+                                                 False):
+            pairlist_k = self._kmax_override or cg.pairlist_kmax(
+                self.state.box, cutneigh, self.natoms)
         mass_np = np.asarray(self.mass, dtype=np.float64).copy()
         mass_np[0] = 1.0  # padded slots: finite mass, zero force
         slj, scl = self._special_weights()
@@ -266,7 +273,8 @@ class Simulation:
             natoms=self.natoms, kernel_bond=self._kernel_bond,
             ref_order_tags=self._ref_order_tags, bonded=self._bonded_dev,
             kspace=self.kspace, special_lj=slj, special_coul=scl,
-            tdof=self.dof(), shrink=self._shrink_spec())
+            tdof=self.dof(), shrink=self._shrink_spec(),
+            pairlist_k=pairlist_k)
 
     def _grid_config(self, cutneigh: float,
                      margin: float) -> cg.CellGridConfig:
@@ -444,10 +452,12 @@ class Simulation:
 
     def _grid_setup(self, s: MDState, nbuilds: int = 1, history=None):
         """Pad, bin and permute a compact state into a fresh grid
-        (for the current config); returns (state, neigh).  A granular
-        style's history tables, (natoms, KH) and (natoms, KH, 3) rows of
-        the compact state, move with the atoms; zero when not given."""
+        (for the current config) and build its pair list where the style
+        sweeps one; returns (state, neigh).  A granular style's history
+        tables, (natoms, KH) and (natoms, KH, 3) rows of the compact state,
+        move with the atoms; zero when not given."""
         cfg = self._ctx.neigh_cfg
+        self.grid_setups += 1
         s = cg.pad_state(wrap_pbc(s), cfg.capacity)
         valid0 = torch.arange(s.capacity, device=self.device) < self.natoms
         perm, valid, max_count, over = cg.bin_permutation(
@@ -466,10 +476,14 @@ class Simulation:
                 valid.reshape((-1,) + (1,) * (a.dim() - 1)),
                 cg.pad_rows(a, cfg.capacity)[idx], 0)
                 for k, a in zip(("shear_tags", "shear"), history)}
+        plist, list_over = grid_pairlist(s, valid, self._ctx)
+        if list_over is not None:
+            over = over | list_over
         neigh = cg.CellGridState(
             valid=valid, xhold=s.x, ago=0, nbuilds=nbuilds, overflow=over,
             max_count=max_count,
-            row2slot=cg.row2slot_from_tags(s.tag, self.natoms), **tables)
+            row2slot=cg.row2slot_from_tags(s.tag, self.natoms), **tables,
+            **plist)
         return s, neigh
 
     def _check_engine(self, mode: str):
@@ -581,10 +595,8 @@ class Simulation:
                 s, neigh = self._grid_setup(self.state)
                 if not bool(neigh.overflow):
                     break
-                # grow the cell capacity from the observed maximum, retry
-                self._cap_override = int(np.ceil(max(
-                    self._neigh_cfg.cap * 1.5,
-                    int(neigh.max_count) * 1.3) / 8) * 8)
+                # grow the capacity that overflowed, retry
+                self._grow_grid(neigh, neigh.max_count)
                 continue
             s, neigh = self._matrix_setup(self.state)
             if bool(neigh.overflow):
@@ -669,11 +681,27 @@ class Simulation:
         self._ctx = None
         self._carry = None
 
+    def _grow_grid(self, neigh, max_count):
+        """Grow the cell grid's capacities after an overflow that the grid
+        state neigh shows: K of the pair list from its longest row where
+        that passed K, and unless only the list overflowed, the cell
+        capacity from max_count (tpumd/md/simulation.py:1376-1405)."""
+        cfg, k = self._neigh_cfg, self._ctx.pairlist_k
+        if neigh.max_pairs is not None and int(neigh.max_pairs) > k:
+            self._kmax_override = int(np.ceil(max(
+                k * 1.5, int(neigh.max_pairs) * 1.3) / 8) * 8)
+            if int(neigh.max_count) <= cfg.cap:
+                return
+        self._cap_override = int(np.ceil(max(
+            cfg.cap * 1.5, int(max_count) * 1.3) / 8) * 8)
+
     def _check_overflow(self, neigh):
         if bool(neigh.overflow):
+            longest = ("" if getattr(neigh, "max_pairs", None) is None
+                       else f" max_pairs={int(neigh.max_pairs)}")
             raise RuntimeError(
-                f"neighbor overflow: max_count={int(neigh.max_count)} "
-                f"cfg={self._neigh_cfg}")
+                f"neighbor overflow: max_count={int(neigh.max_count)}"
+                f"{longest} cfg={self._neigh_cfg}")
 
     # ------------------------------------------------------------------ run
     def run(self, nsteps: int):
@@ -710,7 +738,7 @@ class Simulation:
                               f"{KH} per atom lose shear history")
                 if over:
                     # grow capacities, redo the segment from the snapshot
-                    ctx = self._regrow(snapshot)
+                    ctx = self._regrow(snapshot, carry[1])
                     continue
                 break
             self._carry = carry
@@ -771,16 +799,15 @@ class Simulation:
         self._carry = (s, neigh, fstates)
         return self._ctx
 
-    def _regrow(self, snapshot):
-        """Grow the cell capacity (and on the matrix engine K) after an
-        overflow and rebuild from the snapshot (tpumd/md/simulation.py:
-        1376-1405)."""
+    def _regrow(self, snapshot, neigh):
+        """Grow the cell capacity, or the pair list's K, (on the matrix
+        engine K and the cell capacity) after an overflow that the
+        segment's last neighbour state neigh shows, and rebuild from the
+        snapshot (tpumd/md/simulation.py:1376-1405)."""
         if not self._ctx.is_cellgrid:
             self._grow_matrix(snapshot[1])
-            return self._rebin(snapshot)
-        mc = float(snapshot[1].max_count)
-        self._cap_override = int(np.ceil(max(
-            self._neigh_cfg.cap * 1.5, mc * 1.3) / 8) * 8)
+        else:
+            self._grow_grid(neigh, snapshot[1].max_count)
         return self._rebin(snapshot)
 
     def _revalidate_geometry(self):

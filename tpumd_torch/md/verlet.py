@@ -20,6 +20,10 @@ the grid state carries and every re-bin moves with the atoms; set-up and
 thermo evaluations read the history without advancing it.  A rebuild
 shrink-wraps the box's s/m faces to the atoms first.
 
+A style that sweeps a pair list (lj/charmm/coul/long) gets one from every
+re-bin, at set-up and at each rebuild, carried in the grid state; a row
+longer than its K raises the overflow flag as a full cell does.
+
 On the matrix engine the atoms keep their rows: a rebuild wraps,
 shrink-wraps and builds the (N, K) neighbor matrix, and a granular style's
 per-slot history follows each (i, j) pair into its new slot.  A box
@@ -40,6 +44,7 @@ from tpumd_torch.md import computes
 from tpumd_torch.models.bonded import compute_tuples
 from tpumd_torch.ops import cellgrid as cg
 from tpumd_torch.ops import neighbor as nb
+from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist
 from tpumd_torch.utils.units import Units
 
 # the energies of a force evaluation (tpumd/md/verlet.py:123-124)
@@ -75,6 +80,9 @@ class StepContext:
     # shrink-wrapped faces: ((dim, shrink_lo, shrink_hi, small), ...)
     # (Domain::reset_box, src/domain.cpp:431-460)
     shrink: tuple = ()
+    # row width K of the cell grid's pair list (ops/cellgrid_pairlist.py)
+    # for a style that sweeps one; 0: no list
+    pairlist_k: int = 0
 
     def mass_per_atom(self, s: MDState):
         if s.rmass is not None:
@@ -166,7 +174,7 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
             neigh = neigh.replace(shear_tags=stags, shear=shear)
     elif getattr(pair, "charged", False):
         f, evdwl, ecoul, vir = pair.compute_cellgrid_charged(
-            s, neigh.valid, ctx.neigh_cfg, ctx.special_lj, ctx.special_coul,
+            s, neigh, ctx.neigh_cfg, ctx.special_lj, ctx.special_coul,
             eflag, vflag)
         tally({"evdwl": evdwl, "ecoul": ecoul}, vir)
     else:
@@ -252,6 +260,22 @@ def build_matrix(s: MDState, ctx: StepContext, nbuilds: int,
                             max_count=max_count, shear=shear)
 
 
+def grid_pairlist(s: MDState, valid, ctx: StepContext, max_pairs=None):
+    """The pair list fields of a freshly binned grid state (empty without
+    ctx.pairlist_k), with the box corners of the build, and its overflow
+    flag (None without a list).  max_pairs, the longest row the state has
+    seen, keeps its maximum."""
+    if ctx.pairlist_k == 0:
+        return {}, None
+    pairs, npairs, longest, over = cellgrid_pairlist(
+        s.x, valid, s.tag, s.special_tags, s.special_codes, s.box,
+        ctx.neigh_cfg, ctx.pairlist_k)
+    if max_pairs is not None:
+        longest = torch.maximum(max_pairs, longest)
+    return {"pairs": pairs, "npairs": npairs, "max_pairs": longest,
+            "lohold": s.box.lo, "hihold": s.box.hi}, over
+
+
 def _rebuild(s: MDState, neigh, ctx: StepContext):
     """Wrap and shrink-wrap; then on the cell grid re-bin and permute the
     state (and a granular style's history tables) into the new slot order,
@@ -271,17 +295,22 @@ def _rebuild(s: MDState, neigh, ctx: StepContext):
         history = {k: cg.move_rows(getattr(neigh, k), src, dst, cfg.capacity)
                    for k in ("shear_tags", "shear")}
     # placed atoms carry their tag; empty and dropped slots were zeroed
+    valid = s.tag > 0
+    plist, list_over = grid_pairlist(s, valid, ctx, neigh.max_pairs)
+    if list_over is not None:
+        over = over | list_over
     neigh = cg.CellGridState(
-        valid=s.tag > 0, xhold=s.x, ago=0, nbuilds=neigh.nbuilds + 1,
+        valid=valid, xhold=s.x, ago=0, nbuilds=neigh.nbuilds + 1,
         overflow=neigh.overflow | over, max_count=max_count,
-        row2slot=row2slot, **history)
+        row2slot=row2slot, **history, **plist)
     return s, neigh
 
 
 def decide_rebuild(s: MDState, neigh, ctx: StepContext) -> bool:
     """Neighbor::decide (src/neighbor.cpp:2293): ago-based schedule, then
     the half-skin displacement check when ``check yes``
-    (tpumd/md/verlet.py:390-410)."""
+    (tpumd/md/verlet.py:390-410), less the box's move since the build on a
+    grid that carries a pair list."""
     cfg = ctx.neigh_cfg
     if not (neigh.ago >= cfg.delay and neigh.ago % cfg.every == 0):
         return False
@@ -289,7 +318,8 @@ def decide_rebuild(s: MDState, neigh, ctx: StepContext) -> bool:
         return True
     if ctx.is_cellgrid:
         return bool(cg.displacement_exceeded(
-            s.x, neigh.xhold, neigh.valid, s.box, cfg.skin))
+            s.x, neigh.xhold, neigh.valid, s.box, cfg.skin, neigh.lohold,
+            neigh.hihold))
     return bool(nb.displacement_exceeded(s.x, neigh.xhold, s.box, cfg.skin))
 
 

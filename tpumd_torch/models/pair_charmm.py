@@ -4,9 +4,10 @@ Physics per the reference (src/KSPACE/pair_lj_charmm_coul_long.cpp:37,
 143-158), as tpumd/models/pair_charmm.py has it: LJ with the CHARMM
 energy switch between the inner and outer cutoffs, and real-space Ewald
 Coulomb through the reference's erfc polynomial.  The special-bond weights
-are applied in the sweep; an excluded Coulomb pair keeps the kspace
-compensation term.  The 1-4 tables (eps14, sigma14) serve the CHARMM
-dihedral's 1-4 pairs.  Forces go through the cell-grid kernel
+are applied in the sweep by each list entry's code; an excluded Coulomb
+pair keeps the kspace compensation term.  The 1-4 tables (eps14, sigma14)
+serve the CHARMM dihedral's 1-4 pairs.  On the cell grid the style sweeps
+the grid's pair list (``pair_list``): forces go through the kernel of
 ``ops/charmm_cellgrid.py`` (its plain version on the CPU).
 lj/charmm/coul/charmm is not ported.
 """
@@ -30,6 +31,8 @@ class PairLJCharmmCoulLong(PairStyle):
     matrix_engine = False
     # the pair sweep takes charges and special lists
     charged = True
+    # and sweeps the grid's pair list, which carries the special codes
+    pair_list = True
 
     def __init__(self, ntypes: int):
         super().__init__(ntypes)
@@ -133,18 +136,18 @@ class PairLJCharmmCoulLong(PairStyle):
                 tuple(float(w) for w in special_coul))
         return c
 
-    def compute_cellgrid_charged(self, s, valid, cfg, special_lj,
+    def compute_cellgrid_charged(self, s, neigh, cfg, special_lj,
                                  special_coul, eflag: bool, vflag: bool):
-        """(f, evdwl, ecoul, virial) of the grid-ordered state s; energies
-        None unless eflag, virial unless vflag."""
+        """(f, evdwl, ecoul, virial) of the grid-ordered state s over the
+        pair list of its grid state neigh; energies None unless eflag,
+        virial unless vflag."""
         if s.special_tags is None:
             raise NotImplementedError(
-                "lj/charmm/coul/long without bonds (no special lists): "
-                "the port's charmm kernel takes special lists")
+                "lj/charmm/coul/long without bonds (no special lists) is "
+                "not ported")
         c = self.kernel_coeffs(s.x, special_lj, special_coul)
-        return charmm_cellgrid(s.x, s.q, s.type, valid, s.tag,
-                               s.special_tags, s.special_codes, s.box, cfg,
-                               c, eflag, vflag)
+        return charmm_cellgrid(s.x, s.q, s.type, neigh.pairs, neigh.npairs,
+                               s.box, cfg, c, eflag, vflag)
 
     def pair_fn_ex(self, r2, itype, jtype, w_lj, w_coul, qi, qj):
         """(fpair, evdwl, ecoul, fcoul) per pair: the plain pair

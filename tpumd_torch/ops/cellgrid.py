@@ -58,6 +58,15 @@ class CellGridState:
     # atoms: partner tags (Np, KH) int32 (0 = empty) and shear (Np, KH, 3)
     shear_tags: torch.Tensor | None = None
     shear: torch.Tensor | None = None
+    # a style that sweeps a pair list (ops/cellgrid_pairlist.py): the
+    # list of the last re-bin, (Np, K) packed entries and (Np,) row counts,
+    # the longest row seen, () int, over the state's rebuilds, and the box
+    # corners at the build, (3,) each, for the rebuild check
+    pairs: torch.Tensor | None = None
+    npairs: torch.Tensor | None = None
+    max_pairs: torch.Tensor | None = None
+    lohold: torch.Tensor | None = None
+    hihold: torch.Tensor | None = None
 
     def replace(self, **kw) -> "CellGridState":
         return dataclasses.replace(self, **kw)
@@ -79,6 +88,15 @@ def choose_cellgrid_config(box: Box, cutneigh: float, skin: float,
     return CellGridConfig(cutneigh=float(cutneigh), skin=float(skin),
                           nx=nx, ny=ny, nz=nz, cap=int(cap),
                           every=every, delay=delay, check=check)
+
+
+def pairlist_kmax(box: Box, cutneigh: float, natoms: int) -> int:
+    """Row width of a pair list at cutneigh from the mean density, as the
+    matrix engine sizes its K (ops/neighbor.py::choose_config): 35 % over
+    the mean neighbour count, plus 4, a multiple of 4."""
+    density = natoms / float(np.prod(box.lengths_np()))
+    mean = density * 4.0 / 3.0 * np.pi * cutneigh ** 3
+    return int(np.ceil((mean * 1.35 + 4) / 4) * 4)
 
 
 def _cell_ids(x, box: Box, cfg: CellGridConfig):
@@ -209,10 +227,21 @@ def compact_state(state: MDState, valid, natoms: int) -> MDState:
     return map_per_atom(state, lambda a: a[idx])
 
 
-def displacement_exceeded(x, xhold, valid, box: Box, skin: float):
+def displacement_exceeded(x, xhold, valid, box: Box, skin: float,
+                          lohold=None, hihold=None):
+    """Whether an atom moved more than half the skin since the build.
+    Given the box corners at the build (a carried pair list, which the
+    sweep does not re-test), the trigger shrinks by how far the corners
+    moved, as Neighbor::check_distance does when a fix changes the box
+    (src/neighbor.cpp): an image pair's separation changes by
+    both atoms' moves and the box's."""
     d = minimum_image(x - xhold, box)
     rsq = torch.where(valid, torch.sum(d * d, dim=-1), 0)
     delta = 0.5 * skin
+    if lohold is not None:
+        moved = (torch.linalg.vector_norm(box.lo - lohold)
+                 + torch.linalg.vector_norm(box.hi - hihold))
+        delta = torch.clamp(0.5 * (skin - moved), min=0.0)
     return torch.max(rsq) > delta * delta
 
 

@@ -1,16 +1,20 @@
 """lj/charmm/coul/long on the cell grid: the CUDA kernel, its wrapper and
-its plain PyTorch version.
+its plain PyTorch versions.
 
 The kernel (``tpumd_torch/csrc/charmm_cellgrid.cu``) replaces the TPU
 kernel tpumd/ops/pallas_charmm.py::_kernel (entry
 charmm_cellgrid_forces_pallas): CHARMM-switched LJ, real-space Ewald
 Coulomb through the reference's erfc polynomial, and the 1-2/1-3/1-4
-special weights matched in the sweep against each i slot's special list,
-with the kspace exclusion correction of excluded Coulomb pairs.  It also
-writes per-slot van der Waals and Coulomb energies and the virial, so
-thermo steps need no second sweep.  ``charmm_cellgrid`` launches it for
-CUDA tensors and takes the plain version only for CPU tensors; it never
-falls back from one to the other.
+special weights, with the kspace exclusion correction of excluded Coulomb
+pairs.  It sweeps the grid's pair list (``ops/cellgrid_pairlist.py``,
+built at every re-bin), whose entries carry each pair's special code, at
+the minimum image of the current box.  It also writes per-slot van der
+Waals and Coulomb energies and the virial, so thermo steps need no second
+sweep.  ``charmm_cellgrid`` launches it for CUDA tensors and takes the
+plain list sweep (``charmm_pairlist_plain``) only for CPU tensors; it never
+falls back from one to the other.  ``charmm_cellgrid_plain``, the sweep
+over the 27-cell stencil that matches special tags pair by pair, is the
+oracle the list sweep is held to; no run calls it.
 """
 
 from __future__ import annotations
@@ -23,7 +27,9 @@ import torch
 from tpumd_torch.core.state import Box
 from tpumd_torch.ops import _build
 from tpumd_torch.ops.cellgrid import CellGridConfig, cellgrid_pair_sums
-from tpumd_torch.ops.lj_cellgrid import LaunchCounts, check_grid_inputs
+from tpumd_torch.ops.cellgrid_pairlist import unpack
+from tpumd_torch.ops.lj_cellgrid import LaunchCounts
+from tpumd_torch.ops.pairwise import pair_sums
 
 # the reference's erfc approximation (src/KSPACE/pair_lj_charmm_coul_
 # long.cpp:37, tpumd/models/pair_charmm.py:20-23)
@@ -102,9 +108,10 @@ def special_weights(scodes, c: CharmmCoeffs, like):
 def charmm_cellgrid_plain(x, q, type_, valid, tag, stags, scodes, box: Box,
                           cfg: CellGridConfig, c: CharmmCoeffs, eflag: bool,
                           vflag: bool):
-    """Plain PyTorch version of the kernel: (f, evdwl, ecoul, virial).
-    Blocks of at most 2^22 candidates on the CPU (memory), 2^26 on a
-    card."""
+    """The stencil oracle: (f, evdwl, ecoul, virial) summed over the
+    27-cell stencil, special weights matched against each i slot's
+    special tags.  Blocks of at most 2^22 candidates on the CPU (memory),
+    2^26 on a card."""
     wl, wc = special_weights(scodes, c, x)
     f, evdwl, virial, ecoul = cellgrid_pair_sums(
         x, type_, valid, box, cfg, charmm_pair_fn(c), eflag, vflag, q=q,
@@ -114,11 +121,42 @@ def charmm_cellgrid_plain(x, q, type_, valid, tag, stags, scodes, box: Box,
     return f, evdwl, ecoul, virial
 
 
-_FN_NAMES = {torch.float32: "tpumd_charmm_cellgrid_f32",
-             torch.float64: "tpumd_charmm_cellgrid_f64"}
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_ARGTYPES = ([_P] * 7 + [_I] + [_P] * 2 + [_I] + [_P] * 4 + [_I] * 4
-             + [_D] * 6 + [_D] * 8 + [_I, _I, _P])
+def charmm_pairlist_plain(x, q, type_, pairs, npairs, box: Box,
+                          c: CharmmCoeffs, eflag: bool, vflag: bool):
+    """Plain PyTorch version of the kernel: (f, evdwl, ecoul, virial) of
+    the list's entries through ``pair_sums``, the codes weighing each
+    pair.  Rows in blocks of at most 2^20 entries on the CPU (memory),
+    2^24 on a card, over the columns up to the longest row."""
+    n = x.shape[0]
+    kk = max(int(npairs.max()), 1)
+    j, code = unpack(pairs[:, :kk])
+    rows = max(1, (1 << (20 if x.device.type == "cpu" else 24)) // kk)
+    f = torch.empty_like(x)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    evdwl, ecoul, virial = zero, zero, torch.zeros(6, dtype=x.dtype,
+                                                   device=x.device)
+    pair_fn = charmm_pair_fn(c)
+    for b0 in range(0, n, rows):
+        b1 = min(b0 + rows, n)
+        fb, ev, ec, vir = pair_sums(
+            x[b0:b1], type_[b0:b1], box, j[b0:b1], code[b0:b1], None,
+            c.w_lj, c.w_coul, eflag, vflag, q=q[b0:b1], pair_fn_ex=pair_fn,
+            ext=(x, type_, q, box), row0=b0)
+        f[b0:b1] = fb
+        if eflag:
+            evdwl, ecoul = evdwl + ev, ecoul + ec
+        if vflag:
+            virial = virial + vir
+    return (f, evdwl if eflag else None, ecoul if eflag else None,
+            virial if vflag else None)
+
+
+_FN_NAMES = {torch.float32: "tpumd_charmm_pairlist_f32",
+             torch.float64: "tpumd_charmm_pairlist_f64"}
+_P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_double
+_ARGTYPES = ([_P] * 5 + [_I, _L] + [_P] * 2 + [_I] + [_P] * 4 + [_D] * 6
+             + [_D] * 8 + [_I, _I, _P])
 
 
 def _check(name, t, dtype, shape, device):
@@ -129,29 +167,60 @@ def _check(name, t, dtype, shape, device):
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def charmm_cellgrid(x, q, type_, valid, tag, stags, scodes, box: Box,
+def charmm_cellgrid(x, q, type_, pairs, npairs, box: Box,
                     cfg: CellGridConfig, c: CharmmCoeffs, eflag: bool,
                     vflag: bool):
     """Forces (Np, 3), evdwl and ecoul () or None and virial (6,) or None
-    of lj/charmm/coul/long on the cell grid, special weights matched by
-    tag; energies and virial take 1/2 per ordered pair."""
+    of lj/charmm/coul/long over the grid's pair list (pairs (Np, K),
+    npairs (Np,), ops/cellgrid_pairlist.py); energies and virial take 1/2
+    per ordered pair.  Raises without a list."""
+    if pairs is None or npairs is None:
+        raise ValueError("charmm_cellgrid: no pair list; the grid state "
+                         "of a style that sweeps one carries it from its "
+                         "last re-bin")
+    np_ = cfg.capacity
+    if (pairs.dim() != 2 or pairs.shape[0] != np_
+            or tuple(npairs.shape) != (np_,)):
+        raise ValueError(f"charmm_cellgrid: a ({np_}, K) list and ({np_},) "
+                         f"counts expected, got {tuple(pairs.shape)} and "
+                         f"{tuple(npairs.shape)}")
     if x.device.type == "cpu":
         counts.plain_calls += 1
-        return charmm_cellgrid_plain(x, q, type_, valid, tag, stags, scodes,
-                                     box, cfg, c, eflag, vflag)
+        return charmm_pairlist_plain(x, q, type_, pairs, npairs, box, c,
+                                     eflag, vflag)
     if x.device.type != "cuda":
         raise ValueError(f"charmm_cellgrid: no kernel for device {x.device}")
-    check_grid_inputs(x, valid, box, cfg, "charmm_cellgrid")
-    np_ = cfg.capacity
+    out = launch(_build.kernel_function(_FN_NAMES[_dtype(x)], _ARGTYPES),
+                 x, q, type_, pairs, npairs, box, cfg, c, eflag, vflag)
+    counts.kernel_launches += 1
+    return out
+
+
+def _dtype(x):
+    if x.dtype not in _FN_NAMES:
+        raise TypeError(f"charmm_cellgrid: x must be float32 or float64, "
+                        f"got {x.dtype}")
+    return x.dtype
+
+
+def launch(fn, x, q, type_, pairs, npairs, box: Box, cfg: CellGridConfig,
+           c: CharmmCoeffs, eflag: bool, vflag: bool):
+    """Check the CUDA inputs and launch the library function fn (the
+    kernel of x's dtype, bound with _ARGTYPES); the outputs of
+    charmm_cellgrid."""
+    if not all(box.periodic):
+        raise NotImplementedError(
+            f"charmm_cellgrid: the kernel takes a periodic box only, got "
+            f"periodic flags {box.periodic}")
+    np_, K = cfg.capacity, pairs.shape[-1]
     nt1 = c.lj.shape[-1]
-    S = stags.shape[1]
+    _check("x", x, _dtype(x), (np_, 3), x.device)
     _check("q", q, x.dtype, (np_,), x.device)
     _check("type", type_, torch.int32, (np_,), x.device)
-    _check("tag", tag, torch.int32, (np_,), x.device)
-    _check("special_tags", stags, torch.int32, (np_, S), x.device)
-    _check("special_codes", scodes, torch.int32, (np_, S), x.device)
+    _check("pairs", pairs, torch.int32, (np_, K), x.device)
+    _check("npairs", npairs, torch.int32, (np_,), x.device)
+    _check("box lengths", box.lengths, x.dtype, (3,), x.device)
     _check("lj tables", c.lj, x.dtype, (4, nt1, nt1), x.device)
-    fn = _build.kernel_function(_FN_NAMES[x.dtype], _ARGTYPES)
     f = torch.empty_like(x)
     # per-slot van der Waals (row 0) and Coulomb (row 1) energies
     eslot = (torch.empty((2, np_), dtype=x.dtype, device=x.device)
@@ -160,20 +229,18 @@ def charmm_cellgrid(x, q, type_, valid, tag, stags, scodes, box: Box,
              if vflag else None)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), q.data_ptr(), type_.data_ptr(),
-                valid.data_ptr(), tag.data_ptr(), stags.data_ptr(),
-                scodes.data_ptr(), S, box.lengths.data_ptr(),
-                c.lj.data_ptr(), nt1, f.data_ptr(),
+                pairs.data_ptr(), npairs.data_ptr(), K, np_,
+                box.lengths.data_ptr(), c.lj.data_ptr(), nt1, f.data_ptr(),
                 None if eslot is None else eslot[0].data_ptr(),
                 None if eslot is None else eslot[1].data_ptr(),
                 None if vslot is None else vslot.data_ptr(),
-                cfg.nx, cfg.ny, cfg.nz, cfg.cap, c.qqrd2e, c.g_ewald,
-                c.cut_coulsq, c.cut_ljsq, c.cut_lj_innersq, c.denom_lj,
-                *c.w_lj, *c.w_coul, int(eflag), int(vflag),
+                c.qqrd2e, c.g_ewald, c.cut_coulsq, c.cut_ljsq,
+                c.cut_lj_innersq, c.denom_lj, *c.w_lj, *c.w_coul,
+                int(eflag), int(vflag),
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"charmm_cellgrid kernel launch failed: CUDA "
                            f"error {rc}")
-    counts.kernel_launches += 1
     evdwl = ecoul = virial = None
     if eflag:
         evdwl, ecoul = 0.5 * torch.sum(eslot, dim=1)

@@ -23,20 +23,24 @@ from tpumd_torch.ops.gather import gather_rows
 
 
 def pair_sums(x, type_, box, idx, sbits, pair_fn, special_lj, special_coul,
-              eflag: bool, vflag: bool, q=None, pair_fn_ex=None, ext=None):
+              eflag: bool, vflag: bool, q=None, pair_fn_ex=None, ext=None,
+              row0: int = 0):
     """(f (N, 3), evdwl, ecoul, virial (6,)) of a pairwise style; the
     energies are None without eflag, the virial without vflag.
 
     special_lj/special_coul: the four weights by sbits code (code 0:
     weight 1), or None without special pairs.  ext = (xj, tj, qj, vbox):
     the multi-image mode's copy tables, which idx addresses, and the box
-    of the extended domain (tpumd/md/verlet.py:97-108)."""
+    of the extended domain (tpumd/md/verlet.py:97-108).  row0: x, type_
+    and q are the rows [row0, row0 + N) of the tables that idx addresses
+    (ext), so a row's own index, its padding, is row0 + its row."""
     if eflag == "atom" or vflag == "atom":
         raise NotImplementedError("per-atom pair tallies (eflag/vflag "
                                   "'atom') are not ported")
     n = idx.shape[0]
     dev = x.device
-    mask = idx != torch.arange(n, dtype=idx.dtype, device=dev)[:, None]
+    mask = idx != torch.arange(row0, row0 + n, dtype=idx.dtype,
+                               device=dev)[:, None]
 
     if ext is not None:
         xj_tab, tj_tab, qj_tab, box = ext
