@@ -11,21 +11,27 @@ line each (any failure raises and exits non-zero):
    energy/virial flag combination:
    - LJ (B1) on perturbed fcc lattices at the 32k in.lj grid (11^3 cells,
      cap 40) and the 864-atom grid (3^3, cap 52);
-   - LJ+FENE (B2) on the generated chain decks' grids after setup: the 32k
-     chain grid (11^3, cap 40) and a 2^3 grid where bonds count at the
-     minimum image;
+   - LJ+FENE (B2) over the set-up's pair list on the generated chain
+     decks' grids after setup: the 32k chain grid (11^3, cap 40), a 2^3
+     grid where bonds count at the minimum image, and that grid with one
+     bond stretched to 2 sigma, past cutneigh; against the plain list
+     sweep and the stencil oracle; and the chain's list build against its
+     plain build as arrays;
    each timed at its 32k shape in the order plain, kernel, kernel, plain,
    beside its bound (the larger of this input's in-range pair arithmetic
-   over the f32 peak and its bytes over the memory rate);
+   over the f32 peak and its bytes over the memory rate; B2's and B6's
+   the work's, with the list's bytes printed beside it as a floor of the
+   design);
 4. main path, in.lj: the 6^3 deck on the card against the CPU (f64, step
    40), then the 32k deck through LammpsScript in f32: step-0 and step-100
    gates, 500 warm-up and 500 timed steps, the launch counts of that run
-   and a profile of 100 steps;
+   (no list build) and a profile of 100 steps;
 5. main path, chain: a 500-atom chain deck on the card against the CPU (f64,
    RanMars langevin on both, step 40), then the 32k chain deck in f32 with
    the device RNG: step-0 and step-100 gates, 500 warm-up and 500 timed
-   steps, the launch counts of that run, the cost of the per-step rebuild
-   check and a profile of 100 steps;
+   steps, the launch counts of that run (B2 once per force evaluation,
+   the list build once per grid set-up and rebuild), the cost of the
+   per-step rebuild check and a profile of 100 steps;
 6. main path, eam: the EAM density (B3) and force (B4) kernels against
    their plain versions on perturbed fcc lattices of the generated Cu-like
    potential at the 32k in.eam grid (12^3, cap 32) and a 2^3 grid, f32 and
@@ -33,7 +39,7 @@ line each (any failure raises and exits non-zero):
    bound; a 500-atom eam deck on the card against the CPU (f64, step 40);
    then the 32k in.eam deck through LammpsScript in f32: step-0 and
    step-100 gates, 500 warm-up and 500 timed steps, the launch counts of
-   that run and a profile of 100 steps;
+   that run (no list build) and a profile of 100 steps;
 7. main path, rhodo_class: on the 32k rhodo_class grid and the 2^3
    peptide grid after set-up, f32 and f64, the pair list build kernel
    against the plain build (rows as arrays on the 32k grid, as sets on
@@ -49,16 +55,21 @@ line each (any failure raises and exits non-zero):
    evaluation, the build once per grid set-up and rebuild), B5 over the
    final list against the stencil oracle on the final state, a profile
    of 100 steps and the step's parts;
-8. main path, chute: the gran/hooke/history kernel (B6) against its
-   plain version on the card, f32 and f64, both shearupdate values, on the
-   32k chute grid after set-up and 10 steps and on a generated pack's grid
-   with a 2-cell periodic axis (5x2x3), the history as it is and scaled
-   by 40 (slipping contacts); timed at the 32k shape in the order plain,
-   kernel, kernel, plain beside its bound, with its registers and spills;
-   a 480-sphere chute deck on the card against the CPU (f64, step 40);
-   then the 32,000-sphere deck through LammpsScript in f32: step-0 and
-   step-100 gates, 500 warm-up and 500 timed steps, the launch counts of
-   that run and a profile of 100 steps;
+8. main path, chute: the pair list build on each grid's p p fs box with
+   the base-base pairs dropped against its plain build as arrays, and the
+   gran/hooke/history kernel (B6) over the list against the plain list
+   sweep and the stencil oracle on the card, f32 and f64, both
+   shearupdate values, on the 32k chute grid after set-up and 10 steps and
+   on generated packs' grids with a 2-cell periodic axis (5x2x3) and a
+   2-cell non-periodic one (5x5x2), the history as it is and scaled by 40
+   (slipping contacts), history tags equal; both timed at the 32k shape
+   in the order plain, kernel, kernel, plain beside their bounds, B6 with
+   its registers and spills; a 480-sphere chute deck on the card against
+   the CPU (f64, step 40); then the 32,000-sphere deck through
+   LammpsScript in f32: step-0 and step-100 gates, 500 warm-up and 500
+   timed steps, the launch counts of that run (B6 once per force
+   evaluation, the list build once per grid set-up and rebuild) and a
+   profile of 100 steps;
 9. the matrix neighbor engine: the row gather (P1) against its plain
    version on the card, bit for bit, for f32, f64 and int32 tables of
    widths 1, 5, 12, 16 and 128 up to the last row and at the 32k matrix
@@ -76,6 +87,12 @@ line each (any failure raises and exits non-zero):
    call, P1's launch counts of those runs and a profile of 100 steps;
 10. a JSON line of the kernels, the card's name and power limit as
    nvidia-smi prints them, then the result line.
+
+Every time in the kernels line (``cuda_ms``) is CUDA events around many
+calls, queued 16 at a time behind a spin kernel, so that the card runs
+them back to back whatever the host's dispatch costs.  The list build's
+entry takes its times and bound at rhodo_class's, chain's and chute's
+shapes, averaged over the main paths' launches (``build_entry``).
 
 Imports nothing of JAX or tpumd.
 """
@@ -102,11 +119,21 @@ import torch
 # only; f32 also by the order of ~1,000 f32 terms per slot (the f32 Pallas
 # kernel sat at 1.2e-5 of max|f| against f64).
 TOL = {torch.float64: 1e-12, torch.float32: 5e-5}
+# B6's and B2's forces (and torques) against their plain list sweeps, the
+# same pairs in the same order: f32 differs by the lanes' summation order
+# only; energies and virial, sums over all atoms, keep TOL
+TOL_LIST = {torch.float64: 1e-13, torch.float32: 2e-6}
 
 # published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, and the HBM3 memory rate
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# cycles of torch.cuda._sleep a millisecond: at most the H100's 1.98 GHz
+# top SM clock, so a spin lasts at least as long as asked
+SPIN_CYCLES_PER_MS = 2_000_000
+# calls timed behind one spin: their launches stay well inside the card's
+# queue of pending launches, past which the host would wait for the spin
+SPIN_CHUNK = 16
 # least arithmetic per in-range pair, from the kernels' loops, counted
 # once per unordered pair (the force on j is minus the force on i): d (3),
 # r2 (5), cutoff test (1), 1/r2 (1), r^-6 (2), fpair (4); a bonded pair: d
@@ -204,16 +231,50 @@ def perturbed_grid(nlat: int, seed: int, device, dtype, eam=False):
     return cg.apply_permutation(s, perm, valid).x, valid, box, cfg
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, ahead: bool = True) -> float:
+    """Time per call of fn on the card: CUDA events around reps calls, in
+    chunks of at most SPIN_CHUNK calls each queued behind a spin kernel
+    (torch.cuda._sleep) that outlasts the host's enqueueing of the chunk,
+    so that the events time the card's work back to back and not the
+    host's dispatch of each call (a kernel of a few microseconds takes
+    less than its wrapper's dispatch); a chunk keeps the launches in
+    flight well inside the card's queue.  Every time in the kernels line
+    comes from here.  Where the host cannot get ahead (fn waits on the
+    card, as a plain version reading a flag does) the time includes the
+    dispatch; with ahead that raises after a longer spin has been tried
+    twice."""
     fn()
     torch.cuda.synchronize()
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    c, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    total = 0.0
+    for start in range(0, reps, SPIN_CHUNK):
+        n = min(SPIN_CHUNK, reps - start)
+        for _ in range(3 if ahead else 1):
+            spin_ms = min(1.5e3 * host * n + 0.5, 4000.0)
+            t0 = time.perf_counter()
+            c.record()
+            torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
+            a.record()
+            for _ in range(n):
+                fn()
+            b.record()
+            enq_ms = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            covered = enq_ms < c.elapsed_time(a)
+            if covered:
+                break
+            host = 2e-3 * enq_ms / n
+        if ahead and not covered:
+            raise AssertionError(
+                f"cuda_ms: the host took {enq_ms:.3f} ms to enqueue {n} "
+                f"calls, longer than the {c.elapsed_time(a):.3f} ms spin "
+                f"before them")
+        total += a.elapsed_time(b)
+    return total / reps
 
 
 def pair_counts(x, valid, box, cfg, cutsq, tag=None, bond_tags=None):
@@ -294,10 +355,10 @@ def check_close(what, fk, fp, ek, ep, wk, wp, tol, eflag, vflag):
 
 def time_kernel(name, kernel, plain, kernel_ev, reps=200) -> dict:
     """plain, kernel, kernel, plain; then the kernel with energy+virial."""
-    p1 = cuda_ms(plain, 10)
+    p1 = cuda_ms(plain, 10, ahead=False)
     k1 = cuda_ms(kernel, reps)
     k2 = cuda_ms(kernel, reps)
-    p2 = cuda_ms(plain, 10)
+    p2 = cuda_ms(plain, 10, ahead=False)
     ke = cuda_ms(kernel_ev, reps)
     phase("kernel", f"{name} at the 32k shape, f32 forces: kernel {k1:.4f} "
                     f"/ {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; kernel "
@@ -363,63 +424,194 @@ def chain_setup(tmp: Path, natoms: int, chain_len: int, device, dtype,
     return script
 
 
+def stretched_chain(sim, tag_a: int = 2, tag_b: int = 1, r: float = 2.0):
+    """The grid-ordered state and grid state of a set-up chain deck with
+    atom tag_b moved to distance r of its partner tag_a (past cutneigh),
+    in the direction of 256 seeded tries farthest from every other atom,
+    re-binned by the set-up's own grid code (a fresh list and bond
+    slots)."""
+    from tpumd_torch.ops import cellgrid as cg
+    s, neigh, _ = sim._carry
+    c = cg.compact_state(s, neigh.valid, sim.natoms)
+    x = c.x.double().cpu().numpy()
+    tag = c.tag.cpu().numpy()
+    L = c.box.lengths.double().cpu().numpy()
+    a, b = (int(np.nonzero(tag == t)[0][0]) for t in (tag_a, tag_b))
+    u = np.random.default_rng(4).normal(size=(256, 3))
+    cand = x[a] + r * u / np.linalg.norm(u, axis=1, keepdims=True)
+    others = np.delete(x, [a, b], axis=0)
+    best, far = None, -1.0
+    for k in range(len(cand)):
+        d = cand[k] - others
+        d -= L * np.round(d / L)
+        near = float(np.sqrt((d * d).sum(1)).min())
+        if near > far:
+            best, far = cand[k], near
+    x[b] = best % L
+    return sim._grid_setup(c.replace(x=torch.as_tensor(
+        x, dtype=c.x.dtype, device=c.x.device)))
+
+
+def list_floor_bytes(neigh, natoms: int, extra_per_slot: int = 0) -> int:
+    """The bytes a sweep reads of its list: the live entries, the row
+    counts, the valid slots' rows (int64) and extra_per_slot bytes a
+    slot (bond slots)."""
+    np_ = neigh.npairs.shape[0]
+    return (4 * int(neigh.npairs.sum()) + 4 * np_ + 8 * natoms
+            + extra_per_slot * np_)
+
+
+def time_build(name: str, bargs, plain_reps: int = 3) -> dict:
+    """The list build kernel against its plain build as arrays, then both
+    timed in the order plain, kernel, kernel, plain, beside the build's
+    bound: x, valid, tag, the special lists and group bits read once, the
+    (Np, K) list, its counts and the two status words written once, and
+    d, r2 and the cutoff test (9 operations) per candidate of the
+    stencil's 27 cells up to each cell's extent."""
+    from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist, \
+        cellgrid_pairlist_plain
+    x, valid, tag, stags, scodes, box, cfg, K = bargs[:8]
+    built = cellgrid_pairlist(*bargs)
+    plain = cellgrid_pairlist_plain(*bargs)
+    check_pairlist(f"{name} pair list", built, plain, True)
+    if bool(built[3]):
+        raise AssertionError(f"{name} pair list: overflow at K {K}")
+    p1 = cuda_ms(lambda: cellgrid_pairlist_plain(*bargs), plain_reps,
+                 ahead=False)
+    k1 = cuda_ms(lambda: cellgrid_pairlist(*bargs), 50)
+    k2 = cuda_ms(lambda: cellgrid_pairlist(*bargs), 50)
+    p2 = cuda_ms(lambda: cellgrid_pairlist_plain(*bargs), plain_reps,
+                 ahead=False)
+    np_ = cfg.capacity
+    S = 0 if stags is None else stags.shape[1]
+    nbytes = (np_ * (12 + 1 + 4 + 8 * S + (4 if len(bargs) > 9 else 0))
+              + 12 + 4 * np_ * K + 4 * np_ + 8)
+    occupied = valid.view(cfg.ncells, cfg.cap).sum(1).double()
+    cand = int(valid.sum()) * 27 * float(occupied.mean())
+    bound_ms, bound_by = roof(int(9 * cand), nbytes)
+    phase("kernel", f"{name} pair list grid {cfg.nx}x{cfg.ny}x{cfg.nz} cap "
+                    f"{cfg.cap} K {K} periodic {box.periodic}: the kernel's "
+                    f"rows = the plain build's as arrays, longest "
+                    f"{int(built[2])}, {int(built[1].sum())} entries "
+                    f"({float(built[1][valid].double().mean()):.3f} a row); "
+                    f"f32 kernel {k1:.4f} / {k2:.4f} ms, plain "
+                    f"{p1:.4f} / {p2:.4f} ms; bound {nbytes} bytes, {cand:.4g} "
+                    f"candidates -> {bound_ms:.6f} ms ({bound_by})")
+    err = float(max((built[0].long() - plain[0].long()).abs().max(),
+                    (built[1].long() - plain[1].long()).abs().max()))
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err}
+
+
+def build_entry(shapes) -> dict:
+    """The list build's kernels-line figures from ((name, its phase's
+    figures at a deck's shape, that deck's main-path build launches), ...):
+    the times and the bound are means over the main paths' launches, so
+    that launches x (ms - bound) is the sum over the decks; bound_by is
+    the word of the deck whose launches take the most of the bound."""
+    n = sum(nb for _, _, nb in shapes)
+    out = {key: sum(k[key] * nb for _, k, nb in shapes) / n
+           for key in ("ms", "plain_ms", "bound_ms")}
+    out["bound_by"] = max(shapes, key=lambda s: s[1]["bound_ms"] * s[2])[
+        1]["bound_by"]
+    out["max_abs_err"] = max(k["max_abs_err"] for _, k, _ in shapes)
+    phase("kernel", "cellgrid_pairlist over the main paths' builds: " + "; "
+          .join(f"{name} {nb} x ({k['ms']:.4f} - {k['bound_ms']:.6f}) ms"
+                for name, k, nb in shapes)
+          + f"; per launch {out['ms']:.4f} ms, bound {out['bound_ms']:.6f} "
+            f"ms ({out['bound_by']}), launches x (ms - bound) "
+            f"{n * (out['ms'] - out['bound_ms']):.1f} ms")
+    return out
+
+
 def fene_kernel_vs_plain(tmp: Path) -> dict:
+    """B2 over the set-up's pair list against the plain list sweep (to
+    TOL_LIST) and the stencil oracle (to TOL) on the 32k chain grid, the
+    60-atom 2^3 grid and that grid with one bond stretched to 2 sigma
+    (past cutneigh), f32 and f64, every flag; the chain list build
+    against its plain build; both timed and bounded at the 32k shape."""
     from tpumd_torch.core.state import Box
     from tpumd_torch.ops.lj_fene_cellgrid import lj_fene_cellgrid, \
-        lj_fene_cellgrid_plain
+        lj_fene_cellgrid_plain, lj_fene_pairlist_plain
     out = {}
-    for natoms, chain_len in ((32000, 100), (60, 10)):
+    for natoms, chain_len, stretch in ((32000, 100, False),
+                                       (60, 10, False), (60, 10, True)):
         script = chain_setup(tmp, natoms, chain_len, "cuda", torch.float64)
         script.run_string("run 0")
         sim = script.sim
         s, neigh, _ = sim._carry
+        if stretch:
+            s, neigh = stretched_chain(sim)
         cfg, valid, tag, btags = sim._neigh_cfg, neigh.valid, s.tag, \
             s.bond_tags
+        plist = (neigh.pairs, neigh.npairs, neigh.bond_slots, neigh.row2slot)
         lj, fene = sim.pair.kernel_coeffs(), sim._ctx.kernel_bond \
             .kernel_coeffs()
+        what = f"{natoms}{' stretched' if stretch else ''}"
         for dtype in (torch.float32, torch.float64):
             x = s.x.to(dtype)
             box = Box(lo=s.box.lo.to(dtype), hi=s.box.hi.to(dtype))
-            tol = TOL[dtype]
-            worst = 0.0
+            worst = {"list": 0.0, "stencil": 0.0}
             for eflag, vflag in ((0, 0), (1, 1), (1, 0), (0, 1)):
-                fk, ek, wk, bk = lj_fene_cellgrid(x, valid, tag, btags, box,
-                                                  cfg, lj, fene, eflag, vflag)
-                fp, ep, wp, bp = lj_fene_cellgrid_plain(
-                    x, valid, tag, btags, box, cfg, lj, fene, eflag, vflag)
-                worst = max(worst, check_close(
-                    f"lj_fene {natoms} {dtype} e{eflag}v{vflag}", fk, fp,
-                    (ek, bk), (ep, bp), wk, wp, tol, eflag, vflag))
-            phase("kernel", f"lj_fene_cellgrid grid {cfg.nx}x{cfg.ny}x"
-                            f"{cfg.nz} cap {cfg.cap} {str(dtype)[6:]}: "
-                            f"max|f_kernel - f_plain| = {worst:.3g} max|f| "
-                            f"(tol {tol:g}), lj and bond energies and virial"
-                            f" within tol")
-            if natoms == 32000 and dtype == torch.float32:
-                args = (x, valid, tag, btags, box, cfg, lj, fene)
-                fk, _, _, _ = lj_fene_cellgrid(*args, 0, 0)
-                fp, _, _, _ = lj_fene_cellgrid_plain(*args, 0, 0)
-                out["max_abs_err"] = float((fk - fp).abs().max())
-                out.update(time_kernel(
-                    "lj_fene_cellgrid",
-                    lambda: lj_fene_cellgrid(*args, 0, 0),
-                    lambda: lj_fene_cellgrid_plain(*args, 0, 0),
-                    lambda: lj_fene_cellgrid(*args, 1, 1)))
-                nlj, nbond = pair_counts(x, valid, box, cfg, lj.cutsq, tag,
-                                         btags)
-                nneigh, _ = pair_counts(x, valid, box, cfg, cfg.cutneigh ** 2)
-                np_ = cfg.capacity
-                nbytes = np_ * (12 + 1 + 4 + 4 * btags.shape[1] + 12) + 12
-                out["bound_ms"], out["bound_by"] = bound(nlj, nbond, nbytes)
-                cand = np_ * 27 * cfg.cap
-                phase("kernel", f"lj_fene_cellgrid bound: {nlj} unordered "
-                                f"in-cutoff lj pairs and {nbond} bonds "
-                                f"({2 * (nlj + nbond) / cand:.4%} of {cand} "
-                                f"candidates (i, j); {2 * nneigh / cand:.4%}"
-                                f" within cutneigh {cfg.cutneigh}), {nbytes}"
-                                f" bytes "
-                                f"-> {out['bound_ms']:.6f} ms "
-                                f"({out['bound_by']})")
+                fk, ek, wk, bk = lj_fene_cellgrid(x, valid, box, cfg, lj,
+                                                  fene, eflag, vflag, plist)
+                for ref, fp, ep, wp, bp in (
+                        ("list", *lj_fene_pairlist_plain(
+                            x, box, lj, fene, eflag, vflag, *plist[:3])),
+                        ("stencil", *lj_fene_cellgrid_plain(
+                            x, valid, tag, btags, box, cfg, lj, fene, eflag,
+                            vflag))):
+                    worst[ref] = max(worst[ref], check_close(
+                        f"lj_fene {what} {dtype} e{eflag}v{vflag} vs {ref}",
+                        fk, fp, (ek, bk), (ep, bp), wk, wp, TOL[dtype],
+                        eflag, vflag))
+                if worst["list"] > TOL_LIST[dtype]:
+                    raise AssertionError(
+                        f"lj_fene {what} {dtype} e{eflag}v{vflag}: forces "
+                        f"{worst['list']} of max|f| from the plain list "
+                        f"sweep > {TOL_LIST[dtype]}")
+            phase("kernel", f"lj_fene_cellgrid {what} grid {cfg.nx}x{cfg.ny}"
+                            f"x{cfg.nz} cap {cfg.cap} K {neigh.pairs.shape[1]}"
+                            f" {str(dtype)[6:]}: max|f_kernel - f_plain| = "
+                            f"{worst['list']:.3g} max|f| against the plain "
+                            f"list sweep (tol {TOL_LIST[dtype]:g}), "
+                            f"{worst['stencil']:.3g} against the stencil "
+                            f"oracle; lj and bond energies and virial "
+                            f"within {TOL[dtype]:g} of both")
+            if natoms != 32000 or dtype != torch.float32:
+                continue
+            args = (x, valid, box, cfg, lj, fene)
+            fk, _, _, _ = lj_fene_cellgrid(*args, 0, 0, plist)
+            fp, _, _, _ = lj_fene_pairlist_plain(x, box, lj, fene, 0, 0,
+                                                 *plist[:3])
+            out["max_abs_err"] = float((fk - fp).abs().max())
+            out.update(time_kernel(
+                "lj_fene_cellgrid",
+                lambda: lj_fene_cellgrid(*args, 0, 0, plist),
+                lambda: lj_fene_pairlist_plain(x, box, lj, fene, 0, 0,
+                                               *plist[:3]),
+                lambda: lj_fene_cellgrid(*args, 1, 1, plist)))
+            nlj, nbond = pair_counts(x, valid, box, cfg, lj.cutsq, tag,
+                                     btags)
+            np_ = cfg.capacity
+            # the work: x, validity, tags and bond partners read, f written
+            nbytes = np_ * (12 + 1 + 4 + 4 * btags.shape[1] + 12) + 12
+            out["bound_ms"], out["bound_by"] = bound(nlj, nbond, nbytes)
+            floor = list_floor_bytes(neigh, sim.natoms, 4 * btags.shape[1])
+            floor_ms, floor_by = bound(nlj, nbond, nbytes + floor)
+            entries = int(neigh.npairs.sum())
+            phase("kernel", f"lj_fene_cellgrid bound: {nlj} unordered "
+                            f"in-cutoff lj pairs and {nbond} bonds "
+                            f"({2 * nlj / entries:.2%} of {entries} list "
+                            f"entries in the cutoff), {nbytes} bytes -> "
+                            f"{out['bound_ms']:.6f} ms ({out['bound_by']});"
+                            f" the list's floor: {floor} bytes more -> "
+                            f"{floor_ms:.6f} ms ({floor_by})")
+            xb = s.x.float()
+            out["list"] = time_build(
+                "chain", (xb, valid, tag, btags, torch.ones_like(btags),
+                          Box(lo=s.box.lo.float(), hi=s.box.hi.float()), cfg,
+                          sim._ctx.pairlist_k))
     return out
 
 
@@ -446,10 +638,12 @@ def small_deck_card_vs_cpu():
 def main_path(smi: str) -> dict:
     from tpumd_torch.bench_targets import IN_LJ, SANITY, STEP0, STEP0_RTOL, \
         gate_failures
+    from tpumd_torch.ops.cellgrid_pairlist import counts as list_counts
     from tpumd_torch.ops.lj_cellgrid import counts
     from tpumd_torch.script.parser import LammpsScript
 
     counts.reset()
+    list_counts.reset()
     t0 = time.perf_counter()
     script = LammpsScript(device="cuda", dtype=torch.float32)
     script.run_string(IN_LJ.format(n=20))
@@ -475,10 +669,11 @@ def main_path(smi: str) -> dict:
     # setup evaluates once; each run of n > 0 steps with thermo 0 is one
     # segment: n in-step evaluations plus one energy evaluation
     force_evals = 1 + (100 + 1) + 2 * (500 + 1)
-    if launches < force_evals or plain != 0:
+    builds = list_counts.kernel_launches + list_counts.plain_calls
+    if launches < force_evals or plain != 0 or builds:
         raise AssertionError(f"kernel launches {launches} < force "
                              f"evaluations {force_evals}, or plain calls "
-                             f"{plain} != 0")
+                             f"{plain} != 0, or list builds {builds} != 0")
     s = sim.state
     if (tuple(s.x.shape) != (sim._neigh_cfg.capacity, 3)
             or not torch.isfinite(s.x).all()
@@ -494,7 +689,8 @@ def main_path(smi: str) -> dict:
     phase("main", f"timed 500 steps: {sps:.2f} timesteps/s, "
                   f"{sps * 32000 / 1e6:.3f} Matom-step/s on {smi}; kernel "
                   f"launches {launches} >= force evaluations {force_evals}, "
-                  f"plain calls {plain}")
+                  f"plain calls {plain}, pair list builds {builds} (the "
+                  f"stencil)")
     phase("main", "in.lj " + profile_steps(script, 100, 1e3 / sps))
     return {"launches": launches, "sps": sps}
 
@@ -554,12 +750,14 @@ def chain_main_path(tmp: Path, smi: str) -> dict:
     from tpumd_torch.bench_targets import CHAIN_SANITY, CHAIN_STEP0, \
         STEP0_RTOL, gate_failures
     from tpumd_torch.ops import cellgrid as cg
-    from tpumd_torch.ops import lj_cellgrid, lj_fene_cellgrid
+    from tpumd_torch.ops import cellgrid_pairlist, lj_cellgrid, \
+        lj_fene_cellgrid
 
     chain_data_path = tmp / "data.chain.32000"
     chain_data_path.unlink(missing_ok=True)   # its making counts as set-up
-    lj_cellgrid.counts.reset()
-    lj_fene_cellgrid.counts.reset()
+    blist = cellgrid_pairlist.counts
+    for c in (lj_cellgrid.counts, lj_fene_cellgrid.counts, blist):
+        c.reset()
     t0 = time.perf_counter()
     script = chain_setup(tmp, 32000, 100, "cuda", torch.float32)
     sim = script.sim
@@ -585,15 +783,21 @@ def chain_main_path(tmp: Path, smi: str) -> dict:
     rebuilds = int(sim._carry[1].nbuilds) - nb0
     launches = lj_fene_cellgrid.counts.kernel_launches
     plain = (lj_fene_cellgrid.counts.plain_calls
-             + lj_cellgrid.counts.plain_calls)
+             + lj_cellgrid.counts.plain_calls + blist.plain_calls)
     lj_launches = lj_cellgrid.counts.kernel_launches
     # setup evaluates once; a run of n steps at thermo 100 is n in-step
     # evaluations plus one energy evaluation per 100 steps
     force_evals = 1 + (100 + 1) + 2 * (500 + 5)
-    if launches < force_evals or plain != 0 or lj_launches != 0:
-        raise AssertionError(f"lj_fene launches {launches} < force "
+    # a list for each fresh grid (set-up, re-bins) and each rebuild
+    builds = blist.kernel_launches
+    list_builds = sim.grid_setups + int(sim._carry[1].nbuilds) - 1
+    if (launches != force_evals or plain != 0 or lj_launches != 0
+            or builds != list_builds):
+        raise AssertionError(f"lj_fene launches {launches} != force "
                              f"evaluations {force_evals}, or plain calls "
-                             f"{plain} != 0, or lj launches {lj_launches}")
+                             f"{plain} != 0, or lj launches {lj_launches}, "
+                             f"or list builds {builds} != set-ups and "
+                             f"rebuilds {list_builds}")
     s = sim.state
     if (tuple(s.x.shape) != (sim._neigh_cfg.capacity, 3)
             or not torch.isfinite(s.x).all()
@@ -609,8 +813,12 @@ def chain_main_path(tmp: Path, smi: str) -> dict:
                   f"1100 etotal {sim.last_thermo['etotal']!r}")
     phase("main", f"chain timed 500 steps: {sps:.2f} timesteps/s, "
                   f"{sps * 32000 / 1e6:.3f} Matom-step/s on {smi}; "
-                  f"{rebuilds} rebuilds; lj_fene launches {launches} >= "
-                  f"force evaluations {force_evals}, plain calls {plain}")
+                  f"{rebuilds} rebuilds; lj_fene launches {launches} = "
+                  f"force evaluations {force_evals}, cellgrid_pairlist "
+                  f"launches {builds} = {sim.grid_setups} grid set-ups + "
+                  f"{list_builds - sim.grid_setups} rebuilds, plain calls "
+                  f"{plain}; list K {sim._ctx.pairlist_k}, longest row "
+                  f"{int(sim._carry[1].max_pairs)}")
     # the per-step rebuild check (every 1 delay 1 check yes) reads one
     # flag from the card: its cost alone, on the final state
     st, neigh, _ = sim._carry
@@ -624,7 +832,7 @@ def chain_main_path(tmp: Path, smi: str) -> dict:
                   f"(kernels + one device->host flag read, idle card), "
                   f"one call per step; step {1e3 / sps:.4f} ms")
     phase("main", "chain " + profile_steps(script, 100, 1e3 / sps))
-    return {"launches": launches}
+    return {"launches": launches, "build_launches": builds}
 
 
 def eam_potential(tmp: Path) -> Path:
@@ -762,9 +970,12 @@ def small_eam_card_vs_cpu(tmp: Path):
 def eam_main_path(tmp: Path, smi: str) -> tuple[dict, dict]:
     from tpumd_torch.bench_targets import EAM_SANITY, EAM_STEP0, \
         STEP0_RTOL, gate_failures
-    from tpumd_torch.ops import eam_cellgrid, lj_cellgrid, lj_fene_cellgrid
+    from tpumd_torch.ops import cellgrid_pairlist, eam_cellgrid, \
+        lj_cellgrid, lj_fene_cellgrid
 
-    others = (lj_cellgrid.counts, lj_fene_cellgrid.counts)
+    # the pair list's build among them: eam sweeps the stencil
+    others = (lj_cellgrid.counts, lj_fene_cellgrid.counts,
+              cellgrid_pairlist.counts)
     rho_c, force_c = eam_cellgrid.rho_counts, eam_cellgrid.force_counts
     for c in (rho_c, force_c) + others:
         c.reset()
@@ -907,7 +1118,8 @@ def charmm_kernel_vs_plain(ptxas_log: str) -> tuple[dict, dict]:
     for name, pat in (
             ("charmm_cellgrid (type, eflag, vflag", r"charmm_pairlist_kernel"
              r"I([fd])Lb(\d)ELb(\d)E"),
-            ("cellgrid_pairlist (type", r"cellgrid_pairlist_kernelI([fd])()()E")):
+            ("cellgrid_pairlist (type, periodic, exclude",
+             r"cellgrid_pairlist_kernelI([fd])Lb(\d)ELb(\d)E")):
         regs = re.findall(pat + r".*?\n.*?(\d+) bytes spill stores.*?\n.*?"
                           r"Used (\d+) registers", ptxas_log)
         phase("kernel", f"{name}: registers, spill store bytes): "
@@ -996,10 +1208,12 @@ def charmm_kernel_vs_plain(ptxas_log: str) -> tuple[dict, dict]:
                 (built[0].long() - plain[0].long()).abs().max(),
                 (built[1].long() - plain[1].long()).abs().max()))
             # timed in the order plain, kernel, kernel, plain
-            p1 = cuda_ms(lambda: cellgrid_pairlist_plain(*bargs), 3)
+            p1 = cuda_ms(lambda: cellgrid_pairlist_plain(*bargs), 3,
+                         ahead=False)
             k1 = cuda_ms(lambda: cellgrid_pairlist(*bargs), 50)
             k2 = cuda_ms(lambda: cellgrid_pairlist(*bargs), 50)
-            p2 = cuda_ms(lambda: cellgrid_pairlist_plain(*bargs), 3)
+            p2 = cuda_ms(lambda: cellgrid_pairlist_plain(*bargs), 3,
+                         ahead=False)
             lst.update(ms=min(k1, k2), plain_ms=min(p1, p2))
             S = oracle[5].shape[1]
             # x, valid, tag and the special lists read once, the (Np, K)
@@ -1009,8 +1223,9 @@ def charmm_kernel_vs_plain(ptxas_log: str) -> tuple[dict, dict]:
             # per list entry d, r2 and the cutoff test (9 operations)
             lst["bound_ms"], lst["bound_by"] = roof(9 * entries, bbytes)
             phase("kernel", f"cellgrid_pairlist at the 32k shape, f32: "
-                            f"kernel {k1:.4f} / {k2:.4f} ms, plain "
-                            f"{p1:.4f} / {p2:.4f} ms; bound: {bbytes} bytes "
+                            f"kernel {k1:.4f} / {k2:.4f} ms, "
+                            f"plain {p1:.4f} / {p2:.4f} ms; bound: {bbytes} "
+                            f"bytes "
                             f"({np_} x K {kmax} words written) -> "
                             f"{lst['bound_ms']:.6f} ms ({lst['bound_by']})")
     return out, lst
@@ -1198,8 +1413,9 @@ def chute_setup(data: Path, device, dtype, thermo: int = 0):
 
 
 def gran_args(script, dtype, scale=1.0):
-    """(arguments before the coefficients, planes, coefficients) of
-    gran_cellgrid for a set-up script's state, the history scaled."""
+    """(arguments before the coefficients, planes, coefficients, the pair
+    list) of gran_cellgrid for a set-up script's state, the history
+    scaled."""
     from tpumd_torch.core.state import Box
     sim = script.sim
     s, neigh, _ = sim._carry
@@ -1209,13 +1425,15 @@ def gran_args(script, dtype, scale=1.0):
               f(torch.where(s.rmass > 0, s.rmass, 1.0)), s.gmask)
     return ((f(s.x), s.tag, neigh.valid, neigh.shear_tags,
              f(neigh.shear * scale), box, sim._neigh_cfg), planes,
-            sim.pair.kernel_coeffs())
+            sim.pair.kernel_coeffs(), (neigh.pairs, neigh.npairs,
+                                       neigh.row2slot))
 
 
-def check_gran(what, out, plain, tol) -> float:
+def check_gran(what, out, plain, tol, tol_ft=None) -> float:
     """Raise unless the kernel's forces, torques and history agree with
-    the plain version's (tags equal); returns the largest error of forces
-    and torques relative to their largest value."""
+    the plain version's (tags equal; forces and torques within tol_ft of
+    their largest where given, else tol); returns the largest error of
+    forces and torques relative to their largest value."""
     torch.cuda.synchronize()
     if not torch.equal(out[2], plain[2]):
         raise AssertionError(f"{what}: history tags differ in "
@@ -1227,29 +1445,34 @@ def check_gran(what, out, plain, tol) -> float:
             raise AssertionError(f"{what}: kernel {name} not finite")
         top = float(p.abs().max())
         err = float((k - p).abs().max())
-        if err > tol * top:
-            raise AssertionError(f"{what} {name}: {err} > {tol} * {top}")
+        lim = tol if name == "shear" or tol_ft is None else tol_ft
+        if err > lim * top:
+            raise AssertionError(f"{what} {name}: {err} > {lim} * {top}")
         if name != "shear":
             worst = max(worst, err / top)
     return worst
 
 
 def gran_kernel_vs_plain(tmp: Path, ptxas_log: str) -> dict:
-    """B6 against its plain version on the 32k chute grid after set-up
-    and 10 steps, on a 5x2x3 grid (y periodic with 2 cells) and on a 5x5x2
-    grid (z non-periodic with 2 cells, the aliased offsets dropped) after
-    30 steps, f32 and f64, both shearupdate values, the history as it is
-    and scaled by 40; timed and bounded at the 32k shape."""
+    """B6 over the grid's pair list against the plain list sweep (forces
+    and torques to TOL_LIST) and the stencil oracle (to TOL) on the 32k
+    chute grid after set-up and 10 steps, on a 5x2x3 grid (y periodic with
+    2 cells) and on a 5x5x2 grid (z non-periodic with 2 cells, the aliased
+    offsets dropped) after 30 steps, f32 and f64, both shearupdate values,
+    the history as it is and scaled by 40, history tags equal; the list
+    build on each p p fs grid against its plain build as arrays; B6 and
+    the build timed and bounded at the 32k shape."""
     from tpumd_torch.bench_targets import chute_data
+    from tpumd_torch.core.state import Box
     from tpumd_torch.ops.gran_cellgrid import gran_cellgrid, \
-        gran_compact_sums
-    regs = re.findall(r"gran_cellgrid_kernelI([fd])Lb(\d)ELb(\d)ELb(\d)E"
-                      r"Lb(\d)E.*?\n.*?(\d+) bytes spill stores.*?\n.*?"
+        gran_compact_sums, gran_pairlist_plain
+    regs = re.findall(r"gran_pairlist_kernelI([fd])Lb(\d)ELb(\d)ELb(\d)E"
+                      r".*?\n.*?(\d+) bytes spill stores.*?\n.*?"
                       r"Used (\d+) registers", ptxas_log)
     phase("kernel", "gran_cellgrid ptxas (type, shearupdate, freeze, "
-                    "exclude, limit_damping: registers, spill store bytes): "
-                    + "; ".join(f"{t}{a}{b}{c}{d}: {r}, {sp}"
-                                for t, a, b, c, d, sp, r in regs))
+                    "limit_damping: registers, spill store bytes): "
+                    + "; ".join(f"{t}{a}{b}{c}: {r}, {sp}"
+                                for t, a, b, c, sp, r in regs))
     out = {}
     for dims, nsteps, grid in (((40, 20, 40), 10, None),
                                ((6, 3, 6), 30, (5, 2, 3)),
@@ -1258,64 +1481,97 @@ def gran_kernel_vs_plain(tmp: Path, ptxas_log: str) -> dict:
         chute_data(data, *dims)
         script = chute_setup(data, "cuda", torch.float64)
         script.run_string(f"run {nsteps}")
-        cfg = script.sim._neigh_cfg
+        sim = script.sim
+        cfg = sim._neigh_cfg
         if grid is not None and (cfg.nx, cfg.ny, cfg.nz) != grid:
             raise AssertionError(f"chute {dims}: grid {cfg} is not {grid}")
         for dtype in (torch.float32, torch.float64):
-            tol = TOL[dtype]
-            worst = 0.0
+            s = sim._carry[0]
+            bargs = (s.x.to(dtype), sim._carry[1].valid, s.tag, None, None,
+                     Box(lo=s.box.lo.to(dtype), hi=s.box.hi.to(dtype),
+                         periodic=s.box.periodic), cfg, sim._ctx.pairlist_k,
+                     s.gmask, sim._ctx.pairlist_exclude)
+            if dims[0] == 40 and dtype == torch.float32:
+                out["list"] = time_build("chute", bargs)
+            else:
+                from tpumd_torch.ops.cellgrid_pairlist import \
+                    cellgrid_pairlist, cellgrid_pairlist_plain
+                check_pairlist(f"chute {dims} {dtype} pair list",
+                               cellgrid_pairlist(*bargs),
+                               cellgrid_pairlist_plain(*bargs), True)
+            worst = {"list": 0.0, "stencil": 0.0}
             for scale in (1.0, 40.0):
-                args, planes, c = gran_args(script, dtype, scale)
+                args, planes, c, plist = gran_args(script, dtype, scale)
+                x, tag, valid, stags, shear, box, _ = args
                 for coeffs in (c, c._replace(gammat=0.5 * c.gamman,
                                              limit_damping=True)):
                     for su in (True, False):
                         what = (f"gran {dims} {dtype} scale {scale} "
                                 f"gammat {coeffs.gammat} shearupdate {su}")
-                        worst = max(worst, check_gran(
-                            what, gran_cellgrid(*args, coeffs, planes, 1e-4,
-                                                su),
-                            gran_compact_sums(*args, coeffs, planes, 1e-4,
-                                              su), tol))
-            cfg = args[6]
+                        k = gran_cellgrid(*args, coeffs, planes, 1e-4, su,
+                                          plist)
+                        worst["list"] = max(worst["list"], check_gran(
+                            what + " vs list", k, gran_pairlist_plain(
+                                x, tag, stags, shear, box, coeffs, planes,
+                                1e-4, su, *plist[:2]), TOL[dtype],
+                            TOL_LIST[dtype]))
+                        worst["stencil"] = max(worst["stencil"], check_gran(
+                            what + " vs stencil", k, gran_compact_sums(
+                                *args, coeffs, planes, 1e-4, su),
+                            TOL[dtype]))
             phase("kernel", f"gran_cellgrid grid {cfg.nx}x{cfg.ny}x{cfg.nz} "
-                            f"cap {cfg.cap} {str(dtype)[6:]}: max|kernel - "
-                            f"plain| = {worst:.3g} of max|f| and max|torque|,"
-                            f" history tags equal (tol {tol:g})")
+                            f"cap {cfg.cap} K {plist[0].shape[1]} "
+                            f"{str(dtype)[6:]}: max|kernel - plain| = "
+                            f"{worst['list']:.3g} of max|f| and max|torque| "
+                            f"against the plain list sweep (tol "
+                            f"{TOL_LIST[dtype]:g}), {worst['stencil']:.3g} "
+                            f"against the stencil oracle (tol "
+                            f"{TOL[dtype]:g}), history tags equal")
             if dims[0] != 40 or dtype != torch.float32:
                 continue
-            args, planes, c = gran_args(script, dtype)
-            kern = (lambda: gran_cellgrid(*args, c, planes, 1e-4, True))
-            plain = (lambda: gran_compact_sums(*args, c, planes, 1e-4,
-                                               True))
+            args, planes, c, plist = gran_args(script, dtype)
+            x, tag, valid, stags, shear, box, _ = args
+            kern = (lambda: gran_cellgrid(*args, c, planes, 1e-4, True,
+                                          plist))
+            plain = (lambda: gran_pairlist_plain(
+                x, tag, stags, shear, box, c, planes, 1e-4, True,
+                *plist[:2]))
             fk, fp = kern()[0], plain()[0]
             out["max_abs_err"] = float((fk - fp).abs().max())
-            p1 = cuda_ms(plain, 10)
+            p1 = cuda_ms(plain, 10, ahead=False)
             k1 = cuda_ms(kern, 200)
             k2 = cuda_ms(kern, 200)
-            p2 = cuda_ms(plain, 10)
+            p2 = cuda_ms(plain, 10, ahead=False)
             k_ro = cuda_ms(lambda: gran_cellgrid(*args, c, planes, 1e-4,
-                                                 False), 200)
+                                                 False, plist), 200)
             out.update(ms=min(k1, k2), plain_ms=min(p1, p2))
             # contacts: each appears in both of its atoms' new tables (none
             # is dropped below KH = 12 contacts per sphere)
-            stags = plain()[2]
-            ncontact = int((stags != 0).sum()) // 2
+            stags_new = plain()[2]
+            ncontact = int((stags_new != 0).sum()) // 2
             np_ = cfg.capacity
-            # per slot, read: x, v, omega, radius, rmass (11 floats), gmask,
-            # tag, valid (9 bytes), the old tags and shear (12 + 36 words);
-            # written: f, torque (6 floats), the new tags and shear
+            # the work, per slot, read: x, v, omega, radius, rmass (11
+            # floats), gmask, tag, valid (9 bytes), the old tags and shear
+            # (12 + 36 words); written: f, torque (6 floats), the new tags
+            # and shear
             nbytes = np_ * (4 * (11 + 6) + 9 + 2 * 4 * (12 + 36)) + 12
             out["bound_ms"], out["bound_by"] = roof(
                 ncontact * OPS_GRAN_PAIR, nbytes)
-            cand = np_ * 27 * cfg.cap
+            neigh = sim._carry[1]
+            floor = list_floor_bytes(neigh, sim.natoms)
+            floor_ms, floor_by = roof(ncontact * OPS_GRAN_PAIR,
+                                      nbytes + floor)
+            entries = int(neigh.npairs.sum())
             phase("kernel", f"gran_cellgrid at the 32k shape, f32, "
                             f"shearupdate: kernel {k1:.4f} / {k2:.4f} ms, "
-                            f"plain {p1:.4f} / {p2:.4f} ms; read-only "
-                            f"(thermo) kernel {k_ro:.4f} ms; bound: "
-                            f"{ncontact} contacts ({2 * ncontact / cand:.4%}"
-                            f" of {cand} candidates (i, j)); {nbytes} bytes "
-                            f"-> {out['bound_ms']:.6f} ms "
-                            f"({out['bound_by']})")
+                            f"plain list sweep {p1:.4f} / {p2:.4f} ms; read-only "
+                            f"(thermo) kernel {k_ro:.4f} ms; "
+                            f"bound: {ncontact} contacts "
+                            f"({2 * ncontact / entries:.2%} of {entries} "
+                            f"list entries); {nbytes} bytes -> "
+                            f"{out['bound_ms']:.6f} ms ({out['bound_by']}); "
+                            f"the list's floor: {floor} bytes more -> "
+                            f"{floor_ms:.6f} ms ({floor_by})")
     return out
 
 
@@ -1351,14 +1607,14 @@ def small_chute_card_vs_cpu(tmp: Path):
 def chute_main_path(tmp: Path, smi: str) -> dict:
     from tpumd_torch.bench_targets import CHUTE_STEP0, CHUTE_STEP100, \
         STEP0_RTOL, chute_data, gate_failures
-    from tpumd_torch.ops import charmm_cellgrid, eam_cellgrid, \
-        gran_cellgrid, lj_cellgrid, lj_fene_cellgrid
+    from tpumd_torch.ops import cellgrid_pairlist, charmm_cellgrid, \
+        eam_cellgrid, gran_cellgrid, lj_cellgrid, lj_fene_cellgrid
 
     others = (lj_cellgrid.counts, lj_fene_cellgrid.counts,
               eam_cellgrid.rho_counts, eam_cellgrid.force_counts,
               charmm_cellgrid.counts)
-    b6 = gran_cellgrid.counts
-    for c in (b6,) + others:
+    b6, blist = gran_cellgrid.counts, cellgrid_pairlist.counts
+    for c in (b6, blist) + others:
         c.reset()
     data = tmp / "data.chute.32000"
     t0 = time.perf_counter()
@@ -1385,14 +1641,20 @@ def chute_main_path(tmp: Path, smi: str) -> dict:
     rebuilds = int(sim._carry[1].nbuilds) - nb0
     launches, plain = b6.kernel_launches, b6.plain_calls
     other = sum(c.kernel_launches for c in others)
-    plain += sum(c.plain_calls for c in others)
+    plain += blist.plain_calls + sum(c.plain_calls for c in others)
     # setup evaluates once; a run of n steps at thermo 100 is n in-step
     # evaluations plus one read-only evaluation per 100 steps
     force_evals = 1 + (100 + 1) + 2 * (500 + 5)
-    if launches != force_evals or plain or other:
+    # a list for each fresh grid (set-up, re-bins) and each rebuild
+    builds = blist.kernel_launches
+    list_builds = sim.grid_setups + int(sim._carry[1].nbuilds) - 1
+    if (launches != force_evals or plain or other
+            or builds != list_builds):
         raise AssertionError(f"gran launches {launches} != force "
                              f"evaluations {force_evals}, or plain calls "
-                             f"{plain}, or other kernels' launches {other}")
+                             f"{plain}, or other kernels' launches {other},"
+                             f" or list builds {builds} != set-ups and "
+                             f"rebuilds {list_builds}")
     s, neigh, _ = sim._carry
     if (tuple(s.x.shape) != (sim._neigh_cfg.capacity, 3)
             or not torch.isfinite(s.x).all()
@@ -1413,10 +1675,14 @@ def chute_main_path(tmp: Path, smi: str) -> dict:
     phase("main", f"chute timed 500 steps: {sps:.2f} timesteps/s, "
                   f"{sps * 32000 / 1e6:.3f} Matom-step/s on {smi}; "
                   f"{rebuilds} rebuilds; gran_cellgrid launches {launches} "
-                  f"= force evaluations {force_evals}, plain calls {plain}, "
-                  f"other kernels' launches {other}")
+                  f"= force evaluations {force_evals}, cellgrid_pairlist "
+                  f"launches {builds} = {sim.grid_setups} grid set-ups + "
+                  f"{list_builds - sim.grid_setups} rebuilds, plain calls "
+                  f"{plain}, other kernels' launches {other}; list K "
+                  f"{sim._ctx.pairlist_k}, longest row "
+                  f"{int(neigh.max_pairs)}")
     phase("main", "chute " + profile_steps(script, 100, 1e3 / sps))
-    return {"launches": launches, "sps": sps}
+    return {"launches": launches, "sps": sps, "build_launches": builds}
 
 
 # the probe's shapes (tools/probes/gather_probe.py:8-10): a 32,768-row
@@ -1534,10 +1800,10 @@ def gather_kernel_vs_plain() -> dict:
         err = float((kern() - ref).abs().max())
         if not torch.equal(kern(), ref) or not torch.equal(lib(), ref):
             raise AssertionError(f"row_gather L={width}: differs")
-        p1 = cuda_ms(plain, 50)
+        p1 = cuda_ms(plain, 50, ahead=False)
         k1 = cuda_ms(kern, 200)
         k2 = cuda_ms(kern, 200)
-        p2 = cuda_ms(plain, 50)
+        p2 = cuda_ms(plain, 50, ahead=False)
         lib_ms = cuda_ms(lib, 200)
         # the table and the indices read once, the rows written once
         nbytes = 4 * (P1_ROWS * width + P1_GATHERED + P1_GATHERED * width)
@@ -1813,6 +2079,10 @@ def main():
         golden_matrix_decks()
         m_gather = matrix_main_path(tmp, smi, {"in.lj": m_lj["sps"],
                                                "chute": m_gran["sps"]})
+    k_build = build_entry((
+        ("rhodo_class", k_list, m_charmm["build_launches"]),
+        ("chain", k_fene["list"], m_fene["build_launches"]),
+        ("chute", k_gran["list"], m_gran["build_launches"])))
     kernels = []
     eam_src = "tpumd_torch/csrc/eam_cellgrid.cu"
     for name, src, replaces, k, m in (
@@ -1827,8 +2097,9 @@ def main():
             ("charmm_cellgrid", "tpumd_torch/csrc/charmm_cellgrid.cu",
              "tpumd/ops/pallas_charmm.py:43", k_charmm, m_charmm),
             ("cellgrid_pairlist", "tpumd_torch/csrc/cellgrid_pairlist.cu",
-             "tpumd/ops/pallas_charmm.py:43", k_list,
-             {"launches": m_charmm["build_launches"]}),
+             "tpumd/ops/pallas_charmm.py:43", k_build,
+             {"launches": m_charmm["build_launches"]
+              + m_fene["build_launches"] + m_gran["build_launches"]}),
             ("gran_cellgrid", "tpumd_torch/csrc/gran_cellgrid.cu",
              "tpumd/ops/pallas_gran.py:42", k_gran, m_gran),
             ("row_gather", "tpumd_torch/csrc/row_gather.cu",

@@ -1,8 +1,9 @@
 """The LJ+FENE cell-grid kernel module of the port against tpumd.
 
 On the CPU the port's wrapper ``lj_fene_cellgrid`` runs its plain
-PyTorch version; these tests hold that version against tpumd on the
-grid-ordered state of a generated chain deck after setup:
+PyTorch version, the sweep of the grid's pair list that the set-up
+built; these tests hold that version against tpumd on the grid-ordered
+state of a generated chain deck after setup:
 
 * f32 forces against the TPU kernel's own body,
   ``lj_fene_cellgrid_forces_pallas``, run under
@@ -48,7 +49,7 @@ GRIDS = {"5cube": (500, 25), "2cube": (60, 10)}
 
 def _chain_grid(tmp_path, grid):
     """The grid-ordered f64 state of the chain deck after setup, and the
-    kernel's coefficients."""
+    kernel's coefficients and pair list."""
     path = tmp_path / "data.chain"
     chain_data(path, *GRIDS[grid])
     script = LammpsScript(device="cpu", dtype=torch.float64)
@@ -59,7 +60,8 @@ def _chain_grid(tmp_path, grid):
     s, neigh, _ = sim._carry
     lj = sim.pair.kernel_coeffs()
     fene = sim._ctx.kernel_bond.kernel_coeffs()
-    return s, neigh.valid, sim._neigh_cfg, lj, fene
+    plist = (neigh.pairs, neigh.npairs, neigh.bond_slots, neigh.row2slot)
+    return s, neigh.valid, sim._neigh_cfg, lj, fene, plist
 
 
 def _jcfg(cfg):
@@ -72,7 +74,7 @@ def _jnp(t):
 
 
 def test_f32_plain_matches_pallas_kernel(tmp_path):
-    s, valid, cfg, lj, fene = _chain_grid(tmp_path, "5cube")
+    s, valid, cfg, lj, fene, plist = _chain_grid(tmp_path, "5cube")
     assert min(cfg.nx, cfg.ny, cfg.nz) >= 3
     btags = s.bond_tags
     assert btags.shape[1] == 2
@@ -86,8 +88,8 @@ def test_f32_plain_matches_pallas_kernel(tmp_path):
             tuple(fene)))
     box32 = Box(lo=s.box.lo.float(), hi=s.box.hi.float())
     n0 = counts.plain_calls
-    ft, _, _, _ = lj_fene_cellgrid(x32, valid, s.tag, btags, box32, cfg, lj,
-                                   fene, False, False)
+    ft, _, _, _ = lj_fene_cellgrid(x32, valid, box32, cfg, lj, fene, False,
+                                   False, plist)
     assert counts.plain_calls == n0 + 1
     assert ft.dtype == torch.float32
     fmax = np.abs(fj).max()
@@ -97,7 +99,7 @@ def test_f32_plain_matches_pallas_kernel(tmp_path):
 
 @pytest.mark.parametrize("grid", sorted(GRIDS))
 def test_f64_plain_matches_cellgrid_pair_sums(grid, tmp_path):
-    s, valid, cfg, lj, fene = _chain_grid(tmp_path, grid)
+    s, valid, cfg, lj, fene, plist = _chain_grid(tmp_path, grid)
     assert (min(cfg.nx, cfg.ny, cfg.nz) < 3) == (grid == "2cube")
     jp = JPairLJCut(1)
     jp.settings(1.12)
@@ -112,8 +114,8 @@ def test_f64_plain_matches_cellgrid_pair_sums(grid, tmp_path):
         _jnp(s.x), _jnp(s.type), _jnp(valid), jbox, _jcfg(cfg), jp.pair_fn,
         True, True, bond=(_jnp(s.bond_tags), _jnp(s.bond_btypes),
                           jb.kernel_bond_fn, _jnp(s.tag), True))
-    ft, et, vt, ebt = lj_fene_cellgrid(s.x, valid, s.tag, s.bond_tags,
-                                       s.box, cfg, lj, fene, True, True)
+    ft, et, vt, ebt = lj_fene_cellgrid(s.x, valid, s.box, cfg, lj, fene,
+                                       True, True, plist)
     fj, vj = np.asarray(fj), np.asarray(vj)
     np.testing.assert_allclose(ft.numpy(), fj, rtol=0,
                                atol=1e-12 * np.abs(fj).max())
@@ -124,8 +126,8 @@ def test_f64_plain_matches_cellgrid_pair_sums(grid, tmp_path):
                                atol=1e-12 * np.abs(vj).max())
     # force-only and single-flag calls return the same forces
     for ef, vf in ((False, False), (True, False), (False, True)):
-        f2, e2, v2, eb2 = lj_fene_cellgrid(s.x, valid, s.tag, s.bond_tags,
-                                           s.box, cfg, lj, fene, ef, vf)
+        f2, e2, v2, eb2 = lj_fene_cellgrid(s.x, valid, s.box, cfg, lj,
+                                           fene, ef, vf, plist)
         np.testing.assert_array_equal(f2.numpy(), ft.numpy())
         assert (e2 is None) != ef and (eb2 is None) != ef
         assert (v2 is None) != vf
@@ -135,7 +137,7 @@ def test_minimum_image_guard_matters(tmp_path):
     """On the 2^3 grid each partner is also met at a non-minimum image; a
     sweep that let the bond count there too would double the bond
     energy.  The guard keeps the per-bond count at one per direction."""
-    s, valid, cfg, lj, fene = _chain_grid(tmp_path, "2cube")
+    s, valid, cfg, lj, fene, _ = _chain_grid(tmp_path, "2cube")
 
     def count(r2, btype):
         return torch.zeros_like(r2), torch.ones_like(r2)

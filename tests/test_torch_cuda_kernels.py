@@ -7,9 +7,11 @@ runs on a card host without JAX:
 
 * LJ (B1, ``lj_cellgrid``): perturbed fcc blocks of 6x6x6 and 4x6x6 cells
   (3^3 and 2x3x3 grids);
-* LJ+FENE (B2, ``lj_fene_cellgrid``): the grid-ordered state of generated
-  chain decks after setup, on a 5^3 grid and on a 2^3 grid where bonds
-  count at the minimum image;
+* LJ+FENE (B2, ``lj_fene_cellgrid``) over the set-up's pair list: the
+  grid-ordered state of generated chain decks after setup, on a 5^3 grid
+  and on a 2^3 grid where bonds count at the minimum image, as it is and
+  with one bond stretched to 2 sigma (past cutneigh), against the plain
+  list sweep and the stencil oracle ``lj_fene_cellgrid_plain``;
 * EAM density and force passes (B3 ``eam_rho_cellgrid``, B4
   ``eam_force_cellgrid``): perturbed fcc lattices of the generated Cu-like
   potential, 5^3 and 4^3 lattice cells (3^3 and 2^3 grids); both force
@@ -20,19 +22,24 @@ runs on a card host without JAX:
   of cap 368, every neighbour cell met at two images) and of its 2x2x2
   replica (a 4^3 grid): the plain build's rows, as arrays on the 4^3 grid
   and as sets on the 2^3 grid, counts, longest row and overflow flag, at
-  the set-up's K and at a K too small;
+  the set-up's K and at a K too small; and on generated chute packs'
+  ``p p fs`` grids (9x5x4, 5x2x3, 5x5x2) with the base-base pairs
+  excluded and with none, and on the 4^3 grid with random group bits and
+  two group-bit pairs excluded, as arrays;
 * lj/charmm/coul/long (B5, ``charmm_cellgrid``) over the set-up's pair
   list, on the peptide's 2^3 grid and its 1x1x2 replica's 2x2x4 grid,
   against the plain list sweep and the stencil oracle
   ``charmm_cellgrid_plain``: special weights, charges and the kspace
   exclusion term included; without a list it raises;
-* gran/hooke/history (B6, ``gran_cellgrid``): the grid-ordered state of
-  generated chute packs after 30 steps on the card, a 9x5x4 grid and a
-  5x2x3 grid (y periodic with 2 cells), z non-periodic, with the deck's
+* gran/hooke/history (B6, ``gran_cellgrid``) over the grid's pair list:
+  the grid-ordered state of generated chute packs after 30 steps on the
+  card, a 9x5x4 grid, a 5x2x3 grid (y periodic with 2 cells) and a 5x5x2
+  grid (z non-periodic with 2 cells), z non-periodic, with the deck's
   coefficients (dampflag 0, the frozen base's bit, the base-base
   exclusion) and with dampflag 1 and limit_damping, the history as it is
   and scaled by 40 (most contacts slip); forces, torques and the history
-  tables after the sweep (tags equal), both shearupdate values;
+  tables after the sweep (tags equal) against the plain list sweep and
+  the stencil oracle ``gran_compact_sums``, both shearupdate values;
 * the row gather (P1, ``gather_rows``): bit for bit equal to its plain
   version for f32, f64 and int32 tables of widths 1, 5, 12, 16 and 128
   with (M,) and (M, K) indices up to the last row, and at misaligned
@@ -100,7 +107,12 @@ def _fcc_grid(block, dtype, seed=5, lattice=("fcc", 0.8442, "lj"),
     return cg.apply_permutation(s, perm, valid).x, valid, box, cfg
 
 
-def _chain_grid(tmp_path, natoms, chain_len, dtype):
+def _chain_grid(tmp_path, natoms, chain_len, dtype, stretch=False):
+    """(x, valid, tag, bond_tags, box, cfg, lj, fene, the set-up's pair
+    list) of a generated chain deck after set-up on the card; with
+    stretch, the second atom of the first chain moved to 2 sigma from the
+    first (past cutneigh) before a fresh list is built."""
+    from tpumd_torch.md.verlet import grid_pairlist
     path = tmp_path / f"data.chain.{natoms}"
     chain_data(path, natoms, chain_len)
     script = LammpsScript(device="cuda", dtype=torch.float64)
@@ -109,10 +121,19 @@ def _chain_grid(tmp_path, natoms, chain_len, dtype):
     script.run_string("run 0")
     sim = script.sim
     s, neigh, _ = sim._carry
+    x = s.x
+    if stretch:
+        a, b = (int(neigh.row2slot[k]) for k in (0, 1))
+        d = x[b] - x[a]
+        x = x.clone()
+        x[b] = x[a] + 2.0 * d / d.norm()
+        fields, _ = grid_pairlist(s.replace(x=x), neigh.valid, sim._ctx)
+        neigh = neigh.replace(**fields)
     box = Box(lo=s.box.lo.to(dtype), hi=s.box.hi.to(dtype))
-    return (s.x.to(dtype), neigh.valid, s.tag, s.bond_tags, box,
+    return (x.to(dtype), neigh.valid, s.tag, s.bond_tags, box,
             sim._neigh_cfg, sim.pair.kernel_coeffs(),
-            sim._ctx.kernel_bond.kernel_coeffs())
+            sim._ctx.kernel_bond.kernel_coeffs(),
+            (neigh.pairs, neigh.npairs, neigh.bond_slots, neigh.row2slot))
 
 
 def _close(kernel_out, plain_out, tol):
@@ -151,12 +172,19 @@ def test_lj_fene_cuda_kernel_matches_plain(dtype, tmp_path):
     """B2, the LJ+FENE cell-grid kernel."""
     _card()
     dt = {"f32": torch.float32, "f64": torch.float64}[dtype]
-    for natoms, chain_len in ((500, 25), (60, 10)):
-        args = _chain_grid(tmp_path, natoms, chain_len, dt)
+    for (natoms, chain_len), stretch in (((500, 25), False),
+                                         ((500, 25), True),
+                                         ((60, 10), False)):
+        *args, plist = _chain_grid(tmp_path, natoms, chain_len, dt,
+                                   stretch)
+        x, valid, tag, btags, box, cfg, lj, fene = args
         for ef, vf in FLAGS:
             n0 = b2.counts.kernel_launches
-            out = b2.lj_fene_cellgrid(*args, ef, vf)
+            out = b2.lj_fene_cellgrid(x, valid, box, cfg, lj, fene, ef, vf,
+                                      plist)
             assert b2.counts.kernel_launches == n0 + 1
+            _close(out, b2.lj_fene_pairlist_plain(
+                x, box, lj, fene, ef, vf, *plist[:3]), TOL[dt])
             _close(out, b2.lj_fene_cellgrid_plain(*args, ef, vf), TOL[dt])
 
 
@@ -254,6 +282,65 @@ def test_cellgrid_pairlist_cuda_kernel_matches_plain(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_cellgrid_pairlist_cuda_kernel_on_a_non_periodic_grid(dtype,
+                                                              tmp_path):
+    """The pair list build kernel on chute packs' p p fs grids, with the
+    base-base pairs dropped and with none: the plain build's rows as
+    arrays, counts, longest row and overflow flag."""
+    _card()
+    dt = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    for dims, grid in (((10, 6, 8), (9, 5, 4)), ((6, 3, 6), (5, 2, 3)),
+                       ((6, 6, 4), (5, 5, 2))):
+        args, planes, coeffs = _gran_grid(tmp_path, dims, dt)[0][:3]
+        x, tag, valid, _, _, box, cfg = args
+        assert (cfg.nx, cfg.ny, cfg.nz) == grid
+        assert box.periodic == (True, True, False)
+        assert coeffs[0].exclude_bits == ((2, 2),)
+        for excl in (coeffs[0].exclude_bits, ()):
+            a = (x, valid, tag, None, None, box, cfg, 16, planes[4], excl)
+            n0 = bpl.counts.kernel_launches
+            out = bpl.cellgrid_pairlist(*a)
+            assert bpl.counts.kernel_launches == n0 + 1
+            plain = bpl.cellgrid_pairlist_plain(*a)
+            torch.cuda.synchronize()
+            assert not bool(out[3]) and not bool(plain[3])
+            assert int(out[2]) == int(plain[2])
+            assert torch.equal(out[1], plain[1])
+            assert torch.equal(out[0], plain[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_cellgrid_pairlist_cuda_kernel_with_exclusions_on_a_periodic_grid(
+        dtype):
+    """The pair list build kernel on the peptide replica's periodic 4^3
+    grid, its special codes kept, with atoms in random groups and two
+    group-bit pairs excluded: the plain build's rows as arrays, counts
+    and longest row, and fewer entries than without the exclusions."""
+    _card()
+    dt = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    _, _, args = _charmm_grid("2 2 2", dt)
+    x, valid = args[:2]
+    gen = np.random.default_rng(11)
+    gmask = torch.as_tensor(1 + 2 * gen.integers(0, 2, x.shape[0])
+                            + 4 * gen.integers(0, 2, x.shape[0]),
+                            dtype=torch.int32, device="cuda")
+    a = args + (gmask, ((2, 2), (2, 4)))
+    n0 = bpl.counts.kernel_launches
+    out = bpl.cellgrid_pairlist(*a)
+    assert bpl.counts.kernel_launches == n0 + 1
+    plain = bpl.cellgrid_pairlist_plain(*a)
+    full = bpl.cellgrid_pairlist_plain(*args)
+    torch.cuda.synchronize()
+    assert not bool(out[3]) and not bool(plain[3])
+    assert int(out[2]) == int(plain[2])
+    assert torch.equal(out[1], plain[1])
+    assert torch.equal(out[0], plain[0])
+    assert int(plain[1].sum()) < int(full[1].sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
 def test_charmm_cuda_kernel_matches_plain(dtype):
     """B5, the lj/charmm/coul/long list kernel, against the plain list
     sweep and the stencil oracle."""
@@ -291,9 +378,10 @@ def _gran_grid(tmp_path, dims, dtype):
               f(torch.where(s.rmass > 0, s.rmass, 1.0)), s.gmask)
     c = sim.pair.kernel_coeffs()
     coeffs = (c, c._replace(gammat=0.5 * c.gamman, limit_damping=True))
+    plist = (neigh.pairs, neigh.npairs, neigh.row2slot)
     return [((f(s.x), s.tag, neigh.valid, neigh.shear_tags,
-              f(neigh.shear * k), box, sim._neigh_cfg), planes, coeffs)
-            for k in (1.0, 40.0)]
+              f(neigh.shear * k), box, sim._neigh_cfg), planes, coeffs,
+             plist) for k in (1.0, 40.0)]
 
 
 @pytest.mark.cuda
@@ -306,23 +394,28 @@ def test_gran_cuda_kernel_matches_plain(dtype, tmp_path):
     # non-periodic with 2 cells (the aliased offsets dropped)
     for dims, grid in (((10, 6, 8), (9, 5, 4)), ((6, 3, 6), (5, 2, 3)),
                        ((6, 6, 4), (5, 5, 2))):
-        for args, planes, coeffs in _gran_grid(tmp_path, dims, dt):
-            cfg = args[6]
+        for args, planes, coeffs, plist in _gran_grid(tmp_path, dims, dt):
+            x, tag, valid, stags, shear, box, cfg = args
             assert (cfg.nx, cfg.ny, cfg.nz) == grid
             for c in coeffs:
                 assert isinstance(c, GranCoeffs)
                 for shearupdate in (True, False):
                     n0 = b6.counts.kernel_launches
                     out = b6.gran_cellgrid(*args, c, planes, 1e-4,
-                                           shearupdate)
+                                           shearupdate, plist)
                     assert b6.counts.kernel_launches == n0 + 1
-                    plain = b6.gran_compact_sums(
-                        *args, c, planes, 1e-4, shearupdate)
-                    torch.cuda.synchronize()
-                    assert torch.equal(out[2], plain[2])
-                    for k, p in zip(out[:2] + out[3:], plain[:2] + plain[3:]):
-                        assert float((k - p).abs().max()) <= TOL[dt] * float(
-                            p.abs().max())
+                    for plain in (
+                            b6.gran_pairlist_plain(
+                                x, tag, stags, shear, box, c, planes, 1e-4,
+                                shearupdate, *plist[:2]),
+                            b6.gran_compact_sums(*args, c, planes, 1e-4,
+                                                 shearupdate)):
+                        torch.cuda.synchronize()
+                        assert torch.equal(out[2], plain[2])
+                        for k, p in zip(out[:2] + out[3:],
+                                        plain[:2] + plain[3:]):
+                            assert float((k - p).abs().max()) <= TOL[
+                                dt] * float(p.abs().max())
 
 
 @pytest.mark.cuda

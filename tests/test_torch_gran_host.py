@@ -166,10 +166,21 @@ def case_interop_sweep_on_tpumd_state(tmp_path):
                           ny=cfg.ny, nz=cfg.nz, cap=cfg.cap)
     stags = torch.as_tensor(np.asarray(jn.shear_tags))
     assert int((stags != 0).sum()) > 0
-    out = tp.compute_gran_cellgrid(ts, torch.as_tensor(np.asarray(jn.valid)),
-                                   stags,
+    valid = torch.as_tensor(np.asarray(jn.valid))
+    # the port's sweep walks a pair list: built here from the state
+    from tpumd_torch.ops.cellgrid import pairlist_kmax, row2slot_from_tags
+    from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist_plain
+    natoms = int(valid.sum())
+    pairs, npairs, _, over = cellgrid_pairlist_plain(
+        ts.x, valid, ts.tag, None, None, ts.box, tcfg,
+        pairlist_kmax(ts.box, tcfg.cutneigh, natoms) + 16, ts.gmask,
+        tp.kernel_coeffs().exclude_bits)
+    assert not bool(over)
+    out = tp.compute_gran_cellgrid(ts, valid, stags,
                                    torch.as_tensor(np.asarray(jn.shear)),
-                                   tcfg, jsim.dt, True)
+                                   tcfg, jsim.dt, True,
+                                   (pairs, npairs,
+                                    row2slot_from_tags(ts.tag, natoms)))
     ref = jp.compute_gran_cellgrid(js, jn.valid, jn.shear_tags, jn.shear,
                                    cfg, jsim.dt, True,
                                    exclude_bits=cfg.exclude_bits)

@@ -1,7 +1,9 @@
 """The gran/hooke/history cell-grid kernel module of the port against tpumd.
 
-On the CPU the wrapper ``gran_cellgrid`` runs its plain PyTorch version;
-these tests hold it against tpumd on the grid-ordered state of small
+On the CPU the wrapper ``gran_cellgrid`` runs its plain PyTorch version,
+the sweep of the grid's pair list (built here by the plain build at the
+grid's cutneigh with the coefficient set's exclusions dropped); these
+tests hold it against tpumd on the grid-ordered state of small
 generated chute packs (``bench_targets.chute_data``: layers of spheres of
 diameter 1 over a frozen base, z non-periodic and shrink-wrapped) after 30
 steps of the chute deck on the port, so the contact history is live:
@@ -43,6 +45,8 @@ from tpumd.ops.cellgrid_gran import gran_compact_sums as j_sums
 from tpumd.ops.pallas_gran import gran_cellgrid_forces_pallas
 from tpumd_torch.bench_targets import IN_CHUTE, chute_data
 from tpumd_torch.core.state import Box
+from tpumd_torch.ops import cellgrid as cg
+from tpumd_torch.ops import cellgrid_pairlist as bpl
 from tpumd_torch.ops import gran_cellgrid as b6
 from tpumd_torch.ops.cellgrid_gran import GranCoeffs
 from tpumd_torch.script.parser import LammpsScript
@@ -97,6 +101,19 @@ def _inputs(name, dtype, scale):
             f(neigh.shear * scale), box, cfg), planes, fbit, excl
 
 
+def _plist(name, c):
+    """(pairs, npairs, rows) of the system's grid at cutneigh, built from
+    its f64 positions with c's exclusions dropped."""
+    s, neigh, cfg, _, _ = _system(name)
+    natoms = int(neigh.valid.sum())
+    pairs, npairs, _, over = bpl.cellgrid_pairlist_plain(
+        s.x, neigh.valid, s.tag, None, None, s.box, cfg,
+        cg.pairlist_kmax(s.box, cfg.cutneigh, natoms) + 16, s.gmask,
+        c.exclude_bits)
+    assert not bool(over)
+    return pairs, npairs, cg.row2slot_from_tags(s.tag, natoms)
+
+
 def _jax(args, planes, dtype):
     x, tag, valid, stags, shear, box, cfg = args
     v, om, rad, rm, gm = planes
@@ -141,7 +158,7 @@ def test_f64_plain_matches_gran_compact_sums(name, which, scale):
     for shearupdate in (True, False):
         n0 = b6.counts.plain_calls
         f, tq, stags, shear = b6.gran_cellgrid(*args, c, planes, DT,
-                                             shearupdate)
+                                             shearupdate, _plist(name, c))
         assert b6.counts.plain_calls == n0 + 1
         fj, tqj, stj, shj = j_sums(*jargs, params, jplanes, DT, shearupdate)
         _assert_close(f, fj, 1e-12)
@@ -162,7 +179,8 @@ def test_f64_plain_matches_gran_compact_sums(name, which, scale):
 def test_f32_plain_matches_pallas_kernel(name, which):
     args, planes, fbit, excl = _inputs(name, torch.float32, 40.0)
     c, _ = _coeffs(which, fbit, excl)
-    f, tq, stags, shear = b6.gran_cellgrid(*args, c, planes, DT, True)
+    f, tq, stags, shear = b6.gran_cellgrid(*args, c, planes, DT, True,
+                                         _plist(name, c))
     jargs, jplanes = _jax(args, planes, jnp.float32)
     with pltpu.force_tpu_interpret_mode():
         fj, tqj, stj, shj = gran_cellgrid_forces_pallas(
@@ -175,13 +193,18 @@ def test_f32_plain_matches_pallas_kernel(name, which):
 
 
 def test_unported_cases_raise():
-    """A CUDA-less device raises, and group bits need the gmask."""
+    """A CUDA-less device raises, group bits need the gmask, and the
+    sweep needs a list."""
     args, planes, fbit, excl = _inputs("9x5x4", torch.float64, 1.0)
     c, _ = _coeffs("deck", fbit, excl)
     x, tag, valid, stags, shear, box, cfg = args
+    plist = _plist("9x5x4", c)
     with pytest.raises(ValueError, match="gmask"):
         b6.gran_cellgrid(x, tag, valid, stags, shear, box, cfg, c,
-                         planes[:4] + (None,), DT, True)
+                         planes[:4] + (None,), DT, True, plist)
     with pytest.raises(ValueError, match="no kernel"):
         b6.gran_cellgrid(x.to("meta"), tag, valid, stags, shear, box, cfg,
-                         c, planes, DT, True)
+                         c, planes, DT, True, plist)
+    with pytest.raises(ValueError, match="no pair list"):
+        b6.gran_cellgrid(x, tag, valid, stags, shear, box, cfg, c, planes,
+                         DT, True, (None, None, None))

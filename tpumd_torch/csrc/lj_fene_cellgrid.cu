@@ -1,262 +1,282 @@
-// LJ + FENE bond cell-grid forces, energies and virial on Hopper (sm_90a).
+// LJ + FENE bond forces, energies and virial over the cell grid's pair
+// list, on Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel tpumd/ops/pallas_lj.py::_kernel_fene
 // (entry lj_fene_cellgrid_forces_pallas) and, on energy/virial steps, the
 // XLA sweep tpumd/ops/cellgrid.py::cellgrid_pair_sums(bond=...) of the
-// chain deck: single-type lj/cut plus one FENE bond type whose partners
-// are matched in-kernel by tag (special_bonds fene: the special list is
-// exactly the bond partners at weight 0, so a bonded pair takes only the
-// bond force).
+// chain deck: single-type lj/cut plus one FENE bond type (special_bonds
+// fene: the special list is exactly the bond partners at weight 0, so a
+// bonded pair takes only the bond force).  The TPU kernel tested the
+// 27-cell stencil at each call and matched partners by tag; here the
+// candidate search runs once per re-bin (cellgrid_pairlist.cu, the bond
+// partners coded 1) and this kernel sweeps its list, the bonds coming from
+// each slot's partner slots.
 //
-// Atoms sit in a (nz, ny, nx, cap) grid of fixed-capacity cells; x is the
-// slot-ordered (nz*ny*nx*cap, 3) array, valid marks real atoms, tag holds
-// each slot's atom ID and btag (slots, nb) its bond-partner IDs (nb <= 2,
-// 0 = none).  Every valid slot i sums, over the 27 stencil cells, for
-// valid j != i (self skipped only at offset (0,0,0)), d = x_i - x_j:
-//   tag_j in btag_i:  fpair = -k / max(1 - r2/R0^2, 0.1)
-//                           + [r2 < 2^(1/3) sig^2] 48 eps sr6 (sr6 - 0.5) / r2,
-//                     no cutoff test;
-//   otherwise:        fpair = r^-6 (lj1 r^-6 - lj2) r^-2 where r2 < cutsq.
+// Atoms sit in grid-slot order: x (slots, 3), valid per slot; pairs
+// (slots, K) holds each slot's list entries j | code << 30 and npairs its
+// count; bslots (slots, nb) the slots of its bond partners (nb <= 2, -1 =
+// none), mapped from the partner tags at each re-bin; rows (natoms,) names
+// the valid slots (the grid state's tag -> slot map), the only ones swept.
+// With d = x_i - (x_j + s), s = L rint((x_i - x_j) / L) (the minimum image
+// of the current box, rounded as the stencil rounds x_i - (x_j + L)),
+// every valid slot i sums
+//   over its code-0 entries with r2 < cutsq (a code-1 entry, a bond
+//     partner, weighs 0 as factor_lj does):
+//     fpair = r^-6 (lj1 r^-6 - lj2) r^-2;
+//   over its partner slots, whatever their distance (bond_fene accepts a
+//     bond up to 2 R0, beyond cutneigh):
+//     fpair = -k / max(1 - r2/R0^2, 0.1)
+//             + [r2 < 2^(1/3) sig^2] 48 eps sr6 (sr6 - 0.5) / r2;
 // f_i = sum_j d fpair.  With EFLAG each slot writes its lj energy and its
 // bond energy, with VFLAG the six components sum_j fpair d_a d_b over both
-// terms; the caller halves their sums.  When an axis has fewer than 3
-// cells a partner is met at several periodic images, and the bond counts
-// only at the minimum image (|d_a| <= L_a / 2 on every axis); at the other
-// images the pair is an ordinary lj candidate, outside the cutoff.  The
-// periodic wrap comes from the cell index: the neighbour cell is (c+o) mod
-// n, and x_j gets +L where c+o >= n and -L where c+o < 0.
+// terms; the caller halves their sums.  Empty slots get zeros.
 //
-// What bounds it: at the 32k chain shape (grid 11x11x11, cap 40) there are
-// 53,240 slots and 27 * 40 = 1,080 candidates per slot, 57.5 M candidate
-// pairs per call, of which about 2 % lie inside the 1.12 sigma cutoff or
-// are bonded.  The inputs are 53,240 * 25 bytes (f32), read once per block
-// from L2, so the kernel is bound by the ALU work of the candidate loop
-// (distance, cutoff and tag tests), not by memory; the work the result
-// needs (the in-range pairs) is far smaller, so the candidate count is
-// what a faster kernel must cut.
+// What bounds it: at the 32k chain shape (53,240 slots, 32,000 atoms, K
+// 24, ~12.5 list entries a row, ~5 in the 1.12 sigma cutoff, 2 bonds) the
+// inputs and outputs, read and written once, are ~2 MB, ~0.6 us at the
+// HBM rate; the list adds ~1.8 MB a call, a floor of this design.  The
+// stencil design tested 1,080 candidates a slot, ~2 % in range.
 //
-// Design (B1's, tpumd_torch/csrc/lj_cellgrid.cu): one block per cell, one
-// thread per i slot (cap rounded up to a warp), the slot's two partner tags
-// in registers.  For each of the 27 neighbour cells the block stages the
-// cell's coordinates, with the wrap correction applied, its validity and
-// its tags in shared memory; every thread then runs the candidate loop from
-// shared memory (a broadcast read).  Validity and self are tested before
-// any division, so empty slots (at x = 0) never divide; the tag test picks
-// the branch, and only in-cutoff lj pairs and bonded pairs reach the
-// arithmetic.  Fewer candidates (smaller cells, pair lists) are later work.
+// Design: kLanes lanes per valid atom (chosen on the card by
+// probes/pairlist_lanes.py: PERF.md).  Lane l of an atom walks entries l,
+// l + kLanes, ... of its row and takes bond l, l + kLanes, ...; the lanes'
+// sums meet by shuffles within the atom's lanes, and its first lane
+// writes them.  The threads also zero the empty slots' outputs.
 
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kLanes = 4;      // lanes per atom
+constexpr int kBlock = 128;
+constexpr unsigned kNeighMask = (1u << 30) - 1u;
+
+static_assert(kLanes >= 1 && kLanes <= 32 && (kLanes & (kLanes - 1)) == 0,
+              "kLanes must be a power of two up to a warp");
+
 __device__ __forceinline__ float log_t(float a) { return logf(a); }
 __device__ __forceinline__ double log_t(double a) { return log(a); }
-__device__ __forceinline__ float abs_t(float a) { return fabsf(a); }
-__device__ __forceinline__ double abs_t(double a) { return fabs(a); }
+__device__ __forceinline__ float rint_t(float a) { return rintf(a); }
+__device__ __forceinline__ double rint_t(double a) { return rint(a); }
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+// |d|^2 rounded as the plain version rounds it (no fused multiply-add),
+// so both take the same pairs inside the cutoff
+__device__ __forceinline__ float norm2_rn(float a, float b, float c) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)),
+                   __fmul_rn(c, c));
+}
+__device__ __forceinline__ double norm2_rn(double a, double b, double c) {
+  return __dadd_rn(__dadd_rn(__dmul_rn(a, a), __dmul_rn(b, b)),
+                   __dmul_rn(c, c));
+}
+
+// x_i - (x_j + s), s the image correction on an axis of length L, each
+// step rounded as the plain version rounds it
+template <typename T>
+__device__ __forceinline__ T image_d(T xi, T xj, T L) {
+  const T s = L * rint_t(sub_rn(xi, xj) / L);
+  return sub_rn(xi, add_rn(xj, s));
+}
+
+template <typename T>
+struct Coeffs {
+  T lj1, lj2, lj3, lj4, offset, cutsq, fk, r0sq, feps, fsig2;
+};
+
+template <typename T>
+struct Args {
+  const T* x;
+  const unsigned char* valid;
+  const int* pairs;
+  const int* npairs;
+  const int* bslots;
+  const long long* rows;
+  const T* lengths;
+  T* f;
+  T* eslot;
+  T* bslot;
+  T* vslot;
+  long long np, natoms;
+  int K, nb;
+  Coeffs<T> c;
+};
+
+// the sum of v over the kLanes lanes of an atom, in each of them
+template <typename T>
+__device__ __forceinline__ T lanes_sum(T v, unsigned mask) {
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1) {
+    v += __shfl_xor_sync(mask, v, o, kLanes);
+  }
+  return v;
+}
 
 template <typename T, bool EFLAG, bool VFLAG>
-__global__ void lj_fene_cellgrid_kernel(
-    const T* __restrict__ x, const unsigned char* __restrict__ valid,
-    const int* __restrict__ tag, const int* __restrict__ btag, int nb,
-    const T* __restrict__ lengths, T* __restrict__ f, T* __restrict__ eslot,
-    T* __restrict__ bslot, T* __restrict__ vslot, int nx, int ny, int nz,
-    int cap, T lj1, T lj2, T lj3, T lj4, T offset, T cutsq, T fk, T r0sq,
-    T feps, T fsig2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sj = reinterpret_cast<T*>(smem_raw);          // cap rows (x, y, z, valid)
-  int* stag = reinterpret_cast<int*>(sj + 4 * cap);  // cap tags
-
-  const int cell = blockIdx.x;
-  const int cx = cell % nx;
-  const int cy = (cell / nx) % ny;
-  const int cz = cell / (nx * ny);
-  const int t = threadIdx.x;
-  const long long islot = static_cast<long long>(cell) * cap + t;
-  const bool active = t < cap;
-  const bool ivalid = active && valid[islot] != 0;
-
-  T xi = T(0), yi = T(0), zi = T(0);
-  // partner tags; -1 (never a tag) where the slot has no partner
-  int b0 = -1, b1 = -1;
-  if (active) {
-    xi = x[3 * islot + 0];
-    yi = x[3 * islot + 1];
-    zi = x[3 * islot + 2];
-    const int p0 = btag[islot * nb];
-    const int p1 = nb > 1 ? btag[islot * nb + 1] : 0;
-    b0 = p0 > 0 ? p0 : -1;
-    b1 = p1 > 0 ? p1 : -1;
-  }
-  const T Lx = lengths[0], Ly = lengths[1], Lz = lengths[2];
-  const T hLx = T(0.5) * Lx, hLy = T(0.5) * Ly, hLz = T(0.5) * Lz;
-  const bool min_image_guard = nx < 3 || ny < 3 || nz < 3;
-  const T wca2 = T(1.2599210498948732) * fsig2;  // (2^(1/6) sigma)^2
-
-  T fx = T(0), fy = T(0), fz = T(0), e = T(0), eb = T(0);
-  T v0 = T(0), v1 = T(0), v2 = T(0), v3 = T(0), v4 = T(0), v5 = T(0);
-
-  for (int oz = -1; oz <= 1; ++oz) {
-    int jz = cz + oz;
-    T sz = T(0);
-    if (jz >= nz) { jz -= nz; sz = Lz; } else if (jz < 0) { jz += nz; sz = -Lz; }
-    for (int oy = -1; oy <= 1; ++oy) {
-      int jy = cy + oy;
-      T sy = T(0);
-      if (jy >= ny) { jy -= ny; sy = Ly; } else if (jy < 0) { jy += ny; sy = -Ly; }
-      for (int ox = -1; ox <= 1; ++ox) {
-        int jx = cx + ox;
-        T sx = T(0);
-        if (jx >= nx) { jx -= nx; sx = Lx; } else if (jx < 0) { jx += nx; sx = -Lx; }
-        const long long jbase =
-            (static_cast<long long>(jz * ny + jy) * nx + jx) * cap;
-
-        __syncthreads();  // the previous cell's tile is consumed
-        for (int k = t; k < cap; k += blockDim.x) {
-          const long long js = jbase + k;
-          sj[4 * k + 0] = x[3 * js + 0] + sx;
-          sj[4 * k + 1] = x[3 * js + 1] + sy;
-          sj[4 * k + 2] = x[3 * js + 2] + sz;
-          sj[4 * k + 3] = valid[js] ? T(1) : T(0);
-          stag[k] = tag[js];
-        }
-        __syncthreads();
-
-        if (!ivalid) continue;
-        const int self = (ox == 0 && oy == 0 && oz == 0) ? t : -1;
-        for (int k = 0; k < cap; ++k) {
-          if (sj[4 * k + 3] == T(0) || k == self) continue;
-          const T dx = xi - sj[4 * k + 0];
-          const T dy = yi - sj[4 * k + 1];
-          const T dz = zi - sj[4 * k + 2];
-          const T r2 = dx * dx + dy * dy + dz * dz;
-          const int tj = stag[k];
-          bool bonded = tj == b0 || tj == b1;
-          if (bonded && min_image_guard) {
-            bonded = abs_t(dx) <= hLx && abs_t(dy) <= hLy && abs_t(dz) <= hLz;
-          }
-          T fpair;
-          if (bonded) {
-            const T r2inv = T(1) / r2;
-            T rlogarg = T(1) - r2 / r0sq;
-            if (rlogarg < T(0.1)) rlogarg = T(0.1);
-            fpair = -fk / rlogarg;
-            if (EFLAG) eb += T(-0.5) * fk * r0sq * log_t(rlogarg);
-            if (r2 < wca2) {
-              const T sr2 = fsig2 * r2inv;
-              const T sr6 = sr2 * sr2 * sr2;
-              fpair += T(48) * feps * sr6 * (sr6 - T(0.5)) * r2inv;
-              if (EFLAG) eb += T(4) * feps * sr6 * (sr6 - T(1)) + feps;
-            }
-          } else {
-            if (!(r2 < cutsq)) continue;
-            const T r2inv = T(1) / r2;
-            const T r6inv = r2inv * r2inv * r2inv;
-            fpair = r6inv * (lj1 * r6inv - lj2) * r2inv;
-            if (EFLAG) e += r6inv * (lj3 * r6inv - lj4) - offset;
-          }
-          fx += dx * fpair;
-          fy += dy * fpair;
-          fz += dz * fpair;
-          if (VFLAG) {
-            v0 += fpair * dx * dx;
-            v1 += fpair * dy * dy;
-            v2 += fpair * dz * dz;
-            v3 += fpair * dx * dy;
-            v4 += fpair * dx * dz;
-            v5 += fpair * dy * dz;
-          }
-        }
-      }
+__global__ void __launch_bounds__(kBlock) lj_fene_pairlist_kernel(
+    const Args<T> a) {
+  // the empty slots' outputs, by every thread of the grid in turn
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  const long long nthreads = static_cast<long long>(gridDim.x) * kBlock;
+  for (long long s = tid; s < a.np; s += nthreads) {
+    if (a.valid[s]) continue;
+    a.f[3 * s + 0] = T(0);
+    a.f[3 * s + 1] = T(0);
+    a.f[3 * s + 2] = T(0);
+    if (EFLAG) {
+      a.eslot[s] = T(0);
+      a.bslot[s] = T(0);
+    }
+    if (VFLAG) {
+      for (int c = 0; c < 6; ++c) a.vslot[6 * s + c] = T(0);
     }
   }
 
-  if (!active) return;
-  f[3 * islot + 0] = fx;
-  f[3 * islot + 1] = fy;
-  f[3 * islot + 2] = fz;
+  const long long g = tid / kLanes;   // the atom of these lanes
+  if (g >= a.natoms) return;          // the atom's lanes alike
+  const int lane = threadIdx.x % kLanes;
+  const int base = (threadIdx.x & 31) & ~(kLanes - 1);
+  const unsigned mask = (0xffffffffu >> (32 - kLanes)) << base;
+  const long long i = a.rows[g];
+  const Coeffs<T>& c = a.c;
+
+  const T xi = a.x[3 * i + 0], yi = a.x[3 * i + 1], zi = a.x[3 * i + 2];
+  const T Lx = a.lengths[0], Ly = a.lengths[1], Lz = a.lengths[2];
+  const T wca2 = T(1.2599210498948732) * c.fsig2;  // (2^(1/6) sigma)^2
+
+  T fx = T(0), fy = T(0), fz = T(0), e = T(0), eb = T(0);
+  T v0 = T(0), v1 = T(0), v2 = T(0), v3 = T(0), v4 = T(0), v5 = T(0);
+  const int* row = a.pairs + i * a.K;
+  const int n = a.npairs[i];
+  // lj over the code-0 entries, then the bonds over the partner slots
+  for (int k = lane; k < n + a.nb; k += kLanes) {
+    long long j;
+    bool bond = k >= n;
+    if (bond) {
+      j = a.bslots[i * a.nb + (k - n)];
+      if (j < 0) continue;
+    } else {
+      const unsigned ent = static_cast<unsigned>(row[k]);
+      if (ent >> 30) continue;
+      j = ent & kNeighMask;
+    }
+    const T dx = image_d(xi, a.x[3 * j + 0], Lx);
+    const T dy = image_d(yi, a.x[3 * j + 1], Ly);
+    const T dz = image_d(zi, a.x[3 * j + 2], Lz);
+    const T r2 = norm2_rn(dx, dy, dz);
+    T fpair;
+    if (bond) {
+      const T r2inv = T(1) / r2;
+      T rlogarg = T(1) - r2 / c.r0sq;
+      if (rlogarg < T(0.1)) rlogarg = T(0.1);
+      fpair = -c.fk / rlogarg;
+      if (EFLAG) eb += T(-0.5) * c.fk * c.r0sq * log_t(rlogarg);
+      if (r2 < wca2) {
+        const T sr2 = c.fsig2 * r2inv;
+        const T sr6 = sr2 * sr2 * sr2;
+        fpair += T(48) * c.feps * sr6 * (sr6 - T(0.5)) * r2inv;
+        if (EFLAG) eb += T(4) * c.feps * sr6 * (sr6 - T(1)) + c.feps;
+      }
+    } else {
+      if (!(r2 < c.cutsq)) continue;
+      const T r2inv = T(1) / r2;
+      const T r6inv = r2inv * r2inv * r2inv;
+      fpair = r6inv * (c.lj1 * r6inv - c.lj2) * r2inv;
+      if (EFLAG) e += r6inv * (c.lj3 * r6inv - c.lj4) - c.offset;
+    }
+    fx += dx * fpair;
+    fy += dy * fpair;
+    fz += dz * fpair;
+    if (VFLAG) {
+      v0 += fpair * dx * dx;
+      v1 += fpair * dy * dy;
+      v2 += fpair * dz * dz;
+      v3 += fpair * dx * dy;
+      v4 += fpair * dx * dz;
+      v5 += fpair * dy * dz;
+    }
+  }
+
+  fx = lanes_sum(fx, mask);
+  fy = lanes_sum(fy, mask);
+  fz = lanes_sum(fz, mask);
   if (EFLAG) {
-    eslot[islot] = e;
-    bslot[islot] = eb;
+    e = lanes_sum(e, mask);
+    eb = lanes_sum(eb, mask);
   }
   if (VFLAG) {
-    T* vo = vslot + 6 * islot;
+    v0 = lanes_sum(v0, mask);
+    v1 = lanes_sum(v1, mask);
+    v2 = lanes_sum(v2, mask);
+    v3 = lanes_sum(v3, mask);
+    v4 = lanes_sum(v4, mask);
+    v5 = lanes_sum(v5, mask);
+  }
+  if (lane != 0) return;
+  a.f[3 * i + 0] = fx;
+  a.f[3 * i + 1] = fy;
+  a.f[3 * i + 2] = fz;
+  if (EFLAG) {
+    a.eslot[i] = e;
+    a.bslot[i] = eb;
+  }
+  if (VFLAG) {
+    T* vo = a.vslot + 6 * i;
     vo[0] = v0; vo[1] = v1; vo[2] = v2; vo[3] = v3; vo[4] = v4; vo[5] = v5;
   }
 }
 
 template <typename T, bool EFLAG, bool VFLAG>
-void launch_one(dim3 grid, dim3 block, size_t smem, cudaStream_t s,
-                const T* x, const unsigned char* valid, const int* tag,
-                const int* btag, int nb, const T* lengths, T* f, T* eslot,
-                T* bslot, T* vslot, int nx, int ny, int nz, int cap,
-                const T* c) {
-  lj_fene_cellgrid_kernel<T, EFLAG, VFLAG><<<grid, block, smem, s>>>(
-      x, valid, tag, btag, nb, lengths, f, eslot, bslot, vslot, nx, ny, nz,
-      cap, c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], c[9]);
+int launch_one(const Args<T>& a, cudaStream_t s) {
+  long long threads = a.natoms * kLanes;
+  if (threads < 1) threads = 1;
+  const dim3 grid(static_cast<unsigned>((threads + kBlock - 1) / kBlock));
+  lj_fene_pairlist_kernel<T, EFLAG, VFLAG><<<grid, kBlock, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const T* x, const unsigned char* valid, const int* tag,
-           const int* btag, int nb, const T* lengths, T* f, T* eslot,
-           T* bslot, T* vslot, int nx, int ny, int nz, int cap, double lj1,
-           double lj2, double lj3, double lj4, double offset, double cutsq,
-           double fk, double r0sq, double feps, double fsig2, int eflag,
-           int vflag, void* stream) {
-  if (nx < 1 || ny < 1 || nz < 1 || cap < 1 || cap > 1024 || nb < 1 ||
-      nb > 2) {
+int launch(const Args<T>& a, int eflag, int vflag, cudaStream_t s) {
+  if (a.np < 1 || a.natoms < 0 || a.natoms > a.np || a.K < 1 ||
+      a.nb < 1 || a.nb > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(nx * ny * nz);
-  const dim3 block(((cap + 31) / 32) * 32);
-  const size_t smem = 4 * static_cast<size_t>(cap) * sizeof(T) +
-                      static_cast<size_t>(cap) * sizeof(int);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T c[10] = {T(lj1), T(lj2), T(lj3),  T(lj4), T(offset),
-                   T(cutsq), T(fk), T(r0sq), T(feps), T(fsig2)};
-  if (eflag && vflag) {
-    launch_one<T, true, true>(grid, block, smem, s, x, valid, tag, btag, nb,
-                              lengths, f, eslot, bslot, vslot, nx, ny, nz,
-                              cap, c);
-  } else if (eflag) {
-    launch_one<T, true, false>(grid, block, smem, s, x, valid, tag, btag, nb,
-                               lengths, f, eslot, bslot, vslot, nx, ny, nz,
-                               cap, c);
-  } else if (vflag) {
-    launch_one<T, false, true>(grid, block, smem, s, x, valid, tag, btag, nb,
-                               lengths, f, eslot, bslot, vslot, nx, ny, nz,
-                               cap, c);
-  } else {
-    launch_one<T, false, false>(grid, block, smem, s, x, valid, tag, btag,
-                                nb, lengths, f, eslot, bslot, vslot, nx, ny,
-                                nz, cap, c);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (eflag && vflag) return launch_one<T, true, true>(a, s);
+  if (eflag) return launch_one<T, true, false>(a, s);
+  if (vflag) return launch_one<T, false, true>(a, s);
+  return launch_one<T, false, false>(a, s);
 }
 
 }  // namespace
 
 // C interface, bound with ctypes by tpumd_torch/ops/lj_fene_cellgrid.py.
-// Returns the CUDA error code of the launch (0 on success).
-extern "C" int tpumd_lj_fene_cellgrid_f32(
-    const float* x, const unsigned char* valid, const int* tag,
-    const int* btag, int nb, const float* lengths, float* f, float* eslot,
-    float* bslot, float* vslot, int nx, int ny, int nz, int cap, double lj1,
-    double lj2, double lj3, double lj4, double offset, double cutsq,
-    double fk, double r0sq, double feps, double fsig2, int eflag, int vflag,
-    void* stream) {
-  return launch<float>(x, valid, tag, btag, nb, lengths, f, eslot, bslot,
-                       vslot, nx, ny, nz, cap, lj1, lj2, lj3, lj4, offset,
-                       cutsq, fk, r0sq, feps, fsig2, eflag, vflag, stream);
-}
+// eslot, bslot may be null without eflag, vslot without vflag.  Returns
+// the CUDA error code of the launch (0 on success).
+#define TPUMD_LJ_FENE_ENTRY(NAME, T)                                         \
+  extern "C" int NAME(                                                       \
+      const T* x, const unsigned char* valid, const int* pairs,              \
+      const int* npairs, const int* bslots, const long long* rows,           \
+      const T* lengths, T* f, T* eslot, T* bslot, T* vslot, long long np,    \
+      long long natoms, int K, int nb, double lj1, double lj2, double lj3,   \
+      double lj4, double offset, double cutsq, double fk, double r0sq,       \
+      double feps, double fsig2, int eflag, int vflag, void* stream) {       \
+    const Args<T> a{x, valid, pairs, npairs, bslots, rows, lengths, f,       \
+                    eslot, bslot, vslot, np, natoms, K, nb,                  \
+                    {T(lj1), T(lj2), T(lj3), T(lj4), T(offset), T(cutsq),    \
+                     T(fk), T(r0sq), T(feps), T(fsig2)}};                    \
+    return launch<T>(a, eflag, vflag, static_cast<cudaStream_t>(stream));    \
+  }
 
-extern "C" int tpumd_lj_fene_cellgrid_f64(
-    const double* x, const unsigned char* valid, const int* tag,
-    const int* btag, int nb, const double* lengths, double* f,
-    double* eslot, double* bslot, double* vslot, int nx, int ny, int nz,
-    int cap, double lj1, double lj2, double lj3, double lj4, double offset,
-    double cutsq, double fk, double r0sq, double feps, double fsig2,
-    int eflag, int vflag, void* stream) {
-  return launch<double>(x, valid, tag, btag, nb, lengths, f, eslot, bslot,
-                        vslot, nx, ny, nz, cap, lj1, lj2, lj3, lj4, offset,
-                        cutsq, fk, r0sq, feps, fsig2, eflag, vflag, stream);
-}
+TPUMD_LJ_FENE_ENTRY(tpumd_lj_fene_cellgrid_f32, float)
+TPUMD_LJ_FENE_ENTRY(tpumd_lj_fene_cellgrid_f64, double)

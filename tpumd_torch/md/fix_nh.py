@@ -59,6 +59,7 @@ class FixNH(Fix):
         self.t_period = float(t_period)
         self.p_flags = tuple(bool(p) for p in p_flags)
         self.pstat = any(self.p_flags)
+        self.box_change = self.pstat
         self.p_start = tuple(float(p) for p in p_start)
         self.p_stop = tuple(float(p) for p in p_stop)
         self.p_period = tuple(float(p) for p in p_period)

@@ -31,6 +31,10 @@ class Fix:
     contributes_virial = False
     needs_step = False
     groupbit = 1             # group membership bit (1: group all)
+    # whether the fix moves the box between rebuilds (Fix::box_change,
+    # src/fix.h): the rebuild check of a carried pair list then counts
+    # the box's move
+    box_change = False
 
     def group_sel(self, s):
         """(N,) bool mask of the atoms this fix acts on."""

@@ -257,11 +257,15 @@ class Simulation:
         else:
             cfg = self._grid_config(cutneigh, margin)
         self._neigh_cfg = cfg
-        pairlist_k = 0
-        if self._mode == "cellgrid" and getattr(self.pair, "pair_list",
-                                                 False):
+        pairlist_k, exclude = 0, ()
+        # a style sweeps a list when it says so, or when FENE bonds ride
+        # its kernel (their partners coded in the list)
+        if self._mode == "cellgrid" and (
+                getattr(self.pair, "pair_list", False)
+                or self._kernel_bond is not None):
             pairlist_k = self._kmax_override or cg.pairlist_kmax(
                 self.state.box, cutneigh, self.natoms)
+            exclude = tuple(self.neigh_exclude)
         mass_np = np.asarray(self.mass, dtype=np.float64).copy()
         mass_np[0] = 1.0  # padded slots: finite mass, zero force
         slj, scl = self._special_weights()
@@ -274,7 +278,7 @@ class Simulation:
             ref_order_tags=self._ref_order_tags, bonded=self._bonded_dev,
             kspace=self.kspace, special_lj=slj, special_coul=scl,
             tdof=self.dof(), shrink=self._shrink_spec(),
-            pairlist_k=pairlist_k)
+            pairlist_k=pairlist_k, pairlist_exclude=exclude)
 
     def _grid_config(self, cutneigh: float,
                      margin: float) -> cg.CellGridConfig:

@@ -20,9 +20,11 @@ the grid state carries and every re-bin moves with the atoms; set-up and
 thermo evaluations read the history without advancing it.  A rebuild
 shrink-wraps the box's s/m faces to the atoms first.
 
-A style that sweeps a pair list (lj/charmm/coul/long) gets one from every
-re-bin, at set-up and at each rebuild, carried in the grid state; a row
-longer than its K raises the overflow flag as a full cell does.
+A style that sweeps a pair list (lj/charmm/coul/long, gran/hooke/history,
+lj/cut with FENE bonds in its kernel) gets one from every re-bin, at
+set-up and at each rebuild, carried in the grid state with the bond
+partners' slots; a row longer than its K raises the overflow flag as a
+full cell does.
 
 On the matrix engine the atoms keep their rows: a rebuild wraps,
 shrink-wraps and builds the (N, K) neighbor matrix, and a granular style's
@@ -44,7 +46,8 @@ from tpumd_torch.md import computes
 from tpumd_torch.models.bonded import compute_tuples
 from tpumd_torch.ops import cellgrid as cg
 from tpumd_torch.ops import neighbor as nb
-from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist
+from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist, \
+    partner_slots
 from tpumd_torch.utils.units import Units
 
 # the energies of a force evaluation (tpumd/md/verlet.py:123-124)
@@ -83,6 +86,8 @@ class StepContext:
     # row width K of the cell grid's pair list (ops/cellgrid_pairlist.py)
     # for a style that sweeps one; 0: no list
     pairlist_k: int = 0
+    # the neigh_modify exclude group-bit pairs the list drops
+    pairlist_exclude: tuple = ()
 
     def mass_per_atom(self, s: MDState):
         if s.rmass is not None:
@@ -169,7 +174,8 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
     elif getattr(pair, "is_granular", False):
         f, torque, stags, shear = pair.compute_gran_cellgrid(
             s, neigh.valid, neigh.shear_tags, neigh.shear, ctx.neigh_cfg,
-            ctx.dt, shearupdate)
+            ctx.dt, shearupdate, (neigh.pairs, neigh.npairs,
+                                  neigh.row2slot))
         if shearupdate:
             neigh = neigh.replace(shear_tags=stags, shear=shear)
     elif getattr(pair, "charged", False):
@@ -180,7 +186,8 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
     else:
         bond = None
         if ctx.kernel_bond is not None:
-            bond = (s.bond_tags, s.bond_btypes, ctx.kernel_bond, s.tag)
+            bond = (ctx.kernel_bond, (neigh.pairs, neigh.npairs,
+                                      neigh.bond_slots, neigh.row2slot))
         f, evdwl, vir, ebond = pair.compute_cellgrid(
             s.x, neigh.valid, s.box, ctx.neigh_cfg, eflag, vflag, bond=bond)
         tally({"evdwl": evdwl, "ebond": ebond}, vir)
@@ -262,18 +269,34 @@ def build_matrix(s: MDState, ctx: StepContext, nbuilds: int,
 
 def grid_pairlist(s: MDState, valid, ctx: StepContext, max_pairs=None):
     """The pair list fields of a freshly binned grid state (empty without
-    ctx.pairlist_k), with the box corners of the build, and its overflow
+    ctx.pairlist_k), with the box corners of the build where a fix moves
+    the box between rebuilds (a barostat; a shrink-wrapped face moves
+    only at a rebuild, as LAMMPS resets the box), and its overflow
     flag (None without a list).  max_pairs, the longest row the state has
-    seen, keeps its maximum."""
+    seen, keeps its maximum.  With FENE bonds in the pair kernel the bond
+    partners are the special list, at code 1 (special_bonds fene), and
+    their slots ride the state; the exclusions of ctx.pairlist_exclude
+    read the group bits (every atom in group all without a group
+    command)."""
     if ctx.pairlist_k == 0:
         return {}, None
+    stags, scodes = s.special_tags, s.special_codes
+    fields = {}
+    if ctx.kernel_bond is not None:
+        stags, scodes = s.bond_tags, torch.ones_like(s.bond_tags)
+        fields["bond_slots"] = partner_slots(s.tag, s.bond_tags)
+    gmask = s.gmask
+    if gmask is None and ctx.pairlist_exclude:
+        gmask = torch.ones_like(s.tag)
     pairs, npairs, longest, over = cellgrid_pairlist(
-        s.x, valid, s.tag, s.special_tags, s.special_codes, s.box,
-        ctx.neigh_cfg, ctx.pairlist_k)
+        s.x, valid, s.tag, stags, scodes, s.box, ctx.neigh_cfg,
+        ctx.pairlist_k, gmask, ctx.pairlist_exclude)
     if max_pairs is not None:
         longest = torch.maximum(max_pairs, longest)
+    if any(fx.box_change for fx in ctx.fixes):
+        fields.update(lohold=s.box.lo, hihold=s.box.hi)
     return {"pairs": pairs, "npairs": npairs, "max_pairs": longest,
-            "lohold": s.box.lo, "hihold": s.box.hi}, over
+            **fields}, over
 
 
 def _rebuild(s: MDState, neigh, ctx: StepContext):
@@ -310,7 +333,7 @@ def decide_rebuild(s: MDState, neigh, ctx: StepContext) -> bool:
     """Neighbor::decide (src/neighbor.cpp:2293): ago-based schedule, then
     the half-skin displacement check when ``check yes``
     (tpumd/md/verlet.py:390-410), less the box's move since the build on a
-    grid that carries a pair list."""
+    grid that carries a pair list under a fix that moves the box."""
     cfg = ctx.neigh_cfg
     if not (neigh.ago >= cfg.delay and neigh.ago % cfg.every == 0):
         return False

@@ -7,9 +7,11 @@ xmu, dampflag (0 zeroes gammat) and the optional ``limit_damping``.  The
 neighbor cutoff is the largest contact distance, twice the largest
 radius.  Fix freeze hands its group bit to the style (the effective-mass
 rule, PairGranHookeHistory::init_style), and the set-up hands it the
-``neigh_modify exclude group`` bit pairs.  Forces and torques go through
-the cell-grid kernel ``ops/gran_cellgrid.py`` (its plain version on the
-CPU), which also advances the per-contact history; on the matrix neighbor
+``neigh_modify exclude group`` bit pairs.  On the cell grid the style
+sweeps the grid's pair list (``pair_list``), built at every re-bin with
+the excluded pairs dropped: forces and torques go through the kernel
+``ops/gran_cellgrid.py`` (its plain version on the CPU), which also
+advances the per-contact history; on the matrix neighbor
 engine through ``compute_gran`` over the (N, K) neighbor matrix, whose
 (N, K, 3) history rides the neighbor slots.  The style adds no energy and
 no virial, as in tpumd.
@@ -35,6 +37,7 @@ class PairGranHookeHistory(PairStyle):
     is_granular = True
     # compute_gran reads the real atoms' rows: no image copies
     supports_image_ext = False
+    pair_list = True
 
     def __init__(self, ntypes: int):
         super().__init__(ntypes)
@@ -81,13 +84,14 @@ class PairGranHookeHistory(PairStyle):
                           int(self.freeze_group_bit), tuple(self.exclude_bits))
 
     def compute_gran_cellgrid(self, s, valid, shear_tags, shear, cfg, dt,
-                              shearupdate: bool):
-        """(f, torque, shear_tags, shear) of one sweep on the grid."""
+                              shearupdate: bool, plist):
+        """(f, torque, shear_tags, shear) of one sweep on the grid over its
+        pair list plist = (pairs, npairs, rows), as ``gran_cellgrid``."""
         planes = (s.v, s.omega, s.radius,
                   torch.where(s.rmass > 0, s.rmass, 1.0), s.gmask)
         return gran_cellgrid(s.x, s.tag, valid, shear_tags, shear, s.box,
                              cfg, self.kernel_coeffs(),
-                             planes, dt, shearupdate)
+                             planes, dt, shearupdate, plist)
 
     def compute_gran(self, s, idx, shear, dt, shearupdate: bool):
         """(f, torque, shear_new) on the matrix neighbor engine

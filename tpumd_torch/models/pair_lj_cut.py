@@ -5,7 +5,9 @@ mixing at :580-610): forcelj = r^-6 (lj1 r^-6 - lj2), fpair = forcelj/r^2,
 energy = r^-6 (lj3 r^-6 - lj4) - offset.  PyTorch counterpart of
 tpumd/models/pair_lj_cut.py.  The cell grid's kernels take one atom type;
 the matrix engine (``pair_fn``) any number, its coefficients read as one
-row gather of a (ntypes+1)^2 by 6 table.
+row gather of a (ntypes+1)^2 by 6 table.  With FENE bonds riding the
+kernel the style sweeps the grid's pair list, built at every re-bin with
+the bond partners coded 1; without, the stencil.
 """
 
 from __future__ import annotations
@@ -120,8 +122,9 @@ class PairLJCut(PairStyle):
         """(f, evdwl, virial, ebond) on the cell grid; evdwl and ebond are
         None unless eflag, virial unless vflag, ebond without bonds.
         Every eflag/vflag combination goes through a cell-grid kernel (its
-        plain version for CPU tensors): the LJ kernel, or with bond =
-        (bond_tags, bond_btypes, bond style, tag) the LJ+FENE kernel."""
+        plain version for CPU tensors): the LJ kernel over the stencil, or
+        with bond = (bond style, (pairs, npairs, bond_slots, rows)) the
+        LJ+FENE kernel over the grid's pair list."""
         if self.ntypes != 1:
             raise NotImplementedError(
                 "lj/cut with more than one atom type: the cell-grid kernels "
@@ -129,18 +132,18 @@ class PairLJCut(PairStyle):
         if bond is None:
             return lj_cellgrid(x, valid, box, cfg, self.kernel_coeffs(),
                                eflag, vflag) + (None,)
-        btags, _, style, tag = bond
+        style, plist = bond
         if style.name != "fene":
             raise NotImplementedError(
                 f"bond_style {style.name} in the pair kernel: only fene is "
                 "ported")
-        if btags.shape[1] > 2:
+        nb = plist[2].shape[1]
+        if nb > 2:
             raise NotImplementedError(
-                f"{btags.shape[1]} bond partners per atom: the LJ+FENE "
-                "kernel holds at most 2")
-        return lj_fene_cellgrid(x, valid, tag, btags, box, cfg,
-                                self.kernel_coeffs(), style.kernel_coeffs(),
-                                eflag, vflag)
+                f"{nb} bond partners per atom: the LJ+FENE kernel holds at "
+                "most 2")
+        return lj_fene_cellgrid(x, valid, box, cfg, self.kernel_coeffs(),
+                                style.kernel_coeffs(), eflag, vflag, plist)
 
     def _coef_table(self, like: torch.Tensor) -> torch.Tensor:
         """((ntypes+1)^2, 6) rows lj1 lj2 lj3 lj4 offset cutsq by type

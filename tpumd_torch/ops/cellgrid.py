@@ -60,13 +60,17 @@ class CellGridState:
     shear: torch.Tensor | None = None
     # a style that sweeps a pair list (ops/cellgrid_pairlist.py): the
     # list of the last re-bin, (Np, K) packed entries and (Np,) row counts,
-    # the longest row seen, () int, over the state's rebuilds, and the box
-    # corners at the build, (3,) each, for the rebuild check
+    # the longest row seen, () int, over the state's rebuilds, and, under
+    # a fix that moves the box, the box corners at the build, (3,) each,
+    # for the rebuild check; with FENE bonds in the pair kernel, each
+    # slot's bond partners' slots (Np, nb) int32 (-1: none), mapped at the
+    # same re-bin
     pairs: torch.Tensor | None = None
     npairs: torch.Tensor | None = None
     max_pairs: torch.Tensor | None = None
     lohold: torch.Tensor | None = None
     hihold: torch.Tensor | None = None
+    bond_slots: torch.Tensor | None = None
 
     def replace(self, **kw) -> "CellGridState":
         return dataclasses.replace(self, **kw)

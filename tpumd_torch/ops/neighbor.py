@@ -211,7 +211,7 @@ def _stencil_cells(ci, cfg: NeighborConfig):
             + nb[:, :, 0]).contiguous()
 
 
-def _excluded(gi, gj, exclude_bits):
+def excluded_pairs(gi, gj, exclude_bits):
     """Pairs with one atom in each group of an excluded pair of bits."""
     out = torch.zeros(torch.broadcast_shapes(gi.shape, gj.shape),
                       dtype=torch.bool, device=gi.device)
@@ -287,7 +287,7 @@ def build_neighbors(x, box: Box, cfg: NeighborConfig, special_tags=None,
         self_b = torch.arange(b0, b1, dtype=i32, device=dev)[:, None]
         ok = (r2 < cut2) & (cand != self_b) & (cand < nj)
         if cfg.exclude_bits:
-            ok &= ~_excluded(gmask_i[b0:b1, None], pj[:, :, 3].to(i32),
+            ok &= ~excluded_pairs(gmask_i[b0:b1, None], pj[:, :, 3].to(i32),
                              cfg.exclude_bits)
         # survivors in candidate order: the k-th goes to slot k; those
         # past kmax land in the dropped column kmax (overflow is flagged)
