@@ -9,8 +9,10 @@ line each (any failure raises and exits non-zero):
    build/ (or the cached library);
 3. kernels against their plain versions on the card, f32 and f64, every
    energy/virial flag combination:
-   - LJ (B1) on perturbed fcc lattices at the 32k in.lj grid (11^3 cells,
-     cap 40) and the 864-atom grid (3^3, cap 52);
+   - LJ (B1) over the pair list (built by the list kernel) on perturbed
+     fcc lattices at the 32k in.lj grid (11^3 cells, cap 40) and the
+     864-atom grid (3^3, cap 52), against the plain list sweep and the
+     stencil oracle;
    - LJ+FENE (B2) over the set-up's pair list on the generated chain
      decks' grids after setup: the 32k chain grid (11^3, cap 40), a 2^3
      grid where bonds count at the minimum image, and that grid with one
@@ -19,27 +21,39 @@ line each (any failure raises and exits non-zero):
      plain build as arrays;
    each timed at its 32k shape in the order plain, kernel, kernel, plain,
    beside its bound (the larger of this input's in-range pair arithmetic
-   over the f32 peak and its bytes over the memory rate; B2's and B6's
+   over the f32 peak and its bytes over the memory rate; a list sweep's
    the work's, with the list's bytes printed beside it as a floor of the
    design);
 4. main path, in.lj: the 6^3 deck on the card against the CPU (f64, step
    40), then the 32k deck through LammpsScript in f32: step-0 and step-100
    gates, 500 warm-up and 500 timed steps, the launch counts of that run
-   (no list build) and a profile of 100 steps;
+   (B1 once per force evaluation, the list build once per grid set-up and
+   rebuild, the refresh once per step without a re-bin, and the
+   refreshes it took) and a profile of 100 steps; then 19 steps more, to
+   the end of a re-bin window, where B1 over the carried list equals the
+   stencil oracle (both in f64 on that state); and the list's upkeep at
+   that state: the build against the plain build, the refresh's gate with
+   no atom past skin/2 (the list untouched) and a rebuilding refresh (=
+   the plain build), each timed beside its bound, with the host time a
+   wrapper call takes to enqueue;
 5. main path, chain: a 500-atom chain deck on the card against the CPU (f64,
    RanMars langevin on both, step 40), then the 32k chain deck in f32 with
    the device RNG: step-0 and step-100 gates, 500 warm-up and 500 timed
    steps, the launch counts of that run (B2 once per force evaluation,
    the list build once per grid set-up and rebuild), the cost of the
    per-step rebuild check and a profile of 100 steps;
-6. main path, eam: the EAM density (B3) and force (B4) kernels against
-   their plain versions on perturbed fcc lattices of the generated Cu-like
-   potential at the 32k in.eam grid (12^3, cap 32) and a 2^3 grid, f32 and
-   f64, every flag combination, each timed at its 32k shape beside its
-   bound; a 500-atom eam deck on the card against the CPU (f64, step 40);
-   then the 32k in.eam deck through LammpsScript in f32: step-0 and
+6. main path, eam: the EAM density (B3, over the stencil) and force (B4,
+   over the pair list) kernels against their plain versions (B4 also
+   against the stencil oracle) on perturbed fcc lattices of the generated
+   Cu-like potential at the 32k in.eam grid (12^3, cap 32) and a 2^3 grid,
+   f32 and f64, every flag combination, each timed at its 32k shape beside
+   its bound; a 500-atom eam deck on the card against the CPU (f64, step
+   40); then the 32k in.eam deck through LammpsScript in f32: step-0 and
    step-100 gates, 500 warm-up and 500 timed steps, the launch counts of
-   that run (no list build) and a profile of 100 steps;
+   that run (B3 and B4 once per force evaluation, the list's builds,
+   refresh launches and refreshes: delay 5) and a profile of 100 steps; B4
+   over the carried list against the stencil oracle 4 steps later (f64); the
+   list's upkeep as for in.lj;
 7. main path, rhodo_class: on the 32k rhodo_class grid and the 2^3
    peptide grid after set-up, f32 and f64, the pair list build kernel
    against the plain build (rows as arrays on the 32k grid, as sets on
@@ -52,9 +66,10 @@ line each (any failure raises and exits non-zero):
    then the 32,064-atom deck through LammpsScript in f32: the reference
    binary's step-0 and step-100 gates, the PPPM mesh, 500 warm-up and 500
    timed steps, the launch counts of that run (B5 once per force
-   evaluation, the build once per grid set-up and rebuild), B5 over the
-   final list against the stencil oracle on the final state, a profile
-   of 100 steps and the step's parts;
+   evaluation, the build once per grid set-up and rebuild, the refresh
+   launches and refreshes of delay 5), B5 over the final list against the
+   stencil oracle in f64 on the final state, a profile of 100 steps, the
+   step's parts and the refresh's gate at the final state;
 8. main path, chute: the pair list build on each grid's p p fs box with
    the base-base pairs dropped against its plain build as arrays, and the
    gran/hooke/history kernel (B6) over the list against the plain list
@@ -90,9 +105,12 @@ line each (any failure raises and exits non-zero):
 
 Every time in the kernels line (``cuda_ms``) is CUDA events around many
 calls, queued 16 at a time behind a spin kernel, so that the card runs
-them back to back whatever the host's dispatch costs.  The list build's
-entry takes its times and bound at rhodo_class's, chain's and chute's
-shapes, averaged over the main paths' launches (``build_entry``).
+them back to back whatever the host's dispatch costs.  The list kernels'
+entry takes its times and bound at each deck's shape, the builds at
+in.lj's, eam's, rhodo_class's, chain's and chute's and the refresh
+launches at in.lj's, eam's and rhodo_class's (a gate that passes, or a
+rebuilding refresh for those that took one), averaged over the main
+paths' launches (``build_entry``).
 
 Imports nothing of JAX or tpumd.
 """
@@ -123,6 +141,9 @@ TOL = {torch.float64: 1e-12, torch.float32: 5e-5}
 # same pairs in the same order: f32 differs by the lanes' summation order
 # only; energies and virial, sums over all atoms, keep TOL
 TOL_LIST = {torch.float64: 1e-13, torch.float32: 2e-6}
+# B1's and B4's forces against their stencil oracles: the same pairs in
+# another order (f32), rounded alike but summed otherwise (f64)
+TOL_ORACLE = {torch.float64: 1e-12, torch.float32: 2e-6}
 
 # published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, and the HBM3 memory rate
@@ -206,13 +227,16 @@ def environment() -> str:
 
 
 def perturbed_grid(nlat: int, seed: int, device, dtype, eam=False):
-    """Slot-ordered positions and validity of an fcc lattice of nlat^3
-    cells: in.lj's, each atom moved by up to +-0.05 sigma per axis, or with
-    eam in.eam's (3.615 A, cutneigh 5.95 A), moved by up to +-0.15 A."""
+    """Slot-ordered positions, validity, box, grid and pair list (pairs,
+    npairs, rows; built by the list kernel as a re-bin builds it) of an
+    fcc lattice of nlat^3 cells: in.lj's, each atom moved by up to +-0.05
+    sigma per axis, or with eam in.eam's (3.615 A, cutneigh 5.95 A), moved
+    by up to +-0.15 A."""
     from tpumd_torch.core.create import create_atoms_lattice
     from tpumd_torch.core.lattice import Lattice
     from tpumd_torch.core.state import Box, make_state, wrap_pbc
     from tpumd_torch.ops import cellgrid as cg
+    from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist
     lat, amp, cutneigh, skin = ((Lattice("fcc", 3.615, units="metal"), 0.15,
                                  5.95, 1.0) if eam else
                                 (Lattice("fcc", 0.8442), 0.05, 2.8, 0.3))
@@ -228,7 +252,14 @@ def perturbed_grid(nlat: int, seed: int, device, dtype, eam=False):
     perm, valid, _, over = cg.bin_permutation(s.x, valid0, s.box, cfg)
     if bool(over):
         raise AssertionError("cell overflow in the test lattice")
-    return cg.apply_permutation(s, perm, valid).x, valid, box, cfg
+    s = cg.apply_permutation(s, perm, valid)
+    pairs, npairs, _, over = cellgrid_pairlist(
+        s.x, valid, s.tag, None, None, box, cfg,
+        cg.pairlist_kmax(box, cutneigh, len(x)))
+    if bool(over):
+        raise AssertionError("pair list overflow in the test lattice")
+    return s.x, valid, box, cfg, (pairs, npairs,
+                                  cg.row2slot_from_tags(s.tag, len(x)))
 
 
 def cuda_ms(fn, reps: int, ahead: bool = True) -> float:
@@ -275,6 +306,21 @@ def cuda_ms(fn, reps: int, ahead: bool = True) -> float:
                 f"before them")
         total += a.elapsed_time(b)
     return total / reps
+
+
+def host_us(fn, n: int = 100) -> float:
+    """Host microseconds a call of fn takes to enqueue, the calls queued
+    behind a 200 ms spin kernel so that none waits on the card: what a
+    wrapper adds to a host-bound step."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200 * SPIN_CYCLES_PER_MS)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return us
 
 
 def pair_counts(x, valid, box, cfg, cutsq, tag=None, bond_tags=None):
@@ -362,49 +408,88 @@ def time_kernel(name, kernel, plain, kernel_ev, reps=200) -> dict:
     ke = cuda_ms(kernel_ev, reps)
     phase("kernel", f"{name} at the 32k shape, f32 forces: kernel {k1:.4f} "
                     f"/ {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; kernel "
-                    f"with energy+virial {ke:.4f} ms")
+                    f"with energy+virial {ke:.4f} ms; the wrapper's host "
+                    f"enqueue {host_us(kernel):.1f} us a call")
     return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "ev_ms": ke}
 
 
+def check_list_sweep(what, kernel, list_plain, oracle, dtype, eflag,
+                     vflag) -> tuple[float, float]:
+    """A list sweep's outputs (f, energy, virial) against its plain list
+    sweep (forces to TOL_LIST) and its stencil oracle (to TOL_ORACLE),
+    energies and virial to TOL; (its force errors relative to max|f|)."""
+    errs = []
+    for ref, out, tol in (("list", list_plain, TOL_LIST),
+                          ("stencil", oracle, TOL_ORACLE)):
+        err = check_close(f"{what} vs {ref}", kernel[0], out[0],
+                          (kernel[1],), (out[1],), kernel[2], out[2],
+                          TOL[dtype], eflag, vflag)
+        if err > tol[dtype]:
+            raise AssertionError(f"{what}: forces {err} of max|f| from the "
+                                 f"{ref} sweep > {tol[dtype]}")
+        errs.append(err)
+    return tuple(errs)
+
+
 def lj_kernel_vs_plain() -> dict:
+    """B1 over the list against its plain list sweep and the stencil
+    oracle on perturbed in.lj lattices (the 32k grid, 11^3 cells of cap 40,
+    and the 864-atom 3^3 grid), f32 and f64, every flag; timed and bounded
+    at the 32k shape."""
     from tpumd_torch.ops.lj_cellgrid import LJCoeffs, lj_cellgrid, \
-        lj_cellgrid_plain
+        lj_cellgrid_plain, lj_pairlist_plain
     c = LJCoeffs(48.0, 24.0, 4.0, 4.0, 0.0, 6.25)
     out = {}
     for nlat in (20, 6):
         for dtype in (torch.float32, torch.float64):
-            x, valid, box, cfg = perturbed_grid(nlat, 7 + nlat, "cuda", dtype)
-            tol = TOL[dtype]
-            worst = 0.0
+            x, valid, box, cfg, plist = perturbed_grid(nlat, 7 + nlat, "cuda",
+                                                       dtype)
+            worst = (0.0, 0.0)
             for eflag, vflag in ((0, 0), (1, 1), (1, 0), (0, 1)):
-                fk, ek, wk = lj_cellgrid(x, valid, box, cfg, c, eflag, vflag)
-                fp, ep, wp = lj_cellgrid_plain(x, valid, box, cfg, c, eflag,
-                                               vflag)
-                worst = max(worst, check_close(
-                    f"lj {nlat}^3 {dtype} e{eflag}v{vflag}", fk, fp, (ek,),
-                    (ep,), wk, wp, tol, eflag, vflag))
+                errs = check_list_sweep(
+                    f"lj {nlat}^3 {dtype} e{eflag}v{vflag}",
+                    lj_cellgrid(x, valid, box, cfg, c, eflag, vflag, plist),
+                    lj_pairlist_plain(x, box, c, eflag, vflag, *plist[:2]),
+                    lj_cellgrid_plain(x, valid, box, cfg, c, eflag, vflag),
+                    dtype, eflag, vflag)
+                worst = tuple(map(max, worst, errs))
             phase("kernel", f"lj_cellgrid grid {cfg.nx}x{cfg.ny}x{cfg.nz} "
-                            f"cap {cfg.cap} {str(dtype)[6:]}: max|f_kernel "
-                            f"- f_plain| = {worst:.3g} max|f| (tol {tol:g}),"
-                            f" energy and virial within tol")
+                            f"cap {cfg.cap} K {plist[0].shape[1]} "
+                            f"{str(dtype)[6:]}: max|f_kernel - f_plain| = "
+                            f"{worst[0]:.3g} max|f| against the plain list "
+                            f"sweep (tol {TOL_LIST[dtype]:g}), {worst[1]:.3g}"
+                            f" against the stencil oracle (tol "
+                            f"{TOL_ORACLE[dtype]:g}); energy and virial "
+                            f"within {TOL[dtype]:g} of both")
             if nlat == 20 and dtype == torch.float32:
-                fk, _, _ = lj_cellgrid(x, valid, box, cfg, c, 0, 0)
-                fp, _, _ = lj_cellgrid_plain(x, valid, box, cfg, c, 0, 0)
+                fk, _, _ = lj_cellgrid(x, valid, box, cfg, c, 0, 0, plist)
+                fp, _, _ = lj_pairlist_plain(x, box, c, 0, 0, *plist[:2])
                 out["max_abs_err"] = float((fk - fp).abs().max())
                 out.update(time_kernel(
                     "lj_cellgrid",
-                    lambda: lj_cellgrid(x, valid, box, cfg, c, 0, 0),
-                    lambda: lj_cellgrid_plain(x, valid, box, cfg, c, 0, 0),
-                    lambda: lj_cellgrid(x, valid, box, cfg, c, 1, 1)))
+                    lambda: lj_cellgrid(x, valid, box, cfg, c, 0, 0, plist),
+                    lambda: lj_pairlist_plain(x, box, c, 0, 0, *plist[:2]),
+                    lambda: lj_cellgrid(x, valid, box, cfg, c, 1, 1, plist)))
+                stencil_ms = cuda_ms(lambda: lj_cellgrid_plain(
+                    x, valid, box, cfg, c, 0, 0), 10, ahead=False)
                 nlj, _ = pair_counts(x, valid, box, cfg, c.cutsq)
                 np_ = cfg.capacity
+                natoms = int(valid.sum())
+                # the work: x and validity read, f written
                 nbytes = np_ * (12 + 1 + 12) + 12
                 out["bound_ms"], out["bound_by"] = bound(nlj, 0, nbytes)
+                floor = (4 * int(plist[1].sum()) + 4 * np_ + 8 * natoms)
+                floor_ms, floor_by = bound(nlj, 0, nbytes + floor)
+                entries = int(plist[1].sum())
                 phase("kernel", f"lj_cellgrid bound: {nlj} unordered "
-                                f"in-cutoff pairs ({2 * nlj} of "
-                                f"{np_ * 27 * cfg.cap} candidates (i, j)), "
-                                f"{nbytes} bytes -> {out['bound_ms']:.6f} "
-                                f"ms ({out['bound_by']})")
+                                f"in-cutoff pairs ({2 * nlj / entries:.2%} "
+                                f"of {entries} list entries, "
+                                f"{entries / natoms:.2f} a row), {nbytes} "
+                                f"bytes -> {out['bound_ms']:.6f} ms "
+                                f"({out['bound_by']}); the list's floor: "
+                                f"{floor} bytes more -> {floor_ms:.6f} ms "
+                                f"({floor_by}); the stencil oracle "
+                                f"{stencil_ms:.4f} ms")
     return out
 
 
@@ -461,13 +546,24 @@ def list_floor_bytes(neigh, natoms: int, extra_per_slot: int = 0) -> int:
             + extra_per_slot * np_)
 
 
+def build_bound(valid, cfg, K: int, S: int, gmask: bool) -> tuple:
+    """(bound ms, bound_by, bytes, candidates) of a list build: x, valid,
+    tag, the special lists and group bits read once, the (Np, K) list, its
+    counts and the status words written once, and d, r2 and the cutoff
+    test (9 operations) per candidate of the stencil's 27 cells up to
+    each cell's extent."""
+    np_ = cfg.capacity
+    nbytes = (np_ * (12 + 1 + 4 + 8 * S + (4 if gmask else 0))
+              + 12 + 4 * np_ * K + 4 * np_ + 16)
+    occupied = valid.view(cfg.ncells, cfg.cap).sum(1).double()
+    cand = int(valid.sum()) * 27 * float(occupied.mean())
+    return roof(int(9 * cand), nbytes) + (nbytes, cand)
+
+
 def time_build(name: str, bargs, plain_reps: int = 3) -> dict:
     """The list build kernel against its plain build as arrays, then both
     timed in the order plain, kernel, kernel, plain, beside the build's
-    bound: x, valid, tag, the special lists and group bits read once, the
-    (Np, K) list, its counts and the two status words written once, and
-    d, r2 and the cutoff test (9 operations) per candidate of the
-    stencil's 27 cells up to each cell's extent."""
+    bound (build_bound)."""
     from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist, \
         cellgrid_pairlist_plain
     x, valid, tag, stags, scodes, box, cfg, K = bargs[:8]
@@ -482,13 +578,9 @@ def time_build(name: str, bargs, plain_reps: int = 3) -> dict:
     k2 = cuda_ms(lambda: cellgrid_pairlist(*bargs), 50)
     p2 = cuda_ms(lambda: cellgrid_pairlist_plain(*bargs), plain_reps,
                  ahead=False)
-    np_ = cfg.capacity
     S = 0 if stags is None else stags.shape[1]
-    nbytes = (np_ * (12 + 1 + 4 + 8 * S + (4 if len(bargs) > 9 else 0))
-              + 12 + 4 * np_ * K + 4 * np_ + 8)
-    occupied = valid.view(cfg.ncells, cfg.cap).sum(1).double()
-    cand = int(valid.sum()) * 27 * float(occupied.mean())
-    bound_ms, bound_by = roof(int(9 * cand), nbytes)
+    bound_ms, bound_by, nbytes, cand = build_bound(
+        valid, cfg, K, S, len(bargs) > 9 and bool(bargs[9]))
     phase("kernel", f"{name} pair list grid {cfg.nx}x{cfg.ny}x{cfg.nz} cap "
                     f"{cfg.cap} K {K} periodic {box.periodic}: the kernel's "
                     f"rows = the plain build's as arrays, longest "
@@ -501,6 +593,122 @@ def time_build(name: str, bargs, plain_reps: int = 3) -> dict:
                     (built[1].long() - plain[1].long()).abs().max()))
     return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
             "bound_by": bound_by, "max_abs_err": err}
+
+
+def time_upkeep(name: str, sim, build: bool = True,
+                refresh: bool = True) -> dict:
+    """The pair list's upkeep at a main path's final state, each against
+    its plain version and timed in the order plain, kernel, kernel, plain
+    beside its bound: with build, the build (time_build); the refresh's
+    gate with no atom past skin/2, which leaves the list, its positions
+    and its status words as they were; and with refresh, a refresh that
+    rebuilds (one atom moved 0.6 skin, and back, in turn), whose list
+    equals the plain build's as arrays.  The gate's bound: x and the
+    list's positions read once, ~18 operations an atom; the rebuilding
+    refresh's: the gate's and the build's."""
+    from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist, \
+        cellgrid_pairlist_plain, new_stat, pairlist_hold, \
+        refresh_pairlist, refresh_pairlist_plain
+    s, neigh, _ = sim._carry
+    h, cfg, K = neigh.list_hold, sim._neigh_cfg, sim._ctx.pairlist_k
+    valid = neigh.valid
+    bargs = (s.x, valid, h.tag, h.stags, h.scodes, s.box, cfg, K, h.gmask,
+             h.exclude_bits)
+    out = {}
+    if build:
+        out["build"] = time_build(name, bargs)
+
+    def fresh(x):
+        stat = new_stat(x.device)
+        hold = pairlist_hold(x, valid, h.tag, h.stags, h.scodes, cfg,
+                             h.gmask, h.exclude_bits,
+                             box_term=h.box is not None)
+        pairs, npairs, _, _ = cellgrid_pairlist(x, *bargs[1:], stat=stat,
+                                                hold=hold)
+        return [x, valid, s.box, cfg, pairs, npairs, stat, hold]
+
+    natoms = int(valid.sum())
+    np_ = cfg.capacity
+    gbytes = np_ * (12 + 12 + 1) + 16 + (48 if h.box is not None else 0)
+    gate_bound = roof(18 * natoms, gbytes)
+    gate = fresh(s.x)
+    before = [t.clone() for t in (gate[4], gate[5], gate[7].x, gate[6][:3])]
+    refresh_pairlist(*gate)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(
+            (gate[4], gate[5], gate[7].x, gate[6][:3]), before)):
+        raise AssertionError(f"{name} refresh gate: a clear gate changed "
+                             f"the list")
+    times = [cuda_ms(lambda: refresh_pairlist_plain(*gate, 0), 10,
+                     ahead=False),
+             cuda_ms(lambda: refresh_pairlist(*gate), 200),
+             cuda_ms(lambda: refresh_pairlist(*gate), 200),
+             cuda_ms(lambda: refresh_pairlist_plain(*gate, 0), 10,
+                     ahead=False)]
+    out["gate"] = {"ms": min(times[1:3]), "plain_ms": min(times[::3]),
+                   "bound_ms": gate_bound[0], "bound_by": gate_bound[1],
+                   "max_abs_err": 0.0}
+    other = s.x.add(1.0)
+    line = (f"{name} refresh gate, no atom past skin/2: list, positions "
+            f"and counts unchanged; f32 kernel {times[1]:.4f} / "
+            f"{times[2]:.4f} ms, plain {times[0]:.4f} / {times[3]:.4f} ms; "
+            f"bound {gbytes} bytes -> {gate_bound[0]:.6f} ms "
+            f"({gate_bound[1]}); host enqueue {host_us(
+                lambda: refresh_pairlist(*gate)):.1f} us a call (a torch "
+            f"elementwise op: {host_us(lambda: other.add_(0.0)):.1f})")
+    if refresh:
+        k = int(torch.nonzero(valid)[0])
+        x1 = s.x.clone()
+        x1[k, 0] += 0.6 * cfg.skin
+        args = fresh(s.x)
+        n0 = int(args[6][2])
+        xs = [x1, s.x]
+
+        def toggled(fn, *extra):
+            args[0] = xs[0]
+            fn(*args, *extra)
+            xs.reverse()
+        toggled(refresh_pairlist)
+        plain = cellgrid_pairlist_plain(x1, *bargs[1:])
+        torch.cuda.synchronize()
+        if not (torch.equal(args[4], plain[0])
+                and torch.equal(args[5], plain[1])
+                and torch.equal(args[7].x, x1) and int(args[6][2]) == n0 + 1):
+            raise AssertionError(f"{name} refresh: the rebuilt list is not "
+                                 f"the plain build's")
+        rt = [cuda_ms(lambda: toggled(refresh_pairlist_plain, 0), 3,
+                      ahead=False),
+              cuda_ms(lambda: toggled(refresh_pairlist), 50),
+              cuda_ms(lambda: toggled(refresh_pairlist), 50),
+              cuda_ms(lambda: toggled(refresh_pairlist_plain, 0), 3,
+                      ahead=False)]
+        S = 0 if h.stags is None else h.stags.shape[1]
+        b_ms, b_by, b_bytes, cand = build_bound(valid, cfg, K, S,
+                                                bool(h.exclude_bits))
+        r_bound = roof(int(9 * cand) + 18 * natoms, b_bytes + gbytes)
+        out["refresh"] = {"ms": min(rt[1:3]), "plain_ms": min(rt[::3]),
+                          "bound_ms": r_bound[0], "bound_by": r_bound[1],
+                          "max_abs_err": 0.0}
+        line += (f"; a rebuilding refresh = the plain build as arrays, f32 "
+                 f"kernel {rt[1]:.4f} / {rt[2]:.4f} ms, plain {rt[0]:.4f} / "
+                 f"{rt[3]:.4f} ms, bound {r_bound[0]:.6f} ms "
+                 f"({r_bound[1]})")
+    phase("kernel", line)
+    return out
+
+
+def list_counts() -> tuple:
+    """(build launches, refresh launches, plain calls) of the pair list's
+    wrappers since their reset."""
+    from tpumd_torch.ops import cellgrid_pairlist as bpl
+    return (bpl.counts.kernel_launches, bpl.refresh_counts.kernel_launches,
+            bpl.counts.plain_calls + bpl.refresh_counts.plain_calls)
+
+
+def reset_list_counts():
+    from tpumd_torch.ops import cellgrid_pairlist as bpl
+    bpl.counts.reset()
+    bpl.refresh_counts.reset()
 
 
 def build_entry(shapes) -> dict:
@@ -635,15 +843,61 @@ def small_deck_card_vs_cpu():
                   f"etotal {rows['cuda']['etotal']!r}")
 
 
+def upkeep_phrase(sim, builds: int, gates: int) -> str:
+    """The list's launches of a main path: builds (set-ups + rebuilds),
+    refresh launches and the refreshes they took."""
+    nb = int(sim._carry[1].nbuilds) - 1
+    return (f"cellgrid_pairlist builds {builds} = {sim.grid_setups} grid "
+            f"set-ups + {nb} rebuilds, refresh launches {gates}, refreshes "
+            f"taken {sim.list_refreshes}")
+
+
+def window_end_check(name: str, script, steps: int):
+    """Run steps more steps, to the end of a re-bin window where the list
+    is stalest, and hold B1 or B4 over the carried list against its
+    stencil oracle there, both in f64 on the run's f32 state, so that
+    rounding leaves them at summation order (TOL_ORACLE) and a pair the
+    list missed would show far above it."""
+    from tpumd_torch.core.state import Box
+    from tpumd_torch.ops.eam_cellgrid import eam_force_cellgrid, \
+        eam_force_cellgrid_plain, eam_rho_cellgrid_plain
+    from tpumd_torch.ops.lj_cellgrid import lj_cellgrid, lj_cellgrid_plain
+    sim = script.sim
+    script.run_string(f"run {steps}")
+    s, neigh, _ = sim._carry
+    cfg = sim._neigh_cfg
+    x, box = s.x.double(), Box(lo=s.box.lo.double(), hi=s.box.hi.double())
+    plist = (neigh.pairs, neigh.npairs, neigh.row2slot)
+    if name == "in.lj":
+        c = sim.pair.kernel_coeffs()
+        fk = lj_cellgrid(x, neigh.valid, box, cfg, c, 0, 0, plist)[0]
+        fo = lj_cellgrid_plain(x, neigh.valid, box, cfg, c, 0, 0)[0]
+    else:
+        tab = sim.pair.kernel_tables(x)
+        _, fp, _ = eam_rho_cellgrid_plain(x, neigh.valid, box, cfg, tab, 0)
+        fk = eam_force_cellgrid(x, neigh.valid, fp, box, cfg, tab, 0, 0,
+                                plist)[0]
+        fo = eam_force_cellgrid_plain(x, neigh.valid, fp, box, cfg, tab, 0,
+                                      0)[0]
+    tol = TOL_ORACLE[torch.float64]
+    err = check_close(f"{name} step {sim.step}, list against stencil", fk,
+                      fo, (), (), None, None, tol, False, False)
+    phase("main", f"{name} step {sim.step} ({neigh.ago} steps after its "
+                  f"re-bin), in f64: the sweep over the carried list = the "
+                  f"stencil oracle to {err:.3g} max|f| (tol {tol:g}); "
+                  f"{sim.list_refreshes} refreshes since set-up")
+
+
 def main_path(smi: str) -> dict:
     from tpumd_torch.bench_targets import IN_LJ, SANITY, STEP0, STEP0_RTOL, \
         gate_failures
-    from tpumd_torch.ops.cellgrid_pairlist import counts as list_counts
+    from tpumd_torch.ops import lj_fene_cellgrid
     from tpumd_torch.ops.lj_cellgrid import counts
     from tpumd_torch.script.parser import LammpsScript
 
     counts.reset()
-    list_counts.reset()
+    lj_fene_cellgrid.counts.reset()
+    reset_list_counts()
     t0 = time.perf_counter()
     script = LammpsScript(device="cuda", dtype=torch.float32)
     script.run_string(IN_LJ.format(n=20))
@@ -666,33 +920,46 @@ def main_path(smi: str) -> dict:
     script.run_string("run 500")
     dt = sim.loop_time - lt0
     launches, plain = counts.kernel_launches, counts.plain_calls
+    builds, gates, list_plain = list_counts()
+    plain += list_plain + lj_fene_cellgrid.counts.plain_calls
+    refreshes = sim.list_refreshes
     # setup evaluates once; each run of n > 0 steps with thermo 0 is one
     # segment: n in-step evaluations plus one energy evaluation
     force_evals = 1 + (100 + 1) + 2 * (500 + 1)
-    builds = list_counts.kernel_launches + list_counts.plain_calls
-    if launches < force_evals or plain != 0 or builds:
-        raise AssertionError(f"kernel launches {launches} < force "
+    list_builds = sim.grid_setups + int(sim._carry[1].nbuilds) - 1
+    # every step that does not re-bin gates a refresh (check no)
+    unbinned = 1100 - (int(sim._carry[1].nbuilds) - 1)
+    if (launches != force_evals or plain != 0 or builds != list_builds
+            or gates != unbinned or lj_fene_cellgrid.counts.kernel_launches):
+        raise AssertionError(f"kernel launches {launches} != force "
                              f"evaluations {force_evals}, or plain calls "
-                             f"{plain} != 0, or list builds {builds} != 0")
+                             f"{plain} != 0, or list builds {builds} != "
+                             f"{list_builds}, or refresh launches {gates} != "
+                             f"steps without a re-bin {unbinned}")
     s = sim.state
     if (tuple(s.x.shape) != (sim._neigh_cfg.capacity, 3)
             or not torch.isfinite(s.x).all()
             or sorted(s.tag[s.tag > 0].tolist()) != list(range(1, 32001))):
         raise AssertionError("final state malformed")
     sps = 500 / dt
+    neigh = sim._carry[1]
     phase("main", f"32k in.lj f32: set-up {setup_s:.3f} s (deck, grid, "
-                  f"first forces; library already loaded), step 0 "
-                  f"and step 100 gates pass (step 100 temp "
-                  f"{row100['temp']!r} epair {row100['epair']!r} etotal "
-                  f"{row100['etotal']!r}); step 1200 etotal "
+                  f"list K {sim._ctx.pairlist_k}, first forces; library "
+                  f"already loaded), step 0 and step 100 gates pass (step "
+                  f"100 temp {row100['temp']!r} epair {row100['epair']!r} "
+                  f"etotal {row100['etotal']!r}); step 1200 etotal "
                   f"{sim.last_thermo['etotal']!r}")
     phase("main", f"timed 500 steps: {sps:.2f} timesteps/s, "
                   f"{sps * 32000 / 1e6:.3f} Matom-step/s on {smi}; kernel "
-                  f"launches {launches} >= force evaluations {force_evals}, "
-                  f"plain calls {plain}, pair list builds {builds} (the "
-                  f"stencil)")
+                  f"launches {launches} = force evaluations {force_evals}, "
+                  f"plain calls {plain}; " + upkeep_phrase(sim, builds, gates)
+                  + f"; longest row {int(neigh.max_pairs)}")
     phase("main", "in.lj " + profile_steps(script, 100, 1e3 / sps))
-    return {"launches": launches, "sps": sps}
+    # the counts are read: these launches are not the run's
+    window_end_check("in.lj", script, 19)
+    upkeep = time_upkeep("in.lj", sim)
+    return {"launches": launches, "sps": sps, "build_launches": builds,
+            "gates": gates, "refreshes": refreshes, "upkeep": upkeep}
 
 
 def small_chain_card_vs_cpu(tmp: Path):
@@ -750,14 +1017,13 @@ def chain_main_path(tmp: Path, smi: str) -> dict:
     from tpumd_torch.bench_targets import CHAIN_SANITY, CHAIN_STEP0, \
         STEP0_RTOL, gate_failures
     from tpumd_torch.ops import cellgrid as cg
-    from tpumd_torch.ops import cellgrid_pairlist, lj_cellgrid, \
-        lj_fene_cellgrid
+    from tpumd_torch.ops import lj_cellgrid, lj_fene_cellgrid
 
     chain_data_path = tmp / "data.chain.32000"
     chain_data_path.unlink(missing_ok=True)   # its making counts as set-up
-    blist = cellgrid_pairlist.counts
-    for c in (lj_cellgrid.counts, lj_fene_cellgrid.counts, blist):
+    for c in (lj_cellgrid.counts, lj_fene_cellgrid.counts):
         c.reset()
+    reset_list_counts()
     t0 = time.perf_counter()
     script = chain_setup(tmp, 32000, 100, "cuda", torch.float32)
     sim = script.sim
@@ -782,22 +1048,24 @@ def chain_main_path(tmp: Path, smi: str) -> dict:
     dt = sim.loop_time - lt0
     rebuilds = int(sim._carry[1].nbuilds) - nb0
     launches = lj_fene_cellgrid.counts.kernel_launches
+    builds, gates, list_plain = list_counts()
     plain = (lj_fene_cellgrid.counts.plain_calls
-             + lj_cellgrid.counts.plain_calls + blist.plain_calls)
+             + lj_cellgrid.counts.plain_calls + list_plain)
     lj_launches = lj_cellgrid.counts.kernel_launches
     # setup evaluates once; a run of n steps at thermo 100 is n in-step
     # evaluations plus one energy evaluation per 100 steps
     force_evals = 1 + (100 + 1) + 2 * (500 + 5)
-    # a list for each fresh grid (set-up, re-bins) and each rebuild
-    builds = blist.kernel_launches
+    # a list for each fresh grid (set-up, re-bins) and each rebuild; no
+    # refresh: the schedule checks every step
     list_builds = sim.grid_setups + int(sim._carry[1].nbuilds) - 1
     if (launches != force_evals or plain != 0 or lj_launches != 0
-            or builds != list_builds):
+            or builds != list_builds or gates):
         raise AssertionError(f"lj_fene launches {launches} != force "
                              f"evaluations {force_evals}, or plain calls "
                              f"{plain} != 0, or lj launches {lj_launches}, "
                              f"or list builds {builds} != set-ups and "
-                             f"rebuilds {list_builds}")
+                             f"rebuilds {list_builds}, or refresh launches "
+                             f"{gates}")
     s = sim.state
     if (tuple(s.x.shape) != (sim._neigh_cfg.capacity, 3)
             or not torch.isfinite(s.x).all()
@@ -816,9 +1084,10 @@ def chain_main_path(tmp: Path, smi: str) -> dict:
                   f"{rebuilds} rebuilds; lj_fene launches {launches} = "
                   f"force evaluations {force_evals}, cellgrid_pairlist "
                   f"launches {builds} = {sim.grid_setups} grid set-ups + "
-                  f"{list_builds - sim.grid_setups} rebuilds, plain calls "
-                  f"{plain}; list K {sim._ctx.pairlist_k}, longest row "
-                  f"{int(sim._carry[1].max_pairs)}")
+                  f"{list_builds - sim.grid_setups} rebuilds, refresh "
+                  f"launches {gates} (the schedule checks every step), "
+                  f"plain calls {plain}; list K {sim._ctx.pairlist_k}, "
+                  f"longest row {int(sim._carry[1].max_pairs)}")
     # the per-step rebuild check (every 1 delay 1 check yes) reads one
     # flag from the card: its cost alone, on the final state
     st, neigh, _ = sim._carry
@@ -855,22 +1124,25 @@ def eam_setup(potential: Path, n: int, device, dtype, thermo: int = 50):
 
 
 def eam_kernels_vs_plain(tmp: Path) -> tuple[dict, dict]:
-    """B3 and B4 against their plain versions on perturbed in.eam
-    lattices; both force passes take the plain density pass's F'."""
+    """B3 against its plain version and B4 over the list against its plain
+    list sweep and the stencil oracle on perturbed in.eam lattices; both
+    force passes take the plain density pass's F'."""
     from tpumd_torch.models.pair_eam import PairEAM
     from tpumd_torch.ops.eam_cellgrid import eam_force_cellgrid, \
-        eam_force_cellgrid_plain, eam_rho_cellgrid, eam_rho_cellgrid_plain
+        eam_force_cellgrid_plain, eam_force_pairlist_plain, \
+        eam_rho_cellgrid, eam_rho_cellgrid_plain
     pair = PairEAM(1)
     pair.coeff(1, 1, 1, 1, str(eam_potential(tmp)))
     pair.init()
     k_rho, k_force = {}, {}
     for nlat in (20, 4):
         for dtype in (torch.float32, torch.float64):
-            x, valid, box, cfg = perturbed_grid(nlat, 17 + nlat, "cuda",
-                                                dtype, eam=True)
+            x, valid, box, cfg, plist = perturbed_grid(nlat, 17 + nlat,
+                                                       "cuda", dtype,
+                                                       eam=True)
             tab = pair.kernel_tables(x)
             tol = TOL[dtype]
-            worst = 0.0
+            worst = (0.0, 0.0)
             for eflag, vflag in ((0, 0), (1, 1), (1, 0), (0, 1)):
                 what = f"eam {nlat}^3 {dtype} e{eflag}v{vflag}"
                 rk, fpk, ek = eam_rho_cellgrid(x, valid, box, cfg, tab, eflag)
@@ -882,27 +1154,34 @@ def eam_kernels_vs_plain(tmp: Path) -> tuple[dict, dict]:
                     err = float((a - b).abs().max())
                     if not err <= tol * float(b.abs().max()):
                         raise AssertionError(f"{what} {name}: {err}")
-                fk, ek, wk = eam_force_cellgrid(x, valid, fpp, box, cfg, tab,
-                                                eflag, vflag)
-                fp, ep, wp = eam_force_cellgrid_plain(x, valid, fpp, box, cfg,
-                                                      tab, eflag, vflag)
-                worst = max(worst, check_close(what, fk, fp, (ek,), (ep,),
-                                               wk, wp, tol, eflag, vflag))
+                errs = check_list_sweep(
+                    what, eam_force_cellgrid(x, valid, fpp, box, cfg, tab,
+                                             eflag, vflag, plist),
+                    eam_force_pairlist_plain(x, fpp, box, tab, eflag, vflag,
+                                             *plist[:2]),
+                    eam_force_cellgrid_plain(x, valid, fpp, box, cfg, tab,
+                                             eflag, vflag),
+                    dtype, eflag, vflag)
+                worst = tuple(map(max, worst, errs))
             phase("kernel", f"eam_rho_cellgrid + eam_force_cellgrid grid "
-                            f"{cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cap} "
-                            f"{str(dtype)[6:]}: rho, F', F(rho) within tol; "
-                            f"max|f_kernel - f_plain| = {worst:.3g} max|f| "
-                            f"(tol {tol:g}), pair energy and virial within "
-                            f"tol")
+                            f"{cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cap} K "
+                            f"{plist[0].shape[1]} {str(dtype)[6:]}: rho, F', "
+                            f"F(rho) within tol; max|f_kernel - f_plain| = "
+                            f"{worst[0]:.3g} max|f| against the plain list "
+                            f"sweep (tol {TOL_LIST[dtype]:g}), {worst[1]:.3g}"
+                            f" against the stencil oracle (tol "
+                            f"{TOL_ORACLE[dtype]:g}), pair energy and "
+                            f"virial within {tol:g}")
             if nlat != 20 or dtype != torch.float32:
                 continue
             _, fpp, _ = eam_rho_cellgrid_plain(x, valid, box, cfg, tab, 0)
             rk, _, _ = eam_rho_cellgrid(x, valid, box, cfg, tab, 0)
             rp, _, _ = eam_rho_cellgrid_plain(x, valid, box, cfg, tab, 0)
             k_rho["max_abs_err"] = float((rk - rp).abs().max())
-            fk, _, _ = eam_force_cellgrid(x, valid, fpp, box, cfg, tab, 0, 0)
-            fp, _, _ = eam_force_cellgrid_plain(x, valid, fpp, box, cfg, tab,
-                                                0, 0)
+            fk, _, _ = eam_force_cellgrid(x, valid, fpp, box, cfg, tab, 0, 0,
+                                          plist)
+            fp, _, _ = eam_force_pairlist_plain(x, fpp, box, tab, 0, 0,
+                                                *plist[:2])
             k_force["max_abs_err"] = float((fk - fp).abs().max())
             k_rho.update(time_kernel(
                 "eam_rho_cellgrid",
@@ -912,11 +1191,13 @@ def eam_kernels_vs_plain(tmp: Path) -> tuple[dict, dict]:
             k_force.update(time_kernel(
                 "eam_force_cellgrid",
                 lambda: eam_force_cellgrid(x, valid, fpp, box, cfg, tab, 0,
-                                           0),
-                lambda: eam_force_cellgrid_plain(x, valid, fpp, box, cfg,
-                                                 tab, 0, 0),
+                                           0, plist),
+                lambda: eam_force_pairlist_plain(x, fpp, box, tab, 0, 0,
+                                                 *plist[:2]),
                 lambda: eam_force_cellgrid(x, valid, fpp, box, cfg, tab, 1,
-                                           1)))
+                                           1, plist)))
+            stencil_ms = cuda_ms(lambda: eam_force_cellgrid_plain(
+                x, valid, fpp, box, cfg, tab, 0, 0), 10, ahead=False)
             npair, _ = pair_counts(x, valid, box, cfg, tab.cutsq)
             natoms = int(valid.sum())
             np_ = cfg.capacity
@@ -928,18 +1209,27 @@ def eam_kernels_vs_plain(tmp: Path) -> tuple[dict, dict]:
             nbytes_f = np_ * (12 + 1 + 4 + 12) + 12 + tables
             k_force["bound_ms"], k_force["bound_by"] = roof(
                 npair * OPS_EAM_FORCE_PAIR, nbytes_f)
+            floor = (4 * int(plist[1].sum()) + 4 * np_ + 8 * natoms)
+            floor_ms, floor_by = roof(npair * OPS_EAM_FORCE_PAIR,
+                                      nbytes_f + floor)
             cand = np_ * 27 * cfg.cap
+            entries = int(plist[1].sum())
             rows, hits = warp_rows(x, valid, box, cfg, tab.cutsq)
             phase("kernel", f"eam bounds: {npair} unordered in-cutoff pairs "
-                            f"({2 * npair / cand:.4%} of {cand} candidates "
-                            f"(i, j)); of {rows} candidate rows (one j "
+                            f"({2 * npair / cand:.4%} of {cand} stencil "
+                            f"candidates (i, j), {2 * npair / entries:.2%} "
+                            f"of {entries} list entries, "
+                            f"{entries / natoms:.2f} a row); of {rows} "
+                            f"candidate rows of the density pass (one j "
                             f"against a cell's slots), {hits / rows:.2%} "
-                            f"hold a pair in range; "
-                            f"{natoms} atoms; density pass {nbytes} "
-                            f"bytes -> {k_rho['bound_ms']:.6f} ms "
-                            f"({k_rho['bound_by']}); force pass {nbytes_f} "
-                            f"bytes -> {k_force['bound_ms']:.6f} ms "
-                            f"({k_force['bound_by']})")
+                            f"hold a pair in range; {natoms} atoms; density "
+                            f"pass {nbytes} bytes -> {k_rho['bound_ms']:.6f}"
+                            f" ms ({k_rho['bound_by']}); force pass "
+                            f"{nbytes_f} bytes -> {k_force['bound_ms']:.6f} "
+                            f"ms ({k_force['bound_by']}), the list's floor "
+                            f"{floor} bytes more -> {floor_ms:.6f} ms "
+                            f"({floor_by}); the force pass's stencil oracle "
+                            f"{stencil_ms:.4f} ms")
     return k_rho, k_force
 
 
@@ -967,18 +1257,16 @@ def small_eam_card_vs_cpu(tmp: Path):
                   f"{rows['cuda'][0]['etotal']!r}")
 
 
-def eam_main_path(tmp: Path, smi: str) -> tuple[dict, dict]:
+def eam_main_path(tmp: Path, smi: str) -> tuple[dict, dict, dict]:
     from tpumd_torch.bench_targets import EAM_SANITY, EAM_STEP0, \
         STEP0_RTOL, gate_failures
-    from tpumd_torch.ops import cellgrid_pairlist, eam_cellgrid, \
-        lj_cellgrid, lj_fene_cellgrid
+    from tpumd_torch.ops import eam_cellgrid, lj_cellgrid, lj_fene_cellgrid
 
-    # the pair list's build among them: eam sweeps the stencil
-    others = (lj_cellgrid.counts, lj_fene_cellgrid.counts,
-              cellgrid_pairlist.counts)
+    others = (lj_cellgrid.counts, lj_fene_cellgrid.counts)
     rho_c, force_c = eam_cellgrid.rho_counts, eam_cellgrid.force_counts
     for c in (rho_c, force_c) + others:
         c.reset()
+    reset_list_counts()
     t0 = time.perf_counter()
     script = eam_setup(eam_potential(tmp), 20, "cuda", torch.float32)
     sim = script.sim
@@ -1000,15 +1288,26 @@ def eam_main_path(tmp: Path, smi: str) -> tuple[dict, dict]:
     dt = sim.loop_time - lt0
     rebuilds = int(sim._carry[1].nbuilds) - nb0
     launches = (rho_c.kernel_launches, force_c.kernel_launches)
-    plain = sum(c.plain_calls for c in (rho_c, force_c) + others)
+    builds, gates, list_plain = list_counts()
+    plain = list_plain + sum(c.plain_calls for c in (rho_c, force_c)
+                             + others)
     other = sum(c.kernel_launches for c in others)
+    refreshes = sim.list_refreshes
     # setup evaluates once; a run of n steps at thermo 50 is n in-step
     # evaluations plus one energy evaluation per 50 steps
     force_evals = 1 + (100 + 2) + 2 * (500 + 10)
-    if launches != (force_evals, force_evals) or plain or other:
+    list_builds = sim.grid_setups + int(sim._carry[1].nbuilds) - 1
+    # the steps before the delay gate a refresh, and after it every step
+    # that does not re-bin once a gate ran since the re-bin: at most
+    # every step without a re-bin
+    unbinned = 1100 - (int(sim._carry[1].nbuilds) - 1)
+    if (launches != (force_evals, force_evals) or plain or other
+            or builds != list_builds or not 0 < gates <= unbinned):
         raise AssertionError(f"eam launches {launches} != force evaluations "
                              f"{force_evals}, or plain calls {plain}, or "
-                             f"other kernels' launches {other}")
+                             f"other kernels' launches {other}, or list "
+                             f"builds {builds} != {list_builds}, or refresh "
+                             f"launches {gates} not in 1..{unbinned}")
     s = sim.state
     if (tuple(s.x.shape) != (sim._neigh_cfg.capacity, 3)
             or not torch.isfinite(s.x).all()
@@ -1017,18 +1316,25 @@ def eam_main_path(tmp: Path, smi: str) -> tuple[dict, dict]:
     sps = 500 / dt
     cfg = sim._neigh_cfg
     phase("main", f"32k in.eam f32: set-up {setup_s:.3f} s (potential file, "
-                  f"deck, grid {cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cap}, "
-                  f"first forces), step 0 and step 100 gates pass (step 100 "
-                  f"temp {row100['temp']!r} epair {row100['epair']!r} "
-                  f"etotal {row100['etotal']!r}); step 1100 etotal "
-                  f"{sim.last_thermo['etotal']!r}")
+                  f"deck, grid {cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cap}, list "
+                  f"K {sim._ctx.pairlist_k}, first forces), step 0 and step "
+                  f"100 gates pass (step 100 temp {row100['temp']!r} epair "
+                  f"{row100['epair']!r} etotal {row100['etotal']!r}); step "
+                  f"1100 etotal {sim.last_thermo['etotal']!r}")
     phase("main", f"eam timed 500 steps: {sps:.2f} timesteps/s, "
                   f"{sps * 32000 / 1e6:.3f} Matom-step/s on {smi}; "
                   f"{rebuilds} rebuilds; eam_rho / eam_force launches "
                   f"{launches[0]} / {launches[1]} = force evaluations "
-                  f"{force_evals}, plain calls {plain}")
+                  f"{force_evals}, plain calls {plain}; "
+                  + upkeep_phrase(sim, builds, gates) + f"; longest row "
+                  f"{int(sim._carry[1].max_pairs)}")
     phase("main", "eam " + profile_steps(script, 100, 1e3 / sps))
-    return {"launches": launches[0]}, {"launches": launches[1]}
+    # the counts are read: these launches are not the run's
+    window_end_check("eam", script, 4)
+    upkeep = time_upkeep("eam", sim, refresh=True)
+    return ({"launches": launches[0]}, {"launches": launches[1]},
+            {"build_launches": builds, "gates": gates,
+             "refreshes": refreshes, "upkeep": upkeep})
 
 
 def rhodo_setup(replicate: str, device, dtype, thermo: int = 0):
@@ -1259,14 +1565,16 @@ def small_rhodo_card_vs_cpu():
 def rhodo_main_path(smi: str) -> dict:
     from tpumd_torch.bench_targets import RHODO_STEP0, RHODO_STEP100, \
         STEP0_RTOL, gate_failures
-    from tpumd_torch.ops import cellgrid_pairlist, charmm_cellgrid, \
-        eam_cellgrid, lj_cellgrid, lj_fene_cellgrid
+    from tpumd_torch.core.state import Box
+    from tpumd_torch.ops import charmm_cellgrid, eam_cellgrid, lj_cellgrid, \
+        lj_fene_cellgrid
 
     others = (lj_cellgrid.counts, lj_fene_cellgrid.counts,
               eam_cellgrid.rho_counts, eam_cellgrid.force_counts)
-    b5, blist = charmm_cellgrid.counts, cellgrid_pairlist.counts
-    for c in (b5, blist) + others:
+    b5 = charmm_cellgrid.counts
+    for c in (b5,) + others:
         c.reset()
+    reset_list_counts()
     t0 = time.perf_counter()
     script = rhodo_setup("2 2 4", "cuda", torch.float32)
     sim = script.sim
@@ -1289,9 +1597,10 @@ def rhodo_main_path(smi: str) -> dict:
     dt = sim.loop_time - lt0
     rebuilds = int(sim._carry[1].nbuilds) - nb0
     launches, plain = b5.kernel_launches, b5.plain_calls
-    builds = blist.kernel_launches
+    builds, gates, list_plain = list_counts()
+    refreshes = sim.list_refreshes
     other = sum(c.kernel_launches for c in others)
-    plain += blist.plain_calls + sum(c.plain_calls for c in others)
+    plain += list_plain + sum(c.plain_calls for c in others)
     # setup evaluates once; a run of n > 0 steps without thermo output is
     # one segment: n in-step evaluations plus one energy evaluation
     force_evals = 1 + (100 + 1) + 2 * (500 + 1)
@@ -1313,18 +1622,21 @@ def rhodo_main_path(smi: str) -> dict:
     sps = 500 / dt
     cfg, ks = sim._neigh_cfg, sim.kspace
     # no pair within range is missing from the list at the end of the run:
-    # the kernel over it equals the stencil oracle on the final state
+    # the kernel over it equals the stencil oracle on the final state, both
+    # in f64, where they differ by summation order only (in f32 the two
+    # sums of ~400 Coulomb terms differ by up to ~8e-5 of max|f|)
     s, neigh, _ = sim._carry
-    c = sim.pair.kernel_coeffs(s.x, *sim._special_weights())
-    fk = charmm_cellgrid.charmm_cellgrid(s.x, s.q, s.type, neigh.pairs,
-                                         neigh.npairs, s.box, cfg, c, 0,
-                                         0)[0]
+    x, q = s.x.double(), s.q.double()
+    box = Box(lo=s.box.lo.double(), hi=s.box.hi.double())
+    c = sim.pair.kernel_coeffs(x, *sim._special_weights())
+    fk = charmm_cellgrid.charmm_cellgrid(x, q, s.type, neigh.pairs,
+                                         neigh.npairs, box, cfg, c, 0, 0)[0]
     fo = charmm_cellgrid.charmm_cellgrid_plain(
-        s.x, s.q, s.type, neigh.valid, s.tag, s.special_tags,
-        s.special_codes, s.box, cfg, c, 0, 0)[0]
+        x, q, s.type, neigh.valid, s.tag, s.special_tags, s.special_codes,
+        box, cfg, c, 0, 0)[0]
     end_err = check_close("rhodo_class step 1200, list against stencil",
-                          fk, fo, (), (), None, None, TOL[torch.float32],
-                          False, False)
+                          fk, fo, (), (), None, None,
+                          TOL_ORACLE[torch.float64], False, False)
     phase("main", f"32k rhodo_class f32: set-up {setup_s:.3f} s (data file, "
                   f"replicate, SHAKE clusters, PPPM mesh {ks.nx}x{ks.ny}x"
                   f"{ks.nz} g_ewald {float(ks.g_ewald)!r}, grid {cfg.nx}x{cfg.ny}x"
@@ -1336,20 +1648,22 @@ def rhodo_main_path(smi: str) -> dict:
                   f"reference binary's gates; step 1200 etotal "
                   f"{sim.last_thermo['etotal']!r}, lz "
                   f"{sim.last_thermo['lz']!r}; there B5 over the list = "
-                  f"the stencil oracle to {end_err:.3g} max|f| (tol "
-                  f"{TOL[torch.float32]:g}), longest row "
+                  f"the stencil oracle in f64 to {end_err:.3g} max|f| (tol "
+                  f"{TOL_ORACLE[torch.float64]:g}), longest row "
                   f"{int(neigh.max_pairs)} of K {sim._ctx.pairlist_k}")
     phase("main", f"rhodo_class timed 500 steps: {sps:.2f} timesteps/s, "
                   f"{sps * n / 1e6:.3f} Matom-step/s on {smi}; {rebuilds} "
                   f"rebuilds; charmm_cellgrid launches {launches} = force "
-                  f"evaluations {force_evals}, cellgrid_pairlist launches "
-                  f"{builds} = {sim.grid_setups} grid set-ups + "
-                  f"{list_builds - sim.grid_setups} rebuilds, plain calls "
+                  f"evaluations {force_evals}, " + upkeep_phrase(
+                      sim, builds, gates) + f" (delay 5), plain calls "
                   f"{plain}, other kernels' launches {other}")
     phase("main", "rhodo_class " + profile_steps(script, 100, 1e3 / sps))
     phase("main", "rhodo_class step parts, host clock to a synchronize, "
                   "ms per call on the final state: " + rhodo_breakdown(sim))
-    return {"launches": launches, "build_launches": builds}
+    upkeep = time_upkeep("rhodo_class", sim, build=False,
+                         refresh=refreshes > 0)
+    return {"launches": launches, "build_launches": builds, "gates": gates,
+            "refreshes": refreshes, "upkeep": upkeep}
 
 
 def rhodo_breakdown(sim, reps: int = 20) -> str:
@@ -1607,15 +1921,16 @@ def small_chute_card_vs_cpu(tmp: Path):
 def chute_main_path(tmp: Path, smi: str) -> dict:
     from tpumd_torch.bench_targets import CHUTE_STEP0, CHUTE_STEP100, \
         STEP0_RTOL, chute_data, gate_failures
-    from tpumd_torch.ops import cellgrid_pairlist, charmm_cellgrid, \
-        eam_cellgrid, gran_cellgrid, lj_cellgrid, lj_fene_cellgrid
+    from tpumd_torch.ops import charmm_cellgrid, eam_cellgrid, \
+        gran_cellgrid, lj_cellgrid, lj_fene_cellgrid
 
     others = (lj_cellgrid.counts, lj_fene_cellgrid.counts,
               eam_cellgrid.rho_counts, eam_cellgrid.force_counts,
               charmm_cellgrid.counts)
-    b6, blist = gran_cellgrid.counts, cellgrid_pairlist.counts
-    for c in (b6, blist) + others:
+    b6 = gran_cellgrid.counts
+    for c in (b6,) + others:
         c.reset()
+    reset_list_counts()
     data = tmp / "data.chute.32000"
     t0 = time.perf_counter()
     chute_data(data)
@@ -1641,15 +1956,16 @@ def chute_main_path(tmp: Path, smi: str) -> dict:
     rebuilds = int(sim._carry[1].nbuilds) - nb0
     launches, plain = b6.kernel_launches, b6.plain_calls
     other = sum(c.kernel_launches for c in others)
-    plain += blist.plain_calls + sum(c.plain_calls for c in others)
+    builds, gates, list_plain = list_counts()
+    plain += list_plain + sum(c.plain_calls for c in others)
     # setup evaluates once; a run of n steps at thermo 100 is n in-step
     # evaluations plus one read-only evaluation per 100 steps
     force_evals = 1 + (100 + 1) + 2 * (500 + 5)
-    # a list for each fresh grid (set-up, re-bins) and each rebuild
-    builds = blist.kernel_launches
+    # a list for each fresh grid (set-up, re-bins) and each rebuild; no
+    # refresh: the schedule checks every step
     list_builds = sim.grid_setups + int(sim._carry[1].nbuilds) - 1
     if (launches != force_evals or plain or other
-            or builds != list_builds):
+            or builds != list_builds or gates):
         raise AssertionError(f"gran launches {launches} != force "
                              f"evaluations {force_evals}, or plain calls "
                              f"{plain}, or other kernels' launches {other},"
@@ -1677,9 +1993,10 @@ def chute_main_path(tmp: Path, smi: str) -> dict:
                   f"{rebuilds} rebuilds; gran_cellgrid launches {launches} "
                   f"= force evaluations {force_evals}, cellgrid_pairlist "
                   f"launches {builds} = {sim.grid_setups} grid set-ups + "
-                  f"{list_builds - sim.grid_setups} rebuilds, plain calls "
-                  f"{plain}, other kernels' launches {other}; list K "
-                  f"{sim._ctx.pairlist_k}, longest row "
+                  f"{list_builds - sim.grid_setups} rebuilds, refresh "
+                  f"launches {gates} (the schedule checks every step), "
+                  f"plain calls {plain}, other kernels' launches {other}; "
+                  f"list K {sim._ctx.pairlist_k}, longest row "
                   f"{int(neigh.max_pairs)}")
     phase("main", "chute " + profile_steps(script, 100, 1e3 / sps))
     return {"launches": launches, "sps": sps, "build_launches": builds}
@@ -1954,12 +2271,13 @@ def matrix_main_path(tmp: Path, smi: str, grid_sps: dict) -> dict:
     0; no cell-grid kernel) and a profile of 100 steps."""
     from tpumd_torch.bench_targets import CHUTE_STEP0, CHUTE_STEP100, \
         IN_LJ, SANITY, STEP0, STEP0_RTOL, chute_data, gate_failures
-    from tpumd_torch.ops import charmm_cellgrid, eam_cellgrid, gather, \
-        gran_cellgrid, lj_cellgrid, lj_fene_cellgrid
+    from tpumd_torch.ops import cellgrid_pairlist, charmm_cellgrid, \
+        eam_cellgrid, gather, gran_cellgrid, lj_cellgrid, lj_fene_cellgrid
     from tpumd_torch.script.parser import LammpsScript
     grid = (lj_cellgrid.counts, lj_fene_cellgrid.counts,
             eam_cellgrid.rho_counts, eam_cellgrid.force_counts,
-            charmm_cellgrid.counts, gran_cellgrid.counts)
+            charmm_cellgrid.counts, gran_cellgrid.counts,
+            cellgrid_pairlist.counts, cellgrid_pairlist.refresh_counts)
     data = tmp / "data.chute.32000"
     if not data.exists():
         chute_data(data)
@@ -2065,7 +2383,7 @@ def main():
         m_fene = chain_main_path(tmp, smi)
         k_rho, k_force = eam_kernels_vs_plain(tmp)
         small_eam_card_vs_cpu(tmp)
-        m_rho, m_force = eam_main_path(tmp, smi)
+        m_rho, m_force, m_eam_list = eam_main_path(tmp, smi)
     k_charmm, k_list = charmm_kernel_vs_plain(log)
     small_rhodo_card_vs_cpu()
     m_charmm = rhodo_main_path(smi)
@@ -2079,14 +2397,26 @@ def main():
         golden_matrix_decks()
         m_gather = matrix_main_path(tmp, smi, {"in.lj": m_lj["sps"],
                                                "chute": m_gran["sps"]})
-    k_build = build_entry((
-        ("rhodo_class", k_list, m_charmm["build_launches"]),
-        ("chain", k_fene["list"], m_fene["build_launches"]),
-        ("chute", k_gran["list"], m_gran["build_launches"])))
+    # the list kernels' launches on the main paths: builds at set-up and
+    # re-bins, and refresh launches, most of which pass the gate and
+    # return (those that rebuild are the refreshes taken)
+    upkeep = [("rhodo_class", k_list, m_charmm["build_launches"]),
+              ("chain", k_fene["list"], m_fene["build_launches"]),
+              ("chute", k_gran["list"], m_gran["build_launches"])]
+    for name, m in (("in.lj", m_lj), ("eam", m_eam_list),
+                    ("rhodo_class", m_charmm)):
+        u = m["upkeep"]
+        if "build" in u:
+            upkeep.append((name, u["build"], m["build_launches"]))
+        upkeep.append((f"{name} gate", u["gate"],
+                       m["gates"] - m["refreshes"]))
+        if m["refreshes"]:
+            upkeep.append((f"{name} refresh", u["refresh"], m["refreshes"]))
+    k_build = build_entry(upkeep)
     kernels = []
     eam_src = "tpumd_torch/csrc/eam_cellgrid.cu"
     for name, src, replaces, k, m in (
-            ("lj_cellgrid", "tpumd_torch/csrc/lj_cellgrid.cu",
+            ("lj_cellgrid", "tpumd_torch/csrc/lj_fene_cellgrid.cu",
              "tpumd/ops/pallas_lj.py:25", k_lj, m_lj),
             ("lj_fene_cellgrid", "tpumd_torch/csrc/lj_fene_cellgrid.cu",
              "tpumd/ops/pallas_lj.py:146", k_fene, m_fene),
@@ -2098,8 +2428,7 @@ def main():
              "tpumd/ops/pallas_charmm.py:43", k_charmm, m_charmm),
             ("cellgrid_pairlist", "tpumd_torch/csrc/cellgrid_pairlist.cu",
              "tpumd/ops/pallas_charmm.py:43", k_build,
-             {"launches": m_charmm["build_launches"]
-              + m_fene["build_launches"] + m_gran["build_launches"]}),
+             {"launches": sum(nb for _, _, nb in upkeep)}),
             ("gran_cellgrid", "tpumd_torch/csrc/gran_cellgrid.cu",
              "tpumd/ops/pallas_gran.py:42", k_gran, m_gran),
             ("row_gather", "tpumd_torch/csrc/row_gather.cu",

@@ -1,22 +1,28 @@
-"""The chain and chute slices of several checkouts of the repo on one card,
-timed alike: B2's and B6's kernel times beside their plain versions, and
-the two 32k decks' timesteps/s, device busy and operations a step.
+"""The slices of several checkouts of the repo on one card, timed alike:
+each slice's kernel times beside their plain versions, and its 32k deck's
+timesteps/s, device busy and operations a step.
 
 Run from the repository root:
-``python3 probes/tree_compare.py DIR [DIR ...]``, for example with an
-older commit unpacked by ``git archive`` into a git-ignored directory:
+``python3 probes/tree_compare.py [--phases P,...] DIR [DIR ...]``, for
+example with an older commit unpacked by ``git archive`` into a
+git-ignored directory:
 ``python3 probes/tree_compare.py build/parent . . build/parent``.
 
 Each DIR runs in a process of its own (each imports its own
 ``tpumd_torch``), in the order given.  The process builds DIR's kernels,
 loads DIR's ``chip_smoke.py``, gives it this checkout's
 ``chip_smoke.cuda_ms`` (CUDA events around many calls queued behind a spin
-kernel) where its own timer differs, and runs DIR's phases
-``fene_kernel_vs_plain`` (B2 against its plain versions, timed),
-``chain_main_path``, ``gran_kernel_vs_plain`` (B6) and
-``chute_main_path`` (gates, 500 timed steps, a profile of 100 steps),
-whose lines it prints under a header naming DIR.  Ends with the card's
-name and power limit.
+kernel) where its own timer differs, and runs DIR's phases of each slice
+named in --phases (default all, in this order): lj (``lj_kernel_vs_plain``,
+B1 against its plain versions, timed, and ``main_path``, the 32k in.lj
+deck: gates, 500 timed steps, a profile of 100 steps), eam
+(``eam_kernels_vs_plain``, B3 and B4, and ``eam_main_path``), chain
+(``fene_kernel_vs_plain``, B2, and ``chain_main_path``), chute
+(``gran_kernel_vs_plain``, B6, and ``chute_main_path``) and rhodo
+(``charmm_kernel_vs_plain``, B5 and the list build, and
+``rhodo_main_path``), whose lines it prints under a header naming DIR; a
+check of DIR's own that fails is printed, and its next slice runs.  Ends
+with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+PHASES = ("lj", "eam", "chain", "chute", "rhodo")
 
 
 def _load(path: Path, name: str):
@@ -38,8 +45,8 @@ def _load(path: Path, name: str):
     return mod
 
 
-def one(tree: Path):
-    """DIR's B2 and B6 phases and chain and chute main paths."""
+def one(tree: Path, phases):
+    """DIR's kernel phases and main paths of the slices in phases."""
     sys.path.insert(0, str(tree))
     timer = _load(ROOT / "chip_smoke.py", "smoke_timer").cuda_ms
     smoke = _load(tree / "chip_smoke.py", "smoke_tree")
@@ -56,22 +63,54 @@ def one(tree: Path):
     smi = smoke.environment()
     print(f"[tree] {tree}: build {'cached' if lib.cached else 'cold'} "
           f"{lib.seconds:.2f} s", flush=True)
+    times = {}
+
+    def run(slice_name, kernel, main):
+        """A slice's kernel phase and main path; a check of DIR's that
+        fails is printed and the next slice runs."""
+        try:
+            out = kernel()
+            times.update(out)
+            main()
+        except AssertionError as err:
+            print(f"[tree] {tree}: {slice_name}: DIR's check failed: {err}",
+                  flush=True)
+
     with tempfile.TemporaryDirectory() as tmpdir:
         tmp = Path(tmpdir)
-        fene = smoke.fene_kernel_vs_plain(tmp)
-        smoke.chain_main_path(tmp, smi)
-        gran = smoke.gran_kernel_vs_plain(tmp, lib.ptxas_log)
-        smoke.chute_main_path(tmp, smi)
-    print(f"[tree] {tree}: B2 {fene['ms']:.4f} ms (plain "
-          f"{fene['plain_ms']:.4f}), B6 {gran['ms']:.4f} ms (plain "
-          f"{gran['plain_ms']:.4f})", flush=True)
+        if "lj" in phases:
+            run("lj", lambda: {"B1": smoke.lj_kernel_vs_plain()},
+                lambda: smoke.main_path(smi))
+        if "eam" in phases:
+            run("eam", lambda: dict(zip(("B3", "B4"),
+                                        smoke.eam_kernels_vs_plain(tmp))),
+                lambda: smoke.eam_main_path(tmp, smi))
+        if "chain" in phases:
+            run("chain", lambda: {"B2": smoke.fene_kernel_vs_plain(tmp)},
+                lambda: smoke.chain_main_path(tmp, smi))
+        if "chute" in phases:
+            run("chute", lambda: {"B6": smoke.gran_kernel_vs_plain(
+                tmp, lib.ptxas_log)}, lambda: smoke.chute_main_path(tmp, smi))
+        if "rhodo" in phases:
+            run("rhodo", lambda: {"B5": smoke.charmm_kernel_vs_plain(
+                lib.ptxas_log)[0]}, lambda: smoke.rhodo_main_path(smi))
+    print(f"[tree] {tree}: " + ", ".join(
+        f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f})"
+        for k, v in sorted(times.items())), flush=True)
 
 
 def main():
-    if len(sys.argv) >= 3 and sys.argv[1] == "--one":
-        one(Path(sys.argv[2]))
+    args = sys.argv[1:]
+    if len(args) >= 2 and args[0] == "--one":
+        one(Path(args[1]), args[2].split(","))
         return
-    trees = [Path(a) for a in sys.argv[1:]]
+    phases = PHASES
+    if len(args) >= 2 and args[0] == "--phases":
+        phases = tuple(args[1].split(","))
+        args = args[2:]
+        if not set(phases) <= set(PHASES):
+            raise SystemExit(f"tree_compare: phases of {PHASES}")
+    trees = [Path(a) for a in args]
     if not trees:
         raise SystemExit(__doc__)
     for tree in trees:
@@ -80,7 +119,8 @@ def main():
     for tree in trees:
         print(f"== {tree}", flush=True)
         subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--one", str(tree.resolve())], check=True, cwd=tree)
+                        "--one", str(tree.resolve()), ",".join(phases)],
+                       check=True, cwd=tree)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip(),

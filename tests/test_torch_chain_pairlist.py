@@ -20,7 +20,8 @@ bead-spring chains, special_bonds fene, lj/cut 1.12 shifted, cutneigh
   relative) with every energy/virial flag.
 * On the chain slice the run takes only the list path: one plain build
   per grid set-up and rebuild, one list sweep per force evaluation, no
-  stencil sweep; in.lj builds no list.
+  stencil sweep and no refresh (its schedule checks every step); in.lj
+  sweeps a list of its own, without bond slots, and no LJ+FENE kernel.
 """
 
 import numpy as np
@@ -148,8 +149,9 @@ def test_chain_takes_the_list_path_and_in_lj_does_not(tmp_path,
                                                       monkeypatch):
     """20 steps of the 500-atom chain deck (rebuilds on the displacement
     check every few steps): a plain build per grid set-up and rebuild, a
-    list sweep per force evaluation, no stencil sweep; then in.lj on a 4^3
-    lattice sweeps the stencil and builds no list."""
+    list sweep per force evaluation, no stencil sweep, no refresh; then
+    in.lj on a 4^3 lattice takes B1's list path, not the chain's: a list
+    without bond slots, no LJ+FENE sweep."""
     calls = []
 
     def stencil(*a, **k):
@@ -157,7 +159,7 @@ def test_chain_takes_the_list_path_and_in_lj_does_not(tmp_path,
         raise AssertionError("the chain deck swept the stencil")
     monkeypatch.setattr(b2, "lj_fene_cellgrid_plain", stencil)
     monkeypatch.setattr(b2, "cellgrid_pair_sums", stencil)
-    for c in (b1.counts, b2.counts, bpl.counts):
+    for c in (b1.counts, b2.counts, bpl.counts, bpl.refresh_counts):
         c.reset()
     script = _script(tmp_path, 500, 25)
     script.run_string("run 20")
@@ -169,10 +171,14 @@ def test_chain_takes_the_list_path_and_in_lj_does_not(tmp_path,
     assert bpl.counts.plain_calls == sim.grid_setups + rebuilds
     assert not calls and b1.counts.plain_calls == 0
     assert b2.counts.kernel_launches == bpl.counts.kernel_launches == 0
+    assert not sim._ctx.pairlist_refresh
+    assert bpl.refresh_counts.plain_calls == 0 and sim.list_refreshes == 0
     # the box is fixed: the rebuild check carries no box corners
     assert sim._carry[1].lohold is None and sim._carry[1].hihold is None
-    n0 = bpl.counts.plain_calls
+    n0, m0 = bpl.counts.plain_calls, b2.counts.plain_calls
     lj = LammpsScript(device="cpu", dtype=torch.float64)
     lj.run_string(IN_LJ.format(n=4) + "run 20\n")
-    assert lj.sim._ctx.pairlist_k == 0 and lj.sim._carry[1].pairs is None
-    assert bpl.counts.plain_calls == n0 and b1.counts.plain_calls > 0
+    neigh = lj.sim._carry[1]
+    assert lj.sim._ctx.pairlist_k > 0 and neigh.bond_slots is None
+    assert bpl.counts.plain_calls > n0 and b1.counts.plain_calls > 0
+    assert b2.counts.plain_calls == m0

@@ -5,18 +5,25 @@ have no CPU mode).  The file imports torch and tpumd_torch only, so it
 runs on a card host without JAX:
 ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
 
-* LJ (B1, ``lj_cellgrid``): perturbed fcc blocks of 6x6x6 and 4x6x6 cells
-  (3^3 and 2x3x3 grids);
+* LJ (B1, ``lj_cellgrid``) over the grid's pair list: perturbed fcc
+  blocks of 6x6x6 and 4x6x6 cells (3^3 and 2x3x3 grids), against the
+  plain list sweep and the stencil oracle ``lj_cellgrid_plain``;
 * LJ+FENE (B2, ``lj_fene_cellgrid``) over the set-up's pair list: the
   grid-ordered state of generated chain decks after setup, on a 5^3 grid
   and on a 2^3 grid where bonds count at the minimum image, as it is and
   with one bond stretched to 2 sigma (past cutneigh), against the plain
   list sweep and the stencil oracle ``lj_fene_cellgrid_plain``;
-* EAM density and force passes (B3 ``eam_rho_cellgrid``, B4
-  ``eam_force_cellgrid``): perturbed fcc lattices of the generated Cu-like
-  potential, 5^3 and 4^3 lattice cells (3^3 and 2^3 grids); both force
-  passes take the plain density pass's F', and the density pass is held
-  on rho, F' and the embedding energy;
+* EAM density and force passes (B3 ``eam_rho_cellgrid`` over the
+  stencil, B4 ``eam_force_cellgrid`` over the grid's pair list):
+  perturbed fcc lattices of the generated Cu-like potential, 5^3 and 4^3
+  lattice cells (3^3 and 2^3 grids); the force passes take the plain
+  density pass's F' and are held against the plain list sweep and the
+  stencil oracle ``eam_force_cellgrid_plain``; the density pass is held on
+  rho, F' and the embedding energy;
+* the pair list refresh (``refresh_pairlist``): on a 3^3 in.lj grid with
+  one atom moved past skin/2, the list (and its positions) rebuilt in
+  place equal to a fresh build, the refresh counted; with no atom past
+  skin/2, the list left as it was;
 * the pair list build (``cellgrid_pairlist``): the grid-ordered state of
   the peptide deck with the rhodo_class settings after set-up (a 2^3 grid
   of cap 368, every neighbour cell met at two images) and of its 2x2x2
@@ -90,8 +97,9 @@ def _card():
 
 def _fcc_grid(block, dtype, seed=5, lattice=("fcc", 0.8442, "lj"),
               amp=0.05, cutneigh=2.8, skin=0.3):
-    """Slot-ordered positions, validity, box and grid of a perturbed
-    lattice of block cells (in.lj's fcc by default)."""
+    """Slot-ordered positions, validity, box, grid and pair list (pairs,
+    npairs, rows; built by the kernel) of a perturbed lattice of block
+    cells (in.lj's fcc by default)."""
     lat = Lattice(lattice[0], lattice[1], units=lattice[2])
     hi = np.asarray(block) * lat.spacing
     x, t = create_atoms_lattice(lat, None, np.zeros(3), hi)
@@ -104,7 +112,13 @@ def _fcc_grid(block, dtype, seed=5, lattice=("fcc", 0.8442, "lj"),
     valid0 = torch.arange(cfg.capacity, device="cuda") < len(x)
     perm, valid, _, over = cg.bin_permutation(s.x, valid0, s.box, cfg)
     assert not bool(over)
-    return cg.apply_permutation(s, perm, valid).x, valid, box, cfg
+    s = cg.apply_permutation(s, perm, valid)
+    pairs, npairs, _, over = bpl.cellgrid_pairlist(
+        s.x, valid, s.tag, None, None, box, cfg,
+        cg.pairlist_kmax(box, cutneigh, len(x)))
+    assert not bool(over)
+    return s.x, valid, box, cfg, (pairs, npairs,
+                                  cg.row2slot_from_tags(s.tag, len(x)))
 
 
 def _chain_grid(tmp_path, natoms, chain_len, dtype, stretch=False):
@@ -150,20 +164,60 @@ def _close(kernel_out, plain_out, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
 def test_cuda_kernel_matches_plain(dtype):
-    """B1, the LJ cell-grid kernel."""
+    """B1, the LJ kernel over the grid's pair list."""
     _card()
     dt = {"f32": torch.float32, "f64": torch.float64}[dtype]
     eps, sig, cut = np.zeros((2, 2)), np.zeros((2, 2)), np.zeros((2, 2))
     eps[1, 1], sig[1, 1], cut[1, 1] = 1.0, 1.0, 2.5
     c = pair_from_numpy(eps, sig, cut).kernel_coeffs()
     for block in ((6, 6, 6), (4, 6, 6)):
-        x, valid, box, cfg = _fcc_grid(block, dt)
+        x, valid, box, cfg, plist = _fcc_grid(block, dt)
         for ef, vf in FLAGS:
             n0 = b1.counts.kernel_launches
-            out = b1.lj_cellgrid(x, valid, box, cfg, c, ef, vf)
+            out = b1.lj_cellgrid(x, valid, box, cfg, c, ef, vf, plist)
             assert b1.counts.kernel_launches == n0 + 1
+            _close(out, b1.lj_pairlist_plain(x, box, c, ef, vf, *plist[:2]),
+                   TOL[dt])
             _close(out, b1.lj_cellgrid_plain(x, valid, box, cfg, c, ef, vf),
                    TOL[dt])
+        with pytest.raises(ValueError, match="no pair list"):
+            b1.lj_cellgrid(x, valid, box, cfg, c, 0, 0, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_pairlist_refresh_cuda_kernel_matches_plain(dtype):
+    """The refresh: a clear gate leaves the list, its positions and the
+    counts alone; an atom moved past skin/2 rebuilds all three in place,
+    equal to a fresh build on the moved positions."""
+    _card()
+    dt = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    x, valid, box, cfg, plist = _fcc_grid((6, 6, 6), dt)
+    tag = torch.where(valid, torch.cumsum(valid.int(), 0), 0).to(torch.int32)
+    K = plist[0].shape[1]
+    stat = bpl.new_stat(x.device)
+    hold = bpl.pairlist_hold(x, valid, tag, None, None, cfg)
+    pairs, npairs, _, _ = bpl.cellgrid_pairlist(
+        x, valid, tag, None, None, box, cfg, K, stat=stat, hold=hold)
+    assert torch.equal(hold.x, x)
+    before = (pairs.clone(), npairs.clone(), hold.x.clone(), stat.clone())
+    n0 = bpl.refresh_counts.kernel_launches
+    bpl.refresh_pairlist(x, valid, box, cfg, pairs, npairs, stat, hold)
+    torch.cuda.synchronize()
+    assert bpl.refresh_counts.kernel_launches == n0 + 1
+    assert torch.equal(pairs, before[0]) and torch.equal(npairs, before[1])
+    assert torch.equal(hold.x, before[2])
+    assert torch.equal(stat[:3], before[3][:3]) and int(stat[2]) == 0
+    moved = x.clone()
+    k = int(torch.nonzero(valid)[0])
+    moved[k, 0] += 0.6 * cfg.skin
+    bpl.refresh_pairlist(moved, valid, box, cfg, pairs, npairs, stat, hold)
+    fresh = bpl.cellgrid_pairlist_plain(moved, valid, tag, None, None, box,
+                                        cfg, K)
+    torch.cuda.synchronize()
+    assert torch.equal(pairs, fresh[0]) and torch.equal(npairs, fresh[1])
+    assert torch.equal(hold.x, moved) and int(stat[2]) == 1
+    assert not torch.equal(pairs, before[0])
 
 
 @pytest.mark.cuda
@@ -199,7 +253,7 @@ def test_eam_cuda_kernels_match_plain(dtype, tmp_path):
     pair.coeff(1, 1, 1, 1, str(tmp_path / "Cu.eam"))
     pair.init()
     for nlat in (5, 4):
-        x, valid, box, cfg = _fcc_grid(
+        x, valid, box, cfg, plist = _fcc_grid(
             (nlat,) * 3, dt, lattice=("fcc", EAM_A0, "metal"), amp=0.15,
             cutneigh=pair.cutmax + 1.0, skin=1.0)
         assert cfg.nx == nlat - 2
@@ -214,8 +268,10 @@ def test_eam_cuda_kernels_match_plain(dtype, tmp_path):
             assert float(rho[1][~valid].abs().max()) == 0.0
             n0 = b34.force_counts.kernel_launches
             out = b34.eam_force_cellgrid(x, valid, plain[1], box, cfg, tab,
-                                         ef, vf)
+                                         ef, vf, plist)
             assert b34.force_counts.kernel_launches == n0 + 1
+            _close(out, b34.eam_force_pairlist_plain(
+                x, plain[1], box, tab, ef, vf, *plist[:2]), TOL[dt])
             _close(out, b34.eam_force_cellgrid_plain(
                 x, valid, plain[1], box, cfg, tab, ef, vf), TOL[dt])
 

@@ -1,11 +1,13 @@
 """The EAM cell-grid kernel module of the port against tpumd.
 
 On the CPU the wrappers ``eam_rho_cellgrid`` and ``eam_force_cellgrid``
-run their plain PyTorch versions; these tests hold those against tpumd on
-perturbed fcc lattices of the generated Cu-like potential (each atom
-moved by up to +-0.15 A per axis), binned into the port's cell grid: a
-5^3 lattice (500 atoms, a 3^3 grid) and a 4^3 lattice (256 atoms, a 2^3
-grid where every neighbour cell is met at two periodic images).
+run their plain PyTorch versions (the force pass a sweep of the grid's
+pair list, built here as a re-bin builds it); these tests hold those
+against tpumd on perturbed fcc lattices of the generated Cu-like
+potential (each atom moved by up to +-0.15 A per axis), binned into the
+port's cell grid: a 5^3 lattice (500 atoms, a 3^3 grid) and a 4^3 lattice
+(256 atoms, a 2^3 grid where every neighbour cell is met at two periodic
+images).
 
 * f64: per tag, the host density against tpumd's exact spline helper
   ``_spline_val_np`` summed over the minimum-image neighbours, and the
@@ -49,6 +51,7 @@ from tpumd_torch.core.state import Box, make_state, wrap_pbc
 from tpumd_torch.interop import eam_from_numpy
 from tpumd_torch.ops import cellgrid as cg
 from tpumd_torch.ops import eam_cellgrid as ec
+from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist
 
 # the suite runs in several worker processes on shared cores: keep the
 # plain torch sweeps from oversubscribing them
@@ -89,6 +92,17 @@ def _eam_grid(nlat, dtype, seed=11):
     perm, valid, _, over = cg.bin_permutation(s.x, valid0, s.box, cfg)
     assert not bool(over)
     return cg.apply_permutation(s, perm, valid), valid, box, cfg
+
+
+def _plist(s, valid, box, cfg):
+    """The grid's pair list at cutneigh, as a re-bin builds it: (pairs,
+    npairs, rows)."""
+    natoms = int(valid.sum())
+    pairs, npairs, _, over = cellgrid_pairlist(
+        s.x, valid, s.tag, None, None, box, cfg,
+        cg.pairlist_kmax(box, cfg.cutneigh, natoms))
+    assert not bool(over)
+    return pairs, npairs, cg.row2slot_from_tags(s.tag, natoms)
 
 
 def _by_tag(s, valid, a):
@@ -135,8 +149,9 @@ def test_f64_plain_passes_match_tpumd(grid, jpair):
     fj, ej, _, vj = jpair.compute(jnp.asarray(xt), jnp.ones(n, jnp.int32),
                                   jbox, idx, None, None, None, True, True)
     fj, vj = np.asarray(fj), np.asarray(vj)
+    plist = _plist(s, valid, box, cfg)
     f, evdwl, virial, extra = pair.compute_cellgrid(s.x, valid, box, cfg,
-                                                    True, True)
+                                                    True, True, plist=plist)
     assert extra is None
     np.testing.assert_allclose(_by_tag(s, valid, f), fj, rtol=0,
                                atol=1e-12 * np.abs(fj).max())
@@ -151,7 +166,8 @@ def test_f64_plain_passes_match_tpumd(grid, jpair):
 
     # force-only and single-flag calls return the same forces
     for ef, vf in ((False, False), (True, False), (False, True)):
-        f2, e2, v2, _ = pair.compute_cellgrid(s.x, valid, box, cfg, ef, vf)
+        f2, e2, v2, _ = pair.compute_cellgrid(s.x, valid, box, cfg, ef, vf,
+                                              plist=plist)
         np.testing.assert_array_equal(f2.numpy(), f.numpy())
         assert (e2 is None) != ef and (v2 is None) != vf
 
@@ -213,7 +229,7 @@ def test_f32_plain_passes_match_pallas_kernels(jpair):
     assert (drho <= tol_rho).all(), (drho.max(), tol_rho.min())
 
     f, _, _ = ec.eam_force_cellgrid(s.x, valid, fp, box, cfg, tab, False,
-                                    False)
+                                    False, _plist(s, valid, box, cfg))
     fp_max = float(fp.abs().max())
     per_pair = (2 * fp_max * bounds["rho_der"] + bounds["z2_der"] / r_min
                 + bounds["z2_val"] / r_min ** 2)

@@ -11,7 +11,10 @@ explicit neighbour list) and through tpumd_torch on the CPU in float64
 atom matched by tag (rtol 1e-10, atol 1e-12 eV/A: summation order only,
 on lattice forces that cancel to ~1e-14), the step-0 row to 1e-10
 relative, and the printed thermo rows and rebuild counts over 40 steps
-are equal.
+are equal.  The port's force pass sweeps the grid's pair list, gated for
+a refresh at the steps before the delay (and after, once gated since the
+re-bin); no atom of these decks moves skin/2 within them, so none is
+refreshed.
 """
 
 import os
@@ -25,6 +28,7 @@ import torch
 from tpumd.script.parser import LammpsScript as JScript
 from tpumd_torch.bench_targets import EAM_SANITY, EAM_STEP0, IN_EAM, \
     eam_funcfl, eam_setfl
+from tpumd_torch.ops import cellgrid_pairlist as bpl
 from tpumd_torch.ops import eam_cellgrid
 from tpumd_torch.script.parser import LammpsScript as TScript
 
@@ -77,8 +81,12 @@ def test_eam_slice_matches_tpumd(style, n, tmp_path):
     assert f"pair_style      {style}\n" in text
     jsim, j0, jf0 = _run(JScript(), text, 40)
     n0 = eam_cellgrid.rho_counts.plain_calls
+    gates = bpl.refresh_counts.plain_calls
     tsim, t0, tf0 = _run(TScript(device="cpu", dtype=torch.float64), text,
                          40)
+    assert tsim._ctx.pairlist_refresh and tsim._ctx.pairlist_k > 0
+    assert bpl.refresh_counts.plain_calls > gates
+    assert tsim.list_refreshes == 0
     assert jsim._resolve_mode() == "matrix"
     cfg = tsim._neigh_cfg
     assert (cfg.nx, cfg.ny, cfg.nz, cfg.delay, cfg.check) == (

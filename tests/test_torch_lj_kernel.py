@@ -1,7 +1,8 @@
 """The LJ cell-grid kernel module of the port against tpumd.
 
 On the CPU the port's wrapper ``lj_cellgrid`` runs its plain PyTorch
-version; these tests hold that version against tpumd:
+version, the sweep of the grid's pair list (built here as a re-bin builds
+it); these tests hold that version against tpumd:
 
 * f32 forces against the TPU kernel's own body,
   ``lj_cellgrid_forces_pallas``, run under
@@ -36,6 +37,7 @@ from tpumd_torch.core.lattice import Lattice
 from tpumd_torch.core.state import Box, make_state, wrap_pbc
 from tpumd_torch.interop import pair_from_numpy
 from tpumd_torch.ops import cellgrid as tcg
+from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist
 from tpumd_torch.ops.lj_cellgrid import counts, lj_cellgrid
 
 BLOCKS = {"6x6x6": (6, 6, 6), "4x6x6": (4, 6, 6)}
@@ -46,8 +48,9 @@ torch.set_num_threads(2)
 
 
 def _grid(block, seed=5, device="cpu"):
-    """Slot-ordered f64 positions, validity and box of a perturbed fcc
-    block; the port's binning (held equal to tpumd's elsewhere)."""
+    """Slot-ordered f64 positions, types, validity, box, grid, box corner
+    and pair list (pairs, npairs, rows) of a perturbed fcc block; the
+    port's binning (held equal to tpumd's elsewhere)."""
     lat = Lattice("fcc", 0.8442)
     hi = np.asarray(block) * lat.spacing
     x, t = create_atoms_lattice(lat, None, np.zeros(3), hi)
@@ -62,7 +65,12 @@ def _grid(block, seed=5, device="cpu"):
     perm, valid, _, over = tcg.bin_permutation(s.x, valid0, s.box, cfg)
     assert not bool(over)
     s = tcg.apply_permutation(s, perm, valid)
-    return s.x, s.type, valid, box, cfg, hi
+    pairs, npairs, _, over = cellgrid_pairlist(
+        s.x, valid, s.tag, None, None, box, cfg,
+        tcg.pairlist_kmax(box, cfg.cutneigh, len(x)))
+    assert not bool(over)
+    plist = (pairs, npairs, tcg.row2slot_from_tags(s.tag, len(x)))
+    return s.x, s.type, valid, box, cfg, hi, plist
 
 
 def _pair_tables():
@@ -88,7 +96,7 @@ def _jcfg(cfg):
 
 @pytest.mark.parametrize("block", sorted(BLOCKS))
 def test_f32_plain_matches_pallas_kernel(block):
-    x, _, valid, box, cfg, hi = _grid(BLOCKS[block])
+    x, _, valid, box, cfg, hi, plist = _grid(BLOCKS[block])
     assert cfg.nz >= 3 and (cfg.nx == 2) == (block == "4x6x6")
     jp, tp = _pairs(shift=False)
     c = tp.kernel_coeffs()
@@ -100,7 +108,7 @@ def test_f32_plain_matches_pallas_kernel(block):
             _jcfg(cfg), c.lj1, c.lj2, c.cutsq))
     box32 = Box(lo=box.lo.float(), hi=box.hi.float())
     n0 = counts.plain_calls
-    ft, _, _ = lj_cellgrid(x32, valid, box32, cfg, c, False, False)
+    ft, _, _ = lj_cellgrid(x32, valid, box32, cfg, c, False, False, plist)
     assert counts.plain_calls == n0 + 1
     assert ft.dtype == torch.float32
     fmax = np.abs(fj).max()
@@ -111,14 +119,15 @@ def test_f32_plain_matches_pallas_kernel(block):
 @pytest.mark.parametrize("shift", [False, True], ids=["plain", "shift"])
 @pytest.mark.parametrize("block", sorted(BLOCKS))
 def test_f64_plain_matches_cellgrid_pair_sums(block, shift):
-    x, type_, valid, box, cfg, hi = _grid(BLOCKS[block])
+    x, type_, valid, box, cfg, hi, plist = _grid(BLOCKS[block])
     jp, tp = _pairs(shift)
     jbox = JBox.orthogonal(np.zeros(3), hi, dtype=jnp.float64)
     fj, ej, _, vj = jcg.cellgrid_pair_sums(
         jnp.asarray(x.numpy()), jnp.asarray(type_.numpy()),
         jnp.asarray(valid.numpy()), jbox, _jcfg(cfg), jp.pair_fn,
         True, True)
-    ft, et, vt, eb = tp.compute_cellgrid(x, valid, box, cfg, True, True)
+    ft, et, vt, eb = tp.compute_cellgrid(x, valid, box, cfg, True, True,
+                                         plist=plist)
     assert eb is None
     fj, vj = np.asarray(fj), np.asarray(vj)
     np.testing.assert_allclose(ft.numpy(), fj, rtol=0,
@@ -128,7 +137,8 @@ def test_f64_plain_matches_cellgrid_pair_sums(block, shift):
                                atol=1e-12 * np.abs(vj).max())
     # force-only and single-flag calls return the same forces
     for ef, vf in ((False, False), (True, False), (False, True)):
-        f2, e2, v2, _ = tp.compute_cellgrid(x, valid, box, cfg, ef, vf)
+        f2, e2, v2, _ = tp.compute_cellgrid(x, valid, box, cfg, ef, vf,
+                                            plist=plist)
         np.testing.assert_array_equal(f2.numpy(), ft.numpy())
         assert (e2 is None) != ef and (v2 is None) != vf
 

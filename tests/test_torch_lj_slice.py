@@ -8,7 +8,10 @@ lattice forces that cancel to ~1e-13), thermo agrees to 1e-10 relative at
 step 0 and after the run, and the printed thermo rows and rebuild counts
 are equal.  The runs cross rebuilds on the every/delay schedule, every
 step (a 2x2x2 grid), on the displacement check, and through a cell
-overflow that grows the cap and redoes the segment.
+overflow that grows the cap and redoes the segment.  The port sweeps the
+grid's pair list, refreshed between re-bins on the check-no decks
+wherever some atom moved more than skin/2 since the list's build, so it
+sums tpumd's stencil pairs: the 6^3 deck refreshes at least once.
 """
 
 import dataclasses
@@ -23,6 +26,7 @@ import torch
 from tpumd.script.parser import LammpsScript as JScript
 from tpumd_torch.bench_targets import IN_LJ, SANITY, STEP0, STEP0_RTOL, \
     gate_failures
+from tpumd_torch.ops import cellgrid_pairlist as bpl
 from tpumd_torch.script.parser import LammpsScript as TScript
 
 # the suite runs in several worker processes on shared cores: keep the
@@ -46,6 +50,12 @@ DECKS = {
         "delay 0 every 20 check no", "delay 0 every 1 check yes"), 40, None),
 }
 KEYS = ("temp", "epair", "etotal", "press")
+# the least list refreshes of each deck: 6cube_every20 takes some in its
+# 20-step windows; 4cube_regrow's 10-step windows stay within skin/2 (the
+# refresh's gate runs at each unchecked step all the same); the every-1
+# decks re-bin, or check, at every step
+REFRESHES = {"6cube_every20": 1, "4cube_regrow": 0, "4cube_shift_every1": 0,
+             "5cube_check": 0}
 
 
 def _run(script, deck, nsteps, cap):
@@ -73,8 +83,13 @@ def _thermo_rows(sim):
 def test_slice_matches_tpumd(deck):
     text, nsteps, cap = DECKS[deck]
     jsim, j0, jf0 = _run(JScript(), text, nsteps, cap)
+    gates = bpl.refresh_counts.plain_calls
     tsim, t0, tf0 = _run(TScript(device="cpu", dtype=torch.float64), text,
                          nsteps, cap)
+    gates = bpl.refresh_counts.plain_calls - gates
+    assert tsim._ctx.pairlist_refresh == ("check no" in text)
+    assert tsim.list_refreshes >= REFRESHES[deck]
+    assert (gates > 0) == ("every 1 " not in text)
     assert dataclasses.asdict(jsim._neigh_cfg) == {
         **dataclasses.asdict(tsim._neigh_cfg), "exclude_bits": ()}
     assert cap is None or tsim._neigh_cfg.cap > cap

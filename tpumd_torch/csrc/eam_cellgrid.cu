@@ -1,6 +1,6 @@
 // Single-element EAM on the cell grid on Hopper (sm_90a): the density pass
-// and the force pass, two kernels launched one after the other on one
-// stream.
+// over the 27-cell stencil and the force pass over the grid's pair list,
+// two kernels launched one after the other on one stream.
 //
 // Replace the Pallas TPU kernels tpumd/ops/pallas_eam.py::_rho_kernel
 // (entry eam_rho_pallas) and ::_force_kernel (entry eam_force_pallas), the
@@ -12,46 +12,62 @@
 // PairEAM::compute does.
 //
 // Atoms sit in a (nz, ny, nx, cap) grid of fixed-capacity cells; x is the
-// slot-ordered (nz*ny*nx*cap, 3) array and valid marks real atoms.  Over the
-// 27 stencil cells (all three offsets on every axis, also when an axis has 1
-// or 2 cells, with the periodic wrap computed from the cell index), each
+// slot-ordered (nz*ny*nx*cap, 3) array and valid marks real atoms.  Each
 // valid slot i sums over valid j != i with r2 < cutsq:
-//   pass 1: rho_i = sum_j rho(r), then F'(rho_i) and, with EFLAG,
-//           F(rho_i) + F'(rho_i) (rho_i - rhomax) when rho_i > rhomax;
-//   pass 2: f_i = sum_j d * fpair, fpair = -((F'_i + F'_j) rho'(r) + phi'(r))
-//           / r, phi = z2(r) / r, phi' = z2'(r) / r - phi / r; with EFLAG
-//           the per-slot sum of phi, with VFLAG the six components of
-//           sum_j fpair d_a d_b (the caller halves both).
+//   pass 1, over the 27 stencil cells (all three offsets on every axis,
+//           also when an axis has 1 or 2 cells, with the periodic wrap
+//           computed from the cell index): rho_i = sum_j rho(r), then
+//           F'(rho_i) and, with EFLAG, F(rho_i) + F'(rho_i) (rho_i -
+//           rhomax) when rho_i > rhomax;
+//   pass 2, over the entries of i's row of the pair list (pairs, npairs;
+//           cellgrid_pairlist.cu, at cutneigh, built at every re-bin and
+//           refreshed where the schedule could leave it stale, so it holds
+//           every pair the stencil finds in range), with d = x_i - (x_j +
+//           s), s = L rint((x_i - x_j) / L) the minimum image rounded op
+//           by op as the stencil rounds x_i - (x_j + L): f_i = sum_j d *
+//           fpair, fpair = -((F'_i + F'_j) rho'(r) + phi'(r)) / r, phi =
+//           z2(r) / r, phi' = z2'(r) / r - phi / r; with EFLAG the per-slot
+//           sum of phi, with VFLAG the six components of sum_j fpair d_a
+//           d_b (the caller halves both).
 // A spline row is found as tpumd's _r_index does (pair_eam.py:425-430):
 // p = r / dr + 1, m = int(p) clamped to [1, n-1], p = min(p - m, 1); the
 // value is ((c3 p + c4) p + c5) p + c6, the derivative (c0 p + c1) p + c2.
 // One element only: (F'_i + F'_j) rho'(r) equals LAMMPS's
 // F'_i rho'_ji + F'_j rho'_ij only when one density function serves both.
 //
-// What bounds it: at the 32k in.eam shape (grid 12x12x12, cap 32) there are
-// 55,296 slots and 27 * 32 = 864 candidates per slot, 47.8 M candidate pairs
-// per pass, of which about 3 % lie inside the 4.95 A cutoff (42 neighbours
-// of an fcc site).  The least work, those pairs' arithmetic and each input
+// What bounds them: at the 32k in.eam shape (grid 12x12x12, cap 32) there
+// are 55,296 slots; about 43 neighbours of an fcc site lie inside the
+// 4.95 A cutoff.  The least work, those pairs' arithmetic and each input
 // and output moved once (1.2-1.6 MB in f32), takes under a microsecond on
-// an H100: pass 1 is bound by its bytes, pass 2 by its operations.  The
-// kernels take far longer, in the candidate loop: every valid slot tests
-// all 864 candidates, and a cell's warp takes the in-range path (square
-// root, 4 or 7 dependent table reads) for every lane whenever one lane
-// needs it.  PERF.md has the times, the bounds and the share of loop
-// iterations that take that path.
+// an H100: pass 1 is bound by its bytes, pass 2 by its operations.  Pass
+// 1 tests all 27 x 32 = 864 stencil candidates a slot, and a cell's warp
+// takes the in-range path (square root, 4 dependent table reads) for every
+// lane whenever one lane needs it.  Pass 2's list rows hold ~75 entries
+// (cutneigh 5.95 A, K 108), ~57 % of them in range; reading the list,
+// ~9.6 MB a call, takes ~3 us at the HBM rate, a floor of this design.
+// PERF.md has the times and the bounds.
 //
-// Design (B1's): one block per cell, one thread per i slot (cap rounded up
-// to a warp).  For each of the 27 neighbour cells the block stages the
-// cell's coordinates with the wrap correction, its validity and, in pass 2,
-// its F' in shared memory; every thread then runs the candidate loop from
-// shared memory (all threads read the same j).  Masks are tested before
-// the square root and the division, so empty slots (at x = 0, F' = 0) never
-// reach them.  The spline tables stay in device memory and are read through
-// the read-only cache: a row per in-range pair, 4 (pass 1) or 7 (pass 2)
-// coefficients.  Pass 1 writes F' of every slot before pass 2 reads any: two
-// launches on one stream, no grid-wide sync.  Staging the tables in shared
-// memory, splitting the stencil over more threads per slot, and one
-// unordered-pair sweep are later work.
+// Design of pass 1 (B1's old stencil design): one block per cell, one
+// thread per i slot (cap rounded up to a warp).  For each of the 27
+// neighbour cells the block stages the cell's coordinates with the wrap
+// correction and its validity in shared memory; every thread then runs the
+// candidate loop from shared memory (all threads read the same j).  Masks
+// are tested before the square root, so empty slots (at x = 0) never reach
+// it.  The table rows are read through the read-only cache.  Pass 1 writes
+// F' of every slot before pass 2 reads any: two launches on one stream, no
+// grid-wide sync.
+//
+// Design of pass 2: kLanesEAM lanes per valid atom (chosen on the card by
+// probes/pairlist_lanes.py: PERF.md), lane l walking entries l, l +
+// kLanesEAM, ... of the atom's row, the lanes' sums meeting by shuffles;
+// blocks stride over the atoms, as many as the card holds at once.  Each
+// block first stages the table columns a pair reads, rho' (rhor's three
+// derivative columns) and all seven of z2r, (nr + 1) x 10 values (20 KB in
+// f32, 40 KB in f64 at nr = 500), in shared memory, so an in-range pair
+// reads its 10 coefficients from there and not by 7 dependent global
+// loads; tables too large for a block's shared memory are read from
+// global memory.  F'_j is read once per entry.  The threads also zero the
+// empty slots' outputs.
 
 #include <cuda_runtime.h>
 
@@ -182,110 +198,178 @@ __global__ void eam_rho_kernel(const T* __restrict__ x,
   if (EFLAG) eslot[islot] = e;
 }
 
-template <typename T, bool EFLAG, bool VFLAG>
-__global__ void eam_force_kernel(const T* __restrict__ x,
-                                 const unsigned char* __restrict__ valid,
-                                 const T* __restrict__ fp,
-                                 const T* __restrict__ lengths,
-                                 const T* __restrict__ rhor,
-                                 const T* __restrict__ z2r,
-                                 T* __restrict__ f, T* __restrict__ eslot,
-                                 T* __restrict__ vslot, int nx, int ny, int nz,
-                                 int cap, int nr, T rdr, T cutsq) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // cap rows of (x, y, z, valid, F')
-  T* sj = reinterpret_cast<T*>(smem_raw);
+constexpr int kLanesEAM = 4;     // lanes per atom of the force pass
+constexpr int kForceBlock = 512;
+constexpr int kTabCols = 10;     // rho' (3 columns), then z2r (7)
+constexpr unsigned kNeighMask = (1u << 30) - 1u;
 
-  const int cell = blockIdx.x;
-  const int cx = cell % nx;
-  const int cy = (cell / nx) % ny;
-  const int cz = cell / (nx * ny);
-  const int t = threadIdx.x;
-  const long long islot = static_cast<long long>(cell) * cap + t;
-  const bool active = t < cap;
-  const bool ivalid = active && valid[islot] != 0;
+static_assert(kLanesEAM >= 1 && kLanesEAM <= 32 &&
+                  (kLanesEAM & (kLanesEAM - 1)) == 0,
+              "kLanesEAM must be a power of two up to a warp");
 
-  T xi = T(0), yi = T(0), zi = T(0), fpi = T(0);
-  if (active) {
-    xi = x[3 * islot + 0];
-    yi = x[3 * islot + 1];
-    zi = x[3 * islot + 2];
-    fpi = fp[islot];
+__device__ __forceinline__ float rint_t(float a) { return rintf(a); }
+__device__ __forceinline__ double rint_t(double a) { return rint(a); }
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+// |d|^2 rounded as the plain version rounds it (no fused multiply-add),
+// so both take the same pairs inside the cutoff
+__device__ __forceinline__ float norm2_rn(float a, float b, float c) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)),
+                   __fmul_rn(c, c));
+}
+__device__ __forceinline__ double norm2_rn(double a, double b, double c) {
+  return __dadd_rn(__dadd_rn(__dmul_rn(a, a), __dmul_rn(b, b)),
+                   __dmul_rn(c, c));
+}
+
+// x_i - (x_j + s), s the image correction on an axis of length L, each
+// step rounded as the plain version rounds it
+template <typename T>
+__device__ __forceinline__ T image_d(T xi, T xj, T L) {
+  const T s = L * rint_t(sub_rn(xi, xj) / L);
+  return sub_rn(xi, add_rn(xj, s));
+}
+
+// the sum of v over the LANES lanes of an atom, in each of them
+template <int LANES, typename T>
+__device__ __forceinline__ T lanes_sum(T v, unsigned mask) {
+#pragma unroll
+  for (int o = LANES / 2; o > 0; o >>= 1) {
+    v += __shfl_xor_sync(mask, v, o, LANES);
   }
-  const T Lx = lengths[0], Ly = lengths[1], Lz = lengths[2];
+  return v;
+}
 
-  T fx = T(0), fy = T(0), fz = T(0), e = T(0);
-  T v0 = T(0), v1 = T(0), v2 = T(0), v3 = T(0), v4 = T(0), v5 = T(0);
+template <typename T>
+struct ForceArgs {
+  const T* x;
+  const unsigned char* valid;
+  const T* fp;
+  const int* pairs;
+  const int* npairs;
+  const long long* rows;
+  const T* lengths;
+  const T* rhor;
+  const T* z2r;
+  T* f;
+  T* eslot;
+  T* vslot;
+  long long np, natoms;
+  int K, nr;
+  T rdr, cutsq;
+};
 
-  for (int oz = -1; oz <= 1; ++oz) {
-    T sz;
-    const int jz = wrap_cell(cz, oz, nz, Lz, sz);
-    for (int oy = -1; oy <= 1; ++oy) {
-      T sy;
-      const int jy = wrap_cell(cy, oy, ny, Ly, sy);
-      for (int ox = -1; ox <= 1; ++ox) {
-        T sx;
-        const int jx = wrap_cell(cx, ox, nx, Lx, sx);
-        const long long jbase =
-            (static_cast<long long>(jz * ny + jy) * nx + jx) * cap;
-
-        __syncthreads();  // the previous cell's tile is consumed
-        for (int k = t; k < cap; k += blockDim.x) {
-          const long long js = jbase + k;
-          sj[5 * k + 0] = x[3 * js + 0] + sx;
-          sj[5 * k + 1] = x[3 * js + 1] + sy;
-          sj[5 * k + 2] = x[3 * js + 2] + sz;
-          sj[5 * k + 3] = valid[js] ? T(1) : T(0);
-          sj[5 * k + 4] = fp[js];
-        }
-        __syncthreads();
-
-        if (!ivalid) continue;
-        const int self = (ox == 0 && oy == 0 && oz == 0) ? t : -1;
-        for (int k = 0; k < cap; ++k) {
-          if (sj[5 * k + 3] == T(0) || k == self) continue;
-          const T dx = xi - sj[5 * k + 0];
-          const T dy = yi - sj[5 * k + 1];
-          const T dz = zi - sj[5 * k + 2];
-          const T r2 = dx * dx + dy * dy + dz * dz;
-          if (!(r2 < cutsq)) continue;
-          const T r = sqrt(r2);
-          int m;
-          T p;
-          spline_row(r, rdr, nr, m, p);
-          const T rhop = spline_derivative(rhor, m, p);
-          const T z2 = spline_value(z2r, m, p);
-          const T z2p = spline_derivative(z2r, m, p);
-          const T recip = T(1) / r;
-          const T phi = z2 * recip;
-          const T phip = z2p * recip - phi * recip;
-          const T psip = (fpi + sj[5 * k + 4]) * rhop + phip;
-          const T fpair = -psip * recip;
-          fx += dx * fpair;
-          fy += dy * fpair;
-          fz += dz * fpair;
-          if (EFLAG) e += phi;
-          if (VFLAG) {
-            v0 += fpair * dx * dx;
-            v1 += fpair * dy * dy;
-            v2 += fpair * dz * dz;
-            v3 += fpair * dx * dy;
-            v4 += fpair * dx * dz;
-            v5 += fpair * dy * dz;
-          }
-        }
-      }
+// SMEM: the tables staged in shared memory (else read from global memory)
+template <int LANES, bool SMEM, typename T, bool EFLAG, bool VFLAG>
+__global__ void __launch_bounds__(kForceBlock) eam_force_pairlist_kernel(
+    const ForceArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tab = reinterpret_cast<T*>(smem_raw);  // (nr + 1) rows of kTabCols
+  if (SMEM) {
+    for (int k = threadIdx.x; k < (a.nr + 1) * kTabCols; k += blockDim.x) {
+      const int m = k / kTabCols, col = k % kTabCols;
+      tab[k] = col < 3 ? a.rhor[7 * m + col] : a.z2r[7 * m + col - 3];
+    }
+    __syncthreads();
+  }
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long nthreads = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long s = tid; s < a.np; s += nthreads) {
+    if (a.valid[s]) continue;
+    a.f[3 * s + 0] = T(0);
+    a.f[3 * s + 1] = T(0);
+    a.f[3 * s + 2] = T(0);
+    if (EFLAG) a.eslot[s] = T(0);
+    if (VFLAG) {
+      for (int c = 0; c < 6; ++c) a.vslot[6 * s + c] = T(0);
     }
   }
 
-  if (!active) return;
-  f[3 * islot + 0] = fx;
-  f[3 * islot + 1] = fy;
-  f[3 * islot + 2] = fz;
-  if (EFLAG) eslot[islot] = e;
-  if (VFLAG) {
-    T* vo = vslot + 6 * islot;
-    vo[0] = v0; vo[1] = v1; vo[2] = v2; vo[3] = v3; vo[4] = v4; vo[5] = v5;
+  const int lane = threadIdx.x % LANES;
+  const int base = (threadIdx.x & 31) & ~(LANES - 1);
+  const unsigned mask = (0xffffffffu >> (32 - LANES)) << base;
+  const T Lx = a.lengths[0], Ly = a.lengths[1], Lz = a.lengths[2];
+  for (long long g = tid / LANES; g < a.natoms; g += nthreads / LANES) {
+    const long long i = a.rows[g];
+    const T xi = a.x[3 * i + 0], yi = a.x[3 * i + 1], zi = a.x[3 * i + 2];
+    const T fpi = a.fp[i];
+    T fx = T(0), fy = T(0), fz = T(0), e = T(0);
+    T v0 = T(0), v1 = T(0), v2 = T(0), v3 = T(0), v4 = T(0), v5 = T(0);
+    const int* row = a.pairs + i * a.K;
+    const int n = a.npairs[i];
+    for (int k = lane; k < n; k += LANES) {
+      const long long j = static_cast<unsigned>(row[k]) & kNeighMask;
+      const T dx = image_d(xi, a.x[3 * j + 0], Lx);
+      const T dy = image_d(yi, a.x[3 * j + 1], Ly);
+      const T dz = image_d(zi, a.x[3 * j + 2], Lz);
+      const T r2 = norm2_rn(dx, dy, dz);
+      if (!(r2 < a.cutsq)) continue;
+      const T fpj = a.fp[j];
+      const T r = sqrt(r2);
+      int m;
+      T p;
+      spline_row(r, a.rdr, a.nr, m, p);
+      T rhop, z2, z2p;
+      if (SMEM) {
+        const T* c = tab + kTabCols * m;
+        rhop = (c[0] * p + c[1]) * p + c[2];
+        z2p = (c[3] * p + c[4]) * p + c[5];
+        z2 = ((c[6] * p + c[7]) * p + c[8]) * p + c[9];
+      } else {
+        rhop = spline_derivative(a.rhor, m, p);
+        z2 = spline_value(a.z2r, m, p);
+        z2p = spline_derivative(a.z2r, m, p);
+      }
+      const T recip = T(1) / r;
+      const T phi = z2 * recip;
+      const T phip = z2p * recip - phi * recip;
+      const T psip = (fpi + fpj) * rhop + phip;
+      const T fpair = -psip * recip;
+      fx += dx * fpair;
+      fy += dy * fpair;
+      fz += dz * fpair;
+      if (EFLAG) e += phi;
+      if (VFLAG) {
+        v0 += fpair * dx * dx;
+        v1 += fpair * dy * dy;
+        v2 += fpair * dz * dz;
+        v3 += fpair * dx * dy;
+        v4 += fpair * dx * dz;
+        v5 += fpair * dy * dz;
+      }
+    }
+    fx = lanes_sum<LANES>(fx, mask);
+    fy = lanes_sum<LANES>(fy, mask);
+    fz = lanes_sum<LANES>(fz, mask);
+    if (EFLAG) e = lanes_sum<LANES>(e, mask);
+    if (VFLAG) {
+      v0 = lanes_sum<LANES>(v0, mask);
+      v1 = lanes_sum<LANES>(v1, mask);
+      v2 = lanes_sum<LANES>(v2, mask);
+      v3 = lanes_sum<LANES>(v3, mask);
+      v4 = lanes_sum<LANES>(v4, mask);
+      v5 = lanes_sum<LANES>(v5, mask);
+    }
+    if (lane != 0) continue;
+    a.f[3 * i + 0] = fx;
+    a.f[3 * i + 1] = fy;
+    a.f[3 * i + 2] = fz;
+    if (EFLAG) a.eslot[i] = e;
+    if (VFLAG) {
+      T* vo = a.vslot + 6 * i;
+      vo[0] = v0; vo[1] = v1; vo[2] = v2; vo[3] = v3; vo[4] = v4; vo[5] = v5;
+    }
   }
 }
 
@@ -319,38 +403,77 @@ int launch_rho(const T* x, const unsigned char* valid, const T* lengths,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool SMEM, typename T, bool EFLAG, bool VFLAG>
+int launch_force_one(const ForceArgs<T>& a, size_t smem, int dev,
+                     cudaStream_t s) {
+  auto kernel = eam_force_pairlist_kernel<kLanesEAM, SMEM, T, EFLAG, VFLAG>;
+  // as many blocks as the card holds at once, each staging the tables
+  // once: the card's count, found once per instantiation, device and
+  // shared size (the launch runs at every step, and the queries cost host
+  // time)
+  static int resident = 0, on_dev = -1;
+  static size_t for_smem = 0;
+  if (dev != on_dev || smem != for_smem) {
+    cudaError_t err;
+    int nsm, per_sm;
+    if ((smem > 48 * 1024 &&
+         (err = cudaFuncSetAttribute(
+              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+              static_cast<int>(smem))) != cudaSuccess) ||
+        (err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kForceBlock, smem)) != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    resident = per_sm * nsm;
+    on_dev = dev;
+    for_smem = smem;
+  }
+  long long blocks = (a.natoms * kLanesEAM + kForceBlock - 1) / kForceBlock;
+  if (blocks > resident) blocks = resident;
+  if (blocks < 1) blocks = 1;
+  kernel<<<static_cast<unsigned>(blocks), kForceBlock, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool SMEM, typename T>
+int launch_force_flags(const ForceArgs<T>& a, size_t smem, int dev,
+                       int eflag, int vflag, cudaStream_t s) {
+  if (eflag && vflag) {
+    return launch_force_one<SMEM, T, true, true>(a, smem, dev, s);
+  }
+  if (eflag) return launch_force_one<SMEM, T, true, false>(a, smem, dev, s);
+  if (vflag) return launch_force_one<SMEM, T, false, true>(a, smem, dev, s);
+  return launch_force_one<SMEM, T, false, false>(a, smem, dev, s);
+}
+
 template <typename T>
-int launch_force(const T* x, const unsigned char* valid, const T* fp,
-                 const T* lengths, const T* rhor, const T* z2r, T* f,
-                 T* eslot, T* vslot, int nx, int ny, int nz, int cap, int nr,
-                 double rdr, double cutsq, int eflag, int vflag,
-                 void* stream) {
-  if (bad_shape(nx, ny, nz, cap, nr, nr)) {
+int launch_force(const ForceArgs<T>& a, int eflag, int vflag, void* stream) {
+  if (a.np < 1 || a.natoms < 0 || a.natoms > a.np || a.K < 1 || a.nr < 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(nx * ny * nz);
-  const dim3 block(((cap + 31) / 32) * 32);
-  const size_t smem = 5 * static_cast<size_t>(cap) * sizeof(T);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T c_rdr = T(rdr), c_cutsq = T(cutsq);
-  if (eflag && vflag) {
-    eam_force_kernel<T, true, true><<<grid, block, smem, s>>>(
-        x, valid, fp, lengths, rhor, z2r, f, eslot, vslot, nx, ny, nz, cap,
-        nr, c_rdr, c_cutsq);
-  } else if (eflag) {
-    eam_force_kernel<T, true, false><<<grid, block, smem, s>>>(
-        x, valid, fp, lengths, rhor, z2r, f, eslot, vslot, nx, ny, nz, cap,
-        nr, c_rdr, c_cutsq);
-  } else if (vflag) {
-    eam_force_kernel<T, false, true><<<grid, block, smem, s>>>(
-        x, valid, fp, lengths, rhor, z2r, f, eslot, vslot, nx, ny, nz, cap,
-        nr, c_rdr, c_cutsq);
-  } else {
-    eam_force_kernel<T, false, false><<<grid, block, smem, s>>>(
-        x, valid, fp, lengths, rhor, z2r, f, eslot, vslot, nx, ny, nz, cap,
-        nr, c_rdr, c_cutsq);
+  const size_t smem = static_cast<size_t>(a.nr + 1) * kTabCols * sizeof(T);
+  // the largest shared memory a block may take, once per device
+  static int optin = 0, on_dev = -1;
+  int dev;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) {
+    return static_cast<int>(err);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dev != on_dev) {
+    if ((err = cudaDeviceGetAttribute(
+             &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+        cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    on_dev = dev;
+  }
+  if (smem <= static_cast<size_t>(optin)) {
+    return launch_force_flags<true, T>(a, smem, dev, eflag, vflag, s);
+  }
+  return launch_force_flags<false, T>(a, 0, dev, eflag, vflag, s);
 }
 
 }  // namespace
@@ -378,22 +501,19 @@ extern "C" int tpumd_eam_rho_cellgrid_f64(
                             eflag, stream);
 }
 
-extern "C" int tpumd_eam_force_cellgrid_f32(
-    const float* x, const unsigned char* valid, const float* fp,
-    const float* lengths, const float* rhor, const float* z2r, float* f,
-    float* eslot, float* vslot, int nx, int ny, int nz, int cap, int nr,
-    double rdr, double cutsq, int eflag, int vflag, void* stream) {
-  return launch_force<float>(x, valid, fp, lengths, rhor, z2r, f, eslot,
-                             vslot, nx, ny, nz, cap, nr, rdr, cutsq, eflag,
-                             vflag, stream);
-}
+#define TPUMD_EAM_FORCE_ENTRY(NAME, T)                                       \
+  extern "C" int NAME(const T* x, const unsigned char* valid, const T* fp,   \
+                      const int* pairs, const int* npairs,                   \
+                      const long long* rows, const T* lengths,               \
+                      const T* rhor, const T* z2r, T* f, T* eslot, T* vslot, \
+                      long long np, long long natoms, int K, int nr,         \
+                      double rdr, double cutsq, int eflag, int vflag,        \
+                      void* stream) {                                        \
+    const ForceArgs<T> a{x,     valid, fp,     pairs,  npairs, rows,         \
+                         lengths, rhor, z2r,  f,      eslot,  vslot,         \
+                         np,    natoms, K,     nr,     T(rdr), T(cutsq)};    \
+    return launch_force<T>(a, eflag, vflag, stream);                         \
+  }
 
-extern "C" int tpumd_eam_force_cellgrid_f64(
-    const double* x, const unsigned char* valid, const double* fp,
-    const double* lengths, const double* rhor, const double* z2r, double* f,
-    double* eslot, double* vslot, int nx, int ny, int nz, int cap, int nr,
-    double rdr, double cutsq, int eflag, int vflag, void* stream) {
-  return launch_force<double>(x, valid, fp, lengths, rhor, z2r, f, eslot,
-                              vslot, nx, ny, nz, cap, nr, rdr, cutsq, eflag,
-                              vflag, stream);
-}
+TPUMD_EAM_FORCE_ENTRY(tpumd_eam_force_cellgrid_f32, float)
+TPUMD_EAM_FORCE_ENTRY(tpumd_eam_force_cellgrid_f64, double)

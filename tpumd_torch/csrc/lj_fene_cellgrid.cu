@@ -1,16 +1,21 @@
-// LJ + FENE bond forces, energies and virial over the cell grid's pair
-// list, on Hopper (sm_90a).
+// LJ (B1) and LJ + FENE bond (B2) forces, energies and virial over the
+// cell grid's pair list, on Hopper (sm_90a): one kernel, instantiated
+// with bonds for B2 and without for B1, each with its own lanes per atom.
 //
-// Replaces the Pallas TPU kernel tpumd/ops/pallas_lj.py::_kernel_fene
+// B2 replaces the Pallas TPU kernel tpumd/ops/pallas_lj.py::_kernel_fene
 // (entry lj_fene_cellgrid_forces_pallas) and, on energy/virial steps, the
 // XLA sweep tpumd/ops/cellgrid.py::cellgrid_pair_sums(bond=...) of the
 // chain deck: single-type lj/cut plus one FENE bond type (special_bonds
 // fene: the special list is exactly the bond partners at weight 0, so a
-// bonded pair takes only the bond force).  The TPU kernel tested the
-// 27-cell stencil at each call and matched partners by tag; here the
-// candidate search runs once per re-bin (cellgrid_pairlist.cu, the bond
-// partners coded 1) and this kernel sweeps its list, the bonds coming from
-// each slot's partner slots.
+// bonded pair takes only the bond force).  B1 replaces ::_kernel (entry
+// lj_cellgrid_forces_pallas) and the XLA sweep of in.lj's thermo steps:
+// single-type lj/cut alone.  The TPU kernels tested the 27-cell stencil at
+// each call (and matched partners by tag); here the candidate search runs
+// once per re-bin (cellgrid_pairlist.cu, the bond partners coded 1; in.lj,
+// which re-bins every 20 steps unchecked, refreshes its list wherever
+// some atom moved more than skin/2 since the list's build) and this
+// kernel sweeps its list, the bonds coming from each slot's partner
+// slots.
 //
 // Atoms sit in grid-slot order: x (slots, 3), valid per slot; pairs
 // (slots, K) holds each slot's list entries j | code << 30 and npairs its
@@ -34,25 +39,33 @@
 // What bounds it: at the 32k chain shape (53,240 slots, 32,000 atoms, K
 // 24, ~12.5 list entries a row, ~5 in the 1.12 sigma cutoff, 2 bonds) the
 // inputs and outputs, read and written once, are ~2 MB, ~0.6 us at the
-// HBM rate; the list adds ~1.8 MB a call, a floor of this design.  The
-// stencil design tested 1,080 candidates a slot, ~2 % in range.
+// HBM rate; the list adds ~1.8 MB a call, a floor of this design.  At the
+// 32k in.lj shape (53,240 slots, K 112, ~78 entries a row, ~55 within
+// 2.5 sigma) the work's bytes are ~1.3 MB and its arithmetic ~0.9 M pairs
+// x 28 operations, ~0.4 us; the list adds ~10 MB, ~3 us.  The stencil
+// designs tested 1,080 candidates a slot, 2-5 % in range.
 //
-// Design: kLanes lanes per valid atom (chosen on the card by
-// probes/pairlist_lanes.py: PERF.md).  Lane l of an atom walks entries l,
-// l + kLanes, ... of its row and takes bond l, l + kLanes, ...; the lanes'
-// sums meet by shuffles within the atom's lanes, and its first lane
-// writes them.  The threads also zero the empty slots' outputs.
+// Design: LANES lanes per valid atom (kLanes for B2, kLanesLJ for B1,
+// chosen on the card by probes/pairlist_lanes.py: PERF.md).  Lane l of an
+// atom walks entries l, l + LANES, ... of its row and takes bond l, l +
+// LANES, ...; the lanes' sums meet by shuffles within the atom's lanes,
+// and its first lane writes them.  The threads also zero the empty slots'
+// outputs.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kLanes = 4;      // lanes per atom
+constexpr int kLanes = 4;      // lanes per atom of B2 (with bonds)
+constexpr int kLanesLJ = 16;   // lanes per atom of B1 (lj/cut alone)
 constexpr int kBlock = 128;
 constexpr unsigned kNeighMask = (1u << 30) - 1u;
 
 static_assert(kLanes >= 1 && kLanes <= 32 && (kLanes & (kLanes - 1)) == 0,
               "kLanes must be a power of two up to a warp");
+static_assert(kLanesLJ >= 1 && kLanesLJ <= 32 &&
+                  (kLanesLJ & (kLanesLJ - 1)) == 0,
+              "kLanesLJ must be a power of two up to a warp");
 
 __device__ __forceinline__ float log_t(float a) { return logf(a); }
 __device__ __forceinline__ double log_t(double a) { return log(a); }
@@ -112,17 +125,18 @@ struct Args {
   Coeffs<T> c;
 };
 
-// the sum of v over the kLanes lanes of an atom, in each of them
-template <typename T>
+// the sum of v over the LANES lanes of an atom, in each of them
+template <int LANES, typename T>
 __device__ __forceinline__ T lanes_sum(T v, unsigned mask) {
 #pragma unroll
-  for (int o = kLanes / 2; o > 0; o >>= 1) {
-    v += __shfl_xor_sync(mask, v, o, kLanes);
+  for (int o = LANES / 2; o > 0; o >>= 1) {
+    v += __shfl_xor_sync(mask, v, o, LANES);
   }
   return v;
 }
 
-template <typename T, bool EFLAG, bool VFLAG>
+// BONDS: B2 (nb partner slots, the bond energy in bslot); without, B1
+template <int LANES, bool BONDS, typename T, bool EFLAG, bool VFLAG>
 __global__ void __launch_bounds__(kBlock) lj_fene_pairlist_kernel(
     const Args<T> a) {
   // the empty slots' outputs, by every thread of the grid in turn
@@ -136,18 +150,19 @@ __global__ void __launch_bounds__(kBlock) lj_fene_pairlist_kernel(
     a.f[3 * s + 2] = T(0);
     if (EFLAG) {
       a.eslot[s] = T(0);
-      a.bslot[s] = T(0);
+      if (BONDS) a.bslot[s] = T(0);
     }
     if (VFLAG) {
       for (int c = 0; c < 6; ++c) a.vslot[6 * s + c] = T(0);
     }
   }
 
-  const long long g = tid / kLanes;   // the atom of these lanes
+  const long long g = tid / LANES;    // the atom of these lanes
   if (g >= a.natoms) return;          // the atom's lanes alike
-  const int lane = threadIdx.x % kLanes;
-  const int base = (threadIdx.x & 31) & ~(kLanes - 1);
-  const unsigned mask = (0xffffffffu >> (32 - kLanes)) << base;
+  const int lane = threadIdx.x % LANES;
+  const int base = (threadIdx.x & 31) & ~(LANES - 1);
+  const unsigned mask = (0xffffffffu >> (32 - LANES)) << base;
+  const int nb = BONDS ? a.nb : 0;
   const long long i = a.rows[g];
   const Coeffs<T>& c = a.c;
 
@@ -160,9 +175,9 @@ __global__ void __launch_bounds__(kBlock) lj_fene_pairlist_kernel(
   const int* row = a.pairs + i * a.K;
   const int n = a.npairs[i];
   // lj over the code-0 entries, then the bonds over the partner slots
-  for (int k = lane; k < n + a.nb; k += kLanes) {
+  for (int k = lane; k < n + nb; k += LANES) {
     long long j;
-    bool bond = k >= n;
+    const bool bond = BONDS && k >= n;
     if (bond) {
       j = a.bslots[i * a.nb + (k - n)];
       if (j < 0) continue;
@@ -208,20 +223,20 @@ __global__ void __launch_bounds__(kBlock) lj_fene_pairlist_kernel(
     }
   }
 
-  fx = lanes_sum(fx, mask);
-  fy = lanes_sum(fy, mask);
-  fz = lanes_sum(fz, mask);
+  fx = lanes_sum<LANES>(fx, mask);
+  fy = lanes_sum<LANES>(fy, mask);
+  fz = lanes_sum<LANES>(fz, mask);
   if (EFLAG) {
-    e = lanes_sum(e, mask);
-    eb = lanes_sum(eb, mask);
+    e = lanes_sum<LANES>(e, mask);
+    if (BONDS) eb = lanes_sum<LANES>(eb, mask);
   }
   if (VFLAG) {
-    v0 = lanes_sum(v0, mask);
-    v1 = lanes_sum(v1, mask);
-    v2 = lanes_sum(v2, mask);
-    v3 = lanes_sum(v3, mask);
-    v4 = lanes_sum(v4, mask);
-    v5 = lanes_sum(v5, mask);
+    v0 = lanes_sum<LANES>(v0, mask);
+    v1 = lanes_sum<LANES>(v1, mask);
+    v2 = lanes_sum<LANES>(v2, mask);
+    v3 = lanes_sum<LANES>(v3, mask);
+    v4 = lanes_sum<LANES>(v4, mask);
+    v5 = lanes_sum<LANES>(v5, mask);
   }
   if (lane != 0) return;
   a.f[3 * i + 0] = fx;
@@ -229,7 +244,7 @@ __global__ void __launch_bounds__(kBlock) lj_fene_pairlist_kernel(
   a.f[3 * i + 2] = fz;
   if (EFLAG) {
     a.eslot[i] = e;
-    a.bslot[i] = eb;
+    if (BONDS) a.bslot[i] = eb;
   }
   if (VFLAG) {
     T* vo = a.vslot + 6 * i;
@@ -237,32 +252,34 @@ __global__ void __launch_bounds__(kBlock) lj_fene_pairlist_kernel(
   }
 }
 
-template <typename T, bool EFLAG, bool VFLAG>
+template <int LANES, bool BONDS, typename T, bool EFLAG, bool VFLAG>
 int launch_one(const Args<T>& a, cudaStream_t s) {
-  long long threads = a.natoms * kLanes;
+  long long threads = a.natoms * LANES;
   if (threads < 1) threads = 1;
   const dim3 grid(static_cast<unsigned>((threads + kBlock - 1) / kBlock));
-  lj_fene_pairlist_kernel<T, EFLAG, VFLAG><<<grid, kBlock, 0, s>>>(a);
+  lj_fene_pairlist_kernel<LANES, BONDS, T, EFLAG, VFLAG>
+      <<<grid, kBlock, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <int LANES, bool BONDS, typename T>
 int launch(const Args<T>& a, int eflag, int vflag, cudaStream_t s) {
   if (a.np < 1 || a.natoms < 0 || a.natoms > a.np || a.K < 1 ||
-      a.nb < 1 || a.nb > 2) {
+      (BONDS ? (a.nb < 1 || a.nb > 2) : a.nb != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (eflag && vflag) return launch_one<T, true, true>(a, s);
-  if (eflag) return launch_one<T, true, false>(a, s);
-  if (vflag) return launch_one<T, false, true>(a, s);
-  return launch_one<T, false, false>(a, s);
+  if (eflag && vflag) return launch_one<LANES, BONDS, T, true, true>(a, s);
+  if (eflag) return launch_one<LANES, BONDS, T, true, false>(a, s);
+  if (vflag) return launch_one<LANES, BONDS, T, false, true>(a, s);
+  return launch_one<LANES, BONDS, T, false, false>(a, s);
 }
 
 }  // namespace
 
-// C interface, bound with ctypes by tpumd_torch/ops/lj_fene_cellgrid.py.
-// eslot, bslot may be null without eflag, vslot without vflag.  Returns
-// the CUDA error code of the launch (0 on success).
+// C interface, bound with ctypes by tpumd_torch/ops/lj_fene_cellgrid.py
+// (B2) and tpumd_torch/ops/lj_cellgrid.py (B1).  eslot, bslot may be null
+// without eflag, vslot without vflag.  Each returns the CUDA error code of
+// the launch (0 on success).
 #define TPUMD_LJ_FENE_ENTRY(NAME, T)                                         \
   extern "C" int NAME(                                                       \
       const T* x, const unsigned char* valid, const int* pairs,              \
@@ -275,8 +292,26 @@ int launch(const Args<T>& a, int eflag, int vflag, cudaStream_t s) {
                     eslot, bslot, vslot, np, natoms, K, nb,                  \
                     {T(lj1), T(lj2), T(lj3), T(lj4), T(offset), T(cutsq),    \
                      T(fk), T(r0sq), T(feps), T(fsig2)}};                    \
-    return launch<T>(a, eflag, vflag, static_cast<cudaStream_t>(stream));    \
+    return launch<kLanes, true, T>(a, eflag, vflag,                          \
+                                   static_cast<cudaStream_t>(stream));       \
+  }
+
+#define TPUMD_LJ_ENTRY(NAME, T)                                              \
+  extern "C" int NAME(                                                       \
+      const T* x, const unsigned char* valid, const int* pairs,              \
+      const int* npairs, const long long* rows, const T* lengths, T* f,      \
+      T* eslot, T* vslot, long long np, long long natoms, int K,             \
+      double lj1, double lj2, double lj3, double lj4, double offset,         \
+      double cutsq, int eflag, int vflag, void* stream) {                    \
+    const Args<T> a{x, valid, pairs, npairs, nullptr, rows, lengths, f,      \
+                    eslot, nullptr, vslot, np, natoms, K, 0,                 \
+                    {T(lj1), T(lj2), T(lj3), T(lj4), T(offset), T(cutsq),    \
+                     T(0), T(1), T(0), T(1)}};                               \
+    return launch<kLanesLJ, false, T>(a, eflag, vflag,                       \
+                                      static_cast<cudaStream_t>(stream));    \
   }
 
 TPUMD_LJ_FENE_ENTRY(tpumd_lj_fene_cellgrid_f32, float)
 TPUMD_LJ_FENE_ENTRY(tpumd_lj_fene_cellgrid_f64, double)
+TPUMD_LJ_ENTRY(tpumd_lj_cellgrid_f32, float)
+TPUMD_LJ_ENTRY(tpumd_lj_cellgrid_f64, double)

@@ -119,6 +119,7 @@ class Simulation:
         self._bonded_dev = ()
         self._fstate_stash: dict = {}
         self.grid_setups = 0           # fresh grids binned (_grid_setup)
+        self._refreshes = 0            # list refreshes of earlier grids
         self.step = 0
         self.last_thermo: dict | None = None
         self.loop_time = 0.0
@@ -257,15 +258,15 @@ class Simulation:
         else:
             cfg = self._grid_config(cutneigh, margin)
         self._neigh_cfg = cfg
-        pairlist_k, exclude = 0, ()
-        # a style sweeps a list when it says so, or when FENE bonds ride
-        # its kernel (their partners coded in the list)
-        if self._mode == "cellgrid" and (
-                getattr(self.pair, "pair_list", False)
-                or self._kernel_bond is not None):
+        pairlist_k, exclude, refresh = 0, (), False
+        # every style on the grid sweeps a list (FENE bonds riding lj/cut's
+        # kernel are coded in it); a schedule that leaves steps unchecked
+        # refreshes it where stale
+        if self._mode == "cellgrid" and self.pair is not None:
             pairlist_k = self._kmax_override or cg.pairlist_kmax(
                 self.state.box, cutneigh, self.natoms)
             exclude = tuple(self.neigh_exclude)
+            refresh = not (cfg.check and cfg.every == 1 and cfg.delay <= 1)
         mass_np = np.asarray(self.mass, dtype=np.float64).copy()
         mass_np[0] = 1.0  # padded slots: finite mass, zero force
         slj, scl = self._special_weights()
@@ -278,7 +279,8 @@ class Simulation:
             ref_order_tags=self._ref_order_tags, bonded=self._bonded_dev,
             kspace=self.kspace, special_lj=slj, special_coul=scl,
             tdof=self.dof(), shrink=self._shrink_spec(),
-            pairlist_k=pairlist_k, pairlist_exclude=exclude)
+            pairlist_k=pairlist_k, pairlist_exclude=exclude,
+            pairlist_refresh=refresh)
 
     def _grid_config(self, cutneigh: float,
                      margin: float) -> cg.CellGridConfig:
@@ -677,6 +679,8 @@ class Simulation:
         the padded grid-ordered state goes back to natoms rows."""
         if self._carry is not None:
             s, neigh, fstates = self._carry
+            if self._ctx.is_cellgrid:
+                self._refreshes += self._grid_refreshes(neigh)
             # fixes that survive keep their state across the re-setup
             self._fstate_stash = {id(fx): fs for fx, fs
                                   in zip(self._ctx.fixes, fstates)}
@@ -772,11 +776,13 @@ class Simulation:
     def _segment_flags(self, neigh) -> tuple[bool, bool]:
         """(cell or list overflow, some atom's KH history entries all in
         use on the grid), read from the device in one transfer."""
-        if not self._ctx.is_cellgrid or neigh.shear_tags is None:
+        if not self._ctx.is_cellgrid:
             return bool(neigh.overflow), False
+        if neigh.shear_tags is None:
+            return bool(neigh.any_overflow), False
         full = torch.all(neigh.shear_tags != 0, dim=1).any()
-        over, sat = torch.stack([torch.as_tensor(neigh.overflow), full]) \
-            .tolist()
+        over, sat = torch.stack([torch.as_tensor(neigh.any_overflow),
+                                 full]).tolist()
         return over, sat
 
     def _rebin(self, snapshot):
@@ -786,6 +792,7 @@ class Simulation:
         (tpumd/md/simulation.py:1304-1374); returns the new context."""
         s0, neigh0, fstates = snapshot
         if self._ctx.is_cellgrid:
+            self._refreshes += self._grid_refreshes(neigh0)
             rows = cg.compact_rows(neigh0.valid, self.natoms)
             self.state = cg.compact_state(s0, neigh0.valid, self.natoms)
             history = None
@@ -802,6 +809,19 @@ class Simulation:
         self._check_overflow(neigh)
         self._carry = (s, neigh, fstates)
         return self._ctx
+
+    @staticmethod
+    def _grid_refreshes(neigh) -> int:
+        return 0 if neigh.list_hold is None else int(neigh.list_stat[2])
+
+    @property
+    def list_refreshes(self) -> int:
+        """Pair list refreshes taken between re-bins since the set-up,
+        those of segments redone after an overflow included (a read from
+        the device)."""
+        if self._carry is None or not self._ctx.is_cellgrid:
+            return self._refreshes
+        return self._refreshes + self._grid_refreshes(self._carry[1])
 
     def _regrow(self, snapshot, neigh):
         """Grow the cell capacity, or the pair list's K, (on the matrix

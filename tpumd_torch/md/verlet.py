@@ -20,11 +20,16 @@ the grid state carries and every re-bin moves with the atoms; set-up and
 thermo evaluations read the history without advancing it.  A rebuild
 shrink-wraps the box's s/m faces to the atoms first.
 
-A style that sweeps a pair list (lj/charmm/coul/long, gran/hooke/history,
-lj/cut with FENE bonds in its kernel) gets one from every re-bin, at
+Every style on the grid sweeps a pair list (lj/cut, with or without FENE
+bonds in its kernel, eam, lj/charmm/coul/long, gran/hooke/history; eam's
+density pass still sweeps the stencil): it gets one from every re-bin, at
 set-up and at each rebuild, carried in the grid state with the bond
 partners' slots; a row longer than its K raises the overflow flag as a
-full cell does.
+full cell does.  Where the schedule leaves a step's force evaluation
+unchecked (check no, the steps before the delay, every > 1), the list is
+refreshed on the card first wherever some atom moved more than skin/2
+since its build, so the sweep sums the stencil's pairs
+(``ops/cellgrid_pairlist.py``); a refresh is not a rebuild.
 
 On the matrix engine the atoms keep their rows: a rebuild wraps,
 shrink-wraps and builds the (N, K) neighbor matrix, and a granular style's
@@ -47,7 +52,7 @@ from tpumd_torch.models.bonded import compute_tuples
 from tpumd_torch.ops import cellgrid as cg
 from tpumd_torch.ops import neighbor as nb
 from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist, \
-    partner_slots
+    new_stat, pairlist_hold, partner_slots, refresh_pairlist
 from tpumd_torch.utils.units import Units
 
 # the energies of a force evaluation (tpumd/md/verlet.py:123-124)
@@ -83,11 +88,14 @@ class StepContext:
     # shrink-wrapped faces: ((dim, shrink_lo, shrink_hi, small), ...)
     # (Domain::reset_box, src/domain.cpp:431-460)
     shrink: tuple = ()
-    # row width K of the cell grid's pair list (ops/cellgrid_pairlist.py)
-    # for a style that sweeps one; 0: no list
+    # row width K of the cell grid's pair list (ops/cellgrid_pairlist.py);
+    # 0: no list (the matrix engine, or no pair style)
     pairlist_k: int = 0
     # the neigh_modify exclude group-bit pairs the list drops
     pairlist_exclude: tuple = ()
+    # the schedule leaves some steps unchecked: the list is refreshed
+    # where stale (ops/cellgrid_pairlist.py::refresh_pairlist)
+    pairlist_refresh: bool = False
 
     def mass_per_atom(self, s: MDState):
         if s.rmass is not None:
@@ -189,7 +197,8 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
             bond = (ctx.kernel_bond, (neigh.pairs, neigh.npairs,
                                       neigh.bond_slots, neigh.row2slot))
         f, evdwl, vir, ebond = pair.compute_cellgrid(
-            s.x, neigh.valid, s.box, ctx.neigh_cfg, eflag, vflag, bond=bond)
+            s.x, neigh.valid, s.box, ctx.neigh_cfg, eflag, vflag, bond=bond,
+            plist=(neigh.pairs, neigh.npairs, neigh.row2slot))
         tally({"evdwl": evdwl, "ebond": ebond}, vir)
 
     if ctx.bonded:
@@ -267,17 +276,18 @@ def build_matrix(s: MDState, ctx: StepContext, nbuilds: int,
                             max_count=max_count, shear=shear)
 
 
-def grid_pairlist(s: MDState, valid, ctx: StepContext, max_pairs=None):
+def grid_pairlist(s: MDState, valid, ctx: StepContext, stat=None):
     """The pair list fields of a freshly binned grid state (empty without
     ctx.pairlist_k), with the box corners of the build where a fix moves
     the box between rebuilds (a barostat; a shrink-wrapped face moves
     only at a rebuild, as LAMMPS resets the box), and its overflow
-    flag (None without a list).  max_pairs, the longest row the state has
-    seen, keeps its maximum.  With FENE bonds in the pair kernel the bond
+    flag (None without a list).  stat, the (4,) status words the state
+    keeps over its re-bins (fresh ones by default), takes the build's
+    longest row and overflow.  With FENE bonds in the pair kernel the bond
     partners are the special list, at code 1 (special_bonds fene), and
     their slots ride the state; the exclusions of ctx.pairlist_exclude
     read the group bits (every atom in group all without a group
-    command)."""
+    command).  Under ctx.pairlist_refresh the list keeps its ListHold."""
     if ctx.pairlist_k == 0:
         return {}, None
     stags, scodes = s.special_tags, s.special_codes
@@ -288,15 +298,21 @@ def grid_pairlist(s: MDState, valid, ctx: StepContext, max_pairs=None):
     gmask = s.gmask
     if gmask is None and ctx.pairlist_exclude:
         gmask = torch.ones_like(s.tag)
+    if stat is None:
+        stat = new_stat(s.x.device)
+    box_change = any(fx.box_change for fx in ctx.fixes)
+    hold = None
+    if ctx.pairlist_refresh:
+        hold = fields["list_hold"] = pairlist_hold(
+            s.x, valid, s.tag, stags, scodes, ctx.neigh_cfg, gmask,
+            ctx.pairlist_exclude, box_term=box_change)
     pairs, npairs, longest, over = cellgrid_pairlist(
         s.x, valid, s.tag, stags, scodes, s.box, ctx.neigh_cfg,
-        ctx.pairlist_k, gmask, ctx.pairlist_exclude)
-    if max_pairs is not None:
-        longest = torch.maximum(max_pairs, longest)
-    if any(fx.box_change for fx in ctx.fixes):
+        ctx.pairlist_k, gmask, ctx.pairlist_exclude, stat=stat, hold=hold)
+    if box_change:
         fields.update(lohold=s.box.lo, hihold=s.box.hi)
-    return {"pairs": pairs, "npairs": npairs, "max_pairs": longest,
-            **fields}, over
+    return {"pairs": pairs, "npairs": npairs, "list_stat": stat,
+            "max_pairs": longest, **fields}, over
 
 
 def _rebuild(s: MDState, neigh, ctx: StepContext):
@@ -319,7 +335,7 @@ def _rebuild(s: MDState, neigh, ctx: StepContext):
                    for k in ("shear_tags", "shear")}
     # placed atoms carry their tag; empty and dropped slots were zeroed
     valid = s.tag > 0
-    plist, list_over = grid_pairlist(s, valid, ctx, neigh.max_pairs)
+    plist, list_over = grid_pairlist(s, valid, ctx, neigh.list_stat)
     if list_over is not None:
         over = over | list_over
     neigh = cg.CellGridState(
@@ -346,6 +362,21 @@ def decide_rebuild(s: MDState, neigh, ctx: StepContext) -> bool:
     return bool(nb.displacement_exceeded(s.x, neigh.xhold, s.box, cfg.skin))
 
 
+def refresh_list(s: MDState, neigh, ctx: StepContext):
+    """Keep the pair list complete at a step that did not re-bin: unless
+    the schedule's displacement check ran this step against the list's own
+    positions (no refresh since the re-bin), refresh it where some atom
+    moved more than skin/2 since its build (the decision on the device)."""
+    cfg = ctx.neigh_cfg
+    checked = (cfg.check and neigh.ago >= cfg.delay
+               and neigh.ago % cfg.every == 0)
+    if checked and not neigh.list_gated:
+        return neigh
+    refresh_pairlist(s.x, neigh.valid, s.box, cfg, neigh.pairs, neigh.npairs,
+                     neigh.list_stat, neigh.list_hold)
+    return neigh if neigh.list_gated else neigh.replace(list_gated=True)
+
+
 def step(s: MDState, neigh, fstates, ctx: StepContext,
          xs, istep: int):
     """One velocity-Verlet step to timestep istep; xs holds each fix's
@@ -358,6 +389,8 @@ def step(s: MDState, neigh, fstates, ctx: StepContext,
     neigh = neigh.replace(ago=neigh.ago + 1)
     if decide_rebuild(s, neigh, ctx):
         s, neigh = _rebuild(s, neigh, ctx)
+    elif ctx.pairlist_refresh:
+        neigh = refresh_list(s, neigh, ctx)
     need_virial = ctx.need_virial
     f, _, virial, torque, neigh = compute_forces(
         s, neigh, ctx, eflag=False, vflag=need_virial, shearupdate=True)

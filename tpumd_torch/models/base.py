@@ -24,10 +24,6 @@ class PairStyle:
     matrix_engine = True
     # pairwise styles take the matrix engine's multi-image mode as they are
     supports_image_ext = True
-    # on the cell grid, the style sweeps a pair list built at every re-bin
-    # (ops/cellgrid_pairlist.py) instead of the 27-cell stencil (lj/cut
-    # also does when FENE bonds ride its kernel: Simulation._make_ctx)
-    pair_list = False
 
     def __init__(self, ntypes: int):
         self.ntypes = ntypes

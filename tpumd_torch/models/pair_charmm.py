@@ -7,7 +7,7 @@ Coulomb through the reference's erfc polynomial.  The special-bond weights
 are applied in the sweep by each list entry's code; an excluded Coulomb
 pair keeps the kspace compensation term.  The 1-4 tables (eps14, sigma14)
 serve the CHARMM dihedral's 1-4 pairs.  On the cell grid the style sweeps
-the grid's pair list (``pair_list``): forces go through the kernel of
+the grid's pair list: forces go through the kernel of
 ``ops/charmm_cellgrid.py`` (its plain version on the CPU).
 lj/charmm/coul/charmm is not ported.
 """
@@ -29,10 +29,9 @@ class PairLJCharmmCoulLong(PairStyle):
     # its matrix-engine pair_fn_ex (tpumd/models/pair_charmm.py:140) is not
     # ported
     matrix_engine = False
-    # the pair sweep takes charges and special lists
+    # the pair sweep takes charges and special lists (the grid's pair list
+    # carries the special codes)
     charged = True
-    # and sweeps the grid's pair list, which carries the special codes
-    pair_list = True
 
     def __init__(self, ntypes: int):
         super().__init__(ntypes)

@@ -8,7 +8,7 @@ neighbor cutoff is the largest contact distance, twice the largest
 radius.  Fix freeze hands its group bit to the style (the effective-mass
 rule, PairGranHookeHistory::init_style), and the set-up hands it the
 ``neigh_modify exclude group`` bit pairs.  On the cell grid the style
-sweeps the grid's pair list (``pair_list``), built at every re-bin with
+sweeps the grid's pair list, built at every re-bin with
 the excluded pairs dropped: forces and torques go through the kernel
 ``ops/gran_cellgrid.py`` (its plain version on the CPU), which also
 advances the per-contact history; on the matrix neighbor
@@ -37,7 +37,6 @@ class PairGranHookeHistory(PairStyle):
     is_granular = True
     # compute_gran reads the real atoms' rows: no image copies
     supports_image_ext = False
-    pair_list = True
 
     def __init__(self, ntypes: int):
         super().__init__(ntypes)

@@ -5,9 +5,9 @@ mixing at :580-610): forcelj = r^-6 (lj1 r^-6 - lj2), fpair = forcelj/r^2,
 energy = r^-6 (lj3 r^-6 - lj4) - offset.  PyTorch counterpart of
 tpumd/models/pair_lj_cut.py.  The cell grid's kernels take one atom type;
 the matrix engine (``pair_fn``) any number, its coefficients read as one
-row gather of a (ntypes+1)^2 by 6 table.  With FENE bonds riding the
-kernel the style sweeps the grid's pair list, built at every re-bin with
-the bond partners coded 1; without, the stencil.
+row gather of a (ntypes+1)^2 by 6 table.  On the grid the style sweeps
+the grid's pair list, built at every re-bin (with FENE
+bonds riding the kernel, the bond partners coded 1).
 """
 
 from __future__ import annotations
@@ -118,20 +118,20 @@ class PairLJCut(PairStyle):
             self.lj1, self.lj2, self.lj3, self.lj4, self.offset, self.cutsq)))
 
     def compute_cellgrid(self, x, valid, box, cfg, eflag: bool, vflag: bool,
-                         bond=None):
+                         bond=None, plist=None):
         """(f, evdwl, virial, ebond) on the cell grid; evdwl and ebond are
         None unless eflag, virial unless vflag, ebond without bonds.
-        Every eflag/vflag combination goes through a cell-grid kernel (its
-        plain version for CPU tensors): the LJ kernel over the stencil, or
-        with bond = (bond style, (pairs, npairs, bond_slots, rows)) the
-        LJ+FENE kernel over the grid's pair list."""
+        Every eflag/vflag combination goes through a list kernel (its
+        plain version for CPU tensors): the LJ kernel over the grid's pair
+        list plist = (pairs, npairs, rows), or with bond = (bond style,
+        (pairs, npairs, bond_slots, rows)) the LJ+FENE kernel."""
         if self.ntypes != 1:
             raise NotImplementedError(
                 "lj/cut with more than one atom type: the cell-grid kernels "
                 "are single-type")
         if bond is None:
             return lj_cellgrid(x, valid, box, cfg, self.kernel_coeffs(),
-                               eflag, vflag) + (None,)
+                               eflag, vflag, plist) + (None,)
         style, plist = bond
         if style.name != "fene":
             raise NotImplementedError(

@@ -108,15 +108,15 @@ def load() -> KernelLibrary:
     return _loaded
 
 
-def kernel_function(name: str, argtypes):
-    """A launch function of the library (built at first use), bound with
-    its argument types; every one returns the launch's CUDA error code.
-    Pointers and the stream must be c_void_p, or ctypes cuts them to 32
-    bits."""
+def kernel_function(name: str, argtypes, restype=ctypes.c_int):
+    """A function of the library (built at first use), bound with its
+    argument types; a launch function returns the launch's CUDA error
+    code (restype c_int).  Pointers and the stream must be c_void_p, or
+    ctypes cuts them to 32 bits."""
     fn = _functions.get(name)
     if fn is None:
         fn = getattr(load().lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _functions[name] = fn
     return fn

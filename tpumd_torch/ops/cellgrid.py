@@ -58,22 +58,38 @@ class CellGridState:
     # atoms: partner tags (Np, KH) int32 (0 = empty) and shear (Np, KH, 3)
     shear_tags: torch.Tensor | None = None
     shear: torch.Tensor | None = None
-    # a style that sweeps a pair list (ops/cellgrid_pairlist.py): the
-    # list of the last re-bin, (Np, K) packed entries and (Np,) row counts,
-    # the longest row seen, () int, over the state's rebuilds, and, under
-    # a fix that moves the box, the box corners at the build, (3,) each,
-    # for the rebuild check; with FENE bonds in the pair kernel, each
-    # slot's bond partners' slots (Np, nb) int32 (-1: none), mapped at the
-    # same re-bin
+    # the pair list every style on the grid sweeps
+    # (ops/cellgrid_pairlist.py): the list of the last re-bin or refresh,
+    # (Np, K) packed entries and (Np,) row counts, its (4,) int32 status
+    # words (longest row, overflow, refreshes, gate stamp) kept over the
+    # grid's re-bins, the longest row seen, () int (a view of the first
+    # word), and, under a fix that moves the box, the box corners at the
+    # re-bin, (3,) each, for the rebuild check; with FENE bonds in the pair
+    # kernel, each slot's bond partners' slots (Np, nb) int32 (-1: none),
+    # mapped at the same re-bin.  Where the schedule leaves steps
+    # unchecked, the ListHold the refresh reads, and whether a refresh was
+    # launched since the re-bin (on the host; the list then no longer
+    # holds xhold's positions)
     pairs: torch.Tensor | None = None
     npairs: torch.Tensor | None = None
+    list_stat: torch.Tensor | None = None
     max_pairs: torch.Tensor | None = None
     lohold: torch.Tensor | None = None
     hihold: torch.Tensor | None = None
     bond_slots: torch.Tensor | None = None
+    list_hold: tuple | None = None
+    list_gated: bool = False
 
     def replace(self, **kw) -> "CellGridState":
         return dataclasses.replace(self, **kw)
+
+    @property
+    def any_overflow(self) -> torch.Tensor:
+        """The overflow flag, with a refresh's row overflow since the
+        re-bin where the list is refreshed."""
+        if self.list_hold is None:
+            return self.overflow
+        return self.overflow | (self.list_stat[1] != 0)
 
 
 def choose_cellgrid_config(box: Box, cutneigh: float, skin: float,

@@ -5,15 +5,21 @@ The kernels (``tpumd_torch/csrc/eam_cellgrid.cu``) replace the TPU kernels
 tpumd/ops/pallas_eam.py::_rho_kernel and ::_force_kernel, and read the
 exact spline tables where those used Chebyshev fits:
 
-* ``eam_rho_cellgrid``: host densities rho_i = sum_j rho(r_ij), then per
-  slot the embedding derivative F'(rho_i) and, with eflag, F(rho_i) plus
-  the linear term above rhomax (no elementwise pass between the kernels);
-* ``eam_force_cellgrid``: f_i = sum_j -((F'_i + F'_j) rho'(r) + phi'(r))
-  d_ij / r, with per-slot phi and virial under the flags, so thermo steps
-  need no second sweep.
+* ``eam_rho_cellgrid``, over the 27-cell stencil: host densities rho_i =
+  sum_j rho(r_ij), then per slot the embedding derivative F'(rho_i) and,
+  with eflag, F(rho_i) plus the linear term above rhomax (no elementwise
+  pass between the kernels);
+* ``eam_force_cellgrid``, over the grid's pair list
+  (``ops/cellgrid_pairlist.py``, built at every re-bin and refreshed where
+  the schedule could leave it stale, so it sums the stencil's pairs): f_i
+  = sum_j -((F'_i + F'_j) rho'(r) + phi'(r)) d_ij / r, with per-slot phi
+  and virial under the flags, so thermo steps need no second sweep.
 
-Each wrapper launches its kernel for CUDA tensors and takes the plain
-version only for CPU tensors; it never falls back from one to the other.
+Each wrapper launches its kernel for CUDA tensors and takes its plain
+version (``eam_rho_cellgrid_plain``, ``eam_force_pairlist_plain``) only
+for CPU tensors; it never falls back from one to the other.
+``eam_force_cellgrid_plain``, the force sweep over the stencil, is the
+oracle the list sweep is held to; no run calls it.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ from tpumd_torch.core.state import Box
 from tpumd_torch.ops import _build
 from tpumd_torch.ops.cellgrid import CellGridConfig, cellgrid_pair_sums, \
     stencil_blocks
-from tpumd_torch.ops.lj_cellgrid import LaunchCounts, check_grid_inputs
+from tpumd_torch.ops.lj_cellgrid import LaunchCounts, check_grid_inputs, \
+    check_list
 
 
 class EAMTables(NamedTuple):
@@ -113,9 +120,24 @@ def eam_pair_fn(tab: EAMTables):
 
 def eam_force_cellgrid_plain(x, valid, fp, box: Box, cfg: CellGridConfig,
                              tab: EAMTables, eflag: bool, vflag: bool):
-    """Plain PyTorch version of the force kernel: (f, e_pair, virial)."""
+    """The stencil oracle of the force pass: (f, e_pair, virial) summed
+    over the 27-cell stencil."""
     return cellgrid_pair_sums(x, fp, valid, box, cfg, eam_pair_fn(tab),
                               eflag, vflag)
+
+
+def eam_force_pairlist_plain(x, fp, box: Box, tab: EAMTables, eflag: bool,
+                             vflag: bool, pairs, npairs):
+    """Plain PyTorch version of the force kernel: (f, e_pair, virial) over
+    the list's entries within the cutoff."""
+    from tpumd_torch.ops.cellgrid_pairlist import half_virial, list_entries
+    i, j, d, r2 = list_entries(x, box, pairs, npairs)
+    inside = r2 < tab.cutsq
+    i, j, d, r2 = i[inside], j[inside], d[inside], r2[inside]
+    fpair, phi = eam_pair_fn(tab)(r2, fp[i], fp[j])
+    f = torch.zeros_like(x).index_add_(0, i, d * fpair[:, None])
+    return (f, 0.5 * torch.sum(phi) if eflag else None,
+            half_virial(fpair, d) if vflag else None)
 
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -124,7 +146,8 @@ _RHO_FN = {torch.float32: "tpumd_eam_rho_cellgrid_f32",
 _RHO_ARGTYPES = [_P] * 8 + [_I] * 6 + [_D] * 4 + [_I, _P]
 _FORCE_FN = {torch.float32: "tpumd_eam_force_cellgrid_f32",
              torch.float64: "tpumd_eam_force_cellgrid_f64"}
-_FORCE_ARGTYPES = [_P] * 9 + [_I] * 5 + [_D] * 2 + [_I, _I, _P]
+_FORCE_ARGTYPES = ([_P] * 12 + [ctypes.c_longlong] * 2 + [_I, _I]
+                   + [_D] * 2 + [_I, _I, _P])
 
 
 def _check_tables(x, tab: EAMTables, name: str):
@@ -174,17 +197,34 @@ def eam_rho_cellgrid(x, valid, box: Box, cfg: CellGridConfig,
 
 
 def eam_force_cellgrid(x, valid, fp, box: Box, cfg: CellGridConfig,
-                       tab: EAMTables, eflag: bool, vflag: bool):
+                       tab: EAMTables, eflag: bool, vflag: bool, plist):
     """Forces (Np, 3), pair energy () or None and virial (6,) or None of
-    one EAM element on the cell grid, given the embedding derivative fp of
-    every slot; the pair energy and virial take 1/2 per ordered pair."""
+    one EAM element over the grid's pair list plist = (pairs (Np, K),
+    npairs (Np,), rows (natoms,) the valid slots, the grid state's
+    row2slot), given the embedding derivative fp of every slot; the pair
+    energy and virial take 1/2 per ordered pair.  Raises without a
+    list."""
+    check_list("eam_force_cellgrid", plist, cfg.capacity, x.device)
+    pairs, npairs, rows = plist
     if x.device.type == "cpu":
         force_counts.plain_calls += 1
-        return eam_force_cellgrid_plain(x, valid, fp, box, cfg, tab, eflag,
-                                        vflag)
+        return eam_force_pairlist_plain(x, fp, box, tab, eflag, vflag, pairs,
+                                        npairs)
     if x.device.type != "cuda":
         raise ValueError(f"eam_force_cellgrid: no kernel for device "
                          f"{x.device}")
+    out = launch_force(_build.kernel_function(_FORCE_FN[x.dtype],
+                                              _FORCE_ARGTYPES),
+                       x, valid, fp, box, cfg, tab, eflag, vflag, plist)
+    force_counts.kernel_launches += 1
+    return out
+
+
+def launch_force(fn, x, valid, fp, box: Box, cfg: CellGridConfig,
+                 tab: EAMTables, eflag: bool, vflag: bool, plist):
+    """Check the CUDA inputs and launch the library function fn (the force
+    kernel of x's dtype, bound with _FORCE_ARGTYPES); the outputs of
+    eam_force_cellgrid."""
     check_grid_inputs(x, valid, box, cfg, "eam_force_cellgrid")
     _check_tables(x, tab, "eam_force_cellgrid")
     if (fp.dtype != x.dtype or tuple(fp.shape) != (cfg.capacity,)
@@ -192,24 +232,24 @@ def eam_force_cellgrid(x, valid, fp, box: Box, cfg: CellGridConfig,
         raise ValueError(f"eam_force_cellgrid: fp must be a contiguous "
                          f"({cfg.capacity},) tensor of x's dtype on "
                          f"{x.device}")
-    fn = _build.kernel_function(_FORCE_FN[x.dtype], _FORCE_ARGTYPES)
+    pairs, npairs, rows = plist
     f = torch.empty_like(x)
     eslot = _slot_vector(x, cfg) if eflag else None
     vslot = (torch.empty((cfg.capacity, 6), dtype=x.dtype, device=x.device)
              if vflag else None)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), valid.data_ptr(), fp.data_ptr(),
+                pairs.data_ptr(), npairs.data_ptr(), rows.data_ptr(),
                 box.lengths.data_ptr(), tab.rhor.data_ptr(),
                 tab.z2r.data_ptr(), f.data_ptr(),
                 None if eslot is None else eslot.data_ptr(),
-                None if vslot is None else vslot.data_ptr(),
-                cfg.nx, cfg.ny, cfg.nz, cfg.cap, tab.nr, 1.0 / tab.dr,
+                None if vslot is None else vslot.data_ptr(), cfg.capacity,
+                rows.shape[0], pairs.shape[1], tab.nr, 1.0 / tab.dr,
                 tab.cutsq, int(eflag), int(vflag),
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"eam_force_cellgrid kernel launch failed: CUDA "
                            f"error {rc}")
-    force_counts.kernel_launches += 1
     e_pair = 0.5 * torch.sum(eslot) if eflag else None
     virial = 0.5 * torch.sum(vslot, dim=0) if vflag else None
     return f, e_pair, virial

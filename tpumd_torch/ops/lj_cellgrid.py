@@ -1,11 +1,17 @@
 """Single-type lj/cut on the cell grid: the CUDA kernel, its wrapper and
-its plain PyTorch version.
+its plain PyTorch versions.
 
-The kernel (``tpumd_torch/csrc/lj_cellgrid.cu``) replaces the TPU kernel
-tpumd/ops/pallas_lj.py::_kernel and also writes per-slot energy and
+The kernel (``tpumd_torch/csrc/lj_fene_cellgrid.cu``, the LJ+FENE list
+sweep instantiated without bonds, with its own lanes per atom) replaces
+the TPU kernel tpumd/ops/pallas_lj.py::_kernel, which tested the 27-cell
+stencil at each call: it sweeps the grid's pair list
+(``ops/cellgrid_pairlist.py``, built at every re-bin and refreshed where
+the schedule could leave it stale), and also writes per-slot energy and
 virial, so thermo steps need no second sweep.  ``lj_cellgrid`` launches it
-for CUDA tensors and takes the plain version only for CPU tensors; it
-never falls back from one to the other.
+for CUDA tensors and takes the plain list sweep (``lj_pairlist_plain``)
+only for CPU tensors; it never falls back from one to the other.
+``lj_cellgrid_plain``, the sweep over the 27-cell stencil, is the oracle
+the list sweep is held to; no run calls it.
 """
 
 from __future__ import annotations
@@ -62,15 +68,31 @@ def lj_pair_fn(c: LJCoeffs):
 
 def lj_cellgrid_plain(x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
                       eflag: bool, vflag: bool):
-    """Plain PyTorch version of the kernel: (f, evdwl, virial)."""
+    """The stencil oracle: (f, evdwl, virial) summed over the 27-cell
+    stencil."""
     return cellgrid_pair_sums(x, None, valid, box, cfg, lj_pair_fn(c),
                               eflag, vflag)
 
 
+def lj_pairlist_plain(x, box: Box, c: LJCoeffs, eflag: bool, vflag: bool,
+                      pairs, npairs):
+    """Plain PyTorch version of the kernel: (f, evdwl, virial) of lj/cut
+    over the list's code-0 entries within the cutoff."""
+    from tpumd_torch.ops.cellgrid_pairlist import half_virial, list_entries
+    i, _, d, r2 = list_entries(x, box, pairs, npairs)
+    inside = r2 < c.cutsq
+    i, d, r2 = i[inside], d[inside], r2[inside]
+    fp, e = lj_pair_fn(c)(r2, None, None)
+    f = torch.zeros_like(x).index_add_(0, i, d * fp[:, None])
+    return (f, 0.5 * torch.sum(e) if eflag else None,
+            half_virial(fp, d) if vflag else None)
+
+
 _FN_NAMES = {torch.float32: "tpumd_lj_cellgrid_f32",
              torch.float64: "tpumd_lj_cellgrid_f64"}
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_ARGTYPES = [_P] * 6 + [_I] * 4 + [_D] * 6 + [_I, _I, _P]
+_P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_double
+_ARGTYPES = [_P] * 9 + [_L, _L, _I] + [_D] * 6 + [_I, _I, _P]
 
 
 def check_grid_inputs(x, valid, box: Box, cfg: CellGridConfig,
@@ -104,34 +126,70 @@ def check_grid_inputs(x, valid, box: Box, cfg: CellGridConfig,
         raise ValueError(f"{name}: cap {cfg.cap} outside 1..1024")
 
 
+def check_list(name, plist, np_: int, device):
+    """Raise on a list (pairs (Np, K) int32, npairs (Np,) int32, rows
+    (natoms,) int64 the valid slots) that a list kernel does not take."""
+    if plist is None or plist[0] is None:
+        raise ValueError(f"{name}: no pair list; the grid state of a style "
+                         "that sweeps one carries it from its last re-bin")
+    pairs, npairs, rows = plist[0], plist[1], plist[-1]
+    for what, t, dtype, shape in (
+            ("pairs", pairs, torch.int32, (np_, pairs.shape[-1])),
+            ("npairs", npairs, torch.int32, (np_,)),
+            ("rows", rows, torch.int64, (rows.shape[0],))):
+        if (t.dtype != dtype or t.dim() != len(shape)
+                or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.device != device):
+            raise ValueError(f"{name}: {what} must be a contiguous {dtype} "
+                             f"{shape} tensor on {device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if rows.shape[0] > np_:
+        raise ValueError(f"{name}: {rows.shape[0]} rows for {np_} slots")
+
+
 def lj_cellgrid(x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
-                eflag: bool, vflag: bool):
+                eflag: bool, vflag: bool, plist):
     """Forces (Np, 3), evdwl () or None and virial (6,) or None of
-    single-type lj/cut on the cell grid; energy and virial take 1/2 per
-    ordered pair (tpumd/ops/cellgrid.py:523-532)."""
+    single-type lj/cut over the grid's pair list plist = (pairs (Np, K),
+    npairs (Np,), rows (natoms,) the valid slots, the grid state's
+    row2slot); energy and virial take 1/2 per ordered pair
+    (tpumd/ops/cellgrid.py:523-532).  Raises without a list."""
+    check_list("lj_cellgrid", plist, cfg.capacity, x.device)
+    pairs, npairs, rows = plist
     if x.device.type == "cpu":
         counts.plain_calls += 1
-        return lj_cellgrid_plain(x, valid, box, cfg, c, eflag, vflag)
+        return lj_pairlist_plain(x, box, c, eflag, vflag, pairs, npairs)
     if x.device.type != "cuda":
         raise ValueError(f"lj_cellgrid: no kernel for device {x.device}")
+    out = launch(_build.kernel_function(_FN_NAMES[x.dtype], _ARGTYPES), x,
+                 valid, box, cfg, c, eflag, vflag, plist)
+    counts.kernel_launches += 1
+    return out
+
+
+def launch(fn, x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
+           eflag: bool, vflag: bool, plist):
+    """Check the CUDA inputs and launch the library function fn (the
+    kernel of x's dtype, bound with _ARGTYPES); the outputs of
+    lj_cellgrid."""
     check_grid_inputs(x, valid, box, cfg)
-    fn = _build.kernel_function(_FN_NAMES[x.dtype], _ARGTYPES)
+    pairs, npairs, rows = plist
+    np_ = cfg.capacity
     f = torch.empty_like(x)
-    eslot = (torch.empty(cfg.capacity, dtype=x.dtype, device=x.device)
+    eslot = (torch.empty(np_, dtype=x.dtype, device=x.device)
              if eflag else None)
-    vslot = (torch.empty((cfg.capacity, 6), dtype=x.dtype, device=x.device)
+    vslot = (torch.empty((np_, 6), dtype=x.dtype, device=x.device)
              if vflag else None)
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), valid.data_ptr(), box.lengths.data_ptr(),
-                f.data_ptr(),
-                None if eslot is None else eslot.data_ptr(),
-                None if vslot is None else vslot.data_ptr(),
-                cfg.nx, cfg.ny, cfg.nz, cfg.cap, *c, int(eflag), int(vflag),
+        rc = fn(x.data_ptr(), valid.data_ptr(), pairs.data_ptr(),
+                npairs.data_ptr(), rows.data_ptr(), box.lengths.data_ptr(),
+                f.data_ptr(), None if eslot is None else eslot.data_ptr(),
+                None if vslot is None else vslot.data_ptr(), np_,
+                rows.shape[0], pairs.shape[1], *c, int(eflag), int(vflag),
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lj_cellgrid kernel launch failed: CUDA error "
                            f"{rc}")
-    counts.kernel_launches += 1
     evdwl = 0.5 * torch.sum(eslot) if eflag else None
     virial = 0.5 * torch.sum(vslot, dim=0) if vflag else None
     return f, evdwl, virial

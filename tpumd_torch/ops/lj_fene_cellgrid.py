@@ -28,9 +28,10 @@ import torch
 from tpumd_torch.core.state import Box
 from tpumd_torch.ops import _build
 from tpumd_torch.ops.cellgrid import CellGridConfig, cellgrid_pair_sums
-from tpumd_torch.ops.cellgrid_pairlist import image_shift, unpack
+from tpumd_torch.ops.cellgrid_pairlist import half_virial, image_shift, \
+    list_entries
 from tpumd_torch.ops.lj_cellgrid import LaunchCounts, LJCoeffs, \
-    check_grid_inputs, lj_pair_fn
+    check_grid_inputs, check_list, lj_pair_fn
 
 
 class FENECoeffs(NamedTuple):
@@ -86,14 +87,7 @@ def lj_fene_pairlist_plain(x, box: Box, lj: LJCoeffs, fene: FENECoeffs,
     """Plain PyTorch version of the kernel: (f, evdwl, virial, ebond) of
     lj/cut over the list's code-0 entries within the cutoff and FENE + WCA
     over each slot's partner slots (bond_slots (Np, nb), -1: none)."""
-    kk = max(int(npairs.max()), 1)
-    j, code = unpack(pairs[:, :kk])
-    live = ((torch.arange(kk, device=x.device)[None, :]
-             < npairs[:, None].long()) & (code == 0))
-    ii, col = torch.nonzero(live, as_tuple=True)
-    jj = j[ii, col].long()
-    d = _image_d(x, ii, jj, box)
-    r2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    ii, _, d, r2 = list_entries(x, box, pairs, npairs)
     inside = r2 < lj.cutsq
     ii, d, r2 = ii[inside], d[inside], r2[inside]
     fp, e = lj_pair_fn(lj)(r2, None, None)
@@ -107,9 +101,7 @@ def lj_fene_pairlist_plain(x, box: Box, lj: LJCoeffs, fene: FENECoeffs,
     if eflag:
         evdwl, ebond = 0.5 * torch.sum(e), 0.5 * torch.sum(be)
     if vflag:
-        virial = 0.5 * torch.stack([
-            torch.sum(fp * d[:, a] * d[:, b])
-            for a, b in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))])
+        virial = half_virial(fp, d)
     return f, evdwl, virial, ebond
 
 
@@ -135,17 +127,8 @@ def lj_fene_cellgrid(x, valid, box: Box, cfg: CellGridConfig, lj: LJCoeffs,
     pair list plist = (pairs (Np, K), npairs (Np,), bond_slots (Np, nb),
     rows (natoms,) the valid slots, the grid state's row2slot); energies
     and virial take 1/2 per ordered pair.  Raises without a list."""
-    if plist is None or plist[0] is None:
-        raise ValueError("lj_fene_cellgrid: no pair list; the grid state "
-                         "of a style that sweeps one carries it from its "
-                         "last re-bin")
+    check_list("lj_fene_cellgrid", plist, cfg.capacity, x.device)
     pairs, npairs, bond_slots, rows = plist
-    np_ = cfg.capacity
-    if (pairs.dim() != 2 or pairs.shape[0] != np_
-            or tuple(npairs.shape) != (np_,)):
-        raise ValueError(f"lj_fene_cellgrid: a ({np_}, K) list and ({np_},)"
-                         f" counts expected, got {tuple(pairs.shape)} and "
-                         f"{tuple(npairs.shape)}")
     if x.device.type == "cpu":
         counts.plain_calls += 1
         return lj_fene_pairlist_plain(x, box, lj, fene, eflag, vflag, pairs,
@@ -167,17 +150,11 @@ def launch(fn, x, valid, box: Box, cfg: CellGridConfig, lj: LJCoeffs,
     check_grid_inputs(x, valid, box, cfg, "lj_fene_cellgrid")
     pairs, npairs, bond_slots, rows = plist
     np_, dev = cfg.capacity, x.device
-    _check("pairs", pairs, torch.int32, (np_, pairs.shape[1]), dev)
-    _check("npairs", npairs, torch.int32, (np_,), dev)
     if bond_slots.dim() != 2 or not 1 <= bond_slots.shape[1] <= 2:
         raise ValueError(f"lj_fene_cellgrid: bond_slots must be ({np_}, 1 "
                          f"or 2), got {tuple(bond_slots.shape)}")
     _check("bond_slots", bond_slots, torch.int32,
            (np_, bond_slots.shape[1]), dev)
-    _check("rows", rows, torch.int64, (rows.shape[0],), dev)
-    if rows.shape[0] > np_:
-        raise ValueError(f"lj_fene_cellgrid: {rows.shape[0]} rows for "
-                         f"{np_} slots")
     f = torch.empty_like(x)
     # per-slot lj (row 0) and bond (row 1) energies
     eslot = (torch.empty((2, np_), dtype=x.dtype, device=dev)
