@@ -42,22 +42,22 @@ line each (any failure raises and exits non-zero):
    steps, the launch counts of that run (B2 once per force evaluation,
    the list build once per grid set-up and rebuild), the cost of the
    per-step rebuild check and a profile of 100 steps;
-6. main path, eam: the EAM density (B3, over the stencil) and force (B4,
-   over the pair list) kernels against their plain versions (B4 also
-   against the stencil oracle) on perturbed fcc lattices of the generated
-   Cu-like potential at the 32k in.eam grid (12^3, cap 32) and a 2^3 grid,
-   f32 and f64, every flag combination, each timed at its 32k shape beside
-   its bound; a 500-atom eam deck on the card against the CPU (f64, step
-   40); then the 32k in.eam deck through LammpsScript in f32: step-0 and
-   step-100 gates, 500 warm-up and 500 timed steps, the launch counts of
-   that run (B3 and B4 once per force evaluation, the list's builds,
-   refresh launches and refreshes: delay 5) and a profile of 100 steps; B4
-   over the carried list against the stencil oracle 4 steps later (f64); the
-   list's upkeep as for in.lj;
+6. main path, eam: the EAM density (B3) and force (B4) kernels, both
+   over the pair list, against their plain list sweeps and their stencil
+   oracles on perturbed fcc lattices of the generated Cu-like potential
+   at the 32k in.eam grid (12^3, cap 32) and a 2^3 grid, f32 and f64,
+   every flag combination, each timed at its 32k shape beside its bound;
+   a 500-atom eam deck on the card against the CPU (f64, step 40); then
+   the 32k in.eam deck through LammpsScript in f32: step-0 and step-100
+   gates, 500 warm-up and 500 timed steps, the launch counts of that run
+   (B3 and B4 once per force evaluation, the list's builds, refresh
+   launches and refreshes: delay 5) and a profile of 100 steps; B3 and B4
+   over the carried list against their stencil oracles 4 steps later
+   (f64); the list's upkeep as for in.lj;
 7. main path, rhodo_class: on the 32k rhodo_class grid and the 2^3
    peptide grid after set-up, f32 and f64, the pair list build kernel
-   against the plain build (rows as arrays on the 32k grid, as sets on
-   the 2^3 grid, counts, longest row, overflow flag), and the
+   against the plain build (live entries as arrays, counts, longest row,
+   overflow flag; with each G of the build forced), and the
    lj/charmm/coul/long kernel (B5) over that list against the plain list
    sweep and the stencil oracle in every flag combination; both timed at
    the 32k shape beside their bounds (B5's with and without the list's
@@ -100,17 +100,18 @@ line each (any failure raises and exits non-zero):
    step-100 gates, 500
    warm-up and 500 timed steps beside the cell grid's figure of this
    call, P1's launch counts of those runs and a profile of 100 steps;
-10. a JSON line of the kernels, the card's name and power limit as
-   nvidia-smi prints them, then the result line.
+10. a JSON line of the kernels (the list build of each deck, and the
+   refresh calls of in.lj, eam and rhodo_class, each an entry of its own),
+   the card's name and power limit as nvidia-smi prints them, then the
+   result line.
 
 Every time in the kernels line (``cuda_ms``) is CUDA events around many
 calls, queued 16 at a time behind a spin kernel, so that the card runs
-them back to back whatever the host's dispatch costs.  The list kernels'
-entry takes its times and bound at each deck's shape, the builds at
-in.lj's, eam's, rhodo_class's, chain's and chute's and the refresh
-launches at in.lj's, eam's and rhodo_class's (a gate that passes, or a
-rebuilding refresh for those that took one), averaged over the main
-paths' launches (``build_entry``).
+them back to back whatever the host's dispatch costs.  A deck's build
+entry takes its times and bound at that deck's shape; a deck's refresh
+entry those of a gate that passes and, where the deck took refreshes, of
+a rebuilding refresh, averaged over the main path's calls
+(``upkeep_entries``).
 
 Imports nothing of JAX or tpumd.
 """
@@ -342,21 +343,6 @@ def pair_counts(x, valid, box, cfg, cutsq, tag=None, bond_tags=None):
     return round(float(out[1])), nb
 
 
-def warp_rows(x, valid, box, cfg, cutsq) -> tuple[int, int]:
-    """(candidate rows, rows in range) of the cell-grid kernels' loop: a
-    row is one j slot against every i slot of a cell, one loop iteration
-    of the cell's warp where cap <= 32.  It has work where j and some i of
-    the cell are valid, and takes the in-range path, on every lane, where
-    some pair of it lies within the cutoff."""
-    from tpumd_torch.ops.cellgrid import stencil_blocks
-    rows = hits = 0
-    for _, _, r2, mask, _ in stencil_blocks(x.double(), valid,
-                                            box_f64(box), cfg):
-        rows += int(mask.any(dim=-2).sum())
-        hits += int((mask & (r2 < cutsq)).any(dim=-2).sum())
-    return rows, hits
-
-
 def box_f64(box):
     from tpumd_torch.core.state import Box
     return Box(lo=box.lo.double(), hi=box.hi.double())
@@ -546,53 +532,65 @@ def list_floor_bytes(neigh, natoms: int, extra_per_slot: int = 0) -> int:
             + extra_per_slot * np_)
 
 
-def build_bound(valid, cfg, K: int, S: int, gmask: bool) -> tuple:
+def build_bound(valid, cfg, npairs, S: int, gmask: bool) -> tuple:
     """(bound ms, bound_by, bytes, candidates) of a list build: x, valid,
-    tag, the special lists and group bits read once, the (Np, K) list, its
-    counts and the status words written once, and d, r2 and the cutoff
-    test (9 operations) per candidate of the stencil's 27 cells up to
-    each cell's extent."""
+    tag, the special lists and group bits read once, the list's live
+    entries (4 bytes each: npairs), its counts and the status words
+    written once, and d, r2 and the cutoff test (9 operations) per
+    candidate of the stencil's 27 cells up to each cell's extent."""
     np_ = cfg.capacity
     nbytes = (np_ * (12 + 1 + 4 + 8 * S + (4 if gmask else 0))
-              + 12 + 4 * np_ * K + 4 * np_ + 16)
+              + 12 + 4 * int(npairs.sum()) + 4 * np_ + 16)
     occupied = valid.view(cfg.ncells, cfg.cap).sum(1).double()
     cand = int(valid.sum()) * 27 * float(occupied.mean())
     return roof(int(9 * cand), nbytes) + (nbytes, cand)
 
 
 def time_build(name: str, bargs, plain_reps: int = 3) -> dict:
-    """The list build kernel against its plain build as arrays, then both
-    timed in the order plain, kernel, kernel, plain, beside the build's
-    bound (build_bound)."""
-    from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist, \
-        cellgrid_pairlist_plain
+    """The list build kernel against its plain build (live entries as
+    arrays), with each G of the build forced and by the launch rule, then
+    timed by the rule in the order plain, kernel, kernel, plain, beside
+    the build's bound (build_bound; the bound with the (Np, K) list
+    written whole, that of the design before live entries, beside it)."""
+    from tpumd_torch.ops.cellgrid_pairlist import LANES, cellgrid_pairlist, \
+        cellgrid_pairlist_plain, new_stat, pairlist_hold
     x, valid, tag, stags, scodes, box, cfg, K = bargs[:8]
-    built = cellgrid_pairlist(*bargs)
-    plain = cellgrid_pairlist_plain(*bargs)
-    check_pairlist(f"{name} pair list", built, plain, True)
+    built, plain = check_lanes(f"{name} pair list", bargs)
     if bool(built[3]):
         raise AssertionError(f"{name} pair list: overflow at K {K}")
+    # the kernel alone: its hold (each cell's extent, the special
+    # partners' slots) and status words made once, as a re-bin makes them
+    # once for the build
+    hold = pairlist_hold(*bargs[:5], cfg, *bargs[8:10], keep=False)
+    stat = new_stat(x.device)
     p1 = cuda_ms(lambda: cellgrid_pairlist_plain(*bargs), plain_reps,
                  ahead=False)
-    k1 = cuda_ms(lambda: cellgrid_pairlist(*bargs), 50)
-    k2 = cuda_ms(lambda: cellgrid_pairlist(*bargs), 50)
+    k1 = cuda_ms(lambda: cellgrid_pairlist(*bargs, stat=stat, hold=hold), 50)
+    k2 = cuda_ms(lambda: cellgrid_pairlist(*bargs, stat=stat, hold=hold), 50)
     p2 = cuda_ms(lambda: cellgrid_pairlist_plain(*bargs), plain_reps,
                  ahead=False)
+    whole_call = cuda_ms(lambda: cellgrid_pairlist(*bargs), 50)
     S = 0 if stags is None else stags.shape[1]
-    bound_ms, bound_by, nbytes, cand = build_bound(
-        valid, cfg, K, S, len(bargs) > 9 and bool(bargs[9]))
+    excl = len(bargs) > 9 and bool(bargs[9])
+    bound_ms, bound_by, nbytes, cand = build_bound(valid, cfg, built[1], S,
+                                                   excl)
+    whole = torch.full_like(built[1], K)
+    old_ms, old_by, old_bytes, _ = build_bound(valid, cfg, whole, S, excl)
     phase("kernel", f"{name} pair list grid {cfg.nx}x{cfg.ny}x{cfg.nz} cap "
                     f"{cfg.cap} K {K} periodic {box.periodic}: the kernel's "
-                    f"rows = the plain build's as arrays, longest "
-                    f"{int(built[2])}, {int(built[1].sum())} entries "
+                    f"live entries = the plain build's as arrays for lanes "
+                    f"{LANES} and the rule, longest {int(built[2])}, "
+                    f"{int(built[1].sum())} entries "
                     f"({float(built[1][valid].double().mean()):.3f} a row); "
-                    f"f32 kernel {k1:.4f} / {k2:.4f} ms, plain "
+                    f"f32 kernel {k1:.4f} / {k2:.4f} ms (the whole call, "
+                    f"its hold made anew: {whole_call:.4f} ms), plain "
                     f"{p1:.4f} / {p2:.4f} ms; bound {nbytes} bytes, {cand:.4g} "
-                    f"candidates -> {bound_ms:.6f} ms ({bound_by})")
-    err = float(max((built[0].long() - plain[0].long()).abs().max(),
-                    (built[1].long() - plain[1].long()).abs().max()))
+                    f"candidates -> {bound_ms:.6f} ms ({bound_by}); with the "
+                    f"(Np, K) list written whole {old_bytes} bytes -> "
+                    f"{old_ms:.6f} ms ({old_by})")
     return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": err}
+            "bound_by": bound_by, "max_abs_err": live_err(built, plain),
+            "call_ms": whole_call}
 
 
 def time_upkeep(name: str, sim, build: bool = True,
@@ -670,12 +668,11 @@ def time_upkeep(name: str, sim, build: bool = True,
             xs.reverse()
         toggled(refresh_pairlist)
         plain = cellgrid_pairlist_plain(x1, *bargs[1:])
-        torch.cuda.synchronize()
-        if not (torch.equal(args[4], plain[0])
-                and torch.equal(args[5], plain[1])
-                and torch.equal(args[7].x, x1) and int(args[6][2]) == n0 + 1):
-            raise AssertionError(f"{name} refresh: the rebuilt list is not "
-                                 f"the plain build's")
+        check_pairlist(f"{name} refresh", (args[4], args[5], args[6][0],
+                                           args[6][1] != 0), plain)
+        if not (torch.equal(args[7].x, x1) and int(args[6][2]) == n0 + 1):
+            raise AssertionError(f"{name} refresh: the rebuilt list's "
+                                 f"positions or count differ")
         rt = [cuda_ms(lambda: toggled(refresh_pairlist_plain, 0), 3,
                       ahead=False),
               cuda_ms(lambda: toggled(refresh_pairlist), 50),
@@ -683,7 +680,7 @@ def time_upkeep(name: str, sim, build: bool = True,
               cuda_ms(lambda: toggled(refresh_pairlist_plain, 0), 3,
                       ahead=False)]
         S = 0 if h.stags is None else h.stags.shape[1]
-        b_ms, b_by, b_bytes, cand = build_bound(valid, cfg, K, S,
+        b_ms, b_by, b_bytes, cand = build_bound(valid, cfg, plain[1], S,
                                                 bool(h.exclude_bits))
         r_bound = roof(int(9 * cand) + 18 * natoms, b_bytes + gbytes)
         out["refresh"] = {"ms": min(rt[1:3]), "plain_ms": min(rt[::3]),
@@ -711,19 +708,20 @@ def reset_list_counts():
     bpl.refresh_counts.reset()
 
 
-def build_entry(shapes) -> dict:
-    """The list build's kernels-line figures from ((name, its phase's
-    figures at a deck's shape, that deck's main-path build launches), ...):
-    the times and the bound are means over the main paths' launches, so
-    that launches x (ms - bound) is the sum over the decks; bound_by is
-    the word of the deck whose launches take the most of the bound."""
+def build_entry(shapes, what: str) -> dict:
+    """The list kernels' figures over what from ((name, its phase's
+    figures at a deck's shape, that deck's main-path launches of it),
+    ...): the times and the bound are means over the main paths'
+    launches, so that launches x (ms - bound) is the sum over the shapes;
+    bound_by is the word of the shape whose launches take the most of the
+    bound."""
     n = sum(nb for _, _, nb in shapes)
     out = {key: sum(k[key] * nb for _, k, nb in shapes) / n
            for key in ("ms", "plain_ms", "bound_ms")}
     out["bound_by"] = max(shapes, key=lambda s: s[1]["bound_ms"] * s[2])[
         1]["bound_by"]
     out["max_abs_err"] = max(k["max_abs_err"] for _, k, _ in shapes)
-    phase("kernel", "cellgrid_pairlist over the main paths' builds: " + "; "
+    phase("kernel", f"cellgrid_pairlist over {what}: " + "; "
           .join(f"{name} {nb} x ({k['ms']:.4f} - {k['bound_ms']:.6f}) ms"
                 for name, k, nb in shapes)
           + f"; per launch {out['ms']:.4f} ms, bound {out['bound_ms']:.6f} "
@@ -854,13 +852,13 @@ def upkeep_phrase(sim, builds: int, gates: int) -> str:
 
 def window_end_check(name: str, script, steps: int):
     """Run steps more steps, to the end of a re-bin window where the list
-    is stalest, and hold B1 or B4 over the carried list against its
-    stencil oracle there, both in f64 on the run's f32 state, so that
+    is stalest, and hold B1, or B3 and B4, over the carried list against
+    their stencil oracles there, all in f64 on the run's f32 state, so that
     rounding leaves them at summation order (TOL_ORACLE) and a pair the
     list missed would show far above it."""
     from tpumd_torch.core.state import Box
     from tpumd_torch.ops.eam_cellgrid import eam_force_cellgrid, \
-        eam_force_cellgrid_plain, eam_rho_cellgrid_plain
+        eam_force_cellgrid_plain, eam_rho_cellgrid, eam_rho_cellgrid_plain
     from tpumd_torch.ops.lj_cellgrid import lj_cellgrid, lj_cellgrid_plain
     sim = script.sim
     script.run_string(f"run {steps}")
@@ -872,20 +870,27 @@ def window_end_check(name: str, script, steps: int):
         c = sim.pair.kernel_coeffs()
         fk = lj_cellgrid(x, neigh.valid, box, cfg, c, 0, 0, plist)[0]
         fo = lj_cellgrid_plain(x, neigh.valid, box, cfg, c, 0, 0)[0]
-    else:
+    tol = TOL_ORACLE[torch.float64]
+    rho_note = ""
+    if name != "in.lj":
         tab = sim.pair.kernel_tables(x)
-        _, fp, _ = eam_rho_cellgrid_plain(x, neigh.valid, box, cfg, tab, 0)
+        rho_o = eam_rho_cellgrid_plain(x, neigh.valid, box, cfg, tab, 0)
+        rho_err = check_rho(f"{name} step {sim.step}, B3 over the list "
+                            f"against the stencil", eam_rho_cellgrid(
+                                x, neigh.valid, box, cfg, tab, 0, plist),
+                            rho_o, tol)
+        rho_note = f"; B3's rho and F' to {rho_err:.3g} of their largest"
+        fp = rho_o[1]
         fk = eam_force_cellgrid(x, neigh.valid, fp, box, cfg, tab, 0, 0,
                                 plist)[0]
         fo = eam_force_cellgrid_plain(x, neigh.valid, fp, box, cfg, tab, 0,
                                       0)[0]
-    tol = TOL_ORACLE[torch.float64]
     err = check_close(f"{name} step {sim.step}, list against stencil", fk,
                       fo, (), (), None, None, tol, False, False)
     phase("main", f"{name} step {sim.step} ({neigh.ago} steps after its "
                   f"re-bin), in f64: the sweep over the carried list = the "
-                  f"stencil oracle to {err:.3g} max|f| (tol {tol:g}); "
-                  f"{sim.list_refreshes} refreshes since set-up")
+                  f"stencil oracle to {err:.3g} max|f|{rho_note} (tol "
+                  f"{tol:g}); {sim.list_refreshes} refreshes since set-up")
 
 
 def main_path(smi: str) -> dict:
@@ -1123,14 +1128,33 @@ def eam_setup(potential: Path, n: int, device, dtype, thermo: int = 50):
     return script
 
 
+def check_rho(what, out, plain, tol) -> float:
+    """Raise unless B3's rho, F' and (with eflag) F(rho) agree with a
+    plain version's to tol of their largest; the largest of those
+    relative differences."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, a, b in zip(("rho", "F'", "F(rho)"), out, plain):
+        if b is None:
+            continue
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{what} {name}: not finite")
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        if not err <= tol:
+            raise AssertionError(f"{what} {name}: {err} of max > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
 def eam_kernels_vs_plain(tmp: Path) -> tuple[dict, dict]:
-    """B3 against its plain version and B4 over the list against its plain
-    list sweep and the stencil oracle on perturbed in.eam lattices; both
-    force passes take the plain density pass's F'."""
+    """B3 and B4 over the list against their plain list sweeps and their
+    stencil oracles on perturbed in.eam lattices (rho, F' and F(rho) to
+    TOL_LIST of their largest); both force passes take the plain density
+    pass's F'."""
     from tpumd_torch.models.pair_eam import PairEAM
     from tpumd_torch.ops.eam_cellgrid import eam_force_cellgrid, \
         eam_force_cellgrid_plain, eam_force_pairlist_plain, \
-        eam_rho_cellgrid, eam_rho_cellgrid_plain
+        eam_rho_cellgrid, eam_rho_cellgrid_plain, eam_rho_pairlist_plain
     pair = PairEAM(1)
     pair.coeff(1, 1, 1, 1, str(eam_potential(tmp)))
     pair.init()
@@ -1143,17 +1167,19 @@ def eam_kernels_vs_plain(tmp: Path) -> tuple[dict, dict]:
             tab = pair.kernel_tables(x)
             tol = TOL[dtype]
             worst = (0.0, 0.0)
+            worst_rho = {"list": 0.0, "stencil": 0.0}
             for eflag, vflag in ((0, 0), (1, 1), (1, 0), (0, 1)):
                 what = f"eam {nlat}^3 {dtype} e{eflag}v{vflag}"
-                rk, fpk, ek = eam_rho_cellgrid(x, valid, box, cfg, tab, eflag)
-                rp, fpp, ep = eam_rho_cellgrid_plain(x, valid, box, cfg, tab,
-                                                     eflag)
-                torch.cuda.synchronize()
-                for name, a, b in (("rho", rk, rp), ("F'", fpk, fpp)) + (
-                        (("F(rho)", ek, ep),) if eflag else ()):
-                    err = float((a - b).abs().max())
-                    if not err <= tol * float(b.abs().max()):
-                        raise AssertionError(f"{what} {name}: {err}")
+                rho = eam_rho_cellgrid(x, valid, box, cfg, tab, eflag, plist)
+                fpp = None
+                for ref, plain in (
+                        ("list", eam_rho_pairlist_plain(
+                            x, valid, box, tab, eflag, *plist[:2])),
+                        ("stencil", eam_rho_cellgrid_plain(
+                            x, valid, box, cfg, tab, eflag))):
+                    worst_rho[ref] = max(worst_rho[ref], check_rho(
+                        f"{what} B3 vs {ref}", rho, plain, TOL_LIST[dtype]))
+                    fpp = plain[1]
                 errs = check_list_sweep(
                     what, eam_force_cellgrid(x, valid, fpp, box, cfg, tab,
                                              eflag, vflag, plist),
@@ -1166,7 +1192,11 @@ def eam_kernels_vs_plain(tmp: Path) -> tuple[dict, dict]:
             phase("kernel", f"eam_rho_cellgrid + eam_force_cellgrid grid "
                             f"{cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cap} K "
                             f"{plist[0].shape[1]} {str(dtype)[6:]}: rho, F', "
-                            f"F(rho) within tol; max|f_kernel - f_plain| = "
+                            f"F(rho) of B3 within {worst_rho['list']:.3g} of "
+                            f"their largest of the plain list sweep and "
+                            f"{worst_rho['stencil']:.3g} of the stencil "
+                            f"oracle (tol {TOL_LIST[dtype]:g}); "
+                            f"max|f_kernel - f_plain| = "
                             f"{worst[0]:.3g} max|f| against the plain list "
                             f"sweep (tol {TOL_LIST[dtype]:g}), {worst[1]:.3g}"
                             f" against the stencil oracle (tol "
@@ -1175,8 +1205,9 @@ def eam_kernels_vs_plain(tmp: Path) -> tuple[dict, dict]:
             if nlat != 20 or dtype != torch.float32:
                 continue
             _, fpp, _ = eam_rho_cellgrid_plain(x, valid, box, cfg, tab, 0)
-            rk, _, _ = eam_rho_cellgrid(x, valid, box, cfg, tab, 0)
-            rp, _, _ = eam_rho_cellgrid_plain(x, valid, box, cfg, tab, 0)
+            rk, _, _ = eam_rho_cellgrid(x, valid, box, cfg, tab, 0, plist)
+            rp, _, _ = eam_rho_pairlist_plain(x, valid, box, tab, 0,
+                                              *plist[:2])
             k_rho["max_abs_err"] = float((rk - rp).abs().max())
             fk, _, _ = eam_force_cellgrid(x, valid, fpp, box, cfg, tab, 0, 0,
                                           plist)
@@ -1185,9 +1216,10 @@ def eam_kernels_vs_plain(tmp: Path) -> tuple[dict, dict]:
             k_force["max_abs_err"] = float((fk - fp).abs().max())
             k_rho.update(time_kernel(
                 "eam_rho_cellgrid",
-                lambda: eam_rho_cellgrid(x, valid, box, cfg, tab, 0),
-                lambda: eam_rho_cellgrid_plain(x, valid, box, cfg, tab, 0),
-                lambda: eam_rho_cellgrid(x, valid, box, cfg, tab, 1)))
+                lambda: eam_rho_cellgrid(x, valid, box, cfg, tab, 0, plist),
+                lambda: eam_rho_pairlist_plain(x, valid, box, tab, 0,
+                                               *plist[:2]),
+                lambda: eam_rho_cellgrid(x, valid, box, cfg, tab, 1, plist)))
             k_force.update(time_kernel(
                 "eam_force_cellgrid",
                 lambda: eam_force_cellgrid(x, valid, fpp, box, cfg, tab, 0,
@@ -1198,6 +1230,8 @@ def eam_kernels_vs_plain(tmp: Path) -> tuple[dict, dict]:
                                            1, plist)))
             stencil_ms = cuda_ms(lambda: eam_force_cellgrid_plain(
                 x, valid, fpp, box, cfg, tab, 0, 0), 10, ahead=False)
+            rho_stencil_ms = cuda_ms(lambda: eam_rho_cellgrid_plain(
+                x, valid, box, cfg, tab, 0), 10, ahead=False)
             npair, _ = pair_counts(x, valid, box, cfg, tab.cutsq)
             natoms = int(valid.sum())
             np_ = cfg.capacity
@@ -1212,19 +1246,22 @@ def eam_kernels_vs_plain(tmp: Path) -> tuple[dict, dict]:
             floor = (4 * int(plist[1].sum()) + 4 * np_ + 8 * natoms)
             floor_ms, floor_by = roof(npair * OPS_EAM_FORCE_PAIR,
                                       nbytes_f + floor)
+            rho_floor_ms, rho_floor_by = roof(
+                npair * OPS_EAM_RHO_PAIR + natoms * OPS_EAM_EMBED,
+                nbytes + floor)
             cand = np_ * 27 * cfg.cap
             entries = int(plist[1].sum())
-            rows, hits = warp_rows(x, valid, box, cfg, tab.cutsq)
             phase("kernel", f"eam bounds: {npair} unordered in-cutoff pairs "
                             f"({2 * npair / cand:.4%} of {cand} stencil "
                             f"candidates (i, j), {2 * npair / entries:.2%} "
                             f"of {entries} list entries, "
-                            f"{entries / natoms:.2f} a row); of {rows} "
-                            f"candidate rows of the density pass (one j "
-                            f"against a cell's slots), {hits / rows:.2%} "
-                            f"hold a pair in range; {natoms} atoms; density "
-                            f"pass {nbytes} bytes -> {k_rho['bound_ms']:.6f}"
-                            f" ms ({k_rho['bound_by']}); force pass "
+                            f"{entries / natoms:.2f} a row); {natoms} atoms; "
+                            f"density pass {nbytes} bytes -> "
+                            f"{k_rho['bound_ms']:.6f} ms "
+                            f"({k_rho['bound_by']}), the list's floor "
+                            f"{floor} bytes more -> {rho_floor_ms:.6f} ms "
+                            f"({rho_floor_by}), its stencil oracle "
+                            f"{rho_stencil_ms:.4f} ms; force pass "
                             f"{nbytes_f} bytes -> {k_force['bound_ms']:.6f} "
                             f"ms ({k_force['bound_by']}), the list's floor "
                             f"{floor} bytes more -> {floor_ms:.6f} ms "
@@ -1389,21 +1426,41 @@ def charmm_args(script, dtype):
              s.special_codes, box, cfg, c))
 
 
-def rows_as_sets(pairs, npairs):
-    """Each list row's entries sorted, the padding past npairs as a
-    sentinel: rows equal as sets compare equal."""
+def live_entries(pairs, npairs):
+    """The rows' live entries, each row's tail past npairs (unspecified
+    in a kernel's list) zeroed."""
     k = torch.arange(pairs.shape[1], device=pairs.device)
-    rows = torch.where(k < npairs[:, None].long(), pairs.long(), 1 << 40)
-    return torch.sort(rows, dim=1).values
+    return torch.where(k < npairs[:, None].long(), pairs, 0)
 
 
-def check_pairlist(what, out, plain, as_arrays: bool):
-    """Raise unless the build kernel's list equals the plain build's: rows
-    as arrays (or as sets), counts, longest row and overflow flag."""
+def live_err(out, plain) -> float:
+    """The largest difference of two lists' live entries and counts (0
+    where they are equal)."""
+    return float(max((live_entries(*out[:2]).long()
+                      - live_entries(*plain[:2]).long()).abs().max(),
+                     (out[1].long() - plain[1].long()).abs().max()))
+
+
+def check_lanes(what, bargs) -> tuple:
+    """The build on bargs with each G forced and by the launch rule
+    against the plain build (check_pairlist); (the rule's list, the plain
+    build's)."""
+    from tpumd_torch.ops.cellgrid_pairlist import LANES, cellgrid_pairlist, \
+        cellgrid_pairlist_plain
+    plain = cellgrid_pairlist_plain(*bargs)
+    for lanes in LANES + (None,):
+        built = cellgrid_pairlist(*bargs, lanes=lanes)
+        check_pairlist(f"{what}, lanes {lanes}", built, plain)
+    return built, plain
+
+
+def check_pairlist(what, out, plain):
+    """Raise unless the build kernel's list equals the plain build's: the
+    live entries as arrays (in order), counts, longest row and overflow
+    flag."""
     torch.cuda.synchronize()
-    same_rows = (torch.equal(out[0], plain[0]) if as_arrays else
-                 torch.equal(rows_as_sets(*out[:2]), rows_as_sets(*plain[:2])))
-    if not (same_rows and torch.equal(out[1], plain[1])
+    if not (torch.equal(out[1], plain[1])
+            and torch.equal(live_entries(*out[:2]), live_entries(*plain[:2]))
             and int(out[2]) == int(plain[2])
             and bool(out[3]) == bool(plain[3])):
         raise AssertionError(f"{what}: the build kernel's list differs from "
@@ -1413,24 +1470,22 @@ def check_pairlist(what, out, plain, as_arrays: bool):
 def charmm_kernel_vs_plain(ptxas_log: str) -> tuple[dict, dict]:
     """The pair list build and B5 against their plain versions on the 32k
     rhodo_class grid and the 2^3 peptide grid after set-up, f32 and f64:
-    the lists as arrays on the 32k grid and as sets on the 2^3 grid; B5
-    over the kernel's list against the plain list sweep and the stencil
-    oracle in every flag combination; both timed and bounded at the 32k
-    shape.  Returns (B5's figures, the build's)."""
-    from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist, \
-        cellgrid_pairlist_plain
+    the lists' live entries as arrays, with each G of the build forced
+    (check_lanes); B5 over the kernel's list against the plain list sweep
+    and the stencil oracle in every flag combination; both timed and
+    bounded at the 32k shape.  Returns (B5's figures, the build's)."""
     from tpumd_torch.ops.charmm_cellgrid import charmm_cellgrid, \
         charmm_cellgrid_plain, charmm_pairlist_plain
     for name, pat in (
             ("charmm_cellgrid (type, eflag, vflag", r"charmm_pairlist_kernel"
              r"I([fd])Lb(\d)ELb(\d)E"),
-            ("cellgrid_pairlist (type, periodic, exclude",
-             r"cellgrid_pairlist_kernelI([fd])Lb(\d)ELb(\d)E")):
+            ("cellgrid_pairlist (type, G, periodic, exclude",
+             r"cellgrid_pairlist_kernelI([fd])Li(\d+)ELb(\d)ELb(\d)E")):
         regs = re.findall(pat + r".*?\n.*?(\d+) bytes spill stores.*?\n.*?"
                           r"Used (\d+) registers", ptxas_log)
         phase("kernel", f"{name}: registers, spill store bytes): "
-                        + "; ".join(f"{t}{e}{v}: {r}, {sp}"
-                                    for t, e, v, sp, r in regs))
+                        + "; ".join(f"{' '.join(m[:-2])}: {m[-1]}, {m[-2]}"
+                                    for m in regs))
     out, lst = {}, {}
     for replicate in ("2 2 4", "1 1 1"):
         script = rhodo_setup(replicate, "cuda", torch.float64)
@@ -1438,11 +1493,8 @@ def charmm_kernel_vs_plain(ptxas_log: str) -> tuple[dict, dict]:
         for dtype in (torch.float32, torch.float64):
             bargs, oracle = charmm_args(script, dtype)
             cfg, kmax = bargs[-2:]
-            arrays = min(cfg.nx, cfg.ny, cfg.nz) >= 3
             what = f"pair list {replicate} {dtype}"
-            built = cellgrid_pairlist(*bargs)
-            plain = cellgrid_pairlist_plain(*bargs)
-            check_pairlist(what, built, plain, arrays)
+            built, plain = check_lanes(what, bargs)
             if bool(built[3]):
                 raise AssertionError(f"{what}: overflow at the set-up's K")
             args = oracle[:3] + built[:2] + oracle[7:]
@@ -1466,9 +1518,8 @@ def charmm_kernel_vs_plain(ptxas_log: str) -> tuple[dict, dict]:
                                  / wp.abs().max())
             phase("kernel", f"pair list grid {cfg.nx}x{cfg.ny}x{cfg.nz} cap "
                             f"{cfg.cap} K {kmax} {str(dtype)[6:]}: the "
-                            f"kernel's rows = the plain build's "
-                            f"({'as arrays' if arrays else 'as sets'}), "
-                            f"longest {int(built[2])}, "
+                            f"kernel's live entries = the plain build's "
+                            f"as arrays, longest {int(built[2])}, "
                             f"{int(built[1].sum())} entries; "
                             f"charmm_cellgrid S {oracle[5].shape[1]}: "
                             f"max|f_kernel - f_plain| = {worst:.3g} max|f| "
@@ -1509,31 +1560,7 @@ def charmm_kernel_vs_plain(ptxas_log: str) -> tuple[dict, dict]:
                             f"({out['bound_by']}); the list's floor: "
                             f"{list_bytes} bytes more -> {floor_ms:.6f} ms "
                             f"({floor_by})")
-            # the build: equal lists (checked above), as entries and counts
-            lst["max_abs_err"] = float(max(
-                (built[0].long() - plain[0].long()).abs().max(),
-                (built[1].long() - plain[1].long()).abs().max()))
-            # timed in the order plain, kernel, kernel, plain
-            p1 = cuda_ms(lambda: cellgrid_pairlist_plain(*bargs), 3,
-                         ahead=False)
-            k1 = cuda_ms(lambda: cellgrid_pairlist(*bargs), 50)
-            k2 = cuda_ms(lambda: cellgrid_pairlist(*bargs), 50)
-            p2 = cuda_ms(lambda: cellgrid_pairlist_plain(*bargs), 3,
-                         ahead=False)
-            lst.update(ms=min(k1, k2), plain_ms=min(p1, p2))
-            S = oracle[5].shape[1]
-            # x, valid, tag and the special lists read once, the (Np, K)
-            # list, its counts and the two status words written once
-            bbytes = (np_ * (12 + 1 + 4 + 8 * S) + 12
-                      + 4 * np_ * kmax + 4 * np_ + 8)
-            # per list entry d, r2 and the cutoff test (9 operations)
-            lst["bound_ms"], lst["bound_by"] = roof(9 * entries, bbytes)
-            phase("kernel", f"cellgrid_pairlist at the 32k shape, f32: "
-                            f"kernel {k1:.4f} / {k2:.4f} ms, "
-                            f"plain {p1:.4f} / {p2:.4f} ms; bound: {bbytes} "
-                            f"bytes "
-                            f"({np_} x K {kmax} words written) -> "
-                            f"{lst['bound_ms']:.6f} ms ({lst['bound_by']})")
+            lst = time_build("rhodo_class", bargs)
     return out, lst
 
 
@@ -1808,11 +1835,7 @@ def gran_kernel_vs_plain(tmp: Path, ptxas_log: str) -> dict:
             if dims[0] == 40 and dtype == torch.float32:
                 out["list"] = time_build("chute", bargs)
             else:
-                from tpumd_torch.ops.cellgrid_pairlist import \
-                    cellgrid_pairlist, cellgrid_pairlist_plain
-                check_pairlist(f"chute {dims} {dtype} pair list",
-                               cellgrid_pairlist(*bargs),
-                               cellgrid_pairlist_plain(*bargs), True)
+                check_lanes(f"chute {dims} {dtype} pair list", bargs)
             worst = {"list": 0.0, "stencil": 0.0}
             for scale in (1.0, 40.0):
                 args, planes, c, plist = gran_args(script, dtype, scale)
@@ -2398,21 +2421,35 @@ def main():
         m_gather = matrix_main_path(tmp, smi, {"in.lj": m_lj["sps"],
                                                "chute": m_gran["sps"]})
     # the list kernels' launches on the main paths: builds at set-up and
-    # re-bins, and refresh launches, most of which pass the gate and
-    # return (those that rebuild are the refreshes taken)
-    upkeep = [("rhodo_class", k_list, m_charmm["build_launches"]),
+    # re-bins, and refresh calls, most of which pass the gate and return
+    # (those that rebuild are the refreshes taken); an entry each
+    list_src = "tpumd_torch/csrc/cellgrid_pairlist.cu"
+    builds = [("rhodo_class", k_list, m_charmm["build_launches"]),
               ("chain", k_fene["list"], m_fene["build_launches"]),
-              ("chute", k_gran["list"], m_gran["build_launches"])]
+              ("chute", k_gran["list"], m_gran["build_launches"]),
+              ("in.lj", m_lj["upkeep"]["build"], m_lj["build_launches"]),
+              ("eam", m_eam_list["upkeep"]["build"],
+               m_eam_list["build_launches"])]
+    searched = {"in.lj": "tpumd/ops/pallas_lj.py:25",
+                "chain": "tpumd/ops/pallas_lj.py:146",
+                "eam": "tpumd/ops/pallas_eam.py:128",
+                "rhodo_class": "tpumd/ops/pallas_charmm.py:43",
+                "chute": "tpumd/ops/pallas_gran.py:42"}
+    upkeep = [(f"cellgrid_pairlist build {name}", list_src, searched[name],
+               k, {"launches": nb}) for name, k, nb in builds]
+    calls = list(builds)
     for name, m in (("in.lj", m_lj), ("eam", m_eam_list),
                     ("rhodo_class", m_charmm)):
         u = m["upkeep"]
-        if "build" in u:
-            upkeep.append((name, u["build"], m["build_launches"]))
-        upkeep.append((f"{name} gate", u["gate"],
-                       m["gates"] - m["refreshes"]))
+        shapes = [(f"{name} gate", u["gate"], m["gates"] - m["refreshes"])]
         if m["refreshes"]:
-            upkeep.append((f"{name} refresh", u["refresh"], m["refreshes"]))
-    k_build = build_entry(upkeep)
+            shapes.append((f"{name} refresh", u["refresh"], m["refreshes"]))
+        calls += shapes
+        upkeep.append((f"cellgrid_pairlist refresh {name}", list_src,
+                       searched[name],
+                       build_entry(shapes, f"{name}'s refresh calls"),
+                       {"launches": m["gates"]}))
+    build_entry(calls, "the main paths' builds and refresh calls")
     kernels = []
     eam_src = "tpumd_torch/csrc/eam_cellgrid.cu"
     for name, src, replaces, k, m in (
@@ -2426,9 +2463,7 @@ def main():
              k_force, m_force),
             ("charmm_cellgrid", "tpumd_torch/csrc/charmm_cellgrid.cu",
              "tpumd/ops/pallas_charmm.py:43", k_charmm, m_charmm),
-            ("cellgrid_pairlist", "tpumd_torch/csrc/cellgrid_pairlist.cu",
-             "tpumd/ops/pallas_charmm.py:43", k_build,
-             {"launches": sum(nb for _, _, nb in upkeep)}),
+            *upkeep,
             ("gran_cellgrid", "tpumd_torch/csrc/gran_cellgrid.cu",
              "tpumd/ops/pallas_gran.py:42", k_gran, m_gran),
             ("row_gather", "tpumd_torch/csrc/row_gather.cu",

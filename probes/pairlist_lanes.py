@@ -1,24 +1,33 @@
-"""Lanes per atom of the pair list sweeps on the card: gran/hooke/history
-(B6), LJ+FENE (B2), lj/cut (B1) and the EAM force pass (B4).
+"""Lanes per atom of the pair list sweeps and lanes per slot of the list
+build on the card: gran/hooke/history (B6), LJ+FENE (B2), lj/cut (B1),
+the EAM density and force passes (B3, B4) and the build.
 
 Run from the repository root: ``python3 probes/pairlist_lanes.py``.
 Builds a copy of each kernel's source for each lanes per atom it is
-tried at (B6 and B2: 1, 2, 4 and 8; B1 and B4: 4, 8, 16 and 32), its
-lanes constant (``kLanes`` of ``tpumd_torch/csrc/gran_cellgrid.cu`` and
-``lj_fene_cellgrid.cu``, ``kLanesLJ`` of the latter, ``kLanesEAM`` of
-``eam_cellgrid.cu``) rewritten in the copy (the package keeps one
+tried at (B6 and B2: 1, 2, 4 and 8; B1 and B4: 4, 8, 16 and 32; B3: 2, 4,
+8 and 16; the build's wide G: 4, 8, 16 and 32), its lanes constant
+(``kLanes`` of ``tpumd_torch/csrc/gran_cellgrid.cu`` and
+``lj_fene_cellgrid.cu``, ``kLanesLJ`` of the latter, ``kLanesRho`` and
+``kLanesEAM`` of ``eam_cellgrid.cu``, ``kLanesBuild`` of
+``cellgrid_pairlist.cu``) rewritten in the copy (the package keeps one
 value), all with one nvcc each at once, into ``build/pairlist_lanes/``.
 Sets up the 32,000-sphere chute deck (f32, 10 steps, so the contact
-history is live), the 32,000-atom chain deck (f32, set-up) and the in.lj
-and in.eam decks (f32, 10 steps: on their lattices the forces cancel),
-each with its pair list built by the list kernel; holds
-each variant's outputs against the plain list sweep (forces, torques and
-virial to 2e-6 of their largest, energies to 2e-6 relative, history tags
-equal) and times the launch the main path makes most (B6 with
-shearupdate, the others forces only) with ``chip_smoke.cuda_ms`` (CUDA
-events around 200 launches queued behind a spin kernel, so that the card
-runs them back to back), in the order of its lanes, then back.  Prints
-one line per variant, the lists' shapes and the card's name and power
+history is live), the 32,000-atom chain deck (f32, set-up), the in.lj
+and in.eam decks (f32, 10 steps: on their lattices the forces cancel)
+and the 32,064-atom rhodo_class deck (f32, set-up), each with its pair
+list built by the list kernel; holds each sweep variant's outputs
+against the plain list sweep (forces, torques, densities and virial to
+2e-6 of their largest, energies to 2e-6 relative, history tags equal)
+and each build variant's list, forced to its wide G on rhodo_class's
+grid, against the plain build (live entries as arrays, counts, longest
+row), and times the launch the main path makes most (B6 with
+shearupdate, the others forces or densities only, the build as a re-bin
+launches it, its hold made beforehand) with ``chip_smoke.cuda_ms`` (CUDA
+events around 200 launches, 50 for the build, queued behind a spin
+kernel, so that the card runs them back to back), in the order of its
+lanes, then back.  Then, with the package's library, the build of each
+deck with G = 1 and with the wide G forced, timed alike.  Prints one
+line per variant, the lists' shapes and the card's name and power
 limit.
 """
 
@@ -37,11 +46,12 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import cuda_ms  # noqa: E402
+from chip_smoke import check_pairlist, cuda_ms, rhodo_setup  # noqa: E402
 from tpumd_torch.bench_targets import IN_CHAIN, IN_CHUTE, IN_EAM, IN_LJ, \
     chain_data, chute_data, eam_funcfl  # noqa: E402
 from tpumd_torch.ops import _build  # noqa: E402
 from tpumd_torch.ops import cellgrid_gran as cgg  # noqa: E402
+from tpumd_torch.ops import cellgrid_pairlist as bpl  # noqa: E402
 from tpumd_torch.ops import eam_cellgrid as b4  # noqa: E402
 from tpumd_torch.ops import gran_cellgrid as b6  # noqa: E402
 from tpumd_torch.ops import lj_cellgrid as b1  # noqa: E402
@@ -66,6 +76,12 @@ KERNELS = {
     "eam": ("eam_cellgrid.cu", "kLanesEAM", (4, 8, 16, 32),
             b4._FORCE_FN[torch.float32], b4._FORCE_ARGTYPES,
             r"eam_force_pairlist_kernelILi{t}ELb1EfLb0ELb0E"),
+    "rho": ("eam_cellgrid.cu", "kLanesRho", (2, 4, 8, 16),
+            b4._RHO_FN[torch.float32], b4._RHO_ARGTYPES,
+            r"eam_rho_pairlist_kernelILi{t}ELb1EfLb0E"),
+    "build": ("cellgrid_pairlist.cu", "kLanesBuild", (4, 8, 16, 32),
+              "tpumd_cellgrid_pairlist_f32", bpl._ARGTYPES,
+              r"cellgrid_pairlist_kernelIfLi{t}ELb1ELb0E"),
 }
 
 
@@ -197,6 +213,50 @@ def _eam(tmp: Path):
     return args, plist, ref, sim
 
 
+def _rhodo():
+    """The pair list build's arguments on the 32k rhodo_class grid after
+    set-up, f32."""
+    from tpumd_torch.core.state import Box
+    script = rhodo_setup("2 2 4", "cuda", torch.float32)
+    script.run_string("run 0")
+    sim = script.sim
+    s, neigh, _ = sim._carry
+    return (s.x, neigh.valid, s.tag, s.special_tags, s.special_codes,
+            Box(lo=s.box.lo, hi=s.box.hi), sim._neigh_cfg,
+            sim._ctx.pairlist_k), sim
+
+
+def _deck_bargs(sim):
+    """The pair list build's arguments at a deck's state."""
+    s, neigh, _ = sim._carry
+    stags, scodes = s.special_tags, s.special_codes
+    if sim._ctx.kernel_bond is not None:
+        stags, scodes = s.bond_tags, torch.ones_like(s.bond_tags)
+    return (s.x, neigh.valid, s.tag, stags, scodes, s.box, sim._neigh_cfg,
+            sim._ctx.pairlist_k, s.gmask, sim._ctx.pairlist_exclude)
+
+
+def _build_call(bargs):
+    """A call of a build library's entry fn with G lanes on bargs, its hold
+    and outputs made once: (pairs, npairs, stat) and the call."""
+    x, valid, tag, stags, scodes, box, cfg, K = bargs[:8]
+    gmask, excl = (bargs[8], bargs[9]) if len(bargs) > 8 else (None, ())
+    hold = bpl.pairlist_hold(x, valid, tag, stags, scodes, cfg, gmask, excl,
+                             keep=False)
+    pairs = torch.empty((cfg.capacity, K), dtype=torch.int32,
+                        device=x.device)
+    npairs = torch.empty(cfg.capacity, dtype=torch.int32, device=x.device)
+    stat = bpl.new_stat(x.device)
+
+    def call(fn, lanes):
+        rc = fn(*bpl._args(x, valid, box, cfg, pairs, npairs, stat, hold, 0,
+                           0, lanes))
+        if rc != 0:
+            raise RuntimeError(f"build launch failed: CUDA error {rc}")
+        return pairs, npairs, stat[0], stat[1] != 0
+    return call
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("pairlist_lanes: torch.cuda.is_available() is "
@@ -210,15 +270,26 @@ def main():
         fargs, fplist, fref, fsim = _chain(Path(tmpdir))
         largs, lplist, lref, lsim = _lj(Path(tmpdir))
         eargs, eplist, eref, esim = _eam(Path(tmpdir))
+    rargs, rsim = _rhodo()
+    rref = b4.eam_rho_pairlist_plain(eargs[0], eargs[1], eargs[3], eargs[5],
+                                     True, *eplist[:2])
+    bref = bpl.cellgrid_pairlist_plain(*rargs)
+    build = _build_call(rargs)
     calls = {
         "gran": lambda fn, *flags: b6.launch(fn, *gargs),
         "fene": lambda fn, ef, vf: b2.launch(fn, *fargs, ef, vf, fplist),
         "lj": lambda fn, ef, vf: b1.launch(fn, *largs, ef, vf, lplist),
         "eam": lambda fn, ef, vf: b4.launch_force(fn, *eargs, ef, vf,
-                                                  eplist)}
-    refs = {"fene": fref, "lj": lref, "eam": eref}
+                                                  eplist),
+        "rho": lambda fn, ef, vf: b4.launch_rho(
+            fn, eargs[0], eargs[1], eargs[3], eargs[4], eargs[5], ef,
+            eplist)}
+    refs = {"fene": fref, "lj": lref, "eam": eref, "rho": rref}
     for name, (_, _, lanes, _, _, _) in KERNELS.items():
         for t, fn in zip(lanes, fns[name]):
+            if name == "build":
+                check_pairlist(f"build lanes {t}", build(fn, t), bref)
+                continue
             out = calls[name](fn, True, True)
             torch.cuda.synchronize()
             if name == "gran":
@@ -235,6 +306,9 @@ def main():
         for order in (lanes, lanes[::-1]):
             for t in order:
                 fn = fns[name][lanes.index(t)]
+                if name == "build":
+                    times[t].append(cuda_ms(lambda: build(fn, t), 50))
+                    continue
                 times[t].append(cuda_ms(lambda: calls[name](fn, False,
                                                             False), 200))
         for t in lanes:
@@ -244,8 +318,25 @@ def main():
         best = min(lanes, key=lambda t: min(times[t]))
         print(f"{name} fastest: lanes {best}; ptxas (registers, spill "
               f"store bytes) by lanes: {_ptxas(log, name)}", flush=True)
+    # the package's build on each deck, G = 1 against the wide G
+    lib = _build.kernel_function("tpumd_cellgrid_pairlist_f32", bpl._ARGTYPES)
     for name, sim in (("chute", gsim), ("chain", fsim), ("in.lj", lsim),
-                      ("eam", esim)):
+                      ("eam", esim), ("rhodo_class", rsim)):
+        bargs = _deck_bargs(sim)
+        call = _build_call(bargs)
+        ref = bpl.cellgrid_pairlist_plain(*bargs)
+        times = {g: [] for g in bpl.LANES}
+        for g in bpl.LANES:
+            check_pairlist(f"{name} build G {g}", call(lib, g), ref)
+        for order in (bpl.LANES, bpl.LANES[::-1]):
+            for g in order:
+                times[g].append(cuda_ms(lambda: call(lib, g), 50))
+        print(f"{name} build: " + "; ".join(
+            f"G {g} {min(v):.4f} ms (rounds "
+            f"{', '.join(f'{t:.4f}' for t in v)})" for g, v in times.items())
+            + f", f32 32k, the plain build's live entries", flush=True)
+    for name, sim in (("chute", gsim), ("chain", fsim), ("in.lj", lsim),
+                      ("eam", esim), ("rhodo_class", rsim)):
         neigh = sim._carry[1]
         live = neigh.npairs[neigh.valid].double()
         print(f"{name} list: K {sim._ctx.pairlist_k}, longest row "

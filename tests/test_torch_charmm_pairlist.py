@@ -26,6 +26,8 @@ neighbour cell met at two images).
   inside that shrunken trigger keep the sweep equal to the oracle.
 * On the main path: one plain build per grid set-up and rebuild, one
   plain sweep per force evaluation; without a list the sweep raises.
+* Garbage in the rows' tails past npairs (unspecified in the card's
+  list) leaves the sweep's sums as they were, bit for bit.
 """
 
 import os
@@ -207,6 +209,26 @@ def test_list_sweep_equals_stencil_oracle(which, flags):
                                    s.special_tags, s.special_codes, box, cfg,
                                    c, *flags)
     _close(out, ref)
+
+
+@pytest.mark.parametrize("which", ["synthetic", "peptide"])
+def test_list_sweep_reads_no_entry_past_a_rows_count(which):
+    """A row's tail past npairs is unspecified in the card's list: the
+    plain sweep gives the same sums with garbage there."""
+    s, valid, box, cfg, kmax, c, built = _system_of(which)
+    if built is None:
+        built = bpl.cellgrid_pairlist(s.x, valid, s.tag, s.special_tags,
+                                      s.special_codes, box, cfg, kmax)[:2]
+    pairs, npairs = built
+    junk = pairs.clone()
+    tail = torch.arange(kmax)[None, :] >= npairs[:, None].long()
+    assert int(tail.sum()) > 0
+    junk[tail] = torch.as_tensor(np.random.default_rng(5).integers(
+        -2**31, 2**31 - 1, int(tail.sum())), dtype=torch.int32)
+    _close(b5.charmm_cellgrid(s.x, s.q, s.type, junk, npairs, box, cfg, c,
+                              1, 1),
+           b5.charmm_cellgrid(s.x, s.q, s.type, pairs, npairs, box, cfg, c,
+                              1, 1), tol=0.0)
 
 
 def _close(out, ref, tol=1e-12):

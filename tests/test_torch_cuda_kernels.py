@@ -13,26 +13,29 @@ runs on a card host without JAX:
   and on a 2^3 grid where bonds count at the minimum image, as it is and
   with one bond stretched to 2 sigma (past cutneigh), against the plain
   list sweep and the stencil oracle ``lj_fene_cellgrid_plain``;
-* EAM density and force passes (B3 ``eam_rho_cellgrid`` over the
-  stencil, B4 ``eam_force_cellgrid`` over the grid's pair list):
-  perturbed fcc lattices of the generated Cu-like potential, 5^3 and 4^3
-  lattice cells (3^3 and 2^3 grids); the force passes take the plain
-  density pass's F' and are held against the plain list sweep and the
-  stencil oracle ``eam_force_cellgrid_plain``; the density pass is held on
-  rho, F' and the embedding energy;
+* EAM density and force passes (B3 ``eam_rho_cellgrid`` and B4
+  ``eam_force_cellgrid``, both over the grid's pair list): perturbed fcc
+  lattices of the generated Cu-like potential, 5^3 and 4^3 lattice cells
+  (3^3 and 2^3 grids); the force passes take the plain density pass's F'
+  and are held against the plain list sweep and the stencil oracle
+  ``eam_force_cellgrid_plain``; the density pass is held on rho, F' and
+  the embedding energy against its plain list sweep and the stencil
+  oracle ``eam_rho_cellgrid_plain`` (f32 2e-6, f64 1e-13 of their
+  largest), also on the 32k in.eam grid (20^3 lattice cells, 12^3);
 * the pair list refresh (``refresh_pairlist``): on a 3^3 in.lj grid with
   one atom moved past skin/2, the list (and its positions) rebuilt in
   place equal to a fresh build, the refresh counted; with no atom past
-  skin/2, the list left as it was;
-* the pair list build (``cellgrid_pairlist``): the grid-ordered state of
-  the peptide deck with the rhodo_class settings after set-up (a 2^3 grid
-  of cap 368, every neighbour cell met at two images) and of its 2x2x2
-  replica (a 4^3 grid): the plain build's rows, as arrays on the 4^3 grid
-  and as sets on the 2^3 grid, counts, longest row and overflow flag, at
-  the set-up's K and at a K too small; and on generated chute packs'
-  ``p p fs`` grids (9x5x4, 5x2x3, 5x5x2) with the base-base pairs
-  excluded and with none, and on the 4^3 grid with random group bits and
-  two group-bit pairs excluded, as arrays;
+  skin/2, the list left as it was; and on the peptide replica's 4^3 grid
+  (cap 368, the wide G) with its special entries;
+* the pair list build (``cellgrid_pairlist``), with each G the launch
+  rule can pick forced (``lanes``): the grid-ordered state of the peptide
+  deck with the rhodo_class settings after set-up (a 2^3 grid of cap 368,
+  every neighbour cell met at two images) and of its 2x2x2 replica (a 4^3
+  grid): the plain build's live entries (up to each row's count) as
+  arrays, counts, longest row and overflow flag, at the set-up's K and at
+  a K too small; and on generated chute packs' ``p p fs`` grids (9x5x4,
+  5x2x3, 5x5x2) with the base-base pairs excluded and with none, and on
+  the 4^3 grid with random group bits and two group-bit pairs excluded;
 * lj/charmm/coul/long (B5, ``charmm_cellgrid``) over the set-up's pair
   list, on the peptide's 2^3 grid and its 1x1x2 replica's 2x2x4 grid,
   against the plain list sweep and the stencil oracle
@@ -85,6 +88,8 @@ from tpumd_torch.ops import lj_fene_cellgrid as b2
 from tpumd_torch.script.parser import LammpsScript
 
 TOL = {torch.float32: 5e-5, torch.float64: 1e-12}
+# B3 against its plain versions: the same pairs, summed in another order
+TOL_LIST = {torch.float32: 2e-6, torch.float64: 1e-13}
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
                       "peptide")
 FLAGS = ((1, 1), (0, 0), (1, 0), (0, 1))
@@ -214,10 +219,24 @@ def test_pairlist_refresh_cuda_kernel_matches_plain(dtype):
     bpl.refresh_pairlist(moved, valid, box, cfg, pairs, npairs, stat, hold)
     fresh = bpl.cellgrid_pairlist_plain(moved, valid, tag, None, None, box,
                                         cfg, K)
-    torch.cuda.synchronize()
-    assert torch.equal(pairs, fresh[0]) and torch.equal(npairs, fresh[1])
+    _same_list((pairs, npairs, stat[0], stat[1] != 0), fresh)
     assert torch.equal(hold.x, moved) and int(stat[2]) == 1
-    assert not torch.equal(pairs, before[0])
+    assert not torch.equal(_live(pairs, npairs), _live(*before[:2]))
+    # where the rule takes the wide G: the peptide replica's 4^3 grid of
+    # cap 368, its special entries kept
+    _, _, args = _charmm_grid("2 2 2", dt)
+    x, valid, tag, stags, scodes, box, cfg, K = args
+    assert cfg.cap > 64
+    stat = bpl.new_stat(x.device)
+    hold = bpl.pairlist_hold(x, valid, tag, stags, scodes, cfg)
+    pairs, npairs, _, _ = bpl.cellgrid_pairlist(*args, stat=stat, hold=hold)
+    moved = x.clone()
+    k = int(torch.nonzero(valid)[0])
+    moved[k, 0] += 0.6 * cfg.skin
+    bpl.refresh_pairlist(moved, valid, box, cfg, pairs, npairs, stat, hold)
+    _same_list((pairs, npairs, stat[0], stat[1] != 0),
+               bpl.cellgrid_pairlist_plain(moved, *args[1:]))
+    assert int(stat[2]) == 1 and torch.equal(hold.x, moved)
 
 
 @pytest.mark.cuda
@@ -252,18 +271,20 @@ def test_eam_cuda_kernels_match_plain(dtype, tmp_path):
     pair = PairEAM(1)
     pair.coeff(1, 1, 1, 1, str(tmp_path / "Cu.eam"))
     pair.init()
-    for nlat in (5, 4):
+    for nlat in (5, 4, 20):
         x, valid, box, cfg, plist = _fcc_grid(
             (nlat,) * 3, dt, lattice=("fcc", EAM_A0, "metal"), amp=0.15,
             cutneigh=pair.cutmax + 1.0, skin=1.0)
-        assert cfg.nx == nlat - 2
+        assert cfg.nx == {5: 3, 4: 2, 20: 12}[nlat]
         tab = pair.kernel_tables(x)
         for ef, vf in FLAGS:
             n0 = b34.rho_counts.kernel_launches
-            rho = b34.eam_rho_cellgrid(x, valid, box, cfg, tab, ef)
+            rho = b34.eam_rho_cellgrid(x, valid, box, cfg, tab, ef, plist)
             assert b34.rho_counts.kernel_launches == n0 + 1
             plain = b34.eam_rho_cellgrid_plain(x, valid, box, cfg, tab, ef)
-            _close(rho, plain, TOL[dt])
+            _close(rho, plain, TOL_LIST[dt])
+            _close(rho, b34.eam_rho_pairlist_plain(x, valid, box, tab, ef,
+                                                   *plist[:2]), TOL_LIST[dt])
             # F' of empty slots is 0 in both
             assert float(rho[1][~valid].abs().max()) == 0.0
             n0 = b34.force_counts.kernel_launches
@@ -274,6 +295,8 @@ def test_eam_cuda_kernels_match_plain(dtype, tmp_path):
                 x, plain[1], box, tab, ef, vf, *plist[:2]), TOL[dt])
             _close(out, b34.eam_force_cellgrid_plain(
                 x, valid, plain[1], box, cfg, tab, ef, vf), TOL[dt])
+        with pytest.raises(ValueError, match="no pair list"):
+            b34.eam_rho_cellgrid(x, valid, box, cfg, tab, 0, None)
 
 
 def _charmm_grid(replicate, dtype):
@@ -300,40 +323,45 @@ def _charmm_grid(replicate, dtype):
              cfg, sim._ctx.pairlist_k))
 
 
-def _rows_as_sets(pairs, npairs):
-    """Each row's entries sorted, the padding past npairs as a sentinel."""
+def _live(pairs, npairs):
+    """The rows' live entries, the tails past npairs (unspecified in a
+    kernel's list) zeroed."""
     k = torch.arange(pairs.shape[1], device=pairs.device)
-    rows = torch.where(k < npairs[:, None].long(), pairs.long(), 1 << 40)
-    return torch.sort(rows, dim=1).values
+    return torch.where(k < npairs[:, None].long(), pairs, 0)
+
+
+def _same_list(out, plain):
+    """A build's (pairs, npairs, longest row, overflow) equal to the plain
+    build's: live entries as arrays, in order."""
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], plain[1])
+    assert int(out[2]) == int(plain[2])
+    assert bool(out[3]) == bool(plain[3])
+    assert torch.equal(_live(*out[:2]), _live(*plain[:2]))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
 def test_cellgrid_pairlist_cuda_kernel_matches_plain(dtype):
-    """The pair list build kernel: the plain build's rows, as arrays where
-    every axis has 3 cells or more (4^3 grid), as sets on the 2^3 grid;
-    equal counts, longest row and overflow flag, also with K too small."""
+    """The pair list build kernel with each G forced, on the peptide's
+    2^3 grid (2-cell periodic axes) and its replica's 4^3 grid, S special
+    entries a slot: the plain build's live entries as arrays, equal
+    counts, longest row and overflow flag, also with K too small."""
     _card()
     dt = {"f32": torch.float32, "f64": torch.float64}[dtype]
     for replicate, grid in (("1 1 1", (2, 2, 2)), ("2 2 2", (4, 4, 4))):
         _, _, args = _charmm_grid(replicate, dt)
         cfg = args[-2]
-        assert (cfg.nx, cfg.ny, cfg.nz) == grid
+        assert (cfg.nx, cfg.ny, cfg.nz) == grid and args[3].shape[1] >= 12
         for k in (args[-1], 64):
             a = args[:-1] + (k,)
-            n0 = bpl.counts.kernel_launches
-            out = bpl.cellgrid_pairlist(*a)
-            assert bpl.counts.kernel_launches == n0 + 1
             plain = bpl.cellgrid_pairlist_plain(*a)
-            torch.cuda.synchronize()
-            assert bool(out[3]) == bool(plain[3]) == (k == 64)
-            assert int(out[2]) == int(plain[2]) > 64
-            assert torch.equal(out[1], plain[1])
-            if min(grid) >= 3 or k == 64:
-                assert torch.equal(out[0], plain[0])
-            else:
-                assert torch.equal(_rows_as_sets(*out[:2]),
-                                   _rows_as_sets(*plain[:2]))
+            assert bool(plain[3]) == (k == 64) and int(plain[2]) > 64
+            for lanes in (None,) + bpl.LANES:
+                n0 = bpl.counts.kernel_launches
+                out = bpl.cellgrid_pairlist(*a, lanes=lanes)
+                assert bpl.counts.kernel_launches == n0 + 1
+                _same_list(out, plain)
 
 
 @pytest.mark.cuda
@@ -354,15 +382,13 @@ def test_cellgrid_pairlist_cuda_kernel_on_a_non_periodic_grid(dtype,
         assert coeffs[0].exclude_bits == ((2, 2),)
         for excl in (coeffs[0].exclude_bits, ()):
             a = (x, valid, tag, None, None, box, cfg, 16, planes[4], excl)
-            n0 = bpl.counts.kernel_launches
-            out = bpl.cellgrid_pairlist(*a)
-            assert bpl.counts.kernel_launches == n0 + 1
             plain = bpl.cellgrid_pairlist_plain(*a)
-            torch.cuda.synchronize()
-            assert not bool(out[3]) and not bool(plain[3])
-            assert int(out[2]) == int(plain[2])
-            assert torch.equal(out[1], plain[1])
-            assert torch.equal(out[0], plain[0])
+            assert not bool(plain[3])
+            for lanes in (None,) + bpl.LANES:
+                n0 = bpl.counts.kernel_launches
+                out = bpl.cellgrid_pairlist(*a, lanes=lanes)
+                assert bpl.counts.kernel_launches == n0 + 1
+                _same_list(out, plain)
 
 
 @pytest.mark.cuda
@@ -382,17 +408,15 @@ def test_cellgrid_pairlist_cuda_kernel_with_exclusions_on_a_periodic_grid(
                             + 4 * gen.integers(0, 2, x.shape[0]),
                             dtype=torch.int32, device="cuda")
     a = args + (gmask, ((2, 2), (2, 4)))
-    n0 = bpl.counts.kernel_launches
-    out = bpl.cellgrid_pairlist(*a)
-    assert bpl.counts.kernel_launches == n0 + 1
     plain = bpl.cellgrid_pairlist_plain(*a)
     full = bpl.cellgrid_pairlist_plain(*args)
-    torch.cuda.synchronize()
-    assert not bool(out[3]) and not bool(plain[3])
-    assert int(out[2]) == int(plain[2])
-    assert torch.equal(out[1], plain[1])
-    assert torch.equal(out[0], plain[0])
+    assert not bool(plain[3])
     assert int(plain[1].sum()) < int(full[1].sum())
+    for lanes in (None,) + bpl.LANES:
+        n0 = bpl.counts.kernel_launches
+        out = bpl.cellgrid_pairlist(*a, lanes=lanes)
+        assert bpl.counts.kernel_launches == n0 + 1
+        _same_list(out, plain)
 
 
 @pytest.mark.cuda

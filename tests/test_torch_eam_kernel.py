@@ -1,8 +1,8 @@
 """The EAM cell-grid kernel module of the port against tpumd.
 
 On the CPU the wrappers ``eam_rho_cellgrid`` and ``eam_force_cellgrid``
-run their plain PyTorch versions (the force pass a sweep of the grid's
-pair list, built here as a re-bin builds it); these tests hold those
+run their plain PyTorch versions (both sweeps of the grid's pair list,
+built here as a re-bin builds it); these tests hold those
 against tpumd on perturbed fcc lattices of the generated Cu-like
 potential (each atom moved by up to +-0.15 A per axis), binned into the
 port's cell grid: a 5^3 lattice (500 atoms, a 3^3 grid) and a 4^3 lattice
@@ -27,7 +27,9 @@ images).
   neighbours (n_i eps_rho max|rho| for the density;
   n_i (2 max|F'| eps_rho' max|rho'| + eps_z2' max|z2'| / r_min
   + eps_z2 max|z2| / r_min^2) for the force, the bound on |d psip|), plus
-  f32 rounding of 1e-5 of the largest value.
+  f32 rounding of 1e-5 of the largest value.  The stencil oracles of both
+  passes, which the card holds the list kernels to, are held to the TPU
+  kernels the same way.
 
 The CUDA kernels against the plain versions, on the card, are in
 tests/test_torch_cuda_kernels.py, which imports no JAX.
@@ -133,8 +135,10 @@ def test_f64_plain_passes_match_tpumd(grid, jpair):
     tab = pair.kernel_tables(s.x)
 
     # pass 1 against tpumd's exact spline helper, per tag
+    plist = _plist(s, valid, box, cfg)
     n0 = ec.rho_counts.plain_calls
-    rho, fp, e_embed = ec.eam_rho_cellgrid(s.x, valid, box, cfg, tab, True)
+    rho, fp, e_embed = ec.eam_rho_cellgrid(s.x, valid, box, cfg, tab, True,
+                                           plist)
     assert ec.rho_counts.plain_calls == n0 + 1
     r, inside = _pair_geometry(xt, box.lengths_np(), jpair.cutmax)
     rho_ref = np.array([np.sum(jeam._spline_val_np(
@@ -149,7 +153,6 @@ def test_f64_plain_passes_match_tpumd(grid, jpair):
     fj, ej, _, vj = jpair.compute(jnp.asarray(xt), jnp.ones(n, jnp.int32),
                                   jbox, idx, None, None, None, True, True)
     fj, vj = np.asarray(fj), np.asarray(vj)
-    plist = _plist(s, valid, box, cfg)
     f, evdwl, virial, extra = pair.compute_cellgrid(s.x, valid, box, cfg,
                                                     True, True, plist=plist)
     assert extra is None
@@ -216,7 +219,8 @@ def test_f32_plain_passes_match_pallas_kernels(jpair):
     _, _, rho_c, rhod_c, z2_c, z2d_c = jpair._pallas_tabs
     cut2 = float(jpair.cutforcesq)
 
-    rho, fp, _ = ec.eam_rho_cellgrid(s.x, valid, box, cfg, tab, False)
+    plist = _plist(s, valid, box, cfg)
+    rho, fp, _ = ec.eam_rho_cellgrid(s.x, valid, box, cfg, tab, False, plist)
     assert rho.dtype == fp.dtype == torch.float32
     with pltpu.force_tpu_interpret_mode():
         rho_j = np.asarray(eam_rho_pallas(jx, jv, jbox, jcfg, rho_c, lo,
@@ -229,7 +233,7 @@ def test_f32_plain_passes_match_pallas_kernels(jpair):
     assert (drho <= tol_rho).all(), (drho.max(), tol_rho.min())
 
     f, _, _ = ec.eam_force_cellgrid(s.x, valid, fp, box, cfg, tab, False,
-                                    False, _plist(s, valid, box, cfg))
+                                    False, plist)
     fp_max = float(fp.abs().max())
     per_pair = (2 * fp_max * bounds["rho_der"] + bounds["z2_der"] / r_min
                 + bounds["z2_val"] / r_min ** 2)
@@ -237,3 +241,39 @@ def test_f32_plain_passes_match_pallas_kernels(jpair):
     tol_f = nnb * per_pair + 1e-5 * np.abs(f_j).max()
     assert np.abs(f_j).max() > 0.5
     assert (df <= tol_f).all(), (df.max(), tol_f.min())
+
+
+def test_f32_stencil_oracles_match_pallas_kernels(jpair):
+    """The stencil oracles of both passes, which the card holds the list
+    kernels to, against the TPU kernels as the list sweeps are held above."""
+    s, valid, box, cfg = _eam_grid(GRIDS["3cube"], torch.float32)
+    tab = _port_pair(jpair).kernel_tables(s.x)
+    bounds, lo = _fit_bounds(jpair)
+    xt = _by_tag(s, valid, s.x.double())
+    r, inside = _pair_geometry(xt, box.lengths_np(), jpair.cutmax)
+    r_min = r[inside].min()
+    nnb = inside.sum(axis=1)
+    jx = jnp.asarray(s.x.numpy())
+    jv = jnp.asarray(valid.numpy())
+    jbox = JBox.orthogonal(box.lo.numpy(), box.hi.numpy(), dtype=jnp.float32)
+    jcfg = jcg.CellGridConfig(cutneigh=cfg.cutneigh, skin=cfg.skin,
+                              nx=cfg.nx, ny=cfg.ny, nz=cfg.nz, cap=cfg.cap)
+    _, _, rho_c, rhod_c, z2_c, z2d_c = jpair._pallas_tabs
+    cut2 = float(jpair.cutforcesq)
+    rho, fp, _ = ec.eam_rho_cellgrid_plain(s.x, valid, box, cfg, tab, False)
+    f, _, _ = ec.eam_force_cellgrid_plain(s.x, valid, fp, box, cfg, tab,
+                                          False, False)
+    with pltpu.force_tpu_interpret_mode():
+        rho_j = np.asarray(eam_rho_pallas(jx, jv, jbox, jcfg, rho_c, lo,
+                                          jpair.cutmax, cut2))
+        f_j = np.asarray(eam_force_pallas(jx, jv, jnp.asarray(fp.numpy()),
+                                          jbox, jcfg, rhod_c, z2_c, z2d_c,
+                                          lo, jpair.cutmax, cut2))
+    drho = np.abs(_by_tag(s, valid, rho) - _by_tag(s, valid, rho_j))
+    assert (drho <= nnb * bounds["rho_val"]
+            + 1e-5 * np.abs(rho_j).max()).all()
+    per_pair = (2 * float(fp.abs().max()) * bounds["rho_der"]
+                + bounds["z2_der"] / r_min + bounds["z2_val"] / r_min ** 2)
+    df = np.abs(_by_tag(s, valid, f) - _by_tag(s, valid, f_j)).max(axis=1)
+    assert np.abs(f_j).max() > 0.5
+    assert (df <= nnb * per_pair + 1e-5 * np.abs(f_j).max()).all()

@@ -1,5 +1,5 @@
-"""EAM's force pass over the cell grid's pair list (B4's plain list
-sweep), on the CPU.
+"""EAM's density and force passes over the cell grid's pair list (B3's
+and B4's plain list sweeps), on the CPU.
 
 fcc Cu lattices at 3.615 A of the generated Cu-like potential (cutoff
 4.95 A, cutneigh 5.95 A) binned into the port's cell grid, the list built
@@ -10,7 +10,8 @@ the plain density pass (the stencil) on both sides:
   axis from a numpy seed;
 * "2x2x2": a 4^3 lattice, a 2^3 grid where every neighbour cell is met at
   two periodic images;
-* "perturbed": a 5^3 lattice, each atom moved by up to 0.4 A.
+* "perturbed": a 5^3 lattice, each atom moved by up to 0.4 A;
+* "3x2x3" (density pass only): a 5x4x5 lattice, a 3x2x3 grid.
 
 * The plain list sweep equals the stencil oracle
   ``eam_force_cellgrid_plain``: forces to 1e-12 of max|f|, pair energy to
@@ -26,6 +27,23 @@ the plain density pass (the stencil) on both sides:
   old positions misses it and its sweep differs from the oracle;
   ``refresh_pairlist`` rebuilds it in place (the move is past skin/2) and
   the sweep equals the oracle.
+
+The density pass (``eam_rho_pairlist_plain``, the CPU path of
+``eam_rho_cellgrid``):
+
+* equals the stencil oracle ``eam_rho_cellgrid_plain`` in f64 (rho, F' and
+  the embedding energy to 1e-12 of their largest) with and without
+  eflag, and tpumd's exact spline helpers per tag: rho_i summed over the
+  minimum-image neighbours and F'(rho_i) (rtol 1e-12); garbage in the
+  rows' tails past npairs changes nothing;
+* in f32 on the 2x2x2 grid equals tpumd's TPU kernel ``eam_rho_pallas``
+  under ``pltpu.force_tpu_interpret_mode()`` within the error of its
+  Chebyshev fit of rho(r) summed over each atom's neighbours plus 1e-5 of
+  max rho (as tests/test_torch_eam_kernel.py holds the 3^3 grid);
+* a stale list misses the moved pair's density until it is refreshed;
+* through 20 steps of the 500-atom in.eam deck both passes take the list
+  (one plain call of each per force evaluation; the stencil sweeps,
+  made to raise, are never called) and end equal to the stencil oracles.
 """
 
 import jax.numpy as jnp
@@ -37,9 +55,9 @@ from jax.experimental.pallas import tpu as pltpu
 import tpumd.models.pair_eam as jeam
 from tpumd.core.state import Box as JBox
 from tpumd.ops import cellgrid as jcg
-from tpumd.ops.pallas_eam import eam_force_pallas
+from tpumd.ops.pallas_eam import eam_force_pallas, eam_rho_pallas
 from tpumd.ops.segpoly import fit_cheb
-from tpumd_torch.bench_targets import EAM_A0, eam_funcfl
+from tpumd_torch.bench_targets import EAM_A0, IN_EAM, eam_funcfl
 from tpumd_torch.core.create import create_atoms_lattice
 from tpumd_torch.core.lattice import Lattice
 from tpumd_torch.core.state import Box, make_state, wrap_pbc
@@ -47,6 +65,7 @@ from tpumd_torch.interop import eam_from_numpy
 from tpumd_torch.ops import cellgrid as cg
 from tpumd_torch.ops import cellgrid_pairlist as bpl
 from tpumd_torch.ops import eam_cellgrid as ec
+from tpumd_torch.script.parser import LammpsScript
 
 torch.set_num_threads(2)
 
@@ -54,6 +73,7 @@ CUTNEIGH, SKIN = 5.95, 1.0
 # name: (lattice cells per axis, perturbation amplitude in A, seed)
 CASES = {"5cube": (5, 0.15, 11), "2x2x2": (4, 0.15, 12),
          "perturbed": (5, 0.4, 13)}
+RHO_CASES = dict(CASES, **{"3x2x3": ((5, 4, 5), 0.15, 14)})
 FLAGS = ((1, 1), (0, 0), (1, 0), (0, 1))
 
 
@@ -78,10 +98,11 @@ def _grid(n, amp, seed, dtype=torch.float64):
     rows), its status words and hold) of an n^3 Cu lattice moved by up to
     amp per axis."""
     lat = Lattice("fcc", EAM_A0, units="metal")
-    hi = np.full(3, n * lat.spacing)
+    hi = np.broadcast_to(np.asarray(n, dtype=float), (3,)) * lat.spacing
     x, t = create_atoms_lattice(lat, None, np.zeros(3), hi)
     x = x + np.random.default_rng(seed).uniform(-amp, amp, x.shape)
     box = Box.orthogonal(np.zeros(3), hi, device="cpu", dtype=dtype)
+    assert x.shape[0] == 4 * int(np.prod(np.broadcast_to(n, (3,))))
     s = wrap_pbc(make_state(x, np.zeros_like(x), t, box, device="cpu",
                             dtype=dtype))
     cfg = cg.choose_cellgrid_config(box, CUTNEIGH, SKIN, len(x))
@@ -216,3 +237,160 @@ def test_stale_list_misses_a_pair_until_refreshed(jpair):
     assert int(stat[2]) == 1 and torch.equal(hold.x, moved)
     _same_sums(ec.eam_force_cellgrid(moved, valid, fp, box, cfg, tab, True,
                                      True, plist), oracle)
+
+
+def _by_tag(s, valid, a):
+    """Rows of a per-slot array for the valid slots, in tag order."""
+    ok = valid.numpy()
+    return np.asarray(a)[ok][np.argsort(s.tag.numpy()[ok])]
+
+
+def _neighbours(xt, box, cut):
+    """Minimum-image distances of all ordered pairs of tag-ordered
+    positions (the diagonal infinite) and the in-cutoff mask."""
+    d = xt[:, None, :] - xt[None, :, :]
+    L = box.lengths_np()
+    d -= L * np.round(d / L)
+    r = np.sqrt(np.sum(d * d, axis=-1))
+    np.fill_diagonal(r, np.inf)
+    return r, r < cut
+
+
+def _same_rho(out, ref, rtol=1e-12):
+    for a, b in zip(out, ref):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert float((a - b).abs().max()) <= rtol * float(b.abs().max())
+
+
+@pytest.mark.parametrize("case", sorted(RHO_CASES))
+def test_rho_list_sweep_matches_stencil_and_tpumd(case, jpair):
+    s, valid, box, cfg, plist, _, _ = _grid(*RHO_CASES[case])
+    assert min(cfg.nx, cfg.ny, cfg.nz) == (2 if case in ("2x2x2", "3x2x3")
+                                           else 3)
+    tab = _tables(jpair, s.x)
+    for ef in (True, False):
+        n0 = ec.rho_counts.plain_calls
+        out = ec.eam_rho_cellgrid(s.x, valid, box, cfg, tab, ef, plist)
+        assert ec.rho_counts.plain_calls == n0 + 1
+        _same_rho(out, ec.eam_rho_cellgrid_plain(s.x, valid, box, cfg, tab,
+                                                 ef))
+        assert float(out[1][~valid].abs().max()) == 0.0
+    # tpumd's exact splines, per tag
+    xt = _by_tag(s, valid, s.x)
+    r, inside = _neighbours(xt, box, jpair.cutmax)
+    rho_ref = np.array([np.sum(jeam._spline_val_np(
+        jpair.rhor_spline[0], jpair.dr, jpair.nr, r[i][inside[i]]))
+        for i in range(len(xt))])
+    np.testing.assert_allclose(_by_tag(s, valid, out[0]), rho_ref,
+                               rtol=1e-12)
+    np.testing.assert_allclose(
+        _by_tag(s, valid, out[1]),
+        jeam._spline_der_np(jpair.frho_spline[0], jpair.drho, jpair.nrho,
+                            rho_ref), rtol=1e-12)
+    # the rows' tails past npairs are never read
+    pairs = plist[0].clone()
+    tail = (torch.arange(pairs.shape[1])[None, :]
+            >= plist[1][:, None].long())
+    pairs[tail] = torch.as_tensor(np.random.default_rng(1).integers(
+        -2**31, 2**31 - 1, int(tail.sum())), dtype=torch.int32)
+    _same_rho(ec.eam_rho_cellgrid(s.x, valid, box, cfg, tab, True,
+                                  (pairs,) + plist[1:]),
+              ec.eam_rho_cellgrid(s.x, valid, box, cfg, tab, True, plist),
+              rtol=0.0)
+    with pytest.raises(ValueError, match="no pair list"):
+        ec.eam_rho_cellgrid(s.x, valid, box, cfg, tab, False, None)
+
+
+def test_f32_rho_list_sweep_matches_pallas_kernel(jpair):
+    s, valid, box, cfg, plist, _, _ = _grid(*CASES["2x2x2"],
+                                            dtype=torch.float32)
+    tab = _tables(jpair, s.x)
+    lo, hi = 0.22 * jpair.cutmax, jpair.cutmax
+    rhor = jpair.rhor_spline[0]
+
+    def rho_fn(r):
+        return jeam._spline_val_np(rhor, jpair.dr, jpair.nr, r)
+
+    for deg in (16, 20, 24):
+        fit = fit_cheb(rho_fn, lo, hi, deg)
+        if fit.max_rel_err < 1e-4:
+            break
+    assert fit.coefs == jpair._pallas_tabs[2]
+    eps = fit.max_rel_err * np.abs(rho_fn(np.linspace(lo, hi, 2049))).max()
+    xt = _by_tag(s, valid, s.x.double())
+    r, inside = _neighbours(xt, box, jpair.cutmax)
+    assert r[inside].min() > lo
+    jbox = JBox.orthogonal(box.lo.numpy(), box.hi.numpy(), dtype=jnp.float32)
+    jcfg = jcg.CellGridConfig(cutneigh=cfg.cutneigh, skin=cfg.skin,
+                              nx=cfg.nx, ny=cfg.ny, nz=cfg.nz, cap=cfg.cap)
+    with pltpu.force_tpu_interpret_mode():
+        rho_j = np.asarray(eam_rho_pallas(
+            jnp.asarray(s.x.numpy()), jnp.asarray(valid.numpy()), jbox, jcfg,
+            jpair._pallas_tabs[2], lo, hi, float(jpair.cutforcesq)))
+    rho, fp, _ = ec.eam_rho_cellgrid(s.x, valid, box, cfg, tab, False, plist)
+    assert rho.dtype == fp.dtype == torch.float32
+    drho = np.abs(_by_tag(s, valid, rho) - _by_tag(s, valid, rho_j))
+    tol = inside.sum(axis=1) * eps + 1e-5 * np.abs(rho_j).max()
+    assert np.abs(rho_j).max() > 0.1
+    assert (drho <= tol).all(), (drho.max(), tol.min())
+
+
+def test_stale_list_misses_a_density_pair_until_refreshed(jpair):
+    s, valid, box, cfg, plist, stat, hold = _grid(5, 0.0, 0)
+    far = EAM_A0 * np.sqrt(3.0)
+    x = s.x
+    ok = torch.nonzero(valid).reshape(-1)
+    i = int(ok[0])
+    d = x[i] - x[ok]
+    d = d - box.lengths * torch.round(d / box.lengths)
+    k = int(torch.nonzero((d.norm(dim=1) - far).abs() < 1e-6)[0])
+    j = int(ok[k])
+    moved = x.clone()
+    moved[j] = x[j] + 1.4 * d[k] / d[k].norm()
+    tab = _tables(jpair, x)
+    oracle = ec.eam_rho_cellgrid_plain(moved, valid, box, cfg, tab, True)
+    stale = ec.eam_rho_cellgrid(moved, valid, box, cfg, tab, True, plist)
+    # the pair (i, j) came within the cutoff from beyond cutneigh: both
+    # densities miss its term
+    gap = (oracle[0] - stale[0]).abs()
+    assert float(gap[i]) > 1e-6 * float(oracle[0].max())
+    assert float(gap[j]) > 1e-6 * float(oracle[0].max())
+    bpl.refresh_pairlist(moved, valid, box, cfg, plist[0], plist[1], stat,
+                         hold)
+    assert int(stat[2]) == 1
+    _same_rho(ec.eam_rho_cellgrid(moved, valid, box, cfg, tab, True, plist),
+              oracle)
+
+
+def test_eam_deck_sweeps_the_list_in_both_passes(tmp_path, monkeypatch):
+    eam_funcfl(tmp_path / "Cu.eam")
+    script = LammpsScript(device="cpu", dtype=torch.float64)
+    script.run_string(IN_EAM.format(n=5, potential=tmp_path / "Cu.eam")
+                      .replace("thermo          50", "thermo          10"))
+    sim = script.sim
+    sim.verbose = False
+
+    def stencil(*args, **kw):
+        raise AssertionError("a stencil sweep ran on the main path")
+    oracles = (ec.eam_rho_cellgrid_plain, ec.eam_force_cellgrid_plain)
+    monkeypatch.setattr(ec, "eam_rho_cellgrid_plain", stencil)
+    monkeypatch.setattr(ec, "eam_force_cellgrid_plain", stencil)
+    n_rho, n_force = ec.rho_counts.plain_calls, ec.force_counts.plain_calls
+    script.run_string("run 20")
+    # setup, 20 steps and the thermo rows of steps 10 and 20
+    evals = ec.rho_counts.plain_calls - n_rho
+    assert evals == ec.force_counts.plain_calls - n_force == 1 + 20 + 2
+    assert sim.step == 20 and np.isfinite(sim.last_thermo["etotal"])
+    monkeypatch.undo()
+    s, neigh, _ = sim._carry
+    cfg = sim._neigh_cfg
+    plist = (neigh.pairs, neigh.npairs, neigh.row2slot)
+    tab = sim.pair.kernel_tables(s.x)
+    rho = ec.eam_rho_cellgrid(s.x, neigh.valid, s.box, cfg, tab, True, plist)
+    ref = oracles[0](s.x, neigh.valid, s.box, cfg, tab, True)
+    _same_rho(rho, ref)
+    _same_sums(ec.eam_force_cellgrid(s.x, neigh.valid, ref[1], s.box, cfg,
+                                     tab, True, True, plist),
+               oracles[1](s.x, neigh.valid, ref[1], s.box, cfg, tab, True,
+                          True))

@@ -1,6 +1,6 @@
 // Single-element EAM on the cell grid on Hopper (sm_90a): the density pass
-// over the 27-cell stencil and the force pass over the grid's pair list,
-// two kernels launched one after the other on one stream.
+// and the force pass, both sweeps of the grid's pair list, two kernels
+// launched one after the other on one stream.
 //
 // Replace the Pallas TPU kernels tpumd/ops/pallas_eam.py::_rho_kernel
 // (entry eam_rho_pallas) and ::_force_kernel (entry eam_force_pallas), the
@@ -12,23 +12,20 @@
 // PairEAM::compute does.
 //
 // Atoms sit in a (nz, ny, nx, cap) grid of fixed-capacity cells; x is the
-// slot-ordered (nz*ny*nx*cap, 3) array and valid marks real atoms.  Each
-// valid slot i sums over valid j != i with r2 < cutsq:
-//   pass 1, over the 27 stencil cells (all three offsets on every axis,
-//           also when an axis has 1 or 2 cells, with the periodic wrap
-//           computed from the cell index): rho_i = sum_j rho(r), then
-//           F'(rho_i) and, with EFLAG, F(rho_i) + F'(rho_i) (rho_i -
-//           rhomax) when rho_i > rhomax;
-//   pass 2, over the entries of i's row of the pair list (pairs, npairs;
-//           cellgrid_pairlist.cu, at cutneigh, built at every re-bin and
-//           refreshed where the schedule could leave it stale, so it holds
-//           every pair the stencil finds in range), with d = x_i - (x_j +
-//           s), s = L rint((x_i - x_j) / L) the minimum image rounded op
-//           by op as the stencil rounds x_i - (x_j + L): f_i = sum_j d *
-//           fpair, fpair = -((F'_i + F'_j) rho'(r) + phi'(r)) / r, phi =
-//           z2(r) / r, phi' = z2'(r) / r - phi / r; with EFLAG the per-slot
-//           sum of phi, with VFLAG the six components of sum_j fpair d_a
-//           d_b (the caller halves both).
+// slot-ordered (nz*ny*nx*cap, 3) array and valid marks real atoms.  Both
+// passes walk the entries of i's row of the pair list (pairs, npairs;
+// cellgrid_pairlist.cu, at cutneigh, built at every re-bin and refreshed
+// where the schedule could leave it stale, so it holds every pair the
+// stencil finds in range), with d = x_i - (x_j + s), s = L rint((x_i -
+// x_j) / L) the minimum image rounded op by op as the stencil rounds x_i -
+// (x_j + L), and sum over the entries with r2 < cutsq:
+//   pass 1: rho_i = sum_j rho(r), then F'(rho_i) and, with EFLAG, F(rho_i)
+//           + F'(rho_i) (rho_i - rhomax) when rho_i > rhomax;
+//   pass 2: f_i = sum_j d fpair, fpair = -((F'_i + F'_j) rho'(r) +
+//           phi'(r)) / r, phi = z2(r) / r, phi' = z2'(r) / r - phi / r;
+//           with EFLAG the per-slot sum of phi, with VFLAG the six
+//           components of sum_j fpair d_a d_b (the caller halves both).
+// Empty slots get 0 in every output.
 // A spline row is found as tpumd's _r_index does (pair_eam.py:425-430):
 // p = r / dr + 1, m = int(p) clamped to [1, n-1], p = min(p - m, 1); the
 // value is ((c3 p + c4) p + c5) p + c6, the derivative (c0 p + c1) p + c2.
@@ -39,37 +36,31 @@
 // are 55,296 slots; about 43 neighbours of an fcc site lie inside the
 // 4.95 A cutoff.  The least work, those pairs' arithmetic and each input
 // and output moved once (1.2-1.6 MB in f32), takes under a microsecond on
-// an H100: pass 1 is bound by its bytes, pass 2 by its operations.  Pass
-// 1 tests all 27 x 32 = 864 stencil candidates a slot, and a cell's warp
-// takes the in-range path (square root, 4 dependent table reads) for every
-// lane whenever one lane needs it.  Pass 2's list rows hold ~75 entries
-// (cutneigh 5.95 A, K 108), ~57 % of them in range; reading the list,
-// ~9.6 MB a call, takes ~3 us at the HBM rate, a floor of this design.
-// PERF.md has the times and the bounds.
+// an H100: pass 1 is bound by its bytes, pass 2 by its operations.  The
+// list rows hold ~75 entries (cutneigh 5.95 A, K 108), ~57 % of them in
+// range; reading the list, ~9.6 MB a pass, takes ~3 us at the HBM rate, a
+// floor of this design.  PERF.md has the times and the bounds.
 //
-// Design of pass 1 (B1's old stencil design): one block per cell, one
-// thread per i slot (cap rounded up to a warp).  For each of the 27
-// neighbour cells the block stages the cell's coordinates with the wrap
-// correction and its validity in shared memory; every thread then runs the
-// candidate loop from shared memory (all threads read the same j).  Masks
-// are tested before the square root, so empty slots (at x = 0) never reach
-// it.  The table rows are read through the read-only cache.  Pass 1 writes
-// F' of every slot before pass 2 reads any: two launches on one stream, no
-// grid-wide sync.
-//
-// Design of pass 2: kLanesEAM lanes per valid atom (chosen on the card by
-// probes/pairlist_lanes.py: PERF.md), lane l walking entries l, l +
-// kLanesEAM, ... of the atom's row, the lanes' sums meeting by shuffles;
-// blocks stride over the atoms, as many as the card holds at once.  Each
-// block first stages the table columns a pair reads, rho' (rhor's three
-// derivative columns) and all seven of z2r, (nr + 1) x 10 values (20 KB in
-// f32, 40 KB in f64 at nr = 500), in shared memory, so an in-range pair
-// reads its 10 coefficients from there and not by 7 dependent global
-// loads; tables too large for a block's shared memory are read from
-// global memory.  F'_j is read once per entry.  The threads also zero the
-// empty slots' outputs.
+// Design of both passes (lanes per atom chosen on the card by
+// probes/pairlist_lanes.py: PERF.md): kLanesRho or kLanesEAM lanes per
+// valid atom, reached through rows (the valid slots), lane l walking
+// entries l, l + lanes, ... of the atom's row, the lanes' sums meeting by
+// shuffles; blocks stride over the atoms, as many as the card holds at
+// once, and their threads also zero the empty slots' outputs.  Each block
+// first stages in shared memory the table columns a pair reads, so an
+// in-range pair reads its coefficients from there and not by dependent
+// global loads: pass 1 rhor's four value columns, (nr + 1) x 4 values (8 KB
+// in f32 at nr = 500); pass 2 rho' (rhor's three derivative columns) and
+// all seven of z2r, (nr + 1) x 10 values (20 KB in f32, 40 KB in f64).
+// Tables too large for a block's shared memory are read from global
+// memory.  In pass 1 one lane of the atom then reads frho's row (once an
+// atom, through the read-only cache) and writes F'(rho_i); in pass 2 F'_j
+// is read once per entry.  Pass 1 writes F' of every slot before pass 2
+// reads any: two launches on one stream, no grid-wide sync.
 
 #include <cuda_runtime.h>
+
+#include "device_limits.cuh"
 
 namespace {
 
@@ -100,109 +91,16 @@ __device__ __forceinline__ T spline_derivative(const T* __restrict__ tab,
   return (__ldg(c + 0) * p + __ldg(c + 1)) * p + __ldg(c + 2);
 }
 
-// The neighbour cell at offset o along an axis of n cells from cell c: its
-// index and the coordinate shift of its periodic image.
-template <typename T>
-__device__ __forceinline__ int wrap_cell(int c, int o, int n, T L, T& s) {
-  int j = c + o;
-  s = T(0);
-  if (j >= n) { j -= n; s = L; } else if (j < 0) { j += n; s = -L; }
-  return j;
-}
-
-template <typename T, bool EFLAG>
-__global__ void eam_rho_kernel(const T* __restrict__ x,
-                               const unsigned char* __restrict__ valid,
-                               const T* __restrict__ lengths,
-                               const T* __restrict__ rhor,
-                               const T* __restrict__ frho,
-                               T* __restrict__ rho_out, T* __restrict__ fp_out,
-                               T* __restrict__ eslot, int nx, int ny, int nz,
-                               int cap, int nr, int nrho, T rdr, T rdrho,
-                               T rhomax, T cutsq) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sj = reinterpret_cast<T*>(smem_raw);  // cap rows of (x, y, z, valid)
-
-  const int cell = blockIdx.x;
-  const int cx = cell % nx;
-  const int cy = (cell / nx) % ny;
-  const int cz = cell / (nx * ny);
-  const int t = threadIdx.x;
-  const long long islot = static_cast<long long>(cell) * cap + t;
-  const bool active = t < cap;
-  const bool ivalid = active && valid[islot] != 0;
-
-  T xi = T(0), yi = T(0), zi = T(0);
-  if (active) {
-    xi = x[3 * islot + 0];
-    yi = x[3 * islot + 1];
-    zi = x[3 * islot + 2];
-  }
-  const T Lx = lengths[0], Ly = lengths[1], Lz = lengths[2];
-
-  T rho = T(0);
-  for (int oz = -1; oz <= 1; ++oz) {
-    T sz;
-    const int jz = wrap_cell(cz, oz, nz, Lz, sz);
-    for (int oy = -1; oy <= 1; ++oy) {
-      T sy;
-      const int jy = wrap_cell(cy, oy, ny, Ly, sy);
-      for (int ox = -1; ox <= 1; ++ox) {
-        T sx;
-        const int jx = wrap_cell(cx, ox, nx, Lx, sx);
-        const long long jbase =
-            (static_cast<long long>(jz * ny + jy) * nx + jx) * cap;
-
-        __syncthreads();  // the previous cell's tile is consumed
-        for (int k = t; k < cap; k += blockDim.x) {
-          const long long js = jbase + k;
-          sj[4 * k + 0] = x[3 * js + 0] + sx;
-          sj[4 * k + 1] = x[3 * js + 1] + sy;
-          sj[4 * k + 2] = x[3 * js + 2] + sz;
-          sj[4 * k + 3] = valid[js] ? T(1) : T(0);
-        }
-        __syncthreads();
-
-        if (!ivalid) continue;
-        const int self = (ox == 0 && oy == 0 && oz == 0) ? t : -1;
-        for (int k = 0; k < cap; ++k) {
-          if (sj[4 * k + 3] == T(0) || k == self) continue;
-          const T dx = xi - sj[4 * k + 0];
-          const T dy = yi - sj[4 * k + 1];
-          const T dz = zi - sj[4 * k + 2];
-          const T r2 = dx * dx + dy * dy + dz * dz;
-          if (!(r2 < cutsq)) continue;
-          int m;
-          T p;
-          spline_row(sqrt(r2), rdr, nr, m, p);
-          rho += spline_value(rhor, m, p);
-        }
-      }
-    }
-  }
-
-  if (!active) return;
-  T fp = T(0), e = T(0);
-  if (ivalid) {
-    int m;
-    T p;
-    spline_row(rho, rdrho, nrho, m, p);
-    fp = spline_derivative(frho, m, p);
-    if (EFLAG) {
-      e = spline_value(frho, m, p);
-      if (rho > rhomax) e += fp * (rho - rhomax);
-    }
-  }
-  rho_out[islot] = rho;
-  fp_out[islot] = fp;
-  if (EFLAG) eslot[islot] = e;
-}
-
+constexpr int kLanesRho = 4;     // lanes per atom of the density pass
 constexpr int kLanesEAM = 4;     // lanes per atom of the force pass
-constexpr int kForceBlock = 512;
+constexpr int kBlock = 512;
+constexpr int kRhoCols = 4;      // rho (rhor's value columns)
 constexpr int kTabCols = 10;     // rho' (3 columns), then z2r (7)
 constexpr unsigned kNeighMask = (1u << 30) - 1u;
 
+static_assert(kLanesRho >= 1 && kLanesRho <= 32 &&
+                  (kLanesRho & (kLanesRho - 1)) == 0,
+              "kLanesRho must be a power of two up to a warp");
 static_assert(kLanesEAM >= 1 && kLanesEAM <= 32 &&
                   (kLanesEAM & (kLanesEAM - 1)) == 0,
               "kLanesEAM must be a power of two up to a warp");
@@ -250,6 +148,105 @@ __device__ __forceinline__ T lanes_sum(T v, unsigned mask) {
   return v;
 }
 
+// the lanes of a warp that serve one atom with this thread
+template <int LANES>
+__device__ __forceinline__ unsigned atom_mask() {
+  const int base = (threadIdx.x & 31) & ~(LANES - 1);
+  return (0xffffffffu >> (32 - LANES)) << base;
+}
+
+// the table columns cols of rows (nr + 1) into shared memory, col c of
+// row m from tab[7 m + first + c] (or from tab2 past split)
+template <typename T>
+__device__ __forceinline__ void stage_table(T* dst, const T* tab,
+                                            const T* tab2, int first,
+                                            int split, int cols, int nr) {
+  for (int k = threadIdx.x; k < (nr + 1) * cols; k += blockDim.x) {
+    const int m = k / cols, col = k % cols;
+    dst[k] = col < split ? tab[7 * m + first + col]
+                         : tab2[7 * m + col - split];
+  }
+  __syncthreads();
+}
+
+template <typename T>
+struct RhoArgs {
+  const T* x;
+  const unsigned char* valid;
+  const int* pairs;
+  const int* npairs;
+  const long long* rows;
+  const T* lengths;
+  const T* rhor;
+  const T* frho;
+  T* rho;
+  T* fp;
+  T* eslot;
+  long long np, natoms;
+  int K, nr, nrho;
+  T rdr, rdrho, rhomax, cutsq;
+};
+
+// SMEM: rhor's value columns staged in shared memory (else read from
+// global memory)
+template <int LANES, bool SMEM, typename T, bool EFLAG>
+__global__ void __launch_bounds__(kBlock) eam_rho_pairlist_kernel(
+    const RhoArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tab = reinterpret_cast<T*>(smem_raw);  // (nr + 1) rows of kRhoCols
+  if (SMEM) stage_table(tab, a.rhor, a.rhor, 3, kRhoCols, kRhoCols, a.nr);
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long nthreads = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long s = tid; s < a.np; s += nthreads) {
+    if (a.valid[s]) continue;
+    a.rho[s] = T(0);
+    a.fp[s] = T(0);
+    if (EFLAG) a.eslot[s] = T(0);
+  }
+
+  const int lane = threadIdx.x % LANES;
+  const unsigned mask = atom_mask<LANES>();
+  const T Lx = a.lengths[0], Ly = a.lengths[1], Lz = a.lengths[2];
+  for (long long g = tid / LANES; g < a.natoms; g += nthreads / LANES) {
+    const long long i = a.rows[g];
+    const T xi = a.x[3 * i + 0], yi = a.x[3 * i + 1], zi = a.x[3 * i + 2];
+    T rho = T(0);
+    const int* row = a.pairs + i * a.K;
+    const int n = a.npairs[i];
+    for (int k = lane; k < n; k += LANES) {
+      const long long j = static_cast<unsigned>(row[k]) & kNeighMask;
+      const T dx = image_d(xi, a.x[3 * j + 0], Lx);
+      const T dy = image_d(yi, a.x[3 * j + 1], Ly);
+      const T dz = image_d(zi, a.x[3 * j + 2], Lz);
+      const T r2 = norm2_rn(dx, dy, dz);
+      if (!(r2 < a.cutsq)) continue;
+      int m;
+      T p;
+      spline_row(sqrt(r2), a.rdr, a.nr, m, p);
+      if (SMEM) {
+        const T* c = tab + kRhoCols * m;
+        rho += ((c[0] * p + c[1]) * p + c[2]) * p + c[3];
+      } else {
+        rho += spline_value(a.rhor, m, p);
+      }
+    }
+    rho = lanes_sum<LANES>(rho, mask);
+    if (lane != 0) continue;
+    int m;
+    T p;
+    spline_row(rho, a.rdrho, a.nrho, m, p);
+    const T fp = spline_derivative(a.frho, m, p);
+    a.rho[i] = rho;
+    a.fp[i] = fp;
+    if (EFLAG) {
+      T e = spline_value(a.frho, m, p);
+      if (rho > a.rhomax) e += fp * (rho - a.rhomax);
+      a.eslot[i] = e;
+    }
+  }
+}
+
 template <typename T>
 struct ForceArgs {
   const T* x;
@@ -271,17 +268,11 @@ struct ForceArgs {
 
 // SMEM: the tables staged in shared memory (else read from global memory)
 template <int LANES, bool SMEM, typename T, bool EFLAG, bool VFLAG>
-__global__ void __launch_bounds__(kForceBlock) eam_force_pairlist_kernel(
+__global__ void __launch_bounds__(kBlock) eam_force_pairlist_kernel(
     const ForceArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tab = reinterpret_cast<T*>(smem_raw);  // (nr + 1) rows of kTabCols
-  if (SMEM) {
-    for (int k = threadIdx.x; k < (a.nr + 1) * kTabCols; k += blockDim.x) {
-      const int m = k / kTabCols, col = k % kTabCols;
-      tab[k] = col < 3 ? a.rhor[7 * m + col] : a.z2r[7 * m + col - 3];
-    }
-    __syncthreads();
-  }
+  if (SMEM) stage_table(tab, a.rhor, a.z2r, 0, 3, kTabCols, a.nr);
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long nthreads = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -297,8 +288,7 @@ __global__ void __launch_bounds__(kForceBlock) eam_force_pairlist_kernel(
   }
 
   const int lane = threadIdx.x % LANES;
-  const int base = (threadIdx.x & 31) & ~(LANES - 1);
-  const unsigned mask = (0xffffffffu >> (32 - LANES)) << base;
+  const unsigned mask = atom_mask<LANES>();
   const T Lx = a.lengths[0], Ly = a.lengths[1], Lz = a.lengths[2];
   for (long long g = tid / LANES; g < a.natoms; g += nthreads / LANES) {
     const long long i = a.rows[g];
@@ -373,44 +363,13 @@ __global__ void __launch_bounds__(kForceBlock) eam_force_pairlist_kernel(
   }
 }
 
-bool bad_shape(int nx, int ny, int nz, int cap, int n1, int n2) {
-  return nx < 1 || ny < 1 || nz < 1 || cap < 1 || cap > 1024 || n1 < 2 ||
-         n2 < 2;
-}
-
-template <typename T>
-int launch_rho(const T* x, const unsigned char* valid, const T* lengths,
-               const T* rhor, const T* frho, T* rho, T* fp, T* eslot, int nx,
-               int ny, int nz, int cap, int nr, int nrho, double rdr,
-               double rdrho, double rhomax, double cutsq, int eflag,
-               void* stream) {
-  if (bad_shape(nx, ny, nz, cap, nr, nrho)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid(nx * ny * nz);
-  const dim3 block(((cap + 31) / 32) * 32);
-  const size_t smem = 4 * static_cast<size_t>(cap) * sizeof(T);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (eflag) {
-    eam_rho_kernel<T, true><<<grid, block, smem, s>>>(
-        x, valid, lengths, rhor, frho, rho, fp, eslot, nx, ny, nz, cap, nr,
-        nrho, T(rdr), T(rdrho), T(rhomax), T(cutsq));
-  } else {
-    eam_rho_kernel<T, false><<<grid, block, smem, s>>>(
-        x, valid, lengths, rhor, frho, rho, fp, eslot, nx, ny, nz, cap, nr,
-        nrho, T(rdr), T(rdrho), T(rhomax), T(cutsq));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool SMEM, typename T, bool EFLAG, bool VFLAG>
-int launch_force_one(const ForceArgs<T>& a, size_t smem, int dev,
-                     cudaStream_t s) {
-  auto kernel = eam_force_pairlist_kernel<kLanesEAM, SMEM, T, EFLAG, VFLAG>;
-  // as many blocks as the card holds at once, each staging the tables
-  // once: the card's count, found once per instantiation, device and
-  // shared size (the launch runs at every step, and the queries cost host
-  // time)
+// Launch kernel on as many blocks as the card holds at once (or fewer,
+// where the atoms' lanes take fewer), each staging its tables once: the
+// card's count, found once per kernel, device and shared size (the
+// launches run at every step, and the queries cost host time).
+template <auto kernel, typename Args>
+int launch_resident(const Args& a, long long threads, size_t smem, int dev,
+                    cudaStream_t s) {
   static int resident = 0, on_dev = -1;
   static size_t for_smem = 0;
   if (dev != on_dev || smem != for_smem) {
@@ -423,18 +382,55 @@ int launch_force_one(const ForceArgs<T>& a, size_t smem, int dev,
         (err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
                                       dev)) != cudaSuccess ||
         (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, kForceBlock, smem)) != cudaSuccess) {
+             &per_sm, kernel, kBlock, smem)) != cudaSuccess) {
       return static_cast<int>(err);
     }
     resident = per_sm * nsm;
     on_dev = dev;
     for_smem = smem;
   }
-  long long blocks = (a.natoms * kLanesEAM + kForceBlock - 1) / kForceBlock;
+  long long blocks = (threads + kBlock - 1) / kBlock;
   if (blocks > resident) blocks = resident;
   if (blocks < 1) blocks = 1;
-  kernel<<<static_cast<unsigned>(blocks), kForceBlock, smem, s>>>(a);
+  kernel<<<static_cast<unsigned>(blocks), kBlock, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool SMEM, typename T>
+int launch_rho_flags(const RhoArgs<T>& a, size_t smem, int dev, int eflag,
+                     cudaStream_t s) {
+  const long long threads = a.natoms * kLanesRho;
+  if (eflag) {
+    return launch_resident<eam_rho_pairlist_kernel<kLanesRho, SMEM, T, true>>(
+        a, threads, smem, dev, s);
+  }
+  return launch_resident<eam_rho_pairlist_kernel<kLanesRho, SMEM, T, false>>(
+      a, threads, smem, dev, s);
+}
+
+template <typename T>
+int launch_rho(const RhoArgs<T>& a, int eflag, void* stream) {
+  if (a.np < 1 || a.natoms < 0 || a.natoms > a.np || a.K < 1 || a.nr < 2 ||
+      a.nrho < 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev, optin;
+  const cudaError_t err = device_optin(&dev, &optin);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = static_cast<size_t>(a.nr + 1) * kRhoCols * sizeof(T);
+  if (smem <= static_cast<size_t>(optin)) {
+    return launch_rho_flags<true, T>(a, smem, dev, eflag, s);
+  }
+  return launch_rho_flags<false, T>(a, 0, dev, eflag, s);
+}
+
+template <bool SMEM, typename T, bool EFLAG, bool VFLAG>
+int launch_force_one(const ForceArgs<T>& a, size_t smem, int dev,
+                     cudaStream_t s) {
+  return launch_resident<
+      eam_force_pairlist_kernel<kLanesEAM, SMEM, T, EFLAG, VFLAG>>(
+      a, a.natoms * kLanesEAM, smem, dev, s);
 }
 
 template <bool SMEM, typename T>
@@ -454,22 +450,10 @@ int launch_force(const ForceArgs<T>& a, int eflag, int vflag, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev, optin;
+  const cudaError_t err = device_optin(&dev, &optin);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = static_cast<size_t>(a.nr + 1) * kTabCols * sizeof(T);
-  // the largest shared memory a block may take, once per device
-  static int optin = 0, on_dev = -1;
-  int dev;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  if (dev != on_dev) {
-    if ((err = cudaDeviceGetAttribute(
-             &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
-        cudaSuccess) {
-      return static_cast<int>(err);
-    }
-    on_dev = dev;
-  }
   if (smem <= static_cast<size_t>(optin)) {
     return launch_force_flags<true, T>(a, smem, dev, eflag, vflag, s);
   }
@@ -479,27 +463,25 @@ int launch_force(const ForceArgs<T>& a, int eflag, int vflag, void* stream) {
 }  // namespace
 
 // C interface, bound with ctypes by tpumd_torch/ops/eam_cellgrid.py.  Each
-// returns the CUDA error code of its launch (0 on success).
-extern "C" int tpumd_eam_rho_cellgrid_f32(
-    const float* x, const unsigned char* valid, const float* lengths,
-    const float* rhor, const float* frho, float* rho, float* fp, float* eslot,
-    int nx, int ny, int nz, int cap, int nr, int nrho, double rdr,
-    double rdrho, double rhomax, double cutsq, int eflag, void* stream) {
-  return launch_rho<float>(x, valid, lengths, rhor, frho, rho, fp, eslot, nx,
-                           ny, nz, cap, nr, nrho, rdr, rdrho, rhomax, cutsq,
-                           eflag, stream);
-}
+// returns the CUDA error code of its launch (0 on success); eslot and
+// vslot may be null where the flag is off.
+#define TPUMD_EAM_RHO_ENTRY(NAME, T)                                         \
+  extern "C" int NAME(const T* x, const unsigned char* valid,                \
+                      const int* pairs, const int* npairs,                   \
+                      const long long* rows, const T* lengths,               \
+                      const T* rhor, const T* frho, T* rho, T* fp, T* eslot, \
+                      long long np, long long natoms, int K, int nr,         \
+                      int nrho, double rdr, double rdrho, double rhomax,     \
+                      double cutsq, int eflag, void* stream) {               \
+    const RhoArgs<T> a{x,      valid,  pairs,   npairs,    rows,   lengths,  \
+                       rhor,   frho,   rho,     fp,        eslot,  np,       \
+                       natoms, K,      nr,      nrho,      T(rdr), T(rdrho), \
+                       T(rhomax), T(cutsq)};                                 \
+    return launch_rho<T>(a, eflag, stream);                                  \
+  }
 
-extern "C" int tpumd_eam_rho_cellgrid_f64(
-    const double* x, const unsigned char* valid, const double* lengths,
-    const double* rhor, const double* frho, double* rho, double* fp,
-    double* eslot, int nx, int ny, int nz, int cap, int nr, int nrho,
-    double rdr, double rdrho, double rhomax, double cutsq, int eflag,
-    void* stream) {
-  return launch_rho<double>(x, valid, lengths, rhor, frho, rho, fp, eslot, nx,
-                            ny, nz, cap, nr, nrho, rdr, rdrho, rhomax, cutsq,
-                            eflag, stream);
-}
+TPUMD_EAM_RHO_ENTRY(tpumd_eam_rho_cellgrid_f32, float)
+TPUMD_EAM_RHO_ENTRY(tpumd_eam_rho_cellgrid_f64, double)
 
 #define TPUMD_EAM_FORCE_ENTRY(NAME, T)                                       \
   extern "C" int NAME(const T* x, const unsigned char* valid, const T* fp,   \

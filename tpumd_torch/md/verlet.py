@@ -21,8 +21,8 @@ thermo evaluations read the history without advancing it.  A rebuild
 shrink-wraps the box's s/m faces to the atoms first.
 
 Every style on the grid sweeps a pair list (lj/cut, with or without FENE
-bonds in its kernel, eam, lj/charmm/coul/long, gran/hooke/history; eam's
-density pass still sweeps the stencil): it gets one from every re-bin, at
+bonds in its kernel, both passes of eam, lj/charmm/coul/long,
+gran/hooke/history): it gets one from every re-bin, at
 set-up and at each rebuild, carried in the grid state with the bond
 partners' slots; a row longer than its K raises the overflow flag as a
 full cell does.  Where the schedule leaves a step's force evaluation

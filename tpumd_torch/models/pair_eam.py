@@ -7,8 +7,8 @@ pass 2 sums pair forces f = -((F'_i + F'_j) rho'(r) + phi'(r)) r_hat.  The
 spline tables (interpolate(), file2array()) are built by the same numpy
 code as tpumd's, so they are bit-equal; the kernels read them exactly, with
 no refit.  One element only: the cell-grid kernels take one density
-function for every pair.  On the grid the density pass sweeps the
-27-cell stencil and the force pass the grid's pair list.
+function for every pair.  On the grid both passes sweep the grid's pair
+list.
 """
 
 from __future__ import annotations
@@ -263,10 +263,10 @@ class PairEAM(PairStyle):
     def compute_cellgrid(self, x, valid, box, cfg, eflag: bool, vflag: bool,
                          bond=None, plist=None):
         """(f, evdwl, virial, None) on the cell grid: the density kernel
-        over the stencil (rho, F'(rho) and, with eflag, F(rho) per slot),
-        then the force kernel over the grid's pair list plist = (pairs,
-        npairs, rows) (or their plain versions for CPU tensors).  evdwl is
-        the embedding energy plus the pair energy, None unless eflag; the
+        (rho, F'(rho) and, with eflag, F(rho) per slot), then the force
+        kernel, both over the grid's pair list plist = (pairs, npairs,
+        rows) (or their plain versions for CPU tensors).  evdwl is the
+        embedding energy plus the pair energy, None unless eflag; the
         virial is None unless vflag."""
         if self.ntypes != 1:
             raise NotImplementedError(
@@ -277,7 +277,8 @@ class PairEAM(PairStyle):
                 f"bonds with pair_style {self.name}: the EAM kernels have "
                 "no bond path")
         tab = self.kernel_tables(x)
-        _, fp, e_embed = eam_rho_cellgrid(x, valid, box, cfg, tab, eflag)
+        _, fp, e_embed = eam_rho_cellgrid(x, valid, box, cfg, tab, eflag,
+                                          plist)
         f, e_pair, virial = eam_force_cellgrid(x, valid, fp, box, cfg, tab,
                                                eflag, vflag, plist)
         return f, (e_embed + e_pair if eflag else None), virial, None

@@ -4,8 +4,8 @@ The sources have a plain C interface, so nvcc builds them in seconds
 without PyTorch's headers.  One nvcc per source compiles them all at
 once, and one more links the objects.  The library goes to
 ``build/tpumd_torch/`` at the repository root, named by a hash of the
-sources and flags, and is built at first use; later processes load the
-cached file.
+sources, the headers they include from ``csrc`` and the flags, and is
+built at first use; later processes load the cached file.
 """
 
 from __future__ import annotations
@@ -55,7 +55,8 @@ def _compile_all(srcs, objdir: Path) -> tuple[list[Path], str]:
     try:
         for src in srcs:
             obj = objdir / f"{src.stem}.o"
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                   str(src)]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))

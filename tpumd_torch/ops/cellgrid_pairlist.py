@@ -7,8 +7,9 @@ visits them (z, y, x offsets, then slot; a non-periodic axis drops the
 offsets that alias, as ``cellgrid._offs`` does), as LAMMPS's full lists
 hold them: ``pairs`` (Np, K) int32 of entries ``j | code << 30`` (SBBITS = 30,
 NEIGHMASK, src/neighbor.h), code the pair's special_bonds code 0-3, and
-``npairs`` (Np,) int32, each row's count.  A row is padded with its own
-slot at code 0, the self-mask of ``ops/pairwise.py``.  Entries address
+``npairs`` (Np,) int32, each row's count.  A row's tail past its count is
+unspecified, and no sweep reads it: the kernel writes the live entries
+only, the plain build pads the tail with the row's own slot.  Entries address
 grid slots and carry no image shift: a sweep takes the minimum image
 under the box of its step on the periodic axes (``image_shift``), exact
 because the grid holds L >= 2 cutneigh.  A special pair is kept with its
@@ -45,7 +46,10 @@ _kernel and tpumd/ops/pallas_gran.py::_kernel, which tested all 27 cells at
 every force evaluation; the build runs once per re-bin and serves any grid
 the stencil takes.  ``cellgrid_pairlist`` and ``refresh_pairlist`` launch
 them for CUDA tensors and take the plain versions only for CPU tensors;
-they never fall back from one to the other.
+they never fall back from one to the other.  The build takes G lanes a
+slot, 1 on cells of at most 64 slots and ``WIDE_LANES`` on larger ones
+(the kernel's launch rule); ``cellgrid_pairlist``'s ``lanes`` forces
+either, for the card's tests.
 """
 
 from __future__ import annotations
@@ -67,6 +71,8 @@ from tpumd_torch.ops.neighbor import excluded_pairs
 SBBITS = 30
 NEIGHMASK = (1 << SBBITS) - 1
 MAX_EXCLUDE = 4     # kMaxExcl of the kernel
+WIDE_LANES = 16     # kLanesBuild of the kernel: its G on large cells
+LANES = (1, WIDE_LANES)    # every G the launch rule can pick
 
 counts = LaunchCounts()            # builds at set-up and re-bins
 refresh_counts = LaunchCounts()    # gated refreshes between re-bins
@@ -203,7 +209,7 @@ def new_stat(device):
 
 _FN_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_ARGTYPES = ([_P] * 4 + [_I] + [_P] * 5 + [_I] + [_P] * 6 + [_I] * 8
+_ARGTYPES = ([_P] * 4 + [_I] + [_P] * 5 + [_I] + [_P] * 6 + [_I] * 9
              + [_D, _D, _I, _I, _P])
 _RUN_ARGTYPES = [_P] * 5 + [_I, _P]
 
@@ -262,7 +268,8 @@ def _write_hold(hold: ListHold, x, box: Box):
 
 def cellgrid_pairlist(x, valid, tag, stags, scodes, box: Box,
                       cfg: CellGridConfig, kmax: int, gmask=None,
-                      exclude_bits=(), stat=None, hold: ListHold = None):
+                      exclude_bits=(), stat=None, hold: ListHold = None,
+                      lanes: int | None = None):
     """The pair list at cfg.cutneigh of a binned grid of wrapped
     positions, rows of K = kmax entries: (pairs (Np, K) int32, npairs (Np,)
     int32, max_pairs () int32, overflow () bool).  stags / scodes (Np, S)
@@ -273,7 +280,8 @@ def cellgrid_pairlist(x, valid, tag, stags, scodes, box: Box,
     the build takes its longest row and overflow into, kept by the caller;
     by default fresh ones.  hold: the ListHold (``pairlist_hold``) whose
     positions and box corners the build writes, for a list refreshed
-    between re-bins."""
+    between re-bins.  lanes: the kernel's G (one of ``LANES``) where a
+    test forces it, else the kernel's launch rule picks it."""
     if kmax < 1:
         raise ValueError(f"cellgrid_pairlist: kmax {kmax}; a list needs "
                          f"K >= 1")
@@ -300,7 +308,11 @@ def cellgrid_pairlist(x, valid, tag, stags, scodes, box: Box,
     if hold is None:
         hold = pairlist_hold(x, valid, tag, stags, scodes, cfg, gmask,
                              exclude_bits, keep=False)
-    args = _args(x, valid, box, cfg, pairs, npairs, stat, hold, 0, 0)
+    if lanes is not None and lanes not in LANES:
+        raise ValueError(f"cellgrid_pairlist: lanes {lanes}, not one of "
+                         f"{LANES}")
+    args = _args(x, valid, box, cfg, pairs, npairs, stat, hold, 0, 0,
+                 lanes or 0)
     fn = _build.kernel_function(f"tpumd_cellgrid_pairlist_"
                                 f"{_FN_SUFFIX[x.dtype]}", _ARGTYPES)
     with torch.cuda.device(x.device):
@@ -355,7 +367,7 @@ class _PreparedRefresh:
         self.np, self.dtype, self.device = cfg.capacity, x.dtype, x.device
         self.box_term = hold.box is not None
         args = _args(x, valid, box, cfg, pairs, npairs, stat, hold, 0,
-                     int(self.box_term))
+                     int(self.box_term), 0)
         suffix = _FN_SUFFIX[x.dtype]
         prepare = _build.kernel_function(
             f"tpumd_cellgrid_pairlist_refresh_prepare_{suffix}", _ARGTYPES,
@@ -418,11 +430,14 @@ def refresh_pairlist_plain(x, valid, box: Box, cfg: CellGridConfig, pairs,
 
 
 def _args(x, valid, box: Box, cfg: CellGridConfig, pairs, npairs, stat,
-          hold: ListHold, stamp: int, box_term: int) -> list:
+          hold: ListHold, stamp: int, box_term: int, lanes: int) -> list:
     """Check the CUDA inputs of the build or the refresh and return the
     arguments of their library entries (``_ARGTYPES``)."""
     check_grid_inputs(x, valid, box, cfg, "cellgrid_pairlist",
                       periodic_only=False)
+    if valid.data_ptr() % 4:
+        raise ValueError("cellgrid_pairlist: valid must start at a 4-byte "
+                         "boundary (the kernel stages it as words)")
     np_, K, dev = cfg.capacity, pairs.shape[1], x.device
     if np_ > NEIGHMASK:
         raise ValueError(f"cellgrid_pairlist: {np_} slots do not fit the "
@@ -458,6 +473,6 @@ def _args(x, valid, box: Box, cfg: CellGridConfig, pairs, npairs, stat,
             pairs.data_ptr(), npairs.data_ptr(), stat.data_ptr(),
             None if hold.x is None else hold.x.data_ptr(), corners[2],
             cfg.nx, cfg.ny, cfg.nz, cfg.cap,
-            *(int(p) for p in box.periodic), K,
+            *(int(p) for p in box.periodic), K, lanes,
             cfg.cutneigh * cfg.cutneigh, cfg.skin, stamp, box_term,
             torch.cuda.current_stream(dev).cuda_stream]

@@ -126,10 +126,17 @@ def charmm_pairlist_plain(x, q, type_, pairs, npairs, box: Box,
     """Plain PyTorch version of the kernel: (f, evdwl, ecoul, virial) of
     the list's entries through ``pair_sums``, the codes weighing each
     pair.  Rows in blocks of at most 2^20 entries on the CPU (memory),
-    2^24 on a card, over the columns up to the longest row."""
+    2^24 on a card, over the columns up to the longest row, each row's
+    tail past npairs taken as its own slot (the self-mask of
+    ``pair_sums``)."""
     n = x.shape[0]
     kk = max(int(npairs.max()), 1)
     j, code = unpack(pairs[:, :kk])
+    tail = (torch.arange(kk, device=x.device)[None, :]
+            >= npairs[:, None].long())
+    j = torch.where(tail, torch.arange(n, dtype=j.dtype,
+                                       device=x.device)[:, None], j)
+    code = torch.where(tail, 0, code)
     rows = max(1, (1 << (20 if x.device.type == "cpu" else 24)) // kk)
     f = torch.empty_like(x)
     zero = torch.zeros((), dtype=x.dtype, device=x.device)

@@ -3,23 +3,25 @@ wrappers and their plain PyTorch versions.
 
 The kernels (``tpumd_torch/csrc/eam_cellgrid.cu``) replace the TPU kernels
 tpumd/ops/pallas_eam.py::_rho_kernel and ::_force_kernel, and read the
-exact spline tables where those used Chebyshev fits:
+exact spline tables where those used Chebyshev fits.  Both sweep the
+grid's pair list (``ops/cellgrid_pairlist.py``, built at every re-bin and
+refreshed where the schedule could leave it stale, so it holds the
+stencil's pairs):
 
-* ``eam_rho_cellgrid``, over the 27-cell stencil: host densities rho_i =
-  sum_j rho(r_ij), then per slot the embedding derivative F'(rho_i) and,
-  with eflag, F(rho_i) plus the linear term above rhomax (no elementwise
-  pass between the kernels);
-* ``eam_force_cellgrid``, over the grid's pair list
-  (``ops/cellgrid_pairlist.py``, built at every re-bin and refreshed where
-  the schedule could leave it stale, so it sums the stencil's pairs): f_i
-  = sum_j -((F'_i + F'_j) rho'(r) + phi'(r)) d_ij / r, with per-slot phi
-  and virial under the flags, so thermo steps need no second sweep.
+* ``eam_rho_cellgrid``: host densities rho_i = sum_j rho(r_ij), then per
+  slot the embedding derivative F'(rho_i) and, with eflag, F(rho_i) plus
+  the linear term above rhomax (no elementwise pass between the
+  kernels);
+* ``eam_force_cellgrid``: f_i = sum_j -((F'_i + F'_j) rho'(r) + phi'(r))
+  d_ij / r, with per-slot phi and virial under the flags, so thermo steps
+  need no second sweep.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
-version (``eam_rho_cellgrid_plain``, ``eam_force_pairlist_plain``) only
+version (``eam_rho_pairlist_plain``, ``eam_force_pairlist_plain``) only
 for CPU tensors; it never falls back from one to the other.
-``eam_force_cellgrid_plain``, the force sweep over the stencil, is the
-oracle the list sweep is held to; no run calls it.
+``eam_rho_cellgrid_plain`` and ``eam_force_cellgrid_plain``, the sweeps
+over the 27-cell stencil, are the oracles the list sweeps are held to; no
+run calls them.
 """
 
 from __future__ import annotations
@@ -87,7 +89,8 @@ def embedding(rho, valid, tab: EAMTables, eflag: bool):
 
 def eam_rho_cellgrid_plain(x, valid, box: Box, cfg: CellGridConfig,
                            tab: EAMTables, eflag: bool):
-    """Plain PyTorch version of the density kernel: (rho, fp, e_embed)."""
+    """The stencil oracle of the density pass: (rho, fp, e_embed) summed
+    over the 27-cell stencil."""
     rho = torch.zeros((cfg.nz, cfg.ny, cfg.nx, cfg.cap), dtype=x.dtype,
                       device=x.device)
     for _, _, r2, mask, _ in stencil_blocks(x, valid, box, cfg):
@@ -96,6 +99,19 @@ def eam_rho_cellgrid_plain(x, valid, box: Box, cfg: CellGridConfig,
         rho = rho + torch.sum(torch.where(inside, _value(tab.rhor[m], p),
                                           0.0), dim=-1)
     rho = rho.reshape(-1)
+    return (rho,) + embedding(rho, valid, tab, eflag)
+
+
+def eam_rho_pairlist_plain(x, valid, box: Box, tab: EAMTables, eflag: bool,
+                           pairs, npairs):
+    """Plain PyTorch version of the density kernel: (rho, fp, e_embed)
+    over the list's entries within the cutoff."""
+    from tpumd_torch.ops.cellgrid_pairlist import list_entries
+    i, _, _, r2 = list_entries(x, box, pairs, npairs)
+    inside = r2 < tab.cutsq
+    m, p = _index(torch.sqrt(r2[inside]), tab.dr, tab.nr)
+    rho = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device).index_add_(
+        0, i[inside], _value(tab.rhor[m], p))
     return (rho,) + embedding(rho, valid, tab, eflag)
 
 
@@ -143,7 +159,8 @@ def eam_force_pairlist_plain(x, fp, box: Box, tab: EAMTables, eflag: bool,
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _RHO_FN = {torch.float32: "tpumd_eam_rho_cellgrid_f32",
            torch.float64: "tpumd_eam_rho_cellgrid_f64"}
-_RHO_ARGTYPES = [_P] * 8 + [_I] * 6 + [_D] * 4 + [_I, _P]
+_RHO_ARGTYPES = ([_P] * 11 + [ctypes.c_longlong] * 2 + [_I] * 3 + [_D] * 4
+                 + [_I, _P])
 _FORCE_FN = {torch.float32: "tpumd_eam_force_cellgrid_f32",
              torch.float64: "tpumd_eam_force_cellgrid_f64"}
 _FORCE_ARGTYPES = ([_P] * 12 + [ctypes.c_longlong] * 2 + [_I, _I]
@@ -167,32 +184,50 @@ def _slot_vector(x, cfg):
 
 
 def eam_rho_cellgrid(x, valid, box: Box, cfg: CellGridConfig,
-                     tab: EAMTables, eflag: bool):
+                     tab: EAMTables, eflag: bool, plist):
     """Host density rho (Np,), embedding derivative fp (Np,; 0 in empty
     slots) and, with eflag, the embedding energy () of the valid slots
-    (else None), on the cell grid."""
+    (else None), over the grid's pair list plist = (pairs (Np, K), npairs
+    (Np,), rows (natoms,) the valid slots, the grid state's row2slot).
+    Raises without a list."""
+    check_list("eam_rho_cellgrid", plist, cfg.capacity, x.device)
+    pairs, npairs, rows = plist
     if x.device.type == "cpu":
         rho_counts.plain_calls += 1
-        return eam_rho_cellgrid_plain(x, valid, box, cfg, tab, eflag)
+        return eam_rho_pairlist_plain(x, valid, box, tab, eflag, pairs,
+                                      npairs)
     if x.device.type != "cuda":
         raise ValueError(f"eam_rho_cellgrid: no kernel for device "
                          f"{x.device}")
+    out = launch_rho(_build.kernel_function(_RHO_FN[x.dtype],
+                                            _RHO_ARGTYPES),
+                     x, valid, box, cfg, tab, eflag, plist)
+    rho_counts.kernel_launches += 1
+    return out
+
+
+def launch_rho(fn, x, valid, box: Box, cfg: CellGridConfig, tab: EAMTables,
+               eflag: bool, plist):
+    """Check the CUDA inputs and launch the library function fn (the
+    density kernel of x's dtype, bound with _RHO_ARGTYPES); the outputs of
+    eam_rho_cellgrid."""
     check_grid_inputs(x, valid, box, cfg, "eam_rho_cellgrid")
     _check_tables(x, tab, "eam_rho_cellgrid")
-    fn = _build.kernel_function(_RHO_FN[x.dtype], _RHO_ARGTYPES)
+    pairs, npairs, rows = plist
     rho, fp = _slot_vector(x, cfg), _slot_vector(x, cfg)
     eslot = _slot_vector(x, cfg) if eflag else None
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), valid.data_ptr(), box.lengths.data_ptr(),
+        rc = fn(x.data_ptr(), valid.data_ptr(), pairs.data_ptr(),
+                npairs.data_ptr(), rows.data_ptr(), box.lengths.data_ptr(),
                 tab.rhor.data_ptr(), tab.frho.data_ptr(), rho.data_ptr(),
                 fp.data_ptr(), None if eslot is None else eslot.data_ptr(),
-                cfg.nx, cfg.ny, cfg.nz, cfg.cap, tab.nr, tab.nrho,
-                1.0 / tab.dr, 1.0 / tab.drho, tab.rhomax, tab.cutsq,
-                int(eflag), torch.cuda.current_stream(x.device).cuda_stream)
+                cfg.capacity, rows.shape[0], pairs.shape[1], tab.nr,
+                tab.nrho, 1.0 / tab.dr, 1.0 / tab.drho, tab.rhomax,
+                tab.cutsq, int(eflag),
+                torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"eam_rho_cellgrid kernel launch failed: CUDA "
                            f"error {rc}")
-    rho_counts.kernel_launches += 1
     return rho, fp, (torch.sum(eslot) if eflag else None)
 
 
