@@ -36,6 +36,17 @@ line each (any failure raises and exits non-zero):
    no atom past skin/2 (the list untouched) and a rebuilding refresh (=
    the plain build), each timed beside its bound, with the host time a
    wrapper call takes to enqueue;
+   then the script layer: LAMMPS's bench/in.lj (``IN_LJ_BENCH``) through
+   LammpsScript with x, y and z 3, the path of ``python -m tpumd_torch -var
+   x 3 -var y 3 -var z 3``: 864,000 atoms in f32, the lj864 step-0 and
+   step-100 gates, a timed 500-step window, the launch counts of that run
+   (as for in.lj) and a profile of 100 steps, then B1 against its plain
+   list sweep and the list build against its plain build as arrays at that
+   shape, each timed beside its bound; ``python -m tpumd_torch -in in.lj
+   -var x 1 -var y 1 -var z 1 -log`` in a process of its own, its logged
+   rows behind in.lj's gates; and the drift protocol on the 32k drift deck
+   (shift yes, dt 0.001) in f64 (gate 1e-6) and f32 (gate 2e-4), in.lj's
+   own drift printed;
 5. main path, chain: a 500-atom chain deck on the card against the CPU (f64,
    RanMars langevin on both, step 40), then the 32k chain deck in f32 with
    the device RNG: step-0 and step-100 gates, 500 warm-up and 500 timed
@@ -69,7 +80,10 @@ line each (any failure raises and exits non-zero):
    evaluation, the build once per grid set-up and rebuild, the refresh
    launches and refreshes of delay 5), B5 over the final list against the
    stencil oracle in f64 on the final state, a profile of 100 steps, the
-   step's parts and the refresh's gate at the final state;
+   step's parts and the refresh's gate at the final state; then the
+   water_nve and water_shake goldens verbatim (dump lines included) in
+   f64, their dumped forces and last thermo row against the reference
+   binary's files, B5 launched once per force evaluation;
 8. main path, chute: the pair list build on each grid's p p fs box with
    the base-base pairs dropped against its plain build as arrays, and the
    gran/hooke/history kernel (B6) over the list against the plain list
@@ -965,6 +979,279 @@ def main_path(smi: str) -> dict:
     upkeep = time_upkeep("in.lj", sim)
     return {"launches": launches, "sps": sps, "build_launches": builds,
             "gates": gates, "refreshes": refreshes, "upkeep": upkeep}
+
+
+def list_lj_pairs(x, box, pairs, npairs, cutsq) -> int:
+    """Unordered in-cutoff pairs among a list's live code-0 entries,
+    counted in f64 over blocks of rows (the 864k list's entries do not fit
+    one gather)."""
+    from tpumd_torch.ops.cellgrid_pairlist import unpack
+    x, ell, n = x.double(), box.lengths.double(), 0
+    kk = max(int(npairs.max()), 1)
+    step = 1 << 17
+    for r0 in range(0, x.shape[0], step):
+        j, code = unpack(pairs[r0:r0 + step, :kk])
+        live = ((torch.arange(kk, device=x.device)[None, :]
+                 < npairs[r0:r0 + step, None].long()) & (code == 0))
+        i, col = torch.nonzero(live, as_tuple=True)
+        d = x[i + r0] - x[j[i, col].long()]
+        d = d - ell * torch.round(d / ell)
+        n += int(((d * d).sum(1) < cutsq).sum())
+    return n // 2
+
+
+def script_lj864_path(smi: str) -> dict:
+    """LAMMPS's bench/in.lj through LammpsScript with x, y and z 3 (the
+    path of python -m tpumd_torch -var x 3 -var y 3 -var z 3), 864,000
+    atoms in f32: the deck's own lines and its run 100, after a run 0 that
+    times the set-up; step-0 and step-100 gates; a timed 500-step window;
+    the launch counts of that run (B1 once per force evaluation, the list
+    build once per grid set-up and rebuild, the refresh once per step
+    without a re-bin); a profile of 100 steps; then B1 against its plain
+    list sweep and the list build against its plain build as arrays, at
+    this shape, each timed beside its bound."""
+    from tpumd_torch.bench_targets import IN_LJ_BENCH, SANITY, STEP0, \
+        STEP0_RTOL, gate_failures
+    from tpumd_torch.ops import lj_fene_cellgrid
+    from tpumd_torch.ops.lj_cellgrid import counts, lj_cellgrid, \
+        lj_pairlist_plain
+    from tpumd_torch.script.parser import LammpsScript
+    counts.reset()
+    lj_fene_cellgrid.counts.reset()
+    reset_list_counts()
+    pre, run = IN_LJ_BENCH.rsplit("\nrun", 1)
+    t0 = time.perf_counter()
+    script = LammpsScript(device="cuda", dtype=torch.float32,
+                          var_overrides={"x": 3, "y": 3, "z": 3})
+    script.run_string(pre)
+    sim = script.sim
+    sim.verbose = False
+    script.run_string("run 0")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    row0 = dict(sim.last_thermo)
+    script.run_string("run" + run)     # the deck's own run 100
+    row100 = dict(sim.last_thermo)
+    bad = gate_failures(row0, {k: (v, STEP0_RTOL)
+                               for k, v in STEP0["lj864"].items()}) \
+        + gate_failures(row100, SANITY["lj864"])
+    if sim.natoms != 864000 or row100["step"] != 100 or bad:
+        raise AssertionError(f"lj864: {sim.natoms} atoms, step "
+                             f"{row100['step']}, gates {bad}")
+    lt0 = sim.loop_time
+    script.run_string("run 500")
+    dt = sim.loop_time - lt0
+    launches, plain = counts.kernel_launches, counts.plain_calls
+    builds, gates, list_plain = list_counts()
+    plain += list_plain + lj_fene_cellgrid.counts.plain_calls
+    nbuilds = int(sim._carry[1].nbuilds)
+    force_evals = 1 + (100 + 1) + (500 + 1)
+    list_builds = sim.grid_setups + nbuilds - 1
+    unbinned = 600 - (nbuilds - 1)
+    if (launches != force_evals or plain or builds != list_builds
+            or gates != unbinned or lj_fene_cellgrid.counts.kernel_launches):
+        raise AssertionError(f"lj864: kernel launches {launches} != force "
+                             f"evaluations {force_evals}, or plain calls "
+                             f"{plain}, or list builds {builds} != "
+                             f"{list_builds}, or refresh launches {gates} != "
+                             f"{unbinned}")
+    s, neigh, _ = sim._carry
+    if (not torch.isfinite(s.x).all()
+            or int((s.tag > 0).sum()) != 864000
+            or int(s.tag.max()) != 864000):
+        raise AssertionError("lj864: final state malformed")
+    sps = 500 / dt
+    cfg = sim._neigh_cfg
+    phase("main", f"script lj864 (bench/in.lj, -var x 3 -var y 3 -var z 3) "
+                  f"f32: 864000 atoms, box {float(s.box.lengths[0]):.4f}, "
+                  f"grid {cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cap} "
+                  f"({cfg.capacity} slots), list K {sim._ctx.pairlist_k}; "
+                  f"set-up {setup_s:.3f} s; step 0 {row0['temp']!r} "
+                  f"{row0['epair']!r} {row0['etotal']!r} and step 100 "
+                  f"{row100['temp']!r} {row100['epair']!r} "
+                  f"{row100['etotal']!r} pass the lj864 gates")
+    phase("main", f"script lj864 timed 500 steps: {sps:.2f} timesteps/s, "
+                  f"{sps * 864000 / 1e6:.3f} Matom-step/s on {smi}; kernel "
+                  f"launches {launches} = force evaluations {force_evals}, "
+                  f"plain calls {plain}; " + upkeep_phrase(sim, builds, gates)
+                  + f"; longest row {int(neigh.max_pairs)}")
+    phase("main", "script lj864 " + profile_steps(script, 100, 1e3 / sps))
+    # B1 and the build at this shape (after the counts are read)
+    s, neigh, _ = sim._carry
+    c = sim.pair.kernel_coeffs()
+    plist = (neigh.pairs, neigh.npairs, neigh.row2slot)
+    fk = lj_cellgrid(s.x, neigh.valid, s.box, cfg, c, 0, 0, plist)[0]
+    fp = lj_pairlist_plain(s.x, s.box, c, 0, 0, neigh.pairs, neigh.npairs)[0]
+    err = check_close("lj864 B1 vs its plain list sweep", fk, fp, (), (),
+                      None, None, TOL_LIST[torch.float32], False, False)
+    del fp
+    plain_ms = cuda_ms(lambda: lj_pairlist_plain(
+        s.x, s.box, c, 0, 0, neigh.pairs, neigh.npairs), 2, ahead=False)
+    ms = min(cuda_ms(lambda: lj_cellgrid(s.x, neigh.valid, s.box, cfg, c, 0,
+                                         0, plist), 100) for _ in range(2))
+    nlj = list_lj_pairs(s.x, s.box, neigh.pairs, neigh.npairs, c.cutsq)
+    np_ = cfg.capacity
+    nbytes = np_ * (12 + 1 + 12) + 12
+    b_ms, b_by = bound(nlj, 0, nbytes)
+    floor_ms, _ = bound(nlj, 0, nbytes + list_floor_bytes(neigh, 864000))
+    phase("kernel", f"lj_cellgrid at the 864k shape, f32 forces, over the "
+                    f"run's list: = the plain list sweep to {err:.3g} max|f| "
+                    f"(tol {TOL_LIST[torch.float32]:g}); kernel {ms:.4f} ms, "
+                    f"plain list sweep {plain_ms:.4f} ms, "
+                    f"bound {b_ms:.6f} ms ({b_by}: {nlj} unordered in-cutoff "
+                    f"pairs, {nbytes} bytes), the list's floor "
+                    f"{floor_ms:.6f} ms")
+    h = neigh.list_hold
+    bargs = (s.x, neigh.valid, h.tag, h.stags, h.scodes, s.box, cfg,
+             sim._ctx.pairlist_k, h.gmask, h.exclude_bits)
+    build = time_build("lj864", bargs, plain_reps=1)
+    return {"sps": sps, "setup_s": setup_s, "b1_ms": ms, "b1_bound": b_ms,
+            "build": build}
+
+
+def script_cli_phase(tmp: Path):
+    """python -m tpumd_torch -in <bench/in.lj> -var x 1 -var y 1 -var z 1
+    -log <file> in a process of its own on the default device: its logged
+    step-0 and step-100 rows pass in.lj's gates (tools/bench_all.py:72,
+    85-86)."""
+    from tpumd_torch.bench_targets import IN_LJ_BENCH, SANITY, STEP0, \
+        STEP0_RTOL, gate_failures
+    deck, log = tmp / "in.lj", tmp / "log.cli"
+    deck.write_text(IN_LJ_BENCH)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "tpumd_torch", "-in", str(deck),
+                    "-var", "x", "1", "-var", "y", "1", "-var", "z", "1",
+                    "-log", str(log)], check=True, capture_output=True,
+                   timeout=300, cwd=Path(__file__).resolve().parent)
+    wall = time.perf_counter() - t0
+    lines = log.read_text().splitlines()
+    head = next(i for i, ln in enumerate(lines) if ln.startswith("Step"))
+    keys = {"Temp": "temp", "E_pair": "epair", "TotEng": "etotal"}
+    cols = lines[head].split()
+    rows = {}
+    for ln in lines[head + 1:head + 3]:
+        p = ln.split()
+        rows[int(p[0])] = {keys[c]: float(v) for c, v in zip(cols, p)
+                           if c in keys}
+    if sorted(rows) != [0, 100]:
+        raise AssertionError(f"script cli: logged rows {rows}")
+    bad = gate_failures(rows[0], {k: (v, STEP0_RTOL)
+                                  for k, v in STEP0["lj"].items()}) \
+        + gate_failures(rows[100], SANITY["lj"])
+    if bad:
+        raise AssertionError(f"script cli: gates {bad}")
+    perf = next(ln for ln in lines if ln.startswith("Performance"))
+    phase("main", f"script cli: python -m tpumd_torch -in in.lj -var x 1 "
+                  f"-var y 1 -var z 1 -log (CUDA by default) in {wall:.1f} s; "
+                  f"logged step 0 {rows[0]} and step 100 {rows[100]} pass "
+                  f"in.lj's gates; {perf}")
+
+
+def water_phase():
+    """tests/golden/water_nve and water_shake verbatim (dump lines
+    included) on the card in f64 in a temporary directory: the dumped
+    per-atom forces hold to the reference binary's dump.water at
+    atol 2e-4 max(1, |f|max), the last thermo row to its thermo.csv at
+    tests/test_golden_water.py:85-92's tolerances; B5 launched once per
+    force evaluation and the list built at the set-up, on the grid."""
+    import shutil
+    from tpumd_torch.ops import charmm_cellgrid
+    from tpumd_torch.script.parser import LammpsScript
+    golden = GOLDEN.parent
+    for name in ("water_nve", "water_shake"):
+        src = golden / name
+        with tempfile.TemporaryDirectory() as tmpdir:
+            shutil.copy(src / "data.water", tmpdir)
+            script = LammpsScript(device="cuda", dtype=torch.float64)
+            script.data_dir = tmpdir
+            pre, run = (src / "in.test").read_text().rsplit("\nrun", 1)
+            script.run_string(pre)
+            sim = script.sim
+            sim.verbose = False
+            charmm_cellgrid.counts.reset()
+            reset_list_counts()
+            script.run_string("run" + run)
+            launches = charmm_cellgrid.counts.kernel_launches
+            plain = charmm_cellgrid.counts.plain_calls
+            builds, _, list_plain = list_counts()
+            ours = dump_rows(Path(tmpdir) / "dump.water")
+        theirs = dump_rows(src / "dump.water")
+        nsteps = int(run.split()[0])
+        # set-up, each step, and the energies of each thermo row after it
+        evals = 1 + nsteps + nsteps // sim.thermo_every
+        if (not sim._ctx.is_cellgrid or launches != evals or plain
+                or list_plain or builds < 1):
+            raise AssertionError(f"{name}: grid {sim._ctx.is_cellgrid}, B5 "
+                                 f"launches {launches} != {evals}, plain "
+                                 f"calls {plain + list_plain}, list builds "
+                                 f"{builds}")
+        if sorted(ours) != sorted(theirs):
+            raise AssertionError(f"{name}: dump steps {sorted(ours)} vs "
+                                 f"{sorted(theirs)}")
+        worst = 0.0
+        for step, ref in theirs.items():
+            scale = max(1.0, float(np.abs(ref[:, 1:]).max()))
+            err = float(np.abs(ours[step][:, 1:] - ref[:, 1:]).max())
+            if not (ours[step][:, 0] == ref[:, 0]).all() \
+                    or err > 2e-4 * scale:
+                raise AssertionError(f"{name} step {step}: forces {err} > "
+                                     f"2e-4 * {scale}")
+            worst = max(worst, err / scale)
+        v = sim.last_thermo
+        last = np.loadtxt(src / "thermo.csv")[-1]
+        tols = {"temp": (1, 2e-5, 1e-7), "epair": (2, 2e-5, 0.0),
+                "emol": (3, 2e-5, 2e-5), "etotal": (4, 2e-5, 0.0),
+                "press": (5, 2e-4, 0.5), "vol": (6, 1e-6, 0.0)}
+        for k, (col, rtol, atol) in tols.items():
+            if not abs(v[k] - last[col]) <= max(rtol * abs(last[col]), atol):
+                raise AssertionError(f"{name} step {v['step']} {k}: {v[k]} "
+                                     f"vs {last[col]}")
+        phase("main", f"{name} verbatim on the card, f64: dumped forces at "
+                      f"steps {sorted(ours)} = dump.water to {worst:.3g} of "
+                      f"max(1, |f|max) (tol 2e-4), step {v['step']} thermo = "
+                      f"thermo.csv (temp {v['temp']!r}, epair {v['epair']!r},"
+                      f" etotal {v['etotal']!r}); B5 launches {launches} = "
+                      f"force evaluations, list builds {builds}, on the grid")
+
+
+def dump_rows(path: Path) -> dict:
+    """{step: rows sorted by ID} of a text dump."""
+    out, lines, i = {}, path.read_text().splitlines(), 0
+    while i < len(lines):
+        step, n = int(lines[i + 1]), int(lines[i + 3])
+        rows = np.array([ln.split() for ln in lines[i + 9:i + 9 + n]],
+                        np.float64)
+        out[step] = rows[np.argsort(rows[:, 0])]
+        i += 9 + n
+    return out
+
+
+def drift_phase():
+    """The drift protocol (bench_targets.measure_drift: 500 warm-up steps,
+    then max|E(t) - E0|/|E0| over 1,000 steps sampled every 100) on the
+    32k drift deck (in.lj with shift yes, dt 0.001) in f64, gated at
+    BASELINE.md's 1e-6, and in f32, gated at tools/bench_all.py:200's
+    2e-4; then in.lj's own drift in f32 and f64, printed, not gated."""
+    from tpumd_torch.bench_targets import DRIFT_TOL, IN_LJ, IN_LJ_DRIFT, \
+        measure_drift
+    from tpumd_torch.script.parser import LammpsScript
+    out = {}
+    for deck, name in ((IN_LJ_DRIFT, "drift"), (IN_LJ, "in.lj")):
+        for dtype, prec in ((torch.float64, "f64"), (torch.float32, "f32")):
+            script = LammpsScript(device="cuda", dtype=dtype)
+            script.run_string(deck.format(n=20))
+            script.sim.verbose = False
+            out[name, prec] = measure_drift(script)
+    bad = {p: out["drift", p] for p in ("f64", "f32")
+           if not out["drift", p] <= DRIFT_TOL[p]}
+    phase("main", f"drift, 32,000 atoms, 1,000 steps after 500: the drift "
+                  f"deck f64 {out['drift', 'f64']:.4e} (gate "
+                  f"{DRIFT_TOL['f64']:g}), f32 {out['drift', 'f32']:.4e} "
+                  f"(gate {DRIFT_TOL['f32']:g}); in.lj as published, not "
+                  f"gated: f64 {out['in.lj', 'f64']:.4e}, f32 "
+                  f"{out['in.lj', 'f32']:.4e}")
+    if bad:
+        raise AssertionError(f"drift over its gate: {bad}")
 
 
 def small_chain_card_vs_cpu(tmp: Path):
@@ -2402,6 +2689,9 @@ def main():
         k_fene = fene_kernel_vs_plain(tmp)
         small_deck_card_vs_cpu()
         m_lj = main_path(smi)
+        script_lj864_path(smi)
+        script_cli_phase(tmp)
+        drift_phase()
         small_chain_card_vs_cpu(tmp)
         m_fene = chain_main_path(tmp, smi)
         k_rho, k_force = eam_kernels_vs_plain(tmp)
@@ -2410,6 +2700,7 @@ def main():
     k_charmm, k_list = charmm_kernel_vs_plain(log)
     small_rhodo_card_vs_cpu()
     m_charmm = rhodo_main_path(smi)
+    water_phase()
     with tempfile.TemporaryDirectory() as tmpdir:
         tmp = Path(tmpdir)
         k_gran = gran_kernel_vs_plain(tmp, log)

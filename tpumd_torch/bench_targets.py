@@ -1,10 +1,11 @@
 """Thermo gates of the benchmark decks.
 
-The in.lj gates are copied from tools/bench_all.py (which imports jax) so
-that the port's chip check needs no JAX.  The chain deck's published data
-file is not in the repository, so ``chain_data`` makes a system of its
-published size and density from a seed, and its gates are tpumd's own
-results on that system.  Likewise the eam deck's published potential
+The in.lj and lj864 gates and the drift protocol are copied from
+tools/bench_all.py (which imports jax) so that the port's chip check needs
+no JAX; ``IN_LJ_BENCH`` is LAMMPS's bench/in.lj as published.  The chain
+deck's published data file is not in the repository, so ``chain_data``
+makes a system of its published size and density from a seed, and its
+gates are tpumd's own results on that system.  Likewise the eam deck's published potential
 (Cu_u3.eam): ``eam_funcfl`` writes a Cu-like one from analytic functions.
 The rhodo_class deck's inputs are in the repository (the peptide example),
 and its gates are the reference binary's rows.  The chute deck's data file
@@ -21,14 +22,52 @@ STEP0_RTOL = 1e-4
 # tools/bench_all.py:72 -- step-0 row of the reference log of in.lj
 STEP0 = {
     "lj": {"temp": 1.44, "epair": -6.7733681, "etotal": -4.6134356},
+    "lj864": {"temp": 1.44, "epair": -6.7733681, "etotal": -4.6133706},
 }
 
-# tools/bench_all.py:85-86 -- step-100 row of the reference log of in.lj:
-# {key: (target, relative tolerance)}
+# tools/bench_all.py:85-86,97-98 -- step-100 rows of the reference logs
+# of in.lj and of the 864k melt: {key: (target, relative tolerance)}
 SANITY = {
     "lj": {"temp": (0.7574531, 3e-3), "epair": (-5.7585055, 1e-3),
            "etotal": (-4.6223613, 1e-3)},
+    "lj864": {"temp": (0.75926567, 3e-3), "epair": (-5.7611846, 1e-3),
+              "etotal": (-4.6222874, 1e-3)},
 }
+
+# LAMMPS bench/in.lj, verbatim: x, y and z are index variables, so that
+# -var x 3 -var y 3 -var z 3 makes the 864,000-atom melt (lj864) and the
+# defaults the 32,000-atom one
+IN_LJ_BENCH = """# 3d Lennard-Jones melt
+
+variable\tx index 1
+variable\ty index 1
+variable\tz index 1
+
+variable\txx equal 20*$x
+variable\tyy equal 20*$y
+variable\tzz equal 20*$z
+
+units\t\tlj
+atom_style\tatomic
+
+lattice\t\tfcc 0.8442
+region\t\tbox block 0 ${xx} 0 ${yy} 0 ${zz}
+create_box\t1 box
+create_atoms\t1 box
+mass\t\t1 1.0
+
+velocity\tall create 1.44 87287 loop geom
+
+pair_style\tlj/cut 2.5
+pair_coeff\t1 1 1.0 1.0 2.5
+
+neighbor\t0.3 bin
+neigh_modify\tdelay 0 every 20 check no
+
+fix\t\t1 all nve
+
+run\t\t100
+"""
 
 # tools/bench_all.py:37-51 -- in.lj with a region of {n}^3 fcc cells
 # (n = 20: 32,000 atoms)
@@ -47,6 +86,34 @@ neighbor        0.3 bin
 neigh_modify    delay 0 every 20 check no
 fix             1 all nve
 """
+
+
+# The drift deck: in.lj with pair_modify shift yes and timestep 0.001,
+# run under the protocol of tools/bench_all.py:183-205 (measure_drift).
+# Of the in.lj variants the re-anchor measured (ROADMAP A3), only this
+# one holds BASELINE.md's 1e-6 in f64; its 1,000 steps cover 1 tau (in.lj's
+# 1,000 steps cover 5).
+IN_LJ_DRIFT = IN_LJ + """pair_modify     shift yes
+timestep        0.001
+"""
+DRIFT_WARMUP, DRIFT_STEPS, DRIFT_EVERY = 500, 1000, 100
+# BASELINE.md's target (f64), and tools/bench_all.py:200's bound for an
+# accelerator's f32
+DRIFT_TOL = {"f64": 1e-6, "f32": 2e-4}
+
+
+def measure_drift(script) -> float:
+    """max|E(t) - E0| / |E0| of etotal over DRIFT_STEPS steps, sampled
+    every DRIFT_EVERY, after DRIFT_WARMUP steps (tools/bench_all.py:
+    183-205); script is a LammpsScript that has read a deck with no
+    run."""
+    script.run_string(f"run {DRIFT_WARMUP}\nrun 0")
+    e0 = float(script.sim.last_thermo["etotal"])
+    emax = 0.0
+    for _ in range(DRIFT_STEPS // DRIFT_EVERY):
+        script.run_string(f"run {DRIFT_EVERY}")
+        emax = max(emax, abs(float(script.sim.last_thermo["etotal"]) - e0))
+    return emax / abs(e0)
 
 
 # LAMMPS bench/in.chain (tests/test_replicate.py:10-26 plus its thermostat

@@ -5,6 +5,11 @@ from __future__ import annotations
 
 import torch
 
+# the computes the reference's Thermo creates, by the thermo keyword that
+# holds their scalar (src/thermo.cpp:131-150)
+THERMO_COMPUTES = {"thermo_temp": "temp", "thermo_pe": "pe",
+                   "thermo_press": "press"}
+
 
 def temperature(v, mass_per_atom, dof, boltz, mvv2e):
     """Instantaneous temperature; dof already includes -extra_dof -fix_dof."""

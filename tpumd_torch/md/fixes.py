@@ -71,6 +71,8 @@ class FixNVE(Fix):
     """Velocity-Verlet kick-drift / kick (src/fix_nve.cpp:64-143), on
     group all only."""
 
+    name = "nve"
+
     @staticmethod
     def _dtfm(ctx, s):
         dtf = 0.5 * ctx.dt * ctx.units.ftm2v

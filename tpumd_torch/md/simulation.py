@@ -31,6 +31,7 @@ import torch
 
 from tpumd_torch.core.state import MDState, map_per_atom, wrap_pbc
 from tpumd_torch.md import computes
+from tpumd_torch.md.computes import THERMO_COMPUTES
 from tpumd_torch.md.verlet import ENERGY_KEYS, StepContext, build_matrix, \
     eval_energies, grid_pairlist, pack_thermo, run_segment
 from tpumd_torch.ops import cellgrid as cg
@@ -41,7 +42,9 @@ from tpumd_torch.utils.units import Units, get_units
 THERMO_KEYS = ("step", "temp", "epair", "emol", "pe", "ke", "etotal",
                "press", "vol", "lx", "ly", "lz", "atoms", "density") \
     + ENERGY_KEYS
-# thermo_style custom also takes c_ID, the scalar of compute ID
+# thermo_style custom also takes c_ID (the scalar of compute ID, or of
+# the reference's thermo computes), v_name and f_ID[i]
+# (Simulation._thermo_value)
 
 # the barostat's first cell margin, widened 10 % per violation
 # (tpumd/md/simulation.py:154-158, :1429)
@@ -124,6 +127,13 @@ class Simulation:
         self.last_thermo: dict | None = None
         self.loop_time = 0.0
         self.loop_steps = 0
+        self.script = None             # the LammpsScript, for v_ columns
+        self.dumps: list = []          # io.dump.Dump, in command order
+        self.log_fh = None             # the log command's file
+        # the timer command's timeout (src/timer.cpp): a wall-clock limit
+        # in seconds from the first run, checked at segment boundaries
+        self.timer_timeout = None
+        self._wall_start = None
 
     # ------------------------------------------------------------------ setup
     @property
@@ -681,9 +691,11 @@ class Simulation:
             s, neigh, fstates = self._carry
             if self._ctx.is_cellgrid:
                 self._refreshes += self._grid_refreshes(neigh)
-            # fixes that survive keep their state across the re-setup
-            self._fstate_stash = {id(fx): fs for fx, fs
-                                  in zip(self._ctx.fixes, fstates)}
+            # fixes that survive keep their state across the re-setup (an
+            # unfixed or replaced fix's goes: its id() may be reused)
+            self._fstate_stash = {
+                id(fx): fs for fx, fs in zip(self._ctx.fixes, fstates)
+                if any(fx is kept for kept in self.fixes)}
             self.state = (cg.compact_state(s, neigh.valid, self.natoms)
                           if self._ctx.is_cellgrid else s)
         self._ctx = None
@@ -713,22 +725,29 @@ class Simulation:
 
     # ------------------------------------------------------------------ run
     def run(self, nsteps: int):
+        """Run nsteps in segments that end at thermo and dump steps (the
+        reference's Output::next, src/output.cpp); the device is read once
+        a segment, and the energies are evaluated only where a thermo row
+        prints."""
         if self._ctx is None:
             self.setup()
         ctx = self._ctx
         self._thermo_header()
         self._thermo_line()  # setup thermo at current step
+        self._write_dumps(setup=True)
         target = self.step + nsteps
         s0, neigh0, fstates0 = self._carry
         self._carry = (s0, neigh0, tuple(
             fx.pre_run(fs, self.step, target) if hasattr(fx, "pre_run")
             else fs for fx, fs in zip(self.fixes, fstates0)))
         t0 = time.perf_counter()
+        if self._wall_start is None:
+            self._wall_start = t0
         while self.step < target:
             nxt = target
-            if self.thermo_every > 0:
-                nxt = min(nxt, (self.step // self.thermo_every + 1)
-                          * self.thermo_every)
+            for every in [self.thermo_every] + [d.every for d in self.dumps]:
+                if every > 0:
+                    nxt = min(nxt, (self.step // every + 1) * every)
             seg = nxt - self.step
             xs = [fx.segment_inputs(seg, ctx, self._carry[0])
                   for fx in self.fixes]
@@ -755,23 +774,35 @@ class Simulation:
                 ctx = self._revalidate_geometry()
             s, neigh, fstates = self._carry
             self.state = s
-            # carry keeps the in-step f; this eval only refreshes energies
-            # and the virial for thermo
-            _, self._last_energies, virial, _, _ = eval_energies(s, neigh,
-                                                                 ctx)
-            for fx, fs in zip(self.fixes, fstates):
-                if fx.contributes_virial:
-                    virial = virial + fx.virial_contrib(fs)
-            self._last_virial = virial
             if self.step == target or (self.thermo_every > 0 and
                                        self.step % self.thermo_every == 0):
+                # carry keeps the in-step f; this eval only refreshes
+                # energies and the virial for thermo
+                _, self._last_energies, virial, _, _ = eval_energies(
+                    s, neigh, ctx)
+                for fx, fs in zip(self.fixes, fstates):
+                    if fx.contributes_virial:
+                        virial = virial + fx.virial_contrib(fs)
+                self._last_virial = virial
                 self._thermo_line()
+            self._write_dumps()
+            if self.timer_timeout is not None and \
+                    time.perf_counter() - self._wall_start > \
+                    self.timer_timeout:
+                self._log("Wall time limit reached")
+                nsteps -= target - self.step
+                break
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         elapsed = time.perf_counter() - t0
         self.loop_time += elapsed
         self.loop_steps += nsteps
         self._finish_report(elapsed, nsteps)
+
+    def _write_dumps(self, setup: bool = False):
+        for d in self.dumps:
+            if d.due(self.step, setup):
+                d.write(self)
 
     def _segment_flags(self, neigh) -> tuple[bool, bool]:
         """(cell or list overflow, some atom's KH history entries all in
@@ -882,8 +913,10 @@ class Simulation:
 
     # ------------------------------------------------------------------ thermo
     def _thermo_computes(self) -> list[str]:
-        """The compute IDs that thermo_style reads (c_ID columns)."""
-        ids = [k[2:] for k in self.thermo_style if k.startswith("c_")]
+        """The compute IDs whose scalars thermo_style reads (c_ID columns
+        of the deck's own computes), packed into the thermo row."""
+        ids = [k[2:] for k in self.thermo_style if k.startswith("c_")
+               and "[" not in k and k[2:] not in THERMO_COMPUTES]
         for cid in ids:
             if cid not in self.computes:
                 raise ValueError(f"thermo_style c_{cid}: no compute {cid}")
@@ -986,14 +1019,46 @@ class Simulation:
                         for k in self.thermo_style)
         self._log(line.rstrip())
 
+    def _thermo_value(self, vals, key):
+        """A thermo_style custom column (tpumd/md/simulation.py:1605-1646):
+        a keyword, c_ID (the scalar packed into the row, or one of the
+        reference's thermo computes), v_name (an equal-style variable,
+        evaluated on this row) or f_ID[i] (a fix's output)."""
+        if key in vals:
+            return vals[key]
+        name, idx = key[2:], None
+        if "[" in name:
+            name, rest = name.split("[", 1)
+            idx = int(rest.rstrip("]")) - 1
+        if key.startswith("c_") and idx is None and name in THERMO_COMPUTES:
+            return vals[THERMO_COMPUTES[name]]
+        if key.startswith("v_") and idx is None:
+            return float(self.script.evaluate_variable(name))
+        if key.startswith("f_"):
+            for fx in self.fixes:
+                if fx.id == name and hasattr(fx, "output"):
+                    out = fx.output(self)
+                    return float(out if idx is None else
+                                 np.asarray(out)[idx])
+            raise ValueError(f"thermo_style {key}: no fix {name} with "
+                             "an output")
+        raise ValueError(f"thermo_style {key}: a compute vector is not "
+                         "ported")
+
     def _thermo_line(self):
         vals = self.thermo_values()
-        parts = [f"{vals[k]:8d}" if k == "step" else f"{vals[k]:12.8g}"
-                 for k in self.thermo_style]
+        parts = []
+        for k in self.thermo_style:
+            v = self._thermo_value(vals, k)
+            vals[k] = v     # custom columns land in last_thermo too
+            parts.append(f"{v:8d}" if k == "step" else f"{v:12.8g}")
         self._log(" ".join(parts))
 
     def _log(self, line: str):
         self.log_lines.append(line)
+        if self.log_fh is not None:
+            self.log_fh.write(line + "\n")
+            self.log_fh.flush()
         if self.verbose:
             print(line, flush=True)
 

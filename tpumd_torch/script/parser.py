@@ -1,16 +1,20 @@
 """LAMMPS-dialect input-script front end for the port.
 
-The command subset of tpumd/script/parser.py (the reference's Input
-interpreter, src/input.cpp) that the LJ-melt, chain, eam, rhodo_class and
-chute decks use: line continuation (&), comment stripping and an
-order-sensitive command state machine driving a ``Simulation``.  Styles named before
-read_data are made once it has set the type counts.  Any other command
-raises NotImplementedError naming itself.
+The port of tpumd/script/parser.py (the reference's Input interpreter,
+src/input.cpp:195 file loop, :382 line parse, :764 dispatch): line
+continuation (&), comment stripping, ``$x``/``${name}`` variable
+substitution, a program counter per script frame so that ``jump``,
+``label`` and ``next`` can loop, and an order-sensitive command state
+machine driving a ``Simulation``.  Styles named before read_data are made
+once it has set the type counts.  Any other command raises
+NotImplementedError naming itself.
 """
 
 from __future__ import annotations
 
 import os
+import re
+import subprocess
 
 import numpy as np
 import torch
@@ -22,7 +26,10 @@ from tpumd_torch.core.lattice import Lattice
 from tpumd_torch.core.region import BlockRegion
 from tpumd_torch.core.state import Box, make_state, map_per_atom
 from tpumd_torch.core.velocity_cmd import velocity_create_geom
+from tpumd_torch.io.dump import Dump
 from tpumd_torch.io.read_data import build_special, read_data
+from tpumd_torch.io.restart import read_restart, write_data, \
+    write_restart
 from tpumd_torch.md.fix_langevin import FixLangevin
 from tpumd_torch.md.fix_nh import FixNH
 from tpumd_torch.md.computes import ComputeERotateSphere
@@ -34,6 +41,8 @@ from tpumd_torch.md.simulation import THERMO_KEYS, Simulation, \
 from tpumd_torch.models.kspace_pppm import PPPM
 from tpumd_torch.models.registry import create_bonded_style, \
     create_pair_style
+from tpumd_torch.utils.ranpark import geom_uniform_triplets
+from tpumd_torch.script.formula import Formula, SimFormulaContext
 
 BONDED_KINDS = ("bond", "angle", "dihedral", "improper")
 
@@ -47,9 +56,12 @@ class LammpsScript:
     the given device, in the given float dtype.  Asking for CUDA on a
     machine without a card raises here.  Relative data-file and potential
     paths resolve against the deck's directory under ``run_file``, else the
-    working directory."""
+    working directory.  ``var_overrides`` are the command line's ``-var``
+    values: index variables that the deck's own ``variable ... index``
+    lines do not overwrite."""
 
-    def __init__(self, *, device="cuda", dtype=torch.float32):
+    def __init__(self, *, device="cuda", dtype=torch.float32,
+                 var_overrides=None):
         self.device = resolve_device(device)
         self.dtype = dtype
         self.data_dir = "."
@@ -65,6 +77,17 @@ class LammpsScript:
         self._atoms_x: list[np.ndarray] = []
         self._atoms_type: list[np.ndarray] = []
         self._units_name = "lj"
+        self.echo = False
+        # name -> (style, value)
+        self.variables: dict[str, tuple] = {}
+        for k, v in (var_overrides or {}).items():
+            self.variables[k] = ("index", str(v))
+        # script control flow (Input::file/jump, src/input.cpp)
+        self._frames: list[dict] = []   # program counter stack
+        self._skip_jump = False         # set when `next` exhausts a var
+        self._var_lists: dict[str, tuple] = {}   # index/loop value lists
+        self._atomfiles: dict[str, tuple] = {}   # name -> (sections, pos)
+        self._python_funcs: dict[str, dict] = {}  # python command registry
 
     # -------------------------------------------------------------- plumbing
     def run_file(self, path: str):
@@ -74,6 +97,9 @@ class LammpsScript:
 
     @staticmethod
     def _to_logical(text: str):
+        """Logical lines: & joins a line to the next, # starts a comment
+        (also inside quotes, as tpumd cuts it; the reference keeps a
+        quoted #)."""
         logical = []
         cont = ""
         for raw in text.splitlines():
@@ -88,13 +114,72 @@ class LammpsScript:
         return logical
 
     def run_string(self, text: str):
-        for line in self._to_logical(text):
-            self.execute(line)
+        self._run_program(self._to_logical(text))
+
+    def _run_program(self, lines):
+        """Program-counter-driven execution, so that jump, label and next
+        can loop (Input::file, src/input.cpp)."""
+        frame = {"lines": lines, "pc": 0}
+        self._frames.append(frame)
+        try:
+            while frame["pc"] < len(frame["lines"]):
+                line = frame["lines"][frame["pc"]]
+                frame["pc"] += 1
+                self.execute(line)
+        finally:
+            self._frames.pop()
+
+    def substitute(self, line: str) -> str:
+        """$x and ${name} replaced by the variables' values
+        (Input::substitute, src/input.cpp)."""
+        def repl(m):
+            return self._var_value(m.group(1) or m.group(2))
+        return re.sub(r"\$\{(\w+)\}|\$(\w)", repl, line)
+
+    def _var_value(self, name: str) -> str:
+        if name not in self.variables:
+            raise ScriptError(f"Substitution for undefined variable {name!r}")
+        style, value = self.variables[name]
+        if style in ("equal", "internal"):
+            v = float(self.evaluate_variable(name))
+            return repr(int(v)) if v == int(v) else repr(v)
+        if style == "world":
+            return value[0]   # one world: the first value
+        if style in ("format", "getenv", "python"):
+            return str(self.evaluate_variable(name))
+        if style == "atomfile":
+            raise ScriptError(
+                f"cannot substitute atomfile variable {name!r} inline")
+        return value
+
+    @staticmethod
+    def _split(line: str):
+        """Whitespace split honoring double-quoted groups (Input::parse)."""
+        out, cur, q = [], [], False
+        for ch in line:
+            if ch == '"':
+                q = not q
+                continue
+            if ch.isspace() and not q:
+                if cur:
+                    out.append("".join(cur))
+                    cur = []
+            else:
+                cur.append(ch)
+        if cur:
+            out.append("".join(cur))
+        return out
 
     def execute(self, line: str):
-        args = line.split()
-        if not args:
+        line = line.strip()
+        if not line:
             return
+        # a fix print string is substituted when it prints, not here
+        if not line.startswith("fix") or " print " not in line:
+            line = self.substitute(line).strip()
+        if self.echo:
+            print(line, flush=True)
+        args = self._split(line)
         cmd, args = args[0], args[1:]
         handler = getattr(self, "cmd_" + cmd.replace("/", "_"), None)
         if handler is None:
@@ -106,7 +191,386 @@ class LammpsScript:
         if self.sim is None:
             self.sim = Simulation(units=self._units_name, device=self.device,
                                   dtype=self.dtype)
+        self.sim.script = self
         return self.sim
+
+    def _path(self, name: str) -> str:
+        """A file named in the deck: relative to the deck's directory."""
+        return name if os.path.isabs(name) else os.path.join(self.data_dir,
+                                                             name)
+
+    # ------------------------------------------------------ variables, flow
+    def cmd_variable(self, a):
+        """variable name style args (src/variable.cpp Variable::set;
+        tpumd/script/parser.py:191-229): index and loop keep their first
+        definition (so -var values win), the others are redefined."""
+        name, style = a[0], a[1]
+        if style == "index":
+            if name not in self.variables:
+                self.variables[name] = ("index", a[2])
+                self._var_lists[name] = (list(a[2:]), 0)
+        elif style in ("equal", "string", "atom", "internal"):
+            self.variables[name] = (style, " ".join(a[2:]))
+        elif style == "world":
+            self.variables[name] = ("world", a[2:])
+        elif style == "loop":
+            if name not in self.variables:
+                n = int(a[2])
+                self.variables[name] = ("index", "1")
+                self._var_lists[name] = (
+                    [str(i) for i in range(1, n + 1)], 0)
+        elif style == "format":
+            # variable x format v_src %fmt (src/variable.h FORMAT)
+            self.variables[name] = ("format", (a[2].removeprefix("v_"),
+                                               a[3]))
+        elif style == "getenv":
+            self.variables[name] = ("getenv", a[2])
+        elif style == "python":
+            self.variables[name] = ("python", a[2])
+        elif style == "atomfile":
+            self._atomfiles[name] = (self._read_atomfile(self._path(a[2])),
+                                     0)
+            self.variables[name] = ("atomfile", a[2])
+        elif style == "delete":
+            self.variables.pop(name, None)
+            self._var_lists.pop(name, None)
+            self._atomfiles.pop(name, None)
+        else:
+            raise NotImplementedError(
+                f"variable style {style!r} is not ported")
+
+    @staticmethod
+    def _read_atomfile(path):
+        """Every section of an atomfile variable's file (Variable::reader
+        ATOMFILE, src/variable.cpp): a count line, then 'ID value' rows;
+        values default to 0."""
+        with open(path) as fh:
+            toks = [ln.split("#", 1)[0].split() for ln in fh]
+        toks = [t for t in toks if t]
+        sections = []
+        i = 0
+        while i < len(toks):
+            n = int(toks[i][0])
+            sections.append({int(t[0]): float(t[1])
+                             for t in toks[i + 1:i + 1 + n]})
+            i += 1 + n
+        return sections
+
+    def _atomfile_values(self, name):
+        """The atomfile variable's current section as an (natoms,) array
+        in tag order."""
+        sections, pos = self._atomfiles[name]
+        self._finalize_atoms()
+        n = self.sim.natoms
+        out = np.zeros(n)
+        for tag, val in sections[pos].items():
+            if 1 <= tag <= n:
+                out[tag - 1] = val
+        return out
+
+    def evaluate_variable(self, name: str):
+        """A variable's value: float, (natoms,) array in tag order, or str
+        (Variable::evaluate / compute_equal / compute_atom)."""
+        if name not in self.variables:
+            raise ScriptError(f"undefined variable {name!r}")
+        style, value = self.variables[name]
+        if style in ("index", "string"):
+            return value
+        if style == "world":
+            return value[0]
+        if style == "getenv":
+            return os.environ.get(value, "")
+        if style == "format":
+            src, fmt = value
+            return fmt % float(self.evaluate_variable(src))
+        if style == "python":
+            return self._python_call(value)
+        if style == "atomfile":
+            return self._atomfile_values(name)
+        f = Formula(self.substitute(value))
+        return f.evaluate(SimFormulaContext(self.sim, self))
+
+    def cmd_label(self, a):
+        pass
+
+    def cmd_next(self, a):
+        """next var1 [var2 ...]: advance index, loop and atomfile
+        variables; an exhausted one is deleted and the next jump is
+        skipped (Variable::next, src/variable.cpp)."""
+        exhausted = False
+        for name in a:
+            if name in self._var_lists:
+                vals, pos = self._var_lists[name]
+                pos += 1
+                if pos >= len(vals):
+                    self.variables.pop(name, None)
+                    self._var_lists.pop(name, None)
+                    exhausted = True
+                else:
+                    self._var_lists[name] = (vals, pos)
+                    self.variables[name] = ("index", vals[pos])
+            elif name in self._atomfiles:
+                secs, pos = self._atomfiles[name]
+                pos += 1
+                if pos >= len(secs):
+                    self.variables.pop(name, None)
+                    self._atomfiles.pop(name, None)
+                    exhausted = True
+                else:
+                    self._atomfiles[name] = (secs, pos)
+            else:
+                raise ScriptError(f"next on non-index variable {name!r}")
+        if exhausted:
+            self._skip_jump = True
+
+    def cmd_jump(self, a):
+        """jump SELF|file [label] (Input::jump, src/input.cpp): the running
+        frame goes on from the top of this file or another one, or from
+        the label there."""
+        if self._skip_jump:
+            self._skip_jump = False
+            return
+        if not self._frames:
+            raise ScriptError("jump outside a running script")
+        frame = self._frames[-1]
+        if a[0] != "SELF":
+            with open(self._path(a[0])) as fh:
+                frame["lines"] = self._to_logical(fh.read())
+        # from the top of the file (the reference rewinds it; tpumd goes on
+        # after a label-less jump SELF, ROADMAP C10), then to the label
+        frame["pc"] = 0
+        if len(a) > 1:
+            for i, ln in enumerate(frame["lines"]):
+                t = ln.split()
+                if len(t) >= 2 and t[0] == "label" and t[1] == a[1]:
+                    frame["pc"] = i
+                    break
+            else:
+                raise ScriptError(f"label {a[1]!r} not found")
+
+    def cmd_if(self, a):
+        """if "cond" then "cmd"... [elif "cond" "cmd"...] [else "cmd"...]
+        (Input::ifthenelse, src/input.cpp); a condition is a formula, or
+        a string comparison where a side is not a number."""
+        def truthy(cond):
+            text = self.substitute(cond)
+            m = re.fullmatch(r"\s*(\S+)\s*(==|!=)\s*(\S+)\s*", text)
+            if m:
+                lhs, op, rhs = m.groups()
+                try:
+                    float(lhs), float(rhs)
+                except ValueError:
+                    return (lhs == rhs) == (op == "==")
+            ctx = SimFormulaContext(self.sim, self)
+            return float(Formula(text).evaluate(ctx)) != 0
+
+        i = 0
+        taken = False
+        while i < len(a):
+            if i == 0 or a[i] == "elif":
+                cond = a[i + 1] if a[i] == "elif" else a[0]
+                j = i + (2 if a[i] == "elif" else 1)
+                if a[j] == "then":
+                    j += 1
+                cmds = []
+                while j < len(a) and a[j] not in ("elif", "else"):
+                    cmds.append(a[j])
+                    j += 1
+                if not taken and truthy(cond):
+                    taken = True
+                    for c in cmds:
+                        self.execute(c)
+                i = j
+            elif a[i] == "else":
+                if not taken:
+                    for c in a[i + 1:]:
+                        self.execute(c)
+                return
+            else:
+                raise ScriptError(f"if: unexpected token {a[i]!r}")
+
+    def cmd_include(self, a):
+        with open(self._path(a[0])) as fh:
+            self._run_program(self._to_logical(fh.read()))
+
+    def cmd_shell(self, a):
+        """shell cd/mkdir/rm/putenv, else an external command
+        (Input::shell, src/input.cpp)."""
+        op = a[0]
+        if op == "cd":
+            os.chdir(a[1])
+        elif op == "mkdir":
+            for d in a[1:]:
+                os.makedirs(d, exist_ok=True)
+        elif op == "rm":
+            for f in a[1:]:
+                if os.path.exists(f):
+                    os.remove(f)
+        elif op == "putenv":
+            for kv in a[1:]:
+                k, _, v = kv.partition("=")
+                os.environ[k] = v
+        else:
+            subprocess.run(a, check=False)
+
+    def cmd_python(self, a):
+        """python func input N args... return v_x format str
+        {file f.py | here "src" | exists} (src/python.cpp): registers a
+        Python function that python-style variables call."""
+        fname = a[0]
+        spec = {"inputs": [], "return": None, "format": None}
+        src = None
+        i = 1
+        while i < len(a):
+            k = a[i]
+            if k == "input":
+                n = int(a[i + 1])
+                spec["inputs"] = list(a[i + 2:i + 2 + n])
+                i += 2 + n
+            elif k == "return":
+                spec["return"] = a[i + 1].removeprefix("v_")
+                i += 2
+            elif k == "format":
+                spec["format"] = a[i + 1]
+                i += 2
+            elif k == "file":
+                with open(self._path(a[i + 1])) as fh:
+                    src = fh.read()
+                i += 2
+            elif k == "here":
+                src = a[i + 1]
+                i += 2
+            elif k == "exists":
+                i += 1
+            else:
+                raise NotImplementedError(
+                    f"python keyword {k!r} is not ported")
+        ns = self._python_funcs.setdefault("_ns", {})
+        if src is not None:
+            exec(src, ns)
+        if fname not in ns:
+            raise ScriptError(f"python function {fname!r} not defined")
+        spec["func"] = ns[fname]
+        self._python_funcs[fname] = spec
+
+    def _python_call(self, fname):
+        spec = self._python_funcs.get(fname)
+        if spec is None:
+            raise ScriptError(f"python function {fname!r} not registered")
+        args = []
+        for tok in spec["inputs"]:
+            if tok.startswith("v_"):
+                args.append(self.evaluate_variable(tok[2:]))
+            elif tok == "SELF":
+                args.append(self)
+            else:
+                try:
+                    args.append(float(tok) if "." in tok or "e" in tok
+                                else int(tok))
+                except ValueError:
+                    args.append(tok)
+        out = spec["func"](*args)
+        fmt = spec["format"]
+        if fmt:
+            return {"i": int, "f": float, "s": str}.get(fmt[-1],
+                                                         lambda v: v)(out)
+        return out
+
+    def cmd_print(self, a):
+        print(" ".join(a).strip('"'), flush=True)
+
+    def cmd_echo(self, a):
+        """echo none|screen|log|both: screen and both print each command
+        as it executes, after substitution (the port's log file gets
+        thermo and run reports only)."""
+        if a[0] not in ("none", "screen", "log", "both"):
+            raise ScriptError(f"echo {a[0]!r}: none, screen, log or both")
+        self.echo = a[0] in ("screen", "both")
+
+    def cmd_log(self, a):
+        """log file|none [append] (src/lammps.cpp:557): thermo and the
+        run reports go to a new log file from here on."""
+        sim = self._require_sim()
+        if sim.log_fh is not None:
+            sim.log_fh.close()
+            sim.log_fh = None
+        if a[0] != "none":
+            sim.log_fh = open(self._path(a[0]),
+                              "a" if "append" in a[1:] else "w")
+
+    def cmd_timer(self, a):
+        """timer full|normal|loop|off [sync|nosync] [timeout HH:MM:SS|off]
+        [every N] (Timer::modify_params, src/timer.cpp:228-281): the
+        timeout stops a run at a segment boundary, where the port checks
+        it whatever every says; the port keeps no per-part timers, so the
+        levels and sync change nothing."""
+        sim = self._require_sim()
+        i = 0
+        while i < len(a):
+            tok = a[i]
+            if tok in ("full", "normal", "loop", "off", "sync", "nosync"):
+                pass
+            elif tok == "timeout":
+                i += 1
+                if a[i] in ("off", "unlimited", "-1"):
+                    sim.timer_timeout = None
+                else:
+                    secs = 0.0
+                    for p in a[i].split(":"):
+                        secs = secs * 60 + float(p)
+                    sim.timer_timeout = secs
+            elif tok == "every":
+                i += 1
+            else:
+                raise ScriptError(f"timer keyword {tok!r} not supported")
+            i += 1
+
+    def cmd_info(self, a):
+        """info [system|groups|styles|fixes|computes|variables|all ...]
+        (src/info.cpp categories, to the screen)."""
+        from tpumd_torch.models import registry
+        cats = [t for t in a if t not in ("out", "screen", "log")] \
+            or ["system"]
+        if "all" in cats:
+            cats = ["system", "groups", "styles", "fixes", "computes",
+                    "variables"]
+        sim = self.sim
+        for cat in cats:
+            print(f"Info-Info-Info: {cat}")
+            if cat == "system" and sim is not None:
+                print(f"units = {sim.units.name}")
+                print(f"atom_style = {self.atom_style}")
+                print(f"natoms = {sim.natoms}  ntypes = {sim.ntypes}  "
+                      f"step = {sim.step}")
+                if sim.state is not None:
+                    lo = sim.state.box.lo.cpu().numpy()
+                    hi = sim.state.box.hi.cpu().numpy()
+                    per = "".join("p" if p else "f"
+                                  for p in sim.state.box.periodic)
+                    print(f"box = ({lo[0]:g} {lo[1]:g} {lo[2]:g}) to "
+                          f"({hi[0]:g} {hi[1]:g} {hi[2]:g})  boundary {per}")
+                if sim.pair is not None:
+                    print(f"pair_style = {sim.pair.name}")
+                if sim.kspace is not None:
+                    print(f"kspace_style = {type(sim.kspace).__name__}")
+            elif cat == "groups" and sim is not None:
+                for name, bit in sim.groups.items():
+                    print(f"group {name} bit {bit}")
+            elif cat == "styles":
+                create_pair_style("lj/cut", 1, [1.0])   # registers them
+                create_bonded_style("bond", "harmonic", (), 1)
+                print("pair styles:", " ".join(sorted(registry._PAIR_STYLES)))
+                for kind, table in registry._BONDED_STYLES.items():
+                    print(f"{kind} styles:", " ".join(sorted(table)))
+            elif cat == "fixes" and sim is not None:
+                for fx in sim.fixes:
+                    print(f"fix {fx.id} style {fx.name}")
+            elif cat == "computes" and sim is not None:
+                for cid, comp in sim.computes.items():
+                    print(f"compute {cid} style {type(comp).__name__}")
+            elif cat == "variables":
+                for name, (style, val) in self.variables.items():
+                    print(f"variable {name} style {style} = {val}")
 
     # -------------------------------------------------------------- commands
     def cmd_units(self, a):
@@ -114,6 +578,7 @@ class LammpsScript:
         boundary = None if self.sim is None else self.sim.boundary
         self.sim = Simulation(units=a[0], device=self.device,
                               dtype=self.dtype)
+        self.sim.script = self
         if boundary is not None:
             self.sim.boundary = boundary   # a boundary command may come first
 
@@ -360,7 +825,12 @@ class LammpsScript:
         name, style = a[0], a[1]
         if style != "block":
             raise NotImplementedError(f"region style {style!r} is not ported")
-        vals = [float(v) for v in a[2:8]]
+        # INF and EDGE open a lo bound toward -infinity and a hi bound
+        # toward +infinity (Region::parse, src/region.cpp; atoms are inside
+        # the box, so EDGE selects as INF does, as in tpumd)
+        vals = [(-np.inf if k % 2 == 0 else np.inf)
+                if v in ("INF", "EDGE") else float(v)
+                for k, v in enumerate(a[2:8])]
         rest = a[8:]
         if rest and rest != ["units", "box"] and rest != ["units", "lattice"]:
             raise ScriptError(f"region keywords {rest} not supported")
@@ -559,7 +1029,7 @@ class LammpsScript:
                                 "press"]
         elif a[0] == "custom":
             unknown = [k for k in a[1:] if k not in THERMO_KEYS
-                       and not (k.startswith("c_") and "[" not in k)]
+                       and not k.startswith(("c_", "v_", "f_"))]
             if unknown:
                 raise NotImplementedError(
                     f"thermo_style custom keywords {unknown} are not ported")
@@ -582,19 +1052,19 @@ class LammpsScript:
         return self.sim.groups[name]
 
     def cmd_group(self, a):
-        """group name type t... | subtract g1 g2... (src/group.cpp,
-        tpumd/script/parser.py:1689): each group is one bit of the atoms'
-        gmask, bit 1 being group all."""
+        """group name type t... | region R | subtract g1 g2...
+        (src/group.cpp, tpumd/script/parser.py:1689): each group is one
+        bit of the atoms' gmask, bit 1 being group all."""
         if self.sim is None or (self.sim.state is None
                                 and not self._atoms_x):
             raise ScriptError("group before the atoms exist")
         self._finalize_atoms()
         sim = self.sim
         name, style = a[0], a[1]
-        if style not in ("type", "subtract") or len(a) < 3:
+        if style not in ("type", "region", "subtract") or len(a) < 3:
             raise NotImplementedError(
-                f"group {' '.join(a[1:])} is not ported (only type and "
-                "subtract)")
+                f"group {' '.join(a[1:])} is not ported (only type, region "
+                "and subtract)")
         sim.invalidate_ctx()
         s = sim.state
         gm = (torch.ones_like(s.tag) if s.gmask is None
@@ -607,6 +1077,9 @@ class LammpsScript:
                     sel |= (s.type >= lo) & (s.type <= hi)
                 else:
                     sel |= s.type == int(tok)
+        elif style == "region":
+            sel = torch.as_tensor(self._select("region", a[2]),
+                                  device=sim.device)
         else:
             sel = (gm & self._group_bit(a[2])) > 0
             for other in a[3:]:
@@ -659,7 +1132,175 @@ class LammpsScript:
         sim.invalidate_ctx()
 
     def cmd_run(self, a):
-        if len(a) != 1:
+        """run N [upto] (src/run.cpp; upto runs to step N)."""
+        if len(a) not in (1, 2) or a[1:] not in ([], ["upto"]):
             raise NotImplementedError(f"run keywords {a[1:]} are not ported")
         self._finalize_atoms()
-        self.sim.run(int(a[0]))
+        n = int(a[0])
+        if a[1:] == ["upto"]:
+            n = max(0, n - self.sim.step)
+        self.sim.run(n)
+
+    # ------------------------------------------------------------- output
+    def cmd_dump(self, a):
+        """dump ID group atom|custom N file [fields] (src/dump.cpp)."""
+        sim = self._require_sim()
+        groupbit = 1 if a[1] == "all" else self._group_bit(a[1])
+        sim.dumps = [d for d in sim.dumps if d.id != a[0]]
+        sim.dumps.append(Dump(a[0], a[1], a[2], int(a[3]),
+                              self._path(a[4]), a[5:], groupbit=groupbit))
+
+    def _dump(self, did):
+        for d in self._require_sim().dumps:
+            if d.id == did:
+                return d
+        raise ScriptError(f"could not find dump ID {did!r}")
+
+    def cmd_dump_modify(self, a):
+        self._dump(a[0]).modify(a[1:])
+
+    def cmd_undump(self, a):
+        sim = self.sim
+        sim.dumps = [d for d in sim.dumps if d is not self._dump(a[0])]
+
+    def cmd_write_restart(self, a):
+        sim = self._require_sim()
+        if sim._ctx is None:
+            self._finalize_atoms()
+            sim.setup()
+        write_restart(sim, self._path(a[0]))
+
+    def cmd_read_restart(self, a):
+        sim = self._require_sim()
+        read_restart(sim, self._path(a[0]))
+        self._materialize_styles()
+
+    def cmd_write_data(self, a):
+        self._finalize_atoms()
+        write_data(self.sim, self._path(a[0]))
+
+    # -------------------------------------------------------- state edits
+    def _host_edit(self):
+        """The simulation with its state back in natoms rows, ready to be
+        edited on the host: after a set-up the atoms sit in the grid's
+        slots and the forces are the last run's, so the next run sets up
+        anew (re-binned, the pair list rebuilt), the fixes keeping their
+        state, as tpumd does."""
+        self._finalize_atoms()
+        self.sim.invalidate_ctx()
+        return self.sim
+
+    def _select(self, style, ident):
+        """(N,) bool of the atoms a set command names: group, type, region
+        or atom (an ID, lo:hi or *)."""
+        s = self.sim.state
+        if style == "group":
+            bit = self._group_bit(ident)
+            if bit == 1:
+                return np.ones(s.tag.shape[0], bool)
+            return (s.gmask.cpu().numpy() & bit) > 0
+        if style == "type":
+            return s.type.cpu().numpy() == int(ident)
+        if style == "region":
+            return self.regions[ident].inside(
+                s.x.cpu().numpy().astype(np.float64))
+        if style == "atom":
+            tag = s.tag.cpu().numpy()
+            if ident == "*":
+                return tag > 0
+            if ":" in ident:
+                lo, hi = ident.split(":")[:2]
+                return (tag >= int(lo)) & (tag <= int(hi))
+            return tag == int(ident)
+        raise NotImplementedError(f"set style {style!r} is not ported")
+
+    def cmd_set(self, a):
+        """set group|type|region|atom ID charge|type value ...
+        (src/set.cpp; tpumd/script/parser.py:752-808)."""
+        sim = self._host_edit()
+        sel = torch.as_tensor(self._select(a[0], a[1]), device=sim.device)
+        s = sim.state
+        for key, val in zip(a[2::2], a[3::2]):
+            if key == "charge":
+                q = (torch.zeros(s.tag.shape[0], dtype=self.dtype,
+                                 device=sim.device) if s.q is None else s.q)
+                s = s.replace(q=torch.where(sel, float(val), q))
+            elif key == "type":
+                if not 1 <= int(val) <= sim.ntypes:
+                    raise ScriptError(f"set type {val}: not an atom type "
+                                      f"(1 to {sim.ntypes})")
+                s = s.replace(type=torch.where(sel, int(val), s.type).to(
+                    torch.int32))
+            else:
+                raise NotImplementedError(f"set keyword {key!r} is not "
+                                          "ported (only charge and type)")
+        if len(a) % 2:
+            raise ScriptError(f"set: odd keyword list {a[2:]}")
+        sim.state = s
+
+    def cmd_unfix(self, a):
+        """unfix ID (src/modify.cpp delete_fix): the fix and its state go;
+        the next run sets up anew."""
+        sim = self.sim
+        keep = [fx for fx in sim.fixes if fx.id != a[0]]
+        if len(keep) == len(sim.fixes):
+            raise ScriptError(f"could not find fix ID {a[0]!r} to delete")
+        sim.fixes = keep
+        sim.invalidate_ctx()
+
+    def cmd_reset_timestep(self, a):
+        self._require_sim().step = int(a[0])
+
+    def cmd_displace_atoms(self, a):
+        """displace_atoms group move dx dy dz | random dx dy dz seed
+        [units box|lattice] (src/displace_atoms.cpp;
+        tpumd/script/parser.py:2592-2621): the random style draws with
+        RanPark reset on each atom's coordinates, as the reference does,
+        so positions are bit-equal to it."""
+        sim = self._host_edit()
+        sel = self._select("group", a[0])
+        units = a[a.index("units") + 1] if "units" in a else "lattice"
+        scale = (np.asarray(self.lattice.spacing, np.float64)
+                 if self.lattice is not None and units == "lattice"
+                 else np.ones(3))
+        x = sim.state.x.cpu().numpy().astype(np.float64)
+        d = np.array([float(v) for v in a[2:5]]) * scale
+        if a[1] == "move":
+            x[sel] += d
+        elif a[1] == "random":
+            u = geom_uniform_triplets(int(a[5]), x)
+            x[sel] += d[None, :] * 2.0 * (u[sel] - 0.5)
+        else:
+            raise NotImplementedError(
+                f"displace_atoms style {a[1]!r} is not ported (only move "
+                "and random)")
+        sim.state = sim.state.replace(x=torch.as_tensor(
+            x, dtype=self.dtype, device=sim.device))
+
+    def cmd_delete_atoms(self, a):
+        """delete_atoms region ID (src/delete_atoms.cpp), before the atoms
+        are made: tags are numbered anew, as the reference's default
+        compress yes does for atomic systems."""
+        if a[0] != "region" or len(a) != 2:
+            raise NotImplementedError(
+                f"delete_atoms {' '.join(a)} is not ported (only region ID)")
+        if self.sim is None or self.sim.state is not None:
+            raise NotImplementedError(
+                "delete_atoms after the atoms are made (read_data, a "
+                "velocity or group command, a run) is not ported")
+        reg = self.regions[a[1]]
+        ndel = 0
+        for i, xa in enumerate(self._atoms_x):
+            keep = ~reg.inside(xa)
+            ndel += int((~keep).sum())
+            self._atoms_x[i] = xa[keep]
+            self._atoms_type[i] = self._atoms_type[i][keep]
+        print(f"Deleted {ndel} atoms")
+
+    def cmd_atom_modify(self, a):
+        pass   # map and sort settings: the port keeps its own
+
+    def cmd_dimension(self, a):
+        if int(a[0]) != 3:
+            raise NotImplementedError("dimension 2 is not ported")
+        self._require_sim().dimension = 3
