@@ -80,10 +80,23 @@ line each (any failure raises and exits non-zero):
    evaluation, the build once per grid set-up and rebuild, the refresh
    launches and refreshes of delay 5), B5 over the final list against the
    stencil oracle in f64 on the final state, a profile of 100 steps, the
-   step's parts and the refresh's gate at the final state; then the
-   water_nve and water_shake goldens verbatim (dump lines included) in
-   f64, their dumped forces and last thermo row against the reference
-   binary's files, B5 launched once per force evaluation;
+   step's parts and the refresh's gate at the final state; then every
+   water golden verbatim (dump lines included) in f64 on the grid:
+   water_nve, water_shake and water_npt (fix npt iso) with their dumped
+   forces, rattle_water, rigid_water, rigid_nvt_water and rigid_npt_water,
+   each last thermo row against the reference binary's files, B5 launched
+   once per force evaluation; and tests/golden/tri_npt's two decks (fix
+   npt tri; aniso on a tilted box) in f64 on the matrix engine against the
+   reference binary's numbers, P1 launched;
+   then the 4x4x5 water decks (``water30k_phase``: water_npt30k, 30,000
+   atoms under SHAKE and LAMMPS's default fix npt iso line, and
+   rigid_npt30k, 10,000 bodies under fix rigid/npt iso): an f64 run to
+   step 100, then in f32 from its velocities the step-0 gates, the
+   step-100 row against the f64 run's, 500 timed steps after 100, the
+   launch counts (B5 once per force evaluation, the list at each grid
+   set-up and rebuild, no plain call), the SHAKE or body geometry at the
+   end, a profile of 20 steps, the step's parts, and B5 and the list build
+   at this shape beside their bounds;
 8. main path, chute: the pair list build on each grid's p p fs box with
    the base-base pairs dropped against its plain build as arrays, and the
    gran/hooke/history kernel (B6) over the list against the plain list
@@ -114,8 +127,9 @@ line each (any failure raises and exits non-zero):
    step-100 gates, 500
    warm-up and 500 timed steps beside the cell grid's figure of this
    call, P1's launch counts of those runs and a profile of 100 steps;
-10. a JSON line of the kernels (the list build of each deck, and the
-   refresh calls of in.lj, eam and rhodo_class, each an entry of its own),
+10. a JSON line of the kernels (the list build of each deck, the refresh
+   calls of in.lj, eam and rhodo_class, and B5 at each 30k water deck's
+   shape, each an entry of its own),
    the card's name and power limit as nvidia-smi prints them, then the
    result line.
 
@@ -399,14 +413,16 @@ def check_close(what, fk, fp, ek, ep, wk, wp, tol, eflag, vflag):
     return err / fmax
 
 
-def time_kernel(name, kernel, plain, kernel_ev, reps=200) -> dict:
+def time_kernel(name, kernel, plain, kernel_ev, reps=200,
+                shape="32k") -> dict:
     """plain, kernel, kernel, plain; then the kernel with energy+virial."""
     p1 = cuda_ms(plain, 10, ahead=False)
     k1 = cuda_ms(kernel, reps)
     k2 = cuda_ms(kernel, reps)
     p2 = cuda_ms(plain, 10, ahead=False)
     ke = cuda_ms(kernel_ev, reps)
-    phase("kernel", f"{name} at the 32k shape, f32 forces: kernel {k1:.4f} "
+    phase("kernel", f"{name} at the {shape} shape, f32 forces: kernel "
+                    f"{k1:.4f} "
                     f"/ {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; kernel "
                     f"with energy+virial {ke:.4f} ms; the wrapper's host "
                     f"enqueue {host_us(kernel):.1f} us a call")
@@ -1147,19 +1163,40 @@ def script_cli_phase(tmp: Path):
                   f"in.lj's gates; {perf}")
 
 
+# the last thermo row of each water golden against its thermo.csv:
+# {key: (column, rtol, atol)}; the dumped decks at
+# tests/test_golden_water.py:85-92's tolerances, the rigid and RATTLE decks
+# at tests/test_rigid.py's
+_DUMPED = {"temp": (1, 2e-5, 1e-7), "epair": (2, 2e-5, 0.0),
+           "emol": (3, 2e-5, 2e-5), "etotal": (4, 2e-5, 0.0),
+           "press": (5, 2e-4, 0.5), "vol": (6, 1e-6, 0.0)}
+_RIGID = {"temp": (1, 1e-5, 0.0), "epair": (2, 1e-5, 0.0),
+          "etotal": (4, 1e-5, 0.0), "press": (5, 5e-4, 0.0)}
+WATER_GOLDENS = {
+    "water_nve": _DUMPED, "water_shake": _DUMPED, "water_npt": _DUMPED,
+    "rattle_water": _RIGID, "rigid_water": {**_RIGID, "vol": (6, 1e-9, 0.0)},
+    "rigid_nvt_water": _RIGID,
+    "rigid_npt_water": {"temp": (1, 2e-5, 0.0), "epair": (2, 2e-5, 0.0),
+                        "etotal": (4, 2e-5, 0.0), "press": (5, 5e-4, 0.0),
+                        "vol": (6, 1e-7, 0.0)}}
+
+
 def water_phase():
-    """tests/golden/water_nve and water_shake verbatim (dump lines
-    included) on the card in f64 in a temporary directory: the dumped
-    per-atom forces hold to the reference binary's dump.water at
-    atol 2e-4 max(1, |f|max), the last thermo row to its thermo.csv at
-    tests/test_golden_water.py:85-92's tolerances; B5 launched once per
-    force evaluation and the list built at the set-up, on the grid."""
+    """Every water golden verbatim (velocity, dump and dump_modify lines
+    included) on the card in f64 in a temporary directory, on the grid:
+    water_nve, water_shake and water_npt (fix npt iso) with their dumped
+    per-atom forces held to the reference binary's dump.water at atol
+    2e-4 max(1, |f|max), and rattle_water, rigid_water, rigid_nvt_water and
+    rigid_npt_water; the last thermo row of each to its thermo.csv at
+    WATER_GOLDENS' tolerances; B5 launched once per force evaluation and
+    the list built at the set-up."""
     import shutil
     from tpumd_torch.ops import charmm_cellgrid
     from tpumd_torch.script.parser import LammpsScript
     golden = GOLDEN.parent
-    for name in ("water_nve", "water_shake"):
+    for name, tols in WATER_GOLDENS.items():
         src = golden / name
+        dumped = (src / "dump.water").exists()
         with tempfile.TemporaryDirectory() as tmpdir:
             shutil.copy(src / "data.water", tmpdir)
             script = LammpsScript(device="cuda", dtype=torch.float64)
@@ -1174,8 +1211,8 @@ def water_phase():
             launches = charmm_cellgrid.counts.kernel_launches
             plain = charmm_cellgrid.counts.plain_calls
             builds, _, list_plain = list_counts()
-            ours = dump_rows(Path(tmpdir) / "dump.water")
-        theirs = dump_rows(src / "dump.water")
+            ours = dump_rows(Path(tmpdir) / "dump.water") if dumped else {}
+        theirs = dump_rows(src / "dump.water") if dumped else {}
         nsteps = int(run.split()[0])
         # set-up, each step, and the energies of each thermo row after it
         evals = 1 + nsteps + nsteps // sim.thermo_every
@@ -1199,19 +1236,69 @@ def water_phase():
             worst = max(worst, err / scale)
         v = sim.last_thermo
         last = np.loadtxt(src / "thermo.csv")[-1]
-        tols = {"temp": (1, 2e-5, 1e-7), "epair": (2, 2e-5, 0.0),
-                "emol": (3, 2e-5, 2e-5), "etotal": (4, 2e-5, 0.0),
-                "press": (5, 2e-4, 0.5), "vol": (6, 1e-6, 0.0)}
+        if v["step"] != last[0]:
+            raise AssertionError(f"{name}: step {v['step']} vs {last[0]}")
         for k, (col, rtol, atol) in tols.items():
             if not abs(v[k] - last[col]) <= max(rtol * abs(last[col]), atol):
                 raise AssertionError(f"{name} step {v['step']} {k}: {v[k]} "
                                      f"vs {last[col]}")
-        phase("main", f"{name} verbatim on the card, f64: dumped forces at "
-                      f"steps {sorted(ours)} = dump.water to {worst:.3g} of "
-                      f"max(1, |f|max) (tol 2e-4), step {v['step']} thermo = "
-                      f"thermo.csv (temp {v['temp']!r}, epair {v['epair']!r},"
-                      f" etotal {v['etotal']!r}); B5 launches {launches} = "
-                      f"force evaluations, list builds {builds}, on the grid")
+        forces = (f"dumped forces at steps {sorted(ours)} = dump.water to "
+                  f"{worst:.3g} of max(1, |f|max) (tol 2e-4), "
+                  if dumped else "")
+        phase("main", f"{name} verbatim on the card, f64: {forces}step "
+                      f"{v['step']} thermo = thermo.csv (temp {v['temp']!r}, "
+                      f"epair {v['epair']!r}, etotal {v['etotal']!r}, vol "
+                      f"{v['vol']!r}); fixes "
+                      f"{[fx.name for fx in sim.fixes]}; B5 launches "
+                      f"{launches} = force evaluations, list builds "
+                      f"{builds}, on the grid")
+
+
+# tests/test_triclinic.py:66 and :90: the reference binary's step-20 rows
+# of tests/golden/tri_npt's decks, {key: (value, rtol)}
+TRI_NPT = {
+    "in.test": {"temp": (1.2507388, 1e-6), "epair": (-0.66905984, 1e-6),
+                "etotal": (1.1920395, 1e-6), "press": (0.0073729042, 1e-4),
+                "vol": (613.39659, 1e-7), "xy": (2.5488944, 1e-7),
+                "xz": (1.2743966, 1e-7), "yz": (1.6993669, 1e-7),
+                "lx": (8.496483, 1e-7)},
+    "in.aniso": {"temp": (1.2507388, 1e-6), "etotal": (1.1920409, 1e-6),
+                 "vol": (613.39674, 1e-7), "xy": (2.5490005, 1e-7)}}
+
+
+def tri_npt_phase():
+    """tests/golden/tri_npt's decks (fix npt tri: the six-component
+    barostat; fix npt aniso on a tilted box: the tilts scaled with the
+    cell) on the card in f64 on the matrix engine, against the reference
+    binary's numbers, with P1 launched at every force evaluation."""
+    from tpumd_torch.ops.gather import counts
+    from tpumd_torch.script.parser import LammpsScript
+    golden = GOLDEN.parent
+    for deck, want in TRI_NPT.items():
+        script = LammpsScript(device="cuda", dtype=torch.float64)
+        script.data_dir = str(golden / "tri_lj")
+        pre, run = (golden / "tri_npt" / deck).read_text().rsplit("\nrun",
+                                                                   1)
+        script.run_string(pre)
+        sim = script.sim
+        sim.verbose = False
+        counts.reset()
+        script.run_string("run" + run)
+        if sim._ctx.is_cellgrid or not sim.state.box.istriclinic:
+            raise AssertionError(f"tri_npt {deck}: not a triclinic box on "
+                                 "the matrix engine")
+        launched = check_p1(f"tri_npt {deck}", int(run.split()[0]))
+        v = sim.last_thermo
+        bad = [k for k, (ref, rel) in want.items()
+               if not abs(v[k] - ref) <= rel * abs(ref)]
+        if v["step"] != 20 or bad:
+            raise AssertionError(f"tri_npt {deck} step {v['step']}: "
+                                 + ", ".join(f"{k} {v[k]!r} vs {want[k]}"
+                                             for k in bad))
+        phase("main", f"tri_npt {deck} on the card (matrix engine, f64) = "
+                      f"the reference binary's step 20: "
+                      + ", ".join(f"{k} {v[k]!r}" for k in want)
+                      + f"; {launched}")
 
 
 def dump_rows(path: Path) -> dict:
@@ -2025,6 +2112,276 @@ def rhodo_breakdown(sim, reps: int = 20) -> str:
     return "; ".join(out)
 
 
+WATER30K_GOLDEN = {"water_npt30k": "water_npt",
+                   "rigid_npt30k": "rigid_npt_water"}
+
+
+def water30k_setup(name: str, dtype):
+    """LammpsScript of a 4x4x5 water deck on the card, verbose off,
+    before its first run."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.script.parser import LammpsScript
+    deck = {"water_npt30k": bt.IN_WATER_NPT30K,
+            "rigid_npt30k": bt.IN_RIGID_NPT30K}[name]
+    script = LammpsScript(device="cuda", dtype=dtype)
+    script.run_string(deck.format(golden=GOLDEN.parent
+                                  / WATER30K_GOLDEN[name]))
+    script.sim.verbose = False
+    return script
+
+
+def force_evals(nsteps: int, every: int) -> int:
+    """Force evaluations of a run of nsteps from a step that is a multiple
+    of every: each step's, and the energies of each thermo row after it."""
+    if every <= 0:
+        return nsteps + 1
+    return nsteps + nsteps // every + (1 if nsteps % every else 0)
+
+
+def step_parts(sim, reps: int = 10) -> str:
+    """Host-clock time of each part of a water deck's step, each run alone
+    on the final state and followed by a synchronize: the pair kernel with
+    the virial, a rebuild (re-bin and pair list), PPPM, the constraint or
+    rigid-body fix's hooks, fix npt's two halves and the rebuild check."""
+    from tpumd_torch.md import verlet
+    s, neigh, fstates = sim._carry
+    ctx = sim._ctx
+    only_pair = dataclasses.replace(ctx, bonded=(), kspace=None)
+    parts = {
+        "pair (B5, virial)": lambda: verlet.compute_forces(
+            s, neigh, only_pair, False, True),
+        "rebuild (re-bin and pair list)": lambda: verlet._rebuild(
+            s, neigh, ctx),
+        "pppm": lambda: ctx.kspace.compute(s.x, s.q, s.box, False, True),
+        "rebuild check": lambda: verlet.decide_rebuild(
+            s, neigh.replace(ago=ctx.neigh_cfg.delay), ctx)}
+    for fx, fs in zip(ctx.fixes, fstates):
+        label = "npt" if fx.name == "nh" else fx.name
+        if fx.name in ("shake", "rattle"):
+            parts[fx.name] = (lambda fx=fx, fs=fs: fx.post_force(s, fs, ctx))
+            continue
+        parts[f"{label} initial"] = (
+            lambda fx=fx, fs=fs: fx.initial_integrate(s, fs, ctx))
+        parts[f"{label} final"] = (
+            lambda fx=fx, fs=fs: fx.final_integrate(s, fs, ctx))
+    out = []
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out.append(f"{name} {1e3 * (time.perf_counter() - t0) / reps:.3f}")
+    return "; ".join(out)
+
+
+def list_charmm_counts(x, box, pairs, npairs, c) -> tuple:
+    """(pairs within the Coulomb cutoff, within the LJ cutoff, in the LJ
+    switching shell, within either) among a list's live entries, every
+    special code included, unordered, counted in f64 (as charmm_counts
+    counts the stencil's; the list holds every pair within cutneigh)."""
+    from tpumd_torch.ops.cellgrid_pairlist import unpack
+    x, ell = x.double(), box.lengths.double()
+    kk = max(int(npairs.max()), 1)
+    j, _ = unpack(pairs[:, :kk])
+    live = (torch.arange(kk, device=x.device)[None, :]
+            < npairs[:, None].long())
+    i, col = torch.nonzero(live, as_tuple=True)
+    d = x[i] - x[j[i, col].long()]
+    r2 = ((d - ell * torch.round(d / ell)) ** 2).sum(1)
+    ncoul, nlj, ninner, nall = (int((r2 < cut).sum()) // 2 for cut in (
+        c.cut_coulsq, c.cut_ljsq, c.cut_lj_innersq,
+        max(c.cut_coulsq, c.cut_ljsq)))
+    return ncoul, nlj, nlj - ninner, nall
+
+
+def b5_at_shape(script, name: str) -> dict:
+    """B5 over a run's carried list, f32, against its plain list sweep at
+    that state; timed (plain, kernel, kernel, plain) beside its bound from
+    this state's pairs in range (list_charmm_counts), as at rhodo_class's
+    shape."""
+    from tpumd_torch.ops.charmm_cellgrid import charmm_cellgrid, \
+        charmm_pairlist_plain
+    neigh = script.sim._carry[1]
+    bargs, oracle = charmm_args(script, torch.float32)
+    args = oracle[:3] + (neigh.pairs, neigh.npairs) + oracle[7:]
+    fk = charmm_cellgrid(*args, 0, 0)[0]
+    fp = charmm_pairlist_plain(*args[:6], args[7], 0, 0)[0]
+    err = check_close(f"{name} charmm_cellgrid vs list", fk, fp, (), (),
+                      None, None, TOL[torch.float32], False, False)
+    out = {"max_abs_err": float((fk - fp).abs().max())}
+    out.update(time_kernel(
+        f"charmm_cellgrid {name}", lambda: charmm_cellgrid(*args, 0, 0),
+        lambda: charmm_pairlist_plain(*args[:6], args[7], 0, 0),
+        lambda: charmm_cellgrid(*args, 1, 1), reps=50, shape="30k"))
+    out["v_ms"] = cuda_ms(lambda: charmm_cellgrid(*args, 0, 1), 50)
+    ncoul, nlj, nsw, nall = list_charmm_counts(args[0], args[5], *args[3:5],
+                                               args[7])
+    cfg = args[6]
+    np_ = cfg.capacity
+    entries = int(neigh.npairs.sum())
+    nbytes = np_ * (12 + 4 + 4 + 12) + args[7].lj.numel() * 4 + 12
+    ops = (nall * OPS_CHARMM_PAIR + ncoul * OPS_CHARMM_COUL
+           + nlj * OPS_CHARMM_LJ + nsw * OPS_CHARMM_SWITCH)
+    out["bound_ms"], out["bound_by"] = roof(ops, nbytes)
+    phase("kernel", f"charmm_cellgrid {name}, grid {cfg.nx}x{cfg.ny}x"
+                    f"{cfg.nz} cap {cfg.cap} K {bargs[-1]}: = the plain list "
+                    f"sweep to {err:.3g} max|f|; with the virial only (the "
+                    f"per-step launch under NPT) {out['v_ms']:.4f} ms; "
+                    f"{entries / int(neigh.valid.sum()):.1f} entries a row, "
+                    f"{nall} unordered pairs in range, {ncoul} in Coulomb "
+                    f"range, {nlj} in LJ range, {nsw} in the switching "
+                    f"shell; bound {nbytes} bytes -> {out['bound_ms']:.6f} "
+                    f"ms ({out['bound_by']})")
+    return out
+
+
+def water30k_phase(smi: str) -> dict:
+    """The 4x4x5 water decks (bench_targets.IN_WATER_NPT30K and
+    IN_RIGID_NPT30K, 30,000 atoms) on the card: an f64 run to step 100;
+    then in f32, from the f64 deck's velocities, the step-0 gates (80x the golden's volume, the
+    temperature, epair within WATER30K_EPAIR_RTOL of 80x the golden's and
+    at STEP0_RTOL of the port's f64 CPU row), the step-100 row against the
+    f64 run's, 500 timed steps, the launch counts of that run (B5 once per
+    force evaluation, the list built at each grid set-up and rebuild, no
+    plain call, the grid's cells wider than cutneigh at the end), the
+    SHAKE geometry (within 10 x the fix's tolerance) or the bodies'
+    (within 1e-4 of the set-up's distances), a profile of 20 steps, the
+    step's parts, and B5 and the list build at this shape beside their
+    bounds."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.ops import charmm_cellgrid, eam_cellgrid, lj_cellgrid, \
+        lj_fene_cellgrid
+    b5 = charmm_cellgrid.counts
+    others = (lj_cellgrid.counts, lj_fene_cellgrid.counts,
+              eam_cellgrid.rho_counts, eam_cellgrid.force_counts)
+    out = {}
+    for name in WATER30K_GOLDEN:
+        # velocity ... loop geom hashes the positions as stored, in the
+        # run's dtype (as tpumd does; LAMMPS hashes its doubles): the f32
+        # run takes the f64 deck's velocities, so that both start from the
+        # microstate of the f64 hash and differ by their precision only
+        wall = [time.perf_counter()]
+        ref = water30k_setup(name, torch.float64)
+        v64 = ref.sim.state.v
+        ref.run_string("run 0")
+        ref.run_string("run 100")
+        row_f64 = dict(ref.sim.last_thermo)
+        del ref
+        torch.cuda.empty_cache()
+        wall.append(time.perf_counter())
+        for c in (b5,) + others:
+            c.reset()
+        reset_list_counts()
+        t0 = time.perf_counter()
+        script = water30k_setup(name, torch.float32)
+        sim = script.sim
+        sim.state = sim.state.replace(v=v64.to(torch.float32))
+        script.run_string("run 0")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        row0 = dict(sim.last_thermo)
+        bad = bt.gate_failures(row0, bt.WATER30K_STEP0[name]) \
+            + bt.gate_failures(row0, {k: (v, bt.STEP0_RTOL) for k, v in
+                                      bt.WATER30K_STEP0_F64[name].items()})
+        if bad:
+            raise AssertionError(f"{name} step-0 gates: {bad}")
+        script.run_string("run 100")
+        row100 = dict(sim.last_thermo)
+        bad = bt.gate_failures(row100, {k: (row_f64[k], tol) for k, tol in
+                                        bt.WATER30K_F32_F64.items()})
+        if bad:
+            raise AssertionError(f"{name} step 100, f32 against f64: {bad}")
+        lt0, nb0 = sim.loop_time, int(sim._carry[1].nbuilds)
+        script.run_string("run 500")
+        dt = sim.loop_time - lt0
+        sps = 500 / dt
+        rebuilds = int(sim._carry[1].nbuilds) - nb0
+        launches, plain = b5.kernel_launches, b5.plain_calls
+        builds, _, list_plain = list_counts()
+        other = sum(c.kernel_launches for c in others)
+        plain += list_plain + sum(c.plain_calls for c in others)
+        every = sim.thermo_every
+        evals = 1 + force_evals(100, every) + force_evals(500, every)
+        list_builds = sim.grid_setups + int(sim._carry[1].nbuilds) - 1
+        cfg = sim._neigh_cfg
+        cutneigh = sim.max_cutoff() + sim.skin
+        edge = sim.state.box.lengths_np() / np.array([cfg.nx, cfg.ny,
+                                                      cfg.nz])
+        if (launches != evals or builds != list_builds or plain or other
+                or not sim._ctx.is_cellgrid or (edge < cutneigh).any()):
+            raise AssertionError(
+                f"{name}: B5 launches {launches} != force evaluations "
+                f"{evals}, or list builds {builds} != set-ups and rebuilds "
+                f"{list_builds}, or plain calls {plain}, other kernels' "
+                f"launches {other}, grid {sim._ctx.is_cellgrid}, cell edges "
+                f"{edge} < cutneigh {cutneigh}")
+        s = sim.state
+        n = sim.natoms
+        if (n != 30000 or not torch.isfinite(s.x).all()
+                or sorted(s.tag[s.tag > 0].tolist())
+                != list(range(1, n + 1))):
+            raise AssertionError(f"{name}: final state malformed")
+        if name == "water_npt30k":
+            tol = 10 * sim.shake_fixes()[0].tol
+            bond, angle = bt.shake_geometry(sim)
+            if not (bond <= tol and angle <= tol):
+                raise AssertionError(f"{name}: SHAKE bonds {bond}, angles "
+                                     f"{angle} > {tol} (relative)")
+            geom = (f"every SHAKE bond within {bond:.3g} of 0.9572 A and "
+                    f"angle within {angle:.3g} of 104.52 deg (relative; "
+                    f"gate {tol:g})")
+        else:
+            dev = bt.rigid_geometry(sim)
+            if not dev <= 1e-4:
+                raise AssertionError(f"{name}: intra-body distances {dev} "
+                                     "> 1e-4 of the set-up's")
+            geom = (f"every body's intra-body distances within {dev:.3g} "
+                    f"of the set-up's (gate 1e-4)")
+        ks = sim.kspace
+        keys0 = ("temp", "epair", "vol", "etotal", "press")
+        miss = abs(row0["epair"] / bt.WATER30K_STEP0[name]["epair"][0] - 1)
+        phase("main", f"{name} f32: set-up {setup_s:.3f} s (data file, "
+                      f"replicate 4 4 5, PPPM mesh {ks.nx}x{ks.ny}x{ks.nz} "
+                      f"g_ewald {float(ks.g_ewald)!r}, grid {cfg.nx}x{cfg.ny}"
+                      f"x{cfg.nz} cap {cfg.cap}, K {sim._ctx.pairlist_k}); "
+                      f"step 0 { {k: row0[k] for k in keys0} } passes 80x "
+                      f"the golden's (epair within {miss:.4g}, gate "
+                      f"{bt.WATER30K_EPAIR_RTOL:g}) and the f64 CPU "
+                      f"row's gates; step 100 "
+                      f"{ {k: row100[k] for k in bt.WATER30K_F32_F64} } = the"
+                      f" card's f64 run "
+                      f"{ {k: row_f64[k] for k in bt.WATER30K_F32_F64} } "
+                      f"within {bt.WATER30K_F32_F64}; step 600 {geom}")
+        phase("main", f"{name} timed 500 steps: {sps:.2f} timesteps/s, "
+                      f"{sps * n / 1e6:.3f} Matom-step/s on {smi}; "
+                      f"{rebuilds} rebuilds; charmm_cellgrid launches "
+                      f"{launches} = force evaluations {evals}, "
+                      + upkeep_phrase(sim, builds, 0) + f", plain calls "
+                      f"{plain}, other kernels' launches {other}; final cell "
+                      f"edges {edge.round(4).tolist()} >= cutneigh "
+                      f"{cutneigh}")
+        wall.append(time.perf_counter())
+        phase("main", f"{name} " + profile_steps(script, 20, 1e3 / sps))
+        wall.append(time.perf_counter())
+        phase("main", f"{name} step parts, host clock to a synchronize, ms "
+                      f"per call on the final state: " + step_parts(sim))
+        k = b5_at_shape(script, name)
+        lst = time_build(name, charmm_args(script, torch.float32)[0])
+        wall.append(time.perf_counter())
+        phase("main", f"{name} wall clock: the f64 run "
+                      f"{wall[1] - wall[0]:.1f} s, the f32 run and its gates "
+                      f"{wall[2] - wall[1]:.1f} s, the profile "
+                      f"{wall[3] - wall[2]:.1f} s, the parts and the kernel "
+                      f"timing {wall[4] - wall[3]:.1f} s")
+        out[name] = {"launches": launches, "build_launches": builds,
+                     "b5": k, "build": lst, "sps": sps}
+        del script, sim
+        torch.cuda.empty_cache()
+    return out
+
+
 def chute_setup(data: Path, device, dtype, thermo: int = 0):
     """LammpsScript of the chute deck on a chute_data file, verbose off,
     before its first run."""
@@ -2701,6 +3058,8 @@ def main():
     small_rhodo_card_vs_cpu()
     m_charmm = rhodo_main_path(smi)
     water_phase()
+    tri_npt_phase()
+    m_water = water30k_phase(smi)
     with tempfile.TemporaryDirectory() as tmpdir:
         tmp = Path(tmpdir)
         k_gran = gran_kernel_vs_plain(tmp, log)
@@ -2716,6 +3075,8 @@ def main():
     # (those that rebuild are the refreshes taken); an entry each
     list_src = "tpumd_torch/csrc/cellgrid_pairlist.cu"
     builds = [("rhodo_class", k_list, m_charmm["build_launches"]),
+              *[(name, m["build"], m["build_launches"])
+                for name, m in m_water.items()],
               ("chain", k_fene["list"], m_fene["build_launches"]),
               ("chute", k_gran["list"], m_gran["build_launches"]),
               ("in.lj", m_lj["upkeep"]["build"], m_lj["build_launches"]),
@@ -2725,6 +3086,8 @@ def main():
                 "chain": "tpumd/ops/pallas_lj.py:146",
                 "eam": "tpumd/ops/pallas_eam.py:128",
                 "rhodo_class": "tpumd/ops/pallas_charmm.py:43",
+                "water_npt30k": "tpumd/ops/pallas_charmm.py:43",
+                "rigid_npt30k": "tpumd/ops/pallas_charmm.py:43",
                 "chute": "tpumd/ops/pallas_gran.py:42"}
     upkeep = [(f"cellgrid_pairlist build {name}", list_src, searched[name],
                k, {"launches": nb}) for name, k, nb in builds]
@@ -2754,6 +3117,10 @@ def main():
              k_force, m_force),
             ("charmm_cellgrid", "tpumd_torch/csrc/charmm_cellgrid.cu",
              "tpumd/ops/pallas_charmm.py:43", k_charmm, m_charmm),
+            *[(f"charmm_cellgrid {name}",
+               "tpumd_torch/csrc/charmm_cellgrid.cu",
+               "tpumd/ops/pallas_charmm.py:43", m["b5"], m)
+              for name, m in m_water.items()],
             *upkeep,
             ("gran_cellgrid", "tpumd_torch/csrc/gran_cellgrid.cu",
              "tpumd/ops/pallas_gran.py:42", k_gran, m_gran),

@@ -239,15 +239,23 @@ def test_shake_clusters():
 def test_nh_parse_and_real_units():
     fx = FixNH.parse("npt", "temp 300.0 300.0 100.0 z 0.0 0.0 1000.0 mtk "
                             "no pchain 0 tchain 1".split())
-    assert fx.p_flags == (False, False, True) and fx.mtchain == 1
+    assert fx.p_flags == (False, False, True) + (False,) * 3
+    assert fx.mtchain == 1
     assert vars(fx) == vars(make_npt_z(300.0, 300.0, 100.0, 0.0, 0.0, 1000.0,
                                        tchain=1))
     nvt = FixNH.parse("nvt", "temp 275 275 100 tchain 1".split())
     assert vars(nvt) == vars(make_nvt(275.0, 275.0, 100.0, tchain=1))
     assert nvt.pdim == 0
-    for args, match in (("temp 300 300 100 z 0 0 1000".split(), "pchain"),
-                        ("temp 300 300 100 iso 0 0 1000 mtk no pchain 0"
-                         .split(), "iso")):
+    # LAMMPS's defaults (pchain 3, mtk yes) and iso parse; keywords neither
+    # package takes, and tpumd's silent ones off their defaults, raise
+    z = FixNH.parse("npt", "temp 300 300 100 z 0 0 1000".split())
+    assert (z.mpchain, z.mtk, z.iso) == (3, True, False)
+    assert FixNH.parse("npt", "temp 300 300 100 iso 0 0 1000 mtk no "
+                              "pchain 0".split()).iso
+    for args, match in (("temp 300 300 100 z 0 0 1000 couple xy".split(),
+                         "couple"),
+                        ("temp 300 300 100 iso 0 0 1000 tloop 2".split(),
+                         "tloop")):
         with pytest.raises(NotImplementedError, match=match):
             FixNH.parse("npt", args)
     ju, tu = j_units("real"), t_units("real")

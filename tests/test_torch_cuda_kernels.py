@@ -40,7 +40,11 @@ runs on a card host without JAX:
   list, on the peptide's 2^3 grid and its 1x1x2 replica's 2x2x4 grid,
   against the plain list sweep and the stencil oracle
   ``charmm_cellgrid_plain``: special weights, charges and the kspace
-  exclusion term included; without a list it raises;
+  exclusion term included; without a list it raises; and on the
+  water_npt golden's grid after 20 steps of fix npt iso, B5 launched once
+  per force evaluation, then over the carried list with the atoms and
+  the box dilated about the centre as a barostat's half step does,
+  against the plain list sweep and the stencil oracle at that box;
 * gran/hooke/history (B6, ``gran_cellgrid``) over the grid's pair list:
   the grid-ordered state of generated chute packs after 30 steps on the
   card, a 9x5x4 grid, a 5x2x3 grid (y periodic with 2 cells) and a 5x5x2
@@ -439,6 +443,55 @@ def test_charmm_cuda_kernel_matches_plain(dtype):
             _close(out, b5.charmm_cellgrid_plain(*oracle, ef, vf), TOL[dt])
         with pytest.raises(ValueError, match="no pair list"):
             b5.charmm_cellgrid(*args[:3], None, None, *args[5:], 0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_charmm_cuda_kernel_under_an_iso_box(dtype, tmp_path):
+    """B5 on the water_npt golden's grid after 20 steps of fix npt iso
+    (a 100 fs barostat), B5 launched once per force evaluation of the run
+    and no plain call; then the atoms and the box dilated 0.2 % about the
+    centre, as a barostat's half step does between rebuilds: B5 over the
+    carried list, at the dilated box, against the plain list sweep and the
+    stencil oracle at that box."""
+    import shutil
+    _card()
+    dt = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    golden = os.path.join(os.path.dirname(GOLDEN), "water_npt")
+    shutil.copy(os.path.join(golden, "data.water"), tmp_path)
+    with open(os.path.join(golden, "in.test")) as fh:
+        deck = [ln for ln in fh.read().splitlines()
+                if not ln.startswith(("dump", "run", "fix             1"))]
+    deck += ["fix 1 all npt temp 300.0 300.0 100.0 iso 0.0 0.0 100.0",
+             "thermo 10"]
+    script = LammpsScript(device="cuda", dtype=torch.float64)
+    script.data_dir = str(tmp_path)
+    script.run_string("\n".join(deck))
+    script.sim.verbose = False
+    b5.counts.reset()
+    script.run_string("run 20")
+    # set-up, 20 steps, the energies of 2 thermo rows
+    assert b5.counts.kernel_launches == 1 + 20 + 2
+    assert b5.counts.plain_calls == 0
+    sim = script.sim
+    s, neigh, _ = sim._carry
+    ell = s.box.lengths_np()
+    assert ell[0] == ell[1] == ell[2] and abs(ell[0] - 19.0) > 1e-4
+    ctr = 0.5 * (s.box.lo + s.box.hi)
+    x = torch.where(neigh.valid[:, None], (s.x - ctr) * 1.002 + ctr, s.x)
+    box = Box(lo=((s.box.lo - ctr) * 1.002 + ctr).to(dt),
+              hi=((s.box.hi - ctr) * 1.002 + ctr).to(dt))
+    x = x.to(dt)
+    c = sim.pair.kernel_coeffs(x, *sim._special_weights())
+    args = (x, s.q.to(dt), s.type, neigh.pairs, neigh.npairs, box,
+            sim._neigh_cfg, c)
+    oracle = (x, s.q.to(dt), s.type, neigh.valid, s.tag, s.special_tags,
+              s.special_codes, box, sim._neigh_cfg, c)
+    for ef, vf in FLAGS:
+        out = b5.charmm_cellgrid(*args, ef, vf)
+        _close(out, b5.charmm_pairlist_plain(*args[:6], args[7], ef, vf),
+               TOL[dt])
+        _close(out, b5.charmm_cellgrid_plain(*oracle, ef, vf), TOL[dt])
 
 
 def _gran_grid(tmp_path, dims, dtype):

@@ -255,11 +255,11 @@ def test_tri_lj_matches_the_reference_log():
         np.testing.assert_allclose(got[:, col], ref[:, col], **tol)
 
 
-NPT = ("fix             1 all npt temp 1.2 1.2 0.5 x 1.0 1.0 5.0 "
-       "y 1.0 1.0 5.0 z 1.0 1.0 5.0 pchain 0 mtk no")
+NPT = ("fix             1 all rigid/npt single temp 1.2 1.2 0.5 "
+       "iso 1.0 1.0 5.0")
 TRI_MOVING = {
     "npt": (lambda t: t.replace("fix             1 all nve", NPT),
-            "barostat on a triclinic box"),
+            "rigid/npt on a triclinic box"),
     "shrink": (lambda t: t.replace("read_data", "boundary p p s\nread_data"),
                "boundary p p s on a triclinic box"),
 }
@@ -268,9 +268,10 @@ TRI_MOVING = {
 @pytest.mark.parametrize("mode", ["auto", "matrix"])
 @pytest.mark.parametrize("case", sorted(TRI_MOVING))
 def test_triclinic_box_refuses_a_moving_box(case, mode):
-    """A barostat or a shrink-wrapped face on the tri_lj box raises at
-    set-up: fix nh and the shrink-wrap move the box in orthogonal
-    coordinates, which would leave the tilt factors behind."""
+    """A rigid barostat or a shrink-wrapped face on the tri_lj box raises
+    at set-up: rigid/npt and the shrink-wrap move the box in orthogonal
+    coordinates, which would leave the tilt factors behind (fix npt carries
+    them: tests/test_torch_fix_nh.py::test_tri_npt_golden)."""
     edit, match = TRI_MOVING[case]
     with pytest.raises(NotImplementedError, match=match):
         _golden("tri_lj", mode, edit)

@@ -8,7 +8,10 @@ makes a system of its published size and density from a seed, and its
 gates are tpumd's own results on that system.  Likewise the eam deck's published potential
 (Cu_u3.eam): ``eam_funcfl`` writes a Cu-like one from analytic functions.
 The rhodo_class deck's inputs are in the repository (the peptide example),
-and its gates are the reference binary's rows.  The chute deck's data file
+and its gates are the reference binary's rows.  So are the water decks'
+(tests/golden/water_npt and rigid_npt_water, replicated 4x4x5): their
+step-0 gates scale the reference binary's rows, and the port's own f64
+rows on the CPU hold them tighter.  The chute deck's data file
 is not in the repository either: ``chute_data`` writes a layered pack of
 its published size from a seed, and its gates are tpumd's results there.
 """
@@ -524,6 +527,162 @@ CHUTE_STEP100 = {"ke": (798568.0653316998, 1.5e-3),
                  "c_1": (130.817581189062, 3 * GAP_C1),
                  "vol": (22678.04850514572, 3 * GAP_VOL),
                  "atoms": (32000, 1e-12)}
+
+
+# tests/golden/water_npt/in.test replicated 4x4x5 right after read_data:
+# 10,000 waters (30,000 atoms) in 76 x 76 x 95 A, harmonic bonds, CHARMM
+# angles, lj/charmm/coul/long 6/7 with PPPM 1e-4, SHAKE of the bonds and
+# the angle, and the fix line in LAMMPS's default form (tchain 3, pchain 3,
+# mtk yes); the dump lines dropped, thermo 50; {golden} is the golden's
+# directory, the run lines the caller's
+IN_WATER_NPT30K = """
+units           real
+atom_style      full
+bond_style      harmonic
+angle_style     charmm
+pair_style      lj/charmm/coul/long 6.0 7.0
+kspace_style    pppm 1e-4
+special_bonds   charmm
+
+read_data       {golden}/data.water
+replicate       4 4 5
+
+bond_coeff      1 450.0 0.9572
+angle_coeff     1 55.0 104.52 0.0 0.0
+pair_coeff      1 1 0.1521 3.1507
+pair_coeff      2 2 0.0460 0.4000
+
+neighbor        2.0 bin
+neigh_modify    every 1 delay 0 check yes
+
+fix             0 all shake 0.0001 20 0 b 1 a 1
+fix             1 all npt temp 300.0 300.0 100.0 iso 0.0 0.0 1000.0
+
+velocity        all create 300.0 48291 loop geom
+
+timestep        1.0
+thermo          50
+thermo_style    custom step temp epair emol etotal press vol
+"""
+
+# tests/golden/rigid_npt_water/in.test as it stands (thermo 5 included),
+# replicated 4x4x5 right after read_data: 10,000 rigid bodies under
+# fix rigid/npt molecule ... iso; the run lines the caller's
+IN_RIGID_NPT30K = """
+units           real
+atom_style      full
+bond_style      harmonic
+angle_style     charmm
+pair_style      lj/charmm/coul/long 6.0 7.0
+kspace_style    pppm 1e-4
+special_bonds   charmm
+
+read_data       {golden}/data.water
+replicate       4 4 5
+
+bond_coeff      1 450.0 0.9572
+angle_coeff     1 55.0 104.52 0.0 0.0
+pair_coeff      1 1 0.1521 3.1507
+pair_coeff      2 2 0.0460 0.4000
+
+neighbor        2.0 bin
+neigh_modify    every 1 delay 0 check yes
+
+fix             1 all rigid/npt molecule temp 300.0 300.0 100.0 iso 1.0 1.0 1000.0
+
+velocity        all create 300.0 48291 loop geom
+
+timestep        1.0
+thermo          5
+thermo_style    custom step temp epair emol etotal press vol
+"""
+
+# the step-0 epair of the 4x4x5 decks against 80 times the golden's (both
+# goldens' step-0 epair is -79.002521): PPPM sizes g_ewald and the mesh
+# from the atom count and the box, so the split between the real-space and
+# the mesh sums, and its error, differs at 80x.  tpumd and the port (CPU,
+# f64) both miss 8 x -79.002521 by 2.1686e-2 at 2x2x2 and the port misses
+# 80 x by 2.1985e-2 at 4x4x5 (tests/test_torch_water_golden.py)
+WATER30K_EPAIR_RTOL = 2.5e-2
+_WATER_EPAIR0 = -79.002521
+# step-0 gates: {key: (target, relative tolerance)}; the rigid deck's
+# temperature counts the bodies' dof against velocities made for the
+# atoms' (LAMMPS's velocity command runs before the bodies exist)
+WATER30K_STEP0 = {
+    "water_npt30k": {"vol": (548720.0, 1e-6), "temp": (300.0, 1e-5),
+                     "epair": (80 * _WATER_EPAIR0, WATER30K_EPAIR_RTOL)},
+    "rigid_npt30k": {"vol": (548720.0, 1e-6),
+                     "temp": (300.6010952629935, 1e-5),
+                     "epair": (80 * _WATER_EPAIR0, WATER30K_EPAIR_RTOL)}}
+# the same rows from the port on the CPU in f64 (tests/
+# test_torch_water_golden.py::test_water30k_step0_targets), held to
+# STEP0_RTOL; not the pressure, whose constraint virial f32 resolves to a
+# few percent only (SHAKE's set-up solve: -345.70 against -363.11 atm on
+# the card)
+WATER30K_STEP0_F64 = {
+    "water_npt30k": {"epair": -6181.251467047492,
+                     "etotal": 11702.714589937506},
+    "rigid_npt30k": {"epair": -6181.251467047492,
+                     "etotal": 11738.547814205664}}
+# the step-100 row of an f32 run against an f64 run of the same deck on the
+# card (rhodo_class's gates, the volume at 1e-3)
+WATER30K_F32_F64 = {"temp": 2e-2, "epair": 1e-2, "etotal": 1e-2,
+                    "vol": 1e-3}
+
+
+def shake_geometry(sim) -> tuple[float, float]:
+    """(the largest |d - d0| / d0 of the SHAKE and RATTLE bonds, the
+    largest |theta - theta0| / theta0 of their angle clusters) at the
+    state of sim, at the minimum image, in f64."""
+    import torch
+    from tpumd_torch.core.state import minimum_image
+    s, neigh, _ = sim._carry
+    x = s.x.double()[neigh.row2slot]
+    box = s.box
+    box = box.replace(lo=box.lo.double(), hi=box.hi.double())
+    bond, angle = 0.0, 0.0
+    for fx in sim.shake_fixes():
+        for members, dists in fx._tables(x).values():
+            if members.shape[0] == 0:
+                continue
+            r = [minimum_image(x[members[:, k]] - x[members[:, 0]], box)
+                 for k in range(1, members.shape[1])]
+            d = [torch.linalg.vector_norm(rk, dim=1) for rk in r]
+            for dk, d0 in zip(d, dists):
+                bond = max(bond, float(torch.max(torch.abs(dk - d0) / d0)))
+            if members.shape[1] == 3 and len(dists) == 3:
+                d01, d02, d12 = dists
+                th0 = torch.arccos((d01 ** 2 + d02 ** 2 - d12 ** 2)
+                                   / (2.0 * d01 * d02))
+                th = torch.arccos(torch.sum(r[0] * r[1], dim=1)
+                                  / (d[0] * d[1]))
+                angle = max(angle, float(torch.max(torch.abs(th - th0)
+                                                   / th0)))
+    return bond, angle
+
+
+def rigid_geometry(sim) -> float:
+    """The largest |d - d0| / d0 over every pair of atoms within each
+    rigid body at the state of sim, d0 from the bodies' set-up frames, in
+    f64; bodies of one size only (water)."""
+    import torch
+    s, neigh, fstates = sim._carry
+    (fx, fst), = [(f, st) for f, st in zip(sim.fixes, fstates)
+                  if f.name.startswith("rigid")]
+    r2s = neigh.row2slot
+    u = (s.x.double() + type(fx)._shift(s).double())[r2s]
+    order = torch.argsort(fst.body_tag, stable=True)
+    size = torch.bincount(fst.body_tag[fst.body_tag >= 0])
+    n = int(size[0])
+    if not bool(torch.all(size == n)) or int((fst.body_tag < 0).sum()):
+        raise NotImplementedError("rigid_geometry: bodies of one size, "
+                                  "every atom in a body")
+    ub = u[order].reshape(-1, n, 3)
+    db = fst.disp_tag.double()[order].reshape(-1, n, 3)
+    d = torch.linalg.vector_norm(ub[:, :, None] - ub[:, None], dim=-1)
+    d0 = torch.linalg.vector_norm(db[:, :, None] - db[:, None], dim=-1)
+    off = d0 > 0
+    return float(torch.max(torch.abs(d - d0)[off] / d0[off]))
 
 
 def gate_failures(vals: dict, targets: dict) -> list[str]:

@@ -14,8 +14,11 @@ device).  Clusters are stored in tag space and mapped to the grid
 slots at each call; they are disjoint, so the force scatter has no
 collisions.  The constraint virial rides the fix state.
 
-Not ported: fix rattle, and tpumd's tag-matched grid path
-(``_apply_grid``).
+fix rattle (``FixRattle``) adds RATTLE's velocity constraints to the same
+clusters: each cluster's linear system, solved exactly, at post_force,
+and SHAKE's coordinate constraint force at final_integrate.
+
+Not ported: tpumd's tag-matched grid path (``_apply_grid``).
 """
 
 from __future__ import annotations
@@ -413,3 +416,91 @@ class FixShake(Fix):
                  + l03[:, None] * r03,
                  -l01[:, None] * r01, -l02[:, None] * r02,
                  -l03[:, None] * r03])
+
+
+class FixRattle(FixShake):
+    """fix rattle: SHAKE's coordinate constraints plus RATTLE's velocity
+    constraints (src/RIGID/fix_rattle.cpp; tpumd/md/fix_shake.py:652-790).
+
+    The hooks follow the reference's setmask: the velocity correction runs
+    at post_force, on the unconstrained half-kick prediction
+    vp = v + dtf f / m (vrattle*, :147-175), and SHAKE's constraint force
+    moves to final_integrate (:213-217), after the integrator's last half
+    kick, so it acts on the next step's positions while this step's
+    velocities are corrected directly; list ``fix rattle`` after the
+    integrator.  Each cluster's 2x2 or 3x3 system is solved exactly
+    (solve2x2exactly, solve3x3exactly), batched over a kind's clusters;
+    clusters stay in tag space and map to the slots at each call."""
+
+    name = "rattle"
+
+    def post_force(self, s, fstate, ctx, xin=None):
+        dtfv = 0.5 * ctx.dt * ctx.units.ftm2v
+        invm = 1.0 / ctx.mass_per_atom(s)
+        vp = torch.addcmul(s.v, (dtfv * invm)[:, None], s.f)
+        slot = row2slot_from_tags(s.tag, ctx.natoms)
+        box = s.box
+        v = s.v.clone()
+        for kind, (members, _) in self._tables(s.x).items():
+            if members.shape[0] == 0:
+                continue
+            idx = [slot[members[:, k]] for k in range(members.shape[1])]
+            i0 = idx[0]
+            im = [invm[i] for i in idx]
+            if kind == 5:
+                # the angle cluster: bonds 0-1, 0-2 and the 1-2 distance
+                pairs = ((1, 0), (2, 0), (2, 1))
+            else:
+                pairs = tuple((k, 0) for k in range(1, len(idx)))
+            r = [minimum_image(s.x[idx[a]] - s.x[idx[b]], box)
+                 for a, b in pairs]
+            c = [-_dot(vp[idx[a]] - vp[idx[b]], rk)
+                 for (a, b), rk in zip(pairs, r)]
+            if kind == 2:
+                lam = [c[0] / (_dot(r[0], r[0]) * (im[0] + im[1]))]
+            elif kind == 3:
+                a11 = (im[1] + im[0]) * _dot(r[0], r[0])
+                a12 = im[0] * _dot(r[0], r[1])
+                a22 = (im[0] + im[2]) * _dot(r[1], r[1])
+                det = a11 * a22 - a12 * a12
+                lam = [(c[0] * a22 - c[1] * a12) / det,
+                       (a11 * c[1] - a12 * c[0]) / det]
+            else:
+                # the symmetric 3x3 system, solved by its cofactor inverse
+                # (solve3x3exactly)
+                if kind == 5:
+                    r01, r02, r12 = r
+                    d = ((im[1] + im[0]) * _dot(r01, r01),
+                         (im[0] + im[2]) * _dot(r02, r02),
+                         (im[2] + im[1]) * _dot(r12, r12))
+                    o = (im[0] * _dot(r01, r02), -im[1] * _dot(r01, r12),
+                         im[2] * _dot(r02, r12))
+                else:
+                    r01, r02, r03 = r
+                    d = ((im[0] + im[1]) * _dot(r01, r01),
+                         (im[0] + im[2]) * _dot(r02, r02),
+                         (im[0] + im[3]) * _dot(r03, r03))
+                    o = (im[0] * _dot(r01, r02), im[0] * _dot(r01, r03),
+                         im[0] * _dot(r02, r03))
+                ainv = self._inv3(torch.stack(
+                    [d[0], o[0], o[1], o[0], d[1], o[2], o[1], o[2], d[2]],
+                    dim=1).reshape(-1, 3, 3))
+                lam = torch.einsum("nkj,nj->nk", ainv,
+                                   torch.stack(c, dim=1)).unbind(1)
+            # each constraint (a, b) moves b against r and a along it:
+            # v_a += im_a l r, v_b -= im_b l r, with r = x_a - x_b
+            dv = {k: torch.zeros_like(r[0]) for k in range(len(idx))}
+            for (a, b), lk, rk in zip(pairs, lam, r):
+                d = lk[:, None] * rk
+                dv[a] = dv[a] + d
+                dv[b] = dv[b] - d
+            for k, i in enumerate(idx):
+                v.index_add_(0, i, im[k][:, None] * dv[k])
+        return s.replace(v=v), fstate
+
+    def final_integrate(self, s, fstate, ctx):
+        """SHAKE's coordinate constraint force, after the integrator's last
+        kick; RATTLE keeps the half dtfsq prefactor (fix_shake.cpp:485-486:
+        ``if (!rattle) dtfsq = dt*dt*ftm2v``).  The fix state becomes this
+        constraint virial."""
+        return self._apply(s, ctx, 0.5 * ctx.dt * ctx.dt * ctx.units.ftm2v)

@@ -40,8 +40,8 @@ from tpumd_torch.ops.cellgrid_gran import KH
 from tpumd_torch.utils.units import Units, get_units
 
 THERMO_KEYS = ("step", "temp", "epair", "emol", "pe", "ke", "etotal",
-               "press", "vol", "lx", "ly", "lz", "atoms", "density") \
-    + ENERGY_KEYS
+               "press", "vol", "lx", "ly", "lz", "xy", "xz", "yz", "atoms",
+               "density") + ENERGY_KEYS
 # thermo_style custom also takes c_ID (the scalar of compute ID, or of
 # the reference's thermo computes), v_name and f_ID[i]
 # (Simulation._thermo_value)
@@ -152,7 +152,9 @@ class Simulation:
         return self.pair.max_cutoff if self.pair is not None else 0.0
 
     def _barostat_active(self) -> bool:
-        return any(getattr(fx, "pstat", False) for fx in self.fixes)
+        """A fix moves the box between rebuilds: fix npt/nph, rigid/npt or
+        rigid/nph (tpumd/md/simulation.py:1407-1410)."""
+        return any(fx.box_change for fx in self.fixes)
 
     @property
     def granular(self) -> bool:
@@ -371,7 +373,9 @@ class Simulation:
         self._kernel_bond = style
 
     def shake_fixes(self):
-        return [fx for fx in self.fixes if getattr(fx, "name", "") == "shake"]
+        """fix shake and fix rattle, which share the clusters."""
+        return [fx for fx in self.fixes
+                if getattr(fx, "name", "") in ("shake", "rattle")]
 
     def build_shake(self):
         """Find every fix shake's clusters on the current topology; returns
@@ -507,9 +511,10 @@ class Simulation:
         periodic box on either engine.  On the cell grid, the B1-B5
         kernels take neither a non-periodic axis nor neigh_modify exclude
         group (only the granular sweep holds the group bits), and no
-        kernel takes a triclinic box.  A triclinic box takes neither a
-        barostat nor a shrink-wrapped face: both would move the box in
-        orthogonal lengths and leave the tilt factors behind.  On the
+        kernel takes a triclinic box.  On a triclinic box the barostat
+        is fix nh's, which carries the tilt factors; rigid/npt and
+        rigid/nph dilate the lengths alone, and a shrink-wrapped face
+        would be set in x, not in lamda coordinates, so both raise.  On the
         matrix engine, a style or fix whose matrix path is not ported
         raises, naming itself."""
         name = getattr(self.pair, "name", None)
@@ -519,11 +524,13 @@ class Simulation:
                 f"boundary {' '.join(self.boundary)} with pair_style {name}"
                 " and kspace_style pppm: a non-periodic axis is ported "
                 "without kspace only")
-        if box.istriclinic and self._barostat_active():
+        rigid_baro = [fx.name for fx in self.fixes
+                      if fx.box_change and fx.name.startswith("rigid")]
+        if box.istriclinic and rigid_baro:
             raise NotImplementedError(
-                "a barostat on a triclinic box: fix nh dilates the box "
-                "lengths in orthogonal coordinates and leaves the tilt "
-                "factors unscaled (fix nh tri is not ported)")
+                f"fix {rigid_baro[0]} on a triclinic box: it dilates the "
+                "box lengths and leaves the tilt factors behind, as tpumd "
+                "does (fix npt/nph carry them)")
         shrunk = [a for a, tok in zip("xyz", self.boundary)
                   if set(tok) & set("sm")]
         if box.istriclinic and shrunk:
@@ -567,7 +574,8 @@ class Simulation:
                 "styles (FENE chains included) are not ported there")
         if self.shake_fixes():
             raise NotImplementedError(
-                "fix shake on the matrix neighbor engine is not ported")
+                f"fix {self.shake_fixes()[0].name} on the matrix neighbor "
+                "engine is not ported")
 
     def setup(self):
         """Initial neighbor build + force evaluation (Verlet::setup)."""
@@ -646,7 +654,15 @@ class Simulation:
             if fx.contributes_virial:
                 virial = virial + fx.virial_contrib(fs)
             fstates.append(fs)
+        if ctx.tdof != self.dof():
+            # a rigid fix counts its bodies' dof at its set-up
+            ctx = self._ctx = dataclasses.replace(ctx, tdof=self.dof())
         fstates = [fx.save_virial(fs, virial) if fx.needs_virial else fs
+                   for fx, fs in zip(self.fixes, fstates)]
+        # a rigid barostat's set-up reads the state with the saved virial
+        # (FixRigidNH::setup's tail)
+        fstates = [fx.setup_with_state_virial(s, fs, ctx)
+                   if hasattr(fx, "setup_with_state_virial") else fs
                    for fx, fs in zip(self.fixes, fstates)]
         self._carry = (s, neigh, tuple(fstates))
         self.state = s
@@ -1001,6 +1017,9 @@ class Simulation:
             "density": self.units.mv2d * self._mass_sum / vol,
         }
         vals.update({k: e[k] / norm for k in ENERGY_KEYS})
+        tilt = self._carry[0].box.tilt
+        vals.update(zip(("xy", "xz", "yz"), (0.0,) * 3 if tilt is None
+                        else tilt.detach().cpu().double().tolist()))
         for k, cid in enumerate(cids):
             c = self.computes[cid]
             vals["c_" + cid] = float(vals_h[nenergy + k]) / (

@@ -9,7 +9,10 @@ the host from the every/delay schedule, so a step with
 the device on scheduled steps.  Energies are evaluated only on output
 steps; the virial on every step when a fix needs it (a barostat).  Fix
 states and per-step host inputs (exact RanMars draws) are threaded
-through every fix hook.
+through every fix hook, each hook in the fixes' deck order: so a rigid
+fix's integration (with rigid/npt's box remap inside it), RATTLE's
+constraint force at final_integrate and fix nh's halves interleave as
+the deck lists them (tpumd/md/verlet.py:380-410).
 
 A force evaluation sums the pair sweep (with charges and special lists
 for charged styles), the bonded styles on the tag-order view of the

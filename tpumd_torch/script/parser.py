@@ -33,7 +33,9 @@ from tpumd_torch.io.restart import read_restart, write_data, \
 from tpumd_torch.md.fix_langevin import FixLangevin
 from tpumd_torch.md.fix_nh import FixNH
 from tpumd_torch.md.computes import ComputeERotateSphere
-from tpumd_torch.md.fix_shake import FixShake
+from tpumd_torch.md.fix_rigid import FixRigid, FixRigidNPH, FixRigidNPT, \
+    FixRigidNVT
+from tpumd_torch.md.fix_shake import FixRattle, FixShake
 from tpumd_torch.md.fix_sphere import FixFreeze, FixGravity, FixNVESphere
 from tpumd_torch.md.fixes import FixNVE
 from tpumd_torch.md.simulation import THERMO_KEYS, Simulation, \
@@ -1096,8 +1098,11 @@ class LammpsScript:
         self._require_sim().computes[cid] = ComputeERotateSphere(
             cid, self._group_bit(group))
 
+    _RIGID_STYLES = tuple(f"rigid{ens}{small}"
+                          for ens in ("", "/nve", "/nvt", "/npt", "/nph")
+                          for small in ("", "/small"))
     # the fixes that take a group other than all
-    _GROUP_FIXES = ("nve/sphere", "freeze", "gravity")
+    _GROUP_FIXES = ("nve/sphere", "freeze", "gravity") + _RIGID_STYLES
 
     def cmd_fix(self, a):
         sim = self.sim
@@ -1116,20 +1121,96 @@ class LammpsScript:
             fx = FixNVE()
         elif style == "langevin" and len(args) == 4:
             fx = FixLangevin(*args[:3], int(args[3]), device=sim.device)
-        elif style in ("nvt", "npt"):
+        elif style in ("nvt", "npt", "nph"):
             fx = FixNH.parse(style, args)
         elif style == "shake":
             fx = FixShake.parse(args)
+        elif style == "rattle":
+            fx = FixRattle.parse(args)
+        elif style in self._RIGID_STYLES:
+            fx = self._parse_rigid(style, args)
         else:
             raise NotImplementedError(
                 f"fix {' '.join(a[1:])!r} is not ported (only 'all nve', "
-                "'all langevin Tstart Tstop damp seed', nvt, npt, shake, "
-                "nve/sphere, freeze and gravity)")
+                "'all langevin Tstart Tstop damp seed', nvt, npt, nph, "
+                "shake, rattle, the rigid styles, nve/sphere, freeze and "
+                "gravity)")
         sim.fixes = [fx for fx in sim.fixes if fx.id != fid]
         fx.id = fid
         fx.groupbit = self._group_bit(group)
         sim.fixes.append(fx)
         sim.invalidate_ctx()
+
+    def _parse_rigid(self, style, args):
+        """fix ID group rigid[/nve|/nvt|/npt|/nph][/small] single|molecule|
+        group N g1 ... [temp T1 T2 Tdamp] [tparam chain iter order]
+        [iso|aniso P1 P2 Pdamp] [x|y|z P1 P2 Pdamp] [pchain N]
+        [dilate all] (tpumd/script/parser.py:1271-1350)."""
+        bstyle, rest, bits = args[0] if args else None, args[1:], []
+        if bstyle == "group":
+            n = int(args[1])
+            bits = [self._group_bit(g) for g in args[2:2 + n]]
+            rest = args[2 + n:]
+        elif bstyle not in ("single", "molecule"):
+            raise NotImplementedError(f"fix {style} bodystyle {bstyle!r} is "
+                                      "not ported (single, molecule, group)")
+        kw, i = {}, 0
+        while i < len(rest):
+            key = rest[i]
+            if key in ("temp", "tparam", "iso", "aniso", "x", "y", "z"):
+                vals = rest[i + 1:i + 4]
+                if len(vals) < 3:
+                    raise ScriptError(f"fix {style} {key}: 3 values")
+                i += 4
+            elif key in ("pchain", "dilate"):
+                vals = rest[i + 1:i + 2]
+                i += 2
+            else:
+                raise NotImplementedError(
+                    f"fix {style} keyword {key!r} is not ported (temp, "
+                    "tparam, iso, aniso, x, y, z, pchain, dilate all)")
+            if key == "temp":
+                kw.update(zip(("t_start", "t_stop", "t_period"),
+                              map(float, vals)))
+            elif key == "tparam":
+                kw.update(zip(("t_chain", "t_iter", "t_order"),
+                              map(int, vals)))
+            elif key in ("iso", "aniso"):
+                p0, p1, pp = map(float, vals)
+                kw.update(p_start=[p0] * 3, p_stop=[p1] * 3,
+                          p_period=[pp] * 3, p_flag=(True,) * 3, pstyle=key)
+            elif key in ("x", "y", "z"):
+                d = "xyz".index(key)
+                ps = kw.setdefault("p_start", [0.0] * 3)
+                pe = kw.setdefault("p_stop", [0.0] * 3)
+                pp = kw.setdefault("p_period", [1.0] * 3)
+                pf = list(kw.get("p_flag", (False,) * 3))
+                ps[d], pe[d], pp[d] = map(float, vals)
+                pf[d] = True
+                kw.update(p_flag=tuple(pf), pstyle="aniso")
+            elif key == "pchain":
+                kw["p_chain"] = int(vals[0])
+            elif vals != ["all"]:
+                raise NotImplementedError(
+                    f"fix {style} dilate {' '.join(vals)}: the port dilates "
+                    "all atoms only")
+        ens = style.split("/")[1] if "/" in style else "nve"
+        baro = ("p_start", "p_stop", "p_period", "p_flag", "pstyle",
+                "p_chain")
+        if ens in ("nve", "small"):
+            if kw:
+                raise ScriptError(f"fix {style} takes no thermostat or "
+                                  "barostat keyword")
+            return FixRigid(style=bstyle, group_bits=bits)
+        if ens == "nvt":
+            if any(k in kw for k in baro):
+                raise ScriptError(f"fix {style} takes no pressure keyword")
+            return FixRigidNVT(style=bstyle, group_bits=bits, **kw)
+        if ens == "nph":
+            if any(k in kw for k in ("t_start", "t_stop", "t_period")):
+                raise ScriptError(f"fix {style} takes no temp keyword")
+            return FixRigidNPH(style=bstyle, group_bits=bits, **kw)
+        return FixRigidNPT(style=bstyle, group_bits=bits, **kw)
 
     def cmd_run(self, a):
         """run N [upto] (src/run.cpp; upto runs to step N)."""
