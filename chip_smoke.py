@@ -112,7 +112,25 @@ line each (any failure raises and exits non-zero):
    timed steps, the launch counts of that run (B6 once per force
    evaluation, the list build once per grid set-up and rebuild) and a
    profile of 100 steps;
-9. the matrix neighbor engine: the row gather (P1) against its plain
+9. the granular workflow: tests/golden/gran's four decks (granwall,
+   granhertz, pour on the grid, granhooke on the matrix engine) verbatim in
+   f64 against the reference binary's logs at rel 2e-6, B6 launched once
+   per force evaluation (its HERTZ variant on granhertz) or P1 on the
+   matrix engine, and tests/golden/wall_lj93 against its thermo.csv at rel
+   1e-7; granhertz32k (``IN_GRANHERTZ32K``, 32,474 spheres in a silo) in
+   f64 to step 500 behind the analytic step-0 ke and tpumd's f64 rows,
+   then B6 HERTZ against its plain list sweep and the stencil oracle at
+   that state (f32 and f64, both shearupdate values, the history as it is
+   and scaled by 40), timed beside its bound; in f32 the rows of steps 100
+   and 500 against the f64 run's, 500 timed steps, the launch counts, the
+   largest contact count and a profile of 100 steps, both runs failing
+   if any sphere touched more than KH = 12 others in a sweep (B6's
+   hist_over: its contacts past the 12th would lose their history); pour20k
+   (``IN_POUR20K``: two insertions of fix pour onto a 1,600-sphere floor)
+   in f64 and f32, the atom count of every row equal to the stored counts,
+   B6 once per force evaluation, the insertions' and re-set-ups' host
+   times, the f32 run's last ke against the f64 run's;
+10. the matrix neighbor engine: the row gather (P1) against its plain
    version on the card, bit for bit, for f32, f64 and int32 tables of
    widths 1, 5, 12, 16 and 128 up to the last row and at the 32k matrix
    decks' widths and index shapes, then timed at the
@@ -127,9 +145,9 @@ line each (any failure raises and exits non-zero):
    step-100 gates, 500
    warm-up and 500 timed steps beside the cell grid's figure of this
    call, P1's launch counts of those runs and a profile of 100 steps;
-10. a JSON line of the kernels (the list build of each deck, the refresh
-   calls of in.lj, eam and rhodo_class, and B5 at each 30k water deck's
-   shape, each an entry of its own),
+11. a JSON line of the kernels (the list build of each deck, the refresh
+   calls of in.lj, eam and rhodo_class, B5 at each 30k water deck's shape
+   and B6's HERTZ variant at granhertz32k's, each an entry of its own),
    the card's name and power limit as nvidia-smi prints them, then the
    result line.
 
@@ -551,6 +569,18 @@ def stretched_chain(sim, tag_a: int = 2, tag_b: int = 1, r: float = 2.0):
     x[b] = best % L
     return sim._grid_setup(c.replace(x=torch.as_tensor(
         x, dtype=c.x.dtype, device=c.x.device)))
+
+
+def gran_bytes(natoms: int, npairs) -> int:
+    """The bytes B6 must move in f32 for natoms spheres: per sphere, read
+    x, v, omega, radius, rmass (11 floats), gmask, tag, valid (9 bytes),
+    its list row's count and index (12 bytes) and its old tags and shear
+    (12 + 36 words), written f, torque (6 floats) and the new tags and
+    shear; the list's live entries (npairs: 4 bytes each) and the box.
+    The kernel also zeroes the empty slots' outputs, which the function
+    does not need."""
+    return (natoms * (4 * (11 + 6) + 9 + 12 + 2 * 4 * (12 + 36))
+            + 4 * int(npairs.sum()) + 12)
 
 
 def list_floor_bytes(neigh, natoms: int, extra_per_slot: int = 0) -> int:
@@ -2452,7 +2482,7 @@ def gran_kernel_vs_plain(tmp: Path, ptxas_log: str) -> dict:
     from tpumd_torch.ops.gran_cellgrid import gran_cellgrid, \
         gran_compact_sums, gran_pairlist_plain
     regs = re.findall(r"gran_pairlist_kernelI([fd])Lb(\d)ELb(\d)ELb(\d)E"
-                      r".*?\n.*?(\d+) bytes spill stores.*?\n.*?"
+                      r"Lb0E.*?\n.*?(\d+) bytes spill stores.*?\n.*?"
                       r"Used (\d+) registers", ptxas_log)
     phase("kernel", "gran_cellgrid ptxas (type, shearupdate, freeze, "
                     "limit_damping: registers, spill store bytes): "
@@ -2530,18 +2560,10 @@ def gran_kernel_vs_plain(tmp: Path, ptxas_log: str) -> dict:
             # is dropped below KH = 12 contacts per sphere)
             stags_new = plain()[2]
             ncontact = int((stags_new != 0).sum()) // 2
-            np_ = cfg.capacity
-            # the work, per slot, read: x, v, omega, radius, rmass (11
-            # floats), gmask, tag, valid (9 bytes), the old tags and shear
-            # (12 + 36 words); written: f, torque (6 floats), the new tags
-            # and shear
-            nbytes = np_ * (4 * (11 + 6) + 9 + 2 * 4 * (12 + 36)) + 12
+            neigh = sim._carry[1]
+            nbytes = gran_bytes(sim.natoms, neigh.npairs)
             out["bound_ms"], out["bound_by"] = roof(
                 ncontact * OPS_GRAN_PAIR, nbytes)
-            neigh = sim._carry[1]
-            floor = list_floor_bytes(neigh, sim.natoms)
-            floor_ms, floor_by = roof(ncontact * OPS_GRAN_PAIR,
-                                      nbytes + floor)
             entries = int(neigh.npairs.sum())
             phase("kernel", f"gran_cellgrid at the 32k shape, f32, "
                             f"shearupdate: kernel {k1:.4f} / {k2:.4f} ms, "
@@ -2549,10 +2571,9 @@ def gran_kernel_vs_plain(tmp: Path, ptxas_log: str) -> dict:
                             f"(thermo) kernel {k_ro:.4f} ms; "
                             f"bound: {ncontact} contacts "
                             f"({2 * ncontact / entries:.2%} of {entries} "
-                            f"list entries); {nbytes} bytes -> "
-                            f"{out['bound_ms']:.6f} ms ({out['bound_by']}); "
-                            f"the list's floor: {floor} bytes more -> "
-                            f"{floor_ms:.6f} ms ({floor_by})")
+                            f"list entries); {sim.natoms} spheres in "
+                            f"{cfg.capacity} slots, {nbytes} bytes -> "
+                            f"{out['bound_ms']:.6f} ms ({out['bound_by']})")
     return out
 
 
@@ -3029,6 +3050,386 @@ def matrix_main_path(tmp: Path, smi: str, grid_sps: dict) -> dict:
     return {"launches": total}
 
 
+GRAN_GOLDEN = GOLDEN.parent / "gran"
+
+
+@contextlib.contextmanager
+def counted_setups(sim, out: list):
+    """Record the host seconds of each Simulation.setup of sim."""
+    orig = sim.setup
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    sim.setup = timed
+    try:
+        yield out
+    finally:
+        del sim.setup
+
+
+def gran_counts_reset():
+    from tpumd_torch.ops import gather, gran_cellgrid
+    for c in (gran_cellgrid.counts, gather.counts):
+        c.reset()
+    reset_list_counts()
+
+
+def check_b6(what: str, evals: int, hertz: bool) -> str:
+    """Raise unless B6 (its HERTZ variant where hertz) launched once per
+    force evaluation on the grid and no plain call ran; returns the
+    counts."""
+    from tpumd_torch.ops import gran_cellgrid
+    b6 = gran_cellgrid.counts
+    want_h = evals if hertz else 0
+    if (b6.kernel_launches != evals or b6.hertz_launches != want_h
+            or b6.plain_calls or list_counts()[2]):
+        raise AssertionError(
+            f"{what}: gran_cellgrid launches {b6.kernel_launches} (HERTZ "
+            f"{b6.hertz_launches}) != force evaluations {evals}, or plain "
+            f"calls {b6.plain_calls + list_counts()[2]}")
+    return (f"gran_cellgrid launches {b6.kernel_launches} (HERTZ "
+            f"{b6.hertz_launches}) = force evaluations, list builds "
+            f"{list_counts()[0]}, plain calls 0")
+
+
+def force_evals_of(sim, setups: int, nsteps: int, nruns: int = 1) -> int:
+    """Force evaluations of nruns run commands: one a set-up, one a step
+    (a step of a segment redone after an overflow twice), and one a thermo
+    row, but for the row each run prints at its start (the last
+    evaluation's)."""
+    rows = sum(1 for ln in sim.log_lines
+               if ln.split() and ln.split()[0].isdigit())
+    return setups + nsteps + sim.steps_redone + rows - nruns
+
+
+def granular_goldens():
+    """tests/golden/gran's four decks verbatim in f64 on the card, each
+    last row against its reference log at rel 2e-6 (ke and c_rot; pour:
+    atoms and ke): granwall, granhertz and pour on the grid with B6 once
+    per force evaluation (HERTZ on granhertz), granhooke on the matrix
+    engine with P1 launched; and tests/golden/wall_lj93 (the matrix
+    engine) against its thermo.csv at rel 1e-7."""
+    from tpumd_torch.ops import gather, gran_cellgrid
+    from tpumd_torch.script.parser import LammpsScript
+    for name in ("granwall", "granhertz", "granhooke", "pour"):
+        gran_counts_reset()
+        text = (GRAN_GOLDEN / f"in.{name}").read_text()
+        pre, run = text.rsplit("\nrun", 1)
+        script = LammpsScript(device="cuda", dtype=torch.float64)
+        script.data_dir = str(GRAN_GOLDEN)
+        script.run_string(pre)
+        sim = script.sim
+        sim.verbose = False
+        nsteps = int(run.split()[0])
+        with counted_setups(sim, []) as setups:
+            script.run_string("run" + run)
+        ref = [float(v) for v in log_rows(GRAN_GOLDEN / f"log.{name}")[-1]]
+        v = sim.last_thermo
+        got = ([sim.natoms, v["ke"]] if name == "pour"
+               else [v["ke"], v["c_rot"]])
+        for g, r in zip(got, ref[1:]):
+            if not abs(g - r) <= 2e-6 * abs(r) + 1e-9:
+                raise AssertionError(f"{name}: last row {got} vs the "
+                                     f"reference log's {ref}")
+        evals = force_evals_of(sim, len(setups), nsteps)
+        if name == "granhooke":
+            if sim._ctx.is_cellgrid or gran_cellgrid.counts.kernel_launches:
+                raise AssertionError("granhooke: not on the matrix engine")
+            launched = check_p1(name, nsteps)
+        else:
+            if not sim._ctx.is_cellgrid:
+                raise AssertionError(f"{name}: \"auto\" chose the matrix "
+                                     "engine")
+            launched = check_b6(name, evals, name == "granhertz")
+        phase("main", f"golden {name} on the card (f64, "
+                      f"{'grid' if sim._ctx.is_cellgrid else 'matrix'}): last "
+                      f"row {got} = the reference log's {ref[1:]} to 2e-6; "
+                      f"{len(setups)} set-ups; {launched}")
+    d = GOLDEN.parent / "wall_lj93"
+    gather.counts.reset()
+    script = LammpsScript(device="cuda", dtype=torch.float64)
+    pre, run = (d / "in.test").read_text().rsplit("\nrun", 1)
+    script.run_string(pre)
+    script.sim.verbose = False
+    script.run_string("run" + run)
+    ref = np.loadtxt(d / "thermo.csv")[-1]
+    v = script.sim.last_thermo
+    for k, col, rtol, atol in (("temp", 1, 1e-7, 1e-10),
+                               ("epair", 2, 1e-7, 0.0),
+                               ("emol", 3, 1e-7, 1e-7),
+                               ("etotal", 4, 1e-7, 0.0),
+                               ("press", 5, 1e-6, 1e-6)):
+        if not abs(v[k] - ref[col]) <= rtol * abs(ref[col]) + atol:
+            raise AssertionError(f"wall_lj93 {k}: {v[k]!r} vs {ref[col]}")
+    phase("main", f"golden wall_lj93 on the card (f64, matrix engine) = "
+                  f"thermo.csv's last row to 1e-7: temp {v['temp']!r} "
+                  f"epair {v['epair']!r}; "
+                  f"{check_p1('wall_lj93', int(run.split()[0]))}")
+
+
+def contact_counts(s, neigh):
+    """(slots,) each sphere's touching partners (r < r_i + r_j) along its
+    row of the grid's pair list, which holds every pair within cutneigh:
+    the count the history tables cap at KH = 12."""
+    from tpumd_torch.ops.cellgrid_pairlist import image_shift, unpack
+    kk = max(int(neigh.npairs.max()), 1)
+    live = (torch.arange(kk, device=s.x.device)[None, :]
+            < neigh.npairs[:, None])
+    # a row's tail past npairs is unspecified: slot 0 stands in there
+    j = torch.where(live, unpack(neigh.pairs[:, :kk])[0], 0).long()
+    d0 = s.x[:, None, :] - s.x[j]
+    d = s.x[:, None, :] - (s.x[j] + image_shift(d0, s.box))
+    radsum = s.radius[:, None] + s.radius[j]
+    return ((d * d).sum(-1) < radsum * radsum).logical_and(live).sum(1)
+
+
+def granhertz32k_setup(dtype):
+    from tpumd_torch.bench_targets import IN_GRANHERTZ32K
+    from tpumd_torch.script.parser import LammpsScript
+    script = LammpsScript(device="cuda", dtype=dtype)
+    script.run_string(IN_GRANHERTZ32K)
+    script.sim.verbose = False
+    return script
+
+
+def gran_hertz_vs_plain(script, ptxas_log: str) -> dict:
+    """B6 HERTZ over the grid's pair list against its plain list sweep
+    (forces and torques to TOL_LIST) and the stencil oracle (TOL) at
+    granhertz32k's shape after 500 steps of the f64 run (contacts live),
+    f32 and f64, both shearupdate values, the history as it is and scaled
+    by 40, history tags equal; timed in f32 with shearupdate in the order
+    plain, kernel, kernel, plain, beside its bound."""
+    from tpumd_torch.ops.gran_cellgrid import gran_cellgrid, \
+        gran_compact_sums, gran_pairlist_plain
+    regs = re.findall(r"gran_pairlist_kernelI([fd])Lb(\d)ELb(\d)ELb(\d)E"
+                      r"Lb1E.*?\n.*?(\d+) bytes spill stores.*?\n.*?"
+                      r"Used (\d+) registers", ptxas_log)
+    phase("kernel", "gran_cellgrid HERTZ ptxas (type, shearupdate, freeze, "
+                    "limit_damping: registers, spill store bytes): "
+                    + "; ".join(f"{t}{a}{b}{c}: {r}, {sp}"
+                                for t, a, b, c, sp, r in regs))
+    sim = script.sim
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        worst = {"list": 0.0, "stencil": 0.0}
+        for scale in (1.0, 40.0):
+            args, planes, c, plist = gran_args(script, dtype, scale)
+            if not c.hertz:
+                raise AssertionError("granhertz32k: coefficients not HERTZ")
+            x, tag, valid, stags, shear, box, _ = args
+            for su in (True, False):
+                what = f"gran HERTZ 32k {dtype} scale {scale} shearupdate {su}"
+                over = torch.zeros(2, dtype=torch.int32, device=x.device)
+                k = gran_cellgrid(*args, c, planes, 1e-3, su, plist,
+                                  over[:1])
+                worst["list"] = max(worst["list"], check_gran(
+                    what + " vs list", k, gran_pairlist_plain(
+                        x, tag, stags, shear, box, c, planes, 1e-3, su,
+                        *plist[:2], over[1:]), TOL[dtype], TOL_LIST[dtype]))
+                if over[0] != over[1]:
+                    raise AssertionError(f"{what}: spheres past KH "
+                                         f"{over.tolist()} (kernel, plain)")
+                worst["stencil"] = max(worst["stencil"], check_gran(
+                    what + " vs stencil", k, gran_compact_sums(
+                        *args, c, planes, 1e-3, su), TOL[dtype]))
+        cfg = sim._neigh_cfg
+        phase("kernel", f"gran_cellgrid HERTZ grid {cfg.nx}x{cfg.ny}x"
+                        f"{cfg.nz} cap {cfg.cap} K {plist[0].shape[1]} "
+                        f"{str(dtype)[6:]}: max|kernel - plain| = "
+                        f"{worst['list']:.3g} of max|f| and max|torque| "
+                        f"against the plain list sweep (tol "
+                        f"{TOL_LIST[dtype]:g}), {worst['stencil']:.3g} "
+                        f"against the stencil oracle (tol {TOL[dtype]:g}), "
+                        f"history tags and the count past KH equal")
+    args, planes, c, plist = gran_args(script, torch.float32)
+    x, tag, valid, stags, shear, box, _ = args
+    kern = (lambda: gran_cellgrid(*args, c, planes, 1e-3, True, plist))
+    plain = (lambda: gran_pairlist_plain(x, tag, stags, shear, box, c,
+                                         planes, 1e-3, True, *plist[:2]))
+    fk, fp = kern()[0], plain()[0]
+    out["max_abs_err"] = float((fk - fp).abs().max())
+    p1 = cuda_ms(plain, 10, ahead=False)
+    k1 = cuda_ms(kern, 200)
+    k2 = cuda_ms(kern, 200)
+    p2 = cuda_ms(plain, 10, ahead=False)
+    # read-only (thermo): no history written, the empty slots' tables not
+    # zeroed
+    k_ro = cuda_ms(lambda: gran_cellgrid(*args, c, planes, 1e-3, False,
+                                         plist), 200)
+    out.update(ms=min(k1, k2), plain_ms=min(p1, p2))
+    ncontact = int((plain()[2] != 0).sum()) // 2
+    np_ = sim._neigh_cfg.capacity
+    # the bytes as B6's Hooke entry; a contact's arithmetic as
+    # OPS_GRAN_PAIR and polyhertz's sqrt, its argument (4) and the three
+    # products it scales (ccel and fs: 4)
+    nbytes = gran_bytes(sim.natoms, plist[1])
+    out["bound_ms"], out["bound_by"] = roof(
+        ncontact * (OPS_GRAN_PAIR + 1 + 4 + 4), nbytes)
+    phase("kernel", f"gran_cellgrid HERTZ at granhertz32k's shape, f32, "
+                    f"shearupdate: kernel {k1:.4f} / {k2:.4f} ms, plain "
+                    f"list sweep {p1:.4f} / {p2:.4f} ms; read-only "
+                    f"(thermo) kernel {k_ro:.4f} ms; {ncontact} "
+                    f"contacts; {sim.natoms} spheres in {np_} slots, "
+                    f"{nbytes} bytes -> bound {out['bound_ms']:.6f} ms "
+                    f"({out['bound_by']}); the empty slots' outputs the "
+                    f"kernel zeroes: {(np_ - sim.natoms) * 4 * (6 + 48)} "
+                    f"bytes more")
+    return out
+
+
+def granhertz32k_path(smi: str, ptxas_log: str) -> tuple[dict, dict]:
+    """granhertz32k (bench_targets.IN_GRANHERTZ32K, 32,474 spheres): in
+    f64 to step 500 on the card, rows 0, 100 and 500 against the analytic
+    step-0 ke and tpumd's f64 rows (granhertz32k_gate), then B6 HERTZ
+    against its plain version at that state; in f32: step 0 and the rows
+    of steps 100 and 500 against the f64 run's, 500 more timed steps, B6
+    HERTZ launched once per force evaluation and no plain call, and a
+    profile of 100 steps.  In both runs no sphere may touch more than KH =
+    12 others in any sweep (the kernel's hist_over; its contacts past the
+    12th would lose their history), and the largest count at the end is
+    reported.  Returns (the kernel's entry, the main path's)."""
+    from tpumd_torch.bench_targets import GRANHERTZ32K_N, granhertz32k_gate
+    from tpumd_torch.ops.cellgrid_gran import KH
+    from tpumd_torch.ops.gran_cellgrid import counts as b6_counts
+
+    def no_history_lost(sim, what):
+        lost = int(sim.pair.hist_over)
+        if lost:
+            raise AssertionError(f"granhertz32k {what}: a sphere touched "
+                                 f"{lost} others in a sweep; its contacts "
+                                 f"past KH = {KH} lost their history")
+    rows = None
+    for dtype in (torch.float64, torch.float32):
+        gran_counts_reset()
+        t0 = time.perf_counter()
+        script = granhertz32k_setup(dtype)
+        sim = script.sim
+        with counted_setups(sim, []) as setups:
+            script.run_string("run 0")
+            setup_s = time.perf_counter() - t0
+            if sim.natoms != GRANHERTZ32K_N:
+                raise AssertionError(f"granhertz32k: {sim.natoms} spheres")
+            got = {0: dict(sim.last_thermo)}
+            script.run_string("run 100")
+            got[100] = dict(sim.last_thermo)
+            script.run_string("run 400")
+            got[500] = dict(sim.last_thermo)
+        name = str(dtype)[6:]
+        for step, row in got.items():
+            # f64 against tpumd's rows, f32 against the f64 run's
+            bad = granhertz32k_gate(row, step,
+                                    None if rows is None else rows[step])
+            if bad:
+                raise AssertionError(f"granhertz32k {name} step {step}: "
+                                     f"{bad}")
+        if dtype == torch.float64:
+            no_history_lost(sim, "f64 to step 500")
+            rows = got
+            k = gran_hertz_vs_plain(script, ptxas_log)
+            phase("main", f"granhertz32k f64 on the card: set-up "
+                          f"{setup_s:.3f} s; rows 0 {got[0]['ke']!r}, 100 "
+                          f"{got[100]['ke']!r} / {got[100]['c_rot']!r}, 500 "
+                          f"{got[500]['ke']!r} / {got[500]['c_rot']!r} pass "
+                          f"the gates (analytic step 0; tpumd's f64 rows at "
+                          f"3x the port's CPU gap)")
+            continue
+        lt0 = sim.loop_time
+        script.run_string("run 500")
+        dt = sim.loop_time - lt0
+        evals = force_evals_of(sim, len(setups), 1000, nruns=4)
+        launched = check_b6("granhertz32k f32", evals, True)
+        s, neigh, _ = sim._carry
+        if not torch.isfinite(s.x).all():
+            raise AssertionError("granhertz32k: non-finite positions")
+        live = (neigh.shear_tags != 0).sum(1)
+        touching = contact_counts(s, neigh)
+        most, full = int(touching.max()), int((touching >= KH).sum())
+        no_history_lost(sim, "f32 to step 1000")
+        sps = 500 / dt
+        cfg = sim._neigh_cfg
+        phase("main", f"granhertz32k f32: set-up {setup_s:.3f} s (grid "
+                      f"{cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cap}); rows 100 "
+                      f"and 500 hold to the f64 run's (ke "
+                      f"{got[100]['ke']!r}, {got[500]['ke']!r}; c_rot "
+                      f"{got[500]['c_rot']!r}); step 1000 ke "
+                      f"{sim.last_thermo['ke']!r} c_rot "
+                      f"{sim.last_thermo['c_rot']!r}; contacts per sphere "
+                      f"{float(live[neigh.valid].double().mean()):.3f}, at "
+                      f"most {most} at step 1000, {full} spheres with "
+                      f"{KH} (a full history row: tpumd flags it as an "
+                      f"overflow, C7); no sphere touched more than {KH} in "
+                      f"any sweep of steps 0-1000 (hist_over 0)")
+        phase("main", f"granhertz32k timed 500 steps: {sps:.2f} "
+                      f"timesteps/s, {sps * sim.natoms / 1e6:.3f} "
+                      f"Matom-step/s on {smi}; {launched}")
+        launches = b6_counts.hertz_launches
+        phase("main", "granhertz32k " + profile_steps(script, 100,
+                                                       1e3 / sps))
+        no_history_lost(sim, "f32 to step 1100")
+        return k, {"launches": launches, "sps": sps}
+
+
+def pour20k_path(smi: str) -> dict:
+    """pour20k (bench_targets.IN_POUR20K: a 1,600-sphere floor, fix pour
+    20000 in a cylinder of radius 20): in f64 and f32 to POUR20K_STEPS on
+    the card, the atom count of every thermo row equal to the stored
+    counts (POUR20K_ATOMS: the port's f64 run on the CPU, whose
+    insertions equal tpumd's bit for bit), B6 once per force evaluation,
+    the insertions' host milliseconds and the re-set-ups' beside them; the
+    f32 run's last ke against the f64 run's at POUR20K_KE_F32."""
+    from tpumd_torch.bench_targets import IN_POUR20K, POUR20K_ATOMS, \
+        POUR20K_KE_F32, POUR20K_STEPS
+    from tpumd_torch.md.fix_pour import FixPour
+    from tpumd_torch.script.parser import LammpsScript
+    ke = {}
+    for dtype in (torch.float64, torch.float32):
+        gran_counts_reset()
+        script = LammpsScript(device="cuda", dtype=dtype)
+        script.run_string(IN_POUR20K)
+        sim = script.sim
+        sim.verbose = False
+        with counted_setups(sim, []) as setups:
+            script.run_string(f"run {POUR20K_STEPS}")
+        name = str(dtype)[6:]
+        counts = {int(p[0]): int(p[1]) for p in
+                  (ln.split() for ln in sim.log_lines)
+                  if p and p[0].isdigit()}
+        if counts != POUR20K_ATOMS:
+            raise AssertionError(f"pour20k {name}: atoms by row {counts} vs "
+                                 f"the stored {POUR20K_ATOMS}")
+        launched = check_b6(f"pour20k {name}",
+                            force_evals_of(sim, len(setups), POUR20K_STEPS),
+                            False)
+        ke[name] = sim.last_thermo["ke"]
+        fx = [f for f in sim.fixes if isinstance(f, FixPour)][0]
+        cfg = sim._neigh_cfg
+        sps = POUR20K_STEPS / sim.loop_time
+        # the run's loop holds the second insertion and its set-up (the
+        # first insertion and set-up come before it)
+        events = fx.insert_ms[-1] / 1e3 + setups[-1]
+        flow = POUR20K_STEPS / (sim.loop_time - events)
+        phase("main", f"pour20k {name} on the card: atoms by row = the "
+                      f"stored counts {sorted(set(counts.values()))}; "
+                      f"insertions' host ms "
+                      f"{[round(t, 1) for t in fx.insert_ms]}, set-ups' ms "
+                      f"{[round(1e3 * t, 1) for t in setups]}; last ke "
+                      f"{ke[name]!r}; grid {cfg.nx}x{cfg.ny}x{cfg.nz} cap "
+                      f"{cfg.cap}; {sps:.2f} timesteps/s over the run "
+                      f"(the second insertion and its set-up included), "
+                      f"{flow:.2f} without them, "
+                      f"{flow * sim.natoms / 1e6:.3f} Matom-step/s at the "
+                      f"final count on {smi}; {launched}")
+    if not abs(ke["float32"] - ke["float64"]) <= POUR20K_KE_F32 * ke[
+            "float64"]:
+        raise AssertionError(f"pour20k: f32 ke {ke['float32']!r} vs f64 "
+                             f"{ke['float64']!r} (rtol {POUR20K_KE_F32})")
+    return {"sps": sps}
+
+
 def main():
     smi = environment()
     from tpumd_torch.ops import _build
@@ -3065,6 +3466,9 @@ def main():
         k_gran = gran_kernel_vs_plain(tmp, log)
         small_chute_card_vs_cpu(tmp)
         m_gran = chute_main_path(tmp, smi)
+        granular_goldens()
+        k_hertz, m_hertz = granhertz32k_path(smi, log)
+        pour20k_path(smi)
         k_gather = gather_kernel_vs_plain()
         small_matrix_card_vs_cpu(tmp)
         golden_matrix_decks()
@@ -3124,6 +3528,8 @@ def main():
             *upkeep,
             ("gran_cellgrid", "tpumd_torch/csrc/gran_cellgrid.cu",
              "tpumd/ops/pallas_gran.py:42", k_gran, m_gran),
+            ("gran_cellgrid HERTZ", "tpumd_torch/csrc/gran_cellgrid.cu",
+             "tpumd/ops/pallas_gran.py:42", k_hertz, m_hertz),
             ("row_gather", "tpumd_torch/csrc/row_gather.cu",
              "tools/probes/gather_probe.py:37", k_gather, m_gather)):
         kernels.append({

@@ -45,7 +45,8 @@ runs on a card host without JAX:
   per force evaluation, then over the carried list with the atoms and
   the box dilated about the centre as a barostat's half step does,
   against the plain list sweep and the stencil oracle at that box;
-* gran/hooke/history (B6, ``gran_cellgrid``) over the grid's pair list:
+* gran/hooke/history and gran/hertz/history (B6, ``gran_cellgrid``, and
+  its HERTZ variant) over the grid's pair list:
   the grid-ordered state of generated chute packs after 30 steps on the
   card, a 9x5x4 grid, a 5x2x3 grid (y periodic with 2 cells) and a 5x5x2
   grid (z non-periodic with 2 cells), z non-periodic, with the deck's
@@ -510,7 +511,10 @@ def _gran_grid(tmp_path, dims, dtype):
     planes = (f(s.v), f(s.omega), f(s.radius),
               f(torch.where(s.rmass > 0, s.rmass, 1.0)), s.gmask)
     c = sim.pair.kernel_coeffs()
-    coeffs = (c, c._replace(gammat=0.5 * c.gamman, limit_damping=True))
+    damped = c._replace(gammat=0.5 * c.gamman, limit_damping=True)
+    # and each with gran/hertz/history's polyhertz (the HERTZ variant)
+    coeffs = (c, damped, c._replace(hertz=True),
+              damped._replace(hertz=True))
     plist = (neigh.pairs, neigh.npairs, neigh.row2slot)
     return [((f(s.x), s.tag, neigh.valid, neigh.shear_tags,
               f(neigh.shear * k), box, sim._neigh_cfg), planes, coeffs,
@@ -520,7 +524,8 @@ def _gran_grid(tmp_path, dims, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
 def test_gran_cuda_kernel_matches_plain(dtype, tmp_path):
-    """B6, the gran/hooke/history cell-grid kernel."""
+    """B6, the gran/hooke/history cell-grid kernel, and its HERTZ
+    variant."""
     _card()
     dt = {"f32": torch.float32, "f64": torch.float64}[dtype]
     # every axis of 3 cells or more; y periodic with 2 cells; z
@@ -534,13 +539,19 @@ def test_gran_cuda_kernel_matches_plain(dtype, tmp_path):
                 assert isinstance(c, GranCoeffs)
                 for shearupdate in (True, False):
                     n0 = b6.counts.kernel_launches
+                    h0 = b6.counts.hertz_launches
+                    over = torch.zeros(2, dtype=torch.int32, device="cuda")
                     out = b6.gran_cellgrid(*args, c, planes, 1e-4,
-                                           shearupdate, plist)
+                                           shearupdate, plist, over[:1])
                     assert b6.counts.kernel_launches == n0 + 1
+                    assert b6.counts.hertz_launches == h0 + c.hertz
+                    plain_list = b6.gran_pairlist_plain(
+                        x, tag, stags, shear, box, c, planes, 1e-4,
+                        shearupdate, *plist[:2], over[1:])
+                    # no sphere of these packs has more than KH contacts
+                    assert over.tolist() == [0, 0]
                     for plain in (
-                            b6.gran_pairlist_plain(
-                                x, tag, stags, shear, box, c, planes, 1e-4,
-                                shearupdate, *plist[:2]),
+                            plain_list,
                             b6.gran_compact_sums(*args, c, planes, 1e-4,
                                                  shearupdate)):
                         torch.cuda.synchronize()
@@ -630,3 +641,74 @@ def test_matrix_engine_on_the_card_equals_the_cpu(tmp_path):
         for k in keys:
             assert rows["cuda"][k] == pytest.approx(rows["cpu"][k],
                                                     rel=1e-10), (name, k)
+
+
+@pytest.mark.cuda
+def test_gran_goldens_on_the_card_equal_the_cpu():
+    """tests/golden/gran's granhertz and pour decks, 300 steps on the card
+    and on the CPU in f64: ke to 1e-9 relative (the sums' order differs;
+    the contacts amplify it), equal atom counts; on
+    the card B6 (HERTZ on granhertz) launched once per force evaluation
+    and no plain call."""
+    _card()
+    gran = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "golden", "gran")
+    for name in ("granhertz", "pour"):
+        text = open(os.path.join(gran, f"in.{name}")).read().split("run")[0]
+        rows = {}
+        for dev in ("cuda", "cpu"):
+            b6.counts.reset()
+            script = LammpsScript(device=dev, dtype=torch.float64)
+            script.run_string(text)
+            script.sim.verbose = False
+            script.run_string("run 300")
+            rows[dev] = dict(script.sim.last_thermo)
+            if dev == "cuda":
+                n = b6.counts.kernel_launches
+                assert n > 300 and b6.counts.plain_calls == 0
+                assert b6.counts.hertz_launches == (
+                    n if name == "granhertz" else 0)
+        assert rows["cuda"]["atoms"] == rows["cpu"]["atoms"]
+        assert rows["cuda"]["ke"] == pytest.approx(rows["cpu"]["ke"],
+                                                   rel=1e-9)
+
+
+@pytest.mark.cuda
+def test_gran_cuda_kernel_flags_contacts_past_kh():
+    """Unit spheres on a bcc lattice of cube edge 0.97 touch 14 others:
+    one step of gran/hertz/history on the card records 14 in the pair's
+    hist_over, as the plain version does on the CPU, and warns once; on
+    an fcc lattice of nearest distance 0.96 (12 touching) neither
+    does."""
+    _card()
+    deck = """
+units lj
+atom_style sphere
+boundary p p p
+lattice {lat}
+region box block 0 4 0 4 0 4
+create_box 1 box
+create_atoms 1 box
+pair_style gran/hertz/history 2000.0 NULL 50.0 NULL 0.5 1
+pair_coeff * *
+fix 1 all nve/sphere
+neighbor 0.3 bin
+neigh_modify delay 0 every 1
+timestep 0.0001
+thermo 1
+run 1
+"""
+    for lat, want in (("fcc 1.6", 0), ("bcc 2.2", 14)):
+        for dev in ("cuda", "cpu"):
+            b6.counts.reset()
+            script = LammpsScript(device=dev, dtype=torch.float64)
+            script.run_string(deck.format(lat=lat))
+            sim = script.sim
+            assert sim._ctx.is_cellgrid
+            assert int(sim.pair.hist_over) == want
+            warned = [ln for ln in sim.log_lines
+                      if "lose shear history" in ln]
+            assert len(warned) == (1 if want else 0)
+            if dev == "cuda":
+                assert b6.counts.kernel_launches >= 2
+                assert b6.counts.plain_calls == 0

@@ -321,9 +321,10 @@ def case_unported_commands_raise(tmp_path):
             ("fix             3 active nve/sphere",
              "fix             3 active nve", NotImplementedError, "group"),
             ("group           bottom type 2",
-             "group           bottom id 1:60", NotImplementedError, "group"),
-            ("gran/hooke/history", "gran/hertz/history",
-             NotImplementedError, "hertz"),
+             "group           bottom variable v", NotImplementedError,
+             "group"),
+            ("gran/hooke/history", "granular", NotImplementedError,
+             "granular"),
             ("neigh_modify    exclude group bottom bottom",
              "neigh_modify    exclude type 2 2", NotImplementedError,
              "exclude")):

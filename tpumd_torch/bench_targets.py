@@ -529,6 +529,151 @@ CHUTE_STEP100 = {"ke": (798568.0653316998, 1.5e-3),
                  "atoms": (32000, 1e-12)}
 
 
+# tests/golden/gran/in.granhertz with its geometry widened to a silo of
+# 32,474 spheres (sc 0.9 lattice, spacing 1.0357; a fill cylinder of radius
+# 20 lattice units, 1,249 sites a layer, layers 1-26), everything else as
+# in the golden: velocity set, gran/hertz/history, nve/sphere, gravity 1
+# down, a frictional zcylinder wall with the golden's margin over the
+# fill's radius (0.857 box units; the golden's 5.0 against 4.0 lattice
+# units), a zplane floor, skin 0.3 every step, dt 0.002, boundary f f f;
+# the box is widened around and above.  The caller adds the run lines.
+IN_GRANHERTZ32K = """
+comm_modify     vel yes
+units           lj
+atom_style      sphere
+boundary        f f f
+region          box block -24 24 -24 24 0 36
+create_box      1 box
+lattice         sc 0.9
+region          fill cylinder z 0 0 20.0 0.5 26.2
+create_atoms    1 region fill
+velocity        all set 0.6 -0.3 -1.0
+pair_style      gran/hertz/history 2000.0 NULL 50.0 NULL 0.5 1
+pair_coeff      * *
+fix             1 all nve/sphere
+fix             2 all gravity 1.0 vector 0 0 -1
+fix             3 all wall/gran hertz/history 2000.0 NULL 50.0 NULL 0.5 1 zcylinder 21.57
+fix             4 all wall/gran hertz/history 2000.0 NULL 50.0 NULL 0.5 1 zplane 0.0 NULL
+neighbor        0.3 bin
+neigh_modify    delay 0 every 1
+compute         rot all erotate/sphere
+timestep        0.002
+thermo          100
+thermo_style    custom step ke c_rot
+thermo_modify   norm no
+"""
+GRANHERTZ32K_N = 32474
+
+
+def granhertz32k_ke0(spacing: float = 0.9 ** (-1.0 / 3.0)) -> float:
+    """Step-0 ke of IN_GRANHERTZ32K: every sphere (mass pi/6) at velocity
+    set's vector in lattice units, (0.6, -0.3, -1.0) times the spacing."""
+    v2 = (0.6 ** 2 + 0.3 ** 2 + 1.0 ** 2) * spacing ** 2
+    return 0.5 * GRANHERTZ32K_N * (np.pi / 6.0) * v2
+
+
+# tpumd's rows of IN_GRANHERTZ32K on the CPU in float64 (its matrix engine;
+# tests/test_torch_granular_decks.py::test_granhertz32k_targets_from_tpumd
+# regenerates them).  Step 100 is free flight (no sphere touches the floor
+# or the wall until step ~240); contacts are live by step 500.
+GRANHERTZ32K_TPUMD = {
+    100: {"ke": 17086.73396386564, "c_rot": 0.0},
+    500: {"ke": 27972.628932843916, "c_rot": 529.433720669162}}
+# the relative gap of the port's own f64 run on the CPU to those rows (ke
+# 17086.73396386567 and 27972.628932843938, c_rot 529.4337206691627); a
+# card run in f64 holds to three times it, and to at least four ulps (the
+# card sums in another order)
+GRANHERTZ32K_GAP_F64 = {100: {"ke": 1.76e-15}, 500: {"ke": 7.8e-16,
+                                                    "c_rot": 1.3e-15}}
+# an f32 run against the f64 run at step 100 and 500 (relative): the port's
+# own f32 run on the CPU sat at ke 1.16e-5 (step 100: free flight, the f32
+# rounding of ~100 velocity-Verlet kicks) and 2.3e-5 (step 500), c_rot
+# 1.1e-4 (step 500: contact forces amplify it); the gates are about four
+# times those
+GRANHERTZ32K_F32_F64 = {100: {"ke": 5e-5}, 500: {"ke": 1e-4,
+                                                  "c_rot": 5e-4}}
+
+
+def granhertz32k_gate(vals: dict, step: int, f64=None) -> list[str]:
+    """The keys of a row of IN_GRANHERTZ32K that miss its gate: step 0
+    against the analytic ke (rel 1e-12 in f64, STEP0_RTOL in f32) and c_rot
+    0; with f64 (the f64 run's row) the f32 gates, else tpumd's row at
+    three times the port's CPU gap."""
+    if step == 0:
+        rtol = 1e-12 if f64 is None else STEP0_RTOL
+        want = {"ke": (granhertz32k_ke0(), rtol), "c_rot": (0.0, 0.0)}
+    elif f64 is not None:
+        want = {k: (f64[k], r) for k, r in GRANHERTZ32K_F32_F64[step].items()}
+    else:
+        want = {k: (t, 3.0 * max(GRANHERTZ32K_GAP_F64[step].get(k, 0.0),
+                                 4 * 2.0 ** -52))
+                for k, t in GRANHERTZ32K_TPUMD[step].items()}
+    bad = []
+    for k, (t, r) in want.items():
+        if (t == 0.0 and vals[k] != 0.0) or (
+                t != 0.0 and not abs(vals[k] - t) <= r * abs(t)):
+            bad.append(f"{k}={vals[k]!r} vs {t!r} (rtol {r:.3g})")
+    return bad
+
+
+# tests/golden/gran/in.pour with the box, the floor and the insertion
+# cylinder widened: a floor layer of 1,600 spheres (sc 1.0, 40 x 40), an
+# insertion cylinder of radius 20 from z 10 to 30, fix pour 20000 with the
+# golden's seed, coefficients and velocity (12,000 spheres an insertion at
+# the default volume fraction 0.25, so two insertions), the box widened to
+# +-30 around the cylinder so that spheres splashing off the floor stay
+# inside its fixed faces.  As in the golden, the fix comes before the
+# timestep command, so nfreq takes the default dt 0.005: 416 steps (the
+# golden's 107).  The caller adds the run lines (POUR20K_STEPS: about 300
+# steps past the second insertion).
+IN_POUR20K = """
+units           lj
+atom_style      sphere
+comm_modify     vel yes
+boundary        f f f
+region          box block -30 30 -30 30 0 32
+create_box      1 box
+lattice         sc 1.0
+region          floor block -20 19.5 -20 19.5 0.9 1.1 units box
+create_atoms    1 region floor
+pair_style      gran/hooke/history 2000.0 NULL 50.0 NULL 0.5 1
+pair_coeff      * *
+region          ins cylinder z 0 0 20 10 30 units box
+fix             g all gravity 10.0 vector 0 0 -1
+fix             i all nve/sphere
+fix             w all wall/gran hooke/history 2000.0 NULL 50.0 NULL 0.5 1 zplane 0.0 NULL
+fix             p all pour 20000 1 123457 region ins diam one 1.0 vel 0 0 0 0 0.8
+neighbor        0.3 bin
+neigh_modify    delay 0 every 1
+timestep        0.002
+thermo          100
+thermo_style    custom step atoms ke
+thermo_modify   norm no
+"""
+POUR20K_STEPS = 720
+# The atom count of each thermo row of IN_POUR20K: the 1,600 floor spheres,
+# 4,869 inserted at the start and 4,774 at step 416 (fix pour draws a
+# sphere's height first, biased to the top, and tries points at that height
+# only, so its 50 attempts a sphere run out as the top fills: about 4,800
+# an insertion, not 12,000).  From the port's run on the CPU in float64.
+# tpumd's attempt loop tests each point against the near atoms one by one
+# in Python, hours for these ~1.2 million attempts (ROADMAP C14), so the
+# counts rest on the port's insertions equalling tpumd's bit for bit: on
+# in.pour, where every attempt finds room (tests/test_torch_pour.py), and
+# on a crowded pour whose insertion runs out of attempts after ~11,000,
+# most of them failed, as here (tests/test_torch_pour_crowded.py).
+# tests/test_torch_granular_decks.py::test_pour20k_targets_from_the_port
+# regenerates them.  The f32 run gave the same counts.
+POUR20K_ATOMS = {0: 6469, 100: 6469, 200: 6469, 300: 6469, 400: 6469,
+                 500: 11243, 600: 11243, 700: 11243, 720: 11243}
+# The f32 run's last ke against the f64 run's: the spheres landing on the
+# floor amplify f32 rounding, so the two runs part after step 600 (the
+# port's own runs on the CPU: 2.7e-5 at step 600, 7.4e-4 at step 720, ke
+# 479451.83 against 479807.04); the gate holds the f32 run to the same pour
+# (its insertions equal, its energy within 1 %), not to one trajectory.
+POUR20K_KE_F32 = 1e-2
+
+
 # tests/golden/water_npt/in.test replicated 4x4x5 right after read_data:
 # 10,000 waters (30,000 atoms) in 76 x 76 x 95 A, harmonic bonds, CHARMM
 # angles, lj/charmm/coul/long 6/7 with PPPM 1e-4, SHAKE of the bonds and

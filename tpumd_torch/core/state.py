@@ -142,6 +142,11 @@ class MDState:
     rmass: torch.Tensor | None = None    # (N,) per-atom mass
     omega: torch.Tensor | None = None    # (N, 3) angular velocity
     torque: torch.Tensor | None = None   # (N, 3)
+    # per-atom tables that ride the atoms through every re-bin,
+    # compaction and insertion, so that they stay with their tags: a fix's
+    # per-atom state by its key (fix wall/gran's shear history) and a
+    # granular style's contact history between a run and the next set-up
+    peratom: dict | None = None          # name -> (N, ...) tensor
 
     @property
     def capacity(self) -> int:
@@ -159,10 +164,13 @@ PER_ATOM_FIELDS = ("x", "v", "f", "type", "tag", "image", "molecule",
 
 
 def map_per_atom(state: MDState, fn) -> MDState:
-    """Apply fn(tensor) to every per-atom field that is set."""
-    return state.replace(**{k: fn(getattr(state, k))
-                            for k in PER_ATOM_FIELDS
-                            if getattr(state, k) is not None})
+    """Apply fn(tensor) to every per-atom field that is set, the tables
+    of ``peratom`` included."""
+    out = {k: fn(getattr(state, k)) for k in PER_ATOM_FIELDS
+           if getattr(state, k) is not None}
+    if state.peratom:
+        out["peratom"] = {k: fn(a) for k, a in state.peratom.items()}
+    return state.replace(**out)
 
 
 def make_state(x, v, types, box: Box, *, tags=None, image=None,

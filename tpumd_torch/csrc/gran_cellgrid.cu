@@ -1,5 +1,5 @@
-// gran/hooke/history forces, torques and compact contact history over the
-// cell grid's pair list, on Hopper (sm_90a).
+// gran/hooke/history and gran/hertz/history forces, torques and compact
+// contact history over the cell grid's pair list, on Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel tpumd/ops/pallas_gran.py::_kernel (entry
 // gran_cellgrid_forces_pallas) and, where that kernel does not run
@@ -24,13 +24,16 @@
 // :169-380) and tpumd:
 //   meff = m_i m_j / (m_i + m_j), or the other's mass when one is frozen
 //     (FREEZE: gmask & freeze_bit);
-//   ccel = kn (r_i + r_j - r) / r - meff gamman (v_r . d) / r2, clamped at 0
-//     with LIMIT_DAMPING;
+//   ccel = kn (r_i + r_j - r) / r - meff gamman (v_r . d) / r2, times
+//     polyhertz = sqrt((r_i + r_j - r) r_i r_j / (r_i + r_j)) with HERTZ
+//     (pair_gran_hertz_history.cpp:186-189), then clamped at 0 with
+//     LIMIT_DAMPING;
 //   vtr = the tangential relative velocity at the contact, rotation
 //     included;
 //   shear = the i slot's history entry whose tag is tag_j (0 when none);
 //     with SHEARUPDATE it advances by vtr dt and loses its normal part;
-//   fs = -(kt shear + meff gammat vtr), rescaled to xmu |ccel r| when
+//   fs = -(kt shear + meff gammat vtr), times polyhertz with HERTZ,
+//     rescaled to xmu |ccel r| when
 //     longer (the shear then rescaled to match where it is non-zero, and
 //     the force zeroed where it is zero);
 //   f_i += d ccel + fs,  torque_i -= r_i (d x fs) / r.
@@ -38,16 +41,20 @@
 // partner tag and shear into entry k of the new tables (entries from the
 // contact count on are zeroed); the row runs in stencil order, so the
 // ranks are the stencil sweep's, and a contact of rank KH or more still
-// adds its force but loses its history, as in tpumd.  Without it the new
-// tables are not written: the caller keeps the old ones.  Empty slots get
-// zero forces, torques and (with SHEARUPDATE) history.
+// adds its force but loses its history, as in tpumd; then, where over is
+// not null, *over is raised to the slot's contact count.  Without it the
+// new tables are not written: the caller keeps the old ones.  Empty slots
+// get zero forces, torques and (with SHEARUPDATE) history.
 //
 // What bounds it: at the 32k chute shape (54,432 slots, 32,000 spheres, K
 // 16, ~11 list entries a row, ~3.9 contacts a sphere) the inputs and the
 // history tables, read and written once, are ~25 MB, ~7.5 us at the HBM
 // rate; the contacts' arithmetic (~1.3e5 contacts x ~160 operations) is
 // far less.  The list (~1.4 MB) adds little.  The stencil design tested
-// 756 candidates a slot, one thread per slot, 41 % of them empty.
+// 756 candidates a slot, one thread per slot, 41 % of them empty.  HERTZ
+// adds a sqrt, its argument and a few products per contact; at the 32k
+// silo's shape (168,480 slots, 19 % of them holding a sphere) the bytes
+// are mostly the empty slots' zeroed outputs, ~78 MB a call.
 //
 // Design: kLanes lanes per valid atom (chosen on the card by
 // probes/pairlist_lanes.py: PERF.md).  The lanes of an atom read its old
@@ -134,7 +141,8 @@ struct Args {
   int px, py, pz;           // periodic flags
   T kn, kt, gamman, gammat, xmu, dt;
   int freeze_bit;
-  int limit_damping, shearupdate;
+  int limit_damping, shearupdate, hertz;
+  int* over;                // may be null
 };
 
 template <typename T, bool SHEARUPDATE>
@@ -161,7 +169,8 @@ __device__ __forceinline__ T lanes_sum(T v, unsigned mask) {
   return v;
 }
 
-template <typename T, bool SHEARUPDATE, bool FREEZE, bool LIMIT_DAMPING>
+template <typename T, bool SHEARUPDATE, bool FREEZE, bool LIMIT_DAMPING,
+          bool HERTZ>
 __global__ void __launch_bounds__(kBlock) gran_pairlist_kernel(
     const Args<T> a) {
   // the empty slots' outputs, by every thread of the grid in turn
@@ -241,6 +250,11 @@ __global__ void __launch_bounds__(kBlock) gran_pairlist_kernel(
 
       const T damp = meff * a.gamman * vnnr * rsqinv;
       T ccel = a.kn * (radsum - r) * rinv - damp;
+      T poly = T(1);
+      if (HERTZ) {
+        poly = sqrt_t((radsum - r) * radi * radj / radsum);
+        ccel *= poly;
+      }
       if (LIMIT_DAMPING) ccel = ccel > T(0) ? ccel : T(0);
 
       const T vtr1 = vt1 + (dy * wr3 - dz * wr2);
@@ -281,6 +295,11 @@ __global__ void __launch_bounds__(kBlock) gran_pairlist_kernel(
       T fs1 = -(a.kt * sh1 + gt * vtr1);
       T fs2 = -(a.kt * sh2 + gt * vtr2);
       T fs3 = -(a.kt * sh3 + gt * vtr3);
+      if (HERTZ) {
+        fs1 *= poly;
+        fs2 *= poly;
+        fs3 *= poly;
+      }
       const T fs = sqrt_t(fs1 * fs1 + fs2 * fs2 + fs3 * fs3);
       const T fn = a.xmu * abs_t(ccel * r);
       if (fs > fn) {
@@ -342,6 +361,9 @@ __global__ void __launch_bounds__(kBlock) gran_pairlist_kernel(
     a.torque[3 * i + 2] = tz;
   }
   if (SHEARUPDATE) {
+    if (lane == 0 && count > kKH && a.over != nullptr) {
+      atomicMax(a.over, count);
+    }
     for (int kk = (count < kKH ? count : kKH) + lane; kk < kKH;
          kk += kLanes) {
       a.stags_new[hbase + kk] = 0;
@@ -353,21 +375,27 @@ __global__ void __launch_bounds__(kBlock) gran_pairlist_kernel(
   }
 }
 
-template <typename T, bool S, bool F, bool L>
+template <typename T, bool S, bool F, bool L, bool H>
 int launch_one(const Args<T>& a, cudaStream_t s) {
   // one group of kLanes threads per atom, and at least enough threads to
   // zero the empty slots in a few passes
   long long threads = a.natoms * kLanes;
   if (threads < 1) threads = 1;
   const dim3 grid(static_cast<unsigned>((threads + kBlock - 1) / kBlock));
-  gran_pairlist_kernel<T, S, F, L><<<grid, kBlock, 0, s>>>(a);
+  gran_pairlist_kernel<T, S, F, L, H><<<grid, kBlock, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool S, bool F, bool L>
+int pick_hertz(const Args<T>& a, cudaStream_t s) {
+  return a.hertz ? launch_one<T, S, F, L, true>(a, s)
+                 : launch_one<T, S, F, L, false>(a, s);
 }
 
 template <typename T, bool S, bool F>
 int pick_limit(const Args<T>& a, cudaStream_t s) {
-  return a.limit_damping ? launch_one<T, S, F, true>(a, s)
-                         : launch_one<T, S, F, false>(a, s);
+  return a.limit_damping ? pick_hertz<T, S, F, true>(a, s)
+                         : pick_hertz<T, S, F, false>(a, s);
 }
 
 template <typename T, bool S>
@@ -390,8 +418,8 @@ int launch(const Args<T>& a, cudaStream_t s) {
 
 // C interface, bound with ctypes by tpumd_torch/ops/gran_cellgrid.py.
 // periodic: px, py, pz; gmask may be null without a freeze bit.
-// stags_new and shear_new are written only with shearupdate.  Returns the
-// CUDA error code of the launch (0 on success).
+// stags_new and shear_new are written only with shearupdate; over may be
+// null.  Returns the CUDA error code of the launch (0 on success).
 #define TPUMD_GRAN_ENTRY(NAME, T)                                            \
   extern "C" int NAME(                                                       \
       const T* x, const T* v, const T* omega, const T* radius,               \
@@ -402,12 +430,12 @@ int launch(const Args<T>& a, cudaStream_t s) {
       long long np, long long natoms, int K, int px, int py, int pz,         \
       double kn, double kt, double gamman, double gammat, double xmu,        \
       double dt, int freeze_bit, int limit_damping, int shearupdate,         \
-      void* stream) {                                                        \
+      int hertz, int* over, void* stream) {                                  \
     const Args<T> a{x, v, omega, radius, rmass, gmask, valid, tag,           \
                     stags_old, shear_old, pairs, npairs, rows, lengths, f,   \
                     torque, stags_new, shear_new, np, natoms, K, px, py, pz, \
                     T(kn), T(kt), T(gamman), T(gammat), T(xmu), T(dt),       \
-                    freeze_bit, limit_damping, shearupdate};                 \
+                    freeze_bit, limit_damping, shearupdate, hertz, over};    \
     return launch<T>(a, static_cast<cudaStream_t>(stream));                  \
   }
 

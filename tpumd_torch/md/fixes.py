@@ -4,8 +4,8 @@ The reference's Fix hook pipeline (src/fix.h, dispatched per phase by
 Modify) as transforms invoked at fixed phases of the step
 (tpumd/md/fixes.py):
 
-    initial_integrate -> (reneighbor?) -> force eval -> post_force
-    -> final_integrate
+    initial_integrate -> post_integrate -> (reneighbor?) -> force eval
+    -> post_force -> final_integrate
 
 A fix object is a host-side config.  A fix that carries data from step
 to step (an RNG state, thermostat chains, a constraint virial) keeps it in
@@ -35,6 +35,9 @@ class Fix:
     # src/fix.h): the rebuild check of a carried pair list then counts
     # the box's move
     box_change = False
+    # a fix that acts on the host every host_every steps (0: never): the
+    # run loop ends a segment there and calls host_end_of_step(sim)
+    host_every = 0
 
     def group_sel(self, s):
         """(N,) bool mask of the atoms this fix acts on."""
@@ -51,6 +54,9 @@ class Fix:
         return None
 
     def initial_integrate(self, s, fstate, ctx):
+        return s, fstate
+
+    def post_integrate(self, s, fstate, ctx):
         return s, fstate
 
     def post_force(self, s, fstate, ctx, xin=None):

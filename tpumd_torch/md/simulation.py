@@ -33,7 +33,8 @@ from tpumd_torch.core.state import MDState, map_per_atom, wrap_pbc
 from tpumd_torch.md import computes
 from tpumd_torch.md.computes import THERMO_COMPUTES
 from tpumd_torch.md.verlet import ENERGY_KEYS, StepContext, build_matrix, \
-    eval_energies, grid_pairlist, pack_thermo, run_segment
+    eval_energies, grid_pairlist, pack_thermo, partner_tags, \
+    remap_history_by_tag, run_segment
 from tpumd_torch.ops import cellgrid as cg
 from tpumd_torch.ops import neighbor as nb
 from tpumd_torch.ops.cellgrid_gran import KH
@@ -52,6 +53,21 @@ BARO_MARGIN = 1.12
 # a shrink-wrapped face sits this fraction of the initial box length
 # beyond the outermost atom (SMALL, src/domain.cpp:46)
 SMALL = 1.0e-4
+
+
+# the keys of a granular style's contact history in MDState.peratom between
+# a run and the next set-up: each atom's partner tags and their shears
+PAIR_HISTORY = ("pair history tags", "pair history shear")
+
+
+def _pop_history(s: MDState):
+    """(s without the contact history in its per-atom tables, (partner
+    tags, shears) or None)."""
+    if not s.peratom or PAIR_HISTORY[0] not in s.peratom:
+        return s, None
+    table = dict(s.peratom)
+    history = (table.pop(PAIR_HISTORY[0]), table.pop(PAIR_HISTORY[1]))
+    return s.replace(peratom=table), history
 
 
 def resolve_device(device) -> torch.device:
@@ -122,6 +138,7 @@ class Simulation:
         self._bonded_dev = ()
         self._fstate_stash: dict = {}
         self.grid_setups = 0           # fresh grids binned (_grid_setup)
+        self.steps_redone = 0          # steps of segments redone on overflow
         self._refreshes = 0            # list refreshes of earlier grids
         self.step = 0
         self.last_thermo: dict | None = None
@@ -470,32 +487,35 @@ class Simulation:
         pj = torch.as_tensor(perm, device=self.device)
         self.state = map_per_atom(s, lambda a: a[pj])
 
-    def _grid_setup(self, s: MDState, nbuilds: int = 1, history=None):
+    def _grid_setup(self, s: MDState, nbuilds: int = 1):
         """Pad, bin and permute a compact state into a fresh grid
         (for the current config) and build its pair list where the style
         sweeps one; returns (state, neigh).  A granular style's history
-        tables, (natoms, KH) and (natoms, KH, 3) rows of the compact state,
-        move with the atoms; zero when not given."""
+        tables come from the contact history the state carries by tag
+        (``_pop_history``), moved with the atoms; zero without one."""
         cfg = self._ctx.neigh_cfg
         self.grid_setups += 1
         s = cg.pad_state(wrap_pbc(s), cfg.capacity)
         valid0 = torch.arange(s.capacity, device=self.device) < self.natoms
         perm, valid, max_count, over = cg.bin_permutation(
             s.x, valid0, s.box, cfg)
-        s = cg.apply_permutation(s, perm, valid)
+        s, history = _pop_history(cg.apply_permutation(s, perm, valid))
         tables = {}
         if self.granular:
-            if history is None:
-                history = (
-                    torch.zeros((self.natoms, KH), dtype=torch.int32,
-                                device=self.device),
-                    torch.zeros((self.natoms, KH, 3), dtype=self.dtype,
-                                device=self.device))
-            idx = torch.clamp(perm, min=0)
-            tables = {k: torch.where(
-                valid.reshape((-1,) + (1,) * (a.dim() - 1)),
-                cg.pad_rows(a, cfg.capacity)[idx], 0)
-                for k, a in zip(("shear_tags", "shear"), history)}
+            tables = {"shear_tags": torch.zeros(
+                (cfg.capacity, KH), dtype=torch.int32, device=self.device),
+                "shear": torch.zeros((cfg.capacity, KH, 3),
+                                     dtype=self.dtype, device=self.device)}
+            if history is not None:
+                # the first KH live entries of each row
+                ptags, shear = history
+                order = torch.argsort((ptags == 0).to(torch.int8), dim=1,
+                                      stable=True)[:, :KH]
+                w = order.shape[1]
+                tables["shear_tags"][:, :w] = torch.gather(ptags, 1, order)
+                tables["shear"][:, :w] = torch.gather(
+                    shear, 1, order[..., None].expand(-1, -1, 3)).to(
+                        self.dtype)
         plist, list_over = grid_pairlist(s, valid, self._ctx)
         if list_over is not None:
             over = over | list_over
@@ -540,6 +560,10 @@ class Simulation:
                 "the atoms' extent in x, not in lamda coordinates (not "
                 "ported)")
         if mode == "cellgrid":
+            if self.pair is not None and not self.pair.supports_cellgrid:
+                raise NotImplementedError(
+                    f"pair_style {name} on the cell grid is not ported (the "
+                    "matrix engine takes it)")
             if not all(box.periodic) and not self.granular:
                 raise NotImplementedError(
                     f"boundary {' '.join(self.boundary)} with pair_style "
@@ -580,6 +604,12 @@ class Simulation:
     def setup(self):
         """Initial neighbor build + force evaluation (Verlet::setup)."""
         self._mass_sum = None
+        if self.state.peratom:
+            # the per-atom tables of fixes that are gone go with them
+            keep = {fx.history_key for fx in self.fixes
+                    if hasattr(fx, "history_key")} | set(PAIR_HISTORY)
+            self.state = self.state.replace(peratom={
+                k: a for k, a in self.state.peratom.items() if k in keep})
         if self._shrink_small is None:
             self._shrink_small = SMALL * self.state.box.lengths_np()
         self._reset_box_host()
@@ -672,10 +702,16 @@ class Simulation:
     def _matrix_setup(self, s: MDState, nbuilds: int = 1, old=None):
         """Wrap a compact state and build its neighbor matrix (for the
         current config); returns (state, neigh).  A granular style's
-        history is carried from ``old`` by j-match, else zero."""
-        s = wrap_pbc(s)
-        return s, build_matrix(s, self._ctx, nbuilds, old=old,
-                               history=self.granular)
+        history is carried from ``old`` by j-match, or from the contact
+        history the state carries by tag (``_pop_history``), else zero."""
+        s, history = _pop_history(wrap_pbc(s))
+        neigh = build_matrix(s, self._ctx, nbuilds, old=old,
+                             history=self.granular and self.pair.has_history)
+        if old is None and history is not None and neigh.shear is not None:
+            neigh = neigh.replace(shear=remap_history_by_tag(
+                history[0], history[1].to(self.dtype),
+                partner_tags(s.tag, neigh.idx)))
+        return s, neigh
 
     def _grow_matrix(self, neigh):
         """Grow both matrix capacities after an overflow (the flag is the
@@ -712,10 +748,25 @@ class Simulation:
             self._fstate_stash = {
                 id(fx): fs for fx, fs in zip(self._ctx.fixes, fstates)
                 if any(fx is kept for kept in self.fixes)}
+            s = self._push_history(s, neigh)
             self.state = (cg.compact_state(s, neigh.valid, self.natoms)
                           if self._ctx.is_cellgrid else s)
         self._ctx = None
         self._carry = None
+
+    def _push_history(self, s: MDState, neigh) -> MDState:
+        """s with the granular contact history of neigh in its per-atom
+        tables, as each atom's partner tags (0: none) and shears, so that
+        it follows the atoms by tag through compaction, sorting and
+        insertion to the next set-up (tpumd's _shear_stash, kept by tag)."""
+        shear = getattr(neigh, "shear", None)
+        if shear is None:
+            return s
+        ptags = (neigh.shear_tags if self._ctx.is_cellgrid
+                 else partner_tags(s.tag, neigh.idx))
+        return s.replace(peratom={**(s.peratom or {}),
+                                  PAIR_HISTORY[0]: ptags,
+                                  PAIR_HISTORY[1]: shear})
 
     def _grow_grid(self, neigh, max_count):
         """Grow the cell grid's capacities after an overflow that the grid
@@ -744,7 +795,16 @@ class Simulation:
         """Run nsteps in segments that end at thermo and dump steps (the
         reference's Output::next, src/output.cpp); the device is read once
         a segment, and the energies are evaluated only where a thermo row
-        prints."""
+        prints.  A fix with a ``host_every`` also ends a segment at its
+        steps, where its ``host_end_of_step`` may edit the atoms (insert or
+        delete them) after invalidating the set-up, before the step's
+        thermo and dumps; the next segment then starts from a new set-up,
+        the contact and per-atom fix histories carried by tag
+        (tpumd/md/simulation.py:834-1000).  ``host_run_begin`` runs before
+        the run's set-up."""
+        for fx in self.fixes:
+            if hasattr(fx, "host_run_begin"):
+                fx.host_run_begin(self)
         if self._ctx is None:
             self.setup()
         ctx = self._ctx
@@ -761,7 +821,8 @@ class Simulation:
             self._wall_start = t0
         while self.step < target:
             nxt = target
-            for every in [self.thermo_every] + [d.every for d in self.dumps]:
+            for every in ([self.thermo_every] + [d.every for d in self.dumps]
+                          + [fx.host_every for fx in self.fixes]):
                 if every > 0:
                     nxt = min(nxt, (self.step // every + 1) * every)
             seg = nxt - self.step
@@ -773,14 +834,15 @@ class Simulation:
                 carry = run_segment(*snapshot, ctx, seg, xs,
                                     step0=self.step)
                 # the one overflow read of the segment
-                over, saturated = self._segment_flags(carry[1])
-                if saturated and not self._hist_warned:
+                over, lost = self._segment_flags(carry[1])
+                if lost and not self._hist_warned:
                     self._hist_warned = True
-                    self._log(f"WARNING: granular contact-history slots "
-                              f"saturated for some atom \u2014 contacts beyond "
-                              f"{KH} per atom lose shear history")
+                    self._log(f"WARNING: a sphere touched {lost} others "
+                              f"\u2014 contacts beyond {KH} per atom lose "
+                              f"shear history")
                 if over:
                     # grow capacities, redo the segment from the snapshot
+                    self.steps_redone += seg
                     ctx = self._regrow(snapshot, carry[1])
                     continue
                 break
@@ -788,6 +850,14 @@ class Simulation:
             self.step = nxt
             if self._barostat_active() or ctx.shrink:
                 ctx = self._revalidate_geometry()
+            self.state = self._carry[0]
+            for fx in self.fixes:
+                if fx.host_every and self.step % fx.host_every == 0:
+                    fx.host_end_of_step(self)
+            if self._ctx is None:
+                # a host fix edited the atoms: set up anew
+                self.setup()
+                ctx = self._ctx
             s, neigh, fstates = self._carry
             self.state = s
             if self.step == target or (self.thermo_every > 0 and
@@ -820,17 +890,19 @@ class Simulation:
             if d.due(self.step, setup):
                 d.write(self)
 
-    def _segment_flags(self, neigh) -> tuple[bool, bool]:
-        """(cell or list overflow, some atom's KH history entries all in
-        use on the grid), read from the device in one transfer."""
+    def _segment_flags(self, neigh) -> tuple[bool, int]:
+        """(cell or list overflow, the pair's hist_over: the largest
+        contact count of a sphere that had more than KH on the grid, else
+        0), read from the device in one transfer."""
         if not self._ctx.is_cellgrid:
-            return bool(neigh.overflow), False
-        if neigh.shear_tags is None:
-            return bool(neigh.any_overflow), False
-        full = torch.all(neigh.shear_tags != 0, dim=1).any()
-        over, sat = torch.stack([torch.as_tensor(neigh.any_overflow),
-                                 full]).tolist()
-        return over, sat
+            return bool(neigh.overflow), 0
+        lost = getattr(self.pair, "hist_over", None)
+        if neigh.shear_tags is None or lost is None:
+            return bool(neigh.any_overflow), 0
+        over, lost = torch.cat([torch.as_tensor(
+            neigh.any_overflow, dtype=torch.int32,
+            device=lost.device).reshape(1), lost]).tolist()
+        return bool(over), lost
 
     def _rebin(self, snapshot):
         """Rebuild the neighbor config for the snapshot's box and capacity
@@ -840,14 +912,10 @@ class Simulation:
         s0, neigh0, fstates = snapshot
         if self._ctx.is_cellgrid:
             self._refreshes += self._grid_refreshes(neigh0)
-            rows = cg.compact_rows(neigh0.valid, self.natoms)
-            self.state = cg.compact_state(s0, neigh0.valid, self.natoms)
-            history = None
-            if neigh0.shear is not None:
-                history = (neigh0.shear_tags[rows], neigh0.shear[rows])
+            self.state = cg.compact_state(self._push_history(s0, neigh0),
+                                          neigh0.valid, self.natoms)
             self._ctx = self._make_ctx()
-            s, neigh = self._grid_setup(self.state, nbuilds=neigh0.nbuilds,
-                                        history=history)
+            s, neigh = self._grid_setup(self.state, nbuilds=neigh0.nbuilds)
         else:
             self.state = s0
             self._ctx = self._make_ctx()

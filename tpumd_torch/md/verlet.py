@@ -242,19 +242,33 @@ def reset_box_shrink(s: MDState, ctx: StepContext) -> MDState:
     return s.replace(box=s.box.replace(lo=lo, hi=hi))
 
 
+def partner_tags(tag, idx):
+    """(N, K) the tags of each row's neighbors in the (N, K) matrix idx,
+    0 in the self-index padding."""
+    own = torch.arange(idx.shape[0], dtype=idx.dtype,
+                       device=idx.device)[:, None]
+    return torch.where(idx != own, tag[idx], 0)
+
+
+def remap_history_by_tag(old_tags, old_shear, new_tags):
+    """Carry per-slot history to a new list: each new slot takes the
+    history of the old slot of its row that held the same partner tag, or
+    0 (FixNeighHistory, src/fix_neigh_history.cpp; tpumd/md/verlet.py:
+    301-320).  A partner appears at most once in a row, so the batched
+    product of the 0/1 match with the old history copies it exactly."""
+    match = ((new_tags[:, :, None] == old_tags[:, None, :])
+             & (old_tags > 0)[:, None, :]).to(old_shear.dtype)
+    out = torch.bmm(match, old_shear)                  # (N, Knew, 3)
+    return torch.where((new_tags > 0)[..., None], out, 0.0)
+
+
 def _remap_shear(old_idx, new_idx, shear):
-    """Carry per-slot history across a rebuild of the neighbor matrix: each
-    new slot (i, j) takes the history of the old slot of row i that held
-    the same j, or 0 (FixNeighHistory, src/fix_neigh_history.cpp;
-    tpumd/md/verlet.py:301-320).  A j appears at most once in a row, so
-    the batched product of the 0/1 match with the old history copies it
-    exactly."""
-    n = old_idx.shape[0]
-    own = torch.arange(n, dtype=old_idx.dtype, device=old_idx.device)[:, None]
-    match = (new_idx[:, :, None] == old_idx[:, None, :]) \
-        & (old_idx != own)[:, None, :]                 # (N, Knew, Kold)
-    out = torch.bmm(match.to(shear.dtype), shear)      # (N, Knew, 3)
-    return torch.where((new_idx != own)[..., None], out, 0.0)
+    """remap_history_by_tag on row indices: each new slot (i, j) takes the
+    history of the old slot of row i that held the same j, or 0."""
+    rows = torch.arange(1, old_idx.shape[0] + 1, dtype=old_idx.dtype,
+                        device=old_idx.device)
+    return remap_history_by_tag(partner_tags(rows, old_idx), shear,
+                                partner_tags(rows, new_idx))
 
 
 def build_matrix(s: MDState, ctx: StepContext, nbuilds: int,
@@ -389,6 +403,8 @@ def step(s: MDState, neigh, fstates, ctx: StepContext,
         if fx.needs_step:
             fstates[i] = fx.set_step(fstates[i], istep)
         s, fstates[i] = fx.initial_integrate(s, fstates[i], ctx)
+    for i, fx in enumerate(ctx.fixes):
+        s, fstates[i] = fx.post_integrate(s, fstates[i], ctx)
     neigh = neigh.replace(ago=neigh.ago + 1)
     if decide_rebuild(s, neigh, ctx):
         s, neigh = _rebuild(s, neigh, ctx)

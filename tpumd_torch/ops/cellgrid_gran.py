@@ -3,7 +3,8 @@ history: the plain PyTorch versions of the B6 kernel.
 
 PyTorch counterpart of tpumd/ops/cellgrid_gran.py::gran_compact_sums
 (pair gran/hooke/history + FixNeighHistory, src/GRANULAR/
-pair_gran_hooke_history.cpp:169-380, src/fix_neigh_history.cpp).  The
+pair_gran_hooke_history.cpp:169-380, src/fix_neigh_history.cpp), and of
+its ``hertz`` flag (pair gran/hertz/history: GranCoeffs.hertz).  The
 history lives per atom, so a re-bin moves it with the atoms:
 
     shear_tags (Np, KH) int32   partner tag of each live contact (0 = none)
@@ -56,6 +57,8 @@ class GranCoeffs(NamedTuple):
     limit_damping: bool
     freeze_bit: int        # gmask bit of fix freeze's group, or 0
     exclude_bits: tuple    # ((b1, b2), ...) group-bit pairs never in contact
+    # gran/hertz/history: polyhertz scales the normal and tangential forces
+    hertz: bool = False
 
 
 def _slot_offset(sl, cfg: CellGridConfig) -> int:
@@ -98,6 +101,12 @@ def _contacts(dd, rsq, vi, vj, oi, oj, radi, radj, mi, rmj, gi, gj, sh,
 
     damp = meff * gamman * vnnr * rsqinv
     ccel = kn * (radsum - r) * rinv - damp
+    poly = None
+    if c.hertz:
+        # polyhertz (pair_gran_hertz_history.cpp:186-189; tpumd/ops/
+        # cellgrid_gran.py:160-166): before limit_damping clamps
+        poly = torch.sqrt((radsum - r) * radi * radj / radsum)
+        ccel = ccel * poly
     if c.limit_damping:
         ccel = torch.clamp(ccel, min=0.0)
 
@@ -116,6 +125,8 @@ def _contacts(dd, rsq, vi, vj, oi, oj, radi, radj, mi, rmj, gi, gj, sh,
     # to the Coulomb limit when slipping
     gt = meff * gammat
     fs_v = [-(kt * sh[k] + gt * vtr[k]) for k in range(3)]
+    if poly is not None:
+        fs_v = [poly * fk for fk in fs_v]
     fs = torch.sqrt(fs_v[0] ** 2 + fs_v[1] ** 2 + fs_v[2] ** 2)
     fn = xmu * torch.abs(ccel * r)
     slip = fs > fn
@@ -214,13 +225,14 @@ def gran_compact_sums(x, tag, valid, shear_tags, shear, box: Box,
 
 def gran_pairlist_plain(x, tag, shear_tags, shear, box: Box, c: GranCoeffs,
                         planes, dt: float, shearupdate: bool, pairs,
-                        npairs):
+                        npairs, over=None):
     """Plain PyTorch version of the B6 kernel: one granular force sweep
     with compact history over the rows of the grid's pair list (pairs
     (Np, K), npairs (Np,), built at cutneigh with c.exclude_bits
     dropped), d = x_i - (x_j + image_shift) at the current box; arguments
     and returns as ``gran_compact_sums``.  The k-th contact along a row
-    takes history entry k."""
+    takes history entry k; with shearupdate, over (an int32 (1,) tensor, or
+    None) is raised to the contact count of any row with more than KH."""
     v, omega, rad, rm, gm = planes
     np_ = x.shape[0]
     dev = x.device
@@ -251,6 +263,9 @@ def gran_pairlist_plain(x, tag, shear_tags, shear, box: Box, c: GranCoeffs,
     if not shearupdate:
         return f, tq, shear_tags, shear
     pos = _rank_in_row(ig, torch.zeros(np_, dtype=torch.int64, device=dev))
+    if over is not None:
+        most = torch.bincount(ig, minlength=np_).max().to(over.dtype)
+        over.copy_(torch.maximum(over, torch.where(most > KH, most, 0)))
     keep = pos < KH
     new_tags = torch.zeros_like(shear_tags)
     new_shear = torch.zeros_like(shear)

@@ -1,12 +1,15 @@
-"""gran/hooke/history on the cell grid: the CUDA kernel, its wrapper and
-its plain PyTorch versions.
+"""gran/hooke/history and gran/hertz/history on the cell grid: the CUDA
+kernel, its wrapper and its plain PyTorch versions.
 
 The kernel (``tpumd_torch/csrc/gran_cellgrid.cu``) replaces the TPU
 kernel tpumd/ops/pallas_gran.py::_kernel (entry
 gran_cellgrid_forces_pallas): Hookean normal contact with velocity
 damping, the tangential spring of the per-contact shear history with
 Coulomb friction, torques and the frozen group's effective-mass rule,
-with the compact tag-keyed history re-compacted in the sweep.  It sweeps
+with the compact tag-keyed history re-compacted in the sweep.  With
+``GranCoeffs.hertz`` (gran/hertz/history) the kernel's HERTZ variant scales
+the normal and tangential forces by polyhertz; tpumd runs that style on
+the grid through its XLA sweep, the port through this kernel.  It sweeps
 the grid's pair list (``ops/cellgrid_pairlist.py``, built at every re-bin
 with the group-pair exclusions dropped), whose rows run in stencil order,
 so the k-th contact of a row takes history entry k as in the stencil
@@ -30,13 +33,26 @@ from tpumd_torch.ops.cellgrid_gran import KH, GranCoeffs, \
     gran_compact_sums, gran_pairlist_plain  # noqa: F401 (the oracle)
 from tpumd_torch.ops.lj_cellgrid import LaunchCounts, check_grid_inputs
 
-counts = LaunchCounts()
+
+
+class GranLaunchCounts(LaunchCounts):
+    """LaunchCounts, and how many of them were gran/hertz/history's
+    (GranCoeffs.hertz: the kernel's HERTZ variant)."""
+
+    def reset(self):
+        super().reset()
+        self.hertz_launches = 0
+        self.hertz_plain_calls = 0
+
+
+counts = GranLaunchCounts()
 
 _FN_NAMES = {torch.float32: "tpumd_gran_cellgrid_f32",
              torch.float64: "tpumd_gran_cellgrid_f64"}
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
-_ARGTYPES = ([_P] * 18 + [_L, _L] + [_I] * 4 + [_D] * 6 + [_I] * 3 + [_P])
+_ARGTYPES = ([_P] * 18 + [_L, _L] + [_I] * 4 + [_D] * 6 + [_I] * 4
+             + [_P, _P])
 
 
 def _check(name, t, dtype, shape, device):
@@ -49,13 +65,16 @@ def _check(name, t, dtype, shape, device):
 
 def gran_cellgrid(x, tag, valid, shear_tags, shear, box: Box,
                   cfg: CellGridConfig, c: GranCoeffs, planes, dt: float,
-                  shearupdate: bool, plist):
+                  shearupdate: bool, plist, over=None):
     """Forces (Np, 3), torques (Np, 3) and the history tables after the
     sweep (the input tables when not shearupdate) of gran/hooke/history
     over the grid's pair list plist = (pairs (Np, K), npairs (Np,), rows
     (natoms,) the valid slots, the grid state's row2slot), built with
-    c.exclude_bits; other arguments as ``gran_compact_sums``.  Raises
-    without a list."""
+    c.exclude_bits; other arguments as ``gran_compact_sums``.  With
+    shearupdate, over (an int32 (1,) tensor beside x, or None) is raised
+    to the contact count of any sphere with more than KH contacts, whose
+    contacts past the KH-th lose their history.  Raises without a
+    list."""
     if plist is None or plist[0] is None:
         raise ValueError("gran_cellgrid: no pair list; the grid state of "
                          "a style that sweeps one carries it from its "
@@ -69,20 +88,23 @@ def gran_cellgrid(x, tag, valid, shear_tags, shear, box: Box,
                          f"{tuple(npairs.shape)}")
     if x.device.type == "cpu":
         counts.plain_calls += 1
+        counts.hertz_plain_calls += int(c.hertz)
         return gran_pairlist_plain(x, tag, shear_tags, shear, box, c,
-                                   planes, dt, shearupdate, pairs, npairs)
+                                   planes, dt, shearupdate, pairs, npairs,
+                                   over)
     if x.device.type != "cuda":
         raise ValueError(f"gran_cellgrid: no kernel for device {x.device}")
     out = launch(_build.kernel_function(_FN_NAMES[x.dtype], _ARGTYPES), x,
                  tag, valid, shear_tags, shear, box, cfg, c, planes, dt,
-                 shearupdate, plist)
+                 shearupdate, plist, over)
     counts.kernel_launches += 1
+    counts.hertz_launches += int(c.hertz)
     return out
 
 
 def launch(fn, x, tag, valid, shear_tags, shear, box: Box,
            cfg: CellGridConfig, c: GranCoeffs, planes, dt: float,
-           shearupdate: bool, plist):
+           shearupdate: bool, plist, over=None):
     """Check the CUDA inputs and launch the library function fn (the
     kernel of x's dtype, bound with _ARGTYPES); the outputs of
     gran_cellgrid."""
@@ -109,6 +131,8 @@ def launch(fn, x, tag, valid, shear_tags, shear, box: Box,
         if gmask is None:
             raise ValueError("gran_cellgrid: group bits need gmask")
         _check("gmask", gmask, torch.int32, (np_,), dev)
+    if over is not None:
+        _check("over", over, torch.int32, (1,), dev)
     f = torch.empty_like(x)
     torque = torch.empty_like(x)
     if shearupdate:
@@ -128,6 +152,7 @@ def launch(fn, x, tag, valid, shear_tags, shear, box: Box,
                 *(int(p) for p in box.periodic),
                 c.kn, c.kt, c.gamman, c.gammat, c.xmu, float(dt),
                 int(c.freeze_bit), int(c.limit_damping), int(shearupdate),
+                int(c.hertz), over.data_ptr() if over is not None else None,
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gran_cellgrid kernel launch failed: CUDA "

@@ -23,20 +23,29 @@ from tpumd_torch.core.atomvec import get_style
 from tpumd_torch.core.create import create_atoms_lattice, remap_host, \
     remap_triclinic_host
 from tpumd_torch.core.lattice import Lattice
-from tpumd_torch.core.region import BlockRegion
+from tpumd_torch.core.region import BlockRegion, ConeRegion, \
+    CylinderRegion, EllipsoidRegion, IntersectRegion, OutsideRegion, \
+    PlaneRegion, PrismRegion, Region, SphereRegion, UnionRegion
 from tpumd_torch.core.state import Box, make_state, map_per_atom
-from tpumd_torch.core.velocity_cmd import velocity_create_geom
+from tpumd_torch.core.velocity_cmd import velocity_create_geom, \
+    velocity_ramp, velocity_scale, velocity_set, zero_momentum, \
+    zero_rotation
 from tpumd_torch.io.dump import Dump
 from tpumd_torch.io.read_data import build_special, read_data
 from tpumd_torch.io.restart import read_restart, write_data, \
     write_restart
 from tpumd_torch.md.fix_langevin import FixLangevin
 from tpumd_torch.md.fix_nh import FixNH
+from tpumd_torch.md.fix_particle import FixDeposit, FixEvaporate
+from tpumd_torch.md.fix_pour import FixPour
 from tpumd_torch.md.computes import ComputeERotateSphere
 from tpumd_torch.md.fix_rigid import FixRigid, FixRigidNPH, FixRigidNPT, \
     FixRigidNVT
 from tpumd_torch.md.fix_shake import FixRattle, FixShake
 from tpumd_torch.md.fix_sphere import FixFreeze, FixGravity, FixNVESphere
+from tpumd_torch.md.fix_wall import FixWallHarmonic, FixWallLJ126, \
+    FixWallLJ93, FixWallReflect, parse_walls
+from tpumd_torch.md.fix_wall_gran import FixWallGran
 from tpumd_torch.md.fixes import FixNVE
 from tpumd_torch.md.simulation import THERMO_KEYS, Simulation, \
     resolve_device
@@ -74,7 +83,7 @@ class LammpsScript:
         self._pending_pair_modify: dict = {}
         self.sim: Simulation | None = None
         self.lattice: Lattice | None = None
-        self.regions: dict[str, BlockRegion] = {}
+        self.regions: dict[str, Region] = {}
         self.box = None
         self._atoms_x: list[np.ndarray] = []
         self._atoms_type: list[np.ndarray] = []
@@ -823,34 +832,95 @@ class LammpsScript:
         self.lattice = Lattice(a[0], float(a[1]), units=sim.units.name,
                                dimension=sim.dimension, args=a[2:])
 
+    # values each region style takes before its keywords (union and
+    # intersect: N and N names)
+    _REGION_NARGS = {"block": 6, "prism": 9, "sphere": 4, "cylinder": 6,
+                     "cone": 7, "plane": 6, "ellipsoid": 6}
+
     def cmd_region(self, a):
+        """region ID style args [side in|out] [units box|lattice]
+        (src/region.cpp, tpumd/script/parser.py:513-635): every style of
+        core/region.py.  Lengths are in lattice spacings by default when
+        a lattice exists; a cylinder's or cone's centre and radii take the
+        spacings of the axes across it, its bounds the axis's.  INF and
+        EDGE open a lo bound toward -infinity and a hi bound toward
+        +infinity (atoms are inside the box, so EDGE selects as INF does,
+        as in tpumd)."""
         name, style = a[0], a[1]
-        if style != "block":
-            raise NotImplementedError(f"region style {style!r} is not ported")
-        # INF and EDGE open a lo bound toward -infinity and a hi bound
-        # toward +infinity (Region::parse, src/region.cpp; atoms are inside
-        # the box, so EDGE selects as INF does, as in tpumd)
-        vals = [(-np.inf if k % 2 == 0 else np.inf)
-                if v in ("INF", "EDGE") else float(v)
-                for k, v in enumerate(a[2:8])]
-        rest = a[8:]
-        if rest and rest != ["units", "box"] and rest != ["units", "lattice"]:
-            raise ScriptError(f"region keywords {rest} not supported")
-        # lattice units by default, when a lattice exists
-        if self.lattice is not None and rest != ["units", "box"]:
-            sp = self.lattice.spacing
-            lo = [vals[0] * sp[0], vals[2] * sp[1], vals[4] * sp[2]]
-            hi = [vals[1] * sp[0], vals[3] * sp[1], vals[5] * sp[2]]
+        if style in ("union", "intersect"):
+            nval = 1 + int(a[2])
+        elif style in self._REGION_NARGS:
+            nval = self._REGION_NARGS[style]
         else:
-            lo = [vals[0], vals[2], vals[4]]
-            hi = [vals[1], vals[3], vals[5]]
-        self.regions[name] = BlockRegion(lo, hi)
+            raise NotImplementedError(f"region style {style!r} is not ported")
+        vals, rest = a[2:2 + nval], a[2 + nval:]
+        kw = dict(zip(rest[::2], rest[1::2]))
+        if (len(rest) % 2 or set(kw) - {"side", "units"}
+                or kw.get("side", "in") not in ("in", "out")
+                or kw.get("units", "lattice") not in ("box", "lattice")):
+            raise NotImplementedError(
+                f"region keywords {rest} are not ported (only side in|out "
+                "and units box|lattice)")
+        sp = (np.asarray(self.lattice.spacing, np.float64)
+              if self.lattice is not None and kw.get("units") != "box"
+              else np.ones(3))
+
+        def bound(tok, k, scale):
+            if tok in ("INF", "EDGE"):
+                return -np.inf if k == 0 else np.inf
+            return float(tok) * scale
+
+        if style in ("block", "prism"):
+            lo = [bound(vals[2 * c], 0, sp[c]) for c in range(3)]
+            hi = [bound(vals[2 * c + 1], 1, sp[c]) for c in range(3)]
+            if style == "block":
+                region = BlockRegion(lo, hi)
+            else:
+                # xy moves x per unit y, xz and yz likewise
+                # (region_prism.cpp scaling)
+                tilt = [float(vals[6]) * sp[0], float(vals[7]) * sp[0],
+                        float(vals[8]) * sp[1]]
+                region = PrismRegion(lo, hi, tilt)
+        elif style == "sphere":
+            v = [float(t) for t in vals]
+            region = SphereRegion(np.array(v[:3]) * sp, v[3] * sp[0])
+        elif style in ("cylinder", "cone"):
+            dim = "xyz".index(vals[0])
+            o1, o2 = [c for c in range(3) if c != dim]
+            radii = [float(t) * sp[o1] for t in vals[3:-2]]
+            lo_hi = (bound(vals[-2], 0, sp[dim]), bound(vals[-1], 1, sp[dim]))
+            centre = (float(vals[1]) * sp[o1], float(vals[2]) * sp[o2])
+            region = (CylinderRegion(dim, *centre, *radii, *lo_hi)
+                      if style == "cylinder"
+                      else ConeRegion(dim, *centre, *radii, *lo_hi))
+        elif style == "plane":
+            region = PlaneRegion(np.array([float(t) for t in vals[:3]]) * sp,
+                                 [float(t) for t in vals[3:]])
+        elif style == "ellipsoid":
+            v = np.array([float(t) for t in vals])
+            region = EllipsoidRegion(v[:3] * sp, v[3:] * sp)
+        else:
+            missing = [r for r in vals[1:] if r not in self.regions]
+            if missing:
+                raise ScriptError(f"region {style}: undefined regions "
+                                  f"{missing}")
+            subs = [self.regions[r] for r in vals[1:]]
+            region = (UnionRegion(subs) if style == "union"
+                      else IntersectRegion(subs))
+        if kw.get("side") == "out":
+            region = OutsideRegion(region)
+        self.regions[name] = region
 
     def cmd_create_box(self, a):
         if len(a) != 2:
             raise ScriptError(f"create_box keywords {a[2:]} not supported")
         ntypes = int(a[0])
-        self.box = self.regions[a[1]].bounding_box()
+        region = self.regions[a[1]]
+        if isinstance(region, PrismRegion) and np.any(region.tilt != 0):
+            raise NotImplementedError("create_box on a tilted prism region "
+                                      "is not ported (read_data takes a "
+                                      "triclinic box)")
+        self.box = region.bounding_box()
         sim = self._require_sim()
         sim.ntypes = ntypes
         sim.mass = np.zeros(ntypes + 1)
@@ -878,6 +948,10 @@ class LammpsScript:
             sim.mass[int(a[0])] = float(a[1])
 
     def _finalize_atoms(self):
+        """The state from the atoms that create_atoms made; atom_style
+        sphere gives each diameter 1 and density 1, so mass pi/6
+        (AtomVecSphere::create_atom, src/atom_vec_sphere.cpp;
+        tpumd/script/parser.py:856-863)."""
         sim = self.sim
         if sim.state is None:
             x = np.concatenate(self._atoms_x)
@@ -886,36 +960,108 @@ class LammpsScript:
             box = Box.orthogonal(lo, hi, device=sim.device, dtype=self.dtype,
                                  periodic=tuple(t == "p"
                                                 for t in sim.boundary))
+            radius = rmass = None
+            if self.atom_style == "sphere":
+                radius = np.full(len(x), 0.5)
+                rmass = 4.0 / 3.0 * np.pi * radius**3
             sim.state = make_state(x, np.zeros_like(x), t, box,
+                                   radius=radius, rmass=rmass,
                                    device=sim.device, dtype=self.dtype)
 
+    def _atom_masses(self) -> np.ndarray:
+        """(N,) f64 per-atom masses: rmass for spheres, else by type."""
+        s = self.sim.state
+        if s.rmass is not None:
+            return s.rmass.cpu().numpy().astype(np.float64)
+        return self.sim.mass[s.type.cpu().numpy()]
+
+    # the keywords of each velocity style that the port takes (of
+    # src/velocity.cpp::options; temp, bias and rigid are not ported)
+    _VELOCITY_KEYS = {"create": {"dist", "sum", "mom", "rot", "loop",
+                                 "units"},
+                      "set": {"sum", "units"}, "scale": set(),
+                      "ramp": {"sum", "units"}, "zero": set()}
+
     def cmd_velocity(self, a):
+        """velocity group create|set|scale|ramp|zero ... (src/velocity.cpp,
+        tpumd/script/parser.py:913-1011).  create takes group all with
+        loop geom (dist uniform|gaussian, mom, rot, sum); set and ramp
+        take lengths in lattice spacings unless units box, and sum; scale
+        uses the group's temperature with dim (n - 1) degrees of freedom;
+        zero linear|angular removes the group's centre-of-mass motion or
+        rigid rotation."""
         self._finalize_atoms()
         sim = self.sim
         group, style = a[0], a[1]
-        if group != "all" or style != "create":
+        npos = {"create": 2, "set": 3, "scale": 1, "ramp": 6, "zero": 1}
+        if style not in npos:
+            raise NotImplementedError(f"velocity style {style!r} is not "
+                                      "ported")
+        pos, rest = a[2:2 + npos[style]], a[2 + npos[style]:]
+        kw = dict(zip(rest[::2], rest[1::2]))
+        unknown = set(kw) - self._VELOCITY_KEYS[style]
+        if len(rest) % 2 or unknown:
             raise NotImplementedError(
-                f"velocity {group} {style} is not ported (only 'all create')")
-        t_desired, seed = float(a[2]), int(a[3])
-        kw = dict(zip(a[4::2], a[5::2]))
-        if kw.get("loop", "all") != "geom":
-            raise NotImplementedError(
-                "only 'loop geom' velocity creation is ported")
-        # the hash reads the positions as stored, in the run's dtype
-        x = sim.state.x.cpu().numpy().astype(np.float64)
-        masses = sim.mass[sim.state.type.cpu().numpy()]
-        sim.build_shake()   # SHAKE's removed dof enter the scaling
-        fix_dof = sum(fx.dof_removed for fx in sim.fixes)
-        v = velocity_create_geom(
-            x, masses, t_desired, seed,
-            boltz=sim.units.boltz, mvv2e=sim.units.mvv2e,
-            dist=kw.get("dist", "uniform"),
-            zero_momentum=kw.get("mom", "yes") == "yes",
-            dimension=sim.dimension,
-            extra_dof=sim.dimension + fix_dof,
-        )
-        sim.state = sim.state.replace(
+                f"velocity {style} keywords {rest} are not ported")
+        s = sim.state
+        sel = self._select("group", group)
+        v = s.v.cpu().numpy().astype(np.float64)
+        masses = self._atom_masses()
+        sum_ = kw.get("sum", "no") == "yes"
+        scale = (np.asarray(self.lattice.spacing, np.float64)
+                 if self.lattice is not None
+                 and kw.get("units", "lattice") == "lattice" else np.ones(3))
+        u = sim.units
+        if style == "set":
+            v = velocity_set(v, sel, [None if t == "NULL" else float(t)
+                                      for t in pos], scale, sum_)
+        elif style == "scale":
+            v = velocity_scale(v, masses, sel, float(pos[0]), sim.dimension,
+                               u.mvv2e, u.boltz)
+        elif style == "ramp":
+            vdim, cdim = "xyz".index(pos[0][1]), "xyz".index(pos[3])
+            v = velocity_ramp(v, s.x.cpu().numpy().astype(np.float64), sel,
+                              vdim, float(pos[1]) * scale[vdim],
+                              float(pos[2]) * scale[vdim], cdim,
+                              float(pos[4]) * scale[cdim],
+                              float(pos[5]) * scale[cdim], sum_)
+        elif style == "zero":
+            if pos[0] == "linear":
+                v = zero_momentum(v, masses, sel)
+            elif pos[0] == "angular":
+                v = zero_rotation(v, self._unwrapped(), masses, sel)
+            else:
+                raise ScriptError(f"velocity zero {pos[0]}: linear or "
+                                  "angular")
+        else:
+            if group != "all":
+                raise NotImplementedError(
+                    f"velocity {group} create: only group all is ported")
+            if kw.get("loop", "all") != "geom":
+                raise NotImplementedError(
+                    "only 'loop geom' velocity creation is ported")
+            # the hash reads the positions as stored, in the run's dtype
+            x = s.x.cpu().numpy().astype(np.float64)
+            sim.build_shake()   # SHAKE's removed dof enter the scaling
+            fix_dof = sum(fx.dof_removed for fx in sim.fixes)
+            vnew = velocity_create_geom(
+                x, masses, float(pos[0]), int(pos[1]),
+                boltz=u.boltz, mvv2e=u.mvv2e,
+                dist=kw.get("dist", "uniform"),
+                zero_momentum=kw.get("mom", "yes") == "yes",
+                dimension=sim.dimension,
+                extra_dof=sim.dimension + fix_dof,
+                rot_xu=(self._unwrapped() if kw.get("rot", "no") == "yes"
+                        else None))
+            v = v + vnew if sum_ else vnew
+        sim.state = s.replace(
             v=torch.as_tensor(v, dtype=self.dtype, device=sim.device))
+
+    def _unwrapped(self) -> np.ndarray:
+        """(N, 3) f64 positions unwrapped by their image flags."""
+        s = self.sim.state
+        return (s.x.cpu().numpy().astype(np.float64)
+                + s.image.cpu().numpy() * s.box.lengths_np())
 
     def cmd_pair_style(self, a):
         sim = self._require_sim()
@@ -1054,38 +1200,47 @@ class LammpsScript:
         return self.sim.groups[name]
 
     def cmd_group(self, a):
-        """group name type t... | region R | subtract g1 g2...
-        (src/group.cpp, tpumd/script/parser.py:1689): each group is one
-        bit of the atoms' gmask, bit 1 being group all."""
+        """group name type|id t... (values and lo:hi ranges) | region R |
+        subtract g1 g2... | union g1... | intersect g1...
+        (src/group.cpp, tpumd/script/parser.py:1689-1740): each group is
+        one bit of the atoms' gmask, bit 1 being group all."""
         if self.sim is None or (self.sim.state is None
                                 and not self._atoms_x):
             raise ScriptError("group before the atoms exist")
         self._finalize_atoms()
         sim = self.sim
         name, style = a[0], a[1]
-        if style not in ("type", "region", "subtract") or len(a) < 3:
+        styles = ("type", "id", "region", "subtract", "union", "intersect")
+        if style not in styles or len(a) < 3:
             raise NotImplementedError(
-                f"group {' '.join(a[1:])} is not ported (only type, region "
-                "and subtract)")
+                f"group {' '.join(a[1:])} is not ported (only "
+                f"{', '.join(styles)})")
         sim.invalidate_ctx()
         s = sim.state
         gm = (torch.ones_like(s.tag) if s.gmask is None
               else s.gmask.clone())
-        if style == "type":
+        if style in ("type", "id"):
+            val = s.type if style == "type" else s.tag
             sel = torch.zeros_like(s.tag, dtype=torch.bool)
             for tok in a[2:]:
                 if ":" in tok:
-                    lo, hi = (int(v) for v in tok.split(":"))
-                    sel |= (s.type >= lo) & (s.type <= hi)
+                    lo, hi = (int(v) for v in tok.split(":")[:2])
+                    sel |= (val >= lo) & (val <= hi)
                 else:
-                    sel |= s.type == int(tok)
+                    sel |= val == int(tok)
         elif style == "region":
             sel = torch.as_tensor(self._select("region", a[2]),
                                   device=sim.device)
         else:
-            sel = (gm & self._group_bit(a[2])) > 0
-            for other in a[3:]:
-                sel &= (gm & self._group_bit(other)) == 0
+            member = [(gm & self._group_bit(g)) > 0 for g in a[2:]]
+            sel = member[0]
+            for m in member[1:]:
+                if style == "subtract":
+                    sel = sel & ~m
+                elif style == "union":
+                    sel = sel | m
+                else:
+                    sel = sel & m
         bit = sim.groups.setdefault(name, 1 << len(sim.groups))
         sim.state = s.replace(gmask=torch.where(sel, gm | bit, gm))
 
@@ -1101,8 +1256,11 @@ class LammpsScript:
     _RIGID_STYLES = tuple(f"rigid{ens}{small}"
                           for ens in ("", "/nve", "/nvt", "/npt", "/nph")
                           for small in ("", "/small"))
+    _WALL_STYLES = ("wall/lj93", "wall/lj126", "wall/harmonic",
+                    "wall/reflect")
     # the fixes that take a group other than all
-    _GROUP_FIXES = ("nve/sphere", "freeze", "gravity") + _RIGID_STYLES
+    _GROUP_FIXES = ("nve/sphere", "freeze", "gravity", "wall/gran", "pour",
+                    "deposit", "evaporate") + _WALL_STYLES + _RIGID_STYLES
 
     def cmd_fix(self, a):
         sim = self.sim
@@ -1129,17 +1287,66 @@ class LammpsScript:
             fx = FixRattle.parse(args)
         elif style in self._RIGID_STYLES:
             fx = self._parse_rigid(style, args)
+        elif style == "wall/gran":
+            fx = FixWallGran(*args)
+        elif style in self._WALL_STYLES:
+            walls = parse_walls(style, args, None if self.lattice is None
+                                else self.lattice.spacing)
+            fx = {"wall/lj93": FixWallLJ93, "wall/lj126": FixWallLJ126,
+                  "wall/harmonic": FixWallHarmonic,
+                  "wall/reflect": FixWallReflect}[style](walls)
+        elif style == "pour":
+            fx = FixPour(self.regions, *args)
+        elif style == "deposit":
+            fx = self._parse_deposit(args)
+        elif style == "evaporate" and len(args) == 4:
+            fx = FixEvaporate(args[0], args[1], self.regions[args[2]],
+                              args[3])
         else:
             raise NotImplementedError(
                 f"fix {' '.join(a[1:])!r} is not ported (only 'all nve', "
                 "'all langevin Tstart Tstop damp seed', nvt, npt, nph, "
-                "shake, rattle, the rigid styles, nve/sphere, freeze and "
-                "gravity)")
+                "shake, rattle, the rigid styles, nve/sphere, freeze, "
+                "gravity, wall/gran, wall/lj93, wall/lj126, wall/harmonic, "
+                "wall/reflect, pour, deposit and evaporate)")
         sim.fixes = [fx for fx in sim.fixes if fx.id != fid]
         fx.id = fid
         fx.groupbit = self._group_bit(group)
         sim.fixes.append(fx)
         sim.invalidate_ctx()
+        if style == "pour":
+            # nfreq takes the timestep at the fix's definition (the
+            # reference computes it in the constructor)
+            fx.host_setup(sim)
+
+    def _parse_deposit(self, args):
+        """fix ID group deposit N type M seed region R [vx lo hi] [vy lo
+        hi] [vz lo hi] [near R] [attempt Q] [units box|lattice]
+        (tpumd/script/parser.py:1584-1610; tpumd reads velocities and near
+        as given, and so does the port)."""
+        kw, region, i = {}, None, 4
+        while i < len(args):
+            key = args[i]
+            if key == "region":
+                region = self.regions[args[i + 1]]
+                i += 2
+            elif key in ("vx", "vy", "vz"):
+                kw[key] = (float(args[i + 1]), float(args[i + 2]))
+                i += 3
+            elif key == "near":
+                kw["near"] = float(args[i + 1])
+                i += 2
+            elif key == "attempt":
+                kw["maxattempt"] = int(args[i + 1])
+                i += 2
+            elif key == "units":
+                i += 2
+            else:
+                raise NotImplementedError(f"fix deposit keyword {key!r} is "
+                                          "not ported")
+        if region is None:
+            raise ScriptError("fix deposit requires a region")
+        return FixDeposit(*args[:4], region, **kw)
 
     def _parse_rigid(self, style, args):
         """fix ID group rigid[/nve|/nvt|/npt|/nph][/small] single|molecule|
