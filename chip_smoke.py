@@ -46,7 +46,23 @@ line each (any failure raises and exits non-zero):
    -var x 1 -var y 1 -var z 1 -log`` in a process of its own, its logged
    rows behind in.lj's gates; and the drift protocol on the 32k drift deck
    (shift yes, dt 0.001) in f64 (gate 1e-6) and f32 (gate 2e-4), in.lj's
-   own drift printed;
+   own drift printed; the analysis layer, right after in.lj's main path:
+   the six analysis goldens (tests/golden/computes, temp_variants,
+   struct_computes, store_histo, chunk_family, dipole) verbatim in f64,
+   every file and thermo column against the reference binary's
+   (``tpumd_torch.analysis_goldens.failures``), each with its force kernel
+   launched (P1, B1 or B5) and no plain call; ``IN_LJ_ANALYSIS32K`` at 6^3 in
+   f64 (the pe/atom and stress/atom identities at 1e-12 on every row) and
+   at 32k in f32 (in.lj's step-0 and step-100 gates, the identities at
+   1e-5 on every row, B1 once per force evaluation with its per-atom
+   variant once per output state, the list kernel once per grid set-up,
+   rebuild and occasional list; at step 1000 rdf's counts, coord/atom and
+   cna/atom equal to their plain all-pairs versions and centro/atom to
+   1e-10, in f64), a timed 500-step window with its outputs beside
+   in.lj's timesteps/s, the host ms of an output step by compute and of
+   the dump write, the device ms of each distance compute and of the
+   occasional list build (profiler), and that build against its plain
+   build, timed beside its bound;
 5. main path, chain: a 500-atom chain deck on the card against the CPU (f64,
    RanMars langevin on both, step 40), then the 32k chain deck in f32 with
    the device RNG: step-0 and step-100 gates, 500 warm-up and 500 timed
@@ -1025,6 +1041,245 @@ def main_path(smi: str) -> dict:
     upkeep = time_upkeep("in.lj", sim)
     return {"launches": launches, "sps": sps, "build_launches": builds,
             "gates": gates, "refreshes": refreshes, "upkeep": upkeep}
+
+
+def profiled_device_ms(fn) -> float:
+    """Device milliseconds of one call of fn: the self time of its device
+    events (kernels, copies, fills) under torch.profiler, after a warm
+    call.  A call that waits on the card (these computes read counts from
+    it) is timed by its device work, not by the host's waits."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA) / 1e3
+
+
+def analysis_goldens_phase():
+    """The six analysis goldens verbatim in f64 on the card, every file
+    and thermo column against the reference binary's
+    (tpumd_torch.analysis_goldens.failures, the CPU tests' comparison),
+    with the force kernel of each launched and no plain call: P1 on the
+    two-type computes deck (the matrix engine), B1 on the lj decks, B5 on
+    the water decks."""
+    from tpumd_torch import analysis_goldens as ag
+    from tpumd_torch.ops import charmm_cellgrid, gather, lj_cellgrid
+    gold = str(GOLDEN.parent)
+    wrappers = {"B1": lj_cellgrid.counts, "B5": charmm_cellgrid.counts,
+                "P1": gather.counts}
+    notes = []
+    for name in sorted(ag.DECKS):
+        for c in wrappers.values():
+            c.reset()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d, \
+                contextlib.redirect_stdout(sys.stderr):
+            script = ag.run(gold, name, d, "cuda", torch.float64)
+            bad = ag.failures(gold, name, script)
+        if bad:
+            raise AssertionError(f"analysis golden {name}: {bad[:6]}")
+        used = {k: c.kernel_launches for k, c in wrappers.items()
+                if c.kernel_launches}
+        plain = sum(c.plain_calls for c in wrappers.values())
+        if not used or plain:
+            raise AssertionError(f"analysis golden {name}: kernels {used}, "
+                                 f"plain calls {plain}")
+        notes.append(f"{name} ({time.perf_counter() - t0:.1f} s, "
+                     + ", ".join(f"{k} x{n}" for k, n in used.items()) + ")")
+    phase("analysis", "six goldens verbatim in f64 on the card agree with "
+                      "the reference binary's logs, ave files and dumps: "
+                      + "; ".join(notes))
+
+
+ANALYSIS_COMPUTES = ("pea", "kea", "str", "pesum", "ssum", "msd", "vacf",
+                     "rdf", "crd", "cna", "cen")
+
+
+def analysis_identity_rows(script, rows, natoms, tol, what):
+    from tpumd_torch.bench_targets import analysis_identities
+    worst = {"pe": 0.0, "press": 0.0}
+    for r in rows:
+        gaps = analysis_identities(r, natoms)
+        for k, g in gaps.items():
+            if not g <= tol:
+                raise AssertionError(f"{what} step {r['step']}: {k} "
+                                     f"identity off by {g:.3g} (> {tol})")
+            worst[k] = max(worst[k], g)
+    return worst
+
+
+def analysis_path(smi: str, lj_sps: float) -> dict:
+    """IN_LJ_ANALYSIS32K on the card: the 6^3 deck in f64 behind the two
+    identities at 1e-12; the 32k deck in f32 (1,000 steps: run 0, 100,
+    400, then 500 timed, outputs included) behind in.lj's step-0 and
+    step-100 gates and the identities at 1e-5 on every thermo row, its
+    launch counts (B1 once per force evaluation, the per-atom variant once
+    per output state that reads pe/atom or stress/atom, the list kernel
+    once per grid set-up, rebuild and occasional list), then at step 1000
+    rdf's counts, coord/atom and cna/atom exactly and centro/atom to
+    1e-10 against their plain all-pairs versions in f64 on the card, the
+    host ms of an output step by compute and of the dump write, and the
+    device ms of each distance compute and of the list build."""
+    from tpumd_torch.bench_targets import IN_LJ_ANALYSIS32K, SANITY, STEP0, \
+        STEP0_RTOL, gate_failures
+    from tpumd_torch.md import compute_list
+    from tpumd_torch.ops import cellgrid_pairlist as bpl
+    from tpumd_torch.ops import gather
+    from tpumd_torch.ops.lj_cellgrid import counts
+    from tpumd_torch.script.parser import LammpsScript
+
+    def rows_of(sim):
+        rows, orig = [], sim._thermo_line
+
+        def line():
+            orig()
+            rows.append(dict(sim.last_thermo))
+        sim._thermo_line = line
+        return rows
+
+    with tempfile.TemporaryDirectory() as d, \
+            contextlib.redirect_stdout(sys.stderr):
+        small = LammpsScript(device="cuda", dtype=torch.float64)
+        small.data_dir = d
+        deck6, run6 = IN_LJ_ANALYSIS32K.format(n=6, steps=300).rsplit(
+            "run", 1)
+        small.run_string(deck6)
+        rows6 = rows_of(small.sim)
+        small.run_string("run" + run6)
+    worst6 = analysis_identity_rows(small, rows6, small.sim.natoms, 1e-12,
+                                    "6^3 f64")
+    tmp = tempfile.TemporaryDirectory()
+    script = LammpsScript(device="cuda", dtype=torch.float32)
+    script.data_dir = tmp.name
+    # the deck without its run line: run in parts (0, 100, 400, 500)
+    script.run_string(IN_LJ_ANALYSIS32K.format(n=20, steps=1000).rsplit(
+        "run", 1)[0])
+    sim = script.sim
+    sim.verbose = False
+    rows = rows_of(sim)
+    counts.reset()
+    reset_list_counts()
+    gather.counts.reset()
+    script.run_string("run 0")
+    bad = gate_failures(rows[-1], {k: (v, STEP0_RTOL)
+                                   for k, v in STEP0["lj"].items()})
+    script.run_string("run 100")
+    bad += gate_failures(rows[-1], SANITY["lj"])
+    if bad:
+        raise AssertionError(f"analysis deck gates: {bad}")
+    script.run_string("run 400")
+    lt0 = sim.loop_time
+    script.run_string("run 500")
+    sps = 500 / (sim.loop_time - lt0)
+    worst = analysis_identity_rows(script, rows, sim.natoms, 1e-5,
+                                   "32k f32")
+    launches, peratom = counts.kernel_launches, counts.peratom_launches
+    builds, gates, list_plain = list_counts()
+    occasional, lists = sim.analysis_grid_lists, sim.analysis_lists
+    plain = counts.plain_calls + list_plain + gather.counts.plain_calls
+    thermo_steps = sorted({r["step"] for r in rows})
+    out_states = len(set(thermo_steps) | set(range(0, 1001, 250)))
+    force_evals = 1000 + 1 + (len(thermo_steps) - 1) + out_states
+    grid_builds = sim.grid_setups + int(sim._carry[1].nbuilds) - 1
+    if (launches != force_evals or peratom != out_states or plain
+            or builds != grid_builds + occasional):
+        raise AssertionError(
+            f"analysis deck: B1 launches {launches} != force evaluations "
+            f"{force_evals}, or per-atom launches {peratom} != output "
+            f"states {out_states}, or plain calls {plain}, or list builds "
+            f"{builds} != {grid_builds} + {occasional}")
+    # step 1000: the list computes against their plain versions, in f64
+    errs = []
+    for cid in ("rdf", "crd", "cna", "cen"):
+        c = sim.computes[cid]
+        got = c.counts(sim) if cid == "rdf" else c(sim)
+        c.plain = True
+        try:
+            plain_v = c.counts(sim) if cid == "rdf" else c.evaluate(sim)
+        finally:
+            c.plain = False
+        if cid == "cen":
+            err = float((got - plain_v).abs().max()
+                        / plain_v.abs().max().clamp(min=1e-300))
+            if not err <= 1e-10:
+                raise AssertionError(f"centro/atom: {err:.3g} from plain")
+            errs.append(f"centro/atom rel {err:.3g}")
+        elif not torch.equal(got, plain_v):
+            diff = torch.nonzero(got != plain_v).flatten()[:8].tolist()
+            raise AssertionError(f"{cid}: differs from plain at {diff}")
+        else:
+            errs.append(f"{cid} equal")
+    cna = sim.computes["cna"](sim)
+    fcc = float((cna == 1).double().mean())
+    cen = float(sim.computes["cen"](sim).mean())
+    # host ms of one output step, by compute (each alone, its inputs
+    # cached) and of the dump write (the computes cached)
+    host = {}
+    for cid in ANALYSIS_COMPUTES:
+        c = sim.computes[cid]
+        c(sim)
+        sim._acache.pop(("compute", cid, id(c)), None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c(sim)
+        torch.cuda.synchronize()
+        host[cid] = 1e3 * (time.perf_counter() - t0)
+    sim._acache = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for cid in ANALYSIS_COMPUTES:
+        sim.computes[cid](sim)
+    torch.cuda.synchronize()
+    all_ms = 1e3 * (time.perf_counter() - t0)
+    dump = sim.dumps[0]
+    t0 = time.perf_counter()
+    dump.write(sim)
+    dump_ms = 1e3 * (time.perf_counter() - t0)
+    rc = compute_list.list_cutoff(sim)
+    dev = {"list build": profiled_device_ms(
+        lambda: compute_list._build(sim, rc))}
+    for cid in ("rdf", "crd", "cna", "cen"):
+        c = sim.computes[cid]
+        c(sim)
+        dev[cid] = profiled_device_ms(lambda: c.evaluate(sim))
+    s, neigh = sim._carry[0], sim._carry[1]
+    lcfg = dataclasses.replace(sim._neigh_cfg,
+                               cutneigh=rc * (1 + compute_list.MARGIN),
+                               skin=0.0)
+    from tpumd_torch.ops.cellgrid import pairlist_kmax
+    k_build = time_build("analysis32k occasional", (
+        s.x, neigh.valid, s.tag, None, None, s.box, lcfg,
+        pairlist_kmax(s.box, rc, sim.natoms)))
+    tmp.cleanup()
+    phase("analysis", f"6^3 f64: identities hold at every row (worst pe "
+                      f"{worst6['pe']:.3g}, press {worst6['press']:.3g}); "
+                      f"32k f32: step-0 and step-100 gates pass, pe and "
+                      f"press identities at every row (worst "
+                      f"{worst['pe']:.3g}, {worst['press']:.3g}); step "
+                      f"1000: {', '.join(errs)} against the plain versions "
+                      f"in f64; fcc share of cna {fcc:.4f}, mean centro "
+                      f"{cen:.4f}")
+    phase("analysis", f"timed 500 steps with outputs: {sps:.2f} "
+                      f"timesteps/s = {sps / lj_sps:.3f} x in.lj's "
+                      f"{lj_sps:.2f} on {smi}; B1 launches {launches} = "
+                      f"force evaluations {force_evals} (per-atom variant "
+                      f"{peratom} = output states), list builds {builds} = "
+                      f"{grid_builds} grid + {occasional} occasional (of "
+                      f"{lists} occasional lists), plain calls {plain}")
+    phase("analysis", "host ms of an output step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in host.items())
+        + f"; all computes from cold {all_ms:.3f}; dump write of "
+          f"{sim.natoms} rows {dump_ms:.3f}")
+    phase("analysis", "device ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in dev.items()))
+    return {"launches": launches, "peratom": peratom, "sps": sps,
+            "build_launches": builds, "k_build": k_build,
+            "occasional": occasional}
 
 
 def list_lj_pairs(x, box, pairs, npairs, cutsq) -> int:
@@ -3447,6 +3702,8 @@ def main():
         k_fene = fene_kernel_vs_plain(tmp)
         small_deck_card_vs_cpu()
         m_lj = main_path(smi)
+        analysis_goldens_phase()
+        m_an = analysis_path(smi, m_lj["sps"])
         script_lj864_path(smi)
         script_cli_phase(tmp)
         drift_phase()
@@ -3484,9 +3741,11 @@ def main():
               ("chain", k_fene["list"], m_fene["build_launches"]),
               ("chute", k_gran["list"], m_gran["build_launches"]),
               ("in.lj", m_lj["upkeep"]["build"], m_lj["build_launches"]),
+              ("analysis32k", m_an["k_build"], m_an["build_launches"]),
               ("eam", m_eam_list["upkeep"]["build"],
                m_eam_list["build_launches"])]
     searched = {"in.lj": "tpumd/ops/pallas_lj.py:25",
+                "analysis32k": "tpumd/ops/pallas_lj.py:25",
                 "chain": "tpumd/ops/pallas_lj.py:146",
                 "eam": "tpumd/ops/pallas_eam.py:128",
                 "rhodo_class": "tpumd/ops/pallas_charmm.py:43",
@@ -3513,6 +3772,8 @@ def main():
     for name, src, replaces, k, m in (
             ("lj_cellgrid", "tpumd_torch/csrc/lj_fene_cellgrid.cu",
              "tpumd/ops/pallas_lj.py:25", k_lj, m_lj),
+            ("lj_cellgrid analysis32k", "tpumd_torch/csrc/lj_fene_cellgrid.cu",
+             "tpumd/ops/pallas_lj.py:25", k_lj, m_an),
             ("lj_fene_cellgrid", "tpumd_torch/csrc/lj_fene_cellgrid.cu",
              "tpumd/ops/pallas_lj.py:146", k_fene, m_fene),
             ("eam_rho_cellgrid", eam_src, "tpumd/ops/pallas_eam.py:99",

@@ -61,7 +61,13 @@ runs on a card host without JAX:
   row starts; the matrix engine on the card (lj/cut on a small triclinic
   box and the 480-sphere chute pack on matrix rows) equals the CPU's
   thermo to 1e-10 after 20 steps, with a launch of P1 per force
-  evaluation and no plain call.
+  evaluation and no plain call;
+* the analysis layer: pe/atom and stress/atom from B1's and B5's halved
+  per-slot outputs (their per-atom variant) against the matrix engine's
+  plain tallies (B1) and B5's plain list sweep on the CPU, and the
+  distance computes (rdf, coord/atom, cluster/atom, cna/atom, centro/atom,
+  orientorder/atom) over the list kernel's occasional list against their
+  plain all-pairs versions on the card.
 
 f32 and f64, every energy/virial flag combination; tolerances as in
 chip_smoke.py: forces 5e-5 (f32) or 1e-12 (f64) of max|f|, energies and
@@ -712,3 +718,108 @@ run 1
             if dev == "cuda":
                 assert b6.counts.kernel_launches >= 2
                 assert b6.counts.plain_calls == 0
+
+
+ANALYSIS_LJ = """
+units           lj
+atom_style      atomic
+lattice         fcc 0.8442
+region          box block 0 6 0 6 0 6
+create_box      1 box
+create_atoms    1 box
+mass            1 1.0
+velocity        all create 1.44 87287 loop geom
+pair_style      lj/cut 2.5
+pair_coeff      1 1 1.0 1.0 2.5
+neighbor        0.3 bin
+neigh_modify    delay 0 every 20 check no
+fix             1 all nve
+compute         pea all pe/atom
+compute         str all stress/atom NULL
+compute         rdf all rdf 50
+compute         crd all coord/atom cutoff 1.5
+compute         cls all cluster/atom 1.2
+compute         cna all cna/atom 1.43
+compute         cen all centro/atom fcc
+compute         ori all orientorder/atom
+"""
+
+
+def _analysis_deck(device, mode, steps=30):
+    s = LammpsScript(device=device, dtype=torch.float64)
+    s.run_string(ANALYSIS_LJ)
+    s.sim.neighbor_mode = mode
+    s.sim.verbose = False
+    s.run_string(f"run {steps}")
+    return s.sim
+
+
+@pytest.mark.cuda
+def test_peratom_tallies_from_b1_slots_equal_the_matrix_plain_version():
+    """pe/atom and stress/atom from B1's halved per-slot outputs (the
+    per-atom variant, one launch) equal the matrix engine's plain
+    pair_sums tallies on the CPU at the same state (in.lj at 6^3, f64,
+    step 30)."""
+    _card()
+    card = _analysis_deck("cuda", "cellgrid")
+    cpu = _analysis_deck("cpu", "matrix")
+    n0 = b1.counts.peratom_launches
+    for cid in ("pea", "str"):
+        got = card.computes[cid](card).cpu().numpy()
+        want = cpu.computes[cid](cpu).numpy()
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-10 * np.abs(want).max())
+    assert b1.counts.peratom_launches == n0 + 1
+
+
+@pytest.mark.cuda
+def test_peratom_tallies_from_b5_slots_equal_the_plain_version(tmp_path):
+    """pe/atom and stress/atom of the water deck from B5's halved
+    per-slot outputs equal B5's plain list sweep's on the CPU (charmm has
+    no matrix path) at step 0, f64."""
+    _card()
+    gold = os.path.join(os.path.dirname(GOLDEN), "chunk_family")
+    deck = open(os.path.join(gold, "in.chk")).read().split("compute")[0] \
+        + "compute pea all pe/atom\ncompute str all stress/atom NULL\n" \
+        + "run 0\n"
+    import shutil
+    shutil.copy(os.path.join(gold, "data.water"), tmp_path)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = LammpsScript(device=dev, dtype=torch.float64)
+        s.data_dir = str(tmp_path)
+        s.run_string(deck)
+        out[dev] = {c: s.sim.computes[c](s.sim).cpu().numpy()
+                    for c in ("pea", "str")}
+    for c in ("pea", "str"):
+        np.testing.assert_allclose(out["cuda"][c], out["cpu"][c], rtol=0,
+                                   atol=1e-10 * np.abs(out["cpu"][c]).max())
+
+
+@pytest.mark.cuda
+def test_distance_computes_over_the_list_kernel_equal_plain():
+    """rdf, coord/atom, cluster/atom, cna/atom, centro/atom and
+    orientorder/atom over the list kernel's occasional list equal their
+    plain all-pairs versions on the card (integers exactly, rdf counts
+    exactly, the rest to 1e-12)."""
+    _card()
+    sim = _analysis_deck("cuda", "cellgrid")
+    n0 = bpl.counts.kernel_launches
+    for cid in ("rdf", "crd", "cls", "cna", "cen", "ori"):
+        c = sim.computes[cid]
+        got = c(sim)
+        c.plain = True
+        try:
+            plain = c.evaluate(sim)
+            counts_plain = c.counts(sim) if cid == "rdf" else None
+        finally:
+            c.plain = False
+        if cid in ("crd", "cls", "cna"):
+            assert torch.equal(got, plain), cid
+        elif cid == "rdf":
+            assert torch.equal(c.counts(sim), counts_plain)
+        else:
+            torch.testing.assert_close(got, plain, rtol=1e-12, atol=1e-12)
+    # one list for the state, at the largest cutoff, from the kernel
+    assert bpl.counts.kernel_launches == n0 + 1
+    assert sim.analysis_grid_lists >= 1

@@ -29,7 +29,7 @@ from tpumd_torch.core import state as t_state
 from tpumd_torch.interop import gran_from_numpy, state_from_numpy
 from tpumd_torch.io import read_data as t_read_data
 from tpumd_torch.md import fix_sphere as t_fix
-from tpumd_torch.md.computes import ComputeERotateSphere as TERot
+from tpumd_torch.md.compute_styles import erotate_sphere as t_erot
 from tpumd_torch.script.parser import LammpsScript as TScript
 from tpumd_torch.utils.units import get_units as t_units
 
@@ -305,7 +305,7 @@ def case_erotate_sphere():
         sim = types.SimpleNamespace(state=js, groups={"all": 1, "g": 8},
                                     units=j_units("lj"))
         ref = float(jc.evaluate(sim))
-        got = float(TERot("1", bit).value(ts, u.mvv2e))
+        got = float(t_erot(ts, bit, u.mvv2e))
         assert got == pytest.approx(ref, rel=1e-14) and ref > 0
 
 
@@ -315,7 +315,8 @@ def case_unported_commands_raise(tmp_path):
             ("boundary        p p fs", "boundary        p p q",
              Exception, "boundary"),
             ("compute         1 all erotate/sphere",
-             "compute         1 all ke", NotImplementedError, "compute"),
+             "compute         1 all property/local batom1",
+             NotImplementedError, "compute"),
             ("thermo_modify   norm no", "thermo_modify   lost ignore",
              NotImplementedError, "thermo_modify"),
             ("fix             3 active nve/sphere",

@@ -303,7 +303,7 @@ def test_port_restart_fix_state_raises(tmp_path):
 
 @pytest.mark.parametrize("line,err,match", [
     ("dump 2 all local 5 d.local index", NotImplementedError, "local"),
-    ("dump 2 all custom 5 d.txt id c_foo", NotImplementedError, "c_foo"),
+    ("dump 2 all custom 5 d.txt id proc", NotImplementedError, "proc"),
     ("dump 2 all custom 5 d.bin id x", NotImplementedError, "binary"),
     ("set atom 1 type 3", Exception, "atom type"),
     ("set atom 1 mass 2.0", NotImplementedError, "mass"),

@@ -91,6 +91,46 @@ fix             1 all nve
 """
 
 
+# in.lj with the analysis layer on (IN_LJ_ANALYSIS32K): the user watching
+# the fcc start melt.  Per-atom energy and stress summed (the pe and press
+# identities), msd and vacf averaged every 10 steps, rdf averaged into a
+# file every 100, and a dump every 250 steps of pe/atom, coord/atom,
+# cna/atom (cutoff 1.43 sigma = 0.854 a at rho* 0.8442, between fcc's
+# first and second shells) and centro/atom.  {n} is in.lj's box (20: 32,000
+# atoms), {steps} the run.
+ANALYSIS_LINES = """compute         pea all pe/atom
+compute         kea all ke/atom
+compute         str all stress/atom NULL
+compute         pesum all reduce sum c_pea
+compute         ssum all reduce sum c_str[1] c_str[2] c_str[3]
+compute         msd all msd
+compute         vacf all vacf
+compute         rdf all rdf 100
+compute         crd all coord/atom cutoff 1.5
+compute         cna all cna/atom 1.43
+compute         cen all centro/atom fcc
+fix             rdfav all ave/time 100 1 100 c_rdf[*] file rdf.lj32k mode vector
+fix             msdav all ave/time 10 10 100 c_msd[4] c_vacf[4]
+thermo          100
+thermo_style    custom step temp epair press c_pesum c_ssum[1] c_ssum[2] c_ssum[3] c_msd[4] f_msdav[1]
+dump            d all custom 250 dump.lj32k id c_pea c_crd c_cna c_cen
+"""
+IN_LJ_ANALYSIS32K = IN_LJ + ANALYSIS_LINES + "run             {steps}\n"
+
+
+def analysis_identities(vals: dict, natoms: int) -> dict:
+    """The analysis deck's two identities on a thermo row, as relative
+    gaps: sum of pe/atom against thermo's pe, and -trace(sum of
+    stress/atom)/(3V) against press.  lj units print the extensive reduce
+    sums per atom (thermo_modify norm yes), so both are multiplied back by
+    the atoms first."""
+    pe = vals["epair"] * natoms
+    press = -natoms * (vals["c_ssum[1]"] + vals["c_ssum[2]"]
+                       + vals["c_ssum[3]"]) / (3.0 * vals["vol"])
+    return {"pe": abs(vals["c_pesum"] * natoms - pe) / abs(pe),
+            "press": abs(press - vals["press"]) / abs(vals["press"])}
+
+
 # The drift deck: in.lj with pair_modify shift yes and timestep 0.001,
 # run under the protocol of tools/bench_all.py:183-205 (measure_drift).
 # Of the in.lj variants the re-anchor measured (ROADMAP A3), only this

@@ -7,7 +7,10 @@ file a step (a ``*`` in the name).  Text only.  On the cell grid the
 atoms sit in slot order with empty slots between them: a dump drops the
 empty slots and, with ``sort id``, orders the rest by tag.  A writer reads
 the state to the host at its own steps, which the run loop ends segments
-at.
+at.  dump custom also takes the analysis layer's per-atom columns: c_ID
+and c_ID[i] (a per-atom compute), f_ID and f_ID[i] (fix ave/atom,
+store/state), v_name (an atom-style variable) and d_name / i_name (fix
+property/atom), each read in tag order and matched to the rows by tag.
 """
 
 from __future__ import annotations
@@ -20,6 +23,12 @@ _INT_FIELDS = {"id", "type", "mol", "ix", "iy", "iz"}
 _FIELDS = ({"id", "type", "mol", "q", "radius"}
            | {a + s for a in _XYZ for s in ("", "s", "u")}
            | {p + a for p in ("v", "f", "i", "omega") for a in _XYZ})
+
+
+def _analysis_column(name):
+    """Whether a dump custom field is a per-atom column of the analysis
+    layer: c_, f_, v_, d_ or i_."""
+    return len(name) > 2 and name[1] == "_" and name[0] in "cfvdi"
 
 
 class Dump:
@@ -43,11 +52,13 @@ class Dump:
             self.fields = ["id", "type", "xs", "ys", "zs"]
         elif style == "custom":
             self.fields = list(fields or ())
-            bad = [f for f in self.fields if f not in _FIELDS]
+            bad = [f for f in self.fields
+                   if f not in _FIELDS and not _analysis_column(f)]
             if not self.fields or bad:
                 raise NotImplementedError(
                     f"dump {dump_id} custom fields {bad or 'none'} are not "
-                    f"ported (only {' '.join(sorted(_FIELDS))})")
+                    f"ported (only {' '.join(sorted(_FIELDS))} and c_, f_, "
+                    "v_, d_, i_ columns)")
         else:
             raise NotImplementedError(
                 f"dump style {style!r} is not ported (only atom and custom)")
@@ -115,8 +126,15 @@ class Dump:
                 host[name] = a.detach().cpu().numpy()[order]
             return host[name]
         cols = {}
+        by_tag = None
         for name in self.fields:
-            if name == "id":
+            if _analysis_column(name):
+                if by_tag is None:
+                    # each dumped row's place in tag order
+                    by_tag = np.searchsorted(np.sort(tag[tag > 0]),
+                                             tag[order])
+                cols[name] = self._analysis(sim, name)[by_tag]
+            elif name == "id":
                 cols[name] = tag[order]
             elif name == "type":
                 cols[name] = field("type")
@@ -140,6 +158,15 @@ class Dump:
                 cols[name] = field(key)[:, _XYZ.index(name[1])]
         return cols, lo, hi, len(order)
 
+    def _analysis(self, sim, name):
+        """(natoms,) float64 tag-order values of a c_/f_/v_/d_/i_ column."""
+        from tpumd_torch.md.fix_ave import resolve_input
+        out = resolve_input(sim, name)
+        if out.ndim != 1 or out.shape[0] != sim.natoms:
+            raise ValueError(f"dump {self.id} {name}: not a per-atom vector "
+                             f"(shape {out.shape})")
+        return out
+
     def write(self, sim):
         cols, lo, hi, n = self._columns(sim)
         path = self.path.replace("*", str(sim.step))
@@ -158,6 +185,8 @@ class Dump:
             fh.write("ITEM: ATOMS " + " ".join(self.fields) + "\n")
             mat = np.column_stack([np.asarray(cols[f], np.float64)
                                    for f in self.fields])
-            fmt = " ".join("%d" if f in _INT_FIELDS else self.float_fmt
-                           for f in self.fields)
-            np.savetxt(fh, mat, fmt=fmt)
+            fmt = " ".join("%d" if f in _INT_FIELDS or f.startswith("i_")
+                           else self.float_fmt for f in self.fields) + "\n"
+            # one formatting of every row at once: np.savetxt's text, ~2.4x
+            # faster (it formats and writes row by row)
+            fh.write((fmt * n) % tuple(mat.ravel().tolist()))

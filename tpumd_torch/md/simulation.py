@@ -31,6 +31,7 @@ import torch
 
 from tpumd_torch.core.state import MDState, map_per_atom, wrap_pbc
 from tpumd_torch.md import computes
+from tpumd_torch.md.compute_styles import split_ref
 from tpumd_torch.md.computes import THERMO_COMPUTES
 from tpumd_torch.md.verlet import ENERGY_KEYS, StepContext, build_matrix, \
     eval_energies, grid_pairlist, pack_thermo, partner_tags, \
@@ -119,6 +120,15 @@ class Simulation:
         self.groups = {"all": 1}          # name -> gmask bit
         self.neigh_exclude = ()           # ((bit1, bit2), ...)
         self.computes: dict = {}          # id -> compute
+        # fix property/atom's custom columns by name, arrays by tag - 1
+        self.custom_peratom: dict = {}
+        # why a fix halt stopped the run (None: it did not)
+        self.halt = None
+        # occasional neighbor lists the distance computes built
+        # (md/compute_list.py), and the list kernel's launches for them
+        self.analysis_lists = 0
+        self.analysis_grid_lists = 0
+        self._energies_of = None       # the state _last_energies are of
         self._shrink_small = None         # SMALL * the first box lengths
         self._hist_warned = False
 
@@ -698,6 +708,24 @@ class Simulation:
         self.state = s
         self._last_energies = energies
         self._last_virial = virial
+        self._energies_of = s
+        for c in self.computes.values():
+            c.setup(self)
+
+    def current_energies(self):
+        """(energies, virial) of the current state: the last thermo or
+        set-up evaluation's, else a new one (the fixes' virial added, as on
+        a thermo step)."""
+        s, neigh, fstates = self._carry
+        if self._energies_of is not s:
+            _, self._last_energies, virial, _, _ = eval_energies(
+                s, neigh, self._ctx)
+            for fx, fs in zip(self.fixes, fstates):
+                if fx.contributes_virial:
+                    virial = virial + fx.virial_contrib(fs)
+            self._last_virial = virial
+            self._energies_of = s
+        return self._last_energies, self._last_virial
 
     def _matrix_setup(self, s: MDState, nbuilds: int = 1, old=None):
         """Wrap a compact state and build its neighbor matrix (for the
@@ -811,6 +839,7 @@ class Simulation:
         self._thermo_header()
         self._thermo_line()  # setup thermo at current step
         self._write_dumps(setup=True)
+        self._setup_output_fixes()
         target = self.step + nsteps
         s0, neigh0, fstates0 = self._carry
         self._carry = (s0, neigh0, tuple(
@@ -819,6 +848,7 @@ class Simulation:
         t0 = time.perf_counter()
         if self._wall_start is None:
             self._wall_start = t0
+        self.halt = None
         while self.step < target:
             nxt = target
             for every in ([self.thermo_every] + [d.every for d in self.dumps]
@@ -858,20 +888,17 @@ class Simulation:
                 # a host fix edited the atoms: set up anew
                 self.setup()
                 ctx = self._ctx
-            s, neigh, fstates = self._carry
-            self.state = s
+            self.state = self._carry[0]
             if self.step == target or (self.thermo_every > 0 and
                                        self.step % self.thermo_every == 0):
-                # carry keeps the in-step f; this eval only refreshes
-                # energies and the virial for thermo
-                _, self._last_energies, virial, _, _ = eval_energies(
-                    s, neigh, ctx)
-                for fx, fs in zip(self.fixes, fstates):
-                    if fx.contributes_virial:
-                        virial = virial + fx.virial_contrib(fs)
-                self._last_virial = virial
+                # carry keeps the in-step f; thermo's energies and virial
+                # are evaluated once per state (current_energies)
                 self._thermo_line()
             self._write_dumps()
+            if self.halt:
+                self._log(self.halt)
+                nsteps -= target - self.step
+                break
             if self.timer_timeout is not None and \
                     time.perf_counter() - self._wall_start > \
                     self.timer_timeout:
@@ -884,6 +911,22 @@ class Simulation:
         self.loop_time += elapsed
         self.loop_steps += nsteps
         self._finish_report(elapsed, nsteps)
+
+    def _setup_output_fixes(self):
+        """At a run's set-up, after its thermo row and dumps: an ave fix
+        whose window is one sample samples and writes when the run starts
+        on one of its output steps (FixAveTime::setup -> end_of_step), once;
+        fix ave/correlate takes its set-up sample (tpumd/md/simulation.py:
+        848-864)."""
+        for fx in self.fixes:
+            if getattr(fx, "invoke_at_setup", False) and fx.nfreq \
+                    and fx.nrepeat == 1 and self.step % fx.nfreq == 0 \
+                    and not fx._setup_invoked:
+                fx.host_end_of_step(self)
+                fx._setup_invoked = True
+            if hasattr(fx, "host_setup_sample") and not fx._setup_sampled:
+                fx.host_setup_sample(self)
+                fx._setup_sampled = True
 
     def _write_dumps(self, setup: bool = False):
         for d in self.dumps:
@@ -997,14 +1040,30 @@ class Simulation:
 
     # ------------------------------------------------------------------ thermo
     def _thermo_computes(self) -> list[str]:
-        """The compute IDs whose scalars thermo_style reads (c_ID columns
-        of the deck's own computes), packed into the thermo row."""
-        ids = [k[2:] for k in self.thermo_style if k.startswith("c_")
-               and "[" not in k and k[2:] not in THERMO_COMPUTES]
-        for cid in ids:
-            if cid not in self.computes:
-                raise ValueError(f"thermo_style c_{cid}: no compute {cid}")
-        return ids
+        """The thermo_style columns that read the deck's computes (c_ID,
+        c_ID[i]), packed into the thermo row."""
+        keys = [k for k in self.thermo_style if k.startswith("c_")
+                and k[2:] not in THERMO_COMPUTES]
+        for k in keys:
+            if split_ref(k)[1] not in self.computes:
+                raise ValueError(f"thermo_style {k}: no compute "
+                                 f"{split_ref(k)[1]}")
+        return keys
+
+    def compute_entry(self, key):
+        """() tensor of c_ID (the compute's scalar) or c_ID[i] (entry i of
+        its global vector), unnormalized."""
+        _, cid, col = split_ref(key)
+        c = self.computes[cid]
+        if col is None:
+            return c.scalar_value(self)
+        out = c(self)
+        if out.dim() == 0:
+            return c.vector_value(self)[col]
+        if out.dim() != 1 or c.peratom:
+            raise ValueError(f"{key}: compute {cid} ({c.style}) has no "
+                             "global vector")
+        return out[col]
 
     def _escaped(self, s):
         """() count of atoms outside a fixed (f) face, on the device
@@ -1024,11 +1083,11 @@ class Simulation:
     def thermo_values(self) -> dict:
         s = self._carry[0]
         u = self.units
-        extra = [self.computes[c].value(s, u.mvv2e)
-                 for c in self._thermo_computes()]
+        energies, virial = self.current_energies()
+        extra = [self.compute_entry(k) for k in self._thermo_computes()]
         escaped = self._escaped(s)
         packed = pack_thermo(
-            s, self._last_energies, self._last_virial,
+            s, energies, virial,
             (self.dof(), u.boltz, u.mvv2e),
             torch.as_tensor(self.mass, dtype=self.dtype, device=self.device),
             extra + ([] if escaped is None else [escaped]))
@@ -1088,9 +1147,9 @@ class Simulation:
         tilt = self._carry[0].box.tilt
         vals.update(zip(("xy", "xz", "yz"), (0.0,) * 3 if tilt is None
                         else tilt.detach().cpu().double().tolist()))
-        for k, cid in enumerate(cids):
-            c = self.computes[cid]
-            vals["c_" + cid] = float(vals_h[nenergy + k]) / (
+        for k, key in enumerate(cids):
+            c = self.computes[split_ref(key)[1]]
+            vals[key] = float(vals_h[nenergy + k]) / (
                 norm if c.extensive else 1)
         self.last_thermo = vals
         return vals
@@ -1108,9 +1167,9 @@ class Simulation:
 
     def _thermo_value(self, vals, key):
         """A thermo_style custom column (tpumd/md/simulation.py:1605-1646):
-        a keyword, c_ID (the scalar packed into the row, or one of the
+        a keyword, c_ID or c_ID[i] (packed into the row, or one of the
         reference's thermo computes), v_name (an equal-style variable,
-        evaluated on this row) or f_ID[i] (a fix's output)."""
+        evaluated on this row) or f_ID or f_ID[i] (a fix's output)."""
         if key in vals:
             return vals[key]
         name, idx = key[2:], None
@@ -1129,8 +1188,7 @@ class Simulation:
                                  np.asarray(out)[idx])
             raise ValueError(f"thermo_style {key}: no fix {name} with "
                              "an output")
-        raise ValueError(f"thermo_style {key}: a compute vector is not "
-                         "ported")
+        raise ValueError(f"thermo_style {key} is not a thermo value")
 
     def _thermo_line(self):
         vals = self.thermo_values()

@@ -24,6 +24,10 @@ class PairStyle:
     matrix_engine = True
     # pairwise styles take the matrix engine's multi-image mode as they are
     supports_image_ext = True
+    # the style gives per-atom energy and virial tallies (compute pe/atom,
+    # stress/atom): pair_sums on the matrix engine, the kernels' per-slot
+    # outputs on the grid
+    peratom = True
 
     def __init__(self, ntypes: int):
         self.ntypes = ntypes

@@ -100,6 +100,35 @@ def compute_tuples(style, view, tuples, box, ctx, eflag: bool, vflag: bool):
     return f, energies, (_virial6(vp) if vflag else None)
 
 
+def compute_tuples_peratom(style, view, tuples, box, ctx):
+    """Per-atom tallies of one bonded style (the "atom" branches of
+    tpumd/models/bonded.py:152, :377, :1641): (eatom (natoms,), vatom
+    (natoms, 6)) per tag - 1, each tuple's energy and virial split evenly
+    among its members (the reference's ev_tally, ev_tally3 and ev_tally4
+    shares)."""
+    x = view[0]
+    n = x.shape[0]
+    eatom = x.new_zeros(n)
+    vatom = x.new_zeros((n, 6))
+    if tuples.shape[0] == 0:
+        return eatom, vatom
+    idx = [tuples[:, 1 + k] for k in range(style.arity)]
+    xs = [torch.index_select(x, 0, i) for i in idx]
+    _, ed, vp = style.tuple_terms(xs, tuples[:, 0], box, (view, idx), ctx,
+                                  True, True)
+    inv = 1.0 / style.arity
+    etup = sum(ed.values())
+    r = torch.stack([p[0] for p in vp])
+    fv = torch.stack([p[1] for p in vp])
+    vtup = torch.stack([torch.sum(r[..., a] * fv[..., b], dim=0)
+                        for a, b in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2),
+                                     (1, 2))], dim=1)
+    for i in idx:
+        eatom.index_add_(0, i, inv * etup)
+        vatom.index_add_(0, i, inv * vtup)
+    return eatom, vatom
+
+
 # ---------------------------------------------------------------- bonds
 class BondStyle(BondedStyle):
     arity = 2

@@ -149,6 +149,8 @@ class _Setfl:
 
 @register_pair("eam")
 class PairEAM(PairStyle):
+    # no per-atom energy/virial path (tpumd has none)
+    peratom = False
     name = "eam"
     # its matrix-engine compute (tpumd/models/pair_eam.py:450) is not ported
     matrix_engine = False

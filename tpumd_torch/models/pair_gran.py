@@ -39,6 +39,8 @@ from tpumd_torch.ops.gran_cellgrid import gran_cellgrid
 
 @register_pair("gran/hooke/history")
 class PairGranHookeHistory(PairStyle):
+    # no per-atom energy/virial path (tpumd has none)
+    peratom = False
     name = "gran/hooke/history"
     is_granular = True
     # the per-contact shear history rides the neighbor state

@@ -28,7 +28,7 @@ from tpumd_torch.core.state import Box
 from tpumd_torch.ops import _build
 from tpumd_torch.ops.cellgrid import CellGridConfig, cellgrid_pair_sums
 from tpumd_torch.ops.cellgrid_pairlist import unpack
-from tpumd_torch.ops.lj_cellgrid import LaunchCounts
+from tpumd_torch.ops.lj_cellgrid import LaunchCounts, peratom_flags
 from tpumd_torch.ops.pairwise import pair_sums
 
 # the reference's erfc approximation (src/KSPACE/pair_lj_charmm_coul_
@@ -143,6 +143,9 @@ def charmm_pairlist_plain(x, q, type_, pairs, npairs, box: Box,
     evdwl, ecoul, virial = zero, zero, torch.zeros(6, dtype=x.dtype,
                                                    device=x.device)
     pair_fn = charmm_pair_fn(c)
+    if peratom_flags(eflag, vflag):
+        eatom = torch.empty(n, dtype=x.dtype, device=x.device)
+        vatom = torch.empty((n, 6), dtype=x.dtype, device=x.device)
     for b0 in range(0, n, rows):
         b1 = min(b0 + rows, n)
         fb, ev, ec, vir = pair_sums(
@@ -150,10 +153,15 @@ def charmm_pairlist_plain(x, q, type_, pairs, npairs, box: Box,
             c.w_lj, c.w_coul, eflag, vflag, q=q[b0:b1], pair_fn_ex=pair_fn,
             ext=(x, type_, q, box), row0=b0)
         f[b0:b1] = fb
+        if eflag == "atom":
+            eatom[b0:b1], vatom[b0:b1] = ev, ec
+            continue
         if eflag:
             evdwl, ecoul = evdwl + ev, ecoul + ec
         if vflag:
             virial = virial + vir
+    if eflag == "atom":
+        return f, eatom, vatom, None
     return (f, evdwl if eflag else None, ecoul if eflag else None,
             virial if vflag else None)
 
@@ -180,7 +188,9 @@ def charmm_cellgrid(x, q, type_, pairs, npairs, box: Box,
     """Forces (Np, 3), evdwl and ecoul () or None and virial (6,) or None
     of lj/charmm/coul/long over the grid's pair list (pairs (Np, K),
     npairs (Np,), ops/cellgrid_pairlist.py); energies and virial take 1/2
-    per ordered pair.  Raises without a list."""
+    per ordered pair.  With eflag = vflag = "atom": (f, eatom (Np,) the
+    lj + coul energy, vatom (Np, 6), None), each slot's half share.
+    Raises without a list."""
     if pairs is None or npairs is None:
         raise ValueError("charmm_cellgrid: no pair list; the grid state "
                          "of a style that sweeps one carries it from its "
@@ -200,6 +210,7 @@ def charmm_cellgrid(x, q, type_, pairs, npairs, box: Box,
     out = launch(_build.kernel_function(_FN_NAMES[_dtype(x)], _ARGTYPES),
                  x, q, type_, pairs, npairs, box, cfg, c, eflag, vflag)
     counts.kernel_launches += 1
+    counts.peratom_launches += eflag == "atom"
     return out
 
 
@@ -219,6 +230,8 @@ def launch(fn, x, q, type_, pairs, npairs, box: Box, cfg: CellGridConfig,
         raise NotImplementedError(
             f"charmm_cellgrid: the kernel takes a periodic box only, got "
             f"periodic flags {box.periodic}")
+    peratom = peratom_flags(eflag, vflag)
+    eflag, vflag = bool(eflag), bool(vflag)
     np_, K = cfg.capacity, pairs.shape[-1]
     nt1 = c.lj.shape[-1]
     _check("x", x, _dtype(x), (np_, 3), x.device)
@@ -248,6 +261,8 @@ def launch(fn, x, q, type_, pairs, npairs, box: Box, cfg: CellGridConfig,
     if rc != 0:
         raise RuntimeError(f"charmm_cellgrid kernel launch failed: CUDA "
                            f"error {rc}")
+    if peratom:
+        return f, 0.5 * (eslot[0] + eslot[1]), 0.5 * vslot, None
     evdwl = ecoul = virial = None
     if eflag:
         evdwl, ecoul = 0.5 * torch.sum(eslot, dim=1)

@@ -45,6 +45,31 @@ class LaunchCounts:
     def reset(self):
         self.kernel_launches = 0
         self.plain_calls = 0
+        # launches of the per-atom variant (eflag = vflag = "atom"), also
+        # counted in kernel_launches
+        self.peratom_launches = 0
+
+
+def peratom_flags(eflag, vflag) -> bool:
+    """Whether a call asks for per-slot tallies (eflag = vflag = "atom")."""
+    if (eflag == "atom") != (vflag == "atom"):
+        raise ValueError("per-atom tallies take eflag and vflag both "
+                         "'atom'")
+    return eflag == "atom"
+
+
+def slot_tallies(i, e, fp, d, np_: int):
+    """(eatom (np_,), vatom (np_, 6)) of list entries of slots i with
+    energies e, force prefactors fp and separations d: half of each entry,
+    summed per slot (the kernels' per-slot outputs, halved)."""
+    eatom = torch.zeros(np_, dtype=d.dtype, device=d.device).index_add_(
+        0, i, 0.5 * e)
+    vatom = torch.zeros((np_, 6), dtype=d.dtype, device=d.device)
+    vatom.index_add_(0, i, 0.5 * torch.stack(
+        [fp * d[:, a] * d[:, b]
+         for a, b in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))],
+        dim=1))
+    return eatom, vatom
 
 
 counts = LaunchCounts()
@@ -77,13 +102,16 @@ def lj_cellgrid_plain(x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
 def lj_pairlist_plain(x, box: Box, c: LJCoeffs, eflag: bool, vflag: bool,
                       pairs, npairs):
     """Plain PyTorch version of the kernel: (f, evdwl, virial) of lj/cut
-    over the list's code-0 entries within the cutoff."""
+    over the list's code-0 entries within the cutoff; with eflag = vflag
+    = "atom", (f, eatom, vatom) per slot."""
     from tpumd_torch.ops.cellgrid_pairlist import half_virial, list_entries
     i, _, d, r2 = list_entries(x, box, pairs, npairs)
     inside = r2 < c.cutsq
     i, d, r2 = i[inside], d[inside], r2[inside]
     fp, e = lj_pair_fn(c)(r2, None, None)
     f = torch.zeros_like(x).index_add_(0, i, d * fp[:, None])
+    if peratom_flags(eflag, vflag):
+        return (f,) + slot_tallies(i, e, fp, d, x.shape[0])
     return (f, 0.5 * torch.sum(e) if eflag else None,
             half_virial(fp, d) if vflag else None)
 
@@ -153,7 +181,10 @@ def lj_cellgrid(x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
     single-type lj/cut over the grid's pair list plist = (pairs (Np, K),
     npairs (Np,), rows (natoms,) the valid slots, the grid state's
     row2slot); energy and virial take 1/2 per ordered pair
-    (tpumd/ops/cellgrid.py:523-532).  Raises without a list."""
+    (tpumd/ops/cellgrid.py:523-532).  With eflag = vflag = "atom" the
+    energy and virial are per slot, (Np,) and (Np, 6), each slot's half
+    share (the per-atom tallies of compute pe/atom and stress/atom).
+    Raises without a list."""
     check_list("lj_cellgrid", plist, cfg.capacity, x.device)
     pairs, npairs, rows = plist
     if x.device.type == "cpu":
@@ -164,6 +195,7 @@ def lj_cellgrid(x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
     out = launch(_build.kernel_function(_FN_NAMES[x.dtype], _ARGTYPES), x,
                  valid, box, cfg, c, eflag, vflag, plist)
     counts.kernel_launches += 1
+    counts.peratom_launches += eflag == "atom"
     return out
 
 
@@ -173,6 +205,8 @@ def launch(fn, x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
     kernel of x's dtype, bound with _ARGTYPES); the outputs of
     lj_cellgrid."""
     check_grid_inputs(x, valid, box, cfg)
+    peratom = peratom_flags(eflag, vflag)
+    eflag, vflag = bool(eflag), bool(vflag)
     pairs, npairs, rows = plist
     np_ = cfg.capacity
     f = torch.empty_like(x)
@@ -190,6 +224,8 @@ def launch(fn, x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
     if rc != 0:
         raise RuntimeError(f"lj_cellgrid kernel launch failed: CUDA error "
                            f"{rc}")
+    if peratom:
+        return f, 0.5 * eslot, 0.5 * vslot
     evdwl = 0.5 * torch.sum(eslot) if eflag else None
     virial = 0.5 * torch.sum(vslot, dim=0) if vflag else None
     return f, evdwl, virial

@@ -31,7 +31,7 @@ from tpumd_torch.ops.cellgrid import CellGridConfig, cellgrid_pair_sums
 from tpumd_torch.ops.cellgrid_pairlist import half_virial, image_shift, \
     list_entries
 from tpumd_torch.ops.lj_cellgrid import LaunchCounts, LJCoeffs, \
-    check_grid_inputs, check_list, lj_pair_fn
+    check_grid_inputs, check_list, lj_pair_fn, peratom_flags, slot_tallies
 
 
 class FENECoeffs(NamedTuple):
@@ -97,6 +97,9 @@ def lj_fene_pairlist_plain(x, box: Box, lj: LJCoeffs, fene: FENECoeffs,
     bf, be = fene_wca(br2, *fene)
     ii, d, fp = torch.cat([ii, bi]), torch.cat([d, bd]), torch.cat([fp, bf])
     f = torch.zeros_like(x).index_add_(0, ii, d * fp[:, None])
+    if peratom_flags(eflag, vflag):
+        return (f,) + slot_tallies(ii, torch.cat([e, be]), fp, d,
+                                   x.shape[0]) + (None,)
     evdwl = ebond = virial = None
     if eflag:
         evdwl, ebond = 0.5 * torch.sum(e), 0.5 * torch.sum(be)
@@ -126,7 +129,9 @@ def lj_fene_cellgrid(x, valid, box: Box, cfg: CellGridConfig, lj: LJCoeffs,
     or None of single-type lj/cut plus one FENE bond type over the grid's
     pair list plist = (pairs (Np, K), npairs (Np,), bond_slots (Np, nb),
     rows (natoms,) the valid slots, the grid state's row2slot); energies
-    and virial take 1/2 per ordered pair.  Raises without a list."""
+    and virial take 1/2 per ordered pair.  With eflag = vflag = "atom"
+    the energy (lj + bond) and virial are per slot, each slot's half share,
+    and ebond is None.  Raises without a list."""
     check_list("lj_fene_cellgrid", plist, cfg.capacity, x.device)
     pairs, npairs, bond_slots, rows = plist
     if x.device.type == "cpu":
@@ -139,6 +144,7 @@ def lj_fene_cellgrid(x, valid, box: Box, cfg: CellGridConfig, lj: LJCoeffs,
     out = launch(_build.kernel_function(_FN_NAMES[x.dtype], _ARGTYPES), x,
                  valid, box, cfg, lj, fene, eflag, vflag, plist)
     counts.kernel_launches += 1
+    counts.peratom_launches += eflag == "atom"
     return out
 
 
@@ -148,6 +154,8 @@ def launch(fn, x, valid, box: Box, cfg: CellGridConfig, lj: LJCoeffs,
     kernel of x's dtype, bound with _ARGTYPES); the outputs of
     lj_fene_cellgrid."""
     check_grid_inputs(x, valid, box, cfg, "lj_fene_cellgrid")
+    peratom = peratom_flags(eflag, vflag)
+    eflag, vflag = bool(eflag), bool(vflag)
     pairs, npairs, bond_slots, rows = plist
     np_, dev = cfg.capacity, x.device
     if bond_slots.dim() != 2 or not 1 <= bond_slots.shape[1] <= 2:
@@ -174,6 +182,8 @@ def launch(fn, x, valid, box: Box, cfg: CellGridConfig, lj: LJCoeffs,
     if rc != 0:
         raise RuntimeError(f"lj_fene_cellgrid kernel launch failed: CUDA "
                            f"error {rc}")
+    if peratom:
+        return f, 0.5 * (eslot[0] + eslot[1]), 0.5 * vslot, None
     evdwl = ebond = virial = None
     if eflag:
         evdwl, ebond = 0.5 * torch.sum(eslot, dim=1)

@@ -26,7 +26,11 @@ def pair_sums(x, type_, box, idx, sbits, pair_fn, special_lj, special_coul,
               eflag: bool, vflag: bool, q=None, pair_fn_ex=None, ext=None,
               row0: int = 0):
     """(f (N, 3), evdwl, ecoul, virial (6,)) of a pairwise style; the
-    energies are None without eflag, the virial without vflag.
+    energies are None without eflag, the virial without vflag.  With
+    eflag = vflag = "atom": (f, eatom (N,), vatom (N, 6), None), each
+    row's per-atom tallies (evdwl + ecoul), half of each of its pairs
+    (ev_tally's eatom/vatom shares, src/pair.cpp:1013;
+    tpumd/ops/pairwise.py:102-118).
 
     special_lj/special_coul: the four weights by sbits code (code 0:
     weight 1), or None without special pairs.  ext = (xj, tj, qj, vbox):
@@ -34,9 +38,10 @@ def pair_sums(x, type_, box, idx, sbits, pair_fn, special_lj, special_coul,
     of the extended domain (tpumd/md/verlet.py:97-108).  row0: x, type_
     and q are the rows [row0, row0 + N) of the tables that idx addresses
     (ext), so a row's own index, its padding, is row0 + its row."""
-    if eflag == "atom" or vflag == "atom":
-        raise NotImplementedError("per-atom pair tallies (eflag/vflag "
-                                  "'atom') are not ported")
+    peratom = eflag == "atom" or vflag == "atom"
+    if peratom and not (eflag == "atom" and vflag == "atom"):
+        raise ValueError("pair_sums: per-atom tallies take eflag and vflag "
+                         "both 'atom'")
     n = idx.shape[0]
     dev = x.device
     mask = idx != torch.arange(row0, row0 + n, dtype=idx.dtype,
@@ -89,6 +94,14 @@ def pair_sums(x, type_, box, idx, sbits, pair_fn, special_lj, special_coul,
     fpair = torch.where(mask, fpair, 0.0)
     f = torch.stack([torch.sum(d[c] * fpair, dim=1) for c in range(3)],
                     dim=1)
+    if peratom:
+        etot = evdwl if ecoul is None else evdwl + ecoul
+        eatom = 0.5 * torch.sum(torch.where(mask, etot, 0.0), dim=1)
+        vatom = 0.5 * torch.stack([
+            torch.sum(fpair * d[a] * d[b], dim=1)
+            for a, b in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))],
+            dim=1)
+        return f, eatom, vatom, None
     e_vdwl = e_coul = virial = None
     if eflag:
         e_vdwl = 0.5 * torch.sum(torch.where(mask, evdwl, 0.0))

@@ -313,6 +313,11 @@ class SimFormulaContext:
                 s.type.cpu().numpy()[order]]
         if name == "q" and s.q is not None:
             return s.q.cpu().numpy().astype(np.float64)[order]
+        if name.startswith(("i_", "d_")) and \
+                name in self.sim.custom_peratom:
+            # fix property/atom's columns, by tag - 1
+            return np.asarray(self.sim.custom_peratom[name],
+                              np.float64)[tag[order] - 1]
         return None
 
     def variable(self, name):
@@ -335,17 +340,23 @@ class SimFormulaContext:
                 else v
         if cid not in sim.computes:
             raise ValueError(f"compute {cid} is not defined")
-        s = sim.state if sim._carry is None else sim._carry[0]
-        out = sim.computes[cid].value(s, sim.units.mvv2e)
-        out = np.asarray(out.detach().cpu().numpy(), np.float64)
-        return float(out) if index is None else float(out[index - 1])
+        c = sim.computes[cid]
+        if c.peratom:
+            # a per-atom column, in tag order (atom-style formulas)
+            out = c(sim).detach().cpu().numpy().astype(np.float64)
+            return out if index is None else out[:, index - 1]
+        key = f"c_{cid}" if index is None else f"c_{cid}[{index}]"
+        return float(sim.compute_entry(key))
 
     def fix(self, fid, index):
         for fx in self.sim.fixes:
             if getattr(fx, "id", None) == fid and hasattr(fx, "output"):
-                out = fx.output(self.sim)
+                out = np.asarray(fx.output(self.sim), np.float64)
+                if getattr(fx, "peratom", False):
+                    # ave/atom, store/state: columns in tag order
+                    return out if index is None else out[:, index - 1]
                 return float(out) if index is None else float(
-                    np.asarray(out)[index - 1])
+                    out[index - 1])
         raise ValueError(f"fix {fid} has no output")
 
     def run_delta(self):

@@ -38,7 +38,10 @@ from tpumd_torch.md.fix_langevin import FixLangevin
 from tpumd_torch.md.fix_nh import FixNH
 from tpumd_torch.md.fix_particle import FixDeposit, FixEvaporate
 from tpumd_torch.md.fix_pour import FixPour
-from tpumd_torch.md.computes import ComputeERotateSphere
+from tpumd_torch.md.compute_styles import create_compute
+from tpumd_torch.md.fix_ave import FixAveAtom, FixAveChunk, \
+    FixAveCorrelate, FixAveHisto, FixAveTime, FixHalt, FixPrint, \
+    FixPropertyAtom, FixStoreState, check_inputs
 from tpumd_torch.md.fix_rigid import FixRigid, FixRigidNPH, FixRigidNPT, \
     FixRigidNVT
 from tpumd_torch.md.fix_shake import FixRattle, FixShake
@@ -1245,13 +1248,16 @@ class LammpsScript:
         sim.state = s.replace(gmask=torch.where(sel, gm | bit, gm))
 
     def cmd_compute(self, a):
+        """compute ID group style args (src/modify.cpp add_compute;
+        md/compute_styles.py::create_compute); a compute defined after a
+        run takes its reference state at once."""
+        sim = self._require_sim()
         cid, group, style = a[0], a[1], a[2]
-        if style != "erotate/sphere" or len(a) != 3:
-            raise NotImplementedError(
-                f"compute {' '.join(a[2:])} is not ported (only "
-                "erotate/sphere)")
-        self._require_sim().computes[cid] = ComputeERotateSphere(
-            cid, self._group_bit(group))
+        self._group_bit(group)
+        c = create_compute(cid, group, style, a[3:])
+        sim.computes[cid] = c
+        if sim._carry is not None:
+            c.setup(sim)
 
     _RIGID_STYLES = tuple(f"rigid{ens}{small}"
                           for ens in ("", "/nve", "/nvt", "/npt", "/nph")
@@ -1259,8 +1265,19 @@ class LammpsScript:
     _WALL_STYLES = ("wall/lj93", "wall/lj126", "wall/harmonic",
                     "wall/reflect")
     # the fixes that take a group other than all
+    _OUTPUT_FIXES = ("ave/time", "ave/atom", "ave/histo", "ave/correlate",
+                     "ave/chunk", "print", "halt", "store/state",
+                     "property/atom")
     _GROUP_FIXES = ("nve/sphere", "freeze", "gravity", "wall/gran", "pour",
-                    "deposit", "evaporate") + _WALL_STYLES + _RIGID_STYLES
+                    "deposit", "evaporate") + _WALL_STYLES + _RIGID_STYLES \
+        + _OUTPUT_FIXES
+    # fixes of the reference that wait for other parts of the port
+    _FIXES_WAITING = {
+        "ave/grid": "it waits with dump grid (ROADMAP A9 (i))",
+        "tune/kspace": "it needs ewald and msm beside pppm",
+        "balance": "it waits with the balance command (ROADMAP A9 (k))",
+        "deform": "fix deform is not ported",
+    }
 
     def cmd_fix(self, a):
         sim = self.sim
@@ -1302,6 +1319,11 @@ class LammpsScript:
         elif style == "evaporate" and len(args) == 4:
             fx = FixEvaporate(args[0], args[1], self.regions[args[2]],
                               args[3])
+        elif style in self._OUTPUT_FIXES:
+            fx = self._parse_output_fix(style, args)
+        elif style in self._FIXES_WAITING:
+            raise NotImplementedError(f"fix {style} is not ported: "
+                                      f"{self._FIXES_WAITING[style]}")
         else:
             raise NotImplementedError(
                 f"fix {' '.join(a[1:])!r} is not ported (only 'all nve', "
@@ -1314,10 +1336,84 @@ class LammpsScript:
         fx.groupbit = self._group_bit(group)
         sim.fixes.append(fx)
         sim.invalidate_ctx()
-        if style == "pour":
-            # nfreq takes the timestep at the fix's definition (the
-            # reference computes it in the constructor)
+        if style in ("pour", "store/state", "property/atom"):
+            # pour's nfreq takes the timestep at the fix's definition (the
+            # reference computes it in the constructor); store/state stores
+            # its values and property/atom makes its columns there
+            self._finalize_atoms()
             fx.host_setup(sim)
+
+    @staticmethod
+    def _keywords(vals, keys):
+        """(vals without the `key value` pairs of keys, {key: value})."""
+        kw, out, i = {}, [], 0
+        while i < len(vals):
+            if vals[i] in keys and i + 1 < len(vals):
+                kw[vals[i]] = vals[i + 1]
+                i += 2
+            else:
+                out.append(vals[i])
+                i += 1
+        return out, kw
+
+    def _parse_output_fix(self, style, args):
+        """The output fixes (tpumd/script/parser.py:1483-1577): keywords
+        exactly tpumd's; any other raises naming itself."""
+        if style == "ave/time":
+            vals, kw = self._keywords(args[3:], ("file", "mode"))
+            if kw.get("mode", "scalar") not in ("scalar", "vector"):
+                raise NotImplementedError(f"fix ave/time mode {kw['mode']}")
+            check_inputs(style, vals)
+            return FixAveTime(*args[:3], vals, file=self._opt_path(kw),
+                              mode_vector=kw.get("mode") == "vector")
+        if style == "ave/atom":
+            return FixAveAtom(*args[:3], args[3:])
+        if style == "ave/correlate":
+            vals, kw = self._keywords(args[3:], ("file", "type", "ave"))
+            check_inputs(style, vals)
+            return FixAveCorrelate(*args[:3], vals,
+                                   ctype=kw.get("type", "auto"),
+                                   ave=kw.get("ave", "one"),
+                                   file=self._opt_path(kw))
+        if style == "ave/histo":
+            vals, kw = self._keywords(args[6:], ("file", "beyond", "mode",
+                                                 "ave"))
+            if kw.get("ave", "one") != "one":
+                raise NotImplementedError(
+                    f"fix ave/histo ave {kw['ave']} is not ported (tpumd "
+                    "takes ave one)")
+            return FixAveHisto(*args[:6], vals, file=self._opt_path(kw),
+                               beyond=kw.get("beyond", "ignore"))
+        if style == "ave/chunk":
+            vals, kw = self._keywords(args[4:], ("file",))
+            cid = args[3][2:] if args[3].startswith("c_") else args[3]
+            return FixAveChunk(*args[:3], cid, vals, file=self._opt_path(kw))
+        if style == "store/state":
+            if "com" in args:
+                raise NotImplementedError("fix store/state keyword com is "
+                                          "not ported (tpumd lacks it)")
+            return FixStoreState(args[0], args[1:])
+        if style == "property/atom":
+            bad = [n for n in args if not n.startswith(("i_", "d_"))]
+            if bad or not args:
+                raise NotImplementedError(
+                    f"fix property/atom {bad or args}: only i_/d_ custom "
+                    "columns are ported (mol, q and rmass live in the atom "
+                    "styles)")
+            return FixPropertyAtom(args)
+        if style == "print":
+            rest, kw = self._keywords(args[2:], ("file",))
+            if rest:
+                raise NotImplementedError(f"fix print keywords {rest}")
+            return FixPrint(args[0], args[1], file=self._opt_path(kw))
+        if len(args) != 4:
+            raise NotImplementedError(
+                f"fix halt {' '.join(args)}: only N attribute op value is "
+                "ported")
+        return FixHalt(*args)
+
+    def _opt_path(self, kw):
+        return self._path(kw["file"]) if "file" in kw else None
 
     def _parse_deposit(self, args):
         """fix ID group deposit N type M seed region R [vx lo hi] [vy lo
@@ -1503,7 +1599,7 @@ class LammpsScript:
         raise NotImplementedError(f"set style {style!r} is not ported")
 
     def cmd_set(self, a):
-        """set group|type|region|atom ID charge|type value ...
+        """set group|type|region|atom ID charge|type|d_name|i_name value ...
         (src/set.cpp; tpumd/script/parser.py:752-808)."""
         sim = self._host_edit()
         sel = torch.as_tensor(self._select(a[0], a[1]), device=sim.device)
@@ -1513,6 +1609,14 @@ class LammpsScript:
                 q = (torch.zeros(s.tag.shape[0], dtype=self.dtype,
                                  device=sim.device) if s.q is None else s.q)
                 s = s.replace(q=torch.where(sel, float(val), q))
+            elif key.startswith(("d_", "i_")):
+                store = sim.custom_peratom
+                if key not in store:
+                    raise ScriptError(f"set {key}: no fix property/atom "
+                                      "defines it")
+                tags = s.tag[sel].long().cpu().numpy() - 1
+                store[key][tags] = (int(val) if key.startswith("i_")
+                                    else float(val))
             elif key == "type":
                 if not 1 <= int(val) <= sim.ntypes:
                     raise ScriptError(f"set type {val}: not an atom type "
@@ -1520,8 +1624,9 @@ class LammpsScript:
                 s = s.replace(type=torch.where(sel, int(val), s.type).to(
                     torch.int32))
             else:
-                raise NotImplementedError(f"set keyword {key!r} is not "
-                                          "ported (only charge and type)")
+                raise NotImplementedError(
+                    f"set keyword {key!r} is not ported (only charge, type "
+                    "and property/atom's d_ and i_ columns)")
         if len(a) % 2:
             raise ScriptError(f"set: odd keyword list {a[2:]}")
         sim.state = s
