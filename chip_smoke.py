@@ -161,9 +161,28 @@ line each (any failure raises and exits non-zero):
    step-100 gates, 500
    warm-up and 500 timed steps beside the cell grid's figure of this
    call, P1's launch counts of those runs and a profile of 100 steps;
-11. a JSON line of the kernels (the list build of each deck, the refresh
-   calls of in.lj, eam and rhodo_class, B5 at each 30k water deck's shape
-   and B6's HERTZ variant at granhertz32k's, each an entry of its own),
+11. the pair-style library and kspace on the matrix engine: the eight
+   pair goldens (tests/golden/pair_born, pair_ljexpand, pair_couldebye,
+   pair_table and wolfdsf's four decks) verbatim in f64, every printed
+   row against the reference binary's to its printed digits
+   (``tpumd_torch.pair_goldens.failures``), and the 21 reference decks of
+   tpumd's pair tests against the reference binary's numbers, P1 launched
+   on each and no plain call; then the molten salt (``salt_path``):
+   ``IN_SALT32K_DSF`` (32,768 ions, born/coul/dsf) in f64 against
+   log.borndsf's step 0 (epair, ecoul, the virial pressure) and
+   ``IN_SALT32K`` (born/coul/long under PPPM 1e-4) in f64 against the
+   Ewald sum and the 512-ion PPPM rows per ion, then in f32 from the f64
+   deck's velocities: step-0 forces and the step-100 row against f64,
+   1,000 steps without a NaN, the energy drift, 500 timed steps, P1's
+   launches (at least one per force evaluation, no plain call, no grid
+   kernel), a profile of 100 steps, PPPM's device ms a step and P1 at
+   the deck's packed-row shape beside its bound, the plain version and
+   torch.index_select (bit-equal to the plain version on every kind of
+   input the set-up gave it); the DSF deck in f32, 500 timed steps;
+12. a JSON line of the kernels (the list build of each deck, the refresh
+   calls of in.lj, eam and rhodo_class, B5 at each 30k water deck's shape,
+   B6's HERTZ variant at granhertz32k's and P1 at the salt's, each an
+   entry of its own),
    the card's name and power limit as nvidia-smi prints them, then the
    result line.
 
@@ -2968,7 +2987,8 @@ P1_MAIN_SHAPES = (
 # the modules that call gather_rows by name (matrix_main_path records
 # their inputs)
 P1_CALLERS = ("tpumd_torch.ops.neighbor", "tpumd_torch.ops.pairwise",
-              "tpumd_torch.models.pair_gran", "tpumd_torch.models.pair_lj_cut")
+              "tpumd_torch.models.pair_gran", "tpumd_torch.models.pair_lj_cut",
+              "tpumd_torch.models.base", "tpumd_torch.models.pair_table")
 
 
 def p1_case(gen, dtype, rows: int, width: int, shape: tuple):
@@ -3685,7 +3705,257 @@ def pour20k_path(smi: str) -> dict:
     return {"sps": sps}
 
 
+PAIR_GOLDEN = GOLDEN.parent / "wolfdsf"
+
+
+def pair_goldens_phase():
+    """The eight pair-style logs verbatim in f64 on the card, every printed
+    row within one unit of the reference binary's last printed digit
+    (tpumd_torch.pair_goldens.failures, the CPU tests' comparison), and
+    the 21 reference decks of tpumd's pair tests at those tests'
+    tolerances, each on the matrix engine with P1 launched and no plain
+    call."""
+    from tpumd_torch import pair_goldens as pg
+    from tpumd_torch.ops.gather import counts
+    from tpumd_torch.script.parser import LammpsScript
+    gold = str(GOLDEN.parent)
+    notes = []
+    t0 = time.perf_counter()
+    for name in sorted(pg.DECKS):
+        counts.reset()
+        with contextlib.redirect_stdout(sys.stderr):
+            script = pg.run(gold, name, "cuda", torch.float64)
+        bad = pg.failures(gold, name, script)
+        if bad or script.sim._ctx.is_cellgrid:
+            raise AssertionError(f"pair golden {name}: {bad[:6]}")
+        if counts.kernel_launches == 0 or counts.plain_calls:
+            raise AssertionError(f"pair golden {name}: row_gather launches "
+                                 f"{counts.kernel_launches}, plain calls "
+                                 f"{counts.plain_calls}")
+        notes.append(f"{name} P1 x{counts.kernel_launches}")
+    phase("pair", f"eight pair goldens verbatim in f64 on the card "
+                  f"({time.perf_counter() - t0:.1f} s), every printed row "
+                  "to the reference binary's digits: " + ", ".join(notes))
+    notes = []
+    t0 = time.perf_counter()
+    for name in sorted(pg.REFERENCE):
+        counts.reset()
+        script = LammpsScript(device="cuda", dtype=torch.float64)
+        with contextlib.redirect_stdout(sys.stderr):
+            script.run_string(pg.REFERENCE[name][0])
+        bad = pg.reference_failures(name, script.sim.last_thermo)
+        if bad or script.sim._ctx.is_cellgrid:
+            raise AssertionError(f"reference deck {name}: {bad}")
+        if counts.kernel_launches == 0 or counts.plain_calls:
+            raise AssertionError(f"reference deck {name}: row_gather "
+                                 f"launches {counts.kernel_launches}, plain "
+                                 f"calls {counts.plain_calls}")
+        notes.append(f"{name} x{counts.kernel_launches}")
+    phase("pair", f"21 reference decks of tpumd's pair tests in f64 on the "
+                  f"card ({time.perf_counter() - t0:.1f} s) meet the "
+                  "reference binary's numbers (temp, epair, etotal 1e-6, "
+                  "press 1e-5); P1 launches: " + ", ".join(notes))
+
+
+def salt_setup(deck: str, dtype):
+    """LammpsScript of a salt deck on the card, verbose off, before its
+    first run."""
+    from tpumd_torch.script.parser import LammpsScript
+    script = LammpsScript(device="cuda", dtype=dtype)
+    script.run_string(deck.format(golden=PAIR_GOLDEN))
+    script.sim.verbose = False
+    return script
+
+
+def tag_order(t, tag):
+    return t[torch.argsort(tag)]
+
+
+def thermo_rows(sim) -> dict:
+    """{step: {column: value}} of the printed rows of sim's log."""
+    names, rows = None, {}
+    for ln in sim.log_lines:
+        p = ln.split()
+        if p and p[0] == "Step":
+            names = list(sim.thermo_style)
+        elif names and p and p[0].isdigit() and len(p) == len(names):
+            rows[int(p[0])] = dict(zip(names, (float(v) for v in p)))
+    return rows
+
+
+def salt_path(smi: str) -> tuple[dict, dict]:
+    """The molten salt on the matrix engine (bench_targets.IN_SALT32K and
+    IN_SALT32K_DSF, 32,768 ions): the gates, the main path's run in f32
+    with its launch counts, and the numbers of the salt decks."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.ops import cellgrid_pairlist, charmm_cellgrid, \
+        eam_cellgrid, gather, gran_cellgrid, lj_cellgrid, lj_fene_cellgrid
+    from tpumd_torch.ops.gather import gather_rows, gather_rows_plain
+    grid = (lj_cellgrid.counts, lj_fene_cellgrid.counts,
+            eam_cellgrid.rho_counts, eam_cellgrid.force_counts,
+            charmm_cellgrid.counts, gran_cellgrid.counts,
+            cellgrid_pairlist.counts, cellgrid_pairlist.refresh_counts)
+    # 1. IN_SALT32K_DSF in f64: log.borndsf's step 0, the self-energy in
+    # ecoul (a replicated perfect lattice has its cell's energies per ion)
+    dsf = salt_setup(bt.IN_SALT32K_DSF, torch.float64)
+    dsf.run_string("run 0")
+    n, vol = dsf.sim.natoms, float(dsf.sim.state.box.volume)
+    row = dict(dsf.sim.last_thermo)
+    bad = bt.salt_step0_failures(row, True, n, vol, 1e-8)
+    if bad or dsf.sim._ctx.is_cellgrid or n != bt.SALT32K_N:
+        raise AssertionError(f"IN_SALT32K_DSF step 0 against log.borndsf: "
+                             f"{bad}")
+    phase("salt", f"IN_SALT32K_DSF f64 step 0 ({n} ions, matrix engine) "
+                  f"= log.borndsf's 64-ion row to its last digit: epair "
+                  f"{row['epair']!r}, ecoul {row['ecoul']!r} (self-energy "
+                  "included), press less (N - 1) T / V "
+                  f"{row['press'] - (n - 1) * row['temp'] / vol!r}")
+    del dsf
+    # 2. IN_SALT32K in f64: the Ewald sum and the 512-ion PPPM rows per
+    # ion; the step-0 forces and the step-100 row that f32 must meet
+    ref = salt_setup(bt.IN_SALT32K, torch.float64)
+    v64 = ref.sim.state.v.clone()
+    ref.run_string("run 0")
+    row0_64 = dict(ref.sim.last_thermo)
+    bad = bt.salt_step0_failures(row0_64, False, n, vol, 1e-10)
+    if bad or ref.sim._ctx.is_cellgrid:
+        raise AssertionError(f"IN_SALT32K f64 step 0: {bad}")
+    ks = ref.sim.kspace
+    f0_64 = tag_order(ref.sim.state.f, ref.sim.state.tag).clone()
+    ref.run_string("run 100")
+    row100_64 = dict(ref.sim.last_thermo)
+    fmax100 = float(ref.sim.state.f.abs().max())
+    phase("salt", f"IN_SALT32K f64 step 0: epair {row0_64['epair']!r}, "
+                  f"ecoul + elong {row0_64['ecoul'] + row0_64['elong']!r} "
+                  f"per ion within {bt.SALT_PPPM_EWALD_RTOL} of the Ewald "
+                  f"sum ({bt.SALT_EWALD_STEP0}) and = the 512-ion PPPM row "
+                  f"to 1e-10; PPPM mesh {ks.nx}x{ks.ny}x{ks.nz}, g_ewald "
+                  f"{ks.g_ewald:.6f}; max|f| step 0 "
+                  f"{float(f0_64.abs().max()):.3e} (the lattice's vanish), "
+                  f"step 100 {fmax100:.4f}")
+    del ref
+    torch.cuda.empty_cache()
+    # 3. the main path: IN_SALT32K in f32 from the f64 deck's velocities,
+    # 1,000 steps; the counts are set to 0 just before it and read after
+    for c in (gather.counts,) + grid:
+        c.reset()
+    t0 = time.perf_counter()
+    script = salt_setup(bt.IN_SALT32K, torch.float32)
+    sim = script.sim
+    sim.state = sim.state.replace(v=v64.to(torch.float32))
+    seen = {}
+    with recording_p1(seen):
+        script.run_string("run 0")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    f0 = tag_order(sim.state.f, sim.state.tag).double()
+    ferr = float((f0 - f0_64).abs().max())
+    if not ferr <= bt.SALT_F32_FORCE_TOL * fmax100:
+        raise AssertionError(f"IN_SALT32K f32 step-0 forces: {ferr} > "
+                             f"{bt.SALT_F32_FORCE_TOL} * {fmax100}")
+    script.run_string("run 100")
+    row100 = dict(sim.last_thermo)
+    keys = ("temp", "epair", "ecoul", "elong", "etotal", "press")
+    bad = bt.gate_failures(row100, {k: (row100_64[k], bt.SALT_F32_ROW_RTOL)
+                                    for k in keys})
+    if bad:
+        raise AssertionError(f"IN_SALT32K step 100, f32 against f64: {bad}")
+    script.run_string("run 400")
+    lt0 = sim.loop_time
+    script.run_string("run 500")
+    torch.cuda.synchronize()
+    sps = 500 / (sim.loop_time - lt0)
+    launches = gather.counts.kernel_launches
+    plain = gather.counts.plain_calls + sum(c.plain_calls for c in grid)
+    other = sum(c.kernel_launches for c in grid)
+    # set-up, every step and one evaluation per thermo row
+    force_evals = 1 + bt.SALT32K_STEPS + 10
+    if launches < force_evals or plain or other or sim._ctx.is_cellgrid:
+        raise AssertionError(f"IN_SALT32K: row_gather launches {launches} < "
+                             f"force evaluations {force_evals}, or plain "
+                             f"calls {plain}, or grid launches {other}")
+    rows = thermo_rows(sim)
+    e = np.array([rows[k]["etotal"] for k in sorted(rows)])
+    finite = (np.isfinite(np.array([list(r.values())
+                                    for r in rows.values()])).all()
+              and bool(torch.isfinite(sim.state.x).all())
+              and bool(torch.isfinite(sim.state.v).all()))
+    if sorted(rows) != list(range(0, 1001, 100)) or not finite:
+        raise AssertionError(f"IN_SALT32K: rows {sorted(rows)} or a NaN")
+    drift = float(np.abs(e - e[0]).max() / abs(e[0]))
+    drift_end = float(abs(e[-1] - e[0]) / abs(e[0]))
+    if not drift <= bt.SALT_DRIFT_TOL:
+        raise AssertionError(f"IN_SALT32K drift {drift} > "
+                             f"{bt.SALT_DRIFT_TOL}")
+    neigh = sim._carry[1]
+    cfg = sim._neigh_cfg
+    phase("salt", f"IN_SALT32K f32 (matrix engine): set-up {setup_s:.3f} s "
+                  f"(cells {cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cell_cap}, K "
+                  f"{cfg.kmax}, max count {int(neigh.max_count)}); step-0 "
+                  f"forces = f64 to {ferr:.3e} (<= {bt.SALT_F32_FORCE_TOL} "
+                  f"x the f64 step-100 max|f|); step 100 = f64 to "
+                  f"{bt.SALT_F32_ROW_RTOL}: "
+                  f"{ {k: row100[k] for k in keys} }; no NaN through step "
+                  f"1000; drift over 1,000 steps {drift:.4e} (max), "
+                  f"{drift_end:.4e} (end; gate {bt.SALT_DRIFT_TOL})")
+    phase("salt", f"IN_SALT32K timed 500 steps: {sps:.2f} timesteps/s, "
+                  f"{sps * n / 1e6:.3f} Matom-step/s on {smi}; row_gather "
+                  f"launches {launches} >= force evaluations {force_evals}, "
+                  f"plain calls {plain}, grid kernel launches {other}")
+    phase("salt", "IN_SALT32K " + profile_steps(script, 100, 1e3 / sps))
+    s = sim._carry[0]
+
+    def pppm():
+        return sim.kspace.compute(s.x, s.q, s.box, False, False)
+    pppm_ms = cuda_ms(pppm, 20, ahead=False)
+    phase("salt", f"PPPM at IN_SALT32K's shape (mesh {sim.kspace.nx}^3, "
+                  f"order {sim.kspace.order}), the force call a step: "
+                  f"{pppm_ms:.4f} ms (CUDA events), device time "
+                  f"{profiled_device_ms(pppm):.4f} ms (profiler)")
+    # P1 against its plain version on every kind of input the set-up gave
+    # it, then timed at the packed j-row gather of pair_sums
+    p1_equal_plain(seen.values(), "salt input")
+    table, idx = next(v for (d, t, _), v in seen.items()
+                      if d == torch.float32 and t == (n, 5))
+    kern = (lambda: gather_rows(table, idx))
+    plain_fn = (lambda: gather_rows_plain(table, idx))
+    lib = (lambda: torch.index_select(table, 0, idx.view(-1)))
+    err = float((kern() - plain_fn()).abs().max())
+    p1 = cuda_ms(plain_fn, 50, ahead=False)
+    k1 = cuda_ms(kern, 200)
+    k2 = cuda_ms(kern, 200)
+    p2 = cuda_ms(plain_fn, 50, ahead=False)
+    lib_ms = cuda_ms(lib, 200)
+    nbytes = 4 * (table.numel() + idx.numel() + idx.numel() * 5)
+    bound_ms, bound_by = roof(0, nbytes)
+    phase("kernel", f"row_gather at IN_SALT32K's pair_sums shape ({n} x 5 "
+                    f"f32 table, idx {tuple(idx.shape)}): kernel {k1:.4f} / "
+                    f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
+                    f"torch.index_select {lib_ms:.4f} ms; bound {nbytes} B "
+                    f"-> {bound_ms:.6f} ms ({bound_by}); max|kernel - plain| "
+                    f"= {err}; bit-equal to plain on the {len(seen)} kinds "
+                    "of input of the set-up")
+    del script, sim, s
+    torch.cuda.empty_cache()
+    # 4. the DSF deck in f32, timed
+    dsf = salt_setup(bt.IN_SALT32K_DSF, torch.float32)
+    dsf.run_string("run 0")
+    dsf.run_string("run 100")
+    lt0 = dsf.sim.loop_time
+    dsf.run_string("run 500")
+    dsf_sps = 500 / (dsf.sim.loop_time - lt0)
+    phase("salt", f"IN_SALT32K_DSF f32 timed 500 steps: {dsf_sps:.2f} "
+                  f"timesteps/s, {dsf_sps * n / 1e6:.3f} Matom-step/s; "
+                  + profile_steps(dsf, 100, 1e3 / dsf_sps))
+    del dsf
+    torch.cuda.empty_cache()
+    k = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": lib_ms,
+         "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+    return k, {"launches": launches, "sps": sps}
+
+
 def main():
+    t_start = time.perf_counter()
     smi = environment()
     from tpumd_torch.ops import _build
     lib = _build.load()
@@ -3731,6 +4001,8 @@ def main():
         golden_matrix_decks()
         m_gather = matrix_main_path(tmp, smi, {"in.lj": m_lj["sps"],
                                                "chute": m_gran["sps"]})
+    pair_goldens_phase()
+    k_salt, m_salt = salt_path(smi)
     # the list kernels' launches on the main paths: builds at set-up and
     # re-bins, and refresh calls, most of which pass the gate and return
     # (those that rebuild are the refreshes taken); an entry each
@@ -3792,7 +4064,9 @@ def main():
             ("gran_cellgrid HERTZ", "tpumd_torch/csrc/gran_cellgrid.cu",
              "tpumd/ops/pallas_gran.py:42", k_hertz, m_hertz),
             ("row_gather", "tpumd_torch/csrc/row_gather.cu",
-             "tools/probes/gather_probe.py:37", k_gather, m_gather)):
+             "tools/probes/gather_probe.py:37", k_gather, m_gather),
+            ("row_gather salt32k", "tpumd_torch/csrc/row_gather.cu",
+             "tools/probes/gather_probe.py:37", k_salt, m_salt)):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": m["launches"],
@@ -3800,6 +4074,8 @@ def main():
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
             "library_ms": k.get("library_ms")})
+    phase("time", f"chip_smoke {time.perf_counter() - t_start:.1f} s, the "
+                  "build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -823,3 +823,37 @@ def test_distance_computes_over_the_list_kernel_equal_plain():
     # one list for the state, at the largest cutoff, from the kernel
     assert bpl.counts.kernel_launches == n0 + 1
     assert sim.analysis_grid_lists >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kspace", ["pppm 1e-4", "ewald 1e-6"])
+def test_salt_kspace_on_the_card_equals_the_cpu(kspace):
+    """IN_SALT32K at 2x2x2 (512 ions, born/coul/long) on the matrix engine
+    with kspace_style pppm or ewald: 20 steps on the card equal the CPU's
+    to 1e-10 in f64, P1 launched on every force evaluation; and the eight
+    pair goldens on the card agree with the reference binary's logs."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch import pair_goldens as pg
+    from tpumd_torch.ops import gather
+    _card()
+    gold = os.path.dirname(GOLDEN)
+    deck = bt.IN_SALT32K.format(golden=os.path.join(gold, "wolfdsf")).replace(
+        "replicate       8 8 8", "replicate       2 2 2").replace(
+        "pppm 1e-4", kspace).replace("thermo          100",
+                                     "thermo          10")
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        gather.counts.reset()
+        s = LammpsScript(device=dev, dtype=torch.float64)
+        s.run_string(deck + "run 20")
+        assert not s.sim._ctx.is_cellgrid
+        if dev == "cuda":
+            assert gather.counts.kernel_launches >= 21
+            assert gather.counts.plain_calls == 0
+        rows[dev] = [[float(v) for v in ln.split()] for ln in s.sim.log_lines
+                     if ln.split() and ln.split()[0].isdigit()]
+    np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=1e-10,
+                               atol=1e-12)
+    for name in pg.DECKS:
+        script = pg.run(gold, name, "cuda", torch.float64)
+        assert pg.failures(gold, name, script) == []

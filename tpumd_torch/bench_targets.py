@@ -875,3 +875,95 @@ def gate_failures(vals: dict, targets: dict) -> list[str]:
     return [f"{k}={vals[k]!r} vs {t!r} (rtol {r})"
             for k, (t, r) in targets.items()
             if not abs(vals[k] - t) < r * abs(t)]
+
+
+# the molten-salt decks (the pair-style slice): tests/golden/wolfdsf's
+# 64-ion rocksalt cell (lattice constant 4 sigma, units lj, atom_style
+# charge) replicated 8x8x8, 32,768 ions in a 64 sigma box, with in.borndsf's
+# Born-Mayer-Huggins coefficients; {golden} is the directory that holds
+# data.salt.  IN_SALT32K runs born/coul/long under PPPM, IN_SALT32K_DSF
+# in.borndsf's born/coul/dsf without kspace; both run on the matrix engine
+# (no grid kernel takes these styles)
+_SALT_HEAD = """units           lj
+atom_style      charge
+read_data       {golden}/data.salt
+replicate       8 8 8
+"""
+_SALT_TAIL = """velocity        all create 1.0 87287 loop geom
+neighbor        0.3 bin
+neigh_modify    delay 0 every 1
+fix             1 all nve
+timestep        0.004
+thermo          100
+"""
+IN_SALT32K = _SALT_HEAD + """pair_style      born/coul/long 3.2
+pair_coeff      * * 1.5 0.4 1.2 1.0 0.5
+kspace_style    pppm 1e-4
+""" + _SALT_TAIL + """thermo_style    custom step temp epair ecoul elong etotal press
+"""
+IN_SALT32K_DSF = _SALT_HEAD + """pair_style      born/coul/dsf 0.5 2.8 3.2
+pair_coeff      * * 1.5 0.4 1.2 1.0 0.5
+""" + _SALT_TAIL + """thermo_style    custom step temp epair ecoul etotal press
+"""
+SALT32K_N = 32768
+SALT32K_STEPS = 1000
+
+# the reference binary's step-0 row of tests/golden/wolfdsf/log.borndsf
+# (64 ions): a perfect lattice replicated has the same energies per ion,
+# and its virial pressure (press less the kinetic (N - 1) T / V) is the
+# same
+BORNDSF_STEP0 = {"temp": 1.0, "epair": 0.11694416, "ecoul": -0.45104898,
+                 "press": 0.22020709}
+BORNDSF_N, BORNDSF_VOLUME = 64, 512.0
+
+# IN_SALT32K's step 0 per ion (thermo normalizes by N in units lj),
+# float64 on the CPU through the port (tests/test_torch_kspace_matrix.py
+# derives them again): the 64-ion cell under kspace_style ewald 1e-10
+# (the exact lattice sum to ~1e-10), and the 512-ion cell (2x2x2) under
+# the deck's pppm 1e-4, whose g_ewald and mesh spacing are those of every
+# larger replica, so that 32k's rows equal it to round-off
+SALT_EWALD_STEP0 = {"epair": 0.2736481093544745,
+                    "coul": -4.881786450259125e-05 - 0.4368423594383234}
+SALT_PPPM_STEP0 = {"epair": 0.2736574522866313,
+                   "ecoul": -0.014724051224735211,
+                   "elong": -0.4221577831459341}
+# PPPM 1e-4's distance from the Ewald sum per ion on the 512-ion cell
+# (3.41e-5 on epair, 2.14e-5 on ecoul + elong), and the gate on it
+SALT_PPPM_EWALD_RTOL = 5e-5
+# the f32 run against the f64 one: forces at step 0 (the lattice's vanish
+# but for round-off, so the bound is 2e-5 of the f64 step-100 max|f|) and
+# the step-100 row
+SALT_F32_FORCE_TOL = 2e-5
+SALT_F32_ROW_RTOL = 1e-4
+# the energy drift over the 1,000 steps (max|E(t) - E0| / |E0| at the
+# thermo rows, as measure_drift): the deck itself drifts 4.4585e-3 in f64
+# at 512 ions, tpumd's and the port's run alike (velocity Verlet at
+# dt 0.004 on this lattice; 6.9e-4 at dt 0.001), so the gate is 1e-2
+SALT_DRIFT_TOL = 1e-2
+
+
+def salt_step0_failures(vals: dict, dsf: bool, natoms: int,
+                        volume: float, tol: float) -> list[str]:
+    """What of a salt deck's step-0 row misses its gate: IN_SALT32K_DSF
+    log.borndsf's row (epair, ecoul and the virial pressure, to tol
+    absolute: the log's last printed digit); IN_SALT32K the Ewald sum per
+    ion (epair and ecoul + elong to SALT_PPPM_EWALD_RTOL) and the 512-ion
+    PPPM row (epair, ecoul, elong to tol relative)."""
+    bad = []
+    if dsf:
+        want = dict(BORNDSF_STEP0)
+        want["press"] = (want["press"] - (BORNDSF_N - 1) / BORNDSF_VOLUME
+                         + (natoms - 1) * vals["temp"] / volume)
+        for key in ("epair", "ecoul", "press"):
+            if not abs(vals[key] - want[key]) <= tol:
+                bad.append(f"{key} {vals[key]!r} vs {want[key]!r}")
+        return bad
+    coul = vals["ecoul"] + vals["elong"]
+    for key, got, w in (("epair", vals["epair"], SALT_EWALD_STEP0["epair"]),
+                        ("ecoul + elong", coul, SALT_EWALD_STEP0["coul"])):
+        if not abs(got - w) <= SALT_PPPM_EWALD_RTOL * abs(w):
+            bad.append(f"{key} {got!r} vs Ewald {w!r}")
+    for key, w in SALT_PPPM_STEP0.items():
+        if not abs(vals[key] - w) <= tol * abs(w):
+            bad.append(f"{key} {vals[key]!r} vs the 512-ion PPPM {w!r}")
+    return bad

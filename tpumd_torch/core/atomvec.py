@@ -2,6 +2,8 @@
 
 The port's copy of tpumd/core/atomvec.py (the reference's AtomVec field
 lists, src/atom_vec.h:62-80) for the styles it runs: ``atomic`` (``id type x y z [ix iy iz]``),
+``charge`` (``id type q x y z [ix iy iz]``, with the charge, 0 for atoms
+that create_atoms makes),
 ``bond`` (``id mol type x y z [ix iy iz]``, with the molecule ID as a
 per-atom field), ``full`` (``id mol type q x y z [ix iy iz]``, with the
 molecule ID and the charge) and ``sphere`` (``id type diameter density x
@@ -75,6 +77,8 @@ def _sphere_data_vel(r):
 
 STYLES = {
     "atomic": AtomStyle("atomic", data_atom=_simple_layout()),
+    "charge": AtomStyle("charge", data_atom=_simple_layout(has_q=True),
+                        fields=(Field("q"),)),
     "bond": AtomStyle("bond", data_atom=_simple_layout(has_mol=True),
                       fields=(Field("molecule", "int"),)),
     "full": AtomStyle("full", data_atom=_simple_layout(has_mol=True,

@@ -15,7 +15,10 @@ Per-atom energy and virial come from the force styles themselves:
   with EFLAG and VFLAG: half of each slot's value is LAMMPS's newton-off
   ``ev_tally`` share, so the launch returns the halved slots instead of
   their sums (no new kernel);
-- on the matrix engine, from ``pair_sums(..., eflag="atom")``;
+- on the matrix engine, from ``pair_sums(..., eflag="atom")`` (a hybrid
+  style's summed over its sub-styles), with each atom's Coulomb
+  self-energy of a Wolf or DSF style in its own energy, where LAMMPS's
+  ev_tally(i, i, ...) puts it (tpumd leaves it out: ROADMAP C17);
 - the bonded styles split each tuple's energy and virial evenly among its
   members (ev_tally, ev_tally3, ev_tally4's equal shares).
 
@@ -206,6 +209,8 @@ def pair_rows(s, neigh, ctx):
             ctx.special_lj if special else None,
             ctx.special_coul if special else None, "atom", "atom", q=s.q,
             ext=_pair_ext(s, ctx))
+        if s.q is not None and hasattr(pair, "ecoul_self_atom"):
+            ea = ea + pair.ecoul_self_atom(s.q)
         return ea, va
     if getattr(pair, "charged", False):
         _, ea, va, _ = pair.compute_cellgrid_charged(

@@ -17,8 +17,11 @@ Two neighbor engines (``neighbor_mode``, chosen at set-up by
 ``_resolve_mode``): the cell grid, where the atoms sit in grid-slot order,
 and the matrix engine (``ops/neighbor.py``), where they keep their rows and
 a padded (N, K) neighbor list holds the pairs.  The matrix engine takes
-what the grid cannot: any number of lj/cut types, non-periodic axes for
-every pairwise style, boxes narrower than 2 cutneigh and triclinic boxes.
+what the grid cannot: every pairwise style without a grid kernel (the
+pair-style library, hybrid, lj/charmm/coul/long without special lists),
+kspace (pppm, ewald) beside any coul/long style, any number of lj/cut
+types, non-periodic axes for every pairwise style, boxes narrower than 2
+cutneigh and triclinic boxes.
 """
 
 from __future__ import annotations
@@ -246,8 +249,12 @@ class Simulation:
             return self.neighbor_mode
         box = self.state.box
         cutneigh = self.max_cutoff() + self.skin
+        # the grid's charged sweep (B5) reads the special lists: a charged
+        # deck without bonds goes to the matrix engine
         eligible = (
             self.pair is not None and self.pair.supports_cellgrid
+            and (self.special_tags is not None
+                 or not getattr(self.pair, "charged", False))
             and (self.granular or (all(box.periodic)
                                    and not self.neigh_exclude))
             and not box.istriclinic
@@ -552,8 +559,12 @@ class Simulation:
         if self.kspace is not None and not all(box.periodic):
             raise NotImplementedError(
                 f"boundary {' '.join(self.boundary)} with pair_style {name}"
-                " and kspace_style pppm: a non-periodic axis is ported "
-                "without kspace only")
+                f" and kspace_style {self.kspace.style}: a non-periodic "
+                "axis is ported without kspace only")
+        if self.kspace is not None and box.istriclinic:
+            raise NotImplementedError(
+                f"kspace_style {self.kspace.style} on a triclinic box is "
+                "not ported")
         rigid_baro = [fx.name for fx in self.fixes
                       if fx.box_change and fx.name.startswith("rigid")]
         if box.istriclinic and rigid_baro:
@@ -595,21 +606,20 @@ class Simulation:
             raise NotImplementedError(
                 f"pair_style {name} on the matrix neighbor engine is not "
                 "ported")
-        if self.kspace is not None:
-            raise NotImplementedError(
-                "kspace_style pppm on the matrix neighbor engine is not "
-                "ported")
+        # the matrix engine takes kspace beside any coul/long style
+        # (setup), but neither bonded styles nor SHAKE
         styles = [f"{k}_style {st.name}" for k, st in self.bonded.items()
                   if self.topology.get(k) is not None
                   and len(self.topology[k])]
         if styles:
             raise NotImplementedError(
                 f"{', '.join(styles)} on the matrix neighbor engine: bonded "
-                "styles (FENE chains included) are not ported there")
+                "styles (FENE chains included) are not ported there; it "
+                "takes pairwise styles and kspace")
         if self.shake_fixes():
             raise NotImplementedError(
                 f"fix {self.shake_fixes()[0].name} on the matrix neighbor "
-                "engine is not ported")
+                "engine is not ported; it takes pairwise styles and kspace")
 
     def setup(self):
         """Initial neighbor build + force evaluation (Verlet::setup)."""
@@ -626,6 +636,11 @@ class Simulation:
         if self.pair is not None:
             self.pair.init()
             if self.pair.tail_flag:
+                if not hasattr(self.pair, "compute_tails"):
+                    raise NotImplementedError(
+                        f"pair_modify tail yes with pair_style "
+                        f"{self.pair.name} is not ported (lj/cut has tail "
+                        "terms)")
                 typ = self.state.type.cpu().numpy()
                 counts = np.bincount(typ, minlength=self.ntypes + 1)
                 self.pair.compute_tails(counts.astype(np.float64))
@@ -643,11 +658,15 @@ class Simulation:
         self._setup_bonded(self.build_shake())
         self._setup_kernel_bond()
         if self.kspace is not None:
-            if self.state.q is None or not getattr(self.pair, "charged",
-                                                   False):
+            # any style with a real-space Ewald Coulomb part couples to
+            # kspace (tpumd/models/kspace_pppm.py:161-186)
+            if self.state.q is None or not (
+                    hasattr(self.pair, "g_ewald")
+                    and hasattr(self.pair, "cut_coul")):
                 raise NotImplementedError(
-                    "kspace_style pppm needs charges and "
-                    "pair_style lj/charmm/coul/long")
+                    f"kspace_style {self.kspace.style} needs charges and a "
+                    "coul/long pair style, not pair_style "
+                    f"{getattr(self.pair, 'name', None)}")
             self.kspace.init(self.natoms, self.state.q.cpu().numpy(),
                              self.state.box.lengths_np(), self.units,
                              self.pair.cut_coul,

@@ -156,8 +156,10 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
     or None, torque (N, 3) or None, neigh).  Only a granular style gives a
     torque, and with shearupdate a neigh holding the new history.  neigh
     is a cg.CellGridState or, on the matrix engine, an nb.NeighborState;
-    the matrix engine runs no bonded styles and no kspace (the set-up
-    refuses them)."""
+    kspace runs on either engine's rows (padded grid slots carry q = 0),
+    the bonded styles on the grid only (the set-up refuses them on the
+    matrix engine).  A style with a Coulomb self-energy (Wolf, DSF) adds
+    the sum of its atoms' to ecoul, summed in float64."""
     energies = virial = None
     if eflag:
         energies = dict.fromkeys(ENERGY_KEYS, torch.zeros(
@@ -203,6 +205,11 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
             s.x, neigh.valid, s.box, ctx.neigh_cfg, eflag, vflag, bond=bond,
             plist=(neigh.pairs, neigh.npairs, neigh.row2slot))
         tally({"evdwl": evdwl, "ebond": ebond}, vir)
+
+    if eflag and s.q is not None and hasattr(pair, "ecoul_self_atom"):
+        # ev_tally(i, i, ...) of each atom's self-energy (coul/dsf:37)
+        energies["ecoul"] = energies["ecoul"] + torch.sum(
+            pair.ecoul_self_atom(s.q.to(torch.float64))).to(s.x.dtype)
 
     if ctx.bonded:
         # the tag-order view: row tag-1 holds that atom

@@ -99,6 +99,8 @@ def _pers(n):
 
 
 class PPPM:
+    style = "pppm"
+
     def __init__(self, accuracy_relative: float, order: int = 5):
         self.accuracy_relative = float(accuracy_relative)
         self.order = order

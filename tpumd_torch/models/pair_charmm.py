@@ -1,15 +1,18 @@
-"""CHARMM pair style lj/charmm/coul/long.
+"""CHARMM pair styles lj/charmm/coul/long and lj/charmm/coul/charmm.
 
 Physics per the reference (src/KSPACE/pair_lj_charmm_coul_long.cpp:37,
-143-158), as tpumd/models/pair_charmm.py has it: LJ with the CHARMM
-energy switch between the inner and outer cutoffs, and real-space Ewald
-Coulomb through the reference's erfc polynomial.  The special-bond weights
-are applied in the sweep by each list entry's code; an excluded Coulomb
-pair keeps the kspace compensation term.  The 1-4 tables (eps14, sigma14)
-serve the CHARMM dihedral's 1-4 pairs.  On the cell grid the style sweeps
-the grid's pair list: forces go through the kernel of
-``ops/charmm_cellgrid.py`` (its plain version on the CPU).
-lj/charmm/coul/charmm is not ported.
+143-158; src/MOLECULE/pair_lj_charmm_coul_charmm.cpp), as
+tpumd/models/pair_charmm.py has it: LJ with the CHARMM energy switch
+between the inner and outer cutoffs, and real-space Ewald Coulomb through
+the reference's erfc polynomial (coul/long) or Coulomb under the same
+switch (coul/charmm).  The special-bond weights are applied in the sweep by
+each list entry's code; an excluded Coulomb pair keeps the kspace
+compensation term.  The 1-4 tables (eps14, sigma14) serve the CHARMM
+dihedral's 1-4 pairs.  On the cell grid lj/charmm/coul/long sweeps the
+grid's pair list: forces go through the kernel of
+``ops/charmm_cellgrid.py`` (its plain version on the CPU).  On the matrix
+neighbor engine both styles run through ``pair_fn_ex`` and ``pair_sums``;
+lj/charmm/coul/charmm runs there only.
 """
 
 from __future__ import annotations
@@ -26,11 +29,9 @@ from tpumd_torch.ops.charmm_cellgrid import CharmmCoeffs, charmm_cellgrid, \
 @register_pair("lj/charmm/coul/long")
 class PairLJCharmmCoulLong(PairStyle):
     name = "lj/charmm/coul/long"
-    # its matrix-engine pair_fn_ex (tpumd/models/pair_charmm.py:140) is not
-    # ported
-    matrix_engine = False
-    # the pair sweep takes charges and special lists (the grid's pair list
-    # carries the special codes)
+    # B5 takes it on the cell grid, sweeping charges and special lists (the
+    # grid's pair list carries the special codes)
+    supports_cellgrid = True
     charged = True
 
     def __init__(self, ntypes: int):
@@ -153,3 +154,59 @@ class PairLJCharmmCoulLong(PairStyle):
         function (tpumd/models/pair_charmm.py::pair_fn_ex)."""
         c = self.kernel_coeffs(r2, (1.0,) * 4, (1.0,) * 4)
         return charmm_pair_fn(c)(r2, itype, jtype, w_lj, w_coul, qi, qj)
+
+
+@register_pair("lj/charmm/coul/charmm")
+class PairLJCharmmCoulCharmm(PairLJCharmmCoulLong):
+    """CHARMM-switched LJ and switched Coulomb, no kspace
+    (tpumd/models/pair_charmm.py:185-238), on the matrix engine only."""
+
+    name = "lj/charmm/coul/charmm"
+    supports_cellgrid = False
+    charged = False
+
+    def settings(self, cut_lj_inner, cut_lj, cut_coul_inner=None,
+                 cut_coul=None):
+        super().settings(cut_lj_inner, cut_lj, cut_coul)
+        self.cut_coul_inner = (float(cut_coul_inner)
+                               if cut_coul_inner is not None
+                               else float(cut_lj_inner))
+        if cut_coul is None:
+            self.cut_coul = self.cut_lj
+
+    def init(self):
+        super().init()
+        self.cut_coul_innersq = self.cut_coul_inner ** 2
+        self.denom_coul = (self.cut_coulsq - self.cut_coul_innersq) ** 3
+        self.drop_tables()
+
+    def pair_fn_ex(self, r2, itype, jtype, w_lj, w_coul, qi, qj):
+        lj1, lj2, lj3, lj4 = self.pair_coeffs(r2, itype, jtype, "lj1",
+                                              "lj2", "lj3", "lj4")
+        r2inv = 1.0 / r2
+        in_coul = r2 < self.cut_coulsq
+        forcecoul = self.units.qqr2e * qi * qj * torch.sqrt(r2inv)
+        tt = self.cut_coulsq - r2
+        sw = (tt * tt * (self.cut_coulsq + 2.0 * r2
+                         - 3.0 * self.cut_coul_innersq) / self.denom_coul)
+        # energy-switched, as the reference has it
+        forcecoul = torch.where(r2 > self.cut_coul_innersq, forcecoul * sw,
+                                forcecoul)
+        forcecoul = torch.where(in_coul, forcecoul * w_coul, 0.0)
+        ecoul = forcecoul
+
+        in_lj = r2 < self.cut_ljsq
+        r6inv = r2inv * r2inv * r2inv
+        forcelj = r6inv * (lj1 * r6inv - lj2)
+        philj = r6inv * (lj3 * r6inv - lj4)
+        sw_on = r2 > self.cut_lj_innersq
+        tt = self.cut_ljsq - r2
+        switch1 = (tt * tt * (self.cut_ljsq + 2.0 * r2
+                              - 3.0 * self.cut_lj_innersq) / self.denom_lj)
+        switch2 = 12.0 * r2 * tt * (r2 - self.cut_lj_innersq) / self.denom_lj
+        forcelj = torch.where(sw_on, forcelj * switch1 + philj * switch2,
+                              forcelj)
+        philj = torch.where(sw_on, philj * switch1, philj)
+        forcelj = torch.where(in_lj, forcelj * w_lj, 0.0)
+        evdwl = torch.where(in_lj, philj * w_lj, 0.0)
+        return forcelj * r2inv, evdwl, ecoul, forcecoul * r2inv

@@ -154,6 +154,8 @@ class PairEAM(PairStyle):
     name = "eam"
     # its matrix-engine compute (tpumd/models/pair_eam.py:450) is not ported
     matrix_engine = False
+    # B3 and B4 take it on the cell grid
+    supports_cellgrid = True
 
     def __init__(self, ntypes: int):
         super().__init__(ntypes)

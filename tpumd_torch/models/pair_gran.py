@@ -45,6 +45,8 @@ class PairGranHookeHistory(PairStyle):
     is_granular = True
     # the per-contact shear history rides the neighbor state
     has_history = True
+    # B6 takes it on the cell grid (gran/hooke does not)
+    supports_cellgrid = True
     # polyhertz = sqrt(delta r_i r_j / (r_i + r_j)) scales the forces
     is_hertz = False
     # compute_gran reads the real atoms' rows: no image copies

@@ -52,6 +52,7 @@ from tpumd_torch.md.fix_wall_gran import FixWallGran
 from tpumd_torch.md.fixes import FixNVE
 from tpumd_torch.md.simulation import THERMO_KEYS, Simulation, \
     resolve_device
+from tpumd_torch.models.kspace_ewald import Ewald
 from tpumd_torch.models.kspace_pppm import PPPM
 from tpumd_torch.models.registry import create_bonded_style, \
     create_pair_style
@@ -766,12 +767,18 @@ class LammpsScript:
         sim.invalidate_ctx()
 
     def cmd_kspace_style(self, a):
-        if a[0] != "pppm" or len(a) != 2:
-            raise NotImplementedError(
-                f"kspace_style {' '.join(a)} is not ported (only pppm "
-                "accuracy)")
+        """kspace_style pppm|ewald accuracy, beside any coul/long pair
+        style on either engine, or none."""
         sim = self._require_sim()
-        sim.kspace = PPPM(float(a[1]))
+        styles = {"pppm": PPPM, "ewald": Ewald}
+        if a and a[0] == "none" and len(a) == 1:
+            sim.kspace = None
+        elif a and a[0] in styles and len(a) == 2:
+            sim.kspace = styles[a[0]](float(a[1]))
+        else:
+            raise NotImplementedError(
+                f"kspace_style {' '.join(a)} is not ported (pppm or ewald "
+                "with an accuracy, or none)")
         sim.invalidate_ctx()
 
     def cmd_replicate(self, a):
@@ -963,11 +970,13 @@ class LammpsScript:
             box = Box.orthogonal(lo, hi, device=sim.device, dtype=self.dtype,
                                  periodic=tuple(t == "p"
                                                 for t in sim.boundary))
-            radius = rmass = None
+            radius = rmass = q = None
             if self.atom_style == "sphere":
                 radius = np.full(len(x), 0.5)
                 rmass = 4.0 / 3.0 * np.pi * radius**3
-            sim.state = make_state(x, np.zeros_like(x), t, box,
+            if self.atom_style == "charge":
+                q = np.zeros(len(x))
+            sim.state = make_state(x, np.zeros_like(x), t, box, q=q,
                                    radius=radius, rmass=rmass,
                                    device=sim.device, dtype=self.dtype)
 
