@@ -95,7 +95,7 @@ line each (any failure raises and exits non-zero):
    timed steps, the launch counts of that run (B5 once per force
    evaluation, the build once per grid set-up and rebuild, the refresh
    launches and refreshes of delay 5), B5 over the final list against the
-   stencil oracle in f64 on the final state, a profile of 100 steps, the
+   stencil oracle in f64 on the final state, a profile of 20 steps, the
    step's parts and the refresh's gate at the final state; then every
    water golden verbatim (dump lines included) in f64 on the grid:
    water_nve, water_shake and water_npt (fix npt iso) with their dumped
@@ -139,7 +139,7 @@ line each (any failure raises and exits non-zero):
    that state (f32 and f64, both shearupdate values, the history as it is
    and scaled by 40), timed beside its bound; in f32 the rows of steps 100
    and 500 against the f64 run's, 500 timed steps, the launch counts, the
-   largest contact count and a profile of 100 steps, both runs failing
+   largest contact count and a profile of 20 steps, both runs failing
    if any sphere touched more than KH = 12 others in a sweep (B6's
    hist_over: its contacts past the 12th would lose their history); pour20k
    (``IN_POUR20K``: two insertions of fix pour onto a 1,600-sphere floor)
@@ -160,7 +160,7 @@ line each (any failure raises and exits non-zero):
    version on every kind of input their set-up gave it): step-0 and
    step-100 gates, 500
    warm-up and 500 timed steps beside the cell grid's figure of this
-   call, P1's launch counts of those runs and a profile of 100 steps;
+   call, P1's launch counts of those runs and a profile of 20 steps;
 11. the pair-style library and kspace on the matrix engine: the eight
    pair goldens (tests/golden/pair_born, pair_ljexpand, pair_couldebye,
    pair_table and wolfdsf's four decks) verbatim in f64, every printed
@@ -175,14 +175,33 @@ line each (any failure raises and exits non-zero):
    deck's velocities: step-0 forces and the step-100 row against f64,
    1,000 steps without a NaN, the energy drift, 500 timed steps, P1's
    launches (at least one per force evaluation, no plain call, no grid
-   kernel), a profile of 100 steps, PPPM's device ms a step and P1 at
+   kernel), a profile of 20 steps, PPPM's device ms a step and P1 at
    the deck's packed-row shape beside its bound, the plain version and
    torch.index_select (bit-equal to the plain version on every kind of
    input the set-up gave it); the DSF deck in f32, 500 timed steps;
-12. a JSON line of the kernels (the list build of each deck, the refresh
+12. the bonded-style library on the matrix engine (``bonded_goldens_phase``,
+   ``hyb32k_path``): the 14 bonded goldens (``tpumd_torch.bonded_goldens``)
+   verbatim in f64 on the card, their rows and dumps against the
+   reference binary at tpumd's tests' tolerances and against the same
+   decks on the CPU, P1 launched on each and no plain call, bond_quartic's
+   broken bonds counted; water_shake forced onto the matrix engine against
+   its log and dump; then ``IN_HYB32K`` (the in.hyb liquid, 32,000 atoms):
+   the cell (``hyb_cell``) in f64 against tpumd's rows at steps 0 and 100,
+   the 32k deck in f64 at step 0 against 125 x the cell's energies and the
+   cell's virial pressure; each term alone (the pair, each bonded
+   sub-style) in f32 on the f64 run's step-100 positions against f64
+   there; then in f32 from the f64 deck's velocities: set-up time,
+   step-0 forces and the step-100 row against f64, 500 timed
+   steps after 100 of warm-up, 1,000 steps without a NaN, a lost atom or
+   a neighbour overflow, the energy drift, P1's launches (at least one per
+   force evaluation, no plain call, no grid kernel), a profile of 20
+   steps, and P1 at the deck's packed-row shape beside its bound, the
+   plain version and torch.index_select (bit-equal to the plain version on
+   every kind of input the set-up gave it);
+13. a JSON line of the kernels (the list build of each deck, the refresh
    calls of in.lj, eam and rhodo_class, B5 at each 30k water deck's shape,
-   B6's HERTZ variant at granhertz32k's and P1 at the salt's, each an
-   entry of its own),
+   B6's HERTZ variant at granhertz32k's and P1 at the salt's and at
+   hyb32k's, each an entry of its own),
    the card's name and power limit as nvidia-smi prints them, then the
    result line.
 
@@ -1674,7 +1693,9 @@ def small_chain_card_vs_cpu(tmp: Path):
 
 def profile_steps(script, nsteps: int, step_ms: float) -> str:
     """Device time per step and its share of the unprofiled step, device
-    operations per step and the largest kernels, over a short window."""
+    operations per step and the largest kernels, over a short window.  The
+    profiler's host cost grows with the events it records (~1 ms each), so
+    the decks of hundreds of operations a step take a 20-step window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2362,7 +2383,7 @@ def rhodo_main_path(smi: str) -> dict:
                   f"evaluations {force_evals}, " + upkeep_phrase(
                       sim, builds, gates) + f" (delay 5), plain calls "
                   f"{plain}, other kernels' launches {other}")
-    phase("main", "rhodo_class " + profile_steps(script, 100, 1e3 / sps))
+    phase("main", "rhodo_class " + profile_steps(script, 20, 1e3 / sps))
     phase("main", "rhodo_class step parts, host clock to a synchronize, "
                   "ms per call on the final state: " + rhodo_breakdown(sim))
     upkeep = time_upkeep("rhodo_class", sim, build=False,
@@ -2988,7 +3009,8 @@ P1_MAIN_SHAPES = (
 # their inputs)
 P1_CALLERS = ("tpumd_torch.ops.neighbor", "tpumd_torch.ops.pairwise",
               "tpumd_torch.models.pair_gran", "tpumd_torch.models.pair_lj_cut",
-              "tpumd_torch.models.base", "tpumd_torch.models.pair_table")
+              "tpumd_torch.models.base", "tpumd_torch.models.pair_table",
+              "tpumd_torch.models.bonded")
 
 
 def p1_case(gen, dtype, rows: int, width: int, shape: tuple):
@@ -3231,7 +3253,7 @@ def matrix_main_path(tmp: Path, smi: str, grid_sps: dict) -> dict:
     engine, f32: each deck's step-0 and step-100 gates, 500 warm-up and
     500 timed steps beside the cell grid's figure of this call, the
     launch counts of P1 (at least one per force evaluation; plain calls
-    0; no cell-grid kernel) and a profile of 100 steps."""
+    0; no cell-grid kernel) and a profile of 20 steps."""
     from tpumd_torch.bench_targets import CHUTE_STEP0, CHUTE_STEP100, \
         IN_LJ, SANITY, STEP0, STEP0_RTOL, chute_data, gate_failures
     from tpumd_torch.ops import cellgrid_pairlist, charmm_cellgrid, \
@@ -3320,7 +3342,7 @@ def matrix_main_path(tmp: Path, smi: str, grid_sps: dict) -> dict:
                       f"row_gather launches {launches} >= force evaluations "
                       f"{force_evals}, plain calls {plain}, cell-grid "
                       f"kernel launches {other}")
-        phase("main", f"matrix {name} " + profile_steps(script, 100,
+        phase("main", f"matrix {name} " + profile_steps(script, 20,
                                                         1e3 / sps))
     return {"launches": total}
 
@@ -3563,7 +3585,7 @@ def granhertz32k_path(smi: str, ptxas_log: str) -> tuple[dict, dict]:
     against its plain version at that state; in f32: step 0 and the rows
     of steps 100 and 500 against the f64 run's, 500 more timed steps, B6
     HERTZ launched once per force evaluation and no plain call, and a
-    profile of 100 steps.  In both runs no sphere may touch more than KH =
+    profile of 20 steps.  In both runs no sphere may touch more than KH =
     12 others in any sweep (the kernel's hist_over; its contacts past the
     12th would lose their history), and the largest count at the end is
     reported.  Returns (the kernel's entry, the main path's)."""
@@ -3642,7 +3664,7 @@ def granhertz32k_path(smi: str, ptxas_log: str) -> tuple[dict, dict]:
                       f"timesteps/s, {sps * sim.natoms / 1e6:.3f} "
                       f"Matom-step/s on {smi}; {launched}")
         launches = b6_counts.hertz_launches
-        phase("main", "granhertz32k " + profile_steps(script, 100,
+        phase("main", "granhertz32k " + profile_steps(script, 20,
                                                        1e3 / sps))
         no_history_lost(sim, "f32 to step 1100")
         return k, {"launches": launches, "sps": sps}
@@ -3783,6 +3805,35 @@ def thermo_rows(sim) -> dict:
     return rows
 
 
+def p1_at_shape(what: str, table, idx, kinds: int) -> dict:
+    """P1 at a deck's packed j-row gather (pair_sums) timed in the order
+    plain, kernel, kernel, plain beside torch.index_select and its bound
+    (the table, the indices and the rows written, once each); the kernels
+    line's numbers."""
+    from tpumd_torch.ops.gather import gather_rows, gather_rows_plain
+    kern = (lambda: gather_rows(table, idx))
+    plain_fn = (lambda: gather_rows_plain(table, idx))
+    lib = (lambda: torch.index_select(table, 0, idx.view(-1)))
+    err = float((kern() - plain_fn()).abs().max())
+    p1 = cuda_ms(plain_fn, 50, ahead=False)
+    k1 = cuda_ms(kern, 200)
+    k2 = cuda_ms(kern, 200)
+    p2 = cuda_ms(plain_fn, 50, ahead=False)
+    lib_ms = cuda_ms(lib, 200)
+    n, width = table.shape
+    nbytes = 4 * (table.numel() + idx.numel() + idx.numel() * width)
+    bound_ms, bound_by = roof(0, nbytes)
+    phase("kernel", f"row_gather at {what}'s pair_sums shape ({n} x "
+                    f"{width} f32 table, idx {tuple(idx.shape)}): kernel "
+                    f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
+                    f"torch.index_select {lib_ms:.4f} ms; bound {nbytes} B "
+                    f"-> {bound_ms:.6f} ms ({bound_by}); max|kernel - plain| "
+                    f"= {err}; bit-equal to plain on the {kinds} kinds of "
+                    "input of the set-up")
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+
+
 def salt_path(smi: str) -> tuple[dict, dict]:
     """The molten salt on the matrix engine (bench_targets.IN_SALT32K and
     IN_SALT32K_DSF, 32,768 ions): the gates, the main path's run in f32
@@ -3790,7 +3841,6 @@ def salt_path(smi: str) -> tuple[dict, dict]:
     from tpumd_torch import bench_targets as bt
     from tpumd_torch.ops import cellgrid_pairlist, charmm_cellgrid, \
         eam_cellgrid, gather, gran_cellgrid, lj_cellgrid, lj_fene_cellgrid
-    from tpumd_torch.ops.gather import gather_rows, gather_rows_plain
     grid = (lj_cellgrid.counts, lj_fene_cellgrid.counts,
             eam_cellgrid.rho_counts, eam_cellgrid.force_counts,
             charmm_cellgrid.counts, gran_cellgrid.counts,
@@ -3902,7 +3952,7 @@ def salt_path(smi: str) -> tuple[dict, dict]:
                   f"{sps * n / 1e6:.3f} Matom-step/s on {smi}; row_gather "
                   f"launches {launches} >= force evaluations {force_evals}, "
                   f"plain calls {plain}, grid kernel launches {other}")
-    phase("salt", "IN_SALT32K " + profile_steps(script, 100, 1e3 / sps))
+    phase("salt", "IN_SALT32K " + profile_steps(script, 20, 1e3 / sps))
     s = sim._carry[0]
 
     def pppm():
@@ -3917,24 +3967,7 @@ def salt_path(smi: str) -> tuple[dict, dict]:
     p1_equal_plain(seen.values(), "salt input")
     table, idx = next(v for (d, t, _), v in seen.items()
                       if d == torch.float32 and t == (n, 5))
-    kern = (lambda: gather_rows(table, idx))
-    plain_fn = (lambda: gather_rows_plain(table, idx))
-    lib = (lambda: torch.index_select(table, 0, idx.view(-1)))
-    err = float((kern() - plain_fn()).abs().max())
-    p1 = cuda_ms(plain_fn, 50, ahead=False)
-    k1 = cuda_ms(kern, 200)
-    k2 = cuda_ms(kern, 200)
-    p2 = cuda_ms(plain_fn, 50, ahead=False)
-    lib_ms = cuda_ms(lib, 200)
-    nbytes = 4 * (table.numel() + idx.numel() + idx.numel() * 5)
-    bound_ms, bound_by = roof(0, nbytes)
-    phase("kernel", f"row_gather at IN_SALT32K's pair_sums shape ({n} x 5 "
-                    f"f32 table, idx {tuple(idx.shape)}): kernel {k1:.4f} / "
-                    f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
-                    f"torch.index_select {lib_ms:.4f} ms; bound {nbytes} B "
-                    f"-> {bound_ms:.6f} ms ({bound_by}); max|kernel - plain| "
-                    f"= {err}; bit-equal to plain on the {len(seen)} kinds "
-                    "of input of the set-up")
+    k = p1_at_shape("IN_SALT32K", table, idx, len(seen))
     del script, sim, s
     torch.cuda.empty_cache()
     # 4. the DSF deck in f32, timed
@@ -3946,11 +3979,241 @@ def salt_path(smi: str) -> tuple[dict, dict]:
     dsf_sps = 500 / (dsf.sim.loop_time - lt0)
     phase("salt", f"IN_SALT32K_DSF f32 timed 500 steps: {dsf_sps:.2f} "
                   f"timesteps/s, {dsf_sps * n / 1e6:.3f} Matom-step/s; "
-                  + profile_steps(dsf, 100, 1e3 / dsf_sps))
+                  + profile_steps(dsf, 20, 1e3 / dsf_sps))
     del dsf
     torch.cuda.empty_cache()
-    k = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": lib_ms,
-         "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+    return k, {"launches": launches, "sps": sps}
+
+
+def bonded_goldens_phase():
+    """The 14 bonded goldens verbatim in f64 on the card, each on the
+    matrix engine with P1 launched and no plain call: their rows and dumps
+    against the reference binary (tpumd_torch.bonded_goldens.failures, the
+    CPU tests' comparison) and their last rows against the same deck on the
+    CPU; then water_shake forced onto the matrix engine against its log
+    and dump."""
+    from tpumd_torch import bonded_goldens as bg
+    from tpumd_torch.ops.gather import counts
+    gold = str(GOLDEN.parent)
+    notes = []
+    t0 = time.perf_counter()
+    for name in bg.DECKS:
+        with tempfile.TemporaryDirectory() as cpu_dir, \
+                tempfile.TemporaryDirectory() as where:
+            cpu = bg.run(gold, name, cpu_dir, "cpu", torch.float64)
+            counts.reset()
+            script = bg.run(gold, name, where, "cuda", torch.float64)
+            launches, plain = counts.kernel_launches, counts.plain_calls
+            bad = bg.failures(gold, name, script, where)
+        got, want = script.sim.last_thermo, cpu.sim.last_thermo
+        for key, w in want.items():
+            if not abs(got[key] - w) <= 1e-9 * max(abs(w), 1e-6):
+                bad.append(f"{name} {key}: card {got[key]!r} vs CPU {w!r}")
+        if bad or launches == 0 or plain:
+            raise AssertionError(f"bonded golden {name}: {bad[:6]}; "
+                                 f"row_gather launches {launches}, plain "
+                                 f"calls {plain}")
+        extra = ""
+        if name == "bq":
+            extra = (f", {int((~script.sim.bonded['bond'].alive).sum())} "
+                     "bonds broken")
+        notes.append(f"{name} P1 x{launches}{extra}")
+    phase("bonded", f"14 bonded goldens verbatim in f64 on the card "
+                    f"({time.perf_counter() - t0:.1f} s, with their CPU "
+                    "runs), rows and dumps to the reference binary at "
+                    "tpumd's tests' tolerances, last rows = the CPU's to "
+                    "1e-9: " + ", ".join(notes))
+    counts.reset()
+    with tempfile.TemporaryDirectory() as where:
+        script = bg.run_water_shake_matrix(gold, where, "cuda",
+                                           torch.float64)
+        bad = bg.water_shake_failures(gold, script, where)
+    if bad or counts.kernel_launches == 0 or counts.plain_calls:
+        raise AssertionError(f"water_shake on the matrix engine: {bad[:6]}"
+                             f"; row_gather launches "
+                             f"{counts.kernel_launches}, plain calls "
+                             f"{counts.plain_calls}")
+    phase("bonded", "water_shake (SHAKE, PPPM) forced onto the matrix "
+                    "engine in f64: its log's rows and dump.water to the "
+                    "reference binary at test_golden_water's tolerances; "
+                    f"P1 x{counts.kernel_launches}")
+
+
+def hyb_setup(data: Path, n: int, dtype, thermo: int = 100):
+    """LammpsScript of IN_HYB32K (n^3 cells) on the card, verbose off,
+    before its first run."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.script.parser import LammpsScript
+    script = LammpsScript(device="cuda", dtype=dtype)
+    with contextlib.redirect_stdout(sys.stderr):
+        script.run_string(bt.IN_HYB32K.format(data=data, n=n,
+                                              thermo=thermo))
+    script.sim.verbose = False
+    return script
+
+
+def hyb32k_path(smi: str) -> tuple[dict, dict]:
+    """The hyb32k liquid on the matrix engine (bench_targets.IN_HYB32K,
+    32,000 atoms): the cell against tpumd's rows, the 32k gates, the main
+    path's run in f32 with its launch counts, and P1 at its shape."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.ops import cellgrid_pairlist, charmm_cellgrid, \
+        eam_cellgrid, gather, gran_cellgrid, lj_cellgrid, lj_fene_cellgrid
+    grid = (lj_cellgrid.counts, lj_fene_cellgrid.counts,
+            eam_cellgrid.rho_counts, eam_cellgrid.force_counts,
+            charmm_cellgrid.counts, gran_cellgrid.counts,
+            cellgrid_pairlist.counts, cellgrid_pairlist.refresh_counts)
+    n3 = bt.HYB32K_REPLICAS ** 3
+    with tempfile.TemporaryDirectory() as tmpdir:
+        data = Path(tmpdir) / "data.hyb"
+        t0 = time.perf_counter()
+        bt.hyb_cell(data)
+        gen_s = time.perf_counter() - t0
+        # 1. the cell in f64 against tpumd's rows at steps 0 and 100
+        cell = hyb_setup(data, 1, torch.float64)
+        cell.run_string("run 0")
+        c0 = dict(cell.sim.last_thermo)
+        cell_n = cell.sim.natoms
+        cell_vol = float(cell.sim.state.box.volume)
+        cell.run_string("run 100")
+        c100 = dict(cell.sim.last_thermo)
+        bad = bt.gate_failures(c0, {k: (v, 1e-10) for k, v in
+                                    bt.HYB_CELL_STEP0.items()
+                                    if k != "ebond"})
+        bad += bt.gate_failures(c100, {k: (v, 1e-7) for k, v in
+                                       bt.HYB_CELL_STEP100.items()})
+        if bad or cell.sim._ctx.is_cellgrid:
+            raise AssertionError(f"hyb cell f64 against tpumd: {bad}")
+        phase("hyb32k", f"cell ({cell_n} atoms, {bt.HYB_DENSITY} g/cm^3, "
+                        f"written in {gen_s:.3f} s) in f64 on the card = "
+                        "tpumd's rows at step 0 (1e-10) and step 100 (1e-7): "
+                        f"etotal {c0['etotal']!r}, {c100['etotal']!r}")
+        del cell
+        # 2. the 32k deck in f64: step 0 against 125 x the cell, then the
+        # step-100 row and forces that f32 must meet
+        ref = hyb_setup(data, bt.HYB32K_REPLICAS, torch.float64)
+        v64 = ref.sim.state.v.clone()
+        ref.run_string("run 0")
+        n, vol = ref.sim.natoms, float(ref.sim.state.box.volume)
+        row0_64 = dict(ref.sim.last_thermo)
+        bad = bt.hyb_step0_failures(row0_64, c0, n3, n, vol, cell_n,
+                                    cell_vol, ref.sim.units)
+        if bad or ref.sim._ctx.is_cellgrid or n != n3 * cell_n:
+            raise AssertionError(f"IN_HYB32K f64 step 0: {bad}")
+        f0_64 = tag_order(ref.sim.state.f, ref.sim.state.tag).clone()
+        fmax0 = float(f0_64.abs().max())
+        ref.run_string("run 100")
+        row100_64 = dict(ref.sim.last_thermo)
+        terms64 = bt.hyb_term_forces(ref.sim)
+        x100 = tag_order(ref.sim.state.x, ref.sim.state.tag)
+        phase("hyb32k", f"IN_HYB32K f64 step 0 ({n} atoms, matrix engine): "
+                        f"epair, ebond, eangle, edihed, eimp = {n3} x the "
+                        f"cell's to {bt.HYB_STEP0_RTOL} and its virial "
+                        "pressure to the cell's: "
+                        f"{ {k: row0_64[k] for k in bt.HYB_KEYS} }; max|f| "
+                        f"{fmax0:.4f}")
+        del ref
+        # 2b. each term alone (the pair, each bonded sub-style) in f32 on
+        # the f64 run's step-100 positions, against f64 there
+        probe = hyb_setup(data, bt.HYB32K_REPLICAS, torch.float32)
+        st = probe.sim.state
+        probe.sim.state = st.replace(x=x100[st.tag - 1].to(torch.float32))
+        probe.run_string("run 0")
+        gaps = bt.hyb_term_gaps(bt.hyb_term_forces(probe.sim), terms64)
+        del probe, st, x100
+        torch.cuda.empty_cache()
+        bad = [f"{k} {g} > {bt.HYB_F32_TERM_TOL[k]}" for k, g in gaps.items()
+               if not g <= bt.HYB_F32_TERM_TOL[k]]
+        if bad or sorted(gaps) != sorted(bt.HYB_F32_TERM_TOL):
+            raise AssertionError(f"IN_HYB32K f32 terms at step 100: {bad}, "
+                                 f"terms {sorted(gaps)}")
+        phase("hyb32k", "IN_HYB32K each term alone in f32 on the f64 run's "
+                        "step-100 positions = f64, of its own max|f| (gate "
+                        "3x the CPU's 32k gap): " + ", ".join(
+                            f"{k} {g:.3e} ({bt.HYB_F32_TERM_TOL[k]:.3e})"
+                            for k, g in gaps.items()))
+        # 3. the main path: f32 from the f64 deck's velocities, 1,000
+        # steps; the counts are set to 0 just before it and read after
+        for c in (gather.counts,) + grid:
+            c.reset()
+        t0 = time.perf_counter()
+        script = hyb_setup(data, bt.HYB32K_REPLICAS, torch.float32)
+        sim = script.sim
+        sim.state = sim.state.replace(v=v64.to(torch.float32))
+        seen = {}
+        with recording_p1(seen):
+            script.run_string("run 0")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    f0 = tag_order(sim.state.f, sim.state.tag).double()
+    ferr = float((f0 - f0_64).abs().max())
+    if not ferr <= bt.HYB_F32_FORCE_TOL * fmax0:
+        raise AssertionError(f"IN_HYB32K f32 step-0 forces: {ferr} > "
+                             f"{bt.HYB_F32_FORCE_TOL} * {fmax0}")
+    script.run_string("run 100")
+    row100 = dict(sim.last_thermo)
+    bad = bt.gate_failures(row100, {k: (row100_64[k], bt.HYB_F32_ROW_RTOL)
+                                    for k in bt.HYB_KEYS})
+    if bad:
+        raise AssertionError(f"IN_HYB32K step 100, f32 against f64: {bad}")
+    lt0 = sim.loop_time
+    script.run_string("run 500")
+    torch.cuda.synchronize()
+    sps = 500 / (sim.loop_time - lt0)
+    script.run_string("run 400")
+    launches = gather.counts.kernel_launches
+    plain = gather.counts.plain_calls + sum(c.plain_calls for c in grid)
+    other = sum(c.kernel_launches for c in grid)
+    # set-up, every step and one evaluation per thermo row
+    force_evals = 1 + bt.HYB32K_STEPS + 10
+    if launches < force_evals or plain or other or sim._ctx.is_cellgrid:
+        raise AssertionError(f"IN_HYB32K: row_gather launches {launches} < "
+                             f"force evaluations {force_evals}, or plain "
+                             f"calls {plain}, or grid kernel launches {other}")
+    rows = thermo_rows(sim)
+    e = np.array([rows[k]["etotal"] for k in sorted(rows)])
+    s, neigh, _ = sim._carry
+    finite = (np.isfinite(np.array([list(r.values())
+                                    for r in rows.values()])).all()
+              and bool(torch.isfinite(s.x).all())
+              and bool(torch.isfinite(s.v).all()))
+    ntags = int(torch.unique(s.tag[s.tag > 0]).numel())
+    if sorted(rows) != list(range(0, 1001, 100)) or not finite \
+            or ntags != n or bool(neigh.overflow):
+        raise AssertionError(f"IN_HYB32K: rows {sorted(rows)}, finite "
+                             f"{finite}, atoms {ntags}, overflow "
+                             f"{bool(neigh.overflow)}")
+    drift = float(np.abs(e - e[0]).max() / abs(e[0]))
+    drift_end = float(abs(e[-1] - e[0]) / abs(e[0]))
+    if not drift <= bt.HYB_DRIFT_TOL:
+        raise AssertionError(f"IN_HYB32K drift {drift} > "
+                             f"{bt.HYB_DRIFT_TOL}")
+    cfg = sim._neigh_cfg
+    phase("hyb32k", f"IN_HYB32K f32 (matrix engine): set-up {setup_s:.3f} s "
+                    f"(cells {cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cell_cap}, "
+                    f"K {cfg.kmax}, max count {int(neigh.max_count)}); "
+                    f"step-0 forces = f64 to {ferr:.3e} (<= "
+                    f"{bt.HYB_F32_FORCE_TOL} x max|f| {fmax0:.4f}); step 100 "
+                    f"= f64 to {bt.HYB_F32_ROW_RTOL}: "
+                    f"{ {k: row100[k] for k in bt.HYB_KEYS} }; 1,000 steps, "
+                    f"{ntags} atoms, no NaN, no overflow; drift "
+                    f"{drift:.4e} (max), {drift_end:.4e} (end; "
+                    f"gate {bt.HYB_DRIFT_TOL:.4e})")
+    phase("hyb32k", f"IN_HYB32K timed 500 steps: {sps:.2f} timesteps/s, "
+                    f"{sps * n / 1e6:.3f} Matom-step/s on {smi}; row_gather "
+                    f"launches {launches} >= force evaluations {force_evals}"
+                    f", plain calls {plain}, grid kernel launches {other}")
+    phase("hyb32k", "IN_HYB32K " + profile_steps(script, 20, 1e3 / sps))
+    # P1 against its plain version on every kind of input the set-up gave
+    # it, then timed at the packed j-row gather of pair_sums
+    p1_equal_plain(seen.values(), "hyb32k input")
+    # the packed j rows (x and type, or with q): the last K the set-up took
+    table, idx = [v for (d, t, i), v in seen.items()
+                  if d == torch.float32 and t[0] == n and t[1] in (4, 5)
+                  and len(i) == 2 and i[0] == n][-1]
+    k = p1_at_shape("IN_HYB32K", table, idx, len(seen))
+    del script, sim, s
+    torch.cuda.empty_cache()
     return k, {"launches": launches, "sps": sps}
 
 
@@ -4003,6 +4266,8 @@ def main():
                                                "chute": m_gran["sps"]})
     pair_goldens_phase()
     k_salt, m_salt = salt_path(smi)
+    bonded_goldens_phase()
+    k_hyb, m_hyb = hyb32k_path(smi)
     # the list kernels' launches on the main paths: builds at set-up and
     # re-bins, and refresh calls, most of which pass the gate and return
     # (those that rebuild are the refreshes taken); an entry each
@@ -4066,7 +4331,9 @@ def main():
             ("row_gather", "tpumd_torch/csrc/row_gather.cu",
              "tools/probes/gather_probe.py:37", k_gather, m_gather),
             ("row_gather salt32k", "tpumd_torch/csrc/row_gather.cu",
-             "tools/probes/gather_probe.py:37", k_salt, m_salt)):
+             "tools/probes/gather_probe.py:37", k_salt, m_salt),
+            ("row_gather hyb32k", "tpumd_torch/csrc/row_gather.cu",
+             "tools/probes/gather_probe.py:37", k_hyb, m_hyb)):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": m["launches"],

@@ -143,7 +143,8 @@ def test_device_rng_mode(tmp_path):
 
 
 def test_unported_chain_cases_raise(tmp_path):
-    """What the LJ+FENE kernel does not take raises, naming itself."""
+    """What the LJ+FENE kernel does not take raises, naming itself; a
+    per-tuple bond style beside lj/cut runs on the matrix engine."""
     text = _deck(tmp_path, 60, 10)
     for old, new, match in (
             ("special_bonds   fene", "special_bonds   charmm",
@@ -151,14 +152,19 @@ def test_unported_chain_cases_raise(tmp_path):
             ("special_bonds   fene\n", "", "special list"),
             ("bond_coeff      1 30.0 1.5 1.0 1.0",
              "bond_coeff      1 30.0 1.6 1.0 1.0", "reach"),
-            ("bond_style      fene", "bond_style      harmonic",
-             "harmonic"),
             ("fix             2 all langevin 1.0 1.0 10.0 904297",
              "fix             2 all langevin 1.0 1.0 10.0 904297 zero yes",
              "langevin")):
         script = TScript(device="cpu", dtype=torch.float64)
         with pytest.raises(NotImplementedError, match=match):
             script.run_string(text.replace(old, new) + "run 0\n")
+    script = TScript(device="cpu", dtype=torch.float64)
+    script.run_string(text.replace("bond_style      fene",
+                                   "bond_style      harmonic").replace(
+        "bond_coeff      1 30.0 1.5 1.0 1.0",
+        "bond_coeff      1 30.0 1.0") + "run 0\n")
+    assert not script.sim._ctx.is_cellgrid
+    assert [st.name for st, _ in script.sim._ctx.bonded] == ["harmonic"]
 
 
 def test_cli_runs_the_chain_deck(tmp_path):

@@ -967,3 +967,258 @@ def salt_step0_failures(vals: dict, dsf: bool, natoms: int,
         if not abs(vals[key] - w) <= tol * abs(w):
             bad.append(f"{key} {vals[key]!r} vs the 512-ion PPPM {w!r}")
     return bad
+
+
+# ------------------------------------------------------------- hyb32k
+# an OPLS-style united-atom liquid of butane-like molecules under the
+# styles and coefficients of tests/golden/bonded2/in.hyb, verbatim: a
+# hybrid of two sub-styles for every bonded kind, lj/cut 8.0 with the
+# 1-4 pairs at 0.5.  hyb_cell writes the 256-atom cell, the deck
+# replicates it 5x5x5 (32,000 atoms, 8,000 molecules, a 103 A box).
+IN_HYB32K = """units           real
+atom_style      full
+bond_style      hybrid harmonic morse
+angle_style     hybrid harmonic cosine/squared
+dihedral_style  hybrid opls multi/harmonic
+improper_style  hybrid harmonic cvff
+special_bonds   lj/coul 0.0 0.0 0.5
+pair_style      lj/cut 8.0
+read_data       {data}
+replicate       {n} {n} {n}
+bond_coeff      1 harmonic 300.0 1.54
+bond_coeff      2 morse 100.0 2.0 1.54
+angle_coeff     1 harmonic 60.0 110.0
+angle_coeff     2 cosine/squared 50.0 110.0
+dihedral_coeff  1 opls 1.5 0.8 -0.5 0.3
+dihedral_coeff  2 multi/harmonic 1.2 0.8 -0.6 0.4 -0.2
+improper_coeff  1 harmonic 8.0 0.0
+improper_coeff  2 cvff 8.0 -1 2
+pair_coeff      1 1 0.1 3.2
+neighbor        2.0 bin
+velocity        all create 300.0 9817 loop geom
+fix             1 all nve
+timestep        0.5
+thermo          {thermo}
+thermo_style    custom step temp epair ebond eangle edihed eimp etotal press
+"""
+HYB32K_REPLICAS = 5
+HYB_CELL_SEED = 2026
+HYB_MOLECULES = 4                 # a side of the lattice of molecules
+HYB_DENSITY = 0.58                # g/cm^3, liquid butane
+HYB_DRAWS = 2000
+HYB_CLEARANCE = 2.8               # A between atoms of two molecules
+_AVOGADRO = 6.02214076e23
+
+
+def _di2_molecules(path):
+    """tests/golden/bonded2/data.di2's 27 molecules: (4, 3) positions
+    about each centroid, the mass, and each molecule's bonds, angles,
+    dihedrals and impropers as (type, members 0..3) rows."""
+    with open(path) as fh:
+        lines = [ln.split("#")[0].split() for ln in fh]
+    sections, name = {}, None
+    for toks in lines:
+        if len(toks) == 1 or (len(toks) == 2 and toks[1] == "Coeffs"):
+            name = " ".join(toks)
+            sections[name] = []
+        elif toks and name is not None:
+            sections[name].append([float(t) for t in toks])
+    atoms = np.array(sections["Atoms"])
+    atoms = atoms[np.argsort(atoms[:, 0])]
+    x = atoms[:, 4:7].reshape(-1, 4, 3)
+    mass = float(sections["Masses"][0][1])
+    topo = {}
+    for kind, sect in (("bond", "Bonds"), ("angle", "Angles"),
+                       ("dihedral", "Dihedrals"),
+                       ("improper", "Impropers")):
+        rows = np.array(sections[sect], dtype=np.int64)[:, 1:]
+        mol = (rows[:, 1] - 1) // 4
+        local = rows.copy()
+        local[:, 1:] = (rows[:, 1:] - 1) % 4
+        topo[kind] = [local[mol == k] for k in range(x.shape[0])]
+    return x - x.mean(axis=1, keepdims=True), mass, topo
+
+
+def _random_rotation(rng):
+    q = rng.normal(size=4)
+    a, b, c, d = q / np.linalg.norm(q)
+    return np.array([
+        [a * a + b * b - c * c - d * d, 2 * (b * c - a * d),
+         2 * (b * d + a * c)],
+        [2 * (b * c + a * d), a * a - b * b + c * c - d * d,
+         2 * (c * d - a * b)],
+        [2 * (b * d - a * c), 2 * (c * d + a * b),
+         a * a - b * b - c * c + d * d]])
+
+
+def hyb_cell(path, seed: int = HYB_CELL_SEED) -> None:
+    """Write the hyb32k cell as an atom_style full data file at path.
+    Molecule k copies data.di2's molecule k mod 27 (its atoms' internal
+    geometry and its bonded types), centred on a 4x4x4 lattice in a cube
+    of the density HYB_DENSITY, turned at random (numpy
+    default_rng(seed)); a turn is drawn again while an atom comes within
+    HYB_CLEARANCE of another molecule's, HYB_DRAWS times at most."""
+    import os
+    shapes, mass, topo = _di2_molecules(os.path.join(
+        os.path.dirname(__file__), os.pardir, "tests", "golden", "bonded2",
+        "data.di2"))
+    m = HYB_MOLECULES
+    nmol = m ** 3
+    edge = (nmol * 4 * mass / _AVOGADRO / HYB_DENSITY) ** (1.0 / 3.0) * 1e8
+    rng = np.random.default_rng(seed)
+    grid = (np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3) + 0.5) * edge / m
+    placed = np.zeros((0, 3))
+    for k in range(nmol):
+        for _ in range(HYB_DRAWS):
+            xk = grid[k] + shapes[k % 27] @ _random_rotation(rng).T
+            d = xk[:, None, :] - placed[None, :, :]
+            d -= edge * np.round(d / edge)
+            if placed.shape[0] == 0 \
+                    or np.sqrt((d * d).sum(-1)).min() >= HYB_CLEARANCE:
+                break
+        else:
+            raise RuntimeError(f"hyb_cell: molecule {k} finds no place in "
+                               f"{HYB_DRAWS} draws at {HYB_DENSITY} g/cm^3")
+        placed = np.concatenate([placed, xk])
+    x = np.mod(placed, edge)
+    counts = {kind: sum(len(topo[kind][k % 27]) for k in range(nmol))
+              for kind in topo}
+    with open(path, "w") as fh:
+        fh.write(f"hyb32k cell: {nmol} molecules of data.di2, seed {seed}"
+                 f"\n\n{4 * nmol} atoms\n")
+        for kind in topo:
+            fh.write(f"{counts[kind]} {kind}s\n")
+        fh.write("\n1 atom types\n")
+        for kind in topo:
+            fh.write(f"2 {kind} types\n")
+        fh.write("\n" + "".join(f"0.0 {edge!r} {a}lo {a}hi\n"
+                                for a in "xyz"))
+        fh.write(f"\nMasses\n\n1 {mass!r}\n\nAtoms\n\n")
+        for i, xi in enumerate(x):
+            fh.write(f"{i + 1} {i // 4 + 1} 1 0.0 "
+                     + " ".join(repr(float(v)) for v in xi) + "\n")
+        for kind, sect in (("bond", "Bonds"), ("angle", "Angles"),
+                           ("dihedral", "Dihedrals"),
+                           ("improper", "Impropers")):
+            fh.write(f"\n{sect}\n\n")
+            n = 0
+            for k in range(nmol):
+                for row in topo[kind][k % 27]:
+                    n += 1
+                    fh.write(f"{n} {row[0]} "
+                             + " ".join(str(4 * k + a + 1) for a in row[1:])
+                             + "\n")
+
+
+HYB_KEYS = ("temp", "epair", "ebond", "eangle", "edihed", "eimp", "etotal",
+            "press")
+# the cell's rows (hyb_cell at HYB_CELL_SEED, 256 atoms), tpumd's own in
+# float64 on the CPU at steps 0 and 100 (tests/test_torch_bonded_engines.py
+# derives them again).  in.hyb's harmonic improper (chi0 = 0) on a chain
+# puts 2,567 kcal/mol in at step 0; the liquid runs at ~2,000-3,000 K.
+HYB_CELL_STEP0 = {
+    "temp": 299.99999999999994, "epair": -87.0048222518732,
+    "ebond": 1.0553977652959929e-12, "eangle": 42.493979070080385,
+    "edihed": -24.708302541569978, "eimp": 2566.776793147028,
+    "etotal": 2725.5896162486665, "press": 1369.9564974374157}
+HYB_CELL_STEP100 = {
+    "temp": 3099.528239413181, "epair": -23.17454906388106,
+    "ebond": 282.45179692237184, "eangle": 46.76804234821598,
+    "edihed": 19.36371421865666, "eimp": 43.92028761675979,
+    "etotal": 2725.301048249033, "press": -5348.327002837375}
+# 32k's step-0 energies are 125 x the cell's to HYB_STEP0_RTOL of
+# max(|value|, 125 kcal/mol): the bonds sit at r0 (ebond ~1e-12 is
+# round-off), so each key takes a floor of 1 kcal/mol a cell
+HYB_STEP0_RTOL = 1e-10
+HYB_STEP0_FLOOR = 1.0
+# the f32 run against the f64 one.  The port's f32 gap on the CPU is
+# larger than 1e-5 (step-0 forces) and 1e-4 (rows): in.hyb's harmonic
+# improper (chi0 = 0) sits at chi 176.5-179.8 deg at step 0, where its
+# force divides by sin(chi) (floored at 0.001) after an arccos, so it is
+# ill-conditioned, and more so the larger the coordinates (an f32 ulp at
+# 100 A is 5x one at 20 A); the worst atom's improper is at 179.80 deg.
+# So each gate is 3x the 32k deck's own gap, f32 against f64 on the CPU
+# (tests/test_torch_bonded_engines.py measures them again): step-0 forces
+# 1.7104e-2 of max|f| (the cell's 6.6668e-3), step-100 rows 2.0320e-4
+# (epair; the cell's 1.0283e-4, eimp).  Each term alone (the pair and
+# the eight bonded sub-styles, hyb_term_forces) on the f64 run's step-100
+# positions, where no improper is near 180 deg and the bonds are
+# stretched: its gap over its own max|f|, each gated at 3x.
+HYB_F32_FORCE_GAP_CELL = 6.6668e-3
+HYB_F32_ROW_GAP_CELL = 1.0283e-4
+HYB_F32_FORCE_GAP_32K = 1.7104e-2
+HYB_F32_ROW_GAP_32K = 2.0320e-4
+HYB_F32_FORCE_TOL = 3 * HYB_F32_FORCE_GAP_32K
+HYB_F32_ROW_RTOL = 3 * HYB_F32_ROW_GAP_32K
+HYB_F32_TERM_GAP_CELL = {
+    "pair": 5.0627e-6, "bond harmonic": 1.1633e-5, "bond morse": 9.2448e-6,
+    "angle harmonic": 4.6932e-6, "angle cosine/squared": 8.2569e-6,
+    "dihedral opls": 3.5977e-6, "dihedral multi/harmonic": 5.8672e-6,
+    "improper harmonic": 3.4099e-6, "improper cvff": 6.0830e-6}
+HYB_F32_TERM_GAP_32K = {
+    "pair": 2.0533e-5, "bond harmonic": 4.4986e-5, "bond morse": 7.1520e-5,
+    "angle harmonic": 3.3420e-5, "angle cosine/squared": 2.6489e-5,
+    "dihedral opls": 8.8987e-5, "dihedral multi/harmonic": 2.0886e-5,
+    "improper harmonic": 1.5602e-4, "improper cvff": 1.9536e-5}
+HYB_F32_TERM_TOL = {k: 3 * v for k, v in HYB_F32_TERM_GAP_32K.items()}
+# the energy drift over 1,000 steps (max|E(t) - E0| / |E0| at the thermo
+# rows every 100 steps): the cell drifts 1.1486594585787193e-3 in tpumd in
+# float64 on the CPU (the port's f32 cell 1.150e-3); the gate is 3x that
+HYB_CELL_DRIFT_F64 = 1.1486594585787193e-3
+HYB_DRIFT_TOL = 3 * HYB_CELL_DRIFT_F64
+HYB32K_STEPS = 1000
+
+
+def hyb_virial_press(vals: dict, natoms: int, volume: float, units) -> float:
+    """The virial part of a row's pressure: press less the kinetic
+    (3N - 3) kB T / (3 V) (compute pressure, src/compute_pressure.cpp)."""
+    return vals["press"] - ((3 * natoms - 3) * units.boltz * vals["temp"]
+                            / (3.0 * volume) * units.nktv2p)
+
+
+def hyb_step0_failures(vals: dict, cell: dict, copies: int, natoms: int,
+                       volume: float, cell_natoms: int, cell_volume: float,
+                       units) -> list[str]:
+    """What of a replicated deck's step-0 row misses copies x the cell's
+    energies (HYB_STEP0_RTOL, floor HYB_STEP0_FLOOR a cell) and the cell's
+    virial pressure."""
+    bad = []
+    for key in ("epair", "ebond", "eangle", "edihed", "eimp"):
+        want = copies * cell[key]
+        lim = HYB_STEP0_RTOL * max(abs(want), copies * HYB_STEP0_FLOOR)
+        if not abs(vals[key] - want) <= lim:
+            bad.append(f"{key} {vals[key]!r} vs {copies} x {cell[key]!r}")
+    pv = hyb_virial_press(vals, natoms, volume, units)
+    pc = hyb_virial_press(cell, cell_natoms, cell_volume, units)
+    if not abs(pv - pc) <= HYB_STEP0_RTOL * max(abs(pc), 1.0):
+        bad.append(f"virial pressure {pv!r} vs the cell's {pc!r}")
+    return bad
+
+
+def hyb_term_forces(sim) -> dict:
+    """sim's forces on its state split by term, per tag (numpy float64):
+    each bonded sub-style's alone ("improper harmonic", ...), evaluated
+    as verlet.compute_forces does, and "pair", the forces less their sum
+    (fix nve adds none)."""
+    import torch
+
+    from tpumd_torch.models.bonded import compute_tuples, tag_view
+    s, neigh, _ = sim._carry
+    ctx = sim._ctx
+    _, view, take = tag_view(s, ctx,
+                             neigh.row2slot if ctx.is_cellgrid else None)
+    live = s.tag > 0
+    out = {"pair": s.f[live][torch.argsort(s.tag[live])].double()}
+    for style, tuples in ctx.bonded:
+        f = compute_tuples(style, view, tuples, s.box, ctx, False, False,
+                           take)[0].double()
+        out[f"{style.kind} {style.name}"] = f
+        out["pair"] = out["pair"] - f
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def hyb_term_gaps(f32: dict, f64: dict) -> dict:
+    """Per term, max|f32 - f64| over the term's own max|f| in f64."""
+    return {k: float(np.abs(f32[k] - v).max() / np.abs(v).max())
+            for k, v in f64.items()}

@@ -4,8 +4,11 @@ The port's copy of tpumd/core/atomvec.py (the reference's AtomVec field
 lists, src/atom_vec.h:62-80) for the styles it runs: ``atomic`` (``id type x y z [ix iy iz]``),
 ``charge`` (``id type q x y z [ix iy iz]``, with the charge, 0 for atoms
 that create_atoms makes),
-``bond`` (``id mol type x y z [ix iy iz]``, with the molecule ID as a
-per-atom field), ``full`` (``id mol type q x y z [ix iy iz]``, with the
+``bond``, ``angle`` and ``molecular`` (``id mol type x y z [ix iy
+iz]``, with the molecule ID as a per-atom field: the layout of
+src/MOLECULE/atom_vec_bond.cpp, atom_vec_angle.cpp and
+atom_vec_molecular.cpp, which differ in the topologies they carry),
+``full`` (``id mol type q x y z [ix iy iz]``, with the
 molecule ID and the charge) and ``sphere`` (``id type diameter density x
 y z [ix iy iz]``, with the radius, the per-atom mass, the angular velocity
 read from the Velocities section's last three columns, and the torque).
@@ -79,8 +82,9 @@ STYLES = {
     "atomic": AtomStyle("atomic", data_atom=_simple_layout()),
     "charge": AtomStyle("charge", data_atom=_simple_layout(has_q=True),
                         fields=(Field("q"),)),
-    "bond": AtomStyle("bond", data_atom=_simple_layout(has_mol=True),
-                      fields=(Field("molecule", "int"),)),
+    **{name: AtomStyle(name, data_atom=_simple_layout(has_mol=True),
+                       fields=(Field("molecule", "int"),))
+       for name in ("bond", "angle", "molecular")},
     "full": AtomStyle("full", data_atom=_simple_layout(has_mol=True,
                                                        has_q=True),
                       fields=(Field("molecule", "int"), Field("q"))),
@@ -89,6 +93,12 @@ STYLES = {
                         fields=(Field("radius"), Field("rmass"),
                                 Field("omega", width=3))),
 }
+
+
+# the topologies each molecular style carries (AtomVec bonds_allow, ...)
+TOPOLOGIES = {"bond": ("bond",), "angle": ("bond", "angle"),
+              "molecular": ("bond", "angle", "dihedral", "improper"),
+              "full": ("bond", "angle", "dihedral", "improper")}
 
 
 def get_style(name: str) -> AtomStyle:

@@ -14,8 +14,9 @@
 // (slots, K) holds each slot's list entries j | code << 30 and npairs
 // its count (ops/cellgrid_pairlist.py).  Every slot i sums, over its
 // entries, with d = x_i - x_j at the minimum image of the current box
-// (exact: the grid holds L >= 2 cutneigh) and r2 < max(cut_coulsq,
-// cut_ljsq):
+// (exact: the grid holds L >= 2 cutneigh; d and r2 rounded op by op, no
+// contraction, as the plain version rounds them, so both take the same
+// pairs inside each cutoff) and r2 < max(cut_coulsq, cut_ljsq):
 //   w_lj, w_coul = W[code], the special_bonds weights (W[0] = 1);
 //   Coulomb (r2 < cut_coulsq): erfc by the reference's polynomial
 //     (src/KSPACE/pair_lj_charmm_coul_long.cpp:143-158, the same constants
@@ -73,6 +74,35 @@ __device__ __forceinline__ float sqrt_t(float a) { return sqrtf(a); }
 __device__ __forceinline__ double sqrt_t(double a) { return sqrt(a); }
 __device__ __forceinline__ float rint_t(float a) { return rintf(a); }
 __device__ __forceinline__ double rint_t(double a) { return rint(a); }
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+// |d|^2 rounded as the plain version rounds it (no fused multiply-add)
+__device__ __forceinline__ float norm2_rn(float a, float b, float c) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)),
+                   __fmul_rn(c, c));
+}
+__device__ __forceinline__ double norm2_rn(double a, double b, double c) {
+  return __dadd_rn(__dadd_rn(__dmul_rn(a, a), __dmul_rn(b, b)),
+                   __dmul_rn(c, c));
+}
+
+// x_i - x_j at the nearest image on an axis of length L: d - L rint(d / L),
+// each step rounded as the plain version (minimum_image_c) rounds it
+template <typename T>
+__device__ __forceinline__ T image_rn(T xi, T xj, T L) {
+  const T d = sub_rn(xi, xj);
+  return sub_rn(d, mul_rn(L, rint_t(d / L)));
+}
 
 // special_bonds weights by code: index 0 (no special) is 1
 template <typename T>
@@ -128,20 +158,16 @@ __global__ void __launch_bounds__(kBlock) charmm_pairlist_kernel(
     const T qi = q[i];
     const int ti = type[i];
     const T Lx = lengths[0], Ly = lengths[1], Lz = lengths[2];
-    const T iLx = T(1) / Lx, iLy = T(1) / Ly, iLz = T(1) / Lz;
     const int* row = pairs + i * K;
     const int n = npairs[i];
     for (int k = lane; k < n; k += kLanes) {
       const unsigned e = static_cast<unsigned>(row[k]);
       const long long j = e & kNeighMask;
       const unsigned code = e >> 30;
-      T dx = xi - x[3 * j + 0];
-      T dy = yi - x[3 * j + 1];
-      T dz = zi - x[3 * j + 2];
-      dx -= Lx * rint_t(dx * iLx);
-      dy -= Ly * rint_t(dy * iLy);
-      dz -= Lz * rint_t(dz * iLz);
-      const T r2 = dx * dx + dy * dy + dz * dz;
+      const T dx = image_rn(xi, x[3 * j + 0], Lx);
+      const T dy = image_rn(yi, x[3 * j + 1], Ly);
+      const T dz = image_rn(zi, x[3 * j + 2], Lz);
+      const T r2 = norm2_rn(dx, dy, dz);
       if (!(r2 < cutsq)) continue;
 
       const T r2inv = T(1) / r2;

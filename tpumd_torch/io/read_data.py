@@ -3,15 +3,18 @@
 The part of tpumd/io/read_data.py (the reference's read_data command,
 src/read_data.cpp) that the chain and rhodo_class decks need: the header
 counts, an orthogonal or triclinic box (the ``xy xz yz`` line), and the
-Masses, Atoms (atomic, bond and full styles, image flags included),
-Velocities, Bonds, Angles, Dihedrals and Impropers sections, and the Pair, Bond, Angle, Dihedral and Improper Coeffs
-sections (kept raw for the styles to read); plus ``build_special``.  The
-angle, dihedral and improper topologies and the coefficient sections are
-read for atom_style full, the one molecular deck that carries them.  Any
-other section (the class2 cross-term coefficients among them) raises
-naming itself.  A sphere file (atom_style sphere: ``id type diameter
-density x y z`` atoms and ``id vx vy vz wx wy wz`` velocities) holds only
-the Atoms and Velocities sections; any other raises.
+Masses, Atoms (atomic, charge, bond, angle, molecular and full styles,
+image flags included), Velocities, Bonds, Angles, Dihedrals and Impropers
+sections, and the Pair, Bond, Angle, Dihedral and Improper Coeffs sections
+(kept raw for the styles to read, tokens as written); plus
+``build_special``.  A molecular style reads the topologies it carries
+(atomvec.TOPOLOGIES: angles from atom_style angle on, dihedrals and
+impropers for molecular and full) and the coefficient sections.  Any
+other section (the class2 cross-term coefficients among them: their
+styles read them from angle_coeff, dihedral_coeff and improper_coeff
+lines) raises naming itself.  A sphere file (atom_style sphere: ``id type
+diameter density x y z`` atoms and ``id vx vy vz wx wy wz`` velocities)
+holds only the Atoms and Velocities sections; any other raises.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import dataclasses
 
 import numpy as np
 
-from tpumd_torch.core.atomvec import alloc_fields, get_style
+from tpumd_torch.core.atomvec import TOPOLOGIES, alloc_fields, get_style
 
 _HEADER_KEYS = [
     ("atoms", "natoms"), ("bonds", "nbonds"), ("angles", "nangles"),
@@ -43,8 +46,6 @@ _COEFFS = {"Pair Coeffs": "natomtypes", "Bond Coeffs": "nbondtypes",
            "Improper Coeffs": "nimpropertypes"}
 _SECTIONS = ("Masses", "Atoms", "Velocities") + tuple(_TOPOLOGY) \
     + tuple(_COEFFS)
-# what atom styles other than full may carry
-_FULL_ONLY = ("nangles", "ndihedrals", "nimpropers")
 # the sections of a sphere file
 _SPHERE_SECTIONS = ("Atoms", "Velocities")
 
@@ -117,13 +118,13 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
         if line and not _header_line(d, line):
             break
         i += 1
-    if atom_style != "full":
-        for attr in _FULL_ONLY:
-            if getattr(d, attr):
-                raise NotImplementedError(
-                    f"data file: {getattr(d, attr)} {attr[1:]} with "
-                    f"atom_style {atom_style} (the port reads them for "
-                    "atom_style full)")
+    carried = TOPOLOGIES.get(atom_style, ())
+    for kind in ("bond", "angle", "dihedral", "improper"):
+        if getattr(d, f"n{kind}s") and kind not in carried:
+            raise NotImplementedError(
+                f"data file: {getattr(d, f'n{kind}s')} {kind}s with "
+                f"atom_style {atom_style}, which carries "
+                f"{', '.join(carried) or 'no topology'}")
 
     n = d.natoms
     d.x = np.zeros((n, 3))
@@ -150,7 +151,7 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
         if not section:
             continue
         if section not in _SECTIONS or (section in _COEFFS
-                                        and atom_style != "full") or (
+                                        and atom_style not in TOPOLOGIES) or (
                 atom_style == "sphere" and section not in _SPHERE_SECTIONS):
             raise NotImplementedError(
                 f"data-file section {section!r} is not ported with "

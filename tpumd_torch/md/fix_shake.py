@@ -10,9 +10,10 @@ products over a kind's clusters (l <- A^-1 (b - q(l)), the quadratic forms
 as (clusters, m, m, m) tensors), so an iteration is a few operations
 whatever the cluster size.  The iteration runs its full count with
 per-cluster freezing once converged (no flag is read back from the
-device).  Clusters are stored in tag space and mapped to the grid
-slots at each call; they are disjoint, so the force scatter has no
-collisions.  The constraint virial rides the fix state.
+device).  Clusters are stored in tag space and mapped to the engine's
+rows at each call (``row2slot_from_tags``: the cell grid's slots or the
+matrix engine's rows alike); they are disjoint, so the force scatter has
+no collisions.  The constraint virial rides the fix state.
 
 fix rattle (``FixRattle``) adds RATTLE's velocity constraints to the same
 clusters: each cluster's linear system, solved exactly, at post_force,

@@ -91,3 +91,26 @@ class FixNVE(Fix):
     def final_integrate(self, s, fstate, ctx):
         return (s.replace(v=torch.addcmul(s.v, self._dtfm(ctx, s), s.f)),
                 fstate)
+
+
+class FixBondBreak(Fix):
+    """Built-in companion of a breakable bond style (bond_style quartic),
+    which the set-up adds where one has bonds (tpumd/md/simulation.py:
+    519-540): after the position update and before the force evaluation,
+    clear the carried alive flag of every bond stretched past Rc, the step
+    at which the reference clears bondlist[n][2] inside its force loop
+    (src/MOLECULE/bond_quartic.cpp:85-95; tpumd/md/fixes.py:60-86).  The
+    flags only ever go from alive to broken."""
+
+    name = "bond_break"
+    id = "bond_break"
+
+    def post_integrate(self, s, fstate, ctx):
+        from tpumd_torch.models.bonded import members, tag_view
+        breakable = [(st, t) for st, t in ctx.bonded if st.breakable]
+        if breakable:
+            _, view, take = tag_view(s, ctx)
+            for style, tuples in breakable:
+                _, xs = members(style, view, tuples, take)
+                style.break_bonds(xs, tuples[:, 0], s.box)
+        return s, fstate

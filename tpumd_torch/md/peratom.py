@@ -34,7 +34,7 @@ import functools
 import torch
 
 from tpumd_torch.md.verlet import _pair_ext
-from tpumd_torch.models.bonded import compute_tuples_peratom
+from tpumd_torch.models.bonded import compute_tuples_peratom, tag_view
 
 
 F64 = torch.float64
@@ -183,14 +183,14 @@ def _tallies(sim):
         eatom += ea[rows].to(f64)
         vatom += va[rows].to(f64)
     if ctx.bonded:
-        r2s = neigh.row2slot
-        view = (torch.index_select(s.x, 0, r2s),
-                torch.index_select(s.type, 0, r2s),
-                None if s.q is None else torch.index_select(s.q, 0, r2s))
+        _, view, take = tag_view(
+            s, ctx, neigh.row2slot if ctx.is_cellgrid else None)
         for style, tuples in ctx.bonded:
             # tuples name atoms by tag - 1: the bonded decks' tags run
-            # 1..natoms, which is tag order
-            ea, va = compute_tuples_peratom(style, view, tuples, s.box, ctx)
+            # 1..natoms, which is tag order; a hybrid's sub-styles are
+            # separate entries, each with its own tuples
+            ea, va = compute_tuples_peratom(style, view, tuples, s.box, ctx,
+                                            take)
             eatom += ea.to(f64)
             vatom += va.to(f64)
     return eatom, vatom

@@ -5,9 +5,11 @@ Plays the role of the reference's Update + Run + Thermo + Finish
 does for the cell-grid path: owns the styles, fixes and state, segments a
 run between thermo outputs, and reads the device once per segment (the
 neighbor overflow flag and the thermo row).  Molecular decks bring the
-topology from read_data: FENE bonds ride the pair kernel
-(``_setup_kernel_bond``); every other bonded style is evaluated per tuple,
-minus the bonds and angles that SHAKE constrains.  Under a barostat the
+topology from read_data: on the cell grid FENE bonds ride the pair kernel
+(``_setup_kernel_bond``); every other bonded style, and FENE on the matrix
+engine, is evaluated per tuple, minus the bonds and angles that SHAKE
+constrains.  A breakable style (bond quartic) carries an alive flag per
+bond, which the built-in fix bond_break clears.  Under a barostat the
 cell grid keeps a margin and is re-validated after each segment, as it is
 under shrink-wrapped faces.  A granular style carries its contact history
 in the grid state (zero at set-up, moved with the atoms by every re-bin);
@@ -21,7 +23,9 @@ what the grid cannot: every pairwise style without a grid kernel (the
 pair-style library, hybrid, lj/charmm/coul/long without special lists),
 kspace (pppm, ewald) beside any coul/long style, any number of lj/cut
 types, non-periodic axes for every pairwise style, boxes narrower than 2
-cutneigh and triclinic boxes.
+cutneigh and triclinic boxes, and the bonded styles and SHAKE beside any
+pairwise style (``_grid_refusal`` says which bonded decks the grid
+cannot take).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from tpumd_torch.core.state import MDState, map_per_atom, wrap_pbc
 from tpumd_torch.md import computes
 from tpumd_torch.md.compute_styles import split_ref
 from tpumd_torch.md.computes import THERMO_COMPUTES
+from tpumd_torch.md.fixes import FixBondBreak
 from tpumd_torch.md.verlet import ENERGY_KEYS, StepContext, build_matrix, \
     eval_energies, grid_pairlist, pack_thermo, partner_tags, \
     remap_history_by_tag, run_segment
@@ -238,7 +243,8 @@ class Simulation:
         ways: a granular style stays on the grid with non-periodic axes
         (B6 takes them, and runs there on the card), and a case that the
         grid's kernels refuse (lj/cut with several types, a
-        ``neigh_modify exclude`` beside B1-B5) goes to the matrix engine.
+        ``neigh_modify exclude`` beside B1-B5, the bonded decks of
+        ``_grid_refusal``) goes to the matrix engine.
         A granular deck reaches the matrix engine when an axis is
         narrower than 2 cutneigh: a bed a few grains deep under a
         shrink-wrapped top (non-periodic, so it needs no image copies)."""
@@ -250,9 +256,11 @@ class Simulation:
         box = self.state.box
         cutneigh = self.max_cutoff() + self.skin
         # the grid's charged sweep (B5) reads the special lists: a charged
-        # deck without bonds goes to the matrix engine
+        # deck without bonds goes to the matrix engine; so does a bonded
+        # deck that the grid's kernels cannot take (_grid_refusal)
         eligible = (
             self.pair is not None and self.pair.supports_cellgrid
+            and self._grid_refusal() is None
             and (self.special_tags is not None
                  or not getattr(self.pair, "charged", False))
             and (self.granular or (all(box.periodic)
@@ -348,21 +356,55 @@ class Simulation:
             check=self.neigh_check, cap=self._cap_override,
             box_margin=margin * cell_factor)
 
+    def _grid_refusal(self):
+        """Why the cell grid's kernels cannot take this deck's bonded
+        styles, so that "auto" sends it to the matrix engine, or None.
+        Per-tuple styles need the special pairs weighed in the pair sweep:
+        only B5's charged sweep does that.  FENE rides B2 only on its own,
+        with at most 2 partners an atom.  (FENE's other limits in B2, one
+        bond type, R0 within cutneigh and ``special_bonds fene``, raise at
+        ``_setup_kernel_bond``.)"""
+        kinds = {k: st for k, st in self.bonded.items()
+                 if self.topology.get(k) is not None
+                 and len(self.topology[k])}
+        fene = [st for st in kinds.values() if st.kernel_bond]
+        tuple_styles = [f"{k}_style {st.name}" for k, st in kinds.items()
+                        if not st.kernel_bond]
+        name = getattr(self.pair, "name", None)
+        if tuple_styles and not getattr(self.pair, "charged", False):
+            return (f"{', '.join(tuple_styles)} beside pair_style {name}: "
+                    "the grid evaluates per-tuple bonded styles only beside "
+                    "lj/charmm/coul/long, whose sweep (B5) weighs the "
+                    "special pairs")
+        if not fene:
+            return None
+        if tuple_styles:
+            return (f"bond_style {fene[0].name} beside "
+                    f"{', '.join(tuple_styles)}: FENE rides the LJ+FENE "
+                    "kernel (B2) only on its own")
+        bonds = np.asarray(self.topology["bond"])
+        most = int(np.bincount(bonds[:, 1:].ravel()).max())
+        if most > 2:
+            return (f"an atom with {most} FENE bond partners: the LJ+FENE "
+                    "kernel (B2) holds at most 2")
+        return None
+
     def _setup_kernel_bond(self):
-        """Route FENE bonds into the pair kernel
+        """Route FENE bonds into the pair kernel on the grid
         (tpumd/md/simulation.py:329-389): per-row (N, B) partner-tag and
         bond-type tables ride the state, so they permute with the atoms,
-        and the kernel matches them like a special list.  Bonds that cannot
-        ride the kernel raise."""
+        and the kernel matches them like a special list (a FENE deck that
+        ``_grid_refusal`` names went to the matrix engine); the kernel's
+        other limits raise here."""
         self._kernel_bond = None
         bonds, style = self.topology.get("bond"), self.bonded.get("bond")
-        if bonds is None or len(bonds) == 0 or style is None \
-                or not style.kernel_bond:
+        if self._mode != "cellgrid" or bonds is None or len(bonds) == 0 \
+                or style is None or not style.kernel_bond:
             return
         if self.pair is None:
             raise NotImplementedError(
                 "bond_style fene needs a pair_style to ride the pair "
-                "kernel: the port has no other FENE path")
+                "kernel: the port has no other FENE path on the grid")
         cutneigh = self.max_cutoff() + self.skin
         if not 0 < style.kernel_reach <= cutneigh:
             raise NotImplementedError(
@@ -435,28 +477,44 @@ class Simulation:
 
     def _setup_bonded(self, excl):
         """Per-tuple styles with their tuples on the device (type, then
-        the members as tag-1), minus SHAKE's constrained rows."""
+        the members as tag-1; int32 on the matrix engine, whose gathers
+        are P1's), minus SHAKE's constrained rows; a hybrid's sub-styles
+        each with their own.  A breakable style's alive flags are made
+        once and kept over later set-ups of the same tuples, and the
+        built-in fix bond_break joins the fixes."""
         out = []
+        index = torch.int64 if self._mode == "cellgrid" else torch.int32
         for kind, style in self.bonded.items():
+            style.units = self.units
             style.init()
             tuples = self.topology.get(kind)
-            if style.kernel_bond or tuples is None or len(tuples) == 0:
+            if tuples is None or len(tuples) == 0 or (
+                    style.kernel_bond and self._mode == "cellgrid"):
                 continue
-            if getattr(self.pair, "charged", False) is False:
-                raise NotImplementedError(
-                    f"{kind}_style {style.name} beside pair_style "
-                    f"{getattr(self.pair, 'name', None)}: the port "
-                    "evaluates these styles only beside "
-                    "lj/charmm/coul/long, whose kernel excludes special "
-                    "pairs")
             if excl.get(kind):
                 keep = [i for i in range(len(tuples))
                         if i not in excl[kind]]
                 tuples = tuples[keep]
             t = np.array(tuples, dtype=np.int64)
             t[:, 1:] -= 1
-            out.append((style, torch.as_tensor(t, device=self.device)))
+            for sub, part in style.parts(t):
+                dev = torch.as_tensor(part, dtype=index, device=self.device)
+                if sub.breakable:
+                    self._setup_alive(sub, dev)
+                out.append((sub, dev))
         self._bonded_dev = tuple(out)
+
+    def _setup_alive(self, style, tuples):
+        """The breakable style's alive flags, one per tuple: all alive at
+        the first set-up, kept over later ones (tpumd/md/simulation.py:
+        519-540)."""
+        if style.alive is None or style.alive.shape[0] != tuples.shape[0] \
+                or style.alive.device != tuples.device:
+            style.alive = torch.ones(tuples.shape[0], dtype=torch.bool,
+                                     device=self.device)
+        if not any(getattr(fx, "name", "") == "bond_break"
+                   for fx in self.fixes):
+            self.fixes.append(FixBondBreak())
 
     def _setup_special(self):
         """Per-row special lists for a charged pair sweep or the matrix
@@ -552,8 +610,11 @@ class Simulation:
         is fix nh's, which carries the tilt factors; rigid/npt and
         rigid/nph dilate the lengths alone, and a shrink-wrapped face
         would be set in x, not in lamda coordinates, so both raise.  On the
-        matrix engine, a style or fix whose matrix path is not ported
-        raises, naming itself."""
+        cell grid a bonded deck that its kernels cannot take
+        (``_grid_refusal``) raises and names the matrix engine.  On the
+        matrix engine, a pair style whose matrix path is not ported
+        raises, naming itself; it takes kspace, the bonded styles and
+        SHAKE beside any pairwise style."""
         name = getattr(self.pair, "name", None)
         box = self.state.box
         if self.kspace is not None and not all(box.periodic):
@@ -581,6 +642,11 @@ class Simulation:
                 "the atoms' extent in x, not in lamda coordinates (not "
                 "ported)")
         if mode == "cellgrid":
+            refusal = self._grid_refusal()
+            if refusal is not None:
+                raise NotImplementedError(
+                    f"{refusal} (neighbor_mode cellgrid; the matrix engine "
+                    "takes the deck)")
             if self.pair is not None and not self.pair.supports_cellgrid:
                 raise NotImplementedError(
                     f"pair_style {name} on the cell grid is not ported (the "
@@ -606,20 +672,6 @@ class Simulation:
             raise NotImplementedError(
                 f"pair_style {name} on the matrix neighbor engine is not "
                 "ported")
-        # the matrix engine takes kspace beside any coul/long style
-        # (setup), but neither bonded styles nor SHAKE
-        styles = [f"{k}_style {st.name}" for k, st in self.bonded.items()
-                  if self.topology.get(k) is not None
-                  and len(self.topology[k])]
-        if styles:
-            raise NotImplementedError(
-                f"{', '.join(styles)} on the matrix neighbor engine: bonded "
-                "styles (FENE chains included) are not ported there; it "
-                "takes pairwise styles and kspace")
-        if self.shake_fixes():
-            raise NotImplementedError(
-                f"fix {self.shake_fixes()[0].name} on the matrix neighbor "
-                "engine is not ported; it takes pairwise styles and kspace")
 
     def setup(self):
         """Initial neighbor build + force evaluation (Verlet::setup)."""

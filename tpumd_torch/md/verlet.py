@@ -16,8 +16,9 @@ the deck lists them (tpumd/md/verlet.py:380-410).
 
 A force evaluation sums the pair sweep (with charges and special lists
 for charged styles), the bonded styles on the tag-order view of the
-grid-permuted atoms (gathered through ``row2slot``, scattered back with
-one ``index_add_``), and kspace.  A granular style's sweep also returns
+engine's rows (gathered through the grid's ``row2slot``, or on the matrix
+engine through the rows of the tags with P1, and scattered back with one
+``index_add_``), and kspace.  A granular style's sweep also returns
 torques and, in the step (``shearupdate``), the new contact history, which
 the grid state carries and every re-bin moves with the atoms; set-up and
 thermo evaluations read the history without advancing it.  A rebuild
@@ -51,7 +52,7 @@ import torch
 
 from tpumd_torch.core.state import MDState, wrap_pbc
 from tpumd_torch.md import computes
-from tpumd_torch.models.bonded import compute_tuples
+from tpumd_torch.models.bonded import compute_tuples, tag_view
 from tpumd_torch.ops import cellgrid as cg
 from tpumd_torch.ops import neighbor as nb
 from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist, \
@@ -81,7 +82,8 @@ class StepContext:
     # draw in this order
     ref_order_tags: np.ndarray | None = None
     # bonded styles with their tuples on the device: ((style, (M, 1 +
-    # arity) int64 of type and tag-1 members), ...)
+    # arity) of type and tag-1 members, int64 on the grid, int32 on the
+    # matrix engine for P1), ...)
     bonded: tuple = ()
     kspace: Any = None
     # special_bonds weights by code 0..3 (code 0: no special, weight 1)
@@ -156,10 +158,10 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
     or None, torque (N, 3) or None, neigh).  Only a granular style gives a
     torque, and with shearupdate a neigh holding the new history.  neigh
     is a cg.CellGridState or, on the matrix engine, an nb.NeighborState;
-    kspace runs on either engine's rows (padded grid slots carry q = 0),
-    the bonded styles on the grid only (the set-up refuses them on the
-    matrix engine).  A style with a Coulomb self-energy (Wolf, DSF) adds
-    the sum of its atoms' to ecoul, summed in float64."""
+    kspace and the bonded styles run on either engine's rows (padded grid
+    slots carry q = 0; the bonded styles on the tag-order view, through
+    P1 on the matrix engine).  A style with a Coulomb self-energy (Wolf,
+    DSF) adds the sum of its atoms' to ecoul, summed in float64."""
     energies = virial = None
     if eflag:
         energies = dict.fromkeys(ENERGY_KEYS, torch.zeros(
@@ -213,17 +215,15 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
 
     if ctx.bonded:
         # the tag-order view: row tag-1 holds that atom
-        r2s = neigh.row2slot
-        view = (torch.index_select(s.x, 0, r2s),
-                torch.index_select(s.type, 0, r2s),
-                None if s.q is None else torch.index_select(s.q, 0, r2s))
+        rows, view, take = tag_view(
+            s, ctx, neigh.row2slot if ctx.is_cellgrid else None)
         ftag = None
         for style, tuples in ctx.bonded:
             fb, e, vir = compute_tuples(style, view, tuples, s.box, ctx,
-                                        eflag, vflag)
+                                        eflag, vflag, take)
             ftag = fb if ftag is None else ftag + fb
             tally(e or {}, vir)
-        f = f.index_add(0, r2s, ftag)
+        f = f.index_add(0, rows, ftag)
 
     if ctx.kspace is not None:
         fk, elong, vir = ctx.kspace.compute(s.x, s.q, s.box, eflag, vflag)

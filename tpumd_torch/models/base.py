@@ -70,6 +70,12 @@ class PairStyle:
     def pair_fn(self, r2, itype, jtype):
         raise NotImplementedError
 
+    def single(self, r2, itype, jtype):
+        """(fpair, energy) of pairs at r2 with both special factors 1
+        (Pair::single, which bond_style quartic subtracts): the style's
+        pairwise function."""
+        return self.pair_fn(r2, itype, jtype)[:2]
+
     def pair_coeffs(self, r2, itype, jtype, *names):
         """The (ntypes+1, ntypes+1) tables named by ``names`` (attributes of
         the style) at each pair of broadcastable itype and jtype, shaped

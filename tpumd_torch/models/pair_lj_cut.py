@@ -141,7 +141,8 @@ class PairLJCut(PairStyle):
         if nb > 2:
             raise NotImplementedError(
                 f"{nb} bond partners per atom: the LJ+FENE kernel holds at "
-                "most 2")
+                "most 2 (Simulation._grid_refusal sends such a deck to the "
+                "matrix engine, where FENE runs per tuple)")
         return lj_fene_cellgrid(x, valid, box, cfg, self.kernel_coeffs(),
                                 style.kernel_coeffs(), eflag, vflag, plist)
 

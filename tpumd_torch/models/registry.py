@@ -44,14 +44,26 @@ def create_pair_style(name: str, ntypes: int, args, units=None):
 
 
 def create_bonded_style(kind: str, name: str, args, ntypes: int):
-    import tpumd_torch.models.bonded  # noqa: F401 (registers the styles)
+    """A bonded style with its arguments: a hybrid's sub-style names, a
+    table's ``linear|spline N`` (its ``settings``); a style that takes
+    none raises on any."""
+    # the bonded modules register their styles at import
+    import tpumd_torch.models.bonded  # noqa: F401
+    import tpumd_torch.models.bonded_class2  # noqa: F401
+    import tpumd_torch.models.bonded_extra  # noqa: F401
+    import tpumd_torch.models.bonded_table  # noqa: F401
     table = _BONDED_STYLES.get(kind, {})
     if name not in table:
         raise NotImplementedError(f"{kind}_style {name!r} is not ported")
+    if name == "hybrid":
+        return table[name](ntypes, sub_names=tuple(args))
+    style = table[name](ntypes)
     if args:
-        raise NotImplementedError(f"{kind}_style {name} takes no "
-                                  f"arguments, got {list(args)}")
-    return table[name](ntypes)
+        if not hasattr(style, "settings"):
+            raise NotImplementedError(f"{kind}_style {name} takes no "
+                                      f"arguments, got {list(args)}")
+        style.settings(*[_num(a) for a in args])
+    return style
 
 
 def _num(tok):

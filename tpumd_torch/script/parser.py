@@ -675,8 +675,8 @@ class LammpsScript:
             rows = d.coeffs.get(kind.capitalize() + " Coeffs")
             if rows is not None and kind in sim.bonded:
                 for r in rows:
-                    sim.bonded[kind].coeff(int(r[0]),
-                                           *[float(v) for v in r[1:]])
+                    sim.bonded[kind].coeff(
+                        int(r[0]), *[self.coeff_token(v) for v in r[1:]])
 
     def _materialize_styles(self):
         """Make the styles named before read_data (src/input.cpp defers
@@ -689,21 +689,14 @@ class LammpsScript:
             self._pending_pair = None
             self._apply_pair_modify(self._pending_pair_modify)
             self._pending_pair_modify = {}
-        for kind, name in self._pending_bonded.items():
-            self._add_bonded(kind, name)
+        for kind, (name, args) in self._pending_bonded.items():
+            self._add_bonded(kind, name, args)
         self._pending_bonded = {}
 
-    def _add_bonded(self, kind, name):
+    def _add_bonded(self, kind, name, args):
         sim = self.sim
-        style = create_bonded_style(kind, name, (),
-                                    sim.bonded_ntypes.get(kind, 0))
-        if not style.kernel_bond and self.atom_style != "full":
-            raise NotImplementedError(
-                f"{kind}_style {name} with atom_style {self.atom_style}: "
-                "the port evaluates per-tuple bonded styles only for "
-                "atom_style full, beside lj/charmm/coul/long, whose kernel "
-                "excludes the special pairs")
-        sim.bonded[kind] = style
+        sim.bonded[kind] = create_bonded_style(
+            kind, name, args, sim.bonded_ntypes.get(kind, 0))
 
     def _bonded_style(self, kind, a):
         sim = self._require_sim()
@@ -713,14 +706,29 @@ class LammpsScript:
             return
         create_bonded_style(kind, a[0], a[1:], 0)  # raises if not ported
         if kind not in sim.bonded_ntypes:
-            self._pending_bonded[kind] = a[0]    # before read_data: defer
+            # before read_data: defer
+            self._pending_bonded[kind] = (a[0], tuple(a[1:]))
         else:
-            self._add_bonded(kind, a[0])
+            self._add_bonded(kind, a[0], a[1:])
+
+    def coeff_token(self, tok):
+        """A bonded coefficient as its style reads it: a number, or a
+        string (a hybrid sub-style, a class2 keyword, a table file, which
+        resolves against the deck's directory, or a table keyword)
+        (tpumd/script/parser.py::_bonded_coeff)."""
+        try:
+            return float(tok)
+        except ValueError:
+            path = os.path.join(self.data_dir, tok)
+            if not os.path.exists(tok) and os.path.exists(path):
+                return path
+            return tok
 
     def _bonded_coeff(self, kind, a):
         if self.sim is None or kind not in self.sim.bonded:
             raise ScriptError(f"{kind}_coeff before {kind}_style")
-        self.sim.bonded[kind].coeff(int(a[0]), *[float(v) for v in a[1:]])
+        self.sim.bonded[kind].coeff(int(a[0]),
+                                    *[self.coeff_token(v) for v in a[1:]])
 
     def cmd_bond_style(self, a):
         self._bonded_style("bond", a)
