@@ -2988,15 +2988,20 @@ def chute_main_path(tmp: Path, smi: str) -> dict:
 # the probe's shapes (tools/probes/gather_probe.py:8-10): a 32,768-row
 # table, 32,768 atoms x K = 16 gathered rows
 P1_ROWS, P1_GATHERED = 32768, 32768 * 16
+# IN_HYB32K's opls dihedrals (the first dihedral sub-style of its hybrid)
+P1_HYB_DIHEDRALS = 4125
 # the tables and indices that the 32k matrix decks hand to P1: (dtype,
 # table rows, width, index shape), from their configs on the card (in.lj:
 # 11^3 cells of cap 44, K 88, blocks of 4096; chute: 37 x 18 x 24 cells of
-# cap 8, K 16, blocks of 16384).  in.lj: the cell table at a block's
-# stencil, the candidates' coordinates (27 x 44 a row; the table has a
-# far-away row past the atoms), the packed j rows and the lj/cut
-# coefficient rows; chute: the cell table, the candidates' coordinates
-# with the group bits, and the packed (N, 12) j rows.  matrix_main_path
-# also compares the inputs those runs really gave it.
+# cap 8, K 16, blocks of 16384; IN_HYB32K K 136 at its set-up, IN_SALT32K
+# K 32).  in.lj: the cell table at a block's stencil, the candidates'
+# coordinates (27 x 44 a row; the table has a far-away row past the
+# atoms), the packed j rows and the lj/cut coefficient rows; chute: the
+# cell table, the candidates' coordinates with the group bits, and the
+# packed (N, 12) j rows; the packed j rows (x, type, q) of IN_HYB32K and
+# IN_SALT32K, and IN_HYB32K's tag-order positions at the members of its
+# opls dihedrals (one gather a style).  matrix_main_path, salt_path and
+# hyb32k_path also compare the inputs those runs really gave it.
 P1_MAIN_SHAPES = (
     (torch.int32, 1331, 44, (4096, 27)),
     (torch.float32, 32001, 3, (4096, 1188)),
@@ -3004,7 +3009,10 @@ P1_MAIN_SHAPES = (
     (torch.float32, 4, 6, (32000, 88)),
     (torch.int32, 15984, 8, (16384, 27)),
     (torch.float32, 32001, 4, (16384, 216)),
-    (torch.float32, 32000, 12, (32000, 16)))
+    (torch.float32, 32000, 12, (32000, 16)),
+    (torch.float32, 32000, 5, (32000, 136)),
+    (torch.float32, 32768, 5, (32768, 32)),
+    (torch.float32, 32000, 3, (P1_HYB_DIHEDRALS, 4)))
 # the modules that call gather_rows by name (matrix_main_path records
 # their inputs)
 P1_CALLERS = ("tpumd_torch.ops.neighbor", "tpumd_torch.ops.pairwise",
@@ -3067,60 +3075,116 @@ def recording_p1(seen: dict):
             m.gather_rows = gather.gather_rows
 
 
-def gather_kernel_vs_plain() -> dict:
-    """P1 against its plain version on the card, bit for bit, for f32, f64
-    and int32 tables of widths 1, 5, 12, 16 and 128 with (M,) and (M, K)
-    indices that include the last row, and at the 32k matrix decks' widths
-    and index shapes (P1_MAIN_SHAPES); then timed at the probe's shapes,
-    f32, L = 128 and 16, in the order plain, kernel, kernel, plain, beside
-    its bound and torch.index_select on the same tensors."""
+def p1_misaligned(gen, dtype, width: int) -> int:
+    """P1 bit for bit against its plain version where the table, the
+    indices and the output each start one element past a 16-byte aligned
+    address (the output through the kernel's entry point called directly:
+    the wrapper allocates its own); returns the number of cases."""
+    from tpumd_torch.ops import _build, gather
+    table, idx = p1_case(gen, dtype, 5001, width, (40003,))
+    shifted = table.view(-1)[1:1 + 5000 * width].view(5000, width)
+    ibuf = torch.empty(idx.numel() + 1, dtype=torch.int32, device="cuda")
+    ibuf[1:] = idx.clamp(max=4999)
+    ix = ibuf[1:]
+    cases = ((shifted, ix), (shifted, idx.clamp(max=4999)), (table, ix))
+    for t, i in cases:
+        if not torch.equal(gather.gather_rows(t, i),
+                           gather.gather_rows_plain(t, i)):
+            raise AssertionError(f"row_gather {dtype} width {width}: a "
+                                 "shifted table or index array differs")
+    fn = _build.kernel_function("tpumd_row_gather", gather._ARGTYPES)
+    obuf = torch.empty(ix.numel() * width + 1, dtype=dtype, device="cuda")
+    out = obuf[1:].view(ix.numel(), width)
+    for t in (table, shifted):
+        rc = fn(t.data_ptr(), ix.data_ptr(), out.data_ptr(), ix.numel(),
+                width * t.element_size(),
+                torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if rc or not torch.equal(out, gather.gather_rows_plain(t, ix)):
+            raise AssertionError(f"row_gather {dtype} width {width}: an "
+                                 f"output one element past alignment "
+                                 f"differs (rc {rc})")
+    return len(cases) + 2
+
+
+def p1_timed(what: str, table, idx) -> dict:
+    """P1 at one shape timed in the order plain, kernel, kernel, plain
+    beside torch.index_select, its bound (the table, the indices and the
+    rows written, once each) and the wrapper's host microseconds a call;
+    bit-equal to plain first."""
     from tpumd_torch.ops.gather import gather_rows, gather_rows_plain
+    kern = (lambda: gather_rows(table, idx))
+    plain_fn = (lambda: gather_rows_plain(table, idx))
+    lib = (lambda: torch.index_select(table, 0, idx.view(-1)))
+    ref = plain_fn()
+    if not torch.equal(kern(), ref) or not torch.equal(
+            lib().view(ref.shape), ref):
+        raise AssertionError(f"row_gather at {what}: differs from plain")
+    err = float((kern() - ref).abs().max())
+    del ref
+    p1 = cuda_ms(plain_fn, 50, ahead=False)
+    k1 = cuda_ms(kern, 200)
+    k2 = cuda_ms(kern, 200)
+    p2 = cuda_ms(plain_fn, 50, ahead=False)
+    lib_ms = cuda_ms(lib, 200)
+    host = host_us(kern)
+    n, width = table.shape
+    esize = table.element_size()
+    nbytes = esize * table.numel() + 4 * idx.numel() \
+        + esize * idx.numel() * width
+    bound_ms, bound_by = roof(0, nbytes)
+    phase("kernel", f"row_gather at {what} ({n} x {width} "
+                    f"{str(table.dtype)[6:]} table, idx {tuple(idx.shape)}"
+                    f"): kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+                    f"{p2:.4f} ms, torch.index_select {lib_ms:.4f} ms; bound "
+                    f"{nbytes} B -> {bound_ms:.6f} ms ({bound_by}); host "
+                    f"{host:.1f} us a call; max|kernel - plain| = {err}")
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "host_us": host}
+
+
+def gather_kernel_vs_plain() -> dict:
+    """P1 against its plain version on the card, bit for bit: f32, f64 and
+    int32 tables of widths 1-16, 24, 32 and 128 elements with one index,
+    40,003, (5000, 17) and (5000, 29) indices up to the last row (the
+    narrow copy at one, two and four rows a thread, each with a last tile
+    cut short); a table, an index array and an output one element past
+    alignment; the 32k matrix decks' widths and
+    index shapes (P1_MAIN_SHAPES), each then timed in the order plain,
+    kernel, kernel, plain beside torch.index_select, its bound and the
+    wrapper's host us; and the probe's shapes, f32, L = 128 and 16, timed
+    alike (L = 128's numbers are the kernels line's)."""
     gen = torch.Generator(device="cuda").manual_seed(2026)
+    widths = tuple(range(1, 17)) + (24, 32, 128)
+    dtypes = (torch.float32, torch.float64, torch.int32)
     checked = p1_equal_plain(
         (p1_case(gen, dtype, 5000, width, shape)
-         for dtype in (torch.float32, torch.float64, torch.int32)
-         for width in (1, 5, 12, 16, 128)
-         for shape in ((5000 * 4 + 3,), (5000, 17))), "small")
+         for dtype in dtypes for width in widths
+         for shape in ((1,), (5000 * 8 + 3,), (5000, 17), (5000, 29))),
+        "small")
+    checked += sum(p1_misaligned(gen, dtype, width)
+                   for dtype in dtypes for width in widths)
     phase("kernel", f"row_gather = plain bit for bit in {checked} cases "
-                    "(f32, f64, int32; widths 1, 5, 12, 16, 128; (M,) and "
-                    "(M, K) indices up to the last row)")
+                    "(f32, f64, int32; widths 1-16, 24, 32, 128; 1, 40,003, "
+                    "(5000, 17) and (5000, 29) indices up to the last row; "
+                    "a table, indices and an output one element past "
+                    "alignment)")
     checked = p1_equal_plain(
         (p1_case(gen, *c) for c in P1_MAIN_SHAPES), "main-path shape")
     phase("kernel", f"row_gather = plain bit for bit in {checked} cases at "
-                    "the 32k matrix decks' shapes: " + "; ".join(
-                        f"{str(d)[6:]} {r} x {w} at {sh}"
-                        for d, r, w, sh in P1_MAIN_SHAPES))
+                    "the 32k matrix decks' shapes")
+    for d, r, w, sh in P1_MAIN_SHAPES:
+        table, idx = p1_case(gen, d, r, w, sh)
+        p1_timed(f"the main-path shape {r} x {w} at {sh}", table, idx)
     out = {}
     for width in (128, 16):
         table = torch.randn((P1_ROWS, width), generator=gen, device="cuda")
         idx = torch.randint(0, P1_ROWS, (P1_GATHERED,), generator=gen,
                             device="cuda", dtype=torch.int32)
-        kern = (lambda: gather_rows(table, idx))
-        plain = (lambda: gather_rows_plain(table, idx))
-        lib = (lambda: torch.index_select(table, 0, idx))
-        ref = plain()
-        err = float((kern() - ref).abs().max())
-        if not torch.equal(kern(), ref) or not torch.equal(lib(), ref):
-            raise AssertionError(f"row_gather L={width}: differs")
-        p1 = cuda_ms(plain, 50, ahead=False)
-        k1 = cuda_ms(kern, 200)
-        k2 = cuda_ms(kern, 200)
-        p2 = cuda_ms(plain, 50, ahead=False)
-        lib_ms = cuda_ms(lib, 200)
-        # the table and the indices read once, the rows written once
-        nbytes = 4 * (P1_ROWS * width + P1_GATHERED + P1_GATHERED * width)
-        bound_ms, bound_by = roof(0, nbytes)
-        phase("kernel", f"row_gather at the probe's shape L={width} f32 "
-                        f"({P1_ROWS} x {width} table, {P1_GATHERED} rows): "
-                        f"kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
-                        f"{p2:.4f} ms, torch.index_select {lib_ms:.4f} ms; "
-                        f"bound {nbytes} B -> {bound_ms:.6f} ms "
-                        f"({bound_by}; the table fits in L2, so reads may "
-                        f"beat it); max|kernel - plain| = {err}")
+        k = p1_timed(f"the probe's shape L={width}", table, idx)
         if width == 128:
-            out = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-                   "library_ms": lib_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "max_abs_err": err}
+            out = k
     return out
 
 
@@ -3806,32 +3870,11 @@ def thermo_rows(sim) -> dict:
 
 
 def p1_at_shape(what: str, table, idx, kinds: int) -> dict:
-    """P1 at a deck's packed j-row gather (pair_sums) timed in the order
-    plain, kernel, kernel, plain beside torch.index_select and its bound
-    (the table, the indices and the rows written, once each); the kernels
-    line's numbers."""
-    from tpumd_torch.ops.gather import gather_rows, gather_rows_plain
-    kern = (lambda: gather_rows(table, idx))
-    plain_fn = (lambda: gather_rows_plain(table, idx))
-    lib = (lambda: torch.index_select(table, 0, idx.view(-1)))
-    err = float((kern() - plain_fn()).abs().max())
-    p1 = cuda_ms(plain_fn, 50, ahead=False)
-    k1 = cuda_ms(kern, 200)
-    k2 = cuda_ms(kern, 200)
-    p2 = cuda_ms(plain_fn, 50, ahead=False)
-    lib_ms = cuda_ms(lib, 200)
-    n, width = table.shape
-    nbytes = 4 * (table.numel() + idx.numel() + idx.numel() * width)
-    bound_ms, bound_by = roof(0, nbytes)
-    phase("kernel", f"row_gather at {what}'s pair_sums shape ({n} x "
-                    f"{width} f32 table, idx {tuple(idx.shape)}): kernel "
-                    f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
-                    f"torch.index_select {lib_ms:.4f} ms; bound {nbytes} B "
-                    f"-> {bound_ms:.6f} ms ({bound_by}); max|kernel - plain| "
-                    f"= {err}; bit-equal to plain on the {kinds} kinds of "
-                    "input of the set-up")
-    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+    """P1 at a deck's packed j-row gather (pair_sums) timed as p1_timed
+    does: the kernels line's numbers."""
+    phase("kernel", f"row_gather bit-equal to plain on the {kinds} kinds of "
+                    f"input of {what}'s set-up")
+    return p1_timed(f"{what}'s pair_sums shape", table, idx)
 
 
 def salt_path(smi: str) -> tuple[dict, dict]:
@@ -4202,7 +4245,9 @@ def hyb32k_path(smi: str) -> tuple[dict, dict]:
     phase("hyb32k", f"IN_HYB32K timed 500 steps: {sps:.2f} timesteps/s, "
                     f"{sps * n / 1e6:.3f} Matom-step/s on {smi}; row_gather "
                     f"launches {launches} >= force evaluations {force_evals}"
-                    f", plain calls {plain}, grid kernel launches {other}")
+                    f" ({launches / force_evals:.2f} a force evaluation; "
+                    f"one a bonded style), plain calls {plain}, grid kernel "
+                    f"launches {other}")
     phase("hyb32k", "IN_HYB32K " + profile_steps(script, 20, 1e3 / sps))
     # P1 against its plain version on every kind of input the set-up gave
     # it, then timed at the packed j-row gather of pair_sums

@@ -56,9 +56,11 @@ runs on a card host without JAX:
   tables after the sweep (tags equal) against the plain list sweep and
   the stencil oracle ``gran_compact_sums``, both shearupdate values;
 * the row gather (P1, ``gather_rows``): bit for bit equal to its plain
-  version for f32, f64 and int32 tables of widths 1, 5, 12, 16 and 128
-  with (M,) and (M, K) indices up to the last row, and at misaligned
-  row starts; the matrix engine on the card (lj/cut on a small triclinic
+  version for f32, f64 and int32 tables of widths 1-16, 24, 32 and 128
+  with one index and (M,) and (M, K) indices up to the last row, past
+  the narrow copy's least rows and no whole number of its tiles, and
+  where the table, the indices or the output start one element past
+  alignment; the matrix engine on the card (lj/cut on a small triclinic
   box and the 480-sphere chute pack on matrix rows) equals the CPU's
   thermo to 1e-10 after 20 steps, with a launch of P1 per force
   evaluation and no plain call;
@@ -571,11 +573,13 @@ def test_gran_cuda_kernel_matches_plain(dtype, tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "f64", "i32"])
 def test_row_gather_cuda_kernel_equals_plain(dtype):
-    """P1, the row gather: a copy, so bit for bit."""
+    """P1, the row gather: a copy, so bit for bit, through its narrow
+    copy (a thread a row) and its unit copy."""
     _card()
+    from tpumd_torch.ops import _build
     rng = np.random.default_rng(3)
-    for width in (1, 5, 12, 16, 128):
-        rows = 1000
+    rows = 1000
+    for width in tuple(range(1, 17)) + (24, 32, 128):
         if dtype == "i32":
             table = torch.as_tensor(rng.integers(-2**31, 2**31 - 1,
                                                  (rows, width)),
@@ -584,7 +588,7 @@ def test_row_gather_cuda_kernel_equals_plain(dtype):
             table = torch.as_tensor(
                 rng.standard_normal((rows, width)), device="cuda",
                 dtype={"f32": torch.float32, "f64": torch.float64}[dtype])
-        for shape in ((4099,), (517, 13)):
+        for shape in ((1,), (40003,), (517, 131)):
             idx = torch.as_tensor(rng.integers(0, rows, shape),
                                   dtype=torch.int32, device="cuda")
             idx.view(-1)[-1] = rows - 1
@@ -593,14 +597,25 @@ def test_row_gather_cuda_kernel_equals_plain(dtype):
             assert p1.counts.kernel_launches == n0 + 1
             torch.cuda.synchronize()
             assert torch.equal(out, p1.gather_rows_plain(table, idx))
-        # a table starting one element past an aligned address takes
-        # 4- or 8-byte copies
+        # a table, an index array and an output each starting one element
+        # past an aligned address
         shifted = table.view(-1)[1:1 + (rows - 1) * width].view(rows - 1,
                                                                 width)
-        idx = torch.arange(rows - 2, -1, -1, dtype=torch.int32,
-                           device="cuda")
+        ibuf = torch.as_tensor(rng.integers(0, rows - 1, 40004),
+                               dtype=torch.int32, device="cuda")
+        idx = ibuf[1:]
+        assert idx.data_ptr() % 16 != 0
         assert torch.equal(p1.gather_rows(shifted, idx),
                            p1.gather_rows_plain(shifted, idx))
+        obuf = torch.empty(idx.numel() * width + 1, dtype=table.dtype,
+                           device="cuda")
+        out = obuf[1:].view(idx.numel(), width)
+        fn = _build.kernel_function("tpumd_row_gather", p1._ARGTYPES)
+        assert fn(shifted.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                  idx.numel(), width * table.element_size(),
+                  torch.cuda.current_stream().cuda_stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, p1.gather_rows_plain(shifted, idx))
 
 
 TRI_DECK = """

@@ -118,13 +118,16 @@ def _virial6(pairs):
 
 
 def take_rows(table, idx):
-    """Rows of table at idx: the grid's gather."""
-    return torch.index_select(table, 0, idx)
+    """Rows of table at idx, (M,) or (M, K): the grid's gather, one
+    index_select."""
+    return torch.index_select(table, 0, idx.reshape(-1)).view(
+        idx.shape + table.shape[1:])
 
 
 def member_column(take, col, idx):
-    """A per-tag column (type or charge) at the members idx."""
-    return take(col.view(-1, 1), idx).view(-1)
+    """A per-tag column (type or charge) at the members idx, (M,) or (M,
+    K) contiguous."""
+    return take(col.view(-1, 1), idx)[..., 0]
 
 
 def tag_view(s, ctx, row2slot=None):
@@ -151,9 +154,10 @@ def tag_view(s, ctx, row2slot=None):
 
 
 def members(style, view, tuples, take):
-    """(member indices, member positions) of tuples on the view."""
-    idx = [tuples[:, 1 + k].contiguous() for k in range(style.arity)]
-    return idx, [take(view[0], i) for i in idx]
+    """(member indices (M, arity), member positions) of tuples on the view:
+    every member's position in one gather, unbound by member."""
+    mem = tuples[:, 1:1 + style.arity].contiguous()
+    return mem, list(take(view[0], mem).unbind(1))
 
 
 def compute_tuples(style, view, tuples, box, ctx, eflag: bool, vflag: bool,
@@ -170,10 +174,10 @@ def compute_tuples(style, view, tuples, box, ctx, eflag: bool, vflag: bool,
         zero = x.new_zeros(())
         return (f, {style.energy_key: zero} if eflag else None,
                 x.new_zeros(6) if vflag else None)
-    idx, xs = members(style, view, tuples, take)
+    mem, xs = members(style, view, tuples, take)
     flist, ed, vp = style.tuple_terms(xs, tuples[:, 0], box,
-                                      (view, idx, take), ctx, eflag, vflag)
-    for i, fm in zip(idx, flist):
+                                      (view, mem, take), ctx, eflag, vflag)
+    for i, fm in zip(mem.unbind(1), flist):
         f.index_add_(0, i, fm)
     energies = ({k: torch.sum(v) for k, v in ed.items()} if eflag
                 else None)
@@ -192,8 +196,8 @@ def compute_tuples_peratom(style, view, tuples, box, ctx, take=take_rows):
     vatom = x.new_zeros((n, 6))
     if tuples.shape[0] == 0:
         return eatom, vatom
-    idx, xs = members(style, view, tuples, take)
-    _, ed, vp = style.tuple_terms(xs, tuples[:, 0], box, (view, idx, take),
+    mem, xs = members(style, view, tuples, take)
+    _, ed, vp = style.tuple_terms(xs, tuples[:, 0], box, (view, mem, take),
                                   ctx, True, True)
     inv = 1.0 / style.arity
     etup = sum(ed.values())
@@ -202,7 +206,7 @@ def compute_tuples_peratom(style, view, tuples, box, ctx, take=take_rows):
     vtup = torch.stack([torch.sum(r[..., a] * fv[..., b], dim=0)
                         for a, b in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2),
                                      (1, 2))], dim=1)
-    for i in idx:
+    for i in mem.unbind(1):
         eatom.index_add_(0, i, inv * etup)
         vatom.index_add_(0, i, inv * vtup)
     return eatom, vatom
@@ -554,13 +558,12 @@ class DihedralCharmm(DihedralHarmonic):
         flist, ed, vp = super().tuple_terms(xs, ttype, box, view, ctx,
                                             eflag, vflag)
         # the weighted 1-4 pair between members 1 and 4
-        (_, types, q), idx, take = view
+        (_, types, q), mem, take = view
         w = self.table(self.weight, xs[0])[ttype]
         pair = ctx.pair
-        it = member_column(take, types, idx[0]).long()
-        jt = member_column(take, types, idx[3]).long()
-        q1 = member_column(take, q, idx[0])
-        q4 = member_column(take, q, idx[3])
+        ends = mem[:, 0::3].contiguous()            # members 1 and 4
+        it, jt = member_column(take, types, ends).long().unbind(1)
+        q1, q4 = member_column(take, q, ends).unbind(1)
         d14 = minimum_image(xs[0] - xs[3], box)
         r2inv = 1.0 / torch.clamp(torch.sum(d14 * d14, -1), min=1e-30)
         r6inv = r2inv * r2inv * r2inv
@@ -820,7 +823,7 @@ class BondQuartic(BondStyle):
         self.u0[btype] = u0
 
     def tuple_terms(self, xs, ttype, box, view, ctx, eflag, vflag):
-        (_, types, _), idx, take = view
+        (_, types, _), mem, take = view
         d = minimum_image(xs[0] - xs[1], box)
         r2 = torch.sum(d * d, dim=-1)
         live = (torch.ones_like(r2, dtype=torch.bool) if self.alive is None
@@ -840,8 +843,8 @@ class BondQuartic(BondStyle):
         fbond = fbond + 48.0 * sr6 * (sr6 - 0.5) * sr2
         eb = eb + torch.where(wca, 4.0 * sr6 * (sr6 - 1.0) + 1.0, 0.0)
         # the pair interaction of the intact bonded pair is taken out
-        fp, esub = ctx.pair.single(r2, member_column(take, types, idx[0]),
-                                   member_column(take, types, idx[1]))
+        fp, esub = ctx.pair.single(
+            r2, *member_column(take, types, mem).unbind(1))
         fbond = torch.where(live, fbond - fp, 0.0)
         f1 = fbond[:, None] * d
         ed = None
