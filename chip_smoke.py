@@ -198,10 +198,30 @@ line each (any failure raises and exits non-zero):
    steps, and P1 at the deck's packed-row shape beside its bound, the
    plain version and torch.index_select (bit-equal to the plain version on
    every kind of input the set-up gave it);
-13. a JSON line of the kernels (the list build of each deck, the refresh
-   calls of in.lj, eam and rhodo_class, B5 at each 30k water deck's shape,
-   B6's HERTZ variant at granhertz32k's and P1 at the salt's and at
-   hyb32k's, each an entry of its own),
+13. the host fixes and the minimizer (``host_goldens_phase``,
+   ``min_path``, ``pressber_path``, ``deform_path``): tests/golden/
+   fix_forces, press_ber, deform and fix_move verbatim in f64 on the grid,
+   every thermo.csv row at 2e-6, and min_cg (1,000 cg iterations) to
+   efinal.txt at 1e-8, B1 launched and no plain call; ``IN_LJ_MIN32K``
+   (in.lj's box displaced, cg, displaced again, fire) in f64 and f32: each
+   minimum's pe/atom at the lattice's (f64 1e-9; in f32 the deck's final
+   pe within 3x the CPU's gap of the lattice of its f32 box, each
+   minimum's gap split into that box's lattice, the positions' distance
+   from it in f64 and the f32 rounding), B1 launches = force evaluations,
+   iterations, host reads and ms an iteration; ``IN_PRESSBER32K`` and
+   ``IN_DEFORM32K`` (the goldens replicated 4x4x4, 32,000 atoms) in f64
+   (every golden row at 2e-6) and f32 (each column within 3x the CPU's
+   gap), B1 launches = force evaluations (one more at each segment's end,
+   before the box moves), the deform deck 500 steps more, its box 1.1 and
+   0.95 times the start; timesteps/s and a profile of 20 steps; B1 over
+   each final list against its stencil oracle in f64; B1 in f32, the
+   list build (and where the deck refreshes, the refresh) at each final
+   state against their plain versions, timed;
+14. a JSON line of the kernels (the list build of each deck, the refresh
+   calls of in.lj, eam, rhodo_class, min32k and deform32k, B1 on min32k,
+   pressber32k and deform32k, B5 at each 30k water deck's shape, B6's
+   HERTZ variant at granhertz32k's and P1 at the salt's and at hyb32k's,
+   each an entry of its own),
    the card's name and power limit as nvidia-smi prints them, then the
    result line.
 
@@ -4261,6 +4281,417 @@ def hyb32k_path(smi: str) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     return k, {"launches": launches, "sps": sps}
 
+HOST_GOLDENS = {"fix_forces": 5, "press_ber": 6, "deform": 10, "fix_move": 5}
+
+
+def host_goldens_phase():
+    """The five fix and minimizer goldens verbatim in f64 on the card, on
+    the cell grid: fix_forces, press_ber, deform and fix_move, every row of
+    thermo.csv at rtol 2e-6 (tpumd's tests' tolerance), and min_cg (1,000
+    cg iterations) to efinal.txt at 1e-8, B1 launched once per force
+    evaluation (the set-up's and the minimizer's); B1 launched on each and
+    no plain call."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.ops import lj_cellgrid
+    from tpumd_torch.script.parser import LammpsScript
+    notes = []
+    for name in (*HOST_GOLDENS, "min_cg"):
+        d = GOLDEN.parent / name
+        lj_cellgrid.counts.reset()
+        reset_list_counts()
+        t0 = time.perf_counter()
+        script = LammpsScript(device="cuda", dtype=torch.float64)
+        script.data_dir = str(d)
+        with contextlib.redirect_stdout(sys.stderr):
+            script.run_string((d / "in.test").read_text())
+        sim = script.sim
+        if not sim._ctx.is_cellgrid:
+            raise AssertionError(f"golden {name}: not on the cell grid")
+        if name == "min_cg":
+            want = float((d / "efinal.txt").read_text())
+            got = sim.last_thermo["etotal"]
+            if abs(got - want) > 1e-8 * abs(want):
+                raise AssertionError(f"golden min_cg: etotal {got!r} vs "
+                                     f"{want!r}")
+            st = sim.min_stats
+            evals = 1 + st["evaluations"]
+            what = (f"etotal {got!r} (efinal {want!r}), {st['iterations']} "
+                    f"iterations, {st['evaluations']} evaluations")
+        else:
+            rows = bt.golden_rows(sim.log_lines, HOST_GOLDENS[name])
+            ref = np.loadtxt(d / "thermo.csv")
+            worst = 0.0
+            for r in np.atleast_2d(ref):
+                mine = np.asarray(rows[int(r[0])][1:])
+                bad = np.abs(mine - r[1:]) > 2e-6 * np.abs(r[1:]) + 1e-8
+                if bad.any():
+                    raise AssertionError(f"golden {name} step {int(r[0])}: "
+                                         f"{mine} vs {r[1:]}")
+                worst = max(worst, float(np.max(np.abs(mine - r[1:]) / (
+                    np.abs(r[1:]) + 1e-8))))
+            evals = None
+            what = f"{len(np.atleast_2d(ref))} rows to {worst:.2g}"
+        launches = lj_cellgrid.counts.kernel_launches
+        plain = lj_cellgrid.counts.plain_calls + list_counts()[2]
+        if not launches or plain or (evals is not None and launches != evals):
+            raise AssertionError(f"golden {name}: B1 launches {launches} "
+                                 f"(evaluations {evals}), plain {plain}")
+        notes.append(f"{name} {what}, B1 x{launches} "
+                     f"({time.perf_counter() - t0:.1f} s)")
+    phase("hostfix", "five goldens verbatim in f64 on the card agree with "
+                     "the reference binary's files: " + "; ".join(notes))
+
+
+def b1_list_check(name: str, sim) -> tuple[float, float]:
+    """B1 over the carried list against its stencil oracle, both in f64
+    on the run's state: the energies to TOL_ORACLE relative, the forces to
+    1e-9 absolute (at a minimum the forces cancel to ~1e-3, so a relative
+    force test reads rounding; a pair that the list missed under a moving
+    box or the minimizer's trial moves gives ~1e-2 and more).  Returns
+    (max|df|, the oracle's energy per atom).  Its launch is a comparison's:
+    it leaves the launch count as it was."""
+    from tpumd_torch.ops.lj_cellgrid import counts, lj_cellgrid, \
+        lj_cellgrid_plain
+    launched = counts.kernel_launches
+    s, neigh, _ = sim._carry
+    x, box = s.x.double(), box_f64(s.box)
+    c = sim.pair.kernel_coeffs()
+    fk, ek, _ = lj_cellgrid(x, neigh.valid, box, sim._neigh_cfg, c, 1, 0,
+                            (neigh.pairs, neigh.npairs, neigh.row2slot))
+    fo, eo, _ = lj_cellgrid_plain(x, neigh.valid, box, sim._neigh_cfg, c, 1,
+                                  0)
+    torch.cuda.synchronize()
+    counts.kernel_launches = launched
+    df = float((fk - fo).abs().max())
+    ek, eo = float(ek), float(eo)
+    if not df <= 1e-9 or abs(ek - eo) > TOL_ORACLE[torch.float64] * abs(eo):
+        raise AssertionError(f"{name}: B1 over the list against the "
+                             f"stencil oracle: max|df| {df}, energy {ek!r} "
+                             f"vs {eo!r}")
+    return df, eo / sim.natoms
+
+
+def b1_at_state(tag: str, sim, eflag: int, vflag: int) -> dict:
+    """B1 in f32 at a deck's final state, with the flags its path launches
+    it with, against its plain list sweep in f32 and both against the
+    stencil oracle in f64: B1's max|f - f_oracle| within F32_GAP_FACTOR
+    times the plain sweep's (both round the same sums in f32, in another
+    order; a relative test reads rounding where forces cancel, as at a
+    minimum), its energy and virial within TOL of the plain sweep's.
+    Timed against the plain sweep (time_kernel) and bounded as
+    lj_kernel_vs_plain bounds in.lj's: the kernels line's figures."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.ops.lj_cellgrid import lj_cellgrid, lj_cellgrid_plain, \
+        lj_pairlist_plain
+    s, neigh, _ = sim._carry
+    x, valid, box, cfg = s.x, neigh.valid, s.box, sim._neigh_cfg
+    if x.dtype != torch.float32:
+        raise AssertionError(f"{tag}: the state is {x.dtype}, not f32")
+    c = sim.pair.kernel_coeffs()
+    plist = (neigh.pairs, neigh.npairs, neigh.row2slot)
+    fk, ek, wk = lj_cellgrid(x, valid, box, cfg, c, 1, 1, plist)
+    fp, ep, wp = lj_pairlist_plain(x, box, c, 1, 1, *plist[:2])
+    fo, eo, _ = lj_cellgrid_plain(x.double(), valid, box_f64(box), cfg, c,
+                                  1, 1)
+    torch.cuda.synchronize()
+    err_k = float((fk.double() - fo).abs().max())
+    err_p = float((fp.double() - fo).abs().max())
+    de = abs(float(ek) - float(ep))
+    dw = float((wk - wp).abs().max())
+    if not err_k <= bt.F32_GAP_FACTOR * err_p \
+            or de > TOL[torch.float32] * abs(float(ep)) \
+            or dw > TOL[torch.float32] * float(wp.abs().max()):
+        raise AssertionError(
+            f"{tag}: B1 f32 against the f64 oracle max|df| {err_k} (the "
+            f"plain sweep's {err_p}), energy {float(ek)!r} vs "
+            f"{float(ep)!r}, virial max|dw| {dw}")
+    out = {"max_abs_err": float((fk - fp).abs().max())}
+    K = plist[0].shape[1]
+    shape = f"{tag} final-state e{eflag}v{vflag}"
+    phase("kernel", f"lj_cellgrid at {tag}'s final state (grid {cfg.nx}x"
+                    f"{cfg.ny}x{cfg.nz} cap {cfg.cap} K {K}, e{eflag}"
+                    f"v{vflag}): max|f - f_oracle| "
+                    f"{err_k:.3g} (the plain sweep's {err_p:.3g}, gate "
+                    f"{bt.F32_GAP_FACTOR:g}x), max|f - f_plain| "
+                    f"{out['max_abs_err']:.3g}, energy and virial within "
+                    f"{TOL[torch.float32]:g} of the plain sweep's")
+    out.update(time_kernel(
+        f"lj_cellgrid {tag}",
+        lambda: lj_cellgrid(x, valid, box, cfg, c, eflag, vflag, plist),
+        lambda: lj_pairlist_plain(x, box, c, eflag, vflag, *plist[:2]),
+        lambda: lj_cellgrid(x, valid, box, cfg, c, 1, 1, plist),
+        shape=shape))
+    nlj, _ = pair_counts(x, valid, box, cfg, c.cutsq)
+    np_ = cfg.capacity
+    # x and validity read, f (and the energies, the virials) written
+    nbytes = np_ * (12 + 1 + 12 + 4 * eflag + 24 * vflag) + 12
+    out["bound_ms"], out["bound_by"] = bound(nlj, 0, nbytes)
+    phase("kernel", f"lj_cellgrid {tag} bound: {nlj} unordered in-cutoff "
+                    f"pairs, {nbytes} bytes -> {out['bound_ms']:.6f} ms "
+                    f"({out['bound_by']})")
+    return out
+
+
+def build_figures(name: str, sim) -> dict:
+    """The list build against its plain build, timed at a deck's final
+    state (time_build)."""
+    s, neigh, _ = sim._carry
+    return time_build(name, (s.x, neigh.valid, s.tag, None, None, s.box,
+                             sim._neigh_cfg, sim._ctx.pairlist_k, None, ()))
+
+
+def min_path(smi: str) -> dict:
+    """IN_LJ_MIN32K (in.lj's 32,000-atom box displaced by up to 0.08
+    sigma, min_style cg; displaced again, fire) in f64, then in f32; B1
+    launches = force evaluations (the set-up's and the evaluator's), no
+    plain call; iterations, evaluations, host reads per iteration and ms
+    per iteration.  f64: the final pe per atom of each minimization at the
+    lattice's to 1e-9 relative.  f32: after each minimization B1 over the
+    list against its stencil oracle in f64 (b1_list_check), whose energy
+    splits the pe's gap to the lattice into the f32 box's own lattice
+    (bench_targets.lattice_pe: the box rounded to f32 holds another
+    density), the distance of the positions from that lattice in f64, and
+    the f32 energy's rounding; the deck's final pe (fire's) within
+    F32_GAP_FACTOR times the CPU's gap at 4^3 cells of its own box's
+    lattice.  Then B1 (b1_at_state), the list build and refresh at the
+    final state against their plain versions, timed."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.ops.lj_cellgrid import counts
+    from tpumd_torch.script.parser import LammpsScript
+    ncells = 20
+    lines = bt.IN_LJ_MIN32K.format(n=ncells).splitlines()
+    cut = lines.index("displace_atoms  all random 0.08 0.08 0.08 12345")
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        counts.reset()
+        reset_list_counts()
+        script = LammpsScript(device="cuda", dtype=dtype)
+        notes, evals, gaps, rebins = [], 0, [], 0
+        for part in (lines[:cut], lines[cut:]):
+            with contextlib.redirect_stdout(sys.stderr):
+                script.run_string("\n".join(part))
+            sim = script.sim
+            st = sim.min_stats
+            pe = sim.last_thermo["pe"]
+            evals += 1 + st["evaluations"]     # the set-up's, then its own
+            # a trial's re-bin builds a list even where the trial is
+            # rejected: the evaluator counts them all
+            rebins += st["rebins"]
+            it = max(st["iterations"], 1)
+            note = (f"{st['style']}: pe/atom {pe!r}, {st['iterations']} "
+                    f"iterations, {st['evaluations']} force evaluations, "
+                    f"{st['reads'] / it:.2f} host reads and "
+                    f"{1e3 * st['seconds'] / it:.3f} ms an iteration "
+                    f"({1e3 * st['seconds'] / st['evaluations']:.3f} ms an "
+                    f"evaluation), {st['rebins']} re-bins")
+            if dtype == torch.float64:
+                gap = abs(pe - bt.LATTICE_PE) / abs(bt.LATTICE_PE)
+                note += f", gap to the lattice {gap:.3g}"
+            else:
+                _, pe64 = b1_list_check(
+                    f"IN_LJ_MIN32K f32 after {st['style']}", sim)
+                s = sim._carry[0]
+                pe_box = bt.lattice_pe((s.box.hi - s.box.lo).double().cpu()
+                                       .numpy(), ncells)
+                gap = abs(pe - pe_box) / abs(pe_box)
+
+                def rel(a, b):
+                    return f"{(a - b) / abs(b):+.3g}"
+                note += (f"; pe - the lattice's {rel(pe, bt.LATTICE_PE)} = "
+                         f"the f32 box's lattice {rel(pe_box, bt.LATTICE_PE)}"
+                         f" + the positions in f64 {rel(pe64, pe_box)} + "
+                         f"f32 rounding {rel(pe, pe64)} (B1 = the oracle "
+                         f"there)")
+            gaps.append(gap)
+            notes.append(note)
+        if dtype == torch.float64:
+            tol, gated = bt.MIN32K_F64_RTOL, gaps
+            what = f"the lattice's {bt.LATTICE_PE}"
+        else:
+            tol, gated = bt.F32_GAP_FACTOR * bt.MIN32K_F32_CPU_GAP, gaps[1:]
+            what = ("the lattice of its f32 box (the deck's final pe; cg's "
+                    f"gap to it {gaps[0]:.3g}, ungated)")
+        launches, plain = counts.kernel_launches, counts.plain_calls
+        builds, gates, list_plain = list_counts()
+        plain += list_plain
+        list_builds = sim.grid_setups + rebins
+        if max(gated) > tol or launches != evals or plain or \
+                builds != list_builds:
+            raise AssertionError(
+                f"IN_LJ_MIN32K {dtype}: gaps {gaps} (tol {tol:g}), B1 "
+                f"launches {launches} vs evaluations {evals}, plain {plain},"
+                f" list builds {builds} vs {list_builds}")
+        name = "f64" if dtype == torch.float64 else "f32"
+        phase("min32k", f"IN_LJ_MIN32K {name} on {smi}: " + "; ".join(notes)
+              + f"; within {tol:g} of {what}; B1 launches {launches} = "
+                f"force evaluations {evals}, plain calls {plain}; list "
+                f"builds {builds} = {sim.grid_setups} grid set-ups + "
+                f"{rebins} re-bins, refresh launches {gates}, refreshes "
+                f"taken {sim.list_refreshes}")
+        out[name] = {"launches": launches, "build_launches": builds,
+                     "gates": gates, "refreshes": sim.list_refreshes}
+    out["f32"]["b1"] = b1_at_state("min32k", sim, 1, 0)
+    out["f32"]["build"] = build_figures("min32k", sim)
+    out["f32"]["upkeep"] = time_upkeep("min32k", sim, build=False,
+                                       refresh=out["f32"]["refreshes"] > 0)
+    del script, sim
+    torch.cuda.empty_cache()
+    return out["f32"]
+
+
+def replicated_run(deck: str, dtype):
+    """Run a replicated golden deck split at its ``unfix`` lines; returns
+    (script, {step: {col: value}} of each step's first row, list builds,
+    force evaluations: set-ups, steps, segment ends)."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.script.parser import LammpsScript
+    script = LammpsScript(device="cuda", dtype=dtype)
+    chunks, cur = [], []
+    for ln in deck.splitlines():
+        if ln.startswith("unfix") and cur:
+            chunks.append(cur)
+            cur = []
+        cur.append(ln)
+    chunks.append(cur)
+    rebuilds = evals = 0
+    t0 = time.perf_counter()
+    for chunk in chunks:
+        with contextlib.redirect_stdout(sys.stderr):
+            script.run_string("\n".join(chunk))
+        sim = script.sim
+        rebuilds += int(sim._carry[1].nbuilds) - 1
+        nsteps = sum(int(ln.split()[1]) for ln in chunk
+                     if ln.startswith("run"))
+        every = sim.thermo_every
+        evals += 1 + nsteps + -(-nsteps // every)
+    torch.cuda.synchronize()
+    rows = bt.golden_columns(sim.log_lines, sim.thermo_style[1:])
+    return script, rows, sim.grid_setups + rebuilds, evals, \
+        time.perf_counter() - t0
+
+
+def replicated_path(tag: str, smi: str, golden: str, deck: str,
+                    cpu_gaps: dict, flags: tuple, timed_deck: str = ""):
+    """A replicated golden deck in f64 (every golden row at 2e-6, the
+    scaled columns as ``bench_targets.replicated_failures`` has them) and
+    in f32 (each column's gap within its gate); B1 launches = force
+    evaluations (set-ups, steps and one at each segment's end, whose
+    energies thermo reads before the box moves) and list builds = grid
+    set-ups + rebuilds in both, no plain call; the timesteps/s of the f32
+    run, or of the f32 run of ``timed_deck`` (the deform deck run longer:
+    the box at its end 1.1 and 0.95 of the start in x and y); a profile of
+    20 steps; B1 over the final list against its stencil oracle in f64, and
+    B1 in f32 at the final state with ``flags`` (b1_at_state); the list
+    build at the final state against its plain build, timed."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.ops.lj_cellgrid import counts
+    ref = np.loadtxt(GOLDEN.parent / golden / "thermo.csv")
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        counts.reset()
+        reset_list_counts()
+        script, rows, list_builds, evals, secs = replicated_run(deck, dtype)
+        sim = script.sim
+        cols = sim.thermo_style[1:]
+        launches, plain = counts.kernel_launches, counts.plain_calls
+        builds, gates, list_plain = list_counts()
+        plain += list_plain
+        if launches != evals or plain or builds != list_builds \
+                or sim.natoms != 32000:
+            raise AssertionError(
+                f"{tag} {dtype}: B1 launches {launches} vs force "
+                f"evaluations {evals}, plain {plain}, list builds {builds} "
+                f"vs {list_builds}, atoms {sim.natoms}")
+        if dtype == torch.float64:
+            bad = bt.replicated_failures(rows, ref, cols, 2e-6)
+            gate = f"every golden row at 2e-6 ({len(np.atleast_2d(ref))} rows)"
+        else:
+            gaps = bt.replicated_gaps(rows, ref, cols, bt.REPS)
+            bad = bt.f32_gap_failures(gaps, cpu_gaps)
+            gate = ("gaps " + ", ".join(f"{c} {g:.3g}" for c, g in
+                                        gaps.items()) + " within "
+                    f"{bt.F32_GAP_FACTOR:g}x the CPU's or {bt.F32_GAP_FLOOR}")
+        if bad:
+            raise AssertionError(f"{tag} {dtype}: {bad[:6]}")
+        name = "f64" if dtype == torch.float64 else "f32"
+        phase(tag, f"{tag} {name}: {gate}; B1 launches {launches} = force "
+                   f"evaluations {evals}, plain calls {plain}; list builds "
+                   f"{builds} = grid set-ups + rebuilds, refresh launches "
+                   f"{gates}, refreshes taken {sim.list_refreshes}; "
+                   f"{secs:.2f} s")
+        out = {"launches": launches, "build_launches": builds,
+               "gates": gates, "refreshes": sim.list_refreshes}
+    if timed_deck:
+        counts.reset()
+        reset_list_counts()
+        script, rows, list_builds, evals, _ = replicated_run(timed_deck,
+                                                             torch.float32)
+        sim = script.sim
+        ell0 = np.asarray([rows[0][c] for c in ("lx", "ly", "lz")])
+        ratio = sim._carry[0].box.lengths_np() / ell0
+        if abs(ratio[0] - 1.1) > 1e-6 or abs(ratio[1] - 0.95) > 1e-6 \
+                or abs(ratio[2] - 1.0) > 1e-6 or sim.natoms != 32000:
+            raise AssertionError(f"{tag} timed run: box ratios {ratio}, "
+                                 f"atoms {sim.natoms}")
+        launches = counts.kernel_launches
+        builds, gates, _ = list_counts()
+        if launches != evals or builds != list_builds:
+            raise AssertionError(f"{tag} timed run: B1 launches {launches} "
+                                 f"vs {evals}, builds {builds} vs "
+                                 f"{list_builds}")
+        out = {"launches": launches, "build_launches": builds,
+               "gates": gates, "refreshes": sim.list_refreshes}
+        note = (f"{sim.loop_steps} steps, the box at the end "
+                f"{ratio.tolist()} of the start (1.1, 0.95, 1), "
+                f"{sim.natoms} atoms")
+    else:
+        note = "the golden's 200 steps"
+    sps = sim.loop_steps / sim.loop_time
+    phase(tag, f"{tag} f32 {sps:.2f} timesteps/s ({note}), "
+               f"{sps * 32000 / 1e6:.3f} Matom-step/s on {smi}; B1 launches "
+               f"{out['launches']}, list builds {out['build_launches']}, "
+               f"refresh launches {out['gates']}")
+    phase(tag, f"{tag} " + profile_steps(script, 20, 1e3 / sps))
+    err, _ = b1_list_check(f"{tag} final state", sim)
+    phase(tag, f"B1 over the final list = the stencil oracle in f64 (max|df| "
+               f"{err:.3g}, energies to {TOL_ORACLE[torch.float64]:g})")
+    out["b1"] = b1_at_state(tag, sim, *flags)
+    out["build"] = build_figures(tag, sim)
+    if out["gates"]:
+        out["upkeep"] = time_upkeep(tag, sim, build=False,
+                                    refresh=out["refreshes"] > 0)
+    out["sps"] = sps
+    del script, sim
+    torch.cuda.empty_cache()
+    return out
+
+
+def golden_deck(golden: str) -> str:
+    return (GOLDEN.parent / golden / "in.test").read_text()
+
+
+def pressber_path(smi: str) -> dict:
+    """IN_PRESSBER32K: tests/golden/press_ber replicated 4x4x4
+    (``bench_targets.pressber32k_deck``), temp/berendsen then
+    press/berendsen iso and aniso, 200 steps (replicated_path); B1's
+    virial variant, as under the barostat every step."""
+    from tpumd_torch import bench_targets as bt
+    return replicated_path("pressber32k", smi, "press_ber",
+                           bt.pressber32k_deck(golden_deck("press_ber")),
+                           bt.PRESSBER_F32_CPU_GAP, (0, 1))
+
+
+def deform_path(smi: str) -> dict:
+    """IN_DEFORM32K: tests/golden/deform replicated 4x4x4 (fix deform x
+    scale 1.1 y scale 0.95 remap x), 20 steps against the golden's rows,
+    then 500 steps timed in f32 (replicated_path); B1's forces-only
+    variant, as between thermo rows."""
+    from tpumd_torch import bench_targets as bt
+    text = golden_deck("deform")
+    return replicated_path("deform32k", smi, "deform",
+                           bt.deform32k_deck(text), bt.DEFORM_F32_CPU_GAP,
+                           (0, 0), bt.deform32k_deck(text, 500))
+
 
 def main():
     t_start = time.perf_counter()
@@ -4313,6 +4744,10 @@ def main():
     k_salt, m_salt = salt_path(smi)
     bonded_goldens_phase()
     k_hyb, m_hyb = hyb32k_path(smi)
+    host_goldens_phase()
+    m_min = min_path(smi)
+    m_pb = pressber_path(smi)
+    m_df = deform_path(smi)
     # the list kernels' launches on the main paths: builds at set-up and
     # re-bins, and refresh calls, most of which pass the gate and return
     # (those that rebuild are the refreshes taken); an entry each
@@ -4325,11 +4760,17 @@ def main():
               ("in.lj", m_lj["upkeep"]["build"], m_lj["build_launches"]),
               ("analysis32k", m_an["k_build"], m_an["build_launches"]),
               ("eam", m_eam_list["upkeep"]["build"],
-               m_eam_list["build_launches"])]
+               m_eam_list["build_launches"]),
+              *[(name, m["build"], m["build_launches"])
+                for name, m in (("min32k", m_min), ("pressber32k", m_pb),
+                                ("deform32k", m_df))]]
     searched = {"in.lj": "tpumd/ops/pallas_lj.py:25",
                 "analysis32k": "tpumd/ops/pallas_lj.py:25",
                 "chain": "tpumd/ops/pallas_lj.py:146",
                 "eam": "tpumd/ops/pallas_eam.py:128",
+                "min32k": "tpumd/ops/pallas_lj.py:25",
+                "pressber32k": "tpumd/ops/pallas_lj.py:25",
+                "deform32k": "tpumd/ops/pallas_lj.py:25",
                 "rhodo_class": "tpumd/ops/pallas_charmm.py:43",
                 "water_npt30k": "tpumd/ops/pallas_charmm.py:43",
                 "rigid_npt30k": "tpumd/ops/pallas_charmm.py:43",
@@ -4338,7 +4779,8 @@ def main():
                k, {"launches": nb}) for name, k, nb in builds]
     calls = list(builds)
     for name, m in (("in.lj", m_lj), ("eam", m_eam_list),
-                    ("rhodo_class", m_charmm)):
+                    ("rhodo_class", m_charmm), ("min32k", m_min),
+                    ("deform32k", m_df)):
         u = m["upkeep"]
         shapes = [(f"{name} gate", u["gate"], m["gates"] - m["refreshes"])]
         if m["refreshes"]:
@@ -4356,6 +4798,10 @@ def main():
              "tpumd/ops/pallas_lj.py:25", k_lj, m_lj),
             ("lj_cellgrid analysis32k", "tpumd_torch/csrc/lj_fene_cellgrid.cu",
              "tpumd/ops/pallas_lj.py:25", k_lj, m_an),
+            *[(f"lj_cellgrid {name}", "tpumd_torch/csrc/lj_fene_cellgrid.cu",
+               "tpumd/ops/pallas_lj.py:25", m["b1"], m)
+              for name, m in (("min32k", m_min), ("pressber32k", m_pb),
+                              ("deform32k", m_df))],
             ("lj_fene_cellgrid", "tpumd_torch/csrc/lj_fene_cellgrid.cu",
              "tpumd/ops/pallas_lj.py:146", k_fene, m_fene),
             ("eam_rho_cellgrid", eam_src, "tpumd/ops/pallas_eam.py:99",

@@ -85,8 +85,8 @@ def case_read_data_and_special(tmp_path):
     with pytest.raises(NotImplementedError, match="angles"):
         t_read_data.read_data(str(angles), "atomic")
     pc = tmp_path / "data.pc"
-    pc.write_text(atomic.read_text() + "\nPair Coeffs\n\n1 1.0 1.0\n")
-    with pytest.raises(NotImplementedError, match="Pair Coeffs"):
+    pc.write_text(atomic.read_text() + "\nBond Coeffs\n\n1 1.0 1.0\n")
+    with pytest.raises(NotImplementedError, match="Bond Coeffs"):
         t_read_data.read_data(str(pc), "atomic")
 
 

@@ -316,7 +316,7 @@ def test_ylm_matches_scipy():
 
 @pytest.mark.parametrize("line,match", [
     ("compute c all property/local batom1", "property/local"),
-    ("compute c all temp/deform", "temp/deform"),
+    ("compute c all temp/asphere", "temp/asphere"),
     ("compute c all stress/atom NULL ke", "stress/atom"),
     ("compute c all orientorder/atom wl yes", "orientorder"),
     ("compute c all chunk/atom bin/2d x lower 1 y lower 1", "chunk/atom"),

@@ -320,7 +320,8 @@ def case_unported_commands_raise(tmp_path):
             ("thermo_modify   norm no", "thermo_modify   lost ignore",
              NotImplementedError, "thermo_modify"),
             ("fix             3 active nve/sphere",
-             "fix             3 active nve", NotImplementedError, "group"),
+             "fix             3 active temp/berendsen 1.0 1.0 0.5",
+             NotImplementedError, "group"),
             ("group           bottom type 2",
              "group           bottom variable v", NotImplementedError,
              "group"),

@@ -311,7 +311,7 @@ def test_port_restart_fix_state_raises(tmp_path):
     ("displace_atoms all rotate 0 0 0 0 0 1 90", NotImplementedError,
      "rotate"),
     ("delete_atoms group all", NotImplementedError, "delete_atoms"),
-    ("dimension 2", NotImplementedError, "dimension"),
+    ("dimension 4", Exception, "dimension"),
     ("variable v uloop 3", NotImplementedError, "uloop"),
     ("run 10 start 0", NotImplementedError, "run"),
 ])

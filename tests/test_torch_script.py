@@ -249,7 +249,7 @@ def test_cli_var_and_log(tmp_path, capsys):
 
 def test_unported_command_names_itself():
     s = TScript(device="cpu", dtype=torch.float64)
-    for line in ("minimize 0 1e-4 10 10", "kspace_modify mesh 8 8 8",
+    for line in ("neb 0.0 0.01 100 100 10 final f", "kspace_modify mesh 8 8 8",
                  "balance 1.1 shift x 10 1.1", "molecule w file.mol"):
         with pytest.raises(NotImplementedError, match=line.split()[0]):
             s.execute(line)

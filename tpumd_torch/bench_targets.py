@@ -1222,3 +1222,184 @@ def hyb_term_gaps(f32: dict, f64: dict) -> dict:
     """Per term, max|f32 - f64| over the term's own max|f| in f64."""
     return {k: float(np.abs(f32[k] - v).max() / np.abs(v).max())
             for k, v in f64.items()}
+
+
+# ------------------------------------------------------------------------
+# Energy minimization and the host fixes at full width (32,000 atoms).
+
+# in.lj's box (fcc at 0.8442, {n}^3 cells, lj/cut 2.5, neighbor 0.3 bin)
+# with every atom displaced at random by up to 0.08 sigma per axis, then
+# min_style cg to the minimum; displaced again (another seed) and min_style
+# fire.  Both end at the perfect lattice, whose energy per atom is the same
+# for every lattice of at least 4 cells (tests/test_breadth_golden.py:
+# 163-187, the reference binary's hftn run there)
+IN_LJ_MIN32K = """units           lj
+atom_style      atomic
+lattice         fcc 0.8442
+region          box block 0 {n} 0 {n} 0 {n}
+create_box      1 box
+create_atoms    1 box
+mass            1 1.0
+pair_style      lj/cut 2.5
+pair_coeff      1 1 1.0 1.0 2.5
+neighbor        0.3 bin
+displace_atoms  all random 0.08 0.08 0.08 76543
+min_style       cg
+minimize        0.0 1.0e-8 1000 10000
+displace_atoms  all random 0.08 0.08 0.08 12345
+min_style       fire
+minimize        0.0 1.0e-8 1000 10000
+"""
+LATTICE_PE = -6.77336805325271
+MIN32K_F64_RTOL = 1e-9
+
+
+def lattice_pe(lengths, ncells: int, rc: float = 2.5) -> float:
+    """The lj/cut (epsilon = sigma = 1, unshifted) energy per atom of a
+    perfect fcc lattice of ncells^3 cells filling a periodic box of these
+    lengths, summed in f64 over the lattice vectors within rc (at least
+    4 cells: rc under half the box).  At in.lj's box in f64 it is
+    LATTICE_PE; at the box rounded to f32 it is the minimum an f32 run
+    aims at, since that box holds a lattice of another density."""
+    half = np.asarray(lengths, dtype=np.float64) / (2 * ncells)
+    m = int(np.ceil(rc / half.min()))
+    r = np.arange(-m, m + 1)
+    i, j, k = np.meshgrid(r, r, r, indexing="ij")
+    r2 = (half[0] * i) ** 2 + (half[1] * j) ** 2 + (half[2] * k) ** 2
+    r2 = r2[((i + j + k) % 2 == 0) & (r2 > 0) & (r2 < rc * rc)]
+    ir6 = 1.0 / r2 ** 3
+    return float(2.0 * np.sum(ir6 * ir6 - ir6))
+
+
+# the largest |pe/atom - lattice_pe(the run's box)| / |that| of the port's
+# f32 run of IN_LJ_MIN32K at n = 4 on the CPU, over both minimizations
+# (tests/test_torch_minimize.py::test_min_deck_f32_gap measures it, 3.64e-8
+# for cg and for fire); the card's f32 run ends at the energy of its
+# second minimization, which is held to F32_GAP_FACTOR times it
+MIN32K_F32_CPU_GAP = 3.7e-8
+
+
+# tests/golden/press_ber/in.test with ``replicate 4 4 4`` right after its
+# velocity command: 64 copies of the 500-atom cell, 32,000 atoms.  The
+# copies move as the cell does, but a temperature counts 3N - 3 dof, 3
+# fewer per copy than the cells' 64 (3 * 500 - 3): the thermostat reads
+# temp = the cell's times R = 64 (3 * 500 - 3) / (3 * 32000 - 3).  So
+# temp/berendsen's target is scaled by R, which gives every copy the
+# cell's velocity scaling, and the printed temp is the cell's times R
+# (``replicated_failures``); the pressure and the energies per atom are
+# the cell's, the volume and the lengths 64 and 4 times its.
+PRESSBER_CELL = 500
+REPS = 4
+
+
+def dof_ratio(reps: int, cell: int = PRESSBER_CELL) -> float:
+    """R of reps^3 copies of a cell of ``cell`` atoms."""
+    n = reps ** 3
+    return (3 * cell - 3) * n / (3 * cell * n - 3)
+
+
+def _replicated(deck: str) -> str:
+    after = "velocity        all create 1.44 87287 loop geom\n"
+    assert after in deck
+    return deck.replace(after, after + f"replicate       {REPS} {REPS} "
+                        f"{REPS}\n")
+
+
+def pressber32k_deck(golden_deck: str) -> str:
+    """IN_PRESSBER32K from tests/golden/press_ber/in.test."""
+    deck = _replicated(golden_deck)
+    old = "fix             2 all temp/berendsen 1.0 1.0 0.5"
+    assert old in deck
+    r = dof_ratio(REPS)
+    return deck.replace(old, f"fix             2 all temp/berendsen {r!r} "
+                        f"{r!r} 0.5")
+
+
+def deform32k_deck(golden_deck: str, steps: int = 20) -> str:
+    """IN_DEFORM32K from tests/golden/deform/in.test (run ``steps``)."""
+    old = "run             20"
+    assert old in golden_deck
+    return _replicated(golden_deck).replace(old, f"run             {steps}")
+
+
+def golden_rows(log_lines, ncol: int) -> dict:
+    """The first thermo row of each step in a run's log, {step: [step,
+    values]} (rows of ncol columns): where a run starts, the set-up's row
+    after an end-of-step box move is the second (tests/test_press_ber.py)."""
+    rows = {}
+    for ln in log_lines:
+        p = ln.split()
+        if p and p[0].isdigit() and len(p) == ncol:
+            rows.setdefault(int(p[0]), [float(v) for v in p])
+    return rows
+
+
+def golden_columns(log_lines, cols) -> dict:
+    """golden_rows as {step: {col: value}} for thermo columns cols (the
+    step's column left out)."""
+    return {k: dict(zip(cols, v[1:]))
+            for k, v in golden_rows(log_lines, len(cols) + 1).items()}
+
+
+def replicated_scale(reps: int) -> dict:
+    """What a column of reps^3 copies of a golden's cell is divided by to
+    compare with the golden: temp by dof_ratio, vol by reps^3, lx, ly and
+    lz by reps; the rest as they are (all 1 at reps 1)."""
+    return {"temp": dof_ratio(reps), "vol": reps ** 3, "lx": reps,
+            "ly": reps, "lz": reps}
+
+
+def replicated_failures(rows: dict, ref_rows, cols, rtol: float) -> list:
+    """The golden's rows (thermo.csv: step then cols) that a replicated
+    deck's rows ({step: {col: value}}) miss beyond rtol (plus 1e-8), scaled
+    by replicated_scale(REPS)."""
+    scale = replicated_scale(REPS)
+    bad = []
+    for ref in np.atleast_2d(ref_rows):
+        step = int(ref[0])
+        if step not in rows:
+            bad.append(f"step {step} missing")
+            continue
+        for col, want in zip(cols, ref[1:]):
+            got = rows[step][col] / scale.get(col, 1)
+            if abs(got - want) > rtol * abs(want) + 1e-8:
+                bad.append(f"step {step} {col} {got!r} vs {want!r}")
+    return bad
+
+
+def replicated_gaps(rows: dict, ref_rows, cols, reps: int = 1) -> dict:
+    """{col: the largest |value - golden| over the rows, over the
+    column's largest |golden|}, the values scaled by replicated_scale
+    (reps 1: the golden deck itself)."""
+    scale = replicated_scale(reps)
+    ref = np.atleast_2d(ref_rows)
+    out = {}
+    for k, col in enumerate(cols):
+        top = max(float(np.abs(ref[:, 1 + k]).max()), 1e-300)
+        out[col] = max(abs(rows[int(r[0])][col] / scale.get(col, 1)
+                           - r[1 + k]) for r in ref) / top
+    return out
+
+
+# the port's f32 gaps (``replicated_gaps``) of the 500-atom press_ber and
+# deform goldens on the CPU, rounded up (tests/test_torch_fix_misc.py and
+# tests/test_torch_fix_move_deform.py measure them): an f32 run starts
+# from another microstate (``velocity ... loop geom`` hashes the positions
+# in the run's dtype), so its rows part from the golden's as a liquid's
+# do.  The card's f32 runs
+# of the 32k decks are held to F32_GAP_FACTOR times each, or F32_GAP_FLOOR
+# (a few f32 roundings of an 8-digit row) where that is larger
+PRESSBER_F32_CPU_GAP = {"temp": 0.0376, "epair": 0.0155, "etotal": 0.00505,
+                        "press": 0.0771, "vol": 5.82e-4}
+DEFORM_F32_CPU_GAP = {"temp": 0.0216, "epair": 0.00575, "emol": 0.0,
+                      "etotal": 0.00165, "press": 0.0105, "vol": 1.62e-7,
+                      "lx": 4.34e-8, "ly": 3.58e-8, "lz": 3.58e-8}
+F32_GAP_FACTOR = 3.0
+F32_GAP_FLOOR = 3e-7
+
+
+def f32_gap_failures(gaps: dict, cpu: dict) -> list:
+    """The columns whose f32 gap on the card passes its gate."""
+    return [f"{c} {g:.3g} > {max(F32_GAP_FACTOR * cpu[c], F32_GAP_FLOOR):.3g}"
+            for c, g in gaps.items()
+            if g > max(F32_GAP_FACTOR * cpu[c], F32_GAP_FLOOR)]

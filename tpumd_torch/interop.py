@@ -3,8 +3,9 @@
 Takes plain numpy arrays (for example the fields of a tpumd ``MDState``,
 ``PairLJCut``, ``PairEAM``, ``PairLJCharmmCoulLong``, ``PPPM`` and
 ``PairGranHookeHistory``, and a ``NeighborConfig`` and ``NeighborState``
-of the matrix engine), so one state, one potential and one neighbor list
-can be fed to both engines.  This module imports nothing of tpumd.
+of the matrix engine, and a fix's per-atom state), so one state, one
+potential and one neighbor list can be fed to both engines. This module
+imports nothing of tpumd.
 """
 
 from __future__ import annotations
@@ -183,3 +184,15 @@ def gran_from_numpy(kn, kt, gamman, gammat, xmu, *, limit_damping=False,
     pair.exclude_bits = tuple(tuple(int(b) for b in p) for p in exclude_bits)
     pair.set_max_radius(max_radius)
     return pair
+
+
+def with_fix_peratom(s: MDState, fix, values) -> MDState:
+    """s with the per-atom state of the port's fix (fix move's x0,
+    spring/self's anchors: ``fix.history_key`` in ``MDState.peratom``)
+    taken from another engine's (N, 3) array in s's row order, for
+    example tpumd's ``FixMove`` state ``x0`` or ``FixSpringSelf`` state,
+    so that both engines carry one state on."""
+    table = dict(s.peratom or {})
+    table[fix.history_key] = torch.as_tensor(
+        np.asarray(values, np.float64), dtype=s.x.dtype, device=s.x.device)
+    return s.replace(peratom=table)

@@ -151,6 +151,7 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
         if not section:
             continue
         if section not in _SECTIONS or (section in _COEFFS
+                                        and section != "Pair Coeffs"
                                         and atom_style not in TOPOLOGIES) or (
                 atom_style == "sphere" and section not in _SPHERE_SECTIONS):
             raise NotImplementedError(

@@ -1,21 +1,22 @@
 """The rest of the compute library: style energies (pair, bond, angle,
 dihedral, improper), bias temperatures (temp/ramp, temp/profile,
-temp/sphere), erotate/sphere/atom, slice, reduce/region,
+temp/sphere, temp/deform), erotate/sphere/atom, slice, reduce/region,
 chunk/spread/atom, global/atom, reduce/chunk, fragment/atom and
 aggregate/atom.
 
 The port of tpumd/md/compute_extra.py (src/compute_pair.cpp,
 compute_bond.cpp, compute_angle.cpp, compute_dihedral.cpp,
 compute_improper.cpp, compute_temp_ramp.cpp, compute_temp_profile.cpp,
-compute_temp_sphere.cpp, compute_erotate_sphere_atom.cpp,
+compute_temp_sphere.cpp, compute_temp_deform.cpp,
+compute_erotate_sphere_atom.cpp,
 compute_slice.cpp, compute_reduce_region.cpp,
 compute_chunk_spread_atom.cpp, compute_global_atom.cpp,
 compute_reduce_chunk.cpp, compute_fragment_atom.cpp,
 compute_aggregate_atom.cpp), on the device.  fragment/atom and
 aggregate/atom label clusters by propagating the smallest tag over the
 bonds (and, for aggregate, the pairs within its cutoff) until nothing
-changes, as cluster/atom does.  temp/deform raises: it reads fix deform,
-which the port lacks.
+changes, as cluster/atom does.  temp/deform reads the rates of the deck's
+fix deform.
 """
 
 from __future__ import annotations
@@ -187,6 +188,35 @@ class ComputeTempSphere(Compute):
             dof += (3 if sim.dimension == 3 else 1) * int(
                 (sel & (a.radius > 0)).sum())
         return bias_temp(sim, ke, dof)
+
+
+class ComputeTempDeform(Compute):
+    """compute temp/deform: the temperature with the streaming velocity of
+    the box's deformation removed, vstream = h_rate lamda + h_ratelo
+    (src/compute_temp_deform.cpp:120-175), the rates those of the deck's
+    fix deform over its run (0 without one)."""
+
+    style = "temp/deform"
+
+    @staticmethod
+    def _rates(sim):
+        from tpumd_torch.md.fix_deform import FixDeform
+        for fx, fs in zip(sim.fixes, sim._carry[2]):
+            if isinstance(fx, FixDeform):
+                return fx.current_rates(sim, fs)
+        return np.zeros(3), np.zeros(3)
+
+    def evaluate(self, sim):
+        a = pa.atoms(sim)
+        sel = self.sel(sim)
+        h_rate, h_ratelo = (torch.as_tensor(r, dtype=a.x.dtype,
+                                            device=a.x.device)
+                            for r in self._rates(sim))
+        lam = (a.x - a.lo) / torch.clamp(a.hi - a.lo, min=1e-300)
+        vt = a.v - (lam * h_rate + h_ratelo)
+        ms = torch.where(sel, a.mass, 0.0)
+        dof = sim.dimension * int(sel.sum()) - sim.dimension - fix_dof(sim)
+        return bias_temp(sim, (ms * (vt * vt).sum(1)).sum(), dof)
 
 
 class ComputeERotateSphereAtom(Compute):
@@ -421,7 +451,8 @@ class ComputeAggregateAtom(ComputeClusterAtom):
 
 STYLES = (ComputePairEnergy, ComputeBondEnergy, ComputeAngleEnergy,
           ComputeDihedralEnergy, ComputeImproperEnergy, ComputeTempRamp,
-          ComputeTempProfile, ComputeTempSphere, ComputeERotateSphereAtom,
+          ComputeTempProfile, ComputeTempSphere, ComputeTempDeform,
+          ComputeERotateSphereAtom,
           ComputeSlice, ComputeReduceRegion, ComputeChunkSpreadAtom,
           ComputeGlobalAtom, ComputeReduceChunk, ComputeFragmentAtom,
           ComputeAggregateAtom)

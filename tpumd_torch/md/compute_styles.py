@@ -519,7 +519,6 @@ _NOT_PORTED = {
     "property/local": "compute_local.py and dump local wait (ROADMAP A9)",
     "bond/local": "compute_local.py and dump local wait (ROADMAP A9)",
     "angle/local": "compute_local.py and dump local wait (ROADMAP A9)",
-    "temp/deform": "it reads fix deform, which the port lacks",
 }
 
 

@@ -87,5 +87,5 @@ class FixLangevin(Fix):
             fstate = self._gen.get_state()
         fran = gamma2[:, None] * rand
         fdrag = gamma1[:, None] * s.v
-        valid = (s.type > 0)[:, None]
+        valid = self.group_sel(s)[:, None]
         return s.replace(f=s.f + torch.where(valid, fdrag + fran, 0)), fstate

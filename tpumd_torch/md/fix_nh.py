@@ -1,15 +1,17 @@
 """fix nvt / npt / nph: Nose-Hoover thermostat chains and the MTK barostat.
 
 PyTorch counterpart of tpumd/md/fix_nh.py (the reference's FixNH,
-src/fix_nh.cpp), all atoms: the chain integrators nhc_temp_integrate
-(:1758) and nhc_press_integrate (:1829), the barostat update nh_omega_dot
-(:2247) with the MTK terms, the velocity scaling nh_v_press with the tilt
-couplings of a triclinic barostat (:1955-1963), and the half-step box
-remap (:1086-1240): x -> lamda -> x dilation about the box centre, the
-tilt factors' time-symmetric updates around it where they are
-barostatted, scaled with the cell where they are not.  The operation
-order is that of initial_integrate/final_integrate (:829-925), with the
-temperature and pressure targets ramped from start to stop over the run.
+src/fix_nh.cpp), on the fix's group (its temperature over its own dof;
+the box remap moves every atom, as LAMMPS's dilate all): the chain
+integrators nhc_temp_integrate (:1758) and nhc_press_integrate (:1829),
+the barostat update nh_omega_dot (:2247) with the MTK terms, the
+velocity scaling nh_v_press with the tilt couplings of a triclinic
+barostat (:1955-1963), and the half-step box remap (:1086-1240): x ->
+lamda -> x dilation about the box centre, the tilt factors'
+time-symmetric updates around it where they are barostatted, scaled
+with the cell where they are not. The operation order is that of
+initial_integrate/final_integrate (:829-925), with the temperature and
+pressure targets ramped from start to stop over the run.
 
 Coupling: iso (the mean of the three diagonal pressures), aniso, x/y/z,
 xy/xz/yz and tri (aniso plus the three tilts at zero target).  The
@@ -69,6 +71,9 @@ class NHState:
 
 class FixNH(Fix):
     name = "nh"
+    # on a group other than all: its dof, dimension (n - 1), which the
+    # set-up counts (tpumd/md/simulation.py:459-464)
+    group_tdof = None
     needs_virial = True
     needs_step = True
 
@@ -275,10 +280,17 @@ class FixNH(Fix):
                     for i in range(3) if self.p_flags[i])
         return hydro / self.pdim if self.pdim else 0.0
 
+    def _tdof(self, ctx):
+        return ctx.tdof if self.group_tdof is None else self.group_tdof
+
+    def _gv(self, s):
+        """The velocities of the fix's group, 0 elsewhere."""
+        return self.in_group(s, s.v, torch.zeros_like(s.v))
+
     def _t_current(self, s, ctx):
         u = ctx.units
-        return computes.temperature(s.v, ctx.mass_per_atom(s), ctx.tdof,
-                                    u.boltz, u.mvv2e)
+        return computes.temperature(self._gv(s), ctx.mass_per_atom(s),
+                                    self._tdof(ctx), u.boltz, u.mvv2e)
 
     def _p_current(self, s, ctx, virial):
         """Pressure components (compute_pressure::compute_vector) in omega
@@ -286,7 +298,7 @@ class FixNH(Fix):
         virial's over the volume; iso couples the diagonal to its mean.
         virial is Voigt (xx yy zz xy xz yz)."""
         m = ctx.mass_per_atom(s)
-        v = s.v
+        v = self._gv(s)
         vol = s.box.volume
         scale = ctx.units.nktv2p / vol
         mvv = ctx.units.mvv2e * torch.sum(m[:, None] * v * v, dim=0)
@@ -305,7 +317,7 @@ class FixNH(Fix):
         the velocities.  Returns (state, fix state, T after scaling)."""
         boltz, dt = ctx.units.boltz, ctx.dt
         dthalf, dt4, dt8 = 0.5 * dt, 0.25 * dt, 0.125 * dt
-        tdof = ctx.tdof
+        tdof = self._tdof(ctx)
         t_target = fst.t_target
         ke_target = tdof * boltz * t_target
         t_freq = 1.0 / self.t_period
@@ -335,7 +347,8 @@ class FixNH(Fix):
             ed[ich] = (ed[ich] * expfac + edd[ich] * dt4) * expfac
         fst = fst.replace(eta=eta, eta_dot=torch.stack(ed),
                           eta_dotdot=torch.stack(edd))
-        return s.replace(v=s.v * factor_eta), fst, t_current
+        return (s.replace(v=self.in_group(s, s.v * factor_eta, s.v)), fst,
+                t_current)
 
     def _omega_mass(self, i, nkt):
         p_freq = 1.0 / self.p_period[i]
@@ -404,10 +417,11 @@ class FixNH(Fix):
         mtk_term1 = 0.0
         if self.mtk:
             if self.iso:
-                mtk_term1 = ctx.tdof * u.boltz * t_current
+                mtk_term1 = self._tdof(ctx) * u.boltz * t_current
             else:
                 m = ctx.mass_per_atom(s)
-                mvv = u.mvv2e * torch.sum(m[:, None] * s.v * s.v, dim=0)
+                v = self._gv(s)
+                mvv = u.mvv2e * torch.sum(m[:, None] * v * v, dim=0)
                 mtk_term1 = torch.sum(torch.where(self._axes(s.x), mvv, 0.0))
             mtk_term1 = mtk_term1 / (self.pdim * ctx.natoms)
         p_hydro = self._p_hydro(fst)
@@ -436,13 +450,14 @@ class FixNH(Fix):
                           torch.exp(-0.25 * ctx.dt * (od[:3] + mtk_term2)),
                           1.0)
         if not self.tri:
-            return s.replace(v=s.v * (fac * fac)[None, :])
+            return s.replace(v=self.in_group(s, s.v * (fac * fac)[None, :],
+                                             s.v))
         dthalf = 0.5 * ctx.dt
         v = s.v * fac[None, :]
         v0 = v[:, 0] - dthalf * (v[:, 1] * od[5] + v[:, 2] * od[4])
         v1 = v[:, 1] - dthalf * v[:, 2] * od[3]
         v = torch.stack([v0, v1, v[:, 2]], dim=1) * fac[None, :]
-        return s.replace(v=v)
+        return s.replace(v=self.in_group(s, v, s.v))
 
     def _remap(self, s, fst, ctx):
         """Half-step box dilation about the centre (FixNH::remap
@@ -515,19 +530,19 @@ class FixNH(Fix):
             fst, mtk_term2 = self._omega_dot_update(s, fst, ctx, t_current,
                                                     p_current)
             s = self._v_press(s, fst, ctx, mtk_term2)
-        s = s.replace(v=torch.addcmul(s.v, (dtf / ctx.mass_per_atom(s))[
-            :, None], s.f))
+        s = s.replace(v=self.in_group(s, torch.addcmul(
+            s.v, (dtf / ctx.mass_per_atom(s))[:, None], s.f), s.v))
         if self.pstat:
             s, fst = self._remap(s, fst, ctx)
-        s = s.replace(x=s.x + ctx.dt * s.v)
+        s = s.replace(x=self.in_group(s, s.x + ctx.dt * s.v, s.x))
         if self.pstat:
             s, fst = self._remap(s, fst, ctx)
         return s, fst
 
     def final_integrate(self, s, fst, ctx):
         dtf = 0.5 * ctx.dt * ctx.units.ftm2v
-        s = s.replace(v=torch.addcmul(s.v, (dtf / ctx.mass_per_atom(s))[
-            :, None], s.f))
+        s = s.replace(v=self.in_group(s, torch.addcmul(
+            s.v, (dtf / ctx.mass_per_atom(s))[:, None], s.f), s.v))
         if self.pstat:
             s = self._v_press(s, fst, ctx,
                               self._mtk_term2(fst.omega_dot, ctx))

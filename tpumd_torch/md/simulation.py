@@ -15,6 +15,10 @@ under shrink-wrapped faces.  A granular style carries its contact history
 in the grid state (zero at set-up, moved with the atoms by every re-bin);
 the one read per segment also says whether some atom's history is full.
 
+A fix that moves the box at end_of_step (press/berendsen, deform) ends each
+segment with a split step, whose force evaluation thermo reads; the
+minimize command runs ``md/minimize.py`` from the set-up state.
+
 Two neighbor engines (``neighbor_mode``, chosen at set-up by
 ``_resolve_mode``): the cell grid, where the atoms sit in grid-slot order,
 and the matrix engine (``ops/neighbor.py``), where they keep their rows and
@@ -43,7 +47,7 @@ from tpumd_torch.md.computes import THERMO_COMPUTES
 from tpumd_torch.md.fixes import FixBondBreak
 from tpumd_torch.md.verlet import ENERGY_KEYS, StepContext, build_matrix, \
     eval_energies, grid_pairlist, pack_thermo, partner_tags, \
-    remap_history_by_tag, run_segment
+    remap_history_by_tag, run_segment, step_post, step_pre
 from tpumd_torch.ops import cellgrid as cg
 from tpumd_torch.ops import neighbor as nb
 from tpumd_torch.ops.cellgrid_gran import KH
@@ -169,6 +173,10 @@ class Simulation:
         # in seconds from the first run, checked at segment boundaries
         self.timer_timeout = None
         self._wall_start = None
+        # the minimize command's style (tpumd's default, not LAMMPS's cg)
+        # and the figures of the last minimization (md/minimize.py)
+        self.min_style = "fire"
+        self.min_stats: dict | None = None
 
     # ------------------------------------------------------------------ setup
     @property
@@ -700,6 +708,12 @@ class Simulation:
             self._setup_granular()
         self._mode = self._resolve_mode()
         self._check_engine(self._mode)
+        for fx in self.fixes:
+            if getattr(fx, "name", "") == "nh" and fx.groupbit != 1:
+                # a thermostat on a group counts the group's dof
+                # (tpumd/md/simulation.py:459-464)
+                n = int(((self.state.gmask & fx.groupbit) > 0).sum())
+                fx.group_tdof = float(self.dimension * (n - 1))
         self._sort_atoms_host()
         # reference row order (post-sort, pre-grid-permutation): host RNG
         # streams draw in this order and are re-indexed by tag
@@ -932,8 +946,7 @@ class Simulation:
             while True:
                 snapshot = self._carry
                 # a redone segment reuses the same host draws
-                carry = run_segment(*snapshot, ctx, seg, xs,
-                                    step0=self.step)
+                carry, mid = self._advance(snapshot, ctx, seg, xs)
                 # the one overflow read of the segment
                 over, lost = self._segment_flags(carry[1])
                 if lost and not self._hist_warned:
@@ -952,6 +965,15 @@ class Simulation:
             if self._barostat_active() or ctx.shrink:
                 ctx = self._revalidate_geometry()
             self.state = self._carry[0]
+            if mid is not None:
+                # thermo reads the last force evaluation's energies and
+                # virial, taken before the end-of-step box move
+                self._last_energies, virial = mid
+                for fx, fs in zip(self.fixes, self._carry[2]):
+                    if fx.contributes_virial:
+                        virial = virial + fx.virial_contrib(fs)
+                self._last_virial = virial
+                self._energies_of = self._carry[0]
             for fx in self.fixes:
                 if fx.host_every and self.step % fx.host_every == 0:
                     fx.host_end_of_step(self)
@@ -982,6 +1004,41 @@ class Simulation:
         self.loop_time += elapsed
         self.loop_steps += nsteps
         self._finish_report(elapsed, nsteps)
+
+    def minimize(self, etol: float, ftol: float, maxiter: int,
+                 maxeval: int) -> bool:
+        """The minimize command (tpumd/md/simulation.py:1242-1260): a
+        thermo row before and after, and the line ``Minimization:
+        converged|max iterations after N iterations, E e0 -> e1``, with the
+        style of ``min_style`` (md/minimize.py); the timestep stays."""
+        from tpumd_torch.md.minimize import minimize
+        if self._ctx is None:
+            self.setup()
+        self._thermo_header()
+        self._thermo_line()
+        conv, niter, e0, e1 = minimize(self, self.min_style, etol, ftol,
+                                       maxiter, maxeval)
+        self._thermo_line()
+        self._log(f"Minimization: {'converged' if conv else 'max iterations'}"
+                  f" after {niter} iterations, E {e0:.10g} -> {e1:.10g}")
+        return conv
+
+    def _advance(self, carry, ctx, seg: int, xs):
+        """Run seg steps from carry; returns (carry, None), or where a fix
+        moves the box at end_of_step, (carry, (energies, virial) of the
+        last step's force evaluation), that step split around it
+        (tpumd/md/simulation.py:901-941)."""
+        if not any(fx.eos_box_change for fx in self.fixes):
+            return run_segment(*carry, ctx, seg, xs, step0=self.step), None
+        s, neigh, fstates = run_segment(
+            *carry, ctx, seg - 1, [None if x is None else x[:seg - 1]
+                                   for x in xs], step0=self.step)
+        last = [None if x is None else x[seg - 1] for x in xs]
+        s, neigh, fstates, virial = step_pre(s, neigh, fstates, ctx,
+                                             self.step + seg, last)
+        _, energies, vmid, _, _ = eval_energies(s, neigh, ctx)
+        return step_post(s, neigh, fstates, ctx, last, virial), (energies,
+                                                                vmid)
 
     def _setup_output_fixes(self):
         """At a run's set-up, after its thermo row and dumps: an ave fix

@@ -2,8 +2,11 @@
 
 PyTorch counterpart of tpumd/md/verlet.py, on the cell grid or the matrix
 neighbor engine (``StepContext.is_cellgrid``): the step (integrate,
-reneighbor decision, force evaluation, fix hooks, integrate) runs as a
-Python loop of eager tensor operations.  The rebuild decision is made on
+reneighbor decision, force evaluation, fix hooks, integrate, end_of_step)
+runs as a Python loop of eager tensor operations, in two parts
+(``step_pre`` through the force evaluation, ``step_post`` after it) so
+that the run can read the energies between them where a fix moves the
+box at end_of_step.  The rebuild decision is made on
 the host from the every/delay schedule, so a step with
 ``check no`` never waits for the device; ``check yes`` reads one flag from
 the device on scheduled steps.  Energies are evaluated only on output
@@ -401,15 +404,20 @@ def refresh_list(s: MDState, neigh, ctx: StepContext):
     return neigh if neigh.list_gated else neigh.replace(list_gated=True)
 
 
-def step(s: MDState, neigh, fstates, ctx: StepContext,
-         xs, istep: int):
-    """One velocity-Verlet step to timestep istep; xs holds each fix's
-    input of this step (or None)."""
+def step_pre(s: MDState, neigh, fstates, ctx: StepContext, istep: int,
+             xs):
+    """The first part of a step to timestep istep: the integrators' first
+    half (a fix with ``xs_in_pre`` takes its input xs[i] there), the
+    rebuild decision and the force evaluation; returns (s, neigh, fstates,
+    virial: the step's virial where a fix needs it, else None)."""
     fstates = list(fstates)
     for i, fx in enumerate(ctx.fixes):
         if fx.needs_step:
             fstates[i] = fx.set_step(fstates[i], istep)
-        s, fstates[i] = fx.initial_integrate(s, fstates[i], ctx)
+        if fx.xs_in_pre:
+            s, fstates[i] = fx.initial_integrate(s, fstates[i], ctx, xs[i])
+        else:
+            s, fstates[i] = fx.initial_integrate(s, fstates[i], ctx)
     for i, fx in enumerate(ctx.fixes):
         s, fstates[i] = fx.post_integrate(s, fstates[i], ctx)
     neigh = neigh.replace(ago=neigh.ago + 1)
@@ -417,10 +425,18 @@ def step(s: MDState, neigh, fstates, ctx: StepContext,
         s, neigh = _rebuild(s, neigh, ctx)
     elif ctx.pairlist_refresh:
         neigh = refresh_list(s, neigh, ctx)
-    need_virial = ctx.need_virial
     f, _, virial, torque, neigh = compute_forces(
-        s, neigh, ctx, eflag=False, vflag=need_virial, shearupdate=True)
+        s, neigh, ctx, eflag=False, vflag=ctx.need_virial, shearupdate=True)
     s = s.replace(f=f) if torque is None else s.replace(f=f, torque=torque)
+    return s, neigh, tuple(fstates), virial
+
+
+def step_post(s: MDState, neigh, fstates, ctx: StepContext, xs, virial):
+    """The rest of a step after its force evaluation: post_force (with
+    each fix's input xs[i]), final_integrate and end_of_step, each in the
+    fixes' deck order (tpumd/md/verlet.py:469-488)."""
+    fstates = list(fstates)
+    need_virial = ctx.need_virial
     for i, fx in enumerate(ctx.fixes):
         s, fstates[i] = fx.post_force(s, fstates[i], ctx, xs[i])
         if need_virial and fx.contributes_virial:
@@ -429,7 +445,17 @@ def step(s: MDState, neigh, fstates, ctx: StepContext,
         if fx.needs_virial:
             fstates[i] = fx.save_virial(fstates[i], virial)
         s, fstates[i] = fx.final_integrate(s, fstates[i], ctx)
+    for i, fx in enumerate(ctx.fixes):
+        s, fstates[i] = fx.end_of_step(s, fstates[i], ctx)
     return s, neigh, tuple(fstates)
+
+
+def step(s: MDState, neigh, fstates, ctx: StepContext,
+         xs, istep: int):
+    """One velocity-Verlet step to timestep istep; xs holds each fix's
+    input of this step (or None)."""
+    s, neigh, fstates, virial = step_pre(s, neigh, fstates, ctx, istep, xs)
+    return step_post(s, neigh, fstates, ctx, xs, virial)
 
 
 def run_segment(s: MDState, neigh, fstates,

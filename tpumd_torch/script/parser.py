@@ -49,7 +49,10 @@ from tpumd_torch.md.fix_sphere import FixFreeze, FixGravity, FixNVESphere
 from tpumd_torch.md.fix_wall import FixWallHarmonic, FixWallLJ126, \
     FixWallLJ93, FixWallReflect, parse_walls
 from tpumd_torch.md.fix_wall_gran import FixWallGran
-from tpumd_torch.md.fixes import FixNVE
+from tpumd_torch.md import fix_misc as fm
+from tpumd_torch.md.fix_deform import NARGS, FixDeform
+from tpumd_torch.md.fix_move import FixMove
+from tpumd_torch.md.fixes import FixNVE, FixNVELimit, FixNVENoforce
 from tpumd_torch.md.simulation import THERMO_KEYS, Simulation, \
     resolve_device
 from tpumd_torch.models.kspace_ewald import Ewald
@@ -64,6 +67,14 @@ BONDED_KINDS = ("bond", "angle", "dihedral", "improper")
 
 class ScriptError(RuntimeError):
     pass
+
+
+def _number(tok: str):
+    """tok as a float, or None where it is not a number."""
+    try:
+        return float(tok)
+    except ValueError:
+        return None
 
 
 class LammpsScript:
@@ -590,12 +601,14 @@ class LammpsScript:
     # -------------------------------------------------------------- commands
     def cmd_units(self, a):
         self._units_name = a[0]
-        boundary = None if self.sim is None else self.sim.boundary
+        old = self.sim
         self.sim = Simulation(units=a[0], device=self.device,
                               dtype=self.dtype)
         self.sim.script = self
-        if boundary is not None:
-            self.sim.boundary = boundary   # a boundary command may come first
+        if old is not None:
+            # a boundary or dimension command may come first
+            self.sim.boundary, self.sim.dimension = old.boundary, \
+                old.dimension
 
     def cmd_atom_style(self, a):
         get_style(a[0])   # raises for a style the port does not have
@@ -665,12 +678,16 @@ class LammpsScript:
                 d.natoms, d.bonds)
         self._materialize_styles()
         # coefficient sections of the data file
-        if "Pair Coeffs" in d.coeffs:
-            if not hasattr(sim.pair, "coeff_from_data"):
-                raise NotImplementedError(
-                    f"Pair Coeffs in the data file for pair_style "
-                    f"{getattr(sim.pair, 'name', None)}")
-            sim.pair.coeff_from_data(d.coeffs["Pair Coeffs"])
+        # (tpumd/script/parser.py:2495-2503: Pair Coeffs read before any
+        # pair_style are dropped, where LAMMPS stops with an error; a
+        # style without its own reader takes each row as pair_coeff t t)
+        if "Pair Coeffs" in d.coeffs and sim.pair is not None:
+            if hasattr(sim.pair, "coeff_from_data"):
+                sim.pair.coeff_from_data(d.coeffs["Pair Coeffs"])
+            else:
+                for r in d.coeffs["Pair Coeffs"]:
+                    t = int(r[0])
+                    sim.pair.coeff(t, t, t, t, *[float(v) for v in r[1:]])
         for kind in BONDED_KINDS:
             rows = d.coeffs.get(kind.capitalize() + " Coeffs")
             if rows is not None and kind in sim.bonded:
@@ -1281,28 +1298,34 @@ class LammpsScript:
                           for small in ("", "/small"))
     _WALL_STYLES = ("wall/lj93", "wall/lj126", "wall/harmonic",
                     "wall/reflect")
-    # the fixes that take a group other than all
     _OUTPUT_FIXES = ("ave/time", "ave/atom", "ave/histo", "ave/correlate",
                      "ave/chunk", "print", "halt", "store/state",
                      "property/atom")
-    _GROUP_FIXES = ("nve/sphere", "freeze", "gravity", "wall/gran", "pour",
-                    "deposit", "evaporate") + _WALL_STYLES + _RIGID_STYLES \
-        + _OUTPUT_FIXES
+    # the fixes that act on the whole system whatever their group: a
+    # subgroup raises (shake and rattle as tpumd; the others read the
+    # temperature or move the box of every atom)
+    _ALL_ONLY = ("shake", "rattle", "temp/berendsen", "temp/rescale",
+                 "press/berendsen", "deform")
     # fixes of the reference that wait for other parts of the port
     _FIXES_WAITING = {
         "ave/grid": "it waits with dump grid (ROADMAP A9 (i))",
         "tune/kspace": "it needs ewald and msm beside pppm",
         "balance": "it waits with the balance command (ROADMAP A9 (k))",
-        "deform": "fix deform is not ported",
     }
+    # the host fixes of md/fix_misc.py by style, and their count of
+    # positional values
+    _MISC_FIXES = {"setforce": 3, "addforce": 3, "spring/self": 1,
+                   "viscous": 1, "efield": 3, "drag": 5, "aveforce": 3,
+                   "planeforce": 3, "lineforce": 3, "temp/rescale": 5,
+                   "temp/berendsen": 3, "enforce2d": 0}
 
     def cmd_fix(self, a):
         sim = self.sim
         fid, group, style, args = a[0], a[1], a[2], a[3:]
-        if group != "all" and style not in self._GROUP_FIXES:
+        if group != "all" and style in self._ALL_ONLY:
             raise NotImplementedError(
-                f"fix {fid} {style} on group {group!r}: only "
-                f"{', '.join(self._GROUP_FIXES)} act on a group")
+                f"fix {fid} {style} on group {group!r}: the port's fix "
+                f"{style} acts on every atom, so only group all is ported")
         if style == "nve/sphere" and not args:
             fx = FixNVESphere()
         elif style == "freeze" and not args:
@@ -1311,6 +1334,40 @@ class LammpsScript:
             fx = FixGravity(args[0], args[1], *args[2:])
         elif style == "nve" and not args:
             fx = FixNVE()
+        elif style == "nve/limit" and len(args) == 1:
+            fx = FixNVELimit(float(args[0]))
+        elif style == "nve/noforce" and not args:
+            fx = FixNVENoforce()
+        elif style in self._MISC_FIXES:
+            fx = self._parse_misc_fix(style, args)
+        elif style == "spring":
+            if len(args) != 6 or args[0] != "tether":
+                raise NotImplementedError(
+                    f"fix spring {' '.join(args)} is not ported (only "
+                    "tether K x y z R0)")
+            fx = fm.FixSpring(float(args[1]), *self._nulls(args[2:5]),
+                              float(args[5]))
+        elif style == "recenter":
+            if args[3:] not in ([], ["units", "box"]) and any(
+                    t not in ("INIT", "NULL") for t in args[:3]):
+                raise NotImplementedError(
+                    f"fix recenter {' '.join(args)} is not ported (box "
+                    "units, as tpumd reads them)")
+            fx = fm.FixRecenter(*args[:3])
+        elif style == "momentum":
+            if args[1:] not in ([], ["linear", "1", "1", "1"]):
+                raise NotImplementedError(
+                    f"fix momentum {' '.join(args)} is not ported (only N "
+                    "[linear 1 1 1])")
+            fx = fm.FixMomentum(int(args[0]))
+        elif style == "indent":
+            fx = self._parse_indent(args)
+        elif style == "press/berendsen":
+            fx = self._parse_press_berendsen(args)
+        elif style == "move":
+            fx = self._parse_fix_move(args)
+        elif style == "deform":
+            fx = self._parse_deform(args)
         elif style == "langevin" and len(args) == 4:
             fx = FixLangevin(*args[:3], int(args[3]), device=sim.device)
         elif style in ("nvt", "npt", "nph"):
@@ -1343,11 +1400,13 @@ class LammpsScript:
                                       f"{self._FIXES_WAITING[style]}")
         else:
             raise NotImplementedError(
-                f"fix {' '.join(a[1:])!r} is not ported (only 'all nve', "
-                "'all langevin Tstart Tstop damp seed', nvt, npt, nph, "
-                "shake, rattle, the rigid styles, nve/sphere, freeze, "
-                "gravity, wall/gran, wall/lj93, wall/lj126, wall/harmonic, "
-                "wall/reflect, pour, deposit and evaporate)")
+                f"fix {' '.join(a[1:])!r} is not ported (only nve, "
+                "nve/limit, nve/noforce, 'langevin Tstart Tstop damp seed', "
+                "nvt, npt, nph, shake, rattle, the rigid styles, "
+                "nve/sphere, freeze, gravity, the walls, pour, deposit, "
+                "evaporate, move, deform, press/berendsen, spring, "
+                "recenter, momentum, indent and "
+                f"{', '.join(self._MISC_FIXES)})")
         sim.fixes = [fx for fx in sim.fixes if fx.id != fid]
         fx.id = fid
         fx.groupbit = self._group_bit(group)
@@ -1359,6 +1418,166 @@ class LammpsScript:
             # its values and property/atom makes its columns there
             self._finalize_atoms()
             fx.host_setup(sim)
+
+    @staticmethod
+    def _nulls(toks):
+        """Floats, None for NULL."""
+        return [None if t == "NULL" else float(t) for t in toks]
+
+    def _parse_misc_fix(self, style, args):
+        """The fixes of md/fix_misc.py with positional values only
+        (tpumd/script/parser.py:1391-1462); a NULL force component is
+        None, the field of efield is scaled by qe2f."""
+        n = self._MISC_FIXES[style]
+        if len(args) != n:
+            raise NotImplementedError(
+                f"fix {style} {' '.join(args)} is not ported (only its {n} "
+                "values, without keywords)")
+        if style in ("setforce", "aveforce"):
+            cls = fm.FixSetForce if style == "setforce" else fm.FixAveForce
+            return cls(*self._nulls(args))
+        if style == "drag":
+            return fm.FixDrag(*self._nulls(args[:3]), float(args[3]),
+                              float(args[4]))
+        if style == "efield":
+            qe2f = self.sim.units.qe2f
+            return fm.FixEfield(*[qe2f * float(v) for v in args])
+        if style == "temp/rescale":
+            return fm.FixTempRescale(int(args[0]), *map(float, args[1:]))
+        cls = {"addforce": fm.FixAddForce, "spring/self": fm.FixSpringSelf,
+               "viscous": fm.FixViscous, "planeforce": fm.FixPlaneForce,
+               "lineforce": fm.FixLineForce,
+               "temp/berendsen": fm.FixTempBerendsen,
+               "enforce2d": fm.FixEnforce2D}[style]
+        return cls(*map(float, args))
+
+    def _parse_indent(self, args):
+        """fix indent K sphere x y z R [side in|out] [units box|lattice]
+        (tpumd/script/parser.py:1430-1446): the geometry in lattice
+        spacings unless units box."""
+        rest = dict(zip(args[6::2], args[7::2]))
+        if len(args) < 6 or args[1] != "sphere" or len(args[6:]) % 2 \
+                or set(rest) - {"side", "units"}:
+            raise NotImplementedError(
+                f"fix indent {' '.join(args)} is not ported (only K sphere "
+                "x y z R [side in|out] [units box|lattice])")
+        scale = (1.0, 1.0, 1.0)
+        if rest.get("units", "lattice") != "box" and self.lattice is not None:
+            scale = self.lattice.spacing
+        ctr = [float(v) * sc for v, sc in zip(args[2:5], scale)]
+        return fm.FixIndent(float(args[0]), *ctr, float(args[5]) * scale[0],
+                            side=rest.get("side", "out"))
+
+    @staticmethod
+    def _parse_press_berendsen(args):
+        """fix press/berendsen iso|aniso|x|y|z Pstart Pstop Pdamp ...
+        [couple xyz|none] [modulus B] [dilate all]
+        (tpumd/script/parser.py:1350-1389)."""
+        flags, start, stop = [False] * 3, [0.0] * 3, [0.0] * 3
+        period = [1.0] * 3
+        modulus, couple = 10.0, False
+        i = 0
+        while i < len(args):
+            k = args[i]
+            if k in ("iso", "aniso", "x", "y", "z"):
+                dims = range(3) if k in ("iso", "aniso") else ["xyz".index(k)]
+                for d in dims:
+                    flags[d] = True
+                    start[d], stop[d], period[d] = map(
+                        float, args[i + 1:i + 4])
+                couple = couple or k == "iso"
+                i += 4
+            elif k == "couple" and args[i + 1] in ("xyz", "none"):
+                couple = args[i + 1] == "xyz"
+                i += 2
+            elif k == "modulus":
+                modulus = float(args[i + 1])
+                i += 2
+            elif k == "dilate" and args[i + 1] == "all":
+                i += 2
+            else:
+                raise NotImplementedError(
+                    f"fix press/berendsen keyword {' '.join(args[i:i + 2])} "
+                    "is not ported (iso, aniso, x, y, z, couple xyz|none, "
+                    "modulus, dilate all)")
+        return fm.FixPressBerendsen(flags, start, stop, period,
+                                    modulus=modulus, couple=couple)
+
+    def _parse_fix_move(self, args):
+        """fix move linear|wiggle|rotate|transrot|variable ... [units
+        box|lattice] (src/fix_move.cpp:71-222; tpumd/script/parser.py:
+        1753-1800): lengths in lattice spacings unless units box."""
+        mstyle, rest = args[0], list(args[1:])
+        scaleflag = True
+        if len(rest) >= 2 and rest[-2] == "units":
+            scaleflag = rest[-1] == "lattice"
+            rest = rest[:-2]
+        sp = (self.lattice.spacing if scaleflag and self.lattice is not None
+              else (1.0, 1.0, 1.0))
+        nvals = {"linear": 3, "wiggle": 4, "rotate": 7, "transrot": 10,
+                 "variable": 6}
+        if mstyle not in nvals or len(rest) != nvals[mstyle]:
+            raise NotImplementedError(
+                f"fix move {' '.join(args)} is not ported (linear, wiggle, "
+                "rotate, transrot, variable, then units box|lattice)")
+        step = self.sim.step
+
+        def scaled(vals):
+            return [None if v is None else v * sp[c]
+                    for c, v in enumerate(vals)]
+        if mstyle == "linear":
+            return FixMove(FixMove.LINEAR, vel=scaled(self._nulls(rest)),
+                           time_origin=step)
+        if mstyle == "wiggle":
+            return FixMove(FixMove.WIGGLE, amp=scaled(self._nulls(rest[:3])),
+                           period=float(rest[3]), time_origin=step)
+        if mstyle == "rotate":
+            return FixMove(FixMove.ROTATE,
+                           point=scaled([float(t) for t in rest[:3]]),
+                           axis=[float(t) for t in rest[3:6]],
+                           period=float(rest[6]), time_origin=step)
+        if mstyle == "transrot":
+            return FixMove(FixMove.TRANSROT,
+                           vel=scaled([float(t) for t in rest[:3]]),
+                           point=scaled([float(t) for t in rest[3:6]]),
+                           axis=[float(t) for t in rest[6:9]],
+                           period=float(rest[9]), time_origin=step)
+        fx = FixMove(FixMove.VARIABLE, time_origin=step, varnames=[
+            None if t == "NULL" else t.removeprefix("v_") for t in rest])
+        fx.script = self
+        return fx
+
+    def _parse_deform(self, args):
+        """fix deform N dim style values ... [remap x|none] [units box]
+        (tpumd/script/parser.py:1615-1640).  final, delta and vel read
+        their distances in box units, as tpumd does, so they need units
+        box where a lattice is defined."""
+        specs, remap, units = {}, "x", None
+        i = 1
+        while i < len(args):
+            key = args[i]
+            if key in ("x", "y", "z") and args[i + 1] in NARGS:
+                n = NARGS[args[i + 1]]
+                specs["xyz".index(key)] = (args[i + 1],) + tuple(
+                    float(v) for v in args[i + 2:i + 2 + n])
+                i += 2 + n
+            elif key in ("remap", "units"):
+                if key == "remap":
+                    remap = args[i + 1]
+                else:
+                    units = args[i + 1]
+                i += 2
+            else:
+                raise NotImplementedError(
+                    f"fix deform {' '.join(args[i:i + 2])} is not ported "
+                    f"(x, y, z with {', '.join(NARGS)}; remap; units box)")
+        distances = any(sp[0] in ("final", "delta", "vel")
+                        for sp in specs.values())
+        if distances and self.lattice is not None and units != "box":
+            raise NotImplementedError(
+                "fix deform final/delta/vel in lattice units is not ported "
+                "(tpumd reads them in box units): give units box")
+        return FixDeform(int(args[0]), specs, remap)
 
     @staticmethod
     def _keywords(vals, keys):
@@ -1542,6 +1761,51 @@ class LammpsScript:
             n = max(0, n - self.sim.step)
         self.sim.run(n)
 
+    def cmd_minimize(self, a):
+        """minimize etol ftol maxiter maxeval (src/minimize.cpp;
+        tpumd/script/parser.py:2131-2133)."""
+        if len(a) != 4:
+            raise ScriptError("minimize takes etol ftol maxiter maxeval")
+        self._finalize_atoms()
+        self.sim.minimize(float(a[0]), float(a[1]), int(a[2]), int(a[3]))
+
+    def cmd_min_style(self, a):
+        """min_style fire|cg|sd|quickmin|hftn (md/minimize.py)."""
+        from tpumd_torch.md.minimize import STYLES
+        if len(a) != 1 or a[0] not in STYLES:
+            raise NotImplementedError(f"min_style {' '.join(a)} is not ported "
+                                      f"({', '.join(STYLES)})")
+        self._require_sim().min_style = a[0]
+
+    # min_modify keywords at the one value each that the port's minimizer
+    # computes with (tpumd ignores min_modify): dmax, tpumd's halving line
+    # search, FIRE's constants, Euler-implicit steps without the half step
+    # back, the 2-norm
+    _MIN_MODIFY = {"dmax": 0.1, "line": "backtrack", "delaystep": 5,
+                   "dtgrow": 1.1, "dtshrink": 0.5, "alpha0": 0.25,
+                   "alphashrink": 0.99, "tmax": 10.0,
+                   "integrator": "eulerimplicit", "halfstepback": "no",
+                   "norm": "two"}
+
+    def cmd_min_modify(self, a):
+        """min_modify keyword value ...: each keyword only at the value of
+        ``_MIN_MODIFY``; any other value or keyword raises, naming it."""
+        if len(a) % 2:
+            raise ScriptError(f"min_modify {' '.join(a)}: keyword value "
+                              "pairs")
+        for key, val in zip(a[::2], a[1::2]):
+            want = self._MIN_MODIFY.get(key)
+            if want is None:
+                known = ", ".join(f"{k} {v}"
+                                  for k, v in self._MIN_MODIFY.items())
+                raise NotImplementedError(
+                    f"min_modify {key} is not ported (only {known})")
+            if str(want) != val and (isinstance(want, str)
+                                     or _number(val) != want):
+                raise NotImplementedError(
+                    f"min_modify {key} {val} is not ported: the minimizer "
+                    f"computes with {key} {want}")
+
     # ------------------------------------------------------------- output
     def cmd_dump(self, a):
         """dump ID group atom|custom N file [fields] (src/dump.cpp)."""
@@ -1711,6 +1975,9 @@ class LammpsScript:
         pass   # map and sort settings: the port keeps its own
 
     def cmd_dimension(self, a):
-        if int(a[0]) != 3:
-            raise NotImplementedError("dimension 2 is not ported")
-        self._require_sim().dimension = 3
+        """dimension 2|3: the dof, the pressure and velocity create count
+        the dimension, as tpumd's do; a 2-D deck keeps its atoms in the
+        plane with fix enforce2d."""
+        if len(a) != 1 or a[0] not in ("2", "3"):
+            raise ScriptError(f"dimension {' '.join(a)}: 2 or 3")
+        self._require_sim().dimension = int(a[0])
