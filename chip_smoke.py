@@ -217,11 +217,32 @@ line each (any failure raises and exits non-zero):
    each final list against its stencil oracle in f64; B1 in f32, the
    list build (and where the deck refreshes, the refresh) at each final
    state against their plain versions, timed;
-14. a JSON line of the kernels (the list build of each deck, the refresh
+14. the many-body styles and EAM on the matrix engine (``manybody_phase``,
+   ``sw32k_path``, ``tersoff32k_path``, ``eamalloy32k_path``): sw's and
+   tersoff's forces, energy and virial with the neighbour rows gathered
+   by P1 against the plain gather (f64, 512 atoms); the two MEAM goldens
+   (tests/golden/meam) and the atm golden (6^3 cells under
+   hybrid/overlay) in f64 against the reference binary's rows; a small
+   deck of tersoff/mod, tersoff/zbl, vashishta, edip, eam/fs, eam/he,
+   adp, eim and a hybrid/scaled of lj/cut with sw, each on the card
+   against the CPU at step 10 (f64, 1e-10), P1 launched and no plain
+   call; then ``IN_SW32K`` and ``IN_TERSOFF32K`` (LAMMPS's
+   bench/POTENTIALS/in.sw at 32,000 Si atoms) and ``IN_EAMALLOY32K`` (the
+   two-element Cu/Al cell replicated 5^3): in f64 the step-0 gates (the
+   lattice's pe/atom and virial pressure from tpumd; for the alloy 125x
+   the cell's energies and its forces replicated), the step-100 row and
+   forces; in f32 from the f64 deck's velocities and types the step-100
+   row against f64 (3x the CPU's gap), 500 (alloy: 200) timed steps after
+   100, 1,000 steps without a NaN, a lost atom or a neighbour overflow,
+   the energy drift, P1's launches (no plain call, no grid kernel), peak
+   memory, a profile of 20 steps, f32 forces on the f64 run's step-100
+   positions against f64 there, and P1 at the deck's neighbour-row
+   shape beside its bound, the plain version and torch.index_select;
+15. a JSON line of the kernels (the list build of each deck, the refresh
    calls of in.lj, eam, rhodo_class, min32k and deform32k, B1 on min32k,
    pressber32k and deform32k, B5 at each 30k water deck's shape, B6's
-   HERTZ variant at granhertz32k's and P1 at the salt's and at hyb32k's,
-   each an entry of its own),
+   HERTZ variant at granhertz32k's and P1 at the salt's, hyb32k's,
+   sw32k's, tersoff32k's and eamalloy32k's, each an entry of its own),
    the card's name and power limit as nvidia-smi prints them, then the
    result line.
 
@@ -3038,7 +3059,10 @@ P1_MAIN_SHAPES = (
 P1_CALLERS = ("tpumd_torch.ops.neighbor", "tpumd_torch.ops.pairwise",
               "tpumd_torch.models.pair_gran", "tpumd_torch.models.pair_lj_cut",
               "tpumd_torch.models.base", "tpumd_torch.models.pair_table",
-              "tpumd_torch.models.bonded")
+              "tpumd_torch.models.bonded", "tpumd_torch.models.pair_manybody",
+              "tpumd_torch.models.pair_hybrid", "tpumd_torch.models.pair_eam",
+              "tpumd_torch.models.pair_adp", "tpumd_torch.models.pair_eim",
+              "tpumd_torch.models.pair_meam")
 
 
 def p1_case(gen, dtype, rows: int, width: int, shape: tuple):
@@ -4693,6 +4717,428 @@ def deform_path(smi: str) -> dict:
                            (0, 0), bt.deform32k_deck(text, 500))
 
 
+# --------------------------------------------------------------- many-body
+MB_SMALL = ("tersoff/mod", "tersoff/zbl", "vashishta", "edip", "eam/fs",
+            "eam/he", "adp", "eim", "hybrid/scaled sw")
+
+
+def mb_small_deck(style: str, tmp: Path) -> str:
+    """A small f64 deck of style, its inputs written into tmp, to step
+    10: 3^3 Si diamond (tersoff/mod, edip), a 3^3 SiC crystal in vacuum
+    (tersoff/zbl in a box of 4 cells, vashishta of 6), the Cu/Al cell of
+    IN_EAMALLOY (eam/fs, eam/he, adp), a 3^3 rock-salt crystal (eim), or
+    sw and lj/cut on two types under hybrid/scaled."""
+    from tpumd_torch import bench_targets as bt
+    nve = ("velocity all create {t} 376847 loop geom\nneighbor 1.0 bin\n"
+           "neigh_modify every 1 delay 5 check yes\nfix 1 all nve\n"
+           "timestep {dt}\nthermo 5\n")
+    si = ("units metal\natom_style atomic\nlattice diamond 5.431\n"
+          "region box block 0 3 0 3 0 3\ncreate_box {nt} box\n"
+          "create_atoms 1 box\nmass * 28.06\n")
+    if style in ("tersoff/mod", "edip"):
+        f = {"tersoff/mod": "Si.tersoff.mod", "edip": "Si.edip"}[style]
+        pot = bt.write_potential(tmp, f)
+        return (si.format(nt=1) + f"pair_style {style}\npair_coeff * * "
+                f"{pot} Si\n" + nve.format(t=1200.0, dt=0.001))
+    if style in ("tersoff/zbl", "vashishta"):
+        f = {"tersoff/zbl": "SiC.tersoff.zbl",
+             "vashishta": "SiC.vashishta"}[style]
+        pot = bt.write_potential(tmp, f)
+        data = tmp / f"data.{style.replace('/', '_')}"
+        bt.two_type_data(data, "zincblende", 3,
+                         box_cells=4 if style == "tersoff/zbl" else 6)
+        return (f"units metal\natom_style atomic\nread_data {data}\n"
+                f"pair_style {style}\npair_coeff * * {pot} Si C\n"
+                + nve.format(t=1800.0, dt=0.0005))
+    if style in ("eam/fs", "eam/he", "adp"):
+        pot = tmp / f"CuAl.{style.replace('/', '_')}"
+        bt.alloy_setfl(pot, fs=style == "eam/fs", adp=style == "adp",
+                       he_rhomin=0.9 if style == "eam/he" else None)
+        return (bt.IN_EAMALLOY.format(n=1, potential=pot)
+                .replace("eam/alloy", style).replace("thermo          100",
+                                                     "thermo 5"))
+    if style == "eim":
+        data, ffield = tmp / "data.nacl", tmp / "ffield.eim"
+        bt.two_type_data(data, "rocksalt", 3)
+        ffield.write_text(bt.FFIELD_EIM)
+        return (f"units metal\natom_style atomic\nread_data {data}\n"
+                f"pair_style eim\npair_coeff * * Na Cl {ffield} Na Cl\n"
+                + nve.format(t=1400.0, dt=0.001))
+    pot = bt.write_potential(tmp, "Si.sw")
+    return (si.format(nt=2) + "region half block 0 1.5 0 3 0 3\n"
+            "set region half type 2\n"
+            "pair_style hybrid/scaled 0.5 lj/cut 4.0 0.8 sw\n"
+            "pair_coeff * * lj/cut 0.01 2.0\n"
+            f"pair_coeff * * sw {pot} Si Si\n"
+            "pair_coeff 1 2 lj/cut 0.02 2.1\n"
+            + nve.format(t=1200.0, dt=0.001))
+
+
+def mb_card_vs_cpu(deck: str, steps: int = 10) -> tuple[dict, dict, int]:
+    """(card row, CPU row, P1 launches on the card) of deck run to steps
+    in f64 on both; raises where the card took a plain gather or a grid
+    kernel, or P1 not once a force evaluation."""
+    from tpumd_torch.ops import gather
+    from tpumd_torch.script.parser import LammpsScript
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        script = LammpsScript(device=dev, dtype=torch.float64)
+        with contextlib.redirect_stdout(sys.stderr):
+            script.run_string(deck)
+        script.sim.verbose = False
+        gather.counts.reset()
+        torch.cuda.reset_peak_memory_stats()
+        script.run_string(f"run {steps}")
+        rows[dev] = dict(script.sim.last_thermo)
+        if dev == "cuda":
+            launches = gather.counts.kernel_launches
+            if gather.counts.plain_calls or launches < steps + 1 \
+                    or script.sim._ctx.is_cellgrid:
+                raise AssertionError(
+                    f"card run: P1 launches {launches} < {steps + 1} or "
+                    f"plain calls {gather.counts.plain_calls} or grid "
+                    f"{script.sim._ctx.is_cellgrid}")
+    return rows["cuda"], rows["cpu"], launches
+
+
+def mb_p1_forces_vs_plain(tmp: Path):
+    """sw and tersoff on a perturbed 4^3 Si crystal in f64 on the card:
+    the forces with the neighbour rows gathered by P1 against those with
+    the plain gather.  P1 writes outside autograd, so the j side of every
+    term reaches the forces through the scatter alone."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.models import pair_manybody
+    from tpumd_torch.ops import gather
+    from tpumd_torch.script.parser import LammpsScript
+    for style in ("sw", "tersoff"):
+        pot = bt.write_potential(tmp, bt.MB32K_POTENTIAL[style])
+        script = LammpsScript(device="cuda", dtype=torch.float64)
+        with contextlib.redirect_stdout(sys.stderr):
+            script.run_string(bt.in_mb32k(style, pot, (4, 4, 4)) + (
+                "displace_atoms all random 0.1 0.1 0.1 4711 units box\n"
+                "run 0\n"))
+        sim = script.sim
+        s, neigh = sim._carry[0], sim._carry[1]
+        args = (s.x, s.type, s.box, neigh.idx, neigh.sbits, None, None,
+                True, True)
+        gather.counts.reset()
+        f, e, _, v = sim.pair.compute(*args)
+        launched = gather.counts.kernel_launches
+        pair_manybody.gather_rows = gather.gather_rows_plain
+        try:
+            fp, ep, _, vp = sim.pair.compute(*args)
+        finally:
+            pair_manybody.gather_rows = gather.gather_rows
+        err = float((f - fp).abs().max())
+        scale = float(fp.abs().max())
+        if not (launched >= 1 and err <= 1e-12 * scale and scale > 0.1
+                and abs(float(e - ep)) <= 1e-12 * abs(float(ep))
+                and float((v - vp).abs().max())
+                <= 1e-12 * float(vp.abs().max())):
+            raise AssertionError(f"{style}: forces through P1 against the "
+                                 f"plain gather: {err} of {scale}, "
+                                 f"launches {launched}")
+        phase("manybody", f"{style} forces through P1 = through the plain "
+                          f"gather (f64, 512 atoms): max|diff| {err:.3e} "
+                          f"of max|f| {scale:.4f}, energy and virial alike")
+
+
+def manybody_phase():
+    """The many-body styles' checks on the card in f64: forces through P1
+    against the plain gather, the two MEAM goldens and the atm golden
+    against the reference binary's rows, and a small deck of each other
+    style on the card against the CPU at step 10."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.ops import gather
+    from tpumd_torch.script.parser import LammpsScript
+    gold = Path(__file__).resolve().parent / "tests" / "golden" / "meam"
+    goldens = [(f"meam {n}", bt.meam_golden_deck((gold / n).read_text()), w)
+               for n, w in bt.MEAM_GOLDEN_ROWS.items()]
+    goldens.append(("atm 6^3", bt.IN_ATM_GOLDEN, bt.ATM_GOLDEN_ROW))
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        mb_p1_forces_vs_plain(tmp)
+        for f in ("data.meam", "library.meam", "SiC.meam", "Ni.meam"):
+            (tmp / f).write_bytes((gold / f).read_bytes())
+        for name, deck, want in goldens:
+            gather.counts.reset()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            script = LammpsScript(device="cuda", dtype=torch.float64)
+            script.data_dir = str(tmp)
+            with contextlib.redirect_stdout(sys.stderr):
+                script.run_string(deck)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = script.sim.last_thermo
+            bad = [k for k, w in want.items()
+                   if abs(got[k] - w) > (1e-5 if k == "press" else 1e-6)
+                   * abs(w)]
+            if bad or gather.counts.plain_calls \
+                    or gather.counts.kernel_launches == 0:
+                raise AssertionError(f"{name} on the card: {bad} "
+                                     f"{ {k: got[k] for k in want} }")
+            cfg = script.sim._neigh_cfg
+            phase("manybody", f"{name} golden in f64 on the card = the "
+                              f"reference binary's row (1e-6, press 1e-5): "
+                              f"{ {k: got[k] for k in want} }; K "
+                              f"{cfg.kmax}, P1 launches "
+                              f"{gather.counts.kernel_launches}, {secs:.2f} "
+                              "s, peak "
+                              f"{torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                              " GiB")
+            del script
+        for style in MB_SMALL:
+            card, cpu, launches = mb_card_vs_cpu(mb_small_deck(style, tmp))
+            gaps = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-300)
+                    for k in ("temp", "epair", "etotal", "press")}
+            if not all(g <= 1e-10 for g in gaps.values()):
+                raise AssertionError(f"{style} card against CPU at step 10:"
+                                     f" {gaps}")
+            phase("manybody", f"{style} small deck in f64, card = CPU at "
+                              f"step 10 to 1e-10 (largest gap "
+                              f"{max(gaps.values()):.2e}): etotal "
+                              f"{card['etotal']!r}; P1 launches {launches}"
+                              ", no plain call")
+
+
+def mb32k_script(deck: str, dtype):
+    """LammpsScript of a 32k many-body deck on the card, verbose off,
+    before its first run."""
+    from tpumd_torch.script.parser import LammpsScript
+    script = LammpsScript(device="cuda", dtype=dtype)
+    with contextlib.redirect_stdout(sys.stderr):
+        script.run_string(deck)
+    script.sim.verbose = False
+    return script
+
+
+def mb32k_path(name: str, deck: str, smi: str, step0_check, cpu_gap: dict,
+               timed: int, total: int) -> tuple[dict, dict]:
+    """A 32k deck on the matrix engine: in f64 step 0 behind step0_check
+    (its message) and the step-100 row and forces; then the main path in
+    f32 from the f64 deck's velocities and types: the step-100 row against
+    f64 (3x the CPU's gap of the small deck), `timed` timed steps after 100
+    of warm-up, `total` steps without a NaN, a lost atom or a neighbour
+    overflow, the energy drift, P1's launches (no plain call, no grid
+    kernel), peak memory and a profile of 20 steps; f32 forces on the f64
+    run's step-100 positions against f64 there; P1 at the deck's packed
+    neighbour-row shape."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.ops import cellgrid_pairlist, charmm_cellgrid, \
+        eam_cellgrid, gather, gran_cellgrid, lj_cellgrid, lj_fene_cellgrid
+    grid = (lj_cellgrid.counts, lj_fene_cellgrid.counts,
+            eam_cellgrid.rho_counts, eam_cellgrid.force_counts,
+            charmm_cellgrid.counts, gran_cellgrid.counts,
+            cellgrid_pairlist.counts, cellgrid_pairlist.refresh_counts)
+    # 1. f64: step 0, then the step-100 row, positions and forces
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = mb32k_script(deck, torch.float64)
+    v64, t64 = ref.sim.state.v.clone(), ref.sim.state.type.clone()
+    ref.run_string("run 0")
+    n = ref.sim.natoms
+    msg = step0_check(ref.sim)
+    ref.run_string("run 100")
+    torch.cuda.synchronize()
+    s64_s = time.perf_counter() - t0
+    row100_64 = dict(ref.sim.last_thermo)
+    x100 = tag_order(ref.sim.state.x, ref.sim.state.tag).clone()
+    f100 = tag_order(ref.sim.state.f, ref.sim.state.tag).clone()
+    phase(name, f"f64 step 0 ({n} atoms, matrix engine): {msg}; to step "
+                f"100 in {s64_s:.2f} s, peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del ref
+    torch.cuda.empty_cache()
+    # 2. the main path in f32; the counts are set to 0 just before it
+    for c in (gather.counts,) + grid:
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    script = mb32k_script(deck, torch.float32)
+    sim = script.sim
+    sim.state = sim.state.replace(v=v64.to(torch.float32), type=t64)
+    seen = {}
+    with recording_p1(seen):
+        script.run_string("run 0")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    script.run_string("run 100")
+    row100 = dict(sim.last_thermo)
+    gaps = {k: abs(row100[k] - row100_64[k]) / abs(row100_64[k])
+            for k in ("temp", "epair", "etotal", "press")}
+    bad = bt.f32_gap_failures(gaps, cpu_gap)
+    if bad:
+        raise AssertionError(f"{name} step 100, f32 against f64: {bad}")
+    lt0 = sim.loop_time
+    script.run_string(f"run {timed}")
+    torch.cuda.synchronize()
+    sps = timed / (sim.loop_time - lt0)
+    script.run_string(f"run {total - 100 - timed}")
+    torch.cuda.synchronize()
+    launches = gather.counts.kernel_launches
+    plain = gather.counts.plain_calls + sum(c.plain_calls for c in grid)
+    other = sum(c.kernel_launches for c in grid)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # a force evaluation at each of the four runs' set-ups and each step
+    force_evals = 4 + total
+    if launches < force_evals or plain or other or sim._ctx.is_cellgrid:
+        raise AssertionError(f"{name}: row_gather launches {launches} < "
+                             f"force evaluations {force_evals}, or plain "
+                             f"calls {plain}, or grid kernel launches {other}")
+    rows = thermo_rows(sim)
+    e = np.array([rows[k]["etotal"] for k in sorted(rows)])
+    s, neigh, _ = sim._carry
+    finite = (np.isfinite(np.array([list(r.values())
+                                    for r in rows.values()])).all()
+              and bool(torch.isfinite(s.x).all())
+              and bool(torch.isfinite(s.v).all()))
+    ntags = int(torch.unique(s.tag[s.tag > 0]).numel())
+    if sorted(rows)[-1] != total or not finite or ntags != n \
+            or bool(neigh.overflow):
+        raise AssertionError(f"{name}: rows {sorted(rows)}, finite "
+                             f"{finite}, atoms {ntags}, overflow "
+                             f"{bool(neigh.overflow)}")
+    drift = float(np.abs(e - e[0]).max() / abs(e[0]))
+    cfg = sim._neigh_cfg
+    phase(name, f"f32 (matrix engine): set-up {setup_s:.3f} s (cells "
+                f"{cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cell_cap}, K "
+                f"{cfg.kmax}, max count {int(neigh.max_count)}); step 100 "
+                f"= f64 within 3x the CPU's gaps: " + ", ".join(
+                    f"{k} {g:.2e}" for k, g in gaps.items())
+                + f"; {total} steps, {ntags} atoms, no NaN, no overflow; "
+                f"energy drift {drift:.4e} (max over the rows)")
+    phase(name, f"timed {timed} steps after 100: {sps:.2f} timesteps/s, "
+                f"{sps * n / 1e6:.3f} Matom-step/s on {smi}; row_gather "
+                f"launches {launches} over {force_evals} force evaluations "
+                f"({launches / force_evals:.2f} a force evaluation, the "
+                f"neighbour builds' included), plain calls {plain}, grid "
+                f"kernel launches {other}; peak {peak:.2f} GiB")
+    phase(name, profile_steps(script, 20, 1e3 / sps))
+    del script, sim, s, neigh
+    torch.cuda.empty_cache()
+    # 3. f32 forces on the f64 run's step-100 positions
+    probe = mb32k_script(deck, torch.float32)
+    st = probe.sim.state
+    probe.sim.state = st.replace(x=x100[st.tag.long() - 1].to(torch.float32),
+                                 type=t64)
+    probe.run_string("run 0")
+    f32 = tag_order(probe.sim.state.f, probe.sim.state.tag).double()
+    ferr = float((f32 - f100).abs().max() / f100.abs().max())
+    tol = max(bt.F32_GAP_FACTOR * cpu_gap["force"], bt.F32_GAP_FLOOR)
+    if not ferr <= tol:
+        raise AssertionError(f"{name} f32 forces at step 100: {ferr} > {tol}")
+    phase(name, f"f32 forces on the f64 run's step-100 positions = f64 to "
+                f"{ferr:.3e} of max|f| {float(f100.abs().max()):.4f} (gate "
+                f"{tol:.3e})")
+    del probe, st
+    torch.cuda.empty_cache()
+    p1_equal_plain(seen.values(), f"{name} input")
+    table, idx = [v for (d, t, i), v in seen.items()
+                  if d == torch.float32 and t == (n, 4) and len(i) == 2
+                  and i[0] == n][-1]
+    k = p1_at_shape(name, table, idx, len(seen))
+    return k, {"launches": launches, "sps": sps}
+
+
+def mb32k_step0_check(style: str):
+    """The f64 step-0 gate of IN_SW32K or IN_TERSOFF32K: the perfect
+    lattice's pe per atom and virial pressure equal the 3x3x3 lattice's in
+    tpumd (bench_targets.MB32K_STEP0) to 1e-12."""
+    from tpumd_torch import bench_targets as bt
+
+    def check(sim):
+        got = bt.mb32k_step0(sim.last_thermo, sim.natoms,
+                             float(sim.state.box.volume))
+        want = bt.MB32K_STEP0[style]
+        bad = bt.mb32k_step0_failures(got, want, bt.MB32K_STEP0_RTOL)
+        fmax = float(sim.state.f.abs().max())
+        if bad or sim._ctx.is_cellgrid:
+            raise AssertionError(f"{style} 32k f64 step 0: {got} vs {want}")
+        return (f"pe/atom {got['pe_atom']!r}, virial pressure "
+                f"{got['press_virial']!r} = the 3^3 lattice's in tpumd "
+                f"{want['pe_atom']!r}, {want['press_virial']!r} (to "
+                f"{bt.MB32K_STEP0_RTOL} of pe/atom and of the kinetic "
+                f"pressure {got['press_kinetic']:.2f}); max|f| {fmax:.3e} "
+                "(a perfect lattice)")
+    return check
+
+
+def sw32k_path(smi: str) -> tuple[dict, dict]:
+    """IN_SW32K: LAMMPS's bench/POTENTIALS/in.sw at 32,000 atoms."""
+    from tpumd_torch import bench_targets as bt
+    with tempfile.TemporaryDirectory() as tmpdir:
+        pot = bt.write_potential(tmpdir, "Si.sw")
+        return mb32k_path("sw32k", bt.in_mb32k("sw", pot), smi,
+                          mb32k_step0_check("sw"),
+                          bt.MB32K_F32_CPU_GAP["sw"], 500, 1000)
+
+
+def tersoff32k_path(smi: str) -> tuple[dict, dict]:
+    """IN_TERSOFF32K: the same deck with Tersoff's Si(B)."""
+    from tpumd_torch import bench_targets as bt
+    with tempfile.TemporaryDirectory() as tmpdir:
+        pot = bt.write_potential(tmpdir, "Si.tersoff")
+        return mb32k_path("tersoff32k", bt.in_mb32k("tersoff", pot), smi,
+                          mb32k_step0_check("tersoff"),
+                          bt.MB32K_F32_CPU_GAP["tersoff"], 500, 1000)
+
+
+def fcc_site_keys(x, a: float, cells: int):
+    """Each atom's fcc site in one cell of `cells` lattice cells (edge a):
+    an integer key from its position in half lattice constants."""
+    h = torch.round(x.double() * (2.0 / a)).long() % (2 * cells)
+    return (h[:, 0] * (2 * cells) + h[:, 1]) * (2 * cells) + h[:, 2]
+
+
+def eamalloy32k_path(smi: str) -> tuple[dict, dict]:
+    """IN_EAMALLOY32K: the two-element Cu/Al cell replicated 5^3 (32,000
+    atoms) on the matrix engine: the cell in f64 against tpumd's step-0
+    numbers, the 32k deck's energies 125x the cell's and its forces the
+    cell's, replicated; then the main path in f32 (200 timed steps)."""
+    from tpumd_torch import bench_targets as bt
+    with tempfile.TemporaryDirectory() as tmpdir:
+        pot = Path(tmpdir) / "CuAl.eam.alloy"
+        bt.alloy_setfl(pot)
+        cell = mb32k_script(bt.IN_EAMALLOY.format(n=1, potential=pot),
+                            torch.float64)
+        cell.run_string("run 0")
+        csim = cell.sim
+        got = bt.mb32k_step0(csim.last_thermo, csim.natoms,
+                             float(csim.state.box.volume))
+        bad = bt.mb32k_step0_failures(got, bt.EAMALLOY_CELL_STEP0, 1e-12)
+        if bad or csim._mode != "matrix":
+            raise AssertionError(f"eam/alloy cell on the card: {got}")
+        keys = fcc_site_keys(csim.state.x, bt.ALLOY_A0, 4)
+        order = torch.argsort(keys)
+        ckeys, cf = keys[order], csim.state.f[order].clone()
+        ctype = csim.state.type[order].clone()
+        cepair = csim.last_thermo["epair"]
+        del cell, csim
+        reps = bt.EAMALLOY32K_REPS
+
+        def check(sim):
+            s = sim.state
+            at = torch.searchsorted(ckeys, fcc_site_keys(s.x, bt.ALLOY_A0,
+                                                         4))
+            ferr = float((s.f - cf[at]).abs().max() / cf.abs().max())
+            ratio = sim.last_thermo["epair"] / cepair
+            g = bt.mb32k_step0(sim.last_thermo, sim.natoms,
+                               float(s.box.volume))
+            if not (torch.equal(s.type, ctype[at]) and ferr <= 1e-10
+                    and abs(ratio - reps ** 3) <= 1e-12 * reps ** 3
+                    and not bt.mb32k_step0_failures(g, got, 1e-12)):
+                raise AssertionError(f"IN_EAMALLOY32K f64 step 0: forces "
+                                     f"{ferr}, epair ratio {ratio}, {g}")
+            return (f"epair {ratio!r} x the cell's (= tpumd's pe/atom "
+                    f"{got['pe_atom']!r} to 1e-12), virial pressure the "
+                    f"cell's, forces the cell's replicated to {ferr:.2e} "
+                    f"of max|f| {float(cf.abs().max()):.4f}")
+        return mb32k_path("eamalloy32k",
+                          bt.IN_EAMALLOY.format(n=reps, potential=pot),
+                          smi, check, bt.EAMALLOY_F32_CPU_GAP, 200, 1000)
+
+
 def main():
     t_start = time.perf_counter()
     smi = environment()
@@ -4748,6 +5194,10 @@ def main():
     m_min = min_path(smi)
     m_pb = pressber_path(smi)
     m_df = deform_path(smi)
+    manybody_phase()
+    k_sw, m_sw = sw32k_path(smi)
+    k_ters, m_ters = tersoff32k_path(smi)
+    k_eama, m_eama = eamalloy32k_path(smi)
     # the list kernels' launches on the main paths: builds at set-up and
     # re-bins, and refresh calls, most of which pass the gate and return
     # (those that rebuild are the refreshes taken); an entry each
@@ -4824,7 +5274,12 @@ def main():
             ("row_gather salt32k", "tpumd_torch/csrc/row_gather.cu",
              "tools/probes/gather_probe.py:37", k_salt, m_salt),
             ("row_gather hyb32k", "tpumd_torch/csrc/row_gather.cu",
-             "tools/probes/gather_probe.py:37", k_hyb, m_hyb)):
+             "tools/probes/gather_probe.py:37", k_hyb, m_hyb),
+            *[(f"row_gather {name}", "tpumd_torch/csrc/row_gather.cu",
+               "tools/probes/gather_probe.py:37", k, m)
+              for name, k, m in (("sw32k", k_sw, m_sw),
+                                 ("tersoff32k", k_ters, m_ters),
+                                 ("eamalloy32k", k_eama, m_eama))]):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": m["launches"],

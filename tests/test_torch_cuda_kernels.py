@@ -872,3 +872,50 @@ def test_salt_kspace_on_the_card_equals_the_cpu(kspace):
     for name in pg.DECKS:
         script = pg.run(gold, name, "cuda", torch.float64)
         assert pg.failures(gold, name, script) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("style", ["sw", "tersoff"])
+def test_energy_style_forces_through_p1_equal_plain_gather(style, tmp_path,
+                                                           monkeypatch):
+    """An energy style's forces on the card with its neighbour rows
+    gathered by P1 equal those with the rows gathered by the plain
+    version: P1 writes outside autograd, and the j side of every term
+    reaches the forces through the scatter, not through the gather.  The
+    CPU's forces (plain gather) equal both to 1e-12."""
+    _card()
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.models import pair_manybody
+    pot = bt.write_potential(tmp_path, bt.MB32K_POTENTIAL[style])
+    deck = bt.in_mb32k(style, pot, (4, 4, 4)) + (
+        "displace_atoms all random 0.1 0.1 0.1 4711 units box\nrun 0\n")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        script = LammpsScript(device=dev, dtype=torch.float64)
+        script.run_string(deck)
+        sim = script.sim
+        s, neigh = sim._carry[0], sim._carry[1]
+        p1.counts.reset()
+        f, e, _, v = sim.pair.compute(s.x, s.type, s.box, neigh.idx,
+                                      neigh.sbits, None, None, True, True)
+        if dev == "cuda":
+            assert p1.counts.kernel_launches >= 1
+            assert p1.counts.plain_calls == 0
+            monkeypatch.setattr(pair_manybody, "gather_rows",
+                                p1.gather_rows_plain)
+            fp, ep, _, vp = sim.pair.compute(s.x, s.type, s.box, neigh.idx,
+                                             neigh.sbits, None, None, True,
+                                             True)
+            monkeypatch.undo()
+            scale = float(fp.abs().max())
+            assert scale > 0.1
+            assert float((f - fp).abs().max()) <= 1e-12 * scale
+            assert float(e) == pytest.approx(float(ep), rel=1e-12)
+            assert float((v - vp).abs().max()) <= 1e-12 * float(
+                vp.abs().max())
+        order = torch.argsort(s.tag)
+        out[dev] = (f[order].cpu(), float(e))
+    scale = float(out["cpu"][0].abs().max())
+    assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) \
+        <= 1e-12 * scale
+    assert out["cuda"][1] == pytest.approx(out["cpu"][1], rel=1e-12)

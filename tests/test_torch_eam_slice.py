@@ -108,13 +108,17 @@ def test_eam_slice_matches_tpumd(style, n, tmp_path):
 
 
 def test_unported_eam_cases_raise(tmp_path):
-    """Two atom types, and bonds, raise at set-up, naming the cause."""
+    """Two atom types on the cell grid, and bonds, raise at set-up, naming
+    the cause ("auto" sends two types to the matrix engine:
+    tests/test_torch_eam_matrix.py)."""
     text = _deck(tmp_path, "eam", 4).replace(
         "create_box      1 box", "create_box      2 box").replace(
         "pair_coeff      1 1", "pair_coeff      * *")
     script = TScript(device="cpu", dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="more than one atom type"):
-        script.run_string(text + "run 0\n")
+    script.run_string(text)
+    script.sim.neighbor_mode = "cellgrid"
+    with pytest.raises(NotImplementedError, match="take one element"):
+        script.run_string("run 0\n")
     script = TScript(device="cpu", dtype=torch.float64)
     script.run_string(_deck(tmp_path, "eam", 4))
     script.sim.verbose = False

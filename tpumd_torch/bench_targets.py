@@ -1403,3 +1403,417 @@ def f32_gap_failures(gaps: dict, cpu: dict) -> list:
     return [f"{c} {g:.3g} > {max(F32_GAP_FACTOR * cpu[c], F32_GAP_FLOOR):.3g}"
             for c, g in gaps.items()
             if g > max(F32_GAP_FACTOR * cpu[c], F32_GAP_FLOOR)]
+
+
+# ---------------------------------------------------------------- many-body
+# Potential files of the many-body decks.  The parameter files hold the
+# published parameters of their papers, as LAMMPS's potentials directory
+# carries them (Stillinger-Weber Si, Tersoff Si(B) of PRB 37, 6991 (1988),
+# Kumagai's tersoff/mod Si, Tersoff's SiC with a ZBL core, Vashishta's
+# SiC, Justo's EDIP Si), written out here because no input is fetched.
+# The tabulated files (two-element eam/alloy, eam/fs, eam/he, adp) and the
+# EIM ffield are generated from smooth functions.
+SI_SW = """# Stillinger-Weber Si (Phys. Rev. B 31, 5262 (1985))
+# e1 e2 e3 epsilon sigma a lambda gamma costheta0 A B p q tol
+Si Si Si 2.1683 2.0951 1.80 21.0 1.20 -0.333333333333
+         7.049556277 0.6022245584 4.0 0.0 0.0
+"""
+
+SI_TERSOFF = """# Tersoff Si(B) (Phys. Rev. B 37, 6991 (1988))
+# e1 e2 e3 m gamma lambda3 c d costheta0 n beta lambda2 B R D lambda1 A
+Si Si Si 3.0 1.0 1.3258 4.8381 2.0417 0.0000 22.956
+         0.33675 1.3258 95.373 3.0 0.2 3.2394 3264.7
+"""
+
+# Kumagai et al., Comp. Mater. Sci. 39, 457 (2007); n is 1/(2 delta)
+SI_TERSOFF_MOD = """# tersoff/mod Si (Kumagai, Izumi, Hara, Sakai 2007)
+# e1 e2 e3 beta alpha h eta beta_ters lambda2 B R D lambda1 A n c1 c2 c3 c4 c5
+Si Si Si 1.0 2.3890327 -0.365 1.0 1.0 1.345797 121.00047 3.0 0.3
+         3.2300135 3281.5905 0.9381055 0.20173476 730418.72 1000000.0
+         1.0 26.0
+"""
+
+_SIC_TERSOFF_ROWS = [
+    # e1 e2 e3 m gamma lambda3 c d h n beta lambda2 B R D lambda1 A
+    "C C C 3.0 1.0 0.0 38049 4.3484 -0.57058 0.72751 1.5724e-7 2.2119 "
+    "346.74 1.95 0.15 3.4879 1393.6",
+    "Si Si Si 3.0 1.0 0.0 100390 16.217 -0.59825 0.78734 1.1e-6 1.73222 "
+    "471.18 2.85 0.15 2.4799 1830.8",
+    "Si Si C 3.0 1.0 0.0 100390 16.217 -0.59825 0.0 0.0 0.0 0.0 2.36 0.15 "
+    "0.0 0.0",
+    "Si C C 3.0 1.0 0.0 100390 16.217 -0.59825 0.78734 1.1e-6 1.97205 "
+    "395.1451 2.36 0.15 2.9839 1597.3111",
+    "C Si Si 3.0 1.0 0.0 38049 4.3484 -0.57058 0.72751 1.5724e-7 1.97205 "
+    "395.1451 2.36 0.15 2.9839 1597.3111",
+    "C Si C 3.0 1.0 0.0 38049 4.3484 -0.57058 0.0 0.0 0.0 0.0 1.95 0.15 "
+    "0.0 0.0",
+    "C C Si 3.0 1.0 0.0 38049 4.3484 -0.57058 0.0 0.0 0.0 0.0 2.36 0.15 "
+    "0.0 0.0",
+    "Si C Si 3.0 1.0 0.0 100390 16.217 -0.59825 0.0 0.0 0.0 0.0 2.85 0.15 "
+    "0.0 0.0",
+]
+_ZNUM = {"C": 6.0, "Si": 14.0}
+
+
+def _sic_tersoff_zbl():
+    rows = []
+    for row in _SIC_TERSOFF_ROWS:
+        e1, e2 = row.split()[:2]
+        rows.append(f"{row} {_ZNUM[e1]} {_ZNUM[e2]} 0.95 14.0")
+    return ("# Tersoff SiC (Phys. Rev. B 39, 5566 (1989)) with a ZBL core\n"
+            "# tersoff's 14 values, then Z_i Z_j ZBLcut ZBLexpscale\n"
+            + "\n".join(rows) + "\n")
+
+
+SIC_TERSOFF_ZBL = _sic_tersoff_zbl()
+
+SIC_VASHISHTA = """# Vashishta SiC (J. Appl. Phys. 101, 103515 (2007))
+# e1 e2 e3 H eta Zi Zj lambda1 D lambda4 W rc B gamma r0 C costheta
+C  C  C  471.74538 7 -1.201 -1.201 5.0 0.0 3.0 0.0 7.35 0.0 0.0 0.0 0.0 0.0
+Si Si Si 23.67291 7 1.201 1.201 5.0 15.575 3.0 0.0 7.35 0.0 0.0 0.0 0.0 0.0
+C  Si Si 447.09026 9 -1.201 1.201 5.0 7.7874 3.0 61.4694 7.35 9.003 1.0
+         2.90 5.0 -0.333333333333
+Si C  C  447.09026 9 1.201 -1.201 5.0 7.7874 3.0 61.4694 7.35 9.003 1.0
+         2.90 5.0 -0.333333333333
+C  C  Si 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0
+C  Si C  0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0
+Si Si C  0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0
+Si C  Si 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0 0.0
+"""
+
+SI_EDIP = """# EDIP Si (Justo et al., Phys. Rev. B 58, 2539 (1998))
+# e1 e2 e3 A B cutoffA cutoffC alpha beta eta gamma lambda mu rho sigma Q0
+#          u1 u2 u3 u4
+Si Si Si 7.9821730 1.5075463 3.1213820 2.5609104 3.1083847 0.0070975
+         0.2523244 1.1247945 1.4533108 0.6966326 1.2085196 0.5774108
+         312.1341346 -0.165799 32.557 0.286198 0.66
+"""
+
+POTENTIALS = {"Si.sw": SI_SW, "Si.tersoff": SI_TERSOFF,
+              "Si.tersoff.mod": SI_TERSOFF_MOD,
+              "SiC.tersoff.zbl": SIC_TERSOFF_ZBL,
+              "SiC.vashishta": SIC_VASHISHTA, "Si.edip": SI_EDIP}
+
+
+def write_potential(directory, name) -> str:
+    """Write one of POTENTIALS into directory; its path."""
+    import os
+    path = os.path.join(str(directory), name)
+    with open(path, "w") as fh:
+        fh.write(POTENTIALS[name])
+    return path
+
+
+ALLOY_A0 = 4.05
+
+
+def _alloy_functions(cut):
+    """Two elements from the generated Cu-like functions stretched so that
+    fcc sits at its zero-pressure point at ALLOY_A0 (the lattice of
+    tests/test_manybody.py's ALCU_DECK): (F, rho, phi) per element and the
+    cross phi.  Element 2 ("Al") has 0.85 of the density, 0.8 of the pair
+    term and 0.9 of the embedding; the cross pair term is 0.9 of the
+    geometric mean of the like ones, so that it differs from both."""
+    k = EAM_A0 / ALLOY_A0
+    rho0, phi0, embed = _eam_functions(cut * k)
+
+    def rho(r):
+        return rho0(r * k)
+
+    def phi(r):
+        return phi0(r * k)
+
+    F = [embed, lambda x: 0.9 * embed(x)]
+    rhos = [rho, lambda r: 0.85 * rho(r)]
+
+    def phi2(r):
+        return 0.8 * phi(r)
+
+    def phi12(r):
+        return 0.9 * np.sqrt(phi(r) * phi2(r))
+    return F, rhos, [[phi, phi12], [phi12, phi2]]
+
+
+def alloy_setfl(path, fs: bool = False, he_rhomin: float | None = None,
+                adp: bool = False, nrho: int = 500, drho: float = 0.005,
+                nr: int = 600, dr: float = 0.01, cut: float = 5.5):
+    """Write a two-element (Cu, Al) setfl file from ``_alloy_functions``:
+    eam/alloy; with fs an eam/fs file (density functions per element pair:
+    element i's in an element-j host, 1.1 times where they differ); with
+    he_rhomin an eam/he file (eam/fs tables over rho in [he_rhomin,
+    he_rhomin + (nrho-1) drho], the nrho line ending in that rhomax); with
+    adp an adp file (u(r) and w(r) for each element pair after phi)."""
+    F, rhos, phis = _alloy_functions(cut)
+    r = np.arange(nr) * dr
+    rho0 = 0.0 if he_rhomin is None else he_rhomin
+    rgrid = rho0 + np.arange(nrho) * drho
+    znum, mass = [29, 13], [EAM_MASS, 26.98]
+    fs = fs or he_rhomin is not None
+    with open(path, "w") as fh:
+        fh.write("Two-element Cu/Al-like analytic EAM generated from "
+                 "Johnson exponentials\nand Rose's universal binding "
+                 "curve\n\n")
+        fh.write("2 Cu Al\n")
+        line = f"{nrho} {drho!r} {nr} {dr!r} {cut!r}"
+        if he_rhomin is not None:
+            line += f" {rho0 + (nrho - 1) * drho!r}"
+        fh.write(line + "\n")
+        for i in range(2):
+            fh.write(f"{znum[i]} {mass[i]} {ALLOY_A0} fcc\n")
+            _write_values(fh, F[i](np.maximum(rgrid, 0.0)))
+            if fs:
+                for j in range(2):
+                    _write_values(fh, rhos[i](r) * (1.0 if i == j else 1.1))
+            else:
+                _write_values(fh, rhos[i](r))
+        for i in range(2):
+            for j in range(i + 1):
+                _write_values(fh, r * phis[i][j](r))
+        if adp:
+            for amp, k in ((0.05, 2.0), (0.02, 1.5)):     # u(r), then w(r)
+                for i in range(2):
+                    for j in range(i + 1):
+                        _write_values(fh, _tapered_exp(
+                            r, amp * (1.0 + 0.3 * (i + j)), k, 2.5, cut))
+
+
+# Two-element EIM ffield (rock salt Na/Cl-like), generated: the global
+# erfc window, each element's electronegativity and q0, and per pair the
+# type-1 phi, the charge-transfer sigma and the coupling coul
+FFIELD_EIM = """# generated embedded-ion ffield: two ions of a rock-salt crystal
+global: 0.5 -1.8 1.8
+element: Na 11 22.98977 0.90 1.5 1.5 5.0 0.0
+element: Cl 17 35.453 3.00 1.5 1.5 5.0 0.0
+pair: Na Na 7.0 7.0 0.1 3.5 5.5 3.0 6.0 0.25 4.5 6.0 0.6 0.7 4.5 1
+pair: Cl Cl 7.0 7.0 0.2 3.9 5.5 3.0 6.0 0.25 4.5 6.0 0.6 0.7 4.5 1
+pair: Na Cl 7.0 7.0 0.8 2.8 6.0 3.5 6.0 0.45 4.0 6.0 0.9 0.8 4.0 1
+"""
+
+
+_FCC = np.array([[0.0, 0.0, 0.0], [0.0, 0.5, 0.5], [0.5, 0.0, 0.5],
+                 [0.5, 0.5, 0.0]])
+# zinc blende: Si on the fcc sites, C a quarter along the diagonal; rock
+# salt: Na on the fcc sites, Cl half along x
+TWO_TYPE_CELLS = {"zincblende": (_FCC, _FCC + 0.25, 4.3596, (28.0855,
+                                                              12.0107)),
+                  "rocksalt": (_FCC, _FCC + [0.5, 0.0, 0.0], 5.64,
+                               (22.98977, 35.453))}
+
+
+def two_type_data(path, kind: str, n: int, box_cells: float | None = None,
+                  displace: float = 0.0, seed: int = 2026):
+    """Write a data file of n^3 cubic cells of a two-type crystal
+    (TWO_TYPE_CELLS: zincblende SiC or rock-salt NaCl), each atom moved by
+    a uniform random displacement of up to +-displace (A) per axis from
+    the seed; the box is box_cells cells on a side (n by default), so a
+    larger box leaves vacuum around the crystal.  Returns the atom count."""
+    b1, b2, a, masses = TWO_TYPE_CELLS[kind]
+    cells = np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"),
+                     -1).reshape(-1, 1, 3)
+    x = np.concatenate([(cells + b1).reshape(-1, 3),
+                        (cells + b2).reshape(-1, 3)]) * a
+    types = np.repeat([1, 2], len(x) // 2)
+    x = x + np.random.default_rng(seed).uniform(-displace, displace, x.shape)
+    side = float((n if box_cells is None else box_cells) * a)
+    off = 0.5 * (side - n * a) + 0.125 * a
+    x = np.mod(x + off, side)
+    with open(path, "w") as fh:
+        fh.write(f"{kind} crystal, {n}^3 cells\n\n{len(x)} atoms\n"
+                 f"2 atom types\n\n0.0 {side!r} xlo xhi\n0.0 {side!r} ylo "
+                 f"yhi\n0.0 {side!r} zlo zhi\n\nMasses\n\n1 {masses[0]}\n"
+                 f"2 {masses[1]}\n\nAtoms # atomic\n\n")
+        for i, (t, p) in enumerate(zip(types, x), start=1):
+            fh.write(f"{i} {t} {float(p[0])!r} {float(p[1])!r} "
+                     f"{float(p[2])!r}\n")
+    return len(x)
+
+
+# The many-body decks on the card.  IN_MB32K follows LAMMPS's
+# bench/POTENTIALS/in.sw: diamond Si at 5.431 A, 20x20x10 cells (32,000
+# atoms) for IN_SW32K and IN_TERSOFF32K, 1000 K, neighbor 1.0 bin,
+# delay 5 every 1, NVE at 1 fs; {potential} is the written file
+IN_MB32K = """units           metal
+atom_style      atomic
+lattice         diamond 5.431
+region          box block 0 {nx} 0 {ny} 0 {nz}
+create_box      1 box
+create_atoms    1 box
+mass            1 28.06
+velocity        all create 1000.0 376847 loop geom
+pair_style      {style}
+pair_coeff      * * {potential} Si
+neighbor        1.0 bin
+neigh_modify    delay 5 every 1
+fix             1 all nve
+timestep        0.001
+thermo          100
+"""
+MB32K_POTENTIAL = {"sw": "Si.sw", "tersoff": "Si.tersoff"}
+MB32K_CELLS = (20, 20, 10)
+
+
+def in_mb32k(style: str, potential: str, cells=MB32K_CELLS) -> str:
+    return IN_MB32K.format(style=style, potential=potential, nx=cells[0],
+                           ny=cells[1], nz=cells[2])
+
+
+# metal units (tpumd_torch/utils/units.py)
+_BOLTZ_METAL, _NKTV2P_METAL = 8.617343e-5, 1.6021765e6
+
+
+def mb32k_step0(vals: dict, natoms: int, volume: float) -> dict:
+    """The size-free step-0 numbers of a perfect lattice: the pe per atom
+    and the virial pressure (press less its kinetic part over 3 natoms - 3
+    degrees of freedom, "press_kinetic")."""
+    kin = ((3 * natoms - 3) * _BOLTZ_METAL * vals["temp"] / (3.0 * volume)
+           * _NKTV2P_METAL)
+    return {"pe_atom": vals["epair"] / natoms,
+            "press_virial": vals["press"] - kin, "press_kinetic": kin}
+
+
+def mb32k_step0_failures(got: dict, want: dict, rtol: float) -> list:
+    """pe per atom to rtol of itself; the virial pressure, a residual of
+    terms of the kinetic pressure's size, to rtol of the kinetic
+    pressure."""
+    bad = []
+    if abs(got["pe_atom"] - want["pe_atom"]) > rtol * abs(want["pe_atom"]):
+        bad.append(f"pe_atom {got['pe_atom']!r} vs {want['pe_atom']!r}")
+    if abs(got["press_virial"] - want["press_virial"]) \
+            > rtol * abs(got["press_kinetic"]):
+        bad.append(f"press_virial {got['press_virial']!r} vs "
+                   f"{want['press_virial']!r}")
+    return bad
+
+
+# mb32k_step0 of the 3x3x3 deck computed by tpumd on the CPU in float64
+# (tests/test_torch_manybody.py::test_32k_step0_gate_values regenerates
+# them); the card's f64 step 0 holds to MB32K_STEP0_RTOL
+# (mb32k_step0_failures)
+MB32K_STEP0 = {"sw": {"pe_atom": -4.336599995039766,
+                      "press_virial": -28.13534741152762},
+               "tersoff": {"pe_atom": -4.630412064213376,
+                           "press_virial": 124.65819666095831}}
+MB32K_STEP0_RTOL = 1e-12
+
+
+def mb32k_f32_gaps(make_script, steps: int = 100) -> dict:
+    """{"force": the largest f32 force error over the largest f64 force at
+    the f64 run's step-`steps` positions, and per row column the
+    |f32 - f64| / |f64| at that step}: the deck made by make_script(dtype)
+    in f64 and in f32, the f32 one started from the f64 one's velocities
+    (``velocity ... loop geom`` hashes the positions in the run's dtype)
+    and types (a region's test of a lattice site on its face may fall the
+    other way in f32).  A perfect lattice's step-0 forces vanish, so the
+    forces are compared where they do not."""
+    import torch
+    s64, s32 = make_script(torch.float64), make_script(torch.float32)
+    s32.sim.state = s32.sim.state.replace(v=s64.sim.state.v.to(torch.float32),
+                                          type=s64.sim.state.type)
+    for s in (s64, s32):
+        s.run_string("run 0")
+        s.run_string(f"run {steps}")
+    out = {k: abs(s32.sim.last_thermo[k] - s64.sim.last_thermo[k])
+           / abs(s64.sim.last_thermo[k])
+           for k in ("temp", "epair", "etotal", "press")}
+    # the run's carried state holds the positions: drop it before the edit
+    s32.sim.invalidate_ctx()
+    a = s64.sim.state
+    s32.sim.state = s32.sim.state.replace(
+        x=a.x.to(torch.float32), v=a.v.to(torch.float32), tag=a.tag,
+        type=a.type, image=a.image)
+    s32.run_string("run 0")
+
+    def by_tag(st):
+        return st.f.double()[torch.argsort(st.tag)]
+    f64 = by_tag(s64.sim.state)
+    out["force"] = float((by_tag(s32.sim.state) - f64).abs().max()
+                         / f64.abs().max())
+    return out
+
+
+# the port's f32 gaps (mb32k_f32_gaps) on the CPU, per column the larger of
+# the small deck's (3x3x3 cells; the alloy's 256-atom cell) and the 32k
+# deck's, rounded up (probes/mb32k_cpu_gaps.py prints both;
+# tests/test_torch_manybody.py and tests/test_torch_eam_matrix.py hold the
+# small decks' under them).  f32's rounding of a position grows with the
+# coordinate: at the 32k box the forces' gap is 4x the small deck's, so a
+# gate on the small deck's alone would hold the card to less than the CPU's
+# own f32 error there.  The card's 32k f32 runs hold to F32_GAP_FACTOR
+# times each, or F32_GAP_FLOOR
+MB32K_F32_CPU_GAP = {
+    "sw": {"temp": 1.7e-6, "epair": 9.8e-8, "etotal": 8.5e-8,
+           "press": 2.8e-5, "force": 3.6e-5},
+    "tersoff": {"temp": 5.3e-7, "epair": 1.1e-7, "etotal": 1.1e-7,
+                "press": 2.1e-5, "force": 4.3e-5}}
+
+# the step-20 rows of tests/golden/meam/log.test (the SiC deck, in.meam run
+# 20 steps with thermo 10, as tests/test_meam.py runs it: meam_golden_deck)
+# and log.ni (in.ni): the reference binary's
+MEAM_GOLDEN_ROWS = {
+    "in.meam": {"temp": 1932.4467, "epair": -668.2581, "etotal": -636.53498,
+                "press": -120223.52},
+    "in.ni": {"temp": 630.48749, "epair": -1113.8207, "etotal": -1093.039,
+              "press": 28492.191}}
+
+
+def meam_golden_deck(text: str) -> str:
+    """A MEAM golden deck as the rows of MEAM_GOLDEN_ROWS were printed."""
+    return text.replace("run\t\t100", "thermo 10\nrun 20")
+
+
+# tests/test_manybody.py::test_atm_golden's step-10 row (the reference
+# binary on examples/atm/in.atm at 6^3 cells)
+ATM_GOLDEN_ROW = {"temp": 1.0356248, "epair": -4.8425038,
+                  "etotal": -3.2908645, "press": -4.0872055}
+
+# The two-element eam/alloy deck: tests/test_manybody.py's ALCU_DECK cell
+# (4^3 fcc at 4.05 A, the half with x < 2 cells type 2) replicated
+# {n}^3 times (n = 5: 32,000 atoms) on alloy_setfl()'s file
+IN_EAMALLOY = """units           metal
+atom_style      atomic
+lattice         fcc 4.05
+region          box block 0 4 0 4 0 4
+create_box      2 box
+create_atoms    1 box
+region          half block 0 2 0 4 0 4
+group           cu region half
+set             group cu type 2
+replicate       {n} {n} {n}
+pair_style      eam/alloy
+pair_coeff      * * {potential} Al Cu
+velocity        all create 600.0 376847 loop geom
+neighbor        1.0 bin
+neigh_modify    every 1 delay 5 check yes
+fix             1 all nve
+timestep        0.001
+thermo          100
+"""
+EAMALLOY32K_REPS = 5
+
+# the 256-atom cell's step-0 numbers (mb32k_step0 at 600 K) from tpumd on
+# the CPU in float64 (tests/test_torch_eam_matrix.py regenerates them); the
+# f32 gaps as MB32K_F32_CPU_GAP's, the small deck the cell
+EAMALLOY_CELL_STEP0 = {"pe_atom": -3.3538278265606745,
+                       "press_virial": -12215.344536227862}
+EAMALLOY_F32_CPU_GAP = {"temp": 1.1e-6, "epair": 8.0e-8, "etotal": 6.7e-8,
+                        "press": 1.8e-5, "force": 3.1e-5}
+
+# tests/test_manybody.py::test_atm_golden's deck: the reference's
+# examples/atm/in.atm at 6^3 cells, atm beside lj/cut under hybrid/overlay
+IN_ATM_GOLDEN = """units           lj
+atom_style      atomic
+lattice         fcc 0.65
+region          box block 0 6 0 6 0 6
+create_box      1 box
+create_atoms    1 box
+pair_style      hybrid/overlay lj/cut 4.5 atm 4.5 2.5
+pair_coeff      * * lj/cut 1.0 1.0
+pair_coeff      * * atm * 0.072
+mass            * 1.0
+velocity        all create 1.033 12345678 loop geom
+neighbor        0.3 bin
+neigh_modify    every 1 delay 5 check yes
+fix             1 all nve
+timestep        0.002
+run             10
+"""

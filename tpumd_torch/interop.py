@@ -3,7 +3,8 @@
 Takes plain numpy arrays (for example the fields of a tpumd ``MDState``,
 ``PairLJCut``, ``PairEAM``, ``PairLJCharmmCoulLong``, ``PPPM`` and
 ``PairGranHookeHistory``, and a ``NeighborConfig`` and ``NeighborState``
-of the matrix engine, and a fix's per-atom state), so one state, one
+of the matrix engine, a fix's per-atom state, and the parsed parameter
+tables of a many-body or EAM-family style), so one state, one
 potential and one neighbor list can be fed to both engines. This module
 imports nothing of tpumd.
 """
@@ -133,6 +134,26 @@ def eam_from_numpy(frho_spline, rhor_spline, z2r_spline, dr, drho, nr, nrho,
     pair.cutforcesq = pair.cutmax * pair.cutmax
     pair._setflag[1, 1] = True
     return pair
+
+
+def with_pair_tables(style, tables: dict):
+    """The port's pair style holding another engine's parsed parameter
+    tables: each entry of tables (numpy arrays, or dicts of them, by the
+    style's attribute name: a triplet style's ``p``, MEAM's ``_phi_tab``,
+    ``rho_ref`` and ``eltind``, EAM's or EIM's ``*_spline`` and ``type2*``
+    tables) replaces the style's own copy, and the style's device copies
+    are dropped, so that both packages evaluate one set of tables."""
+    def copy(v):
+        if isinstance(v, dict):
+            return {k: copy(a) for k, a in v.items()}
+        return np.array(v) if isinstance(v, np.ndarray) else v
+    for name, value in tables.items():
+        if not hasattr(style, name):
+            raise AttributeError(f"pair_style {style.name} has no table "
+                                 f"{name!r}")
+        setattr(style, name, copy(value))
+    style.drop_tables()
+    return style
 
 
 def charmm_from_numpy(epsilon, sigma, eps14, sigma14, cut_lj_inner, cut_lj,

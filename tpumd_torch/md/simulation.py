@@ -365,13 +365,18 @@ class Simulation:
             box_margin=margin * cell_factor)
 
     def _grid_refusal(self):
-        """Why the cell grid's kernels cannot take this deck's bonded
-        styles, so that "auto" sends it to the matrix engine, or None.
+        """Why the cell grid's kernels cannot take this deck's pair style
+        (its ``grid_refusal``) or bonded styles, so that "auto" sends it to
+        the matrix engine, or None.
         Per-tuple styles need the special pairs weighed in the pair sweep:
         only B5's charged sweep does that.  FENE rides B2 only on its own,
         with at most 2 partners an atom.  (FENE's other limits in B2, one
         bond type, R0 within cutneigh and ``special_bonds fene``, raise at
         ``_setup_kernel_bond``.)"""
+        if self.pair is not None and self.pair.supports_cellgrid:
+            why = self.pair.grid_refusal()
+            if why:
+                return why
         kinds = {k: st for k, st in self.bonded.items()
                  if self.topology.get(k) is not None
                  and len(self.topology[k])}

@@ -67,6 +67,12 @@ class PairStyle:
             return (0.5 * (s1**6 + s2**6)) ** (1.0 / 6.0)
         return 0.5 * (s1 + s2)  # arithmetic
 
+    def grid_refusal(self):
+        """Why the cell grid's kernel cannot take this style as set up (a
+        style with a grid kernel whose tables hold less than the deck), or
+        None."""
+        return None
+
     def pair_fn(self, r2, itype, jtype):
         raise NotImplementedError
 

@@ -6,9 +6,18 @@ rho_i = sum_j rho(r_ij) and evaluates the embedding derivative F'(rho_i);
 pass 2 sums pair forces f = -((F'_i + F'_j) rho'(r) + phi'(r)) r_hat.  The
 spline tables (interpolate(), file2array()) are built by the same numpy
 code as tpumd's, so they are bit-equal; the kernels read them exactly, with
-no refit.  One element only: the cell-grid kernels take one density
-function for every pair.  On the grid both passes sweep the grid's pair
-list.
+no refit.
+
+Two engines.  On the cell grid both passes sweep the grid's pair list
+(B3, B4); those kernels take one element, so "auto" sends a deck with
+several atom types (or a non-periodic axis, or ``neigh_modify exclude``)
+to the matrix engine, as tpumd does.  There ``compute`` runs
+tpumd/models/pair_eam.py:450-520 over the padded neighbor rows: pass 1
+sums the host densities through type2rhor[j, i], pass 2 the pair forces
+fp_i rho'_j + fp_j rho'_i + phi'; every spline row, the neighbours'
+coordinates and types, and fp at the neighbours are row gathers (P1).
+eam/he (its tables over [rhomin, rhomax], linear below and above) runs on
+the matrix engine only.
 """
 
 from __future__ import annotations
@@ -16,8 +25,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpumd_torch.core.state import minimum_image
 from tpumd_torch.models.base import PairStyle
 from tpumd_torch.models.registry import register_pair
+from tpumd_torch.ops.gather import gather_rows
 from tpumd_torch.ops.eam_cellgrid import EAMTables, eam_force_cellgrid, \
     eam_rho_cellgrid
 
@@ -111,9 +122,13 @@ class _Funcfl:
 class _Setfl:
     """A setfl file (PairEAMAlloy::read_file); with fs, an eam/fs file
     (PairEAMFS::read_file), whose density functions are per element
-    pair: rhor[i, j] is element i's density in an element-j host."""
+    pair: rhor[i, j] is element i's density in an element-j host.  With
+    he, an eam/he file: eam/fs whose nrho line ends in rhomax
+    (pair_eam_fs.cpp:139-148 with he_flag).  With adp, the u(r) and w(r)
+    lower triangles follow phi (PairADP::read_file, pair_adp.cpp:540-607)."""
 
-    def __init__(self, path: str, fs: bool = False):
+    def __init__(self, path: str, fs: bool = False, he: bool = False,
+                 adp: bool = False):
         with open(path) as fh:
             lines = fh.read().split("\n")
         toks = " ".join(lines[3:]).split()
@@ -124,6 +139,9 @@ class _Setfl:
         self.nr, self.dr = int(toks[p + 2]), float(toks[p + 3])
         self.cut = float(toks[p + 4])
         p += 5
+        if he:
+            self.rhomax_file = float(toks[p])
+            p += 1
 
         def take(n):
             nonlocal p
@@ -141,10 +159,16 @@ class _Setfl:
             self.frho[i, 1:] = take(self.nrho)
             for j in range(ne if fs else 1):
                 self.rhor[(i, j) if fs else i][1:] = take(self.nr)
-        for i in range(ne):
-            for j in range(i + 1):
-                self.z2r[i, j, 1:] = take(self.nr)
-                self.z2r[j, i] = self.z2r[i, j]
+        tables = [self.z2r]
+        if adp:
+            self.u2r = np.zeros((ne, ne, self.nr + 1))
+            self.w2r = np.zeros((ne, ne, self.nr + 1))
+            tables += [self.u2r, self.w2r]
+        for arr in tables:
+            for i in range(ne):
+                for j in range(i + 1):
+                    arr[i, j, 1:] = take(self.nr)
+                    arr[j, i] = arr[i, j]
 
 
 @register_pair("eam")
@@ -152,10 +176,14 @@ class PairEAM(PairStyle):
     # no per-atom energy/virial path (tpumd has none)
     peratom = False
     name = "eam"
-    # its matrix-engine compute (tpumd/models/pair_eam.py:450) is not ported
-    matrix_engine = False
-    # B3 and B4 take it on the cell grid
+    # B3 and B4 take it on the cell grid (one element); ``compute`` on the
+    # matrix engine
     supports_cellgrid = True
+    supports_image_ext = False
+    # eam/he: the embedding table starts at rhomin, with linear
+    # extrapolation below it (pair_eam_he.cpp:147)
+    rhomin = 0.0
+    he_flag = False
 
     def __init__(self, ntypes: int):
         super().__init__(ntypes)
@@ -264,6 +292,142 @@ class PairEAM(PairStyle):
             self._tables[key] = tab
         return tab
 
+    def drop_tables(self):
+        super().drop_tables()
+        self._tables = {}
+
+    def grid_refusal(self):
+        """Why the cell grid's EAM kernels cannot take this style, or None:
+        they hold one element's tables."""
+        if self.ntypes != 1:
+            return (f"pair_style {self.name} with {self.ntypes} atom types: "
+                    "the EAM cell-grid kernels (B3, B4) take one element")
+        return None
+
+    def _spline(self, name, like):
+        """The spline table ``<name>_spline`` (nfunc, n+1, 7) packed as
+        (nfunc (n+1), 7) on like's device, in its dtype (once per set-up)."""
+        key = ("spline", name, like.device, like.dtype)
+        tab = self._tables.get(key)
+        if tab is None:
+            a = getattr(self, name + "_spline")
+            tab = self._tables[key] = torch.as_tensor(
+                np.ascontiguousarray(a.reshape(-1, 7)), dtype=like.dtype,
+                device=like.device)
+        return tab
+
+    def _index_table(self, name, like):
+        key = ("index", name, like.device)
+        tab = self._tables.get(key)
+        if tab is None:
+            tab = self._tables[key] = torch.as_tensor(
+                getattr(self, name), dtype=torch.int64, device=like.device)
+        return tab
+
+    def _rows(self, name, func, m, like, n):
+        """The coefficient rows of function ``func`` at grid point m of the
+        table ``name`` with n+1 points a function: one P1 gather."""
+        flat = (func * (n + 1) + m).to(torch.int32).contiguous()
+        return gather_rows(self._spline(name, like), flat)
+
+    def _r_index(self, r):
+        p = r * (1.0 / self.dr) + 1.0
+        m = torch.clamp(p.to(torch.int32), 1, self.nr - 1)
+        return m.long(), torch.clamp(p - m, max=1.0)
+
+    def _rho_index(self, rho):
+        p = (rho - self.rhomin) * (1.0 / self.drho) + 1.0
+        m = torch.clamp(p.to(torch.int32), 1, self.nrho - 1)
+        return m.long(), torch.clamp(p - m, max=1.0)
+
+    @staticmethod
+    def _val(c, p):
+        return ((c[..., 3] * p + c[..., 4]) * p + c[..., 5]) * p + c[..., 6]
+
+    @staticmethod
+    def _der(c, p):
+        return (c[..., 0] * p + c[..., 1]) * p + c[..., 2]
+
+    def _pass_geometry(self, x, type_, box, idx, cutsq):
+        """(d, r, inside, m, p, it, jt) of the neighbor rows: displacements
+        from one P1 gather of the packed (x, y, z, type) rows, the pairs
+        inside the cutoff, and each pair's r-grid index and fraction."""
+        n = idx.shape[0]
+        rows = torch.arange(n, dtype=idx.dtype, device=x.device)[:, None]
+        pj = gather_rows(torch.cat([x, type_.to(x.dtype)[:, None]], dim=1),
+                         idx)
+        d = minimum_image(x[:, None, :] - pj[..., :3], box)
+        r2 = torch.sum(d * d, dim=-1)
+        it = type_.long()[:, None]
+        jt = pj[..., 3].round().long()
+        if torch.is_tensor(cutsq):
+            cutsq = cutsq[it, jt]
+        inside = (idx != rows) & (r2 < cutsq)
+        r = torch.sqrt(torch.where(inside, r2, 1.0))
+        m, p = self._r_index(r)
+        return d, r, inside, m, p, it, jt
+
+    @staticmethod
+    def _virial(fpw, d):
+        """The 6-component virial of per-pair forces fpw (N, K, 3) on a
+        full list: half of sum d_a fpw_b."""
+        return 0.5 * torch.stack([
+            torch.sum(d[..., a] * fpw[..., b])
+            for a, b in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))])
+
+    def _embedding(self, type_, rho, eflag):
+        """(fp, phi_e or None) of every atom: F'(rho) and, with eflag,
+        F(rho) with the linear extrapolation past rhomax (and, for eam/he,
+        below rhomin)."""
+        mrho, prho = self._rho_index(rho)
+        t2f = self._index_table("type2frho", rho)
+        cf = self._rows("frho", t2f[type_.long()], mrho, rho, self.nrho)
+        fp = self._der(cf, prho)
+        if not eflag:
+            return fp, None
+        phi_e = self._val(cf, prho)
+        phi_e = phi_e + torch.where(rho > self.rhomax,
+                                    fp * (rho - self.rhomax), 0.0)
+        if self.he_flag:
+            phi_e = phi_e + torch.where(rho < self.rhomin,
+                                        fp * (rho - self.rhomin), 0.0)
+        return fp, phi_e
+
+    def compute(self, x, type_, box, idx, sbits, special_lj, special_coul,
+                eflag: bool, vflag: bool, q=None, ext=None):
+        """(f, evdwl, None, virial) on the matrix engine
+        (tpumd/models/pair_eam.py:450-520)."""
+        if ext is not None:
+            raise NotImplementedError(
+                f"pair_style {self.name}: a box narrower than 2*cutneigh "
+                "(the multi-image mode) is not ported for EAM")
+        d, r, inside, m, p, it, jt = self._pass_geometry(
+            x, type_, box, idx, self.cutforcesq)
+        t2rhor = self._index_table("type2rhor", x)
+        t2z2r = self._index_table("type2z2r", x)
+        # pass 1: the host densities, j's density function felt at i
+        c_ji = self._rows("rhor", t2rhor[jt, it], m, x, self.nr)
+        rho = torch.sum(torch.where(inside, self._val(c_ji, p), 0.0), dim=1)
+        fp, phi_e = self._embedding(type_, rho, eflag)
+        # pass 2: the pair forces
+        c_ij = self._rows("rhor", t2rhor[it, jt], m, x, self.nr)
+        cz = self._rows("z2r", t2z2r[it, jt], m, x, self.nr)
+        rhoip, rhojp = self._der(c_ij, p), self._der(c_ji, p)
+        z2p, z2 = self._der(cz, p), self._val(cz, p)
+        recip = 1.0 / r
+        phi = z2 * recip
+        phip = z2p * recip - phi * recip
+        fpj = gather_rows(fp[:, None].contiguous(), idx)[..., 0]
+        psip = fp[:, None] * rhojp + fpj * rhoip + phip
+        fpair = torch.where(inside, -psip * recip, 0.0)
+        fpw = d * fpair[..., None]
+        f = torch.sum(fpw, dim=1)
+        evdwl = None
+        if eflag:
+            evdwl = (torch.sum(torch.where(type_ > 0, phi_e, 0.0))
+                     + 0.5 * torch.sum(torch.where(inside, phi, 0.0)))
+        return f, evdwl, None, (self._virial(fpw, d) if vflag else None)
+
     def compute_cellgrid(self, x, valid, box, cfg, eflag: bool, vflag: bool,
                          bond=None, plist=None):
         """(f, evdwl, virial, None) on the cell grid: the density kernel
@@ -296,9 +460,11 @@ class PairEAMAlloy(PairEAM):
     name = "eam/alloy"
     _fs = False
 
+    _reader = {}
+
     def coeff(self, ilo, ihi, jlo, jhi, filename, *elems):
         # 'pair_coeff * * file El1 El2 ...' maps each type to an element
-        f = _Setfl(str(filename), fs=self._fs)
+        f = _Setfl(str(filename), fs=self._fs, **self._reader)
         self._setfl = f
         elems = [str(e) for e in elems]
         if len(elems) != self.ntypes:
@@ -352,3 +518,21 @@ class PairEAMFS(PairEAMAlloy):
 
     name = "eam/fs"
     _fs = True
+
+
+@register_pair("eam/he")
+class PairEAMHE(PairEAMFS):
+    """eam/he: eam/fs tables over rho in [rhomin, rhomax], the embedding
+    extrapolated linearly outside (src/MANYBODY/pair_eam_he.cpp); the
+    matrix engine only (the grid's kernels take tables from rho = 0)."""
+
+    name = "eam/he"
+    he_flag = True
+    supports_cellgrid = False
+    _reader = {"he": True}
+
+    def init(self):
+        super().init()
+        f = self._setfl
+        self.rhomax = f.rhomax_file
+        self.rhomin = self.rhomax - (f.nrho - 1) * f.drho

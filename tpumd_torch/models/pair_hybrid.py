@@ -1,14 +1,19 @@
 """pair_style hybrid, hybrid/overlay and hybrid/scaled (src/pair_hybrid.cpp,
 src/pair_hybrid_overlay.cpp, src/pair_hybrid_scaled.cpp).
 
-PyTorch counterpart of tpumd/models/pair_hybrid.py for the pairwise
-sub-styles: each type pair belongs to one sub-style (hybrid) or to several
-(overlay, scaled); pair_coeff routes by sub-style name.  Every sub-style
-sweeps the same neighbor rows with its pair function masked by a
-per-type-pair activation table on the device, and their forces, energies,
-virials and per-atom tallies add, each times its constant factor under
-hybrid/scaled (tpumd takes constants only).  For kspace, the Coulomb
-cutoff and g_ewald are the coul/long sub-style's.
+PyTorch counterpart of tpumd/models/pair_hybrid.py: each type pair
+belongs to one sub-style (hybrid) or to several (overlay, scaled);
+pair_coeff routes by sub-style name.  Every pairwise sub-style sweeps the
+same neighbor rows with its pair function masked by a per-type-pair
+activation table on the device.  A many-body sub-style (an
+``EnergyPairStyle``: sw, tersoff, atm, meam, ...) runs its own compute on a
+masked view of the rows: a candidate whose type pair it does not own points
+back to its own row, which the energy styles take as padding (tpumd's
+masked view, tpumd/models/pair_hybrid.py:130-152; the reference's
+per-sub-style skip lists).  Their forces, energies, virials and per-atom
+tallies add, each times its constant factor under hybrid/scaled (tpumd
+takes constants only).  For kspace, the Coulomb cutoff and g_ewald are the
+coul/long sub-style's.
 """
 
 from __future__ import annotations
@@ -17,7 +22,9 @@ import numpy as np
 import torch
 
 from tpumd_torch.models.base import PairStyle
+from tpumd_torch.models.pair_manybody import EnergyPairStyle
 from tpumd_torch.models.registry import register_pair
+from tpumd_torch.ops.gather import gather_rows
 from tpumd_torch.ops.pairwise import pair_sums
 
 
@@ -80,11 +87,13 @@ class PairHybrid(PairStyle):
                 raise ValueError(f"pair_style {self.name} inside a hybrid")
             style = create_pair_style(g[0], self.ntypes, g[1:],
                                       units=getattr(self, "units", None))
-            if not style.matrix_engine or getattr(style, "is_granular",
-                                                   False):
+            pairwise = (type(style).pair_fn is not PairStyle.pair_fn
+                        or hasattr(style, "pair_fn_ex"))
+            if not (pairwise or isinstance(style, EnergyPairStyle)) \
+                    or getattr(style, "is_granular", False):
                 raise NotImplementedError(
                     f"pair_style {self.name} with sub-style {g[0]}: only "
-                    "pairwise sub-styles are ported")
+                    "pairwise and many-body energy sub-styles are ported")
             self.subs.append(_Sub(style, self.ntypes))
             self.names.append(g[0])
         self.scales = [1.0] * len(self.subs)
@@ -126,6 +135,23 @@ class PairHybrid(PairStyle):
     def max_cutoff(self) -> float:
         return max(m.style.max_cutoff for m in self.subs)
 
+    @property
+    def peratom(self):
+        return all(m.style.peratom for m in self.subs)
+
+    @property
+    def supports_image_ext(self):
+        return all(m.style.supports_image_ext for m in self.subs)
+
+    def _masked_rows(self, m, type_, idx):
+        """idx with the candidates whose type pair the sub-style m does not
+        own pointed back to their own row (the neighbours' types by one P1
+        gather)."""
+        jt = gather_rows(type_[:, None].contiguous(), idx)[..., 0]
+        rows = torch.arange(idx.shape[0], dtype=idx.dtype,
+                            device=idx.device)[:, None]
+        return torch.where(m.mask(type_[:, None], jt, idx), idx, rows)
+
     def _long(self):
         longs = [m.style for m in self.subs if hasattr(m.style, "g_ewald")]
         return longs[0] if longs else None
@@ -163,14 +189,21 @@ class PairHybrid(PairStyle):
 
     def compute(self, x, type_, box, idx, sbits, special_lj, special_coul,
                 eflag, vflag, q=None, ext=None):
-        """The sum over the sub-styles of pair_sums' outputs, each times
-        its factor; with eflag = vflag = "atom" the per-atom tallies."""
+        """The sum over the sub-styles of their outputs (pair_sums', or a
+        many-body style's compute on its masked rows), each times its
+        factor; with eflag = vflag = "atom" the per-atom tallies."""
         out = None
         for scale, m in zip(self.scales, self.subs):
-            fn, fn_ex = m.pair_fns()
-            r = pair_sums(x, type_, box, idx, sbits, fn, special_lj,
-                          special_coul, eflag, vflag, q=q, pair_fn_ex=fn_ex,
-                          ext=ext)
+            if isinstance(m.style, EnergyPairStyle):
+                r = m.style.compute(x, type_, box,
+                                    self._masked_rows(m, type_, idx), sbits,
+                                    special_lj, special_coul, eflag, vflag,
+                                    q=q, ext=ext)
+            else:
+                fn, fn_ex = m.pair_fns()
+                r = pair_sums(x, type_, box, idx, sbits, fn, special_lj,
+                              special_coul, eflag, vflag, q=q,
+                              pair_fn_ex=fn_ex, ext=ext)
             r = [None if v is None else (v if scale == 1.0 else scale * v)
                  for v in r]
             out = r if out is None else [
