@@ -238,11 +238,28 @@ line each (any failure raises and exits non-zero):
    memory, a profile of 20 steps, f32 forces on the f64 run's step-100
    positions against f64 there, and P1 at the deck's neighbour-row
    shape beside its bound, the plain version and torch.index_select;
-15. a JSON line of the kernels (the list build of each deck, the refresh
+15. DPD, TIP4P and the kspace layer on the matrix engine
+   (``kspace_goldens_phase``, ``tip4p30k_path``, ``dpd32k_path``): the six
+   goldens of ``tpumd_torch.kspace_goldens`` (dpd, tip4p, msm, pppm_disp's
+   two decks, pppm_stagger, ewald_disp) and the pppm/ad and pppm/cg water
+   decks in f64 on the card, the goldens against the reference binary's
+   files at tpumd's tests' tolerances and every deck's rows against the
+   same deck on the CPU; then ``IN_TIP4P30K`` (tests/golden/tip4p's water
+   replicated 4x4x5, 30,000 atoms under pppm/tip4p) and ``IN_DPD32K``
+   (bench/POTENTIALS/in.dpd, 32,000 particles): in f64 the step-0 row
+   against the port's CPU f64 row, f32 on the f64 step-100 state against
+   f64 at 3x the CPU's gaps; in f32 from the f64 velocities 1,000 steps
+   without a NaN, a lost atom or an overflow (DPD32K's mean temperature
+   within 5 % of the 10^3-cell CPU run's), 200 (TIP4P) or 500 (DPD)
+   timed steps, P1's launches a force evaluation (no plain call, no grid
+   kernel), peak memory, a profile of 20 steps, and P1 at the deck's
+   packed j rows beside its bound and torch.index_select;
+16. a JSON line of the kernels (the list build of each deck, the refresh
    calls of in.lj, eam, rhodo_class, min32k and deform32k, B1 on min32k,
    pressber32k and deform32k, B5 at each 30k water deck's shape, B6's
    HERTZ variant at granhertz32k's and P1 at the salt's, hyb32k's,
-   sw32k's, tersoff32k's and eamalloy32k's, each an entry of its own),
+   sw32k's, tersoff32k's, eamalloy32k's, tip4p30k's and dpd32k's, each an
+   entry of its own),
    the card's name and power limit as nvidia-smi prints them, then the
    result line.
 
@@ -3062,7 +3079,8 @@ P1_CALLERS = ("tpumd_torch.ops.neighbor", "tpumd_torch.ops.pairwise",
               "tpumd_torch.models.bonded", "tpumd_torch.models.pair_manybody",
               "tpumd_torch.models.pair_hybrid", "tpumd_torch.models.pair_eam",
               "tpumd_torch.models.pair_adp", "tpumd_torch.models.pair_eim",
-              "tpumd_torch.models.pair_meam")
+              "tpumd_torch.models.pair_meam", "tpumd_torch.models.pair_dpd",
+              "tpumd_torch.models.pair_tip4p")
 
 
 def p1_case(gen, dtype, rows: int, width: int, shape: tuple):
@@ -5139,6 +5157,213 @@ def eamalloy32k_path(smi: str) -> tuple[dict, dict]:
                           smi, check, bt.EAMALLOY_F32_CPU_GAP, 200, 1000)
 
 
+def kspace_goldens_phase():
+    """The six DPD and kspace goldens (tpumd_torch.kspace_goldens) verbatim
+    and the pppm/ad and pppm/cg water decks in f64 on the card: the
+    goldens' solver parameters, last rows and pppm_stagger's dump against
+    the reference binary at tpumd's tests' tolerances; every deck's printed
+    rows against the same deck on the CPU (8 digits) and its last row to
+    1e-9; P1 (or, for pppm_stagger's CHARMM water on the grid, B5)
+    launched and no plain call."""
+    from tpumd_torch import kspace_goldens as kg
+    from tpumd_torch.ops import charmm_cellgrid, gather
+    gold = str(GOLDEN.parent)
+    counted = (gather.counts, charmm_cellgrid.counts)
+    notes = []
+    t0 = time.perf_counter()
+    for name in list(kg.DECKS) + list(kg.VARIANTS):
+        with tempfile.TemporaryDirectory() as cpu_dir, \
+                tempfile.TemporaryDirectory() as where:
+            cpu = kg.run(gold, name, cpu_dir, "cpu", torch.float64)
+            for c in counted:
+                c.reset()
+            script = kg.run(gold, name, where, "cuda", torch.float64)
+            launches = sum(c.kernel_launches for c in counted)
+            plain = sum(c.plain_calls for c in counted)
+            bad = (kg.failures(gold, name, script, where)
+                   if name in kg.DECKS else [])
+        got, want = thermo_rows(script.sim), thermo_rows(cpu.sim)
+        if sorted(got) != sorted(want) or not got:
+            bad.append(f"{name}: rows {sorted(got)} vs the CPU's "
+                       f"{sorted(want)}")
+        for step in set(got) & set(want):
+            for key, w in want[step].items():
+                if not abs(got[step][key] - w) <= 1e-7 * max(abs(w), 1e-3):
+                    bad.append(f"{name} step {step} {key}: card "
+                               f"{got[step][key]!r} vs CPU {w!r}")
+        for key, w in cpu.sim.last_thermo.items():
+            g = script.sim.last_thermo[key]
+            if not abs(g - w) <= 1e-9 * max(abs(w), 1e-6):
+                bad.append(f"{name} {key}: card {g!r} vs CPU {w!r}")
+        if bad or launches == 0 or plain:
+            raise AssertionError(f"kspace golden {name}: {bad[:6]}; "
+                                 f"launches {launches}, plain calls {plain}")
+        ks = script.sim.kspace
+        notes.append(f"{name} ({ks.style if ks else 'no kspace'}, "
+                     f"{'grid B5' if script.sim._ctx.is_cellgrid else 'P1'}"
+                     f" x{launches})")
+    phase("kspace", f"{len(notes)} DPD and kspace decks in f64 on the card "
+                    f"({time.perf_counter() - t0:.1f} s with their CPU "
+                    "runs): the six goldens' parameters, last rows and "
+                    "dump to the reference binary at tpumd's tests' "
+                    "tolerances, every deck's rows = the CPU's: "
+                    + ", ".join(notes))
+
+
+def kspace32k_script(deck: str, dtype):
+    """LammpsScript of IN_TIP4P30K or IN_DPD32K on the card, verbose off,
+    before its first run."""
+    from tpumd_torch.script.parser import LammpsScript
+    script = LammpsScript(device="cuda", dtype=dtype)
+    with contextlib.redirect_stdout(sys.stderr):
+        script.run_string(deck)
+    script.sim.verbose = False
+    return script
+
+
+def kspace32k_path(name: str, deck: str, smi: str, step0: dict,
+                   cpu_gap: dict, timed: int, total: int,
+                   width: int) -> tuple[dict, dict]:
+    """A 30k/32k DPD or TIP4P deck on the matrix engine: in f64 the step-0
+    row against the port's CPU f64 row (step0, to 1e-9) and f32 on the
+    step-100 state against f64 there (bench_targets.f32_gaps_at, 3x the
+    CPU's gaps); then the main path in f32 from the f64 deck's velocities:
+    `total` steps without a NaN, a lost atom or a neighbour overflow,
+    `timed` of them timed after 100, P1's launches (no plain call, no grid
+    kernel), peak memory and a profile of 20 steps; P1 at the deck's
+    packed j rows (`width` columns) beside its bound and index_select."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.ops import cellgrid_pairlist, charmm_cellgrid, \
+        eam_cellgrid, gather, gran_cellgrid, lj_cellgrid, lj_fene_cellgrid
+    grid = (lj_cellgrid.counts, lj_fene_cellgrid.counts,
+            eam_cellgrid.rho_counts, eam_cellgrid.force_counts,
+            charmm_cellgrid.counts, gran_cellgrid.counts,
+            cellgrid_pairlist.counts, cellgrid_pairlist.refresh_counts)
+    # 1. f64: step 0 against the CPU's row; the step-100 state in f32
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = kspace32k_script(deck, torch.float64)
+    v64 = ref.sim.state.v.clone()
+    ref.run_string("run 0")
+    n = ref.sim.natoms
+    row0 = dict(ref.sim.last_thermo)
+    bad = [f"{k} {row0[k]!r} vs {w!r}" for k, w in step0.items()
+           if not abs(row0[k] - w) <= 1e-9 * max(abs(w), 1.0)]
+    if bad or ref.sim._ctx.is_cellgrid:
+        raise AssertionError(f"{name} f64 step 0 against the CPU: {bad}")
+    ref.run_string("run 100")
+    torch.cuda.synchronize()
+    s64_s = time.perf_counter() - t0
+    gaps, probe = bt.f32_gaps_at(ref, deck, "cuda")
+    del probe
+    bad = bt.f32_gap_failures(gaps, cpu_gap)
+    if bad:
+        raise AssertionError(f"{name} f32 on the f64 step-100 state: {bad}")
+    phase(name, f"f64 ({n} atoms, matrix engine): step 0 = the port's CPU "
+                f"f64 row to 1e-9: {row0['epair']!r} epair, "
+                f"{row0['press']!r} press; to step 100 in {s64_s:.2f} s; "
+                "f32 on the f64 step-100 state within 3x the CPU's gaps: "
+                + ", ".join(f"{k} {g:.2e} (CPU {cpu_gap[k]:.2e})"
+                            for k, g in gaps.items()))
+    del ref
+    torch.cuda.empty_cache()
+    # 2. the main path in f32; the counts are set to 0 just before it
+    for c in (gather.counts,) + grid:
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    script = kspace32k_script(deck, torch.float32)
+    sim = script.sim
+    sim.state = sim.state.replace(v=v64.to(torch.float32))
+    seen = {}
+    with recording_p1(seen):
+        script.run_string("run 0")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    script.run_string("run 100")
+    lt0 = sim.loop_time
+    script.run_string(f"run {timed}")
+    torch.cuda.synchronize()
+    sps = timed / (sim.loop_time - lt0)
+    script.run_string(f"run {total - 100 - timed}")
+    torch.cuda.synchronize()
+    launches = gather.counts.kernel_launches
+    plain = gather.counts.plain_calls + sum(c.plain_calls for c in grid)
+    other = sum(c.kernel_launches for c in grid)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # a force evaluation at each of the four runs' set-ups and each step
+    force_evals = 4 + total
+    if launches < force_evals or plain or other or sim._ctx.is_cellgrid:
+        raise AssertionError(f"{name}: row_gather launches {launches} < "
+                             f"force evaluations {force_evals}, or plain "
+                             f"calls {plain}, or grid kernel launches {other}")
+    rows = thermo_rows(sim)
+    s, neigh, _ = sim._carry
+    finite = (np.isfinite(np.array([list(r.values())
+                                    for r in rows.values()])).all()
+              and bool(torch.isfinite(s.x).all())
+              and bool(torch.isfinite(s.v).all()))
+    ntags = int(torch.unique(s.tag[s.tag > 0]).numel())
+    if sorted(rows)[-1] != total or not finite or ntags != n \
+            or bool(neigh.overflow):
+        raise AssertionError(f"{name}: rows {sorted(rows)}, finite "
+                             f"{finite}, atoms {ntags}, overflow "
+                             f"{bool(neigh.overflow)}")
+    e = np.array([rows[k]["etotal"] for k in sorted(rows)])
+    drift = float(np.abs(e - e[0]).max() / abs(e[0]))
+    temps = [rows[k]["temp"] for k in sorted(rows) if k >= 100]
+    mean_t = float(np.mean(temps))
+    if name == "dpd32k" and not abs(mean_t - bt.DPD10_MEAN_TEMP) <= \
+            bt.DPD_MEAN_TEMP_RTOL * bt.DPD10_MEAN_TEMP:
+        raise AssertionError(f"dpd32k mean temperature {mean_t} vs the "
+                             f"10^3 CPU f64 run's {bt.DPD10_MEAN_TEMP}")
+    cfg = sim._neigh_cfg
+    phase(name, f"f32 (matrix engine): set-up {setup_s:.3f} s (cells "
+                f"{cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cell_cap}, K "
+                f"{cfg.kmax}, max count {int(neigh.max_count)}); {total} "
+                f"steps, {ntags} atoms, no NaN, no overflow; energy drift "
+                f"{drift:.4e} (max over the rows); mean temperature of "
+                f"steps 100-{total} {mean_t:.6f}"
+                + (f" (the 10^3 CPU f64 run's {bt.DPD10_MEAN_TEMP:.6f}, "
+                   f"gate {bt.DPD_MEAN_TEMP_RTOL:.0%})"
+                   if name == "dpd32k" else ""))
+    phase(name, f"timed {timed} steps after 100: {sps:.2f} timesteps/s, "
+                f"{sps * n / 1e6:.3f} Matom-step/s on {smi}; row_gather "
+                f"launches {launches} over {force_evals} force evaluations "
+                f"({launches / force_evals:.2f} a force evaluation, the "
+                f"neighbour builds' included), plain calls {plain}, grid "
+                f"kernel launches {other}; peak {peak:.2f} GiB")
+    phase(name, profile_steps(script, 20, 1e3 / sps))
+    del script, sim, s, neigh
+    torch.cuda.empty_cache()
+    p1_equal_plain(seen.values(), f"{name} input")
+    table, idx = [v for (d, t, i), v in seen.items()
+                  if d == torch.float32 and t == (n, width) and len(i) == 2
+                  and i[0] == n][-1]
+    k = p1_at_shape(name, table, idx, len(seen))
+    return k, {"launches": launches, "sps": sps}
+
+
+def tip4p30k_path(smi: str) -> tuple[dict, dict]:
+    """IN_TIP4P30K: tests/golden/tip4p's water replicated 4x4x5 (30,000
+    atoms, TIP4P under pppm/tip4p); P1 at the Coulomb sum's (xq, type, q)
+    rows."""
+    from tpumd_torch import bench_targets as bt
+    deck = bt.IN_TIP4P30K.format(golden=GOLDEN.parent / "tip4p",
+                                 thermo=100)
+    return kspace32k_path("tip4p30k", deck, smi, bt.TIP4P30K_STEP0_F64,
+                          bt.TIP4P30K_F32_CPU_GAP, 200, 1000, 5)
+
+
+def dpd32k_path(smi: str) -> tuple[dict, dict]:
+    """IN_DPD32K: LAMMPS's bench/POTENTIALS/in.dpd (32,000 particles); P1
+    at DPD's packed (x, v, tag, type) rows."""
+    from tpumd_torch import bench_targets as bt
+    deck = bt.IN_DPD32K.format(n=bt.DPD32K_CELLS, thermo=100)
+    return kspace32k_path("dpd32k", deck, smi, bt.DPD32K_STEP0_F64,
+                          bt.DPD32K_F32_CPU_GAP, 500, 1000, 8)
+
+
 def main():
     t_start = time.perf_counter()
     smi = environment()
@@ -5198,6 +5423,9 @@ def main():
     k_sw, m_sw = sw32k_path(smi)
     k_ters, m_ters = tersoff32k_path(smi)
     k_eama, m_eama = eamalloy32k_path(smi)
+    kspace_goldens_phase()
+    k_tip4p, m_tip4p = tip4p30k_path(smi)
+    k_dpd, m_dpd = dpd32k_path(smi)
     # the list kernels' launches on the main paths: builds at set-up and
     # re-bins, and refresh calls, most of which pass the gate and return
     # (those that rebuild are the refreshes taken); an entry each
@@ -5279,7 +5507,9 @@ def main():
                "tools/probes/gather_probe.py:37", k, m)
               for name, k, m in (("sw32k", k_sw, m_sw),
                                  ("tersoff32k", k_ters, m_ters),
-                                 ("eamalloy32k", k_eama, m_eama))]):
+                                 ("eamalloy32k", k_eama, m_eama),
+                                 ("tip4p30k", k_tip4p, m_tip4p),
+                                 ("dpd32k", k_dpd, m_dpd))]):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": m["launches"],

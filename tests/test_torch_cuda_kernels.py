@@ -919,3 +919,40 @@ def test_energy_style_forces_through_p1_equal_plain_gather(style, tmp_path,
     assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) \
         <= 1e-12 * scale
     assert out["cuda"][1] == pytest.approx(out["cpu"][1], rel=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dpd", "tip4p"])
+def test_row_gather_on_dpd_and_tip4p_rows_equals_plain(name, tmp_path):
+    """P1 on the inputs that DPD's force (its packed (x, v, tag, type)
+    rows) and TIP4P's (the rows of each water's tags, their positions,
+    the (x, type, q) rows of both sums and the coefficient rows) give it,
+    recorded through a run of tests/golden/dpd and tests/golden/tip4p on
+    the card in f64, bit for bit against the plain gather; and the run
+    launched P1 and never its plain version."""
+    _card()
+    from tpumd_torch import kspace_goldens as kg
+    from tpumd_torch.models import base, pair_dpd, pair_tip4p
+    from tpumd_torch.ops import pairwise
+    gold = os.path.dirname(GOLDEN)
+    seen = {}
+    mods = (pair_dpd, pair_tip4p, pairwise, base)
+
+    def record(table, idx):
+        key = (table.dtype, tuple(table.shape), tuple(idx.shape))
+        seen.setdefault(key, (table.clone(), idx.clone()))
+        return p1.gather_rows(table, idx)
+    for m in mods:
+        m.gather_rows = record
+    p1.counts.reset()
+    try:
+        kg.run(gold, name, str(tmp_path), "cuda", torch.float64, steps=10)
+    finally:
+        for m in mods:
+            m.gather_rows = p1.gather_rows
+    assert p1.counts.kernel_launches > 11 and p1.counts.plain_calls == 0
+    widths = {t[1][1] for t in seen}
+    assert (8 in widths) if name == "dpd" else {1, 3, 5} <= widths
+    for table, idx in seen.values():
+        assert torch.equal(p1.gather_rows(table, idx),
+                           p1.gather_rows_plain(table, idx))

@@ -1817,3 +1817,130 @@ fix             1 all nve
 timestep        0.002
 run             10
 """
+
+
+# ------------------------------------------------------------- DPD, TIP4P
+# IN_TIP4P30K: tests/golden/tip4p's deck (lj/cut/tip4p/long with
+# pppm/tip4p 1e-4, flexible water at 0.5 fs, NVE) on its 375-atom cell
+# replicated 4x4x5: 30,000 atoms in a 76 x 76 x 95 A box, the velocities
+# created after the replicate; {golden} is tests/golden/tip4p
+IN_TIP4P30K = """units           real
+atom_style      full
+bond_style      harmonic
+angle_style     harmonic
+pair_style      lj/cut/tip4p/long 1 2 1 1 0.15 6.0 7.0
+kspace_style    pppm/tip4p 1e-4
+special_bonds   lj/coul 0.0 0.0 0.5
+read_data       {golden}/data.water
+replicate       4 4 5
+bond_coeff      1 450.0 0.9572
+angle_coeff     1 55.0 104.52
+pair_coeff      1 1 0.1521 3.1507
+pair_coeff      2 2 0.0 1.0
+velocity        all create 300.0 48291 loop geom
+neighbor        2.0 bin
+neigh_modify    every 1 delay 0 check yes
+timestep        0.5
+fix             1 all nve
+thermo          {thermo}
+thermo_style    custom step temp epair evdwl ecoul elong emol etotal press
+"""
+TIP4P30K_REPLICAS = 80
+
+# IN_DPD32K: LAMMPS's bench/POTENTIALS/in.dpd, fcc 3.0 over {n}^3 cells
+# (n = 20: 32,000 particles); tests/golden/dpd/in.dpd_cons is the same
+# lattice at 4^3 cells with gamma = 0
+IN_DPD32K = """units           lj
+atom_style      atomic
+comm_modify     mode single vel yes
+lattice         fcc 3.0
+region          box block 0 {n} 0 {n} 0 {n}
+create_box      1 box
+create_atoms    1 box
+mass            1 1.0
+velocity        all create 1.0 87287 loop geom
+pair_style      dpd 1.0 1.0 34387
+pair_coeff      1 1 25.0 4.5
+neighbor        0.5 bin
+neigh_modify    delay 0 every 4 check no
+fix             1 all nve
+timestep        0.04
+thermo          {thermo}
+thermo_style    custom step temp epair etotal press
+"""
+DPD32K_CELLS = 20
+
+# the columns of the f32 gates of IN_TIP4P30K and IN_DPD32K
+KSPACE32K_GAP_KEYS = ("temp", "epair", "etotal", "press")
+
+
+def tag_ordered(t, tag):
+    """Rows of t in tag order."""
+    import torch
+    return t[torch.argsort(tag)]
+
+
+def f32_gaps_at(script64, deck: str, device) -> tuple[dict, object]:
+    """({column: relative gap, "force": gap of max|f|}, the f32 script): the
+    deck in float32 on device with the positions and velocities of the f64
+    script's current state (by tag), against that state's row and forces,
+    both from a set-up's evaluation (a new set-up and ``run 0``: DPD's
+    random kick of step 0 in both); tpumd's way of holding f32 to f64 on
+    one state."""
+    import torch
+
+    from tpumd_torch.script.parser import LammpsScript
+    script64.sim.invalidate_ctx()
+    script64.run_string("run 0")
+    s64 = script64.sim.state
+    x = tag_ordered(s64.x, s64.tag)
+    v = tag_ordered(s64.v, s64.tag)
+    f64 = tag_ordered(s64.f, s64.tag).double()
+    row64 = script64.sim.last_thermo
+    script = LammpsScript(device=device, dtype=torch.float32)
+    script.run_string(deck)
+    script.sim.verbose = False
+    st = script.sim.state
+    idx = (st.tag.long() - 1).to(x.device)
+    script.sim.state = st.replace(x=x[idx].to(device, torch.float32),
+                                  v=v[idx].to(device, torch.float32))
+    script.run_string("run 0")
+    s = script.sim.state
+    f32 = tag_ordered(s.f, s.tag).double().to(f64.device)
+    gaps = {k: abs(script.sim.last_thermo[k] - row64[k]) / abs(row64[k])
+            for k in KSPACE32K_GAP_KEYS}
+    gaps["force"] = float((f32 - f64).abs().max() / f64.abs().max())
+    return gaps, script
+
+# The port's step-0 rows of the two decks on the CPU in float64
+# (probes/kspace32k_cpu_gaps.py; tests/test_torch_tip4p.py and
+# test_torch_dpd.py regenerate them under -m slow): the card's f64 step-0
+# targets.  IN_TIP4P30K's evdwl and emol are 80x tpumd's cell's; its ecoul
+# + elong is 80x the cell's within TIP4P30K_COUL_RTOL of 80 ecoul (1.96e-4
+# measured: the 54 x 54 x 64 mesh and g_ewald 0.36993 against the cell's
+# 15^3 and 0.38489).  IN_DPD32K's epair is the 4^3 golden cell's per
+# particle (tpumd); its press holds step 0's random kick, deterministic.
+TIP4P30K_STEP0_F64 = {
+    "temp": 299.99999999999994, "epair": -5372.808886203216,
+    "evdwl": -5394.76218994354, "ecoul": 715343.2515878329,
+    "elong": -715321.2982840926, "etotal": 21453.587320781964,
+    "press": 1453.643234154722}
+TIP4P30K_COUL_RTOL = 3e-4
+DPD32K_STEP0_F64 = {"temp": 1.0, "epair": 3.6872573869019094,
+                    "etotal": 5.187210511901909,
+                    "press": 28.866395193643474}
+# the f32 gates' bases: per column the larger of the cell's gap at its
+# step 100 and the full deck's at step 0 (bench_targets.f32_gaps_at on the
+# CPU, probes/kspace32k_cpu_gaps.py); the card holds 3x these
+TIP4P30K_F32_CPU_GAP = {"temp": 1.02e-7, "epair": 2.95e-6,
+                        "etotal": 1.22e-6, "press": 2.43e-5,
+                        "force": 6.89e-4}
+DPD32K_F32_CPU_GAP = {"temp": 3.76e-8, "epair": 1.82e-7,
+                      "etotal": 1.30e-7, "press": 1.09e-7,
+                      "force": 6.00e-6}
+# the mean temperature of the printed rows of steps 100-1000 of IN_DPD32K
+# at 10^3 cells (4,000 particles) in f64 on the CPU; the card's f32 32k
+# mean holds to it within DPD_MEAN_TEMP_RTOL (kT = 1: dt 0.04 heats DPD a
+# little above it)
+DPD10_MEAN_TEMP = 1.0227925399999998
+DPD_MEAN_TEMP_RTOL = 0.05

@@ -3,9 +3,10 @@
 Takes plain numpy arrays (for example the fields of a tpumd ``MDState``,
 ``PairLJCut``, ``PairEAM``, ``PairLJCharmmCoulLong``, ``PPPM`` and
 ``PairGranHookeHistory``, and a ``NeighborConfig`` and ``NeighborState``
-of the matrix engine, a fix's per-atom state, and the parsed parameter
-tables of a many-body or EAM-family style), so one state, one
-potential and one neighbor list can be fed to both engines. This module
+of the matrix engine, a fix's per-atom state, the parsed parameter tables
+of a many-body, EAM-family or DPD style, every kspace solver's mesh,
+levels and tables, and TIP4P's alpha and waters), so one state, one
+potential and one neighbor list can be fed to both engines.  This module
 imports nothing of tpumd.
 """
 
@@ -217,3 +218,35 @@ def with_fix_peratom(s: MDState, fix, values) -> MDState:
     table[fix.history_key] = torch.as_tensor(
         np.asarray(values, np.float64), dtype=s.x.dtype, device=s.x.device)
     return s.replace(peratom=table)
+
+
+def with_kspace_state(ks, state: dict):
+    """The port's kspace solver ``ks`` (after its init) holding another
+    engine's solver state: each entry of state replaces the attribute of
+    that name (PPPM's nx, ny, nz, order, g_ewald, greensfn, vg, fk,
+    sf_coeff; pppm/disp's g_ewald_6, n6, greensfn_6, vg_6, b_type, csum,
+    csumij; MSM's ngrids, levels, cutoff and kernels; Ewald's kvecs, ug,
+    ke6, kv6_c2), numpy arrays copied, and the device copies are dropped,
+    so that both packages evaluate one solver."""
+    for name, value in state.items():
+        if not hasattr(ks, name):
+            raise AttributeError(f"kspace_style {ks.style} has no "
+                                 f"{name!r}")
+        if isinstance(value, (list, tuple)) and value and isinstance(
+                value[0], np.ndarray):
+            value = [np.array(v) for v in value]
+        elif isinstance(value, np.ndarray):
+            value = np.array(value)
+        setattr(ks, name, value)
+    ks._dev = {}
+    return ks
+
+
+def tip4p_from_numpy(pair, alpha, waters, *, device):
+    """The port's TIP4P pair style with another engine's alpha and the
+    (M, 3) tags of each water's O, H1 and H2 (tpumd keeps rows: map them
+    through its tag array first)."""
+    pair.alpha = float(alpha)
+    pair.waters = torch.as_tensor(np.asarray(waters, np.int32) - 1,
+                                  device=device)
+    return pair

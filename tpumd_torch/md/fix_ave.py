@@ -1,5 +1,5 @@
 """Output fixes: ave/time, ave/atom, ave/histo, ave/correlate, ave/chunk,
-print, halt, store/state and property/atom.
+print, halt, store/state and property/atom; and tune/kspace.
 
 The port of tpumd/md/fix_ave.py (src/fix_ave_time.cpp, fix_ave_atom.cpp,
 fix_ave_histo.cpp, fix_ave_correlate.cpp, fix_ave_chunk.cpp,
@@ -9,11 +9,14 @@ never touch the dynamics, so they run on the host at the run loop's host
 events (``host_every``, ``host_end_of_step``), after the step's forces and
 before its thermo row and dumps, as Verlet::run orders end_of_step before
 output.  Their inputs (computes, atom attributes, variables) are read from
-the device there; their files keep tpumd's layout.  ave/grid,
-tune/kspace and balance are not ported (with dump grid and balance).
+the device there; their files keep tpumd's layout.  tune/kspace acts at
+the same events, swapping the kspace solver.  ave/grid and balance are not
+ported (with dump grid and balance).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 
@@ -527,3 +530,54 @@ class FixPropertyAtom(Fix):
             if nm not in store:
                 store[nm] = np.zeros(n, np.int64 if nm.startswith("i_")
                                      else np.float64)
+
+
+class FixTuneKspace(Fix):
+    """fix tune/kspace N (src/KSPACE/fix_tune_kspace.cpp; tpumd/md/
+    fix_ave.py:530-600): time the long-range solver in place over N-step
+    windows against the other of pppm and ewald on the same pair style,
+    and keep the faster.  The first window after a swap restarts the
+    clock (the swap sets up anew); the swap keeps the accuracy.  The
+    reference also tries msm with its pair style and adjusts the Coulomb
+    cutoff between trials; tpumd does neither, nor does the port
+    (ROADMAP A6).  The clock is ``time.perf_counter``."""
+
+    name = "tune/kspace"
+
+    def __init__(self, nevery):
+        self.host_every = int(nevery)
+        self._t_last = None
+        self._times = {}
+        self._phase = 0        # 0: timing the deck's, 1: the other, 2: done
+
+    @staticmethod
+    def _make(style, accuracy):
+        from tpumd_torch.models.kspace_ewald import Ewald
+        from tpumd_torch.models.kspace_pppm import PPPM
+        return PPPM(accuracy) if style == "pppm" else Ewald(accuracy)
+
+    def host_end_of_step(self, sim):
+        if self._phase == 2 or sim.kspace is None:
+            return
+        now = time.perf_counter()
+        cur = "pppm" if sim.kspace.style.startswith("pppm") else "ewald"
+        if self._t_last is None:
+            self._t_last = now
+            return
+        self._times[cur] = now - self._t_last
+        acc = sim.kspace.accuracy_relative
+        if self._phase == 0:
+            other = "ewald" if cur == "pppm" else "pppm"
+            sim.kspace = self._make(other, acc)
+            sim.invalidate_ctx()
+            self._phase = 1
+            self._t_last = None
+            sim._log(f"fix tune/kspace: timing {other}")
+            return
+        best = min(self._times, key=self._times.get)
+        if best != cur:
+            sim.kspace = self._make(best, acc)
+            sim.invalidate_ctx()
+        self._phase = 2
+        t = {k: round(v, 3) for k, v in self._times.items()}
+        sim._log(f"fix tune/kspace: times {t} -> keeping {best}")

@@ -24,8 +24,8 @@ Two neighbor engines (``neighbor_mode``, chosen at set-up by
 and the matrix engine (``ops/neighbor.py``), where they keep their rows and
 a padded (N, K) neighbor list holds the pairs.  The matrix engine takes
 what the grid cannot: every pairwise style without a grid kernel (the
-pair-style library, hybrid, lj/charmm/coul/long without special lists),
-kspace (pppm, ewald) beside any coul/long style, any number of lj/cut
+pair-style library, hybrid, lj/charmm/coul/long without special lists,
+DPD, TIP4P), kspace (every style) beside its pair styles, any number of lj/cut
 types, non-periodic axes for every pairwise style, boxes narrower than 2
 cutneigh and triclinic boxes, and the bonded styles and SHAKE beside any
 pairwise style (``_grid_refusal`` says which bonded decks the grid
@@ -728,21 +728,16 @@ class Simulation:
         # styles (the reference negates their types)
         self._setup_bonded(self.build_shake())
         self._setup_kernel_bond()
+        if getattr(self.pair, "is_tip4p", False):
+            # alpha and each O's two H by tag (tpumd/md/simulation.py:
+            # 597-604 resolves rows)
+            by_tag = np.zeros(self.natoms + 1, np.int64)
+            by_tag[self.state.tag.cpu().numpy()] = \
+                self.state.type.cpu().numpy()
+            self.pair.setup_tip4p(self.bonded, self.topology.get("bond"),
+                                  by_tag, self.device)
         if self.kspace is not None:
-            # any style with a real-space Ewald Coulomb part couples to
-            # kspace (tpumd/models/kspace_pppm.py:161-186)
-            if self.state.q is None or not (
-                    hasattr(self.pair, "g_ewald")
-                    and hasattr(self.pair, "cut_coul")):
-                raise NotImplementedError(
-                    f"kspace_style {self.kspace.style} needs charges and a "
-                    "coul/long pair style, not pair_style "
-                    f"{getattr(self.pair, 'name', None)}")
-            self.kspace.init(self.natoms, self.state.q.cpu().numpy(),
-                             self.state.box.lengths_np(), self.units,
-                             self.pair.cut_coul,
-                             dynamic_box=self._barostat_active())
-            self.pair.g_ewald = self.kspace.g_ewald
+            self._setup_kspace()
         for _ in range(6):
             self._ctx = self._make_ctx()
             if self._mode == "cellgrid":
@@ -801,6 +796,36 @@ class Simulation:
         self._energies_of = s
         for c in self.computes.values():
             c.setup(self)
+
+    def _setup_kspace(self):
+        """Couple kspace to the pair style: a style with a real-space
+        Ewald part (g_ewald) or MSM's taper (msm_order) and a Coulomb
+        cutoff, beside charges; every kspace style takes the one interface
+        init(natoms, q, prd, units, cutoff, dynamic_box, types, pair)
+        (tpumd/models/kspace_pppm.py:161-186), and the pair style then
+        takes its g_ewald and, for the dispersion solvers, g_ewald_6 (MSM
+        sets its cutoff itself).  A TIP4P style needs pppm/tip4p, whose
+        sites it hands over."""
+        ks, pair = self.kspace, self.pair
+        need = getattr(ks, "pair_needs", "g_ewald")
+        if self.state.q is None or not (hasattr(pair, need)
+                                        and hasattr(pair, "cut_coul")):
+            raise NotImplementedError(
+                f"kspace_style {ks.style} needs charges and a pair style "
+                f"with {'a coul/long' if need == 'g_ewald' else 'its'} "
+                "real-space part, not pair_style "
+                f"{getattr(pair, 'name', None)}")
+        if getattr(pair, "is_tip4p", False) and ks.style != "pppm/tip4p":
+            raise NotImplementedError(
+                f"pair_style {pair.name} with kspace_style {ks.style}: the "
+                "TIP4P sites take kspace_style pppm/tip4p")
+        ks.init(self.natoms, self.state.q.cpu().numpy(),
+                self.state.box.lengths_np(), self.units, pair.cut_coul,
+                dynamic_box=self._barostat_active(),
+                types=self.state.type.cpu().numpy(), pair=pair)
+        for name in ("g_ewald", "g_ewald_6"):
+            if hasattr(ks, name) and hasattr(pair, name):
+                setattr(pair, name, getattr(ks, name))
 
     def current_energies(self):
         """(energies, virial) of the current state: the last thermo or

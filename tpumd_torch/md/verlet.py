@@ -156,7 +156,7 @@ def _matrix_pair(s: MDState, neigh: nb.NeighborState, ctx: StepContext,
 
 
 def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
-                   vflag: bool, shearupdate: bool = False):
+                   vflag: bool, shearupdate: bool = False, istep: int = 0):
     """All forces; returns (f, energies {ENERGY_KEYS} or None, virial (6,)
     or None, torque (N, 3) or None, neigh).  Only a granular style gives a
     torque, and with shearupdate a neigh holding the new history.  neigh
@@ -164,7 +164,15 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
     kspace and the bonded styles run on either engine's rows (padded grid
     slots carry q = 0; the bonded styles on the tag-order view, through
     P1 on the matrix engine).  A style with a Coulomb self-energy (Wolf,
-    DSF) adds the sum of its atoms' to ecoul, summed in float64."""
+    DSF) adds the sum of its atoms' to ecoul, summed in float64.
+
+    On the matrix engine, a style that reads velocities (DPD) takes the
+    timestep istep for its random kick (0 outside the step, as in tpumd),
+    and a TIP4P style's charge sites stand in for the atoms in its Coulomb
+    sum and in kspace, their forces spread back onto the atoms once
+    (tpumd/md/verlet.py:150-156; models/pair_tip4p.py).  Every kspace style
+    takes the positions, charges and types of the rows
+    (``compute(x, q, box, eflag, vflag, type_)``)."""
     energies = virial = None
     if eflag:
         energies = dict.fromkeys(ENERGY_KEYS, torch.zeros(
@@ -182,9 +190,20 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
             virial = virial + vir
 
     pair = ctx.pair
-    torque = None
+    torque = sites = None
     if pair is None:
         f = torch.zeros_like(s.x)
+    elif getattr(pair, "is_tip4p", False):
+        sites = pair.charge_sites(s, ctx.natoms)
+        special = ctx.neigh_cfg.has_special
+        f, fsite, evdwl, ecoul, vir = pair.compute_sites(
+            s, neigh.idx, neigh.sbits, sites,
+            ctx.special_lj if special else None,
+            ctx.special_coul if special else None, eflag, vflag)
+        tally({"evdwl": evdwl, "ecoul": ecoul}, vir)
+    elif getattr(pair, "needs_velocities", False):
+        f, evdwl, vir = pair.compute_vel(s, neigh, ctx, eflag, vflag, istep)
+        tally({"evdwl": evdwl}, vir)
     elif not ctx.is_cellgrid:
         f, e, vir, torque, neigh = _matrix_pair(s, neigh, ctx, eflag,
                                                 vflag, shearupdate)
@@ -229,9 +248,16 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
         f = f.index_add(0, rows, ftag)
 
     if ctx.kspace is not None:
-        fk, elong, vir = ctx.kspace.compute(s.x, s.q, s.box, eflag, vflag)
-        f = f + fk
+        fk, elong, vir = ctx.kspace.compute(
+            s.x if sites is None else sites.xq, s.q, s.box, eflag, vflag,
+            type_=s.type)
+        if sites is None:
+            f = f + fk
+        else:
+            fsite = fsite + fk
         tally({"elong": elong}, vir)
+    if sites is not None:
+        f = f + sites.distribute(fsite)
     return f, energies, virial, torque, neigh
 
 
@@ -426,7 +452,8 @@ def step_pre(s: MDState, neigh, fstates, ctx: StepContext, istep: int,
     elif ctx.pairlist_refresh:
         neigh = refresh_list(s, neigh, ctx)
     f, _, virial, torque, neigh = compute_forces(
-        s, neigh, ctx, eflag=False, vflag=ctx.need_virial, shearupdate=True)
+        s, neigh, ctx, eflag=False, vflag=ctx.need_virial, shearupdate=True,
+        istep=istep)
     s = s.replace(f=f) if torque is None else s.replace(f=f, torque=torque)
     return s, neigh, tuple(fstates), virial
 

@@ -30,15 +30,18 @@ def create_pair_style(name: str, ntypes: int, args, units=None):
     import tpumd_torch.models.pair_adp  # noqa: F401
     import tpumd_torch.models.pair_breadth2  # noqa: F401
     import tpumd_torch.models.pair_charmm  # noqa: F401
+    import tpumd_torch.models.pair_dpd  # noqa: F401
     import tpumd_torch.models.pair_eam  # noqa: F401
     import tpumd_torch.models.pair_eim  # noqa: F401
     import tpumd_torch.models.pair_gran  # noqa: F401
     import tpumd_torch.models.pair_hybrid  # noqa: F401
+    import tpumd_torch.models.kspace_msm  # noqa: F401
     import tpumd_torch.models.pair_lj_cut  # noqa: F401
     import tpumd_torch.models.pair_manybody  # noqa: F401
     import tpumd_torch.models.pair_meam  # noqa: F401
     import tpumd_torch.models.pair_misc  # noqa: F401
     import tpumd_torch.models.pair_table  # noqa: F401
+    import tpumd_torch.models.pair_tip4p  # noqa: F401
     if name not in _PAIR_STYLES:
         raise NotImplementedError(f"pair_style {name!r} is not ported")
     style = _PAIR_STYLES[name](ntypes)

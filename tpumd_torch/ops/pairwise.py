@@ -115,3 +115,34 @@ def pair_sums(x, type_, box, idx, sbits, pair_fn, special_lj, special_coul,
             torch.sum(fpair * d[2] * d[2]), torch.sum(fpair * d[0] * d[1]),
             torch.sum(fpair * d[0] * d[2]), torch.sum(fpair * d[1] * d[2])])
     return f, e_vdwl, e_coul, virial
+
+
+def pair_sums_blocked(x, type_, box, idx, sbits, pair_fn, special_lj,
+                      special_coul, eflag: bool, vflag: bool, q=None,
+                      pair_fn_ex=None):
+    """pair_sums over row blocks of at most 2^20 (CPU) or 2^24 (CUDA)
+    entries of the (N, K) matrix, each block's j rows gathered from the
+    whole tables (``ext``, ``row0``), so that a wide matrix's temporaries
+    stay bounded; the same (f, evdwl, ecoul, virial)."""
+    n, k = idx.shape
+    rows = max(1, (1 << (20 if x.device.type == "cpu" else 24)) // max(k, 1))
+    if rows >= n:
+        return pair_sums(x, type_, box, idx, sbits, pair_fn, special_lj,
+                         special_coul, eflag, vflag, q=q,
+                         pair_fn_ex=pair_fn_ex)
+    f = torch.empty_like(x)
+    evdwl = ecoul = virial = None
+    for b0 in range(0, n, rows):
+        b1 = min(b0 + rows, n)
+        fb, ev, ec, vir = pair_sums(
+            x[b0:b1], type_[b0:b1], box, idx[b0:b1], sbits[b0:b1], pair_fn,
+            special_lj, special_coul, eflag, vflag,
+            q=None if q is None else q[b0:b1], pair_fn_ex=pair_fn_ex,
+            ext=(x, type_, q, box), row0=b0)
+        f[b0:b1] = fb
+        if eflag:
+            evdwl = ev if evdwl is None else evdwl + ev
+            ecoul = ec if ecoul is None else ecoul + ec
+        if vflag:
+            virial = vir if virial is None else virial + vir
+    return f, evdwl, ecoul, virial

@@ -41,7 +41,7 @@ from tpumd_torch.md.fix_pour import FixPour
 from tpumd_torch.md.compute_styles import create_compute
 from tpumd_torch.md.fix_ave import FixAveAtom, FixAveChunk, \
     FixAveCorrelate, FixAveHisto, FixAveTime, FixHalt, FixPrint, \
-    FixPropertyAtom, FixStoreState, check_inputs
+    FixPropertyAtom, FixStoreState, FixTuneKspace, check_inputs
 from tpumd_torch.md.fix_rigid import FixRigid, FixRigidNPH, FixRigidNPT, \
     FixRigidNVT
 from tpumd_torch.md.fix_shake import FixRattle, FixShake
@@ -55,14 +55,21 @@ from tpumd_torch.md.fix_move import FixMove
 from tpumd_torch.md.fixes import FixNVE, FixNVELimit, FixNVENoforce
 from tpumd_torch.md.simulation import THERMO_KEYS, Simulation, \
     resolve_device
-from tpumd_torch.models.kspace_ewald import Ewald
-from tpumd_torch.models.kspace_pppm import PPPM
+from tpumd_torch.models.kspace_ewald import Ewald, EwaldDisp
+from tpumd_torch.models.kspace_msm import MSM
+from tpumd_torch.models.kspace_pppm import PPPM, PPPMCG, PPPMStagger, \
+    PPPMTIP4P
+from tpumd_torch.models.kspace_pppm_disp import PPPMDisp
 from tpumd_torch.models.registry import create_bonded_style, \
     create_pair_style
 from tpumd_torch.utils.ranpark import geom_uniform_triplets
 from tpumd_torch.script.formula import Formula, SimFormulaContext
 
 BONDED_KINDS = ("bond", "angle", "dihedral", "improper")
+# kspace_style name -> solver (tpumd/script/parser.py:2362-2392)
+KSPACE_STYLES = {"pppm": PPPM, "pppm/cg": PPPMCG, "pppm/stagger": PPPMStagger,
+                 "pppm/tip4p": PPPMTIP4P, "pppm/disp": PPPMDisp, "msm": MSM,
+                 "ewald": Ewald, "ewald/disp": EwaldDisp}
 
 
 class ScriptError(RuntimeError):
@@ -792,18 +799,72 @@ class LammpsScript:
         sim.invalidate_ctx()
 
     def cmd_kspace_style(self, a):
-        """kspace_style pppm|ewald accuracy, beside any coul/long pair
-        style on either engine, or none."""
+        """kspace_style pppm|pppm/cg|pppm/stagger|pppm/tip4p|pppm/disp|msm|
+        ewald|ewald/disp accuracy, pppm/cg with an optional smallq, or none
+        (tpumd/script/parser.py:2362-2392)."""
         sim = self._require_sim()
-        styles = {"pppm": PPPM, "ewald": Ewald}
         if a and a[0] == "none" and len(a) == 1:
             sim.kspace = None
-        elif a and a[0] in styles and len(a) == 2:
-            sim.kspace = styles[a[0]](float(a[1]))
+        elif a and a[0] in KSPACE_STYLES and len(a) in (
+                (2, 3) if a[0] == "pppm/cg" else (2,)):
+            sim.kspace = KSPACE_STYLES[a[0]](*[float(v) for v in a[1:]])
         else:
             raise NotImplementedError(
-                f"kspace_style {' '.join(a)} is not ported (pppm or ewald "
-                "with an accuracy, or none)")
+                f"kspace_style {' '.join(a)} is not ported (one of "
+                f"{', '.join(KSPACE_STYLES)} with an accuracy, or none)")
+        sim.invalidate_ctx()
+
+    def cmd_kspace_modify(self, a):
+        """kspace_modify keyword value ... with tpumd's keys
+        (tpumd/script/parser.py:2394-2431): diff ad|ik, mesh nx ny nz,
+        order n, gewald g, disp/auto yes|no, mesh/disp nx ny nz, order/disp
+        n, gewald/disp g.  gewald under ewald or ewald/disp raises: tpumd's
+        Ewald drops it without a word (ROADMAP C21)."""
+        sim = self._require_sim()
+        ks = sim.kspace
+        if ks is None:
+            raise ScriptError("kspace_modify before kspace_style")
+        nvals = {"diff": 1, "mesh": 3, "order": 1, "gewald": 1,
+                 "disp/auto": 1, "mesh/disp": 3, "order/disp": 1,
+                 "gewald/disp": 1}
+        disp = ("disp/auto", "mesh/disp", "order/disp", "gewald/disp")
+        i = 0
+        while i < len(a):
+            key = a[i]
+            if key not in nvals or i + nvals[key] >= len(a):
+                raise NotImplementedError(
+                    f"kspace_modify {' '.join(a[i:])}: not ported (the keys "
+                    f"{', '.join(nvals)} with their values)")
+            vals = a[i + 1:i + 1 + nvals[key]]
+            if key in disp and ks.style != "pppm/disp":
+                raise NotImplementedError(
+                    f"kspace_modify {key} under kspace_style {ks.style}: "
+                    "only pppm/disp reads it")
+            if key == "diff":
+                if vals[0] not in ("ad", "ik"):
+                    raise ScriptError(f"kspace_modify diff {vals[0]}")
+                ks.mode = vals[0]
+            elif key == "mesh":
+                ks.mesh_override = tuple(int(v) for v in vals)
+            elif key == "order":
+                ks.order = int(vals[0])
+            elif key == "gewald":
+                if ks.style.startswith("ewald"):
+                    raise NotImplementedError(
+                        f"kspace_modify gewald under kspace_style "
+                        f"{ks.style}: tpumd's Ewald ignores it without a "
+                        "word, so neither tpumd's numbers nor LAMMPS's can "
+                        "be met (ROADMAP C21)")
+                ks.gewald_override = float(vals[0])
+            elif key == "disp/auto":
+                ks.disp_auto = vals[0] == "yes"
+            elif key == "mesh/disp":
+                ks.mesh6_override = tuple(int(v) for v in vals)
+            elif key == "order/disp":
+                ks.order_6 = int(vals[0])
+            else:
+                ks.gewald6_override = float(vals[0])
+            i += 1 + nvals[key]
         sim.invalidate_ctx()
 
     def cmd_replicate(self, a):
@@ -1309,7 +1370,6 @@ class LammpsScript:
     # fixes of the reference that wait for other parts of the port
     _FIXES_WAITING = {
         "ave/grid": "it waits with dump grid (ROADMAP A9 (i))",
-        "tune/kspace": "it needs ewald and msm beside pppm",
         "balance": "it waits with the balance command (ROADMAP A9 (k))",
     }
     # the host fixes of md/fix_misc.py by style, and their count of
@@ -1395,6 +1455,8 @@ class LammpsScript:
                               args[3])
         elif style in self._OUTPUT_FIXES:
             fx = self._parse_output_fix(style, args)
+        elif style == "tune/kspace" and len(args) == 1:
+            fx = FixTuneKspace(args[0])
         elif style in self._FIXES_WAITING:
             raise NotImplementedError(f"fix {style} is not ported: "
                                       f"{self._FIXES_WAITING[style]}")
