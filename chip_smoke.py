@@ -254,12 +254,24 @@ line each (any failure raises and exits non-zero):
    timed steps, P1's launches a force evaluation (no plain call, no grid
    kernel), peak memory, a profile of 20 steps, and P1 at the deck's
    packed j rows beside its bound and torch.index_select;
-16. a JSON line of the kernels (the list build of each deck, the refresh
-   calls of in.lj, eam, rhodo_class, min32k and deform32k, B1 on min32k,
-   pressber32k and deform32k, B5 at each 30k water deck's shape, B6's
-   HERTZ variant at granhertz32k's and P1 at the salt's, hyb32k's,
-   sw32k's, tersoff32k's, eamalloy32k's, tip4p30k's and dpd32k's, each an
-   entry of its own),
+16. the output and input remainders and the NEMD and reactive fixes
+   (PR 21): the ten goldens of tpumd_torch.remainder_goldens verbatim in
+   f64 (the reference binary's files, the CPU's rows, B1 or P1 launched);
+   IN_KAPPA32K on the grid (f64 steps 0 and 100 = the CPU's rows to 1e-9,
+   the momentum, the drift; f32 to step 1000: B1 = force evaluations,
+   ave/grid's hot slab hotter than its cold one, the swap with no host
+   sync, the dumps' host ms), IN_BONDCREATE32K (f64 step 0 and the
+   step-5 bonds = the CPU's, every event's caps, lengths and dump local
+   rows; f32 on the matrix engine, an event's ms) and IN_CHAIN_RESPA32K
+   (f64 step 0, respa 2 1 = verlet over 100 steps; f32 respa 2 2 within
+   its energy bound), each with 500 timed steps, host reads per 1,000
+   steps, a profile and peak memory, and B1 or P1 at its state;
+17. a JSON line of the kernels (the list build of each deck, the refresh
+   calls of in.lj, eam, rhodo_class, min32k, deform32k and kappa32k, B1 on
+   min32k, pressber32k, deform32k and kappa32k, B5 at each 30k water
+   deck's shape, B6's HERTZ variant at granhertz32k's and P1 at the
+   salt's, hyb32k's, sw32k's, tersoff32k's, eamalloy32k's, tip4p30k's,
+   dpd32k's, bondcreate32k's and respa32k's, each an entry of its own),
    the card's name and power limit as nvidia-smi prints them, then the
    result line.
 
@@ -4920,17 +4932,6 @@ def manybody_phase():
                               ", no plain call")
 
 
-def mb32k_script(deck: str, dtype):
-    """LammpsScript of a 32k many-body deck on the card, verbose off,
-    before its first run."""
-    from tpumd_torch.script.parser import LammpsScript
-    script = LammpsScript(device="cuda", dtype=dtype)
-    with contextlib.redirect_stdout(sys.stderr):
-        script.run_string(deck)
-    script.sim.verbose = False
-    return script
-
-
 def mb32k_path(name: str, deck: str, smi: str, step0_check, cpu_gap: dict,
                timed: int, total: int) -> tuple[dict, dict]:
     """A 32k deck on the matrix engine: in f64 step 0 behind step0_check
@@ -4952,7 +4953,7 @@ def mb32k_path(name: str, deck: str, smi: str, step0_check, cpu_gap: dict,
     # 1. f64: step 0, then the step-100 row, positions and forces
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    ref = mb32k_script(deck, torch.float64)
+    ref = card_script(deck, torch.float64)
     v64, t64 = ref.sim.state.v.clone(), ref.sim.state.type.clone()
     ref.run_string("run 0")
     n = ref.sim.natoms
@@ -4973,7 +4974,7 @@ def mb32k_path(name: str, deck: str, smi: str, step0_check, cpu_gap: dict,
         c.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    script = mb32k_script(deck, torch.float32)
+    script = card_script(deck, torch.float32)
     sim = script.sim
     sim.state = sim.state.replace(v=v64.to(torch.float32), type=t64)
     seen = {}
@@ -5036,7 +5037,7 @@ def mb32k_path(name: str, deck: str, smi: str, step0_check, cpu_gap: dict,
     del script, sim, s, neigh
     torch.cuda.empty_cache()
     # 3. f32 forces on the f64 run's step-100 positions
-    probe = mb32k_script(deck, torch.float32)
+    probe = card_script(deck, torch.float32)
     st = probe.sim.state
     probe.sim.state = st.replace(x=x100[st.tag.long() - 1].to(torch.float32),
                                  type=t64)
@@ -5118,7 +5119,7 @@ def eamalloy32k_path(smi: str) -> tuple[dict, dict]:
     with tempfile.TemporaryDirectory() as tmpdir:
         pot = Path(tmpdir) / "CuAl.eam.alloy"
         bt.alloy_setfl(pot)
-        cell = mb32k_script(bt.IN_EAMALLOY.format(n=1, potential=pot),
+        cell = card_script(bt.IN_EAMALLOY.format(n=1, potential=pot),
                             torch.float64)
         cell.run_string("run 0")
         csim = cell.sim
@@ -5210,8 +5211,8 @@ def kspace_goldens_phase():
                     + ", ".join(notes))
 
 
-def kspace32k_script(deck: str, dtype):
-    """LammpsScript of IN_TIP4P30K or IN_DPD32K on the card, verbose off,
+def card_script(deck: str, dtype):
+    """LammpsScript of a deck's set-up lines on the card, verbose off,
     before its first run."""
     from tpumd_torch.script.parser import LammpsScript
     script = LammpsScript(device="cuda", dtype=dtype)
@@ -5242,7 +5243,7 @@ def kspace32k_path(name: str, deck: str, smi: str, step0: dict,
     # 1. f64: step 0 against the CPU's row; the step-100 state in f32
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    ref = kspace32k_script(deck, torch.float64)
+    ref = card_script(deck, torch.float64)
     v64 = ref.sim.state.v.clone()
     ref.run_string("run 0")
     n = ref.sim.natoms
@@ -5272,7 +5273,7 @@ def kspace32k_path(name: str, deck: str, smi: str, step0: dict,
         c.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    script = kspace32k_script(deck, torch.float32)
+    script = card_script(deck, torch.float32)
     sim = script.sim
     sim.state = sim.state.replace(v=v64.to(torch.float32))
     seen = {}
@@ -5364,6 +5365,489 @@ def dpd32k_path(smi: str) -> tuple[dict, dict]:
                           bt.DPD32K_F32_CPU_GAP, 500, 1000, 8)
 
 
+
+# ---------------------------------- output remainders, NEMD and reactive
+# the three decks' size: 20^3 fcc cells (32,000 atoms), chain_data's 32,000
+# beads
+CELLS_32K = 20
+BEADS_32K = 32000
+
+class HostReads:
+    """Counts every read of a tensor's value into Python or numpy (item,
+    tolist, cpu, numpy, bool, int, float, index) within the block."""
+
+    NAMES = ("item", "tolist", "cpu", "numpy", "__bool__", "__int__",
+             "__float__", "__index__")
+
+    def __enter__(self):
+        self.count = 0
+        self.saved = {n: getattr(torch.Tensor, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            def wrap(*a, _fn=fn, **k):
+                self.count += 1
+                return _fn(*a, **k)
+            setattr(torch.Tensor, n, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(torch.Tensor, n, fn)
+
+
+def remainder_goldens_phase():
+    """The ten goldens of this slice (tpumd_torch.remainder_goldens:
+    create_mol, dump_local, ave_grid, bindump, the four nemd decks,
+    bond_break, bond_create) verbatim in f64 on the card: each against the
+    reference binary's log and files at tpumd's tests' tolerances, its
+    printed rows against the same deck on the CPU (8 digits) and its last
+    row to 1e-9; its force kernel launched (B1 on the grid, P1 on the
+    matrix engine) and no plain call."""
+    from tpumd_torch import remainder_goldens as rg
+    from tpumd_torch.ops import gather, lj_cellgrid
+    gold = str(GOLDEN.parent)
+    counted = (gather.counts, lj_cellgrid.counts)
+    notes = []
+    t0 = time.perf_counter()
+    for name in rg.DECKS:
+        with tempfile.TemporaryDirectory() as cpu_dir, \
+                tempfile.TemporaryDirectory() as where:
+            cpu = rg.run(gold, name, cpu_dir, "cpu", torch.float64)
+            for c in counted:
+                c.reset()
+            script = rg.run(gold, name, where, "cuda", torch.float64)
+            launches = sum(c.kernel_launches for c in counted)
+            plain = sum(c.plain_calls for c in counted)
+            bad = rg.failures(gold, name, script, where)
+        got, want = thermo_rows(script.sim), thermo_rows(cpu.sim)
+        if sorted(got) != sorted(want) or not got:
+            bad.append(f"{name}: rows {sorted(got)} vs the CPU's "
+                       f"{sorted(want)}")
+        for step in set(got) & set(want):
+            for key, w in want[step].items():
+                if not abs(got[step][key] - w) <= 1e-7 * max(abs(w), 1e-3):
+                    bad.append(f"{name} step {step} {key}: card "
+                               f"{got[step][key]!r} vs CPU {w!r}")
+        for key, w in cpu.sim.last_thermo.items():
+            g = script.sim.last_thermo[key]
+            if not abs(g - w) <= 1e-9 * max(abs(w), 1e-6):
+                bad.append(f"{name} {key}: card {g!r} vs CPU {w!r}")
+        if bad or launches == 0 or plain:
+            raise AssertionError(f"remainder golden {name}: {bad[:6]}; "
+                                 f"launches {launches}, plain {plain}")
+        notes.append(f"{name} ({'B1' if script.sim._ctx.is_cellgrid else 'P1'}"
+                     f" x{launches})")
+    phase("remainders", f"{len(notes)} goldens in f64 on the card "
+                        f"({time.perf_counter() - t0:.1f} s with their CPU "
+                        "runs) = the reference binary's logs and files at "
+                        "tpumd's tests' tolerances and the CPU's rows: "
+                        + ", ".join(notes))
+
+
+def full_row_failures(what, got: dict, want: dict, rtol: float) -> list:
+    return [f"{what} {k}: {got[k]!r} vs {w!r}" for k, w in want.items()
+            if not abs(got[k] - w) <= rtol * max(abs(w), 1e-12)]
+
+
+def timed_window(script, timed: int) -> tuple[float, int]:
+    """(timesteps/s of a run of timed steps, host reads per 1,000 steps of
+    a run of 100 more, counted)."""
+    sim = script.sim
+    torch.cuda.synchronize()
+    lt0 = sim.loop_time
+    script.run_string(f"run {timed}")
+    torch.cuda.synchronize()
+    sps = timed / (sim.loop_time - lt0)
+    with HostReads() as reads:
+        script.run_string("run 100")
+        torch.cuda.synchronize()
+    return sps, 10 * reads.count
+
+
+def output_step_ms(fn) -> float:
+    """Host ms of one call of an output writer, the card idle first."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def kappa32k_path(tmp: Path, smi: str) -> dict:
+    """IN_KAPPA32K (tests/golden/nemd/in.tc on 20^3 cells, fix ave/grid and
+    dump grid) on the grid: f64 steps 0 and 100 against the port's CPU f64
+    rows to 1e-9 (f_2 included), the total momentum at 0 and etotal's
+    drift over steps 0-100 within KAPPA32K_DRIFT_FACTOR x the CPU's; then
+    the main path in f32 to step 1000: B1 launches = force evaluations,
+    the list kernel's builds = grid set-ups + rebuilds, no plain call;
+    500 timed steps, host reads per 1,000 steps, a profile, peak memory;
+    ave/grid's hot slab (z cells 10) hotter than its cold slab (0); the
+    NEMD swap on the card under torch's sync debug mode (no host sync);
+    the host ms of dump grid and of a binary dump of the 32,000 atoms
+    beside a text dump of the same columns; B1 at the final state."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.io.dump import make_dump
+    from tpumd_torch.ops.lj_cellgrid import counts
+    deck = bt.IN_KAPPA32K.format(n=CELLS_32K, grid=tmp / "kappa.grid",
+                                 thermo=10)
+    t0 = time.perf_counter()
+    ref = card_script(deck, torch.float64)
+    ref.run_string("run 0")
+    row0 = dict(ref.sim.last_thermo)
+    ref.run_string("run 100")
+    row100 = dict(ref.sim.last_thermo)
+    bad = (full_row_failures("step 0", row0, bt.KAPPA32K_ROWS_F64[0], 1e-9)
+           + full_row_failures("step 100", row100,
+                               bt.KAPPA32K_ROWS_F64[100], 1e-9))
+    rows = thermo_rows(ref.sim)
+    e = np.array([rows[k]["etotal"] for k in sorted(rows)])
+    drift = float(np.abs(e - e[0]).max() / abs(e[0]))
+    s = ref.sim._carry[0]
+    m = ref.sim._ctx.mass_per_atom(s).double()
+    p = (m[:, None] * s.v.double())[s.tag > 0].sum(0)
+    pmax = float(p.abs().max())
+    dlim = bt.KAPPA32K_DRIFT_FACTOR * bt.KAPPA32K_ETOTAL_DRIFT_F64 + 1e-8
+    if bad or drift > dlim or pmax > 1e-9 * ref.sim.natoms \
+            or not ref.sim._ctx.is_cellgrid:
+        raise AssertionError(f"IN_KAPPA32K f64: {bad}, drift {drift} > "
+                             f"{dlim}, momentum {pmax}")
+    phase("kappa32k", f"f64 ({ref.sim.natoms} atoms, grid): steps 0 and "
+                      f"100 = the port's CPU f64 rows to 1e-9 (f_2 "
+                      f"{row100['f_2']!r}); momentum max|P| {pmax:.2e}; "
+                      f"etotal drift {drift:.3e} (CPU "
+                      f"{bt.KAPPA32K_ETOTAL_DRIFT_F64:.3e});"
+                      f" {time.perf_counter() - t0:.2f} s")
+    del ref
+    torch.cuda.empty_cache()
+    # the main path in f32; the counts are set to 0 just before it
+    counts.reset()
+    reset_list_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    script = card_script(deck.replace("thermo          10",
+                                      "thermo          100"), torch.float32)
+    sim = script.sim
+    script.run_string("run 0")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    script.run_string("run 100")
+    sps, reads = timed_window(script, 500)
+    script.run_string("run 300")
+    torch.cuda.synchronize()
+    nruns, nsteps = 5, 1000
+    evals = force_evals_of(sim, 1, nsteps, nruns)
+    launches, plain = counts.kernel_launches, counts.plain_calls
+    builds, gates, list_plain = list_counts()
+    list_builds = sim.grid_setups + int(sim._carry[1].nbuilds) - 1
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fx = next(f for f in sim.fixes if f.name == "ave/grid")
+    temp = fx.grid_data(sim, "data", 3)
+    cnt = fx.grid_data(sim, "count")
+    hot = float((temp[10] * cnt[10]).sum() / cnt[10].sum())
+    cold = float((temp[0] * cnt[0]).sum() / cnt[0].sum())
+    if launches != evals or plain or list_plain or builds != list_builds \
+            or not hot > cold or sim.step != 1000:
+        raise AssertionError(f"IN_KAPPA32K f32: B1 launches {launches} vs "
+                             f"{evals}, plain {plain + list_plain}, builds "
+                             f"{builds} vs {list_builds}, hot {hot} cold "
+                             f"{cold}, step {sim.step}")
+    phase("kappa32k", f"f32: set-up {setup_s:.3f} s; {sps:.2f} timesteps/s "
+                      f"({sps * 32000 / 1e6:.3f} Matom-step/s) over 500 "
+                      f"steps on {smi}; host reads {reads} per 1,000 steps; "
+                      f"B1 launches {launches} = force evaluations {evals}; "
+                      f"list builds {builds} = grid set-ups + rebuilds, "
+                      f"refresh launches {gates}; plain calls 0; peak "
+                      f"{peak:.2f} GiB; at step 1000 ave/grid's hot slab "
+                      f"{hot:.4f} > cold slab {cold:.4f}, f_2 "
+                      f"{sim.last_thermo['f_2']:.6g}")
+    phase("kappa32k", profile_steps(script, 20, 1e3 / sps))
+    # the swap alone under the sync debug mode: any host sync raises
+    tc = next(f for f in sim._ctx.fixes if f.name == "thermal/conductivity")
+    k = sim._ctx.fixes.index(tc)
+    s, fs = sim._carry[0], tc.set_step(sim._carry[2][k], 10)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tc.end_of_step(s, fs, sim._ctx)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    swap_ms = cuda_ms(lambda: tc.end_of_step(s, fs, sim._ctx), 50,
+                      ahead=False)
+    grid = make_dump("gg", "all", "grid", 1, str(tmp / "one.grid"),
+                     ["f_3:grid:data[3]", "f_3:grid:count"])
+    cols = ["id", "type", "x", "y", "z", "vx", "vy", "vz"]
+    binary = make_dump("b", "all", "custom", 1, str(tmp / "atoms.bin"), cols)
+    text = make_dump("t", "all", "custom", 1, str(tmp / "atoms.txt"), cols)
+    for d in (binary, text):
+        d.sort = True
+    g_ms = output_step_ms(lambda: grid.write(sim))
+    b_ms = output_step_ms(lambda: binary.write(sim))
+    t_ms = output_step_ms(lambda: text.write(sim))
+    phase("kappa32k", f"thermal/conductivity's swap with no host sync "
+                      f"(torch.cuda sync debug mode 'error'), "
+                      f"{swap_ms:.4f} ms of the card a swap (CUDA events, "
+                      f"host-bound); host ms of an output step: dump grid "
+                      f"({4 * 4 * 20} cells) {g_ms:.2f}, binary dump of "
+                      f"32,000 atoms x {len(cols)} columns {b_ms:.2f} "
+                      f"({(tmp / 'atoms.bin').stat().st_size} bytes) beside "
+                      f"the text dump {t_ms:.2f} "
+                      f"({(tmp / 'atoms.txt').stat().st_size} bytes)")
+    err, _ = b1_list_check("kappa32k final state", sim)
+    out = {"launches": launches, "build_launches": builds, "gates": gates,
+           "refreshes": sim.list_refreshes, "sps": sps}
+    out["b1"] = b1_at_state("kappa32k", sim, 0, 0)
+    out["build"] = build_figures("kappa32k", sim)
+    if gates:
+        out["upkeep"] = time_upkeep("kappa32k", sim, build=False,
+                                    refresh=out["refreshes"] > 0)
+    del script, sim, s
+    torch.cuda.empty_cache()
+    return out
+
+
+def bond_event_checks(sim, before: set, cut: float) -> tuple[set, int]:
+    """After an event: the new bonds are shorter than cut at their
+    formation, no atom holds more than one, and dump local's property/
+    local rows are the live bonds; (the bonds now, how many were new)."""
+    bonds = sim.live_topology("bond")
+    now = {tuple(sorted((int(b[1]), int(b[2])))) for b in bonds}
+    new = now - before
+    s = sim._carry[0]
+    x = torch.zeros((sim.natoms + 1, 3), dtype=torch.float64,
+                    device=s.x.device)
+    x[s.tag.long()] = s.x.double()
+    ell = (s.box.hi - s.box.lo).double()
+    if new:
+        ab = torch.tensor(sorted(new), device=s.x.device)
+        d = x[ab[:, 0]] - x[ab[:, 1]]
+        d = d - ell * torch.round(d / ell)
+        longest = float(torch.sqrt((d * d).sum(1)).max())
+    else:
+        longest = 0.0
+    deg = np.bincount(np.asarray(bonds)[:, 1:].ravel()) if len(bonds) \
+        else np.zeros(1, int)
+    rows = sim.computes["pl"](sim).cpu().numpy()
+    listed = {tuple(sorted((int(a), int(b)))) for a, b in rows[:, :2]}
+    if not before <= now or deg.max() > 1 or longest >= cut \
+            or listed != now:
+        raise AssertionError(f"bond/create at step {sim.step}: count "
+                             f"{len(before)} -> {len(now)}, most bonds of "
+                             f"an atom {deg.max()}, longest new {longest}, "
+                             f"dump local rows {len(listed)}")
+    return now, len(new)
+
+
+def bondcreate32k_path(tmp: Path, smi: str) -> tuple[dict, dict]:
+    """IN_BONDCREATE32K (step-growth dimerisation of 32,000 monomers at
+    melt density) on the matrix engine: f64 step 0 against the port's CPU
+    f64 row to 1e-9 and the bonds made at step 5 equal to the CPU run's as
+    a set of tag pairs (count and digest); every event to step 50: caps,
+    lengths below Rmin, a bond count that never falls, dump local's rows
+    the live bonds; then the main path in f32 (P1 launched, no plain call,
+    no grid kernel): 500 timed steps, host reads per 1,000 steps, a
+    profile, peak memory, the bonds at every event checked to step 700; a
+    bond/create event's time on the card; dump local's host ms; P1 at the
+    deck's packed rows."""
+    import hashlib
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.ops import gather
+    deck = bt.IN_BONDCREATE32K.format(n=CELLS_32K, local=tmp / "bonds.local",
+                                      thermo=100)
+    t0 = time.perf_counter()
+    ref = card_script(deck, torch.float64)
+    ref.run_string("run 0")
+    bad = full_row_failures("step 0", ref.sim.last_thermo,
+                            bt.BONDCREATE32K_STEP0_F64, 1e-9)
+    bonds, made = set(), []
+    for _ in range(10):
+        ref.run_string("run 5")
+        bonds, n_new = bond_event_checks(ref.sim, bonds, 1.15)
+        made.append(n_new)
+        if ref.sim.step == 5:
+            text = "\n".join(f"{a} {b}" for a, b in sorted(bonds))
+            got5 = (len(bonds), hashlib.sha256(text.encode()).hexdigest())
+    if bad or got5 != bt.BONDCREATE32K_STEP5_BONDS or ref.sim._ctx.is_cellgrid:
+        raise AssertionError(f"IN_BONDCREATE32K f64: {bad}; step-5 bonds "
+                             f"{got5} vs the CPU's "
+                             f"{bt.BONDCREATE32K_STEP5_BONDS}")
+    phase("bondcreate32k", f"f64 ({ref.sim.natoms} monomers, matrix "
+                           f"engine): step 0 = the port's CPU f64 row to "
+                           f"1e-9; the {got5[0]} bonds of step 5 = the CPU "
+                           f"run's tag pairs; events to step 50 made "
+                           f"{made} bonds (caps 1, each shorter than Rmin "
+                           f"1.15 when made, the count never falls, dump "
+                           f"local's rows = the bonds); "
+                           f"{time.perf_counter() - t0:.2f} s")
+    del ref
+    torch.cuda.empty_cache()
+    gather.counts.reset()
+    reset_list_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    script = card_script(deck, torch.float32)
+    sim = script.sim
+    seen = {}
+    with recording_p1(seen):
+        script.run_string("run 0")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    script.run_string("run 100")
+    sps, reads = timed_window(script, 500)
+    bonds = {tuple(sorted((int(b[1]), int(b[2]))))
+             for b in sim.live_topology("bond")}
+    launches = gather.counts.kernel_launches
+    plain = gather.counts.plain_calls + list_counts()[2]
+    other = list_counts()[0]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    evals = force_evals_of(sim, 1, 700, 4)
+    fx = next(f for f in sim.fixes if f.name == "bond/create")
+    counts_ok = all(n >= 0 for _, n in fx.events)
+    if launches < evals or plain or other or not counts_ok \
+            or sim._ctx.is_cellgrid:
+        raise AssertionError(f"IN_BONDCREATE32K f32: P1 launches {launches} "
+                             f"< force evaluations {evals}, plain {plain}, "
+                             f"grid list builds {other}, events "
+                             f"{fx.events[-5:]}")
+    for _ in range(4):
+        script.run_string("run 5")
+        bonds, _ = bond_event_checks(sim, bonds, 1.15)
+    ntotal = len(bonds)
+    phase("bondcreate32k", f"f32: set-up {setup_s:.3f} s; {sps:.2f} "
+                           f"timesteps/s ({sps * 32000 / 1e6:.3f} "
+                           f"Matom-step/s) over 500 steps on {smi}; host "
+                           f"reads {reads} per 1,000 steps; P1 launches "
+                           f"{launches} over {evals} force evaluations "
+                           f"({launches / evals:.2f} each, the neighbour "
+                           f"builds' included), plain calls 0, grid kernel "
+                           f"launches 0; peak {peak:.2f} GiB; {ntotal} bonds "
+                           f"at step {sim.step} from {len(fx.events)} events "
+                           f"(none shrank the count; the last 4 events "
+                           f"checked: caps, Rmin, dump local)")
+    phase("bondcreate32k", profile_steps(script, 20, 1e3 / sps))
+    # one event's time on the card: the event step's post_integrate on
+    # the current state, its table and count put back after each call
+    s, neigh = sim._carry[0], sim._carry[1]
+    step = (sim.step // 5 + 1) * 5
+    saved = (fx._table.clone(), fx._count.clone(), fx._over.clone())
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fx.post_integrate(s, step, sim._ctx, neigh)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+        fx._table.copy_(saved[0])
+        fx._count.copy_(saved[1])
+        fx._over.copy_(saved[2])
+        fx._undo = None
+    local = next(d for d in sim.dumps if d.id == "d")
+    nrows = len(sim.live_topology("bond"))
+    l_ms = output_step_ms(lambda: local.write(sim))
+    phase("bondcreate32k", f"a bond/create event: {np.median(times):.3f} ms "
+                           f"of the card (CUDA events around the event "
+                           f"step's post_integrate, median of 5, host-bound "
+                           f"launches included); dump local of {nrows} "
+                           f"bond rows: {l_ms:.2f} host ms")
+    del script, sim, s, neigh
+    torch.cuda.empty_cache()
+    p1_equal_plain(seen.values(), "bondcreate32k input")
+    table, idx = [v for (d, t, i), v in seen.items()
+                  if d == torch.float32 and len(t) == 2 and len(i) == 2
+                  and i[0] == t[0] == 4 * CELLS_32K ** 3][-1]
+    kk = p1_at_shape("bondcreate32k", table, idx, len(seen))
+    return kk, {"launches": launches, "sps": sps}
+
+
+def respa32k_path(tmp: Path, smi: str) -> tuple[dict, dict]:
+    """IN_CHAIN_RESPA32K (chain_data's 32,000 beads under run_style respa
+    2 2 bond 1 pair 2) on the matrix engine: f64 step 0 against the port's
+    CPU f64 row to 1e-9; respa 2 1 against verlet over 100 steps in f64 on
+    the card, every printed row to 1e-7; then the main path in f32 (P1,
+    no plain call, no grid kernel): 500 timed steps after 100 with
+    etotal's drift over them within RESPA32K_F32_DRIFT (written before the
+    first run), host reads per 1,000 steps, a profile, peak memory; P1 at
+    the deck's packed rows."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.ops import gather
+    data = tmp / "data.chain.respa"
+    bt.chain_data(str(data), natoms=BEADS_32K)
+    deck = bt.IN_CHAIN_RESPA32K.format(data=data, inner=2, thermo=10)
+    t0 = time.perf_counter()
+    ref = card_script(deck, torch.float64)
+    ref.run_string("run 0")
+    bad = full_row_failures("step 0", ref.sim.last_thermo,
+                            bt.CHAIN_RESPA32K_STEP0_F64, 1e-9)
+    if bad or ref.sim._ctx.is_cellgrid:
+        raise AssertionError(f"IN_CHAIN_RESPA32K f64 step 0: {bad}")
+    del ref
+    one = card_script(deck.replace("respa 2 2", "respa 2 1"), torch.float64)
+    one.run_string("run 100")
+    verlet = card_script(deck.replace("run_style       respa 2 2 bond 1 "
+                                      "pair 2", ""), torch.float64)
+    verlet.run_string("run 100")
+    a, b = thermo_rows(one.sim), thermo_rows(verlet.sim)
+    gap = max(abs(a[k][c] - b[k][c]) / max(abs(b[k][c]), 1e-3)
+              for k in b for c in b[k])
+    if sorted(a) != sorted(b) or gap > 1e-7:
+        raise AssertionError(f"respa 2 1 vs verlet: steps {sorted(a)} vs "
+                             f"{sorted(b)}, largest gap {gap}")
+    phase("respa32k", f"f64 ({one.sim.natoms} beads): step 0 = the port's "
+                      f"CPU f64 row to 1e-9; respa 2 1 (matrix engine) = "
+                      "verlet ("
+                      + ("grid B2" if verlet.sim._ctx.is_cellgrid else "P1")
+                      + ")"
+                      f" over 100 steps, every printed row to 1e-7 (largest"
+                      f" {gap:.2e}); {time.perf_counter() - t0:.2f} s")
+    del one, verlet
+    torch.cuda.empty_cache()
+    gather.counts.reset()
+    reset_list_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    script = card_script(deck.replace("thermo          10",
+                                      "thermo          50"), torch.float32)
+    sim = script.sim
+    seen = {}
+    with recording_p1(seen):
+        script.run_string("run 0")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    script.run_string("run 100")
+    sps, reads = timed_window(script, 500)
+    rows = thermo_rows(sim)
+    e = np.array([rows[k]["etotal"] for k in sorted(rows) if 100 <= k <= 600])
+    drift = float(np.abs(e - e[0]).max() / abs(e[0]))
+    launches = gather.counts.kernel_launches
+    plain = gather.counts.plain_calls + list_counts()[2]
+    other = list_counts()[0]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    evals = force_evals_of(sim, 1, 700, 4)
+    if launches < evals or plain or other or drift > bt.RESPA32K_F32_DRIFT \
+            or sim._ctx.is_cellgrid or not np.isfinite(e).all():
+        raise AssertionError(f"IN_CHAIN_RESPA32K f32: P1 launches "
+                             f"{launches} < {evals}, plain {plain}, grid "
+                             f"{other}, drift {drift} > "
+                             f"{bt.RESPA32K_F32_DRIFT}")
+    phase("respa32k", f"f32 respa 2 2: set-up {setup_s:.3f} s; {sps:.2f} "
+                      f"timesteps/s ({sps * 32000 / 1e6:.3f} Matom-step/s) "
+                      f"over 500 steps on {smi}; etotal drift over them "
+                      f"{drift:.3e} (bound {bt.RESPA32K_F32_DRIFT:g}); host "
+                      f"reads {reads} per 1,000 steps; P1 launches "
+                      f"{launches} over {evals} outer steps' and rows' "
+                      f"evaluations, plain calls 0, grid launches 0; peak "
+                      f"{peak:.2f} GiB")
+    phase("respa32k", profile_steps(script, 20, 1e3 / sps))
+    del script, sim
+    torch.cuda.empty_cache()
+    p1_equal_plain(seen.values(), "respa32k input")
+    table, idx = [v for (d, t, i), v in seen.items()
+                  if d == torch.float32 and len(t) == 2 and len(i) == 2
+                  and i[0] == t[0] == BEADS_32K][-1]
+    kk = p1_at_shape("respa32k", table, idx, len(seen))
+    return kk, {"launches": launches, "sps": sps}
+
+
 def main():
     t_start = time.perf_counter()
     smi = environment()
@@ -5426,6 +5910,12 @@ def main():
     kspace_goldens_phase()
     k_tip4p, m_tip4p = tip4p30k_path(smi)
     k_dpd, m_dpd = dpd32k_path(smi)
+    remainder_goldens_phase()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        m_kappa = kappa32k_path(tmp, smi)
+        k_bcr, m_bcr = bondcreate32k_path(tmp, smi)
+        k_respa, m_respa = respa32k_path(tmp, smi)
     # the list kernels' launches on the main paths: builds at set-up and
     # re-bins, and refresh calls, most of which pass the gate and return
     # (those that rebuild are the refreshes taken); an entry each
@@ -5441,7 +5931,7 @@ def main():
                m_eam_list["build_launches"]),
               *[(name, m["build"], m["build_launches"])
                 for name, m in (("min32k", m_min), ("pressber32k", m_pb),
-                                ("deform32k", m_df))]]
+                                ("deform32k", m_df), ("kappa32k", m_kappa))]]
     searched = {"in.lj": "tpumd/ops/pallas_lj.py:25",
                 "analysis32k": "tpumd/ops/pallas_lj.py:25",
                 "chain": "tpumd/ops/pallas_lj.py:146",
@@ -5449,6 +5939,7 @@ def main():
                 "min32k": "tpumd/ops/pallas_lj.py:25",
                 "pressber32k": "tpumd/ops/pallas_lj.py:25",
                 "deform32k": "tpumd/ops/pallas_lj.py:25",
+                "kappa32k": "tpumd/ops/pallas_lj.py:25",
                 "rhodo_class": "tpumd/ops/pallas_charmm.py:43",
                 "water_npt30k": "tpumd/ops/pallas_charmm.py:43",
                 "rigid_npt30k": "tpumd/ops/pallas_charmm.py:43",
@@ -5458,7 +5949,9 @@ def main():
     calls = list(builds)
     for name, m in (("in.lj", m_lj), ("eam", m_eam_list),
                     ("rhodo_class", m_charmm), ("min32k", m_min),
-                    ("deform32k", m_df)):
+                    ("deform32k", m_df), ("kappa32k", m_kappa)):
+        if "upkeep" not in m:
+            continue
         u = m["upkeep"]
         shapes = [(f"{name} gate", u["gate"], m["gates"] - m["refreshes"])]
         if m["refreshes"]:
@@ -5479,7 +5972,7 @@ def main():
             *[(f"lj_cellgrid {name}", "tpumd_torch/csrc/lj_fene_cellgrid.cu",
                "tpumd/ops/pallas_lj.py:25", m["b1"], m)
               for name, m in (("min32k", m_min), ("pressber32k", m_pb),
-                              ("deform32k", m_df))],
+                              ("deform32k", m_df), ("kappa32k", m_kappa))],
             ("lj_fene_cellgrid", "tpumd_torch/csrc/lj_fene_cellgrid.cu",
              "tpumd/ops/pallas_lj.py:146", k_fene, m_fene),
             ("eam_rho_cellgrid", eam_src, "tpumd/ops/pallas_eam.py:99",
@@ -5509,7 +6002,9 @@ def main():
                                  ("tersoff32k", k_ters, m_ters),
                                  ("eamalloy32k", k_eama, m_eama),
                                  ("tip4p30k", k_tip4p, m_tip4p),
-                                 ("dpd32k", k_dpd, m_dpd))]):
+                                 ("dpd32k", k_dpd, m_dpd),
+                                 ("bondcreate32k", k_bcr, m_bcr),
+                                 ("respa32k", k_respa, m_respa))]):
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": m["launches"],

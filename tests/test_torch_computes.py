@@ -315,13 +315,13 @@ def test_ylm_matches_scipy():
 
 
 @pytest.mark.parametrize("line,match", [
-    ("compute c all property/local batom1", "property/local"),
+    ("compute c all pair/local dist", "pair/local"),
     ("compute c all temp/asphere", "temp/asphere"),
     ("compute c all stress/atom NULL ke", "stress/atom"),
     ("compute c all orientorder/atom wl yes", "orientorder"),
     ("compute c all chunk/atom bin/2d x lower 1 y lower 1", "chunk/atom"),
-    ("fix f all ave/grid 1 1 1 2 2 2 vx", "ave/grid"),
-    ("fix f all viscosity 100 x z 20", "viscosity"),
+    ("fix f all ave/grid 1 1 1 2 2 2 c_x", "ave/grid"),
+    ("fix f all external pf/callback 1 1", "external"),
     ("fix f all balance 100 1.1 shift x 10 1.1", "balance"),
     ("fix f all ave/time 1 1 1 c_thermo_temp ave running", "ave/time"),
     ("fix f all ave/histo 1 1 1 0 1 10 vx ave running", "ave/histo"),

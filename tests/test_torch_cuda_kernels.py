@@ -956,3 +956,65 @@ def test_row_gather_on_dpd_and_tip4p_rows_equals_plain(name, tmp_path):
     for table, idx in seen.values():
         assert torch.equal(p1.gather_rows(table, idx),
                            p1.gather_rows_plain(table, idx))
+
+
+def _both_devices(deck, steps):
+    """The deck's last row after steps in f64 on the card and on the CPU,
+    and the card's launch counts of B1 and P1 (plain calls included)."""
+    out = {}
+    for dev in ("cpu", "cuda"):
+        b1.counts.reset()
+        p1.counts.reset()
+        s = LammpsScript(device=dev, dtype=torch.float64)
+        s.run_string(deck + f"run {steps}\n")
+        out[dev] = (dict(s.sim.last_thermo), s)
+    launches = (b1.counts.kernel_launches, p1.counts.kernel_launches,
+                b1.counts.plain_calls + p1.counts.plain_calls)
+    return out["cuda"], out["cpu"], launches
+
+
+def _rows_close(a, b, rtol=1e-9):
+    for k, w in b.items():
+        assert a[k] == pytest.approx(w, rel=rtol, abs=1e-12), k
+
+
+@pytest.mark.cuda
+def test_kappa_deck_on_the_card(tmp_path):
+    """IN_KAPPA32K at 5^3 cells in f64: the card's rows = the CPU's, B1
+    launched and no plain call, the swaps moving f_2 on the card."""
+    _card()
+    from tpumd_torch.bench_targets import IN_KAPPA32K
+    deck = IN_KAPPA32K.format(n=5, grid=tmp_path / "g", thermo=10)
+    (card, script), (cpu, _), (nb1, _, plain) = _both_devices(deck, 50)
+    assert script.sim._ctx.is_cellgrid and nb1 > 50 and plain == 0
+    assert card["f_2"] > 0
+    _rows_close(card, cpu)
+
+
+@pytest.mark.cuda
+def test_bondcreate_deck_on_the_card(tmp_path):
+    """IN_BONDCREATE32K at 4^3 cells in f64: the card's bonds and rows =
+    the CPU's, P1 launched and no plain call."""
+    _card()
+    from tpumd_torch.bench_targets import IN_BONDCREATE32K
+    deck = IN_BONDCREATE32K.format(n=4, local=tmp_path / "l", thermo=5)
+    (card, script), (cpu, cs), (_, np1, plain) = _both_devices(deck, 20)
+    assert not script.sim._ctx.is_cellgrid and np1 > 20 and plain == 0
+    bonds = [{tuple(sorted(b[1:])) for b in s.sim.live_topology("bond")
+              .tolist()} for s in (script, cs)]
+    assert bonds[0] == bonds[1] and len(bonds[0]) > 0
+    _rows_close(card, cpu)
+
+
+@pytest.mark.cuda
+def test_respa_deck_on_the_card(tmp_path):
+    """IN_CHAIN_RESPA32K on 2,000 beads in f64: the card's rows = the
+    CPU's, P1 launched and no plain call."""
+    _card()
+    from tpumd_torch.bench_targets import IN_CHAIN_RESPA32K
+    data = tmp_path / "data.chain"
+    chain_data(str(data), natoms=2000, chain_len=50)
+    deck = IN_CHAIN_RESPA32K.format(data=data, inner=2, thermo=10)
+    (card, script), (cpu, _), (_, np1, plain) = _both_devices(deck, 20)
+    assert script.sim._ctx.respa is not None and np1 > 20 and plain == 0
+    _rows_close(card, cpu)

@@ -315,9 +315,9 @@ def case_unported_commands_raise(tmp_path):
             ("boundary        p p fs", "boundary        p p q",
              Exception, "boundary"),
             ("compute         1 all erotate/sphere",
-             "compute         1 all property/local batom1",
+             "compute         1 all pair/local dist",
              NotImplementedError, "compute"),
-            ("thermo_modify   norm no", "thermo_modify   lost ignore",
+            ("thermo_modify   norm no", "thermo_modify   temp mytemp",
              NotImplementedError, "thermo_modify"),
             ("fix             3 active nve/sphere",
              "fix             3 active temp/berendsen 1.0 1.0 0.5",

@@ -287,11 +287,10 @@ def test_reset_timestep():
 
 
 def test_port_restart_fix_state_raises(tmp_path):
-    """The port writes no fix state either: reading its own file whose
-    fix carries some (Nose-Hoover chains; fix langevin's RanMars stream)
-    raises, naming the fix."""
-    for fixes in ("fix th all nvt temp 1.0 1.0 0.5",
-                  "fix 1 all nve\nfix th all langevin 1.0 1.0 0.5 4871"):
+    """Reading its own file whose fix carries state the port does not
+    restore (fix langevin's RanMars stream) raises, naming the fix; fix
+    nvt's chains are restored (tests/test_torch_output_remainders.py)."""
+    for fixes in ("fix 1 all nve\nfix th all langevin 1.0 1.0 0.5 4871",):
         s = TScript(device="cpu", dtype=torch.float64)
         quiet(s, DECK.replace("fix             1 all nve", fixes))
         s.run_string(f"run 2\nwrite_restart {tmp_path}/p.npz")
@@ -302,9 +301,9 @@ def test_port_restart_fix_state_raises(tmp_path):
 
 
 @pytest.mark.parametrize("line,err,match", [
-    ("dump 2 all local 5 d.local index", NotImplementedError, "local"),
+    ("dump 2 all xtc 5 d.xtc", NotImplementedError, "xtc"),
     ("dump 2 all custom 5 d.txt id proc", NotImplementedError, "proc"),
-    ("dump 2 all custom 5 d.bin id x", NotImplementedError, "binary"),
+    ("dump 2 all custom 5 d.gz id x", NotImplementedError, "gzip"),
     ("set atom 1 type 3", Exception, "atom type"),
     ("set atom 1 mass 2.0", NotImplementedError, "mass"),
     ("displace_atoms nogroup move 1 0 0", Exception, "nogroup"),

@@ -250,7 +250,7 @@ def test_cli_var_and_log(tmp_path, capsys):
 def test_unported_command_names_itself():
     s = TScript(device="cpu", dtype=torch.float64)
     for line in ("neb 0.0 0.01 100 100 10 final f", "temper 1000 100 300 3 0 5",
-                 "balance 1.1 shift x 10 1.1", "molecule w file.mol"):
+                 "balance 1.1 shift x 10 1.1", "prd 100 10 10 100 0.5 1 2"):
         with pytest.raises(NotImplementedError, match=line.split()[0]):
             s.execute(line)
 

@@ -1944,3 +1944,112 @@ DPD32K_F32_CPU_GAP = {"temp": 3.76e-8, "epair": 1.82e-7,
 # little above it)
 DPD10_MEAN_TEMP = 1.0227925399999998
 DPD_MEAN_TEMP_RTOL = 0.05
+
+
+# ------------------------------------------- the NEMD and reactive decks
+# IN_KAPPA32K: tests/golden/nemd/in.tc (Muller-Plathe thermal
+# conductivity of the LJ fluid at fcc 0.6) on 20^3 cells, 32,000 atoms,
+# with fix ave/grid's 4 x 4 x 20 profile (z cells = the swap's slabs) and
+# its dump grid every 100 steps; the grid's deck (B1, the list kernels)
+IN_KAPPA32K = """units           lj
+atom_style      atomic
+lattice         fcc 0.6
+region          box block 0 {n} 0 {n} 0 {n}
+create_box      1 box
+create_atoms    1 box
+mass            1 1.0
+pair_style      lj/cut 2.5
+pair_coeff      1 1 1.0 1.0
+neighbor        0.3 bin
+velocity        all create 1.35 87287 loop geom
+fix             1 all nve
+fix             2 all thermal/conductivity 10 z 20
+fix             3 all ave/grid 10 10 100 4 4 20 vx density/mass temp
+dump            g all grid 100 {grid} f_3:grid:data[1] f_3:grid:data[2] f_3:grid:data[3] f_3:grid:count
+timestep        0.005
+thermo          {thermo}
+thermo_style    custom step temp epair etotal f_2
+"""
+
+# IN_BONDCREATE32K: step-growth dimerisation of 32,000 monomers at melt
+# density (fcc 0.8442, 20^3 cells); the pair, bond and fix lines of
+# tests/golden/bond_create/in.test verbatim, the bonds written by dump
+# local every 100 steps; the matrix engine's deck (P1)
+IN_BONDCREATE32K = """units           lj
+atom_style      bond
+special_bonds   lj/coul 0.0 0.0 0.0
+lattice         fcc 0.8442
+region          box block 0 {n} 0 {n} 0 {n}
+create_box      1 box bond/types 1 extra/bond/per/atom 2 extra/special/per/atom 4
+create_atoms    1 box
+mass            1 1.0
+pair_style      lj/cut 2.5
+bond_style      harmonic
+pair_coeff      1 1 1.0 1.0
+bond_coeff      1 50.0 1.0
+neighbor        0.3 bin
+neigh_modify    every 1 delay 0 check yes
+fix             1 all nve
+fix             2 all bond/create 5 1 1 1.15 1 iparam 1 1 jparam 1 1
+velocity        all create 1.5 2763 loop geom
+timestep        0.005
+compute         bl all bond/local dist engpot force
+compute         pl all property/local batom1 batom2 btype
+dump            d all local 100 {local} index c_pl[1] c_pl[2] c_pl[3] c_bl[1] c_bl[2] c_bl[3]
+thermo          {thermo}
+thermo_style    custom step temp ebond epair etotal press
+"""
+
+# IN_CHAIN_RESPA32K: tests/golden/respa_chain/in.test (IN_CHAIN's chains
+# in NVE, FENE and the WCA pair on two respa levels) on chain_data()'s
+# 32,000 beads; the matrix engine's deck (P1): respa puts the bonds and
+# the pair on separate levels, which the grid's kernels cannot split
+IN_CHAIN_RESPA32K = """units           lj
+atom_style      bond
+special_bonds   fene
+read_data       {data}
+neighbor        0.4 bin
+neigh_modify    every 1 delay 1
+bond_style      fene
+bond_coeff      1 30.0 1.5 1.0 1.0
+pair_style      lj/cut 1.1224620483093730
+pair_coeff      1 1 1.0 1.0 1.1224620483093730
+pair_modify     shift yes
+fix             1 all nve
+run_style       respa 2 {inner} bond 1 pair 2
+timestep        0.012
+thermo          {thermo}
+thermo_style    custom step temp epair emol etotal press
+"""
+
+# the port's CPU f64 numbers behind the three decks' card gates
+# (python3 -m tpumd_torch.remainder32k_cpu_rows, 4 CPU threads):
+# IN_KAPPA32K's rows of steps 0 and 100 at full precision and etotal's largest relative move
+# over steps 0-100 (the unshifted lj/cut's energy jumps at the cutoff; the
+# golden's reference log moves as far, 1.16e-2 over its 100 steps); the
+# card's f64 run holds 1.01x it
+KAPPA32K_ROWS_F64 = {
+    0: {"temp": 1.35, "epair": -4.124191666666666,
+        "etotal": -2.0992549479166653, "f_2": 0.0},
+    100: {"temp": 1.1429982669520484, "epair": -3.7883143184492467,
+          "etotal": -2.0738704960649375, "f_2": 77.79915336391063}}
+KAPPA32K_ETOTAL_DRIFT_F64 = 0.012687032928494338
+KAPPA32K_DRIFT_FACTOR = 1.01
+# IN_BONDCREATE32K's step-0 row and the bonds made at its first event
+# (step 5): their count and the sha256 of their sorted "tag tag" lines
+BONDCREATE32K_STEP0_F64 = {"temp": 1.5000000000000002, "ebond": 0.0,
+                           "epair": -6.773368053252956,
+                           "etotal": -4.523438365752956,
+                           "press": -4.969056841960588}
+BONDCREATE32K_STEP5_BONDS = (
+    9024, "e242822398ccaa7731e53cf7d804725d7f915285cc54a0566a83017a341f1a50")
+# IN_CHAIN_RESPA32K's step-0 row on chain_data() (32,000 beads, seed 2026)
+CHAIN_RESPA32K_STEP0_F64 = {"temp": 0.9699999999999999,
+                            "epair": 0.20990563750236732,
+                            "emol": 20.493086537201417,
+                            "etotal": 22.157946705953787,
+                            "press": -2.515644437037974}
+# the f32 energy bound of IN_CHAIN_RESPA32K's timed window (steps 100-600
+# of respa 2 2, dt 0.012), written before its first card run: the largest
+# |etotal - etotal(100)| / |etotal(100)| over the printed rows
+RESPA32K_F32_DRIFT = 5e-3

@@ -5,13 +5,17 @@ restart files, src/write_restart.cpp:222-394): a checkpoint is an ``.npz``
 of the per-atom state, the box and the masses plus a JSON header, in
 tpumd's format, so that either package reads the other's files.  The port
 writes the atoms in tag order whatever engine held them (the cell grid
-keeps them in slot order, with empty slots).  Fix state is not restored:
-a file that carries some (tpumd's thermostat chains, an RNG stream) raises
-on reading, naming the fix.
+keeps them in slot order, with empty slots).  The state of fix nvt, npt
+and nph (the Nose-Hoover chains and the barostat) is restored: the deck
+declares the fix after read_restart, as in LAMMPS, and its next set-up
+takes the saved state by fix ID (``restore_leaves``) where tpumd starts
+the chains anew.  Any other fix state (an RNG stream, a rigid body's)
+raises on reading, naming the fix.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
@@ -85,6 +89,37 @@ def write_restart(sim, path: str):
     np.savez_compressed(path, **payload)
 
 
+# the fix styles whose state a restart file restores
+RESTORABLE = ("nh",)
+
+
+def restore_leaves(template, leaves):
+    """template (a fix's fresh state) with its tensors and numbers taken
+    from leaves, in the depth-first order ``_leaves`` wrote them."""
+    leaves = list(leaves)
+
+    def walk(t):
+        if t is None:
+            return None
+        if isinstance(t, torch.Tensor):
+            return torch.as_tensor(leaves.pop(0), dtype=t.dtype,
+                                   device=t.device).reshape(t.shape)
+        if isinstance(t, np.ndarray):
+            return np.asarray(leaves.pop(0))
+        if isinstance(t, (int, float)):
+            return type(t)(leaves.pop(0))
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        if isinstance(t, (tuple, list)):
+            return type(t)(walk(x) for x in t)
+        return dataclasses.replace(t, **{k: walk(getattr(t, k))
+                                         for k in t.__dataclass_fields__})
+    out = walk(template)
+    if leaves:
+        raise ValueError("restart: the fix state does not match the fix")
+    return out
+
+
 def read_restart(sim, path: str) -> dict:
     """Restore the per-atom state, masses, step and timestep into a
     Simulation whose styles and fixes the deck declares (as the
@@ -98,6 +133,17 @@ def read_restart(sim, path: str) -> dict:
                       if k.startswith("fix")})
     carried += [i for i, r in enumerate(header.get("rng", ()))
                 if r is not None and i not in carried]
+    # fix nh's state is kept for the fix of the same ID at the next set-up
+    restorable = {}
+    for i in list(carried):
+        fid, _, style = (names[i] or "").partition(" ")
+        rng = header.get("rng", ())
+        if style in RESTORABLE and not (i < len(rng) and rng[i]):
+            leaves = [data[k] for k in sorted(
+                (k for k in data.files if k.startswith(f"fix{i}_")),
+                key=lambda k: int(k.split("_")[1]))]
+            restorable[fid] = (style, leaves)
+            carried.remove(i)
     if carried:
         who = []
         for i in carried:
@@ -107,11 +153,12 @@ def read_restart(sim, path: str) -> dict:
                 name = f"{fx.id} {getattr(fx, 'name', type(fx).__name__)}"
             who.append(f"fix {name or i}")
         raise NotImplementedError(
-            f"{path}: {', '.join(who)} carries state (thermostat "
-            "variables, an RNG stream or a constraint virial); restoring "
-            "fix state from a restart file is not ported")
+            f"{path}: {', '.join(who)} carries state (an RNG stream or "
+            "a constraint virial); restoring it from a restart file is not "
+            "ported (fix nvt, npt and nph are)")
     sim.invalidate_ctx()
     sim._fstate_stash = {}
+    sim.restart_fstates = restorable
     tag = data["tag"]
     rows = np.nonzero(tag > 0)[0]
     if "boundary" in header:

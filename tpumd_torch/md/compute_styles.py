@@ -515,23 +515,14 @@ _STYLES = {c.style: c for c in (
 
 # compute styles of the reference that tpumd lacks or this port leaves
 # out: each raises naming itself
-_NOT_PORTED = {
-    "property/local": "compute_local.py and dump local wait (ROADMAP A9)",
-    "bond/local": "compute_local.py and dump local wait (ROADMAP A9)",
-    "angle/local": "compute_local.py and dump local wait (ROADMAP A9)",
-}
-
-
 def create_compute(cid, group, style, args=()):
     """A compute of the deck's ``compute ID group style args``."""
-    from tpumd_torch.md import compute_chunk, compute_extra, compute_pair, \
-        compute_struct
+    from tpumd_torch.md import compute_chunk, compute_extra, \
+        compute_local, compute_pair, compute_struct
     styles = dict(_STYLES)
-    for mod in (compute_pair, compute_struct, compute_extra, compute_chunk):
+    for mod in (compute_pair, compute_struct, compute_extra, compute_chunk,
+                compute_local):
         styles.update({c.style: c for c in mod.STYLES})
-    if style in _NOT_PORTED:
-        raise NotImplementedError(f"compute {style} is not ported: "
-                                  f"{_NOT_PORTED[style]}")
     if style not in styles:
         raise NotImplementedError(f"compute style {style!r} is not ported")
     return styles[style](cid, group, args)

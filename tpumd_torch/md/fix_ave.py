@@ -10,8 +10,10 @@ events (``host_every``, ``host_end_of_step``), after the step's forces and
 before its thermo row and dumps, as Verlet::run orders end_of_step before
 output.  Their inputs (computes, atom attributes, variables) are read from
 the device there; their files keep tpumd's layout.  tune/kspace acts at
-the same events, swapping the kspace solver.  ave/grid and balance are not
-ported (with dump grid and balance).
+the same events, swapping the kspace solver.  ave/grid is the exception:
+it bins the atoms on the device at its sample steps (``end_of_step``),
+keeps its sums there, and only dump grid reads them back.  balance is not
+ported.
 """
 
 from __future__ import annotations
@@ -19,11 +21,12 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch
 
 from tpumd_torch.md import peratom as pa
 from tpumd_torch.md.compute_styles import atom_keyword, expand_wildcards, \
     peratom_input, split_ref
-from tpumd_torch.md.fixes import Fix
+from tpumd_torch.md.fixes import Fix, fix_state
 from tpumd_torch.script.formula import SimFormulaContext
 
 
@@ -581,3 +584,115 @@ class FixTuneKspace(Fix):
         self._phase = 2
         t = {k: round(v, 3) for k, v in self._times.items()}
         sim._log(f"fix tune/kspace: times {t} -> keeping {best}")
+
+
+class FixAveGrid(Fix):
+    """fix ave/grid Nevery Nrepeat Nfreq Nx Ny Nz value ... [norm all]
+    (src/fix_ave_grid.cpp, atom mode; tpumd/md/fix_ave.py:433-529): at
+    each sample step (the Nrepeat steps Nevery apart that end at a
+    multiple of Nfreq) every atom of the group adds its values to the cell
+    it sits in; at the multiple of Nfreq the window's sums become the
+    cells' averages and start again.  Values: vx, vy, vz, density/number,
+    density/mass, mass and temp.  Everything stays on the device, in
+    float64; the state is (step, sums (cells, values), counts (cells,),
+    averages (nz, ny, nx, values), mean counts (nz, ny, nx)), zero until
+    the first window closes, as the reference dumps zeros then."""
+
+    name = "ave/grid"
+    needs_step = True
+    VALUES = ("vx", "vy", "vz", "density/number", "density/mass", "mass",
+              "temp")
+
+    def __init__(self, nevery, nrepeat, nfreq, nx, ny, nz, inputs,
+                 norm="all"):
+        self.nevery, self.nrepeat, self.nfreq = (int(nevery), int(nrepeat),
+                                                 int(nfreq))
+        self.dims = (int(nx), int(ny), int(nz))
+        self.inputs = list(inputs)
+        bad = [v for v in self.inputs if v not in self.VALUES]
+        if bad or norm != "all":
+            raise NotImplementedError(
+                f"fix ave/grid values {bad} or norm {norm} are not ported "
+                f"(values {' '.join(self.VALUES)}; norm all)")
+
+    def _due(self, step):
+        if step <= 0 or step % self.nevery:
+            return False
+        r = step % self.nfreq
+        return r == 0 or r >= self.nfreq - (self.nrepeat - 1) * self.nevery
+
+    def init_state(self, s, ctx):
+        nx, ny, nz = self.dims
+        z = dict(dtype=torch.float64, device=s.x.device)
+        nv = len(self.inputs)
+        return (0, torch.zeros((nx * ny * nz, nv), **z),
+                torch.zeros(nx * ny * nz, **z),
+                torch.zeros((nz, ny, nx, nv), **z),
+                torch.zeros((nz, ny, nx), **z))
+
+    def set_step(self, fstate, istep):
+        return (istep,) + tuple(fstate[1:])
+
+    def end_of_step(self, s, fstate, ctx):
+        step, sums, count, grid, gcount = fstate
+        if not self._due(step):
+            return s, fstate
+        nx, ny, nz = self.dims
+        dims = torch.tensor([nx, ny, nz], device=s.x.device)
+        sel = self.group_sel(s)
+        lo, prd = s.box.lo.double(), s.box.lengths.double()
+        rel = (s.x.double() - lo) / prd
+        rel = rel - torch.floor(rel)
+        cell = torch.minimum((rel * dims).long(), dims - 1)
+        flat = (cell[:, 2] * ny + cell[:, 1]) * nx + cell[:, 0]
+        flat = torch.where(sel, flat, 0)
+        w = sel.double()
+        m = ctx.mass_per_atom(s).double()
+        v = s.v.double()
+        vals = {"density/number": torch.ones_like(m), "mass": m,
+                "density/mass": m, "temp": m * torch.sum(v * v, dim=1),
+                "vx": v[:, 0], "vy": v[:, 1], "vz": v[:, 2]}
+        count = count.index_add(0, flat, w)
+        sums = sums.index_add(0, flat, torch.stack(
+            [vals[k] for k in self.inputs], dim=1) * w[:, None])
+        if step % self.nfreq == 0:
+            grid, gcount = self._average(sums, count, prd, ctx)
+            sums, count = torch.zeros_like(sums), torch.zeros_like(count)
+        return s, (step, sums, count, grid, gcount)
+
+    def _average(self, sums, count, prd, ctx):
+        """The closed window's averages and mean counts, (nz, ny, nx, ...)."""
+        nx, ny, nz = self.dims
+        u = ctx.units
+        rep = float(self.nrepeat)
+        binvol = torch.prod(prd / torch.tensor(
+            [nx, ny, nz], dtype=torch.float64, device=prd.device))
+        cols = []
+        for k, name in enumerate(self.inputs):
+            sk = sums[:, k]
+            if name == "density/number":
+                cols.append(sk / (binvol * rep))
+            elif name == "density/mass":
+                cols.append(sk * u.mv2d / (binvol * rep))
+            elif name == "temp":
+                dof = self.dimension * count * u.boltz
+                cols.append(torch.where(count > 0, u.mvv2e * sk
+                                        / torch.clamp(dof, min=1e-300), 0.0))
+            else:
+                cols.append(torch.where(count > 0, sk / torch.clamp(
+                    count, min=1.0), 0.0))
+        return (torch.stack(cols, dim=1).reshape(nz, ny, nx, -1),
+                (count / rep).reshape(nz, ny, nx))
+
+    def grid_data(self, sim, which, index=None):
+        """(nz, ny, nx) float64 host array of dump grid's data[index] or
+        count."""
+        fs = fix_state(sim, self)
+        if fs is None:
+            return np.zeros(self.dims[::-1])
+        if which == "count":
+            return fs[4].cpu().numpy()
+        return fs[3][..., (index or 1) - 1].cpu().numpy()
+
+    def output(self, sim):
+        return self.grid_data(sim, "data")

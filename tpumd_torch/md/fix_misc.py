@@ -51,13 +51,20 @@ class FixSetForce(Fix):
     def __init__(self, fx, fy, fz):
         self.target = (fx, fy, fz)
 
-    def post_force(self, s, fstate, ctx, xin=None):
+    def post_force(self, s, fstate, ctx, xin=None, value=None):
         f = s.f.clone()
         sel = self.group_sel(s)
         for d, val in enumerate(self.target):
             if val is not None:
-                f[:, d] = torch.where(sel, val, f[:, d])
+                f[:, d] = torch.where(sel, val if value is None else value,
+                                      f[:, d])
         return s.replace(f=f), fstate
+
+    def post_force_respa_lower(self, s, fstate, ctx):
+        """The inner respa levels: the set components zeroed, whatever
+        their targets (FixSetForce::post_force_respa; tpumd/md/
+        fix_misc.py:40)."""
+        return self.post_force(s, fstate, ctx, value=0.0)
 
 
 class FixAddForce(Fix):

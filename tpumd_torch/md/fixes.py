@@ -90,6 +90,16 @@ class Fix:
         return torch.where(self.group_sel(s)[:, None], new, old)
 
 
+def fix_state(sim, fx):
+    """The run's current state of fix fx: its entry of the carry, or,
+    between a host edit and the next set-up, the one kept for it."""
+    if sim._carry is not None:
+        for f, fs in zip(sim._ctx.fixes, sim._carry[2]):
+            if f is fx:
+                return fs
+    return sim._fstate_stash.get(id(fx))
+
+
 class FixNVE(Fix):
     """Velocity-Verlet kick-drift / kick (src/fix_nve.cpp:64-143) on the
     fix's group."""

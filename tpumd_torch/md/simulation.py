@@ -45,9 +45,10 @@ from tpumd_torch.md import computes
 from tpumd_torch.md.compute_styles import split_ref
 from tpumd_torch.md.computes import THERMO_COMPUTES
 from tpumd_torch.md.fixes import FixBondBreak
+from tpumd_torch.io.read_data import build_special
 from tpumd_torch.md.verlet import ENERGY_KEYS, StepContext, build_matrix, \
-    eval_energies, grid_pairlist, pack_thermo, partner_tags, \
-    remap_history_by_tag, run_segment, step_post, step_pre
+    eval_energies, grid_pairlist, pack_thermo, partner_tags, rebuild_now, \
+    remap_history_by_tag, respa_forces, run_segment, step_post, step_pre
 from tpumd_torch.ops import cellgrid as cg
 from tpumd_torch.ops import neighbor as nb
 from tpumd_torch.ops.cellgrid_gran import KH
@@ -119,12 +120,23 @@ class Simulation:
         self.special_lj = None         # (4,) weights or None
         self.special_coul = None
         self.special_tags = None       # (N, S) by tag-1, build_special
+        # molecule templates by ID (io/molecule.py), and the room that
+        # create_box or read_data asked for (extra/<kind>/per/atom)
+        self.molecules: dict = {}
+        self.extra_per_atom: dict = {}
+        self._special_width = None     # the running special lists' width
+        # fix states a restart file saved, by fix ID (io/restart.py)
+        self.restart_fstates: dict = {}
         self.special_codes = None
 
         self.thermo_every = 0          # 0: only first/last
         self.thermo_style = ["step", "temp", "epair", "emol", "etotal",
                              "press"]
         self.thermo_norm = units == "lj"
+        # run_style respa: (loop factors, the terms of each level)
+        self.respa = None
+        self.thermo_multi = False      # thermo_style multi
+        self.lost_policy = "error"     # thermo_modify lost
         self.log_lines: list[str] = []
         self.dimension = 3
         self.verbose = True
@@ -342,7 +354,7 @@ class Simulation:
             kspace=self.kspace, special_lj=slj, special_coul=scl,
             tdof=self.dof(), shrink=self._shrink_spec(),
             pairlist_k=pairlist_k, pairlist_exclude=exclude,
-            pairlist_refresh=refresh)
+            pairlist_refresh=refresh, respa=self.respa)
 
     def _grid_config(self, cutneigh: float,
                      margin: float) -> cg.CellGridConfig:
@@ -373,6 +385,15 @@ class Simulation:
         with at most 2 partners an atom.  (FENE's other limits in B2, one
         bond type, R0 within cutneigh and ``special_bonds fene``, raise at
         ``_setup_kernel_bond``.)"""
+        for fx in self.fixes:
+            if isinstance(getattr(fx, "grid_refusal", None), str):
+                return fx.grid_refusal
+        if self.respa is not None and any(
+                self.topology.get(k) is not None and len(self.topology[k])
+                for k in self.bonded):
+            return ("run_style respa puts the bonded and pair terms on "
+                    "separate levels: the grid's kernels sum them together "
+                    "(B2) or weigh the special pairs only beside B5")
         if self.pair is not None and self.pair.supports_cellgrid:
             why = self.pair.grid_refusal()
             if why:
@@ -461,6 +482,17 @@ class Simulation:
             bond_btypes=torch.as_tensor(btyps, device=self.device))
         self._kernel_bond = style
 
+    def live_topology(self, kind):
+        """The tuples of kind as the run has them now (host, (M, 1 +
+        arity): type, then the members' tags), or None: the topology, less
+        the bonds a fix broke and with those it made (fix bond/break and
+        bond/create read their device state back)."""
+        arr = self.topology.get(kind)
+        for fx in self.fixes:
+            if hasattr(fx, "edit_topology"):
+                arr = fx.edit_topology(self, kind, arr)
+        return arr
+
     def shake_fixes(self):
         """fix shake and fix rattle, which share the clusters."""
         return [fx for fx in self.fixes
@@ -515,6 +547,9 @@ class Simulation:
                 if sub.breakable:
                     self._setup_alive(sub, dev)
                 out.append((sub, dev))
+        for fx in self.fixes:
+            if hasattr(fx, "attach_bonded"):
+                out = list(fx.attach_bonded(self, out))
         self._bonded_dev = tuple(out)
 
     def _setup_alive(self, style, tuples):
@@ -533,14 +568,29 @@ class Simulation:
         """Per-row special lists for a charged pair sweep or the matrix
         engine's special codes: entries whose lj and coul weights are both
         1 are dropped (tpumd/md/simulation.py:469-491), and the lists
-        follow the rows by tag."""
+        follow the rows by tag.  A fix that enters special entries on the
+        card (bond/create) gets its ``special_room`` of empty columns."""
+        room = max([fx.special_room(self) for fx in self.fixes
+                    if hasattr(fx, "special_room")], default=0)
+        if room and self.special_tags is None:
+            self.special_tags = np.zeros((self.natoms, 1), np.int32)
+            self.special_codes = np.zeros((self.natoms, 1), np.int32)
+        self._special_width = None
         if self.special_tags is None or not (
                 self._mode == "matrix" or getattr(self.pair, "charged",
                                                   False)):
             return
+        st, sc = self._special_rows(self.state, self.special_tags,
+                                    self.special_codes)
+        self._special_width = st.shape[1] + room
+        self.state = self._with_special(self.state, st, sc)
+
+    def _special_rows(self, s, tags, codes):
+        """The kept entries of tag-indexed special lists (host arrays),
+        packed to the front, in the rows of state s: (st, sc) numpy."""
         slj, scl = self._special_weights()
-        st = np.asarray(self.special_tags, np.int32)
-        sc = np.asarray(self.special_codes, np.int32)
+        st = np.asarray(tags, np.int32)
+        sc = np.asarray(codes, np.int32)
         keep = (st > 0) & ((np.asarray(slj)[sc] != 1.0)
                            | (np.asarray(scl)[sc] != 1.0))
         smax = max(int(keep.sum(1).max()), 1)
@@ -548,10 +598,38 @@ class Simulation:
         kept = np.take_along_axis(keep, order, 1)
         st = np.take_along_axis(st, order, 1) * kept
         sc = np.take_along_axis(sc, order, 1) * kept
-        rows = self.state.tag.cpu().numpy() - 1
-        self.state = self.state.replace(
-            special_tags=torch.as_tensor(st[rows], device=self.device),
-            special_codes=torch.as_tensor(sc[rows], device=self.device))
+        rows = np.maximum(s.tag.cpu().numpy() - 1, 0)
+        live = (s.tag.cpu().numpy() > 0)[:, None]
+        return st[rows] * live, sc[rows] * live
+
+    def _with_special(self, s, st, sc):
+        """s with special lists st, sc padded to the set-up's width."""
+        width = self._special_width or st.shape[1]
+        if st.shape[1] > width:
+            raise RuntimeError(
+                f"special lists of {st.shape[1]} entries past the room of "
+                f"{width} (raise extra/special/per/atom)")
+        pad = ((0, 0), (0, width - st.shape[1]))
+        return s.replace(
+            special_tags=torch.as_tensor(np.pad(st, pad), device=self.device),
+            special_codes=torch.as_tensor(np.pad(sc, pad),
+                                          device=self.device))
+
+    def refresh_special(self):
+        """The special lists rebuilt from the live bonds on the host
+        during a run (after fix bond/create or bond/break), written into
+        the running state, and the neighbor matrix rebuilt so that its
+        special codes follow."""
+        bonds = self.live_topology("bond")
+        self.special_tags, self.special_codes = build_special(
+            self.natoms, np.zeros((0, 3), np.int64) if bonds is None
+            else bonds)
+        s, neigh, fstates = self._carry
+        st, sc = self._special_rows(s, self.special_tags, self.special_codes)
+        s, neigh = rebuild_now(self._with_special(s, st, sc), neigh,
+                               self._ctx)
+        self._carry = (s, neigh, fstates)
+        self.state = s
 
     def _sort_atoms_host(self):
         """Spatial sort at setup (Atom::sort, src/atom.cpp:2246): fixes the
@@ -723,6 +801,14 @@ class Simulation:
         # reference row order (post-sort, pre-grid-permutation): host RNG
         # streams draw in this order and are re-indexed by tag
         self._ref_order_tags = self.state.tag.cpu().numpy()
+        # a fix that made or broke bonds hands its rows to the topology
+        # first; the special lists follow it
+        if any([fx.fold_topology(self) for fx in self.fixes
+                if hasattr(fx, "fold_topology")]):
+            bonds = self.topology.get("bond")
+            self.special_tags, self.special_codes = (
+                (None, None) if bonds is None or not len(bonds)
+                else build_special(self.natoms, bonds))
         self._setup_special()
         # SHAKE first: its constrained bonds and angles leave the bonded
         # styles (the reference negates their types)
@@ -773,6 +859,12 @@ class Simulation:
             fs = self._fstate_stash.pop(id(fx), None)
             if fs is None:
                 fs = fx.init_state(s, ctx)
+                saved = self.restart_fstates.pop(getattr(fx, "id", None),
+                                                 None)
+                if saved is not None and saved[0] == fx.name:
+                    # a restart file's fix nvt/npt/nph state
+                    from tpumd_torch.io.restart import restore_leaves
+                    fs = restore_leaves(fs, saved[1])
             xin = fx.segment_inputs(1, ctx, s)
             s, fs = fx.setup_post_force(s, fs, ctx,
                                         None if xin is None else xin[0])
@@ -782,6 +874,14 @@ class Simulation:
         if ctx.tdof != self.dof():
             # a rigid fix counts its bodies' dof at its set-up
             ctx = self._ctx = dataclasses.replace(ctx, tdof=self.dof())
+        if ctx.respa is not None:
+            # every level's forces with the fixes' hooks (Respa::setup)
+            if getattr(self.pair, "is_tip4p", False) or self.granular:
+                raise NotImplementedError(
+                    f"run_style respa with pair_style {self.pair.name} is "
+                    "not ported")
+            s, fstates = respa_forces(s, neigh, ctx, fstates)
+            fstates = list(fstates)
         fstates = [fx.save_virial(fs, virial) if fx.needs_virial else fs
                    for fx, fs in zip(self.fixes, fstates)]
         # a rigid barostat's set-up reads the state with the saved virial
@@ -978,7 +1078,7 @@ class Simulation:
                 # a redone segment reuses the same host draws
                 carry, mid = self._advance(snapshot, ctx, seg, xs)
                 # the one overflow read of the segment
-                over, lost = self._segment_flags(carry[1])
+                over, lost = self._segment_flags(carry)
                 if lost and not self._hist_warned:
                     self._hist_warned = True
                     self._log(f"WARNING: a sphere touched {lost} others "
@@ -1091,19 +1191,32 @@ class Simulation:
             if d.due(self.step, setup):
                 d.write(self)
 
-    def _segment_flags(self, neigh) -> tuple[bool, int]:
+    def _segment_flags(self, carry) -> tuple[bool, int]:
         """(cell or list overflow, the pair's hist_over: the largest
         contact count of a sphere that had more than KH on the grid, else
-        0), read from the device in one transfer."""
-        if not self._ctx.is_cellgrid:
-            return bool(neigh.overflow), 0
+        0), read from the device in one transfer, with the error flags
+        that fixes keep on the device (``device_flags``): a set one
+        raises, naming the fix."""
+        neigh = carry[1]
+        words = [torch.as_tensor(
+            neigh.overflow if not self._ctx.is_cellgrid
+            else neigh.any_overflow).reshape(1).to(torch.int64)]
         lost = getattr(self.pair, "hist_over", None)
-        if neigh.shear_tags is None or lost is None:
-            return bool(neigh.any_overflow), 0
-        over, lost = torch.cat([torch.as_tensor(
-            neigh.any_overflow, dtype=torch.int32,
-            device=lost.device).reshape(1), lost]).tolist()
-        return bool(over), lost
+        track = (self._ctx.is_cellgrid and neigh.shear_tags is not None
+                 and lost is not None)
+        if track:
+            words.append(lost.reshape(-1).to(torch.int64))
+        flagged = [(fx, fx.device_flags(fs))
+                   for fx, fs in zip(self._ctx.fixes, carry[2])
+                   if hasattr(fx, "device_flags")]
+        words += [f.reshape(1).to(torch.int64) for _, f in flagged]
+        vals = (words[0] if len(words) == 1 else torch.cat(
+            [w.to(words[0].device) for w in words])).tolist()
+        for (fx, _), bad in zip(flagged, vals[len(vals) - len(flagged):]):
+            if bad:
+                raise RuntimeError(f"fix {fx.id}: {fx.flag_message} at or "
+                                   f"before step {self.step + 1}")
+        return bool(vals[0]), (vals[1] if track else 0)
 
     def _rebin(self, snapshot):
         """Rebuild the neighbor config for the snapshot's box and capacity
@@ -1208,6 +1321,23 @@ class Simulation:
                                  f"{split_ref(k)[1]}")
         return keys
 
+    def _thermo_fix_outputs(self):
+        """(key, () tensor) of the thermo_style f_ID columns whose fix
+        keeps its value on the device (``device_output``: the NEMD fixes),
+        packed into the thermo row's one read."""
+        out = []
+        if self._carry is None:
+            return out
+        for k in self.thermo_style:
+            if not k.startswith("f_") or "[" in k:
+                continue
+            for fx, fs in zip(self._ctx.fixes, self._carry[2]):
+                if getattr(fx, "id", None) == k[2:] \
+                        and hasattr(fx, "device_output") \
+                        and fx.device_output(fs) is not None:
+                    out.append((k, fx.device_output(fs)))
+        return out
+
     def compute_entry(self, key):
         """() tensor of c_ID (the compute's scalar) or c_ID[i] (entry i of
         its global vector), unnormalized."""
@@ -1243,6 +1373,7 @@ class Simulation:
         u = self.units
         energies, virial = self.current_energies()
         extra = [self.compute_entry(k) for k in self._thermo_computes()]
+        extra += [out for _, out in self._thermo_fix_outputs()]
         escaped = self._escaped(s)
         packed = pack_thermo(
             s, energies, virial,
@@ -1258,13 +1389,15 @@ class Simulation:
         dof = self.dof()
         ncur = int(vals_h[3])
         if ncur != self.natoms:
-            raise RuntimeError(f"Lost atoms: original {self.natoms} "
-                               f"current {ncur} at step {self.step}")
+            self._lost(f"Lost atoms: original {self.natoms} current {ncur} "
+                       f"at step {self.step}")
         nenergy = 7 + len(ENERGY_KEYS)
         cids = self._thermo_computes()
-        if len(vals_h) > nenergy + len(cids) and vals_h[-1] > 0:
-            raise RuntimeError(f"Lost atoms: {int(vals_h[-1])} outside "
-                               f"fixed boundaries at step {self.step}")
+        fouts = [k for k, _ in self._thermo_fix_outputs()]
+        if len(vals_h) > nenergy + len(cids) + len(fouts) \
+                and vals_h[-1] > 0:
+            self._lost(f"Lost atoms: {int(vals_h[-1])} outside fixed "
+                       f"boundaries at step {self.step}")
         if not np.isfinite(vals_h).all():
             raise RuntimeError(
                 f"Non-finite thermodynamics at step {self.step} — "
@@ -1309,6 +1442,8 @@ class Simulation:
             c = self.computes[split_ref(key)[1]]
             vals[key] = float(vals_h[nenergy + k]) / (
                 norm if c.extensive else 1)
+        for k, key in enumerate(fouts):
+            vals[key] = float(vals_h[nenergy + len(cids) + k])
         self.last_thermo = vals
         return vals
 
@@ -1318,7 +1453,40 @@ class Simulation:
         "vol": "Volume",
     }
 
+    def _lost(self, msg):
+        """thermo_modify lost error (raise), warn (log a warning) or
+        ignore (tpumd/md/simulation.py:1474-1495, Thermo::lost_check)."""
+        if self.lost_policy == "error":
+            raise RuntimeError(msg)
+        if self.lost_policy == "warn":
+            self._log("WARNING: " + msg)
+
+    # thermo_style multi (src/thermo.cpp FORMAT_MULTI_HEADER; tpumd/md/
+    # simulation.py:1573-1605): three "name = value" fields a line
+    _MULTI_FIELDS = (
+        ("TotEng", "etotal"), ("KinEng", "ke"), ("Temp", "temp"),
+        ("PotEng", "pe"), ("E_bond", "ebond"), ("E_angle", "eangle"),
+        ("E_dihed", "edihed"), ("E_impro", "eimp"), ("E_vdwl", "evdwl"),
+        ("E_coul", "ecoul"), ("E_long", "elong"), ("Press", "press"))
+
+    def _thermo_lines_multi(self, vals):
+        cpu = (0.0 if self._wall_start is None
+               else time.perf_counter() - self._wall_start)
+        self._log(f"---------------- Step {self.step:8d} ----- "
+                  f"CPU = {cpu:11.4f} (sec) ----------------")
+        fields = list(self._MULTI_FIELDS)
+        if self._barostat_active():
+            fields.append(("Volume", "vol"))
+        parts = []
+        for i, (label, key) in enumerate(fields):
+            parts.append(f"{label:<8} = {vals[key]:14.4f}")
+            if (i + 1) % 3 == 0 or i == len(fields) - 1:
+                self._log(" ".join(parts) + " ")
+                parts = []
+
     def _thermo_header(self):
+        if self.thermo_multi:
+            return
         line = " ".join(self._THERMO_HEADERS.get(k, k).ljust(12)
                         for k in self.thermo_style)
         self._log(line.rstrip())
@@ -1350,6 +1518,8 @@ class Simulation:
 
     def _thermo_line(self):
         vals = self.thermo_values()
+        if self.thermo_multi:
+            return self._thermo_lines_multi(vals)
         parts = []
         for k in self.thermo_style:
             v = self._thermo_value(vals, k)

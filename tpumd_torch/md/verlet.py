@@ -104,6 +104,9 @@ class StepContext:
     # the schedule leaves some steps unchecked: the list is refreshed
     # where stale (ops/cellgrid_pairlist.py::refresh_pairlist)
     pairlist_refresh: bool = False
+    # run_style respa: (loop factors, the force terms of each level), the
+    # outermost level last; None under verlet
+    respa: tuple | None = None
 
     def mass_per_atom(self, s: MDState):
         if s.rmass is not None:
@@ -156,7 +159,8 @@ def _matrix_pair(s: MDState, neigh: nb.NeighborState, ctx: StepContext,
 
 
 def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
-                   vflag: bool, shearupdate: bool = False, istep: int = 0):
+                   vflag: bool, shearupdate: bool = False, istep: int = 0,
+                   cats=None):
     """All forces; returns (f, energies {ENERGY_KEYS} or None, virial (6,)
     or None, torque (N, 3) or None, neigh).  Only a granular style gives a
     torque, and with shearupdate a neigh holding the new history.  neigh
@@ -172,7 +176,10 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
     sum and in kspace, their forces spread back onto the atoms once
     (tpumd/md/verlet.py:150-156; models/pair_tip4p.py).  Every kspace style
     takes the positions, charges and types of the rows
-    (``compute(x, q, box, eflag, vflag, type_)``)."""
+    (``compute(x, q, box, eflag, vflag, type_)``).
+
+    cats, where given, names the terms to sum (run_style respa's levels):
+    "pair", the bonded kinds and "kspace"."""
     energies = virial = None
     if eflag:
         energies = dict.fromkeys(ENERGY_KEYS, torch.zeros(
@@ -189,7 +196,7 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
         if vflag and vir is not None:
             virial = virial + vir
 
-    pair = ctx.pair
+    pair = ctx.pair if cats is None or "pair" in cats else None
     torque = sites = None
     if pair is None:
         f = torch.zeros_like(s.x)
@@ -235,19 +242,21 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
         energies["ecoul"] = energies["ecoul"] + torch.sum(
             pair.ecoul_self_atom(s.q.to(torch.float64))).to(s.x.dtype)
 
-    if ctx.bonded:
+    bonded = [(st, t) for st, t in ctx.bonded
+              if cats is None or st.kind in cats]
+    if bonded:
         # the tag-order view: row tag-1 holds that atom
         rows, view, take = tag_view(
             s, ctx, neigh.row2slot if ctx.is_cellgrid else None)
         ftag = None
-        for style, tuples in ctx.bonded:
+        for style, tuples in bonded:
             fb, e, vir = compute_tuples(style, view, tuples, s.box, ctx,
                                         eflag, vflag, take)
             ftag = fb if ftag is None else ftag + fb
             tally(e or {}, vir)
         f = f.index_add(0, rows, ftag)
 
-    if ctx.kspace is not None:
+    if ctx.kspace is not None and (cats is None or "kspace" in cats):
         fk, elong, vir = ctx.kspace.compute(
             s.x if sites is None else sites.xq, s.q, s.box, eflag, vflag,
             type_=s.type)
@@ -398,6 +407,12 @@ def _rebuild(s: MDState, neigh, ctx: StepContext):
     return s, neigh
 
 
+def rebuild_now(s: MDState, neigh, ctx: StepContext):
+    """A rebuild outside the step (a host edit of the special lists during
+    a run): (s, neigh)."""
+    return _rebuild(s, neigh, ctx)
+
+
 def decide_rebuild(s: MDState, neigh, ctx: StepContext) -> bool:
     """Neighbor::decide (src/neighbor.cpp:2293): ago-based schedule, then
     the half-skin displacement check when ``check yes``
@@ -445,9 +460,17 @@ def step_pre(s: MDState, neigh, fstates, ctx: StepContext, istep: int,
         else:
             s, fstates[i] = fx.initial_integrate(s, fstates[i], ctx)
     for i, fx in enumerate(ctx.fixes):
-        s, fstates[i] = fx.post_integrate(s, fstates[i], ctx)
+        if getattr(fx, "needs_neigh", False):
+            s, fstates[i] = fx.post_integrate(s, fstates[i], ctx, neigh)
+        else:
+            s, fstates[i] = fx.post_integrate(s, fstates[i], ctx)
     neigh = neigh.replace(ago=neigh.ago + 1)
-    if decide_rebuild(s, neigh, ctx):
+    # a fix that edits the bonds at its event steps (bond/create,
+    # bond/break) has the neighbor list rebuilt that step, so that its
+    # special codes follow (the reference's next_reneighbor)
+    forced = any(getattr(fx, "rebuild_every", 0)
+                 and istep % fx.rebuild_every == 0 for fx in ctx.fixes)
+    if forced or decide_rebuild(s, neigh, ctx):
         s, neigh = _rebuild(s, neigh, ctx)
     elif ctx.pairlist_refresh:
         neigh = refresh_list(s, neigh, ctx)
@@ -487,15 +510,142 @@ def step(s: MDState, neigh, fstates, ctx: StepContext,
 
 def run_segment(s: MDState, neigh, fstates,
                 ctx: StepContext, nsteps: int, xs=None, step0: int = 0):
-    """nsteps steps from timestep step0; xs: per fix, None or its inputs
-    stacked over the segment's steps."""
+    """nsteps steps from timestep step0 (rRESPA steps under run_style
+    respa); xs: per fix, None or its inputs stacked over the segment's
+    steps."""
     if xs is None:
         xs = (None,) * len(ctx.fixes)
+    one = step if ctx.respa is None else respa_step
     for k in range(nsteps):
-        s, neigh, fstates = step(s, neigh, fstates, ctx,
-                                 [None if x is None else x[k] for x in xs],
-                                 step0 + k + 1)
+        s, neigh, fstates = one(s, neigh, fstates, ctx,
+                                [None if x is None else x[k] for x in xs],
+                                step0 + k + 1)
     return s, neigh, fstates
+
+
+# --------------------------------------------------------------- rRESPA
+# the level forces ride the state's per-atom tables, so that a re-bin
+# moves them with the atoms and a redone segment starts from its own
+RESPA_KEY = "respa level {}"
+
+
+def respa_fixes(ctx: StepContext):
+    """(integrators, hook fixes) of the respa step (tpumd/md/verlet.py:
+    725-757): fix nve integrates every level by hand; every other fix runs
+    its post_force on the outermost level's forces (the reference's
+    default level, src/fix.cpp ilevel_respa), ``post_force_respa_lower``
+    on the inner ones, and end_of_step once an outer step.  A fix that
+    integrates, needs the virial or moves the box raises."""
+    from tpumd_torch.md.fixes import Fix, FixNVE
+    integ, hooks = [], []
+    for i, fx in enumerate(ctx.fixes):
+        if type(fx) is FixNVE:
+            integ.append(fx)
+            continue
+        cls = type(fx)
+        if (cls.initial_integrate is not Fix.initial_integrate
+                or cls.post_integrate is not Fix.post_integrate
+                or cls.final_integrate is not Fix.final_integrate
+                or fx.needs_virial or fx.box_change or fx.eos_box_change
+                or fx.xs_in_pre):
+            raise NotImplementedError(
+                f"run_style respa with fix {getattr(fx, 'id', '')} "
+                f"{getattr(fx, 'name', cls.__name__)}: only fix nve "
+                "integrates under respa, beside post_force and end_of_step "
+                "fixes (as in tpumd)")
+        hooks.append((i, fx))
+    if not integ:
+        raise NotImplementedError("run_style respa needs a fix nve")
+    return integ, hooks
+
+
+def respa_forces(s: MDState, neigh, ctx: StepContext, fstates, xs=None):
+    """Every level's forces of state s with the fixes' post_force hooks
+    applied to them (Respa::setup, src/respa.cpp; tpumd's
+    respa_setup_hooks); returns (s with f their sum and the levels in its
+    per-atom tables, fstates)."""
+    _, hooks = respa_fixes(ctx)
+    fstates = list(fstates)
+    flev = []
+    for lvl, cats in enumerate(ctx.respa[1]):
+        f = compute_forces(s, neigh, ctx, False, False, cats=cats)[0]
+        f, fstates = _level_hooks(s, f, lvl, hooks, fstates, ctx, xs)
+        flev.append(f)
+    return _with_levels(s, flev), tuple(fstates)
+
+
+def _level_hooks(s, f, lvl, hooks, fstates, ctx, xs):
+    """The hook fixes on one level's new forces f: post_force on the
+    outermost level, post_force_respa_lower below it."""
+    outer = lvl == len(ctx.respa[1]) - 1
+    t = s.replace(f=f)
+    for i, fx in hooks:
+        if outer:
+            t, fstates[i] = fx.post_force(t, fstates[i], ctx,
+                                          None if xs is None else xs[i])
+        elif hasattr(fx, "post_force_respa_lower"):
+            t, fstates[i] = fx.post_force_respa_lower(t, fstates[i], ctx)
+    return t.f, fstates
+
+
+def _with_levels(s, flev):
+    return s.replace(f=sum(flev), peratom={
+        **(s.peratom or {}),
+        **{RESPA_KEY.format(k): f for k, f in enumerate(flev)}})
+
+
+def respa_step(s: MDState, neigh, fstates, ctx: StepContext, xs,
+               istep: int):
+    """One outer rRESPA step (Respa::recurse, src/respa.cpp;
+    tpumd/md/verlet.py:786-857): the rebuild decision once, at the outer
+    level before any drift; then at each level, loop[level] times, a half
+    kick with that level's forces, the level below (the innermost level
+    drifts the positions), that level's new forces and another half
+    kick."""
+    loops, cats = ctx.respa
+    nlev = len(cats)
+    integ, hooks = respa_fixes(ctx)
+    fstates = list(fstates)
+    for i, fx in enumerate(ctx.fixes):
+        if fx.needs_step:
+            fstates[i] = fx.set_step(fstates[i], istep)
+    neigh = neigh.replace(ago=neigh.ago + 1)
+    if decide_rebuild(s, neigh, ctx):
+        s, neigh = _rebuild(s, neigh, ctx)
+    elif ctx.pairlist_refresh:
+        neigh = refresh_list(s, neigh, ctx)
+    flev = [s.peratom[RESPA_KEY.format(k)] for k in range(nlev)]
+    # step[L-1] = dt, step[l] = step[l+1] / loop[l] (Respa::init)
+    dts = [ctx.dt] * nlev
+    for lv in range(nlev - 2, -1, -1):
+        dts[lv] = dts[lv + 1] / loops[lv]
+    sel = integ[0].group_sel(s)
+    for fx in integ[1:]:
+        sel = sel | fx.group_sel(s)
+    inv_m = (1.0 / ctx.mass_per_atom(s))[:, None]
+
+    def kick(s, lvl):
+        v = s.v + (0.5 * dts[lvl] * ctx.units.ftm2v) * flev[lvl] * inv_m
+        return s.replace(v=torch.where(sel[:, None], v, s.v))
+
+    def recurse(s, lvl):
+        for _ in range(loops[lvl]):
+            s = kick(s, lvl)
+            if lvl > 0:
+                s = recurse(s, lvl - 1)
+            else:
+                s = s.replace(x=torch.where(sel[:, None],
+                                            s.x + dts[0] * s.v, s.x))
+            f = compute_forces(s, neigh, ctx, False, False, cats=cats[lvl])[0]
+            flev[lvl], fs = _level_hooks(s, f, lvl, hooks, fstates, ctx, xs)
+            fstates[:] = fs
+            s = kick(s, lvl)
+        return s
+
+    s = _with_levels(recurse(s, nlev - 1), flev)
+    for i, fx in hooks:
+        s, fstates[i] = fx.end_of_step(s, fstates[i], ctx)
+    return s, neigh, tuple(fstates)
 
 
 def eval_energies(s: MDState, neigh, ctx: StepContext):

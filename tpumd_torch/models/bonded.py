@@ -45,6 +45,8 @@ class BondedStyle:
     name = "none"
     kernel_bond = False     # evaluated inside the pair kernel (FENE)
     breakable = False       # carries a per-tuple alive mask (quartic)
+    # rows of type 0 are off: set by fix bond/break and bond/create
+    dynamic = False
     reads_types = False     # reads the members' types and charges
 
     def __init__(self, ntypes: int):
@@ -160,6 +162,17 @@ def members(style, view, tuples, take):
     return mem, list(take(view[0], mem).unbind(1))
 
 
+def _live_only(live, flist, ed, vp):
+    """The terms of the tuples whose type is above 0: a bond that fix
+    bond/break broke, or an empty row of fix bond/create's table, adds
+    nothing (LAMMPS's bond_type 0)."""
+    def keep(a):
+        return torch.where(live.view((-1,) + (1,) * (a.dim() - 1)), a, 0.0)
+    return ([keep(f) for f in flist],
+            None if ed is None else {k: keep(v) for k, v in ed.items()},
+            None if vp is None else [(r, keep(f)) for r, f in vp])
+
+
 def compute_tuples(style, view, tuples, box, ctx, eflag: bool, vflag: bool,
                    take=take_rows):
     """One bonded style over its tuples on the tag-order view.
@@ -177,6 +190,8 @@ def compute_tuples(style, view, tuples, box, ctx, eflag: bool, vflag: bool,
     mem, xs = members(style, view, tuples, take)
     flist, ed, vp = style.tuple_terms(xs, tuples[:, 0], box,
                                       (view, mem, take), ctx, eflag, vflag)
+    if style.dynamic:
+        flist, ed, vp = _live_only(tuples[:, 0] > 0, flist, ed, vp)
     for i, fm in zip(mem.unbind(1), flist):
         f.index_add_(0, i, fm)
     energies = ({k: torch.sum(v) for k, v in ed.items()} if eflag
@@ -197,8 +212,10 @@ def compute_tuples_peratom(style, view, tuples, box, ctx, take=take_rows):
     if tuples.shape[0] == 0:
         return eatom, vatom
     mem, xs = members(style, view, tuples, take)
-    _, ed, vp = style.tuple_terms(xs, tuples[:, 0], box, (view, mem, take),
-                                  ctx, True, True)
+    flist, ed, vp = style.tuple_terms(xs, tuples[:, 0], box,
+                                      (view, mem, take), ctx, True, True)
+    if style.dynamic:
+        _, ed, vp = _live_only(tuples[:, 0] > 0, flist, ed, vp)
     inv = 1.0 / style.arity
     etup = sum(ed.values())
     r = torch.stack([p[0] for p in vp])

@@ -30,18 +30,23 @@ from tpumd_torch.core.state import Box, make_state, map_per_atom
 from tpumd_torch.core.velocity_cmd import velocity_create_geom, \
     velocity_ramp, velocity_scale, velocity_set, zero_momentum, \
     zero_rotation
-from tpumd_torch.io.dump import Dump
+from tpumd_torch.io.dump import make_dump
+from tpumd_torch.io.molecule import MoleculeTemplate, axisangle_to_quat, \
+    norm3_np, quat_to_mat_np, rotate_place_np
 from tpumd_torch.io.read_data import build_special, read_data
 from tpumd_torch.io.restart import read_restart, write_data, \
     write_restart
+from tpumd_torch.md.fix_bond_mc import FixBondBreakMC, FixBondCreateMC
 from tpumd_torch.md.fix_langevin import FixLangevin
+from tpumd_torch.md.fix_nemd import BIG, FixHeat, FixOneway, \
+    FixThermalConductivity, FixViscosity, FixVector
 from tpumd_torch.md.fix_nh import FixNH
 from tpumd_torch.md.fix_particle import FixDeposit, FixEvaporate
 from tpumd_torch.md.fix_pour import FixPour
 from tpumd_torch.md.compute_styles import create_compute
 from tpumd_torch.md.fix_ave import FixAveAtom, FixAveChunk, \
-    FixAveCorrelate, FixAveHisto, FixAveTime, FixHalt, FixPrint, \
-    FixPropertyAtom, FixStoreState, FixTuneKspace, check_inputs
+    FixAveCorrelate, FixAveGrid, FixAveHisto, FixAveTime, FixHalt, \
+    FixPrint, FixPropertyAtom, FixStoreState, FixTuneKspace, check_inputs
 from tpumd_torch.md.fix_rigid import FixRigid, FixRigidNPH, FixRigidNPT, \
     FixRigidNVT
 from tpumd_torch.md.fix_shake import FixRattle, FixShake
@@ -62,6 +67,7 @@ from tpumd_torch.models.kspace_pppm import PPPM, PPPMCG, PPPMStagger, \
 from tpumd_torch.models.kspace_pppm_disp import PPPMDisp
 from tpumd_torch.models.registry import create_bonded_style, \
     create_pair_style
+from tpumd_torch.utils.ranmars import RanMars
 from tpumd_torch.utils.ranpark import geom_uniform_triplets
 from tpumd_torch.script.formula import Formula, SimFormulaContext
 
@@ -109,6 +115,15 @@ class LammpsScript:
         self.box = None
         self._atoms_x: list[np.ndarray] = []
         self._atoms_type: list[np.ndarray] = []
+        # create_atoms ... mol: per command, charges, molecule ids and
+        # image flags (None where it made lone atoms), and the topology of
+        # the placed templates by kind
+        self._atoms_q: list = []
+        self._atoms_mol: list = []
+        self._atoms_image: list = []
+        self._topo_acc: dict = {k: [] for k in BONDED_KINDS}
+        self._molid_next = 1
+        self._box_tilt = None
         self._units_name = "lj"
         self.echo = False
         # name -> (style, value)
@@ -121,6 +136,7 @@ class LammpsScript:
         self._var_lists: dict[str, tuple] = {}   # index/loop value lists
         self._atomfiles: dict[str, tuple] = {}   # name -> (sections, pos)
         self._python_funcs: dict[str, dict] = {}  # python command registry
+        self._plugins: dict = {}        # plugin load: module name -> module
 
     # -------------------------------------------------------------- plumbing
     def run_file(self, path: str):
@@ -558,6 +574,37 @@ class LammpsScript:
                 raise ScriptError(f"timer keyword {tok!r} not supported")
             i += 1
 
+    def cmd_plugin(self, a):
+        """plugin load file.py | list | clear (src/plugin.cpp;
+        tpumd/script/parser.py:2286-2315).  A plugin is a Python file run
+        as a module: its code registers styles with
+        ``tpumd_torch.models.registry`` (``register_pair``,
+        ``register_bonded``), after which a deck names them like the
+        built-in ones; ``__tpumd_styles__`` lists them.  Registrations
+        stay for the session, as tpumd's do: clear forgets the modules."""
+        if a[0] == "load" and len(a) == 2:
+            import importlib.util
+            path = self._path(a[1])
+            name = "tpumd_plugin_" + os.path.splitext(
+                os.path.basename(path))[0]
+            spec = importlib.util.spec_from_file_location(name, path)
+            if spec is None or not os.path.exists(path):
+                raise ScriptError(f"plugin load: no file {path!r}")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            self._plugins[name] = mod
+            n = len(getattr(mod, "__tpumd_styles__", ())) or "?"
+            print(f"Loaded plugin {os.path.basename(path)}: {n} styles")
+        elif a == ["list"]:
+            for name, mod in self._plugins.items():
+                print(f"plugin {name}: "
+                      + " ".join(getattr(mod, "__tpumd_styles__", ())))
+        elif a[0] in ("clear", "unload"):
+            self._plugins.clear()
+        else:
+            raise ScriptError(f"plugin {' '.join(a)}: load file, list or "
+                              "clear")
+
     def cmd_info(self, a):
         """info [system|groups|styles|fixes|computes|variables|all ...]
         (src/info.cpp categories, to the screen)."""
@@ -640,13 +687,11 @@ class LammpsScript:
         pass   # no ghost atoms: partners' velocities are read in place
 
     def cmd_read_data(self, a):
-        if len(a) != 1:
-            raise NotImplementedError(
-                f"read_data keywords {a[1:]} are not ported")
         path = a[0]
         if not os.path.isabs(path):
             path = os.path.join(self.data_dir, path)
         sim = self._require_sim()
+        self._box_keywords(sim, a[1:], "read_data")
         d = read_data(path, self.atom_style)
         sim.ntypes = d.natomtypes
         sim.mass = d.masses.copy()
@@ -1008,33 +1053,112 @@ class LammpsScript:
         self.regions[name] = region
 
     def cmd_create_box(self, a):
-        if len(a) != 2:
-            raise ScriptError(f"create_box keywords {a[2:]} not supported")
+        """create_box N region [bond/types N ...] [extra/.../per/atom N]
+        (src/create_box.cpp; tpumd/script/parser.py:637-658): the box is
+        the region's bounding box, tilted where the region is a prism with
+        tilt (a triclinic box, as read_data makes one); the bonded type
+        counts let the bonded styles be made at once, and the extra
+        per-atom counts give created bonds their room (fix bond/create)."""
         ntypes = int(a[0])
         region = self.regions[a[1]]
-        if isinstance(region, PrismRegion) and np.any(region.tilt != 0):
-            raise NotImplementedError("create_box on a tilted prism region "
-                                      "is not ported (read_data takes a "
-                                      "triclinic box)")
         self.box = region.bounding_box()
+        self._box_tilt = None
+        if isinstance(region, PrismRegion) and np.any(region.tilt != 0):
+            self._box_tilt = np.asarray(region.tilt, np.float64)
         sim = self._require_sim()
         sim.ntypes = ntypes
         sim.mass = np.zeros(ntypes + 1)
+        self._box_keywords(sim, a[2:], "create_box")
         self._materialize_styles()
 
+    @staticmethod
+    def _box_keywords(sim, rest, cmd):
+        """The bonded type counts and extra per-atom counts of create_box
+        (and the extra counts of read_data)."""
+        if len(rest) % 2:
+            raise ScriptError(f"{cmd}: odd keyword list {rest}")
+        for key, val in zip(rest[::2], rest[1::2]):
+            kind = key.split("/")[0]
+            if cmd == "create_box" and kind in BONDED_KINDS \
+                    and key == f"{kind}/types":
+                sim.bonded_ntypes[kind] = int(val)
+            elif key.startswith("extra/") and key.endswith("/per/atom") \
+                    and key.split("/")[1] in BONDED_KINDS + ("special",):
+                sim.extra_per_atom[key.split("/")[1]] = int(val)
+            else:
+                raise NotImplementedError(
+                    f"{cmd} keyword {key} is not ported (only "
+                    + ("bond|angle|dihedral|improper/types and "
+                       if cmd == "create_box" else "")
+                    + "extra/.../per/atom)")
+
+    def cmd_molecule(self, a):
+        """molecule ID file (src/molecule.cpp): a template for create_atoms
+        ... mol; keywords raise."""
+        if len(a) != 2:
+            raise NotImplementedError(
+                f"molecule keywords {a[2:]} are not ported")
+        self._require_sim().molecules[a[0]] = MoleculeTemplate(
+            a[0], self._path(a[1]))
+
     def cmd_create_atoms(self, a):
+        """create_atoms type box | region ID [mol ID seed]
+        (src/create_atoms.cpp; tpumd/script/parser.py:659-740).  With a
+        molecule template, one copy sits at each lattice site, turned by a
+        random rotation drawn in site order (CreateAtoms::add_molecule,
+        src/create_atoms.cpp:1376-1394: three uniforms for the axis, one
+        for the angle), its types offset by type, remapped into the box,
+        and its topology appended with the copy's tags."""
         type_id, style = int(a[0]), a[1]
         lo, hi = self.box
-        if style == "box" and len(a) == 2:
-            x, t = create_atoms_lattice(self.lattice, None, lo, hi, type_id)
-        elif style == "region" and len(a) == 3:
-            x, t = create_atoms_lattice(self.lattice, self.regions[a[2]],
-                                        lo, hi, type_id, fill_box=False)
-        else:
+        npos = {"box": 2, "region": 3}.get(style)
+        rest = a[npos:] if npos else []
+        if npos is None or len(a) < npos or rest not in (
+                [], ["mol"] + rest[1:3]) or len(rest) not in (0, 3):
             raise NotImplementedError(
                 f"create_atoms {' '.join(a[1:])!r} is not ported")
+        region = self.regions[a[2]] if style == "region" else None
+        x, t = create_atoms_lattice(self.lattice, region, lo, hi, type_id,
+                                    fill_box=region is None)
+        if not rest:
+            self._append_atoms(x, t)
+            return
+        mol = self._require_sim().molecules[rest[1]]
+        rng = RanMars(int(rest[2]))
+        nm = mol.natoms
+        tag0 = sum(len(xa) for xa in self._atoms_x)
+        coords = np.empty((len(x) * nm, 3), np.float64)
+        for k, site in enumerate(x):
+            r = norm3_np(np.array([rng.uniform() - 0.5 for _ in range(3)]))
+            theta = rng.uniform() * 2.0 * np.pi
+            coords[k * nm:(k + 1) * nm] = rotate_place_np(
+                mol.dx, quat_to_mat_np(axisangle_to_quat(r, theta)), site)
+        # the reference remaps every created atom at the end of the
+        # command (src/create_atoms.cpp:617 -> Domain::remap); velocity
+        # loop geom hashes the stored coordinates
+        img = remap_host(coords, np.asarray(lo, np.float64),
+                         np.asarray(hi, np.float64),
+                         tuple(tok == "p" for tok in self.sim.boundary))
+        types = np.tile(np.asarray(mol.types, np.int32) + type_id, len(x))
+        q = np.tile(mol.q if mol.q is not None else np.zeros(nm), len(x))
+        molid = np.repeat(np.arange(self._molid_next,
+                                    self._molid_next + len(x)), nm)
+        self._molid_next += len(x)
+        self._append_atoms(coords, types, q=q, mol=molid, image=img)
+        for kind in BONDED_KINDS:
+            arr = getattr(mol, kind + "s")
+            if len(arr):
+                per = np.tile(arr, (len(x), 1))
+                per[:, 1:] += (np.repeat(np.arange(len(x)) * nm,
+                                         len(arr))[:, None] + tag0)
+                self._topo_acc[kind].append(per)
+
+    def _append_atoms(self, x, t, q=None, mol=None, image=None):
         self._atoms_x.append(x)
         self._atoms_type.append(t)
+        self._atoms_q.append(q)
+        self._atoms_mol.append(mol)
+        self._atoms_image.append(image)
 
     def cmd_mass(self, a):
         sim = self._require_sim()
@@ -1047,24 +1171,58 @@ class LammpsScript:
         """The state from the atoms that create_atoms made; atom_style
         sphere gives each diameter 1 and density 1, so mass pi/6
         (AtomVecSphere::create_atom, src/atom_vec_sphere.cpp;
-        tpumd/script/parser.py:856-863)."""
+        tpumd/script/parser.py:856-863).  A tilted create_box region
+        makes a triclinic box; molecule templates bring charges, molecule
+        ids, image flags, and the topology and its special lists."""
         sim = self.sim
         if sim.state is None:
             x = np.concatenate(self._atoms_x)
             t = np.concatenate(self._atoms_type)
             lo, hi = self.box
-            box = Box.orthogonal(lo, hi, device=sim.device, dtype=self.dtype,
-                                 periodic=tuple(t == "p"
-                                                for t in sim.boundary))
-            radius = rmass = q = None
+            periodic = tuple(tk == "p" for tk in sim.boundary)
+            if self._box_tilt is not None:
+                box = Box.triclinic(lo, hi, self._box_tilt,
+                                    device=sim.device, dtype=self.dtype,
+                                    periodic=periodic)
+            else:
+                box = Box.orthogonal(lo, hi, device=sim.device,
+                                     dtype=self.dtype, periodic=periodic)
+
+            def joined(segs, dtype, width=None):
+                # per-command segments, zeros where a command gave none
+                if all(sg is None for sg in segs):
+                    return None
+                return np.concatenate([
+                    np.zeros((len(xa),) + ((width,) if width else ()), dtype)
+                    if sg is None else np.asarray(sg, dtype)
+                    for sg, xa in zip(segs, self._atoms_x)])
+            radius = rmass = None
             if self.atom_style == "sphere":
                 radius = np.full(len(x), 0.5)
                 rmass = 4.0 / 3.0 * np.pi * radius**3
-            if self.atom_style == "charge":
+            q = joined(self._atoms_q, np.float64)
+            if q is None and self.atom_style in ("charge", "full"):
                 q = np.zeros(len(x))
+            mol = joined(self._atoms_mol, np.int32)
+            if mol is None and self.atom_style in (
+                    "bond", "angle", "molecular", "full"):
+                mol = np.zeros(len(x), np.int32)
             sim.state = make_state(x, np.zeros_like(x), t, box, q=q,
+                                   molecule=mol,
+                                   image=joined(self._atoms_image, np.int32,
+                                                3),
                                    radius=radius, rmass=rmass,
                                    device=sim.device, dtype=self.dtype)
+            for kind, chunks in self._topo_acc.items():
+                if chunks:
+                    arr = np.concatenate(chunks)
+                    sim.topology[kind] = arr
+                    sim.bonded_ntypes[kind] = max(
+                        sim.bonded_ntypes.get(kind, 0),
+                        int(arr[:, 0].max()))
+            if "bond" in sim.topology:
+                sim.special_tags, sim.special_codes = build_special(
+                    len(x), sim.topology["bond"])
 
     def _atom_masses(self) -> np.ndarray:
         """(N,) f64 per-atom masses: rmass for spheres, else by type."""
@@ -1270,6 +1428,7 @@ class LammpsScript:
 
     def cmd_thermo_style(self, a):
         sim = self._require_sim()
+        sim.thermo_multi = a[0] == "multi"
         if a[0] == "one":
             sim.thermo_style = ["step", "temp", "epair", "emol", "etotal",
                                 "press"]
@@ -1280,17 +1439,27 @@ class LammpsScript:
                 raise NotImplementedError(
                     f"thermo_style custom keywords {unknown} are not ported")
             sim.thermo_style = a[1:]
-        else:
-            raise NotImplementedError(f"thermo_style {a[0]} is not ported")
+        elif a[0] != "multi" or len(a) > 1:
+            raise NotImplementedError(
+                f"thermo_style {' '.join(a)} is not ported (one, multi, "
+                "custom)")
 
     def cmd_thermo_modify(self, a):
+        """thermo_modify norm yes|no and lost error|warn|ignore
+        (tpumd/script/parser.py:1134-1140)."""
         kw = dict(zip(a[::2], a[1::2]))
-        if len(a) % 2 or set(kw) - {"norm"} or kw["norm"] not in ("yes",
-                                                               "no"):
+        if len(a) % 2 or set(kw) - {"norm", "lost"} \
+                or kw.get("norm", "yes") not in ("yes", "no") \
+                or kw.get("lost", "error") not in ("error", "warn",
+                                                   "ignore"):
             raise NotImplementedError(
                 f"thermo_modify {' '.join(a)} is not ported (only norm "
-                "yes|no)")
-        self._require_sim().thermo_norm = kw["norm"] == "yes"
+                "yes|no and lost error|warn|ignore)")
+        sim = self._require_sim()
+        if "norm" in kw:
+            sim.thermo_norm = kw["norm"] == "yes"
+        if "lost" in kw:
+            sim.lost_policy = kw["lost"]
 
     def _group_bit(self, name):
         if name not in self.sim.groups:
@@ -1369,9 +1538,11 @@ class LammpsScript:
                  "press/berendsen", "deform")
     # fixes of the reference that wait for other parts of the port
     _FIXES_WAITING = {
-        "ave/grid": "it waits with dump grid (ROADMAP A9 (i))",
         "balance": "it waits with the balance command (ROADMAP A9 (k))",
+        "external": "it waits with the library interface (ROADMAP A9 (j))",
     }
+    _NEMD_FIXES = ("thermal/conductivity", "viscosity", "heat", "oneway",
+                   "vector")
     # the host fixes of md/fix_misc.py by style, and their count of
     # positional values
     _MISC_FIXES = {"setforce": 3, "addforce": 3, "spring/self": 1,
@@ -1457,6 +1628,18 @@ class LammpsScript:
             fx = self._parse_output_fix(style, args)
         elif style == "tune/kspace" and len(args) == 1:
             fx = FixTuneKspace(args[0])
+        elif style in self._NEMD_FIXES:
+            fx = self._parse_nemd(style, args)
+        elif style in ("bond/break", "bond/create"):
+            fx = self._parse_bond_mc(style, args)
+        elif style == "ave/grid":
+            vals, kw = list(args[6:]), {}
+            if "norm" in vals:
+                k = vals.index("norm")
+                kw["norm"] = vals[k + 1]
+                vals = vals[:k] + vals[k + 2:]
+            fx = FixAveGrid(*args[:6], vals, **kw)
+            fx.dimension = sim.dimension
         elif style in self._FIXES_WAITING:
             raise NotImplementedError(f"fix {style} is not ported: "
                                       f"{self._FIXES_WAITING[style]}")
@@ -1813,6 +1996,117 @@ class LammpsScript:
             return FixRigidNPH(style=bstyle, group_bits=bits, **kw)
         return FixRigidNPT(style=bstyle, group_bits=bits, **kw)
 
+    @staticmethod
+    def _keyword_values(args, start, keys):
+        """{key: value} of the optional (key value) pairs from start on;
+        another word raises."""
+        rest, out = args[start:], {}
+        for key, val in zip(rest[::2], rest[1::2]):
+            if key not in keys:
+                raise NotImplementedError(f"keyword {key!r} is not ported "
+                                          f"(only {', '.join(keys)})")
+            out[key] = val
+        if len(rest) % 2:
+            raise ScriptError(f"odd keyword list {rest}")
+        return out
+
+    def _parse_nemd(self, style, args):
+        """The NEMD fixes of md/fix_nemd.py (tpumd/script/parser.py:
+        1188-1215)."""
+        if style == "thermal/conductivity":
+            kw = self._keyword_values(args, 3, ("swap",))
+            return FixThermalConductivity(args[0], args[1], args[2],
+                                          nswap=int(kw.get("swap", 1)))
+        if style == "viscosity":
+            kw = self._keyword_values(args, 4, ("swap", "vtarget"))
+            vt = kw.get("vtarget", "INF")
+            return FixViscosity(args[0], args[1], args[2], args[3],
+                                nswap=int(kw.get("swap", 1)),
+                                vtarget=BIG if vt == "INF" else float(vt))
+        if style == "heat":
+            if len(args) != 2:
+                raise NotImplementedError(
+                    f"fix heat {' '.join(args)} is not ported (N eflux)")
+            return FixHeat(args[0], args[1])
+        if style == "oneway":
+            if len(args) != 3:
+                raise NotImplementedError(
+                    f"fix oneway {' '.join(args)} is not ported (N region "
+                    "direction)")
+            return FixOneway(args[0], self.regions[args[1]], args[2])
+        return FixVector(args[0], args[1:])
+
+    def _parse_bond_mc(self, style, args):
+        """fix bond/break N btype Rmax [prob f seed] and fix bond/create N
+        itype jtype Rmin btype [iparam max itype] [jparam max jtype] [prob
+        f seed] (tpumd/script/parser.py:1216-1250): prob and type changes
+        raise."""
+        if style == "bond/break":
+            prob = 1.0
+            if len(args) > 3:
+                if args[3] != "prob" or len(args) != 6:
+                    raise NotImplementedError(
+                        f"fix bond/break {' '.join(args[3:])} is not ported")
+                prob = float(args[4])
+            return FixBondBreakMC(args[0], args[1], args[2], prob=prob)
+        imax = jmax = 0
+        i = 5
+        while i < len(args):
+            key = args[i]
+            if key in ("iparam", "jparam"):
+                want = args[1] if key == "iparam" else args[2]
+                if int(args[i + 2]) != int(want):
+                    raise NotImplementedError(
+                        f"fix bond/create {key}: a type change is not "
+                        "ported")
+                if key == "iparam":
+                    imax = int(args[i + 1])
+                else:
+                    jmax = int(args[i + 1])
+                i += 3
+            elif key == "prob":
+                raise NotImplementedError(
+                    "fix bond/create prob is not ported: the reference draws "
+                    "RanMars numbers only for the atoms with a partner")
+            else:
+                raise NotImplementedError(
+                    f"fix bond/create keyword {key!r} is not ported")
+        return FixBondCreateMC(args[0], args[1], args[2], args[3], args[4],
+                               imaxbond=imax, jmaxbond=jmax)
+
+    _RESPA_TERMS = ("bond", "angle", "dihedral", "improper", "pair",
+                    "kspace")
+
+    def cmd_run_style(self, a):
+        """run_style verlet | respa N n1 ... n(N-1) term level ...
+        (src/respa.cpp; tpumd/script/parser.py:1864-1894): each of bond,
+        angle, dihedral, improper, pair and kspace at a level, those not
+        named at the outermost; the r-space split (inner, middle, outer)
+        and the other keywords raise."""
+        sim = self._require_sim()
+        sim.invalidate_ctx()
+        if a == ["verlet"]:
+            sim.respa = None
+            return
+        if a[0] != "respa" or len(a) < 2:
+            raise NotImplementedError(
+                f"run_style {' '.join(a)} is not ported (verlet, respa)")
+        nlev = int(a[1])
+        loops = tuple(int(v) for v in a[2:1 + nlev]) + (1,)
+        cats = [set() for _ in range(nlev)]
+        kw = a[1 + nlev:]
+        for key, lvl in zip(kw[::2], kw[1::2]):
+            if key not in self._RESPA_TERMS:
+                raise NotImplementedError(
+                    f"run_style respa keyword {key!r} is not ported (only "
+                    f"{', '.join(self._RESPA_TERMS)} at a level)")
+            cats[int(lvl) - 1].add(key)
+        if len(kw) % 2 or len(loops) != nlev:
+            raise ScriptError(f"run_style {' '.join(a)}: bad arguments")
+        named = set().union(*cats)
+        cats[-1] |= set(self._RESPA_TERMS) - named
+        sim.respa = (loops, tuple(tuple(sorted(c)) for c in cats))
+
     def cmd_run(self, a):
         """run N [upto] (src/run.cpp; upto runs to step N)."""
         if len(a) not in (1, 2) or a[1:] not in ([], ["upto"]):
@@ -1870,12 +2164,14 @@ class LammpsScript:
 
     # ------------------------------------------------------------- output
     def cmd_dump(self, a):
-        """dump ID group atom|custom N file [fields] (src/dump.cpp)."""
+        """dump ID group style N file [args] (src/dump.cpp): atom, custom,
+        local, cfg, grid, image and movie (io/dump.py::make_dump)."""
         sim = self._require_sim()
         groupbit = 1 if a[1] == "all" else self._group_bit(a[1])
         sim.dumps = [d for d in sim.dumps if d.id != a[0]]
-        sim.dumps.append(Dump(a[0], a[1], a[2], int(a[3]),
-                              self._path(a[4]), a[5:], groupbit=groupbit))
+        sim.dumps.append(make_dump(a[0], a[1], a[2], int(a[3]),
+                                   self._path(a[4]), a[5:],
+                                   groupbit=groupbit))
 
     def _dump(self, did):
         for d in self._require_sim().dumps:
@@ -2024,6 +2320,10 @@ class LammpsScript:
             raise NotImplementedError(
                 "delete_atoms after the atoms are made (read_data, a "
                 "velocity or group command, a run) is not ported")
+        if any(m is not None for m in self._atoms_mol):
+            raise NotImplementedError(
+                "delete_atoms after create_atoms ... mol is not ported (the "
+                "templates' topology would lose members)")
         reg = self.regions[a[1]]
         ndel = 0
         for i, xa in enumerate(self._atoms_x):
