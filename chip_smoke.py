@@ -319,6 +319,8 @@ TOL_ORACLE = {torch.float64: 1e-12, torch.float32: 2e-6}
 # published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, and the HBM3 memory rate
 PEAK_F32_FLOPS = 67e12
+# f64 outside the tensor cores (the same data sheet)
+PEAK_F64_FLOPS = 34e12
 PEAK_BYTES_PER_S = 3.35e12
 # cycles of torch.cuda._sleep a millisecond: at most the H100's 1.98 GHz
 # top SM clock, so a spin lasts at least as long as asked
@@ -518,20 +520,22 @@ def box_f64(box):
     return Box(lo=box.lo.double(), hi=box.hi.double())
 
 
-def roof(ops: int, nbytes: int) -> tuple[float, str]:
-    """Least time (ms) the card could take: ops over the f32 peak, or
-    the bytes read and written once over the memory rate, whichever is
-    larger."""
-    t_ops = ops / PEAK_F32_FLOPS
+def roof(ops: int, nbytes: int,
+         peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    """Least time (ms) the card could take: ops over the peak (f32's
+    unless given), or the bytes read and written once over the memory
+    rate, whichever is larger."""
+    t_ops = ops / peak
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound(nlj: int, nbond: int, nbytes: int) -> tuple[float, str]:
+def bound(nlj: int, nbond: int, nbytes: int,
+          peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     """roof() of nlj non-bonded and nbond bonded unordered pairs."""
     return roof(nlj * (OPS_LJ_PAIR + OPS_ACCUM)
-                + nbond * (OPS_BOND_PAIR + OPS_ACCUM), nbytes)
+                + nbond * (OPS_BOND_PAIR + OPS_ACCUM), nbytes, peak)
 
 
 def check_close(what, fk, fp, ek, ep, wk, wp, tol, eflag, vflag):
@@ -556,14 +560,14 @@ def check_close(what, fk, fp, ek, ep, wk, wp, tol, eflag, vflag):
 
 
 def time_kernel(name, kernel, plain, kernel_ev, reps=200,
-                shape="32k") -> dict:
+                shape="32k", dtype="f32") -> dict:
     """plain, kernel, kernel, plain; then the kernel with energy+virial."""
     p1 = cuda_ms(plain, 10, ahead=False)
     k1 = cuda_ms(kernel, reps)
     k2 = cuda_ms(kernel, reps)
     p2 = cuda_ms(plain, 10, ahead=False)
     ke = cuda_ms(kernel_ev, reps)
-    phase("kernel", f"{name} at the {shape} shape, f32 forces: kernel "
+    phase("kernel", f"{name} at the {shape} shape, {dtype} forces: kernel "
                     f"{k1:.4f} "
                     f"/ {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; kernel "
                     f"with energy+virial {ke:.4f} ms; the wrapper's host "
@@ -716,18 +720,21 @@ def list_floor_bytes(neigh, natoms: int, extra_per_slot: int = 0) -> int:
             + extra_per_slot * np_)
 
 
-def build_bound(valid, cfg, npairs, S: int, gmask: bool) -> tuple:
-    """(bound ms, bound_by, bytes, candidates) of a list build: x, valid,
-    tag, the special lists and group bits read once, the list's live
-    entries (4 bytes each: npairs), its counts and the status words
-    written once, and d, r2 and the cutoff test (9 operations) per
-    candidate of the stencil's 27 cells up to each cell's extent."""
+def build_bound(valid, cfg, npairs, S: int, gmask: bool,
+                isz: int = 4) -> tuple:
+    """(bound ms, bound_by, bytes, candidates) of a list build: x (isz
+    bytes a coordinate), valid, tag, the special lists and group bits read
+    once, the list's live entries (4 bytes each: npairs), its counts and
+    the status words written once, and d, r2 and the cutoff test (9
+    operations in x's dtype) per candidate of the stencil's 27 cells up to
+    each cell's extent."""
     np_ = cfg.capacity
-    nbytes = (np_ * (12 + 1 + 4 + 8 * S + (4 if gmask else 0))
-              + 12 + 4 * int(npairs.sum()) + 4 * np_ + 16)
+    nbytes = (np_ * (3 * isz + 1 + 4 + 8 * S + (4 if gmask else 0))
+              + 3 * isz + 4 * int(npairs.sum()) + 4 * np_ + 16)
     occupied = valid.view(cfg.ncells, cfg.cap).sum(1).double()
     cand = int(valid.sum()) * 27 * float(occupied.mean())
-    return roof(int(9 * cand), nbytes) + (nbytes, cand)
+    peak = PEAK_F64_FLOPS if isz == 8 else PEAK_F32_FLOPS
+    return roof(int(9 * cand), nbytes, peak) + (nbytes, cand)
 
 
 def time_build(name: str, bargs, plain_reps: int = 3) -> dict:
@@ -756,17 +763,20 @@ def time_build(name: str, bargs, plain_reps: int = 3) -> dict:
     whole_call = cuda_ms(lambda: cellgrid_pairlist(*bargs), 50)
     S = 0 if stags is None else stags.shape[1]
     excl = len(bargs) > 9 and bool(bargs[9])
+    isz = x.element_size()
     bound_ms, bound_by, nbytes, cand = build_bound(valid, cfg, built[1], S,
-                                                   excl)
+                                                   excl, isz)
     whole = torch.full_like(built[1], K)
-    old_ms, old_by, old_bytes, _ = build_bound(valid, cfg, whole, S, excl)
+    old_ms, old_by, old_bytes, _ = build_bound(valid, cfg, whole, S, excl,
+                                               isz)
     phase("kernel", f"{name} pair list grid {cfg.nx}x{cfg.ny}x{cfg.nz} cap "
                     f"{cfg.cap} K {K} periodic {box.periodic}: the kernel's "
                     f"live entries = the plain build's as arrays for lanes "
                     f"{LANES} and the rule, longest {int(built[2])}, "
                     f"{int(built[1].sum())} entries "
                     f"({float(built[1][valid].double().mean()):.3f} a row); "
-                    f"f32 kernel {k1:.4f} / {k2:.4f} ms (the whole call, "
+                    f"{'f64' if isz == 8 else 'f32'} kernel {k1:.4f} / "
+                    f"{k2:.4f} ms (the whole call, "
                     f"its hold made anew: {whole_call:.4f} ms), plain "
                     f"{p1:.4f} / {p2:.4f} ms; bound {nbytes} bytes, {cand:.4g} "
                     f"candidates -> {bound_ms:.6f} ms ({bound_by}); with the "
@@ -4426,21 +4436,24 @@ def b1_list_check(name: str, sim) -> tuple[float, float]:
 
 
 def b1_at_state(tag: str, sim, eflag: int, vflag: int) -> dict:
-    """B1 in f32 at a deck's final state, with the flags its path launches
-    it with, against its plain list sweep in f32 and both against the
-    stencil oracle in f64: B1's max|f - f_oracle| within F32_GAP_FACTOR
+    """B1 at a deck's final state, in the state's dtype, with the flags its
+    path launches it with, against its plain list sweep and the stencil
+    oracle in f64.  f32: B1's max|f - f_oracle| within F32_GAP_FACTOR
     times the plain sweep's (both round the same sums in f32, in another
     order; a relative test reads rounding where forces cancel, as at a
-    minimum), its energy and virial within TOL of the plain sweep's.
-    Timed against the plain sweep (time_kernel) and bounded as
-    lj_kernel_vs_plain bounds in.lj's: the kernels line's figures."""
+    minimum), its energy and virial within TOL of the plain sweep's.  f64:
+    B1 over the list against the oracle as b1_list_check holds it (forces
+    to 1e-9 absolute, the energy to TOL_ORACLE: a pair missing from the
+    list shows), the virial within TOL of the plain sweep's.  Timed
+    against the plain sweep (time_kernel) and bounded as
+    lj_kernel_vs_plain bounds in.lj's, the operations over the peak of
+    the state's dtype: the kernels line's figures."""
     from tpumd_torch import bench_targets as bt
     from tpumd_torch.ops.lj_cellgrid import lj_cellgrid, lj_cellgrid_plain, \
         lj_pairlist_plain
     s, neigh, _ = sim._carry
     x, valid, box, cfg = s.x, neigh.valid, s.box, sim._neigh_cfg
-    if x.dtype != torch.float32:
-        raise AssertionError(f"{tag}: the state is {x.dtype}, not f32")
+    f64 = x.dtype == torch.float64
     c = sim.pair.kernel_coeffs()
     plist = (neigh.pairs, neigh.npairs, neigh.row2slot)
     fk, ek, wk = lj_cellgrid(x, valid, box, cfg, c, 1, 1, plist)
@@ -4450,36 +4463,47 @@ def b1_at_state(tag: str, sim, eflag: int, vflag: int) -> dict:
     torch.cuda.synchronize()
     err_k = float((fk.double() - fo).abs().max())
     err_p = float((fp.double() - fo).abs().max())
-    de = abs(float(ek) - float(ep))
     dw = float((wk - wp).abs().max())
-    if not err_k <= bt.F32_GAP_FACTOR * err_p \
-            or de > TOL[torch.float32] * abs(float(ep)) \
-            or dw > TOL[torch.float32] * float(wp.abs().max()):
+    tol = TOL[x.dtype]
+    if f64:
+        de = abs(float(ek) - float(eo))
+        bad = not err_k <= 1e-9 or de > TOL_ORACLE[x.dtype] * abs(float(eo))
+        gate = ("max|f - f_oracle| 1e-9, the energy within "
+                f"{TOL_ORACLE[x.dtype]:g} of the oracle's")
+    else:
+        de = abs(float(ek) - float(ep))
+        bad = not err_k <= bt.F32_GAP_FACTOR * err_p or \
+            de > tol * abs(float(ep))
+        gate = (f"{bt.F32_GAP_FACTOR:g}x the plain sweep's max|f - "
+                f"f_oracle|, the energy within {tol:g} of the plain sweep's")
+    if bad or dw > tol * float(wp.abs().max()):
         raise AssertionError(
-            f"{tag}: B1 f32 against the f64 oracle max|df| {err_k} (the "
-            f"plain sweep's {err_p}), energy {float(ek)!r} vs "
-            f"{float(ep)!r}, virial max|dw| {dw}")
+            f"{tag}: B1 {x.dtype} against the f64 oracle max|df| {err_k} "
+            f"(the plain sweep's {err_p}), energy {float(ek)!r} vs plain "
+            f"{float(ep)!r} oracle {float(eo)!r}, virial max|dw| {dw}")
     out = {"max_abs_err": float((fk - fp).abs().max())}
     K = plist[0].shape[1]
-    shape = f"{tag} final-state e{eflag}v{vflag}"
-    phase("kernel", f"lj_cellgrid at {tag}'s final state (grid {cfg.nx}x"
-                    f"{cfg.ny}x{cfg.nz} cap {cfg.cap} K {K}, e{eflag}"
-                    f"v{vflag}): max|f - f_oracle| "
-                    f"{err_k:.3g} (the plain sweep's {err_p:.3g}, gate "
-                    f"{bt.F32_GAP_FACTOR:g}x), max|f - f_plain| "
-                    f"{out['max_abs_err']:.3g}, energy and virial within "
-                    f"{TOL[torch.float32]:g} of the plain sweep's")
+    name = "f64" if f64 else "f32"
+    shape = f"{tag} final-state {name} e{eflag}v{vflag}"
+    phase("kernel", f"lj_cellgrid at {tag}'s final state ({name}, grid "
+                    f"{cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cap} K {K}, e{eflag}"
+                    f"v{vflag}): max|f - f_oracle| {err_k:.3g} (the plain "
+                    f"sweep's {err_p:.3g}; gates: {gate}, the virial within "
+                    f"{tol:g} of the plain sweep's), max|f - f_plain| "
+                    f"{out['max_abs_err']:.3g}")
     out.update(time_kernel(
         f"lj_cellgrid {tag}",
         lambda: lj_cellgrid(x, valid, box, cfg, c, eflag, vflag, plist),
         lambda: lj_pairlist_plain(x, box, c, eflag, vflag, *plist[:2]),
         lambda: lj_cellgrid(x, valid, box, cfg, c, 1, 1, plist),
-        shape=shape))
+        shape=shape, dtype=name))
     nlj, _ = pair_counts(x, valid, box, cfg, c.cutsq)
-    np_ = cfg.capacity
+    np_, isz = cfg.capacity, x.element_size()
     # x and validity read, f (and the energies, the virials) written
-    nbytes = np_ * (12 + 1 + 12 + 4 * eflag + 24 * vflag) + 12
-    out["bound_ms"], out["bound_by"] = bound(nlj, 0, nbytes)
+    nbytes = np_ * (3 * isz + 1 + 3 * isz + isz * eflag + 6 * isz * vflag) \
+        + 3 * isz
+    out["bound_ms"], out["bound_by"] = bound(
+        nlj, 0, nbytes, PEAK_F64_FLOPS if f64 else PEAK_F32_FLOPS)
     phase("kernel", f"lj_cellgrid {tag} bound: {nlj} unordered in-cutoff "
                     f"pairs, {nbytes} bytes -> {out['bound_ms']:.6f} ms "
                     f"({out['bound_by']})")
@@ -5848,6 +5872,703 @@ def respa32k_path(tmp: Path, smi: str) -> tuple[dict, dict]:
     return kk, {"launches": launches, "sps": sps}
 
 
+# --------------------------------------------------------------------------
+# the replica layer and the library interface (temper, neb, prd, tad,
+# hyper, fix external, the API, PyLammps and the C shim)
+
+
+class ForceEvals:
+    """Counts the port's force evaluations (calls of verlet.compute_forces,
+    from the run loop, the minimizer or the NEB band) within the block:
+    on the grid each launches B1 once."""
+
+    MODULES = ("tpumd_torch.md.verlet", "tpumd_torch.md.minimize",
+               "tpumd_torch.md.neb")
+
+    def __enter__(self):
+        import importlib
+        self.count = 0
+        self.saved = []
+        # every module imported before any is patched: a module imported
+        # after verlet's patch would bind the wrapper and count twice
+        mods = [importlib.import_module(name) for name in self.MODULES]
+        for mod in mods:
+            fn = mod.compute_forces
+
+            def wrap(*a, _fn=fn, **k):
+                self.count += 1
+                return _fn(*a, **k)
+            self.saved.append((mod, fn))
+            mod.compute_forces = wrap
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn in reversed(self.saved):
+            mod.compute_forces = fn
+
+
+def b1_calls() -> tuple[int, int]:
+    """(B1 launches, plain calls) since the reset."""
+    from tpumd_torch.ops.lj_cellgrid import counts
+    return counts.kernel_launches, counts.plain_calls
+
+
+def reset_b1():
+    from tpumd_torch.ops.lj_cellgrid import counts
+    counts.reset()
+    reset_list_counts()
+
+
+def sync(dev: str):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def device_share(fn, wall_ms: float) -> str:
+    """fn's device milliseconds under torch.profiler (fn is a repeat of
+    work whose unprofiled wall time was wall_ms) and their share of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA) / 1e3
+    return (f"device busy {dev_ms:.2f} ms = {dev_ms / wall_ms:.1%} of the "
+            f"unprofiled {wall_ms:.2f} ms")
+
+
+def tag_positions(state) -> torch.Tensor:
+    """(N, 3) f64 positions in tag order."""
+    from tpumd_torch.core.state import tag_rows
+    n = int((state.tag > 0).sum())
+    return state.x[tag_rows(state.tag, n)].double()
+
+
+def min_image_gap(a, b, box) -> float:
+    """max |a - b| over the nearest images (positions of one box)."""
+    d = (a - b).double()
+    ell = box.lengths.double()
+    return float((d - ell * torch.round(d / ell)).abs().max())
+
+
+def temper32k_path(smi: str) -> dict:
+    """IN_TEMPER32K in f32: four replicas of in.lj's 32,000 atoms under fix
+    nvt at 1.000-1.012, ``temper 1000 100``.  Gates: every replica at step
+    1000 with finite rows; the attempts of each window = the pairs of its
+    parity (RanPark 3847's draws); B1 launches = the replicas' force
+    evaluations (every compute_forces call, counted), no plain call.
+    Prints the acceptance, timesteps/s per replica-step, the swaps' host
+    ms, host reads per replica-window, device busy share and peak
+    memory."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.md.temper import temper
+    from tpumd_torch.script.parser import LammpsScript
+    from tpumd_torch.utils.ranpark import RanPark
+    steps, every = 1000, 100
+    reset_b1()
+    torch.cuda.reset_peak_memory_stats()
+    script = LammpsScript(device="cuda", dtype=torch.float32)
+    t0 = time.perf_counter()
+    with ForceEvals() as ev, HostReads() as reads, \
+            contextlib.redirect_stdout(sys.stderr):
+        script.run_string(bt.IN_TEMPER32K.format(n=20, steps=steps,
+                                                 every=every))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sims, acc = script.replicas, script.temper_accepts
+    rp = RanPark(3847)
+    want = [len(range(int(rp.uniform() < 0.5), len(sims) - 1, 2))
+            for _ in range(steps // every)]
+    launches, plain = b1_calls()
+    builds, gates, list_plain = list_counts()
+    bad = [k for k, sim in enumerate(sims) if sim.step != steps
+           or not np.isfinite(sim.last_thermo["etotal"])]
+    if bad or [a[1] for a in acc] != want or launches != ev.count \
+            or plain or list_plain \
+            or not all(sim._ctx.is_cellgrid for sim in sims):
+        raise AssertionError(
+            f"IN_TEMPER32K: replicas off {bad}, attempts "
+            f"{[a[1] for a in acc]} vs {want}, B1 launches {launches} vs "
+            f"force evaluations {ev.count}, plain {plain}/{list_plain}")
+    loop = sum(sim.loop_time for sim in sims)
+    rsteps = steps * len(sims)
+    nacc, natt = sum(a for a, _ in acc), sum(want)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    temps = [float(t) for t in bt.TEMPER32K_WORLDS]
+    # a window of 10 steps a replica: the profiler's host cost grows with
+    # the events it records
+    window_ms = 1e3 * loop / steps * 10
+    share = device_share(lambda: temper(
+        sims, temps, 10, 10, 11, 12, sims[0].units.boltz,
+        log=lambda *a: None), window_ms)
+    phase("temper32k", f"{len(sims)} replicas x {sims[0].natoms} atoms "
+                       f"f32 on {smi}: {nacc}/{natt} swaps accepted "
+                       f"({nacc / natt:.1%}) over {len(acc)} windows "
+                       f"{acc}; {rsteps / loop:.2f} timesteps/s per "
+                       f"replica-step ({rsteps} replica-steps, the run "
+                       f"{wall:.2f} s with set-ups); swaps' host "
+                       f"{1e3 * script.temper_stats['swap_s']:.3f} ms in "
+                       f"all; host reads "
+                       f"{reads.count / len(acc) / len(sims):.1f} per "
+                       f"replica-window; a window of 10 steps: {share}; B1 "
+                       f"launches {launches} = force evaluations "
+                       f"{ev.count}, plain calls 0; list builds {builds}, "
+                       f"refresh launches {gates}; peak {peak:.2f} GiB")
+    return {"launches": launches, "build_launches": builds, "sim": sims[0],
+            "sps": rsteps / loop}
+
+
+def neb_run(tmp: Path, dev: str, dtype, n: int, n1: int, n2: int):
+    """The vacancy hop's NEB; returns (script, result, force evaluations,
+    B1 launches, plain calls)."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.script.parser import LammpsScript
+    head = LammpsScript(device="cpu", dtype=torch.float64)
+    with contextlib.redirect_stdout(sys.stderr):
+        head.run_string(bt.IN_NEB32K_HEAD.format(n=n))
+    head._finalize_atoms()
+    final = tmp / f"final{n}.neb"
+    bt.neb_final_file(str(final), head.sim.state)
+    reset_b1()
+    script = LammpsScript(device=dev, dtype=dtype)
+    with ForceEvals() as ev, contextlib.redirect_stdout(sys.stderr):
+        script.run_string(bt.IN_NEB32K.format(n=n, n1=n1, n2=n2,
+                                              final=final))
+    sync(dev)
+    return (script, script.neb_result, ev.count) + b1_calls()
+
+
+def neb32k_path(tmp: Path, smi: str) -> dict:
+    """IN_NEB32K in f64: tests/test_neb.py's vacancy hop in 20^3 fcc cells
+    at 0.85 (31,999 atoms, 8 images).  Gates: max |F_neb| < ftol 1e-6 at
+    the end; EBF = EBR to 1e-6 relative (the hop's mirror symmetry); the
+    climber at rd 0.5 +- 0.05; the end images' energies equal to 1e-6
+    relative; B1 launches = the images' force evaluations, no plain call.
+    Prints iterations, evaluations, host reads a chunk, ms an iteration
+    and the barrier; then the same hop in f32 for fewer iterations, its
+    barrier beside the f64 one, not gated (an image's energy is about
+    -2e5 eps, the barrier about 1 eps: f32 cannot resolve it).  Returns
+    the f64 run's launches and its state."""
+    script, r, evals, launches, plain = neb_run(tmp, "cuda", torch.float64,
+                                                20, 1000, 4000)
+    builds, _, list_plain = list_counts()
+    e, rd, c = r["energies"], r["rd"], r["climber"]
+    if not r["fmax_atom"] < 1e-6 or abs(r["ebf"] - r["ebr"]) > 1e-6 * abs(
+            r["ebf"]) or abs(rd[c] - 0.5) > 0.05 or abs(e[0] - e[-1]) > \
+            1e-6 * abs(e[0]) or launches != evals or plain or list_plain \
+            or not script.sim._ctx.is_cellgrid:
+        raise AssertionError(
+            f"IN_NEB32K f64: fmax_atom {r['fmax_atom']}, EBF {r['ebf']!r} "
+            f"EBR {r['ebr']!r}, climber {c} at rd {rd[c]}, ends {e[0]!r} "
+            f"{e[-1]!r}, B1 launches {launches} vs evaluations {evals}, "
+            f"plain {plain}/{list_plain}")
+    phase("neb32k", f"{script.sim.natoms} atoms x 8 images f64 on {smi}: "
+                    f"{r['iterations']} FIRE iterations "
+                    f"({r['stage1']['step']} + {r['step']}), "
+                    f"{r['evaluations']} force evaluations, {r['rebuilds']} "
+                    f"list rebuilds, {r['reads'] / r['chunks']:.1f} host "
+                    f"reads a chunk of 100 (one an iteration: the images' "
+                    f"skin checks, one the chunk's diagnostics), "
+                    f"{1e3 * r['wall_s'] / r['iterations']:.3f} ms an "
+                    f"iteration; barrier EBF {r['ebf']!r} EBR {r['ebr']!r}, "
+                    f"climber {c} at rd {rd[c]:.4f}, max|F| "
+                    f"{r['fmax_atom']:.3g}; B1 launches {launches} = force "
+                    f"evaluations {evals}, list builds {builds}")
+    sim = script.sim
+    del script
+    s32, r32, evals32, launches32, plain32 = neb_run(tmp, "cuda",
+                                                     torch.float32, 20, 200,
+                                                     300)
+    del s32
+    if launches32 != evals32 or plain32:
+        raise AssertionError(f"IN_NEB32K f32: B1 launches {launches32} vs "
+                             f"evaluations {evals32}, plain {plain32}")
+    phase("neb32k", f"f32, {r32['iterations']} iterations (not gated): "
+                    f"EBF {r32['ebf']!r} EBR {r32['ebr']!r} (f64 "
+                    f"{r['ebf']!r}), max|F| {r32['fmax_atom']:.3g}, "
+                    f"{1e3 * r32['wall_s'] / r32['iterations']:.3f} ms an "
+                    f"iteration; B1 launches {launches32} = force evaluations"
+                    f" {evals32}")
+    return {"launches": launches, "build_launches": builds, "sim": sim,
+            "ebf64": r["ebf"], "ebf32": r32["ebf"]}
+
+
+def event_script(deck: str, dev: str, dtype, n: int):
+    from tpumd_torch.script.parser import LammpsScript
+    script = LammpsScript(device=dev, dtype=dtype)
+    with contextlib.redirect_stdout(sys.stderr):
+        script.run_string(deck.format(n=n))
+    script._finalize_atoms()
+    script.sim.verbose = False
+    script.sim.setup()
+    return script
+
+
+def prd32k_path(smi: str) -> dict:
+    """IN_PRD32K in f32 (tests/test_prd.py's deck, 32,000 atoms): ``prd 20
+    10 1 10 0 ev 482794 temp 0.1 replicas 4`` with no event, then a run
+    whose detector fires at its fifth check (replica 0's first search
+    quench, after the four dephase checks), as test_prd_real_event_
+    shares_state forces it.  Gates: no event: the one initial row, the
+    loop's clock 4 x 20; the event: the rows' steps, clock (RanPark 482794
+    + 1000's in-segment draw), replica and flags; the stored event state =
+    replica 0's quench to the f32 tolerance; the run goes on, finite; B1
+    launches = force evaluations (the deck's set-up's included, as the
+    list builds), no plain call of B1 or the list kernels."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.md.prd import PRD, EventDetector, unwrapped_tagged
+    from tpumd_torch.utils.ranpark import RanPark
+    reset_b1()
+    with ForceEvals() as ev0:
+        script = event_script(bt.IN_PRD32K, "cuda", torch.float32, 20)
+    t0 = time.perf_counter()
+    with ForceEvals() as ev, HostReads() as reads:
+        script.execute("prd 20 10 1 10 0 ev 482794 temp 0.1 replicas 4")
+    torch.cuda.synchronize()
+    wall0 = time.perf_counter() - t0
+    rows = [(e["step"], e["clock"], e["event"]) for e in script.prd_events]
+    runner = script.prd_runner
+    launches, plain = b1_calls()
+    if rows != [(0, 0, 0)] or runner.clock != 80 or \
+            launches != ev0.count + ev.count or plain:
+        raise AssertionError(f"IN_PRD32K no event: rows {rows}, clock "
+                             f"{runner.clock}, B1 {launches} vs {ev0.count} "
+                             f"+ {ev.count}")
+    notes = [f"no event: rows {rows}, clock {runner.clock}, "
+             f"{runner.segments} segments and {runner.quenches} quenches in "
+             f"{wall0:.2f} s, {reads.count} host reads"]
+    sim = script.sim
+
+    class OneShot(EventDetector):
+        checks = 0
+
+        def check(self, sim, carry):
+            self.checks += 1
+            return self.checks == 5
+
+    class Recorded(PRD):
+        def _quench(self, carry, step):
+            q = super()._quench(carry, step)
+            self.quenched.append(q)
+            return q
+
+    det = OneShot(0.9)
+    runner = Recorded(sim, 4, det, 9871, temp=0.1, etol=1e-4, ftol=1e-4,
+                      maxiter=100, maxeval=100)
+    runner.quenched = []
+    start = sim.step
+    t0 = time.perf_counter()
+    with ForceEvals() as ev:
+        events = runner.run(nsteps=20, t_event=10, n_dephase=1,
+                            t_dephase=5, t_corr=0)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    # the initial share counts the steps before it on every replica
+    # (store_event_prd: delta = (step - 0) x nrep)
+    frac = int(RanPark(9871 + 1000).uniform() * 10)
+    want = [(start, 4 * start, 0, 0, 0, 0),
+            (start + 10, 4 * start + 4 * 10 - (10 - frac) * 4, 1, 0, 1, 0)]
+    got = [(e["step"], e["clock"], e["event"], e["correlated"],
+            e["coincident"], e["replica"]) for e in events]
+    # quench 0 is the initial one, 1-4 the dephases', 5 replica 0's search
+    gap = float((det.xevent - unwrapped_tagged(sim, runner.quenched[5]))
+                .abs().max()) if len(runner.quenched) > 5 else np.inf
+    with ForceEvals() as ev2:
+        script.execute("run 10")
+    launches2, plain = b1_calls()
+    builds, gates, list_plain = list_counts()
+    if got != want or not gap <= TOL[torch.float32] or sim.step != \
+            start + 30 or not np.isfinite(sim.last_thermo["etotal"]) or \
+            launches2 != launches + ev.count + ev2.count or plain or \
+            list_plain:
+        raise AssertionError(f"IN_PRD32K event: rows {got} vs {want}, "
+                             f"event state gap {gap}, step {sim.step}, B1 "
+                             f"{launches2} vs {launches} + {ev.count} + "
+                             f"{ev2.count}, plain {plain}/{list_plain}")
+    notes.append(f"forced event: rows {got}, the stored state = replica "
+                 f"0's quench (max gap {gap:.3g}), {runner.segments} "
+                 f"segments and {runner.quenches} quenches in {wall1:.2f} s;"
+                 f" 10 steps on, etotal {sim.last_thermo['etotal']!r}")
+    phase("prd32k", f"{sim.natoms} atoms f32 x 4 replicas on {smi}: "
+                    + "; ".join(notes) + f"; B1 launches {launches2} = force "
+                    f"evaluations (the set-up's included), plain calls 0; "
+                    f"list builds {builds} (the set-up's included), refresh "
+                    f"launches {gates}")
+    return {"launches": launches2, "build_launches": builds, "sim": sim}
+
+
+def hop_tad(dev: str, dtype, n: int, neb_iters: int, tmp: Path):
+    """``tad 10 10 0.1 0.5 0.1 0.001 ev min 1e-6 1e-6 200 200 neb 0.0 1e-6
+    N N 10 replicas 4`` on IN_TAD32K through the script, with one event
+    forced: TAD._quench is wrapped for the command's run so that the first
+    search segment's quench starts from the hot state with the hopping
+    atom set on the vacancy site; the detector (the deck's compute
+    event/displace 0.9) then sees the hop and the NEB (4 images, N =
+    neb_iters iterations a stage) measures its barrier.  Returns (runner,
+    rows, force evaluations, wall s)."""
+    from unittest import mock
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.core.state import tag_rows
+    from tpumd_torch.md.tad import TAD
+    script = event_script(bt.IN_TAD32K, dev, dtype, n)
+    sim = script.sim
+    tag = bt.neb_final_file(str(tmp / "hop.neb"), sim.state)
+    start = sim.step
+    quench, hopped = TAD._quench, []
+
+    def hop_quench(self, carry, step):
+        if step > start and not hopped:
+            hopped.append(step)
+            s = carry[0]
+            row = tag_rows(s.tag, sim.natoms)[tag - 1:tag]
+            carry = (s.replace(x=s.x.index_copy(0, row, torch.zeros(
+                (1, 3), dtype=s.x.dtype, device=s.x.device))),) + \
+                tuple(carry[1:])
+        return quench(self, carry, step)
+
+    reset_b1()
+    t0 = time.perf_counter()
+    with ForceEvals() as ev, mock.patch.object(TAD, "_quench", hop_quench), \
+            contextlib.redirect_stdout(sys.stderr):
+        script.execute(f"tad 10 10 0.1 0.5 0.1 0.001 ev min 1e-6 1e-6 200 "
+                       f"200 neb 0.0 1e-6 {neb_iters} {neb_iters} 10 "
+                       f"replicas 4")
+    sync(dev)
+    return (script.tad_runner, script.tad_events, ev.count,
+            time.perf_counter() - t0)
+
+
+def tad32k_path(tmp: Path, smi: str) -> dict:
+    """IN_TAD32K in f64 (tests/test_tad_hyper.py's TAD at T 0.1 on the
+    vacancy deck, 31,999 atoms) through the ``tad`` command, with one event
+    forced: the first search segment's candidate is the vacancy hop, its
+    NEB runs on the 4-image band of 31,999 atoms.  Gates: the rows (E at
+    0, DF at 10: with a 2 eps barrier at T_lo 0.1 the stop time exceeds
+    the segment, so the event is not yet confident), 1 < barrier < 3 eps,
+    delt_lo = 10 exp(barrier delta_beta) to 1e-9; B1 launches = force
+    evaluations, no plain call of B1 or the list kernels.  Returns the
+    run's launches, list builds and state."""
+    runner, rows, evals, wall = hop_tad("cuda", torch.float64, 20, 100, tmp)
+    launches, plain = b1_calls()
+    builds, _, list_plain = list_counts()
+    got = [(r["step"], r["status"]) for r in rows]
+    eb = rows[1]["barrier"] if len(rows) > 1 else np.inf
+    deltlo = 10 * np.exp(eb * runner.delta_beta)
+    if got != [(0, "E "), (10, "DF")] or not 1.0 < eb < 3.0 \
+            or abs(rows[1]["delt_lo"] - deltlo) > 1e-9 * deltlo or \
+            launches != evals or plain or list_plain:
+        raise AssertionError(f"IN_TAD32K: rows {got}, barrier {eb}, delt_lo "
+                             f"{rows[-1]['delt_lo'] if rows else None}, B1 "
+                             f"{launches} vs {evals}, plain "
+                             f"{plain}/{list_plain}")
+    neb = runner.nebs[0]
+    phase("tad32k", f"{runner.sim.natoms} atoms f64 on {smi}: rows {got}, "
+                    f"barrier {eb!r} (EBR {neb['ebr']!r}), delt_lo "
+                    f"{rows[1]['delt_lo']!r}; the NEB: {neb['iterations']} "
+                    f"iterations on 4 images, max|F| {neb['fmax_atom']:.3g}, "
+                    f"{1e3 * neb['wall_s'] / neb['iterations']:.3f} ms an "
+                    f"iteration; the whole run {wall:.2f} s; B1 launches "
+                    f"{launches} = force evaluations {evals}, list builds "
+                    f"{builds}")
+    return {"launches": launches, "build_launches": builds,
+            "sim": runner.sim}
+
+
+def hyper32k_path(smi: str) -> dict:
+    """IN_HYPER32K in f32 (tests/test_tad_hyper.py's hyper deck, 32,000
+    atoms, fix h all hyper/global 1.3 0.3 0.4 0.4): ``hyper 50 10 h ev min
+    1e-6 1e-6 200 200``.  Gates: boost > 1 and t_hyper > steps dt with no
+    event; the bias reads nothing from the host (its post_force under
+    torch's sync debug mode "error", 20 calls); B1 launches = force
+    evaluations (the deck's set-up's included, as the list builds), no
+    plain call of B1 or the list kernels."""
+    from tpumd_torch import bench_targets as bt
+    steps = 50
+    reset_b1()
+    with ForceEvals() as ev0:
+        script = event_script(bt.IN_HYPER32K, "cuda", torch.float32, 20)
+    sim = script.sim
+    t0 = time.perf_counter()
+    with ForceEvals() as ev:
+        script.execute(f"hyper {steps} 10 h ev min 1e-6 1e-6 200 200")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = script.hyper_stats
+    launches, plain = b1_calls()
+    builds, gates, list_plain = list_counts()
+    evals = ev0.count + ev.count
+    fx = [f for f in sim.fixes if f.name == "hyper/global"][0]
+    s, neigh, fstates = sim._carry
+    fs = fstates[sim.fixes.index(fx)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(20):
+            s2, fs = fx.post_force(s, fs, sim._ctx)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # ~60 launches a call: 8 calls stay inside the card's launch queue
+    bias_ms = cuda_ms(lambda: fx.post_force(s, fs, sim._ctx), 8)
+    bias_us = host_us(lambda: fx.post_force(s, fs, sim._ctx), 8)
+    if not st["boost"] > 1.0 or not st["t_hyper"] > steps * sim.dt or \
+            st["nevent"] or launches != evals or plain or list_plain:
+        raise AssertionError(f"IN_HYPER32K: {st}, B1 {launches} vs "
+                             f"{evals}, plain {plain}/{list_plain}")
+    phase("hyper32k", f"{sim.natoms} atoms f32 on {smi}: boost "
+                      f"{st['boost']!r}, t_hyper {st['t_hyper']!r} over "
+                      f"{steps} steps, {st['nbonds']} bonds, nbias "
+                      f"{st['nbias']} nobias {st['nobias']} negstrain "
+                      f"{st['negstrain']}, no event; {st['quenches']} "
+                      f"quenches, the run {wall:.2f} s; the bias "
+                      f"{bias_ms:.4f} ms of the card a step on "
+                      f"{st['nbonds']} bonds (CUDA events), {bias_us:.1f} us "
+                      f"of host, no host read in 20 calls under sync debug "
+                      f"mode error; B1 launches {launches} = force "
+                      f"evaluations {evals} and list builds {builds}, the "
+                      f"set-up's included; refresh launches {gates}")
+    return {"launches": launches, "build_launches": builds, "sim": sim}
+
+
+def spring_callback(k: float, ell: float):
+    """fix external's callback for -k (x - x0), the displacement taken to
+    the nearest image (x is wrapped)."""
+    x0 = {}
+
+    def cb(caller, step, nlocal, ids, x, fext):
+        if not x0:
+            x0["x"] = x.copy()
+        d = x - x0["x"]
+        fext[:] = -k * (d - ell * np.round(d / ell))
+    return cb
+
+
+def external_run(dtype, mode, extra="", hook=None, steps=100):
+    """in.lj's 32,000-atom melt through api.TpuMD on the card, with ``fix
+    ext all external mode`` where mode is given and extra's lines, hook(md)
+    before the run of steps steps; returns the TpuMD."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.api import TpuMD
+    md = TpuMD(device="cuda", dtype=dtype)
+    deck = (bt.IN_EXTERNAL32K.format(n=20, mode=mode) if mode
+            else bt.IN_LJ.format(n=20))
+    with contextlib.redirect_stdout(sys.stderr):
+        md.commands_string(deck + extra)
+        md.sim.verbose = False
+        if hook:
+            hook(md)
+        md.run(steps)
+    return md
+
+
+def capi_run(deck: str, natoms: int):
+    """The deck through the C shim in this process (lammps_open_no_mpi with
+    --device cuda and --dtype f64, lammps_commands_string,
+    lammps_gather_atoms, lammps_extract_atom); returns (x in tag order,
+    x[0] by the row table of lammps_extract_atom's host copy)."""
+    import ctypes
+    from tpumd_torch.capi.build import build
+    lib = ctypes.CDLL(build())
+    P = ctypes.c_void_p
+    lib.lammps_open_no_mpi.restype = P
+    lib.lammps_open_no_mpi.argtypes = [ctypes.c_int, P, P]
+    lib.lammps_commands_string.argtypes = [P, ctypes.c_char_p]
+    lib.lammps_gather_atoms.argtypes = [P, ctypes.c_char_p, ctypes.c_int,
+                                        ctypes.c_int, P]
+    lib.lammps_extract_atom.restype = P
+    lib.lammps_extract_atom.argtypes = [P, ctypes.c_char_p]
+    lib.lammps_close.argtypes = [P]
+    args = [b"lmp", b"--device", b"cuda", b"--dtype", b"f64"]
+    argv = (ctypes.c_char_p * len(args))(*args)
+    h = lib.lammps_open_no_mpi(len(args), ctypes.cast(argv, P), None)
+    with contextlib.redirect_stdout(sys.stderr):
+        lib.lammps_commands_string(h, deck.encode())
+    buf = (ctypes.c_double * (3 * natoms))()
+    lib.lammps_gather_atoms(h, b"x", 1, 3, buf)
+    x = np.frombuffer(buf, np.float64).reshape(natoms, 3).copy()
+    rows = ctypes.cast(lib.lammps_extract_atom(h, b"x"),
+                       ctypes.POINTER(ctypes.POINTER(ctypes.c_double)))
+    row0 = [rows[0][i] for i in range(3)]
+    lib.lammps_close(h)
+    return x, row0
+
+
+def external32k_path(smi: str) -> dict:
+    """IN_EXTERNAL32K: in.lj's 32,000-atom melt driven three ways.
+    Through ``api.TpuMD`` in f64 for 100 steps: ``fix ext all external
+    pf/callback 1 1`` with the callback -k (x - x0) against fix spring/self
+    k (positions to 1e-8), pf/array's constant buffer against fix addforce
+    (to 1e-9); in f32, the callback's host ms a step, host reads per 1,000
+    steps, and B1 launches = force evaluations with no plain call.
+    Through PyLammps in f32: its thermo series of 100 steps = the API's of
+    the same deck (to 1e-6 relative).  Through the C shim (built with gcc
+    here, run in this process) in f64: its positions after 100 steps =
+    the API's (to 1e-9); the row table of lammps_extract_atom's host copy
+    finite."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.pylammps import PyLammps
+    k, natoms = bt.EXTERNAL32K_K, 4 * 20 ** 3
+    ell = 20 * (4 / 0.8442) ** (1 / 3)
+    f64 = torch.float64
+    spring = external_run(f64, "", f"fix ext all spring/self {k}\n")
+    cb = external_run(f64, "pf/callback 1 1", hook=lambda md: (
+        md.set_fix_external_callback("ext", spring_callback(k, ell))))
+    gap_cb = float(np.abs(cb.gather_atoms("x") - spring.gather_atoms(
+        "x")).max())
+    del spring
+
+    def push(md):
+        md.command("run 0")
+        md.fix_external_get_force("ext")[:] = [0.11, -0.23, 0.05]
+    add = external_run(f64, "", "fix ext all addforce 0.11 -0.23 0.05\n")
+    arr = external_run(f64, "pf/array 1", hook=push)
+    gap_arr = float(np.abs(arr.gather_atoms("x") - add.gather_atoms(
+        "x")).max())
+    del add, arr
+    plain = external_run(f64, "")
+    x_api = plain.gather_atoms("x").astype(np.float64)
+    del plain
+    x_c, row0 = capi_run(bt.IN_LJ.format(n=20) + "run 100\n", natoms)
+    gap_c = float(np.abs(x_c - x_api).max())
+    if not gap_cb <= 1e-8 or not gap_arr <= 1e-9 or not gap_c <= 1e-9 or \
+            not np.isfinite(row0).all():
+        raise AssertionError(f"IN_EXTERNAL32K f64: callback vs spring/self "
+                             f"{gap_cb}, pf/array vs addforce {gap_arr}, C "
+                             f"shim vs API {gap_c}, row 0 {row0}")
+    # f32: the callback's cost, counted
+    reset_b1()
+    with ForceEvals() as ev:
+        md = external_run(torch.float32, "pf/callback 1 1",
+                          hook=lambda md: md.set_fix_external_callback(
+                              "ext", spring_callback(k, ell)))
+        fx = md._find_external("ext")
+        torch.cuda.synchronize()
+        lt0, calls0, cs0 = md.sim.loop_time, fx.reads, fx.callback_s
+        md.run(200)
+        torch.cuda.synchronize()
+        sps = 200 / (md.sim.loop_time - lt0)
+        cb_ms = 1e3 * (fx.callback_s - cs0) / (fx.reads - calls0)
+        with HostReads() as reads:
+            md.run(100)
+            torch.cuda.synchronize()
+    launches, plain_calls = b1_calls()
+    builds, _, list_plain = list_counts()
+    # a run of N steps: the callback at its set-up and at every step
+    if launches != ev.count or plain_calls or list_plain or fx.reads != 403:
+        raise AssertionError(f"IN_EXTERNAL32K f32: B1 {launches} vs "
+                             f"{ev.count}, plain {plain_calls}/{list_plain},"
+                             f" callbacks {fx.reads}")
+    # PyLammps: the same deck's thermo through both front ends, f32
+    api = external_run(torch.float32, "", "thermo 50\n", steps=0)
+    api.run(100)
+    L = PyLammps(device="cuda", dtype=torch.float32)
+    with contextlib.redirect_stdout(sys.stderr):
+        for line in (bt.IN_LJ.format(n=20) + "thermo 50\n").splitlines():
+            if line.strip():
+                L.command(line)
+        L.lmp.sim.verbose = False
+        L.run(0)
+        L.run(100)
+    th = L.last_run.thermo
+    want = api.sim.thermo_rows[-len(th.Step):]
+    gap_py = max(abs(a - r[key]) / max(abs(r[key]), 1e-30)
+                 for r, a in zip(want, th.TotEng) for key in ("etotal",))
+    if [r["step"] for r in want] != list(th.Step) or not gap_py <= 1e-6:
+        raise AssertionError(f"IN_EXTERNAL32K PyLammps: steps {th.Step}, "
+                             f"etotal gap {gap_py}")
+    phase("external32k", f"{natoms} atoms on {smi}: f64 100 steps: "
+                         f"pf/callback -k(x - x0) vs fix spring/self "
+                         f"max|dx| {gap_cb:.3g}, pf/array vs fix addforce "
+                         f"{gap_arr:.3g}, the C shim's lammps_gather_atoms"
+                         f" vs the API {gap_c:.3g}; f32: {sps:.2f} "
+                         f"timesteps/s with the callback every step, the "
+                         f"callback's host {cb_ms:.3f} ms a step, host "
+                         f"reads {10 * reads.count} per 1,000 steps; "
+                         f"PyLammps' TotEng = the API's to {gap_py:.2e}; "
+                         f"B1 launches {launches} = force evaluations "
+                         f"{ev.count}, plain calls 0")
+    return {"launches": launches, "build_launches": builds, "sim": md.sim}
+
+
+def replica_small_card_vs_cpu(tmp: Path):
+    """The CPU tests' small decks in f64 on the card against the same decks
+    on the CPU, each on the engine the CPU run takes (the grid at 4^3
+    cells, the matrix engine at 3^3, whose box is narrower than 2
+    cutneigh): temper's swap decisions equal and each replica's last pe to
+    1e-9; NEB's short stages (N1 20, N2 10) equal to 1e-9 (band, up to
+    box lengths, and energies); the prd event rows and tad rows equal
+    (floats to 1e-9); hyper's statistics to 1e-9.  P1 launched on the
+    matrix-engine decks, B1 on the grid's."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.ops import gather
+    from tpumd_torch.script.parser import LammpsScript
+    notes = []
+    t0 = time.perf_counter()
+    gather.counts.reset()
+    reset_b1()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sc = LammpsScript(device=dev, dtype=torch.float64)
+        with contextlib.redirect_stdout(sys.stderr):
+            sc.run_string(bt.IN_TEMPER32K.format(n=4, steps=120, every=30))
+        out[dev] = (sc.temper_accepts, [s.last_thermo["pe"]
+                                        for s in sc.replicas],
+                    sc.sim._ctx.is_cellgrid)
+    (ac, pc, gc), (ag, pg, gg) = out["cpu"], out["cuda"]
+    if ac != ag or gc != gg or max(abs(a - b) / abs(b)
+                                   for a, b in zip(pg, pc)) > 1e-9:
+        raise AssertionError(f"temper small: {out}")
+    notes.append(f"temper 4x256 atoms {ag} (grid)")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sc, r, _, _, _ = neb_run(tmp, dev, torch.float64, 3, 20, 10)
+        out[dev] = (r, sc.sim)
+    (rc, simc), (rg, simg) = out["cpu"], out["cuda"]
+    ell = 3 * bt.NEB_ALAT
+    d = rg["band_x"] - rc["band_x"]
+    gap = float(np.abs(d - ell * np.round(d / ell)).max())
+    egap = max(abs(a - b) / abs(b) for a, b in zip(rg["energies"],
+                                                   rc["energies"]))
+    if gap > 1e-9 or egap > 1e-9 or rg["climber"] != rc["climber"] or \
+            simg._ctx.is_cellgrid or simc._ctx.is_cellgrid:
+        raise AssertionError(f"neb small: band gap {gap}, energies {egap}")
+    notes.append(f"neb 107 atoms x 8 images (matrix engine): band max|dx| "
+                 f"{gap:.2e}, energies {egap:.2e}")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sc = event_script(bt.IN_PRD32K, dev, torch.float64, 3)
+        sc.execute("prd 20 10 1 10 0 ev 482794 temp 0.1 replicas 2")
+        rows = [tuple(e[k] for k in ("step", "clock", "event", "correlated",
+                                     "coincident", "replica"))
+                for e in sc.prd_events]
+        tad, trows, _, _ = hop_tad(dev, torch.float64, 4, 20, tmp)
+        trows = [(r["step"], r["status"], r["barrier"], r["delt_lo"])
+                 for r in trows]
+        sc = event_script(bt.IN_HYPER32K, dev, torch.float64, 3)
+        sc.execute("hyper 40 10 h ev min 1e-6 1e-6 200 200")
+        out[dev] = (rows, trows, sc.hyper_stats)
+    (rc, tc, hc), (rg, tg, hg) = out["cpu"], out["cuda"]
+    tgap = max(abs(a[k] - b[k]) / max(abs(b[k]), 1.0) for a, b in zip(tg, tc)
+               for k in (2, 3))
+    hkeys = ("t_hyper", "boost", "nbias", "nobias", "negstrain",
+             "ave_boost", "nevent")
+    hgap = max(abs(hg[k] - hc[k]) / max(abs(hc[k]), 1e-30) for k in hkeys)
+    if rg != rc or [t[:2] for t in tg] != [t[:2] for t in tc] or \
+            tgap > 1e-9 or hgap > 1e-9:
+        raise AssertionError(f"prd/tad/hyper small: {out}")
+    notes.append(f"prd rows {rg}; tad rows {[t[:2] for t in tg]} (floats "
+                 f"within {tgap:.2e}); hyper boost {hg['boost']!r} (stats "
+                 f"within {hgap:.2e})")
+    p1, b1 = gather.counts.kernel_launches, b1_calls()[0]
+    if not p1 or not b1:
+        raise AssertionError(f"replica small decks: P1 {p1}, B1 {b1} "
+                             "launches")
+    phase("replica_small", f"card = CPU in f64: " + "; ".join(notes)
+          + f"; P1 launches {p1}, B1 launches {b1}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main():
     t_start = time.perf_counter()
     smi = environment()
@@ -5916,6 +6637,31 @@ def main():
         m_kappa = kappa32k_path(tmp, smi)
         k_bcr, m_bcr = bondcreate32k_path(tmp, smi)
         k_respa, m_respa = respa32k_path(tmp, smi)
+        t_replica = time.perf_counter()
+        replica_small_card_vs_cpu(tmp)
+        m_temper = temper32k_path(smi)
+        m_neb = neb32k_path(tmp, smi)
+        m_prd = prd32k_path(smi)
+        m_tad = tad32k_path(tmp, smi)
+        m_hyper = hyper32k_path(smi)
+        m_ext = external32k_path(smi)
+        replica_s = time.perf_counter() - t_replica
+    # B1 and the list build at the replica paths' final states (f64 for
+    # neb32k and tad32k, f32 for the others), timed
+    replicas = (("temper32k", m_temper), ("neb32k", m_neb),
+                ("prd32k", m_prd), ("tad32k", m_tad), ("hyper32k", m_hyper),
+                ("external32k", m_ext))
+    for name, m in replicas:
+        sim = m.pop("sim")
+        # each path's B1 flags: the steps' forces only (temper, prd, hyper
+        # and the API's melt), with the energy in the band's (neb, and
+        # tad's quenches and band)
+        m["b1"] = b1_at_state(name, sim, int(name in ("neb32k", "tad32k")),
+                              0)
+        m["build"] = build_figures(name, sim)
+    del sim
+    torch.cuda.empty_cache()
+    phase("replica", f"the replica and library phases {replica_s:.1f} s")
     # the list kernels' launches on the main paths: builds at set-up and
     # re-bins, and refresh calls, most of which pass the gate and return
     # (those that rebuild are the refreshes taken); an entry each
@@ -5931,7 +6677,8 @@ def main():
                m_eam_list["build_launches"]),
               *[(name, m["build"], m["build_launches"])
                 for name, m in (("min32k", m_min), ("pressber32k", m_pb),
-                                ("deform32k", m_df), ("kappa32k", m_kappa))]]
+                                ("deform32k", m_df), ("kappa32k", m_kappa),
+                                *replicas)]]
     searched = {"in.lj": "tpumd/ops/pallas_lj.py:25",
                 "analysis32k": "tpumd/ops/pallas_lj.py:25",
                 "chain": "tpumd/ops/pallas_lj.py:146",
@@ -5940,6 +6687,7 @@ def main():
                 "pressber32k": "tpumd/ops/pallas_lj.py:25",
                 "deform32k": "tpumd/ops/pallas_lj.py:25",
                 "kappa32k": "tpumd/ops/pallas_lj.py:25",
+                **{name: "tpumd/ops/pallas_lj.py:25" for name, _ in replicas},
                 "rhodo_class": "tpumd/ops/pallas_charmm.py:43",
                 "water_npt30k": "tpumd/ops/pallas_charmm.py:43",
                 "rigid_npt30k": "tpumd/ops/pallas_charmm.py:43",
@@ -5972,7 +6720,8 @@ def main():
             *[(f"lj_cellgrid {name}", "tpumd_torch/csrc/lj_fene_cellgrid.cu",
                "tpumd/ops/pallas_lj.py:25", m["b1"], m)
               for name, m in (("min32k", m_min), ("pressber32k", m_pb),
-                              ("deform32k", m_df), ("kappa32k", m_kappa))],
+                              ("deform32k", m_df), ("kappa32k", m_kappa),
+                              *replicas)],
             ("lj_fene_cellgrid", "tpumd_torch/csrc/lj_fene_cellgrid.cu",
              "tpumd/ops/pallas_lj.py:146", k_fene, m_fene),
             ("eam_rho_cellgrid", eam_src, "tpumd/ops/pallas_eam.py:99",

@@ -321,7 +321,7 @@ def test_ylm_matches_scipy():
     ("compute c all orientorder/atom wl yes", "orientorder"),
     ("compute c all chunk/atom bin/2d x lower 1 y lower 1", "chunk/atom"),
     ("fix f all ave/grid 1 1 1 2 2 2 c_x", "ave/grid"),
-    ("fix f all external pf/callback 1 1", "external"),
+    ("fix f all neb 1.0 parallel ideal", "neb"),
     ("fix f all balance 100 1.1 shift x 10 1.1", "balance"),
     ("fix f all ave/time 1 1 1 c_thermo_temp ave running", "ave/time"),
     ("fix f all ave/histo 1 1 1 0 1 10 vx ave running", "ave/histo"),

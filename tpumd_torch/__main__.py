@@ -6,8 +6,13 @@ Mirrors the reference's command line (src/main.cpp, src/lammps.cpp:189-680)
 as tpumd/__main__.py does: -in/-i the deck, -var/-v an index variable's
 value (repeatable; the deck's own ``variable ... index`` line does not
 overwrite it), -log the log file, -echo screen|both to echo each command,
--sf (accepted and ignored: there are no suffix styles to switch).  Runs on
-the given device (CUDA by default; asking for CUDA without a card raises).
+-sf (accepted and ignored: there are no suffix styles to switch),
+-partition PxM with -plog NAME (the deck runs once per world, P in all, each
+with its world variables' values, and writes its log to NAME.p; M, the
+processors of a world, is accepted and ignored: the worlds run one after
+another on the one device, which gives independent worlds the same
+results, as tpumd/__main__.py:23-56 does).  Runs on the given device (CUDA
+by default; asking for CUDA without a card raises).
 """
 
 from __future__ import annotations
@@ -25,6 +30,9 @@ def main(argv=None):
     ap.add_argument("-echo", dest="echo", default=None,
                     choices=["none", "screen", "log", "both"])
     ap.add_argument("-sf", dest="suffix", default=None)  # accepted, unused
+    ap.add_argument("-partition", "-p", dest="partition", default=None,
+                    metavar="PxM")
+    ap.add_argument("-plog", dest="plog", default="log.lammps")
     ap.add_argument("--dtype", choices=["f32", "f64"], default="f32")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = ap.parse_args(argv)
@@ -32,6 +40,18 @@ def main(argv=None):
     import torch
     from tpumd_torch.script.parser import LammpsScript
     dtype = torch.float64 if args.dtype == "f64" else torch.float32
+    if args.partition:
+        nworld = int(str(args.partition).split("x")[0])
+        for p in range(nworld):
+            script = LammpsScript(device=args.device, dtype=dtype,
+                                  var_overrides=dict(args.vars))
+            script._world_index = p
+            script.nworlds = nworld
+            script.run_file(args.infile)
+            if script.sim is not None:
+                with open(f"{args.plog}.{p}", "w") as fh:
+                    fh.write("\n".join(script.sim.log_lines) + "\n")
+        return 0
     script = LammpsScript(device=args.device, dtype=dtype,
                           var_overrides=dict(args.vars))
     if args.echo:

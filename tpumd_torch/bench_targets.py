@@ -2053,3 +2053,109 @@ CHAIN_RESPA32K_STEP0_F64 = {"temp": 0.9699999999999999,
 # of respa 2 2, dt 0.012), written before its first card run: the largest
 # |etotal - etotal(100)| / |etotal(100)| over the printed rows
 RESPA32K_F32_DRIFT = 5e-3
+
+
+# ------------------------------------------------------------------------
+# The replica layer and the library interface: tpumd's tests' decks of the
+# REPLICA package and of fix external widened to in.lj's 20^3 fcc cells
+# (32,000 sites; the vacancy deck 31,999 atoms).  chip_smoke.py's
+# temper32k_path, neb32k_path, prd32k_path, tad32k_path, hyper32k_path and
+# external32k_path run them on the card; the CPU tests run the same decks
+# at 3^3 and 4^3 cells.
+
+# tests/test_temper.py's deck at in.lj's density and box: four replicas
+# 0.4 % apart near T 1 (at 32,000 atoms the energy's spread over a replica
+# pair, N c_v (dT/T)^2, lets about 40 % of the swaps through)
+TEMPER32K_WORLDS = ("1.000", "1.004", "1.008", "1.012")
+IN_TEMPER32K = """units           lj
+atom_style      atomic
+variable        t world """ + " ".join(TEMPER32K_WORLDS) + """
+lattice         fcc 0.8442
+region          box block 0 {n} 0 {n} 0 {n}
+create_box      1 box
+create_atoms    1 box
+mass            1 1.0
+velocity        all create $t 87287 loop geom
+pair_style      lj/cut 2.5
+pair_coeff      1 1 1.0 1.0 2.5
+neighbor        0.3 bin
+neigh_modify    delay 0 every 20 check no
+fix             1 all nvt temp $t $t 0.5
+temper          {steps} {every} $t 1 3847 58382
+"""
+
+# tests/test_neb.py's vacancy hop: the atom at (a/2, a/2, 0) hops into the
+# vacancy at the origin (the final file holds that one atom, written by
+# neb_final_file); 8 images
+IN_NEB32K_HEAD = """units           lj
+atom_style      atomic
+boundary        p p p
+lattice         fcc 0.85
+region          box block 0 {n} 0 {n} 0 {n}
+create_box      1 box
+create_atoms    1 box
+mass            1 1.0
+region          vac sphere 0.05 0.05 0.0 0.18
+delete_atoms    region vac
+pair_style      lj/cut 2.5
+pair_coeff      1 1 1.0 1.0 2.5
+neighbor        0.3 bin
+"""
+IN_NEB32K = IN_NEB32K_HEAD + """fix             1 all neb 1.0
+neb             0.0 1.0e-6 {n1} {n2} 100 final {final} replicas 8
+"""
+NEB_ALAT = (4 / 0.85) ** (1 / 3.0)
+
+
+def neb_final_file(path: str, state) -> int:
+    """Write the vacancy hop's final-coordinates file for a state of
+    IN_NEB32K_HEAD (the hopping atom at the vacancy site); returns the
+    atom's tag."""
+    import torch
+    x = state.x.double().cpu()
+    d = (x - torch.tensor([0.5 * NEB_ALAT, 0.5 * NEB_ALAT, 0.0])).abs()
+    i = int(torch.argmin(d.max(dim=1).values))
+    if float(d[i].max()) > 1e-6:
+        raise ValueError("no atom at the hop's start site")
+    tag = int(state.tag[i])
+    with open(path, "w") as fh:
+        fh.write(f"1\n{tag} 0.0 0.0 0.0\n")
+    return tag
+
+
+# tests/test_prd.py's and tests/test_tad_hyper.py's decks: an fcc solid at
+# 1.0 and T 0.1 (prd, tad) or 0.2 (hyper), every step checked
+IN_EVENT32K = """units           lj
+atom_style      atomic
+lattice         fcc 1.0
+region          box block 0 {n} 0 {n} 0 {n}
+create_box      1 box
+create_atoms    1 box
+mass            1 1.0
+pair_style      lj/cut 2.5
+pair_coeff      1 1 1.0 1.0 2.5
+neighbor        0.3 bin
+neigh_modify    delay 0 every 1 check yes
+velocity        all create {temp} 87287 loop geom
+fix             1 all nve
+{extra}
+compute         ev all event/displace {dcut}
+"""
+IN_PRD32K = IN_EVENT32K.format(n="{n}", temp=0.1, extra="", dcut=0.9)
+# TAD on the vacancy deck at T 0.1: the candidate event of the first
+# search segment is the vacancy hop (the hopping atom set on the vacancy
+# site before its quench), so that its NEB crosses a real barrier
+IN_TAD32K = IN_NEB32K_HEAD + """velocity        all create 0.1 87287 loop geom
+neigh_modify    delay 0 every 1 check yes
+fix             1 all nve
+compute         ev all event/displace 0.9
+"""
+IN_HYPER32K = IN_EVENT32K.format(
+    n="{n}", temp=0.2, extra="fix             h all hyper/global 1.3 0.3 "
+    "0.4 0.4", dcut=0.5)
+
+# in.lj's melt under fix external (the API and the C shim drive it)
+IN_EXTERNAL32K = IN_LJ + """fix             ext all external {mode}
+"""
+# the spring constant of the callback that stands in for fix spring/self
+EXTERNAL32K_K = 0.7

@@ -267,3 +267,12 @@ def minimum_image(d: torch.Tensor, box: Box) -> torch.Tensor:
             dx = dx - ell[0] * torch.round(dx / ell[0])
         return torch.stack([dx, dy, dz], dim=-1)
     return d - _zero_aperiodic(ell * torch.round(d / ell), box)
+
+
+def tag_rows(tag: torch.Tensor, natoms: int) -> torch.Tensor:
+    """(natoms,) int64: the row of each tag (tag - 1 -> row), on the device
+    without a read (a scatter; the padding rows, tag 0, land in a slot
+    that is dropped)."""
+    rows = torch.zeros(natoms + 1, dtype=torch.int64, device=tag.device)
+    rows.scatter_(0, tag.long(), torch.arange(tag.shape[0], device=tag.device))
+    return rows[1:]

@@ -328,9 +328,11 @@ class ComputeHeatFlux(Compute):
 
 class ComputeEventDisplace(Compute):
     """compute event/displace Dcut (src/REPLICA/
-    compute_event_displace.cpp): inactive, 0, until an accelerated-dynamics
-    command (prd, tad, hyper: not ported) binds its event store, as in
-    tpumd."""
+    compute_event_displace.cpp): 1 where some atom moved more than Dcut
+    since the last stored event, else 0.  The prd, tad and hyper commands
+    bind its event store (``detector``, md/prd.py::EventDetector) and drive
+    the comparison themselves; unbound, or before the first event is
+    stored, it is 0, as in tpumd."""
 
     style = "event/displace"
 
@@ -341,10 +343,13 @@ class ComputeEventDisplace(Compute):
             raise ValueError(
                 "Distance must be > 0 for compute event/displace")
         self.displace_dist = dist
+        self.detector = None
 
     def evaluate(self, sim):
-        return torch.zeros((), dtype=torch.float64,
-                           device=pa.atoms(sim).x.device)
+        hit = (self.detector is not None and self.detector.xevent is not None
+               and self.detector.check(sim, sim._carry))
+        return torch.tensor(float(hit), dtype=torch.float64,
+                            device=pa.atoms(sim).x.device)
 
 
 class ComputeDipole(Compute):

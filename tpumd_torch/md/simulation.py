@@ -176,6 +176,8 @@ class Simulation:
         self._refreshes = 0            # list refreshes of earlier grids
         self.step = 0
         self.last_thermo: dict | None = None
+        # every printed thermo row, as a dict (PyLammps' run capture)
+        self.thermo_rows: list[dict] = []
         self.loop_time = 0.0
         self.loop_steps = 0
         self.script = None             # the LammpsScript, for v_ columns
@@ -1060,6 +1062,11 @@ class Simulation:
         self._carry = (s0, neigh0, tuple(
             fx.pre_run(fs, self.step, target) if hasattr(fx, "pre_run")
             else fs for fx, fs in zip(self.fixes, fstates0)))
+        for fx in self.fixes:
+            if hasattr(fx, "host_run_start"):
+                # fix external: the caller's force buffer, or its callback
+                # at the set-up step
+                fx.host_run_start(self)
         t0 = time.perf_counter()
         if self._wall_start is None:
             self._wall_start = t0
@@ -1157,18 +1164,59 @@ class Simulation:
         """Run seg steps from carry; returns (carry, None), or where a fix
         moves the box at end_of_step, (carry, (energies, virial) of the
         last step's force evaluation), that step split around it
-        (tpumd/md/simulation.py:901-941)."""
-        if not any(fx.eos_box_change for fx in self.fixes):
+        (tpumd/md/simulation.py:901-941).  A step where a fix's host
+        callback is due (fix external pf/callback) is split too, the
+        callback run between its force evaluation and post_force
+        (tpumd/md/simulation.py:1263-1298)."""
+        eos = any(fx.eos_box_change for fx in self.fixes)
+        mids = [fx for fx in self.fixes if hasattr(fx, "mid_step_due")]
+
+        def split(k):
+            istep = self.step + k + 1
+            return (eos and k == seg - 1) or any(fx.mid_step_due(istep)
+                                                 for fx in mids)
+        if not eos and not any(split(k) for k in range(seg)):
             return run_segment(*carry, ctx, seg, xs, step0=self.step), None
-        s, neigh, fstates = run_segment(
-            *carry, ctx, seg - 1, [None if x is None else x[:seg - 1]
-                                   for x in xs], step0=self.step)
-        last = [None if x is None else x[seg - 1] for x in xs]
-        s, neigh, fstates, virial = step_pre(s, neigh, fstates, ctx,
-                                             self.step + seg, last)
-        _, energies, vmid, _, _ = eval_energies(s, neigh, ctx)
-        return step_post(s, neigh, fstates, ctx, last, virial), (energies,
-                                                                vmid)
+        mid, k = None, 0
+        while k < seg:
+            if not split(k):
+                end = next((j for j in range(k, seg) if split(j)), seg)
+                carry = run_segment(*carry, ctx, end - k, [
+                    None if x is None else x[k:end] for x in xs],
+                    step0=self.step + k)
+                k = end
+                continue
+            istep = self.step + k + 1
+            now = [None if x is None else x[k] for x in xs]
+            s, neigh, fstates, virial = step_pre(*carry, ctx, istep, now)
+            if eos and k == seg - 1:
+                _, energies, vmid, _, _ = eval_energies(s, neigh, ctx)
+                mid = (energies, vmid)
+            carry = (s, neigh, fstates)
+            for fx in mids:
+                if fx.mid_step_due(istep):
+                    carry = fx.invoke_callback(self, carry, istep)
+            carry = step_post(*carry, ctx, now, virial)
+            k += 1
+        return carry, mid
+
+    def recompute_output(self):
+        """The forces, energies and virial of the carried state anew, with
+        no fix's post_force (tpumd/md/simulation.py:1432-1448), after a
+        replica command left a stored configuration in the carry."""
+        if self._ctx is None:
+            return
+        s, neigh, fstates = self._carry
+        f, energies, virial, torque, _ = eval_energies(s, neigh, self._ctx)
+        s = s.replace(f=f) if torque is None else s.replace(f=f,
+                                                            torque=torque)
+        for fx, fs in zip(self.fixes, fstates):
+            if fx.contributes_virial:
+                virial = virial + fx.virial_contrib(fs)
+        self._carry = (s, neigh, fstates)
+        self.state = s
+        self._last_energies, self._last_virial = energies, virial
+        self._energies_of = s
 
     def _setup_output_fixes(self):
         """At a run's set-up, after its thermo row and dumps: an ave fix
@@ -1218,11 +1266,12 @@ class Simulation:
                                    f"before step {self.step + 1}")
         return bool(vals[0]), (vals[1] if track else 0)
 
-    def _rebin(self, snapshot):
+    def _rebin(self, snapshot, check: bool = True):
         """Rebuild the neighbor config for the snapshot's box and capacity
         overrides, then re-bin the snapshot's atoms (and their contact
         history) into the grid, or rebuild their neighbor matrix
-        (tpumd/md/simulation.py:1304-1374); returns the new context."""
+        (tpumd/md/simulation.py:1304-1374); returns the new context.  An
+        overflow raises unless check is False (``rebin_grown``)."""
         s0, neigh0, fstates = snapshot
         if self._ctx.is_cellgrid:
             self._refreshes += self._grid_refreshes(neigh0)
@@ -1235,9 +1284,28 @@ class Simulation:
             self._ctx = self._make_ctx()
             s, neigh = self._matrix_setup(s0, nbuilds=neigh0.nbuilds,
                                           old=neigh0)
-        self._check_overflow(neigh)
+        if check:
+            self._check_overflow(neigh)
         self._carry = (s, neigh, fstates)
         return self._ctx
+
+    def rebin_grown(self, snapshot):
+        """_rebin(snapshot), the capacities grown until nothing overflows,
+        as for a segment that overflowed (_regrow): a configuration the
+        replica commands bring back (a swapped or stored replica) may crowd
+        cells its own set-up did not."""
+        for _ in range(8):
+            self._rebin(snapshot, check=False)
+            neigh = self._carry[1]
+            over = (neigh.any_overflow if self._ctx.is_cellgrid
+                    else neigh.overflow)
+            if not bool(over):
+                return self._ctx
+            if self._ctx.is_cellgrid:
+                self._grow_grid(neigh, neigh.max_count)
+            else:
+                self._grow_matrix(neigh)
+        self._check_overflow(self._carry[1])
 
     @staticmethod
     def _grid_refreshes(neigh) -> int:
@@ -1519,12 +1587,14 @@ class Simulation:
     def _thermo_line(self):
         vals = self.thermo_values()
         if self.thermo_multi:
+            self.thermo_rows.append(dict(vals))
             return self._thermo_lines_multi(vals)
         parts = []
         for k in self.thermo_style:
             v = self._thermo_value(vals, k)
             vals[k] = v     # custom columns land in last_thermo too
             parts.append(f"{v:8d}" if k == "step" else f"{v:12.8g}")
+        self.thermo_rows.append(dict(vals))
         self._log(" ".join(parts))
 
     def _log(self, line: str):

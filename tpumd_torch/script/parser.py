@@ -56,6 +56,8 @@ from tpumd_torch.md.fix_wall import FixWallHarmonic, FixWallLJ126, \
 from tpumd_torch.md.fix_wall_gran import FixWallGran
 from tpumd_torch.md import fix_misc as fm
 from tpumd_torch.md.fix_deform import NARGS, FixDeform
+from tpumd_torch.md.fix_external import FixExternal
+from tpumd_torch.md.fix_hyper import FixHyperGlobal
 from tpumd_torch.md.fix_move import FixMove
 from tpumd_torch.md.fixes import FixNVE, FixNVELimit, FixNVENoforce
 from tpumd_torch.md.simulation import THERMO_KEYS, Simulation, \
@@ -128,6 +130,7 @@ class LammpsScript:
         self.echo = False
         # name -> (style, value)
         self.variables: dict[str, tuple] = {}
+        self._var_overrides = dict(var_overrides or {})
         for k, v in (var_overrides or {}).items():
             self.variables[k] = ("index", str(v))
         # script control flow (Input::file/jump, src/input.cpp)
@@ -137,6 +140,17 @@ class LammpsScript:
         self._atomfiles: dict[str, tuple] = {}   # name -> (sections, pos)
         self._python_funcs: dict[str, dict] = {}  # python command registry
         self._plugins: dict = {}        # plugin load: module name -> module
+        # the lines executed, raw (temper replays them into each replica's
+        # script), and the world this script runs as: its index picks a
+        # world variable's value (-partition, or a temper replica)
+        self._history: list[str] = []
+        self._world_index = 0
+        self.nworlds = 1
+        # the library interface's error state (lammps_has_error)
+        self.last_error: str | None = None
+        # lammps_create_atoms: segment of _atoms_x -> (ids or None, v or
+        # None)
+        self._injected: dict = {}
 
     # -------------------------------------------------------------- plumbing
     def run_file(self, path: str):
@@ -193,7 +207,7 @@ class LammpsScript:
             v = float(self.evaluate_variable(name))
             return repr(int(v)) if v == int(v) else repr(v)
         if style == "world":
-            return value[0]   # one world: the first value
+            return value[self._world_index]
         if style in ("format", "getenv", "python"):
             return str(self.evaluate_variable(name))
         if style == "atomfile":
@@ -223,6 +237,7 @@ class LammpsScript:
         line = line.strip()
         if not line:
             return
+        self._history.append(line)
         # a fix print string is substituted when it prints, not here
         if not line.startswith("fix") or " print " not in line:
             line = self.substitute(line).strip()
@@ -232,9 +247,14 @@ class LammpsScript:
         cmd, args = args[0], args[1:]
         handler = getattr(self, "cmd_" + cmd.replace("/", "_"), None)
         if handler is None:
+            self.last_error = f"Unknown command: {cmd}"
             raise NotImplementedError(
                 f"command {cmd!r} is not ported to tpumd_torch")
-        handler(args)
+        try:
+            handler(args)
+        except Exception as e:   # the library's error state (src/library.cpp
+            self.last_error = str(e)   # lammps_has_error)
+            raise
 
     def _require_sim(self) -> Simulation:
         if self.sim is None:
@@ -326,7 +346,7 @@ class LammpsScript:
         if style in ("index", "string"):
             return value
         if style == "world":
-            return value[0]
+            return value[self._world_index]
         if style == "getenv":
             return os.environ.get(value, "")
         if style == "format":
@@ -1207,8 +1227,9 @@ class LammpsScript:
             if mol is None and self.atom_style in (
                     "bond", "angle", "molecular", "full"):
                 mol = np.zeros(len(x), np.int32)
-            sim.state = make_state(x, np.zeros_like(x), t, box, q=q,
-                                   molecule=mol,
+            tags, v = self._injected_arrays(len(x))
+            sim.state = make_state(x, np.zeros_like(x) if v is None else v,
+                                   t, box, q=q, tags=tags, molecule=mol,
                                    image=joined(self._atoms_image, np.int32,
                                                 3),
                                    radius=radius, rmass=rmass,
@@ -1539,7 +1560,6 @@ class LammpsScript:
     # fixes of the reference that wait for other parts of the port
     _FIXES_WAITING = {
         "balance": "it waits with the balance command (ROADMAP A9 (k))",
-        "external": "it waits with the library interface (ROADMAP A9 (j))",
     }
     _NEMD_FIXES = ("thermal/conductivity", "viscosity", "heat", "oneway",
                    "vector")
@@ -1557,8 +1577,23 @@ class LammpsScript:
             raise NotImplementedError(
                 f"fix {fid} {style} on group {group!r}: the port's fix "
                 f"{style} acts on every atom, so only group all is ported")
+        if style == "neb":
+            # the band spring and group for the neb command (src/REPLICA/
+            # fix_neb.cpp:57; tpumd/script/parser.py:1145-1150): the
+            # projection runs inside the band minimizer (md/neb.py)
+            if len(args) != 1:
+                raise NotImplementedError(
+                    f"fix neb {' '.join(args)} is not ported (only Kspring)")
+            self._group_bit(group)
+            self._neb_fix = (group, float(args[0]))
+            return
         if style == "nve/sphere" and not args:
             fx = FixNVESphere()
+        elif style == "hyper/global" and len(args) == 4:
+            fx = FixHyperGlobal(*(float(t) for t in args),
+                                boltz=self._require_sim().units.boltz)
+        elif style == "external":
+            fx = FixExternal.parse(args)
         elif style == "freeze" and not args:
             fx = FixFreeze()
         elif style == "gravity" and len(args) >= 2:
@@ -2106,6 +2141,243 @@ class LammpsScript:
         named = set().union(*cats)
         cats[-1] |= set(self._RESPA_TERMS) - named
         sim.respa = (loops, tuple(tuple(sorted(c)) for c in cats))
+
+    # ------------------------------------------------- replica commands
+    def _fix_by_id(self, fid):
+        for fx in self.sim.fixes:
+            if fx.id == fid:
+                return fx
+        return None
+
+    def cmd_temper(self, a):
+        """temper N M temp fix-ID seed1 seed2 (src/REPLICA/temper.cpp;
+        tpumd/script/parser.py:1896-1921): one replica per value of the
+        first world variable, each a script that replays the lines run so
+        far as its own world; parallel tempering with configuration swaps
+        (md/temper.py).  The replicas are kept in ``replicas`` (this
+        script's simulation first), the swaps of each window in
+        ``temper_accepts``."""
+        from tpumd_torch.md.temper import temper as run_temper
+        if len(a) not in (6, 7):
+            raise ScriptError("temper N M temp fix-ID seed1 seed2 [index]")
+        nsteps, nevery = int(a[0]), int(a[1])
+        worlds = [v for st, v in self.variables.values() if st == "world"]
+        if not worlds:
+            raise ScriptError("temper requires a world-style variable "
+                              "defining the replica temperatures")
+        self._finalize_atoms()
+        if self._fix_by_id(a[3]) is None:
+            raise ScriptError(f"tempering fix ID {a[3]!r} is not defined")
+        temps = [float(v) for v in worlds[0]]
+        sims = [self.sim]
+        for i in range(1, len(temps)):
+            sc = LammpsScript(device=self.device, dtype=self.dtype,
+                              var_overrides=self._var_overrides)
+            sc.data_dir = self.data_dir
+            sc._world_index = i
+            sc.nworlds = len(temps)
+            for line in self._history[:-1]:
+                sc.execute(line)
+            sc._finalize_atoms()
+            sims.append(sc.sim)
+        for sim in sims:
+            sim.verbose = False
+        self.temper_stats = {}
+        self.temper_accepts = run_temper(
+            sims, temps, nsteps, nevery, int(a[4]), int(a[5]),
+            self.sim.units.boltz, log=self.sim._log, stats=self.temper_stats)
+        self.replicas = sims
+
+    def _event_compute(self, cid, cmd):
+        """The compute event/displace that a replica command names."""
+        comp = self.sim.computes.get(cid)
+        if comp is None or comp.style != "event/displace":
+            raise ScriptError(f"{cmd} compute-ID must name a compute "
+                              "event/displace")
+        return comp
+
+    @staticmethod
+    def _min_keyword(a, i, kw):
+        kw["etol"], kw["ftol"] = float(a[i + 1]), float(a[i + 2])
+        kw["maxiter"], kw["maxeval"] = int(a[i + 3]), int(a[i + 4])
+        return i + 5
+
+    def cmd_neb(self, a):
+        """neb etol ftol N1 N2 Nevery final file replicas R
+        (src/REPLICA/neb.cpp; tpumd/script/parser.py:2086-2123): the band of
+        R images between the current state and the file's coordinates,
+        relaxed by climbing-image NEB (md/neb.py); ``replicas R`` stands in
+        for the reference's -partition.  Needs a prior ``fix ID group neb
+        K``.  The result is kept in ``neb_result``."""
+        from tpumd_torch.md.neb import neb, read_neb_file
+        if not hasattr(self, "_neb_fix"):
+            raise ScriptError("neb requires a fix neb command")
+        if len(a) < 7 or a[5] != "final":
+            raise ScriptError("neb etol ftol N1 N2 Nevery final file "
+                              "replicas R (only the final file style)")
+        etol, ftol = float(a[0]), float(a[1])
+        n1, n2, nevery = int(a[2]), int(a[3]), int(a[4])
+        kw = dict(zip(a[7::2], a[8::2]))
+        if "replicas" not in kw:
+            raise ScriptError("neb needs 'replicas R' (the reference "
+                              "takes the count from -partition)")
+        self._finalize_atoms()
+        group, kspring = self._neb_fix
+        tags, xyz = read_neb_file(self._path(a[6]), self.sim.natoms)
+        self.neb_result = neb(self.sim, etol, ftol, n1, n2, nevery, tags, xyz,
+                              kspring=kspring, nreplica=int(kw["replicas"]),
+                              group_bit=self._group_bit(group),
+                              log=self.sim._log)
+
+    def cmd_prd(self, a):
+        """prd N t_event n_dephase t_dephase t_correlate compute-ID seed
+        [min etol ftol maxiter maxeval] [temp T] [vel loop dist] [time
+        steps|clock] replicas R (src/REPLICA/prd.cpp;
+        tpumd/script/parser.py:1923-1972): ``replicas R`` stands in for
+        -partition.  The event rows are kept in ``prd_events``."""
+        from tpumd_torch.md.prd import PRD, EventDetector
+        nsteps, t_event = int(a[0]), int(a[1])
+        n_dephase, t_dephase, t_corr = int(a[2]), int(a[3]), int(a[4])
+        cid, seed = a[5], int(a[6])
+        kw = dict(etol=0.1, ftol=0.1, maxiter=40, maxeval=50)
+        nreplica, i = None, 7
+        while i < len(a):
+            if a[i] == "min":
+                i = self._min_keyword(a, i, kw)
+            elif a[i] == "temp":
+                kw["temp"], i = float(a[i + 1]), i + 2
+            elif a[i] == "vel":
+                # loop geom draws whatever loop style is named, as tpumd
+                kw["dist"], i = a[i + 2], i + 3
+            elif a[i] == "time":
+                kw["stepmode"], i = int(a[i + 1] != "steps"), i + 2
+            elif a[i] == "replicas":
+                nreplica, i = int(a[i + 1]), i + 2
+            else:
+                raise ScriptError(f"unknown prd keyword {a[i]!r}")
+        if nreplica is None:
+            raise ScriptError("prd needs 'replicas R' (the reference "
+                              "takes replicas from -partition)")
+        self._finalize_atoms()
+        sim = self.sim
+        comp = self._event_compute(cid, "prd")
+        det = comp.detector = EventDetector(comp.displace_dist)
+        runner = PRD(sim, nreplica, det, seed, log=sim._log, **kw)
+        sim._log("Step CPU Clock Event Correlated Coincident Replica")
+        self.prd_runner = runner
+        self.prd_events = runner.run(nsteps, t_event, n_dephase, t_dephase,
+                                     t_corr)
+
+    def cmd_tad(self, a):
+        """tad N t_event T_lo T_hi delta_conf tmax compute-ID [min etol ftol
+        maxiter maxeval] [neb etol ftol N1 N2 Nevery] [neb_style, neb_step,
+        neb_log: accepted, ignored] replicas R (src/REPLICA/tad.cpp;
+        tpumd/script/parser.py:1974-2021): ``replicas R`` is the NEB band's
+        width.  The event rows are kept in ``tad_events``."""
+        from tpumd_torch.md.prd import EventDetector
+        from tpumd_torch.md.tad import TAD
+        nsteps, t_event = int(a[0]), int(a[1])
+        templo, temphi = float(a[2]), float(a[3])
+        delta_conf, tmax, cid = float(a[4]), float(a[5]), a[6]
+        kw = dict(etol=0.1, ftol=0.1, maxiter=40, maxeval=50,
+                  etol_neb=0.01, ftol_neb=0.01, n1_neb=100, n2_neb=100,
+                  nevery_neb=10, neb_replicas=4)
+        i = 7
+        while i < len(a):
+            if a[i] == "min":
+                i = self._min_keyword(a, i, kw)
+            elif a[i] == "neb":
+                kw["etol_neb"], kw["ftol_neb"] = float(a[i + 1]), \
+                    float(a[i + 2])
+                kw["n1_neb"], kw["n2_neb"] = int(a[i + 3]), int(a[i + 4])
+                kw["nevery_neb"], i = int(a[i + 5]), i + 6
+            elif a[i] in ("neb_style", "neb_step", "neb_log"):
+                i += 2
+            elif a[i] == "replicas":
+                kw["neb_replicas"], i = int(a[i + 1]), i + 2
+            else:
+                raise ScriptError(f"unknown tad keyword {a[i]!r}")
+        self._finalize_atoms()
+        sim = self.sim
+        comp = self._event_compute(cid, "tad")
+        det = comp.detector = EventDetector(comp.displace_dist)
+        runner = TAD(sim, det, templo, temphi, delta_conf, tmax,
+                     log=sim._log, **kw)
+        sim._log("Step CPU N M Status Barrier Margin t_lo delt_lo")
+        self.tad_runner = runner
+        self.tad_events = runner.run(nsteps, t_event)
+
+    def cmd_hyper(self, a):
+        """hyper N t_event fix-ID compute-ID [min etol ftol maxiter maxeval]
+        [rebond N] (src/REPLICA/hyper.cpp; tpumd/script/parser.py:
+        2023-2067): fix-ID NULL runs without a bias.  The statistics are
+        kept in ``hyper_stats``."""
+        from tpumd_torch.md.fix_hyper import hyper as run_hyper
+        nsteps, t_event = int(a[0]), int(a[1])
+        fid, cid = a[2], a[3]
+        kw = dict(etol=1e-4, ftol=1e-4, maxiter=40, maxeval=50, rebond=0)
+        i = 4
+        while i < len(a):
+            if a[i] == "min":
+                i = self._min_keyword(a, i, kw)
+            elif a[i] == "rebond":
+                kw["rebond"], i = int(a[i + 1]), i + 2
+            else:
+                raise ScriptError(f"unknown hyper keyword {a[i]!r}")
+        self._finalize_atoms()
+        sim = self.sim
+        comp = self._event_compute(cid, "hyper")
+        fix_hyper = None
+        if fid != "NULL":
+            fix_hyper = self._fix_by_id(fid)
+            if getattr(fix_hyper, "name", None) != "hyper/global":
+                raise ScriptError("hyper fix-ID must name a fix "
+                                  "hyper/global")
+        self.hyper_stats = run_hyper(sim, nsteps, t_event, comp,
+                                     fix_hyper=fix_hyper, log=sim._log, **kw)
+        st = self.hyper_stats
+        sim._log(f"hyper time = {st['t_hyper']:.6g} boost = "
+                 f"{st['boost']:.6g} events = {st['nevent']}")
+
+    # ---------------------------------------------------------- library
+    def inject_atoms(self, ids, types, x, v=None):
+        """lammps_create_atoms (src/library.cpp): atoms that a calling
+        program hands over as arrays, after create_box and before the atoms
+        are made (tpumd/script/parser.py:882-901); ids None numbers them
+        on."""
+        if self.box is None:
+            raise ScriptError(
+                "lammps_create_atoms before create_box/read_data")
+        if self.sim is not None and self.sim.state is not None:
+            raise ScriptError(
+                "lammps_create_atoms after the atoms are made is not ported")
+        n = len(x)
+        self._injected[len(self._atoms_x)] = (
+            None if ids is None else np.asarray(ids, np.int64).reshape(n),
+            None if v is None else np.asarray(v, np.float64).reshape(n, 3))
+        self._atoms_x.append(np.asarray(x, np.float64).reshape(n, 3))
+        self._atoms_type.append(np.asarray(types, np.int32).reshape(n))
+        for seg in (self._atoms_q, self._atoms_mol, self._atoms_image):
+            seg.append(None)
+
+    def _injected_arrays(self, natoms):
+        """(tags or None, v or None) of the atoms being made, where a
+        calling program handed over ids or velocities: segments without ids
+        get the next tags in turn (tpumd/script/parser.py:836-845)."""
+        if not self._injected:
+            return None, None
+        tags, v, nxt = [], np.zeros((natoms, 3)), 1
+        row = 0
+        for k, xa in enumerate(self._atoms_x):
+            ids, va = self._injected.get(k, (None, None))
+            if ids is None:
+                ids = np.arange(nxt, nxt + len(xa), dtype=np.int64)
+            tags.append(ids)
+            nxt = max(nxt, int(ids.max(initial=0)) + 1)
+            if va is not None:
+                v[row:row + len(xa)] = va
+            row += len(xa)
+        return np.concatenate(tags).astype(np.int32), v
 
     def cmd_run(self, a):
         """run N [upto] (src/run.cpp; upto runs to step N)."""
