@@ -179,11 +179,12 @@ line each (any failure raises and exits non-zero):
    the deck's packed-row shape beside its bound, the plain version and
    torch.index_select (bit-equal to the plain version on every kind of
    input the set-up gave it); the DSF deck in f32, 500 timed steps;
-12. the bonded-style library on the matrix engine (``bonded_goldens_phase``,
-   ``hyb32k_path``): the 14 bonded goldens (``tpumd_torch.bonded_goldens``)
+12. the bonded-style library (``bonded_goldens_phase``, ``hyb32k_path``,
+   ``hyb32k_grid_path``): the 14 bonded goldens (``tpumd_torch.bonded_goldens``)
    verbatim in f64 on the card, their rows and dumps against the
    reference binary at tpumd's tests' tolerances and against the same
-   decks on the CPU, P1 launched on each and no plain call, bond_quartic's
+   decks on the CPU, P1 launched on each (B1's special-weighted variant
+   on the seven that "auto" puts on the grid) and no plain call, bond_quartic's
    broken bonds counted; water_shake forced onto the matrix engine against
    its log and dump; then ``IN_HYB32K`` (the in.hyb liquid, 32,000 atoms):
    the cell (``hyb_cell``) in f64 against tpumd's rows at steps 0 and 100,
@@ -197,7 +198,15 @@ line each (any failure raises and exits non-zero):
    force evaluation, no plain call, no grid kernel), a profile of 20
    steps, and P1 at the deck's packed-row shape beside its bound, the
    plain version and torch.index_select (bit-equal to the plain version on
-   every kind of input the set-up gave it);
+   every kind of input the set-up gave it), all of it on the matrix
+   engine (forced); then IN_HYB32K on the grid, where "auto" sends it: f64
+   step 0 = the matrix engine's row to 1e-10, step 100 to 1e-7, B1's
+   special-weighted variant (B1-special) at that state against its plain
+   list sweep (f32 2e-6, f64 1e-13 of max|f|) and the stencil oracle,
+   timed beside its bound and beside B1 without the weights; in f32 the
+   step-0 and step-100 gates against the f64 grid run, 500 timed steps
+   beside the matrix engine's, B1-special once per force evaluation, the
+   list's launches, a profile and the build at the final state;
 13. the host fixes and the minimizer (``host_goldens_phase``,
    ``min_path``, ``pressber_path``, ``deform_path``): tests/golden/
    fix_forces, press_ber, deform and fix_move verbatim in f64 on the grid,
@@ -266,12 +275,25 @@ line each (any failure raises and exits non-zero):
    (f64 step 0, respa 2 1 = verlet over 100 steps; f32 respa 2 2 within
    its energy bound), each with 500 timed steps, host reads per 1,000
    steps, a profile and peak memory, and B1 or P1 at its state;
-17. a JSON line of the kernels (the list build of each deck, the refresh
-   calls of in.lj, eam, rhodo_class, min32k, deform32k and kappa32k, B1 on
-   min32k, pressber32k, deform32k and kappa32k, B5 at each 30k water
+17. the one-card parallel layer and atom_style ellipsoid:
+   ``balance32k_phase`` (balance 1.1 rcb and fix balance 50 1.0 rcb with 8
+   parts on the 32k in.lj deck on the matrix engine in f64, against the
+   run without them: rows to 1e-12 and 1e-9, the printed and logged
+   lines, P1 bit-equal on its inputs and timed at its packed rows),
+   ``rk_split_phase`` (rhodo_class in f64: the split, k-space on a side
+   stream, = the fused evaluation to 1e-11; both, the r-space part and
+   PPPM timed by CUDA events and the host clock, each stream's kernels and
+   their overlap under the profiler, the first host read in each half) and
+   ``ellipsoid_card_vs_cpu`` (512 ellipsoids, 50 steps in f64, card = CPU,
+   the fields by tag);
+18. a JSON line of the kernels (the list build of each deck, the refresh
+   calls of in.lj, eam, rhodo_class, min32k, deform32k, kappa32k and
+   hyb32k's grid run, B1 on min32k, pressber32k, deform32k, kappa32k and
+   the replica decks, B1-special at hyb32k's grid, B5 at each 30k water
    deck's shape, B6's HERTZ variant at granhertz32k's and P1 at the
    salt's, hyb32k's, sw32k's, tersoff32k's, eamalloy32k's, tip4p30k's,
-   dpd32k's, bondcreate32k's and respa32k's, each an entry of its own),
+   dpd32k's, bondcreate32k's, respa32k's and balance32k's, each an entry
+   of its own),
    the card's name and power limit as nvidia-smi prints them, then the
    result line.
 
@@ -292,6 +314,7 @@ import contextlib
 import dataclasses
 import importlib
 import importlib.metadata
+import io
 import json
 import re
 import subprocess
@@ -4114,12 +4137,14 @@ def salt_path(smi: str) -> tuple[dict, dict]:
 
 def bonded_goldens_phase():
     """The 14 bonded goldens verbatim in f64 on the card, each on the
-    matrix engine with P1 launched and no plain call: their rows and dumps
-    against the reference binary (tpumd_torch.bonded_goldens.failures, the
-    CPU tests' comparison) and their last rows against the same deck on the
-    CPU; then water_shake forced onto the matrix engine against its log
-    and dump."""
+    engine "auto" picks (bonded_goldens.ON_GRID: the cell grid with
+    B1-special launched; the others the matrix engine with P1 launched)
+    and no plain call: their rows and dumps against the reference binary
+    (tpumd_torch.bonded_goldens.failures, the CPU tests' comparison) and
+    their last rows against the same deck on the CPU; then water_shake
+    forced onto the matrix engine against its log and dump."""
     from tpumd_torch import bonded_goldens as bg
+    from tpumd_torch.ops import lj_cellgrid
     from tpumd_torch.ops.gather import counts
     gold = str(GOLDEN.parent)
     notes = []
@@ -4129,22 +4154,27 @@ def bonded_goldens_phase():
                 tempfile.TemporaryDirectory() as where:
             cpu = bg.run(gold, name, cpu_dir, "cpu", torch.float64)
             counts.reset()
+            lj_cellgrid.counts.reset()
             script = bg.run(gold, name, where, "cuda", torch.float64)
             launches, plain = counts.kernel_launches, counts.plain_calls
+            if name in bg.ON_GRID:
+                launches = lj_cellgrid.counts.special_launches
+                plain += lj_cellgrid.counts.plain_calls
             bad = bg.failures(gold, name, script, where)
         got, want = script.sim.last_thermo, cpu.sim.last_thermo
         for key, w in want.items():
             if not abs(got[key] - w) <= 1e-9 * max(abs(w), 1e-6):
                 bad.append(f"{name} {key}: card {got[key]!r} vs CPU {w!r}")
+        kernel = "B1-special" if name in bg.ON_GRID else "P1"
         if bad or launches == 0 or plain:
             raise AssertionError(f"bonded golden {name}: {bad[:6]}; "
-                                 f"row_gather launches {launches}, plain "
+                                 f"{kernel} launches {launches}, plain "
                                  f"calls {plain}")
         extra = ""
         if name == "bq":
             extra = (f", {int((~script.sim.bonded['bond'].alive).sum())} "
                      "bonds broken")
-        notes.append(f"{name} P1 x{launches}{extra}")
+        notes.append(f"{name} {kernel} x{launches}{extra}")
     phase("bonded", f"14 bonded goldens verbatim in f64 on the card "
                     f"({time.perf_counter() - t0:.1f} s, with their CPU "
                     "runs), rows and dumps to the reference binary at "
@@ -4166,9 +4196,11 @@ def bonded_goldens_phase():
                     f"P1 x{counts.kernel_launches}")
 
 
-def hyb_setup(data: Path, n: int, dtype, thermo: int = 100):
+def hyb_setup(data: Path, n: int, dtype, thermo: int = 100,
+              mode: str = "matrix"):
     """LammpsScript of IN_HYB32K (n^3 cells) on the card, verbose off,
-    before its first run."""
+    before its first run, on the engine mode: the matrix engine by default
+    (the hyb32k path's; "auto" takes the grid since B1-special)."""
     from tpumd_torch import bench_targets as bt
     from tpumd_torch.script.parser import LammpsScript
     script = LammpsScript(device="cuda", dtype=dtype)
@@ -4176,6 +4208,7 @@ def hyb_setup(data: Path, n: int, dtype, thermo: int = 100):
         script.run_string(bt.IN_HYB32K.format(data=data, n=n,
                                               thermo=thermo))
     script.sim.verbose = False
+    script.sim.neighbor_mode = mode
     return script
 
 
@@ -4343,7 +4376,8 @@ def hyb32k_path(smi: str) -> tuple[dict, dict]:
     k = p1_at_shape("IN_HYB32K", table, idx, len(seen))
     del script, sim, s
     torch.cuda.empty_cache()
-    return k, {"launches": launches, "sps": sps}
+    return k, {"launches": launches, "sps": sps, "row0_64": row0_64,
+               "row100_64": row100_64}
 
 HOST_GOLDENS = {"fix_forces": 5, "press_ber": 6, "deform": 10, "fix_move": 5}
 
@@ -6569,6 +6603,497 @@ def replica_small_card_vs_cpu(tmp: Path):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------------------
+# The one-card part of the parallel layer: B1's special-weighted
+# variant and IN_HYB32K on the grid, the r/k split on two streams, balance
+# and fix balance, and atom_style ellipsoid.
+
+def live_by_tag(t, tag):
+    """The live rows of t (padding dropped) in tag order."""
+    from tpumd_torch.core.state import tag_rows
+    return t[tag_rows(tag, int((tag > 0).sum()))]
+
+
+def special_pairs(s, neigh, c, special) -> tuple[int, int]:
+    """(unordered pairs that B1-special weighs on this list: live entries
+    within the cutoff whose weight is not 0, halved; the list's live
+    entries), counted in f64 by the plain sweep's own entry walk."""
+    from tpumd_torch.ops.cellgrid_pairlist import list_entries
+    _, _, _, r2, code = list_entries(s.x.double(), box_f64(s.box),
+                                     neigh.pairs, neigh.npairs,
+                                     with_codes=True)
+    w = torch.tensor((1.0,) + tuple(special), dtype=torch.float64,
+                     device=r2.device)[code]
+    return int(((r2 < c.cutsq) & (w != 0)).sum()) // 2, \
+        int(neigh.npairs.sum())
+
+
+def b1_special_vs_plain(sim) -> dict:
+    """B1's special-weighted variant at IN_HYB32K's grid shape (the f64
+    grid run's step-0 state, and that state in f32 over the same list):
+    against its plain list sweep in every flag combination (forces within
+    TOL_LIST of max|f|: f32 2e-6, f64 1e-13; energies and virial within
+    TOL) and, in f64, against the stencil oracle matching the special tags
+    (TOL_ORACLE); timed in f32 with the main path's flags (forces only) in
+    the order plain, kernel, kernel, plain, beside its bound and beside B1
+    without the weights (code-0 entries only) on the same list.  Its
+    launches here are a comparison's: the counts are left as they were."""
+    from tpumd_torch.md.verlet import grid_special
+    from tpumd_torch.ops.lj_cellgrid import counts, lj_cellgrid, \
+        lj_cellgrid_plain, lj_pairlist_plain
+    saved = dict(vars(counts))
+    s, neigh, _ = sim._carry
+    cfg, valid = sim._neigh_cfg, neigh.valid
+    w = grid_special(s, sim._ctx)["special"]
+    c = sim.pair.kernel_coeffs()
+    plist = (neigh.pairs, neigh.npairs, neigh.row2slot)
+    out, notes = {}, []
+    for dtype in (torch.float64, torch.float32):
+        x, box = s.x.to(dtype), s.box.to(device=s.x.device, dtype=dtype)
+        worst = 0.0
+        for eflag, vflag in ((0, 0), (1, 1), (1, 0), (0, 1)):
+            k = lj_cellgrid(x, valid, box, cfg, c, eflag, vflag, plist,
+                            special=w)
+            p = lj_pairlist_plain(x, box, c, eflag, vflag, *plist[:2],
+                                  special=w)
+            err = check_close(f"B1-special {str(dtype)[6:]} e{eflag}v{vflag}",
+                              k[0], p[0], (k[1],), (p[1],), k[2], p[2],
+                              TOL[dtype], eflag, vflag)
+            if err > TOL_LIST[dtype]:
+                raise AssertionError(f"B1-special {dtype}: forces {err} of "
+                                     f"max|f| from the plain list sweep > "
+                                     f"{TOL_LIST[dtype]}")
+            worst = max(worst, err)
+            if dtype == torch.float32 and (eflag, vflag) == (0, 0):
+                out["max_abs_err"] = float((k[0] - p[0]).abs().max())
+        notes.append(f"{str(dtype)[6:]} {worst:.3g}")
+        if dtype == torch.float64:
+            k = lj_cellgrid(x, valid, box, cfg, c, 1, 1, plist, special=w)
+            o = lj_cellgrid_plain(x, valid, box, cfg, c, 1, 1, special=(
+                s.tag, s.special_tags, s.special_codes, w))
+            oerr = check_close("B1-special f64 vs the stencil oracle", k[0],
+                               o[0], (k[1],), (o[1],), k[2], o[2],
+                               TOL[dtype], 1, 1)
+            if oerr > TOL_ORACLE[dtype]:
+                raise AssertionError(f"B1-special f64: forces {oerr} of "
+                                     "max|f| from the stencil oracle")
+            notes.append(f"the f64 stencil oracle {oerr:.3g}")
+    x32, box32 = s.x.float(), s.box.to(device=s.x.device,
+                                       dtype=torch.float32)
+    out.update(time_kernel(
+        "lj_cellgrid special",
+        lambda: lj_cellgrid(x32, valid, box32, cfg, c, 0, 0, plist,
+                            special=w),
+        lambda: lj_pairlist_plain(x32, box32, c, 0, 0, *plist[:2],
+                                  special=w),
+        lambda: lj_cellgrid(x32, valid, box32, cfg, c, 1, 1, plist,
+                            special=w),
+        shape="IN_HYB32K grid", dtype="f32"))
+    unweighed = cuda_ms(lambda: lj_cellgrid(x32, valid, box32, cfg, c, 0, 0,
+                                            plist), 200)
+    nlj, entries = special_pairs(s, neigh, c, w)
+    np_, natoms = cfg.capacity, sim.natoms
+    # x and validity read, f written (f32), the box lengths
+    nbytes = np_ * (12 + 1 + 12) + 12
+    out["bound_ms"], out["bound_by"] = bound(nlj, 0, nbytes)
+    floor = 4 * entries + 4 * np_ + 8 * natoms
+    floor_ms, floor_by = bound(nlj, 0, nbytes + floor)
+    phase("kernel", f"lj_cellgrid special at IN_HYB32K's grid shape (grid "
+                    f"{cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cap} K "
+                    f"{plist[0].shape[1]}, weights {w}): max|f_kernel - "
+                    f"f_plain| / max|f| over the four flag combinations "
+                    + ", ".join(notes) + f"; {nlj} unordered weighed pairs "
+                    f"({2 * nlj / natoms:.2f} an atom) of {entries} list "
+                    f"entries ({entries / natoms:.2f} a row), {nbytes} "
+                    f"bytes -> bound {out['bound_ms']:.6f} ms "
+                    f"({out['bound_by']}); the list's floor {floor} bytes "
+                    f"more -> {floor_ms:.6f} ms ({floor_by}); B1 without "
+                    f"the weights on this list {unweighed:.4f} ms")
+    vars(counts).update(saved)
+    return out
+
+
+def hyb32k_grid_path(smi: str, matrix: dict) -> tuple[dict, dict]:
+    """IN_HYB32K on the cell grid, where "auto" sends it since B1's
+    special-weighted variant: in f64 the step-0 row against the matrix
+    engine's f64 row of this call (hyb32k_path) to 1e-10 and the step-100
+    row to 1e-7 (the engines' roundings part over 100 steps);
+    B1-special against its plain versions at that state
+    (b1_special_vs_plain); then in f32 from the f64 deck's velocities the
+    main path: step-0 forces and the step-100 row against the f64 grid
+    run's (the f32 gates), 500 timed steps beside the matrix engine's,
+    B1-special once per force evaluation and no plain call, the list's
+    builds and refresh calls, a profile of 20 steps, and the list build at
+    the final state (with the special tags) against its plain build."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.ops import gather
+    from tpumd_torch.ops.lj_cellgrid import counts
+    with tempfile.TemporaryDirectory() as tmpdir:
+        data = Path(tmpdir) / "data.hyb"
+        bt.hyb_cell(data)
+        ref = hyb_setup(data, bt.HYB32K_REPLICAS, torch.float64, mode="auto")
+        v64 = ref.sim.state.v.clone()
+        ref.run_string("run 0")
+        sim = ref.sim
+        row0 = dict(sim.last_thermo)
+        bad = bt.gate_failures(row0, {k: (matrix["row0_64"][k], 1e-10)
+                                      for k in bt.HYB_KEYS})
+        if bad or not sim._ctx.is_cellgrid or sim.state.special_tags is None:
+            raise AssertionError(f"IN_HYB32K f64 on the grid, step 0 "
+                                 f"against the matrix engine: {bad}, grid "
+                                 f"{sim._ctx.is_cellgrid}")
+        f0_64 = live_by_tag(sim.state.f, sim.state.tag).clone()
+        fmax0 = float(f0_64.abs().max())
+        k = b1_special_vs_plain(sim)
+        ref.run_string("run 100")
+        row100_64 = dict(sim.last_thermo)
+        bad = bt.gate_failures(row100_64, {kk: (matrix["row100_64"][kk],
+                                                1e-7) for kk in bt.HYB_KEYS})
+        if bad:
+            raise AssertionError(f"IN_HYB32K f64 on the grid, step 100 "
+                                 f"against the matrix engine: {bad}")
+        cfg = sim._neigh_cfg
+        phase("hyb32k_grid", f"IN_HYB32K f64 on the grid ({cfg.nx}x{cfg.ny}"
+                             f"x{cfg.nz} cells, cap {cfg.cap}, K "
+                             f"{sim._ctx.pairlist_k}): step 0 = the matrix "
+                             f"engine's row to 1e-10, step 100 to 1e-7: "
+                             f"{ {kk: row100_64[kk] for kk in bt.HYB_KEYS} }")
+        del ref, sim
+        torch.cuda.empty_cache()
+        # the main path: the counts set to 0 just before it, read after
+        counts.reset()
+        reset_list_counts()
+        gather.counts.reset()
+        with ForceEvals() as fe:
+            t0 = time.perf_counter()
+            script = hyb_setup(data, bt.HYB32K_REPLICAS, torch.float32,
+                               mode="auto")
+            sim = script.sim
+            sim.state = sim.state.replace(v=v64.to(torch.float32))
+            script.run_string("run 0")
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            f0 = live_by_tag(sim.state.f, sim.state.tag).double()
+            script.run_string("run 100")
+            row100 = dict(sim.last_thermo)
+            lt0 = sim.loop_time
+            script.run_string("run 500")
+            torch.cuda.synchronize()
+            sps = 500 / (sim.loop_time - lt0)
+        evals = fe.count
+    launches, special, plain = (counts.kernel_launches,
+                                counts.special_launches, counts.plain_calls)
+    builds, gates, list_plain = list_counts()
+    plain += list_plain + gather.counts.plain_calls
+    ferr = float((f0 - f0_64).abs().max())
+    bad = bt.gate_failures(row100, {kk: (row100_64[kk], bt.HYB_F32_ROW_RTOL)
+                                    for kk in bt.HYB_KEYS})
+    if not ferr <= bt.HYB_F32_FORCE_TOL * fmax0 or bad:
+        raise AssertionError(f"IN_HYB32K f32 on the grid: step-0 forces "
+                             f"{ferr} > {bt.HYB_F32_FORCE_TOL} * {fmax0}, or "
+                             f"step 100 {bad}")
+    if not special == launches == evals or plain or not sim._ctx.is_cellgrid:
+        raise AssertionError(f"IN_HYB32K f32 on the grid: B1-special "
+                             f"launches {special} (B1 {launches}) vs force "
+                             f"evaluations {evals}, plain calls {plain}")
+    s, neigh, _ = sim._carry
+    natoms = 256 * bt.HYB32K_REPLICAS ** 3
+    finite = bool(torch.isfinite(s.x).all()) and bool(
+        torch.isfinite(s.v).all()) and not bool(neigh.overflow)
+    if not finite or int((s.tag > 0).sum()) != natoms:
+        raise AssertionError("IN_HYB32K f32 on the grid: a NaN, an "
+                             "overflow or a lost atom")
+    phase("hyb32k_grid", f"IN_HYB32K f32 on the grid: set-up {setup_s:.3f} "
+                         f"s; step-0 forces = f64 to {ferr:.3e} (<= "
+                         f"{bt.HYB_F32_FORCE_TOL} x max|f| {fmax0:.4f}); "
+                         f"step 100 = f64 to {bt.HYB_F32_ROW_RTOL}; timed "
+                         f"500 steps: {sps:.2f} timesteps/s, "
+                         f"{sps * natoms / 1e6:.3f} Matom-step/s on {smi} "
+                         f"(the matrix engine's in this call: "
+                         f"{matrix['sps']:.2f}); B1-special launches "
+                         f"{special} = force evaluations {evals}, plain "
+                         f"calls 0; list builds {builds}, refresh launches "
+                         f"{gates}, refreshes {sim.list_refreshes}; P1 "
+                         f"launches {gather.counts.kernel_launches}")
+    phase("hyb32k_grid", "IN_HYB32K grid " + profile_steps(script, 20,
+                                                           1e3 / sps))
+    kb = time_build("hyb32k_grid", (s.x, neigh.valid, s.tag, s.special_tags,
+                                    s.special_codes, s.box, sim._neigh_cfg,
+                                    sim._ctx.pairlist_k, None, ()))
+    m = {"launches": special, "build_launches": builds, "gates": gates,
+         "refreshes": sim.list_refreshes, "sps": sps, "build": kb}
+    if gates:
+        m["upkeep"] = time_upkeep("hyb32k_grid", sim, build=False,
+                                  refresh=sim.list_refreshes > 0)
+    del script, sim, s, neigh
+    torch.cuda.empty_cache()
+    return k, m
+
+
+def stream_times(fn, n: int = 5) -> dict:
+    """Per call of fn under torch.profiler: each stream's kernel ms, their
+    sum and the union of the kernels' intervals on the card (what they
+    overlap is the sum less the union), from the Chrome trace; empty if
+    the trace holds no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        path = Path(tmpdir) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+              (e.get("args") or {}).get("stream", e.get("tid")))
+             for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                 "gpu_memset")
+             and "dur" in e]
+    if not spans:
+        return {}
+    per = {}
+    for a, b, st in spans:
+        per[st] = per.get(st, 0.0) + (b - a)
+    union, end = 0.0, -np.inf
+    for a, b, _ in sorted(spans):
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    return {"streams": {st: v / 1e3 / n for st, v in per.items()},
+            "sum": sum(per.values()) / 1e3 / n, "union": union / 1e3 / n}
+
+
+def host_sync(fn) -> str:
+    """Where fn first makes the host wait for the card: under
+    torch.cuda.set_sync_debug_mode("error") a synchronizing call raises,
+    and the innermost frame of the port's code in its traceback (file:line)
+    names it; "none" when fn runs through."""
+    import traceback
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as err:
+        ours = [fr for fr in traceback.extract_tb(err.__traceback__)
+                if "tpumd_torch" in fr.filename]
+        return (f"{Path(ours[-1].filename).name}:{ours[-1].lineno}"
+                if ours else "outside the port") + f" ({str(err)[:60]})"
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return "none"
+
+
+def rk_split_phase(smi: str) -> dict:
+    """The r/k-space split (tpumd_torch/parallel/rkspace.py) at
+    rhodo_class (the peptide replicated 2x2x4, 32,064 atoms, CHARMM + PPPM
+    1e-4, the grid) in f64 at the set-up's state: the split (k-space on a
+    side stream) = the fused evaluation to 1e-11 of max|f|; then the
+    split, the fused evaluation, the r-space part and PPPM alone timed by
+    CUDA events (the card's span of 20 calls) and by the host clock to a
+    synchronize, in the order fused, split, split, fused; each stream's
+    kernel time and their overlap under the profiler; and the first host
+    read (a synchronizing call) in the k-space branch and in the r-space
+    part, which would serialise the two streams."""
+    from tpumd_torch.md.verlet import compute_forces
+    from tpumd_torch.parallel import rkspace
+    script = rhodo_setup("2 2 4", "cuda", torch.float64)
+    script.run_string("run 0")
+    sim = script.sim
+    s, neigh, _ = sim._carry
+    ctx = sim._ctx
+    f_split, f_fused = rkspace.dryrun_rk_split(sim)
+    torch.cuda.synchronize()
+    fmax = float(f_fused.abs().max())
+    err = float((f_split - f_fused).abs().max())
+    if not err <= 1e-11 * fmax or not ctx.is_cellgrid:
+        raise AssertionError(f"r/k split at rhodo_class: max|f_split - "
+                             f"f_fused| {err} > 1e-11 x {fmax}")
+    split = rkspace.make_split_force_fn(ctx)
+    fns = {"fused": lambda: compute_forces(s, neigh, ctx, False, False),
+           "split": lambda: split(s, neigh),
+           "r-space": lambda: compute_forces(s, neigh, ctx, False, False,
+                                             cats=rkspace.RCATS),
+           "PPPM": lambda: rkspace.kspace_forces(s, ctx)}
+
+    def wall_ms(fn, n=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+    ev, wall = {}, {}
+    for name in ("fused", "split", "split", "fused", "r-space", "PPPM"):
+        ev.setdefault(name, []).append(cuda_ms(fns[name], 20, ahead=False))
+        wall.setdefault(name, []).append(wall_ms(fns[name]))
+    ev = {k: min(v) for k, v in ev.items()}
+    wall = {k: min(v) for k, v in wall.items()}
+    streams = {name: stream_times(fns[name]) for name in ("split", "fused")}
+    syncs = {name: host_sync(fns[name]) for name in ("PPPM", "r-space")}
+    prof = "; ".join(
+        f"{name}: " + (", ".join(f"stream {st} {v:.4f}" for st, v in
+                                 t["streams"].items())
+                       + f", sum {t['sum']:.4f}, union {t['union']:.4f} ms "
+                       f"(overlap {t['sum'] - t['union']:.4f})"
+                       if t else "no kernel in the trace (not measured)")
+        for name, t in streams.items())
+    phase("rksplit", f"rhodo_class f64 ({sim.natoms} atoms, PPPM mesh "
+                     f"{ctx.kspace.nx}x{ctx.kspace.ny}x{ctx.kspace.nz}): "
+                     f"max|f_split - f_fused| = {err:.3e} (<= 1e-11 x max|f|"
+                     f" {fmax:.4f}) on {smi}")
+    phase("rksplit", "CUDA events ms a call: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ev.items()) + "; host clock ms a call: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in wall.items())
+          + f"; PPPM {ev['PPPM'] / ev['fused']:.1%} of the fused "
+          f"evaluation; the split {ev['split'] / ev['fused']:.3f} x the "
+          f"fused (max(r, k) {max(ev['r-space'], ev['PPPM']):.4f} ms)")
+    phase("rksplit", f"profiled kernels ms a call: {prof}")
+    phase("rksplit", "the first host read (a synchronizing call) in each "
+                     "half: " + "; ".join(f"{k} {v}" for k, v in
+                                          syncs.items()))
+    out = {"ev": ev, "wall": wall, "streams": streams, "syncs": syncs,
+           "err": err}
+    del script, sim, s, neigh, f_split, f_fused
+    torch.cuda.empty_cache()
+    return out
+
+
+BALANCE_CELLS = 20   # in.lj's box: 32,000 atoms
+
+
+def balance32k_phase() -> tuple[dict, dict]:
+    """balance and fix balance with 8 parts (``part_count`` set to 8, as
+    the CPU tests set it) on the 32k in.lj deck on the matrix engine, its
+    list checked every step, f64:
+    ``balance 1.1 rcb`` and ``fix fb all balance 50 1.0 rcb`` through
+    LammpsScript, against the same deck without them: the rows of steps
+    0, 50 and 100 equal to 1e-12 (step 0) and 1e-9 (the row order changes
+    the sums' order), the printed line and the fix's log lines, P1
+    launched and no plain call in both runs; P1 bit-equal to its plain
+    version on every kind of input the balanced run gave it, and timed at
+    its packed j rows (p1_at_shape)."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.ops import gather
+    from tpumd_torch.parallel import balance
+    from tpumd_torch.script.parser import LammpsScript
+    # the list checked every step, so that the fix's re-set-ups (a list
+    # built anew) leave the pairs summed as they were
+    deck = bt.IN_LJ.format(n=BALANCE_CELLS) + (
+        "neigh_modify    delay 0 every 1 check yes\nthermo          50\n")
+    natoms = 4 * BALANCE_CELLS ** 3
+    rows, notes = {}, {}
+    saved = balance.part_count
+    balance.part_count = lambda device: 8
+    try:
+        for name, extra in (("plain", ""),
+                            ("balanced", "balance 1.1 rcb\nfix fb all "
+                                         "balance 50 1.0 rcb\n")):
+            gather.counts.reset()
+            script = LammpsScript(device="cuda", dtype=torch.float64)
+            printed, seen = io.StringIO(), {}
+            with contextlib.redirect_stdout(printed), recording_p1(seen):
+                script.run_string(deck)
+                script.sim.neighbor_mode = "matrix"
+                script.run_string(extra)
+                order = script.sim.state.tag.clone()
+                script.run_string("run 100")
+            sim = script.sim
+            rows[name] = {int(r["step"]): r for r in sim.thermo_rows}
+            launches, plain = gather.counts.kernel_launches, \
+                gather.counts.plain_calls
+            if sim._ctx.is_cellgrid or not launches or plain:
+                raise AssertionError(f"balance32k {name}: P1 launches "
+                                     f"{launches}, plain {plain}")
+            notes[name] = ([ln.strip() for ln in printed.getvalue()
+                            .splitlines() if "rebalancing" in ln]
+                           + [ln for ln in sim.log_lines
+                              if "fix balance" in ln], launches,
+                           bool(torch.equal(order, torch.sort(order)[0])))
+            del script, sim
+    finally:
+        balance.part_count = saved
+    lines, launches, sorted_rows = notes["balanced"]
+    if sorted(rows["plain"]) != sorted(rows["balanced"]) != [0, 50, 100] \
+            or len(lines) != 3 or sorted_rows:
+        raise AssertionError(f"balance32k: rows {sorted(rows['balanced'])}, "
+                             f"lines {lines}, rows left in tag order "
+                             f"{sorted_rows}")
+    for step, r in rows["balanced"].items():
+        tol = 1e-12 if step == 0 else 1e-9
+        bad = bt.gate_failures(r, {k: (rows["plain"][step][k], tol)
+                                   for k in ("temp", "epair", "etotal",
+                                             "press")})
+        if bad:
+            raise AssertionError(f"balance32k step {step}: {bad}")
+    phase("balance", f"32k in.lj f64 on the matrix engine, 8 parts: "
+                     f"{'; '.join(lines)}; rows of steps 0, 50, 100 = the "
+                     f"unbalanced run's (1e-12, 1e-9): etotal "
+                     f"{rows['balanced'][100]['etotal']!r} vs "
+                     f"{rows['plain'][100]['etotal']!r}; P1 launches "
+                     f"{launches} (unbalanced {notes['plain'][1]}), plain "
+                     "calls 0")
+    kinds = p1_equal_plain(seen.values(), "balance32k input")
+    table, idx = max((v for (d, t, i), v in seen.items()
+                      if t[0] == natoms and len(i) == 2),
+                     key=lambda v: v[1].numel())
+    k = p1_at_shape("balance32k", table, idx, kinds)
+    return k, {"launches": launches}
+
+
+def ellipsoid_card_vs_cpu():
+    """bench_targets' ellipsoid liquid (8^3 = 512 ellipsoids, every eighth
+    a point) 50 steps in f64 on the card (the grid, B1 launched, no plain
+    call) and on the CPU: every row equal to 1e-10, and the flags,
+    semi-axes, quaternions, angular momenta, torques and masses, moved
+    with their atoms through the re-bins, equal by tag to the data
+    file's."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.io.restart import tag_ordered
+    from tpumd_torch.ops.lj_cellgrid import counts
+    from tpumd_torch.script.parser import LammpsScript
+    fields = ("ellipsoid", "shape", "quat", "angmom", "torque", "rmass")
+    rows, got = {}, {}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        data = Path(tmpdir) / "data.ell"
+        n = bt.ellipsoid_data(data, 8)
+        for dev in ("cpu", "cuda"):
+            counts.reset()
+            script = LammpsScript(device=dev, dtype=torch.float64)
+            with contextlib.redirect_stdout(sys.stderr):
+                script.run_string(bt.IN_ELLIPSOID.format(data=data))
+                start = {k: getattr(tag_ordered(script.sim), k).cpu()
+                         for k in fields}
+                script.run_string("run 50")
+            sim = script.sim
+            rows[dev] = {int(r["step"]): r for r in sim.thermo_rows}
+            end = tag_ordered(sim)
+            got[dev] = all(torch.equal(getattr(end, k).cpu(), start[k])
+                           for k in fields)
+        if not sim._ctx.is_cellgrid or counts.kernel_launches < 50 \
+                or counts.plain_calls or not all(got.values()):
+            raise AssertionError(f"ellipsoid deck: grid "
+                                 f"{sim._ctx.is_cellgrid}, B1 launches "
+                                 f"{counts.kernel_launches}, plain "
+                                 f"{counts.plain_calls}, fields kept {got}")
+    for step, r in rows["cuda"].items():
+        bad = bt.gate_failures(r, {k: (rows["cpu"][step][k], 1e-10)
+                                    for k in ("temp", "epair", "etotal",
+                                              "press")})
+        if bad:
+            raise AssertionError(f"ellipsoid deck step {step}: {bad}")
+    phase("ellipsoid", f"{n} ellipsoids (atom_style ellipsoid) f64 50 "
+                       f"steps, card (grid, B1 {counts.kernel_launches} "
+                       f"launches) = CPU to 1e-10 at steps "
+                       f"{sorted(rows['cuda'])}; the six per-atom fields "
+                       "equal by tag after the re-bins")
+
+
 def main():
     t_start = time.perf_counter()
     smi = environment()
@@ -6620,6 +7145,7 @@ def main():
     k_salt, m_salt = salt_path(smi)
     bonded_goldens_phase()
     k_hyb, m_hyb = hyb32k_path(smi)
+    k_hgrid, m_hgrid = hyb32k_grid_path(smi, m_hyb)
     host_goldens_phase()
     m_min = min_path(smi)
     m_pb = pressber_path(smi)
@@ -6662,6 +7188,12 @@ def main():
     del sim
     torch.cuda.empty_cache()
     phase("replica", f"the replica and library phases {replica_s:.1f} s")
+    t_parallel = time.perf_counter()
+    k_bal, m_bal = balance32k_phase()
+    rk_split_phase(smi)
+    ellipsoid_card_vs_cpu()
+    phase("parallel", f"the parallel and ellipsoid phases "
+                      f"{time.perf_counter() - t_parallel:.1f} s")
     # the list kernels' launches on the main paths: builds at set-up and
     # re-bins, and refresh calls, most of which pass the gate and return
     # (those that rebuild are the refreshes taken); an entry each
@@ -6678,7 +7210,7 @@ def main():
               *[(name, m["build"], m["build_launches"])
                 for name, m in (("min32k", m_min), ("pressber32k", m_pb),
                                 ("deform32k", m_df), ("kappa32k", m_kappa),
-                                *replicas)]]
+                                ("hyb32k_grid", m_hgrid), *replicas)]]
     searched = {"in.lj": "tpumd/ops/pallas_lj.py:25",
                 "analysis32k": "tpumd/ops/pallas_lj.py:25",
                 "chain": "tpumd/ops/pallas_lj.py:146",
@@ -6687,6 +7219,7 @@ def main():
                 "pressber32k": "tpumd/ops/pallas_lj.py:25",
                 "deform32k": "tpumd/ops/pallas_lj.py:25",
                 "kappa32k": "tpumd/ops/pallas_lj.py:25",
+                "hyb32k_grid": "tpumd/ops/pallas_lj.py:25",
                 **{name: "tpumd/ops/pallas_lj.py:25" for name, _ in replicas},
                 "rhodo_class": "tpumd/ops/pallas_charmm.py:43",
                 "water_npt30k": "tpumd/ops/pallas_charmm.py:43",
@@ -6697,7 +7230,8 @@ def main():
     calls = list(builds)
     for name, m in (("in.lj", m_lj), ("eam", m_eam_list),
                     ("rhodo_class", m_charmm), ("min32k", m_min),
-                    ("deform32k", m_df), ("kappa32k", m_kappa)):
+                    ("deform32k", m_df), ("kappa32k", m_kappa),
+                    ("hyb32k_grid", m_hgrid)):
         if "upkeep" not in m:
             continue
         u = m["upkeep"]
@@ -6722,6 +7256,9 @@ def main():
               for name, m in (("min32k", m_min), ("pressber32k", m_pb),
                               ("deform32k", m_df), ("kappa32k", m_kappa),
                               *replicas)],
+            ("lj_cellgrid special hyb32k",
+             "tpumd_torch/csrc/lj_fene_cellgrid.cu",
+             "tpumd/ops/pallas_lj.py:25", k_hgrid, m_hgrid),
             ("lj_fene_cellgrid", "tpumd_torch/csrc/lj_fene_cellgrid.cu",
              "tpumd/ops/pallas_lj.py:146", k_fene, m_fene),
             ("eam_rho_cellgrid", eam_src, "tpumd/ops/pallas_eam.py:99",
@@ -6745,6 +7282,8 @@ def main():
              "tools/probes/gather_probe.py:37", k_salt, m_salt),
             ("row_gather hyb32k", "tpumd_torch/csrc/row_gather.cu",
              "tools/probes/gather_probe.py:37", k_hyb, m_hyb),
+            ("row_gather balance32k", "tpumd_torch/csrc/row_gather.cu",
+             "tools/probes/gather_probe.py:37", k_bal, m_bal),
             *[(f"row_gather {name}", "tpumd_torch/csrc/row_gather.cu",
                "tools/probes/gather_probe.py:37", k, m)
               for name, k, m in (("sw32k", k_sw, m_sw),

@@ -4,12 +4,15 @@
   bonds, CHARMM angles, SHAKE, lj/charmm/coul/long, PPPM) gives the same
   step-0 forces and energies on the cell grid (B5's plain version) and on
   the matrix engine (P1's plain version), to 1e-10;
-- the engine rules: the pure-FENE chain deck keeps B2 on the grid, a
-  per-tuple style beside lj/cut goes to the matrix engine under "auto"
-  and raises under a forced cellgrid, naming the matrix engine;
+- the engine rules: the pure-FENE chain deck keeps B2 on the grid,
+  per-tuple styles beside single-type lj/cut take the grid under "auto"
+  (B1-special) and equal the forced matrix engine, beside two-type lj/cut
+  the matrix engine, and raise under a forced cellgrid there, naming the
+  matrix engine;
 - branched FENE: bonded2/in.feneexp's styles (and plain fene) on a
   generated chain with cross-links, atoms with 3 bond partners, through
-  tpumd and the port (matrix engine, where FENE runs per tuple);
+  tpumd and the port (per tuple: fene/expand on the grid, fene on the
+  matrix engine);
 - the hyb32k cell (bench_targets.hyb_cell): the port against tpumd at
   steps 0 and 100, both against the rows stored in bench_targets, and
   the cell replicated 2x2x2 with per-atom energies equal to the cell's;
@@ -98,13 +101,25 @@ def chain_deck(tmp_path, natoms=500, chain_len=25):
 
 
 def test_engine_rules(tmp_path):
-    """The pure-FENE chain stays on B2; a per-tuple style beside lj/cut
-    goes to the matrix engine, and raises on a forced cellgrid."""
+    """The pure-FENE chain stays on B2; per-tuple styles beside
+    single-type lj/cut (the hyb cell 2x2x2) take the grid under "auto",
+    where B1's special-weighted variant weighs the 1-4 pairs, and the
+    forced matrix engine gives the same step-0 row; beside two-type lj/cut
+    they go to the matrix engine, and raise on a forced cellgrid."""
     path = chain_deck(tmp_path)
     chain = port_run(bt.IN_CHAIN.format(data=path) + "run 0\n", tmp_path)
     assert chain.sim._ctx.is_cellgrid
     assert chain.sim._ctx.kernel_bond is not None
     assert chain.sim._ctx.bonded == ()
+    hyb = hyb_deck(tmp_path, 2) + "run 0\n"
+    grid = port_run(hyb, tmp_path).sim
+    matrix = port_run(hyb, tmp_path, "matrix").sim
+    assert grid._ctx.is_cellgrid and not matrix._ctx.is_cellgrid
+    assert grid.state.special_tags is not None
+    assert len(grid._ctx.bonded) == 8
+    for k in KEYS:
+        assert grid.last_thermo[k] == pytest.approx(
+            matrix.last_thermo[k], rel=1e-10, abs=1e-10), k
     d = os.path.join(GOLD, "bonded_misc")
     shutil.copy(os.path.join(d, "data.water"), tmp_path)
     with open(os.path.join(d, "in.test")) as fh:
@@ -189,7 +204,11 @@ def test_branched_fene_against_tpumd(style, coeffs, tmp_path):
     deck = FENE_DECK.format(data=data, style=style, coeffs=coeffs)
     port = port_run(deck, tmp_path).sim
     ref = tpumd_run(deck, tmp_path).sim
-    assert not port._ctx.is_cellgrid and port._ctx.kernel_bond is None
+    # per tuple on either engine: fene/expand beside lj/cut on the grid
+    # (B1-special weighs the 1-2 pairs 0), fene with 3 partners on the
+    # matrix engine (B2 holds 2)
+    assert port._ctx.kernel_bond is None
+    assert port._ctx.is_cellgrid == (style == "fene/expand")
     for k in ("temp", "epair", "ebond", "etotal", "press"):
         assert port.last_thermo[k] == pytest.approx(
             float(ref.last_thermo[k]), rel=1e-9), k
@@ -266,10 +285,12 @@ def test_hyb_f32_force_gaps(n, gap, terms, tmp_path):
     """The f32 force gaps that the hyb32k gates are 3x of, measured again.
     Step 0: the worst atom sits on a harmonic improper at chi > 179.5 deg,
     and every harmonic improper lies within 4 deg of 180.  Each term alone
-    (hyb_term_forces) in f32 on the f64 run's step-100 positions."""
+    (hyb_term_forces) in f32 on the f64 run's step-100 positions.  On
+    the matrix engine, where the gated hyb32k run stays (the cell would
+    take the grid under "auto")."""
     deck = hyb_deck(tmp_path, n)
-    f64 = port_run(deck + "run 0\n", tmp_path)
-    f32 = port_run(deck + "run 0\n", tmp_path, dtype=torch.float32)
+    f64 = port_run(deck + "run 0\n", tmp_path, "matrix")
+    f32 = port_run(deck + "run 0\n", tmp_path, "matrix", dtype=torch.float32)
     a, b = tag_forces(f64.sim), tag_forces(f32.sim).astype(np.float64)
     err = np.abs(b - a).max(-1)
     assert err.max() / np.abs(a).max() == pytest.approx(gap, rel=1e-2)
@@ -282,6 +303,7 @@ def test_hyb_f32_force_gaps(n, gap, terms, tmp_path):
     assert at.size == 1 and chi[at[0]] > 179.5
     f64.run_string("run 100")
     probe = port_run(deck, tmp_path, dtype=torch.float32)
+    probe.sim.neighbor_mode = "matrix"
     x100 = torch.as_tensor(tag_forces(f64.sim, "x"))
     s = probe.sim.state
     probe.sim.state = s.replace(x=x100[s.tag - 1].to(torch.float32))

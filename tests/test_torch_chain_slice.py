@@ -144,7 +144,9 @@ def test_device_rng_mode(tmp_path):
 
 def test_unported_chain_cases_raise(tmp_path):
     """What the LJ+FENE kernel does not take raises, naming itself; a
-    per-tuple bond style beside lj/cut runs on the matrix engine."""
+    per-tuple bond style beside lj/cut runs on the grid (B1's
+    special-weighted variant, the 1-2 pairs at 0), and the forced matrix
+    engine gives its rows."""
     text = _deck(tmp_path, 60, 10)
     for old, new, match in (
             ("special_bonds   fene", "special_bonds   charmm",
@@ -158,13 +160,23 @@ def test_unported_chain_cases_raise(tmp_path):
         script = TScript(device="cpu", dtype=torch.float64)
         with pytest.raises(NotImplementedError, match=match):
             script.run_string(text.replace(old, new) + "run 0\n")
-    script = TScript(device="cpu", dtype=torch.float64)
-    script.run_string(text.replace("bond_style      fene",
-                                   "bond_style      harmonic").replace(
-        "bond_coeff      1 30.0 1.5 1.0 1.0",
-        "bond_coeff      1 30.0 1.0") + "run 0\n")
-    assert not script.sim._ctx.is_cellgrid
-    assert [st.name for st, _ in script.sim._ctx.bonded] == ["harmonic"]
+    harmonic = text.replace("bond_style      fene",
+                            "bond_style      harmonic").replace(
+        "bond_coeff      1 30.0 1.5 1.0 1.0", "bond_coeff      1 30.0 1.0")
+    rows = {}
+    for mode in ("auto", "matrix"):
+        script = TScript(device="cpu", dtype=torch.float64)
+        script.run_string(harmonic)
+        script.sim.neighbor_mode = mode
+        script.run_string("run 10\n")
+        assert script.sim._ctx.is_cellgrid == (mode == "auto")
+        assert [st.name for st, _ in script.sim._ctx.bonded] == ["harmonic"]
+        rows[mode] = script.sim.thermo_rows
+    assert len(rows["auto"]) == len(rows["matrix"]) >= 2
+    for ra, rm in zip(rows["auto"], rows["matrix"]):
+        assert sorted(ra) == sorted(rm)
+        for k in ra:
+            assert ra[k] == pytest.approx(rm[k], rel=1e-10, abs=1e-10), k
 
 
 def test_cli_runs_the_chain_deck(tmp_path):

@@ -69,7 +69,11 @@ runs on a card host without JAX:
   plain tallies (B1) and B5's plain list sweep on the CPU, and the
   distance computes (rdf, coord/atom, cluster/atom, cna/atom, centro/atom,
   orientorder/atom) over the list kernel's occasional list against their
-  plain all-pairs versions on the card.
+  plain all-pairs versions on the card;
+* B1's special-weighted variant over the hyb cell 2x2x2's list, against
+  the plain list sweep and the stencil oracle matching the special tags;
+  the hyb cell on the grid and the ellipsoid liquid, card = CPU; the r/k
+  split on two streams = the fused evaluation at the peptide.
 
 f32 and f64, every energy/virial flag combination; tolerances as in
 chip_smoke.py: forces 5e-5 (f32) or 1e-12 (f64) of max|f|, energies and
@@ -1018,3 +1022,95 @@ def test_respa_deck_on_the_card(tmp_path):
     (card, script), (cpu, _), (_, np1, plain) = _both_devices(deck, 20)
     assert script.sim._ctx.respa is not None and np1 > 20 and plain == 0
     _rows_close(card, cpu)
+
+
+def _hyb_deck(tmp_path, n=2):
+    from tpumd_torch.bench_targets import IN_HYB32K, hyb_cell
+    data = tmp_path / "data.hyb"
+    if not data.exists():
+        hyb_cell(str(data))
+    return IN_HYB32K.format(data=data, n=n, thermo=10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_b1_special_on_the_hyb_grid_equals_plain(dtype, tmp_path):
+    """B1's special-weighted variant over the hyb cell 2x2x2's list (the
+    1-2, 1-3 and 1-4 pairs coded 1-3; weights (0, 0, 0.5) and (0, 1, 1)),
+    every flag, against the plain list sweep (TOL_LIST) and the stencil
+    oracle matching the special tags; its launches counted apart."""
+    _card()
+    script = LammpsScript(device="cuda", dtype=dtype)
+    script.run_string(_hyb_deck(tmp_path) + "run 0\n")
+    sim = script.sim
+    assert sim._ctx.is_cellgrid and sim.state.special_tags is not None
+    s, neigh, _ = sim._carry
+    c = sim.pair.kernel_coeffs()
+    plist = (neigh.pairs, neigh.npairs, neigh.row2slot)
+    for w in ((0.0, 0.0, 0.5), (0.0, 1.0, 1.0)):
+        oracle = b1.lj_cellgrid_plain(
+            s.x.double(), neigh.valid, s.box.to(device="cuda",
+                                                dtype=torch.float64),
+            sim._neigh_cfg, c, 1, 1,
+            special=(s.tag, s.special_tags, s.special_codes, w))
+        for eflag, vflag in FLAGS:
+            b1.counts.reset()
+            fk, ek, wk = b1.lj_cellgrid(s.x, neigh.valid, s.box,
+                                        sim._neigh_cfg, c, eflag, vflag,
+                                        plist, special=w)
+            assert b1.counts.special_launches == b1.counts.kernel_launches \
+                == 1
+            fp, ep, wp = b1.lj_pairlist_plain(s.x, s.box, c, eflag, vflag,
+                                              *plist[:2], special=w)
+            torch.cuda.synchronize()
+            fmax = float(fp.abs().max())
+            assert float((fk - fp).abs().max()) <= TOL_LIST[dtype] * fmax
+            assert float((fk.double() - oracle[0]).abs().max()) \
+                <= TOL[dtype] * fmax
+            if eflag:
+                assert float(ek) == pytest.approx(float(ep), rel=TOL[dtype])
+                assert float(ek) == pytest.approx(float(oracle[1]),
+                                                  rel=TOL[dtype])
+            if vflag:
+                assert torch.allclose(wk, wp, rtol=TOL[dtype],
+                                      atol=TOL[dtype] * float(
+                                          wp.abs().max()))
+
+
+@pytest.mark.cuda
+def test_hyb_and_ellipsoid_decks_on_the_card(tmp_path):
+    """The hyb cell 2x2x2 on the grid (B1-special once per force
+    evaluation, no plain call) and the 512-atom ellipsoid liquid, each 20
+    steps in f64: the card's rows = the CPU's."""
+    _card()
+    from tpumd_torch.bench_targets import IN_ELLIPSOID, ellipsoid_data
+    (card, script), (cpu, _), (nb1, _, plain) = _both_devices(
+        _hyb_deck(tmp_path), 20)
+    assert script.sim._ctx.is_cellgrid and plain == 0
+    assert b1.counts.special_launches == nb1 > 20
+    _rows_close(card, cpu)
+    data = tmp_path / "data.ell"
+    ellipsoid_data(str(data), 8)
+    (card, script), (cpu, _), (nb1, _, plain) = _both_devices(
+        IN_ELLIPSOID.format(data=data), 20)
+    assert script.sim._ctx.is_cellgrid and nb1 > 20 and plain == 0
+    assert script.sim.state.quat is not None
+    _rows_close(card, cpu)
+
+
+@pytest.mark.cuda
+def test_rk_split_on_two_streams_equals_fused():
+    """The peptide with the rhodo_class settings in f64 on the card: the
+    r/k split (k-space on the side stream) = the fused evaluation to
+    1e-11 of max|f|."""
+    _card()
+    from tpumd_torch.parallel import rkspace
+    script = LammpsScript(device="cuda", dtype=torch.float64)
+    script.run_string(IN_RHODO_CLASS.format(golden=GOLDEN).replace(
+        "replicate       2 2 4\n", "") + "run 0\n")
+    f_split, f_fused = rkspace.dryrun_rk_split(script.sim)
+    torch.cuda.synchronize()
+    side = rkspace.side_stream(f_split.device)
+    assert side != torch.cuda.current_stream(f_split.device)
+    scale = float(f_fused.abs().max())
+    assert float((f_split - f_fused).abs().max()) <= 1e-11 * scale

@@ -248,11 +248,12 @@ def test_cli_var_and_log(tmp_path, capsys):
 
 
 def test_unported_command_names_itself():
-    """balance, the one command still unported, raises naming itself; the
-    replica commands are ported and raise on what their lines lack."""
+    """A command of the reference that tpumd lacks (kim_init) raises
+    naming itself; the replica commands are ported and raise on what
+    their lines lack."""
     s = TScript(device="cpu", dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="balance"):
-        s.execute("balance 1.1 shift x 10 1.1")
+    with pytest.raises(NotImplementedError, match="kim_init"):
+        s.execute("kim_init LennardJones_Ar real")
     for line, match in (("neb 0.0 0.01 100 100 10 final f", "fix neb"),
                         ("temper 1000 100 300 3 0 5", "world-style"),
                         ("prd 100 10 10 100 0 ev 2", "replicas")):

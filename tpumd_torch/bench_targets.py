@@ -2159,3 +2159,56 @@ IN_EXTERNAL32K = IN_LJ + """fix             ext all external {mode}
 """
 # the spring constant of the callback that stands in for fix spring/self
 EXTERNAL32K_K = 0.7
+
+
+# ------------------------------------------------------------------------
+# atom_style ellipsoid: a liquid of ellipsoids run as points of their mass
+# (tpumd has no aspherical pair style or integrator).  ellipsoid_data
+# writes n^3 of them on a simple cubic lattice of spacing 1.2 sigma, each
+# moved by up to +-0.1 sigma per axis, with semi-axes 0.3-0.6 sigma,
+# random unit quaternions, density 1, velocities and angular momenta from
+# the seed; every eighth atom has flag 0 (a point of mass 1).
+IN_ELLIPSOID = """units           lj
+atom_style      ellipsoid
+read_data       {data}
+pair_style      lj/cut 2.5
+pair_coeff      1 1 1.0 1.0 2.5
+neighbor        0.3 bin
+fix             1 all nve
+thermo          10
+"""
+
+
+def ellipsoid_data(path, n: int, seed: int = 2026) -> int:
+    """Write IN_ELLIPSOID's data file of n^3 ellipsoids; returns the atom
+    count."""
+    rng = np.random.default_rng(seed)
+    a = 1.2
+    x = np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3) * a + 0.5 * a
+    x = x + rng.uniform(-0.1, 0.1, x.shape)
+    m = len(x)
+    flag = (np.arange(m) % 8 != 7).astype(int)
+    diam = rng.uniform(0.6, 1.2, (m, 3))
+    quat = rng.standard_normal((m, 4))
+    v = rng.standard_normal((m, 3))
+    angmom = 0.1 * rng.standard_normal((m, 3))
+    side = n * a
+    with open(path, "w") as fh:
+        fh.write(f"ellipsoid liquid, {n}^3 sites\n\n{m} atoms\n"
+                 f"{int(flag.sum())} ellipsoids\n1 atom types\n\n"
+                 f"0.0 {side!r} xlo xhi\n0.0 {side!r} ylo yhi\n"
+                 f"0.0 {side!r} zlo zhi\n\nMasses\n\n1 1.0\n\n"
+                 "Atoms # ellipsoid\n\n")
+        for i in range(m):
+            fh.write(f"{i + 1} 1 {flag[i]} 1.0 " + " ".join(
+                repr(float(c)) for c in x[i]) + "\n")
+        fh.write("\nEllipsoids\n\n")
+        for i in np.nonzero(flag)[0]:
+            fh.write(f"{i + 1} " + " ".join(
+                repr(float(c)) for c in (*diam[i], *quat[i])) + "\n")
+        fh.write("\nVelocities\n\n")
+        for i in range(m):
+            fh.write(f"{i + 1} " + " ".join(
+                repr(float(c)) for c in (*v[i], *angmom[i])) + "\n")
+    return m

@@ -6,8 +6,11 @@ own (they write their dumps beside themselves): bonded_extra's in.bondx,
 in.anglex and in.dihx, bonded_misc's in.test, bonded_misc2's in.bnd,
 in.bnd2 and in.bnd3, bonded_table's in.test, bond_quartic's in.test,
 class2's in.test, bonded2's in.hyb, in.multih and in.opls (the last two
-read dihedral/data.di) and dihedral's in.di.  Every one runs on the matrix
-engine.  ``failures`` holds a run to the reference binary at the
+read dihedral/data.di) and dihedral's in.di.  Each runs on the engine
+"auto" picks: the cell grid for the seven whose single-type lj/cut sits in
+a box of at least 2 cutneigh (``ON_GRID``, B1's special-weighted variant
+weighing the special pairs), the matrix engine for the others.
+``failures`` holds a run to the reference binary at the
 tolerances of tpumd's tests of the same deck (tests/test_bonded_extra.py,
 test_breadth_golden.py, test_bonded2_golden.py, test_bonded_table.py,
 test_bond_quartic.py, test_class2.py, test_dihedral_golden.py): the last
@@ -157,14 +160,20 @@ def log_rows(lines, keys) -> dict:
             for step, toks in printed_rows(lines).items()}
 
 
+# the goldens that "auto" puts on the cell grid: single-type lj/cut beside
+# per-tuple bonded styles in a box of at least 2 cutneigh
+ON_GRID = ("bnd", "bnd2", "bnd3", "bq", "hyb", "multih", "opls")
+
+
 def failures(gold: str, name: str, script, where: str) -> list[str]:
     """What of deck name's run misses the reference binary."""
     d, _, _, log, dump, tols = DECKS[name]
     sim = script.sim
     keys = list(sim.thermo_style)
     bad = []
-    if sim._ctx.is_cellgrid:
-        bad.append(f"{name}: ran on the cell grid")
+    if sim._ctx.is_cellgrid != (name in ON_GRID):
+        bad.append(f"{name}: ran on the "
+                   f"{'cell grid' if sim._ctx.is_cellgrid else 'matrix engine'}")
     last = {k: float(v) for k, v in sim.last_thermo.items()}
     if log is None:
         bad += row_failures(f"{name} last row", last, LAST_ROWS[name], tols)

@@ -9,9 +9,15 @@ iz]``, with the molecule ID as a per-atom field: the layout of
 src/MOLECULE/atom_vec_bond.cpp, atom_vec_angle.cpp and
 atom_vec_molecular.cpp, which differ in the topologies they carry),
 ``full`` (``id mol type q x y z [ix iy iz]``, with the
-molecule ID and the charge) and ``sphere`` (``id type diameter density x
+molecule ID and the charge), ``sphere`` (``id type diameter density x
 y z [ix iy iz]``, with the radius, the per-atom mass, the angular velocity
-read from the Velocities section's last three columns, and the torque).
+read from the Velocities section's last three columns, and the torque)
+and ``ellipsoid`` (``id type ellipsoidflag density x y z [ix iy iz]``,
+src/atom_vec_ellipsoid.cpp: the flag, the per-atom mass, the semi-axes
+``shape`` and unit quaternion ``quat`` from the Ellipsoids section, the
+angular momentum ``angmom`` from the Velocities section's last three
+columns, and the torque).  tpumd has no aspherical pair style or
+integrator: an ellipsoid deck runs its atoms as points of their mass.
 """
 
 from __future__ import annotations
@@ -42,6 +48,8 @@ class AtomStyle:
     data_atom: callable
     fields: tuple = ()
     data_vel: callable = None
+    # bonus sections by name: hook(fields, tokens, row), after Atoms
+    sections: dict = dataclasses.field(default_factory=dict)
 
 
 def _simple_layout(has_mol=False, has_q=False):
@@ -78,6 +86,30 @@ def _sphere_data_vel(r):
     return {"omega": [float(r[0]), float(r[1]), float(r[2])]}
 
 
+def _ellipsoid_data_atom(r):
+    """id type ellipsoidflag density x y z (atom_vec_ellipsoid.cpp:65):
+    the density stands in rmass until the Ellipsoids section makes it a
+    mass; with flag 0 it is the mass."""
+    return {"type": int(r[0]), "ellipsoid": int(r[1]), "rmass": float(r[2]),
+            "x": [float(r[3]), float(r[4]), float(r[5])], "_imgcol": 6}
+
+
+def _ellipsoid_data_vel(r):
+    return {"angmom": [float(r[0]), float(r[1]), float(r[2])]} if r else {}
+
+
+def _ellipsoid_bonus(fields, r, k):
+    """id shapex shapey shapez quatw quati quatj quatk
+    (AtomVecEllipsoid::data_atom_bonus, atom_vec_ellipsoid.cpp:386-418):
+    the semi-axes, the normalised quaternion, and rmass = density
+    4 pi / 3 a b c."""
+    shape = [0.5 * float(r[1]), 0.5 * float(r[2]), 0.5 * float(r[3])]
+    quat = np.asarray([float(t) for t in r[4:8]])
+    fields["shape"][k] = shape
+    fields["quat"][k] = quat / np.sqrt((quat * quat).sum())
+    fields["rmass"][k] *= 4.0 * np.pi / 3.0 * shape[0] * shape[1] * shape[2]
+
+
 STYLES = {
     "atomic": AtomStyle("atomic", data_atom=_simple_layout()),
     "charge": AtomStyle("charge", data_atom=_simple_layout(has_q=True),
@@ -92,6 +124,13 @@ STYLES = {
                         data_vel=_sphere_data_vel,
                         fields=(Field("radius"), Field("rmass"),
                                 Field("omega", width=3))),
+    "ellipsoid": AtomStyle(
+        "ellipsoid", data_atom=_ellipsoid_data_atom,
+        data_vel=_ellipsoid_data_vel,
+        fields=(Field("rmass"), Field("ellipsoid", "int"),
+                Field("shape", width=3), Field("quat", width=4),
+                Field("angmom", width=3), Field("torque", width=3)),
+        sections={"Ellipsoids": _ellipsoid_bonus}),
 }
 
 
@@ -115,4 +154,6 @@ def alloc_fields(style: AtomStyle, n: int) -> dict:
         dt = np.int32 if f.kind == "int" else np.float64
         shape = (n,) if f.width == 1 else (n, f.width)
         out[f.name] = np.full(shape, f.default, dtype=dt)
+    if "quat" in out:
+        out["quat"][:, 0] = 1.0     # the identity until a bonus line
     return out

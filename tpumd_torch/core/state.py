@@ -142,6 +142,13 @@ class MDState:
     rmass: torch.Tensor | None = None    # (N,) per-atom mass
     omega: torch.Tensor | None = None    # (N, 3) angular velocity
     torque: torch.Tensor | None = None   # (N, 3)
+    # atom_style ellipsoid (src/atom_vec_ellipsoid.cpp): the ellipsoid
+    # flag, the semi-axes, the unit quaternion (w, i, j, k) and the
+    # angular momentum
+    ellipsoid: torch.Tensor | None = None  # (N,) int32
+    shape: torch.Tensor | None = None      # (N, 3)
+    quat: torch.Tensor | None = None       # (N, 4)
+    angmom: torch.Tensor | None = None     # (N, 3)
     # per-atom tables that ride the atoms through every re-bin,
     # compaction and insertion, so that they stay with their tags: a fix's
     # per-atom state by its key (fix wall/gran's shear history) and a
@@ -160,7 +167,11 @@ class MDState:
 PER_ATOM_FIELDS = ("x", "v", "f", "type", "tag", "image", "molecule",
                    "bond_tags", "bond_btypes", "q", "special_tags",
                    "special_codes", "gmask", "radius", "rmass", "omega",
-                   "torque")
+                   "torque", "ellipsoid", "shape", "quat", "angmom")
+# the fields of an atom style beyond the named arguments of make_state
+# (atom_style ellipsoid's), in a restart file as "extra_<name>" (tpumd's
+# state.extras)
+EXTRA_FIELDS = ("ellipsoid", "shape", "quat", "angmom", "torque")
 
 
 def map_per_atom(state: MDState, fn) -> MDState:
@@ -175,9 +186,11 @@ def map_per_atom(state: MDState, fn) -> MDState:
 
 def make_state(x, v, types, box: Box, *, tags=None, image=None,
                molecule=None, q=None, radius=None, rmass=None, omega=None,
-               device, dtype) -> MDState:
+               extras=None, device, dtype) -> MDState:
     """Build an MDState from host arrays (no padding); a sphere state
-    (radius given) starts with zero torque, and zero omega unless given."""
+    (radius given) starts with zero torque, and zero omega unless given.
+    extras maps EXTRA_FIELDS names to host arrays (an atom style's
+    fields beyond the named ones)."""
     n = x.shape[0]
     if tags is None:
         tags = np.arange(1, n + 1, dtype=np.int32)
@@ -193,7 +206,12 @@ def make_state(x, v, types, box: Box, *, tags=None, image=None,
 
     xt = floats(x)
     sphere = radius is not None
-    return MDState(
+    extras = {k: ints(a) if np.issubdtype(np.asarray(a).dtype, np.integer)
+              else floats(a) for k, a in (extras or {}).items()}
+    if set(extras) - set(EXTRA_FIELDS):
+        raise ValueError(f"make_state: no per-atom field "
+                         f"{sorted(set(extras) - set(EXTRA_FIELDS))}")
+    state = MDState(
         x=xt, v=floats(v), f=torch.zeros_like(xt),
         type=ints(types), tag=ints(tags), image=ints(image),
         box=box.to(device=device, dtype=dtype),
@@ -202,6 +220,7 @@ def make_state(x, v, types, box: Box, *, tags=None, image=None,
         omega=(torch.zeros_like(xt) if sphere and omega is None
                else floats(omega)),
         torque=torch.zeros_like(xt) if sphere else None)
+    return state.replace(**extras) if extras else state
 
 
 def _zero_aperiodic(a: torch.Tensor, box: Box) -> torch.Tensor:

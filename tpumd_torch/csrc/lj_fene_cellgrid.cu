@@ -1,6 +1,8 @@
 // LJ (B1) and LJ + FENE bond (B2) forces, energies and virial over the
 // cell grid's pair list, on Hopper (sm_90a): one kernel, instantiated
-// with bonds for B2 and without for B1, each with its own lanes per atom.
+// with bonds for B2 and without for B1, each with its own lanes per atom,
+// and B1's special-weighted variant (SPECIAL) for lj/cut beside per-tuple
+// bonded styles.
 //
 // B2 replaces the Pallas TPU kernel tpumd/ops/pallas_lj.py::_kernel_fene
 // (entry lj_fene_cellgrid_forces_pallas) and, on energy/virial steps, the
@@ -28,6 +30,12 @@
 //   over its code-0 entries with r2 < cutsq (a code-1 entry, a bond
 //     partner, weighs 0 as factor_lj does):
 //     fpair = r^-6 (lj1 r^-6 - lj2) r^-2;
+//   or, in the SPECIAL variant, over every entry with r2 < cutsq, an entry
+//     of code c (a 1-2, 1-3 or 1-4 pair) weighed factor_lj = s_c, the
+//     special_bonds lj weight (as pair_lj_cut.cpp does; an entry of weight
+//     0 adds nothing and is passed over):
+//     fpair = s_c r^-6 (lj1 r^-6 - lj2) r^-2,
+//     energy s_c (r^-6 (lj3 r^-6 - lj4) - offset);
 //   over its partner slots, whatever their distance (bond_fene accepts a
 //     bond up to 2 R0, beyond cutneigh):
 //     fpair = -k / max(1 - r2/R0^2, 0.1)
@@ -43,7 +51,14 @@
 // 32k in.lj shape (53,240 slots, K 112, ~78 entries a row, ~55 within
 // 2.5 sigma) the work's bytes are ~1.3 MB and its arithmetic ~0.9 M pairs
 // x 28 operations, ~0.4 us; the list adds ~10 MB, ~3 us.  The stencil
-// designs tested 1,080 candidates a slot, 2-5 % in range.
+// designs tested 1,080 candidates a slot, 2-5 % in range.  The SPECIAL
+// variant replaces no TPU kernel of its own: tpumd weighs special pairs on
+// the grid in its XLA sweep (tpumd/ops/cellgrid.py:326-400, special=,
+// from tpumd/models/pair_lj_cut.py:127,156) and its Pallas kernel
+// (pallas_lj.py::_kernel) takes none; it is B1 with one table lookup
+// more.  At IN_HYB32K's grid shape (32,000 atoms, lj/cut 8.0 A, ~122 list
+// entries and ~63 in range an atom) the list is ~15.7 MB a call, a floor
+// near 5 us; the arithmetic (~2.0 M pairs) is under 1 us.
 //
 // Design: LANES lanes per valid atom (kLanes for B2, kLanesLJ for B1,
 // chosen on the card by probes/pairlist_lanes.py: PERF.md).  Lane l of an
@@ -105,6 +120,7 @@ __device__ __forceinline__ T image_d(T xi, T xj, T L) {
 template <typename T>
 struct Coeffs {
   T lj1, lj2, lj3, lj4, offset, cutsq, fk, r0sq, feps, fsig2;
+  T s1, s2, s3;  // the special_bonds lj weights of codes 1-3 (SPECIAL)
 };
 
 template <typename T>
@@ -135,8 +151,10 @@ __device__ __forceinline__ T lanes_sum(T v, unsigned mask) {
   return v;
 }
 
-// BONDS: B2 (nb partner slots, the bond energy in bslot); without, B1
-template <int LANES, bool BONDS, typename T, bool EFLAG, bool VFLAG>
+// BONDS: B2 (nb partner slots, the bond energy in bslot); without, B1;
+// SPECIAL (B1 only): entries of code 1-3 weighed s1-s3
+template <int LANES, bool BONDS, bool SPECIAL, typename T, bool EFLAG,
+          bool VFLAG>
 __global__ void __launch_bounds__(kBlock) lj_fene_pairlist_kernel(
     const Args<T> a) {
   // the empty slots' outputs, by every thread of the grid in turn
@@ -177,13 +195,19 @@ __global__ void __launch_bounds__(kBlock) lj_fene_pairlist_kernel(
   // lj over the code-0 entries, then the bonds over the partner slots
   for (int k = lane; k < n + nb; k += LANES) {
     long long j;
+    T w = T(1);
     const bool bond = BONDS && k >= n;
     if (bond) {
       j = a.bslots[i * a.nb + (k - n)];
       if (j < 0) continue;
     } else {
       const unsigned ent = static_cast<unsigned>(row[k]);
-      if (ent >> 30) continue;
+      const unsigned code = ent >> 30;
+      if (code) {
+        if (!SPECIAL) continue;
+        w = code == 1u ? c.s1 : (code == 2u ? c.s2 : c.s3);
+        if (w == T(0)) continue;
+      }
       j = ent & kNeighMask;
     }
     const T dx = image_d(xi, a.x[3 * j + 0], Lx);
@@ -208,7 +232,11 @@ __global__ void __launch_bounds__(kBlock) lj_fene_pairlist_kernel(
       const T r2inv = T(1) / r2;
       const T r6inv = r2inv * r2inv * r2inv;
       fpair = r6inv * (c.lj1 * r6inv - c.lj2) * r2inv;
-      if (EFLAG) e += r6inv * (c.lj3 * r6inv - c.lj4) - c.offset;
+      if (SPECIAL) fpair *= w;
+      if (EFLAG) {
+        const T epair = r6inv * (c.lj3 * r6inv - c.lj4) - c.offset;
+        e += SPECIAL ? epair * w : epair;
+      }
     }
     fx += dx * fpair;
     fy += dy * fpair;
@@ -252,32 +280,36 @@ __global__ void __launch_bounds__(kBlock) lj_fene_pairlist_kernel(
   }
 }
 
-template <int LANES, bool BONDS, typename T, bool EFLAG, bool VFLAG>
+template <int LANES, bool BONDS, bool SPECIAL, typename T, bool EFLAG,
+          bool VFLAG>
 int launch_one(const Args<T>& a, cudaStream_t s) {
   long long threads = a.natoms * LANES;
   if (threads < 1) threads = 1;
   const dim3 grid(static_cast<unsigned>((threads + kBlock - 1) / kBlock));
-  lj_fene_pairlist_kernel<LANES, BONDS, T, EFLAG, VFLAG>
+  lj_fene_pairlist_kernel<LANES, BONDS, SPECIAL, T, EFLAG, VFLAG>
       <<<grid, kBlock, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int LANES, bool BONDS, typename T>
+template <int LANES, bool BONDS, bool SPECIAL, typename T>
 int launch(const Args<T>& a, int eflag, int vflag, cudaStream_t s) {
   if (a.np < 1 || a.natoms < 0 || a.natoms > a.np || a.K < 1 ||
-      (BONDS ? (a.nb < 1 || a.nb > 2) : a.nb != 0)) {
+      (BONDS ? (a.nb < 1 || a.nb > 2) : a.nb != 0) || (BONDS && SPECIAL)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (eflag && vflag) return launch_one<LANES, BONDS, T, true, true>(a, s);
-  if (eflag) return launch_one<LANES, BONDS, T, true, false>(a, s);
-  if (vflag) return launch_one<LANES, BONDS, T, false, true>(a, s);
-  return launch_one<LANES, BONDS, T, false, false>(a, s);
+  if (eflag && vflag) {
+    return launch_one<LANES, BONDS, SPECIAL, T, true, true>(a, s);
+  }
+  if (eflag) return launch_one<LANES, BONDS, SPECIAL, T, true, false>(a, s);
+  if (vflag) return launch_one<LANES, BONDS, SPECIAL, T, false, true>(a, s);
+  return launch_one<LANES, BONDS, SPECIAL, T, false, false>(a, s);
 }
 
 }  // namespace
 
 // C interface, bound with ctypes by tpumd_torch/ops/lj_fene_cellgrid.py
-// (B2) and tpumd_torch/ops/lj_cellgrid.py (B1).  eslot, bslot may be null
+// (B2) and tpumd_torch/ops/lj_cellgrid.py (B1 and B1-special, whose
+// entry takes the three weights more).  eslot, bslot may be null
 // without eflag, vslot without vflag.  Each returns the CUDA error code of
 // the launch (0 on success).
 #define TPUMD_LJ_FENE_ENTRY(NAME, T)                                         \
@@ -291,9 +323,9 @@ int launch(const Args<T>& a, int eflag, int vflag, cudaStream_t s) {
     const Args<T> a{x, valid, pairs, npairs, bslots, rows, lengths, f,       \
                     eslot, bslot, vslot, np, natoms, K, nb,                  \
                     {T(lj1), T(lj2), T(lj3), T(lj4), T(offset), T(cutsq),    \
-                     T(fk), T(r0sq), T(feps), T(fsig2)}};                    \
-    return launch<kLanes, true, T>(a, eflag, vflag,                          \
-                                   static_cast<cudaStream_t>(stream));       \
+                     T(fk), T(r0sq), T(feps), T(fsig2), T(0), T(0), T(0)}};  \
+    return launch<kLanes, true, false, T>(a, eflag, vflag,                   \
+                                          static_cast<cudaStream_t>(stream)); \
   }
 
 #define TPUMD_LJ_ENTRY(NAME, T)                                              \
@@ -306,12 +338,30 @@ int launch(const Args<T>& a, int eflag, int vflag, cudaStream_t s) {
     const Args<T> a{x, valid, pairs, npairs, nullptr, rows, lengths, f,      \
                     eslot, nullptr, vslot, np, natoms, K, 0,                 \
                     {T(lj1), T(lj2), T(lj3), T(lj4), T(offset), T(cutsq),    \
-                     T(0), T(1), T(0), T(1)}};                               \
-    return launch<kLanesLJ, false, T>(a, eflag, vflag,                       \
-                                      static_cast<cudaStream_t>(stream));    \
+                     T(0), T(1), T(0), T(1), T(0), T(0), T(0)}};             \
+    return launch<kLanesLJ, false, false, T>(                                \
+        a, eflag, vflag, static_cast<cudaStream_t>(stream));                 \
+  }
+
+#define TPUMD_LJ_SPECIAL_ENTRY(NAME, T)                                      \
+  extern "C" int NAME(                                                       \
+      const T* x, const unsigned char* valid, const int* pairs,              \
+      const int* npairs, const long long* rows, const T* lengths, T* f,      \
+      T* eslot, T* vslot, long long np, long long natoms, int K,             \
+      double lj1, double lj2, double lj3, double lj4, double offset,         \
+      double cutsq, double s1, double s2, double s3, int eflag, int vflag,   \
+      void* stream) {                                                        \
+    const Args<T> a{x, valid, pairs, npairs, nullptr, rows, lengths, f,      \
+                    eslot, nullptr, vslot, np, natoms, K, 0,                 \
+                    {T(lj1), T(lj2), T(lj3), T(lj4), T(offset), T(cutsq),    \
+                     T(0), T(1), T(0), T(1), T(s1), T(s2), T(s3)}};          \
+    return launch<kLanesLJ, false, true, T>(                                 \
+        a, eflag, vflag, static_cast<cudaStream_t>(stream));                 \
   }
 
 TPUMD_LJ_FENE_ENTRY(tpumd_lj_fene_cellgrid_f32, float)
 TPUMD_LJ_FENE_ENTRY(tpumd_lj_fene_cellgrid_f64, double)
 TPUMD_LJ_ENTRY(tpumd_lj_cellgrid_f32, float)
 TPUMD_LJ_ENTRY(tpumd_lj_cellgrid_f64, double)
+TPUMD_LJ_SPECIAL_ENTRY(tpumd_lj_special_cellgrid_f32, float)
+TPUMD_LJ_SPECIAL_ENTRY(tpumd_lj_special_cellgrid_f64, double)

@@ -14,7 +14,11 @@ other section (the class2 cross-term coefficients among them: their
 styles read them from angle_coeff, dihedral_coeff and improper_coeff
 lines) raises naming itself.  A sphere file (atom_style sphere: ``id type
 diameter density x y z`` atoms and ``id vx vy vz wx wy wz`` velocities)
-holds only the Atoms and Velocities sections; any other raises.
+holds only the Atoms and Velocities sections; any other raises.  An
+ellipsoid file (atom_style ellipsoid: ``id type ellipsoidflag density x y
+z`` atoms, ``id vx vy vz lx ly lz`` velocities) also holds its
+Ellipsoids section (the style's bonus section, read after Atoms) and
+Masses; the style's fields beyond the named ones ride ``fields``.
 """
 
 from __future__ import annotations
@@ -30,10 +34,8 @@ _HEADER_KEYS = [
     ("dihedrals", "ndihedrals"), ("impropers", "nimpropers"),
     ("atom types", "natomtypes"), ("bond types", "nbondtypes"),
     ("angle types", "nangletypes"), ("dihedral types", "ndihedraltypes"),
-    ("improper types", "nimpropertypes"),
+    ("improper types", "nimpropertypes"), ("ellipsoids", "nellipsoids"),
 ]
-# header counts of topologies the port does not run: accepted when 0
-_UNPORTED_COUNTS = ("ellipsoids",)
 # topology sections: (name, attribute, count attribute, atoms per tuple)
 _TOPOLOGY = {"Bonds": ("bonds", "nbonds", 2),
              "Angles": ("angles", "nangles", 3),
@@ -46,8 +48,10 @@ _COEFFS = {"Pair Coeffs": "natomtypes", "Bond Coeffs": "nbondtypes",
            "Improper Coeffs": "nimpropertypes"}
 _SECTIONS = ("Masses", "Atoms", "Velocities") + tuple(_TOPOLOGY) \
     + tuple(_COEFFS)
-# the sections of a sphere file
-_SPHERE_SECTIONS = ("Atoms", "Velocities")
+# the sections of a sphere and an ellipsoid file
+_ASPHERE_SECTIONS = {"sphere": ("Atoms", "Velocities"),
+                     "ellipsoid": ("Masses", "Atoms", "Velocities",
+                                   "Ellipsoids")}
 
 
 @dataclasses.dataclass
@@ -62,6 +66,7 @@ class DataFile:
     nangletypes: int = 0
     ndihedraltypes: int = 0
     nimpropertypes: int = 0
+    nellipsoids: int = 0
     box_lo: np.ndarray = None
     box_hi: np.ndarray = None
     tilt: np.ndarray | None = None     # (xy, xz, yz) of a triclinic box
@@ -81,6 +86,8 @@ class DataFile:
     impropers: np.ndarray = None       # (ni, 5)
     # raw rows of the coefficient sections, by section name
     coeffs: dict = dataclasses.field(default_factory=dict)
+    # the atom style's other fields (atom_style ellipsoid's), by name
+    fields: dict = dataclasses.field(default_factory=dict)
 
 
 def _header_line(d: DataFile, line: str) -> bool:
@@ -88,12 +95,6 @@ def _header_line(d: DataFile, line: str) -> bool:
     for key, attr in _HEADER_KEYS:
         if line.endswith(" " + key):
             setattr(d, attr, int(line.split()[0]))
-            return True
-    for key in _UNPORTED_COUNTS:
-        if line.endswith(" " + key):
-            if int(line.split()[0]) != 0:
-                raise NotImplementedError(f"data file: {line!r} is not "
-                                          "ported")
             return True
     toks = line.split()
     for c, names in enumerate((["xlo", "xhi"], ["ylo", "yhi"],
@@ -150,14 +151,19 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
         i += 1
         if not section:
             continue
-        if section not in _SECTIONS or (section in _COEFFS
-                                        and section != "Pair Coeffs"
-                                        and atom_style not in TOPOLOGIES) or (
-                atom_style == "sphere" and section not in _SPHERE_SECTIONS):
+        if section not in _SECTIONS + tuple(style.sections) or (
+                section in _COEFFS and section != "Pair Coeffs"
+                and atom_style not in TOPOLOGIES) or (
+                section not in _ASPHERE_SECTIONS.get(atom_style,
+                                                     (section,))):
             raise NotImplementedError(
                 f"data-file section {section!r} is not ported with "
                 f"atom_style {atom_style}")
-        if section == "Masses":
+        if section in style.sections:
+            rows, i = parse_rows(i, getattr(d, f"n{section.lower()}"))
+            for r in rows:
+                style.sections[section](fields, r, int(r[0]) - 1)
+        elif section == "Masses":
             rows, i = parse_rows(i, d.natomtypes)
             for r in rows:
                 d.masses[int(r[0])] = float(r[1])
@@ -195,6 +201,7 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
             d.coeffs[section] = rows
     for name in ("molecule", "q", "radius", "rmass", "omega"):
         setattr(d, name, fields.pop(name, None))
+    d.fields = fields
     return d
 
 

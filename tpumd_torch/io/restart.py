@@ -21,7 +21,8 @@ import json
 import numpy as np
 import torch
 
-from tpumd_torch.core.state import Box, make_state, map_per_atom
+from tpumd_torch.core.state import EXTRA_FIELDS, Box, make_state, \
+    map_per_atom
 
 FORMAT_VERSION = 1
 MAGIC = "tpumd-restart"
@@ -68,6 +69,10 @@ def write_restart(sim, path: str):
     for k in ("q", "molecule", "radius", "rmass", "omega"):
         if getattr(s, k) is not None:
             payload[k] = _np(getattr(s, k))
+    for k in EXTRA_FIELDS:
+        # an atom style's other fields, named as tpumd names its extras
+        if s.ellipsoid is not None and getattr(s, k) is not None:
+            payload[f"extra_{k}"] = _np(getattr(s, k))
     fstates = () if sim._carry is None else sim._carry[2]
     for i, fst in enumerate(fstates):
         for j, leaf in enumerate(_leaves(fst)):
@@ -175,7 +180,9 @@ def read_restart(sim, path: str) -> dict:
         data["x"][rows], data["v"][rows], data["type"][rows], box,
         tags=tag[rows], image=data["image"][rows], q=opt("q"),
         molecule=opt("molecule"), radius=opt("radius"), rmass=opt("rmass"),
-        omega=opt("omega"), device=sim.device, dtype=sim.dtype)
+        omega=opt("omega"), extras={k[6:]: data[k][rows] for k in data.files
+                                    if k.startswith("extra_")},
+        device=sim.device, dtype=sim.dtype)
     sim.state = sim.state.replace(f=torch.as_tensor(
         data["f"][rows], dtype=sim.dtype, device=sim.device))
     sim._natoms = None

@@ -12,8 +12,9 @@ output.  Their inputs (computes, atom attributes, variables) are read from
 the device there; their files keep tpumd's layout.  tune/kspace acts at
 the same events, swapping the kspace solver.  ave/grid is the exception:
 it bins the atoms on the device at its sample steps (``end_of_step``),
-keeps its sums there, and only dump grid reads them back.  balance is not
-ported.
+keeps its sums there, and only dump grid reads them back.  balance
+reorders the atoms' rows at its host events on the matrix engine
+(``tpumd_torch/parallel/balance.py``).
 """
 
 from __future__ import annotations
@@ -584,6 +585,36 @@ class FixTuneKspace(Fix):
         self._phase = 2
         t = {k: round(v, 3) for k, v in self._times.items()}
         sim._log(f"fix tune/kspace: times {t} -> keeping {best}")
+
+
+class FixBalance(Fix):
+    """fix balance N thresh rcb|shift dims|x|y|z (src/fix_balance.cpp;
+    tpumd/md/fix_ave.py:588-623): every N steps, on the matrix engine,
+    the imbalance of the equal-count row blocks (``slab_imbalance``, over
+    the card count of the run's device) is measured, and above thresh
+    the rows are reordered as the balance command reorders them; the run
+    then sets up anew.  On the cell grid it does nothing: equal slot
+    ranges are equal work."""
+
+    name = "balance"
+
+    def __init__(self, nevery, thresh, style, dims=""):
+        self.host_every = int(nevery)
+        self.thresh = float(thresh)
+        self.style = "shift" if style in ("x", "y", "z") else str(style)
+        self.dims = dims or (style if style in ("x", "y", "z") else "")
+
+    def host_end_of_step(self, sim):
+        if sim.step % self.host_every or sim._ctx.is_cellgrid:
+            return
+        from tpumd_torch.parallel.balance import balance_atoms, part_count, \
+            slab_imbalance
+        x = sim.state.x.detach().cpu().numpy().astype(np.float64)
+        cur = slab_imbalance(x, np.arange(len(x)), part_count(sim.device))
+        if cur <= self.thresh:
+            return
+        before, after = balance_atoms(sim, self.style, dims=self.dims)
+        sim._log(f"fix balance: imbalance {before:.4g} -> {after:.4g}")
 
 
 class FixAveGrid(Fix):

@@ -175,9 +175,13 @@ class FixBondBreak(Fix):
 
     def post_integrate(self, s, fstate, ctx):
         from tpumd_torch.models.bonded import members, tag_view
+        from tpumd_torch.ops.cellgrid import row2slot_from_tags
         breakable = [(st, t) for st, t in ctx.bonded if st.breakable]
         if breakable:
-            _, view, take = tag_view(s, ctx)
+            # the grid's tuples take its slots (int64 index_select)
+            rows = (row2slot_from_tags(s.tag, ctx.natoms) if ctx.is_cellgrid
+                    else None)
+            _, view, take = tag_view(s, ctx, rows)
             for style, tuples in breakable:
                 _, xs = members(style, view, tuples, take)
                 style.break_bonds(xs, tuples[:, 0], s.box)

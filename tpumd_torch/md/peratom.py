@@ -33,7 +33,7 @@ import functools
 
 import torch
 
-from tpumd_torch.md.verlet import _pair_ext
+from tpumd_torch.md.verlet import _pair_ext, grid_special
 from tpumd_torch.models.bonded import compute_tuples_peratom, tag_view
 
 
@@ -223,7 +223,8 @@ def pair_rows(s, neigh, ctx):
                                   neigh.bond_slots, neigh.row2slot))
     _, ea, va, _ = pair.compute_cellgrid(
         s.x, neigh.valid, s.box, ctx.neigh_cfg, "atom", "atom", bond=bond,
-        plist=(neigh.pairs, neigh.npairs, neigh.row2slot))
+        plist=(neigh.pairs, neigh.npairs, neigh.row2slot),
+        **grid_special(s, ctx))
     return ea, va
 
 

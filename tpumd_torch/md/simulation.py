@@ -383,7 +383,8 @@ class Simulation:
         (its ``grid_refusal``) or bonded styles, so that "auto" sends it to
         the matrix engine, or None.
         Per-tuple styles need the special pairs weighed in the pair sweep:
-        only B5's charged sweep does that.  FENE rides B2 only on its own,
+        B5's charged sweep and single-type lj/cut's (B1's special-weighted
+        variant, ``grid_special``) do that.  FENE rides B2 only on its own,
         with at most 2 partners an atom.  (FENE's other limits in B2, one
         bond type, R0 within cutneigh and ``special_bonds fene``, raise at
         ``_setup_kernel_bond``.)"""
@@ -407,11 +408,12 @@ class Simulation:
         tuple_styles = [f"{k}_style {st.name}" for k, st in kinds.items()
                         if not st.kernel_bond]
         name = getattr(self.pair, "name", None)
-        if tuple_styles and not getattr(self.pair, "charged", False):
+        if tuple_styles and not self._grid_weighs_special():
             return (f"{', '.join(tuple_styles)} beside pair_style {name}: "
                     "the grid evaluates per-tuple bonded styles only beside "
-                    "lj/charmm/coul/long, whose sweep (B5) weighs the "
-                    "special pairs")
+                    "the sweeps that weigh the special pairs, "
+                    "lj/charmm/coul/long's (B5) and single-type lj/cut's "
+                    "(B1)")
         if not fene:
             return None
         if tuple_styles:
@@ -424,6 +426,13 @@ class Simulation:
             return (f"an atom with {most} FENE bond partners: the LJ+FENE "
                     "kernel (B2) holds at most 2")
         return None
+
+    def _grid_weighs_special(self) -> bool:
+        """Whether the pair style's grid sweep weighs the list's special
+        pairs: B5's charged sweep, or single-type lj/cut's (B1-special)."""
+        pair = self.pair
+        return getattr(pair, "charged", False) or (
+            getattr(pair, "grid_special", False) and pair.supports_cellgrid)
 
     def _setup_kernel_bond(self):
         """Route FENE bonds into the pair kernel on the grid
@@ -567,10 +576,12 @@ class Simulation:
             self.fixes.append(FixBondBreak())
 
     def _setup_special(self):
-        """Per-row special lists for a charged pair sweep or the matrix
-        engine's special codes: entries whose lj and coul weights are both
-        1 are dropped (tpumd/md/simulation.py:469-491), and the lists
-        follow the rows by tag.  A fix that enters special entries on the
+        """Per-row special lists for a grid sweep that weighs the special
+        pairs (B5, B1-special; not beside FENE in B2, whose partners ride
+        the state apart) or the matrix engine's special codes: entries
+        whose lj and coul weights are both 1 are dropped
+        (tpumd/md/simulation.py:469-491), and the lists follow the rows by
+        tag.  A fix that enters special entries on the
         card (bond/create) gets its ``special_room`` of empty columns."""
         room = max([fx.special_room(self) for fx in self.fixes
                     if hasattr(fx, "special_room")], default=0)
@@ -578,9 +589,12 @@ class Simulation:
             self.special_tags = np.zeros((self.natoms, 1), np.int32)
             self.special_codes = np.zeros((self.natoms, 1), np.int32)
         self._special_width = None
+        fene = any(st.kernel_bond for k, st in self.bonded.items()
+                   if self.topology.get(k) is not None
+                   and len(self.topology[k]))
         if self.special_tags is None or not (
-                self._mode == "matrix" or getattr(self.pair, "charged",
-                                                  False)):
+                self._mode == "matrix"
+                or (self._grid_weighs_special() and not fene)):
             return
         st, sc = self._special_rows(self.state, self.special_tags,
                                     self.special_codes)

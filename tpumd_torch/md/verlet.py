@@ -158,6 +158,17 @@ def _matrix_pair(s: MDState, neigh: nb.NeighborState, ctx: StepContext,
     return f, {"evdwl": evdwl, "ecoul": ecoul}, vir, None, neigh
 
 
+def grid_special(s: MDState, ctx: StepContext) -> dict:
+    """{"special": the special_bonds lj weights of codes 1-3} where the
+    grid's lj/cut sweep weighs the list's special pairs (the state carries
+    special lists, and no FENE bond rides the kernel), else {}: keyword
+    arguments of the style's compute_cellgrid."""
+    if s.special_tags is None or ctx.kernel_bond is not None or not getattr(
+            ctx.pair, "grid_special", False):
+        return {}
+    return {"special": tuple(float(w) for w in ctx.special_lj[1:])}
+
+
 def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
                    vflag: bool, shearupdate: bool = False, istep: int = 0,
                    cats=None):
@@ -234,7 +245,8 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
                                       neigh.bond_slots, neigh.row2slot))
         f, evdwl, vir, ebond = pair.compute_cellgrid(
             s.x, neigh.valid, s.box, ctx.neigh_cfg, eflag, vflag, bond=bond,
-            plist=(neigh.pairs, neigh.npairs, neigh.row2slot))
+            plist=(neigh.pairs, neigh.npairs, neigh.row2slot),
+            **grid_special(s, ctx))
         tally({"evdwl": evdwl, "ebond": ebond}, vir)
 
     if eflag and s.q is not None and hasattr(pair, "ecoul_self_atom"):

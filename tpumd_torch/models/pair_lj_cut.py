@@ -7,7 +7,9 @@ tpumd/models/pair_lj_cut.py.  The cell grid's kernels take one atom type;
 the matrix engine (``pair_fn``) any number, its coefficients read as one
 row gather of a (ntypes+1)^2 by 6 table.  On the grid the style sweeps
 the grid's pair list, built at every re-bin (with FENE
-bonds riding the kernel, the bond partners coded 1).
+bonds riding the kernel, the bond partners coded 1; beside per-tuple
+bonded styles, the special pairs coded 1-3 and weighed by B1's
+special-weighted variant, ``grid_special``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ class PairLJCut(PairStyle):
     ptail = 0.0
 
     name = "lj/cut"
+    # its grid sweep (B1) weighs the special pairs of the list's codes
+    grid_special = True
 
     def __init__(self, ntypes: int):
         super().__init__(ntypes)
@@ -118,20 +122,22 @@ class PairLJCut(PairStyle):
             self.lj1, self.lj2, self.lj3, self.lj4, self.offset, self.cutsq)))
 
     def compute_cellgrid(self, x, valid, box, cfg, eflag: bool, vflag: bool,
-                         bond=None, plist=None):
+                         bond=None, plist=None, special=None):
         """(f, evdwl, virial, ebond) on the cell grid; evdwl and ebond are
         None unless eflag, virial unless vflag, ebond without bonds.
         Every eflag/vflag combination goes through a list kernel (its
         plain version for CPU tensors): the LJ kernel over the grid's pair
-        list plist = (pairs, npairs, rows), or with bond = (bond style,
-        (pairs, npairs, bond_slots, rows)) the LJ+FENE kernel."""
+        list plist = (pairs, npairs, rows), with special (the special_bonds
+        lj weights of codes 1-3) its special-weighted variant, or with
+        bond = (bond style, (pairs, npairs, bond_slots, rows)) the LJ+FENE
+        kernel."""
         if self.ntypes != 1:
             raise NotImplementedError(
                 "lj/cut with more than one atom type: the cell-grid kernels "
                 "are single-type")
         if bond is None:
             return lj_cellgrid(x, valid, box, cfg, self.kernel_coeffs(),
-                               eflag, vflag, plist) + (None,)
+                               eflag, vflag, plist, special) + (None,)
         style, plist = bond
         if style.name != "fene":
             raise NotImplementedError(

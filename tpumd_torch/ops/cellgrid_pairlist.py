@@ -177,18 +177,22 @@ def cellgrid_pairlist_plain(x, valid, tag, stags, scodes, box: Box,
             max_pairs > K)
 
 
-def list_entries(x, box: Box, pairs, npairs):
+def list_entries(x, box: Box, pairs, npairs, with_codes=False):
     """(i, j, d, r2) of a list's live code-0 entries: i and j (n,) int64
     slots, d (n, 3) x_i - (x_j + image_shift) and r2 (n,) its squared
-    length, rounded as the list kernels round them."""
+    length, rounded as the list kernels round them; with_codes, of every
+    live entry, and (n,) their codes after them."""
     kk = max(int(npairs.max()), 1)
     j, code = unpack(pairs[:, :kk])
-    live = ((torch.arange(kk, device=x.device)[None, :]
-             < npairs[:, None].long()) & (code == 0))
+    live = (torch.arange(kk, device=x.device)[None, :]
+            < npairs[:, None].long())
+    if not with_codes:
+        live &= code == 0
     i, col = torch.nonzero(live, as_tuple=True)
     j = j[i, col].long()
     d = x[i] - (x[j] + image_shift(x[i] - x[j], box))
-    return i, j, d, d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    out = (i, j, d, d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2])
+    return out + (code[i, col],) if with_codes else out
 
 
 def half_virial(fp, d):

@@ -12,6 +12,14 @@ for CUDA tensors and takes the plain list sweep (``lj_pairlist_plain``)
 only for CPU tensors; it never falls back from one to the other.
 ``lj_cellgrid_plain``, the sweep over the 27-cell stencil, is the oracle
 the list sweep is held to; no run calls it.
+
+Beside per-tuple bonded styles (``special`` = the special_bonds lj
+weights of codes 1-3), the kernel's special-weighted variant (B1-special,
+the same source's SPECIAL instantiation) weighs each list entry of code c
+by special[c - 1], as factor_lj does in pair_lj_cut.cpp; without it an
+entry of code 1-3 weighs 0.  The variant replaces no TPU kernel of its
+own: tpumd weighs these pairs in its XLA sweep (tpumd/ops/cellgrid.py:
+326-400), where its Pallas kernel takes none.
 """
 
 from __future__ import annotations
@@ -45,9 +53,10 @@ class LaunchCounts:
     def reset(self):
         self.kernel_launches = 0
         self.plain_calls = 0
-        # launches of the per-atom variant (eflag = vflag = "atom"), also
-        # counted in kernel_launches
+        # launches of the per-atom variant (eflag = vflag = "atom") and of
+        # the special-weighted variant, also counted in kernel_launches
         self.peratom_launches = 0
+        self.special_launches = 0
 
 
 def peratom_flags(eflag, vflag) -> bool:
@@ -92,23 +101,49 @@ def lj_pair_fn(c: LJCoeffs):
 
 
 def lj_cellgrid_plain(x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
-                      eflag: bool, vflag: bool):
+                      eflag: bool, vflag: bool, special=None):
     """The stencil oracle: (f, evdwl, virial) summed over the 27-cell
-    stencil."""
-    return cellgrid_pair_sums(x, None, valid, box, cfg, lj_pair_fn(c),
-                              eflag, vflag)
+    stencil; with special = (tag (Np,), special_tags (Np, S),
+    special_codes (Np, S), (s1, s2, s3)) each special pair weighed by its
+    code's weight, matched by tag in the sweep."""
+    if special is None:
+        return cellgrid_pair_sums(x, None, valid, box, cfg, lj_pair_fn(c),
+                                  eflag, vflag)
+    tag, stags, scodes, weights = special
+    w = torch.tensor((1.0,) + tuple(weights), dtype=x.dtype,
+                     device=x.device)[scodes.long()]
+    pair_fn = lj_pair_fn(c)
+
+    def weighed(r2, ti, tj, w_lj, w_coul, qi, qj):
+        fp, e = pair_fn(r2, None, None)
+        return fp * w_lj, e * w_lj, torch.zeros_like(e), torch.zeros_like(fp)
+
+    f, evdwl, virial, _ = cellgrid_pair_sums(
+        x, torch.ones_like(tag), valid, box, cfg, weighed, eflag, vflag,
+        q=torch.zeros_like(x[:, 0]), special=(tag, stags, w, w),
+        cutsq=c.cutsq)
+    return f, evdwl, virial
 
 
 def lj_pairlist_plain(x, box: Box, c: LJCoeffs, eflag: bool, vflag: bool,
-                      pairs, npairs):
+                      pairs, npairs, special=None):
     """Plain PyTorch version of the kernel: (f, evdwl, virial) of lj/cut
-    over the list's code-0 entries within the cutoff; with eflag = vflag
+    over the list's code-0 entries within the cutoff, or with special =
+    (s1, s2, s3) over every entry, code c weighed s_c; with eflag = vflag
     = "atom", (f, eatom, vatom) per slot."""
     from tpumd_torch.ops.cellgrid_pairlist import half_virial, list_entries
-    i, _, d, r2 = list_entries(x, box, pairs, npairs)
+    if special is None:
+        i, _, d, r2 = list_entries(x, box, pairs, npairs)
+    else:
+        i, _, d, r2, code = list_entries(x, box, pairs, npairs,
+                                         with_codes=True)
     inside = r2 < c.cutsq
     i, d, r2 = i[inside], d[inside], r2[inside]
     fp, e = lj_pair_fn(c)(r2, None, None)
+    if special is not None:
+        w = torch.tensor((1.0,) + tuple(special), dtype=x.dtype,
+                         device=x.device)[code[inside]]
+        fp, e = fp * w, e * w
     f = torch.zeros_like(x).index_add_(0, i, d * fp[:, None])
     if peratom_flags(eflag, vflag):
         return (f,) + slot_tallies(i, e, fp, d, x.shape[0])
@@ -118,9 +153,12 @@ def lj_pairlist_plain(x, box: Box, c: LJCoeffs, eflag: bool, vflag: bool,
 
 _FN_NAMES = {torch.float32: "tpumd_lj_cellgrid_f32",
              torch.float64: "tpumd_lj_cellgrid_f64"}
+_SPECIAL_NAMES = {torch.float32: "tpumd_lj_special_cellgrid_f32",
+                  torch.float64: "tpumd_lj_special_cellgrid_f64"}
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
 _ARGTYPES = [_P] * 9 + [_L, _L, _I] + [_D] * 6 + [_I, _I, _P]
+_SPECIAL_ARGTYPES = [_P] * 9 + [_L, _L, _I] + [_D] * 9 + [_I, _I, _P]
 
 
 def check_grid_inputs(x, valid, box: Box, cfg: CellGridConfig,
@@ -176,7 +214,7 @@ def check_list(name, plist, np_: int, device):
 
 
 def lj_cellgrid(x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
-                eflag: bool, vflag: bool, plist):
+                eflag: bool, vflag: bool, plist, special=None):
     """Forces (Np, 3), evdwl () or None and virial (6,) or None of
     single-type lj/cut over the grid's pair list plist = (pairs (Np, K),
     npairs (Np,), rows (natoms,) the valid slots, the grid state's
@@ -184,26 +222,38 @@ def lj_cellgrid(x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
     (tpumd/ops/cellgrid.py:523-532).  With eflag = vflag = "atom" the
     energy and virial are per slot, (Np,) and (Np, 6), each slot's half
     share (the per-atom tallies of compute pe/atom and stress/atom).
-    Raises without a list."""
+    special, the special_bonds lj weights of codes 1-3, selects the
+    special-weighted variant.  Raises without a list."""
     check_list("lj_cellgrid", plist, cfg.capacity, x.device)
     pairs, npairs, rows = plist
+    if special is not None:
+        special = tuple(float(w) for w in special)
+        if len(special) != 3:
+            raise ValueError(f"lj_cellgrid: special takes the weights of "
+                             f"codes 1-3, got {special}")
     if x.device.type == "cpu":
         counts.plain_calls += 1
-        return lj_pairlist_plain(x, box, c, eflag, vflag, pairs, npairs)
+        return lj_pairlist_plain(x, box, c, eflag, vflag, pairs, npairs,
+                                 special)
     if x.device.type != "cuda":
         raise ValueError(f"lj_cellgrid: no kernel for device {x.device}")
-    out = launch(_build.kernel_function(_FN_NAMES[x.dtype], _ARGTYPES), x,
-                 valid, box, cfg, c, eflag, vflag, plist)
+    if special is None:
+        fn = _build.kernel_function(_FN_NAMES[x.dtype], _ARGTYPES)
+    else:
+        fn = _build.kernel_function(_SPECIAL_NAMES[x.dtype],
+                                    _SPECIAL_ARGTYPES)
+    out = launch(fn, x, valid, box, cfg, c, eflag, vflag, plist, special)
     counts.kernel_launches += 1
     counts.peratom_launches += eflag == "atom"
+    counts.special_launches += special is not None
     return out
 
 
 def launch(fn, x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
-           eflag: bool, vflag: bool, plist):
+           eflag: bool, vflag: bool, plist, special=None):
     """Check the CUDA inputs and launch the library function fn (the
-    kernel of x's dtype, bound with _ARGTYPES); the outputs of
-    lj_cellgrid."""
+    kernel of x's dtype, bound with _ARGTYPES, or with _SPECIAL_ARGTYPES
+    and the three weights special); the outputs of lj_cellgrid."""
     check_grid_inputs(x, valid, box, cfg)
     peratom = peratom_flags(eflag, vflag)
     eflag, vflag = bool(eflag), bool(vflag)
@@ -219,7 +269,8 @@ def launch(fn, x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
                 npairs.data_ptr(), rows.data_ptr(), box.lengths.data_ptr(),
                 f.data_ptr(), None if eslot is None else eslot.data_ptr(),
                 None if vslot is None else vslot.data_ptr(), np_,
-                rows.shape[0], pairs.shape[1], *c, int(eflag), int(vflag),
+                rows.shape[0], pairs.shape[1], *c, *(special or ()),
+                int(eflag), int(vflag),
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lj_cellgrid kernel launch failed: CUDA error "

@@ -45,8 +45,9 @@ from tpumd_torch.md.fix_particle import FixDeposit, FixEvaporate
 from tpumd_torch.md.fix_pour import FixPour
 from tpumd_torch.md.compute_styles import create_compute
 from tpumd_torch.md.fix_ave import FixAveAtom, FixAveChunk, \
-    FixAveCorrelate, FixAveGrid, FixAveHisto, FixAveTime, FixHalt, \
-    FixPrint, FixPropertyAtom, FixStoreState, FixTuneKspace, check_inputs
+    FixAveCorrelate, FixAveGrid, FixAveHisto, FixAveTime, FixBalance, \
+    FixHalt, FixPrint, FixPropertyAtom, FixStoreState, FixTuneKspace, \
+    check_inputs
 from tpumd_torch.md.fix_rigid import FixRigid, FixRigidNPH, FixRigidNPT, \
     FixRigidNVT
 from tpumd_torch.md.fix_shake import FixRattle, FixShake
@@ -594,6 +595,29 @@ class LammpsScript:
                 raise ScriptError(f"timer keyword {tok!r} not supported")
             i += 1
 
+    def cmd_balance(self, a):
+        """balance thresh rcb | shift dims Niter stopthresh | x|y|z
+        (src/balance.cpp; tpumd/script/parser.py:2265-2284): equal-count
+        spatial row blocks for the matrix engine, over the card count of
+        the run's device (``parallel/balance.py``); the grid is balanced
+        by construction.  Prints tpumd's line."""
+        from tpumd_torch.parallel.balance import balance_atoms
+        sim = self._require_sim()
+        self._finalize_atoms()
+        if len(a) < 2:
+            raise ScriptError("balance needs thresh and a style")
+        thresh, style = float(a[0]), a[1]
+        if style == "rcb":
+            before, after = balance_atoms(sim, "rcb")
+        elif style == "shift" and len(a) > 2:
+            before, after = balance_atoms(sim, "shift", dims=a[2])
+        elif style in ("x", "y", "z"):
+            before, after = balance_atoms(sim, "shift", dims=style)
+        else:
+            raise ScriptError(f"balance style {style!r} not supported")
+        print(f"  rebalancing: imbalance {before:.6g} -> {after:.6g} "
+              f"(threshold {thresh})", flush=True)
+
     def cmd_plugin(self, a):
         """plugin load file.py | list | clear (src/plugin.cpp;
         tpumd/script/parser.py:2286-2315).  A plugin is a Python file run
@@ -736,7 +760,7 @@ class LammpsScript:
                                  dtype=self.dtype, periodic=periodic)
         sim.state = make_state(x, d.v, d.types, box, image=image,
                                molecule=d.molecule, q=d.q, radius=d.radius,
-                               rmass=d.rmass, omega=d.omega,
+                               rmass=d.rmass, omega=d.omega, extras=d.fields,
                                device=sim.device, dtype=self.dtype)
         sim.topology = {}
         for kind in BONDED_KINDS:
@@ -1557,10 +1581,6 @@ class LammpsScript:
     # temperature or move the box of every atom)
     _ALL_ONLY = ("shake", "rattle", "temp/berendsen", "temp/rescale",
                  "press/berendsen", "deform")
-    # fixes of the reference that wait for other parts of the port
-    _FIXES_WAITING = {
-        "balance": "it waits with the balance command (ROADMAP A9 (k))",
-    }
     _NEMD_FIXES = ("thermal/conductivity", "viscosity", "heat", "oneway",
                    "vector")
     # the host fixes of md/fix_misc.py by style, and their count of
@@ -1663,6 +1683,9 @@ class LammpsScript:
             fx = self._parse_output_fix(style, args)
         elif style == "tune/kspace" and len(args) == 1:
             fx = FixTuneKspace(args[0])
+        elif style == "balance" and len(args) >= 3:
+            fx = FixBalance(args[0], args[1], args[2],
+                            args[3] if args[2] == "shift" else "")
         elif style in self._NEMD_FIXES:
             fx = self._parse_nemd(style, args)
         elif style in ("bond/break", "bond/create"):
@@ -1675,9 +1698,6 @@ class LammpsScript:
                 vals = vals[:k] + vals[k + 2:]
             fx = FixAveGrid(*args[:6], vals, **kw)
             fx.dimension = sim.dimension
-        elif style in self._FIXES_WAITING:
-            raise NotImplementedError(f"fix {style} is not ported: "
-                                      f"{self._FIXES_WAITING[style]}")
         else:
             raise NotImplementedError(
                 f"fix {' '.join(a[1:])!r} is not ported (only nve, "
