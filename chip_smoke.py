@@ -286,14 +286,30 @@ line each (any failure raises and exits non-zero):
    their overlap under the profiler, the first host read in each half) and
    ``ellipsoid_card_vs_cpu`` (512 ellipsoids, 50 steps in f64, card = CPU,
    the fields by tag);
-18. a JSON line of the kernels (the list build of each deck, the refresh
+18. the multi-device decomposition, ``decomp_path``: lj864's and
+   eam32k's global grids cut into the local grids of 4 z-slabs and of
+   2 x 2 pencils on the one card, assembled by index with the halos'
+   seam shift, the list kernel and B1 (eam: B3, F' of the halo slots by
+   index, B4) on each against the global launch, owned row by row (f32
+   1e-6 of max|f|, f64 1e-13; bit-equal or not, printed), B1, B3, B4 and
+   the build timed at rank 0's 4-slab grid and P1 at rank 0's rows of
+   the 32k matrix deck in 4 blocks; then min(4, the card count) NCCL
+   workers (``parallel/launch.py``) run lj864 in f32 (step 0 = the
+   one-card row, step 100 behind lj864's gates, 100 timed steps), eam32k
+   in f64 (rows = a one-card run's to 1e-10) and in.lj 32k on the matrix
+   engine's row blocks, each rank's launches = its force evaluations, its
+   collectives a step by kind (none an all-gather on the grid), exchange
+   ms and bytes a step and timesteps/s beside the one-card run's; a
+   failed worker fails the phase;
+19. a JSON line of the kernels (the list build of each deck, the refresh
    calls of in.lj, eam, rhodo_class, min32k, deform32k, kappa32k and
    hyb32k's grid run, B1 on min32k, pressber32k, deform32k, kappa32k and
    the replica decks, B1-special at hyb32k's grid, B5 at each 30k water
    deck's shape, B6's HERTZ variant at granhertz32k's and P1 at the
    salt's, hyb32k's, sw32k's, tersoff32k's, eamalloy32k's, tip4p30k's,
-   dpd32k's, bondcreate32k's, respa32k's and balance32k's, each an entry
-   of its own),
+   dpd32k's, bondcreate32k's, respa32k's and balance32k's, and B1, B3,
+   B4, the build and P1 of the decomposed runs, each an entry of its
+   own),
    the card's name and power limit as nvidia-smi prints them, then the
    result line.
 
@@ -1548,7 +1564,7 @@ def script_lj864_path(smi: str) -> dict:
              sim._ctx.pairlist_k, h.gmask, h.exclude_bits)
     build = time_build("lj864", bargs, plain_reps=1)
     return {"sps": sps, "setup_s": setup_s, "b1_ms": ms, "b1_bound": b_ms,
-            "build": build}
+            "build": build, "row0": row0}
 
 
 def script_cli_phase(tmp: Path):
@@ -7094,6 +7110,484 @@ def ellipsoid_card_vs_cpu():
                        "equal by tag after the re-bins")
 
 
+# ------------------------------------------------------------ decomp_path
+# the layouts of part 1: 4 z-slabs and 2 x 2 (z, y) pencils
+DECOMP_LAYOUTS = ((4, 1), (2, 2))
+# an owned row's forces against the global launch's (of max|f|)
+DECOMP_TOL = {torch.float32: 1e-6, torch.float64: 1e-13}
+# part 1 takes its states this many steps after the set-up: at the fcc
+# start an atom's forces cancel to rounding, which no tolerance of max|f|
+# can hold
+DECOMP_STEPS = 100
+
+
+def decomp_local(lay, s, valid, K):
+    """A rank's local grid (GridLayout lay) assembled by index from the
+    global grid-ordered state s on the card, and its pair list built by
+    the list kernel on the box whose split axes are not periodic: (local
+    state, valid, owned, global slot of each local slot, plist (pairs,
+    npairs, the owned slots))."""
+    from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist
+    from tpumd_torch.parallel.decomp import assemble_slots
+    sl, vl = assemble_slots(lay, s, valid)
+    gslot, _, own = (torch.as_tensor(a, device=s.x.device)
+                     for a in lay.slot_maps)
+    owned = vl & own
+    pairs, npairs, _, over = cellgrid_pairlist(
+        sl.x, vl, sl.tag, None, None, lay.list_box(s.box), lay.local_cfg, K)
+    if bool(over):
+        raise AssertionError(f"local grid {lay.pz}x{lay.py} rank {lay.rank}:"
+                             f" pair list overflow at K {K}")
+    return sl, vl, owned, gslot, (pairs, npairs,
+                                  torch.nonzero(owned).reshape(-1))
+
+
+def owned_gap(what, f, fg, plist, gslot, gn, tol) -> tuple[float, bool]:
+    """(max|f - f_global| / max|f_global| over the owned rows, whether they
+    are bit-equal); raises past tol, or where an owned row's list length
+    differs from its global row's."""
+    torch.cuda.synchronize()
+    rows = plist[2]
+    if not torch.equal(plist[1][rows], gn[gslot[rows]]):
+        raise AssertionError(f"{what}: owned rows' list lengths differ from "
+                             "the global list's")
+    a, b = f[rows], fg[gslot[rows]]
+    err = float((a - b).abs().max()) / float(fg.abs().max())
+    if not torch.isfinite(a).all() or not err <= tol:
+        raise AssertionError(f"{what}: owned rows' forces {err} of max|f| "
+                             f"from the global launch's (tol {tol:g})")
+    return err, bool(torch.equal(a, b))
+
+
+def plain_gap(what, f, fp, rows, tol) -> tuple[float, float]:
+    """(max|f - f_plain| over the owned rows (the kernel's and its plain
+    version's on the same local inputs), the same of their largest
+    |f_plain|); raises where the second passes tol or f is not finite."""
+    a, b = f[rows], fp[rows]
+    err = float((a - b).abs().max())
+    rel = err / float(b.abs().max())
+    if not torch.isfinite(a).all() or not rel <= tol:
+        raise AssertionError(f"{what}: owned rows {err} from the plain "
+                             f"version's, {rel} of its max (tol {tol:g})")
+    return err, rel
+
+
+def owned_pairs(x, box, plist, cutsq) -> int:
+    """In-cutoff code-0 entries of the owned rows, halved: the unordered
+    pairs' worth of work a local sweep does."""
+    from tpumd_torch.ops.cellgrid_pairlist import list_entries
+    *_, r2 = list_entries(x.double(), box_f64(box), plist[0], plist[1],
+                          rows=plist[2])
+    return int((r2 < cutsq).sum()) // 2
+
+
+def decomp_grids(name, s, valid, cfg, K, launch, plain) -> tuple:
+    """Part 1 on one deck: for f32 and f64 the global list and launch,
+    then each rank's local grid of each layout (``decomp_local``) and its
+    launch, every owned row held to its plain version on the same local
+    inputs (TOL_LIST: the same pairs in the same order) and to the global
+    launch (DECOMP_TOL).  launch(x_state, valid, owned, cfg, plist,
+    fp_global, gslot) -> the forces and EAM's F' (else None), fp_global
+    the global density pass's F' for EAM's halos (None at the global
+    launch); plain(x_state, owned, plist, fp) -> the same of the plain
+    versions, fp the kernel's F' with its halos filled (B4's input).
+    Returns ([(layout, rank 0's local state, valid, owned, plist)] of the
+    first layout, f32 then f64, for the timings; the f32 global (list,
+    F'); {"f", "fp": the largest |kernel - plain| of the owned rows'
+    forces and F'; "rel_f", "rel_fp": the same of the plain's max;
+    "gap_f", "gap_fp": the largest gap of the owned rows from the global
+    launch's, of its max|f|})."""
+    from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist
+    from tpumd_torch.parallel.decomp import GridLayout
+    keys = ("f", "fp", "rel_f", "rel_fp", "gap_f", "gap_fp")
+    kept, worst_all = [], dict.fromkeys(keys, 0.0)
+    for dtype in (torch.float32, torch.float64):
+        sd = s.replace(x=s.x.to(dtype),
+                       box=s.box.to(device=s.x.device, dtype=dtype))
+        gp, gn, _, over = cellgrid_pairlist(sd.x, valid, sd.tag, None, None,
+                                            sd.box, cfg, K)
+        if bool(over):
+            raise AssertionError(f"{name}: global list overflow at K {K}")
+        gplist = (gp, gn, torch.nonzero(valid).reshape(-1))
+        fg, fpg = launch(sd, valid, valid, cfg, gplist, None, None)
+        if dtype == torch.float32:
+            glob = (gplist, fpg)
+        worst = dict.fromkeys(worst_all, 0.0)
+        bit = True
+        for pz, py in DECOMP_LAYOUTS:
+            for rank in range(pz * py):
+                lay = GridLayout(cfg, pz, py, rank)
+                sl, vl, owned, gslot, plist = decomp_local(lay, sd, valid, K)
+                f, fp = launch(sl, vl, owned, lay.local_cfg, plist, fpg,
+                               gslot)
+                pf, pfp = plain(sl, owned, plist, fp)
+                what = f"{name} {pz}x{py} rank {rank} {str(dtype)[6:]}"
+                gaps = [("f", plain_gap(what, f, pf, plist[2],
+                                        TOL_LIST[dtype]))]
+                err, same = owned_gap(what, f, fg, plist, gslot, gn,
+                                      DECOMP_TOL[dtype])
+                if fp is not None:
+                    gaps.append(("fp", plain_gap(what + " F'", fp, pfp,
+                                                 plist[2], TOL_LIST[dtype])))
+                    e2, s2 = owned_gap(what + " F'", fp, fpg, plist, gslot,
+                                       gn, DECOMP_TOL[dtype])
+                    worst["gap_fp"], same = max(worst["gap_fp"], e2), \
+                        same and s2
+                for k, (e, r) in gaps:
+                    worst[k] = max(worst[k], e)
+                    worst["rel_" + k] = max(worst["rel_" + k], r)
+                worst["gap_f"], bit = max(worst["gap_f"], err), bit and same
+                if rank == 0 and (pz, py) == DECOMP_LAYOUTS[0]:
+                    kept.append((lay, sl, vl, owned, plist))
+        layouts = " and ".join(f"{a}x{b}" for a, b in DECOMP_LAYOUTS)
+        eam = (f", F' {worst['rel_fp']:.3g} of max|F'| (tol "
+               f"{TOL_LIST[dtype]:g})" if fpg is not None else "")
+        phase("decomp", f"{name} {str(dtype)[6:]}: grid {cfg.nx}x{cfg.ny}x"
+                        f"{cfg.nz} cap {cfg.cap} K {K}, local grids as "
+                        f"{layouts} assembled by index (halos with their "
+                        f"seam shift): every owned row against the plain "
+                        f"list sweeps on the same local grid, f "
+                        f"{worst['rel_f']:.3g} of max|f| (tol "
+                        f"{TOL_LIST[dtype]:g}){eam}; its list length and "
+                        f"forces = the "
+                        f"global launch's to {worst['gap_f']:.3g} max|f| "
+                        f"(tol {DECOMP_TOL[dtype]:g}), "
+                        f"{'bit-equal' if bit else 'not bit-equal'}")
+        for k in worst_all:
+            worst_all[k] = max(worst_all[k], worst[k])
+    return kept, glob, worst_all
+
+
+def decomp_local_grids(tmp: Path) -> dict:
+    """Part 1 of decomp_path: lj864 (bench/in.lj with x, y, z 3, in f32)
+    and in.eam at 32,000 atoms (12^3 cells), DECOMP_STEPS steps from the
+    set-up, their global grids cut into the local grids of 4 z-slabs and
+    2 x 2 pencils on the one card:
+    the list kernel and B1 (eam: B3, F' of the halo slots from the global
+    pass by index, B4) on each local grid against their plain versions on
+    the same local inputs and against the global launch; then at rank 0's
+    4-slab local grid in f32, each kernel timed beside its plain version,
+    the global launch and its bound, and the list build against its plain
+    build (time_build).  Returns the kernels line's figures."""
+    from tpumd_torch.bench_targets import IN_LJ_BENCH, eam_funcfl
+    from tpumd_torch.ops.eam_cellgrid import eam_force_cellgrid, \
+        eam_force_pairlist_plain, eam_rho_cellgrid, eam_rho_pairlist_plain
+    from tpumd_torch.ops.lj_cellgrid import lj_cellgrid, lj_pairlist_plain
+    from tpumd_torch.script.parser import LammpsScript
+    out = {}
+    script = LammpsScript(device="cuda", dtype=torch.float32,
+                          var_overrides={"x": 3, "y": 3, "z": 3})
+    script.run_string(IN_LJ_BENCH.rsplit("\nrun", 1)[0])
+    sim = script.sim
+    sim.verbose = False
+    script.run_string(f"run {DECOMP_STEPS}")
+    s, neigh, _ = sim._carry
+    c = sim.pair.kernel_coeffs()
+    K = sim._ctx.pairlist_k
+
+    def lj(sd, valid, owned, cfg, plist, fpg, gslot):
+        return lj_cellgrid(sd.x, owned, sd.box, cfg, c, 0, 0, plist)[0], None
+
+    def lj_plain(sd, owned, plist, fp):
+        return lj_pairlist_plain(sd.x, sd.box, c, 0, 0, plist[0], plist[1],
+                                 rows=plist[2])[0], None
+
+    ((lay, sl, vl, owned, plist), _), (gplist, _), err = decomp_grids(
+        "lj864", s, neigh.valid, sim._neigh_cfg, K, lj, lj_plain)
+    lc = lay.local_cfg
+    ms = min(cuda_ms(lambda: lj_cellgrid(sl.x, owned, s.box, lc, c, 0, 0,
+                                         plist), 100) for _ in range(2))
+    # the global launch in this call, beside the local one
+    g_ms = min(cuda_ms(lambda: lj_cellgrid(s.x, neigh.valid, s.box,
+                                           sim._neigh_cfg, c, 0, 0, gplist),
+                       100) for _ in range(2))
+    plain_ms = cuda_ms(lambda: lj_pairlist_plain(
+        sl.x, s.box, c, 0, 0, plist[0], plist[1], rows=plist[2]), 2,
+        ahead=False)
+    nlj = owned_pairs(sl.x, s.box, plist, c.cutsq)
+    nbytes = lc.capacity * (12 + 1 + 12) + 12
+    b_ms, b_by = bound(nlj, 0, nbytes)
+    phase("kernel", f"lj_cellgrid on lj864's 4-slab local grid (rank 0: "
+                    f"{lc.nx}x{lc.ny}x{lc.nz} cap {lc.cap}, "
+                    f"{plist[2].numel()} owned atoms), f32 forces: kernel "
+                    f"{ms:.4f} ms (the global 35^3 launch {g_ms:.4f} ms in "
+                    f"this call), plain list sweep {plain_ms:.4f} ms, bound "
+                    f"{b_ms:.6f} ms ({b_by}: {nlj} pairs, {nbytes} bytes)")
+    out["b1"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "max_abs_err": err["f"],
+                 "global_gap": err["gap_f"], "global_ms": g_ms}
+    box = lay.list_box(s.box)
+    out["build"] = time_build("lj864 4-slab local grid (rank 0)",
+                              (sl.x, vl, sl.tag, None, None, box, lc, K),
+                              plain_reps=1)
+    del script, sim, s, neigh, sl, plist, gplist
+    torch.cuda.empty_cache()
+
+    pot = tmp / "Cu.eam"
+    eam_funcfl(str(pot))
+    script = eam_setup(pot, 20, "cuda", torch.float32)
+    script.run_string(f"run {DECOMP_STEPS}")
+    sim = script.sim
+    s, neigh, _ = sim._carry
+    K = sim._ctx.pairlist_k
+    tabs = {}
+
+    def table(x):
+        if x.dtype not in tabs:
+            tabs[x.dtype] = sim.pair.kernel_tables(x)
+        return tabs[x.dtype]
+
+    def eam(sd, valid, owned, cfg, plist, fpg, gslot):
+        tab = table(sd.x)
+        _, fp, _ = eam_rho_cellgrid(sd.x, owned, sd.box, cfg, tab, 0, plist)
+        if fpg is not None:
+            # F' of the halo slots from their owners (here, the global pass)
+            fp = torch.where(owned, fp, torch.where(valid, fpg[gslot], 0.0))
+        f = eam_force_cellgrid(sd.x, owned, fp, sd.box, cfg, tab, 0, 0,
+                               plist)[0]
+        return f, fp
+
+    def eam_plain(sd, owned, plist, fp):
+        tab = table(sd.x)
+        _, pfp, _ = eam_rho_pairlist_plain(sd.x, owned, sd.box, tab, 0,
+                                           plist[0], plist[1], rows=plist[2])
+        f = eam_force_pairlist_plain(sd.x, fp, sd.box, tab, 0, 0, plist[0],
+                                     plist[1], rows=plist[2])[0]
+        return f, pfp
+
+    ((lay, sl, _, owned, plist), _), (gplist, gfp), err = decomp_grids(
+        "eam32k", s, neigh.valid, sim._neigh_cfg, K, eam, eam_plain)
+    lc, gc = lay.local_cfg, sim._neigh_cfg
+    tab = tabs[torch.float32]
+    _, fp, _ = eam_rho_cellgrid(sl.x, owned, s.box, lc, tab, 0, plist)
+    rho_ms = min(cuda_ms(lambda: eam_rho_cellgrid(
+        sl.x, owned, s.box, lc, tab, 0, plist), 100) for _ in range(2))
+    force_ms = min(cuda_ms(lambda: eam_force_cellgrid(
+        sl.x, owned, fp, s.box, lc, tab, 0, 0, plist), 100)
+        for _ in range(2))
+    # the global 12^3 launches in this call, beside the local ones
+    g_rho = min(cuda_ms(lambda: eam_rho_cellgrid(
+        s.x, neigh.valid, s.box, gc, tab, 0, gplist), 100) for _ in range(2))
+    g_force = min(cuda_ms(lambda: eam_force_cellgrid(
+        s.x, neigh.valid, gfp, s.box, gc, tab, 0, 0, gplist), 100)
+        for _ in range(2))
+    rho_plain = cuda_ms(lambda: eam_rho_pairlist_plain(
+        sl.x, owned, s.box, tab, 0, plist[0], plist[1], rows=plist[2]), 5,
+        ahead=False)
+    force_plain = cuda_ms(lambda: eam_force_pairlist_plain(
+        sl.x, fp, s.box, tab, 0, 0, plist[0], plist[1], rows=plist[2]), 5,
+        ahead=False)
+    npair = owned_pairs(sl.x, s.box, plist, tab.cutsq)
+    natoms = plist[2].numel()
+    np_ = lc.capacity
+    tables = 4 * (tab.rhor.numel() + tab.frho.numel())
+    rho_b = roof(npair * OPS_EAM_RHO_PAIR + natoms * OPS_EAM_EMBED,
+                 np_ * (12 + 1 + 4 + 4) + 12 + tables)
+    tables = 4 * (tab.rhor.numel() + tab.z2r.numel())
+    force_b = roof(npair * OPS_EAM_FORCE_PAIR,
+                   np_ * (12 + 1 + 4 + 12) + 12 + tables)
+    phase("kernel", f"eam on eam32k's 4-slab local grid (rank 0: "
+                    f"{lc.nx}x{lc.ny}x{lc.nz} cap {lc.cap}, {natoms} owned "
+                    f"atoms, {npair} pairs), f32: B3 {rho_ms:.4f} ms (plain "
+                    f"{rho_plain:.4f}, bound {rho_b[0]:.6f} {rho_b[1]}), B4 "
+                    f"{force_ms:.4f} ms (plain {force_plain:.4f}, bound "
+                    f"{force_b[0]:.6f} {force_b[1]}); the global "
+                    f"{gc.nx}x{gc.ny}x{gc.nz} launches in this call: B3 "
+                    f"{g_rho:.4f} ms, B4 {g_force:.4f} ms")
+    out["rho"] = {"ms": rho_ms, "plain_ms": rho_plain, "bound_ms": rho_b[0],
+                  "bound_by": rho_b[1], "max_abs_err": err["fp"],
+                  "global_gap": err["gap_fp"], "global_ms": g_rho}
+    out["force"] = {"ms": force_ms, "plain_ms": force_plain,
+                    "bound_ms": force_b[0], "bound_by": force_b[1],
+                    "max_abs_err": err["f"], "global_gap": err["gap_f"],
+                    "global_ms": g_force}
+    del script, sim, s, neigh, sl, plist, gplist, gfp
+    torch.cuda.empty_cache()
+    out["p1"] = decomp_rows_p1()
+    return out
+
+
+def decomp_rows_p1() -> dict:
+    """P1 at the matrix engine's row-block shape: the 32k in.lj deck's
+    matrix set-up in f32, rank 0's rows of 4 built over every row's
+    positions (``build_neighbors(..., rows=)``, its gathers P1's), then
+    the pair sweep's packed j-side gather of those rows timed
+    (p1_timed)."""
+    from tpumd_torch.bench_targets import IN_LJ
+    from tpumd_torch.ops import neighbor as nb
+    from tpumd_torch.script.parser import LammpsScript
+    script = LammpsScript(device="cuda", dtype=torch.float32)
+    script.run_string(IN_LJ.format(n=20))
+    sim = script.sim
+    sim.verbose = False
+    sim.neighbor_mode = "matrix"
+    script.run_string("run 0")
+    s = sim._carry[0]
+    n = s.x.shape[0]
+    idx, _, _, over = nb.build_neighbors(s.x, s.box, sim._neigh_cfg,
+                                         rows=(0, n // 4))
+    full = nb.build_neighbors(s.x, s.box, sim._neigh_cfg)[0]
+    if bool(over) or not torch.equal(idx, full[:n // 4]):
+        raise AssertionError("matrix rows 0 to n/4: their block's rows "
+                             "differ from the whole build's")
+    table = torch.cat([s.x, s.type.to(s.x.dtype)[:, None]], dim=1)
+    return p1_timed(f"in.lj 32k matrix rows of rank 0 of 4 ({n // 4} of "
+                    f"{n}, K {idx.shape[1]})", table, idx)
+
+
+def decomp_run_phase(tmp: Path, smi: str, one: dict) -> dict:
+    """Part 2 of decomp_path: P = min(4, the card count) workers over NCCL
+    (``parallel/launch.py``), one card each, run lj864 in f32 (run 100,
+    then 100 timed steps and 10 counted ones) and in.eam at 32,000 atoms
+    in f64 (run 100) decomposed; step 0 of lj864 against the one-card
+    run's row (one, from script_lj864_path), its step 100 behind the
+    lj864 gates, eam's rows against a one-card f64 run in this process to
+    1e-10; each rank's B1 (B3, B4) launches = its force evaluations, no
+    plain call; the collectives a step by kind (none an all-gather), the
+    exchange's ms and bytes a step; timesteps/s beside the one-card
+    run's."""
+    from tpumd_torch.bench_targets import IN_EAM, IN_LJ, IN_LJ_BENCH, \
+        SANITY, STEP0, STEP0_RTOL, eam_funcfl, gate_failures
+    from tpumd_torch.script.parser import LammpsScript
+    from tpumd_torch.parallel.launch import run_decks, spawn_world
+    ncards = torch.cuda.device_count()
+    nprocs = min(4, ncards)
+    pot = tmp / "Cu_decomp.eam"
+    eam_funcfl(str(pot))
+    eam_deck = IN_EAM.format(n=20, potential=pot)
+    ref = eam_setup(pot, 20, "cuda", torch.float64)
+    ref.run_string("run 100")
+    ref_rows = ref.sim.thermo_rows
+    mref = LammpsScript(device="cuda", dtype=torch.float32)
+    mref.run_string(IN_LJ.format(n=20) + "thermo 20\n")
+    mref.sim.verbose = False
+    mref.sim.neighbor_mode = "matrix"
+    mref.run_string("run 20")
+    mref_rows = mref.sim.thermo_rows
+    del ref, mref
+    torch.cuda.empty_cache()
+    lj_pre = IN_LJ_BENCH.rsplit("\nrun", 1)[0]
+    specs = [{"setup": lj_pre, "vars": {"x": 3, "y": 3, "z": 3},
+              "dtype": "f32", "runs": ["run 100"], "timed": 100,
+              "steady": 10},
+             {"setup": eam_deck, "dtype": "f64", "runs": ["run 100"]},
+             {"setup": IN_LJ.format(n=20) + "thermo 20\n", "dtype": "f32",
+              "mode": "matrix", "runs": ["run 20"], "steady": 4}]
+    t0 = time.perf_counter()
+    ranks = spawn_world(run_decks, nprocs, "nccl", tmp / "pg", (specs,),
+                        timeout=400)
+    wall = time.perf_counter() - t0
+    if nprocs == 1:
+        phase("decomp", f"{ncards} card: a world of one over NCCL; the run "
+                        "went through the mesh, the agreed flags and the "
+                        "thermo reductions, split no axis and exchanged no "
+                        "halo (NCCL takes no two ranks on one card); the "
+                        "exchange is checked on the CPU by the gloo tests "
+                        "and here by the local grids assembled by index")
+    bad = []
+    for rank, (lj, eam, mat) in enumerate(ranks):
+        row0, row100 = lj["rows"][0], lj["rows"][-1]
+        bad += gate_failures(row0, {k: (v, STEP0_RTOL)
+                                    for k, v in STEP0["lj864"].items()})
+        bad += gate_failures(row100, SANITY["lj864"])
+        for k in ("temp", "epair", "etotal", "press"):
+            a, b = row0[k], one["row0"][k]
+            same = (f"{a:12.8g}" == f"{b:12.8g}" if nprocs == 1
+                    else abs(a - b) <= 1e-6 * abs(b))
+            if not same:
+                bad.append(f"rank {rank} lj864 step 0 {k} {a!r} vs one card "
+                           f"{b!r}")
+        for got, want in zip(eam["rows"], ref_rows):
+            for k in ("temp", "epair", "etotal", "press"):
+                if not abs(got[k] - want[k]) <= 1e-10 * abs(want[k]):
+                    bad.append(f"rank {rank} eam step {got['step']} {k} "
+                               f"{got[k]!r} vs one card {want[k]!r}")
+        if len(eam["rows"]) != len(ref_rows):
+            bad.append(f"rank {rank} eam: {len(eam['rows'])} rows")
+        evals = 1 + 100 + 1
+        if (lj["counts"]["b1"] != (evals, 0)
+                or lj["timed"]["counts"]["b1"] != (101, 0)
+                or eam["counts"]["rho"] != (evals + 1, 0)
+                or eam["counts"]["force"] != (evals + 1, 0)):
+            bad.append(f"rank {rank} launches: B1 {lj['counts']['b1']} and "
+                       f"{lj['timed']['counts']['b1']}, B3 "
+                       f"{eam['counts']['rho']}, B4 {eam['counts']['force']}"
+                       f" (force evaluations {evals}, 101, {evals + 1})")
+        st = lj["steady"]
+        if st["calls"]["all_gather"] or st["calls"]["all_reduce"]:
+            bad.append(f"rank {rank}: collectives between output steps "
+                       f"{st['calls']}")
+        # the matrix engine's rows: the one-card run's rows (f32 sums of
+        # other blocks where P > 1), P1 launched, an all-gather a step
+        for got, want in zip(mat["rows"], mref_rows):
+            for k in ("temp", "epair", "etotal", "press"):
+                tol = 0.0 if nprocs == 1 else 1e-5
+                if not abs(got[k] - want[k]) <= tol * abs(want[k]):
+                    bad.append(f"rank {rank} matrix step {got['step']} {k} "
+                               f"{got[k]!r} vs one card {want[k]!r}")
+        if (mat["counts"]["p1"][1] or not mat["counts"]["p1"][0]
+                or mat["steady"]["calls"]["all_gather"] != 4):
+            bad.append(f"rank {rank} matrix: P1 {mat['counts']['p1']}, "
+                       f"collectives {mat['steady']['calls']}")
+    if bad:
+        raise AssertionError("decomp_path: " + "; ".join(bad))
+    lj0 = ranks[0][0]
+    sps = [r[0]["timed"]["steps"] / r[0]["timed"]["seconds"] for r in ranks]
+    phase("decomp", f"P {nprocs} on {ncards} card(s) ({smi}); world of "
+                    f"{nprocs} over NCCL, {wall:.1f} s with its start; lj864 "
+                    f"f32 as {lj0['layout']['pz']}x{lj0['layout']['py']} "
+                    f"(local grid {lj0['layout']['local']}): step 0 "
+                    f"{lj0['rows'][0]['etotal']!r} (one card "
+                    f"{one['row0']['etotal']!r}), step 100 passes the lj864 "
+                    f"gates; eam32k f64 rows = the one-card run's to 1e-10 "
+                    f"at steps {[r['step'] for r in ref_rows]}")
+    for rank, (lj, eam, mat) in enumerate(ranks):
+        t, st = lj["timed"], lj["steady"]
+        per_step = {k: v / 10 for k, v in st["calls"].items()}
+        window = t["collectives"]["bytes"]["exchange"] / t["steps"]
+        phase("decomp", f"rank {rank}: timed 100 steps {sps[rank]:.2f} "
+                        f"timesteps/s, {sps[rank] * 864000 / 1e6:.3f} "
+                        f"Matom-step/s (one card in this call "
+                        f"{one['sps']:.2f}); exchange "
+                        f"{t['exchange_ms'] / t['steps']:.4f} ms and "
+                        f"{window:.0f} bytes a step over the window (re-bins "
+                        f"included), {st['bytes']['exchange'] / 10:.0f} bytes"
+                        f" a step between output steps; collectives a step "
+                        f"{per_step}; "
+                        f"B1 {lj['counts']['b1'][0]} + "
+                        f"{t['counts']['b1'][0]} launches = force "
+                        f"evaluations; B3 {eam['counts']['rho'][0]}, B4 "
+                        f"{eam['counts']['force'][0]}; list builds "
+                        f"{lj['counts']['build'][0]} + "
+                        f"{t['counts']['build'][0]}; matrix in.lj 32k P1 "
+                        f"{mat['counts']['p1'][0]} launches, "
+                        f"{mat['steady']['bytes']['all_gather'] / 4:.0f} "
+                        f"bytes all-gathered a step")
+    return {"b1": lj0["counts"]["b1"][0] + lj0["timed"]["counts"]["b1"][0],
+            "rho": ranks[0][1]["counts"]["rho"][0],
+            "force": ranks[0][1]["counts"]["force"][0],
+            "build": (lj0["counts"]["build"][0]
+                      + lj0["timed"]["counts"]["build"][0]
+                      + ranks[0][1]["counts"]["build"][0]),
+            "p1": ranks[0][2]["counts"]["p1"][0], "sps": sps}
+
+
+def decomp_path(smi: str, one: dict) -> tuple[dict, dict]:
+    """The decomposed grid (``tpumd_torch/parallel``): part 1, the local
+    grids of 4 slabs and 2 x 2 pencils on the one card against the global
+    launch (``decomp_local_grids``); part 2, the decomposed runs over NCCL
+    (``decomp_run_phase``).  Returns (the kernels' figures, the launches
+    of the decomposed runs)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        k = decomp_local_grids(tmp)
+        torch.cuda.empty_cache()
+        m = decomp_run_phase(tmp, smi, one)
+    phase("decomp", f"decomp_path {time.perf_counter() - t0:.1f} s")
+    return k, m
+
+
 def main():
     t_start = time.perf_counter()
     smi = environment()
@@ -7114,7 +7608,7 @@ def main():
         m_lj = main_path(smi)
         analysis_goldens_phase()
         m_an = analysis_path(smi, m_lj["sps"])
-        script_lj864_path(smi)
+        m_864 = script_lj864_path(smi)
         script_cli_phase(tmp)
         drift_phase()
         small_chain_card_vs_cpu(tmp)
@@ -7194,6 +7688,7 @@ def main():
     ellipsoid_card_vs_cpu()
     phase("parallel", f"the parallel and ellipsoid phases "
                       f"{time.perf_counter() - t_parallel:.1f} s")
+    k_dec, m_dec = decomp_path(smi, m_864)
     # the list kernels' launches on the main paths: builds at set-up and
     # re-bins, and refresh calls, most of which pass the gate and return
     # (those that rebuild are the refreshes taken); an entry each
@@ -7210,7 +7705,8 @@ def main():
               *[(name, m["build"], m["build_launches"])
                 for name, m in (("min32k", m_min), ("pressber32k", m_pb),
                                 ("deform32k", m_df), ("kappa32k", m_kappa),
-                                ("hyb32k_grid", m_hgrid), *replicas)]]
+                                ("hyb32k_grid", m_hgrid), *replicas)],
+              ("decomp", k_dec["build"], m_dec["build"])]
     searched = {"in.lj": "tpumd/ops/pallas_lj.py:25",
                 "analysis32k": "tpumd/ops/pallas_lj.py:25",
                 "chain": "tpumd/ops/pallas_lj.py:146",
@@ -7224,7 +7720,8 @@ def main():
                 "rhodo_class": "tpumd/ops/pallas_charmm.py:43",
                 "water_npt30k": "tpumd/ops/pallas_charmm.py:43",
                 "rigid_npt30k": "tpumd/ops/pallas_charmm.py:43",
-                "chute": "tpumd/ops/pallas_gran.py:42"}
+                "chute": "tpumd/ops/pallas_gran.py:42",
+                "decomp": "tpumd/ops/pallas_lj.py:25"}
     upkeep = [(f"cellgrid_pairlist build {name}", list_src, searched[name],
                k, {"launches": nb}) for name, k, nb in builds]
     calls = list(builds)
@@ -7265,6 +7762,15 @@ def main():
              k_rho, m_rho),
             ("eam_force_cellgrid", eam_src, "tpumd/ops/pallas_eam.py:128",
              k_force, m_force),
+            ("lj_cellgrid decomp", "tpumd_torch/csrc/lj_fene_cellgrid.cu",
+             "tpumd/ops/pallas_lj.py:25", k_dec["b1"],
+             {"launches": m_dec["b1"]}),
+            ("eam_rho_cellgrid decomp", eam_src,
+             "tpumd/ops/pallas_eam.py:99", k_dec["rho"],
+             {"launches": m_dec["rho"]}),
+            ("eam_force_cellgrid decomp", eam_src,
+             "tpumd/ops/pallas_eam.py:128", k_dec["force"],
+             {"launches": m_dec["force"]}),
             ("charmm_cellgrid", "tpumd_torch/csrc/charmm_cellgrid.cu",
              "tpumd/ops/pallas_charmm.py:43", k_charmm, m_charmm),
             *[(f"charmm_cellgrid {name}",
@@ -7284,6 +7790,9 @@ def main():
              "tools/probes/gather_probe.py:37", k_hyb, m_hyb),
             ("row_gather balance32k", "tpumd_torch/csrc/row_gather.cu",
              "tools/probes/gather_probe.py:37", k_bal, m_bal),
+            ("row_gather decomp", "tpumd_torch/csrc/row_gather.cu",
+             "tools/probes/gather_probe.py:37", k_dec["p1"],
+             {"launches": m_dec["p1"]}),
             *[(f"row_gather {name}", "tpumd_torch/csrc/row_gather.cu",
                "tools/probes/gather_probe.py:37", k, m)
               for name, k, m in (("sw32k", k_sw, m_sw),
@@ -7299,7 +7808,11 @@ def main():
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
-            "library_ms": k.get("library_ms")})
+            "library_ms": k.get("library_ms"),
+            # the decomposed path's local grids: their gap from the global
+            # launch (of max|f|) and the global launch's ms in this call
+            **{key: k[key] for key in ("global_gap", "global_ms")
+               if key in k}})
     phase("time", f"chip_smoke {time.perf_counter() - t_start:.1f} s, the "
                   "build included")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -73,7 +73,10 @@ runs on a card host without JAX:
 * B1's special-weighted variant over the hyb cell 2x2x2's list, against
   the plain list sweep and the stencil oracle matching the special tags;
   the hyb cell on the grid and the ellipsoid liquid, card = CPU; the r/k
-  split on two streams = the fused evaluation at the peptide.
+  split on two streams = the fused evaluation at the peptide;
+* the decomposed grid: the list kernel and B1 on each rank's local grid
+  (4 z-slabs, 2 x 2 pencils of an 8^3 in.lj grid, assembled by index with
+  the halos' seam shift) against the global launch, owned row by row.
 
 f32 and f64, every energy/virial flag combination; tolerances as in
 chip_smoke.py: forces 5e-5 (f32) or 1e-12 (f64) of max|f|, energies and
@@ -1114,3 +1117,59 @@ def test_rk_split_on_two_streams_equals_fused():
     assert side != torch.cuda.current_stream(f_split.device)
     scale = float(f_fused.abs().max())
     assert float((f_split - f_fused).abs().max()) <= 1e-11 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layout", [(4, 1), (2, 2)])
+def test_local_grids_equal_the_global_launch(layout, dtype):
+    """The list kernel and B1 on each rank's local grid of a decomposed
+    8^3 in.lj grid (4^3 cells; 4 z-slabs or 2 x 2 pencils), assembled by
+    index from the global grid with the halos' seam shift
+    (``parallel/decomp.py``), the list built on the box whose split axes
+    are not periodic: each owned row's list length equals its global
+    row's and its forces equal the global launch's (f32 to 1e-6 of
+    max|f|, f64 to 1e-13; they come out bit-equal), the halo rows'
+    forces 0, and the owned rows' forces equal the plain list sweep's on
+    the same local grid (f32 2e-6, f64 1e-13 of max|f|)."""
+    _card()
+    from tpumd_torch.parallel.decomp import GridLayout, assemble_slots
+    x, valid, box, cfg, plist = _fcc_grid((8, 8, 8), dtype)
+    tag = torch.zeros(cfg.capacity, dtype=torch.int32, device="cuda")
+    tag[valid] = torch.arange(1, int(valid.sum()) + 1, dtype=torch.int32,
+                              device="cuda")
+    s = make_state(np.zeros((cfg.capacity, 3)), np.zeros((cfg.capacity, 3)),
+                   np.ones(cfg.capacity, np.int32), box, device="cuda",
+                   dtype=dtype).replace(x=x, tag=tag)
+    eps, sig, cut = np.zeros((2, 2)), np.zeros((2, 2)), np.zeros((2, 2))
+    eps[1, 1], sig[1, 1], cut[1, 1] = 1.0, 1.0, 2.5
+    c = pair_from_numpy(eps, sig, cut).kernel_coeffs()
+    K = plist[0].shape[1]
+    fg = b1.lj_cellgrid(x, valid, box, cfg, c, 0, 0, plist)[0]
+    tol = {torch.float32: 1e-6, torch.float64: 1e-13}[dtype]
+    # the same pairs in the same order as the plain list sweep (chip_smoke's
+    # TOL_LIST)
+    plain_tol = {torch.float32: 2e-6, torch.float64: 1e-13}[dtype]
+    for rank in range(layout[0] * layout[1]):
+        lay = GridLayout(cfg, *layout, rank)
+        sl, vl = assemble_slots(lay, s, valid)
+        gslot, _, own = (torch.as_tensor(a, device="cuda")
+                         for a in lay.slot_maps)
+        owned = vl & own
+        rows = torch.nonzero(owned).reshape(-1)
+        lbox = lay.list_box(box)
+        pairs, npairs, _, over = bpl.cellgrid_pairlist(
+            sl.x, vl, sl.tag, None, None, lbox, lay.local_cfg, K)
+        assert not bool(over)
+        f = b1.lj_cellgrid(sl.x, owned, box, lay.local_cfg, c, 0, 0,
+                           (pairs, npairs, rows))[0]
+        torch.cuda.synchronize()
+        assert torch.equal(npairs[rows], plist[1][gslot[rows]])
+        gap = float((f[rows] - fg[gslot[rows]]).abs().max())
+        assert gap <= tol * float(fg.abs().max())
+        assert not f[~owned].any()
+        # and against its plain list sweep on the same local grid
+        fp = b1.lj_pairlist_plain(sl.x, box, c, 0, 0, pairs, npairs,
+                                  rows=rows)[0]
+        err = float((f[rows] - fp[rows]).abs().max())
+        assert err <= plain_tol * float(fp[rows].abs().max())

@@ -13,11 +13,20 @@ processors of a world, is accepted and ignored: the worlds run one after
 another on the one device, which gives independent worlds the same
 results, as tpumd/__main__.py:23-56 does).  Runs on the given device (CUDA
 by default; asking for CUDA without a card raises).
+
+Under ``torchrun --nproc_per_node P -m tpumd_torch -in deck`` (WORLD_SIZE
+above 1 in the environment) the deck runs decomposed over P ranks, as
+LAMMPS's ``mpirun -np P lmp -in deck`` does: NCCL with ``cuda:LOCAL_RANK``
+each, or gloo with ``--device cpu``.  Every rank runs the whole script;
+rank 0 prints the screen and writes the log and the files
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 
 
@@ -40,6 +49,8 @@ def main(argv=None):
     import torch
     from tpumd_torch.script.parser import LammpsScript
     dtype = torch.float64 if args.dtype == "f64" else torch.float32
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return _main_ranks(args, dtype)
     if args.partition:
         nworld = int(str(args.partition).split("x")[0])
         for p in range(nworld):
@@ -60,6 +71,33 @@ def main(argv=None):
     if args.logfile and script.sim is not None:
         with open(args.logfile, "w") as fh:
             fh.write("\n".join(script.sim.log_lines) + "\n")
+    return 0
+
+
+def _main_ranks(args, dtype):
+    """The deck on one rank of torchrun's process group."""
+    import torch.distributed as dist
+    from tpumd_torch.parallel.mesh import make_mesh
+    from tpumd_torch.script.parser import LammpsScript
+    if args.partition:
+        raise NotImplementedError("-partition across ranks is not ported "
+                                  "(ROADMAP item 14b)")
+    mesh = make_mesh(device=args.device)
+    try:
+        with contextlib.ExitStack() as stack:
+            if mesh.rank != 0:
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            script = LammpsScript(device=mesh.device, dtype=dtype,
+                                  var_overrides=dict(args.vars), mesh=mesh)
+            if args.echo:
+                script.cmd_echo([args.echo])
+            script.run_file(args.infile)
+        if args.logfile and script.sim is not None and mesh.rank == 0:
+            with open(args.logfile, "w") as fh:
+                fh.write("\n".join(script.sim.log_lines) + "\n")
+    finally:
+        dist.destroy_process_group()
     return 0
 
 

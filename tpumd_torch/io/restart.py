@@ -29,8 +29,10 @@ MAGIC = "tpumd-restart"
 
 
 def tag_ordered(sim):
-    """The simulation's atoms in tag order, padding dropped."""
-    s = sim.state if sim._carry is None else sim._carry[0]
+    """The simulation's atoms in tag order, padding dropped (a run
+    decomposed over ranks leaves them gathered in ``sim.state``)."""
+    s = (sim.state if sim._carry is None or sim.decomposed
+         else sim._carry[0])
     idx = torch.nonzero(s.tag > 0).flatten()
     idx = idx[torch.argsort(s.tag[idx])]
     return map_per_atom(s, lambda a: a[idx])

@@ -52,6 +52,8 @@ from tpumd_torch.md.verlet import ENERGY_KEYS, StepContext, build_matrix, \
 from tpumd_torch.ops import cellgrid as cg
 from tpumd_torch.ops import neighbor as nb
 from tpumd_torch.ops.cellgrid_gran import KH
+from tpumd_torch.parallel.decomp import GridDecomp, RowDecomp
+from tpumd_torch.parallel.mesh import Mesh
 from tpumd_torch.utils.units import Units, get_units
 
 THERMO_KEYS = ("step", "temp", "epair", "emol", "pe", "ke", "etotal",
@@ -94,9 +96,12 @@ def resolve_device(device) -> torch.device:
 
 
 class Simulation:
-    def __init__(self, units: str = "lj", *, device, dtype):
+    def __init__(self, units: str = "lj", *, device, dtype, mesh=None):
         self.units: Units = get_units(units)
         self.device = resolve_device(device)
+        # the process group a run is decomposed over (a world of one
+        # without one: the one-card run)
+        self.mesh: Mesh = Mesh(device=self.device) if mesh is None else mesh
         self.dtype = dtype
         self.dt = self.units.dt
         self.skin = self.units.skin
@@ -334,6 +339,20 @@ class Simulation:
         else:
             cfg = self._grid_config(cutneigh, margin)
         self._neigh_cfg = cfg
+        decomp = None
+        if self.mesh.distributed:
+            # the run over the process group: the grid's bricks (the
+            # context's grid is then the rank's local grid) or the
+            # matrix engine's row blocks
+            if self._mode == "matrix":
+                if cfg.image_shifts:
+                    raise NotImplementedError(
+                        "a box narrower than 2*cutneigh (the matrix "
+                        f"engine's image copies) across {self.mesh.size} "
+                        "ranks is not ported (ROADMAP item 14b)")
+                decomp = RowDecomp(self.mesh, self.natoms)
+            else:
+                decomp = GridDecomp(self.mesh, cfg)
         pairlist_k, exclude, refresh = 0, (), False
         # every style on the grid sweeps a list (FENE bonds riding lj/cut's
         # kernel are coded in it); a schedule that leaves steps unchecked
@@ -347,7 +366,9 @@ class Simulation:
         mass_np[0] = 1.0  # padded slots: finite mass, zero force
         slj, scl = self._special_weights()
         return StepContext(
-            units=self.units, dt=self.dt, neigh_cfg=cfg, pair=self.pair,
+            units=self.units, dt=self.dt,
+            neigh_cfg=cfg if decomp is None or decomp.kind == "rows"
+            else decomp.local_cfg, pair=self.pair,
             fixes=tuple(self.fixes),
             mass_table=torch.as_tensor(mass_np, dtype=self.dtype,
                                        device=self.device),
@@ -356,7 +377,7 @@ class Simulation:
             kspace=self.kspace, special_lj=slj, special_coul=scl,
             tdof=self.dof(), shrink=self._shrink_spec(),
             pairlist_k=pairlist_k, pairlist_exclude=exclude,
-            pairlist_refresh=refresh, respa=self.respa)
+            pairlist_refresh=refresh, respa=self.respa, decomp=decomp)
 
     def _grid_config(self, cutneigh: float,
                      margin: float) -> cg.CellGridConfig:
@@ -675,7 +696,7 @@ class Simulation:
         sweeps one; returns (state, neigh).  A granular style's history
         tables come from the contact history the state carries by tag
         (``_pop_history``), moved with the atoms; zero without one."""
-        cfg = self._ctx.neigh_cfg
+        cfg = self._neigh_cfg      # the whole grid, where it is decomposed
         self.grid_setups += 1
         s = cg.pad_state(wrap_pbc(s), cfg.capacity)
         valid0 = torch.arange(s.capacity, device=self.device) < self.natoms
@@ -698,13 +719,18 @@ class Simulation:
                 tables["shear"][:, :w] = torch.gather(
                     shear, 1, order[..., None].expand(-1, -1, 3)).to(
                         self.dtype)
+        owned = None
+        rows = cg.row2slot_from_tags(s.tag, self.natoms)
+        if self._ctx.decomp is not None:
+            # every rank binned the whole system alike; it keeps its brick
+            s, valid, owned = self._ctx.decomp.shard(s, valid)
+            rows = torch.nonzero(owned).reshape(-1)
         plist, list_over = grid_pairlist(s, valid, self._ctx)
         if list_over is not None:
             over = over | list_over
         neigh = cg.CellGridState(
             valid=valid, xhold=s.x, ago=0, nbuilds=nbuilds, overflow=over,
-            max_count=max_count,
-            row2slot=cg.row2slot_from_tags(s.tag, self.natoms), **tables,
+            max_count=max_count, row2slot=rows, owned=owned, **tables,
             **plist)
         return s, neigh
 
@@ -807,6 +833,11 @@ class Simulation:
             self._setup_granular()
         self._mode = self._resolve_mode()
         self._check_engine(self._mode)
+        if self.mesh.distributed:
+            self._check_decomposable()
+            # counted on the whole system before it is split
+            self.natoms
+            self._mass_sum = self._masses(self.state)
         for fx in self.fixes:
             if getattr(fx, "name", "") == "nh" and fx.groupbit != 1:
                 # a thermostat on a group counts the group's dof
@@ -844,20 +875,21 @@ class Simulation:
             self._ctx = self._make_ctx()
             if self._mode == "cellgrid":
                 s, neigh = self._grid_setup(self.state)
-                if not bool(neigh.overflow):
+                if not self._agreed(neigh.overflow):
                     break
                 # grow the capacity that overflowed, retry
                 self._grow_grid(neigh, neigh.max_count)
                 continue
             s, neigh = self._matrix_setup(self.state)
-            if bool(neigh.overflow):
+            if self._agreed(neigh.overflow):
                 self._grow_matrix(neigh)
                 continue
             if self._kmax_override is None:
                 # shrink K once to the observed largest count (+3, a
                 # multiple of 8): every pair sweep walks all K slots
                 # (tpumd/md/simulation.py:674-689)
-                tight = int(np.ceil((int(neigh.max_count) + 3) / 8) * 8)
+                tight = int(np.ceil((self._agreed(neigh.max_count) + 3)
+                                    / 8) * 8)
                 if tight + 4 <= self._neigh_cfg.kmax:
                     self._kmax_override = tight
                     continue
@@ -964,6 +996,8 @@ class Simulation:
         history is carried from ``old`` by j-match, or from the contact
         history the state carries by tag (``_pop_history``), else zero."""
         s, history = _pop_history(wrap_pbc(s))
+        if self._ctx.decomp is not None:
+            s = self._ctx.decomp.shard(s)[0]
         neigh = build_matrix(s, self._ctx, nbuilds, old=old,
                              history=self.granular and self.pair.has_history)
         if old is None and history is not None and neigh.shear is not None:
@@ -975,7 +1009,7 @@ class Simulation:
     def _grow_matrix(self, neigh):
         """Grow both matrix capacities after an overflow (the flag is the
         cell cap's or K's; tpumd/md/simulation.py:1393-1405)."""
-        mc = int(neigh.max_count)
+        mc = self._agreed(neigh.max_count)
         self._kmax_override = int(max(self._neigh_cfg.kmax * 1.5, mc * 1.3)
                                   + 8)
         self._cellcap_override = int(np.ceil(
@@ -1008,8 +1042,11 @@ class Simulation:
                 id(fx): fs for fx, fs in zip(self._ctx.fixes, fstates)
                 if any(fx is kept for kept in self.fixes)}
             s = self._push_history(s, neigh)
-            self.state = (cg.compact_state(s, neigh.valid, self.natoms)
-                          if self._ctx.is_cellgrid else s)
+            if self._ctx.decomp is not None:
+                self.state = self._ctx.decomp.unshard(s, neigh)
+            else:
+                self.state = (cg.compact_state(s, neigh.valid, self.natoms)
+                              if self._ctx.is_cellgrid else s)
         self._ctx = None
         self._carry = None
 
@@ -1033,16 +1070,82 @@ class Simulation:
         that passed K, and unless only the list overflowed, the cell
         capacity from max_count (tpumd/md/simulation.py:1376-1405)."""
         cfg, k = self._neigh_cfg, self._ctx.pairlist_k
-        if neigh.max_pairs is not None and int(neigh.max_pairs) > k:
+        longest = (None if neigh.max_pairs is None
+                   else self._agreed(neigh.max_pairs))
+        if longest is not None and longest > k:
             self._kmax_override = int(np.ceil(max(
-                k * 1.5, int(neigh.max_pairs) * 1.3) / 8) * 8)
-            if int(neigh.max_count) <= cfg.cap:
+                k * 1.5, longest * 1.3) / 8) * 8)
+            if self._agreed(neigh.max_count) <= cfg.cap:
                 return
         self._cap_override = int(np.ceil(max(
-            cfg.cap * 1.5, int(max_count) * 1.3) / 8) * 8)
+            cfg.cap * 1.5, self._agreed(max_count) * 1.3) / 8) * 8)
+
+    def _agreed(self, value) -> int:
+        """An int or a () tensor on the host, the largest over the ranks
+        where the run is decomposed: every rank then takes the same
+        decision."""
+        if self.mesh.distributed:
+            return self.mesh.agree_max(value)
+        return int(value)
+
+    @property
+    def decomposed(self) -> bool:
+        """Whether the set-up runs decomposed over the process group."""
+        return self._ctx is not None and self._ctx.decomp is not None
+
+    def _check_decomposable(self):
+        """Raise on what this slice does not run across ranks (ROADMAP item
+        14b and later): the molecular stack, kspace, fixes but nve,
+        computes, granular and the pair styles past B1, B3/B4 on the grid
+        and the plain pairwise sweep on the matrix engine, shrink-wrapped
+        faces, triclinic boxes, respa, dumps but atom and custom."""
+        from tpumd_torch.md.fixes import FixNVE
+        from tpumd_torch.models.base import PairStyle
+
+        def refuse(what):
+            raise NotImplementedError(
+                f"{what} across {self.mesh.size} ranks is not ported "
+                "(ROADMAP item 14b): run it on one card")
+        name = getattr(self.pair, "name", None)
+        for kind, style in self.bonded.items():
+            refuse(f"{kind}_style {style.name}")
+        if self.state.special_tags is not None:
+            refuse("special bonds")
+        for fx in self.fixes:
+            if type(fx) is not FixNVE:
+                refuse(f"fix {getattr(fx, 'id', '')} "
+                       f"{getattr(fx, 'name', type(fx).__name__)}")
+        if self.kspace is not None:
+            refuse(f"kspace_style {self.kspace.style}")
+        for cid, c in self.computes.items():
+            refuse(f"compute {cid} {getattr(c, 'style', type(c).__name__)}")
+        if self.respa is not None:
+            refuse("run_style respa")
+        if self.granular:
+            refuse(f"pair_style {name}")
+        if any(set(tok) & set("sm") for tok in self.boundary):
+            refuse(f"boundary {' '.join(self.boundary)} (shrink-wrapped)")
+        if self.state.box.istriclinic:
+            refuse("a triclinic box")
+        if self.neigh_exclude:
+            refuse("neigh_modify exclude")
+        if self.pair is None:
+            refuse("a run without a pair style")
+        if self._mode == "cellgrid":
+            if getattr(self.pair, "charged", False) \
+                    or not hasattr(self.pair, "compute_cellgrid"):
+                refuse(f"pair_style {name} on the cell grid")
+        elif (type(self.pair).compute is not PairStyle.compute
+              or self.state.q is not None
+              or getattr(self.pair, "needs_velocities", False)
+              or getattr(self.pair, "is_tip4p", False)):
+            refuse(f"pair_style {name} on the matrix engine")
+        for d in self.dumps:
+            if d.style not in ("atom", "custom"):
+                refuse(f"dump {d.id} {d.style}")
 
     def _check_overflow(self, neigh):
-        if bool(neigh.overflow):
+        if self._agreed(neigh.overflow):
             longest = ("" if getattr(neigh, "max_pairs", None) is None
                        else f" max_pairs={int(neigh.max_pairs)}")
             raise RuntimeError(
@@ -1143,9 +1246,9 @@ class Simulation:
                 self._log(self.halt)
                 nsteps -= target - self.step
                 break
-            if self.timer_timeout is not None and \
-                    time.perf_counter() - self._wall_start > \
-                    self.timer_timeout:
+            if self.timer_timeout is not None and self._agreed(
+                    time.perf_counter() - self._wall_start
+                    > self.timer_timeout):
                 self._log("Wall time limit reached")
                 nsteps -= target - self.step
                 break
@@ -1154,6 +1257,10 @@ class Simulation:
         elapsed = time.perf_counter() - t0
         self.loop_time += elapsed
         self.loop_steps += nsteps
+        if self.decomposed:
+            # host commands after the run see the whole system, in the
+            # one-card grid's order; the next run goes on from the carry
+            self.state = self._ctx.decomp.unshard(*self._carry[:2])
         self._finish_report(elapsed, nsteps)
 
     def minimize(self, etol: float, ftol: float, maxiter: int,
@@ -1249,9 +1356,24 @@ class Simulation:
                 fx._setup_sampled = True
 
     def _write_dumps(self, setup: bool = False):
-        for d in self.dumps:
-            if d.due(self.step, setup):
+        due = [d for d in self.dumps if d.due(self.step, setup)]
+        if not due:
+            return
+        if not self.decomposed:
+            for d in due:
                 d.write(self)
+            return
+        # every rank's atoms gathered; rank 0 writes the snapshot
+        here = self.state
+        self.state = self._ctx.decomp.unshard(*self._carry[:2])
+        try:
+            for d in due:
+                if self.mesh.rank == 0:
+                    d.write(self)
+                else:
+                    d.last_step = self.step
+        finally:
+            self.state = here
 
     def _segment_flags(self, carry) -> tuple[bool, int]:
         """(cell or list overflow, the pair's hist_over: the largest
@@ -1273,7 +1395,9 @@ class Simulation:
                    if hasattr(fx, "device_flags")]
         words += [f.reshape(1).to(torch.int64) for _, f in flagged]
         vals = (words[0] if len(words) == 1 else torch.cat(
-            [w.to(words[0].device) for w in words])).tolist()
+            [w.to(words[0].device) for w in words]))
+        # the ranks' flags, their largest: every rank redoes the segment
+        vals = self.mesh.all_reduce(vals, "max").tolist()
         for (fx, _), bad in zip(flagged, vals[len(vals) - len(flagged):]):
             if bad:
                 raise RuntimeError(f"fix {fx.id}: {fx.flag_message} at or "
@@ -1287,17 +1411,23 @@ class Simulation:
         (tpumd/md/simulation.py:1304-1374); returns the new context.  An
         overflow raises unless check is False (``rebin_grown``)."""
         s0, neigh0, fstates = snapshot
+        decomp = self._ctx.decomp
         if self._ctx.is_cellgrid:
             self._refreshes += self._grid_refreshes(neigh0)
-            self.state = cg.compact_state(self._push_history(s0, neigh0),
-                                          neigh0.valid, self.natoms)
+            self.state = (decomp.unshard(s0, neigh0)
+                          if decomp is not None else
+                          cg.compact_state(self._push_history(s0, neigh0),
+                                           neigh0.valid, self.natoms))
             self._ctx = self._make_ctx()
             s, neigh = self._grid_setup(self.state, nbuilds=neigh0.nbuilds)
         else:
-            self.state = s0
+            # a decomposed matrix engine re-splits the gathered rows
+            self.state = (s0 if decomp is None
+                          else decomp.unshard(s0, neigh0))
             self._ctx = self._make_ctx()
-            s, neigh = self._matrix_setup(s0, nbuilds=neigh0.nbuilds,
-                                          old=neigh0)
+            s, neigh = self._matrix_setup(
+                self.state, nbuilds=neigh0.nbuilds,
+                old=neigh0 if decomp is None else None)
         if check:
             self._check_overflow(neigh)
         self._carry = (s, neigh, fstates)
@@ -1313,7 +1443,7 @@ class Simulation:
             neigh = self._carry[1]
             over = (neigh.any_overflow if self._ctx.is_cellgrid
                     else neigh.overflow)
-            if not bool(over):
+            if not self._agreed(over):
                 return self._ctx
             if self._ctx.is_cellgrid:
                 self._grow_grid(neigh, neigh.max_count)
@@ -1375,7 +1505,9 @@ class Simulation:
     def _finish_report(self, elapsed: float, nsteps: int):
         """End-of-run report (Finish::end, src/finish.cpp:130-160)."""
         n = self.natoms
-        self._log(f"Loop time of {elapsed:.6g} on 1 device "
+        ndev = (f"{self.mesh.size} devices" if self.mesh.distributed
+                else "1 device")
+        self._log(f"Loop time of {elapsed:.6g} on {ndev} "
                   f"for {nsteps} steps with {n} atoms")
         if elapsed > 0 and nsteps > 0:
             sps = nsteps / elapsed
@@ -1454,6 +1586,8 @@ class Simulation:
         s = self._carry[0]
         u = self.units
         energies, virial = self.current_energies()
+        if self._ctx.decomp is not None:
+            s = self._ctx.decomp.thermo_view(s, self._carry[1])
         extra = [self.compute_entry(k) for k in self._thermo_computes()]
         extra += [out for _, out in self._thermo_fix_outputs()]
         escaped = self._escaped(s)
@@ -1462,8 +1596,21 @@ class Simulation:
             (self.dof(), u.boltz, u.mvv2e),
             torch.as_tensor(self.mass, dtype=self.dtype, device=self.device),
             extra + ([] if escaped is None else [escaped]))
+        if self._ctx.decomp is not None:
+            packed = self._reduce_thermo(packed)
         return self._vals_from_packed(
             packed.cpu().numpy().astype(np.float64))
+
+    def _reduce_thermo(self, packed):
+        """The thermo row of the whole system from each rank's row of its
+        owned atoms: one float64 sum over the ranks of the partial sums
+        (temperature, virial, atom count, energies, extras), the volume and
+        box lengths rank 0's."""
+        row = packed.to(torch.float64)
+        if self.mesh.rank != 0:
+            row = row.clone()
+            row[[1, 4, 5, 6]] = 0.0
+        return self.mesh.all_reduce(row, "sum")
 
     def _vals_from_packed(self, vals_h) -> dict:
         """Thermo dict from one pack_thermo row (Thermo::compute_*)."""
@@ -1501,12 +1648,7 @@ class Simulation:
         pe = epair + emol
         norm = self.natoms if self.thermo_norm else 1
         if self._mass_sum is None:
-            s = self._carry[0]
-            if s.rmass is not None:
-                self._mass_sum = float(s.rmass.double().sum())
-            else:
-                typ = s.type.cpu().numpy()
-                self._mass_sum = float(self.mass[typ[typ > 0]].sum())
+            self._mass_sum = self._masses(self._carry[0])
         vals = {
             "step": self.step, "temp": t,
             "epair": epair / norm, "emol": emol / norm, "pe": pe / norm,
@@ -1528,6 +1670,13 @@ class Simulation:
             vals[key] = float(vals_h[nenergy + len(cids) + k])
         self.last_thermo = vals
         return vals
+
+    def _masses(self, s) -> float:
+        """The summed mass of the atoms of s."""
+        if s.rmass is not None:
+            return float(s.rmass.double().sum())
+        typ = s.type.cpu().numpy()
+        return float(self.mass[typ[typ > 0]].sum())
 
     _THERMO_HEADERS = {
         "step": "Step", "temp": "Temp", "epair": "E_pair", "emol": "E_mol",

@@ -107,6 +107,10 @@ class StepContext:
     # run_style respa: (loop factors, the force terms of each level), the
     # outermost level last; None under verlet
     respa: tuple | None = None
+    # the run decomposed over a process group (parallel/decomp.py): a
+    # GridDecomp (neigh_cfg is then its local grid) or a RowDecomp; None
+    # on one card
+    decomp: Any = None
 
     def mass_per_atom(self, s: MDState):
         if s.rmass is not None:
@@ -150,11 +154,13 @@ def _matrix_pair(s: MDState, neigh: nb.NeighborState, ctx: StepContext,
             neigh = neigh.replace(shear=shear)
         return f, {}, None, torque, neigh
     special = ctx.neigh_cfg.has_special
+    # a rank's rows take their j sides from every row's positions
+    kw = ({"ext": _pair_ext(s, ctx)} if ctx.decomp is None
+          else {"ext": ctx.decomp.ext(s), "row0": ctx.decomp.r0})
     f, evdwl, ecoul, vir = pair.compute(
         s.x, s.type, s.box, neigh.idx, neigh.sbits,
         ctx.special_lj if special else None,
-        ctx.special_coul if special else None, eflag, vflag, q=s.q,
-        ext=_pair_ext(s, ctx))
+        ctx.special_coul if special else None, eflag, vflag, q=s.q, **kw)
     return f, {"evdwl": evdwl, "ecoul": ecoul}, vir, None, neigh
 
 
@@ -243,10 +249,16 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
         if ctx.kernel_bond is not None:
             bond = (ctx.kernel_bond, (neigh.pairs, neigh.npairs,
                                       neigh.bond_slots, neigh.row2slot))
+        # on a rank's local grid the sweeps take the owned slots (the
+        # halos' rows are the neighbours'), and EAM's F'(rho) of the halo
+        # slots comes from their owners between its two sweeps
+        kw = grid_special(s, ctx)
+        if ctx.decomp is not None and getattr(pair, "forward_fp", False):
+            kw["halo"] = ctx.decomp.exchange_fp
         f, evdwl, vir, ebond = pair.compute_cellgrid(
-            s.x, neigh.valid, s.box, ctx.neigh_cfg, eflag, vflag, bond=bond,
-            plist=(neigh.pairs, neigh.npairs, neigh.row2slot),
-            **grid_special(s, ctx))
+            s.x, neigh.valid if neigh.owned is None else neigh.owned, s.box,
+            ctx.neigh_cfg, eflag, vflag, bond=bond,
+            plist=(neigh.pairs, neigh.npairs, neigh.row2slot), **kw)
         tally({"evdwl": evdwl, "ebond": ebond}, vir)
 
     if eflag and s.q is not None and hasattr(pair, "ecoul_self_atom"):
@@ -337,9 +349,13 @@ def build_matrix(s: MDState, ctx: StepContext, nbuilds: int,
     if gmask is None and ctx.neigh_cfg.exclude_bits:
         # no group command yet: every atom is in group all (bit 1)
         gmask = torch.ones_like(s.tag)
+    x, rows = s.x, None
+    if ctx.decomp is not None:
+        # a rank builds its rows over every row's positions
+        x, rows = ctx.decomp.gather_x(s.x), (ctx.decomp.r0, ctx.decomp.r1)
     idx, sbits, max_count, over = nb.build_neighbors(
-        s.x, s.box, ctx.neigh_cfg, special_tags=s.special_tags,
-        special_codes=s.special_codes, tag=s.tag, gmask=gmask)
+        x, s.box, ctx.neigh_cfg, special_tags=s.special_tags,
+        special_codes=s.special_codes, tag=s.tag, gmask=gmask, rows=rows)
     shear = None
     if history:
         shear = (_remap_shear(old.idx, idx, old.shear) if old is not None
@@ -381,7 +397,7 @@ def grid_pairlist(s: MDState, valid, ctx: StepContext, stat=None):
             s.x, valid, s.tag, stags, scodes, ctx.neigh_cfg, gmask,
             ctx.pairlist_exclude, box_term=box_change)
     pairs, npairs, longest, over = cellgrid_pairlist(
-        s.x, valid, s.tag, stags, scodes, s.box, ctx.neigh_cfg,
+        s.x, valid, s.tag, stags, scodes, list_box(s, ctx), ctx.neigh_cfg,
         ctx.pairlist_k, gmask, ctx.pairlist_exclude, stat=stat, hold=hold)
     if box_change:
         fields.update(lohold=s.box.lo, hihold=s.box.hi)
@@ -389,16 +405,34 @@ def grid_pairlist(s: MDState, valid, ctx: StepContext, stat=None):
             "max_pairs": longest, **fields}, over
 
 
+def list_box(s: MDState, ctx: StepContext):
+    """The box of the grid's list build and refresh: on a rank's local grid
+    the split axes are not periodic (their halos carry the seam shift)."""
+    return s.box if ctx.decomp is None else ctx.decomp.list_box(s.box)
+
+
 def _rebuild(s: MDState, neigh, ctx: StepContext):
     """Wrap and shrink-wrap; then on the cell grid re-bin and permute the
     state (and a granular style's history tables) into the new slot order,
     on the matrix engine rebuild the list in place (tpumd/md/verlet.py:
-    372-388)."""
+    372-388).  On a rank's local grid the re-bin migrates the owned atoms
+    whose cell left the block, bins them and refills the halo slots
+    (``GridDecomp.rebin``)."""
     s = reset_box_shrink(wrap_pbc(s), ctx)
     if not ctx.is_cellgrid:
         new = build_matrix(s, ctx, neigh.nbuilds + 1, old=neigh,
                            history=neigh.shear is not None)
         return s, new.replace(overflow=neigh.overflow | new.overflow)
+    if ctx.decomp is not None:
+        s, valid, owned, rows, max_count, over = ctx.decomp.rebin(
+            s, neigh.row2slot)
+        plist, list_over = grid_pairlist(s, valid, ctx, neigh.list_stat)
+        if list_over is not None:
+            over = over | list_over
+        return s, cg.CellGridState(
+            valid=valid, xhold=s.x, ago=0, nbuilds=neigh.nbuilds + 1,
+            overflow=neigh.overflow | over, max_count=max_count,
+            row2slot=rows, owned=owned, **plist)
     cfg = ctx.neigh_cfg
     src, dst, row2slot, max_count, over = cg.bin_compact(
         s.x, s.tag, ctx.natoms, s.box, cfg, row2slot=neigh.row2slot)
@@ -436,10 +470,15 @@ def decide_rebuild(s: MDState, neigh, ctx: StepContext) -> bool:
     if not cfg.check:
         return True
     if ctx.is_cellgrid:
-        return bool(cg.displacement_exceeded(
-            s.x, neigh.xhold, neigh.valid, s.box, cfg.skin, neigh.lohold,
-            neigh.hihold))
-    return bool(nb.displacement_exceeded(s.x, neigh.xhold, s.box, cfg.skin))
+        moved = cg.displacement_exceeded(
+            s.x, neigh.xhold, neigh.valid if neigh.owned is None
+            else neigh.owned, s.box, cfg.skin, neigh.lohold, neigh.hihold)
+    else:
+        moved = nb.displacement_exceeded(s.x, neigh.xhold, s.box, cfg.skin)
+    if ctx.decomp is not None:
+        # every rank checks its own atoms and takes the same decision
+        return bool(ctx.decomp.mesh.agree_max(moved))
+    return bool(moved)
 
 
 def refresh_list(s: MDState, neigh, ctx: StepContext):
@@ -452,8 +491,8 @@ def refresh_list(s: MDState, neigh, ctx: StepContext):
                and neigh.ago % cfg.every == 0)
     if checked and not neigh.list_gated:
         return neigh
-    refresh_pairlist(s.x, neigh.valid, s.box, cfg, neigh.pairs, neigh.npairs,
-                     neigh.list_stat, neigh.list_hold)
+    refresh_pairlist(s.x, neigh.valid, list_box(s, ctx), cfg, neigh.pairs,
+                     neigh.npairs, neigh.list_stat, neigh.list_hold)
     return neigh if neigh.list_gated else neigh.replace(list_gated=True)
 
 
@@ -484,8 +523,12 @@ def step_pre(s: MDState, neigh, fstates, ctx: StepContext, istep: int,
                  and istep % fx.rebuild_every == 0 for fx in ctx.fixes)
     if forced or decide_rebuild(s, neigh, ctx):
         s, neigh = _rebuild(s, neigh, ctx)
-    elif ctx.pairlist_refresh:
-        neigh = refresh_list(s, neigh, ctx)
+    else:
+        if ctx.decomp is not None and ctx.is_cellgrid:
+            # the halo slots' positions of this step, before the refresh
+            s = s.replace(x=ctx.decomp.exchange_positions(s.x, s.box))
+        if ctx.pairlist_refresh:
+            neigh = refresh_list(s, neigh, ctx)
     f, _, virial, torque, neigh = compute_forces(
         s, neigh, ctx, eflag=False, vflag=ctx.need_virial, shearupdate=True,
         istep=istep)

@@ -109,13 +109,14 @@ class PairStyle:
         self.__dict__.pop("_packed", None)
 
     def compute(self, x, type_, box, idx, sbits, special_lj, special_coul,
-                eflag: bool, vflag: bool, q=None, ext=None):
+                eflag: bool, vflag: bool, q=None, ext=None, row0: int = 0):
         """(f, evdwl, ecoul, virial) on the matrix neighbor engine
-        (tpumd/models/base.py:64-84)."""
+        (tpumd/models/base.py:64-84); ext and row0 as ``pair_sums`` takes
+        them (a rank's block of rows)."""
         return pair_sums(x, type_, box, idx, sbits, self.pair_fn,
                          special_lj, special_coul, eflag, vflag, q=q,
                          pair_fn_ex=getattr(self, "pair_fn_ex", None),
-                         ext=ext)
+                         ext=ext, row0=row0)
 
 
 class SimpleTablePair(PairStyle):

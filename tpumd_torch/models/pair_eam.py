@@ -180,6 +180,8 @@ class PairEAM(PairStyle):
     # matrix engine
     supports_cellgrid = True
     supports_image_ext = False
+    # a rank's local grid fills the halo slots' F'(rho) between B3 and B4
+    forward_fp = True
     # eam/he: the embedding table starts at rhomin, with linear
     # extrapolation below it (pair_eam_he.cpp:147)
     rhomin = 0.0
@@ -429,13 +431,15 @@ class PairEAM(PairStyle):
         return f, evdwl, None, (self._virial(fpw, d) if vflag else None)
 
     def compute_cellgrid(self, x, valid, box, cfg, eflag: bool, vflag: bool,
-                         bond=None, plist=None):
+                         bond=None, plist=None, halo=None):
         """(f, evdwl, virial, None) on the cell grid: the density kernel
         (rho, F'(rho) and, with eflag, F(rho) per slot), then the force
         kernel, both over the grid's pair list plist = (pairs, npairs,
         rows) (or their plain versions for CPU tensors).  evdwl is the
         embedding energy plus the pair energy, None unless eflag; the
-        virial is None unless vflag."""
+        virial is None unless vflag.  On a rank's local grid, halo fills
+        the halo slots' F'(rho) from their owners between the two kernels
+        (the reference's comm->forward_comm(this), pair_eam.cpp)."""
         if self.ntypes != 1:
             raise NotImplementedError(
                 f"pair_style {self.name} with more than one atom type: the "
@@ -447,6 +451,8 @@ class PairEAM(PairStyle):
         tab = self.kernel_tables(x)
         _, fp, e_embed = eam_rho_cellgrid(x, valid, box, cfg, tab, eflag,
                                           plist)
+        if halo is not None:
+            fp = halo(fp)
         f, e_pair, virial = eam_force_cellgrid(x, valid, fp, box, cfg, tab,
                                                eflag, vflag, plist)
         return f, (e_embed + e_pair if eflag else None), virial, None

@@ -79,6 +79,10 @@ class CellGridState:
     bond_slots: torch.Tensor | None = None
     list_hold: tuple | None = None
     list_gated: bool = False
+    # on a rank's local grid (parallel/decomp.py): the valid slots of the
+    # owned cells, whose rows the sweeps take (row2slot then holds their
+    # slots); None on one card
+    owned: torch.Tensor | None = None
 
     def replace(self, **kw) -> "CellGridState":
         return dataclasses.replace(self, **kw)
@@ -178,6 +182,28 @@ def row2slot_from_tags(tag, natoms: int):
                      torch.arange(tag.shape[0], device=tag.device))
 
 
+def cell_slots(cid, cfg: CellGridConfig):
+    """The slots of atoms with cell ids cid (n,), ties within a cell in
+    the order given: one stable sort by cell id.  Returns (order (n,),
+    dst (n,) the slot of atom order[k], or capacity where its cell is
+    full, max_count, overflow).  ``bin_compact`` places the one-card
+    grid's atoms with it, ``GridDecomp.rebin`` a rank's local grid's."""
+    n = cid.shape[0]
+    sorted_cid, order = torch.sort(cid, stable=True)
+    iota = torch.arange(n, device=cid.device)
+    newseg = torch.ones(n, dtype=torch.bool, device=cid.device)
+    newseg[1:] = sorted_cid[1:] != sorted_cid[:-1]
+    first = torch.cummax(torch.where(newseg, iota, 0), dim=0).values
+    rank = iota - first
+    max_count = (torch.max(rank) + 1 if n else
+                 torch.zeros((), dtype=torch.int64, device=cid.device))
+    overflow = max_count > cfg.cap
+    dst = torch.where(rank < cfg.cap,
+                      sorted_cid * cfg.cap
+                      + torch.clamp(rank, max=cfg.cap - 1), cfg.capacity)
+    return order, dst, max_count, overflow
+
+
 def bin_compact(x, tag, natoms: int, box: Box, cfg: CellGridConfig,
                 row2slot=None):
     """Re-bin the ``natoms`` real atoms: one stable sort by cell id with
@@ -192,18 +218,8 @@ def bin_compact(x, tag, natoms: int, box: Box, cfg: CellGridConfig,
     if row2slot is None:
         row2slot = row2slot_from_tags(tag, n)
     cid = _cell_ids(x[row2slot], box, cfg)
-    sorted_cid, order = torch.sort(cid, stable=True)
+    order, dst, max_count, overflow = cell_slots(cid, cfg)
     src = row2slot[order]
-    iota = torch.arange(n, device=x.device)
-    newseg = torch.ones(n, dtype=torch.bool, device=x.device)
-    newseg[1:] = sorted_cid[1:] != sorted_cid[:-1]
-    first = torch.cummax(torch.where(newseg, iota, 0), dim=0).values
-    rank = iota - first
-    max_count = torch.max(rank) + 1
-    overflow = max_count > cfg.cap
-    dst = torch.where(rank < cfg.cap,
-                      sorted_cid * cfg.cap
-                      + torch.clamp(rank, max=cfg.cap - 1), npad)
     row2slot_new = torch.empty_like(row2slot)
     row2slot_new[order] = torch.clamp(dst, max=npad - 1).to(row2slot.dtype)
     return src, dst, row2slot_new, max_count, overflow

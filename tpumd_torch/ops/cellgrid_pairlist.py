@@ -177,15 +177,22 @@ def cellgrid_pairlist_plain(x, valid, tag, stags, scodes, box: Box,
             max_pairs > K)
 
 
-def list_entries(x, box: Box, pairs, npairs, with_codes=False):
+def list_entries(x, box: Box, pairs, npairs, with_codes=False, rows=None):
     """(i, j, d, r2) of a list's live code-0 entries: i and j (n,) int64
     slots, d (n, 3) x_i - (x_j + image_shift) and r2 (n,) its squared
     length, rounded as the list kernels round them; with_codes, of every
-    live entry, and (n,) their codes after them."""
+    live entry, and (n,) their codes after them.  rows, where given, the
+    slots whose rows count (the kernels' rows: the owned ones on a rank's
+    local grid), the entries still in slot order."""
     kk = max(int(npairs.max()), 1)
     j, code = unpack(pairs[:, :kk])
     live = (torch.arange(kk, device=x.device)[None, :]
             < npairs[:, None].long())
+    if rows is not None:
+        take = torch.zeros(npairs.shape[0], dtype=torch.bool,
+                           device=x.device)
+        take[rows] = True
+        live &= take[:, None]
     if not with_codes:
         live &= code == 0
     i, col = torch.nonzero(live, as_tuple=True)

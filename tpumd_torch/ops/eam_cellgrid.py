@@ -103,11 +103,12 @@ def eam_rho_cellgrid_plain(x, valid, box: Box, cfg: CellGridConfig,
 
 
 def eam_rho_pairlist_plain(x, valid, box: Box, tab: EAMTables, eflag: bool,
-                           pairs, npairs):
+                           pairs, npairs, rows=None):
     """Plain PyTorch version of the density kernel: (rho, fp, e_embed)
-    over the list's entries within the cutoff."""
+    over the list's entries within the cutoff (of the rows slots only,
+    where given: the kernel's rows)."""
     from tpumd_torch.ops.cellgrid_pairlist import list_entries
-    i, _, _, r2 = list_entries(x, box, pairs, npairs)
+    i, _, _, r2 = list_entries(x, box, pairs, npairs, rows=rows)
     inside = r2 < tab.cutsq
     m, p = _index(torch.sqrt(r2[inside]), tab.dr, tab.nr)
     rho = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device).index_add_(
@@ -143,11 +144,12 @@ def eam_force_cellgrid_plain(x, valid, fp, box: Box, cfg: CellGridConfig,
 
 
 def eam_force_pairlist_plain(x, fp, box: Box, tab: EAMTables, eflag: bool,
-                             vflag: bool, pairs, npairs):
+                             vflag: bool, pairs, npairs, rows=None):
     """Plain PyTorch version of the force kernel: (f, e_pair, virial) over
-    the list's entries within the cutoff."""
+    the list's entries within the cutoff (of the rows slots only, where
+    given: the kernel's rows)."""
     from tpumd_torch.ops.cellgrid_pairlist import half_virial, list_entries
-    i, j, d, r2 = list_entries(x, box, pairs, npairs)
+    i, j, d, r2 = list_entries(x, box, pairs, npairs, rows=rows)
     inside = r2 < tab.cutsq
     i, j, d, r2 = i[inside], j[inside], d[inside], r2[inside]
     fpair, phi = eam_pair_fn(tab)(r2, fp[i], fp[j])
@@ -195,7 +197,7 @@ def eam_rho_cellgrid(x, valid, box: Box, cfg: CellGridConfig,
     if x.device.type == "cpu":
         rho_counts.plain_calls += 1
         return eam_rho_pairlist_plain(x, valid, box, tab, eflag, pairs,
-                                      npairs)
+                                      npairs, rows)
     if x.device.type != "cuda":
         raise ValueError(f"eam_rho_cellgrid: no kernel for device "
                          f"{x.device}")
@@ -244,7 +246,7 @@ def eam_force_cellgrid(x, valid, fp, box: Box, cfg: CellGridConfig,
     if x.device.type == "cpu":
         force_counts.plain_calls += 1
         return eam_force_pairlist_plain(x, fp, box, tab, eflag, vflag, pairs,
-                                        npairs)
+                                        npairs, rows)
     if x.device.type != "cuda":
         raise ValueError(f"eam_force_cellgrid: no kernel for device "
                          f"{x.device}")

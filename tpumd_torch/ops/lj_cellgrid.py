@@ -126,17 +126,18 @@ def lj_cellgrid_plain(x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
 
 
 def lj_pairlist_plain(x, box: Box, c: LJCoeffs, eflag: bool, vflag: bool,
-                      pairs, npairs, special=None):
+                      pairs, npairs, special=None, rows=None):
     """Plain PyTorch version of the kernel: (f, evdwl, virial) of lj/cut
     over the list's code-0 entries within the cutoff, or with special =
     (s1, s2, s3) over every entry, code c weighed s_c; with eflag = vflag
-    = "atom", (f, eatom, vatom) per slot."""
+    = "atom", (f, eatom, vatom) per slot.  rows, where given, the slots
+    whose rows are summed (the kernel's rows), the others' forces 0."""
     from tpumd_torch.ops.cellgrid_pairlist import half_virial, list_entries
     if special is None:
-        i, _, d, r2 = list_entries(x, box, pairs, npairs)
+        i, _, d, r2 = list_entries(x, box, pairs, npairs, rows=rows)
     else:
         i, _, d, r2, code = list_entries(x, box, pairs, npairs,
-                                         with_codes=True)
+                                         with_codes=True, rows=rows)
     inside = r2 < c.cutsq
     i, d, r2 = i[inside], d[inside], r2[inside]
     fp, e = lj_pair_fn(c)(r2, None, None)
@@ -234,7 +235,7 @@ def lj_cellgrid(x, valid, box: Box, cfg: CellGridConfig, c: LJCoeffs,
     if x.device.type == "cpu":
         counts.plain_calls += 1
         return lj_pairlist_plain(x, box, c, eflag, vflag, pairs, npairs,
-                                 special)
+                                 special, rows)
     if x.device.type != "cuda":
         raise ValueError(f"lj_cellgrid: no kernel for device {x.device}")
     if special is None:

@@ -222,13 +222,21 @@ def excluded_pairs(gi, gj, exclude_bits):
 
 
 def build_neighbors(x, box: Box, cfg: NeighborConfig, special_tags=None,
-                    special_codes=None, tag=None, gmask=None):
+                    special_codes=None, tag=None, gmask=None, rows=None):
     """The padded neighbor matrix of wrapped positions x (N, 3)
     (tpumd/ops/neighbor.py:344-490).  Returns (idx (N, K) int32, sbits
     (N, K) int32, max_count, overflow).  special_tags/special_codes:
     (N, S) int32 partner tags (0-padded) and their codes, with tag (N,);
-    gmask (N,) int32 is needed when cfg.exclude_bits is set."""
+    gmask (N,) int32 is needed when cfg.exclude_bits is set.  rows = (r0,
+    r1), where given, builds the rows [r0, r1) only (a rank's block, the
+    positions every row's): idx (r1 - r0, K) of indices into x, each
+    row's padding its own index r0 + row; a block takes no special codes
+    and no exclusions."""
     n = x.shape[0]
+    r0, r1 = (0, n) if rows is None else rows
+    if rows is not None and (cfg.exclude_bits or cfg.has_special):
+        raise NotImplementedError("special codes or neigh_modify exclude "
+                                  "on a block of rows")
     dev = x.device
     i32 = torch.int32
     if cfg.image_shifts:
@@ -266,10 +274,10 @@ def build_neighbors(x, box: Box, cfg: NeighborConfig, special_tags=None,
     xp = torch.cat(cols, dim=1).contiguous()
     cut2 = cfg.cutneigh * cfg.cutneigh
 
-    idx = torch.empty((n, cfg.kmax), dtype=i32, device=dev)
-    counts = torch.empty(n, dtype=torch.int64, device=dev)
-    for b0 in range(0, n, cfg.block):
-        b1 = min(b0 + cfg.block, n)
+    idx = torch.empty((r1 - r0, cfg.kmax), dtype=i32, device=dev)
+    counts = torch.empty(r1 - r0, dtype=torch.int64, device=dev)
+    for b0 in range(r0, r1, cfg.block):
+        b1 = min(b0 + cfg.block, r1)
         cand = gather_rows(cells, stencil[b0:b1]).reshape(b1 - b0, -1)
         pj = gather_rows(xp, cand)                      # (B, C, 3 or 4)
         xi = x[b0:b1]
@@ -295,9 +303,10 @@ def build_neighbors(x, box: Box, cfg: NeighborConfig, special_tags=None,
         col = torch.where(ok, torch.clamp(pos, max=cfg.kmax), cfg.kmax)
         out = self_b.expand(b1 - b0, cfg.kmax + 1).clone()
         out.scatter_(1, col, torch.where(ok, cand, self_b))
-        idx[b0:b1] = out[:, :cfg.kmax]
-        counts[b0:b1] = ok.sum(dim=1)
-    max_count = torch.max(counts) if n else torch.zeros((), device=dev)
+        idx[b0 - r0:b1 - r0] = out[:, :cfg.kmax]
+        counts[b0 - r0:b1 - r0] = ok.sum(dim=1)
+    max_count = (torch.max(counts) if r1 > r0
+                 else torch.zeros((), device=dev))
     overflow = cell_over | (max_count > cfg.kmax)
 
     if cfg.has_special and special_tags is not None:

@@ -71,11 +71,21 @@ def slab_imbalance(x: np.ndarray, order: np.ndarray, nparts: int) -> float:
 
 
 def part_count(device) -> int:
-    """The default part count: the cards of a CUDA device's host, 1 on
-    the CPU."""
+    """The default part count of a run on one process: the cards of a
+    CUDA device's host, 1 on the CPU (``sim_parts`` takes a process
+    group's size instead)."""
     if torch.device(device).type == "cuda":
         return max(torch.cuda.device_count(), 1)
     return 1
+
+
+def sim_parts(sim) -> int:
+    """The part count of sim's run: the ranks of the process group it is
+    decomposed over (tpumd takes len(jax.devices())), else
+    ``part_count``."""
+    if sim.mesh.distributed:
+        return sim.mesh.size
+    return part_count(sim.device)
 
 
 def balance_atoms(sim, style: str, dims: str = "", nparts: int | None = None):
@@ -88,7 +98,7 @@ def balance_atoms(sim, style: str, dims: str = "", nparts: int | None = None):
     the special lists, ``peratom``'s tables of fixes and styles); the
     fixes' other state is kept by tag."""
     if nparts is None:
-        nparts = part_count(sim.device)
+        nparts = sim_parts(sim)
     sim.invalidate_ctx()
     s = sim.state
     x = s.x.detach().cpu().numpy().astype(np.float64)

@@ -103,9 +103,12 @@ class LammpsScript:
     lines do not overwrite."""
 
     def __init__(self, *, device="cuda", dtype=torch.float32,
-                 var_overrides=None):
+                 var_overrides=None, mesh=None):
         self.device = resolve_device(device)
         self.dtype = dtype
+        # the process group a run is decomposed over (parallel/mesh.py);
+        # every rank runs the whole script, rank 0 writes the files
+        self.mesh = mesh
         self.data_dir = "."
         self.atom_style = "atomic"
         # styles named before read_data sets the type counts
@@ -251,16 +254,33 @@ class LammpsScript:
             self.last_error = f"Unknown command: {cmd}"
             raise NotImplementedError(
                 f"command {cmd!r} is not ported to tpumd_torch")
+        if cmd in self._ONE_RANK and self.mesh is not None \
+                and self.mesh.distributed:
+            raise NotImplementedError(
+                f"command {cmd} across {self.mesh.size} ranks is not ported "
+                "(ROADMAP item 14b): run it on one card")
+        if cmd in self._WRITERS and not self._writer:
+            return
         try:
             handler(args)
         except Exception as e:   # the library's error state (src/library.cpp
             self.last_error = str(e)   # lammps_has_error)
             raise
 
+    # commands that run on one card only, and those whose files rank 0
+    # alone writes, under a process group
+    _ONE_RANK = frozenset({"temper", "neb", "prd", "tad", "hyper",
+                           "minimize"})
+    _WRITERS = frozenset({"log", "print"})
+
+    @property
+    def _writer(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
     def _require_sim(self) -> Simulation:
         if self.sim is None:
             self.sim = Simulation(units=self._units_name, device=self.device,
-                                  dtype=self.dtype)
+                                  dtype=self.dtype, mesh=self.mesh)
         self.sim.script = self
         return self.sim
 
@@ -701,7 +721,7 @@ class LammpsScript:
         self._units_name = a[0]
         old = self.sim
         self.sim = Simulation(units=a[0], device=self.device,
-                              dtype=self.dtype)
+                              dtype=self.dtype, mesh=self.mesh)
         self.sim.script = self
         if old is not None:
             # a boundary or dimension command may come first
@@ -2483,7 +2503,8 @@ class LammpsScript:
         if sim._ctx is None:
             self._finalize_atoms()
             sim.setup()
-        write_restart(sim, self._path(a[0]))
+        if self._writer:
+            write_restart(sim, self._path(a[0]))
 
     def cmd_read_restart(self, a):
         sim = self._require_sim()
@@ -2492,7 +2513,8 @@ class LammpsScript:
 
     def cmd_write_data(self, a):
         self._finalize_atoms()
-        write_data(self.sim, self._path(a[0]))
+        if self._writer:
+            write_data(self.sim, self._path(a[0]))
 
     # -------------------------------------------------------- state edits
     def _host_edit(self):
