@@ -301,15 +301,29 @@ line each (any failure raises and exits non-zero):
    collectives a step by kind (none an all-gather on the grid), exchange
    ms and bytes a step and timesteps/s beside the one-card run's; a
    failed worker fails the phase;
-19. a JSON line of the kernels (the list build of each deck, the refresh
+19. the molecular stack decomposed, ``decomp_molecular_path``:
+   IN_WATER_SHAKE30K (30,000 atoms, lj/charmm/coul/long, pppm, fix shake)
+   on one card with ``bonded_grid`` on and off (f64 rows equal to 1e-10,
+   f32 timesteps/s of each); at the f64 state 100 steps on, the local
+   grids of 4 z-slabs and 2 x 2 pencils assembled by index: B5's
+   owned-rows variant (B5-rows) bit-equal to the global B5-rows launch
+   and within TOL_LIST of its plain version, f32 and f64, the tag-matched
+   bonded forces and SHAKE deltas = the tag-order view's and the slot-map
+   path's per owned atom to 1e-12; B5-rows, the local list build and
+   ``match_members`` timed; then the deck over min(4, cards) NCCL ranks:
+   f64 rows at steps 0 and 20 = one card's to 1e-10, f32 step 0 to 1e-4,
+   SHAKE's residuals at step 100 under 1e-4, B5-rows launches = force
+   evaluations, the collectives a step by kind (no all-gather), pppm's
+   mesh bytes and the exchange's ms;
+20. a JSON line of the kernels (the list build of each deck, the refresh
    calls of in.lj, eam, rhodo_class, min32k, deform32k, kappa32k and
    hyb32k's grid run, B1 on min32k, pressber32k, deform32k, kappa32k and
    the replica decks, B1-special at hyb32k's grid, B5 at each 30k water
    deck's shape, B6's HERTZ variant at granhertz32k's and P1 at the
    salt's, hyb32k's, sw32k's, tersoff32k's, eamalloy32k's, tip4p30k's,
    dpd32k's, bondcreate32k's, respa32k's and balance32k's, and B1, B3,
-   B4, the build and P1 of the decomposed runs, each an entry of its
-   own),
+   B4, the build and P1 of the decomposed runs, B5-rows and the build
+   of the decomposed water deck, each an entry of its own),
    the card's name and power limit as nvidia-smi prints them, then the
    result line.
 
@@ -7588,6 +7602,432 @@ def decomp_path(smi: str, one: dict) -> tuple[dict, dict]:
     return k, m
 
 
+# ------------------------------------------ the molecular stack decomposed
+class LocalGrid:
+    """The decomposition a step context reads on a local grid assembled on
+    one card: its layout, and the halo slots' velocities and forces as the
+    caller filled them (by index from the global grid)."""
+
+    kind = "grid"
+
+    def __init__(self, layout):
+        self.layout = layout
+
+    def exchange_vf(self, v, f):
+        return v, f
+
+
+def water_shake30k(dtype, bonded_grid=False):
+    """LammpsScript of IN_WATER_SHAKE30K on the card, on the grid, verbose
+    off, before its first run."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.script.parser import LammpsScript
+    script = LammpsScript(device="cuda", dtype=dtype)
+    script.run_string(bt.IN_WATER_SHAKE30K.format(
+        golden=GOLDEN.parent / "water_shake"))
+    sim = script.sim
+    sim.verbose = False
+    sim.neighbor_mode = "cellgrid"
+    sim.bonded_grid = bonded_grid
+    return script
+
+
+def shake_residuals(fx, x, lengths) -> tuple[float, float]:
+    """(the largest |d - d0| / d0 of fix shake's bonds, of its angle
+    clusters' 1-2 distances) at positions x by tag - 1 (f64, the minimum
+    image of the box lengths)."""
+    x = x.double()
+    worst = [0.0, 0.0]
+    for members, dists in fx._tables(x).values():
+        if members.shape[0] == 0:
+            continue
+        pts = [x[members[:, k]] for k in range(members.shape[1])]
+        pairs = [(0, k) for k in range(1, len(pts))]
+        if members.shape[1] == 3 and len(dists) == 3:
+            pairs = [(0, 1), (0, 2), (1, 2)]
+        for (a, b), d0 in zip(pairs, dists):
+            d = pts[b] - pts[a]
+            d = d - lengths * torch.round(d / lengths)
+            gap = float(torch.max(torch.abs(
+                torch.linalg.vector_norm(d, dim=1) - d0) / d0))
+            k = int((a, b) == (1, 2))
+            worst[k] = max(worst[k], gap)
+    return worst[0], worst[1]
+
+
+def molecular_local_grids(script, smi: str) -> dict:
+    """Part 1 of decomp_molecular_path, on one card: IN_WATER_SHAKE30K's f64
+    state 100 steps on, cut into the local grids of 4 z-slabs and 2 x 2
+    pencils (``assemble_slots``: charges, special lists and the per-atom
+    tables with the atoms, the halos' seam shift).  In f32 and f64 the
+    global grid's B5-rows launch over every atom against its rowless
+    launch (in f64 to TOL; in f32 reported), and on every local grid, each
+    owned row's B5-rows forces
+    against the global B5-rows launch (bit for bit) and against the plain
+    version on the same local inputs (TOL_LIST).  In f64 the tag-matched
+    bonded forces (the deck's bonds and angles, which SHAKE takes out of
+    the run, evaluated here with every tuple) and SHAKE's tag-matched
+    deltas (the halos' v and f by index from the global grid) against the
+    tag-order view's and the slot-map path's, per owned atom, to 1e-12 of
+    their largest.  Then at rank 0's 4-slab grid in f32: B5-rows timed
+    beside its plain version, its bound and the global launch; the list
+    build (time_build); match_members in ms and bytes a call, there and on
+    the global grid.  Returns the kernels line's figures."""
+    from tpumd_torch.ops import cellgrid_tuples as ct
+    from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist
+    from tpumd_torch.ops.charmm_cellgrid import charmm_cellgrid, \
+        charmm_rows_plain
+    from tpumd_torch.parallel.decomp import GridLayout, assemble_slots
+    sim = script.sim
+    s, neigh, _ = sim._carry
+    cfg, K, ctx = sim._neigh_cfg, sim._ctx.pairlist_k, sim._ctx
+    valid = neigh.valid
+    grows = torch.nonzero(valid).reshape(-1)
+    kept = {}
+    worst = {"rel_f": 0.0, "gap_rowless": 0.0, "bonded": 0.0, "shake": 0.0}
+    for dtype in (torch.float32, torch.float64):
+        sd = s.replace(x=s.x.to(dtype), q=s.q.to(dtype),
+                       box=s.box.to(device=s.x.device, dtype=dtype))
+        c = sim.pair.kernel_coeffs(sd.x, *sim._special_weights())
+        gp, gn, _, over = cellgrid_pairlist(
+            sd.x, valid, sd.tag, sd.special_tags, sd.special_codes, sd.box,
+            cfg, K)
+        if bool(over):
+            raise AssertionError(f"water_shake30k: global list overflow at "
+                                 f"K {K}")
+        gargs = (sd.x, sd.q, sd.type, gp, gn, sd.box, cfg, c)
+        fg = charmm_cellgrid(*gargs, 0, 0, rows=grows)[0]
+        f0 = charmm_cellgrid(*gargs, 0, 0)[0]
+        torch.cuda.synchronize()
+        rowless = float((fg - f0).abs().max()) / float(f0.abs().max())
+        # the two round only a seam pair's image otherwise; in f32 that
+        # rounding (~1e-5 A at 76-95 A) moves the nearly cancelling
+        # Coulomb terms of excluded pairs as far as the kernel's own gap
+        # from its plain version (TOL), so f64 alone is gated
+        if dtype == torch.float64 and not rowless <= TOL[dtype]:
+            raise AssertionError(f"B5-rows over every atom {rowless} of "
+                                 f"max|f| from the rowless launch")
+        gate = (f"tol {TOL[dtype]:g}" if dtype == torch.float64
+                else "not gated in f32")
+        worst["gap_rowless"] = max(worst["gap_rowless"], rowless)
+        bit, rel = True, 0.0
+        for pz, py in DECOMP_LAYOUTS:
+            for rank in range(pz * py):
+                lay = GridLayout(cfg, pz, py, rank)
+                sl, vl = assemble_slots(lay, sd, valid)
+                gslot, _, own = (torch.as_tensor(a, device=s.x.device)
+                                 for a in lay.slot_maps)
+                owned = vl & own
+                rows = torch.nonzero(owned).reshape(-1)
+                lbox = lay.list_box(sd.box)
+                pairs, npairs, _, over = cellgrid_pairlist(
+                    sl.x, vl, sl.tag, sl.special_tags, sl.special_codes,
+                    lbox, lay.local_cfg, K)
+                if bool(over):
+                    raise AssertionError("local list overflow")
+                largs = (sl.x, sl.q, sl.type, pairs, npairs, sd.box,
+                         lay.local_cfg, c)
+                f = charmm_cellgrid(*largs, 0, 0, rows=rows)[0]
+                fp = charmm_rows_plain(*largs[:6], c, 0, 0, rows)[0]
+                what = f"water_shake30k {pz}x{py} rank {rank} " \
+                       f"{str(dtype)[6:]} B5-rows"
+                err, r = plain_gap(what, f, fp, rows, TOL_LIST[dtype])
+                rel = max(rel, r)
+                worst["rel_f"] = max(worst["rel_f"], r)
+                _, same = owned_gap(what, f, fg, (pairs, npairs, rows), gslot,
+                                    gn, DECOMP_TOL[dtype])
+                if bool(f[~owned].any()):
+                    raise AssertionError(f"{what}: forces off the rows")
+                bit = bit and same
+                if dtype == torch.float64:
+                    worst["bonded"] = max(worst["bonded"], bonded_gap(
+                        sim, ctx, sd, sl, lay, owned, gslot))
+                    worst["shake"] = max(worst["shake"], shake_gap(
+                        sim, ctx, sd, sl, lay, owned, gslot))
+                if rank == 0 and (pz, py) == DECOMP_LAYOUTS[0]:
+                    kept[dtype] = (lay, sl, vl, owned, rows, largs, gargs)
+        if not bit:
+            raise AssertionError(f"water_shake30k {str(dtype)[6:]}: owned "
+                                 "rows' B5-rows forces not bit-equal to the "
+                                 "global B5-rows launch")
+        phase("decomp", f"water_shake30k {str(dtype)[6:]} ({smi}): grid "
+                        f"{cfg.nx}x{cfg.ny}x{cfg.nz} cap {cfg.cap} K {K}, "
+                        f"local grids as 4x1 and 2x2: every owned row's "
+                        f"B5-rows forces bit-equal to the global B5-rows "
+                        f"launch (which is {rowless:.3g} of max|f| from the "
+                        f"rowless launch, the image rounded otherwise, "
+                        f"{gate}), "
+                        f"{rel:.3g} of max|f| from the plain version on the "
+                        f"same local grid (tol {TOL_LIST[dtype]:g}), the "
+                        f"other slots 0")
+    phase("decomp", f"water_shake30k f64 local grids: tag-matched bonded "
+                    f"forces = the tag-order view's to {worst['bonded']:.3g} "
+                    f"of max|f|, SHAKE's tag-matched deltas = the slot-map "
+                    f"path's to {worst['shake']:.3g} (tol 1e-12), per "
+                    f"owned atom")
+    lay, sl, vl, owned, rows, largs, gargs = kept[torch.float32]
+    c = largs[7]
+    lc = lay.local_cfg
+    ms = min(cuda_ms(lambda: charmm_cellgrid(*largs, 0, 0, rows=rows), 100)
+             for _ in range(2))
+    g_ms = min(cuda_ms(lambda: charmm_cellgrid(*gargs, 0, 0), 100)
+               for _ in range(2))
+    plain_ms = cuda_ms(lambda: charmm_rows_plain(*largs[:6], c, 0, 0, rows),
+                       3, ahead=False)
+    live = torch.where(owned, largs[4], 0)
+    ncoul, nlj, nsw, nall = list_charmm_counts(largs[0], largs[5], largs[3],
+                                               live, c)
+    nbytes = lc.capacity * (12 + 4 + 4) + rows.numel() * 12 \
+        + c.lj.numel() * 4 + 12
+    ops = (nall * OPS_CHARMM_PAIR + ncoul * OPS_CHARMM_COUL
+           + nlj * OPS_CHARMM_LJ + nsw * OPS_CHARMM_SWITCH)
+    b_ms, b_by = roof(ops, nbytes)
+    phase("kernel", f"charmm_cellgrid B5-rows on water_shake30k's 4-slab "
+                    f"local grid (rank 0: {lc.nx}x{lc.ny}x{lc.nz} cap "
+                    f"{lc.cap}, {rows.numel()} owned atoms), f32 forces "
+                    f"({smi}): kernel {ms:.4f} ms (the global rowless "
+                    f"launch {g_ms:.4f} ms in this call), plain {plain_ms:.4f}"
+                    f" ms, bound {b_ms:.6f} ms ({b_by}: {nall} pairs in range"
+                    f", {ncoul} in Coulomb range, {nbytes} bytes)")
+    out = {"b5": {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                  "bound_by": b_by, "max_abs_err": worst["rel_f"],
+                  "global_ms": g_ms}}
+    out["build"] = time_build(
+        "water_shake30k 4-slab local grid (rank 0)",
+        (largs[0], vl, sl.tag, sl.special_tags, sl.special_codes,
+         lay.list_box(largs[5]), lc, K), plain_reps=1)
+    # match_members: ms and bytes a call on the global grid and rank 0's
+    fx = sim.shake_fixes()[0]
+    tab = fx.grid_tables(sim.natoms)[0]
+    for what, st, copies in (("global grid", gargs, 1),
+                             ("rank 0's 4-slab grid", largs, lay.copies)):
+        x, q, type_ = st[:3]
+        tag = s.tag if st is gargs else sl.tag
+        want = torch.as_tensor(tab, device=s.x.device)[
+            torch.clamp(tag.long() - 1, min=0)] * (tag > 0)[:, None]
+        ct.match_members(x, tag, type_, q, want, copies=copies)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ct.match_members(x, tag, type_, q, want, copies=copies)
+        torch.cuda.synchronize()
+        nb_ = torch.cuda.max_memory_allocated() - base
+        m_ms = cuda_ms(lambda: ct.match_members(x, tag, type_, q, want,
+                                                copies=copies), 50)
+        phase("kernel", f"match_members (SHAKE's 4 member tags a slot) on "
+                        f"water_shake30k's {what} ({x.shape[0]} slots, f32, "
+                        f"{smi}): {m_ms:.4f} ms a call, {nb_} bytes of "
+                        f"device memory at its peak")
+        out[f"match_{'global' if st is gargs else 'local'}"] = m_ms
+    return out
+
+
+def bonded_gap(sim, ctx, sd, sl, lay, owned, gslot) -> float:
+    """The tag-matched bonded forces of the deck's bonds and angles (every
+    tuple; SHAKE takes them out of the run) on the local grid sl, against
+    the tag-order view's on the global grid sd, per owned atom, of their
+    largest."""
+    from tpumd_torch.models.bonded import compute_tuples, tag_view
+    from tpumd_torch.ops import cellgrid_tuples as ct
+    styles = [st for st in sim.bonded.values()]
+    arities = {st.kind: st.arity for st in styles}
+    topo = {k: sim.topology[k] for k in arities}
+    tables = ct.build_tuple_tables(sim.natoms, topo, arities)
+    gtag = sd.tag.long()
+    rows_l = sl.tag.long()
+
+    def by_slot(tag, a):
+        t = torch.as_tensor(a, device=sd.x.device)
+        return t[torch.clamp(tag - 1, min=0)] * (tag > 0).view(
+            (-1,) + (1,) * (t.dim() - 1))
+
+    loc = sl.replace(peratom={k: by_slot(rows_l, v) * owned.view(
+        (-1,) + (1,) * (v.ndim - 1)) for k, v in tables.items()})
+    lctx = dataclasses.replace(ctx, decomp=LocalGrid(lay), bonded_grid=True)
+    f = ct.compute_bonded_grid(loc, lctx, styles, False, False)[0]
+    row2slot = sim._carry[1].row2slot
+    _, view, take = tag_view(sd, ctx, row2slot)
+    ftag = None
+    for st in styles:
+        t = torch.as_tensor(np.asarray(topo[st.kind]), dtype=torch.int64,
+                            device=sd.x.device)
+        t = torch.cat([t[:, :1], t[:, 1:] - 1], dim=1)
+        fb = compute_tuples(st, view, t, sd.box, ctx, False, False, take)[0]
+        ftag = fb if ftag is None else ftag + fb
+    want = ftag[sl.tag.long()[owned] - 1]
+    got = f[owned]
+    return float((got - want).abs().max()) / float(ftag.abs().max())
+
+
+def shake_gap(sim, ctx, sd, sl, lay, owned, gslot) -> float:
+    """SHAKE's tag-matched constraint deltas on the local grid sl (its
+    halo slots' v and f by index from the global grid) against the
+    slot-map path's on the global grid sd, per owned atom, of their
+    largest."""
+    from tpumd_torch.md.fix_shake import GRID_KEYS
+    fx = sim.shake_fixes()[0]
+    dtfsq = ctx.dt * ctx.dt * ctx.units.ftm2v
+    ref = fx._apply_slots(sd, ctx, dtfsq)[0].f - sd.f
+    tag = sl.tag.long()
+    tabs = [torch.as_tensor(a, device=sd.x.device)[
+        torch.clamp(tag - 1, min=0)] for a in fx.grid_tables(sim.natoms)]
+    tabs = [t * owned.view((-1,) + (1,) * (t.dim() - 1)).to(t.dtype)
+            for t in tabs]
+    valid = sl.tag > 0
+    full = valid[:, None]
+    loc = sl.replace(v=torch.where(full, sd.v[gslot], 0.0),
+                     f=torch.where(full, sd.f[gslot], 0.0),
+                     peratom={**(sl.peratom or {}),
+                              **dict(zip(GRID_KEYS, tabs))})
+    lctx = dataclasses.replace(ctx, decomp=LocalGrid(lay), bonded_grid=True)
+    out, flags = fx._apply_grid(loc, lctx, dtfsq)
+    if float(flags[6]):
+        raise AssertionError("SHAKE's tag-matched path lost a member")
+    got = (out.f - loc.f)[owned]
+    want = ref[gslot[owned]]
+    return float((got - want).abs().max()) / float(ref.abs().max())
+
+
+def molecular_one_card(smi: str) -> dict:
+    """Part 2: IN_WATER_SHAKE30K on one card with ``bonded_grid`` on and
+    off: f64 rows at steps 0 and 20 equal to 1e-10; f32 100 steps each,
+    then 100 timed steps each, timesteps/s in this call; the f64 run (off)
+    goes on to step 100 for part 1.  Returns the rows and the f64 script."""
+    rows = {}
+    for on in (False, True):
+        script = water_shake30k(torch.float64, on)
+        script.run_string("run 20")
+        rows[("f64", on)] = list(script.sim.thermo_rows)
+        if not on:
+            f64 = script
+    bad = [f"step {a['step']} {k}: {a[k]!r} vs {b[k]!r}"
+           for a, b in zip(rows[("f64", True)], rows[("f64", False)])
+           for k in ("temp", "epair", "etotal", "press")
+           if not abs(a[k] - b[k]) <= 1e-10 * abs(b[k])]
+    if bad or len(rows[("f64", True)]) != 2:
+        raise AssertionError("water_shake30k bonded_grid f64: " + "; ".join(
+            bad))
+    sps = {}
+    for on in (False, True):
+        script = water_shake30k(torch.float32, on)
+        script.run_string("run 100")
+        rows[("f32", on)] = list(script.sim.thermo_rows)
+        t0 = script.sim.loop_time
+        script.run_string("run 100")
+        sps[on] = 100 / (script.sim.loop_time - t0)
+        assert script.sim._ctx.bonded_grid == on
+        del script
+        torch.cuda.empty_cache()
+    phase("main", f"water_shake30k on one card ({smi}): bonded_grid on = off "
+                  f"in f64 to 1e-10 at steps 0 and 20; f32, 100 steps timed "
+                  f"after 100: {sps[False]:.2f} timesteps/s off, "
+                  f"{sps[True]:.2f} on, in this call")
+    f64.run_string("run 80")
+    return {"rows": rows, "f64": f64, "sps": sps}
+
+
+def molecular_decomposed(tmp: Path, smi: str, one: dict) -> dict:
+    """Part 3: P = min(4, the card count) workers over NCCL, one card each,
+    run IN_WATER_SHAKE30K decomposed: f64 20 steps, its rows at steps 0 and
+    20 against the one-card run's to 1e-10; f32 100 steps (step 0 against
+    the one-card f32 row, rtol 1e-4; SHAKE's bond and angle residuals at
+    step 100 under its tolerance 1e-4), then 50 timed and 10 counted steps:
+    B5-rows launches = force evaluations with no plain call, the
+    collectives a step by kind between output steps (no all-gather),
+    pppm's mesh all-reduce bytes, the exchange's ms and bytes a step."""
+    from tpumd_torch import bench_targets as bt
+    from tpumd_torch.parallel.launch import run_decks, spawn_world
+    ncards = torch.cuda.device_count()
+    nprocs = min(4, ncards)
+    deck = bt.IN_WATER_SHAKE30K.format(golden=GOLDEN.parent / "water_shake")
+    specs = [{"setup": deck, "dtype": "f64", "mode": "cellgrid",
+              "runs": ["run 20"]},
+             {"setup": deck, "dtype": "f32", "mode": "cellgrid",
+              "runs": ["run 100"], "timed": 50, "steady": 10}]
+    t0 = time.perf_counter()
+    ranks = spawn_world(run_decks, nprocs, "nccl", tmp / "pg_molecular",
+                        (specs,), timeout=500)
+    wall = time.perf_counter() - t0
+    f64 = one["f64"].sim
+    fx = f64.shake_fixes()[0]
+    mesh = f64.kspace.nx * f64.kspace.ny * f64.kspace.nz
+    lengths = f64.state.box.lengths.double()
+    bad = []
+    evals = 1 + force_evals(100, 50)
+    for rank, (d64, d32) in enumerate(ranks):
+        for got, want in zip(d64["rows"], one["rows"][("f64", False)]):
+            for k in ("temp", "epair", "etotal", "press"):
+                if not abs(got[k] - want[k]) <= 1e-10 * abs(want[k]):
+                    bad.append(f"rank {rank} f64 step {got['step']} {k} "
+                               f"{got[k]!r} vs one card {want[k]!r}")
+        if [r["step"] for r in d64["rows"]] != [0, 20]:
+            bad.append(f"rank {rank} f64 rows {len(d64['rows'])}")
+        a, b = d32["rows"][0], one["rows"][("f32", False)][0]
+        for k in ("temp", "epair", "etotal", "press"):
+            if not abs(a[k] - b[k]) <= 1e-4 * abs(b[k]):
+                bad.append(f"rank {rank} f32 step 0 {k} {a[k]!r} vs one "
+                           f"card {b[k]!r}")
+        bond, angle = shake_residuals(fx, torch.as_tensor(d32["x"]),
+                                      lengths.cpu())
+        if not (bond < 1e-4 and angle < 1e-4):
+            bad.append(f"rank {rank} SHAKE residuals {bond}, {angle}")
+        b5 = d32["counts"]["b5"]
+        if b5 != (evals, evals, 0) or d32["timed"]["counts"]["b5"] != (
+                51, 51, 0):
+            bad.append(f"rank {rank} B5 {b5}, timed "
+                       f"{d32['timed']['counts']['b5']} (force evaluations "
+                       f"{evals}, 51)")
+        st = d32["steady"]
+        if st["calls"]["all_gather"]:
+            bad.append(f"rank {rank}: an all-gather between output steps "
+                       f"{st['calls']}")
+        ranks[rank] = (d64, d32, bond, angle)
+    if bad:
+        raise AssertionError("decomp_molecular_path: " + "; ".join(bad))
+    d32 = ranks[0][1]
+    for rank, (d64, d32r, bond, angle) in enumerate(ranks):
+        t, st = d32r["timed"], d32r["steady"]
+        sps = t["steps"] / t["seconds"]
+        phase("decomp", f"water_shake30k rank {rank} of {nprocs} over NCCL "
+                        f"({smi}; world {wall:.1f} s with its start), "
+                        f"{d32r['layout']}: f64 rows at steps 0 and 20 = the "
+                        f"one-card run's to 1e-10; f32 step 0 etotal "
+                        f"{d32r['rows'][0]['etotal']!r} (one card "
+                        f"{one['rows'][('f32', False)][0]['etotal']!r}); "
+                        f"SHAKE residuals at step 100 {bond:.3g} (bonds), "
+                        f"{angle:.3g} (the angle's 1-2); timed 50 steps "
+                        f"{sps:.2f} timesteps/s; exchange "
+                        f"{t['exchange_ms'] / t['steps']:.4f} ms a step; "
+                        f"collectives a step between output steps "
+                        f"{ {k: v / 10 for k, v in st['calls'].items()} }, "
+                        f"bytes {st['bytes']}; pppm's mesh {mesh} values, "
+                        f"{mesh * d32r['itemsize']} bytes an all-reduce; "
+                        f"B5-rows {d32r['counts']['b5'][1]} + "
+                        f"{t['counts']['b5'][1]} launches = force "
+                        f"evaluations; list builds "
+                        f"{d32r['counts']['build'][0]}")
+    return {"b5": d32["counts"]["b5"][1] + d32["timed"]["counts"]["b5"][1],
+            "build": d32["counts"]["build"][0]
+            + d32["timed"]["counts"]["build"][0]}
+
+
+def decomp_molecular_path(smi: str) -> tuple[dict, dict]:
+    """The molecular stack decomposed (ROADMAP item 14b): part 2 on one
+    card, bonded_grid on against off (``molecular_one_card``); part 1 the
+    local grids at the f64 run's state at step 100
+    (``molecular_local_grids``); part 3 the decomposed runs
+    (``molecular_decomposed``).  Returns (the kernels' figures, the
+    launches of the decomposed runs)."""
+    t0 = time.perf_counter()
+    one = molecular_one_card(smi)
+    k = molecular_local_grids(one["f64"], smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        m = molecular_decomposed(Path(tmpdir), smi, one)
+    phase("decomp", f"decomp_molecular_path {time.perf_counter() - t0:.1f} s")
+    return k, m
+
+
 def main():
     t_start = time.perf_counter()
     smi = environment()
@@ -7689,6 +8129,7 @@ def main():
     phase("parallel", f"the parallel and ellipsoid phases "
                       f"{time.perf_counter() - t_parallel:.1f} s")
     k_dec, m_dec = decomp_path(smi, m_864)
+    k_mol, m_mol = decomp_molecular_path(smi)
     # the list kernels' launches on the main paths: builds at set-up and
     # re-bins, and refresh calls, most of which pass the gate and return
     # (those that rebuild are the refreshes taken); an entry each
@@ -7706,7 +8147,8 @@ def main():
                 for name, m in (("min32k", m_min), ("pressber32k", m_pb),
                                 ("deform32k", m_df), ("kappa32k", m_kappa),
                                 ("hyb32k_grid", m_hgrid), *replicas)],
-              ("decomp", k_dec["build"], m_dec["build"])]
+              ("decomp", k_dec["build"], m_dec["build"]),
+              ("decomp_molecular", k_mol["build"], m_mol["build"])]
     searched = {"in.lj": "tpumd/ops/pallas_lj.py:25",
                 "analysis32k": "tpumd/ops/pallas_lj.py:25",
                 "chain": "tpumd/ops/pallas_lj.py:146",
@@ -7721,7 +8163,8 @@ def main():
                 "water_npt30k": "tpumd/ops/pallas_charmm.py:43",
                 "rigid_npt30k": "tpumd/ops/pallas_charmm.py:43",
                 "chute": "tpumd/ops/pallas_gran.py:42",
-                "decomp": "tpumd/ops/pallas_lj.py:25"}
+                "decomp": "tpumd/ops/pallas_lj.py:25",
+                "decomp_molecular": "tpumd/ops/pallas_charmm.py:43"}
     upkeep = [(f"cellgrid_pairlist build {name}", list_src, searched[name],
                k, {"launches": nb}) for name, k, nb in builds]
     calls = list(builds)
@@ -7777,6 +8220,10 @@ def main():
                "tpumd_torch/csrc/charmm_cellgrid.cu",
                "tpumd/ops/pallas_charmm.py:43", m["b5"], m)
               for name, m in m_water.items()],
+            ("charmm_cellgrid rows decomp_molecular",
+             "tpumd_torch/csrc/charmm_cellgrid.cu",
+             "tpumd/ops/pallas_charmm.py:43", k_mol["b5"],
+             {"launches": m_mol["b5"]}),
             *upkeep,
             ("gran_cellgrid", "tpumd_torch/csrc/gran_cellgrid.cu",
              "tpumd/ops/pallas_gran.py:42", k_gran, m_gran),

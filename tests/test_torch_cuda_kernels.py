@@ -1173,3 +1173,73 @@ def test_local_grids_equal_the_global_launch(layout, dtype):
                                   rows=rows)[0]
         err = float((f[rows] - fp[rows]).abs().max())
         assert err <= plain_tol * float(fp[rows].abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_b5_rows_on_water_local_grids(dtype, tmp_path):
+    """B5's owned-rows variant (``charmm_cellgrid(..., rows=)``) on the
+    water_nve golden replicated 2x2x2 (3,000 atoms, a 4^3 grid): the global
+    grid's B5-rows launch over every atom within TOL of the rowless launch
+    (only the image's rounding differs); then each rank's local grid of 4
+    z-slabs and of 2 x 2 pencils, assembled by index (charges and special
+    lists with the atoms, the halos' seam shift), its list built by the
+    kernel with the special codes: every owned row's forces bit-equal to
+    the global B5-rows launch's, the other slots' 0, the ranks' energies
+    and virial summing to the global launch's, and the owned rows within
+    TOL of the plain version (``charmm_rows_plain``) on the same local
+    inputs; every flag combination."""
+    _card()
+    from tpumd_torch.parallel.decomp import GridLayout, assemble_slots
+    golden = os.path.join(os.path.dirname(GOLDEN), "water_nve")
+    with open(os.path.join(golden, "in.test")) as fh:
+        deck = "\n".join(ln for ln in fh.read().splitlines()
+                         if not ln.startswith(("dump", "run")))
+    deck = deck.replace("read_data       data.water",
+                        "read_data       data.water\nreplicate 2 2 2")
+    script = LammpsScript(device="cuda", dtype=dtype)
+    script.data_dir = golden
+    script.run_string(deck)
+    sim = script.sim
+    sim.verbose = False
+    sim.neighbor_mode = "cellgrid"
+    script.run_string("run 0")
+    s, neigh, _ = sim._carry
+    cfg, K = sim._neigh_cfg, sim._ctx.pairlist_k
+    c = sim.pair.kernel_coeffs(s.x, *sim._special_weights())
+    args = (s.x, s.q, s.type, neigh.pairs, neigh.npairs, s.box, cfg, c)
+    for ef, vf in FLAGS:
+        n0 = b5.counts.rows_launches
+        glob = b5.charmm_cellgrid(*args, ef, vf, rows=neigh.row2slot)
+        assert b5.counts.rows_launches == n0 + 1
+        _close(glob, b5.charmm_cellgrid(*args, ef, vf), TOL[dtype])
+        sums = None
+        for layout in ((4, 1), (2, 2)):
+            sums = [0.0] * 3
+            for rank in range(layout[0] * layout[1]):
+                lay = GridLayout(cfg, *layout, rank)
+                sl, vl = assemble_slots(lay, s, neigh.valid)
+                gslot, _, own = (torch.as_tensor(a, device="cuda")
+                                 for a in lay.slot_maps)
+                owned = vl & own
+                rows = torch.nonzero(owned).reshape(-1)
+                pairs, npairs, _, over = bpl.cellgrid_pairlist(
+                    sl.x, vl, sl.tag, sl.special_tags, sl.special_codes,
+                    lay.list_box(s.box), lay.local_cfg, K)
+                assert not bool(over)
+                largs = (sl.x, sl.q, sl.type, pairs, npairs, s.box,
+                         lay.local_cfg, c)
+                out = b5.charmm_cellgrid(*largs, ef, vf, rows=rows)
+                torch.cuda.synchronize()
+                assert torch.equal(out[0][rows], glob[0][gslot[rows]])
+                assert not out[0][~owned].any()
+                _close(out, b5.charmm_pairlist_plain(*largs[:6], c, ef, vf,
+                                                     rows=rows), TOL[dtype])
+                for k in range(3):
+                    if out[k + 1] is not None:
+                        sums[k] = sums[k] + out[k + 1]
+            for k in range(3):
+                if glob[k + 1] is not None:
+                    want = glob[k + 1]
+                    assert float((sums[k] - want).abs().max()) <= \
+                        TOL[dtype] * float(want.abs().max())

@@ -19,8 +19,11 @@ Loop time and Performance lines excepted).  B1 (or B3 and B4) runs once a
 force evaluation on every rank, as on one card.  Between output steps a
 grid step makes no all-gather and no all-reduce under ``check no``: one
 exchange round a split axis, whose bytes are the rank's halo planes'
-positions.  Under a world size above 1 a bond style, kspace, fix
-langevin and ``boundary p p s`` raise, naming the command and 14b.
+positions.  Under a world size above 1 fix nvt and fix langevin raise,
+naming the command and ROADMAP item 14d (the thermostats and barostats
+across ranks), ``kspace_style ewald`` and ``boundary p p s`` naming 14e
+(the rest); bond styles and pppm run across ranks since item 14b
+(tests/test_torch_decomp_molecular.py).
 """
 
 import numpy as np
@@ -49,15 +52,14 @@ def _spec(setup, mode="cellgrid", steady=0):
 
 BASE = IN_LJ.format(n=6)
 REFUSALS = {
-    "bond_style harmonic": BASE.replace(
-        "atom_style      atomic", "atom_style bond").replace(
-        "create_box      1 box",
-        "create_box 1 box bond/types 1 extra/bond/per/atom 2")
-    + "bond_style harmonic\nbond_coeff 1 100 1.0\n",
-    "kspace_style pppm": BASE + "kspace_style pppm 1e-4\n",
+    "fix 2 nvt": BASE + "fix 2 all nvt temp 1.0 1.0 0.5\n",
+    "kspace_style ewald": BASE + "kspace_style ewald 1e-4\n",
     "fix 2 langevin": BASE + "fix 2 all langevin 1.0 1.0 1.0 48279\n",
     "boundary p p s": "boundary p p s\n" + BASE,
 }
+# the ROADMAP item each refusal names
+REFUSAL_ITEMS = {"fix 2 nvt": "14d", "kspace_style ewald": "14e",
+                 "fix 2 langevin": "14d", "boundary p p s": "14e"}
 
 
 @pytest.fixture(scope="module")
@@ -181,4 +183,5 @@ def test_steps_between_outputs_move_the_halos_only(name, worlds):
 @pytest.mark.parametrize("what", REFUSALS)
 def test_refusals_across_ranks_name_the_command(what, worlds):
     for r in worlds[what]:
-        assert what in r["refused"] and "14b" in r["refused"]
+        assert what in r["refused"]
+        assert f"item {REFUSAL_ITEMS[what]}" in r["refused"]

@@ -750,6 +750,41 @@ thermo          50
 thermo_style    custom step temp epair emol etotal press vol
 """
 
+# tests/golden/water_shake/in.test replicated 4x4x5 right after read_data
+# (30,000 atoms, 10,000 SHAKE angle clusters, a 76 x 76 x 95 A box):
+# fix shake and fix nve, the dump and run lines dropped, thermo 50; the
+# molecular stack of a decomposed run (ROADMAP item 14b); {golden} is the
+# golden's directory, the run lines the caller's
+IN_WATER_SHAKE30K = """
+units           real
+atom_style      full
+bond_style      harmonic
+angle_style     charmm
+pair_style      lj/charmm/coul/long 6.0 7.0
+kspace_style    pppm 1e-4
+special_bonds   charmm
+
+read_data       {golden}/data.water
+replicate       4 4 5
+
+bond_coeff      1 450.0 0.9572
+angle_coeff     1 55.0 104.52 0.0 0.0
+pair_coeff      1 1 0.1521 3.1507
+pair_coeff      2 2 0.0460 0.4000
+
+neighbor        2.0 bin
+neigh_modify    every 1 delay 0 check yes
+
+fix             0 all shake 0.0001 20 0 b 1 a 1
+fix             1 all nve
+
+velocity        all create 300.0 48291 loop geom
+
+timestep        1.0
+thermo          50
+thermo_style    custom step temp epair emol etotal press vol
+"""
+
 # tests/golden/rigid_npt_water/in.test as it stands (thermo 5 included),
 # replicated 4x4x5 right after read_data: 10,000 rigid bodies under
 # fix rigid/npt molecule ... iso; the run lines the caller's
@@ -1790,7 +1825,7 @@ thermo          100
 """
 EAMALLOY32K_REPS = 5
 
-# the 256-atom cell's step-0 numbers (mb32k_step0 at 600 K) from tpumd on
+# the 256-atom cell's step-0 numbers (mb32k_step0 at 600 K), tpumd's on
 # the CPU in float64 (tests/test_torch_eam_matrix.py regenerates them); the
 # f32 gaps as MB32K_F32_CPU_GAP's, the small deck the cell
 EAMALLOY_CELL_STEP0 = {"pe_atom": -3.3538278265606745,

@@ -32,6 +32,18 @@
 // VFLAG the six components sum_j fpair d_a d_b; the caller halves their
 // sums.  An empty slot has no entries and writes zeros.
 //
+// The owned-rows variant (ROWS) sweeps only the slots rows[0..nrows), a
+// warp each, as B1 and B3/B4 do on a rank's local grid
+// (tpumd_torch/parallel/decomp.py): rows are the owned atoms' slots, the
+// halo slots' rows (the neighbours' atoms) are not swept and every other
+// slot's outputs keep the zeros the caller wrote.  Its image is taken as
+// B1 takes it, d = x_i - (x_j + s) with s = L rint((x_i - x_j) / L), so
+// that a halo copy across a periodic seam, whose position holds the box
+// length already (x_j + L, rounded once), gives the bits of the global
+// grid's pair: a local grid's owned rows equal the global grid's ROWS
+// launch bit for bit.  Without rows the kernel is the one described above,
+// its image d - L rint(d / L).
+//
 // What bounds it: at the 32k rhodo_class shape (47,104 slots, 32,064
 // atoms) a call reads ~2.3e7 list entries (~705 a row), 58 % of them in
 // range (~408 a row), each in-range pair an exponential, a square root and
@@ -80,6 +92,12 @@ __device__ __forceinline__ float sub_rn(float a, float b) {
 __device__ __forceinline__ double sub_rn(double a, double b) {
   return __dsub_rn(a, b);
 }
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
 }
@@ -102,6 +120,19 @@ template <typename T>
 __device__ __forceinline__ T image_rn(T xi, T xj, T L) {
   const T d = sub_rn(xi, xj);
   return sub_rn(d, mul_rn(L, rint_t(d / L)));
+}
+
+// x_i - (x_j + s), s = L rint((x_i - x_j) / L): the owned-rows variant's
+// image, each step rounded as the plain version (list_entries) rounds it
+template <typename T>
+__device__ __forceinline__ T image_d(T xi, T xj, T L) {
+  const T s = L * rint_t(sub_rn(xi, xj) / L);
+  return sub_rn(xi, add_rn(xj, s));
+}
+
+template <bool ROWS, typename T>
+__device__ __forceinline__ T image_t(T xi, T xj, T L) {
+  return ROWS ? image_d(xi, xj, L) : image_rn(xi, xj, L);
 }
 
 // special_bonds weights by code: index 0 (no special) is 1
@@ -131,24 +162,27 @@ __device__ __forceinline__ T lanes_sum(T v) {
   return v;
 }
 
-template <typename T, bool EFLAG, bool VFLAG>
+template <typename T, bool EFLAG, bool VFLAG, bool ROWS>
 __global__ void __launch_bounds__(kBlock) charmm_pairlist_kernel(
     const T* __restrict__ x, const T* __restrict__ q,
     const int* __restrict__ type, const int* __restrict__ pairs,
     const int* __restrict__ npairs, int K, const T* __restrict__ lengths,
     const T* __restrict__ ljtab, int nt1, T* __restrict__ f,
     T* __restrict__ eslot, T* __restrict__ cslot, T* __restrict__ vslot,
-    long long np, Params<T> p, Weights<T> w) {
+    long long np, const long long* __restrict__ rows, long long nrows,
+    Params<T> p, Weights<T> w) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* slj = reinterpret_cast<T*>(smem_raw);  // 4 * ntab: lj1..lj4
   const int ntab = nt1 * nt1;
   for (int k = threadIdx.x; k < 4 * ntab; k += blockDim.x) slj[k] = ljtab[k];
   __syncthreads();
 
-  const long long i =
+  // the slot of these lanes: the g-th row's (ROWS), else the g-th slot
+  const long long g =
       (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) / kLanes;
   const int lane = threadIdx.x % kLanes;
-  const bool active = i < np;
+  const bool active = g < (ROWS ? nrows : np);
+  const long long i = ROWS ? (active ? rows[g] : 0) : g;
   const T cutsq = p.cut_coulsq > p.cut_ljsq ? p.cut_coulsq : p.cut_ljsq;
 
   T fx = T(0), fy = T(0), fz = T(0), ev = T(0), ec = T(0);
@@ -164,9 +198,9 @@ __global__ void __launch_bounds__(kBlock) charmm_pairlist_kernel(
       const unsigned e = static_cast<unsigned>(row[k]);
       const long long j = e & kNeighMask;
       const unsigned code = e >> 30;
-      const T dx = image_rn(xi, x[3 * j + 0], Lx);
-      const T dy = image_rn(yi, x[3 * j + 1], Ly);
-      const T dz = image_rn(zi, x[3 * j + 2], Lz);
+      const T dx = image_t<ROWS>(xi, x[3 * j + 0], Lx);
+      const T dy = image_t<ROWS>(yi, x[3 * j + 1], Ly);
+      const T dz = image_t<ROWS>(zi, x[3 * j + 2], Lz);
       const T r2 = norm2_rn(dx, dy, dz);
       if (!(r2 < cutsq)) continue;
 
@@ -252,12 +286,13 @@ __global__ void __launch_bounds__(kBlock) charmm_pairlist_kernel(
   }
 }
 
-template <typename T, bool EFLAG, bool VFLAG>
-int launch_one(long long np, const T* x, const T* q, const int* type,
-               const int* pairs, const int* npairs, int K, const T* lengths,
-               const T* ljtab, int nt1, T* f, T* eslot, T* cslot, T* vslot,
-               const Params<T>& p, const Weights<T>& w, cudaStream_t s) {
-  auto kernel = charmm_pairlist_kernel<T, EFLAG, VFLAG>;
+template <typename T, bool EFLAG, bool VFLAG, bool ROWS>
+int launch_rows(long long np, const long long* rows, long long nrows,
+                const T* x, const T* q, const int* type, const int* pairs,
+                const int* npairs, int K, const T* lengths, const T* ljtab,
+                int nt1, T* f, T* eslot, T* cslot, T* vslot,
+                const Params<T>& p, const Weights<T>& w, cudaStream_t s) {
+  auto kernel = charmm_pairlist_kernel<T, EFLAG, VFLAG, ROWS>;
   const size_t smem = 4 * static_cast<size_t>(nt1) * nt1 * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -265,21 +300,44 @@ int launch_one(long long np, const T* x, const T* q, const int* type,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid(static_cast<unsigned>((np * kLanes + kBlock - 1) / kBlock));
+  const long long warps = ROWS ? nrows : np;
+  const dim3 grid(
+      static_cast<unsigned>((warps * kLanes + kBlock - 1) / kBlock));
   kernel<<<grid, kBlock, smem, s>>>(x, q, type, pairs, npairs, K, lengths,
                                     ljtab, nt1, f, eslot, cslot, vslot, np,
-                                    p, w);
+                                    rows, nrows, p, w);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the launch of every slot's row, or with rows of those nrows slots'
+template <typename T, bool EFLAG, bool VFLAG>
+int launch_one(long long np, const long long* rows, long long nrows,
+               const T* x, const T* q, const int* type, const int* pairs,
+               const int* npairs, int K, const T* lengths, const T* ljtab,
+               int nt1, T* f, T* eslot, T* cslot, T* vslot,
+               const Params<T>& p, const Weights<T>& w, cudaStream_t s) {
+  if (rows != nullptr) {
+    return launch_rows<T, EFLAG, VFLAG, true>(np, rows, nrows, x, q, type,
+                                              pairs, npairs, K, lengths,
+                                              ljtab, nt1, f, eslot, cslot,
+                                              vslot, p, w, s);
+  }
+  return launch_rows<T, EFLAG, VFLAG, false>(np, rows, nrows, x, q, type,
+                                             pairs, npairs, K, lengths, ljtab,
+                                             nt1, f, eslot, cslot, vslot, p,
+                                             w, s);
 }
 
 template <typename T>
 int launch(const T* x, const T* q, const int* type, const int* pairs,
-           const int* npairs, int K, long long np, const T* lengths,
+           const int* npairs, int K, long long np, const long long* rows,
+           long long nrows, const T* lengths,
            const T* ljtab, int nt1, T* f, T* eslot, T* cslot, T* vslot,
            double qqrd2e, double g_ewald, double cut_coulsq, double cut_ljsq,
            double cut_lj_innersq, double denom_lj, const double* wts,
            int eflag, int vflag, void* stream) {
-  if (np < 1 || K < 1 || nt1 < 2) {
+  if (np < 1 || K < 1 || nt1 < 2 ||
+      (rows != nullptr && (nrows < 1 || nrows > np))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -291,44 +349,46 @@ int launch(const T* x, const T* q, const int* type, const int* pairs,
     w.coul[k] = T(wts[4 + k]);
   }
   if (eflag && vflag) {
-    return launch_one<T, true, true>(np, x, q, type, pairs, npairs, K,
-                                     lengths, ljtab, nt1, f, eslot, cslot,
-                                     vslot, p, w, s);
+    return launch_one<T, true, true>(np, rows, nrows, x, q, type, pairs,
+                                     npairs, K, lengths, ljtab, nt1, f, eslot,
+                                     cslot, vslot, p, w, s);
   }
   if (eflag) {
-    return launch_one<T, true, false>(np, x, q, type, pairs, npairs, K,
-                                      lengths, ljtab, nt1, f, eslot, cslot,
-                                      vslot, p, w, s);
+    return launch_one<T, true, false>(np, rows, nrows, x, q, type, pairs,
+                                      npairs, K, lengths, ljtab, nt1, f,
+                                      eslot, cslot, vslot, p, w, s);
   }
   if (vflag) {
-    return launch_one<T, false, true>(np, x, q, type, pairs, npairs, K,
-                                      lengths, ljtab, nt1, f, eslot, cslot,
-                                      vslot, p, w, s);
+    return launch_one<T, false, true>(np, rows, nrows, x, q, type, pairs,
+                                      npairs, K, lengths, ljtab, nt1, f,
+                                      eslot, cslot, vslot, p, w, s);
   }
-  return launch_one<T, false, false>(np, x, q, type, pairs, npairs, K,
-                                     lengths, ljtab, nt1, f, eslot, cslot,
-                                     vslot, p, w, s);
+  return launch_one<T, false, false>(np, rows, nrows, x, q, type, pairs,
+                                     npairs, K, lengths, ljtab, nt1, f, eslot,
+                                     cslot, vslot, p, w, s);
 }
 
 }  // namespace
 
 // C interface, bound with ctypes by tpumd_torch/ops/charmm_cellgrid.py.
-// wl0..wl3 and wc0..wc3 are the special_bonds weights by code.  Returns
-// the CUDA error code of the launch (0 on success).
+// wl0..wl3 and wc0..wc3 are the special_bonds weights by code; rows (nrows
+// slots, int64) selects the owned-rows variant, nullptr every slot.
+// Returns the CUDA error code of the launch (0 on success).
 #define TPUMD_CHARMM_ENTRY(NAME, T)                                          \
   extern "C" int NAME(                                                       \
       const T* x, const T* q, const int* type, const int* pairs,             \
-      const int* npairs, int K, long long np, const T* lengths,              \
-      const T* ljtab, int nt1, T* f, T* eslot, T* cslot, T* vslot,           \
+      const int* npairs, int K, long long np, const long long* rows,         \
+      long long nrows, const T* lengths, const T* ljtab, int nt1, T* f,      \
+      T* eslot, T* cslot, T* vslot,                                          \
       double qqrd2e, double g_ewald, double cut_coulsq, double cut_ljsq,     \
       double cut_lj_innersq, double denom_lj, double wl0, double wl1,        \
       double wl2, double wl3, double wc0, double wc1, double wc2,            \
       double wc3, int eflag, int vflag, void* stream) {                      \
     const double wts[8] = {wl0, wl1, wl2, wl3, wc0, wc1, wc2, wc3};         \
-    return launch<T>(x, q, type, pairs, npairs, K, np, lengths, ljtab, nt1,  \
-                     f, eslot, cslot, vslot, qqrd2e, g_ewald, cut_coulsq,    \
-                     cut_ljsq, cut_lj_innersq, denom_lj, wts, eflag, vflag,  \
-                     stream);                                                \
+    return launch<T>(x, q, type, pairs, npairs, K, np, rows, nrows, lengths, \
+                     ljtab, nt1, f, eslot, cslot, vslot, qqrd2e, g_ewald,    \
+                     cut_coulsq, cut_ljsq, cut_lj_innersq, denom_lj, wts,    \
+                     eflag, vflag, stream);                                  \
   }
 
 TPUMD_CHARMM_ENTRY(tpumd_charmm_pairlist_f32, float)

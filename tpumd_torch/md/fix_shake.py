@@ -19,7 +19,21 @@ fix rattle (``FixRattle``) adds RATTLE's velocity constraints to the same
 clusters: each cluster's linear system, solved exactly, at post_force,
 and SHAKE's coordinate constraint force at final_integrate.
 
-Not ported: tpumd's tag-matched grid path (``_apply_grid``).
+On the grid with the tag-matched bonded path (``StepContext.bonded_grid``,
+ops/cellgrid_tuples.py; tpumd/md/fix_shake.py:173-217, 353-): each atom
+carries its cluster's member tags, kind, its own role and the
+constraint distances in ``MDState.peratom`` (``install_grid_tables``),
+finds its members among the grid's slots by tag, solves its whole cluster
+and keeps only its own force delta and 1/size of the cluster's virial:
+nothing is scattered, so a rank's local grid solves its owned atoms'
+clusters, their members' velocities and forces refilled into the halo
+slots from the owners once a call (``GridDecomp.exchange_vf``).  On the
+matrix engine's row blocks (``RowDecomp``) every rank solves every
+cluster on the gathered rows and keeps its own rows' forces, the virial
+counted on rank 0.  The fix state is the constraint virial (6) and,
+seventh, the count of clusters since the set-up that lacked a member on
+the grid (``device_flags``).  fix rattle has no grid path (as in tpumd,
+:774): across ranks it raises.
 """
 
 from __future__ import annotations
@@ -27,10 +41,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpumd_torch.core.state import minimum_image
+from tpumd_torch.core.state import MDState, minimum_image
 from tpumd_torch.md.fixes import Fix
 from tpumd_torch.models.bonded import voigt
 from tpumd_torch.ops.cellgrid import row2slot_from_tags
+from tpumd_torch.ops.cellgrid_tuples import copies_of, member_slots
+
+# the per-atom tables of the tag-matched path: the cluster's member tags
+# (4, 0-padded), its kind (0: none, 2, 3, 5 the angle cluster, 4), the
+# atom's role and the cluster's distances (3: the bonds, the angle
+# cluster's 1-2 distance third)
+GRID_KEYS = ("_shk_mtags", "_shk_kind", "_shk_role", "_shk_dist")
+# kind code: (members, the distance columns it reads)
+GRID_KINDS = {2: (2, (0,)), 3: (3, (0, 1)), 5: (3, (0, 1, 2)),
+              4: (4, (0, 1, 2))}
 
 
 def _dot(a, b):
@@ -166,6 +190,40 @@ class FixShake(Fix):
         return (len(self._c2), len(self._c3), len(self._c3a),
                 len(self._c4))
 
+    def grid_tables(self, natoms: int):
+        """The per-atom tables of the tag-matched path (GRID_KEYS) in tag
+        order, numpy: each cluster's member tags, kind, the atom's role
+        and the cluster's distances."""
+        mtags = np.zeros((natoms, 4), np.int32)
+        kind = np.zeros(natoms, np.int32)
+        role = np.zeros(natoms, np.int32)
+        dist = np.zeros((natoms, 3), np.float64)
+        bd = self._bond_dist
+        for rows, nat, code, dists in (
+                (self._c2, 2, 2, [bd[self._c2[:, 2]]]),
+                (self._c3, 3, 3, [bd[self._c3[:, 3]], bd[self._c3[:, 4]]]),
+                (self._c3a, 3, 5, [bd[self._c3a[:, 3]], bd[self._c3a[:, 4]],
+                                   self._angle_dist]),
+                (self._c4, 4, 4, [bd[self._c4[:, k]] for k in (4, 5, 6)])):
+            for ro in range(nat):
+                a = rows[:, ro]
+                mtags[a, :nat] = rows[:, :nat] + 1
+                kind[a] = code
+                role[a] = ro
+                dist[a, :len(dists)] = np.stack(dists, axis=1)
+        return mtags, kind, role, dist
+
+    def install_grid_tables(self, sim):
+        """The per-atom tables of the tag-matched path in the rows of
+        sim.state, which then ride the atoms."""
+        order = sim.state.tag.cpu().numpy() - 1
+        dev = sim.device
+        tables = [torch.as_tensor(a[order], device=dev)
+                  for a in self.grid_tables(sim.natoms)]
+        tables[3] = tables[3].to(sim.dtype)
+        sim.state = sim.state.replace(peratom={
+            **(sim.state.peratom or {}), **dict(zip(GRID_KEYS, tables))})
+
     def _tables(self, like):
         """Cluster members (tag-1) and distances on like's device."""
         key = (like.dtype, like.device)
@@ -190,12 +248,23 @@ class FixShake(Fix):
         return self._dev[key]
 
     # ------------------------------------------------------------- solve
+    flag_message = ("a SHAKE cluster lacked a member among the grid's "
+                    "slots (a member more than a cell away)")
+
     def init_state(self, s, ctx):
-        return torch.zeros(6, dtype=s.x.dtype, device=s.x.device)
+        return torch.zeros(7, dtype=s.x.dtype, device=s.x.device)
+
+    def virial_contrib(self, fstate):
+        return fstate[:6]
+
+    def device_flags(self, fstate):
+        return fstate[6]
 
     def post_force(self, s, fstate, ctx, xin=None):
-        # fstate := this step's constraint virial
-        return self._apply(s, ctx, ctx.dt * ctx.dt * ctx.units.ftm2v)
+        # fstate := this step's constraint virial, the lost-member count
+        # carried on
+        s, out = self._apply(s, ctx, ctx.dt * ctx.dt * ctx.units.ftm2v)
+        return s, out + torch.cat([out.new_zeros(6), fstate[6:]])
 
     def setup_post_force(self, s, fstate, ctx, xin=None):
         """FixShake::setup = correct_coordinates + shake_end_of_step
@@ -209,10 +278,88 @@ class FixShake(Fix):
         s0, _ = self._apply(s.replace(f=zero, v=zero), ctx, dtfsq)
         invm = 1.0 / ctx.mass_per_atom(s)
         s = s.replace(x=s.x + (dtfsq * invm)[:, None] * s0.f)
+        if ctx.decomp is not None and ctx.is_cellgrid:
+            # the halo slots follow their owners' corrected positions
+            s = s.replace(x=ctx.decomp.exchange_positions(s.x, s.box))
         return self._apply(s, ctx, dtfsq)
 
     def _apply(self, s, ctx, dtfsq):
-        """(state with the constraint forces added, constraint virial)."""
+        """(state with the constraint forces added, (7,) the constraint
+        virial and the count of clusters that lacked a member): the
+        tag-matched path on the grid where its tables ride the state, the
+        gathered rows on a rank's block of matrix rows, else every
+        cluster by the rows of its members' tags."""
+        if ctx.bonded_grid and GRID_KEYS[0] in (s.peratom or {}):
+            return self._apply_grid(s, ctx, dtfsq)
+        if ctx.decomp is not None and ctx.decomp.kind == "rows":
+            return self._apply_rows(s, ctx, dtfsq)
+        s, virial = self._apply_slots(s, ctx, dtfsq)
+        return s, torch.cat([virial, virial.new_zeros(1)])
+
+    def _apply_rows(self, s, ctx, dtfsq):
+        """_apply on a rank's block of matrix rows: every cluster solved on
+        every row's x, v and f (one all-gather), the rank's rows' forces
+        kept, the virial counted on rank 0."""
+        dec = ctx.decomp
+        allr = dec.gather_rows(torch.cat([s.x, s.v, s.f], dim=1))
+        full = MDState(x=allr[:, :3], v=allr[:, 3:6], f=allr[:, 6:],
+                       type=dec.type_all, tag=dec.tag_all,
+                       image=torch.zeros_like(allr[:, :3], dtype=torch.int32),
+                       box=s.box)
+        full, virial = self._apply_slots(full, ctx, dtfsq)
+        return (s.replace(f=full.f[dec.r0:dec.r1]),
+                torch.cat([dec.once(virial), virial.new_zeros(1)]))
+
+    def _apply_grid(self, s, ctx, dtfsq):
+        """_apply by each slot's own cluster (GRID_KEYS), its members found
+        by tag among the grid's slots: each member solves the cluster and
+        keeps its own delta and 1/size of the virial; safe stand-in
+        members keep the other slots' solves finite."""
+        mtags, kind, role, dist = (s.peratom[k] for k in GRID_KEYS)
+        slots, found = member_slots(s.x, s.tag, mtags, copies_of(ctx))
+        v, f = s.v, s.f
+        if ctx.decomp is not None:
+            v, f = ctx.decomp.exchange_vf(v, f)
+        invm = 1.0 / ctx.mass_per_atom(s)
+        X, IM = s.x[slots], invm[slots]
+        XS = X + ctx.dt * v[slots] + (dtfsq * IM)[..., None] * f[slots]
+        box = s.box
+
+        def dvec(xa, xb):
+            return minimum_image(xa - xb, box)
+
+        safe = torch.cat([s.x.new_zeros((1, 3)),
+                          torch.eye(3, dtype=s.x.dtype, device=s.x.device)])
+        solvers = {2: self._solve2, 3: self._solve3, 5: self._solve3angle,
+                   4: self._solve4}
+        live = dict(zip((2, 3, 5, 4), self.counts()))
+        fdelta = torch.zeros_like(s.f)
+        virial = s.x.new_zeros(6)
+        lost = s.x.new_zeros(())
+        for code, (nat, cols) in GRID_KINDS.items():
+            if not live[code]:
+                continue
+            sel = kind == code
+            sel3 = sel[:, None]
+            xk = [torch.where(sel3, X[:, k], safe[k]) for k in range(nat)]
+            xsk = [torch.where(sel3, XS[:, k], safe[k]) for k in range(nat)]
+            imk = [torch.where(sel, IM[:, k], 1.0) for k in range(nat)]
+            dd = [torch.where(sel, dist[:, c], 1.0) for c in cols]
+            lamrs, deltas = solvers[code](xk, xsk, imk, dtfsq, dd, dvec)
+            own = torch.gather(torch.stack(deltas), 0, role.long().view(
+                1, -1, 1).expand(1, -1, 3))[0]
+            fdelta = fdelta + torch.where(sel3, own, 0.0)
+            lam = torch.stack([torch.where(sel, p[0], 0.0) / nat
+                               for p in lamrs], dim=1)
+            r = torch.stack([p[1] for p in lamrs], dim=1)
+            virial = virial + voigt(torch.einsum("nk,nki,nkj->ij", lam, r,
+                                                 r))
+            lost = lost + torch.sum(sel & ~torch.all(found[:, :nat], dim=1))
+        return s.replace(f=s.f + fdelta), torch.cat([virial, lost[None]])
+
+    def _apply_slots(self, s, ctx, dtfsq):
+        """(state with the constraint forces added, constraint virial) of
+        every cluster, its members at the rows of their tags."""
         dt_ = s.x.dtype
         slot = row2slot_from_tags(s.tag, ctx.natoms)
         invm_all = 1.0 / ctx.mass_per_atom(s)

@@ -30,6 +30,12 @@ types, non-periodic axes for every pairwise style, boxes narrower than 2
 cutneigh and triclinic boxes, and the bonded styles and SHAKE beside any
 pairwise style (``_grid_refusal`` says which bonded decks the grid
 cannot take).
+
+On the grid the bonded styles read the tag-order view of the atoms by
+default; with ``bonded_grid`` (tpumd's attribute) they and fix shake
+find their members by tag among the grid's slots
+(``_setup_grid_tuples``, ops/cellgrid_tuples.py), the path a decomposed
+grid takes whatever it says.
 """
 
 from __future__ import annotations
@@ -96,6 +102,12 @@ def resolve_device(device) -> torch.device:
 
 
 class Simulation:
+    # the grid's bonded styles and fix shake match their members by tag
+    # (ops/cellgrid_tuples.py); off by default on one card, where the
+    # tag-order view is one gather; a decomposed grid takes it whatever
+    # this says (tpumd/md/simulation.py:283-286)
+    bonded_grid = False
+
     def __init__(self, units: str = "lj", *, device, dtype, mesh=None):
         self.units: Units = get_units(units)
         self.device = resolve_device(device)
@@ -173,6 +185,7 @@ class Simulation:
         self._natoms = None
         self._mass_sum = None
         self._kernel_bond = None
+        self._bonded_grid_on = False
         self._ref_order_tags = None
         self._bonded_dev = ()
         self._fstate_stash: dict = {}
@@ -377,7 +390,8 @@ class Simulation:
             kspace=self.kspace, special_lj=slj, special_coul=scl,
             tdof=self.dof(), shrink=self._shrink_spec(),
             pairlist_k=pairlist_k, pairlist_exclude=exclude,
-            pairlist_refresh=refresh, respa=self.respa, decomp=decomp)
+            pairlist_refresh=refresh, respa=self.respa, decomp=decomp,
+            bonded_grid=self._bonded_grid_on)
 
     def _grid_config(self, cutneigh: float,
                      margin: float) -> cg.CellGridConfig:
@@ -513,6 +527,52 @@ class Simulation:
             bond_tags=torch.as_tensor(btags, device=self.device),
             bond_btypes=torch.as_tensor(btyps, device=self.device))
         self._kernel_bond = style
+
+    def _setup_grid_tuples(self, excl):
+        """The per-atom tables of the tag-matched bonded path and of fix
+        shake's clusters, installed in the state's rows (they then ride
+        the atoms), where the grid takes that path: ``bonded_grid``, or a
+        decomposed grid, whose local grids have no global tag map
+        (tpumd/md/simulation.py:288-327).  One style a kind: hybrid
+        raises, as does a breakable style (fix bond/break).  Every tuple's
+        span must sit within cutneigh at the set-up."""
+        from tpumd_torch.md.fix_shake import FixShake
+        from tpumd_torch.ops import cellgrid_tuples as ct
+        self._bonded_grid_on = False
+        if self._mode != "cellgrid" or not (self.bonded_grid
+                                            or self.mesh.distributed):
+            return
+        styles = [st for k, st in self.bonded.items()
+                  if st is not self._kernel_bond
+                  and self.topology.get(k) is not None
+                  and len(self.topology[k])]
+        shakes = [fx for fx in self.fixes if type(fx) is FixShake]
+        if not styles and not shakes:
+            return
+        for st in styles:
+            if st.name == "hybrid" or st.breakable:
+                raise NotImplementedError(
+                    f"{st.kind}_style {st.name} with bonded_grid (the "
+                    "tag-matched path, which a decomposed grid takes): it "
+                    "takes one plain style a kind, as in tpumd")
+        arities = {st.kind: st.arity for st in styles}
+        topo = {k: self.topology[k] for k in arities}
+        tags = self.state.tag.cpu().numpy()
+        x = np.zeros((self.natoms, 3))
+        x[tags - 1] = self.state.x.detach().cpu().double().numpy()
+        # the stencil reaches one cell edge, and cells are at least
+        # cutneigh across
+        ct.validate_tuple_span(x, topo, arities, self.state.box.lengths_np(),
+                               self.state.box.periodic,
+                               self.max_cutoff() + self.skin, excl)
+        tables = ct.build_tuple_tables(self.natoms, topo, arities, excl)
+        self.state = self.state.replace(peratom={
+            **(self.state.peratom or {}),
+            **{k: torch.as_tensor(v[tags - 1], device=self.device)
+               for k, v in tables.items()}})
+        for fx in shakes:
+            fx.install_grid_tables(self)
+        self._bonded_grid_on = True
 
     def live_topology(self, kind):
         """The tuples of kind as the run has them now (host, (M, 1 +
@@ -859,8 +919,10 @@ class Simulation:
         self._setup_special()
         # SHAKE first: its constrained bonds and angles leave the bonded
         # styles (the reference negates their types)
-        self._setup_bonded(self.build_shake())
+        excl = self.build_shake()
+        self._setup_bonded(excl)
         self._setup_kernel_bond()
+        self._setup_grid_tuples(excl)
         if getattr(self.pair, "is_tip4p", False):
             # alpha and each O's two H by tag (tpumd/md/simulation.py:
             # 597-604 resolves rows)
@@ -971,6 +1033,10 @@ class Simulation:
                 self.state.box.lengths_np(), self.units, pair.cut_coul,
                 dynamic_box=self._barostat_active(),
                 types=self.state.type.cpu().numpy(), pair=pair)
+        if self.mesh.distributed:
+            # pppm's mesh summed over the ranks (_check_decomposable lets
+            # no other style through)
+            ks.mesh = self.mesh
         for name in ("g_ewald", "g_ewald_6"):
             if hasattr(ks, name) and hasattr(pair, name):
                 setattr(pair, name, getattr(ks, name))
@@ -1094,28 +1160,42 @@ class Simulation:
         return self._ctx is not None and self._ctx.decomp is not None
 
     def _check_decomposable(self):
-        """Raise on what this slice does not run across ranks (ROADMAP item
-        14b and later): the molecular stack, kspace, fixes but nve,
-        computes, granular and the pair styles past B1, B3/B4 on the grid
-        and the plain pairwise sweep on the matrix engine, shrink-wrapped
-        faces, triclinic boxes, respa, dumps but atom and custom."""
+        """Raise on what a run across ranks does not take yet, naming the
+        ROADMAP item that ports it: 14d, the thermostats and barostats
+        (every fix but nve and shake); 14e, the rest (hybrid and FENE
+        bonds on the grid, fix rattle and the rigid fixes, kspace styles
+        but pppm, computes, granular and the grid's pair styles past B1,
+        B3/B4 and B5, the matrix engine's past the plain pairwise sweep,
+        shrink-wrapped faces, triclinic boxes, neigh_modify exclude,
+        respa, dumps but atom and custom).  The molecular stack runs:
+        bonded styles, special bonds, fix shake, pppm and
+        lj/charmm/coul/long on the grid, charged pairwise styles on the
+        matrix engine."""
+        from tpumd_torch.md.fix_shake import FixShake
         from tpumd_torch.md.fixes import FixNVE
         from tpumd_torch.models.base import PairStyle
+        from tpumd_torch.models.kspace_pppm import PPPM
 
-        def refuse(what):
+        def refuse(what, item="14e"):
             raise NotImplementedError(
                 f"{what} across {self.mesh.size} ranks is not ported "
-                "(ROADMAP item 14b): run it on one card")
+                f"(ROADMAP item {item}): run it on one card")
         name = getattr(self.pair, "name", None)
         for kind, style in self.bonded.items():
-            refuse(f"{kind}_style {style.name}")
-        if self.state.special_tags is not None:
-            refuse("special bonds")
+            if style.name == "hybrid" or style.breakable:
+                refuse(f"{kind}_style {style.name}")
+            if style.kernel_bond and self._mode == "cellgrid":
+                refuse(f"{kind}_style {style.name} on the cell grid")
         for fx in self.fixes:
-            if type(fx) is not FixNVE:
-                refuse(f"fix {getattr(fx, 'id', '')} "
-                       f"{getattr(fx, 'name', type(fx).__name__)}")
-        if self.kspace is not None:
+            if type(fx) in (FixShake, FixNVE):
+                continue
+            fname = getattr(fx, "name", type(fx).__name__)
+            if fname == "nh":
+                fname = ("npt" if fx.tstat else "nph") if fx.pstat else "nvt"
+            refuse(f"fix {getattr(fx, 'id', '')} {fname}",
+                   "14d" if fname in ("nvt", "npt", "nph", "langevin")
+                   else "14e")
+        if self.kspace is not None and type(self.kspace) is not PPPM:
             refuse(f"kspace_style {self.kspace.style}")
         for cid, c in self.computes.items():
             refuse(f"compute {cid} {getattr(c, 'style', type(c).__name__)}")
@@ -1132,11 +1212,10 @@ class Simulation:
         if self.pair is None:
             refuse("a run without a pair style")
         if self._mode == "cellgrid":
-            if getattr(self.pair, "charged", False) \
-                    or not hasattr(self.pair, "compute_cellgrid"):
+            if not (getattr(self.pair, "charged", False)
+                    or hasattr(self.pair, "compute_cellgrid")):
                 refuse(f"pair_style {name} on the cell grid")
         elif (type(self.pair).compute is not PairStyle.compute
-              or self.state.q is not None
               or getattr(self.pair, "needs_velocities", False)
               or getattr(self.pair, "is_tip4p", False)):
             refuse(f"pair_style {name} on the matrix engine")
@@ -1379,8 +1458,9 @@ class Simulation:
         """(cell or list overflow, the pair's hist_over: the largest
         contact count of a sphere that had more than KH on the grid, else
         0), read from the device in one transfer, with the error flags
-        that fixes keep on the device (``device_flags``): a set one
-        raises, naming the fix."""
+        that fixes keep on the device (``device_flags``) and the grid's
+        lost-member flag of the tag-matched bonded path: a set one
+        raises, naming the fix or the tuples."""
         neigh = carry[1]
         words = [torch.as_tensor(
             neigh.overflow if not self._ctx.is_cellgrid
@@ -1390,6 +1470,9 @@ class Simulation:
                  and lost is not None)
         if track:
             words.append(lost.reshape(-1).to(torch.int64))
+        missing = getattr(neigh, "tuples_missing", None)
+        if missing is not None:
+            words.append(missing.reshape(1).to(torch.int64))
         flagged = [(fx, fx.device_flags(fs))
                    for fx, fs in zip(self._ctx.fixes, carry[2])
                    if hasattr(fx, "device_flags")]
@@ -1402,6 +1485,14 @@ class Simulation:
             if bad:
                 raise RuntimeError(f"fix {fx.id}: {fx.flag_message} at or "
                                    f"before step {self.step + 1}")
+        if missing is not None and vals[1 + track]:
+            from tpumd_torch.ops.cellgrid_tuples import missing_tuples
+            lost_tuples = missing_tuples(carry[0], self._ctx, [
+                st for st, _ in self._ctx.bonded])
+            raise RuntimeError(
+                f"bonded tuples lost a member at or before step "
+                f"{self.step + 1}: {lost_tuples or 'on another rank'} (the "
+                "tag-matched path finds members within one cell)")
         return bool(vals[0]), (vals[1] if track else 0)
 
     def _rebin(self, snapshot, check: bool = True):

@@ -21,7 +21,9 @@ A force evaluation sums the pair sweep (with charges and special lists
 for charged styles), the bonded styles on the tag-order view of the
 engine's rows (gathered through the grid's ``row2slot``, or on the matrix
 engine through the rows of the tags with P1, and scattered back with one
-``index_add_``), and kspace.  A granular style's sweep also returns
+``index_add_``) or, with ``StepContext.bonded_grid``, from each slot's
+tuples matched by tag (``ops/cellgrid_tuples.py``: the path of a rank's
+local grid), and kspace.  A granular style's sweep also returns
 torques and, in the step (``shearupdate``), the new contact history, which
 the grid state carries and every re-bin moves with the atoms; set-up and
 thermo evaluations read the history without advancing it.  A rebuild
@@ -57,6 +59,7 @@ from tpumd_torch.core.state import MDState, wrap_pbc
 from tpumd_torch.md import computes
 from tpumd_torch.models.bonded import compute_tuples, tag_view
 from tpumd_torch.ops import cellgrid as cg
+from tpumd_torch.ops.cellgrid_tuples import compute_bonded_grid
 from tpumd_torch.ops import neighbor as nb
 from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist, \
     new_stat, pairlist_hold, partner_slots, refresh_pairlist
@@ -111,6 +114,10 @@ class StepContext:
     # GridDecomp (neigh_cfg is then its local grid) or a RowDecomp; None
     # on one card
     decomp: Any = None
+    # the grid's bonded styles match their members by tag from the
+    # per-atom tables of MDState.peratom (ops/cellgrid_tuples.py); SHAKE's
+    # clusters too
+    bonded_grid: bool = False
 
     def mass_per_atom(self, s: MDState):
         if s.rmass is not None:
@@ -143,9 +150,10 @@ def _pair_ext(s: MDState, ctx: StepContext):
 
 
 def _matrix_pair(s: MDState, neigh: nb.NeighborState, ctx: StepContext,
-                 eflag: bool, vflag: bool, shearupdate: bool):
+                 eflag: bool, vflag: bool, shearupdate: bool, xall=None):
     """(f, energies, virial, torque, neigh) of the pair style on the matrix
-    neighbor engine (tpumd/md/verlet.py:143-147, :186-190)."""
+    neighbor engine (tpumd/md/verlet.py:143-147, :186-190); xall, on a
+    rank's rows, every row's positions."""
     pair = ctx.pair
     if getattr(pair, "is_granular", False):
         f, torque, shear = pair.compute_gran(s, neigh.idx, neigh.shear,
@@ -156,7 +164,7 @@ def _matrix_pair(s: MDState, neigh: nb.NeighborState, ctx: StepContext,
     special = ctx.neigh_cfg.has_special
     # a rank's rows take their j sides from every row's positions
     kw = ({"ext": _pair_ext(s, ctx)} if ctx.decomp is None
-          else {"ext": ctx.decomp.ext(s), "row0": ctx.decomp.r0})
+          else {"ext": ctx.decomp.ext(s, xall), "row0": ctx.decomp.r0})
     f, evdwl, ecoul, vir = pair.compute(
         s.x, s.type, s.box, neigh.idx, neigh.sbits,
         ctx.special_lj if special else None,
@@ -214,7 +222,12 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
             virial = virial + vir
 
     pair = ctx.pair if cats is None or "pair" in cats else None
-    torque = sites = None
+    torque = sites = xall = None
+    rows_dec = ctx.decomp is not None and ctx.decomp.kind == "rows"
+    if rows_dec:
+        # a rank's rows read every row's positions: one all-gather an
+        # evaluation, for the pair sweep and the bonded styles alike
+        xall = ctx.decomp.gather_x(s.x)
     if pair is None:
         f = torch.zeros_like(s.x)
     elif getattr(pair, "is_tip4p", False):
@@ -230,7 +243,7 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
         tally({"evdwl": evdwl}, vir)
     elif not ctx.is_cellgrid:
         f, e, vir, torque, neigh = _matrix_pair(s, neigh, ctx, eflag,
-                                                vflag, shearupdate)
+                                                vflag, shearupdate, xall)
         tally(e, vir)
     elif getattr(pair, "is_granular", False):
         f, torque, stags, shear = pair.compute_gran_cellgrid(
@@ -240,9 +253,11 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
         if shearupdate:
             neigh = neigh.replace(shear_tags=stags, shear=shear)
     elif getattr(pair, "charged", False):
+        # on a rank's local grid B5 sweeps the owned rows
         f, evdwl, ecoul, vir = pair.compute_cellgrid_charged(
             s, neigh, ctx.neigh_cfg, ctx.special_lj, ctx.special_coul,
-            eflag, vflag)
+            eflag, vflag, rows=None if neigh.owned is None
+            else neigh.row2slot)
         tally({"evdwl": evdwl, "ecoul": ecoul}, vir)
     else:
         bond = None
@@ -268,21 +283,44 @@ def compute_forces(s: MDState, neigh, ctx: StepContext, eflag: bool,
 
     bonded = [(st, t) for st, t in ctx.bonded
               if cats is None or st.kind in cats]
-    if bonded:
-        # the tag-order view: row tag-1 holds that atom
+    if bonded and ctx.bonded_grid:
+        # each slot's tuples with their members matched by tag
+        # (ops/cellgrid_tuples.py): no gather through the global tag map,
+        # so a rank's local grid runs it; a lost member is flagged
+        fb, e, vir, lost = compute_bonded_grid(
+            s, ctx, [st for st, _ in bonded], eflag, vflag)
+        f = f + fb
+        tally(e or {}, vir)
+        neigh = neigh.replace(tuples_missing=lost if neigh.tuples_missing
+                              is None else neigh.tuples_missing | lost)
+    elif bonded:
+        # the tag-order view: row tag-1 holds that atom (on a rank's rows,
+        # of every row, the energies and virial counted on rank 0)
         rows, view, take = tag_view(
-            s, ctx, neigh.row2slot if ctx.is_cellgrid else None)
+            s, ctx, neigh.row2slot if ctx.is_cellgrid else None, xall)
         ftag = None
         for style, tuples in bonded:
             fb, e, vir = compute_tuples(style, view, tuples, s.box, ctx,
                                         eflag, vflag, take)
             ftag = fb if ftag is None else ftag + fb
+            if rows_dec:
+                e = None if e is None else {
+                    k: ctx.decomp.once(v) for k, v in e.items()}
+                vir = None if vir is None else ctx.decomp.once(vir)
             tally(e or {}, vir)
-        f = f.index_add(0, rows, ftag)
+        if rows_dec:
+            f = f + torch.zeros_like(xall).index_add_(
+                0, rows.long(), ftag)[ctx.decomp.r0:ctx.decomp.r1]
+        else:
+            f = f.index_add(0, rows, ftag)
 
     if ctx.kspace is not None and (cats is None or "kspace" in cats):
+        q = s.q
+        if ctx.decomp is not None and ctx.is_cellgrid:
+            # the mesh takes each atom's charge once: from its owner
+            q = torch.where(neigh.owned, q, 0.0)
         fk, elong, vir = ctx.kspace.compute(
-            s.x if sites is None else sites.xq, s.q, s.box, eflag, vflag,
+            s.x if sites is None else sites.xq, q, s.box, eflag, vflag,
             type_=s.type)
         if sites is None:
             f = f + fk
@@ -349,13 +387,15 @@ def build_matrix(s: MDState, ctx: StepContext, nbuilds: int,
     if gmask is None and ctx.neigh_cfg.exclude_bits:
         # no group command yet: every atom is in group all (bit 1)
         gmask = torch.ones_like(s.tag)
-    x, rows = s.x, None
+    x, rows, tag = s.x, None, s.tag
     if ctx.decomp is not None:
-        # a rank builds its rows over every row's positions
+        # a rank builds its rows over every row's positions, their special
+        # partners found among every row's tags
         x, rows = ctx.decomp.gather_x(s.x), (ctx.decomp.r0, ctx.decomp.r1)
+        tag = ctx.decomp.tag_all
     idx, sbits, max_count, over = nb.build_neighbors(
         x, s.box, ctx.neigh_cfg, special_tags=s.special_tags,
-        special_codes=s.special_codes, tag=s.tag, gmask=gmask, rows=rows)
+        special_codes=s.special_codes, tag=tag, gmask=gmask, rows=rows)
     shear = None
     if history:
         shear = (_remap_shear(old.idx, idx, old.shear) if old is not None
@@ -384,7 +424,7 @@ def grid_pairlist(s: MDState, valid, ctx: StepContext, stat=None):
     fields = {}
     if ctx.kernel_bond is not None:
         stags, scodes = s.bond_tags, torch.ones_like(s.bond_tags)
-        fields["bond_slots"] = partner_slots(s.tag, s.bond_tags)
+        fields["bond_slots"] = partner_slots(s.tag, s.bond_tags, s.x)
     gmask = s.gmask
     if gmask is None and ctx.pairlist_exclude:
         gmask = torch.ones_like(s.tag)
@@ -432,7 +472,8 @@ def _rebuild(s: MDState, neigh, ctx: StepContext):
         return s, cg.CellGridState(
             valid=valid, xhold=s.x, ago=0, nbuilds=neigh.nbuilds + 1,
             overflow=neigh.overflow | over, max_count=max_count,
-            row2slot=rows, owned=owned, **plist)
+            row2slot=rows, owned=owned, tuples_missing=neigh.tuples_missing,
+            **plist)
     cfg = ctx.neigh_cfg
     src, dst, row2slot, max_count, over = cg.bin_compact(
         s.x, s.tag, ctx.natoms, s.box, cfg, row2slot=neigh.row2slot)
@@ -449,7 +490,8 @@ def _rebuild(s: MDState, neigh, ctx: StepContext):
     neigh = cg.CellGridState(
         valid=valid, xhold=s.x, ago=0, nbuilds=neigh.nbuilds + 1,
         overflow=neigh.overflow | over, max_count=max_count,
-        row2slot=row2slot, **history, **plist)
+        row2slot=row2slot, tuples_missing=neigh.tuples_missing, **history,
+        **plist)
     return s, neigh
 
 

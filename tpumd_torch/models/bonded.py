@@ -72,6 +72,33 @@ class BondedStyle:
         q) per tag, member indices, take)."""
         raise NotImplementedError
 
+    def reduce_from_xs(self, xs, ttype, role, ok, box, ctx, eflag, vflag,
+                       view):
+        """The per-atom tally of the grid's tag-matched path
+        (tpumd/models/bonded.py:180, :361; ops/cellgrid_tuples.py): xs
+        arity x (M, 3) the member positions of M (atom, tuple) entries,
+        ttype and role (M,) the tuple's type and the atom's place in it,
+        ok (M,) the entries that count.  Each entry takes its atom's own
+        force of the tuple and 1/arity of its energies and virial, so
+        that the entries of every member sum each tuple once.  Returns
+        (f (M, 3), {key: ()} or None, virial (6,) or None)."""
+        flist, ed, vp = self.tuple_terms(xs, ttype, box, view, ctx, eflag,
+                                         vflag)
+        keep = ok[:, None]
+        fr = torch.stack(flist)                          # (arity, M, 3)
+        idx = role.long().view(1, -1, 1).expand(1, fr.shape[1], 3)
+        f = torch.where(keep, torch.gather(fr, 0, idx)[0], 0.0)
+        inv = 1.0 / self.arity
+        energies = virial = None
+        if eflag:
+            energies = {k: inv * torch.sum(torch.where(ok, v, 0.0))
+                        for k, v in ed.items()}
+        if vflag:
+            virial = inv * _virial6([(torch.where(keep, r, 0.0),
+                                      torch.where(keep, fv, 0.0))
+                                     for r, fv in vp])
+        return f, energies, virial
+
     def table(self, arr, like, dtype=None):
         """A coefficient table on like's device, in like's dtype (or
         dtype), made once per set-up: a host copy every step would wait
@@ -132,27 +159,35 @@ def member_column(take, col, idx):
     return take(col.view(-1, 1), idx)[..., 0]
 
 
-def tag_view(s, ctx, row2slot=None):
+def tag_view(s, ctx, row2slot=None, xall=None):
     """(rows, view, take) of the bonded styles on the engine's rows:
     rows[tag - 1] is that atom's row, view = (x, type, q) in tag order,
     take the row gather of the members.  The grid's row2slot comes with
     its state and its gathers are index_select; the matrix engine's rows
     follow from the tags (ops/cellgrid.py::row2slot_from_tags) and every
     gather goes through P1 (gather_rows); types and charges are gathered
-    only for a style that reads them."""
+    only for a style that reads them.  On a rank's block of rows
+    (``RowDecomp``) the view is every row's: xall their positions, rows
+    into them."""
     if row2slot is not None:
         return row2slot, (take_rows(s.x, row2slot),
                           take_rows(s.type, row2slot),
                           None if s.q is None else take_rows(s.q, row2slot)
                           ), take_rows
-    rows = row2slot_from_tags(s.tag, ctx.natoms).to(torch.int32)
+    x, type_, q = s.x, s.type, s.q
+    if xall is None:
+        rows = row2slot_from_tags(s.tag, ctx.natoms).to(torch.int32)
+    else:
+        dec = ctx.decomp
+        x, type_, q = xall, dec.type_all, dec.q_all
+        rows = dec.rows_of_tag.to(torch.int32)
     typed = any(st.reads_types for st, _ in ctx.bonded)
 
     def column(c):
         return None if c is None or not typed else member_column(
             gather_rows, c, rows)
-    return rows, (gather_rows(s.x, rows), column(s.type),
-                  column(s.q)), gather_rows
+    return rows, (gather_rows(x, rows), column(type_),
+                  column(q)), gather_rows
 
 
 def members(style, view, tuples, take):

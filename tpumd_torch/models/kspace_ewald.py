@@ -139,7 +139,7 @@ class EwaldDisp(Ewald):
     2 pi sqrt(pi)/(24 V) and the self and volume corrections of init_self
     (:640-643).  The k set is EwaldDisp's: the combined Coulomb and
     dispersion rms (:352-366) and its nbox/gsqmx acceptance (:300-334,
-    :385-406).  tpumd takes the dispersion forces from jax.grad of the k
+    :385-406).  tpumd takes the dispersion forces as jax.grad of the k
     sum; here they are its analytic gradient."""
 
     style = "ewald/disp"

@@ -28,6 +28,15 @@ a barostat raises, as in tpumd.
 
 tpumd's power-of-two mesh padding (``_fft_safe``) is TPU machinery that
 tpumd itself skips on the CPU: the port takes the 2/3/5-factorable sizes.
+
+Across ranks (``mesh``, a run decomposed over a process group,
+parallel/mesh.py), pppm spreads each rank's own atoms' charges into the
+whole mesh (a rank's halo slots carry no charge here), sums the meshes
+with one all-reduce a force evaluation, and every rank runs the same
+transforms and reads the field at its own rows; the energy and virial,
+which every rank then computes whole, count on rank 0 only.  qsum and
+g_ewald come from the set-up's global charges.  The FFT is replicated,
+not distributed.
 """
 
 from __future__ import annotations
@@ -177,6 +186,8 @@ class PPPM:
         self.mesh_override = None
         self.gewald_override = None
         self._dev = {}
+        # the process group of a decomposed run (pppm only), else None
+        self.mesh = None
 
     # ---------------------------------------------------------------- init
     def init(self, natoms, q, prd, units, cutoff, dynamic_box=False,
@@ -595,6 +606,9 @@ class PPPM:
         # make_rho: one scatter-add of every atom's stencil
         grid = torch.zeros(nz * ny * nx, dtype=dt_, device=x.device)
         grid.index_add_(0, flat, (q[:, None, None, None] * w3).reshape(-1))
+        if self.mesh is not None:
+            # every rank's charges in the one mesh
+            grid = self.mesh.all_reduce(grid)
         rho_k = torch.fft.fftn(grid.reshape(nz, ny, nx))
         phi_k = rho_k * greens
         delvol = (ell[0] / nx) * (ell[1] / ny) * (ell[2] / nz)
@@ -647,6 +661,10 @@ class PPPM:
                 gr = greens * rk2
                 virial = 0.5 * self.qqrd2e * torch.stack([
                     torch.sum(vg[i] * gr) for i in range(6)]) / volume
+            if self.mesh is not None and self.mesh.rank != 0:
+                # the whole mesh's sums, counted once over the ranks
+                elong = None if elong is None else torch.zeros_like(elong)
+                virial = None if virial is None else torch.zeros_like(virial)
         return f, elong, virial
 
 

@@ -137,17 +137,20 @@ class PairLJCharmmCoulLong(PairStyle):
         return c
 
     def compute_cellgrid_charged(self, s, neigh, cfg, special_lj,
-                                 special_coul, eflag: bool, vflag: bool):
+                                 special_coul, eflag: bool, vflag: bool,
+                                 rows=None):
         """(f, evdwl, ecoul, virial) of the grid-ordered state s over the
         pair list of its grid state neigh; energies None unless eflag,
-        virial unless vflag."""
+        virial unless vflag.  rows, on a rank's local grid, the owned
+        atoms' slots, whose rows alone are swept (B5-rows), as
+        ``pair_lj_cut`` passes them to B1."""
         if s.special_tags is None:
             raise NotImplementedError(
                 "lj/charmm/coul/long without bonds (no special lists) is "
                 "not ported")
         c = self.kernel_coeffs(s.x, special_lj, special_coul)
         return charmm_cellgrid(s.x, s.q, s.type, neigh.pairs, neigh.npairs,
-                               s.box, cfg, c, eflag, vflag)
+                               s.box, cfg, c, eflag, vflag, rows=rows)
 
     def pair_fn_ex(self, r2, itype, jtype, w_lj, w_coul, qi, qj):
         """(fpair, evdwl, ecoul, fcoul) per pair: the plain pair

@@ -83,6 +83,10 @@ class CellGridState:
     # owned cells, whose rows the sweeps take (row2slot then holds their
     # slots); None on one card
     owned: torch.Tensor | None = None
+    # () bool: some tuple of the tag-matched bonded path
+    # (ops/cellgrid_tuples.py) lacked a member since the set-up (the
+    # segment's flag read raises on it); None without that path
+    tuples_missing: torch.Tensor | None = None
 
     def replace(self, **kw) -> "CellGridState":
         return dataclasses.replace(self, **kw)

@@ -123,16 +123,16 @@ def image_shift(d, box: Box):
     return torch.where(per, L * torch.round(d / L), 0.0)
 
 
-def partner_slots(tag, ptags):
+def partner_slots(tag, ptags, x):
     """(Np, P) int32 slots of the partners named by tag in ptags (Np, P)
-    int32 (0: none, slot -1): tags are 1..natoms, so an (Np + 1) table of
-    slots by tag holds them (empty slots write entry 0)."""
-    np_ = tag.shape[0]
-    slot_of = torch.full((np_ + 1,), -1, dtype=torch.int32,
-                         device=tag.device)
-    slot_of[tag.long()] = torch.arange(np_, dtype=torch.int32,
-                                       device=tag.device)
-    return torch.where(ptags > 0, slot_of[ptags.long()], -1)
+    int32 (0: none, slot -1), found by the sorted tags
+    (``cellgrid_tuples.member_slots``) at the slots' positions x: a rank's
+    local grid holds tags past its slot count, and a halo atom in up to 4
+    slots (a split axis of 2 blocks), of which the one nearest the slot
+    that names it is the partner, the others a box length away."""
+    from tpumd_torch.ops.cellgrid_tuples import member_slots
+    slots, found = member_slots(x, tag, ptags, copies=4)
+    return torch.where(found, slots, -1).to(torch.int32)
 
 
 def cellgrid_pairlist_plain(x, valid, tag, stags, scodes, box: Box,
@@ -261,7 +261,7 @@ def pairlist_hold(x, valid, tag, stags, scodes, cfg: CellGridConfig,
     if x.device.type == "cuda":
         extent = _extent(valid, cfg)
         if stags is not None and stags.shape[1]:
-            sslots = partner_slots(tag, stags)
+            sslots = partner_slots(tag, stags, x)
     return ListHold(
         x=torch.empty_like(x) if keep else None,
         box=(torch.empty(6, dtype=x.dtype, device=x.device)

@@ -12,9 +12,13 @@ the minimum image of the current box.  It also writes per-slot van der
 Waals and Coulomb energies and the virial, so thermo steps need no second
 sweep.  ``charmm_cellgrid`` launches it for CUDA tensors and takes the
 plain list sweep (``charmm_pairlist_plain``) only for CPU tensors; it never
-falls back from one to the other.  ``charmm_cellgrid_plain``, the sweep
-over the 27-cell stencil that matches special tags pair by pair, is the
-oracle the list sweep is held to; no run calls it.
+falls back from one to the other.  With ``rows`` (B5-rows, a rank's owned
+atoms on its local grid, parallel/decomp.py) the kernel sweeps those slots'
+rows only, taking the image as B1 does (x_i - (x_j + s)), the other slots'
+forces 0, the energies and virial those rows' sums; its plain version
+sweeps the same rows through ``list_entries``.  ``charmm_cellgrid_plain``,
+the sweep over the 27-cell stencil that matches special tags pair by pair,
+is the oracle the list sweep is held to; no run calls it.
 """
 
 from __future__ import annotations
@@ -121,14 +125,46 @@ def charmm_cellgrid_plain(x, q, type_, valid, tag, stags, scodes, box: Box,
     return f, evdwl, ecoul, virial
 
 
+def charmm_rows_plain(x, q, type_, pairs, npairs, box: Box,
+                      c: CharmmCoeffs, eflag: bool, vflag: bool, rows):
+    """Plain PyTorch version of the owned-rows kernel: (f, evdwl, ecoul,
+    virial) of the rows' live entries within the cutoff
+    (``list_entries``, its image rounded as the kernel's), the codes
+    weighing each pair; the other slots' forces 0; with eflag = vflag =
+    "atom", (f, eatom, vatom, None) per slot."""
+    from tpumd_torch.ops.cellgrid_pairlist import half_virial, list_entries
+    from tpumd_torch.ops.lj_cellgrid import slot_tallies
+    i, j, d, r2, code = list_entries(x, box, pairs, npairs, with_codes=True,
+                                     rows=rows)
+    inside = r2 < max(c.cut_coulsq, c.cut_ljsq)
+    i, j, d, r2, code = i[inside], j[inside], d[inside], r2[inside], \
+        code[inside]
+    wl, wc = special_weights(code, c, x)
+    flj, evdwl, ecoul, fcoul = charmm_pair_fn(c)(
+        r2, type_[i], type_[j], wl, wc, q[i], q[j])
+    fp = flj + fcoul
+    f = torch.zeros_like(x).index_add_(0, i, d * fp[:, None])
+    if peratom_flags(eflag, vflag):
+        return (f,) + slot_tallies(i, evdwl + ecoul, fp, d, x.shape[0]) \
+            + (None,)
+    return (f, 0.5 * torch.sum(evdwl) if eflag else None,
+            0.5 * torch.sum(ecoul) if eflag else None,
+            half_virial(fp, d) if vflag else None)
+
+
 def charmm_pairlist_plain(x, q, type_, pairs, npairs, box: Box,
-                          c: CharmmCoeffs, eflag: bool, vflag: bool):
+                          c: CharmmCoeffs, eflag: bool, vflag: bool,
+                          rows=None):
     """Plain PyTorch version of the kernel: (f, evdwl, ecoul, virial) of
     the list's entries through ``pair_sums``, the codes weighing each
     pair.  Rows in blocks of at most 2^20 entries on the CPU (memory),
     2^24 on a card, over the columns up to the longest row, each row's
     tail past npairs taken as its own slot (the self-mask of
-    ``pair_sums``)."""
+    ``pair_sums``).  rows, where given, the owned-rows variant's
+    (``charmm_rows_plain``)."""
+    if rows is not None:
+        return charmm_rows_plain(x, q, type_, pairs, npairs, box, c, eflag,
+                                 vflag, rows)
     n = x.shape[0]
     kk = max(int(npairs.max()), 1)
     j, code = unpack(pairs[:, :kk])
@@ -170,8 +206,8 @@ _FN_NAMES = {torch.float32: "tpumd_charmm_pairlist_f32",
              torch.float64: "tpumd_charmm_pairlist_f64"}
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
-_ARGTYPES = ([_P] * 5 + [_I, _L] + [_P] * 2 + [_I] + [_P] * 4 + [_D] * 6
-             + [_D] * 8 + [_I, _I, _P])
+_ARGTYPES = ([_P] * 5 + [_I, _L, _P, _L] + [_P] * 2 + [_I] + [_P] * 4
+             + [_D] * 6 + [_D] * 8 + [_I, _I, _P])
 
 
 def _check(name, t, dtype, shape, device):
@@ -184,13 +220,15 @@ def _check(name, t, dtype, shape, device):
 
 def charmm_cellgrid(x, q, type_, pairs, npairs, box: Box,
                     cfg: CellGridConfig, c: CharmmCoeffs, eflag: bool,
-                    vflag: bool):
+                    vflag: bool, rows=None):
     """Forces (Np, 3), evdwl and ecoul () or None and virial (6,) or None
     of lj/charmm/coul/long over the grid's pair list (pairs (Np, K),
     npairs (Np,), ops/cellgrid_pairlist.py); energies and virial take 1/2
     per ordered pair.  With eflag = vflag = "atom": (f, eatom (Np,) the
     lj + coul energy, vatom (Np, 6), None), each slot's half share.
-    Raises without a list."""
+    rows (n,) int64, where given, the slots whose rows are swept (B5-rows:
+    a rank's owned atoms); the others' forces are 0.  Raises without a
+    list."""
     if pairs is None or npairs is None:
         raise ValueError("charmm_cellgrid: no pair list; the grid state "
                          "of a style that sweeps one carries it from its "
@@ -201,16 +239,23 @@ def charmm_cellgrid(x, q, type_, pairs, npairs, box: Box,
         raise ValueError(f"charmm_cellgrid: a ({np_}, K) list and ({np_},) "
                          f"counts expected, got {tuple(pairs.shape)} and "
                          f"{tuple(npairs.shape)}")
+    if rows is not None and (rows.dtype != torch.int64 or rows.dim() != 1
+                             or rows.shape[0] > np_):
+        raise ValueError(f"charmm_cellgrid: rows must be a (n <= {np_},) "
+                         f"int64 tensor, got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
     if x.device.type == "cpu":
         counts.plain_calls += 1
         return charmm_pairlist_plain(x, q, type_, pairs, npairs, box, c,
-                                     eflag, vflag)
+                                     eflag, vflag, rows)
     if x.device.type != "cuda":
         raise ValueError(f"charmm_cellgrid: no kernel for device {x.device}")
     out = launch(_build.kernel_function(_FN_NAMES[_dtype(x)], _ARGTYPES),
-                 x, q, type_, pairs, npairs, box, cfg, c, eflag, vflag)
-    counts.kernel_launches += 1
-    counts.peratom_launches += eflag == "atom"
+                 x, q, type_, pairs, npairs, box, cfg, c, eflag, vflag, rows)
+    if rows is None or rows.shape[0]:
+        counts.kernel_launches += 1
+        counts.rows_launches += rows is not None
+        counts.peratom_launches += eflag == "atom"
     return out
 
 
@@ -222,10 +267,11 @@ def _dtype(x):
 
 
 def launch(fn, x, q, type_, pairs, npairs, box: Box, cfg: CellGridConfig,
-           c: CharmmCoeffs, eflag: bool, vflag: bool):
+           c: CharmmCoeffs, eflag: bool, vflag: bool, rows=None):
     """Check the CUDA inputs and launch the library function fn (the
     kernel of x's dtype, bound with _ARGTYPES); the outputs of
-    charmm_cellgrid."""
+    charmm_cellgrid.  With rows the outputs start at zero (the slots
+    that are not swept keep it), and no row launches nothing."""
     if not all(box.periodic):
         raise NotImplementedError(
             f"charmm_cellgrid: the kernel takes a periodic box only, got "
@@ -241,23 +287,19 @@ def launch(fn, x, q, type_, pairs, npairs, box: Box, cfg: CellGridConfig,
     _check("npairs", npairs, torch.int32, (np_,), x.device)
     _check("box lengths", box.lengths, x.dtype, (3,), x.device)
     _check("lj tables", c.lj, x.dtype, (4, nt1, nt1), x.device)
-    f = torch.empty_like(x)
+    if rows is not None:
+        _check("rows", rows, torch.int64, (rows.shape[0],), x.device)
+    new = torch.empty if rows is None else torch.zeros
+    f = new(x.shape, dtype=x.dtype, device=x.device)
     # per-slot van der Waals (row 0) and Coulomb (row 1) energies
-    eslot = (torch.empty((2, np_), dtype=x.dtype, device=x.device)
+    eslot = (new((2, np_), dtype=x.dtype, device=x.device)
              if eflag else None)
-    vslot = (torch.empty((np_, 6), dtype=x.dtype, device=x.device)
+    vslot = (new((np_, 6), dtype=x.dtype, device=x.device)
              if vflag else None)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), q.data_ptr(), type_.data_ptr(),
-                pairs.data_ptr(), npairs.data_ptr(), K, np_,
-                box.lengths.data_ptr(), c.lj.data_ptr(), nt1, f.data_ptr(),
-                None if eslot is None else eslot[0].data_ptr(),
-                None if eslot is None else eslot[1].data_ptr(),
-                None if vslot is None else vslot.data_ptr(),
-                c.qqrd2e, c.g_ewald, c.cut_coulsq, c.cut_ljsq,
-                c.cut_lj_innersq, c.denom_lj, *c.w_lj, *c.w_coul,
-                int(eflag), int(vflag),
-                torch.cuda.current_stream(x.device).cuda_stream)
+    rc = 0
+    if rows is None or rows.shape[0]:
+        rc = _launch(fn, x, q, type_, pairs, npairs, K, np_, rows, box, c,
+                     nt1, f, eslot, vslot, eflag, vflag)
     if rc != 0:
         raise RuntimeError(f"charmm_cellgrid kernel launch failed: CUDA "
                            f"error {rc}")
@@ -269,3 +311,21 @@ def launch(fn, x, q, type_, pairs, npairs, box: Box, cfg: CellGridConfig,
     if vflag:
         virial = 0.5 * torch.sum(vslot, dim=0)
     return f, evdwl, ecoul, virial
+
+
+def _launch(fn, x, q, type_, pairs, npairs, K, np_, rows, box, c, nt1, f,
+            eslot, vslot, eflag, vflag) -> int:
+    """The library call of launch: its CUDA error code."""
+    with torch.cuda.device(x.device):
+        return fn(x.data_ptr(), q.data_ptr(), type_.data_ptr(),
+                  pairs.data_ptr(), npairs.data_ptr(), K, np_,
+                  None if rows is None else rows.data_ptr(),
+                  0 if rows is None else rows.shape[0],
+                  box.lengths.data_ptr(), c.lj.data_ptr(), nt1, f.data_ptr(),
+                  None if eslot is None else eslot[0].data_ptr(),
+                  None if eslot is None else eslot[1].data_ptr(),
+                  None if vslot is None else vslot.data_ptr(),
+                  c.qqrd2e, c.g_ewald, c.cut_coulsq, c.cut_ljsq,
+                  c.cut_lj_innersq, c.denom_lj, *c.w_lj, *c.w_coul,
+                  int(bool(eflag)), int(bool(vflag)),
+                  torch.cuda.current_stream(x.device).cuda_stream)

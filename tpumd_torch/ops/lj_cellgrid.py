@@ -57,6 +57,9 @@ class LaunchCounts:
         # the special-weighted variant, also counted in kernel_launches
         self.peratom_launches = 0
         self.special_launches = 0
+        # launches of B5's owned-rows variant (a rank's local grid), also
+        # counted in kernel_launches
+        self.rows_launches = 0
 
 
 def peratom_flags(eflag, vflag) -> bool:

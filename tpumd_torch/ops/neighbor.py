@@ -230,13 +230,13 @@ def build_neighbors(x, box: Box, cfg: NeighborConfig, special_tags=None,
     gmask (N,) int32 is needed when cfg.exclude_bits is set.  rows = (r0,
     r1), where given, builds the rows [r0, r1) only (a rank's block, the
     positions every row's): idx (r1 - r0, K) of indices into x, each
-    row's padding its own index r0 + row; a block takes no special codes
-    and no exclusions."""
+    row's padding its own index r0 + row; its special codes match the
+    block's special_tags (r1 - r0, S) against tag, every row's tags; a
+    block takes no exclusions."""
     n = x.shape[0]
     r0, r1 = (0, n) if rows is None else rows
-    if rows is not None and (cfg.exclude_bits or cfg.has_special):
-        raise NotImplementedError("special codes or neigh_modify exclude "
-                                  "on a block of rows")
+    if rows is not None and cfg.exclude_bits:
+        raise NotImplementedError("neigh_modify exclude on a block of rows")
     dev = x.device
     i32 = torch.int32
     if cfg.image_shifts:
@@ -316,7 +316,7 @@ def build_neighbors(x, box: Box, cfg: NeighborConfig, special_tags=None,
         match = jtags[:, :, None] == special_tags[:, None, :]
         code = torch.amax(torch.where(match, special_codes[:, None, :], 0),
                           dim=-1)
-        own = torch.arange(n, dtype=i32, device=dev)[:, None]
+        own = torch.arange(r0, r1, dtype=i32, device=dev)[:, None]
         sbits = torch.where(idx == own, 0, code).to(i32)
     else:
         sbits = torch.zeros_like(idx)

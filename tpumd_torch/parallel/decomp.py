@@ -174,6 +174,13 @@ class GridLayout:
         return ((gcell[:, None] * cap + k[None]).reshape(-1),
                 np.repeat(shift, cap, axis=0), np.repeat(owned, cap))
 
+    @functools.cached_property
+    def copies(self) -> int:
+        """The most local cells that show one global cell: 2 a split axis
+        of 2 blocks (the other block's boundary cells in both halos), 1
+        elsewhere; the slots one tag may fill (ops/cellgrid_tuples.py)."""
+        return int(np.bincount(self.cell_maps[0]).max())
+
     def blocks_of_cells(self, gz, gy):
         """(z block, y block) of global cell coordinates (torch)."""
         zb = torch.as_tensor(self.zb, device=gz.device)
@@ -186,7 +193,7 @@ def assemble_slots(layout: GridLayout, s: MDState, valid):
     """The local grid of layout taken by index from the global grid-ordered
     state s (every rank's grid, replicated) and its valid slots: the owned
     slots with every per-atom field, the halo slots with x (plus the seam
-    shift), tag and type, their other fields 0.  Returns (local state,
+    shift), tag, type and q, their other fields 0.  Returns (local state,
     local valid)."""
     gslot, shift, owned = (torch.as_tensor(a, device=s.x.device)
                            for a in layout.slot_maps)
@@ -198,7 +205,8 @@ def assemble_slots(layout: GridLayout, s: MDState, valid):
 
     loc = map_per_atom(s, take)
     return loc.replace(x=s.x[gslot] + shift.to(s.x.dtype) * s.box.lengths,
-                       tag=s.tag[gslot], type=s.type[gslot]), valid[gslot]
+                       tag=s.tag[gslot], type=s.type[gslot],
+                       q=None if s.q is None else s.q[gslot]), valid[gslot]
 
 
 class GridDecomp:
@@ -248,6 +256,15 @@ class GridDecomp:
         x = self.halo.fill(x.clone())
         return torch.where(self._halo_slot[:, None], x + self.shift(box), x)
 
+    def exchange_vf(self, v, f):
+        """(v, f) with their halo slots refilled from the owners (new
+        tensors, one exchange round a split axis): the members' velocities
+        and forces that SHAKE's tag-matched solve reads."""
+        if not self._split:
+            return v, f
+        vf = self.halo.fill(torch.cat([v, f], dim=1))
+        return vf[:, :3], vf[:, 3:]
+
     def exchange_fp(self, fp):
         """Per-slot values (EAM's F'(rho)) with the halo slots refilled (a
         new tensor); no shift."""
@@ -275,8 +292,9 @@ class GridDecomp:
         """The re-bin of the atoms in slots rows (this rank's owned ones,
         wrapped): migration to the blocks that own their cells, the local
         binning (in tag order within a cell, as ``cellgrid.bin_compact``)
-        and the halo slots' exchange.  Returns (state, valid, owned, owned
-        slots (n,) int64, max_count, overflow)."""
+        and the halo slots' exchange (positions, tags, types and charges).
+        Returns (state, valid, owned, owned slots (n,) int64, max_count,
+        overflow)."""
         lay, lc = self.layout, self.local_cfg
         box = s.box
         atoms = map_per_atom(s, lambda a: a[rows])
@@ -302,15 +320,21 @@ class GridDecomp:
         loc = map_per_atom(atoms, lambda a: cg.move_rows(a, order, dst,
                                                          lc.capacity))
         if self._split:
-            # the halo slots: positions, tags and types from the neighbours
-            halo = self.halo.fill(torch.cat([
-                loc.x.to(torch.float64), loc.tag.to(torch.float64)[:, None],
-                loc.type.to(torch.float64)[:, None]], dim=1))
+            # the halo slots: positions, tags, types and charges from the
+            # neighbours
+            cols = [loc.x.to(torch.float64),
+                    loc.tag.to(torch.float64)[:, None],
+                    loc.type.to(torch.float64)[:, None]]
+            if loc.q is not None:
+                cols.append(loc.q.to(torch.float64)[:, None])
+            halo = self.halo.fill(torch.cat(cols, dim=1))
             x = halo[:, :3].to(s.x.dtype)
             loc = loc.replace(x=torch.where(self._halo_slot[:, None],
                                             x + self.shift(box), x),
                               tag=halo[:, 3].to(loc.tag.dtype),
-                              type=halo[:, 4].to(loc.type.dtype))
+                              type=halo[:, 4].to(loc.type.dtype),
+                              q=None if loc.q is None
+                              else halo[:, 5].to(loc.q.dtype).contiguous())
         valid = loc.tag > 0
         owned = self.owned(valid)
         return (loc, valid, owned, torch.nonzero(owned).reshape(-1),
@@ -340,12 +364,16 @@ class RowDecomp:
     """The matrix engine's rows in contiguous blocks over a mesh: the rank
     owns rows [r0, r1) of the natoms-row state; each force evaluation and
     re-bin reads every row's position (an all-gather, padded to the
-    largest block) and the types of the set-up."""
+    largest block) and the tags, types and charges of the set-up.  The
+    bonded styles and SHAKE run on every row's view (``rows_view``) and
+    keep the rank's rows' forces; their energies and virial, like kspace's
+    of the whole mesh, count on rank 0 only (``once``)."""
 
     kind = "rows"
 
     def __init__(self, mesh: Mesh, natoms: int):
         self.mesh = mesh
+        self.natoms = natoms
         self.bounds = block_bounds(natoms, mesh.size)
         self.r0 = int(self.bounds[mesh.rank])
         self.r1 = int(self.bounds[mesh.rank + 1])
@@ -354,25 +382,43 @@ class RowDecomp:
         idx = np.concatenate([k * self.width + np.arange(
             self.bounds[k + 1] - self.bounds[k]) for k in range(mesh.size)])
         self._take = torch.as_tensor(idx, device=mesh.device)
-        self.type_all = None
+        self.type_all = self.tag_all = self.q_all = None
 
     def shard(self, s: MDState, valid=None):
         """(the rank's rows of the natoms-row state s (replicated), None,
-        None); the types of every row are kept for the j side."""
-        self.type_all = s.type
+        None); the tags, types and charges of every row are kept for the
+        j side."""
+        self.type_all, self.tag_all, self.q_all = s.type, s.tag, s.q
         return map_per_atom(s, lambda a: a[self.r0:self.r1]), None, None
 
-    def gather_x(self, x):
-        """(natoms, 3) every row's position."""
-        pad = x
-        if x.shape[0] < self.width:
-            pad = torch.cat([x, x.new_zeros((self.width - x.shape[0], 3))])
+    def gather_rows(self, a):
+        """(natoms, W) every rank's rows of a (n_r, W), in row order."""
+        pad = a
+        if a.shape[0] < self.width:
+            pad = torch.cat([a, a.new_zeros((self.width - a.shape[0],)
+                                            + tuple(a.shape[1:]))])
         out = self.mesh.all_gather_equal(pad)
         return out.index_select(0, self._take)
 
-    def ext(self, s: MDState):
-        """The j-side tables of the rank's rows (``pair_sums``' ext)."""
-        return self.gather_x(s.x), self.type_all, None, s.box
+    def gather_x(self, x):
+        """(natoms, 3) every row's position."""
+        return self.gather_rows(x)
+
+    def ext(self, s: MDState, xall=None):
+        """The j-side tables of the rank's rows (``pair_sums``' ext), xall
+        every row's positions where the caller has gathered them."""
+        return (self.gather_x(s.x) if xall is None else xall, self.type_all,
+                self.q_all, s.box)
+
+    @functools.cached_property
+    def rows_of_tag(self):
+        """(natoms,) the row of each tag - 1 over every rank's rows."""
+        return cg.row2slot_from_tags(self.tag_all, self.natoms)
+
+    def once(self, value):
+        """value on rank 0, zeros elsewhere: a sum that every rank computes
+        whole and the thermo row's all-reduce must count once."""
+        return value if self.mesh.rank == 0 else torch.zeros_like(value)
 
     def unshard(self, s: MDState, neigh=None) -> MDState:
         """Every rank's rows, in row order, on every rank."""
@@ -382,4 +428,3 @@ class RowDecomp:
 
     def thermo_view(self, s: MDState, neigh) -> MDState:
         return s
-

@@ -117,16 +117,24 @@ def run_deck(mesh, spec: dict) -> dict:
     message is returned).  Returns the thermo rows, the log, x and v in
     tag order, the launch counts of B1, B3/B4, the list build and
     refresh and P1 (those of the timed window apart), and the
-    collectives' counts."""
+    collectives' counts; "bonded_grid" sets the attribute on one card.
+    B5's counts ("b5") are (its launches, of which B5-rows, plain
+    calls)."""
     from tpumd_torch.md.verlet import run_segment
-    from tpumd_torch.ops import cellgrid_pairlist, eam_cellgrid, gather, \
-        lj_cellgrid
+    from tpumd_torch.ops import cellgrid_pairlist, charmm_cellgrid, \
+        eam_cellgrid, gather, lj_cellgrid
     from tpumd_torch.script.parser import LammpsScript
     counters = {"b1": lj_cellgrid.counts, "rho": eam_cellgrid.rho_counts,
                 "force": eam_cellgrid.force_counts,
+                "b5": charmm_cellgrid.counts,
                 "build": cellgrid_pairlist.counts,
                 "refresh": cellgrid_pairlist.refresh_counts,
                 "p1": gather.counts}
+
+    def launches(c):
+        if c is charmm_cellgrid.counts:
+            return c.kernel_launches, c.rows_launches, c.plain_calls
+        return c.kernel_launches, c.plain_calls
     for c in counters.values():
         c.reset()
     mesh.counters.reset()
@@ -140,6 +148,8 @@ def run_deck(mesh, spec: dict) -> dict:
         sim = script.sim
         sim.verbose = False
         sim.neighbor_mode = spec.get("mode", "auto")
+        if "bonded_grid" in spec:
+            sim.bonded_grid = spec["bonded_grid"]
         for piece in spec.get("runs", ()):
             script.run_string(piece)
     except NotImplementedError as e:
@@ -152,8 +162,7 @@ def run_deck(mesh, spec: dict) -> dict:
     x, v = tag_order(sim.state, "x", "v")
     out = {"rows": list(sim.thermo_rows), "log": list(sim.log_lines), "x": x,
            "v": v, "natoms": sim.natoms,
-           "counts": {k: (c.kernel_launches, c.plain_calls)
-                      for k, c in counters.items()},
+           "counts": {k: launches(c) for k, c in counters.items()},
            "collectives": mesh.counters.snapshot(),
            "nbuilds": sim._carry[1].nbuilds}
     ctx = sim._ctx
@@ -174,7 +183,7 @@ def run_deck(mesh, spec: dict) -> dict:
                         "seconds": sim.loop_time - t0,
                         "exchange_ms": mesh.counters.exchange_ms(),
                         "collectives": mesh.counters.snapshot(),
-                        "counts": {k: (c.kernel_launches, c.plain_calls)
+                        "counts": {k: launches(c)
                                    for k, c in counters.items()},
                         "row": dict(sim.last_thermo)}
     if spec.get("steady"):
