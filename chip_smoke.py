@@ -8028,6 +8028,333 @@ def decomp_molecular_path(smi: str) -> tuple[dict, dict]:
     return k, m
 
 
+
+# ------------------------------- the thermostats and barostats decomposed
+# the f64 rows of the decomposed runs against one card's: every 10 steps
+# over THERMO_STEPS
+THERMO_STEPS = 20
+# rhodo_class's f32 run on one card and decomposed: steps timed after the
+# step-100 gate, and the steps whose collectives are counted
+THERMO_TIMED = 30
+THERMO_STEADY = 10
+LJ_THERMOSTATS = {"nvt": "fix 1 all nvt temp 1.44 1.44 0.5",
+                  "langevin": "fix 1 all nve\n"
+                              "fix 2 all langevin 1.44 1.44 1.0 48279"}
+
+
+def lj32k_thermostat(which: str) -> str:
+    """IN_LJ at 32,000 atoms with fix nve replaced by the thermostat
+    LJ_THERMOSTATS[which], a thermo row every 10 steps."""
+    from tpumd_torch.bench_targets import IN_LJ
+    return IN_LJ.format(n=20).replace("fix             1 all nve",
+                                      LJ_THERMOSTATS[which]) + "thermo 10\n"
+
+
+def rhodo_deck(thermo: int = 0) -> str:
+    from tpumd_torch.bench_targets import IN_RHODO_CLASS
+    return IN_RHODO_CLASS.format(golden=GOLDEN) + (
+        f"thermo          {thermo}\n" if thermo else "")
+
+
+def rows_gaps(what, got, want, keys, rtol) -> list[str]:
+    """The thermo keys of rows got that differ from want's by more than
+    rtol, or the steps where they differ."""
+    if [a["step"] for a in got] != [b["step"] for b in want]:
+        return [f"{what}: steps {[a['step'] for a in got]} vs "
+                f"{[b['step'] for b in want]}"]
+    return [f"{what} step {a['step']} {k} {a[k]!r} vs {b[k]!r}"
+            for a, b in zip(got, want) for k in keys
+            if not abs(a[k] - b[k]) <= rtol * abs(b[k])]
+
+
+def thermostat_one_card(smi: str) -> dict:
+    """One card: rhodo_class in f64 THERMO_STEPS steps with ``bonded_grid``
+    off (the tag-order view) and on (SHAKE's mixed cluster sizes on the
+    tag-matched path, ROADMAP C43), rows equal to 1e-10; rhodo_class in
+    f32 behind its step-0 and step-100 gates, then THERMO_TIMED timed
+    steps; the two in.lj 32k thermostat decks in f64.  Returns the rows,
+    the timesteps/s and the f32 rhodo_class and f64 nvt scripts (at their
+    final states)."""
+    from tpumd_torch.bench_targets import RHODO_STEP0, RHODO_STEP100, \
+        STEP0_RTOL, gate_failures
+    from tpumd_torch.script.parser import LammpsScript
+    out = {}
+    for on in (False, True):
+        script = rhodo_setup("2 2 4", "cuda", torch.float64, thermo=10)
+        script.sim.neighbor_mode = "cellgrid"
+        script.sim.bonded_grid = on
+        script.run_string(f"run {THERMO_STEPS}")
+        if script.sim._ctx.bonded_grid != on:
+            raise AssertionError(f"rhodo_class bonded_grid {on} not taken")
+        out[("rhodo", on)] = list(script.sim.thermo_rows)
+        del script
+        torch.cuda.empty_cache()
+    bad = rows_gaps("rhodo_class f64 bonded_grid on", out[("rhodo", True)],
+                    out[("rhodo", False)], ("temp", "epair", "emol",
+                                            "etotal", "press", "vol"), 1e-10)
+    script = rhodo_setup("2 2 4", "cuda", torch.float32)
+    script.sim.neighbor_mode = "cellgrid"
+    script.run_string("run 0")
+    bad += gate_failures(script.sim.last_thermo, {
+        k: (v, STEP0_RTOL) for k, v in RHODO_STEP0.items()})
+    script.run_string("run 100")
+    bad += gate_failures(script.sim.last_thermo, RHODO_STEP100)
+    out["rhodo_f32"] = list(script.sim.thermo_rows)
+    t0 = script.sim.loop_time
+    script.run_string(f"run {THERMO_TIMED}")
+    out["sps"] = THERMO_TIMED / (script.sim.loop_time - t0)
+    out["f32"] = script
+    for which in LJ_THERMOSTATS:
+        lj = LammpsScript(device="cuda", dtype=torch.float64)
+        lj.run_string(lj32k_thermostat(which))
+        lj.sim.verbose = False
+        lj.run_string(f"run {THERMO_STEPS}")
+        rngs = [fx.rng for fx in lj.sim.fixes if hasattr(fx, "rng")]
+        if which == "langevin" and rngs != ["device"]:
+            raise AssertionError(f"langevin rng on the card: {rngs}")
+        out[which] = list(lj.sim.thermo_rows)
+        if which == "nvt":
+            out["nvt_script"] = lj
+    if bad:
+        raise AssertionError("thermostat_one_card: " + "; ".join(bad))
+    phase("decomp", f"rhodo_class on one card ({smi}): f64 bonded_grid on "
+                    f"(SHAKE's clusters of 2, 3 and 4 atoms and the water "
+                    f"angles matched by tag) = off to 1e-10 at steps "
+                    f"{[r['step'] for r in out[('rhodo', True)]]}; f32 step "
+                    f"0 and step 100 pass the reference binary's gates "
+                    f"(etotal {out['rhodo_f32'][-1]['etotal']!r} at 100), "
+                    f"{THERMO_TIMED} steps timed after: {out['sps']:.2f} "
+                    f"timesteps/s")
+    return out
+
+
+def thermostat_local_kernels(script, nprocs: int, smi: str) -> dict:
+    """At rhodo_class's f32 state (one card, the step-0 and step-100 runs
+    and the timed steps behind it), rank 0's local grid of the layout that
+    nprocs ranks take (``processor_grid``; on one card the whole grid,
+    every slot owned): its list built by the kernel (the split axes not
+    periodic), B5-rows over it against its plain version on the same local
+    inputs (TOL_LIST), timed beside its bound, and the build
+    (time_build).  Returns the kernels line's figures."""
+    from tpumd_torch.ops.cellgrid_pairlist import cellgrid_pairlist
+    from tpumd_torch.ops.charmm_cellgrid import charmm_cellgrid, \
+        charmm_rows_plain
+    from tpumd_torch.parallel.decomp import GridLayout, assemble_slots, \
+        processor_grid
+    sim = script.sim
+    s, neigh, _ = sim._carry
+    cfg, K = sim._neigh_cfg, sim._ctx.pairlist_k
+    lay = GridLayout(cfg, *processor_grid(cfg.nz, cfg.ny, nprocs), 0)
+    lc = lay.local_cfg
+    sl, vl = assemble_slots(lay, s, neigh.valid)
+    own = torch.as_tensor(lay.slot_maps[2], device=s.x.device)
+    owned = vl & own
+    rows = torch.nonzero(owned).reshape(-1)
+    lbox = lay.list_box(s.box)
+    pairs, npairs, _, over = cellgrid_pairlist(
+        sl.x, vl, sl.tag, sl.special_tags, sl.special_codes, lbox, lc, K)
+    if bool(over):
+        raise AssertionError(f"rhodo_class local list overflow at K {K}")
+    c = sim.pair.kernel_coeffs(s.x, *sim._special_weights())
+    largs = (sl.x, sl.q, sl.type, pairs, npairs, s.box, lc, c)
+    what = f"rhodo_class {lay.pz}x{lay.py} rank 0 f32 B5-rows"
+    f = charmm_cellgrid(*largs, 0, 0, rows=rows)[0]
+    fp = charmm_rows_plain(*largs[:6], c, 0, 0, rows)[0]
+    err, rel = plain_gap(what, f, fp, rows, TOL_LIST[torch.float32])
+    if bool(f[~owned].any()):
+        raise AssertionError(f"{what}: forces off the rows")
+    ms = min(cuda_ms(lambda: charmm_cellgrid(*largs, 0, 0, rows=rows), 100)
+             for _ in range(2))
+    plain_ms = cuda_ms(lambda: charmm_rows_plain(*largs[:6], c, 0, 0, rows),
+                       3, ahead=False)
+    live = torch.where(owned, npairs, 0)
+    ncoul, nlj, nsw, nall = list_charmm_counts(sl.x, s.box, pairs, live, c)
+    nbytes = lc.capacity * (12 + 4 + 4) + rows.numel() * 12 \
+        + c.lj.numel() * 4 + 12
+    ops = (nall * OPS_CHARMM_PAIR + ncoul * OPS_CHARMM_COUL
+           + nlj * OPS_CHARMM_LJ + nsw * OPS_CHARMM_SWITCH)
+    b_ms, b_by = roof(ops, nbytes)
+    phase("kernel", f"charmm_cellgrid B5-rows on rhodo_class's {lay.pz}x"
+                    f"{lay.py} local grid (rank 0 of {nprocs}: {lc.nx}x"
+                    f"{lc.ny}x{lc.nz} cap {lc.cap}, {rows.numel()} owned "
+                    f"atoms), f32 forces at step {sim.step} ({smi}): "
+                    f"{rel:.3g} of max|f| from the plain version on the "
+                    f"same local grid (tol {TOL_LIST[torch.float32]:g}); "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{b_ms:.6f} ms ({b_by}: {nall} pairs in range, {ncoul} "
+                    f"in Coulomb range, {nbytes} bytes)")
+    return {"b5": {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "max_abs_err": err},
+            "build": time_build(
+                f"rhodo_class {lay.pz}x{lay.py} local grid (rank 0)",
+                (sl.x, vl, sl.tag, sl.special_tags, sl.special_codes, lbox,
+                 lc, K), plain_reps=1)}
+
+
+def thermostat_lj_b1(script, nprocs: int, smi: str) -> dict:
+    """B1 in f64 at the in.lj 32k nvt deck's state after THERMO_STEPS
+    steps on one card (script), on rank 0's local grid of the layout
+    nprocs ranks take (``decomp_local``): against its plain list sweep on
+    the same local inputs (TOL_LIST), timed beside its bound at the f64
+    rate."""
+    from tpumd_torch.ops.lj_cellgrid import lj_cellgrid, lj_pairlist_plain
+    from tpumd_torch.parallel.decomp import GridLayout, processor_grid
+    sim = script.sim
+    s, neigh, _ = sim._carry
+    cfg, K, c = sim._neigh_cfg, sim._ctx.pairlist_k, sim.pair.kernel_coeffs()
+    lay = GridLayout(cfg, *processor_grid(cfg.nz, cfg.ny, nprocs), 0)
+    sl, vl, owned, _, plist = decomp_local(lay, s, neigh.valid, K)
+    lc = lay.local_cfg
+    what = f"in.lj 32k nvt {lay.pz}x{lay.py} rank 0 f64 B1"
+    f = lj_cellgrid(sl.x, owned, s.box, lc, c, 0, 0, plist)[0]
+    fp = lj_pairlist_plain(sl.x, s.box, c, 0, 0, plist[0], plist[1],
+                           rows=plist[2])[0]
+    err, rel = plain_gap(what, f, fp, plist[2], TOL_LIST[torch.float64])
+    ms = min(cuda_ms(lambda: lj_cellgrid(sl.x, owned, s.box, lc, c, 0, 0,
+                                         plist), 100) for _ in range(2))
+    plain_ms = cuda_ms(lambda: lj_pairlist_plain(
+        sl.x, s.box, c, 0, 0, plist[0], plist[1], rows=plist[2]), 3,
+        ahead=False)
+    nlj = owned_pairs(sl.x, s.box, plist, c.cutsq)
+    nbytes = lc.capacity * (24 + 1 + 24) + 24
+    b_ms, b_by = bound(nlj, 0, nbytes, PEAK_F64_FLOPS)
+    phase("kernel", f"lj_cellgrid on in.lj 32k nvt's {lay.pz}x{lay.py} local"
+                    f" grid (rank 0 of {nprocs}: {lc.nx}x{lc.ny}x{lc.nz} cap "
+                    f"{lc.cap}, {plist[2].numel()} owned atoms), f64 forces "
+                    f"at step {THERMO_STEPS} ({smi}): {rel:.3g} of max|f| "
+                    f"from the plain list sweep (tol "
+                    f"{TOL_LIST[torch.float64]:g}); kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by} at the "
+                    f"f64 rate: {nlj} pairs, {nbytes} bytes)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err}
+
+
+def thermostat_decomposed(tmp: Path, smi: str, one: dict) -> dict:
+    """P = min(4, the card count) workers over NCCL, one card each:
+    rhodo_class (fix npt z, SHAKE m 1.0 a 31 on the tag-matched path) in
+    f64 THERMO_STEPS steps and in f32 (step 0, step 100, THERMO_TIMED timed
+    steps, THERMO_STEADY counted ones), the in.lj 32k decks under fix nvt
+    and under fix nve + langevin (the "device" stream, drawn by tag) in
+    f64.  The f64 rows equal one card's to 1e-10; the f32 rows pass the
+    step-0 and step-100 gates; SHAKE's residuals at step 100 under its
+    tolerance; B5-rows (B1) launches = force evaluations, no plain call;
+    between output steps no all-gather; timesteps/s beside one card's."""
+    from tpumd_torch.bench_targets import RHODO_STEP0, RHODO_STEP100, \
+        STEP0_RTOL, gate_failures
+    from tpumd_torch.parallel.launch import run_decks, spawn_world
+    nprocs = min(4, torch.cuda.device_count())
+    specs = [{"setup": rhodo_deck(10), "dtype": "f64", "mode": "cellgrid",
+              "runs": [f"run {THERMO_STEPS}"]},
+             {"setup": rhodo_deck(), "dtype": "f32", "mode": "cellgrid",
+              "runs": ["run 0", "run 100"], "timed": THERMO_TIMED,
+              "steady": THERMO_STEADY},
+             *[{"setup": lj32k_thermostat(w), "dtype": "f64",
+                "runs": [f"run {THERMO_STEPS}"]} for w in LJ_THERMOSTATS]]
+    t0 = time.perf_counter()
+    ranks = spawn_world(run_decks, nprocs, "nccl", tmp / "pg_thermostat",
+                        (specs,), timeout=600)
+    wall = time.perf_counter() - t0
+    fx = one["f32"].sim.shake_fixes()[0]
+    keys = ("temp", "epair", "etotal", "press")
+    evals64 = 1 + force_evals(THERMO_STEPS, 10)
+    evals32 = 1 + force_evals(100, 0)
+    bad = []
+    for rank, (r64, r32, nvt, lang) in enumerate(ranks):
+        bad += rows_gaps(f"rank {rank} rhodo_class f64", r64["rows"],
+                         one[("rhodo", False)], keys + ("vol",), 1e-10)
+        bad += rows_gaps(f"rank {rank} in.lj 32k nvt f64", nvt["rows"],
+                         one["nvt"], keys, 1e-10)
+        bad += rows_gaps(f"rank {rank} in.lj 32k langevin f64",
+                         lang["rows"], one["langevin"], keys, 1e-10)
+        bad += gate_failures(r32["rows"][0], {
+            k: (v, STEP0_RTOL) for k, v in RHODO_STEP0.items()})
+        bad += gate_failures(r32["rows"][-1], RHODO_STEP100)
+        bond, angle = shake_residuals(fx, torch.as_tensor(r32["x"]),
+                                      torch.as_tensor(r32["box"]))
+        if not (bond < 1e-4 and angle < 1e-4):
+            bad.append(f"rank {rank} SHAKE residuals {bond}, {angle}")
+        for name, r, evals in (("f64", r64, evals64), ("f32", r32, evals32)):
+            if r["counts"]["b5"] != (evals, evals, 0):
+                bad.append(f"rank {rank} rhodo_class {name} B5 "
+                           f"{r['counts']['b5']} (force evaluations "
+                           f"{evals})")
+        if r32["timed"]["counts"]["b5"] != (THERMO_TIMED + 1,) * 2 + (0,):
+            bad.append(f"rank {rank} timed B5 {r32['timed']['counts']['b5']}")
+        for name, r in (("nvt", nvt), ("langevin", lang)):
+            if r["counts"]["b1"] != (evals64, 0):
+                bad.append(f"rank {rank} in.lj {name} B1 {r['counts']['b1']}"
+                           f" (force evaluations {evals64})")
+        st = r32["steady"]
+        if st["calls"]["all_gather"]:
+            bad.append(f"rank {rank}: an all-gather between output steps "
+                       f"{st['calls']}")
+        ranks[rank] = (r64, r32, nvt, lang, bond, angle)
+    if bad:
+        raise AssertionError("decomp_thermostat_path: " + "; ".join(bad))
+    if nprocs == 1:
+        phase("decomp", "1 card: a world of one over NCCL (the decomposed "
+                        "path: the tag-matched bonded styles and SHAKE, "
+                        "B5-rows, the fixes' all-reduces), no axis split; "
+                        "the exchange is held on the CPU by the gloo tests")
+    for rank, (r64, r32, nvt, lang, bond, angle) in enumerate(ranks):
+        t, st = r32["timed"], r32["steady"]
+        sps = t["steps"] / t["seconds"]
+        per = {k: v / THERMO_STEADY for k, v in st["calls"].items()}
+        per_bytes = {k: v / THERMO_STEADY for k, v in st["bytes"].items()}
+        phase("decomp", f"rhodo_class rank {rank} of {nprocs} over NCCL "
+                        f"({smi}; world {wall:.1f} s with its start), "
+                        f"{r32['layout']}: f64 rows at steps "
+                        f"{[r['step'] for r in r64['rows']]} = one card's "
+                        f"to 1e-10; f32 step 0 etotal "
+                        f"{r32['rows'][0]['etotal']!r}, step 100 "
+                        f"{r32['rows'][-1]['etotal']!r} (lz "
+                        f"{r32['rows'][-1]['lz']!r}) pass the gates; SHAKE "
+                        f"residuals at step 100 {bond:.3g} (bonds), "
+                        f"{angle:.3g} (the angle's 1-2); timed "
+                        f"{THERMO_TIMED} steps {sps:.2f} timesteps/s (one "
+                        f"card {one['sps']:.2f} in this call); collectives a "
+                        f"step between output steps {per}, bytes a step "
+                        f"{per_bytes}; exchange {t['exchange_ms'] / t['steps']:.4f} ms a "
+                        f"step; B5-rows {r64['counts']['b5'][1]} + "
+                        f"{r32['counts']['b5'][1]} + {t['counts']['b5'][1]} "
+                        f"launches = force evaluations; in.lj 32k nvt and "
+                        f"langevin (device stream) f64 rows = one card's to "
+                        f"1e-10, B1 {nvt['counts']['b1'][0]} + "
+                        f"{lang['counts']['b1'][0]}")
+    r64, r32, nvt, lang = ranks[0][:4]
+    runs = (r64, r32, r32["timed"], nvt, lang)
+    return {"b5": sum(r["counts"]["b5"][1] for r in runs[:3]),
+            "b1": nvt["counts"]["b1"][0] + lang["counts"]["b1"][0],
+            "build": sum(r["counts"]["build"][0] for r in runs),
+            "gates": sum(r["counts"]["refresh"][0] for r in runs),
+            "refreshes": sum(r["refreshes"] for r in (r64, r32, nvt, lang)),
+            "nprocs": nprocs}
+
+
+def decomp_thermostat_path(smi: str) -> tuple[dict, dict]:
+    """The thermostats and barostats decomposed (ROADMAP item 14d): one
+    card's runs (``thermostat_one_card``), the kernels at the local grids
+    the run lays out (``thermostat_local_kernels``, ``thermostat_lj_b1``),
+    then the decomposed runs (``thermostat_decomposed``).  Returns (the
+    kernels' figures, the launches of the decomposed runs)."""
+    t0 = time.perf_counter()
+    nprocs = min(4, torch.cuda.device_count())
+    one = thermostat_one_card(smi)
+    k = thermostat_local_kernels(one["f32"], nprocs, smi)
+    k["upkeep"] = time_upkeep("decomp_thermostat rhodo_class",
+                              one["f32"].sim, build=False)
+    k["b1"] = thermostat_lj_b1(one.pop("nvt_script"), nprocs, smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        m = thermostat_decomposed(Path(tmpdir), smi, one)
+    del one
+    torch.cuda.empty_cache()
+    phase("decomp", f"decomp_thermostat_path {time.perf_counter() - t0:.1f}"
+                    " s")
+    return k, m
+
+
 def main():
     t_start = time.perf_counter()
     smi = environment()
@@ -8130,6 +8457,8 @@ def main():
                       f"{time.perf_counter() - t_parallel:.1f} s")
     k_dec, m_dec = decomp_path(smi, m_864)
     k_mol, m_mol = decomp_molecular_path(smi)
+    k_th, m_th = decomp_thermostat_path(smi)
+    m_th["upkeep"] = k_th["upkeep"]
     # the list kernels' launches on the main paths: builds at set-up and
     # re-bins, and refresh calls, most of which pass the gate and return
     # (those that rebuild are the refreshes taken); an entry each
@@ -8148,7 +8477,8 @@ def main():
                                 ("deform32k", m_df), ("kappa32k", m_kappa),
                                 ("hyb32k_grid", m_hgrid), *replicas)],
               ("decomp", k_dec["build"], m_dec["build"]),
-              ("decomp_molecular", k_mol["build"], m_mol["build"])]
+              ("decomp_molecular", k_mol["build"], m_mol["build"]),
+              ("decomp_thermostat", k_th["build"], m_th["build"])]
     searched = {"in.lj": "tpumd/ops/pallas_lj.py:25",
                 "analysis32k": "tpumd/ops/pallas_lj.py:25",
                 "chain": "tpumd/ops/pallas_lj.py:146",
@@ -8164,14 +8494,15 @@ def main():
                 "rigid_npt30k": "tpumd/ops/pallas_charmm.py:43",
                 "chute": "tpumd/ops/pallas_gran.py:42",
                 "decomp": "tpumd/ops/pallas_lj.py:25",
-                "decomp_molecular": "tpumd/ops/pallas_charmm.py:43"}
+                "decomp_molecular": "tpumd/ops/pallas_charmm.py:43",
+                "decomp_thermostat": "tpumd/ops/pallas_charmm.py:43"}
     upkeep = [(f"cellgrid_pairlist build {name}", list_src, searched[name],
                k, {"launches": nb}) for name, k, nb in builds]
     calls = list(builds)
     for name, m in (("in.lj", m_lj), ("eam", m_eam_list),
                     ("rhodo_class", m_charmm), ("min32k", m_min),
                     ("deform32k", m_df), ("kappa32k", m_kappa),
-                    ("hyb32k_grid", m_hgrid)):
+                    ("hyb32k_grid", m_hgrid), ("decomp_thermostat", m_th)):
         if "upkeep" not in m:
             continue
         u = m["upkeep"]
@@ -8224,6 +8555,14 @@ def main():
              "tpumd_torch/csrc/charmm_cellgrid.cu",
              "tpumd/ops/pallas_charmm.py:43", k_mol["b5"],
              {"launches": m_mol["b5"]}),
+            ("charmm_cellgrid rows decomp_thermostat",
+             "tpumd_torch/csrc/charmm_cellgrid.cu",
+             "tpumd/ops/pallas_charmm.py:43", k_th["b5"],
+             {"launches": m_th["b5"]}),
+            ("lj_cellgrid decomp_thermostat",
+             "tpumd_torch/csrc/lj_fene_cellgrid.cu",
+             "tpumd/ops/pallas_lj.py:25", k_th["b1"],
+             {"launches": m_th["b1"]}),
             *upkeep,
             ("gran_cellgrid", "tpumd_torch/csrc/gran_cellgrid.cu",
              "tpumd/ops/pallas_gran.py:42", k_gran, m_gran),

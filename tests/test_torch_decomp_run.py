@@ -19,11 +19,12 @@ Loop time and Performance lines excepted).  B1 (or B3 and B4) runs once a
 force evaluation on every rank, as on one card.  Between output steps a
 grid step makes no all-gather and no all-reduce under ``check no``: one
 exchange round a split axis, whose bytes are the rank's halo planes'
-positions.  Under a world size above 1 fix nvt and fix langevin raise,
-naming the command and ROADMAP item 14d (the thermostats and barostats
-across ranks), ``kspace_style ewald`` and ``boundary p p s`` naming 14e
-(the rest); bond styles and pppm run across ranks since item 14b
-(tests/test_torch_decomp_molecular.py).
+positions.  Under a world size above 1 fix rigid, fix rattle,
+``kspace_style ewald`` and ``boundary p p s`` raise, naming the command
+and ROADMAP item 14e (what runs across ranks is not ported yet); bond
+styles and pppm run across ranks since item 14b
+(tests/test_torch_decomp_molecular.py), the thermostats and barostats
+since item 14d (tests/test_torch_decomp_thermostats.py).
 """
 
 import numpy as np
@@ -52,14 +53,14 @@ def _spec(setup, mode="cellgrid", steady=0):
 
 BASE = IN_LJ.format(n=6)
 REFUSALS = {
-    "fix 2 nvt": BASE + "fix 2 all nvt temp 1.0 1.0 0.5\n",
+    "fix 2 rigid": BASE + "fix 2 all rigid single\n",
     "kspace_style ewald": BASE + "kspace_style ewald 1e-4\n",
-    "fix 2 langevin": BASE + "fix 2 all langevin 1.0 1.0 1.0 48279\n",
+    "fix 2 rattle": BASE + "fix 2 all rattle 0.0001 10 0 b 1\n",
     "boundary p p s": "boundary p p s\n" + BASE,
 }
 # the ROADMAP item each refusal names
-REFUSAL_ITEMS = {"fix 2 nvt": "14d", "kspace_style ewald": "14e",
-                 "fix 2 langevin": "14d", "boundary p p s": "14e"}
+REFUSAL_ITEMS = {"fix 2 rigid": "14e", "kspace_style ewald": "14e",
+                 "fix 2 rattle": "14e", "boundary p p s": "14e"}
 
 
 @pytest.fixture(scope="module")

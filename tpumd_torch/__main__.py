@@ -81,7 +81,7 @@ def _main_ranks(args, dtype):
     from tpumd_torch.script.parser import LammpsScript
     if args.partition:
         raise NotImplementedError("-partition across ranks is not ported "
-                                  "(ROADMAP item 14b)")
+                                  "(ROADMAP item 14e)")
     mesh = make_mesh(device=args.device)
     try:
         with contextlib.ExitStack() as stack:

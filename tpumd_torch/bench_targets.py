@@ -2247,3 +2247,128 @@ def ellipsoid_data(path, n: int, seed: int = 2026) -> int:
             fh.write(f"{i + 1} " + " ".join(
                 repr(float(c)) for c in (*v[i], *angmom[i])) + "\n")
     return m
+
+
+# a molecular liquid whose fix shake makes clusters of every kind: water
+# (the angle cluster of `a 1`), methanol (its CH3's 4-atom cluster and its
+# OH's 2-atom one, picked by `m 1.0`) and formaldehyde (its CH2's 3-atom
+# cluster), one molecule to each site of an n^3 lattice of spacing A,
+# turned at random (seed), at the styles of the water goldens; {data} is
+# the file shake_mixture_data writes
+IN_SHAKE_MIXTURE = """units           real
+atom_style      full
+bond_style      harmonic
+angle_style     charmm
+pair_style      lj/charmm/coul/long 6.0 7.0
+pair_modify     mix arithmetic
+kspace_style    pppm 1e-4
+special_bonds   charmm
+read_data       {data}
+pair_coeff      1 1 0.1521 3.1507
+pair_coeff      2 2 0.0460 0.4000
+pair_coeff      3 3 0.0700 3.5500
+pair_coeff      4 4 0.1700 3.0700
+bond_coeff      1 450.0 0.9572
+bond_coeff      2 340.0 1.09
+bond_coeff      3 320.0 1.43
+bond_coeff      4 545.0 0.96
+bond_coeff      5 570.0 1.21
+angle_coeff     1 55.0 104.52 0.0 0.0
+angle_coeff     2 35.5 109.47 0.0 0.0
+angle_coeff     3 45.9 109.47 0.0 0.0
+angle_coeff     4 57.5 108.5 0.0 0.0
+angle_coeff     5 35.5 116.2 0.0 0.0
+angle_coeff     6 50.0 121.9 0.0 0.0
+neighbor        2.0 bin
+neigh_modify    every 5 delay 0 check no
+fix             1 all nve
+fix             2 all shake 0.0001 20 0 m 1.0 a 1
+velocity        all create 300.0 4928 loop geom
+timestep        1.0
+thermo          5
+"""
+
+
+def _mixture_molecules():
+    """(types, charges, local positions, bonds (type, i, j), angles (type,
+    i, j, k)) of water, methanol and formaldehyde at their bond lengths
+    and angles; types 1 water O, 2 H, 3 C, 4 O."""
+    def unit(deg):
+        a = np.radians(deg)
+        return np.array([np.cos(a), np.sin(a), 0.0])
+    water = ([1, 2, 2], [-0.834, 0.417, 0.417],
+             [[0, 0, 0], [0.9572, 0, 0], 0.9572 * unit(104.52)],
+             [(1, 0, 1), (1, 0, 2)], [(1, 1, 0, 2)])
+    tet = np.arccos(-1.0 / 3.0)
+    hc = [1.09 * np.array([np.cos(tet), np.sin(tet) * np.cos(p),
+                           np.sin(tet) * np.sin(p)])
+          for p in np.radians([0.0, 120.0, 240.0])]
+    ho = np.array([1.43, 0, 0]) + 0.96 * unit(-71.5)
+    methanol = ([3, 4, 2, 2, 2, 2], [0.0, -0.70, 0.58, 0.04, 0.04, 0.04],
+                [[0, 0, 0], [1.43, 0, 0], ho, *hc],
+                [(3, 0, 1), (4, 1, 2), (2, 0, 3), (2, 0, 4), (2, 0, 5)],
+                [(4, 0, 1, 2), (3, 3, 0, 1), (3, 4, 0, 1), (3, 5, 0, 1),
+                 (2, 3, 0, 4), (2, 3, 0, 5), (2, 4, 0, 5)])
+    formaldehyde = ([3, 4, 2, 2], [0.5, -0.5, 0.0, 0.0],
+                    [[0, 0, 0], [1.21, 0, 0], 1.10 * unit(121.9),
+                     1.10 * unit(-121.9)],
+                    [(5, 0, 1), (2, 0, 2), (2, 0, 3)],
+                    [(6, 2, 0, 1), (6, 3, 0, 1), (5, 2, 0, 3)])
+    return water, methanol, formaldehyde
+
+
+def shake_mixture_data(path, n: int = 6, spacing: float = 4.5,
+                       seed: int = 2026) -> int:
+    """Write IN_SHAKE_MIXTURE's data file: water, methanol and
+    formaldehyde in turn on the n^3 sites, each turned by a random
+    rotation (redrawn until its atoms stand 2 A from every atom placed
+    before); returns the atom count (936 at n = 6)."""
+    rng = np.random.default_rng(seed)
+    mols = _mixture_molecules()
+    side = n * spacing
+    atoms, bonds, angles = [], [], []
+    placed = np.zeros((0, 3))
+    for m in range(n ** 3):
+        typ, q, xyz, bl, al = mols[m % 3]
+        iz, iy, ix = np.unravel_index(m, (n, n, n))
+        centre = (np.array([ix, iy, iz]) + 0.5) * spacing
+        xyz = np.asarray(xyz, float)
+        xyz = xyz - xyz.mean(axis=0)
+        for _ in range(100):
+            u = rng.normal(size=4)
+            a, b, c, d = u / np.linalg.norm(u)
+            rot = np.array([
+                [a*a + b*b - c*c - d*d, 2*(b*c - a*d), 2*(b*d + a*c)],
+                [2*(b*c + a*d), a*a - b*b + c*c - d*d, 2*(c*d - a*b)],
+                [2*(b*d - a*c), 2*(c*d + a*b), a*a - b*b - c*c + d*d]])
+            pos = centre + xyz @ rot.T
+            gap = pos[:, None] - placed[None]
+            gap -= side * np.round(gap / side)
+            if not len(placed) or np.sqrt((gap * gap).sum(-1)).min() > 2.0:
+                break
+        else:
+            raise RuntimeError(f"no room for molecule {m + 1}")
+        base = len(atoms)
+        atoms += [(m + 1, t, float(qq), *map(float, p % side))
+                  for t, qq, p in zip(typ, q, pos)]
+        bonds += [(t, base + i + 1, base + j + 1) for t, i, j in bl]
+        angles += [(t, base + i + 1, base + j + 1, base + k + 1)
+                   for t, i, j, k in al]
+        placed = np.concatenate([placed, pos])
+    with open(path, "w") as fh:
+        fh.write(f"water, methanol and formaldehyde, seed {seed}\n\n"
+                 f"{len(atoms)} atoms\n{len(bonds)} bonds\n{len(angles)} "
+                 "angles\n\n4 atom types\n5 bond types\n6 angle types\n\n")
+        for ax in "xyz":
+            fh.write(f"0.0 {side!r} {ax}lo {ax}hi\n")
+        fh.write("\nMasses\n\n1 15.9994\n2 1.008\n3 12.011\n4 15.9994\n"
+                 "\nAtoms\n\n")
+        for i, (mol, t, qq, x, y, z) in enumerate(atoms):
+            fh.write(f"{i + 1} {mol} {t} {qq!r} {x!r} {y!r} {z!r}\n")
+        fh.write("\nBonds\n\n")
+        for i, b in enumerate(bonds):
+            fh.write(f"{i + 1} {b[0]} {b[1]} {b[2]}\n")
+        fh.write("\nAngles\n\n")
+        for i, a in enumerate(angles):
+            fh.write(f"{i + 1} {a[0]} {a[1]} {a[2]} {a[3]}\n")
+    return len(atoms)

@@ -11,9 +11,14 @@ Two RNG modes:
   order) and re-indexed by tag, so that each kick reaches the same atom
   whatever the grid's slot order.  Equal to tpumd's "lammps" mode.
 - "device": ``torch.rand`` from an explicit ``torch.Generator`` on the
-  run's device, seeded from the fix's seed.  Not the reference's stream.
+  run's device, seeded from the fix's seed: a (natoms, 3) block a step,
+  row tag - 1 for the atom of that tag.  Not the reference's stream.
 "auto" picks "lammps" on the CPU and "device" on CUDA; host draws at
 ~1e5 per step would bound a step on the card.
+
+Either way a kick reaches its atom by tag, so a run decomposed over ranks
+(each rank drawing the whole block from the same seed and keeping its
+slots' rows, halo copies included) gives the kicks of one card.
 """
 
 from __future__ import annotations
@@ -73,18 +78,17 @@ class FixLangevin(Fix):
                   * math.sqrt(24.0 * u.boltz / (self.damp * ctx.dt
                                                 * u.mvv2e))
                   * math.sqrt(t_target))
-        if self.rng == "lammps":
-            # tag-indexed draws -> this slot's atom (padded slots read row
-            # 0 and are masked below)
-            rand = torch.index_select(
-                xin, 0, torch.clamp(s.tag - 1, min=0)) - 0.5
-        else:
+        if self.rng == "device":
             if self._gen is None or self._gen.device != s.x.device:
                 self._gen = torch.Generator(device=s.x.device)
             self._gen.set_state(fstate)
-            rand = torch.rand(s.x.shape, generator=self._gen,
-                              dtype=s.x.dtype, device=s.x.device) - 0.5
+            xin = torch.rand((ctx.natoms, 3), generator=self._gen,
+                             dtype=s.x.dtype, device=s.x.device)
             fstate = self._gen.get_state()
+        # tag-indexed draws -> this slot's atom (padded slots read row 0
+        # and are masked below)
+        rand = torch.index_select(xin, 0,
+                                  torch.clamp(s.tag - 1, min=0)) - 0.5
         fran = gamma2[:, None] * rand
         fdrag = gamma1[:, None] * s.v
         valid = self.group_sel(s)[:, None]

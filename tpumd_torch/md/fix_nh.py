@@ -21,6 +21,15 @@ fix (``needs_virial``, ``save_virial``) and writes the timestep into the
 fix state for the ramps (``needs_step``).  Every quantity stays on the
 device, so the fix reads nothing back after its set-up.
 
+Across ranks (``StepContext.decomp``, parallel/decomp.py) each rank sums
+the atoms it owns (not a local grid's halo copies), and the sums that a
+call site reads, the kinetic energy and tensor, go over the process group
+in one float64 all-reduce (``Mesh.sum_packed``); the step loop hands the
+fix the virial already summed over the ranks.  The chain's and the
+barostat's scalars are replicated, so every rank computes the same box;
+the remap dilates every local slot, halos included, and the next position
+exchange refreshes the halos from their owners.
+
 Keywords: temp, iso, aniso, x, y, z, xy, xz, yz, tri, tchain, pchain,
 mtk, drag (defaults tchain 3, pchain 3, mtk yes).  tloop, ploop, nreset,
 scalexy/scaleyz/scalexz and fixedpoint are taken only at LAMMPS's default
@@ -36,7 +45,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpumd_torch.md import computes
 from tpumd_torch.md.fixes import Fix
 
 # the six barostat components in the reference's omega order (couple()'s
@@ -74,7 +82,6 @@ class FixNH(Fix):
     # on a group other than all: its dof, dimension (n - 1), which the
     # set-up counts (tpumd/md/simulation.py:459-464)
     group_tdof = None
-    needs_virial = True
     needs_step = True
 
     def __init__(self, t_start=None, t_stop=None, t_period=None,
@@ -95,6 +102,8 @@ class FixNH(Fix):
         self.p_period = six(p_period)
         self.pstat = any(self.p_flags)
         self.box_change = self.pstat
+        # the barostat reads the step's virial; a thermostat alone does not
+        self.needs_virial = self.pstat
         self.tri = any(self.p_flags[3:])
         self.mtchain = int(tchain)
         self.mpchain = int(pchain) if self.pstat else 0
@@ -283,33 +292,52 @@ class FixNH(Fix):
     def _tdof(self, ctx):
         return ctx.tdof if self.group_tdof is None else self.group_tdof
 
-    def _gv(self, s):
-        """The velocities of the fix's group, 0 elsewhere."""
-        return self.in_group(s, s.v, torch.zeros_like(s.v))
+    def _gv(self, s, ctx):
+        """The velocities of the fix's group, 0 elsewhere (and, on a
+        rank's local grid, 0 in the slots it does not own)."""
+        v = self.in_group(s, s.v, torch.zeros_like(s.v))
+        own = None if ctx.decomp is None else ctx.decomp.owned_atoms(s)
+        return v if own is None else torch.where(own[:, None], v, 0.0)
+
+    def _kinetic(self, s, ctx, temp: bool, tensor: bool):
+        """The sums over the group's atoms that a call site reads: where
+        temp, the temperature (compute temp); where tensor, the kinetic
+        tensor mvv2e sum m v_a v_b, its diagonal (3,) and for tri its yz,
+        xz, xy terms (3,); the rest None.  Across ranks one all-reduce
+        adds the ranks' sums."""
+        m = ctx.mass_per_atom(s)
+        v = self._gv(s, ctx)
+        u = ctx.units
+        ke2 = mvv = od = None
+        if temp:
+            ke2 = torch.sum(m[:, None] * v * v)
+        if tensor:
+            mvv = u.mvv2e * torch.sum(m[:, None] * v * v, dim=0)
+            if self.tri:
+                od = u.mvv2e * torch.stack([
+                    torch.sum(m * v[:, 1] * v[:, 2]),
+                    torch.sum(m * v[:, 0] * v[:, 2]),
+                    torch.sum(m * v[:, 0] * v[:, 1])])
+        if ctx.decomp is not None:
+            ke2, mvv, od = ctx.decomp.mesh.sum_packed(ke2, mvv, od)
+        t = None if ke2 is None else ke2 * (
+            u.mvv2e / (self._tdof(ctx) * u.boltz))
+        return t, mvv, od
 
     def _t_current(self, s, ctx):
-        u = ctx.units
-        return computes.temperature(self._gv(s), ctx.mass_per_atom(s),
-                                    self._tdof(ctx), u.boltz, u.mvv2e)
+        return self._kinetic(s, ctx, True, False)[0]
 
-    def _p_current(self, s, ctx, virial):
+    def _p_current(self, s, ctx, virial, mvv, od):
         """Pressure components (compute_pressure::compute_vector) in omega
-        order: (x, y, z[, yz, xz, xy]), each the kinetic tensor's plus the
-        virial's over the volume; iso couples the diagonal to its mean.
-        virial is Voigt (xx yy zz xy xz yz)."""
-        m = ctx.mass_per_atom(s)
-        v = self._gv(s)
-        vol = s.box.volume
-        scale = ctx.units.nktv2p / vol
-        mvv = ctx.units.mvv2e * torch.sum(m[:, None] * v * v, dim=0)
+        order: (x, y, z[, yz, xz, xy]), each the kinetic tensor's (mvv, od
+        of ``_kinetic``) plus the virial's over the volume; iso couples
+        the diagonal to its mean.  virial is Voigt (xx yy zz xy xz yz)."""
+        scale = ctx.units.nktv2p / s.box.volume
         p = (mvv + virial[:3]) * scale
         if self.iso:
             p = (torch.sum(p) / 3.0).expand(3)
         if not self.tri:
             return p
-        od = ctx.units.mvv2e * torch.stack([
-            torch.sum(m * v[:, 1] * v[:, 2]), torch.sum(m * v[:, 0] * v[:, 2]),
-            torch.sum(m * v[:, 0] * v[:, 1])])
         return torch.cat([p, (od + virial[[5, 4, 3]]) * scale])
 
     def _nhc_temp(self, s, fst, ctx, t_current):
@@ -406,9 +434,10 @@ class FixNH(Fix):
         return (torch.sum(torch.where(self._axes(omega_dot), omega_dot[:3],
                                       0.0)) / (self.pdim * ctx.natoms))
 
-    def _omega_dot_update(self, s, fst, ctx, t_current, p_current):
+    def _omega_dot_update(self, s, fst, ctx, t_current, p_current, mvv):
         """nh_omega_dot: the barostat velocities from the pressure, with the
-        MTK term; returns (fix state, mtk_term2)."""
+        MTK term (from the kinetic tensor's diagonal mvv where not iso);
+        returns (fix state, mtk_term2)."""
         u = ctx.units
         dthalf = 0.5 * ctx.dt
         vol = s.box.volume
@@ -419,9 +448,6 @@ class FixNH(Fix):
             if self.iso:
                 mtk_term1 = self._tdof(ctx) * u.boltz * t_current
             else:
-                m = ctx.mass_per_atom(s)
-                v = self._gv(s)
-                mvv = u.mvv2e * torch.sum(m[:, None] * v * v, dim=0)
                 mtk_term1 = torch.sum(torch.where(self._axes(s.x), mvv, 0.0))
             mtk_term1 = mtk_term1 / (self.pdim * ctx.natoms)
         p_hydro = self._p_hydro(fst)
@@ -526,9 +552,10 @@ class FixNH(Fix):
                 fst.t_target, self._temp_target(fst)))
             s, fst, t_current = self._nhc_temp(s, fst, ctx, t_current)
         if self.pstat:
-            p_current = self._p_current(s, ctx, fst.virial)
+            _, mvv, od = self._kinetic(s, ctx, False, True)
+            p_current = self._p_current(s, ctx, fst.virial, mvv, od)
             fst, mtk_term2 = self._omega_dot_update(s, fst, ctx, t_current,
-                                                    p_current)
+                                                    p_current, mvv)
             s = self._v_press(s, fst, ctx, mtk_term2)
         s = s.replace(v=self.in_group(s, torch.addcmul(
             s.v, (dtf / ctx.mass_per_atom(s))[:, None], s.f), s.v))
@@ -546,11 +573,11 @@ class FixNH(Fix):
         if self.pstat:
             s = self._v_press(s, fst, ctx,
                               self._mtk_term2(fst.omega_dot, ctx))
-        t_current = self._t_current(s, ctx)
+        t_current, mvv, od = self._kinetic(s, ctx, True, self.pstat)
         if self.pstat:
-            p_current = self._p_current(s, ctx, fst.virial)
+            p_current = self._p_current(s, ctx, fst.virial, mvv, od)
             fst, _ = self._omega_dot_update(s, fst, ctx, t_current,
-                                            p_current)
+                                            p_current, mvv)
         if self.tstat:
             s, fst, _ = self._nhc_temp(s, fst, ctx, t_current)
         return s, self._nhc_press(fst, ctx)

@@ -346,8 +346,10 @@ class FixShake(Fix):
             imk = [torch.where(sel, IM[:, k], 1.0) for k in range(nat)]
             dd = [torch.where(sel, dist[:, c], 1.0) for c in cols]
             lamrs, deltas = solvers[code](xk, xsk, imk, dtfsq, dd, dvec)
-            own = torch.gather(torch.stack(deltas), 0, role.long().view(
-                1, -1, 1).expand(1, -1, 3))[0]
+            # a slot of another kind may hold a role past this kind's
+            # members: it reads delta 0 and is masked below
+            own = torch.gather(torch.stack(deltas), 0, torch.where(
+                sel, role.long(), 0).view(1, -1, 1).expand(1, -1, 3))[0]
             fdelta = fdelta + torch.where(sel3, own, 0.0)
             lam = torch.stack([torch.where(sel, p[0], 0.0) / nat
                                for p in lamrs], dim=1)

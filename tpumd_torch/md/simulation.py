@@ -54,7 +54,8 @@ from tpumd_torch.md.fixes import FixBondBreak
 from tpumd_torch.io.read_data import build_special
 from tpumd_torch.md.verlet import ENERGY_KEYS, StepContext, build_matrix, \
     eval_energies, grid_pairlist, pack_thermo, partner_tags, rebuild_now, \
-    remap_history_by_tag, respa_forces, run_segment, step_post, step_pre
+    remap_history_by_tag, respa_forces, run_segment, step_post, step_pre, \
+    whole_virial
 from tpumd_torch.ops import cellgrid as cg
 from tpumd_torch.ops import neighbor as nb
 from tpumd_torch.ops.cellgrid_gran import KH
@@ -362,10 +363,17 @@ class Simulation:
                     raise NotImplementedError(
                         "a box narrower than 2*cutneigh (the matrix "
                         f"engine's image copies) across {self.mesh.size} "
-                        "ranks is not ported (ROADMAP item 14b)")
+                        "ranks is not ported (ROADMAP item 14e)")
                 decomp = RowDecomp(self.mesh, self.natoms)
             else:
-                decomp = GridDecomp(self.mesh, cfg)
+                try:
+                    decomp = GridDecomp(self.mesh, cfg)
+                except ValueError as e:
+                    raise RuntimeError(
+                        f"the cell grid at step {self.step} (box lengths "
+                        f"{self.state.box.lengths_np()}, cell margin "
+                        f"{margin:.4g}) has {cfg.nz} z planes and {cfg.ny}"
+                        f" y rows: {e}") from None
         pairlist_k, exclude, refresh = 0, (), False
         # every style on the grid sweeps a list (FENE bonds riding lj/cut's
         # kernel are coded in it); a schedule that leaves steps unchecked
@@ -992,8 +1000,11 @@ class Simulation:
                     "not ported")
             s, fstates = respa_forces(s, neigh, ctx, fstates)
             fstates = list(fstates)
-        fstates = [fx.save_virial(fs, virial) if fx.needs_virial else fs
-                   for fx, fs in zip(self.fixes, fstates)]
+        if ctx.need_virial:
+            # the fixes read the whole system's; thermo sums its own
+            whole = whole_virial(virial, ctx)
+            fstates = [fx.save_virial(fs, whole) if fx.needs_virial else fs
+                       for fx, fs in zip(self.fixes, fstates)]
         # a rigid barostat's set-up reads the state with the saved virial
         # (FixRigidNH::setup's tail)
         fstates = [fx.setup_with_state_virial(s, fs, ctx)
@@ -1161,25 +1172,27 @@ class Simulation:
 
     def _check_decomposable(self):
         """Raise on what a run across ranks does not take yet, naming the
-        ROADMAP item that ports it: 14d, the thermostats and barostats
-        (every fix but nve and shake); 14e, the rest (hybrid and FENE
-        bonds on the grid, fix rattle and the rigid fixes, kspace styles
-        but pppm, computes, granular and the grid's pair styles past B1,
-        B3/B4 and B5, the matrix engine's past the plain pairwise sweep,
+        ROADMAP item that ports it, 14e: every fix but nve, shake, nvt,
+        npt, nph and langevin (fix rattle and the rigid fixes among them),
+        hybrid and FENE bonds on the grid, kspace styles but pppm,
+        computes, granular and the grid's pair styles past B1, B3/B4 and
+        B5, the matrix engine's past the plain pairwise sweep,
         shrink-wrapped faces, triclinic boxes, neigh_modify exclude,
-        respa, dumps but atom and custom).  The molecular stack runs:
+        respa, dumps but atom and custom.  The molecular stack runs:
         bonded styles, special bonds, fix shake, pppm and
         lj/charmm/coul/long on the grid, charged pairwise styles on the
-        matrix engine."""
+        matrix engine, under the thermostats and barostats."""
+        from tpumd_torch.md.fix_langevin import FixLangevin
+        from tpumd_torch.md.fix_nh import FixNH
         from tpumd_torch.md.fix_shake import FixShake
         from tpumd_torch.md.fixes import FixNVE
         from tpumd_torch.models.base import PairStyle
         from tpumd_torch.models.kspace_pppm import PPPM
 
-        def refuse(what, item="14e"):
+        def refuse(what):
             raise NotImplementedError(
                 f"{what} across {self.mesh.size} ranks is not ported "
-                f"(ROADMAP item {item}): run it on one card")
+                "(ROADMAP item 14e): run it on one card")
         name = getattr(self.pair, "name", None)
         for kind, style in self.bonded.items():
             if style.name == "hybrid" or style.breakable:
@@ -1187,14 +1200,10 @@ class Simulation:
             if style.kernel_bond and self._mode == "cellgrid":
                 refuse(f"{kind}_style {style.name} on the cell grid")
         for fx in self.fixes:
-            if type(fx) in (FixShake, FixNVE):
+            if type(fx) in (FixShake, FixNVE, FixNH, FixLangevin):
                 continue
-            fname = getattr(fx, "name", type(fx).__name__)
-            if fname == "nh":
-                fname = ("npt" if fx.tstat else "nph") if fx.pstat else "nvt"
-            refuse(f"fix {getattr(fx, 'id', '')} {fname}",
-                   "14d" if fname in ("nvt", "npt", "nph", "langevin")
-                   else "14e")
+            refuse(f"fix {getattr(fx, 'id', '')} "
+                   f"{getattr(fx, 'name', type(fx).__name__)}")
         if self.kspace is not None and type(self.kspace) is not PPPM:
             refuse(f"kspace_style {self.kspace.style}")
         for cid, c in self.computes.items():
@@ -1573,9 +1582,12 @@ class Simulation:
         shorter than cutneigh, so the grid is rebuilt, under a barostat
         with a 10 % wider margin.  On the matrix engine, the config is
         rebuilt also when the box needs other periodic images.  Returns
-        the (possibly new) context."""
+        the (possibly new) context.  Across ranks the box is every rank's
+        alike and the decision agreed; the re-bin rebuilds each rank's
+        local grid, halos and layout from the new config."""
         if not self._ctx.is_cellgrid:
-            if not nb.needs_new_config(self._carry[0].box, self._neigh_cfg):
+            if not self._agreed(nb.needs_new_config(self._carry[0].box,
+                                                    self._neigh_cfg)):
                 return self._ctx
             if self._barostat_active():
                 self._baro_margin *= 1.10
@@ -1587,7 +1599,8 @@ class Simulation:
                 f"box shrank below 2*cutneigh at step {self.step}: "
                 f"lengths {ell}, cutneigh {cutneigh:.4f}")
         cfg = self._neigh_cfg
-        if (ell / np.array([cfg.nx, cfg.ny, cfg.nz]) < cutneigh).any():
+        if self._agreed((ell / np.array([cfg.nx, cfg.ny, cfg.nz])
+                         < cutneigh).any()):
             if self._barostat_active():
                 self._baro_margin *= 1.10
             return self._rebin(self._carry)

@@ -588,6 +588,8 @@ def step_post(s: MDState, neigh, fstates, ctx: StepContext, xs, virial):
         s, fstates[i] = fx.post_force(s, fstates[i], ctx, xs[i])
         if need_virial and fx.contributes_virial:
             virial = virial + fx.virial_contrib(fstates[i])
+    if need_virial:
+        virial = whole_virial(virial, ctx)
     for i, fx in enumerate(ctx.fixes):
         if fx.needs_virial:
             fstates[i] = fx.save_virial(fstates[i], virial)
@@ -595,6 +597,16 @@ def step_post(s: MDState, neigh, fstates, ctx: StepContext, xs, virial):
     for i, fx in enumerate(ctx.fixes):
         s, fstates[i] = fx.end_of_step(s, fstates[i], ctx)
     return s, neigh, tuple(fstates)
+
+
+def whole_virial(virial, ctx: StepContext):
+    """The step's virial of the whole system: across ranks each rank's
+    share (its owned rows' pair sums, the tuples and SHAKE clusters of
+    its owned atoms, kspace's on rank 0) summed by one float64
+    all-reduce; on one card as it is."""
+    if ctx.decomp is None:
+        return virial
+    return ctx.decomp.mesh.sum_packed(virial)[0]
 
 
 def step(s: MDState, neigh, fstates, ctx: StepContext,

@@ -242,6 +242,11 @@ class GridDecomp:
     def owned(self, valid):
         return valid & self.owned_slot
 
+    def owned_atoms(self, s: MDState):
+        """(Np,) the local slots whose atoms this rank owns: a fix's sums
+        over atoms count these, not the halo copies."""
+        return self.owned(s.tag > 0)
+
     def shard(self, s: MDState, valid):
         """(local state, valid, owned) of the global grid-ordered state s
         (``assemble_slots``)."""
@@ -414,6 +419,10 @@ class RowDecomp:
     def rows_of_tag(self):
         """(natoms,) the row of each tag - 1 over every rank's rows."""
         return cg.row2slot_from_tags(self.tag_all, self.natoms)
+
+    def owned_atoms(self, s: MDState):
+        """None: the rank owns every row it holds."""
+        return None
 
     def once(self, value):
         """value on rank 0, zeros elsewhere: a sum that every rank computes

@@ -115,9 +115,15 @@ def run_deck(mesh, spec: dict) -> dict:
     output steps, with no re-bin where the schedule holds none) and
     "refusal" (the deck is expected to raise NotImplementedError: its
     message is returned).  Returns the thermo rows, the log, x and v in
-    tag order, the launch counts of B1, B3/B4, the list build and
-    refresh and P1 (those of the timed window apart), and the
-    collectives' counts; "bonded_grid" sets the attribute on one card.
+    tag order, the box lengths, the launch counts of B1, B3/B4, the list
+    build and refresh and P1 (those of the timed window apart), the
+    grid set-ups and the list refreshes taken, and the collectives'
+    counts; "bonded_grid" sets the attribute on one card, and
+    "attrs" ({name: value}) sets attributes of the Simulation before the
+    runs (the barostat's first cell margin, say), "fix_attrs" ({fix ID:
+    {name: value}}) those of the deck's fixes (fix langevin's rng).  A
+    "refusal" is a NotImplementedError, or the RuntimeError of a run that
+    cannot go on (a grid the ranks cannot be laid out on).
     B5's counts ("b5") are (its launches, of which B5-rows, plain
     calls)."""
     from tpumd_torch.md.verlet import run_segment
@@ -150,9 +156,15 @@ def run_deck(mesh, spec: dict) -> dict:
         sim.neighbor_mode = spec.get("mode", "auto")
         if "bonded_grid" in spec:
             sim.bonded_grid = spec["bonded_grid"]
+        for name, value in spec.get("attrs", {}).items():
+            setattr(sim, name, value)
+        for fx in sim.fixes:
+            for name, value in spec.get("fix_attrs", {}).get(
+                    getattr(fx, "id", None), {}).items():
+                setattr(fx, name, value)
         for piece in spec.get("runs", ()):
             script.run_string(piece)
-    except NotImplementedError as e:
+    except (NotImplementedError, RuntimeError) as e:
         if "refusal" not in spec:
             raise
         return {"refused": str(e)}
@@ -164,7 +176,9 @@ def run_deck(mesh, spec: dict) -> dict:
            "v": v, "natoms": sim.natoms,
            "counts": {k: launches(c) for k, c in counters.items()},
            "collectives": mesh.counters.snapshot(),
-           "nbuilds": sim._carry[1].nbuilds}
+           "nbuilds": sim._carry[1].nbuilds, "grid_setups": sim.grid_setups,
+           "refreshes": sim.list_refreshes,
+           "box": sim.state.box.lengths_np()}
     ctx = sim._ctx
     if ctx.decomp is not None and ctx.decomp.kind == "grid":
         lay = ctx.decomp.layout
@@ -188,7 +202,9 @@ def run_deck(mesh, spec: dict) -> dict:
                         "row": dict(sim.last_thermo)}
     if spec.get("steady"):
         mesh.counters.reset()
-        run_segment(*sim._carry, ctx, spec["steady"], step0=sim.step)
+        xs = [fx.segment_inputs(spec["steady"], ctx, sim._carry[0])
+              for fx in ctx.fixes]
+        run_segment(*sim._carry, ctx, spec["steady"], xs, step0=sim.step)
         out["steady"] = mesh.counters.snapshot()
     out["itemsize"] = torch.empty((), dtype=dtype).element_size()
     return out

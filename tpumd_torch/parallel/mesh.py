@@ -90,6 +90,25 @@ class Mesh:
                                  "max": dist.ReduceOp.MAX}[op])
         return out
 
+    def sum_packed(self, *vals):
+        """vals (tensors, or None) each summed over the ranks by one
+        float64 all-reduce of them packed, each back in its dtype and
+        shape: the sums over atoms that a fix's call site reads, of which
+        every rank holds its own atoms' share."""
+        live = [v for v in vals if v is not None]
+        if not self.distributed or not live:
+            return vals
+        flat = self.all_reduce(torch.cat(
+            [v.reshape(-1).to(torch.float64) for v in live]))
+        out, k = [], 0
+        for v in vals:
+            if v is None:
+                out.append(None)
+                continue
+            out.append(flat[k:k + v.numel()].reshape(v.shape).to(v.dtype))
+            k += v.numel()
+        return tuple(out)
+
     def agree_max(self, value) -> int:
         """The largest of an int or a () tensor over the ranks, on the
         host: a decision every rank takes alike."""

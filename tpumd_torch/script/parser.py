@@ -258,7 +258,7 @@ class LammpsScript:
                 and self.mesh.distributed:
             raise NotImplementedError(
                 f"command {cmd} across {self.mesh.size} ranks is not ported "
-                "(ROADMAP item 14b): run it on one card")
+                "(ROADMAP item 14e): run it on one card")
         if cmd in self._WRITERS and not self._writer:
             return
         try:
